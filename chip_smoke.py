@@ -21,9 +21,15 @@ script exits 2 before printing any result.
    FLUX.1-dev's 1024x1024 geometry (4096 latent tokens of width 64, a
    512-token condition of width 4096) under ``flow_sde``, 4 steps.  The
    kernels' launch counts must match the path: ``sde_step`` 4 per batch and
-   ``flash_attention`` 38 x 4 per batch.  One request is then replayed
-   alone through the plain versions and compared.
-6. A ``kernels`` JSON line, the card's name and power limit, and the last
+   ``flash_attention`` 38 x 4 per batch.
+6. One denoising step of the engine that phase 5 built, traced with
+   ``torch.profiler``: device time by kernel group and the device's idle
+   share over the step.
+7. adaLN-zero leaves every fresh block the identity, so phase 5's latents
+   never depend on attention or the MLP.  The modulation is drawn from a
+   seed, the same 4 requests are served again through the engine and the
+   kernels, and held against ``rollout_keyed`` through the plain versions.
+8. A ``kernels`` JSON line, the card's name and power limit, and the last
    line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -42,7 +48,8 @@ import torch  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.config import FlowRLConfig, replace  # noqa: E402
-from repro_torch.core.rollout import request_seeds, rollout_keyed  # noqa: E402
+from repro_torch.core.rollout import (  # noqa: E402
+    request_draws, request_seeds, rollout_keyed)
 from repro_torch.data import synthetic_prompts  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
@@ -63,6 +70,10 @@ COND_LEN, COND_DIM = 512, 4096
 SEQ, HEADS, HEAD_DIM = COND_LEN + LAT_TOKENS, 24, 128
 NUM_STEPS, N_LAYERS = 4, 38
 BF16_BAND = 3e-2        # max |kernel - plain| / max |plain| through bf16 blocks
+# bf16 attention at S=4608: outputs are ~sqrt(e/S) ~ 0.024 in std, so the
+# short cases' absolute 2e-2 would pass a wrong kernel; the limit scales
+# with max |plain| (0.19 there: 3.8e-3, four bf16 ulps at the top)
+PATH_ATTN_BAND = 2e-2
 
 
 def log(msg: str) -> None:
@@ -223,13 +234,19 @@ def check_attention(dev) -> dict:
         r = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         err = float((o.float() - r.float()).abs().max())
-        tol = 2e-5 if dt == torch.float32 else 2e-2
         log(f"  flash_attention B={B} Sq={Sq} Sk={Sk} H={H} K={K} D={D} "
             f"causal={causal} window={window} {dt}: max|err| {err:.3e}")
-        if not torch.allclose(o.float(), r.float(), atol=tol, rtol=tol):
-            fail(f"flash_attention off at {(B, Sq, Sk, H, K, D)}")
         if Sq == SEQ:
+            limit = PATH_ATTN_BAND * float(r.float().abs().max())
+            log(f"    path shape: limit {limit:.3e} "
+                f"({PATH_ATTN_BAND} of max|plain|)")
+            ok = err <= limit
             path_err = err
+        else:
+            tol = 2e-5 if dt == torch.float32 else 2e-2
+            ok = torch.allclose(o.float(), r.float(), atol=tol, rtol=tol)
+        if not ok:
+            fail(f"flash_attention off at {(B, Sq, Sk, H, K, D)}")
         del q, k, v, o, r
     # bf16 rows that are no multiple of 16 bytes apart take the f32-FMA
     # kernel instead of the tensor-core one
@@ -273,6 +290,17 @@ def check_attention(dev) -> dict:
             "library_ms": library_ms}
 
 
+def draw_modulation(p: dict, d_model: int, seed: int) -> None:
+    """adaLN-zero starts every block as the identity; draw the modulation
+    (one layer at a time, in place) so that attention and MLP really shape
+    the output."""
+    ada = p["backbone"]["blocks"]["ada"]
+    gen = torch.Generator(device=ada.device).manual_seed(seed)
+    for layer in ada:
+        layer.copy_(torch.randn(layer.shape, generator=gen,
+                                device=ada.device) * (0.5 / d_model ** 0.5))
+
+
 # ------------------------------------------------------------------ phase 4
 def check_velocity(dev) -> None:
     cfg = replace(configs.get("flux_dit"), n_layers=2)
@@ -280,11 +308,7 @@ def check_velocity(dev) -> None:
                                             latent_dim=LAT_DIM), COND_DIM)
     gen = torch.Generator(device=dev).manual_seed(0)
     p = params_lib.init(adapter.spec(), gen, torch.bfloat16, dev)
-    # adaLN-zero starts every block as the identity; draw the modulation so
-    # that attention and MLP really shape the output
-    ada = p["backbone"]["blocks"]["ada"]
-    ada.copy_(torch.randn(ada.shape, generator=gen, device=dev)
-              * (0.5 / cfg.d_model ** 0.5))
+    draw_modulation(p, cfg.d_model, seed=1)
     x = torch.randn(1, LAT_TOKENS, LAT_DIM, generator=gen, device=dev)
     cond = torch.randn(1, COND_LEN, COND_DIM, generator=gen, device=dev)
     t = torch.tensor([0.7], device=dev)
@@ -336,22 +360,9 @@ def main_path() -> dict:
     if launches["flash_attention"] != N_LAYERS * NUM_STEPS * batches:
         fail(f"flash_attention launched {launches['flash_attention']} "
              f"times, expected {N_LAYERS * NUM_STEPS * batches}")
-    # request 0 alone, through the plain versions
-    eng = out["engine"]
-    prompt0 = synthetic_prompts(B_SERVE)[0]
-    cond0 = torch.from_numpy(eng.encode([prompt0])).to(eng.device)
-    seed0 = request_seeds(0, B_SERVE)[0]     # serve() under RunConfig.seed 0
-    with torch.no_grad(), plain_dispatch():
-        ref0 = rollout_keyed(eng.adapter, eng.params, cond0, [seed0],
-                             eng.scheduler, NUM_STEPS).x0[0].cpu()
-    err = float((lat[0] - ref0).abs().max())
-    scale = float(ref0.abs().max())
-    log(f"  request 0 served in a batch of {B_SERVE} vs alone through the "
-        f"plain versions: max|diff| {err:.3e} of max|x| {scale:.3e}")
-    if err > BF16_BAND * scale:
-        fail("served latent disagrees with the plain replay")
     serve_s = out["serve_s"]
-    res = {"launches": launches, "batches": batches,
+    res = {"engine": out["engine"], "latents": lat,
+           "launches": launches, "batches": batches,
            "req_per_s": B_SERVE / serve_s,
            "s_per_step": serve_s / (serve_batches * NUM_STEPS),
            "serve_s": serve_s, "warmup_s": out["warmup_s"],
@@ -359,8 +370,106 @@ def main_path() -> dict:
     log(f"  main path: {res['req_per_s']:.4f} req/s, {res['s_per_step']:.4f}"
         f" s per denoising step (batch {B_SERVE}), max_memory_allocated "
         f"{peak / 2**30:.2f} GiB")
-    del out, eng
     return res
+
+
+# ------------------------------------------------------------------ phase 6
+PROFILE_GROUPS = (("flash_attention kernel", ("attn_fwd",)),
+                  ("sde_step kernel", ("sde_step_chunks", "sde_logp_rows")),
+                  ("matmul (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass",
+                                       "sm90_")))
+
+
+def _profile_group(name: str) -> str:
+    low = name.lower()
+    for group, keys in PROFILE_GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other (elementwise, norms, copies)"
+
+
+def profile_step(eng) -> dict:
+    """Trace one denoising step of the serving engine (the body of
+    ``rollout_keyed``: velocity, then ``step_with_eps``) at batch 4."""
+    prompts = synthetic_prompts(B_SERVE)
+    cond = torch.from_numpy(eng.encode(prompts)).to(eng.device)
+    draws = [request_draws(eng.adapter, s, NUM_STEPS, eng.device)
+             for s in request_seeds(0, B_SERVE)]
+    x = torch.stack([d[0] for d in draws])
+    eps = torch.stack([d[1][0] for d in draws])
+    ts = eng.scheduler.timesteps(NUM_STEPS)
+    t, t_next = float(ts[0]), float(ts[1])
+    tb = torch.full((B_SERVE,), t, device=eng.device)
+
+    def step():
+        v = eng.adapter.velocity(eng.params, x, tb, cond).float()
+        return eng.scheduler.step_with_eps(v, x, t, t_next, eps)
+
+    with torch.no_grad():
+        step()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = {}          # kernel name -> [device ms, launches]
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            row = rows.setdefault(e.name, [0.0, 0])
+            row[0] += e.time_range.elapsed_us() / 1e3
+            row[1] += 1
+    busy = sum(ms for ms, _ in rows.values())
+    if busy == 0:
+        fail("the profile of one step holds no device time")
+    groups = {}
+    for name, (ms, n) in rows.items():
+        g = groups.setdefault(_profile_group(name), [0.0, 0])
+        g[0] += ms
+        g[1] += n
+    log(f"  one step, batch {B_SERVE}, {SEQ} tokens: traced wall "
+        f"{wall_ms:.3f} ms, device busy {busy:.3f} ms, idle share "
+        f"{max(0.0, 1 - busy / wall_ms):.4f}")
+    for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"    {g:36s} {ms:10.3f} ms  {100 * ms / busy:6.2f} %  "
+            f"{n} launches")
+    log("  top kernels by device time:")
+    for name, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"    {ms:10.3f} ms  {n:5d}x  {name[:100]}")
+    return {"traced_wall_ms": wall_ms, "device_busy_ms": busy,
+            "groups_ms": {g: v[0] for g, v in groups.items()}}
+
+
+# ------------------------------------------------------------------ phase 7
+def check_modulated(eng, lat_zero: torch.Tensor) -> dict:
+    """Serve the main path's requests again with the modulation drawn,
+    through the engine and the kernels, and replay them through
+    ``rollout_keyed`` on the plain versions."""
+    draw_modulation(eng.params, eng.adapter.cfg.d_model, seed=2)
+    prompts = synthetic_prompts(B_SERVE)
+    lat = eng.serve(prompts, 0)          # the seed serve.main used
+    cond = torch.from_numpy(eng.encode(prompts)).to(eng.device)
+    with torch.no_grad(), plain_dispatch():
+        ref_lat = rollout_keyed(eng.adapter, eng.params, cond,
+                                request_seeds(0, B_SERVE), eng.scheduler,
+                                NUM_STEPS).x0.cpu()
+    err = float((lat - ref_lat).abs().max())
+    scale = float(ref_lat.abs().max())
+    moved = float((lat - lat_zero).abs().max())
+    log(f"  {B_SERVE} requests served through the kernels vs rollout_keyed "
+        f"through the plain versions: max|diff| {err:.3e} of max|x| "
+        f"{scale:.3e}; the drawn modulation moved the latents by "
+        f"{moved:.3e}")
+    if not torch.isfinite(lat).all():
+        fail("latents served with the drawn modulation are not finite")
+    if err > BF16_BAND * scale:
+        fail("served latents disagree with the plain replay")
+    if moved <= 10 * err:
+        fail("the drawn modulation hardly moved the latents; the replay "
+             "check cannot see the blocks")
+    return {"max_abs_err": err, "max_abs": scale, "moved": moved}
 
 
 def main() -> int:
@@ -395,6 +504,14 @@ def main() -> int:
 
     log("[5] main path: repro_torch.launch.serve, full flux_dit")
     res = main_path()
+    eng, lat_zero = res.pop("engine"), res.pop("latents")
+
+    log("[6] profile of one denoising step of the engine")
+    res["profile"] = profile_step(eng)
+
+    log("[7] drawn modulation: served through the kernels vs plain replay")
+    res["modulated"] = check_modulated(eng, lat_zero)
+    del eng
     for row in rows:
         row["launches"] = res["launches"][row["name"]]
     keys = ("name", "route", "source", "replaces", "launches",
