@@ -1,11 +1,13 @@
 """Typed configuration of the port: the subset of ``repro.config`` that
-serving reads.
+serving and ``flow_grpo`` training read.
 
-``ArchConfig`` (backbone geometry), ``FlowRLConfig`` (SDE dynamics, step
-count, latent geometry), ``DataConfig`` (the frozen encoder), ``DistConfig``
-(layout; only the single-device layout is ported) and ``RunConfig`` load
-from dicts/JSON through the same strict typed :func:`from_dict` as the
-reference.  Training fields come with the training slice.
+``ArchConfig`` (backbone geometry), ``FlowRLConfig`` (trainer, SDE dynamics,
+rewards, preprocessing, latent geometry), ``OptimConfig``, ``DataConfig``
+(prompt dataset and frozen encoder), ``DistConfig`` and ``PerfConfig``
+(layouts and performance policies; only the defaults are ported),
+``LoopConfig`` and ``RunConfig`` load from dicts/JSON through the same
+strict typed :func:`from_dict` as the reference, with the reference's
+defaults (``src/repro/config.py``).
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import dataclasses
 import json
 import typing
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio", "dit")
 
@@ -45,29 +47,113 @@ class ArchConfig:
 
 
 @dataclass(frozen=True)
+class RewardSpec:
+    """One entry of the multi-reward configuration (paper §2.3)."""
+    reward_type: str                  # registry name
+    weight: float = 1.0
+    # identifies the underlying frozen model; entries sharing model_id are
+    # deduplicated by MultiRewardLoader
+    model_id: str = ""
+    args: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass(frozen=True)
 class FlowRLConfig:
-    """The sampling part of the paper's configuration."""
+    """The paper's training configuration (the fields of the reference's
+    ``FlowRLConfig`` that the ported trainer reads)."""
+    trainer_type: str = "flow_grpo"      # only flow_grpo is ported
     sde_type: str = "flow_sde"           # flow_sde | dance_sde | cps | ode
     eta: float = 0.7                     # noise scale of the SDE dynamics
     num_steps: int = 10                  # denoising steps per trajectory
+    group_size: int = 8                  # G samples per prompt (GRPO grouping)
+    clip_range: float = 1e-4             # PPO clip range (Flow-GRPO)
+    kl_coef: float = 0.0
+    advantage_agg: str = "weighted_sum"  # weighted_sum | gdpo
+    rewards: Tuple[RewardSpec, ...] = ()
+    # preprocessing-based memory optimization (paper §2.2)
+    preprocessing: bool = True
+    cache_dir: str = "cache"
     latent_tokens: int = 64
     latent_dim: int = 16
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    lr: float = 1e-4
+    betas: Tuple[float, float] = (0.9, 0.95)
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    warmup_steps: int = 10
+    total_steps: int = 1000
+    grad_clip: float = 1.0
+    schedule: str = "warmup_cosine"      # warmup_cosine | constant
+    optimizer: str = "adamw"             # registry name ("optimizer" kind)
 
 
 @dataclass(frozen=True)
 class DistConfig:
     """Device layout.  Only ``data_parallel = model_parallel = 1`` (one
     device) is ported; anything else raises ``NotImplementedError`` where an
-    engine is built."""
+    engine or a trainer is built (ROADMAP Queue 1 item 15)."""
     data_parallel: int = 1
     model_parallel: int = 1
 
 
 @dataclass(frozen=True)
+class PerfConfig:
+    """Train-step performance policy (the reference's ``repro.perf``
+    switches).  Only the defaults are ported: any other value raises
+    ``NotImplementedError`` naming ROADMAP Queue 1 item 14."""
+    remat: str = "none"            # none | scan | block
+    fuse_step: bool = False
+    policy_dtype: str = ""         # "" | "bfloat16" | "float32"
+    log_memory: bool = False
+    offload_rewards: bool = False
+    remat_offload: bool = False
+
+
+def check_ported_layout(dist: "DistConfig", perf: "PerfConfig") -> None:
+    """Raise ``NotImplementedError`` for a layout or perf policy the port
+    does not have yet."""
+    if dist.data_parallel != 1 or dist.model_parallel != 1:
+        raise NotImplementedError(
+            f"dist={dist}: only the single-device layout is ported "
+            "(ROADMAP.md Queue 1 item 15, distributed/)")
+    if perf != PerfConfig():
+        raise NotImplementedError(
+            f"perf={perf}: only the default performance policy is ported "
+            "(ROADMAP.md Queue 1 item 14, perf/)")
+
+
+@dataclass(frozen=True)
 class DataConfig:
+    """Prompt-dataset + frozen-encoder selection for an Experiment."""
+    dataset: str = "synthetic"           # registry name ("dataset" kind)
+    n_prompts: int = 64
+    batch_prompts: int = 4
+    # extra kwargs forwarded to the registered dataset factory
+    args: Dict[str, Any] = field(default_factory=dict)
     # kwargs of the frozen condition encoder (cond_dim/cond_len/vocab/...);
     # empty -> FrozenTextEncoder defaults (the paper-scale ~67M tower)
     encoder: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass(frozen=True)
+class LoopConfig:
+    """TrainLoop behaviour: length, logging, checkpointing, early stop.
+    ``pipeline`` must be 1 (the sequential loop); deeper pipelines are not
+    ported (ROADMAP.md Queue 1 item 14)."""
+    steps: int = 100
+    pipeline: int = 1                    # max dispatched-not-drained steps
+    log_every: int = 10                  # 0 -> silent
+    save_every: int = 50                 # 0 -> no periodic checkpoints
+    ckpt_dir: str = "checkpoints"
+    log_file: str = ""                   # non-empty -> JSON metric sink
+    log_flush_every: int = 1
+    resume: bool = True                  # auto-resume from latest checkpoint
+    early_stop_patience: int = 0         # 0 -> disabled
+    early_stop_metric: str = "reward"    # any TrainLoop history-row key
+    early_stop_min_delta: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -77,9 +163,12 @@ class RunConfig:
     reduced: bool = False
     # declarative field overrides applied onto the resolved ArchConfig
     arch_overrides: Dict[str, Any] = field(default_factory=dict)
+    optim: OptimConfig = field(default_factory=OptimConfig)
     flow: FlowRLConfig = field(default_factory=FlowRLConfig)
     dist: DistConfig = field(default_factory=DistConfig)
+    perf: PerfConfig = field(default_factory=PerfConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    loop: LoopConfig = field(default_factory=LoopConfig)
     param_dtype: str = "bfloat16"        # bfloat16 | float32
     seed: int = 0
 
@@ -208,6 +297,10 @@ def from_dict(cls: type, d: Dict[str, Any], *, _path: str = "") -> Any:
 def load_json(cls: type, path: str) -> Any:
     with open(path) as f:
         return from_dict(cls, json.load(f))
+
+
+def to_dict(cfg: Any) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)
 
 
 def replace(cfg: Any, **kw: Any) -> Any:

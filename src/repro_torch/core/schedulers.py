@@ -95,6 +95,25 @@ class SDESchedulerMixin:
                                        device=x.device))
         return x_next, logp
 
+    def step(self, v: torch.Tensor, x: torch.Tensor, t, t_next,
+             generator: torch.Generator
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One sampling step with noise drawn from ``generator`` (on x's
+        device).  Returns (x_next, logp (batch,))."""
+        eps = torch.randn(x.shape, generator=generator, dtype=F32,
+                          device=x.device)
+        return self.step_with_eps(v, x, t, t_next, eps)
+
+    def logprob(self, v: torch.Tensor, x: torch.Tensor, t, t_next,
+                x_next: torch.Tensor) -> torch.Tensor:
+        """log p(x_next | x; v), differentiable in ``v`` — recomputed under
+        the current params for the GRPO importance ratio."""
+        xf, vf = x.to(F32), v.to(F32)
+        t, t_next = _f32(t, xf), _f32(t_next, xf)
+        mean = self.mean_next(vf, xf, t, t_next)
+        std = torch.clamp_min(self.noise_std(t, t_next), 1e-20)
+        return gaussian_logpdf(x_next, mean, std)
+
     def step_ode(self, v: torch.Tensor, x: torch.Tensor, t: float,
                  t_next: float) -> torch.Tensor:
         """Deterministic flow update (MixGRPO's ODE segments).  The step

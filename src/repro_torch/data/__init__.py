@@ -1,3 +1,4 @@
-from repro_torch.data.prompts import synthetic_prompts
+from repro_torch.data.prompts import (PromptDataset, synthetic_dataset,
+                                     synthetic_prompts)
 
-__all__ = ["synthetic_prompts"]
+__all__ = ["PromptDataset", "synthetic_dataset", "synthetic_prompts"]

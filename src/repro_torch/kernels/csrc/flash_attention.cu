@@ -32,6 +32,12 @@
 // that no row of the block may see (causal, window) are skipped.  A query
 // row that sees no key at all (only possible with Sq > Sk + window) is not
 // defined.
+//
+// Both kernels optionally write each row's log-sum-exp of the scaled, masked
+// scores (f32, (B, H, Sq)), which the backward (flash_attention_bwd.cu)
+// uses to recompute the probabilities; the output does not depend on it.
+// The LSE epilogue is a template variant (kLse), so the serving path's
+// kernel compiles without it.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -42,6 +48,7 @@ constexpr int kBK = 64;
 constexpr int kPitch = 68;   // padded row of a transposed tile (16B aligned)
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -58,10 +65,11 @@ constexpr int smem_floats() {
   return D * kPitch + D * kPitch + kBK * D + kBK * kPitch;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
-         const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int G,
+         const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+         int Sq, int Sk, int G,
          long long qb, long long qs, long long qh, long long kb, long long ks,
          long long kh, long long vb, long long vs, long long vh, long long ob,
          long long os, long long oh, int causal, int window, float scale) {
@@ -187,6 +195,8 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + ty * 4 + i;
     if (r >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (kLse && tx == 0)
+      lse[((long long)b * gridDim.y + h) * Sq + r] = m[i] + logf(den);
 #pragma unroll
     for (int c = 0; c < DC; ++c) op[r * os + tx + 16 * c] = from_f32<T>(acc[i][c] / den);
   }
@@ -234,15 +244,19 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r,
       : "r"(addr));
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-attn_fwd_mma(const __nv_bfloat16* __restrict__ q,
-             const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-             int Sq, int Sk, int G, long long qb, long long qs, long long qh,
-             long long kb, long long ks, long long kh, long long vb,
-             long long vs, long long vh, long long ob, long long os,
-             long long oh, int causal, int window, float scale_log2) {
+#define ATTN_MMA_PARAMS                                                      \
+  const __nv_bfloat16 *__restrict__ q, const __nv_bfloat16 *__restrict__ k,  \
+      const __nv_bfloat16 *__restrict__ v, __nv_bfloat16 *__restrict__ o,    \
+      float *__restrict__ lse, int Sq, int Sk, int G, long long qb,          \
+      long long qs, long long qh, long long kb, long long ks, long long kh,  \
+      long long vb, long long vs, long long vh, long long ob, long long os,  \
+      long long oh, int causal, int window, float scale_log2
+#define ATTN_MMA_ARGS                                                        \
+  q, k, v, o, lse, Sq, Sk, G, qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh, \
+      causal, window, scale_log2
+
+template <int D, bool kLse>
+__device__ __forceinline__ void attn_fwd_mma_body(ATTN_MMA_PARAMS) {
   constexpr int P = D + 8;          // padded row of a K/V tile, in halves
   constexpr int KC = D / 16;        // k-chunks of the score product
   constexpr int NT = kBK / 8;       // n-tiles of a score row block
@@ -378,6 +392,12 @@ attn_fwd_mma(const __nv_bfloat16* __restrict__ q,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (kLse && tig == 0) {
+    // natural-log LSE of the scaled scores: ln 2 (m + log2 l) in base 2
+    float* lp = lse + ((long long)b * gridDim.y + h) * Sq;
+    if (row0 < Sq) lp[row0] = (m0 + log2f(fmaxf(l0, 1e-30f))) * kLn2;
+    if (row1 < Sq) lp[row1] = (m1 + log2f(fmaxf(l1, 1e-30f))) * kLn2;
+  }
   __nv_bfloat16* op = o + b * ob + h * oh;
 #pragma unroll
   for (int nt = 0; nt < DT; ++nt) {
@@ -391,15 +411,36 @@ attn_fwd_mma(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// One kernel per variant, so that each gets its own register bound.  At
+// D = 128 the body needs 168 registers a thread, and registers are granted
+// in steps of 8: the LSE variant compiles to 170 unbounded, which leaves
+// room for two blocks per SM instead of three (about 40 % slower on an
+// H100 at the DiT shape), so it is held at three blocks.  The variant
+// without the LSE fits three blocks unbounded; bounding it at three makes
+// it spill, and an explicit one block per SM lets it grow to 202.
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Sk, int H, int K, const long long* st, int causal,
-               int window, float scale, cudaStream_t stream) {
+__global__ void __launch_bounds__(kMmaThreads)
+attn_fwd_mma(ATTN_MMA_PARAMS) {
+  attn_fwd_mma_body<D, false>(ATTN_MMA_ARGS);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 3)
+attn_fwd_mma_lse(ATTN_MMA_PARAMS) {
+  attn_fwd_mma_body<D, true>(ATTN_MMA_ARGS);
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Sq, int Sk, int H, int K,
+               const long long* st, int causal, int window, float scale,
+               cudaStream_t stream) {
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  attn_fwd_mma<D><<<grid, kMmaThreads, 0, stream>>>(
+  auto kernel = lse ? attn_fwd_mma_lse<D> : attn_fwd_mma<D>;
+  kernel<<<grid, kMmaThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq,
-      Sk, H / K, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      Sq, Sk, H / K, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
       st[9], st[10], st[11], causal, window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
@@ -417,30 +458,31 @@ bool mma_aligned(const void* q, const void* k, const void* v, const void* o,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Sk, int H, int K, const long long* st, int causal, int window,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Sk, int H, int K, const long long* st,
+           int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<D>();
+  auto kernel = lse ? attn_fwd<T, D, true> : attn_fwd<T, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  attn_fwd<T, D><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H / K, st[0],
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H / K, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
       st[11], causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int Sq, int Sk, int H, int K, int D, const long long* st,
+int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
+             int B, int Sq, int Sk, int H, int K, int D, const long long* st,
              int causal, int window, float scale, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, K, st, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, K, st, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, K, st, causal, window, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -449,26 +491,32 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  Strides are in
 // elements, in the order q (batch, seq, head), k (...), v (...), o (...); the
-// D axis is contiguous.  Returns cudaGetLastError() after the launch.
+// D axis is contiguous.  lse is null or a contiguous (B, H, Sq) float32
+// array that receives each row's log-sum-exp of the scaled, masked scores
+// (the backward's softmax statistic); writing it changes nothing else, so o
+// is bitwise the same with and without it.  Returns cudaGetLastError() after
+// the launch.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
+    const void* q, const void* k, const void* v, void* o, void* lse_out,
+    int dtype, int B,
     int Sq, int Sk, int H, int K, int D, long long qb, long long qs,
     long long qh, long long kb, long long ks, long long kh, long long vb,
     long long vs, long long vh, long long ob, long long os, long long oh,
     int causal, int window, float scale, void* stream) {
   const long long st[12] = {qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_d<float>(q, k, v, o, B, Sq, Sk, H, K, D, st, causal, window, scale, s);
+    return launch_d<float>(q, k, v, o, lse, B, Sq, Sk, H, K, D, st, causal, window, scale, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (mma_aligned(q, k, v, o, st)) {
     switch (D) {
-      case 32: return launch_mma<32>(q, k, v, o, B, Sq, Sk, H, K, st, causal, window, scale, s);
-      case 64: return launch_mma<64>(q, k, v, o, B, Sq, Sk, H, K, st, causal, window, scale, s);
-      case 128: return launch_mma<128>(q, k, v, o, B, Sq, Sk, H, K, st, causal, window, scale, s);
+      case 32: return launch_mma<32>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, s);
+      case 64: return launch_mma<64>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, s);
+      case 128: return launch_mma<128>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  return launch_d<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, K, D, st, causal, window, scale, s);
+  return launch_d<__nv_bfloat16>(q, k, v, o, lse, B, Sq, Sk, H, K, D, st, causal, window, scale, s);
 }

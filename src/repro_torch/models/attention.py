@@ -3,8 +3,11 @@
 Grouped-query attention with optional per-head q/k RMSNorm and RoPE, as in
 ``repro.models.attention``.  ``apply_full`` sends the attention itself
 through ``kernels.ops.flash_attention`` (the hand-written kernel for CUDA
-tensors) where the reference calls the jnp ``attention_chunked``.  Decode
-and KV caches come with the causal families.
+tensors) where the reference calls the jnp ``attention_chunked``; when q, k
+or v requires grad (the training loss) the call returns through
+``FlashAttentionFn``, whose backward is the hand-written attention-backward
+kernel, and the forward's output is bitwise the one the rollout saw.
+Decode and KV caches come with the causal families.
 """
 from __future__ import annotations
 

@@ -4,11 +4,12 @@ The spec is the reference's whole tree (embedding, final norm, LM head and
 ``n_layers`` stacked blocks), so parameter trees cross between the packages
 key for key.  ``forward_embeds`` runs the bidirectional adaLN-zero blocks as
 a Python loop over slices of the stacked ``(n_layers, ...)`` leaves where
-the reference scans.  The other families are not ported yet.
+the reference scans; the slices are views, so gradients reach the stacked
+leaves.  The other families are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -38,10 +39,15 @@ def _attn_block_spec(cfg: ArchConfig) -> Dict:
     }
 
 
-def _slice(tree: Dict, i: int) -> Dict:
+def _unbind(tree: Dict, n: int) -> List[Dict]:
+    """The n per-layer slices of a stacked tree, as views.  Unbinding each
+    leaf once (instead of indexing it once per layer) gives the backward
+    one stack of the layers' gradients per leaf rather than a full-size
+    zero-filled gradient for every layer."""
     if isinstance(tree, dict):
-        return {k: _slice(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 class Backbone:
@@ -88,9 +94,8 @@ class Backbone:
         cfg = self.cfg
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
-        blocks = params["blocks"]
-        for i in range(cfg.n_layers):
-            x = self._attn_block(_slice(blocks, i), x, causal=causal,
+        for p in _unbind(params["blocks"], cfg.n_layers):
+            x = self._attn_block(p, x, causal=causal,
                                  window=window, positions=positions,
                                  cond=cond)
         return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -20,7 +20,9 @@ KINDS = ("adapter", "trainer", "reward", "scheduler", "arch", "frontend",
 
 # the port's registering modules (the slices ported so far)
 AUTOLOAD = ("repro_torch.core.schedulers", "repro_torch.models.flow",
-            "repro_torch.configs")
+            "repro_torch.configs", "repro_torch.core.rewards",
+            "repro_torch.optim", "repro_torch.data.prompts",
+            "repro_torch.core.trainers")
 
 
 class RegistryError(KeyError):

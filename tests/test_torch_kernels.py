@@ -15,10 +15,19 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jflash
+from repro.kernels.grpo_loss import grpo_loss as jgrpo
+from repro.kernels.grpo_loss import grpo_loss_diff as jgrpo_diff
 from repro.kernels.sde_step import sde_step as jsde
-from repro_torch.kernels import ops
+from repro.models.layers import attention_chunked as jattention_chunked
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention as cuda_flash
+from repro_torch.kernels.flash_attention import (
+    flash_attention_bwd as cuda_flash_bwd)
+from repro_torch.kernels.grpo_loss import grpo_loss as cuda_grpo
+from repro_torch.kernels.grpo_loss import grpo_loss_bwd as cuda_grpo_bwd
 from repro_torch.kernels.sde_step import sde_step as cuda_sde
+
+from torch_parity import one_torch_thread  # noqa: F401  (autouse fixture)
 
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -143,24 +152,51 @@ def test_ops_routes_cpu_tensors_to_the_plain_versions(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a CPU tensor reached the CUDA wrapper")
 
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import grpo_loss as grpo_mod
     monkeypatch.setattr(ops, "_flash", refuse)
     monkeypatch.setattr(ops, "_sde", refuse)
+    monkeypatch.setattr(ops, "_grpo", refuse)
+    for mod, name in ((fa_mod, "flash_attention"),
+                      (fa_mod, "flash_attention_bwd"),
+                      (grpo_mod, "grpo_loss"), (grpo_mod, "grpo_loss_bwd")):
+        monkeypatch.setattr(mod, name, refuse)
     q = torch.zeros(1, 8, 2, 32)
-    before = (cuda_flash.launches, cuda_sde.launches)
+    counters = (cuda_flash, cuda_flash_bwd, cuda_sde, cuda_grpo,
+                cuda_grpo_bwd)
+    before = [f.launches for f in counters]
     assert ops.flash_attention(q, q, q, causal=False).shape == q.shape
     xn, lp = ops.sde_step(q, q, q, 0.5, 0.4, eta=0.7)
     assert xn.shape == q.shape and lp.shape == (1,)
-    assert (cuda_flash.launches, cuda_sde.launches) == before
+    r = torch.zeros(4)
+    assert ops.grpo_loss(r, r, r, clip=0.2)[0].shape == (4,)
+    # the autograd Functions route the same way, forward and backward
+    qg = q.clone().requires_grad_()
+    ops.flash_attention(qg, q, q, causal=False).sum().backward()
+    rg = r.clone().requires_grad_()
+    ops.grpo_loss_trainable(rg, r, r, clip=0.2)[0].sum().backward()
+    assert qg.grad.shape == q.shape and rg.grad.shape == (4,)
+    assert [f.launches for f in counters] == before
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     """The wrappers launch their kernel or raise; they never compute a CPU
     tensor through the plain version themselves."""
     q = torch.zeros(1, 8, 2, 32)
+    lse = torch.zeros(1, 2, 8)
+    r = torch.zeros(4)
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_flash(q, q, q, causal=False)
     with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_flash(q, q, q, causal=False, return_lse=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_flash_bwd(q, q, q, q, lse, q, causal=False)
+    with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_sde(q, q, q, 0.5, 0.4, eta=0.7)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_grpo(r, r, r, clip=0.2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_grpo_bwd(r, r, r, r, clip=0.2)
 
 
 def test_ops_has_no_fallback_switch():
@@ -171,6 +207,129 @@ def test_ops_has_no_fallback_switch():
     tree = ast.parse(inspect.getsource(ops))
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
     assert "environ" not in inspect.getsource(ops)
+
+
+# ----------------------------------------------------------------- grpo_loss
+def _grpo_inputs(B, seed=0):
+    lpn, lpo, adv = _normal(seed + B, (B,), (B,), (B,))
+    return lpn * 0.05, lpo * 0.05, adv
+
+
+# the sweep of tests/test_kernels.py::test_grpo_loss
+@pytest.mark.parametrize("B", [7, 64, 1031])
+@pytest.mark.parametrize("clip", [0.1, 0.3])
+@pytest.mark.parametrize("guard", [False, True])
+def test_grpo_loss_plain_matches_jax(B, clip, guard):
+    lpn, lpo, adv = _grpo_inputs(B)
+    rm = np.float32(np.exp(np.clip(lpn - lpo, -20, 20)).mean())
+    t = [torch.from_numpy(a) for a in (lpn, lpo, adv)]
+    loss, frac = ops.grpo_loss(*t, torch.tensor([rm]), clip=clip,
+                               guard=guard)
+    assert loss.dtype == frac.dtype == torch.float32
+    j = [jnp.asarray(a) for a in (lpn, lpo, adv)]
+    for want_loss, want_frac in (
+            jgrpo(*j, jnp.asarray(rm), clip=clip, guard=guard,
+                  interpret=True),
+            jref.grpo_loss_ref(*j, clip=clip, guard=guard)):
+        # f32 elementwise ops, exp in another library, and the Guard mean
+        # summed in another order: atol 1e-5 (the reference's own tolerance
+        # between its kernel and its oracle)
+        np.testing.assert_allclose(loss.numpy(), np.asarray(want_loss),
+                                   atol=1e-5, rtol=1e-5)
+        np.testing.assert_array_equal(frac.numpy(), np.asarray(want_frac))
+
+
+def test_grpo_loss_plain_guard_defaults_to_the_batch_mean():
+    lpn, lpo, adv = _grpo_inputs(33)
+    t = [torch.from_numpy(a) for a in (lpn, lpo, adv)]
+    a = ref.grpo_loss_ref(*t, clip=0.2, guard=True)
+    want = jref.grpo_loss_ref(*(jnp.asarray(x) for x in (lpn, lpo, adv)),
+                              clip=0.2, guard=True)
+    np.testing.assert_allclose(a[0].numpy(), np.asarray(want[0]), atol=1e-6)
+
+
+@pytest.mark.parametrize("clip", [0.05, 0.2])
+def test_grpo_loss_backward_matches_jax_grad(clip):
+    """The closed-form VJP (the plain ``grpo_loss_bwd_ref``, and the
+    autograd Function on CPU tensors) against ``jax.grad`` of the
+    reference's ``grpo_loss_diff`` with its Pallas forward in interpret
+    mode (tests/test_kernels.py:265).  The closed form differs from
+    autodiff of ``grpo_loss_ref`` only where |logp_new - logp_old| > 20
+    (the clip of the log-ratio, which autodiff zeroes) and at exact ties
+    of the min; the inputs stay clear of both."""
+    lpn, lpo, adv = _grpo_inputs(32, seed=1)
+    lpn, lpo = lpn * 2, lpo * 2          # log-ratios up to ~0.3: all branches
+    g = np.random.default_rng(2).standard_normal(32).astype(np.float32)
+    j = [jnp.asarray(a) for a in (lpn, lpo, adv)]
+
+    def jloss(a, b, c):
+        return jnp.sum(jgrpo_diff(a, b, c, clip, True) * jnp.asarray(g))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*j)
+    t = [torch.from_numpy(a) for a in (lpn, lpo, adv)]
+    got = ref.grpo_loss_bwd_ref(*t, torch.from_numpy(g), clip=clip)
+    leaves = [a.clone().requires_grad_() for a in t]
+    loss, frac = ops.grpo_loss_trainable(*leaves, clip=clip)
+    loss.backward(torch.from_numpy(g))
+    assert not frac.requires_grad
+    for a, b, w in zip(got, leaves, want):
+        # elementwise f32 products: atol 1e-6 (the reference holds its
+        # custom VJP to autodiff at 1e-5)
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=1e-6,
+                                   rtol=1e-5)
+        np.testing.assert_array_equal(b.grad.numpy(), a.numpy())
+
+
+# --------------------------------------------------------- attention backward
+ATTN_BWD_SHAPES = [  # B, Sq, Sk, H, K, D, causal, window
+    (2, 64, 64, 4, 2, 32, True, 0),
+    (1, 76, 76, 2, 1, 32, False, 0),
+    (2, 76, 76, 4, 4, 32, True, 16),
+    (1, 100, 37, 4, 1, 64, True, 64),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,K,D,causal,window", ATTN_BWD_SHAPES)
+def test_flash_attention_backward_matches_jax_grad(B, Sq, Sk, H, K, D,
+                                                   causal, window):
+    """``ref.flash_attention_bwd_ref`` (from the forward's LSE) and the
+    autograd Function on CPU tensors against ``jax.grad`` through the
+    reference's ``attention_chunked`` (what its model differentiates) and
+    through ``ref.flash_attention_ref``, in f32."""
+    qn, kn, vn, gn = _normal(B * 100 + Sq + D, (B, Sq, H, D), (B, Sk, K, D),
+                             (B, Sk, K, D), (B, Sq, H, D))
+    jg = jnp.asarray(gn)
+
+    def jloss(fn, q, k, v):
+        return jnp.sum(fn(q, k, v, causal=causal, window=window) * jg)
+
+    wants = [jax.grad(lambda q, k, v: jloss(fn, q, k, v), argnums=(0, 1, 2))(
+        jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn))
+        for fn in (jref.flash_attention_ref,
+                   lambda q, k, v, **kw: jattention_chunked(q, k, v,
+                                                            chunk_q=32,
+                                                            **kw))]
+    q, k, v, g = (torch.from_numpy(a) for a in (qn, kn, vn, gn))
+    o, lse = ref.flash_attention_fwd_ref(q, k, v, causal=causal,
+                                         window=window)
+    np.testing.assert_array_equal(
+        o.numpy(), ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window).numpy())
+    got = ref.flash_attention_bwd_ref(q, k, v, o, lse, g, causal=causal,
+                                      window=window)
+    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+    out = ops.flash_attention(*leaves, causal=causal, window=window)
+    np.testing.assert_array_equal(out.detach().numpy(), o.numpy())
+    out.backward(g)
+    for want in wants:
+        for a, b, w in zip(got, leaves, want):
+            # f32 sums over up to 100 keys (or queries) in another order,
+            # and D = sum dO O instead of sum P dP: 1e-4 of the gradient's
+            # size (|grad| ~ 1-10 here)
+            np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=1e-4,
+                                       rtol=1e-4)
+            np.testing.assert_allclose(b.grad.numpy(), np.asarray(w),
+                                       atol=1e-4, rtol=1e-4)
 
 
 def test_jax_stays_on_cpu():

@@ -10,6 +10,7 @@ from a seeded normal instead: the blocks then really run.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro import configs as jconfigs
@@ -63,3 +64,16 @@ def normal(seed, *shapes):
 
 def to_torch(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Run a test's torch CPU ops on one thread, as the test workers share
+    the machine's cores (pytest-xdist); torch's default of one thread per
+    core in every worker oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
