@@ -47,12 +47,40 @@ script exits 2 before printing any result.
    depth 2, batch 2, modulation drawn, through the kernels and, on the same
    injected draws, through the plain versions: loss, grad norm, the
    attention weights' grads and the params after AdamW at stated bands.
-10. ``main_path``, ``train_path`` and ``kernels`` JSON lines, the card's
-   name and power limit, and the last line ``{"ok": true, "device":
-   {...}}``.
+10. ``ssd_scan`` against its plain chunked version (and the sequential
+   recurrence at small lengths) over the reference's sweep, odd shapes
+   (H = 1, L = Q, L = 3Q, a ragged 21-token chunk), Mamba-2's init, a slow
+   decay (|dA| near 1e-3) in which the state carried across chunks makes
+   most of y, and the path shape (B 4, L 4608, 32 heads of 64, N 128, Q
+   128), in f32 and bf16, bitwise on rerun; then its kernel, plain and
+   bound times at the path shape.
+11. ``FlowAdapter.velocity`` of ``mamba2-370m`` at full width, depth 2, over
+   511 + 1 + 4096 tokens, with the SSM leaves drawn from Mamba-2's init,
+   through the kernels and through the plain versions at the bf16 band;
+   then with ``ops.ssd_scan`` stubbed to zeros, which must move it by ten
+   bands.
+12. The Mamba-2 serving path: ``repro_torch.launch.serve.main`` serving 4
+   requests of ``mamba2-370m`` (48 layers, bf16, random weights from a
+   seed) over a 511-token condition of width 4096, one time token and 4096
+   latent tokens of width 64 (4608 = 36 x 128 tokens: the scan takes no
+   ragged chunk) under ``flow_sde``, 4 steps.  Launch counts must match the
+   path (``ssd_scan`` 48 x 4 and ``sde_step`` 4 per batch); prints s per
+   step, req/s, peak memory and a profile of one step.
+13. The same 4 requests served in f32 through ``serve.main``, then again
+   with the SSM leaves drawn, through the engine and the kernels: the
+   latents equal ``rollout_keyed``'s through the kernels bitwise, and each
+   of its steps is held against the same step through the plain versions
+   from the same state.  With the leaves drawn the 48 layers amplify any
+   rounding difference, so the replay is held in f32 and step by step; the
+   phase prints one velocity's gap between the kernels and the plain
+   versions beside the gap between two chunkings of the plain scan, in f32
+   and bf16.
+14. ``main_path``, ``train_path``, ``ssm_path`` and ``kernels`` JSON lines,
+   the card's name and power limit, and the last line ``{"ok": true,
+   "device": {...}}``.
 
-``--only N,...`` runs just the device and build phases and phases N (3, 8
-or 9) and prints no result lines: a development aid.
+``--only N,...`` runs just the device and build phases and phases N (3, 8,
+9, 10, 11, 12 or 13) and prints no result lines: a development aid.
 """
 from __future__ import annotations
 
@@ -87,6 +115,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd)
 from repro_torch.kernels.grpo_loss import grpo_loss, grpo_loss_bwd  # noqa: E402
 from repro_torch.kernels.sde_step import sde_step  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import params as params_lib  # noqa: E402
 from repro_torch.models.flow import FlowAdapter  # noqa: E402
@@ -178,10 +207,12 @@ def plain_dispatch():
     ``ops``' wrappers and the autograd Functions' forwards and backwards —
     for the comparison runs of this script (the port itself has no such
     switch)."""
-    saved = (ops._flash, ops._sde, ops._grpo, fa_mod.flash_attention,
-             fa_mod.flash_attention_bwd, grpo_mod.grpo_loss,
-             grpo_mod.grpo_loss_bwd)
+    saved = (ops._flash, ops._sde, ops._grpo, ops._ssd,
+             fa_mod.flash_attention, fa_mod.flash_attention_bwd,
+             grpo_mod.grpo_loss, grpo_mod.grpo_loss_bwd)
     ops._flash = ref.flash_attention_ref
+    ops._ssd = lambda x, dt, a, bm, cm, chunk: ref.ssd_chunked_ref(
+        x, dt, a, bm, cm, chunk)
     ops._sde = lambda v, x, eps, t, t_next, eta: ref.sde_step_ref(
         v, x, t, t_next, eps, eta=eta)
     ops._grpo = _plain_grpo
@@ -192,13 +223,13 @@ def plain_dispatch():
     try:
         yield
     finally:
-        (ops._flash, ops._sde, ops._grpo, fa_mod.flash_attention,
+        (ops._flash, ops._sde, ops._grpo, ops._ssd, fa_mod.flash_attention,
          fa_mod.flash_attention_bwd, grpo_mod.grpo_loss,
          grpo_mod.grpo_loss_bwd) = saved
 
 
 COUNTED = (sde_step, flash_attention, flash_attention_bwd, grpo_loss,
-           grpo_loss_bwd)
+           grpo_loss_bwd, ssd_scan)
 
 
 def reset_counts() -> None:
@@ -643,6 +674,7 @@ def main_path() -> dict:
 
 # ------------------------------------------------------------------ phase 6
 PROFILE_GROUPS = (
+    ("ssd_scan kernel", ("ssd_chunk_", "ssd_state_pass")),
     ("flash_attention kernel", ("attn_fwd",)),
     ("flash_attention_bwd kernel", ("bwd_delta", "bwd_dkdv", "bwd_dq")),
     ("sde_step kernel", ("sde_step_chunks", "sde_logp_rows")),
@@ -697,9 +729,10 @@ def profile(fn, what: str) -> dict:
             "groups_launches": {g: v[1] for g, v in groups.items()}}
 
 
-def profile_step(eng) -> dict:
+def profile_step(eng, seq: int) -> dict:
     """Trace one denoising step of the serving engine (the body of
-    ``rollout_keyed``: velocity, then ``step_with_eps``) at batch 4."""
+    ``rollout_keyed``: velocity, then ``step_with_eps``) at batch 4 over
+    ``seq`` tokens."""
     prompts = synthetic_prompts(B_SERVE)
     cond = torch.from_numpy(eng.encode(prompts)).to(eng.device)
     draws = [request_draws(eng.adapter, s, NUM_STEPS, eng.device)
@@ -715,7 +748,7 @@ def profile_step(eng) -> dict:
         v = eng.adapter.velocity(eng.params, x, tb, cond).float()
         return eng.scheduler.step_with_eps(v, x, t, t_next, eps)
 
-    return profile(step, f"one denoising step, batch {B_SERVE}, {SEQ} tokens")
+    return profile(step, f"one denoising step, batch {B_SERVE}, {seq} tokens")
 
 
 # ------------------------------------------------------------------ phase 7
@@ -800,7 +833,8 @@ def train_path(tmp: str) -> dict:
     want = {"sde_step": NUM_STEPS * n,
             "flash_attention": 2 * TRAIN_LAYERS * NUM_STEPS * n,
             "flash_attention_bwd": TRAIN_LAYERS * NUM_STEPS * n,
-            "grpo_loss": NUM_STEPS * n, "grpo_loss_bwd": NUM_STEPS * n}
+            "grpo_loss": NUM_STEPS * n, "grpo_loss_bwd": NUM_STEPS * n,
+            "ssd_scan": 0}
     log(f"  launches {launches} over {n} train steps (expected {want})")
     if launches != want:
         fail("the train path's kernel launches do not match the path")
@@ -952,16 +986,365 @@ def check_update(dev) -> dict:
             "params_total": n_all}
 
 
+# ----------------------------------------------------------------- phase 10
+# the Mamba-2 serving path: mamba2-370m at its published width, one time
+# token between a 511-token condition and 4096 latent tokens, so that the
+# sequence (4608 = 36 x 128) is a multiple of the scan's chunk
+SSM_ARCH, SSM_LAYERS, SSM_COND_LEN = "mamba2-370m", 48, 511
+SSM_SEQ = SSM_COND_LEN + 1 + LAT_TOKENS
+SSM_HEADS, SSM_HEAD_DIM, SSM_STATE, SSM_CHUNK = 32, 64, 128, 128
+# max |kernel - plain| / max |plain|: f32 sums in another order; in bf16 y
+# is rounded once from f32 by both (a tie lands one bf16 ulp, 2^-8, apart)
+SSD_Y_BAND = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+SSD_H_BAND = 1e-4        # the final state is f32 on both routes
+
+
+def _ssd_inputs(g, dev, B, L, H, P, N, kind, dtype):
+    """x, dt, a, bm, cm of one scan.  ``sweep``: the reference's sweep
+    (tests/test_kernels.py); ``mamba2``: Mamba-2's init, dt log-uniform in
+    [1e-3, 1e-1] and A in [-16, -1] (arXiv:2405.21060); ``slow``: |dA| near
+    1e-3, where the state carried across chunks dominates y."""
+    x = torch.randn(B, L, H, P, generator=g, device=dev).to(dtype)
+    bm = (torch.randn(B, L, N, generator=g, device=dev) * 0.5).to(dtype)
+    cm = (torch.randn(B, L, N, generator=g, device=dev) * 0.5).to(dtype)
+    u = torch.rand(B, L, H, generator=g, device=dev)
+    if kind == "sweep":
+        dt = torch.nn.functional.softplus(
+            torch.randn(B, L, H, generator=g, device=dev)) * 0.5
+        a = -torch.exp(torch.randn(H, generator=g, device=dev) * 0.3)
+    elif kind == "mamba2":
+        dt = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+        a = -(1 + 15 * torch.rand(H, generator=g, device=dev))
+    else:
+        dt = 1e-3 * (0.5 + u)
+        a = -(0.5 + torch.rand(H, generator=g, device=dev))
+    return x, dt.contiguous(), a, bm, cm
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def check_ssd(dev) -> dict:
+    """ssd_scan against the plain chunked version (and the sequential
+    recurrence at small lengths) over the reference's sweep, odd shapes,
+    the slow-decay cases and the path shape, f32 and bf16, bitwise on
+    rerun; then its times at the path shape."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    P_, N_, Q_ = SSM_HEAD_DIM, SSM_STATE, SSM_CHUNK
+    cases = [  # B, L, H, P, N, chunk, kind
+        (2, 128, 2, 32, 64, 32, "sweep"), (1, 256, 4, 64, 128, 128, "sweep"),
+        (3, 64, 1, 16, 32, 64, "sweep"),
+        (2, 384, 1, P_, N_, Q_, "sweep"), (2, 128, 4, P_, N_, Q_, "sweep"),
+        (1, 21, 3, 8, 16, 32, "sweep"), (2, 96, 16, 32, 32, 32, "sweep"),
+        (2, 1024, 8, P_, N_, Q_, "mamba2"), (2, 1024, 4, P_, N_, Q_, "slow"),
+        (B_SERVE, SSM_SEQ, SSM_HEADS, P_, N_, Q_, "mamba2"),
+        (B_SERVE, SSM_SEQ, SSM_HEADS, P_, N_, Q_, "slow"),
+    ]
+    path_err = 0.0
+    for (B, L, H, P, N, Q, kind) in cases:
+        for dt_ in (torch.float32, torch.bfloat16):
+            x, dt, a, bm, cm = _ssd_inputs(g, dev, B, L, H, P, N, kind, dt_)
+            y, hT = ssd_scan(x, dt, a, bm, cm, chunk=Q)
+            y2, h2 = ssd_scan(x, dt, a, bm, cm, chunk=Q)
+            if not (torch.equal(y, y2) and torch.equal(hT, h2)):
+                fail(f"ssd_scan not bitwise equal on rerun at "
+                     f"{(B, L, H, P, N, Q)} {kind} {dt_}")
+            yp, hp = ref.ssd_chunked_ref(x, dt, a, bm, cm, Q)
+            errs = [_rel(y, yp), _rel(hT, hp)]
+            if L <= 384:
+                ys, hs = ref.ssd_scan_ref(x, dt, a, bm, cm)
+                errs += [_rel(y, ys), _rel(hT, hs)]
+            # how much of y the state carried across chunks makes: the
+            # same scan with every chunk started from zero
+            q = min(Q, L)
+            loc, _ = ref.ssd_chunked_ref(
+                *(t.reshape(B * (L // q), q, *t.shape[2:])
+                  for t in (x, dt)), a,
+                *(t.reshape(B * (L // q), q, -1) for t in (bm, cm)), q)
+            carried = _rel(loc.reshape(y.shape), yp)
+            torch.cuda.synchronize()
+            y_err, h_err = max(errs[0::2]), max(errs[1::2])
+            log(f"  ssd_scan B={B} L={L} H={H} P={P} N={N} Q={q} {kind} "
+                f"{dt_}: y {y_err:.2e} (band {SSD_Y_BAND[dt_]}), hT "
+                f"{h_err:.2e} (band {SSD_H_BAND}) of max|plain|"
+                f"{' vs chunked and sequential' if len(errs) > 2 else ''}; "
+                f"carried state {carried:.3f} of max|y|")
+            if y_err > SSD_Y_BAND[dt_] or h_err > SSD_H_BAND:
+                fail(f"ssd_scan off at {(B, L, H, P, N, Q)} {kind} {dt_}")
+            if kind == "slow" and L > Q and carried < 0.5:
+                fail("the slow-decay case does not make the carried state "
+                     "dominate y; it cannot check the inter-chunk decay")
+            if L == SSM_SEQ and dt_ == torch.bfloat16:
+                path_err = max(path_err, float(
+                    (y.float() - yp.float()).abs().max()))
+            del x, dt, a, bm, cm, y, hT, y2, h2, yp, hp, loc
+            torch.cuda.empty_cache()
+    # times at the path shape, bf16, as the serving path calls it
+    B, L, H, P, N = B_SERVE, SSM_SEQ, SSM_HEADS, P_, N_
+    x, dt, a, bm, cm = _ssd_inputs(g, dev, B, L, H, P, N, "mamba2",
+                                   torch.bfloat16)
+    ms = graph_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=Q_), 5)
+    call_ms = cuda_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=Q_), 20)
+    plain_ms = cuda_ms(lambda: ref.ssd_chunked_ref(x, dt, a, bm, cm, Q_),
+                       3, 1)
+    nc = L // Q_
+    nbytes = (2 * x.numel() * 2 + dt.numel() * 4 + a.numel() * 4
+              + 2 * bm.numel() * 2 + B * H * P * N * 4)
+    flops = 2 * B * nc * Q_ * (Q_ * N + H * Q_ * P + 2 * H * P * N)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    log(f"  ssd_scan path (B={B}, L={L}, H={H}, P={P}, N={N}, Q={Q_}) bf16: "
+        f"kernel {ms:.4f} ms on the device ({call_ms:.4f} ms a call with "
+        f"the host's launch), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; the same "
+        f"operations in f32 on the CUDA cores "
+        f"{flops / F32_FLOPS * 1e3:.4f} ms)")
+    del x, dt, a, bm, cm
+    torch.cuda.empty_cache()
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:77",
+            "max_abs_err": path_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def draw_ssm(p: dict, seed: int) -> None:
+    """Draw the SSM leaves from Mamba-2's own init (conv taps uniform in
+    +-1/sqrt(4), A in [-16, -1], dt log-uniform in [1e-3, 1e-1] through
+    the bias) and zero the skip D, in place.  At the repository's init
+    (conv taps at 0.02) the scan moves the velocity by under 1 %, and the
+    skip hides it further, so a check could not see it."""
+    s = p["backbone"]["blocks"]["ssm"]
+    gen = torch.Generator(device=s["conv_w"].device).manual_seed(seed)
+
+    def draw(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                           device=gen.device)
+
+    s["conv_w"].copy_(draw(s["conv_w"].shape, -0.5, 0.5))
+    s["a_log"].copy_(torch.log(draw(s["a_log"].shape, 1.0, 16.0)))
+    dt = torch.exp(draw(s["dt_bias"].shape, math.log(1e-3), math.log(1e-1)))
+    s["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))
+    s["d_skip"].zero_()
+
+
+def _zero_scan(x, dt, a, bm, cm, *, chunk=128):
+    B, L, H, P = x.shape
+    return (torch.zeros(x.shape, dtype=x.dtype, device=x.device),
+            torch.zeros((B, H, P, bm.shape[-1]), device=x.device))
+
+
+# ----------------------------------------------------------------- phase 11
+def check_ssm_velocity(dev) -> dict:
+    """``FlowAdapter.velocity`` of mamba2-370m at full width, depth 2, on
+    the path geometry, through the kernels and the plain versions; then
+    with ``ops.ssd_scan`` stubbed to zeros, to show the scan moves it."""
+    cfg = replace(configs.get(SSM_ARCH), n_layers=2)
+    adapter = FlowAdapter(cfg, FlowRLConfig(latent_tokens=LAT_TOKENS,
+                                            latent_dim=LAT_DIM), COND_DIM)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    p = params_lib.init(adapter.spec(), gen, torch.bfloat16, dev)
+    draw_ssm(p, seed=9)
+    x = torch.randn(1, LAT_TOKENS, LAT_DIM, generator=gen, device=dev)
+    cond = torch.randn(1, SSM_COND_LEN, COND_DIM, generator=gen, device=dev)
+    t = torch.tensor([0.7], device=dev)
+    with torch.no_grad():
+        n0 = ssd_scan.launches
+        vk = adapter.velocity(p, x, t, cond)
+        if ssd_scan.launches - n0 != cfg.n_layers:
+            fail("velocity did not run the ssd_scan kernel once per block")
+        with plain_dispatch():
+            vp = adapter.velocity(p, x, t, cond)
+        real = ops.ssd_scan
+        ops.ssd_scan = _zero_scan
+        try:
+            v0 = adapter.velocity(p, x, t, cond)
+        finally:
+            ops.ssd_scan = real
+    torch.cuda.synchronize()
+    err = float((vk - vp).abs().max())
+    scale = float(vp.abs().max())
+    moved = float((v0 - vk).abs().max())
+    band = BF16_BAND * scale
+    log(f"  velocity {SSM_ARCH} depth 2 (1, {SSM_SEQ} tokens) bf16: "
+        f"max|kernel - plain| {err:.3e} of max|v| {scale:.3e} (band "
+        f"{band:.3e}); the scan stubbed to zeros moves it by {moved:.3e}")
+    if not (torch.isfinite(vk).all() and err <= band):
+        fail("the mamba2 velocity through the kernels is off the bf16 band")
+    if moved < 10 * band:
+        fail("stubbing the scan hardly moves the velocity: the check "
+             "cannot see the scan")
+    return {"max_abs_err": err, "max_abs": scale, "band": band,
+            "moved_by_zero_scan": moved}
+
+
+# ----------------------------------------------------------------- phase 12
+def _ssm_argv(dtype: str) -> list:
+    return ["--arch", SSM_ARCH, "--sde", "flow_sde", "--device", "cuda",
+            "--requests", str(B_SERVE), "--max-batch", str(B_SERVE),
+            "--bucket", str(B_SERVE),
+            "--set", f"flow.num_steps={NUM_STEPS}",
+            "--set", f"flow.latent_tokens={LAT_TOKENS}",
+            "--set", f"flow.latent_dim={LAT_DIM}",
+            "--set", f"param_dtype={dtype}",
+            "--set", "data.encoder=" + json.dumps(
+                {"cond_dim": COND_DIM, "cond_len": SSM_COND_LEN})]
+
+
+def ssm_path() -> dict:
+    """``repro_torch.launch.serve.main`` serving 4 requests of mamba2-370m
+    (48 layers, bf16, random weights from a seed) at 511 + 1 + 4096 tokens
+    under flow_sde, 4 steps: launch counts, s per step, req/s, peak memory
+    and a profile of one step."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = serve.main(_ssm_argv("bfloat16"))
+    launches = counts()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    stats, lat = out["stats"], out["latents"]
+    eng = out["engine"]
+    batches = len(out["warmup"]) + sum(stats["dispatches"].values())
+    serve_batches = sum(stats["dispatches"].values())
+    want = {name: 0 for name in launches}
+    want["sde_step"] = NUM_STEPS * batches
+    want["ssd_scan"] = SSM_LAYERS * NUM_STEPS * batches
+    log(f"  launches {launches} over {batches} batches (warmup + serve; "
+        f"expected {want})")
+    if eng.adapter.cfg.n_layers != SSM_LAYERS:
+        fail(f"served {eng.adapter.cfg.n_layers} layers, not {SSM_LAYERS}")
+    if tuple(lat.shape) != (B_SERVE, LAT_TOKENS, LAT_DIM) or not \
+            torch.isfinite(lat).all():
+        fail(f"ssm latents: shape {tuple(lat.shape)} or not finite")
+    if launches != want:
+        fail("the ssm serving path's kernel launches do not match the path")
+    serve_s = out["serve_s"]
+    res = {"launches": launches, "batches": batches,
+           "req_per_s": B_SERVE / serve_s,
+           "s_per_step": serve_s / (serve_batches * NUM_STEPS),
+           "serve_s": serve_s, "warmup_s": out["warmup_s"],
+           "peak_bytes": peak,
+           "n_params": params_lib.n_params(eng.adapter.spec())}
+    log(f"  ssm path: {res['req_per_s']:.4f} req/s, {res['s_per_step']:.4f}"
+        f" s per denoising step (batch {B_SERVE}), max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB ({peak} bytes), {res['n_params']} params")
+    res["profile"] = profile_step(eng, SSM_SEQ)
+    return res
+
+
+# the served trajectory against the plain versions, step by step, in f32.
+# With the SSM leaves drawn the 48 layers amplify any rounding difference
+# (``chunking_gaps`` measures it: two chunkings of the plain scan itself
+# give velocities 1e-4 of max |v| apart in f32 and a quarter in bf16), and
+# 4 denoising steps amplify it again.  So each step is replayed from the
+# kernels' own state, in f32: 2e-3 of max |x| per step
+SSM_REPLAY_BAND = 2e-3
+
+
+def chunking_gaps(adapter, params, x, t, cond) -> dict:
+    """max |difference| / max |v| of one velocity between the kernels and
+    the plain versions, and between the plain scan at chunk 64 and at 128
+    (the same function in another rounding), in f32 and in bf16."""
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        p = params if dtype == torch.float32 else _cast(params, dtype)
+        with torch.no_grad():
+            vk = adapter.velocity(p, x, t, cond)
+            with plain_dispatch():
+                v128 = adapter.velocity(p, x, t, cond)
+                ops._ssd = lambda x_, dt, a, bm, cm, chunk: \
+                    ref.ssd_chunked_ref(x_, dt, a, bm, cm, 64)
+                v64 = adapter.velocity(p, x, t, cond)
+        scale = float(v128.abs().max())
+        out[name] = {"kernel_vs_plain": float((vk - v128).abs().max()) / scale,
+                     "chunk64_vs_chunk128":
+                         float((v64 - v128).abs().max()) / scale}
+        del p
+    return out
+
+
+def check_ssm_replay() -> dict:
+    """Serve the same 4 requests of 48-layer mamba2-370m in f32 through
+    ``serve.main``, draw the SSM leaves, serve them again through the
+    engine; hold the served latents bitwise against ``rollout_keyed``
+    through the kernels, and each of its steps against the same step
+    through the plain versions from the same state and noise."""
+    out = serve.main(_ssm_argv("float32"))
+    eng, lat0 = out["engine"], out["latents"]
+    draw_ssm(eng.params, seed=10)
+    prompts = synthetic_prompts(B_SERVE)
+    n0 = ssd_scan.launches
+    lat = eng.serve(prompts, 0)          # the seed serve.main used
+    if ssd_scan.launches - n0 != SSM_LAYERS * NUM_STEPS:
+        fail("the f32 serve did not run the ssd_scan kernel per layer")
+    cond = torch.from_numpy(eng.encode(prompts)).to(eng.device)
+    seeds = request_seeds(0, B_SERVE)
+    with torch.no_grad():
+        traj = rollout_keyed(eng.adapter, eng.params, cond, seeds,
+                             eng.scheduler, NUM_STEPS)
+    if not torch.equal(traj.x0.cpu(), lat):
+        fail("the engine's latents differ from rollout_keyed's")
+    eps = torch.stack([request_draws(eng.adapter, sd, NUM_STEPS,
+                                     eng.device)[1] for sd in seeds], dim=1)
+    ts = eng.scheduler.timesteps(NUM_STEPS)
+    scale = float(traj.xs.abs().max())
+    errs = []
+    with torch.no_grad(), plain_dispatch():
+        for i in range(NUM_STEPS):
+            t, t_next = float(ts[i]), float(ts[i + 1])
+            tb = torch.full((B_SERVE,), t, device=eng.device)
+            v = eng.adapter.velocity(eng.params, traj.xs[i], tb, cond)
+            x_next, _ = eng.scheduler.step_with_eps(v, traj.xs[i], t,
+                                                    t_next, eps[i])
+            errs.append(float((x_next - traj.xs[i + 1]).abs().max()))
+        free = rollout_keyed(eng.adapter, eng.params, cond, seeds,
+                             eng.scheduler, NUM_STEPS).x0.cpu()
+    free_err = float((free - lat).abs().max())
+    moved = float((lat - lat0).abs().max())
+    band = SSM_REPLAY_BAND * scale
+    gaps = chunking_gaps(eng.adapter, eng.params, traj.xs[0][:1],
+                         torch.full((1,), float(ts[0]), device=eng.device),
+                         cond[:1])
+    for name, g in gaps.items():
+        log(f"  one velocity, 48 layers, SSM leaves drawn, {name}: kernels vs "
+            f"plain {g['kernel_vs_plain']:.3e}, plain at chunk 64 vs 128 "
+            f"{g['chunk64_vs_chunk128']:.3e} of max|v|")
+    log(f"  {B_SERVE} requests in f32, SSM leaves drawn: each step through "
+        f"the kernels vs the same step through the plain versions, max|diff|"
+        f" {', '.join(f'{e:.3e}' for e in errs)} of max|x| {scale:.3e} "
+        f"(band {band:.3e}); the whole plain replay ends {free_err:.3e} "
+        f"away; the draw moved the latents by {moved:.3e}")
+    if not torch.isfinite(lat).all() or max(errs) > band:
+        fail("a step of the ssm served path disagrees with the plain "
+             "versions")
+    if moved <= 10 * band:
+        fail("the drawn SSM leaves hardly moved the latents")
+    del eng, out, traj
+    return {"step_errs": errs, "max_abs": scale, "band": band,
+            "free_running_err": free_err, "moved": moved,
+            "velocity_gaps": gaps}
+
 def _clone(tree):
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
     return tree.clone()
 
 
+def _cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", metavar="N,N,...",
-                    help="run only these of phases 3-9 after the device and "
+                    help="run only these of phases 3-13 after the device and "
                          "build phases, and print no result lines (a "
                          "development aid; the check runs every phase)")
     args = ap.parse_args(argv)
@@ -1004,7 +1387,7 @@ def main(argv=None) -> int:
     eng, lat_zero = res.pop("engine"), res.pop("latents")
 
     log("[6] profile of one denoising step of the engine")
-    res["profile"] = profile_step(eng)
+    res["profile"] = profile_step(eng, SEQ)
 
     log("[7] drawn modulation: served through the kernels vs plain replay")
     res["modulated"] = check_modulated(eng, lat_zero)
@@ -1021,11 +1404,38 @@ def main(argv=None) -> int:
 
     log("[9] one update through the kernels vs the plain versions")
     update_res = check_update(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("[10] ssd_scan against its plain versions")
+    ssd_row = check_ssd(dev)
+
+    log(f"[11] velocity of {SSM_ARCH} at full width, depth 2")
+    ssm_vel = check_ssm_velocity(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[12] ssm path: repro_torch.launch.serve, {SSM_ARCH}, "
+        f"{SSM_LAYERS} layers")
+    ssm_res = ssm_path()
+    ssm_res["velocity_check"] = ssm_vel
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[13] {SSM_ARCH} in f32, SSM leaves drawn: served through the "
+        f"kernels vs plain replay")
+    ssm_res["replay_f32"] = check_ssm_replay()
 
     for row in rows:
         row["launches"] = train_res["launches"][row["name"]]
         row["launches_by_path"] = {"serve": res["launches"][row["name"]],
-                                   "train": row["launches"]}
+                                   "train": row["launches"],
+                                   "serve_ssm": ssm_res["launches"][
+                                       row["name"]]}
+    ssd_row["launches"] = ssm_res["launches"]["ssd_scan"]
+    ssd_row["launches_by_path"] = {"serve": res["launches"]["ssd_scan"],
+                                   "train": train_res["launches"]["ssd_scan"],
+                                   "serve_ssm": ssd_row["launches"]}
+    rows.append(ssd_row)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "launches_by_path")
@@ -1034,6 +1444,8 @@ def main(argv=None) -> int:
     print(json.dumps({"train_path": {k: v for k, v in train_res.items()
                                      if k != "launches"},
                       "update_check": update_res}))
+    print(json.dumps({"ssm_path": {k: v for k, v in ssm_res.items()
+                                   if k != "launches"}}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -1050,7 +1462,9 @@ def _train_in_tmp() -> dict:
 def run_only(dev, only: set) -> int:
     phases = {3: lambda: [check_sde(dev), check_attention(dev),
                           check_attention_bwd(dev), *check_grpo(dev)],
-              8: _train_in_tmp, 9: lambda: check_update(dev)}
+              8: _train_in_tmp, 9: lambda: check_update(dev),
+              10: lambda: check_ssd(dev), 11: lambda: check_ssm_velocity(dev),
+              12: ssm_path, 13: check_ssm_replay}
     for n in sorted(only):
         if n not in phases:
             fail(f"--only: phase {n} cannot run alone")

@@ -1,8 +1,9 @@
 """Typed configuration of the port: the subset of ``repro.config`` that
 serving and ``flow_grpo`` training read.
 
-``ArchConfig`` (backbone geometry), ``FlowRLConfig`` (trainer, SDE dynamics,
-rewards, preprocessing, latent geometry), ``OptimConfig``, ``DataConfig``
+``ArchConfig`` (backbone geometry, with ``SSMConfig`` for the Mamba-2
+block), ``FlowRLConfig`` (trainer, SDE dynamics, rewards, preprocessing,
+latent geometry), ``OptimConfig``, ``DataConfig``
 (prompt dataset and frozen encoder), ``DistConfig`` and ``PerfConfig``
 (layouts and performance policies; only the defaults are ported),
 ``LoopConfig`` and ``RunConfig`` load from dicts/JSON through the same
@@ -15,9 +16,19 @@ import dataclasses
 import json
 import typing
 from dataclasses import dataclass, field
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio", "dit")
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 SSD block."""
+    d_state: int = 64
+    expand: int = 2            # d_inner = expand * d_model
+    head_dim: int = 64         # SSD head dim (n_heads = d_inner // head_dim)
+    chunk: int = 128           # chunked-scan block length
+    d_conv: int = 4            # depthwise conv width
 
 
 @dataclass(frozen=True)
@@ -26,7 +37,7 @@ class ArchConfig:
     family: str                       # one of FAMILIES
     n_layers: int
     d_model: int
-    n_heads: int
+    n_heads: int                      # 0 for attn-free (ssm)
     n_kv_heads: int
     d_ff: int
     vocab_size: int
@@ -36,6 +47,7 @@ class ArchConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     window: int = 0
+    ssm: Optional[SSMConfig] = None
     # citation of the source paper / model card for this config
     source: str = ""
 

@@ -1,8 +1,9 @@
 """Architecture configs of the port, registered under the ``"arch"`` kind.
 
 Each module exports ``config()`` (the full-scale config) and ``reduced()``
-(≤2 layers, CPU smoke scale).  Only the paper's own DiT family is ported so
-far; the other archs of ``repro.configs`` come with their families.
+(≤2 layers, CPU smoke scale).  The paper's own DiT family and the Mamba-2
+SSM are ported so far; the other archs of ``repro.configs`` come with their
+families.
 """
 from __future__ import annotations
 
@@ -11,9 +12,13 @@ import importlib
 from repro_torch import registry
 from repro_torch.config import ArchConfig
 
+# the reference's assigned archs whose family the port runs so far
+ARCH_IDS = ["mamba2-370m"]
+
 PAPER_ARCHS = ["flux_dit"]
 
-_MOD = {a: a.replace("-", "_").replace(".", "_") for a in PAPER_ARCHS}
+_MOD = {a: a.replace("-", "_").replace(".", "_") for a in
+        ARCH_IDS + PAPER_ARCHS}
 
 
 def _load(arch: str):
@@ -39,7 +44,7 @@ def _arch_factory(arch: str):
     return build
 
 
-for _a in PAPER_ARCHS:
+for _a in ARCH_IDS + PAPER_ARCHS:
     if not registry.is_registered("arch", _a):
         registry.register("arch", _a)(_arch_factory(_a))
 del _a

@@ -19,6 +19,7 @@ from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.grpo_loss import GRPOLossFn
 from repro_torch.kernels.grpo_loss import grpo_loss as _grpo
 from repro_torch.kernels.sde_step import sde_step as _sde
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd
 
 
 def flash_attention(q, k, v, *, causal=True, window=0):
@@ -34,6 +35,14 @@ def sde_step(v, x, eps, t, t_next, *, eta=0.7):
     if x.device.type == "cpu":
         return ref.sde_step_ref(v, x, t, t_next, eps, eta=eta)
     return _sde(v, x, eps, t, t_next, eta=eta)
+
+
+def ssd_scan(x, dt, a, bm, cm, *, chunk=128):
+    """Mamba-2 SSD chunked scan from a zero state: (y (B,L,H,P) in x's
+    dtype, final state (B,H,P,N) f32).  Not differentiated."""
+    if x.device.type == "cpu":
+        return ref.ssd_chunked_ref(x, dt, a, bm, cm, chunk)
+    return _ssd(x, dt, a, bm, cm, chunk=chunk)
 
 
 def grpo_loss(logp_new, logp_old, adv, ratio_mean=None, *, clip=0.2,

@@ -158,3 +158,78 @@ def grpo_loss_bwd_ref(logp_new: torch.Tensor, logp_old: torch.Tensor,
     d_lpn = -a * ratio * active.to(F32) * gf
     d_adv = -torch.where(unclipped_min, ratio, rc) * gf
     return d_lpn, -d_lpn, d_adv
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 bm: torch.Tensor, cm: torch.Tensor, *,
+                 init_state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential (non-chunked) SSD recurrence — the ground truth, one step
+    per token (for small shapes: at L = 4608 it is 4608 steps of small ops).
+
+    x: (B,L,H,P); dt: (B,L,H); a: (H,); bm/cm: (B,L,N).
+    Returns (y (B,L,H,P) in x's dtype, final_state (B,H,P,N) f32)."""
+    B, L, H, P = x.shape
+    N = bm.shape[-1]
+    h = (torch.zeros((B, H, P, N), dtype=F32, device=x.device)
+         if init_state is None else init_state.to(F32))
+    af = a.to(F32)
+    ys = []
+    for t in range(L):
+        dt_t = dt[:, t].to(F32)                                # (B,H)
+        decay = torch.exp(dt_t * af)
+        upd = torch.einsum("bh,bn,bhp->bhpn", dt_t, bm[:, t].to(F32),
+                           x[:, t].to(F32))
+        h = h * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", h, cm[:, t].to(F32)))
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    bm: torch.Tensor, cm: torch.Tensor, chunk: int,
+                    init_state: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan in f32 (``repro.models.ssm.ssd_chunked``): within a
+    chunk the quadratic dual form, across chunks a recurrence over the
+    (P, N) chunk states.  Shapes as ``ssd_scan_ref``; L must be a multiple
+    of min(chunk, L)."""
+    B, L, H, Pd = x.shape
+    N = bm.shape[-1]
+    Q = min(chunk, L)
+    if L % Q:
+        raise ValueError(f"ssd scan: sequence length {L} is no multiple of "
+                         f"the chunk {Q}")
+    nc = L // Q
+    xf = x.to(F32).reshape(B, nc, Q, H, Pd)
+    dtf = dt.to(F32).reshape(B, nc, Q, H)
+    bf = bm.to(F32).reshape(B, nc, Q, N)
+    cf = cm.to(F32).reshape(B, nc, Q, N)
+    cum = torch.cumsum((dtf * a.to(F32)).transpose(2, 3), dim=-1)  # (B,nc,H,Q)
+
+    # within-chunk (dual / quadratic form); exp only below the diagonal
+    seg = cum[..., :, None] - cum[..., None, :]            # sum_{j+1..i}
+    lower = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp(torch.where(lower, seg, float("-inf")))
+    scores = cf @ bf.transpose(-1, -2)                     # (B,nc,Q,Q)
+    xdt = (xf * dtf[..., None]).transpose(2, 3)            # (B,nc,H,Q,P)
+    y = (scores[:, :, None] * decay) @ xdt                 # (B,nc,H,Q,P)
+    del seg, decay
+
+    # chunk states, then the recurrence over chunks
+    total = cum[..., -1:]                                  # (B,nc,H,1)
+    w = xdt * torch.exp(total - cum)[..., None]            # (B,nc,H,Q,P)
+    states = w.transpose(-1, -2) @ bf[:, :, None]          # (B,nc,H,P,N)
+    chunk_decay = torch.exp(total[..., 0])                 # (B,nc,H)
+    h = (torch.zeros((B, H, Pd, N), dtype=F32, device=x.device)
+         if init_state is None else init_state.to(F32))
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)                                  # state entering c
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_prev = torch.stack(h_prevs, dim=1)                   # (B,nc,H,P,N)
+
+    # carried-state contribution
+    y_off = (cf[:, :, None] @ h_prev.transpose(-1, -2)) * torch.exp(
+        cum)[..., None]                                    # (B,nc,H,Q,P)
+    y = (y + y_off).transpose(2, 3).reshape(B, L, H, Pd)
+    return y.to(x.dtype), h

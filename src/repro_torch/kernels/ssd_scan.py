@@ -1,0 +1,103 @@
+"""CUDA wrapper of the Mamba-2 SSD chunked scan (``csrc/ssd_scan.cu``).
+
+``ssd_scan`` takes CUDA tensors only; ``kernels/ops.py`` sends CPU tensors
+to the plain chunked version ``ref.ssd_chunked_ref``.  ``ssd_scan.launches``
+counts the calls that launched the kernel (one call runs its four passes).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.sde_step import require_sm90
+
+F32 = torch.float32
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's tile limits (csrc/ssd_scan.cu: QMAX, PMAX, NMAX)
+MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
+
+
+def _lib():
+    fn = _build.load("ssd_scan").ssd_scan_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+            ctypes.c_longlong] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x, dt, a, bm, cm, chunk: int) -> int:
+    require_sm90(x.device)
+    if x.dim() != 4 or bm.dim() != 3 or cm.dim() != 3 or dt.dim() != 3:
+        raise ValueError("ssd_scan: x (B,L,H,P), dt (B,L,H), bm/cm (B,L,N) "
+                         f"expected, got x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, bm {tuple(bm.shape)}, cm "
+                         f"{tuple(cm.shape)}")
+    B, L, H, P = x.shape
+    N = bm.shape[-1]
+    if (tuple(dt.shape) != (B, L, H) or tuple(a.shape) != (H,)
+            or tuple(bm.shape) != (B, L, N) or tuple(cm.shape) != (B, L, N)):
+        raise ValueError(f"ssd_scan: shapes disagree: x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, a {tuple(a.shape)}, bm "
+                         f"{tuple(bm.shape)}, cm {tuple(cm.shape)}")
+    if not (x.dtype == bm.dtype == cm.dtype) or x.dtype not in DTYPES:
+        raise TypeError(f"ssd_scan: x, bm, cm must share one dtype of "
+                        f"{list(DTYPES)}, got {x.dtype}, {bm.dtype}, "
+                        f"{cm.dtype}")
+    if dt.dtype != F32 or a.dtype != F32:
+        raise TypeError(f"ssd_scan: dt and a must be float32, got {dt.dtype}"
+                        f", {a.dtype}")
+    if any(t.device != x.device for t in (dt, a, bm, cm)):
+        raise ValueError("ssd_scan: inputs lie on different devices")
+    # rows may be strided (column slices of the conv output); within a
+    # token, heads and features must be packed
+    if (P > 1 and x.stride(3) != 1) or (H > 1 and x.stride(2) != P) or (
+            N > 1 and (bm.stride(2) != 1 or cm.stride(2) != 1)):
+        raise ValueError("ssd_scan: x must be packed over (H, P) and bm/cm "
+                         "over N within each token")
+    if not (dt.is_contiguous() and a.is_contiguous()):
+        raise ValueError("ssd_scan: dt and a must be contiguous")
+    Q = min(chunk, L)
+    if B == 0 or L == 0 or L % Q:
+        raise ValueError(f"ssd scan: sequence length {L} is no multiple of "
+                         f"the chunk {Q}")
+    if Q > MAX_CHUNK or P > MAX_HEAD_DIM or N > MAX_STATE:
+        raise ValueError(f"ssd_scan: the kernel takes chunk <= {MAX_CHUNK}, "
+                         f"head_dim <= {MAX_HEAD_DIM}, d_state <= "
+                         f"{MAX_STATE}; got {Q}, {P}, {N}")
+    return Q
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             bm: torch.Tensor, cm: torch.Tensor, *, chunk: int = 128
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B,L,H,P); dt: (B,L,H) f32; a: (H,) f32; bm/cm: (B,L,N), all on
+    one CUDA device; x, bm and cm float32 or bfloat16.  Returns (y
+    (B,L,H,P) in x's dtype, final state (B,H,P,N) float32)."""
+    Q = _check(x, dt, a, bm, cm, chunk)
+    B, L, H, P = x.shape
+    N = bm.shape[-1]
+    nc = L // Q
+    dev = x.device
+    y = torch.empty((B, L, H, P), dtype=x.dtype, device=dev)
+    hT = torch.empty((B, H, P, N), dtype=F32, device=dev)
+    scores = torch.empty((B, nc, Q, Q), dtype=F32, device=dev)
+    states = torch.empty((B, nc, H, P, N), dtype=F32, device=dev)
+    decay = torch.empty((B, nc, H), dtype=F32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _lib()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
+                cm.data_ptr(), y.data_ptr(), hT.data_ptr(),
+                scores.data_ptr(), states.data_ptr(), decay.data_ptr(),
+                DTYPES[x.dtype], B, L, H, P, N, Q,
+                x.stride(0), x.stride(1), bm.stride(0), bm.stride(1),
+                cm.stride(0), cm.stride(1), stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
+    ssd_scan.launches += 1
+    return y, hT
+
+
+ssd_scan.launches = 0

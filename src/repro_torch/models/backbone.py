@@ -1,11 +1,15 @@
-"""Backbone of the port: the ``dit`` branch of ``repro.models.backbone``.
+"""Backbone of the port: the ``dit`` and ``ssm`` branches of
+``repro.models.backbone``.
 
 The spec is the reference's whole tree (embedding, final norm, LM head and
 ``n_layers`` stacked blocks), so parameter trees cross between the packages
-key for key.  ``forward_embeds`` runs the bidirectional adaLN-zero blocks as
-a Python loop over slices of the stacked ``(n_layers, ...)`` leaves where
-the reference scans; the slices are views, so gradients reach the stacked
-leaves.  The other families are not ported yet.
+key for key.  ``forward_embeds`` runs the blocks as a Python loop over
+slices of the stacked ``(n_layers, ...)`` leaves where the reference scans;
+the slices are views, so gradients reach the stacked leaves.  ``dit`` runs
+the bidirectional adaLN-zero blocks, ``ssm`` the Mamba-2 blocks
+``[ln, SSD]`` (causal by construction).  The other families (``dense``,
+``moe``, ``hybrid``, ``vlm``, ``audio``) and the decode paths are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -14,17 +18,18 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch.config import ArchConfig
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, ssm
 from repro_torch.models.params import P, stack
 
-PORTED_FAMILIES = ("dit",)
+PORTED_FAMILIES = ("dit", "ssm")
 
 
 def _not_ported(family: str) -> NotImplementedError:
     return NotImplementedError(
         f"backbone family {family!r} is not ported to repro_torch yet "
         "(ROADMAP.md Queue 1: 'Causal FlowAdapter path for the dense/LM "
-        "family' and 'Other families'); only 'dit' runs")
+        "family' and 'Other families'); 'dit' (flux_dit) and 'ssm' "
+        "(mamba2-370m, full-sequence forward) run")
 
 
 def _attn_block_spec(cfg: ArchConfig) -> Dict:
@@ -37,6 +42,10 @@ def _attn_block_spec(cfg: ArchConfig) -> Dict:
         # adaLN-zero: cond vector -> 6 modulation params per block
         "ada": P((d, 6 * d), ("embed", None), "zeros"),
     }
+
+
+def _ssm_block_spec(cfg: ArchConfig) -> Dict:
+    return {"ln": layers.rmsnorm_spec(cfg.d_model), "ssm": ssm.spec(cfg)}
 
 
 def _unbind(tree: Dict, n: int) -> List[Dict]:
@@ -62,8 +71,10 @@ class Backbone:
         s: Dict[str, Any] = {
             "embed": P((cfg.vocab_size, d), ("vocab", "embed"), "small"),
             "final_norm": layers.rmsnorm_spec(d),
-            "blocks": stack(_attn_block_spec(cfg), cfg.n_layers),
         }
+        block = (_ssm_block_spec(cfg) if cfg.family == "ssm"
+                 else _attn_block_spec(cfg))
+        s["blocks"] = stack(block, cfg.n_layers)
         if not cfg.tie_embeddings:
             s["lm_head"] = P((d, cfg.vocab_size), ("embed", "vocab"))
         return s
@@ -83,15 +94,25 @@ class Backbone:
         h = h * (1 + sc_m[:, None]) + sh_m[:, None]
         return x + g_m[:, None] * layers.mlp(p["ffn"], h)
 
+    def _ssm_block(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
+        h = layers.rmsnorm(p["ln"], x, self.cfg.norm_eps)
+        out, _ = ssm.apply_full(p["ssm"], self.cfg, h)
+        return x + out
+
     def forward_embeds(self, params: Dict, x: torch.Tensor, *,
                        causal: bool = True, window: int = 0,
                        cond: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Run all blocks over embedded inputs x: (B, S, d) with the
-        adaLN conditioning vector ``cond`` (B, d); returns the normed
-        hidden states."""
+        """Run all blocks over embedded inputs x: (B, S, d); returns the
+        normed hidden states.  ``dit`` needs the adaLN conditioning vector
+        ``cond`` (B, d); ``ssm`` is causal whatever ``causal`` says and
+        takes no ``cond``."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            for p in _unbind(params["blocks"], cfg.n_layers):
+                x = self._ssm_block(p, x)
+            return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         if cond is None:
             raise _not_ported("dit without adaLN conditioning")
-        cfg = self.cfg
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         for p in _unbind(params["blocks"], cfg.n_layers):

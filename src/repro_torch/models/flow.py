@@ -2,9 +2,11 @@
 flow-matching velocity field ``v_θ(x_t, c, t)`` (``repro.models.flow``).
 
 Latent tokens are projected into the backbone width, prefixed with projected
-condition embeddings, run through the bidirectional adaLN-zero DiT with the
-timestep embedding as the modulation vector, and projected back to latent
-space.  The causal path of the LM families comes with those families.
+condition embeddings, run through the backbone, and projected back to latent
+space.  The ``dit`` family runs bidirectionally with the timestep embedding
+as the adaLN modulation vector (a FLUX-style DiT); the other families run
+causally over ``[cond prefix; time token; latent tokens]`` (ported so far:
+the ``ssm`` family, causal by construction).
 """
 from __future__ import annotations
 
@@ -57,10 +59,16 @@ class FlowAdapter:
         t_hid = torch.nn.functional.silu(
             torch.matmul(t_feat, params["time_w1"]).to(F32)).to(dtype)
         t_emb = torch.matmul(t_hid, params["time_w2"]).to(dtype)
-        # bidirectional DiT: condition prefix + adaLN time modulation
-        x = torch.cat([h_cond, h_lat], dim=1)
-        hidden = self.backbone.forward_embeds(params["backbone"], x,
-                                              causal=False, cond=t_emb)
+        if self.cfg.family == "dit":
+            # bidirectional DiT: condition prefix + adaLN time modulation
+            x = torch.cat([h_cond, h_lat], dim=1)
+            hidden = self.backbone.forward_embeds(params["backbone"], x,
+                                                  causal=False, cond=t_emb)
+        else:
+            # causal DiT: [cond prefix; time token; latent tokens]
+            x = torch.cat([h_cond, t_emb[:, None, :], h_lat], dim=1)
+            hidden = self.backbone.forward_embeds(params["backbone"], x,
+                                                  causal=True)
         h_out = hidden[:, -Lt:]
         return torch.matmul(h_out.to(F32), params["latent_out"].to(F32))
 
