@@ -9,7 +9,9 @@ script exits 2 before printing any result.
 1. Device: CUDA with capability (9, 0); prints ``nvidia-smi``'s name and
    power limit.
 2. Build: compiles every ``src/repro_torch/kernels/csrc/*.cu`` (one nvcc per
-   source, all started together) and prints the build seconds.
+   source, all started together) and prints the build seconds, and the
+   counts of ``HGMMA``, ``UTMALDG`` and ``HMMA`` in each attention
+   library's SASS (``cuobjdump``): the bf16 path runs on wgmma and TMA.
 3. Kernels against their plain PyTorch versions on the card, at the shapes
    the serving and training paths give them and at small, odd, causal,
    windowed, GQA and ragged shapes: ``sde_step``, the attention forward
@@ -89,6 +91,8 @@ import contextlib
 import gc
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -248,6 +252,23 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
+def sass_counts(name: str):
+    """Counts of warpgroup products (HGMMA), TMA tile loads (UTMALDG) and
+    warp-level products (HMMA) in the built library of ``csrc/<name>.cu``,
+    from ``cuobjdump -sass``; "not found" when the toolkit has no
+    cuobjdump."""
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        return "not found"
+    sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
+
+
 # ------------------------------------------------------------------ phase 3
 def check_sde(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(0)
@@ -323,6 +344,10 @@ def check_attention(dev) -> dict:
         (1, 512, 512, 8, 2, 64, True, 64, torch.float32),
         (1, 100, 37, 4, 1, 64, True, 64, torch.bfloat16),
         (1, 300, 300, 4, 2, 128, False, 0, torch.float32),
+        # several ring stages with skipped tiles and ragged tails at D = 128,
+        # and the 64-byte swizzle of D = 32 under a window
+        (1, 1000, 1000, 8, 2, 128, True, 0, torch.bfloat16),
+        (1, 300, 300, 4, 2, 32, True, 128, torch.bfloat16),
     ]
     path_err = None
     for (B, Sq, Sk, H, K, D, causal, window, dt) in cases:
@@ -399,6 +424,8 @@ ATTN_BWD_CASES = [  # B, Sq, Sk, H, K, D, causal, window, dtype
     (1, 100, 37, 4, 1, 64, True, 64, torch.bfloat16),
     (1, 300, 300, 4, 2, 128, False, 0, torch.float32),
     (1, 300, 300, 4, 2, 128, True, 0, torch.bfloat16),
+    (1, 1000, 1000, 8, 2, 128, True, 0, torch.bfloat16),
+    (1, 300, 300, 4, 2, 32, True, 128, torch.bfloat16),
     (1, SEQ, SEQ, HEADS, HEADS, HEAD_DIM, False, 0, torch.bfloat16),
 ]
 # max |kernel - plain| / max |plain| of each of dq, dk, dv: f32 sums in
@@ -1370,6 +1397,8 @@ def main(argv=None) -> int:
         f"wall, one nvcc per source in parallel)")
     for name in _build.sources():
         _build.load(name)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        log(f"    {name} SASS: {json.dumps(sass_counts(name))}")
 
     if only:
         return run_only(dev, only)

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes plain C functions and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
-``<repo>/build/repro_torch/``, named by a hash of its source and flags, so an
-edited source is rebuilt and an unchanged one is reused.  ``build_all``
+``<repo>/build/repro_torch/``, named by a hash of its source, of every
+``csrc/*.cuh`` header and of the flags, so an edited source or header is
+rebuilt and an unchanged tree is reused.  ``build_all``
 starts one ``nvcc`` per source at once.  Nothing here runs at import: the
 first CUDA call of a kernel wrapper loads (and if need be builds) its
 library.
@@ -22,8 +23,11 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# -lcuda (found through nvcc's stubs directory) for cuTensorMapEncodeTiled,
+# the libcuda call that builds the attention kernels' TMA descriptors
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-lcuda")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -51,9 +55,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str, nvcc: str):

@@ -8,15 +8,23 @@
 // Bound on the H100: operations.  At the DiT shape (S = 4608, D = 128) the
 // two products do 4 S^2 D flops per head against 4 S D elements moved, some
 // 600 flops per byte, above the card's ~295: the floor is the tensor cores'
-// 989 TFLOP/s.
+// 989 TFLOP/s.  The softmax's S^2 exponentials run on the special-function
+// units at 16 a clock per SM, about half the products' time, so they have to
+// run under the products.
 //
-// Two kernels.  bf16 inputs with 16-byte aligned rows (the DiT path) run
-// attn_fwd_mma below: mma.sync bf16 products with f32 accumulators, from
-// registers and padded shared-memory tiles, without the asynchronous TMA /
-// wgmma pipeline that the full rate needs (later work).  f32 inputs, and
-// bf16 ones whose strides break that alignment, run attn_fwd: every
-// multiply-add in f32 on the CUDA cores (67 TFLOP/s peak), exact to f32
-// rounding.
+// Two kernels, chosen by dtype and layout (mma_aligned).  bf16 inputs whose
+// base pointers are 16-byte aligned and whose strides are multiples of 8
+// elements (what TMA needs; the DiT path) run attn_fwd_wgmma: TMA loads into
+// an mbarrier ring, wgmma products (design below).  f32 inputs, and bf16
+// ones that break that alignment, run attn_fwd: every multiply-add in f32 on
+// the CUDA cores (67 TFLOP/s peak), exact to f32 rounding.  That is the f32
+// kernel, not a fallback: the bf16 path has no other kernel.
+//
+// What holds attn_fwd_wgmma back now (measured on an H100 SXM, PERF.md):
+// at the DiT shape it runs at ~65 % of the tensor cores' peak, as fast as
+// PyTorch's fused attention there.  Without the softmax the same loop ran
+// at ~80 %: the exponentials and the products overlap only in part, and
+// the two consumer warpgroups run in near lockstep.
 //
 // attn_fwd design.  One block of 256 threads owns 64 query rows of one (batch, head)
 // and walks the key/value sequence in tiles of 64, the loop standing in for
@@ -38,8 +46,7 @@
 // uses to recompute the probabilities; the output does not depend on it.
 // The LSE epilogue is a template variant (kLse), so the serving path's
 // kernel compiles without it.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -203,187 +210,225 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: mma.sync m16n8k16, f32 accumulators.
+// bf16 on Hopper's tensor cores: TMA ring, wgmma, one producer warp.
 //
-// One block of 4 warps owns 64 query rows of one (batch, head); each warp
-// owns 16 of them and keeps its Q fragments, its 16 x 64 score tile and its
-// 16 x D output accumulator in registers.  K and V tiles of 64 keys sit in
-// shared memory row-major with rows padded by 8 halves, so the 32-bit K
-// fragment loads and the ldmatrix.trans V loads hit 32 distinct banks.  The
-// score tile's accumulator layout is the A-operand layout of the P.V
-// product, so P goes from registers to the tensor cores as bf16 without a
-// shared-memory round trip (p is rounded to bf16 there, the only rounding
-// beyond the f32 kernel's).  Softmax runs in base 2 with the scale folded
-// in; each thread keeps a partial row sum, reduced over its quad at the end.
-// Loads are synchronous 16-byte copies (no cp.async/TMA pipeline yet), so
-// the tensor cores idle while a tile arrives.
+// A block of three warpgroups owns kWgBQ = 128 query rows of one (batch,
+// head).  Warpgroup 0 is the producer: after giving most of its registers
+// to the others (setmaxnreg), one thread TMA-loads the Q tile once and then
+// the K and V tiles of kWgBK = 128 keys into a ring of kStages = 3 stages.
+// Each operand of a stage has a "full" barrier (the copy completes it) and
+// an "empty" one, on which the consumers' eight warps arrive: K's once S is
+// formed, V's once P V is, so the next K is loaded while V is still read.
+// Warpgroups 1 and 2 each own 64 rows.  Per key tile a consumer starts
+// S = Q K^T (shared-memory wgmma m64n128k16, Q and K K-major) and the
+// previous tile's O += P V (register-A wgmma, V read MN-major), waits for S
+// only, and runs the online softmax (base 2, the scale folded into one FMA
+// before each exponential, masks only on tiles that cross a boundary)
+// while P V runs; then it rescales O and rounds P to bf16 in place (an
+// m64nN accumulator is already the A-fragment layout).  At D = 128 and 64
+// the tiles use the 128-byte swizzle, at D = 32 the 64-byte one.  Nothing
+// orders the two consumers: making them take turns (the FA3 ping-pong) or
+// starting one half a tile late measured slower on the H100.
 // ---------------------------------------------------------------------------
-constexpr int kMmaThreads = 128;
+constexpr int kWgThreads = 384;
+constexpr int kWgBQ = 128;   // query rows of a block, 64 a consumer
+constexpr int kWgBK = 128;   // keys of a ring stage
+constexpr int kStages = 3;
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&h);
-}
+struct FwdParams {
+  CUtensorMap tq, tk, tv;   // (D, heads, S, B) views, 64-row boxes
+  __nv_bfloat16* o;
+  float* lse;
+  long long ob, os, oh;
+  int Sq, Sk, H, G, causal, window;
+  float scale_log2;
+};
 
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r,
-                                                  const void* smem_row) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem_row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-#define ATTN_MMA_PARAMS                                                      \
-  const __nv_bfloat16 *__restrict__ q, const __nv_bfloat16 *__restrict__ k,  \
-      const __nv_bfloat16 *__restrict__ v, __nv_bfloat16 *__restrict__ o,    \
-      float *__restrict__ lse, int Sq, int Sk, int G, long long qb,          \
-      long long qs, long long qh, long long kb, long long ks, long long kh,  \
-      long long vb, long long vs, long long vh, long long ob, long long os,  \
-      long long oh, int causal, int window, float scale_log2
-#define ATTN_MMA_ARGS                                                        \
-  q, k, v, o, lse, Sq, Sk, G, qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh, \
-      causal, window, scale_log2
+template <int D>
+struct FwdLayout {
+  using QT = hopper::Tile<D, kWgBQ>;
+  using KT = hopper::Tile<D, kWgBK>;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + QT::kBytes;
+  static constexpr int kV = kK + kStages * KT::kBytes;
+  static constexpr int kBar = kV + kStages * KT::kBytes;
+  static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages) + 1024;
+};
 
 template <int D, bool kLse>
-__device__ __forceinline__ void attn_fwd_mma_body(ATTN_MMA_PARAMS) {
-  constexpr int P = D + 8;          // padded row of a K/V tile, in halves
-  constexpr int KC = D / 16;        // k-chunks of the score product
-  constexpr int NT = kBK / 8;       // n-tiles of a score row block
-  constexpr int DT = D / 8;         // n-tiles of the output
-  constexpr int CH = D / 8;         // 16-byte chunks of one K/V row
-  __shared__ __align__(16) __nv_bfloat16 Ks[kBK * P];
-  __shared__ __align__(16) __nv_bfloat16 Vs[kBK * P];
+__device__ __forceinline__ void attn_fwd_wgmma_body(const FwdParams& p) {
+  using L = FwdLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty_k = full_v + kStages;   // S of the stage is done
+  uint64_t* empty_v = empty_k + kStages;  // P V of the stage is done
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / G;
-  const __nv_bfloat16* qp = q + b * qb + h * qh;
-  const __nv_bfloat16* kp = k + b * kb + kvh * kh;
-  const __nv_bfloat16* vp = v + b * vb + kvh * vh;
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const int q0 = blockIdx.x * kWgBQ, h = blockIdx.y, b = blockIdx.z;
+  // key tiles any row of this block may see
+  const int q_last = min(q0 + kWgBQ, p.Sq) - 1;
+  int hi = p.causal ? min(p.Sk, q_last + 1) : p.Sk;
+  int lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  if (lo >= hi) { lo = 0; hi = p.Sk; }
+  const int t0 = lo / kWgBK, t1 = (hi + kWgBK - 1) / kWgBK;
 
-  unsigned qa[KC][4];
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    const int c = kc * 16 + tig * 2;
-    qa[kc][0] = row0 < Sq ? *reinterpret_cast<const unsigned*>(qp + row0 * qs + c) : 0u;
-    qa[kc][1] = row1 < Sq ? *reinterpret_cast<const unsigned*>(qp + row1 * qs + c) : 0u;
-    qa[kc][2] = row0 < Sq ? *reinterpret_cast<const unsigned*>(qp + row0 * qs + c + 8) : 0u;
-    qa[kc][3] = row1 < Sq ? *reinterpret_cast<const unsigned*>(qp + row1 * qs + c + 8) : 0u;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full_k[s], 1);
+      hopper::mbar_init(&full_v[s], 1);
+      hopper::mbar_init(&empty_k[s], 8);
+      hopper::mbar_init(&empty_v[s], 8);
+    }
+    hopper::fence_barrier_init();
   }
+  __syncthreads();
 
-  float acc[DT][4];
-#pragma unroll
-  for (int nt = 0; nt < DT; ++nt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      const int kvh = h / p.G;
+      hopper::mbar_expect_tx(full_q, L::QT::kBytes);
+      hopper::load_tile<D, kWgBQ>(sm + L::kQ, &p.tq, full_q, h, q0, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = t0; t < t1; ++t) {
+        unsigned char* kt = sm + L::kK + stage * L::KT::kBytes;
+        unsigned char* vt = sm + L::kV + stage * L::KT::kBytes;
+        hopper::mbar_wait(&empty_k[stage], phase ^ 1);
+        hopper::mbar_expect_tx(&full_k[stage], L::KT::kBytes);
+        hopper::load_tile<D, kWgBK>(kt, &p.tk, &full_k[stage], kvh, t * kWgBK, b);
+        hopper::mbar_wait(&empty_v[stage], phase ^ 1);
+        hopper::mbar_expect_tx(&full_v[stage], L::KT::kBytes);
+        hopper::load_tile<D, kWgBK>(vt, &p.tv, &full_v[stage], kvh, t * kWgBK, b);
+        if (++stage == kStages) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<240>();
+
+  constexpr int NO = D / 2;          // output accumulator registers
+  constexpr int NS = kWgBK / 2;      // score accumulator registers
+  const int tid = threadIdx.x & 127, w = wg - 1;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tg = lane & 3;
+  const int qw = q0 + 64 * w;                 // this warpgroup's first row
+  const int row0 = qw + warp * 16 + g, row1 = row0 + 8;
+  const float sl2 = p.scale_log2;
+
+  float o[NO];   // first written by the first P V (scale_d = 0)
+  // running max in scaled base-2 units, running sum
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  uint32_t pa[kWgBK / 16][4];   // the previous tile's P, bf16
 
-  const int q_last = min(q0 + kBQ, Sq) - 1;
-  int hi = causal ? min(Sk, q_last + 1) : Sk;
-  int lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  if (lo >= hi) { lo = 0; hi = Sk; }
-
-  for (int k0 = (lo / kBK) * kBK; k0 < hi; k0 += kBK) {
-    __syncthreads();   // the previous tile's readers are done
-    for (int i = tid; i < kBK * CH; i += kMmaThreads) {
-      const int r = i / CH, c = (i % CH) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + r < Sk) {
-        kv = *reinterpret_cast<const uint4*>(kp + (k0 + r) * ks + c);
-        vv = *reinterpret_cast<const uint4*>(vp + (k0 + r) * vs + c);
-      }
-      *reinterpret_cast<uint4*>(&Ks[r * P + c]) = kv;
-      *reinterpret_cast<uint4*>(&Vs[r * P + c]) = vv;
+  hopper::mbar_wait(full_q, 0);
+  int stage = 0, prev = 0;
+  uint32_t phase = 0, prev_phase = 0;
+  for (int t = t0; t < t1; ++t) {
+    const int k0 = t * kWgBK;
+    const unsigned char* kt = sm + L::kK + stage * L::KT::kBytes;
+    hopper::mbar_wait(&full_k[stage], phase);
+    if (t > t0) hopper::mbar_wait(&full_v[prev], prev_phase);
+    // S = Q K^T of this tile, then O += P V of the previous one: the
+    // softmax below overlaps the second product
+    float s[NS];
+    hopper::fence_regs(o);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+      hopper::wgmma_ss(s, hopper::desc_k<D, kWgBQ>(sm + L::kQ, 64 * w, kc),
+                       hopper::desc_k<D, kWgBK>(kt, 0, kc), kc > 0);
+    hopper::wgmma_commit();
+    if (t > t0) {
+      const unsigned char* vt = sm + L::kV + prev * L::KT::kBytes;
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk)
+        hopper::wgmma_rs_tb(o, pa[kk], hopper::desc_mn<D, kWgBK>(vt, kk),
+                            t - 1 > t0 || kk > 0);
+      hopper::wgmma_commit();
     }
-    __syncthreads();
+    if (t > t0) hopper::wgmma_wait<1>(); else hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty_k[stage]);
 
-    float s[NT][4];
+    // masks only where some (row, key) pair of this warpgroup is hidden
+    const bool masked = k0 + kWgBK > p.Sk || (p.causal && k0 + kWgBK - 1 > qw) ||
+                        (p.window > 0 && k0 <= qw + 63 - p.window);
+    if (masked) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+      for (int j = 0; j < NS / 4; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[nt][c] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const __nv_bfloat16* kr = &Ks[(nt * 8 + g) * P + kc * 16 + tig * 2];
-        mma_bf16(s[nt], qa[kc], *reinterpret_cast<const unsigned*>(kr),
-                 *reinterpret_cast<const unsigned*>(kr + 8));
-      }
+        for (int c = 0; c < 4; ++c) {
+          const int qpos = c < 2 ? row0 : row1;
+          const int kpos = k0 + j * 8 + tg * 2 + (c & 1);
+          bool ok = kpos < p.Sk;
+          if (p.causal) ok = ok && kpos <= qpos;
+          if (p.window > 0) ok = ok && kpos > qpos - p.window;
+          if (!ok) s[4 * j + c] = kNegInf;
+        }
     }
-
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int qpos = c < 2 ? row0 : row1;
-        const int kpos = k0 + nt * 8 + tig * 2 + (c & 1);
-        bool ok = kpos < Sk;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window > 0) ok = ok && kpos > qpos - window;
-        s[nt][c] = ok ? s[nt][c] * scale_log2 : kNegInf;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+    for (int j = 0; j < NS / 4; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    const float mn0 = fmaxf(m0, mx0 * sl2), mn1 = fmaxf(m1, mx1 * sl2);
+    const float al0 = hopper::ex2(m0 - mn0), al1 = hopper::ex2(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - mn0);
-      s[nt][1] = exp2f(s[nt][1] - mn0);
-      s[nt][2] = exp2f(s[nt][2] - mn1);
-      s[nt][3] = exp2f(s[nt][3] - mn1);
-      rs0 += s[nt][0] + s[nt][1];
-      rs1 += s[nt][2] + s[nt][3];
+    for (int j = 0; j < NS / 4; ++j) {
+      s[4 * j + 0] = hopper::ex2(fmaf(s[4 * j + 0], sl2, -mn0));
+      s[4 * j + 1] = hopper::ex2(fmaf(s[4 * j + 1], sl2, -mn0));
+      s[4 * j + 2] = hopper::ex2(fmaf(s[4 * j + 2], sl2, -mn1));
+      s[4 * j + 3] = hopper::ex2(fmaf(s[4 * j + 3], sl2, -mn1));
+      rs0 += s[4 * j + 0] + s[4 * j + 1];
+      rs1 += s[4 * j + 2] + s[4 * j + 3];
     }
     l0 = al0 * l0 + rs0;
     l1 = al1 * l1 + rs1;
+    if (t > t0) {   // O holds the products up to the previous tile
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty_v[prev]);
 #pragma unroll
-    for (int nt = 0; nt < DT; ++nt) {
-      acc[nt][0] *= al0;
-      acc[nt][1] *= al0;
-      acc[nt][2] *= al1;
-      acc[nt][3] *= al1;
-    }
-
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const int vrow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int nt = 0; nt < DT; nt += 2) {
-        unsigned vb4[4];
-        ldmatrix_x4_trans(vb4, &Vs[vrow * P + (nt + (lane >> 4)) * 8]);
-        mma_bf16(acc[nt], pa, vb4[0], vb4[1]);
-        mma_bf16(acc[nt + 1], pa, vb4[2], vb4[3]);
+      for (int j = 0; j < NO / 4; ++j) {
+        o[4 * j + 0] *= al0;
+        o[4 * j + 1] *= al0;
+        o[4 * j + 2] *= al1;
+        o[4 * j + 3] *= al1;
       }
     }
+#pragma unroll
+    for (int kk = 0; kk < kWgBK / 16; ++kk) hopper::acc_to_a(pa[kk], s, kk);
+    prev = stage;
+    prev_phase = phase;
+    if (++stage == kStages) { stage = 0; phase ^= 1; }
+  }
+  {   // the last tile's O += P V
+    const unsigned char* vt = sm + L::kV + prev * L::KT::kBytes;
+    hopper::mbar_wait(&full_v[prev], prev_phase);
+    hopper::fence_regs(o);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgBK / 16; ++kk)
+      hopper::wgmma_rs_tb(o, pa[kk], hopper::desc_mn<D, kWgBK>(vt, kk),
+                          t1 - 1 > t0 || kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
   }
 
 #pragma unroll
@@ -392,62 +437,69 @@ __device__ __forceinline__ void attn_fwd_mma_body(ATTN_MMA_PARAMS) {
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-  if (kLse && tig == 0) {
+  if (kLse && tg == 0) {
     // natural-log LSE of the scaled scores: ln 2 (m + log2 l) in base 2
-    float* lp = lse + ((long long)b * gridDim.y + h) * Sq;
-    if (row0 < Sq) lp[row0] = (m0 + log2f(fmaxf(l0, 1e-30f))) * kLn2;
-    if (row1 < Sq) lp[row1] = (m1 + log2f(fmaxf(l1, 1e-30f))) * kLn2;
+    float* lp = p.lse + ((long long)b * p.H + h) * p.Sq;
+    if (row0 < p.Sq) lp[row0] = (m0 + log2f(fmaxf(l0, 1e-30f))) * kLn2;
+    if (row1 < p.Sq) lp[row1] = (m1 + log2f(fmaxf(l1, 1e-30f))) * kLn2;
   }
-  __nv_bfloat16* op = o + b * ob + h * oh;
+  __nv_bfloat16* op = p.o + b * p.ob + h * p.oh;
 #pragma unroll
-  for (int nt = 0; nt < DT; ++nt) {
-    const int c = nt * 8 + tig * 2;
-    if (row0 < Sq)
-      *reinterpret_cast<unsigned*>(op + row0 * os + c) =
-          pack_bf16(acc[nt][0] * inv0, acc[nt][1] * inv0);
-    if (row1 < Sq)
-      *reinterpret_cast<unsigned*>(op + row1 * os + c) =
-          pack_bf16(acc[nt][2] * inv1, acc[nt][3] * inv1);
+  for (int j = 0; j < NO / 4; ++j) {
+    const int c = j * 8 + tg * 2;
+    if (row0 < p.Sq)
+      *reinterpret_cast<uint32_t*>(op + row0 * p.os + c) =
+          hopper::pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    if (row1 < p.Sq)
+      *reinterpret_cast<uint32_t*>(op + row1 * p.os + c) =
+          hopper::pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
   }
 }
 
-// One kernel per variant, so that each gets its own register bound.  At
-// D = 128 the body needs 168 registers a thread, and registers are granted
-// in steps of 8: the LSE variant compiles to 170 unbounded, which leaves
-// room for two blocks per SM instead of three (about 40 % slower on an
-// H100 at the DiT shape), so it is held at three blocks.  The variant
-// without the LSE fits three blocks unbounded; bounding it at three makes
-// it spill, and an explicit one block per SM lets it grow to 202.
+// One kernel per variant, so that the serving path's carries no LSE code;
+// both run the same body, so o is bitwise the same.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-attn_fwd_mma(ATTN_MMA_PARAMS) {
-  attn_fwd_mma_body<D, false>(ATTN_MMA_ARGS);
+__global__ void __launch_bounds__(kWgThreads, 1)
+attn_fwd_wgmma(const __grid_constant__ FwdParams p) {
+  attn_fwd_wgmma_body<D, false>(p);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads, 3)
-attn_fwd_mma_lse(ATTN_MMA_PARAMS) {
-  attn_fwd_mma_body<D, true>(ATTN_MMA_ARGS);
+__global__ void __launch_bounds__(kWgThreads, 1)
+attn_fwd_wgmma_lse(const __grid_constant__ FwdParams p) {
+  attn_fwd_wgmma_body<D, true>(p);
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int Sq, int Sk, int H, int K,
-               const long long* st, int causal, int window, float scale,
-               cudaStream_t stream) {
-  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  auto kernel = lse ? attn_fwd_mma_lse<D> : attn_fwd_mma<D>;
-  kernel<<<grid, kMmaThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
-      Sq, Sk, H / K, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], causal, window, scale * 1.4426950408889634f);
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int Sq, int Sk, int H, int K,
+                 const long long* st, int causal, int window, float scale,
+                 cudaStream_t stream) {
+  FwdParams p;
+  CUresult cr = encode_bshd(&p.tq, q, D, H, Sq, B, st[0], st[1], st[2]);
+  if (cr == CUDA_SUCCESS)
+    cr = encode_bshd(&p.tk, k, D, K, Sk, B, st[3], st[4], st[5]);
+  if (cr == CUDA_SUCCESS)
+    cr = encode_bshd(&p.tv, v, D, K, Sk, B, st[6], st[7], st[8]);
+  if (cr != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = lse;
+  p.ob = st[9]; p.os = st[10]; p.oh = st[11];
+  p.Sq = Sq; p.Sk = Sk; p.H = H; p.G = H / K;
+  p.causal = causal; p.window = window;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  auto kernel = lse ? attn_fwd_wgmma_lse<D> : attn_fwd_wgmma<D>;
+  constexpr int smem = FwdLayout<D>::kBytes;
+  static bool sized[2] = {false, false};
+  const int rc = size_once(kernel, smem, &sized[lse != nullptr]);
+  if (rc) return rc;
+  dim3 grid((Sq + kWgBQ - 1) / kWgBQ, H, B);
+  kernel<<<grid, kWgThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-// The tensor-core kernel reads 16-byte chunks of K and V rows and 4-byte
-// pairs of Q and O: every base pointer 16-byte aligned and every stride a
-// multiple of 8 elements.
+// TMA reads the tiles: every base pointer 16-byte aligned and every stride a
+// multiple of 8 elements (16 bytes); o is written in 4-byte pairs
 bool mma_aligned(const void* q, const void* k, const void* v, const void* o,
                  const long long* st) {
   for (const void* p : {q, k, v, o})
@@ -512,9 +564,9 @@ extern "C" int flash_attention_fwd(
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (mma_aligned(q, k, v, o, st)) {
     switch (D) {
-      case 32: return launch_mma<32>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, s);
-      case 64: return launch_mma<64>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, s);
-      case 128: return launch_mma<128>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, s);
+      case 32: return launch_wgmma<32>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, s);
+      case 64: return launch_wgmma<64>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, s);
+      case 128: return launch_wgmma<128>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -20,17 +20,35 @@
 //      P = exp(S - LSE) from the forward's log-sum-exp and dS = P (dP - D),
 //      and keeps dK and dV in registers.
 //   3. dQ: one block per (batch, head, query tile); it loops over the key
-//      tiles and keeps dQ in registers.
+//      tiles, recomputing S, dP and dS, and keeps dQ in registers.
 // Every output element is summed by one thread in a fixed order: no float
 // atomics, so the gradient is the same from run to run.
 //
-// bf16 inputs with 16-byte aligned rows (the DiT path) run the mma.sync
-// kernels (m16n8k16, f32 accumulators; P and dS are rounded to bf16 for the
-// second products, as the forward rounds P).  f32 inputs, and bf16 ones whose
-// strides break that alignment, run FMA kernels on the CUDA cores, exact to
-// f32 rounding.  Loads are synchronous (no cp.async/TMA pipeline, no wgmma).
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+// Why a separate dQ pass.  Accumulating dQ inside the dK/dV pass would
+// save the recomputed S and dP (the passes run 14 S^2 D flops a head
+// against the bound's 10), but every key tile adds into every query tile's
+// dQ: without float atomics that needs a global f32 accumulator, a turn
+// counter per query tile so that key tile j adds only after j - 1, and
+// blocks that spin on blocks that may not be resident yet, plus 2 B H Sq D
+// f32 of read-modify-write traffic through L2 per key tile.  The separate
+// pass keeps the determinism of one owner per output with no inter-block
+// waits, for 40 % more tensor work.
+//
+// bf16 inputs whose base pointers (and LSE and delta) are 16-byte aligned
+// and whose strides are multiples of 8 elements (the DiT path) run the
+// TMA / wgmma kernels below (P and dS are rounded to bf16 for the second
+// products, as the forward rounds P).  f32 inputs, and bf16 ones that break
+// that alignment, run FMA kernels on the CUDA cores, exact to f32 rounding.
+//
+// What holds the wgmma kernels back now (measured on an H100 SXM,
+// PERF.md): the dK/dV pass takes about two thirds of the time and runs its
+// products at ~55 % of the tensor cores' peak, the dQ pass at ~70 %.  With
+// its exponentials and dS removed the dK/dV pass's products alone ran at
+// ~65 %: its two m64n64 shared-memory products read 128 bytes of shared
+// memory a clock at the full rate, and the softmax-like work between
+// dependent products (S^T before P^T dO, dP^T before dS^T Q) runs in both
+// consumer warpgroups at once.
+#include "hopper.cuh"
 
 namespace {
 
@@ -314,312 +332,408 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_fma(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: mma.sync m16n8k16, f32 accumulators, 4 warps.
+// bf16 on Hopper's tensor cores: TMA ring, wgmma, one producer warp.
 //
-// dK/dV: a block owns 64 keys (16 per warp) of one (batch, kv head) and walks
-// 32-query steps.  Per step each warp forms S^T = K Q^T and dP^T = V dO^T for
-// its 16 keys (K and V A-fragments read from padded shared tiles, Q and dO
-// B-fragments as 32-bit row reads), turns them into P^T and dS^T in
-// registers, and feeds those, as bf16 A-fragments straight from the
-// accumulator layout, to dV += P^T dO and dK += dS^T Q with dO and Q read by
-// ldmatrix.trans.  dQ: a block owns 64 queries (16 per warp) with their Q and
-// dO fragments in registers and walks 32-key steps: S = Q K^T, dP = dO V^T,
-// dS, then dQ += dS K with K read by ldmatrix.trans.  Shared rows are padded
-// by 8 halves so that fragment loads hit 32 distinct banks.
+// Both kernels run three warpgroups: warpgroup 0 gives most of its registers
+// away (setmaxnreg) and one of its threads TMA-loads tiles into a ring of
+// kStages = 4 stages (a "full" barrier each, completed by the copies, and an
+// "empty" one, on which the consumers' eight warps arrive); warpgroups 1 and
+// 2 compute, 64 rows each.  Tiles are 64-row TMA boxes laid out for wgmma
+// (hopper.cuh): the 128-byte swizzle at D = 128 and 64, the 64-byte one at
+// D = 32.  Masks are evaluated only on tiles that cross a boundary (ragged
+// tail, causal diagonal, window edge); elsewhere every pair is visible.
+//
+// dK/dV: a block owns kKeyTile = 128 keys of one (batch, kv head); K and V
+// stay resident.  The ring brings, for every query head of the group and
+// every 64-query tile that meets the key tile, Q, dO, LSE and delta.  Each
+// consumer starts S^T = K Q^T and dP^T = V dO^T for its 64 keys (shared-
+// memory wgmma m64n64k16, all operands K-major) and waits for S^T only;
+// P^T = exp2(S^T scale log2 e - LSE log2 e) is formed while dP^T runs, then
+// dV += P^T dO is started (register-A wgmma, dO read MN-major) and dS^T =
+// P^T (dP^T - delta) is formed while it runs, then dK += dS^T Q.  P^T and
+// dS^T are rounded to bf16 in place (the accumulator layout is the
+// A-fragment layout).  A stage is released once the next tile's products
+// are started and this tile's dV and dK are done.  dK and dV stay in
+// registers until the end.
+//
+// dQ: a block owns kQTile = 128 queries of one (batch, head); Q and dO stay
+// resident and the ring brings 64-key K and V tiles.  Each consumer forms
+// S = Q K^T and dP = dO V^T for its 64 rows, P while dP runs, dS, and
+// dQ += dS K with K read MN-major, released likewise one tile later.
 // ---------------------------------------------------------------------------
-constexpr int kMmaThreads = 128;
-constexpr int kKeyTile = 64;   // dK/dV block: keys
-constexpr int kQStep = 32;     // dK/dV block: queries per step
-constexpr int kQTile = 64;     // dQ block: queries
-constexpr int kKStep = 32;     // dQ block: keys per step
+constexpr int kWgThreads = 384;
+constexpr int kStages = 4;
+constexpr int kKeyTile = 128;  // dK/dV block: keys, 64 a consumer
+constexpr int kQStep = 64;     // dK/dV ring stage: queries
+constexpr int kQTile = 128;    // dQ block: queries, 64 a consumer
+constexpr int kKStep = 64;     // dQ ring stage: keys
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&h);
-}
+struct BwdParams {
+  CUtensorMap tq, tk, tv, tdo;   // (D, heads, S, B) views, 64-row boxes
+  CUtensorMap tlse, tdelta;      // flat (B H Sq) f32, 64-value boxes
+  Args a;
+  float scale_log2;
+};
 
-__device__ __forceinline__ unsigned ld32(const bf16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r,
-                                                  const void* smem_row) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem_row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// rows [r0, r0 + n_rows) of a (B, S, heads, D) bf16 tensor into a padded
-// row-major tile, 16 bytes at a time, zeros past n
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          long long rs, int r0, int n_rows,
-                                          int n) {
-  constexpr int CH = D / 8, P = D + 8;
-  for (int i = threadIdx.x; i < n_rows * CH; i += kMmaThreads) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n) val = *reinterpret_cast<const uint4*>(src + (r0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(&dst[r * P + c]) = val;
-  }
-}
-
-// the A-fragments (rows r, r + 8; columns kc*16 + tig*2 (+8)) of a padded tile
-template <int D>
-__device__ __forceinline__ void frag_a(unsigned* f, const bf16* tile, int r,
-                                       int kc, int tig) {
-  constexpr int P = D + 8;
-  const bf16* p0 = tile + r * P + kc * 16 + tig * 2;
-  const bf16* p1 = p0 + 8 * P;
-  f[0] = ld32(p0);
-  f[1] = ld32(p1);
-  f[2] = ld32(p0 + 8);
-  f[3] = ld32(p1 + 8);
-}
-
-// bf16 A-fragments of a 16 x 16 chunk of an accumulator tile (n-tiles 2kk
-// and 2kk + 1)
-__device__ __forceinline__ void acc_to_a(unsigned* f, float (*acc)[4],
-                                         int kk) {
-  f[0] = pack_bf16(acc[2 * kk][0], acc[2 * kk][1]);
-  f[1] = pack_bf16(acc[2 * kk][2], acc[2 * kk][3]);
-  f[2] = pack_bf16(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
-  f[3] = pack_bf16(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
+// whether every query of [q0, q1] sees every key of [k0, k1]
+__device__ __forceinline__ bool tiles_full(int q0, int q1, int k0, int k1,
+                                           const Args& a) {
+  if (q1 >= a.Sq || k1 >= a.Sk) return false;
+  if (a.causal && k1 > q0) return false;
+  if (a.window > 0 && k0 <= q1 - a.window) return false;
+  return true;
 }
 
 template <int D>
-constexpr int dkdv_mma_bytes() {
-  return (2 * kKeyTile + 2 * kQStep) * (D + 8) * 2 + 2 * kQStep * 4;
-}
+struct DkdvLayout {
+  using KT = hopper::Tile<D, kKeyTile>;
+  using QT = hopper::Tile<D, kQStep>;
+  static constexpr int kK = 0;
+  static constexpr int kV = KT::kBytes;
+  static constexpr int kRing = 2 * KT::kBytes;
+  static constexpr int kDo = QT::kBytes;            // within a stage
+  static constexpr int kLse = 2 * QT::kBytes;
+  static constexpr int kDelta = kLse + 512;
+  static constexpr int kStage = kLse + 1024;
+  static constexpr int kStageTx = 2 * QT::kBytes + 2 * kQStep * 4;
+  static constexpr int kBar = kRing + kStages * kStage;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads) bwd_dkdv_mma(Args a,
-                                                            float scale_log2) {
-  constexpr int P = D + 8, KC = D / 16, NT = kQStep / 8, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // [kKeyTile][P]
-  bf16* Vs = Ks + kKeyTile * P;
-  bf16* Qs = Vs + kKeyTile * P;                    // [kQStep][P]
-  bf16* Gs = Qs + kQStep * P;                      // dO
-  float* L2 = reinterpret_cast<float*>(Gs + kQStep * P);   // lse * log2 e
-  float* Dl = L2 + kQStep;                                 // delta
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
+__global__ void __launch_bounds__(kWgThreads, 1)
+bwd_dkdv_wgmma(const __grid_constant__ BwdParams p) {
+  using L = DkdvLayout<D>;
+  const Args& a = p.a;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* full = full_kv + 1;
+  uint64_t* empty = full + kStages;
   const int k0 = blockIdx.x * kKeyTile, kvh = blockIdx.y, b = blockIdx.z;
-  const int kr = warp * 16 + g;                 // this thread's key rows kr, kr + 8
-  const int kpos0 = k0 + kr, kpos1 = kpos0 + 8;
-  load_rows<D>(Ks, static_cast<const bf16*>(a.k) + b * a.sk.b + kvh * a.sk.h,
-               a.sk.s, k0, kKeyTile, a.Sk);
-  load_rows<D>(Vs, static_cast<const bf16*>(a.v) + b * a.sv.b + kvh * a.sv.h,
-               a.sv.s, k0, kKeyTile, a.Sk);
+  const int n_qt = (a.Sq + kQStep - 1) / kQStep;
 
-  float dk[DT][4], dv[DT][4];
-#pragma unroll
-  for (int nt = 0; nt < DT; ++nt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dk[nt][c] = dv[nt][c] = 0.f;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
 
-  for (int gh = 0; gh < a.G; ++gh) {
-    const int h = kvh * a.G + gh;
-    const bf16* qp = static_cast<const bf16*>(a.q) + b * a.sq.b + h * a.sq.h;
-    const bf16* gp = static_cast<const bf16*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
-    const float* lp = a.lse + ((long long)b * a.H + h) * a.Sq;
-    const float* dl = a.delta + ((long long)b * a.H + h) * a.Sq;
-    for (int q0 = 0; q0 < a.Sq; q0 += kQStep) {
-      if (!tiles_meet(q0, q0 + kQStep - 1, k0, k0 + kKeyTile - 1, a)) continue;
-      __syncthreads();   // K/V stored; the previous step's readers done
-      load_rows<D>(Qs, qp, a.sq.s, q0, kQStep, a.Sq);
-      load_rows<D>(Gs, gp, a.sdo.s, q0, kQStep, a.Sq);
-      if (tid < kQStep) {
-        const bool in = q0 + tid < a.Sq;
-        L2[tid] = in ? lp[q0 + tid] * kLog2e : 0.f;
-        Dl[tid] = in ? dl[q0 + tid] : 0.f;
-      }
-      __syncthreads();
-
-      float st[NT][4], dpt[NT][4];   // S^T and dP^T: rows keys, columns queries
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) st[nt][c] = dpt[nt][c] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        unsigned ka[4], va[4];
-        frag_a<D>(ka, Ks, kr, kc, tig);
-        frag_a<D>(va, Vs, kr, kc, tig);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const bf16* qr = &Qs[(nt * 8 + g) * P + kc * 16 + tig * 2];
-          const bf16* gr = &Gs[(nt * 8 + g) * P + kc * 16 + tig * 2];
-          mma_bf16(st[nt], ka, ld32(qr), ld32(qr + 8));
-          mma_bf16(dpt[nt], va, ld32(gr), ld32(gr + 8));
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int qi = nt * 8 + tig * 2 + (c & 1);
-          const float p = visible(q0 + qi, c < 2 ? kpos0 : kpos1, a)
-                              ? exp2f(st[nt][c] * scale_log2 - L2[qi]) : 0.f;
-          st[nt][c] = p;
-          dpt[nt][c] = p * (dpt[nt][c] - Dl[qi]);
-        }
-
-#pragma unroll
-      for (int kk = 0; kk < kQStep / 16; ++kk) {
-        unsigned pa[4], sa[4];
-        acc_to_a(pa, st, kk);
-        acc_to_a(sa, dpt, kk);
-        const int vrow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-        for (int nt = 0; nt < DT; nt += 2) {
-          unsigned b4[4];
-          ldmatrix_x4_trans(b4, &Gs[vrow * P + (nt + (lane >> 4)) * 8]);
-          mma_bf16(dv[nt], pa, b4[0], b4[1]);
-          mma_bf16(dv[nt + 1], pa, b4[2], b4[3]);
-          ldmatrix_x4_trans(b4, &Qs[vrow * P + (nt + (lane >> 4)) * 8]);
-          mma_bf16(dk[nt], sa, b4[0], b4[1]);
-          mma_bf16(dk[nt + 1], sa, b4[2], b4[3]);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(full_kv, 2 * L::KT::kBytes);
+      hopper::load_tile<D, kKeyTile>(sm + L::kK, &p.tk, full_kv, kvh, k0, b);
+      hopper::load_tile<D, kKeyTile>(sm + L::kV, &p.tv, full_kv, kvh, k0, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int gh = 0; gh < a.G; ++gh) {
+        const int h = kvh * a.G + gh;
+        const int row = (b * a.H + h) * a.Sq;
+        for (int qt = 0; qt < n_qt; ++qt) {
+          const int q0 = qt * kQStep;
+          if (!tiles_meet(q0, q0 + kQStep - 1, k0, k0 + kKeyTile - 1, a))
+            continue;
+          hopper::mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* st = sm + L::kRing + stage * L::kStage;
+          hopper::mbar_expect_tx(&full[stage], L::kStageTx);
+          hopper::load_tile<D, kQStep>(st, &p.tq, &full[stage], h, q0, b);
+          hopper::load_tile<D, kQStep>(st + L::kDo, &p.tdo, &full[stage], h,
+                                       q0, b);
+          hopper::tma_load_1d(st + L::kLse, &p.tlse, &full[stage], row + q0);
+          hopper::tma_load_1d(st + L::kDelta, &p.tdelta, &full[stage],
+                              row + q0);
+          if (++stage == kStages) { stage = 0; phase ^= 1; }
         }
       }
     }
+    return;
+  }
+  hopper::setmaxnreg_inc<240>();
+
+  constexpr int NA = D / 2;          // dK / dV accumulator registers
+  constexpr int NS = kQStep / 2;     // S^T / dP^T accumulator registers
+  const int tid = threadIdx.x & 127, w = wg - 1;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tg = lane & 3;
+  const int kw = k0 + 64 * w;                   // this warpgroup's first key
+  const int kpos0 = kw + warp * 16 + g, kpos1 = kpos0 + 8;
+
+  float dk[NA], dv[NA];   // first written by the first tile's products
+
+  hopper::mbar_wait(full_kv, 0);
+  int stage = 0, prev = -1;   // prev: the stage whose dV, dK are in flight
+  uint32_t phase = 0;
+  uint32_t pa[kQStep / 16][4], sa[kQStep / 16][4];
+  for (int gh = 0; gh < a.G; ++gh) {
+    for (int qt = 0; qt < n_qt; ++qt) {
+      const int q0 = qt * kQStep;
+      if (!tiles_meet(q0, q0 + kQStep - 1, k0, k0 + kKeyTile - 1, a))
+        continue;
+      const unsigned char* st = sm + L::kRing + stage * L::kStage;
+      const float* ls = reinterpret_cast<const float*>(st + L::kLse);
+      const float* dl = reinterpret_cast<const float*>(st + L::kDelta);
+      hopper::mbar_wait(&full[stage], phase);
+      float s[NS], dp[NS];   // S^T and dP^T: rows keys, columns queries
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc)
+        hopper::wgmma_ss(s, hopper::desc_k<D, kKeyTile>(sm + L::kK, 64 * w, kc),
+                         hopper::desc_k<D, kQStep>(st, 0, kc), kc > 0);
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc)
+        hopper::wgmma_ss(dp, hopper::desc_k<D, kKeyTile>(sm + L::kV, 64 * w, kc),
+                         hopper::desc_k<D, kQStep>(st + L::kDo, 0, kc), kc > 0);
+      hopper::wgmma_commit();
+      if (prev >= 0) {   // the previous tile's dV and dK are done
+        hopper::wgmma_wait<2>();
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[prev]);
+      }
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(s);
+
+      // P^T, rounded to bf16, while dP^T is formed
+      const bool masked = !tiles_full(q0, q0 + kQStep - 1, kw, kw + 63, a);
+#pragma unroll
+      for (int j = 0; j < NS / 4; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + j * 8 + tg * 2);
+        const float nl[2] = {-l2.x * kLog2e, -l2.y * kLog2e};
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          s[4 * j + c] = hopper::ex2(fmaf(s[4 * j + c], p.scale_log2, nl[c & 1]));
+      }
+      if (masked) {
+#pragma unroll
+        for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (!visible(q0 + j * 8 + tg * 2 + (c & 1), c < 2 ? kpos0 : kpos1, a))
+              s[4 * j + c] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kQStep / 16; ++kk) hopper::acc_to_a(pa[kk], s, kk);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQStep / 16; ++kk)
+        hopper::wgmma_rs_tb(dv, pa[kk], hopper::desc_mn<D, kQStep>(st + L::kDo, kk),
+                            prev >= 0 || kk > 0);
+      hopper::wgmma_commit();
+
+      // dS^T = P^T (dP^T - delta) while dV accumulates
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < NS / 4; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(dl + j * 8 + tg * 2);
+        const float dd[2] = {d2.x, d2.y};
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          dp[4 * j + c] = s[4 * j + c] * (dp[4 * j + c] - dd[c & 1]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kQStep / 16; ++kk) hopper::acc_to_a(sa[kk], dp, kk);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQStep / 16; ++kk)
+        hopper::wgmma_rs_tb(dk, sa[kk], hopper::desc_mn<D, kQStep>(st, kk),
+                            prev >= 0 || kk > 0);
+      hopper::wgmma_commit();
+      prev = stage;
+      if (++stage == kStages) { stage = 0; phase ^= 1; }
+    }
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(dv);
+  hopper::fence_regs(dk);
+  if (prev < 0) {   // no query sees these keys
+#pragma unroll
+    for (int i = 0; i < NA; ++i) dk[i] = dv[i] = 0.f;
   }
 
   bf16* dkp = static_cast<bf16*>(a.dk) + b * a.sdk.b + kvh * a.sdk.h;
   bf16* dvp = static_cast<bf16*>(a.dv) + b * a.sdv.b + kvh * a.sdv.h;
 #pragma unroll
-  for (int nt = 0; nt < DT; ++nt) {
-    const int c = nt * 8 + tig * 2;
+  for (int j = 0; j < NA / 4; ++j) {
+    const int c = j * 8 + tg * 2;
     if (kpos0 < a.Sk) {
-      *reinterpret_cast<unsigned*>(dkp + kpos0 * a.sdk.s + c) =
-          pack_bf16(dk[nt][0] * a.scale, dk[nt][1] * a.scale);
-      *reinterpret_cast<unsigned*>(dvp + kpos0 * a.sdv.s + c) =
-          pack_bf16(dv[nt][0], dv[nt][1]);
+      *reinterpret_cast<uint32_t*>(dkp + kpos0 * a.sdk.s + c) =
+          hopper::pack_bf16(dk[4 * j] * a.scale, dk[4 * j + 1] * a.scale);
+      *reinterpret_cast<uint32_t*>(dvp + kpos0 * a.sdv.s + c) =
+          hopper::pack_bf16(dv[4 * j], dv[4 * j + 1]);
     }
     if (kpos1 < a.Sk) {
-      *reinterpret_cast<unsigned*>(dkp + kpos1 * a.sdk.s + c) =
-          pack_bf16(dk[nt][2] * a.scale, dk[nt][3] * a.scale);
-      *reinterpret_cast<unsigned*>(dvp + kpos1 * a.sdv.s + c) =
-          pack_bf16(dv[nt][2], dv[nt][3]);
+      *reinterpret_cast<uint32_t*>(dkp + kpos1 * a.sdk.s + c) =
+          hopper::pack_bf16(dk[4 * j + 2] * a.scale, dk[4 * j + 3] * a.scale);
+      *reinterpret_cast<uint32_t*>(dvp + kpos1 * a.sdv.s + c) =
+          hopper::pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
     }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads) bwd_dq_mma(Args a,
-                                                          float scale_log2) {
-  constexpr int P = D + 8, KC = D / 16, NT = kKStep / 8, DT = D / 8;
-  __shared__ __align__(16) bf16 Ks[kKStep * P];
-  __shared__ __align__(16) bf16 Vs[kKStep * P];
+struct DqLayout {
+  using QT = hopper::Tile<D, kQTile>;
+  using KT = hopper::Tile<D, kKStep>;
+  static constexpr int kQ = 0;
+  static constexpr int kDo = QT::kBytes;
+  static constexpr int kRing = 2 * QT::kBytes;
+  static constexpr int kStage = 2 * KT::kBytes;     // K, then V
+  static constexpr int kBar = kRing + kStages * kStage;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+bwd_dq_wgmma(const __grid_constant__ BwdParams p) {
+  using L = DqLayout<D>;
+  const Args& a = p.a;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* full_qo = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* full = full_qo + 1;
+  uint64_t* empty = full + kStages;
   const int q0 = blockIdx.x * kQTile, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / a.G;
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.sq.b + h * a.sq.h;
-  const bf16* gp = static_cast<const bf16*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
-  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.sk.b + kvh * a.sk.h;
-  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.sv.b + kvh * a.sv.h;
+  const int n_kt = (a.Sk + kKStep - 1) / kKStep;
 
-  unsigned qa[KC][4], ga[KC][4];
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    const int c = kc * 16 + tig * 2;
-    qa[kc][0] = row0 < a.Sq ? ld32(qp + row0 * a.sq.s + c) : 0u;
-    qa[kc][1] = row1 < a.Sq ? ld32(qp + row1 * a.sq.s + c) : 0u;
-    qa[kc][2] = row0 < a.Sq ? ld32(qp + row0 * a.sq.s + c + 8) : 0u;
-    qa[kc][3] = row1 < a.Sq ? ld32(qp + row1 * a.sq.s + c + 8) : 0u;
-    ga[kc][0] = row0 < a.Sq ? ld32(gp + row0 * a.sdo.s + c) : 0u;
-    ga[kc][1] = row1 < a.Sq ? ld32(gp + row1 * a.sdo.s + c) : 0u;
-    ga[kc][2] = row0 < a.Sq ? ld32(gp + row0 * a.sdo.s + c + 8) : 0u;
-    ga[kc][3] = row1 < a.Sq ? ld32(gp + row1 * a.sdo.s + c + 8) : 0u;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_qo, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);
+    }
+    hopper::fence_barrier_init();
   }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(full_qo, 2 * L::QT::kBytes);
+      hopper::load_tile<D, kQTile>(sm + L::kQ, &p.tq, full_qo, h, q0, b);
+      hopper::load_tile<D, kQTile>(sm + L::kDo, &p.tdo, full_qo, h, q0, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int k0 = kt * kKStep;
+        if (!tiles_meet(q0, q0 + kQTile - 1, k0, k0 + kKStep - 1, a)) continue;
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = sm + L::kRing + stage * L::kStage;
+        hopper::mbar_expect_tx(&full[stage], L::kStage);
+        hopper::load_tile<D, kKStep>(st, &p.tk, &full[stage], kvh, k0, b);
+        hopper::load_tile<D, kKStep>(st + L::KT::kBytes, &p.tv, &full[stage],
+                                     kvh, k0, b);
+        if (++stage == kStages) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<240>();
+
+  constexpr int NA = D / 2;          // dQ accumulator registers
+  constexpr int NS = kKStep / 2;     // S / dP accumulator registers
+  const int tid = threadIdx.x & 127, w = wg - 1;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tg = lane & 3;
+  const int qw = q0 + 64 * w;                   // this warpgroup's first row
+  const int row0 = qw + warp * 16 + g, row1 = row0 + 8;
   const long long stat = ((long long)b * a.H + h) * a.Sq;
   const float l0 = row0 < a.Sq ? a.lse[stat + row0] * kLog2e : 0.f;
   const float l1 = row1 < a.Sq ? a.lse[stat + row1] * kLog2e : 0.f;
   const float d0 = row0 < a.Sq ? a.delta[stat + row0] : 0.f;
   const float d1 = row1 < a.Sq ? a.delta[stat + row1] : 0.f;
 
-  float dq[DT][4];
-#pragma unroll
-  for (int nt = 0; nt < DT; ++nt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dq[nt][c] = 0.f;
+  float dq[NA];   // first written by the first tile's product
 
-  for (int k0 = 0; k0 < a.Sk; k0 += kKStep) {
+  hopper::mbar_wait(full_qo, 0);
+  int stage = 0, prev = -1;   // prev: the stage whose dQ product is in flight
+  uint32_t phase = 0;
+  uint32_t sa[kKStep / 16][4];
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kKStep;
     if (!tiles_meet(q0, q0 + kQTile - 1, k0, k0 + kKStep - 1, a)) continue;
-    __syncthreads();   // the previous step's readers are done
-    load_rows<D>(Ks, kp, a.sk.s, k0, kKStep, a.Sk);
-    load_rows<D>(Vs, vp, a.sv.s, k0, kKStep, a.Sk);
-    __syncthreads();
+    const unsigned char* kt_s = sm + L::kRing + stage * L::kStage;
+    const unsigned char* vt_s = kt_s + L::KT::kBytes;
+    hopper::mbar_wait(&full[stage], phase);
+    float s[NS], dp[NS];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+      hopper::wgmma_ss(s, hopper::desc_k<D, kQTile>(sm + L::kQ, 64 * w, kc),
+                       hopper::desc_k<D, kKStep>(kt_s, 0, kc), kc > 0);
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+      hopper::wgmma_ss(dp, hopper::desc_k<D, kQTile>(sm + L::kDo, 64 * w, kc),
+                       hopper::desc_k<D, kKStep>(vt_s, 0, kc), kc > 0);
+    hopper::wgmma_commit();
+    if (prev >= 0) {   // the previous tile's dQ is done
+      hopper::wgmma_wait<2>();
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[prev]);
+    }
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(s);
 
-    float s[NT][4], dp[NT][4];
+    // P while dP is formed, then dS = P (dP - delta)
+    const bool masked = !tiles_full(qw, qw + 63, k0, k0 + kKStep - 1, a);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+    for (int j = 0; j < NS / 4; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[nt][c] = dp[nt][c] = 0.f;
+      for (int c = 0; c < 4; ++c)
+        s[4 * j + c] = hopper::ex2(fmaf(s[4 * j + c], p.scale_log2,
+                                        c < 2 ? -l0 : -l1));
+    if (masked) {
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
+      for (int j = 0; j < NS / 4; ++j)
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const bf16* kr = &Ks[(nt * 8 + g) * P + kc * 16 + tig * 2];
-        const bf16* vr = &Vs[(nt * 8 + g) * P + kc * 16 + tig * 2];
-        mma_bf16(s[nt], qa[kc], ld32(kr), ld32(kr + 8));
-        mma_bf16(dp[nt], ga[kc], ld32(vr), ld32(vr + 8));
-      }
+        for (int c = 0; c < 4; ++c)
+          if (!visible(c < 2 ? row0 : row1, k0 + j * 8 + tg * 2 + (c & 1), a))
+            s[4 * j + c] = 0.f;
     }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dp);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+    for (int j = 0; j < NS / 4; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const bool top = c < 2;
-        const int kpos = k0 + nt * 8 + tig * 2 + (c & 1);
-        const float p = visible(top ? row0 : row1, kpos, a)
-                            ? exp2f(s[nt][c] * scale_log2 - (top ? l0 : l1)) : 0.f;
-        s[nt][c] = p * (dp[nt][c] - (top ? d0 : d1));   // dS
-      }
+      for (int c = 0; c < 4; ++c)
+        s[4 * j + c] *= dp[4 * j + c] - (c < 2 ? d0 : d1);   // dS
 #pragma unroll
-    for (int kk = 0; kk < kKStep / 16; ++kk) {
-      unsigned sa[4];
-      acc_to_a(sa, s, kk);
-      const int vrow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    for (int kk = 0; kk < kKStep / 16; ++kk) hopper::acc_to_a(sa[kk], s, kk);
+    hopper::wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < DT; nt += 2) {
-        unsigned b4[4];
-        ldmatrix_x4_trans(b4, &Ks[vrow * P + (nt + (lane >> 4)) * 8]);
-        mma_bf16(dq[nt], sa, b4[0], b4[1]);
-        mma_bf16(dq[nt + 1], sa, b4[2], b4[3]);
-      }
-    }
+    for (int kk = 0; kk < kKStep / 16; ++kk)
+      hopper::wgmma_rs_tb(dq, sa[kk], hopper::desc_mn<D, kKStep>(kt_s, kk),
+                          prev >= 0 || kk > 0);
+    hopper::wgmma_commit();
+    prev = stage;
+    if (++stage == kStages) { stage = 0; phase ^= 1; }
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(dq);
+  if (prev < 0) {   // this row block sees no key
+#pragma unroll
+    for (int i = 0; i < NA; ++i) dq[i] = 0.f;
   }
 
   bf16* dqp = static_cast<bf16*>(a.dq) + b * a.sdq.b + h * a.sdq.h;
 #pragma unroll
-  for (int nt = 0; nt < DT; ++nt) {
-    const int c = nt * 8 + tig * 2;
+  for (int j = 0; j < NA / 4; ++j) {
+    const int c = j * 8 + tg * 2;
     if (row0 < a.Sq)
-      *reinterpret_cast<unsigned*>(dqp + row0 * a.sdq.s + c) =
-          pack_bf16(dq[nt][0] * a.scale, dq[nt][1] * a.scale);
+      *reinterpret_cast<uint32_t*>(dqp + row0 * a.sdq.s + c) =
+          hopper::pack_bf16(dq[4 * j] * a.scale, dq[4 * j + 1] * a.scale);
     if (row1 < a.Sq)
-      *reinterpret_cast<unsigned*>(dqp + row1 * a.sdq.s + c) =
-          pack_bf16(dq[nt][2] * a.scale, dq[nt][3] * a.scale);
+      *reinterpret_cast<uint32_t*>(dqp + row1 * a.sdq.s + c) =
+          hopper::pack_bf16(dq[4 * j + 2] * a.scale, dq[4 * j + 3] * a.scale);
   }
 }
 
@@ -652,20 +766,33 @@ int launch_fma(const Args& a, cudaStream_t s) {
 }
 
 template <int D>
-int launch_mma(const Args& a, cudaStream_t s) {
-  const int sm = dkdv_mma_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkdv_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm);
-  if (err != cudaSuccess) return (int)err;
-  const float scale_log2 = a.scale * kLog2e;
-  int rc = launch_delta<bf16>(a, D, s);
+int launch_wgmma(const Args& a, cudaStream_t s) {
+  static bool sized[2] = {false, false};
+  int rc = size_once(bwd_dkdv_wgmma<D>, DkdvLayout<D>::kBytes, &sized[0]);
+  if (!rc) rc = size_once(bwd_dq_wgmma<D>, DqLayout<D>::kBytes, &sized[1]);
   if (rc) return rc;
-  bwd_dkdv_mma<D><<<dim3(cdiv(a.Sk, kKeyTile), a.K, a.B), kMmaThreads, sm, s>>>(
-      a, scale_log2);
+  BwdParams p;
+  CUresult cr = encode_bshd(&p.tq, a.q, D, a.H, a.Sq, a.B, a.sq.b, a.sq.s, a.sq.h);
+  if (cr == CUDA_SUCCESS)
+    cr = encode_bshd(&p.tk, a.k, D, a.K, a.Sk, a.B, a.sk.b, a.sk.s, a.sk.h);
+  if (cr == CUDA_SUCCESS)
+    cr = encode_bshd(&p.tv, a.v, D, a.K, a.Sk, a.B, a.sv.b, a.sv.s, a.sv.h);
+  if (cr == CUDA_SUCCESS)
+    cr = encode_bshd(&p.tdo, a.dout, D, a.H, a.Sq, a.B, a.sdo.b, a.sdo.s, a.sdo.h);
+  const long long rows = (long long)a.B * a.H * a.Sq;
+  if (cr == CUDA_SUCCESS) cr = encode_f32_rows(&p.tlse, a.lse, rows);
+  if (cr == CUDA_SUCCESS) cr = encode_f32_rows(&p.tdelta, a.delta, rows);
+  if (cr != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  p.a = a;
+  p.scale_log2 = a.scale * kLog2e;
+  rc = launch_delta<bf16>(a, D, s);
+  if (rc) return rc;
+  bwd_dkdv_wgmma<D><<<dim3(cdiv(a.Sk, kKeyTile), a.K, a.B), kWgThreads,
+                      DkdvLayout<D>::kBytes, s>>>(p);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
-  bwd_dq_mma<D><<<dim3(cdiv(a.Sq, kQTile), a.H, a.B), kMmaThreads, 0, s>>>(
-      a, scale_log2);
+  bwd_dq_wgmma<D><<<dim3(cdiv(a.Sq, kQTile), a.H, a.B), kWgThreads,
+                    DqLayout<D>::kBytes, s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -679,11 +806,13 @@ int launch_fma_d(const Args& a, int D, cudaStream_t s) {
   }
 }
 
-// the tensor-core kernels read 16-byte chunks of K, V, Q and dO rows and
-// 4-byte pairs elsewhere: every base pointer 16-byte aligned and every
-// stride a multiple of 8 elements
+// TMA reads the tiles and the LSE and delta rows: every base pointer 16-byte
+// aligned and every stride a multiple of 8 elements (16 bytes); the outputs
+// are written in 4-byte pairs
 bool mma_aligned(const Args& a) {
   for (const void* p : {a.q, a.k, a.v, a.o, a.dout,
+                        static_cast<const void*>(a.lse),
+                        static_cast<const void*>(a.delta),
                         static_cast<const void*>(a.dq),
                         static_cast<const void*>(a.dk),
                         static_cast<const void*>(a.dv)})
@@ -725,9 +854,9 @@ extern "C" int flash_attention_bwd(
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (mma_aligned(a)) {
     switch (D) {
-      case 32: return launch_mma<32>(a, s);
-      case 64: return launch_mma<64>(a, s);
-      case 128: return launch_mma<128>(a, s);
+      case 32: return launch_wgmma<32>(a, s);
+      case 64: return launch_wgmma<64>(a, s);
+      case 128: return launch_wgmma<128>(a, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -7,6 +7,10 @@ interpret-mode Pallas kernels on the same numpy inputs.  The CUDA kernels
 themselves are held against the same plain versions on the card by
 ``chip_smoke.py``.
 """
+import importlib.util
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +23,7 @@ from repro.kernels.grpo_loss import grpo_loss as jgrpo
 from repro.kernels.grpo_loss import grpo_loss_diff as jgrpo_diff
 from repro.kernels.sde_step import sde_step as jsde
 from repro.models.layers import attention_chunked as jattention_chunked
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention as cuda_flash
 from repro_torch.kernels.flash_attention import (
     flash_attention_bwd as cuda_flash_bwd)
@@ -334,3 +338,49 @@ def test_flash_attention_backward_matches_jax_grad(B, Sq, Sk, H, K, D,
 
 def test_jax_stays_on_cpu():
     assert jax.default_backend() == "cpu"
+
+
+# ------------------------------------------------------------ kernel build
+def test_lib_path_hashes_the_headers(monkeypatch, tmp_path):
+    """A library is named by its source, every csrc/*.cuh and the flags: an
+    edited header renames (so rebuilds) every library, an unchanged tree
+    keeps its name."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    first = _build._lib_path("k")
+    assert _build._lib_path("k") == first
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    edited = _build._lib_path("k")
+    assert edited != first and edited.name.startswith("k-")
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert _build._lib_path("k") != edited
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-g",))
+    assert _build._lib_path("k") not in (first, edited)
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_for_test", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("source,group", [
+    ("flash_attention.cu", "flash_attention kernel"),
+    ("flash_attention_bwd.cu", "flash_attention_bwd kernel")])
+def test_profile_groups_attribute_every_attention_kernel(source, group):
+    """chip_smoke's profiles (phases 6 and 8) put every kernel of the
+    attention sources in its attention group, not in "other" or the
+    matmuls."""
+    text = (_build.CSRC / source).read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                       r"\s+)?(\w+)\s*\(", text)
+    assert len(names) >= 3, names
+    cs = _chip_smoke()
+    for name in names:
+        # the profiler reports demangled template instances
+        shown = f"void (anonymous namespace)::{name}<128>(BwdParams)"
+        assert cs._profile_group(name) == group, name
+        assert cs._profile_group(shown) == group, shown
