@@ -10,8 +10,10 @@ script exits 2 before printing any result.
    power limit.
 2. Build: compiles every ``src/repro_torch/kernels/csrc/*.cu`` (one nvcc per
    source, all started together) and prints the build seconds, and the
-   counts of ``HGMMA``, ``UTMALDG`` and ``HMMA`` in each attention
-   library's SASS (``cuobjdump``): the bf16 path runs on wgmma and TMA.
+   counts of ``HGMMA``, ``UTMALDG`` and ``HMMA`` in the SASS of each
+   library with a bf16 tensor-core kernel (``cuobjdump``): the attention
+   forward and backward and ``ssd_scan`` run on wgmma and TMA, and the
+   phase fails if one of them has no HGMMA or no UTMALDG.
 3. Kernels against their plain PyTorch versions on the card, at the shapes
    the serving and training paths give them and at small, odd, causal,
    windowed, GQA and ragged shapes: ``sde_step``, the attention forward
@@ -54,20 +56,25 @@ script exits 2 before printing any result.
    (H = 1, L = Q, L = 3Q, a ragged 21-token chunk), Mamba-2's init, a slow
    decay (|dA| near 1e-3) in which the state carried across chunks makes
    most of y, and the path shape (B 4, L 4608, 32 heads of 64, N 128, Q
-   128), in f32 and bf16, bitwise on rerun; then its kernel, plain and
-   bound times at the path shape.
+   128), in f32 and bf16, bitwise on rerun.  Each case must run the variant
+   its dtype and shape call for: bf16 at head dim 64, state 128 and chunk
+   128 the tensor-core kernel (held also against its own rounding written
+   out, ``ref.ssd_tensor_core_ref``, as a diagnostic), the rest the f32
+   FMA passes.  Then the tensor-core kernel's, the FMA passes', the plain
+   version's and the bound's times at the path shape, at batch 4 and 1.
 11. ``FlowAdapter.velocity`` of ``mamba2-370m`` at full width, depth 2, over
    511 + 1 + 4096 tokens, with the SSM leaves drawn from Mamba-2's init,
-   through the kernels and through the plain versions at the bf16 band;
-   then with ``ops.ssd_scan`` stubbed to zeros, which must move it by ten
-   bands.
+   through the kernels (every scan on the tensor-core kernel) and through
+   the plain versions at the bf16 band; then with ``ops.ssd_scan`` stubbed
+   to zeros, which must move it by ten bands.
 12. The Mamba-2 serving path: ``repro_torch.launch.serve.main`` serving 4
    requests of ``mamba2-370m`` (48 layers, bf16, random weights from a
    seed) over a 511-token condition of width 4096, one time token and 4096
    latent tokens of width 64 (4608 = 36 x 128 tokens: the scan takes no
    ragged chunk) under ``flow_sde``, 4 steps.  Launch counts must match the
-   path (``ssd_scan`` 48 x 4 and ``sde_step`` 4 per batch); prints s per
-   step, req/s, peak memory and a profile of one step.
+   path (``ssd_scan`` 48 x 4 and ``sde_step`` 4 per batch), every
+   ``ssd_scan`` launch on the tensor-core kernel; prints s per step, req/s,
+   peak memory and a profile of one step.
 13. The same 4 requests served in f32 through ``serve.main``, then again
    with the SSM leaves drawn, through the engine and the kernels: the
    latents equal ``rollout_keyed``'s through the kernels bitwise, and each
@@ -115,6 +122,7 @@ from repro_torch.data import synthetic_prompts  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import grpo_loss as grpo_mod  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd)
 from repro_torch.kernels.grpo_loss import grpo_loss, grpo_loss_bwd  # noqa: E402
@@ -239,6 +247,8 @@ COUNTED = (sde_step, flash_attention, flash_attention_bwd, grpo_loss,
 def reset_counts() -> None:
     for fn in COUNTED:
         fn.launches = 0
+    for variant in ssd_scan.variant_launches:
+        ssd_scan.variant_launches[variant] = 0
 
 
 def counts() -> dict:
@@ -701,7 +711,7 @@ def main_path() -> dict:
 
 # ------------------------------------------------------------------ phase 6
 PROFILE_GROUPS = (
-    ("ssd_scan kernel", ("ssd_chunk_", "ssd_state_pass")),
+    ("ssd_scan kernel", ("ssd_chunk_", "ssd_state_pass", "ssd_scan_wgmma")),
     ("flash_attention kernel", ("attn_fwd",)),
     ("flash_attention_bwd kernel", ("bwd_delta", "bwd_dkdv", "bwd_dq")),
     ("sde_step kernel", ("sde_step_chunks", "sde_logp_rows")),
@@ -1053,11 +1063,67 @@ def _rel(got, want) -> float:
         float(want.float().abs().max()), 1e-30)
 
 
+@contextlib.contextmanager
+def fma_route():
+    """Send every ``ssd_scan`` call to the f32 FMA passes, to time them
+    beside the tensor-core kernel on the same inputs (the port itself has
+    no such switch)."""
+    saved = ssd_mod.tensor_core_route
+    ssd_mod.tensor_core_route = lambda *args: False
+    try:
+        yield
+    finally:
+        ssd_mod.tensor_core_route = saved
+
+
+def _ssd_variant(call):
+    """(result of ``call()``, the ssd_scan variant that it launched)."""
+    before = dict(ssd_scan.variant_launches)
+    out = call()
+    ran = [k for k, n in ssd_scan.variant_launches.items() if n != before[k]]
+    if len(ran) != 1:
+        fail(f"one ssd_scan call launched variants {ran}")
+    return out, ran[0]
+
+
+def _ssd_times(dev, g, B) -> dict:
+    """Device ms of the tensor-core kernel and of the FMA passes on the same
+    bf16 inputs (replayed graphs), of the plain version, and the bound, at
+    the path shape with batch ``B``."""
+    L, H, P, N, Q = SSM_SEQ, SSM_HEADS, SSM_HEAD_DIM, SSM_STATE, SSM_CHUNK
+    x, dt, a, bm, cm = _ssd_inputs(g, dev, B, L, H, P, N, "mamba2",
+                                   torch.bfloat16)
+    with fma_route():
+        fma_ms = graph_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=Q), 5)
+    ms = graph_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=Q), 5)
+    call_ms = cuda_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=Q), 20)
+    plain_ms = cuda_ms(lambda: ref.ssd_chunked_ref(x, dt, a, bm, cm, Q), 3, 1)
+    nc = L // Q
+    nbytes = (2 * x.numel() * 2 + dt.numel() * 4 + a.numel() * 4
+              + 2 * bm.numel() * 2 + B * H * P * N * 4)
+    flops = 2 * B * nc * Q * (Q * N + H * Q * P + 2 * H * P * N)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    log(f"  ssd_scan path (B={B}, L={L}, H={H}, P={P}, N={N}, Q={Q}) bf16: "
+        f"kernel {ms:.4f} ms on the device ({call_ms:.4f} ms a call with "
+        f"the host's launch), the f32 FMA passes {fma_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP)")
+    del x, dt, a, bm, cm
+    torch.cuda.empty_cache()
+    return {"ms": ms, "call_ms": call_ms, "fma_ms": fma_ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def check_ssd(dev) -> dict:
     """ssd_scan against the plain chunked version (and the sequential
     recurrence at small lengths) over the reference's sweep, odd shapes,
     the slow-decay cases and the path shape, f32 and bf16, bitwise on
-    rerun; then its times at the path shape."""
+    rerun, each case on the variant its dtype and shape call for (bf16 at
+    head dim 64, state 128, chunk 128 on the tensor cores, the rest on the
+    FMA passes); then its times at the path shape at batch 4 and 1."""
     g = torch.Generator(device=dev).manual_seed(7)
     P_, N_, Q_ = SSM_HEAD_DIM, SSM_STATE, SSM_CHUNK
     cases = [  # B, L, H, P, N, chunk, kind
@@ -1073,7 +1139,13 @@ def check_ssd(dev) -> dict:
     for (B, L, H, P, N, Q, kind) in cases:
         for dt_ in (torch.float32, torch.bfloat16):
             x, dt, a, bm, cm = _ssd_inputs(g, dev, B, L, H, P, N, kind, dt_)
-            y, hT = ssd_scan(x, dt, a, bm, cm, chunk=Q)
+            (y, hT), variant = _ssd_variant(
+                lambda: ssd_scan(x, dt, a, bm, cm, chunk=Q))
+            want = ("wgmma" if dt_ == torch.bfloat16
+                    and (P, N, min(Q, L)) == (P_, N_, Q_) else "fma")
+            if variant != want:
+                fail(f"ssd_scan at {(B, L, H, P, N, Q)} {dt_} ran the "
+                     f"{variant} variant, not {want}")
             y2, h2 = ssd_scan(x, dt, a, bm, cm, chunk=Q)
             if not (torch.equal(y, y2) and torch.equal(hT, h2)):
                 fail(f"ssd_scan not bitwise equal on rerun at "
@@ -1091,13 +1163,20 @@ def check_ssd(dev) -> dict:
                   for t in (x, dt)), a,
                 *(t.reshape(B * (L // q), q, -1) for t in (bm, cm)), q)
             carried = _rel(loc.reshape(y.shape), yp)
+            # the tensor-core kernel against its own rounding, written out
+            emu = ""
+            if variant == "wgmma":
+                ye, he = ref.ssd_tensor_core_ref(x, dt, a, bm, cm, Q)
+                emu = (f"; vs its rounding written out: y {_rel(y, ye):.2e},"
+                       f" hT {_rel(hT, he):.2e}")
+                del ye, he
             torch.cuda.synchronize()
             y_err, h_err = max(errs[0::2]), max(errs[1::2])
             log(f"  ssd_scan B={B} L={L} H={H} P={P} N={N} Q={q} {kind} "
-                f"{dt_}: y {y_err:.2e} (band {SSD_Y_BAND[dt_]}), hT "
-                f"{h_err:.2e} (band {SSD_H_BAND}) of max|plain|"
+                f"{dt_} [{variant}]: y {y_err:.2e} (band {SSD_Y_BAND[dt_]}),"
+                f" hT {h_err:.2e} (band {SSD_H_BAND}) of max|plain|"
                 f"{' vs chunked and sequential' if len(errs) > 2 else ''}; "
-                f"carried state {carried:.3f} of max|y|")
+                f"carried state {carried:.3f} of max|y|{emu}")
             if y_err > SSD_Y_BAND[dt_] or h_err > SSD_H_BAND:
                 fail(f"ssd_scan off at {(B, L, H, P, N, Q)} {kind} {dt_}")
             if kind == "slow" and L > Q and carried < 0.5:
@@ -1108,36 +1187,17 @@ def check_ssd(dev) -> dict:
                     (y.float() - yp.float()).abs().max()))
             del x, dt, a, bm, cm, y, hT, y2, h2, yp, hp, loc
             torch.cuda.empty_cache()
-    # times at the path shape, bf16, as the serving path calls it
-    B, L, H, P, N = B_SERVE, SSM_SEQ, SSM_HEADS, P_, N_
-    x, dt, a, bm, cm = _ssd_inputs(g, dev, B, L, H, P, N, "mamba2",
-                                   torch.bfloat16)
-    ms = graph_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=Q_), 5)
-    call_ms = cuda_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=Q_), 20)
-    plain_ms = cuda_ms(lambda: ref.ssd_chunked_ref(x, dt, a, bm, cm, Q_),
-                       3, 1)
-    nc = L // Q_
-    nbytes = (2 * x.numel() * 2 + dt.numel() * 4 + a.numel() * 4
-              + 2 * bm.numel() * 2 + B * H * P * N * 4)
-    flops = 2 * B * nc * Q_ * (Q_ * N + H * Q_ * P + 2 * H * P * N)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
-    bound = max(t_bytes, t_ops)
-    log(f"  ssd_scan path (B={B}, L={L}, H={H}, P={P}, N={N}, Q={Q_}) bf16: "
-        f"kernel {ms:.4f} ms on the device ({call_ms:.4f} ms a call with "
-        f"the host's launch), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; the same "
-        f"operations in f32 on the CUDA cores "
-        f"{flops / F32_FLOPS * 1e3:.4f} ms)")
-    del x, dt, a, bm, cm
-    torch.cuda.empty_cache()
-    return {"name": "ssd_scan", "route": "cuda",
+    # times at the path shape, bf16, as the serving path calls it (batch
+    # 4), and at batch 1 (phase 11's), where 32 blocks hold 32 SMs
+    times = {B: _ssd_times(dev, g, B) for B in (B_SERVE, 1)}
+    t4 = times[B_SERVE]
+    return {"name": "ssd_scan", "route": "cuda", "variant": "wgmma",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:77",
-            "max_abs_err": path_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "max_abs_err": path_err, "ms": t4["ms"],
+            "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
+            "bound_by": t4["bound_by"], "library_ms": None,
+            "times_by_batch": times}
 
 
 def draw_ssm(p: dict, seed: int) -> None:
@@ -1182,9 +1242,12 @@ def check_ssm_velocity(dev) -> dict:
     t = torch.tensor([0.7], device=dev)
     with torch.no_grad():
         n0 = ssd_scan.launches
+        w0 = ssd_scan.variant_launches["wgmma"]
         vk = adapter.velocity(p, x, t, cond)
         if ssd_scan.launches - n0 != cfg.n_layers:
             fail("velocity did not run the ssd_scan kernel once per block")
+        if ssd_scan.variant_launches["wgmma"] - w0 != cfg.n_layers:
+            fail("the bf16 velocity did not run the tensor-core scan")
         with plain_dispatch():
             vp = adapter.velocity(p, x, t, cond)
         real = ops.ssd_scan
@@ -1250,8 +1313,14 @@ def ssm_path() -> dict:
         fail(f"ssm latents: shape {tuple(lat.shape)} or not finite")
     if launches != want:
         fail("the ssm serving path's kernel launches do not match the path")
+    variants = dict(ssd_scan.variant_launches)
+    log(f"  ssd_scan launches by variant: {variants}")
+    if variants != {"wgmma": want["ssd_scan"], "fma": 0}:
+        fail("not every ssd_scan launch of the bf16 serving path ran the "
+             "tensor-core kernel")
     serve_s = out["serve_s"]
-    res = {"launches": launches, "batches": batches,
+    res = {"launches": launches, "ssd_scan_variants": variants,
+           "batches": batches,
            "req_per_s": B_SERVE / serve_s,
            "s_per_step": serve_s / (serve_batches * NUM_STEPS),
            "serve_s": serve_s, "warmup_s": out["warmup_s"],
@@ -1397,8 +1466,11 @@ def main(argv=None) -> int:
         f"wall, one nvcc per source in parallel)")
     for name in _build.sources():
         _build.load(name)
-    for name in ("flash_attention", "flash_attention_bwd"):
-        log(f"    {name} SASS: {json.dumps(sass_counts(name))}")
+    for name in ("flash_attention", "flash_attention_bwd", "ssd_scan"):
+        sass = sass_counts(name)
+        log(f"    {name} SASS: {json.dumps(sass)}")
+        if isinstance(sass, dict) and not (sass["HGMMA"] and sass["UTMALDG"]):
+            fail(f"the {name} library has no wgmma or no TMA load")
 
     if only:
         return run_only(dev, only)
@@ -1465,9 +1537,9 @@ def main(argv=None) -> int:
                                    "train": train_res["launches"]["ssd_scan"],
                                    "serve_ssm": ssd_row["launches"]}
     rows.append(ssd_row)
-    keys = ("name", "route", "source", "replaces", "launches",
+    keys = ("name", "route", "variant", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "launches_by_path")
+            "library_ms", "launches_by_path", "times_by_batch")
     print(json.dumps({"main_path": {k: v for k, v in res.items()
                                     if k != "launches"}}))
     print(json.dumps({"train_path": {k: v for k, v in train_res.items()
@@ -1475,7 +1547,8 @@ def main(argv=None) -> int:
                       "update_check": update_res}))
     print(json.dumps({"ssm_path": {k: v for k, v in ssm_res.items()
                                    if k != "launches"}}))
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in rows]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): TMA tile loads completed on
+// (flash_attention.cu, flash_attention_bwd.cu) and the bf16 SSD scan
+// (ssd_scan.cu): TMA tile loads completed on
 // mbarriers, warpgroup matrix products (wgmma) with shared-memory operand
 // descriptors, register reallocation between warpgroups, and the host-side
 // encoding of a tensor map over a (B, S, heads, D) bf16 tensor.
@@ -62,6 +63,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "bra LAB_WAIT;\n"
       "DONE:\n"
       "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `count` threads, for
+// warpgroups that sync among themselves while another has exited.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// Orders this thread's ordinary shared-memory stores before later reads by
+// the async proxy (wgmma operands written by threads, not by TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------------- TMA
@@ -220,6 +233,21 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (m64n64, f32) = A B + scale_d D with both operands read MN-major from
+// shared memory (A as 16 reduction rows of 64 M columns, B as desc_mn's).
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

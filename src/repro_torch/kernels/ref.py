@@ -233,3 +233,50 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         cum)[..., None]                                    # (B,nc,H,Q,P)
     y = (y + y_off).transpose(2, 3).reshape(B, L, H, Pd)
     return y.to(x.dtype), h
+
+
+def ssd_tensor_core_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                        bm: torch.Tensor, cm: torch.Tensor, chunk: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked scan as the bf16 tensor-core kernel rounds it
+    (``csrc/ssd_scan.cu: ssd_scan_wgmma``), chunk by chunk from a zero
+    state: S = C B^T exact; L' = S exp(cum[q] - cum[k]) dt[k] and the
+    carried state h_prev rounded once to bf16 as product operands;
+    xw = exp(total - cum) dt x split into bf16 hi + lo for the state
+    update; every sum in f32.  Shapes and outputs as ``ssd_chunked_ref``.
+    The kernel's own arithmetic, for rehearsing its precision; not a
+    reference of the function."""
+    B, L, H, Pd = x.shape
+    N = bm.shape[-1]
+    Q = min(chunk, L)
+    if L % Q:
+        raise ValueError(f"ssd scan: sequence length {L} is no multiple of "
+                         f"the chunk {Q}")
+    nc = L // Q
+    bf16 = torch.bfloat16
+    xf = x.to(F32).reshape(B, nc, Q, H, Pd).transpose(2, 3)   # (B,nc,H,Q,P)
+    dtf = dt.to(F32).reshape(B, nc, Q, H).transpose(2, 3)     # (B,nc,H,Q)
+    bf = bm.to(F32).reshape(B, nc, Q, N)
+    cf = cm.to(F32).reshape(B, nc, Q, N)
+    cum = torch.cumsum(dtf * a.to(F32)[:, None], dim=-1)
+    lower = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    h = torch.zeros((B, H, Pd, N), dtype=F32, device=x.device)
+    ys = []
+    for c in range(nc):
+        cu, d = cum[:, c], dtf[:, c]                          # (B,H,Q)
+        s = cf[:, c] @ bf[:, c].transpose(-1, -2)             # (B,Q,Q)
+        seg = torch.where(lower, cu[..., :, None] - cu[..., None, :], 0.0)
+        lp = torch.where(lower, s[:, None] * torch.exp(seg)
+                         * d[..., None, :], 0.0)
+        y = (cf[:, c][:, None] @ h.to(bf16).to(F32).transpose(-1, -2)
+             ) * torch.exp(cu)[..., None]
+        ys.append(y + lp.to(bf16).to(F32) @ xf[:, c])
+        total = cu[..., -1:]
+        xw = (torch.exp(total - cu) * d)[..., None] * xf[:, c]
+        hi = xw.to(bf16).to(F32)
+        lo = (xw - hi).to(bf16).to(F32)
+        bc = bf[:, c][:, None]
+        h = (torch.exp(total)[..., None] * h + hi.transpose(-1, -2) @ bc
+             + lo.transpose(-1, -2) @ bc)
+    y = torch.stack(ys, dim=1).transpose(2, 3).reshape(B, L, H, Pd)
+    return y.to(x.dtype), h

@@ -1,8 +1,13 @@
 """CUDA wrapper of the Mamba-2 SSD chunked scan (``csrc/ssd_scan.cu``).
 
 ``ssd_scan`` takes CUDA tensors only; ``kernels/ops.py`` sends CPU tensors
-to the plain chunked version ``ref.ssd_chunked_ref``.  ``ssd_scan.launches``
-counts the calls that launched the kernel (one call runs its four passes).
+to the plain chunked version ``ref.ssd_chunked_ref``.  Two kernels, chosen
+by ``tensor_core_route`` from dtype, shape and alignment alone: Mamba-2's
+bf16 shape (head dim 64, state 128, chunk 128, TMA-aligned) runs
+``ssd_scan_wgmma`` (one block per (batch, head) walking its chunks, state
+on chip, products on the tensor cores); f32 and every other shape run the
+four f32 FMA passes.  ``ssd_scan.launches`` counts the calls that launched
+a kernel, ``ssd_scan.variant_launches`` the same calls by variant.
 """
 from __future__ import annotations
 
@@ -20,6 +25,10 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
 
 
+# the tensor-core kernel's one shape (csrc/ssd_scan.cu: kTcQ, kTcP, kTcN)
+TC_CHUNK, TC_HEAD_DIM, TC_STATE = 128, 64, 128
+
+
 def _lib():
     fn = _build.load("ssd_scan").ssd_scan_fwd
     if fn.argtypes is None:
@@ -27,6 +36,34 @@ def _lib():
             ctypes.c_longlong] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _tc_lib():
+    fn = _build.load("ssd_scan").ssd_scan_wgmma_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+            ctypes.c_longlong] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def tensor_core_route(x: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
+                      chunk: int) -> bool:
+    """Whether ``ssd_scan`` runs the tensor-core kernel on these inputs:
+    bf16, head dim 64, state 128, a chunk of 128 (``min(chunk, L)``), and
+    what TMA needs (``csrc/ssd_scan.cu: tc_aligned``): x, bm and cm start on
+    16 bytes and their batch and token strides are multiples of 8 elements
+    on every axis longer than one.  Depends on nothing but dtype, shape,
+    strides and addresses; the inputs' other checks are ``ssd_scan``'s."""
+    B, L, _, P = x.shape
+    N = bm.shape[-1]
+    if x.dtype != torch.bfloat16 or (min(chunk, L), P, N) != (
+            TC_CHUNK, TC_HEAD_DIM, TC_STATE):
+        return False
+    if any(t.data_ptr() % 16 for t in (x, bm, cm)):
+        return False
+    return all((B == 1 or t.stride(0) % 8 == 0)
+               and (L == 1 or t.stride(1) % 8 == 0) for t in (x, bm, cm))
 
 
 def _check(x, dt, a, bm, cm, chunk: int) -> int:
@@ -80,24 +117,35 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     Q = _check(x, dt, a, bm, cm, chunk)
     B, L, H, P = x.shape
     N = bm.shape[-1]
-    nc = L // Q
     dev = x.device
     y = torch.empty((B, L, H, P), dtype=x.dtype, device=dev)
     hT = torch.empty((B, H, P, N), dtype=F32, device=dev)
-    scores = torch.empty((B, nc, Q, Q), dtype=F32, device=dev)
-    states = torch.empty((B, nc, H, P, N), dtype=F32, device=dev)
-    decay = torch.empty((B, nc, H), dtype=F32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
-                cm.data_ptr(), y.data_ptr(), hT.data_ptr(),
-                scores.data_ptr(), states.data_ptr(), decay.data_ptr(),
-                DTYPES[x.dtype], B, L, H, P, N, Q,
-                x.stride(0), x.stride(1), bm.stride(0), bm.stride(1),
-                cm.stride(0), cm.stride(1), stream)
+    strides = (x.stride(0), x.stride(1), bm.stride(0), bm.stride(1),
+               cm.stride(0), cm.stride(1))
+    if tensor_core_route(x, bm, cm, chunk):
+        variant = "wgmma"
+        rc = _tc_lib()(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                       bm.data_ptr(), cm.data_ptr(), y.data_ptr(),
+                       hT.data_ptr(), B, L, H, *strides, stream)
+    else:
+        variant = "fma"
+        nc = L // Q
+        scores = torch.empty((B, nc, Q, Q), dtype=F32, device=dev)
+        states = torch.empty((B, nc, H, P, N), dtype=F32, device=dev)
+        decay = torch.empty((B, nc, H), dtype=F32, device=dev)
+        rc = _lib()(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                    bm.data_ptr(), cm.data_ptr(), y.data_ptr(),
+                    hT.data_ptr(), scores.data_ptr(), states.data_ptr(),
+                    decay.data_ptr(), DTYPES[x.dtype], B, L, H, P, N, Q,
+                    *strides, stream)
     if rc != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"ssd_scan kernel launch failed ({variant}): "
+                           f"CUDA error {rc}")
     ssd_scan.launches += 1
+    ssd_scan.variant_launches[variant] += 1
     return y, hT
 
 
 ssd_scan.launches = 0
+ssd_scan.variant_launches = {"wgmma": 0, "fma": 0}

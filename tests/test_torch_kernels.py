@@ -369,10 +369,11 @@ def _chip_smoke():
 
 @pytest.mark.parametrize("source,group", [
     ("flash_attention.cu", "flash_attention kernel"),
-    ("flash_attention_bwd.cu", "flash_attention_bwd kernel")])
+    ("flash_attention_bwd.cu", "flash_attention_bwd kernel"),
+    ("ssd_scan.cu", "ssd_scan kernel")])
 def test_profile_groups_attribute_every_attention_kernel(source, group):
-    """chip_smoke's profiles (phases 6 and 8) put every kernel of the
-    attention sources in its attention group, not in "other" or the
+    """chip_smoke's profiles (phases 6, 8 and 12) put every kernel of the
+    attention and scan sources in its own group, not in "other" or the
     matmuls."""
     text = (_build.CSRC / source).read_text()
     names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"

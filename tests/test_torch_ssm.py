@@ -38,6 +38,7 @@ from repro_torch.core import schedulers as tsched
 from repro_torch.core.rollout import rollout_keyed as trollout_keyed
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ssd_scan import ssd_scan as cuda_ssd_scan
+from repro_torch.kernels.ssd_scan import tensor_core_route
 from repro_torch.launch import serve as tserve
 from repro_torch.models import params as tparams
 from repro_torch.models import ssm as tssm
@@ -200,12 +201,124 @@ def test_sequence_must_be_a_multiple_of_the_chunk():
     assert tuple(y.shape) == (1, 96, 2, 8)
 
 
-def test_cuda_wrapper_refuses_cpu_tensors():
-    """A CPU tensor never reaches the CUDA wrapper's kernel: it raises
-    (``ops`` routes CPU tensors to the plain version before it)."""
-    _, tin = _pair(_scan_inputs(6, 1, 32, 2, 8, 16, "sweep"), "float32")
+def _conv_slices(B, L, dtype):
+    """x, bm, cm as ``ssm.apply_full`` hands them to the scan: column
+    slices of one (B, L, d_in + 2N) conv output of full mamba2-370m."""
+    m = tssm.dims(tconfigs.get(ARCH))
+    conv = torch.zeros(B, L, m["d_in"] + 2 * m["N"], dtype=dtype)
+    xh = conv[..., :m["d_in"]].reshape(B, L, m["H"], m["P"])
+    bm = conv[..., m["d_in"]:m["d_in"] + m["N"]]
+    cm = conv[..., m["d_in"] + m["N"]:]
+    return xh, bm, cm, m["Q"]
+
+
+def test_tensor_core_route_takes_the_serving_path_and_nothing_else():
+    """The rule that picks the bf16 tensor-core kernel: the serving path's
+    strided bf16 slices at Mamba-2's shape go to it; f32, each odd shape
+    of chip_smoke's phase 10, another chunk, an unaligned base or row
+    stride go to the FMA passes.  The rule reads dtype, shape, strides and
+    addresses only, so it is the same on the CPU."""
+    xh, bm, cm, Q = _conv_slices(2, 256, torch.bfloat16)
+    assert xh.stride(1) == bm.stride(1) == 2048 + 2 * 128
+    assert tensor_core_route(xh, bm, cm, Q)
+    assert tensor_core_route(xh[:1], bm[:1], cm[:1], Q)   # batch 1
+    assert not tensor_core_route(*_conv_slices(2, 256, torch.float32))
+    assert not tensor_core_route(xh, bm, cm, 64)
+    # phase 10's odd shapes, bf16: (B, L, H, P, N, chunk)
+    for (B, L, H, P, N, chunk) in [(2, 128, 2, 32, 64, 32),
+                                   (3, 64, 1, 16, 32, 64),
+                                   (1, 21, 3, 8, 16, 32),
+                                   (2, 96, 16, 32, 32, 32)]:
+        x = torch.zeros(B, L, H, P, dtype=torch.bfloat16)
+        b = torch.zeros(B, L, N, dtype=torch.bfloat16)
+        assert not tensor_core_route(x, b, b, chunk), (B, L, H, P, N)
+    # an unaligned base (one element in) and an odd row stride
+    conv = torch.zeros(2, 256, 2048 + 2 * 128 + 8, dtype=torch.bfloat16)
+    x1 = conv[..., 1:2049].reshape(2, 256, 32, 64)
+    b1 = conv[..., 2049:2177]
+    assert not tensor_core_route(x1, b1, b1, 128)
+    odd = torch.zeros(2, 256, 2048 + 2 * 128 + 1, dtype=torch.bfloat16)
+    xo = odd[..., :2048].reshape(2, 256, 32, 64)
+    assert not tensor_core_route(xo, odd[..., 2048:2176], odd[..., 2176:2304],
+                                 128)
+
+
+def _cpu_inputs(route):
+    """(x, dt, a, bm, cm, chunk) on the CPU that would take ``route`` on
+    the card: a small f32 sweep case, or the serving path's bf16 slices."""
+    if route == "fma":
+        _, tin = _pair(_scan_inputs(6, 1, 32, 2, 8, 16, "sweep"), "float32")
+        return (*tin, 32)
+    xh, bm, cm, Q = _conv_slices(1, 128, torch.bfloat16)
+    H = xh.shape[2]
+    return xh, torch.full((1, 128, H), 0.01), -torch.ones(H), bm, cm, Q
+
+
+@pytest.mark.parametrize("route", ["fma", "wgmma"])
+def test_cuda_wrapper_refuses_cpu_tensors(route):
+    """A CPU tensor never reaches the CUDA wrapper's kernel, whichever
+    kernel its dtype and shape would pick: it raises (``ops`` routes CPU
+    tensors to the plain version before it, and no launch is counted)."""
+    x, dt, a, bm, cm, Q = _cpu_inputs(route)
+    assert tensor_core_route(x, bm, cm, Q) == (route == "wgmma")
+    before = (cuda_ssd_scan.launches, dict(cuda_ssd_scan.variant_launches))
     with pytest.raises(ValueError, match="CUDA tensors"):
-        cuda_ssd_scan(*tin, chunk=32)
+        cuda_ssd_scan(x, dt, a, bm, cm, chunk=Q)
+    y, h = ops.ssd_scan(x, dt, a, bm, cm, chunk=Q)
+    assert y.dtype == x.dtype and h.dtype == torch.float32
+    assert (cuda_ssd_scan.launches,
+            dict(cuda_ssd_scan.variant_launches)) == before
+
+
+# the bands chip_smoke's phase 10 holds the bf16 kernel to, of max |oracle|
+TC_Y_BAND, TC_H_BAND = 1e-2, 1e-4
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("kind", ["sweep", "mamba2", "slow"])
+def test_tensor_core_rounding_holds_the_bf16_bands(kind):
+    """The tensor-core kernel's rounding, written out in plain PyTorch
+    (``ref.ssd_tensor_core_ref``: L' and h_prev rounded once to bf16, the
+    state-update operand split into bf16 hi + lo), against the JAX oracle
+    at the kernel's shape (head dim 64, state 128, chunk 128) over four
+    chunks: y within 1e-2 and the final state within 1e-4 of max |oracle|,
+    the bands the card holds the kernel to."""
+    B, L, H, P, N, Q = 1, 512, 2, 64, 128, 128
+    jin, tin = _pair(_scan_inputs(7, B, L, H, P, N, kind), "bfloat16")
+    y_o, h_o = jref.ssd_scan_ref(*jin)
+    y_e, h_e = ref.ssd_tensor_core_ref(*tin, Q)
+    assert y_e.dtype == torch.bfloat16 and h_e.dtype == torch.float32
+    assert _rel(_np(y_e), _np(y_o)) <= TC_Y_BAND
+    assert _rel(_np(h_e), _np(h_o)) <= TC_H_BAND
+
+
+def test_tensor_core_rounding_needs_the_state_split():
+    """Why the state update takes two products: with its operand rounded
+    once to bf16 (the hi part alone) the final state leaves its 1e-4 band,
+    on the slow-decay draw where the state carries most of y."""
+    B, L, H, P, N, Q = 1, 512, 2, 64, 128, 128
+    jin, tin = _pair(_scan_inputs(7, B, L, H, P, N, "slow"), "bfloat16")
+    _, h_o = jref.ssd_scan_ref(*jin)
+    x, dt, a, bm, cm = (t.float() for t in tin)
+    nc = L // Q
+    xf = x.reshape(B, nc, Q, H, P).transpose(2, 3)
+    dtf = dt.reshape(B, nc, Q, H).transpose(2, 3)
+    bf = bm.reshape(B, nc, Q, N)
+    cum = torch.cumsum(dtf * a[:, None], dim=-1)
+    h = torch.zeros(B, H, P, N)
+    for c in range(nc):
+        total = cum[:, c, :, -1:]
+        xw = (torch.exp(total - cum[:, c]) * dtf[:, c])[..., None] * xf[:, c]
+        h = (torch.exp(total)[..., None] * h
+             + xw.to(torch.bfloat16).float().transpose(-1, -2)
+             @ bf[:, c][:, None])
+    assert _rel(h.numpy(), _np(h_o)) > 5 * TC_H_BAND
+    _, h_e = ref.ssd_tensor_core_ref(*tin, Q)
+    assert _rel(_np(h_e), _np(h_o)) <= TC_H_BAND
 
 
 # ------------------------------------------------------------- the model
