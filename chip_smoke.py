@@ -21,7 +21,11 @@ script exits 2 before printing any result.
    backward (against its plain version and against torch.autograd through
    the plain forward), ``grpo_loss`` and its backward; then the kernel,
    plain, bound and (for attention) SDPA times at the path shapes, with
-   CUDA events and replayed CUDA graphs.
+   CUDA events and replayed CUDA graphs.  The attention cases include the
+   dense path's shape (4, 4609, 15 query heads over 5 kv heads of 64,
+   causal, bf16: a GQA group of 3 and a one-row last query tile), held to
+   the same band relative to max |plain| as the flux path shape, and timed
+   beside SDPA (``enable_gqa``) and the causal bound.
 4. ``FlowAdapter.velocity`` at full ``flux_dit`` width, depth 2, through the
    kernels and through the plain versions, at the bf16 band.
 5. The main path: ``repro_torch.launch.serve.main`` serving 4 requests of
@@ -47,10 +51,13 @@ script exits 2 before printing any result.
    params must move.  Prints s per train step, peak memory, the clip
    fraction and max |logp_new - logp_old| at rollout params, and a
    ``torch.profiler`` breakdown of one more train step.
-9. One update (rollout, rewards, loss gradient, clip, AdamW) at full width,
-   depth 2, batch 2, modulation drawn, through the kernels and, on the same
-   injected draws, through the plain versions: loss, grad norm, the
-   attention weights' grads and the params after AdamW at stated bands.
+9. One update (rollout, rewards, loss gradient, clip, AdamW) of each of the
+   five trainers (``flow_grpo``, ``mix_grpo``, ``grpo_guard``, ``nft``,
+   ``awm``) at full width, depth 2, batch 2, modulation drawn, through the
+   kernels and, on the same injected draws (x_init, the rollout's eps, and
+   for NFT/AWM the update's t and noise), through the plain versions: loss,
+   grad norm, the attention weights' grads and the params after AdamW at
+   stated bands.
 10. ``ssd_scan`` against its plain chunked version (and the sequential
    recurrence at small lengths) over the reference's sweep, odd shapes
    (H = 1, L = Q, L = 3Q, a ragged 21-token chunk), Mamba-2's init, a slow
@@ -84,12 +91,39 @@ script exits 2 before printing any result.
    phase prints one velocity's gap between the kernels and the plain
    versions beside the gap between two chunkings of the plain scan, in f32
    and bf16.
-14. ``main_path``, ``train_path``, ``ssm_path`` and ``kernels`` JSON lines,
-   the card's name and power limit, and the last line ``{"ok": true,
-   "device": {...}}``.
+14. The ``ssd_scan`` kernel has no backward: ``ops.ssd_scan`` on CUDA inputs
+   that require grad raises ``NotImplementedError`` and launches nothing,
+   and ``repro_torch.launch.train --arch mamba2-370m`` (full width, 2
+   layers) refuses in its first loss with no parameter touched.
+15. ``FlowAdapter.velocity`` of ``smollm-360m`` (D 64, 15 query heads over 5
+   kv heads) and ``qwen3-32b`` (qk_norm, D 128, 64 over 8) at full width,
+   depth 2, over 512 + 1 + 4096 tokens, causal, through the kernels and the
+   plain versions at the bf16 band (smollm-360m with wq/wk drawn: at the
+   repository's init its attention is nearly one-hot, and the gap there is
+   printed without a band).
+16. The dense serving path: ``repro_torch.launch.serve.main`` serving 4
+   requests of ``smollm-360m`` (32 layers, bf16, random weights from a
+   seed) over a 512-token condition of width 4096, one time token and 4096
+   latent tokens of width 64 under ``flow_sde``, 4 steps.  Launch counts
+   must match the path (``flash_attention`` 32 x 4 and ``sde_step`` 4 per
+   batch); prints s per step, req/s, peak memory and a profile of one step;
+   then, with wq/wk drawn, serves the requests again and holds them
+   against ``rollout_keyed`` through the plain versions.
+17. The dense train path: ``repro_torch.launch.train.main`` at
+   ``smollm-360m``'s full width and all 32 layers, phase 8's geometry,
+   batch and rewards: ``flow_grpo`` for 2 steps (and a traced third), then
+   ``mix_grpo``, ``grpo_guard``, ``nft`` and ``awm`` for 1 step each, with
+   wq/wk drawn at train start (at the repository's init the gradients grow
+   ~5x a layer and overflow), each with launch counts that match its path
+   (the attention backward 32 per loss backward, ``grpo_loss`` only for
+   flow_grpo and mix_grpo, no ``sde_step`` in the NFT/AWM rollouts), finite
+   metrics, params that move, s per step and peak memory.
+18. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path`` and
+   ``kernels`` JSON lines, the card's name and power limit, and the last
+   line ``{"ok": true, "device": {...}}``.
 
-``--only N,...`` runs just the device and build phases and phases N (3, 8,
-9, 10, 11, 12 or 13) and prints no result lines: a development aid.
+``--only N,...`` runs just the device and build phases and phases N (3 and
+8-17) and prints no result lines: a development aid.
 """
 from __future__ import annotations
 
@@ -111,11 +145,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
-from repro_torch import configs  # noqa: E402
+from repro_torch import configs, registry  # noqa: E402
 from repro_torch.api import loop as loop_lib  # noqa: E402
 from repro_torch.config import (FlowRLConfig, OptimConfig,  # noqa: E402
                                 RewardSpec, replace)
-from repro_torch.core.trainers import FlowGRPOTrainer  # noqa: E402
 from repro_torch.core.rollout import (  # noqa: E402
     request_draws, request_seeds, rollout_keyed)
 from repro_torch.data import synthetic_prompts  # noqa: E402
@@ -143,6 +176,12 @@ B_SERVE, LAT_TOKENS, LAT_DIM = 4, 4096, 64
 COND_LEN, COND_DIM = 512, 4096
 SEQ, HEADS, HEAD_DIM = COND_LEN + LAT_TOKENS, 24, 128
 NUM_STEPS, N_LAYERS = 4, 38
+# the dense LM path: smollm-360m at its published width (32 layers, 15
+# query heads over 5 kv heads of 64) over [512 cond; 1 time; 4096 latent]
+# tokens, causal: a ragged 4609 = 36 x 128 + 1, the last query tile one row
+DENSE_ARCH, DENSE_LAYERS = "smollm-360m", 32
+DENSE_SEQ = COND_LEN + 1 + LAT_TOKENS
+DENSE_HEADS, DENSE_KV_HEADS, DENSE_HEAD_DIM = 15, 5, 64
 BF16_BAND = 3e-2        # max |kernel - plain| / max |plain| through bf16 blocks
 # bf16 attention at S=4608: outputs are ~sqrt(e/S) ~ 0.024 in std, so the
 # short cases' absolute 2e-2 would pass a wrong kernel; the limit scales
@@ -358,8 +397,11 @@ def check_attention(dev) -> dict:
         # and the 64-byte swizzle of D = 32 under a window
         (1, 1000, 1000, 8, 2, 128, True, 0, torch.bfloat16),
         (1, 300, 300, 4, 2, 32, True, 128, torch.bfloat16),
+        # the dense path: a GQA group of 3, causal, ragged last tile
+        (B_SERVE, DENSE_SEQ, DENSE_SEQ, DENSE_HEADS, DENSE_KV_HEADS,
+         DENSE_HEAD_DIM, True, 0, torch.bfloat16),
     ]
-    path_err = None
+    path_err = dense_err = None
     for (B, Sq, Sk, H, K, D, causal, window, dt) in cases:
         q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dt)
         k = torch.randn(B, Sk, K, D, generator=g, device=dev).to(dt)
@@ -370,12 +412,15 @@ def check_attention(dev) -> dict:
         err = float((o.float() - r.float()).abs().max())
         log(f"  flash_attention B={B} Sq={Sq} Sk={Sk} H={H} K={K} D={D} "
             f"causal={causal} window={window} {dt}: max|err| {err:.3e}")
-        if Sq == SEQ:
+        if Sq in (SEQ, DENSE_SEQ):
             limit = PATH_ATTN_BAND * float(r.float().abs().max())
             log(f"    path shape: limit {limit:.3e} "
                 f"({PATH_ATTN_BAND} of max|plain|)")
             ok = err <= limit
-            path_err = err
+            if Sq == SEQ:
+                path_err = err
+            else:
+                dense_err = err
         else:
             tol = 2e-5 if dt == torch.float32 else 2e-2
             ok = torch.allclose(o.float(), r.float(), atol=tol, rtol=tol)
@@ -415,13 +460,59 @@ def check_attention(dev) -> dict:
         f"({flops / 1e12:.3f} TFLOP)")
     del q, k, v
     torch.cuda.empty_cache()
+    dense = _dense_attention_times(dev, g, dense_err)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:81",
             "max_abs_err": path_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms}
+            "library_ms": library_ms, "dense_shape": dense}
+
+
+def _dense_qkv(g, dev, *extra):
+    """bf16 q (B, S, 15, 64) and k, v (B, S, 5, 64) at the dense path's
+    shape, plus one more q-shaped tensor per ``extra`` name."""
+    B, S = B_SERVE, DENSE_SEQ
+    q = torch.randn(B, S, DENSE_HEADS, DENSE_HEAD_DIM, generator=g,
+                    device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn(B, S, DENSE_KV_HEADS, DENSE_HEAD_DIM, generator=g,
+                        device=dev, dtype=torch.bfloat16) for _ in range(2))
+    return (q, k, v) + tuple(torch.randn_like(q) for _ in extra)
+
+
+def _causal_flops() -> float:
+    """Operations of the causal forward at the dense path's shape: the two
+    products over the half of the score matrix the mask keeps."""
+    return 4 * B_SERVE * DENSE_HEADS * DENSE_SEQ ** 2 * DENSE_HEAD_DIM / 2
+
+
+def _dense_attention_times(dev, g, err) -> dict:
+    """The causal GQA forward at the dense path's shape (4, 4609, 15 q / 5
+    kv heads, 64, bf16): kernel, plain, SDPA (``enable_gqa``, causal) and
+    the bound, operations 4 B H S^2 D / 2."""
+    q, k, v = _dense_qkv(g, dev)
+    ms = graph_ms(lambda: flash_attention(q, k, v, causal=True), 3)
+    plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True),
+                       2, 1)
+    torch.cuda.empty_cache()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                      enable_gqa=True), 10)
+    flops = _causal_flops()
+    t_ops = flops / BF16_FLOPS * 1e3
+    t_bytes = 4 * q.numel() * 2 / HBM_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    log(f"  flash_attention dense path {tuple(q.shape)} q / {tuple(k.shape)}"
+        f" kv, causal, bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"SDPA {library_ms:.3f} ms, bound {bound:.3f} ms "
+        f"({flops / 1e12:.3f} TFLOP)")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 ATTN_BWD_CASES = [  # B, Sq, Sk, H, K, D, causal, window, dtype
@@ -437,6 +528,12 @@ ATTN_BWD_CASES = [  # B, Sq, Sk, H, K, D, causal, window, dtype
     (1, 1000, 1000, 8, 2, 128, True, 0, torch.bfloat16),
     (1, 300, 300, 4, 2, 32, True, 128, torch.bfloat16),
     (1, SEQ, SEQ, HEADS, HEADS, HEAD_DIM, False, 0, torch.bfloat16),
+    # query counts that are no multiple of 4: the LSE and delta rows are
+    # padded to a 16-byte pitch for the kernels' TMA loads
+    (1, 129, 129, 3, 1, 64, True, 0, torch.bfloat16),
+    (1, 130, 77, 4, 2, 128, False, 0, torch.bfloat16),
+    (B_SERVE, DENSE_SEQ, DENSE_SEQ, DENSE_HEADS, DENSE_KV_HEADS,
+     DENSE_HEAD_DIM, True, 0, torch.bfloat16),
 ]
 # max |kernel - plain| / max |plain| of each of dq, dk, dv: f32 sums in
 # another order; bf16 rounds P and dS for the second products and the
@@ -455,7 +552,7 @@ def check_attention_bwd(dev) -> dict:
     """The forward's LSE output and the backward kernel against their plain
     versions, and against torch.autograd through the plain forward."""
     g = torch.Generator(device=dev).manual_seed(3)
-    path_err = None
+    path_err = dense_err = None
     for (B, Sq, Sk, H, K, D, causal, window, dt) in ATTN_BWD_CASES:
         q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dt)
         k = torch.randn(B, Sk, K, D, generator=g, device=dev).to(dt)
@@ -503,9 +600,13 @@ def check_attention_bwd(dev) -> dict:
             fail(f"flash_attention lse off at {(B, Sq, Sk, H, K, D)} {dt}")
         if max(errs + auto) > band:
             fail(f"flash_attention_bwd off at {(B, Sq, Sk, H, K, D)} {dt}")
-        if Sq == SEQ:
-            path_err = max(float((a.float() - b.float()).abs().max())
-                           for a, b in zip(got, want))
+        if Sq in (SEQ, DENSE_SEQ):
+            e = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(got, want))
+            if Sq == SEQ:
+                path_err = e
+            else:
+                dense_err = e
         del q, k, v, do, o, o0, lse, lse_ref, got, again, want, leaves
         torch.cuda.empty_cache()
     # times at the training path's shape: B=4, S=4608, 24 heads of 128
@@ -539,6 +640,7 @@ def check_attention_bwd(dev) -> dict:
         f"LSE output {lse_fwd_ms:.3f} ms")
     del q, k, v, do, o, lse, qt, kt, vt, out, dot
     torch.cuda.empty_cache()
+    dense = _dense_attention_bwd_times(dev, g, dense_err)
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": "none (JAX autodiff of src/repro/models/"
@@ -546,7 +648,46 @@ def check_attention_bwd(dev) -> dict:
             "max_abs_err": path_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms, "forward_with_lse_ms": lse_fwd_ms}
+            "library_ms": library_ms, "forward_with_lse_ms": lse_fwd_ms,
+            "dense_shape": dense}
+
+
+def _dense_attention_bwd_times(dev, g, err) -> dict:
+    """The causal GQA backward at the dense path's shape: kernel, plain,
+    SDPA backward (``enable_gqa``, causal) and the bound, 2.5x the causal
+    forward's operations."""
+    q, k, v, do = _dense_qkv(g, dev, "do")
+    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    lse_fwd_ms = graph_ms(lambda: flash_attention(
+        q, k, v, causal=True, return_lse=True), 3)
+    ms = graph_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                              causal=True), 3)
+    plain_ms = cuda_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, o, lse, do, causal=True), 1, 1)
+    torch.cuda.empty_cache()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_()
+                  for a in (q, k, v))
+    out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 5)
+    flops = 2.5 * _causal_flops()
+    nbytes = (4 * q.numel() + 3 * 2 * k.numel()) * 2 + 4 * lse.numel()
+    t_ops = flops / BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    log(f"  flash_attention_bwd dense path {tuple(q.shape)} q / "
+        f"{tuple(k.shape)} kv, causal, bf16: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, SDPA backward {library_ms:.3f} ms, bound "
+        f"{bound:.3f} ms ({flops / 1e12:.3f} TFLOP); the forward with its "
+        f"LSE output {lse_fwd_ms:.3f} ms")
+    del q, k, v, do, o, lse, qt, kt, vt, out, dot
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "forward_with_lse_ms": lse_fwd_ms}
 
 
 GRPO_BATCHES = (7, 64, 1031, 4)
@@ -639,6 +780,23 @@ def draw_modulation(p: dict, d_model: int, seed: int) -> None:
 
 
 # ------------------------------------------------------------------ phase 4
+def _velocity_gap(adapter, p, x, t, cond) -> tuple:
+    """(max |kernel - plain|, max |plain|) of one velocity; fails unless
+    the kernel route ran the attention kernel once per block."""
+    with torch.no_grad():
+        n0 = flash_attention.launches
+        vk = adapter.velocity(p, x, t, cond)
+        if flash_attention.launches - n0 != adapter.cfg.n_layers:
+            fail(f"the {adapter.cfg.name} velocity did not run the attention "
+                 "kernel once per block")
+        with plain_dispatch():
+            vp = adapter.velocity(p, x, t, cond)
+    torch.cuda.synchronize()
+    if not torch.isfinite(vk).all():
+        fail(f"the {adapter.cfg.name} velocity is not finite")
+    return float((vk - vp).abs().max()), float(vp.abs().max())
+
+
 def check_velocity(dev) -> None:
     cfg = replace(configs.get("flux_dit"), n_layers=2)
     adapter = FlowAdapter(cfg, FlowRLConfig(latent_tokens=LAT_TOKENS,
@@ -649,19 +807,10 @@ def check_velocity(dev) -> None:
     x = torch.randn(1, LAT_TOKENS, LAT_DIM, generator=gen, device=dev)
     cond = torch.randn(1, COND_LEN, COND_DIM, generator=gen, device=dev)
     t = torch.tensor([0.7], device=dev)
-    with torch.no_grad():
-        n0 = flash_attention.launches
-        vk = adapter.velocity(p, x, t, cond)
-        if flash_attention.launches - n0 != cfg.n_layers:
-            fail("velocity did not run the attention kernel once per block")
-        with plain_dispatch():
-            vp = adapter.velocity(p, x, t, cond)
-    torch.cuda.synchronize()
-    err = float((vk - vp).abs().max())
-    scale = float(vp.abs().max())
+    err, scale = _velocity_gap(adapter, p, x, t, cond)
     log(f"  velocity flux_dit depth 2 (1, {SEQ} tokens) bf16: max|kernel - "
         f"plain| {err:.3e} of max|v| {scale:.3e}")
-    if not (torch.isfinite(vk).all() and err <= BF16_BAND * scale):
+    if err > BF16_BAND * scale:
         fail("velocity through the kernels is off the bf16 band")
 
 
@@ -920,6 +1069,8 @@ def train_path(tmp: str) -> dict:
 
 # ------------------------------------------------------------------ phase 9
 UPDATE_LAYERS, UPDATE_CLIP = 2, 0.2
+TRAINERS = ("flow_grpo", "mix_grpo", "grpo_guard", "nft", "awm")
+GRPO_FAMILY = ("flow_grpo", "mix_grpo", "grpo_guard")
 # max |kernel - plain| / max |plain| of the attention weights' grads and the
 # relative gap of grad_norm: two bf16 runs of the same step, each with its
 # own rollout (latents 4e-3 apart after 4 steps, phase 7) and bf16 P and
@@ -927,13 +1078,36 @@ UPDATE_LAYERS, UPDATE_CLIP = 2, 0.2
 GRAD_BAND = 5e-2
 
 
-def check_update(dev) -> dict:
-    """One update (rollout, rewards, loss and its gradient, clip, AdamW)
-    at full width, depth 2, batch 2, with the modulation drawn, through
-    the kernels and, on the same injected draws, through the plain
-    versions.  The clip range is widened to 0.2 so that every sample's
-    ratio lies inside the band on both routes (the kernel rollout's
-    log-density differs from the loss's by the gap phase 8 prints)."""
+def _loss_band(name: str, k: dict, p: dict) -> float:
+    """How far the two routes' losses may lie apart.  GRPO family: inside
+    the clip band each loss is -mean(ratio A) with |ratio - 1| <= w, so the
+    two differ by at most 2 w mean|A|, with w the clip range (GRPO-Guard's
+    RatioNorm divides by a batch mean that is itself within the clip band:
+    w = (1 + c) / (1 - c) - 1).  NFT and AWM: squared velocity errors on
+    two bf16 rollouts' x0 at the same (t, eps), GRAD_BAND relative to the
+    size of the loss's terms: NFT's are positive, so the loss itself; AWM
+    weights them by advantages of both signs, so mean|A| times the mean
+    squared error (vel_err squared)."""
+    adv = max(k["adv_abs"], p["adv_abs"])
+    if name == "grpo_guard":
+        return 2 * ((1 + UPDATE_CLIP) / (1 - UPDATE_CLIP) - 1) * adv
+    if name in GRPO_FAMILY:
+        return 2 * UPDATE_CLIP * adv
+    if name == "awm":
+        se = max(k["aux"]["vel_err"], p["aux"]["vel_err"]) ** 2
+        return GRAD_BAND * adv * se
+    return GRAD_BAND * abs(p["loss"])
+
+
+def check_update(dev, name: str) -> dict:
+    """One update of trainer ``name`` (rollout, rewards, loss and its
+    gradient, clip, AdamW) at full width, depth 2, batch 2, with the
+    modulation drawn, through the kernels and, on the same injected draws
+    (x_init, the rollout's eps, and for NFT/AWM the update's t and noise),
+    through the plain versions.  The clip range is widened to 0.2 so that
+    every sample's ratio lies inside the band on both routes (the kernel
+    rollout's log-density differs from the loss's by the gap phase 8
+    prints)."""
     cfg = replace(configs.get("flux_dit"), n_layers=UPDATE_LAYERS)
     flow = FlowRLConfig(num_steps=NUM_STEPS, group_size=2,
                         clip_range=UPDATE_CLIP, latent_tokens=LAT_TOKENS,
@@ -947,11 +1121,13 @@ def check_update(dev) -> dict:
     x_init = torch.randn(2, LAT_TOKENS, LAT_DIM, generator=gen, device=dev)
     eps = torch.randn(NUM_STEPS, 2, LAT_TOKENS, LAT_DIM, generator=gen,
                       device=dev)
+    t_u = 0.02 + 0.96 * torch.rand(2, generator=gen, device=dev)
+    eps_u = torch.randn(2, LAT_TOKENS, LAT_DIM, generator=gen, device=dev)
     runs = {}
     params = None
     for route in ("kernel", "plain"):
-        tr = FlowGRPOTrainer(cfg, flow, opt, seed=0, cond_dim=COND_DIM,
-                             device=dev, params=params)
+        tr = registry.build("trainer", name, cfg, flow, opt, seed=0,
+                            cond_dim=COND_DIM, device=dev, params=params)
         if params is None:
             draw_modulation(tr.state.params, cfg.d_model, seed=6)
             params = _clone(tr.state.params)
@@ -960,14 +1136,14 @@ def check_update(dev) -> dict:
             traj = tr.sample(tr.state.params, cond, None, x_init=x_init,
                              eps=eps)
             _, adv, stats = tr._rewards(traj.x0, {"cond": traj.cond})
-            loss, aux = tr.backward(traj, adv)
+            loss, aux = tr.backward(traj, adv, t=t_u, eps=eps_u)
             attn = tr.state.params["backbone"]["blocks"]["attn"]
             grads = {k: attn[k].grad.clone() for k in ("wq", "wk", "wv")}
             gnorm, lr = tr.apply_grads()
         torch.cuda.synchronize()
         runs[route] = {"loss": float(loss), "grad_norm": float(gnorm),
                        "lr": lr, "grads": grads,
-                       "logp_gap": float(aux["logp_gap"]),
+                       "aux": {a: float(v) for a, v in aux.items()},
                        "reward": float(stats["reward_mean"]),
                        "adv_abs": float(adv.abs().mean()),
                        "params": tr.state.params}
@@ -992,35 +1168,45 @@ def check_update(dev) -> dict:
         n_all += d.numel()
     ulp = 2.0 ** (math.floor(math.log2(p_max)) - 7)
     p_band = 2 * k["lr"] + ulp
-    log(f"  one update, flux_dit depth {UPDATE_LAYERS}, batch 2, kernels vs "
-        f"plain: loss {k['loss']:+.4e} / {p['loss']:+.4e}, grad_norm "
-        f"{k['grad_norm']:.4e} / {p['grad_norm']:.4e} ({gn_err:.2e}), "
-        f"reward {k['reward']:+.4e} / {p['reward']:+.4e}, max|logp_new - "
-        f"logp_old| {k['logp_gap']:.3e} / {p['logp_gap']:.3e}")
+    aux = ", ".join(f"{a} {k['aux'][a]:.4e} / {p['aux'][a]:.4e}"
+                    for a in k["aux"])
+    log(f"  one {name} update, flux_dit depth {UPDATE_LAYERS}, batch 2, "
+        f"kernels vs plain: loss {k['loss']:+.4e} / {p['loss']:+.4e}, "
+        f"grad_norm {k['grad_norm']:.4e} / {p['grad_norm']:.4e} "
+        f"({gn_err:.2e}), reward {k['reward']:+.4e} / {p['reward']:+.4e}, "
+        f"{aux}")
     log(f"  grads of wq/wk/wv: max|kernel - plain| / max|plain| "
         f"{grad_err['wq']:.3e}/{grad_err['wk']:.3e}/{grad_err['wv']:.3e} "
         f"(band {GRAD_BAND}); params after AdamW: max|diff| {p_err:.3e} "
         f"(band 2 lr + one bf16 ulp of max|p| = {p_band:.3e}), "
         f"{n_diff} of {n_all} weights differ")
     if zero:
-        fail(f"the gradients of {zero} are zero: the check cannot see the "
-             "attention backward")
+        fail(f"{name}: the gradients of {zero} are zero: the check cannot "
+             "see the attention backward")
     if max(grad_err.values()) > GRAD_BAND or gn_err > GRAD_BAND:
-        fail("the update's gradients through the kernels disagree with the "
-             "plain versions")
-    # inside the clip band each route's loss is -mean(ratio A) with
-    # |ratio - 1| <= clip, so the two differ by at most 2 clip mean|A|
-    loss_band = 2 * UPDATE_CLIP * max(k["adv_abs"], p["adv_abs"])
+        fail(f"{name}: the update's gradients through the kernels disagree "
+             "with the plain versions")
+    loss_band = _loss_band(name, k, p)
     if abs(k["loss"] - p["loss"]) > loss_band:
-        fail("the update's loss through the kernels disagrees with the plain "
-             f"versions beyond {loss_band:.3e}")
+        fail(f"{name}: the update's loss through the kernels disagrees with "
+             f"the plain versions beyond {loss_band:.3e}")
     if p_err > p_band:
-        fail("the params after AdamW disagree between the routes")
+        fail(f"{name}: the params after AdamW disagree between the routes")
     return {"grad_err": grad_err, "grad_norm_err": gn_err,
             "loss": [k["loss"], p["loss"]], "loss_band": loss_band,
-            "param_max_diff": p_err,
+            "aux": [k["aux"], p["aux"]], "param_max_diff": p_err,
             "param_band": p_band, "params_differing": n_diff,
             "params_total": n_all}
+
+
+def check_updates(dev) -> dict:
+    """Phase 9 for each of the five trainers."""
+    out = {}
+    for name in TRAINERS:
+        out[name] = check_update(dev, name)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # ----------------------------------------------------------------- phase 10
@@ -1425,6 +1611,382 @@ def check_ssm_replay() -> dict:
             "free_running_err": free_err, "moved": moved,
             "velocity_gaps": gaps}
 
+# ----------------------------------------------------------------- phase 14
+class _Snapshot(loop_lib.Callback):
+    """Keeps the trainer and a copy of its params at train start."""
+
+    def on_train_start(self, loop):
+        self.trainer = loop.trainer
+        self.before = _clone(loop.trainer.state.params)
+
+
+SSD_REFUSAL_LAYERS, SSD_REFUSAL_STEPS = 2, 2
+
+
+def check_ssd_grad_refusal(tmp: str) -> dict:
+    """The ``ssd_scan`` kernel has no backward: ``ops.ssd_scan`` on CUDA
+    inputs that require grad raises and launches nothing (under
+    ``no_grad`` the same call launches), and ``repro_torch.launch.train
+    --arch mamba2-370m`` (full width, 2 layers, the serving geometry)
+    refuses in its first loss, after the rollout and before any parameter
+    moves: the optimizer never steps, every leaf is bitwise as at train
+    start and none is left requiring grad."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    args = _ssd_inputs(g, dev, 1, 256, 4, SSM_HEAD_DIM, SSM_STATE, "mamba2",
+                       torch.bfloat16)
+    refused = []
+    for i, name in enumerate(("x", "dt", "a", "bm", "cm")):
+        call = list(args)
+        call[i] = call[i].detach().clone().requires_grad_()
+        before = (ssd_scan.launches, dict(ssd_scan.variant_launches))
+        try:
+            ops.ssd_scan(*call, chunk=SSM_CHUNK)
+        except NotImplementedError as e:
+            if "Queue 2 item 1" not in str(e):
+                fail(f"ssd_scan refused {name} without naming the backward's "
+                     f"ROADMAP item: {e}")
+            refused.append(name)
+        else:
+            fail(f"ops.ssd_scan ran with {name} requiring grad")
+        if (ssd_scan.launches, dict(ssd_scan.variant_launches)) != before:
+            fail("the refused ssd_scan call launched a kernel")
+        with torch.no_grad():
+            n0 = ssd_scan.launches
+            ops.ssd_scan(*call, chunk=SSM_CHUNK)
+            if ssd_scan.launches != n0 + 1:
+                fail("ssd_scan under no_grad did not launch")
+    log(f"  ops.ssd_scan with each of {refused} requiring grad: raised "
+        f"NotImplementedError, no launch; under no_grad: launched")
+    argv = ["--arch", SSM_ARCH, "--sde", "flow_sde", "--device", "cuda",
+            "--trainer", "flow_grpo", "--steps", "1",
+            "--set", "arch_overrides=" + json.dumps(
+                {"n_layers": SSD_REFUSAL_LAYERS}),
+            "--set", "param_dtype=bfloat16",
+            "--set", f"flow.num_steps={SSD_REFUSAL_STEPS}",
+            "--set", f"flow.group_size={GROUP}",
+            "--set", f"flow.latent_tokens={LAT_TOKENS}",
+            "--set", f"flow.latent_dim={LAT_DIM}",
+            "--set", f"flow.cache_dir={tmp}/cache_ssm",
+            "--set", "data.encoder=" + json.dumps(
+                {"cond_dim": COND_DIM, "cond_len": SSM_COND_LEN}),
+            "--set", "data.batch_prompts=1", "--set", "data.n_prompts=1",
+            "--set", "loop.save_every=0", "--set", "loop.log_every=1",
+            "--set", f"loop.ckpt_dir={tmp}/ckpt_ssm"]
+    snap = _Snapshot()
+    reset_counts()
+    try:
+        train.main(argv, callbacks=[snap])
+    except NotImplementedError as e:
+        msg = str(e)
+    else:
+        fail("launch.train --arch mamba2-370m trained on the card without "
+             "an ssd_scan backward")
+    launches = counts()
+    tr = snap.trainer
+    leaves = list(params_lib.leaves(tr.state.params))
+    moved = [".".join(path) for (path, a), (_, b) in zip(
+        leaves, params_lib.leaves(snap.before)) if not torch.equal(a, b)]
+    live = [".".join(path) for path, a in leaves
+            if a.requires_grad or a.grad is not None]
+    want_scans = SSD_REFUSAL_LAYERS * SSD_REFUSAL_STEPS
+    log(f"  launch.train --arch {SSM_ARCH} ({SSD_REFUSAL_LAYERS} layers): "
+        f"refused with \"{msg[:80]}...\"; optimizer step "
+        f"{int(tr.state.opt.step)}, {len(moved)} of {len(leaves)} leaves "
+        f"changed, {len(live)} left requiring grad; launches {launches}")
+    if "Queue 2 item 1" not in msg:
+        fail(f"the train path refused for another reason: {msg}")
+    if int(tr.state.opt.step) != 0 or moved or live:
+        fail(f"the refused train step touched the params: step "
+             f"{int(tr.state.opt.step)}, moved {moved[:4]}, live {live[:4]}")
+    if launches["ssd_scan"] != want_scans or launches["sde_step"] != \
+            SSD_REFUSAL_STEPS:
+        fail(f"the refused step's rollout launched {launches}, expected "
+             f"{want_scans} scans and {SSD_REFUSAL_STEPS} sde steps")
+    del snap, tr, leaves
+    return {"refused_inputs": refused, "train_refusal": msg,
+            "rollout_launches": launches}
+
+
+# ----------------------------------------------------------------- phase 15
+def draw_attention(p: dict, d_model: int, seed: int) -> None:
+    """Redraw wq and wk at std 1/sqrt(d_model), one layer at a time, in
+    place.  The repository's init takes a 3-D projection's fan-in from its
+    head axis: at smollm-360m's width q and k have std 8 and the attention
+    logits std ~64, the softmax is nearly one-hot, and the 32-layer stack
+    amplifies any rounding (on the CPU, bf16 rounding of the attention
+    inputs alone moves the reduced velocity by a fifth of max |v| in either
+    package), so no replay could tell a kernel fault from chaos; and its
+    gradients grow ~5x a layer in either package, so that 32 layers
+    overflow to an infinite gradient norm (tests/test_torch_dense.py).
+    Drawn so, the logits are of order one."""
+    attn = p["backbone"]["blocks"]["attn"]
+    gen = torch.Generator(device=attn["wq"].device).manual_seed(seed)
+    for key in ("wq", "wk"):
+        for layer in attn[key]:
+            layer.copy_(torch.randn(layer.shape, generator=gen,
+                                    device=layer.device) / d_model ** 0.5)
+
+
+def check_dense_velocity(dev, arch: str, draw_qk: bool) -> dict:
+    """``FlowAdapter.velocity`` of ``arch`` at full width, depth 2, over
+    512 + 1 + 4096 tokens, through the kernels (one attention launch per
+    block) and through the plain versions, at the bf16 band.  With
+    ``draw_qk`` the gap at the repository's init is printed (no band: the
+    logits are near one-hot there, ``draw_attention``) and the band holds
+    with wq/wk drawn."""
+    cfg = replace(configs.get(arch), n_layers=2)
+    adapter = FlowAdapter(cfg, FlowRLConfig(latent_tokens=LAT_TOKENS,
+                                            latent_dim=LAT_DIM), COND_DIM)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    p = params_lib.init(adapter.spec(), gen, torch.bfloat16, dev)
+    x = torch.randn(1, LAT_TOKENS, LAT_DIM, generator=gen, device=dev)
+    cond = torch.randn(1, COND_LEN, COND_DIM, generator=gen, device=dev)
+    t = torch.tensor([0.7], device=dev)
+    hd = cfg.resolved_head_dim
+    shape = (f"{arch} depth 2 (1, {DENSE_SEQ} tokens, {cfg.n_heads} q / "
+             f"{cfg.n_kv_heads} kv heads of {hd}, qk_norm {cfg.qk_norm})")
+    res = {"heads": [cfg.n_heads, cfg.n_kv_heads, hd]}
+    if draw_qk:
+        err0, scale0 = _velocity_gap(adapter, p, x, t, cond)
+        log(f"  velocity {shape} bf16 at the repository's init: max|kernel -"
+            f" plain| {err0:.3e} of max|v| {scale0:.3e} (no band)")
+        res["repository_init"] = {"max_abs_err": err0, "max_abs": scale0}
+        draw_attention(p, cfg.d_model, seed=13)
+    err, scale = _velocity_gap(adapter, p, x, t, cond)
+    log(f"  velocity {shape}{', wq/wk drawn' if draw_qk else ''} bf16: "
+        f"max|kernel - plain| {err:.3e} of max|v| {scale:.3e} (band "
+        f"{BF16_BAND * scale:.3e})")
+    if err > BF16_BAND * scale:
+        fail(f"the {arch} velocity through the kernels is off the bf16 band")
+    del p
+    res.update(max_abs_err=err, max_abs=scale, band=BF16_BAND * scale)
+    return res
+
+
+def check_dense_velocities(dev) -> dict:
+    """Phase 15: smollm-360m (D 64, a GQA group of 3) and qwen3-32b
+    (qk_norm, D 128, 64 q / 8 kv heads); wq/wk drawn where no qk_norm
+    keeps the logits small."""
+    out = {}
+    for arch in (DENSE_ARCH, "qwen3-32b"):
+        out[arch] = check_dense_velocity(
+            dev, arch, draw_qk=not configs.get(arch).qk_norm)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------- phase 16
+def _dense_argv() -> list:
+    return ["--arch", DENSE_ARCH, "--sde", "flow_sde", "--device", "cuda",
+            "--requests", str(B_SERVE), "--max-batch", str(B_SERVE),
+            "--bucket", str(B_SERVE),
+            "--set", f"flow.num_steps={NUM_STEPS}",
+            "--set", f"flow.latent_tokens={LAT_TOKENS}",
+            "--set", f"flow.latent_dim={LAT_DIM}",
+            "--set", "param_dtype=bfloat16",
+            "--set", "data.encoder=" + json.dumps(
+                {"cond_dim": COND_DIM, "cond_len": COND_LEN})]
+
+
+def dense_serve_path() -> dict:
+    """``repro_torch.launch.serve.main`` serving 4 requests of smollm-360m
+    (32 layers, bf16, random weights from a seed) over 512 + 1 + 4096
+    tokens under flow_sde, 4 steps: launch counts, s per step, req/s, peak
+    memory and a profile of one step; then, with wq/wk drawn, the same
+    requests served again through the engine and held against
+    ``rollout_keyed`` through the plain versions."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = serve.main(_dense_argv())
+    launches = counts()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    stats, lat = out["stats"], out["latents"]
+    eng = out["engine"]
+    batches = len(out["warmup"]) + sum(stats["dispatches"].values())
+    serve_batches = sum(stats["dispatches"].values())
+    want = {name: 0 for name in launches}
+    want["sde_step"] = NUM_STEPS * batches
+    want["flash_attention"] = DENSE_LAYERS * NUM_STEPS * batches
+    log(f"  launches {launches} over {batches} batches (warmup + serve; "
+        f"expected {want})")
+    if eng.adapter.cfg.n_layers != DENSE_LAYERS:
+        fail(f"served {eng.adapter.cfg.n_layers} layers, not {DENSE_LAYERS}")
+    if tuple(lat.shape) != (B_SERVE, LAT_TOKENS, LAT_DIM) or not \
+            torch.isfinite(lat).all():
+        fail(f"dense latents: shape {tuple(lat.shape)} or not finite")
+    if launches != want:
+        fail("the dense serving path's kernel launches do not match the path")
+    serve_s = out["serve_s"]
+    res = {"launches": launches, "batches": batches,
+           "req_per_s": B_SERVE / serve_s,
+           "s_per_step": serve_s / (serve_batches * NUM_STEPS),
+           "serve_s": serve_s, "warmup_s": out["warmup_s"],
+           "peak_bytes": peak,
+           "n_params": params_lib.n_params(eng.adapter.spec())}
+    log(f"  dense path: {res['req_per_s']:.4f} req/s, "
+        f"{res['s_per_step']:.4f} s per denoising step (batch {B_SERVE}), "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB ({peak} bytes), "
+        f"{res['n_params']} params")
+    res["profile"] = profile_step(eng, DENSE_SEQ)
+    # the replay: served through the engine and the kernels with wq/wk
+    # drawn, against rollout_keyed through the plain versions
+    draw_attention(eng.params, eng.adapter.cfg.d_model, seed=14)
+    prompts = synthetic_prompts(B_SERVE)
+    lat2 = eng.serve(prompts, 0)         # the seed serve.main used
+    cond = torch.from_numpy(eng.encode(prompts)).to(eng.device)
+    with torch.no_grad(), plain_dispatch():
+        ref_lat = rollout_keyed(eng.adapter, eng.params, cond,
+                                request_seeds(0, B_SERVE), eng.scheduler,
+                                NUM_STEPS).x0.cpu()
+    err = float((lat2 - ref_lat).abs().max())
+    scale = float(ref_lat.abs().max())
+    moved = float((lat2 - lat).abs().max())
+    log(f"  {B_SERVE} requests, wq/wk drawn, served through the kernels vs "
+        f"rollout_keyed through the plain versions: max|diff| {err:.3e} of "
+        f"max|x| {scale:.3e} (band {BF16_BAND * scale:.3e}); the draw moved "
+        f"the latents by {moved:.3e}")
+    if not torch.isfinite(lat2).all() or err > BF16_BAND * scale:
+        fail("the dense served latents disagree with the plain replay")
+    if moved <= 10 * err:
+        fail("the drawn attention hardly moved the latents; the replay "
+             "cannot see the blocks")
+    res["replay"] = {"max_abs_err": err, "max_abs": scale,
+                     "band": BF16_BAND * scale, "moved": moved}
+    del eng, out
+    return res
+
+
+# ----------------------------------------------------------------- phase 17
+class _DrawAttention(loop_lib.Callback):
+    """Draws wq/wk (``draw_attention``) at train start, before any step."""
+
+    def on_train_start(self, loop):
+        draw_attention(loop.trainer.state.params,
+                       loop.trainer.adapter.cfg.d_model, seed=15)
+
+
+def _dense_train_want(name: str, steps: int) -> dict:
+    """Kernel launches of ``steps`` train steps of trainer ``name`` on the
+    32-layer dense path at T = 4: the rollout's attention forward per layer
+    and step and its sde_step per SDE step; the loss's forward and backward
+    per layer at each SDE step (GRPO family) or once (NFT/AWM), and the
+    grpo_loss kernels only where the reference's kernel condition holds."""
+    sde = {"mix_grpo": 2}.get(name, NUM_STEPS)   # MixGRPO: window 2
+    want = {"sde_step": 0, "flash_attention": 0, "flash_attention_bwd": 0,
+            "grpo_loss": 0, "grpo_loss_bwd": 0, "ssd_scan": 0}
+    rollout = DENSE_LAYERS * NUM_STEPS
+    if name in GRPO_FAMILY:
+        want["sde_step"] = sde
+        want["flash_attention"] = rollout + DENSE_LAYERS * sde
+        want["flash_attention_bwd"] = DENSE_LAYERS * sde
+        if name != "grpo_guard":
+            want["grpo_loss"] = want["grpo_loss_bwd"] = sde
+    else:
+        want["flash_attention"] = rollout + DENSE_LAYERS
+        want["flash_attention_bwd"] = DENSE_LAYERS
+    return {k: v * steps for k, v in want.items()}
+
+
+def dense_train_path(tmp: str) -> dict:
+    """``repro_torch.launch.train.main`` on the card at smollm-360m's full
+    width and all 32 layers, bf16, the serving geometry, T = 4, 2 prompts x
+    group 2, phase 8's rewards under gdpo: flow_grpo for 2 steps (and one
+    more, traced), then mix_grpo, grpo_guard, nft and awm for 1 step each,
+    with wq/wk drawn at train start (``draw_attention``: at the
+    repository's init the gradient norm overflows).  Per trainer: launch
+    counts that match its path, finite metrics, params that move, s per
+    step and peak memory."""
+    out = {}
+    for name in TRAINERS:
+        n = TRAIN_STEPS if name == "flow_grpo" else 1
+        argv = ["--arch", DENSE_ARCH, "--sde", "flow_sde", "--device", "cuda",
+                "--trainer", name, "--steps", str(n),
+                "--set", "param_dtype=bfloat16",
+                "--set", f"flow.num_steps={NUM_STEPS}",
+                "--set", f"flow.group_size={GROUP}",
+                "--set", f"flow.latent_tokens={LAT_TOKENS}",
+                "--set", f"flow.latent_dim={LAT_DIM}",
+                "--set", "flow.advantage_agg=gdpo",
+                "--set", "flow.rewards=" + json.dumps(TRAIN_REWARDS),
+                "--set", f"flow.cache_dir={tmp}/cache",
+                "--set", "data.encoder=" + json.dumps(
+                    {"cond_dim": COND_DIM, "cond_len": COND_LEN}),
+                "--set", f"data.batch_prompts={PROMPTS}",
+                "--set", f"data.n_prompts={PROMPTS * n}",
+                "--set", "loop.save_every=0", "--set", "loop.log_every=1",
+                "--set", f"loop.ckpt_dir={tmp}/ckpt_{name}"]
+        watch = _Watch()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        res = train.main(argv, callbacks=[_DrawAttention(), watch])
+        launches = counts()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        hist = res["history"]
+        trainer = res["experiment"].build_trainer()
+        want = _dense_train_want(name, n)
+        log(f"  {name}: launches {launches} over {n} train steps (expected "
+            f"{want})")
+        if trainer.adapter.cfg.n_layers != DENSE_LAYERS:
+            fail(f"{name} trained {trainer.adapter.cfg.n_layers} layers")
+        if launches != want:
+            fail(f"{name}: the dense train path's kernel launches do not "
+                 "match the path")
+        if len(hist) != n:
+            fail(f"{name}: {len(hist)} train steps ran, expected {n}")
+        for r in hist:
+            vals = [v for k, v in r.items()
+                    if isinstance(v, float) and k != "steps_per_s"]
+            if not all(math.isfinite(v) for v in vals):
+                fail(f"{name} step {r['step']}: non-finite metrics {r}")
+        attn = trainer.state.params["backbone"]["blocks"]["attn"]
+        moved = {k: float((attn[k].float() - watch.before[k].float()
+                           ).abs().max()) for k in watch.KEYS}
+        if int(trainer.state.opt.step) != n or not all(moved.values()):
+            fail(f"{name}: the params did not move: step "
+                 f"{int(trainer.state.opt.step)}, max |change| {moved}")
+        for r in hist:
+            grpo = (f", clip_frac {r['clip_frac']:.3f}, max|logp_new - "
+                    f"logp_old| {r['logp_gap']:.4e}" if name in GRPO_FAMILY
+                    else "".join(f", {k} {r[k]:.4e}" for k in
+                                 ("r_mean", "vel_err", "adv_clip_frac")
+                                 if k in r))
+            log(f"  {name} step {r['step']}: {r['dt']:.4f} s, loss "
+                f"{r['loss']:+.4e}, grad_norm {r['grad_norm']:.4e}, reward "
+                f"{r['reward']:+.4e}{grpo}")
+        log(f"  {name}: max_memory_allocated {peak / 2**30:.2f} GiB "
+            f"({peak} bytes); params moved by up to {moved}")
+        row = {"launches": launches, "s_per_step": [r["dt"] for r in hist],
+               "peak_bytes": peak, "loss": [r["loss"] for r in hist],
+               "grad_norm": [r["grad_norm"] for r in hist],
+               "reward": [r["reward"] for r in hist]}
+        if name in GRPO_FAMILY:
+            row["clip_frac"] = [r["clip_frac"] for r in hist]
+            row["logp_gap"] = [r["logp_gap"] for r in hist]
+        if name == "flow_grpo":
+            cond = torch.randn(PROMPTS, COND_LEN, COND_DIM,
+                               device=trainer.device)
+            it = [n]
+
+            def one_step():
+                m = trainer.step(cond, 0, it=it[0])
+                it[0] += 1
+                return float(m["loss"])
+
+            row["profile"] = profile(
+                one_step, f"one {DENSE_ARCH} train step, {PROMPTS} x {GROUP}"
+                          f" samples, {DENSE_LAYERS} layers, {NUM_STEPS} "
+                          "timesteps")
+        out[name] = row
+        del res, trainer, watch, attn
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def _clone(tree):
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
@@ -1440,7 +2002,7 @@ def _cast(tree, dtype):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", metavar="N,N,...",
-                    help="run only these of phases 3-13 after the device and "
+                    help="run only these of phases 3-17 after the device and "
                          "build phases, and print no result lines (a "
                          "development aid; the check runs every phase)")
     args = ap.parse_args(argv)
@@ -1503,8 +2065,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("[9] one update through the kernels vs the plain versions")
-    update_res = check_update(dev)
+    log("[9] one update of each trainer through the kernels vs the plain "
+        "versions")
+    update_res = check_updates(dev)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1525,21 +2088,48 @@ def main(argv=None) -> int:
     log(f"[13] {SSM_ARCH} in f32, SSM leaves drawn: served through the "
         f"kernels vs plain replay")
     ssm_res["replay_f32"] = check_ssm_replay()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log("[14] ssd_scan refuses gradients on the card")
+        dense_res = {"ssd_grad": check_ssd_grad_refusal(tmp)}
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log("[15] dense velocity at full width, depth 2")
+        dense_res["velocity_checks"] = check_dense_velocities(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log(f"[16] dense path: repro_torch.launch.serve, {DENSE_ARCH}, "
+            f"{DENSE_LAYERS} layers")
+        dense_res["serve"] = dense_serve_path()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log(f"[17] dense train path: repro_torch.launch.train, {DENSE_ARCH}"
+            f", {DENSE_LAYERS} layers, the five trainers")
+        dense_res["train"] = dense_train_path(tmp)
+
+    def by_path(name: str) -> dict:
+        return {"serve": res["launches"][name],
+                "train": train_res["launches"][name],
+                "serve_ssm": ssm_res["launches"][name],
+                "serve_dense": dense_res["serve"]["launches"][name],
+                "train_dense": {t: r["launches"][name]
+                                for t, r in dense_res["train"].items()}}
 
     for row in rows:
         row["launches"] = train_res["launches"][row["name"]]
-        row["launches_by_path"] = {"serve": res["launches"][row["name"]],
-                                   "train": row["launches"],
-                                   "serve_ssm": ssm_res["launches"][
-                                       row["name"]]}
+        row["launches_by_path"] = by_path(row["name"])
     ssd_row["launches"] = ssm_res["launches"]["ssd_scan"]
-    ssd_row["launches_by_path"] = {"serve": res["launches"]["ssd_scan"],
-                                   "train": train_res["launches"]["ssd_scan"],
-                                   "serve_ssm": ssd_row["launches"]}
+    ssd_row["launches_by_path"] = by_path("ssd_scan")
     rows.append(ssd_row)
     keys = ("name", "route", "variant", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "launches_by_path", "times_by_batch")
+            "library_ms", "launches_by_path", "times_by_batch",
+            "dense_shape")
     print(json.dumps({"main_path": {k: v for k, v in res.items()
                                     if k != "launches"}}))
     print(json.dumps({"train_path": {k: v for k, v in train_res.items()
@@ -1547,6 +2137,7 @@ def main(argv=None) -> int:
                       "update_check": update_res}))
     print(json.dumps({"ssm_path": {k: v for k, v in ssm_res.items()
                                    if k != "launches"}}))
+    print(json.dumps({"dense_path": dense_res}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(card_line())
@@ -1556,17 +2147,22 @@ def main(argv=None) -> int:
     return 0
 
 
-def _train_in_tmp() -> dict:
-    with tempfile.TemporaryDirectory() as tmp:
-        return train_path(tmp)
+def _in_tmp(fn):
+    def run():
+        with tempfile.TemporaryDirectory() as tmp:
+            return fn(tmp)
+    return run
 
 
 def run_only(dev, only: set) -> int:
     phases = {3: lambda: [check_sde(dev), check_attention(dev),
                           check_attention_bwd(dev), *check_grpo(dev)],
-              8: _train_in_tmp, 9: lambda: check_update(dev),
+              8: _in_tmp(train_path), 9: lambda: check_updates(dev),
               10: lambda: check_ssd(dev), 11: lambda: check_ssm_velocity(dev),
-              12: ssm_path, 13: check_ssm_replay}
+              12: ssm_path, 13: check_ssm_replay,
+              14: _in_tmp(check_ssd_grad_refusal),
+              15: lambda: check_dense_velocities(dev),
+              16: dense_serve_path, 17: _in_tmp(dense_train_path)}
     for n in sorted(only):
         if n not in phases:
             fail(f"--only: phase {n} cannot run alone")

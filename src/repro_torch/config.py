@@ -1,5 +1,5 @@
 """Typed configuration of the port: the subset of ``repro.config`` that
-serving and ``flow_grpo`` training read.
+serving and the five trainers read.
 
 ``ArchConfig`` (backbone geometry, with ``SSMConfig`` for the Mamba-2
 block), ``FlowRLConfig`` (trainer, SDE dynamics, rewards, preprocessing,
@@ -71,9 +71,9 @@ class RewardSpec:
 
 @dataclass(frozen=True)
 class FlowRLConfig:
-    """The paper's training configuration (the fields of the reference's
-    ``FlowRLConfig`` that the ported trainer reads)."""
-    trainer_type: str = "flow_grpo"      # only flow_grpo is ported
+    """The paper's training configuration (the reference's
+    ``FlowRLConfig``, field for field)."""
+    trainer_type: str = "flow_grpo"      # flow_grpo | mix_grpo | grpo_guard | nft | awm
     sde_type: str = "flow_sde"           # flow_sde | dance_sde | cps | ode
     eta: float = 0.7                     # noise scale of the SDE dynamics
     num_steps: int = 10                  # denoising steps per trajectory
@@ -85,6 +85,12 @@ class FlowRLConfig:
     # preprocessing-based memory optimization (paper §2.2)
     preprocessing: bool = True
     cache_dir: str = "cache"
+    # timestep sampling for NFT/AWM (solver-agnostic algorithms, paper §3.2)
+    timestep_sampling: str = "uniform"   # uniform | logit_normal | discrete
+    # MixGRPO: how many leading timesteps get SDE treatment
+    sde_window: int = 2
+    sde_window_shift_every: int = 0      # >0: slide the window during training
+    # latent geometry of the flow policy
     latent_tokens: int = 64
     latent_dim: int = 16
 
@@ -170,7 +176,7 @@ class LoopConfig:
 
 @dataclass(frozen=True)
 class RunConfig:
-    arch: str = "flux_dit"
+    arch: str = "smollm-360m"
     # use the ≤2-layer reduced arch variant (CPU-runnable smoke scale)
     reduced: bool = False
     # declarative field overrides applied onto the resolved ArchConfig

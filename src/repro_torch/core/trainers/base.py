@@ -16,8 +16,11 @@ grad.
 Randomness: parameters are drawn from a generator seeded with ``seed`` (as
 the serving path draws them), the reward towers from their own seeds, and
 step ``it`` of ``step(cond, seed, it)`` samples from a generator seeded with
-``fold_seed(seed, it)``, so a resumed run replays an uninterrupted one.
-``step`` also takes ``x_init`` / ``eps`` to replay injected draws.
+``fold_seed(seed, it)`` and draws the update's randomness (the timesteps
+and forward-process noise of the NFT/AWM losses) from one seeded with
+``fold_seed(fold_seed(seed, it), 1)``, so a resumed run replays an
+uninterrupted one.  ``step`` also takes the rollout's ``x_init`` / ``eps``
+and the update's ``update_t`` / ``update_eps`` to replay injected draws.
 """
 from __future__ import annotations
 
@@ -55,11 +58,18 @@ def _map(tree, fn):
 
 
 class BaseTrainer:
-    """Subclass contract: implement ``loss_fn(params, traj, adv)``, which
-    runs the backward pass(es) itself and returns (loss, aux metrics)."""
+    """Subclass contract: implement ``loss_fn(params, traj, adv, generator,
+    t=None, eps=None)``, which runs the backward pass(es) itself and
+    returns (loss, aux metrics).  ``generator`` draws the loss's own
+    randomness; ``t`` / ``eps`` replace those draws when given."""
 
-    #: GRPO variants sample with an SDE; NFT/AWM would force ODE sampling
+    #: GRPO variants sample with an SDE; NFT/AWM force ODE sampling
     rollout_sde: bool = True
+
+    #: losses that compute batch-global statistics (GRPO-Guard's RatioNorm
+    #: mean) set this False: gradient-accumulation microbatching would make
+    #: them chunk-local (the reference refuses such trainers there)
+    microbatch_safe: bool = True
 
     def __init__(self, arch_cfg: ArchConfig, flow_cfg: FlowRLConfig,
                  opt_cfg: OptimConfig, *, seed: int = 0,
@@ -128,24 +138,79 @@ class BaseTrainer:
         return rew, adv, stats
 
     # --------------------------------------------------------------- update
-    def loss_fn(self, params, traj: Trajectory, adv: torch.Tensor
+    def loss_fn(self, params, traj: Trajectory, adv: torch.Tensor,
+                generator: Optional[torch.Generator] = None, *,
+                t: Optional[torch.Tensor] = None,
+                eps: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         raise NotImplementedError
 
     def velocity(self, params, x, t, cond):
         return self.adapter.velocity(params, x, t, cond)
 
-    def backward(self, traj: Trajectory, adv: torch.Tensor
+    def sample_timesteps(self, generator: Optional[torch.Generator],
+                         batch: int, *, draw: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+        """Timestep sampling strategies of the solver-agnostic algorithms
+        (paper §3.2), as the reference's ``sample_timesteps``: ``uniform``
+        on [0.02, 0.98], ``logit_normal`` (the sigmoid of a standard
+        normal) and ``discrete`` (a uniform pick of the rollout's grid
+        ``scheduler.timesteps(T)[:-1]``).  Each strategy transforms one base
+        variate per sample, drawn from ``generator``: a uniform on [0, 1),
+        a standard normal and an integer index respectively.  ``draw``
+        replaces it (tests replay the JAX package's variates through it).
+        Returns (batch,) float32 on the generator's device."""
+        how = self.flow.timestep_sampling
+        dev = generator.device if draw is None else draw.device
+        if how == "uniform":
+            u = draw if draw is not None else torch.rand(
+                (batch,), generator=generator, dtype=F32, device=dev)
+            lo, hi = torch.tensor([0.02, 0.98], dtype=F32, device=dev)
+            return torch.maximum(lo, u.to(F32) * (hi - lo) + lo)
+        if how == "logit_normal":
+            z = draw if draw is not None else torch.randn(
+                (batch,), generator=generator, dtype=F32, device=dev)
+            return torch.sigmoid(z.to(F32))
+        if how == "discrete":
+            grid = torch.from_numpy(
+                self.scheduler.timesteps(self.flow.num_steps)[:-1]).to(dev)
+            idx = draw if draw is not None else torch.randint(
+                0, grid.shape[0], (batch,), generator=generator, device=dev)
+            return grid[idx.long()]
+        raise ValueError(f"unknown timestep_sampling {how!r}")
+
+    def forward_draws(self, generator: Optional[torch.Generator],
+                      x0: torch.Tensor, t: Optional[torch.Tensor] = None,
+                      eps: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The draws of a forward-process loss (NFT, AWM): per-sample
+        timesteps t (B,) from ``sample_timesteps``, then the noise eps of
+        x0's shape, both f32 from ``generator`` in that order (the
+        reference's ``k_t, k_eps = split(key)``), unless given."""
+        if t is None:
+            t = self.sample_timesteps(generator, x0.shape[0])
+        if eps is None:
+            eps = torch.randn(x0.shape, generator=generator, dtype=F32,
+                              device=x0.device)
+        return (t.to(device=x0.device, dtype=F32),
+                eps.to(device=x0.device, dtype=F32))
+
+    def backward(self, traj: Trajectory, adv: torch.Tensor,
+                 generator: Optional[torch.Generator] = None, *,
+                 t: Optional[torch.Tensor] = None,
+                 eps: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Run ``loss_fn`` with the parameter leaves requiring grad; their
         gradients are left in ``.grad`` (zeros for leaves the loss does not
-        reach, as JAX returns them).  Returns (loss, aux)."""
+        reach, as JAX returns them).  ``generator``, ``t`` and ``eps`` go to
+        the loss's own draws.  Returns (loss, aux)."""
         leaves = [p for _, p in params_lib.leaves(self.state.params)]
         for p in leaves:
             p.grad = None
             p.requires_grad_(True)
         try:
-            loss, aux = self.loss_fn(self.state.params, traj, adv)
+            loss, aux = self.loss_fn(self.state.params, traj, adv, generator,
+                                     t=t, eps=eps)
         finally:
             for p in leaves:
                 p.requires_grad_(False)
@@ -168,9 +233,12 @@ class BaseTrainer:
             p.grad = None
         return gnorm, lr
 
-    def _update(self, traj: Trajectory, adv: torch.Tensor
+    def _update(self, traj: Trajectory, adv: torch.Tensor,
+                generator: Optional[torch.Generator] = None, *,
+                t: Optional[torch.Tensor] = None,
+                eps: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
-        loss, aux = self.backward(traj, adv)
+        loss, aux = self.backward(traj, adv, generator, t=t, eps=eps)
         gnorm, lr = self.apply_grads()
         metrics = dict(aux)
         metrics.update(loss=loss, grad_norm=gnorm,
@@ -180,19 +248,26 @@ class BaseTrainer:
     # ------------------------------------------------------------ iteration
     def step(self, cond: torch.Tensor, seed: int, it: int = 0, *,
              x_init: Optional[torch.Tensor] = None,
-             eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+             eps: Optional[torch.Tensor] = None,
+             update_t: Optional[torch.Tensor] = None,
+             update_eps: Optional[torch.Tensor] = None
+             ) -> Dict[str, torch.Tensor]:
         """One full RL iteration: rollout -> rewards -> advantages -> update.
 
         cond: (P, Lc, cond_dim) prompt embeddings on the trainer's device
-        (from the preprocessing cache or a live encoder).  Returns a flat
-        dict of device scalars (loss, grad_norm, lr, clip_frac, adv_std,
-        logp_gap, reward_mean and the per-reward means); callers fetch them
-        with one host transfer."""
-        gen = torch.Generator(device=self.device).manual_seed(
-            fold_seed(seed, it))
+        (from the preprocessing cache or a live encoder).  ``x_init`` /
+        ``eps`` replace the rollout's draws, ``update_t`` / ``update_eps``
+        the update's (the forward-process losses' timesteps and noise).
+        Returns a flat dict of device scalars (loss, grad_norm, lr, the
+        trainer's aux metrics, reward_mean and the per-reward means);
+        callers fetch them with one host transfer."""
+        step_seed = fold_seed(seed, it)
+        gen = torch.Generator(device=self.device).manual_seed(step_seed)
         traj = self.sample(self.state.params, cond, gen, it, x_init=x_init,
                            eps=eps)
         _, adv, reward_stats = self._rewards(traj.x0, {"cond": traj.cond})
-        metrics = self._update(traj, adv)
+        gen_u = torch.Generator(device=self.device).manual_seed(
+            fold_seed(step_seed, 1))
+        metrics = self._update(traj, adv, gen_u, t=update_t, eps=update_eps)
         metrics.update(reward_stats)
         return metrics

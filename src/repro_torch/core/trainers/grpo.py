@@ -3,7 +3,7 @@ over SDE transition log-probabilities, with group-relative advantages (the
 port of ``repro.core.trainers.grpo``)."""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -25,7 +25,10 @@ class FlowGRPOTrainer(BaseTrainer):
         ratio: (B,) at one timestep."""
         return ratio
 
-    def loss_fn(self, params, traj: Trajectory, adv: torch.Tensor
+    def loss_fn(self, params, traj: Trajectory, adv: torch.Tensor,
+                generator: Optional[torch.Generator] = None, *,
+                t: Optional[torch.Tensor] = None,
+                eps: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The GRPO loss, mean over the SDE timesteps of each step's mean
         PPO-clip loss, and its gradient.
@@ -36,7 +39,8 @@ class FlowGRPOTrainer(BaseTrainer):
         tokens this is what lets one card hold the step).  The gradients
         accumulate in the parameters' ``.grad`` in the parameter dtype, as
         the reference's scan transpose accumulates them; the result equals
-        its single ``value_and_grad`` up to f32 summation order.  ``n_sde``
+        its single ``value_and_grad`` up to f32 summation order.  The loss
+        draws nothing (``generator``, ``t`` and ``eps`` are unused).  ``n_sde``
         is known on the host from the trajectory's mask, and ODE steps,
         whose loss the reference masks to zero, are skipped.
 
@@ -65,11 +69,11 @@ class FlowGRPOTrainer(BaseTrainer):
         for i in range(T):
             if not mask[i]:
                 continue
-            t, t_next = ts[i], ts[i + 1]
+            t_i, t_next = ts[i], ts[i + 1]
             x_t, x_next = traj.xs[i], traj.xs[i + 1]
-            tb = torch.full((B,), t, dtype=F32, device=cond.device)
+            tb = torch.full((B,), t_i, dtype=F32, device=cond.device)
             v = self.velocity(params, x_t, tb, cond)
-            logp_new = self.scheduler.logprob(v, x_t, t, t_next, x_next)
+            logp_new = self.scheduler.logprob(v, x_t, t_i, t_next, x_next)
             logp_old = traj.logps[i]
             if use_kernel:
                 step_loss, frac = ops.grpo_loss_trainable(

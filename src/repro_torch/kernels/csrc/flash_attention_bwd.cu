@@ -34,10 +34,12 @@
 // pass keeps the determinism of one owner per output with no inter-block
 // waits, for 40 % more tensor work.
 //
-// bf16 inputs whose base pointers (and LSE and delta) are 16-byte aligned
-// and whose strides are multiples of 8 elements (the DiT path) run the
-// TMA / wgmma kernels below (P and dS are rounded to bf16 for the second
-// products, as the forward rounds P).  f32 inputs, and bf16 ones that break
+// bf16 inputs whose base pointers (and LSE and delta) are 16-byte aligned,
+// whose strides are multiples of 8 elements (the DiT path) and whose LSE
+// and delta rows start on 16 bytes (a row pitch that is a multiple of 4;
+// the wrapper pads the rows of a ragged Sq, such as the dense path's 4609)
+// run the TMA / wgmma kernels below (P and dS are rounded to bf16 for the
+// second products, as the forward rounds P).  f32 inputs, and bf16 ones that break
 // that alignment, run FMA kernels on the CUDA cores, exact to f32 rounding.
 //
 // What holds the wgmma kernels back now (measured on an H100 SXM,
@@ -67,10 +69,11 @@ struct Args {
   void* dq;
   void* dk;
   void* dv;
-  const float* lse;    // (B, H, Sq), natural log
-  float* delta;        // (B, H, Sq), written by pass 1
+  const float* lse;    // (B, H, Sp), natural log, rows of Sq values
+  float* delta;        // (B, H, Sp), written by pass 1
   Str sq, sk, sv, so, sdo, sdq, sdk, sdv;
   int B, Sq, Sk, H, K, G, causal, window;
+  int Sp;              // the row pitch of lse and delta, >= Sq
   float scale;
 };
 
@@ -118,7 +121,7 @@ __global__ void __launch_bounds__(256) bwd_delta(Args a, int D) {
   float acc = 0.f;
   for (int d = lane; d < D; d += 32) acc = fmaf(to_f32(op[d]), to_f32(gp[d]), acc);
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) a.delta[((long long)b * a.H + h) * a.Sq + i] = acc;
+  if (lane == 0) a.delta[((long long)b * a.H + h) * a.Sp + i] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -206,8 +209,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_fma(Args a) {
     const int h = kvh * a.G + g;
     const T* qp = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
     const T* gp = static_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
-    const float* lp = a.lse + ((long long)b * a.H + h) * a.Sq;
-    const float* dl = a.delta + ((long long)b * a.H + h) * a.Sq;
+    const float* lp = a.lse + ((long long)b * a.H + h) * a.Sp;
+    const float* dl = a.delta + ((long long)b * a.H + h) * a.Sp;
     for (int q0 = 0; q0 < a.Sq; q0 += kT) {
       if (!tiles_meet(q0, q0 + kT - 1, k0, k0 + kT - 1, a)) continue;
       __syncthreads();   // K/V stored; the previous tile's readers done
@@ -283,7 +286,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_fma(Args a) {
                a.sdo.s, q0, a.Sq);
   if (tid < kT) {
     const bool in = q0 + tid < a.Sq;
-    const long long base = ((long long)b * a.H + h) * a.Sq + q0 + tid;
+    const long long base = ((long long)b * a.H + h) * a.Sp + q0 + tid;
     Ls[tid] = in ? a.lse[base] : 0.f;
     Ds[tid] = in ? a.delta[base] : 0.f;
   }
@@ -372,7 +375,7 @@ using bf16 = __nv_bfloat16;
 
 struct BwdParams {
   CUtensorMap tq, tk, tv, tdo;   // (D, heads, S, B) views, 64-row boxes
-  CUtensorMap tlse, tdelta;      // flat (B H Sq) f32, 64-value boxes
+  CUtensorMap tlse, tdelta;      // flat (B H Sp) f32, 64-value boxes
   Args a;
   float scale_log2;
 };
@@ -436,7 +439,7 @@ bwd_dkdv_wgmma(const __grid_constant__ BwdParams p) {
       uint32_t phase = 0;
       for (int gh = 0; gh < a.G; ++gh) {
         const int h = kvh * a.G + gh;
-        const int row = (b * a.H + h) * a.Sq;
+        const int row = (b * a.H + h) * a.Sp;
         for (int qt = 0; qt < n_qt; ++qt) {
           const int q0 = qt * kQStep;
           if (!tiles_meet(q0, q0 + kQStep - 1, k0, k0 + kKeyTile - 1, a))
@@ -645,7 +648,7 @@ bwd_dq_wgmma(const __grid_constant__ BwdParams p) {
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tg = lane & 3;
   const int qw = q0 + 64 * w;                   // this warpgroup's first row
   const int row0 = qw + warp * 16 + g, row1 = row0 + 8;
-  const long long stat = ((long long)b * a.H + h) * a.Sq;
+  const long long stat = ((long long)b * a.H + h) * a.Sp;
   const float l0 = row0 < a.Sq ? a.lse[stat + row0] * kLog2e : 0.f;
   const float l1 = row1 < a.Sq ? a.lse[stat + row1] * kLog2e : 0.f;
   const float d0 = row0 < a.Sq ? a.delta[stat + row0] : 0.f;
@@ -779,7 +782,7 @@ int launch_wgmma(const Args& a, cudaStream_t s) {
     cr = encode_bshd(&p.tv, a.v, D, a.K, a.Sk, a.B, a.sv.b, a.sv.s, a.sv.h);
   if (cr == CUDA_SUCCESS)
     cr = encode_bshd(&p.tdo, a.dout, D, a.H, a.Sq, a.B, a.sdo.b, a.sdo.s, a.sdo.h);
-  const long long rows = (long long)a.B * a.H * a.Sq;
+  const long long rows = (long long)a.B * a.H * a.Sp;
   if (cr == CUDA_SUCCESS) cr = encode_f32_rows(&p.tlse, a.lse, rows);
   if (cr == CUDA_SUCCESS) cr = encode_f32_rows(&p.tdelta, a.delta, rows);
   if (cr != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
@@ -807,9 +810,12 @@ int launch_fma_d(const Args& a, int D, cudaStream_t s) {
 }
 
 // TMA reads the tiles and the LSE and delta rows: every base pointer 16-byte
-// aligned and every stride a multiple of 8 elements (16 bytes); the outputs
-// are written in 4-byte pairs
+// aligned, every stride a multiple of 8 elements (16 bytes) and the LSE and
+// delta row pitch a multiple of 4 values, so that every row starts on 16
+// bytes (a 1-D TMA load from an address that is not 16-byte aligned is an
+// illegal instruction); the outputs are written in 4-byte pairs
 bool mma_aligned(const Args& a) {
+  if (a.Sp % 4) return false;
   for (const void* p : {a.q, a.k, a.v, a.o, a.dout,
                         static_cast<const void*>(a.lse),
                         static_cast<const void*>(a.delta),
@@ -826,18 +832,20 @@ bool mma_aligned(const Args& a) {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dq, dk, dv share it).
 // q, o, dout, dq are (B, Sq, H, D); k, v, dk, dv are (B, Sk, K, D); lse and
-// delta are contiguous (B, H, Sq) float32 (lse from the forward, delta
-// scratch).  strides holds 24 element strides: (batch, seq, head) of q, k,
-// v, o, dout, dq, dk, dv in that order; the D axis is contiguous.  dk and dv
-// are written whole (one block per key tile), so they need no zeroing.
-// Returns the first CUDA error of the three launches, or 0.
+// delta are contiguous (B, H, lse_pitch) float32 whose rows hold Sq values
+// each (lse from the forward, delta scratch); the bf16 tensor-core path
+// needs lse_pitch to be a multiple of 4.  strides holds 24 element strides:
+// (batch, seq, head) of q, k, v, o, dout, dq, dk, dv in that order; the D
+// axis is contiguous.  dk and dv are written whole (one block per key
+// tile), so they need no zeroing.  Returns the first CUDA error of the three
+// launches, or 0.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
     void* dv, int dtype, int B, int Sq, int Sk, int H, int K, int D,
-    const long long* strides, int causal, int window, float scale,
-    void* stream) {
-  if (K <= 0 || H % K != 0 || B <= 0 || Sq <= 0 || Sk <= 0)
+    int lse_pitch, const long long* strides, int causal, int window,
+    float scale, void* stream) {
+  if (K <= 0 || H % K != 0 || B <= 0 || Sq <= 0 || Sk <= 0 || lse_pitch < Sq)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
@@ -848,6 +856,7 @@ extern "C" int flash_attention_bwd(
   for (int i = 0; i < 8; ++i)
     *st[i] = Str{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   a.B = B; a.Sq = Sq; a.Sk = Sk; a.H = H; a.K = K; a.G = H / K;
+  a.Sp = lse_pitch;
   a.causal = causal; a.window = window; a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_fma_d<float>(a, D, s);

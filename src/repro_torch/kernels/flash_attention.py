@@ -20,6 +20,8 @@ from repro_torch.kernels.sde_step import require_sm90
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+# values per 16 bytes of f32: the backward's lse and delta row pitch
+LSE_ROW_ALIGN = 4
 
 
 def _lib():
@@ -95,7 +97,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _bwd_lib():
     fn = _build.load("flash_attention_bwd").flash_attention_bwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                           ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -108,7 +110,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of ``flash_attention`` at upstream gradient ``do``
     (B, Sq, H, D), from the forward's o and lse; the layouts and dtypes of
     the forward, dk and dv summed over each GQA group.  Three launches (the
-    delta pass, dK/dV, dQ) count as one call."""
+    delta pass, dK/dV, dQ) count as one call.  The kernels read lse and
+    delta rows by TMA, which needs each row to start on 16 bytes: for an Sq
+    that is no multiple of 4 the rows are copied into a padded pitch."""
     _check(q, k, v, window)
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
@@ -134,14 +138,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty((B, Sk, K, D), dtype=q.dtype, device=q.device)
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    pitch = -(-Sq // LSE_ROW_ALIGN) * LSE_ROW_ALIGN
+    if pitch != Sq:
+        lse = torch.nn.functional.pad(lse, (0, pitch - Sq))
+    delta = torch.empty((B, H, pitch), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*[
         s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                    DTYPES[q.dtype], B, Sq, Sk, H, K, D,
+                    DTYPES[q.dtype], B, Sq, Sk, H, K, D, pitch,
                     ctypes.cast(strides, ctypes.c_void_p),
                     int(bool(causal)), int(window), float(D ** -0.5), stream)
     if rc != 0:

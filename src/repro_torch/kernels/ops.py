@@ -39,9 +39,20 @@ def sde_step(v, x, eps, t, t_next, *, eta=0.7):
 
 def ssd_scan(x, dt, a, bm, cm, *, chunk=128):
     """Mamba-2 SSD chunked scan from a zero state: (y (B,L,H,P) in x's
-    dtype, final state (B,H,P,N) f32).  Not differentiated."""
+    dtype, final state (B,H,P,N) f32).  On the CPU autograd runs through
+    the plain version.  The kernel has no backward yet, so off the CPU a
+    call that would need one (grad enabled, an input requiring grad)
+    raises ``NotImplementedError`` before anything is checked or
+    launched."""
     if x.device.type == "cpu":
         return ref.ssd_chunked_ref(x, dt, a, bm, cm, chunk)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a, bm, cm)):
+        raise NotImplementedError(
+            "ssd_scan: the CUDA kernel has no backward yet (ROADMAP.md "
+            "Queue 2 item 1, the ssd_scan backward), so the ssm family "
+            "cannot be trained on the card; its gradients would silently "
+            "lose the scan's part")
     return _ssd(x, dt, a, bm, cm, chunk=chunk)
 
 

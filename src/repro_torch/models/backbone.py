@@ -1,4 +1,4 @@
-"""Backbone of the port: the ``dit`` and ``ssm`` branches of
+"""Backbone of the port: the ``dit``, ``dense`` and ``ssm`` branches of
 ``repro.models.backbone``.
 
 The spec is the reference's whole tree (embedding, final norm, LM head and
@@ -6,10 +6,11 @@ The spec is the reference's whole tree (embedding, final norm, LM head and
 key for key.  ``forward_embeds`` runs the blocks as a Python loop over
 slices of the stacked ``(n_layers, ...)`` leaves where the reference scans;
 the slices are views, so gradients reach the stacked leaves.  ``dit`` runs
-the bidirectional adaLN-zero blocks, ``ssm`` the Mamba-2 blocks
-``[ln, SSD]`` (causal by construction).  The other families (``dense``,
-``moe``, ``hybrid``, ``vlm``, ``audio``) and the decode paths are not
-ported yet.
+the bidirectional adaLN-zero blocks, ``dense`` the pre-norm blocks
+``[ln, attention, ln, SwiGLU]`` with no modulation (the LM family, run
+causally by the flow adapter), ``ssm`` the Mamba-2 blocks ``[ln, SSD]``
+(causal by construction).  The other families (``moe``, ``hybrid``,
+``vlm``, ``audio``) and the decode paths are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,27 +22,29 @@ from repro_torch.config import ArchConfig
 from repro_torch.models import attention, layers, ssm
 from repro_torch.models.params import P, stack
 
-PORTED_FAMILIES = ("dit", "ssm")
+PORTED_FAMILIES = ("dit", "dense", "ssm")
 
 
 def _not_ported(family: str) -> NotImplementedError:
     return NotImplementedError(
         f"backbone family {family!r} is not ported to repro_torch yet "
-        "(ROADMAP.md Queue 1: 'Causal FlowAdapter path for the dense/LM "
-        "family' and 'Other families'); 'dit' (flux_dit) and 'ssm' "
-        "(mamba2-370m, full-sequence forward) run")
+        "(ROADMAP.md Queue 1: 'Other families'); 'dit' (flux_dit), 'dense' "
+        "(smollm-360m, yi-9b, yi-34b, qwen3-32b) and 'ssm' (mamba2-370m), "
+        "full-sequence forward, run")
 
 
 def _attn_block_spec(cfg: ArchConfig) -> Dict:
     d = cfg.d_model
-    return {
+    s = {
         "ln1": layers.rmsnorm_spec(d),
         "attn": attention.spec(cfg),
         "ln2": layers.rmsnorm_spec(d),
         "ffn": layers.mlp_spec(d, cfg.d_ff),
-        # adaLN-zero: cond vector -> 6 modulation params per block
-        "ada": P((d, 6 * d), ("embed", None), "zeros"),
     }
+    if cfg.family == "dit":
+        # adaLN-zero: cond vector -> 6 modulation params per block
+        s["ada"] = P((d, 6 * d), ("embed", None), "zeros")
+    return s
 
 
 def _ssm_block_spec(cfg: ArchConfig) -> Dict:
@@ -94,6 +97,15 @@ class Backbone:
         h = h * (1 + sc_m[:, None]) + sh_m[:, None]
         return x + g_m[:, None] * layers.mlp(p["ffn"], h)
 
+    def _dense_block(self, p: Dict, x: torch.Tensor, *, causal: bool,
+                     window: int, positions: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        x = x + attention.apply_full(p["attn"], cfg, h, causal=causal,
+                                     window=window, positions=positions)
+        h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        return x + layers.mlp(p["ffn"], h)
+
     def _ssm_block(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
         h = layers.rmsnorm(p["ln"], x, self.cfg.norm_eps)
         out, _ = ssm.apply_full(p["ssm"], self.cfg, h)
@@ -104,19 +116,22 @@ class Backbone:
                        cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Run all blocks over embedded inputs x: (B, S, d); returns the
         normed hidden states.  ``dit`` needs the adaLN conditioning vector
-        ``cond`` (B, d); ``ssm`` is causal whatever ``causal`` says and
-        takes no ``cond``."""
+        ``cond`` (B, d); ``dense`` takes none; ``ssm`` is causal whatever
+        ``causal`` says and takes no ``cond``."""
         cfg = self.cfg
         if cfg.family == "ssm":
             for p in _unbind(params["blocks"], cfg.n_layers):
                 x = self._ssm_block(p, x)
             return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        if cond is None:
+        if cfg.family == "dit" and cond is None:
             raise _not_ported("dit without adaLN conditioning")
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         for p in _unbind(params["blocks"], cfg.n_layers):
-            x = self._attn_block(p, x, causal=causal,
-                                 window=window, positions=positions,
-                                 cond=cond)
+            if cfg.family == "dense":
+                x = self._dense_block(p, x, causal=causal, window=window,
+                                      positions=positions)
+            else:
+                x = self._attn_block(p, x, causal=causal, window=window,
+                                     positions=positions, cond=cond)
         return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)

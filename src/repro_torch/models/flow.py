@@ -6,7 +6,8 @@ condition embeddings, run through the backbone, and projected back to latent
 space.  The ``dit`` family runs bidirectionally with the timestep embedding
 as the adaLN modulation vector (a FLUX-style DiT); the other families run
 causally over ``[cond prefix; time token; latent tokens]`` (ported so far:
-the ``ssm`` family, causal by construction).
+the ``dense`` LM family, and the ``ssm`` family, causal by construction),
+with no sliding window (``window=0``), as the reference runs them.
 """
 from __future__ import annotations
 

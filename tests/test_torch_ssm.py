@@ -270,6 +270,33 @@ def test_cuda_wrapper_refuses_cpu_tensors(route):
             dict(cuda_ssd_scan.variant_launches)) == before
 
 
+@pytest.mark.parametrize("leaf", ["x", "dt", "a", "bm", "cm"])
+def test_ssd_scan_refuses_gradients_off_the_cpu(leaf):
+    """The CUDA kernel has no backward: off the CPU, with grad enabled and
+    any input requiring grad, ``ops.ssd_scan`` raises before the wrapper's
+    device and shape checks (so ``meta`` tensors show it here) and counts
+    no launch.  Under ``no_grad`` the same call passes the grad check and
+    stops at the device check instead.  On the CPU autograd runs through
+    the plain version and the output keeps its ``grad_fn``."""
+    names = ("x", "dt", "a", "bm", "cm")
+    x, dt, a, bm, cm, Q = _cpu_inputs("wgmma")
+    meta = {n: t.to("meta") for n, t in zip(names, (x, dt, a, bm, cm))}
+    meta[leaf] = meta[leaf].float().requires_grad_()
+    before = (cuda_ssd_scan.launches, dict(cuda_ssd_scan.variant_launches))
+    with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
+        ops.ssd_scan(*(meta[n] for n in names), chunk=Q)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors"):
+        ops.ssd_scan(*(meta[n] for n in names), chunk=Q)
+    assert (cuda_ssd_scan.launches,
+            dict(cuda_ssd_scan.variant_launches)) == before
+    cpu = {n: t.float() for n, t in zip(names, (x, dt, a, bm, cm))}
+    cpu[leaf] = cpu[leaf].clone().requires_grad_()
+    y, h = ops.ssd_scan(*(cpu[n] for n in names), chunk=Q)
+    assert y.grad_fn is not None
+    # the final state does not depend on C
+    assert (h.grad_fn is None) == (leaf == "cm")
+
+
 # the bands chip_smoke's phase 10 holds the bf16 kernel to, of max |oracle|
 TC_Y_BAND, TC_H_BAND = 1e-2, 1e-4
 
