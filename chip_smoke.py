@@ -91,10 +91,17 @@ script exits 2 before printing any result.
    phase prints one velocity's gap between the kernels and the plain
    versions beside the gap between two chunkings of the plain scan, in f32
    and bf16.
-14. The ``ssd_scan`` kernel has no backward: ``ops.ssd_scan`` on CUDA inputs
-   that require grad raises ``NotImplementedError`` and launches nothing,
-   and ``repro_torch.launch.train --arch mamba2-370m`` (full width, 2
-   layers) refuses in its first loss with no parameter touched.
+14. The ``ssd_scan`` backward kernel (``ssd_scan_bwd``) against its plain
+   closed form (``ref.ssd_scan_bwd_ref``) and against torch.autograd
+   through the plain chunked forward, on phase 10's cases and the path
+   shape at batch 4 and 1, x, bm and cm as column slices of one buffer (as
+   the model passes them), f32 and bf16, dhT absent and drawn, bitwise on
+   rerun, each gradient within its band of max |plain|; the slow-decay
+   cases must make the gradient carried across chunks most of dx.  Then
+   ``ops.ssd_scan`` with an input requiring grad must run ``SSDScanFn``
+   through the tensor-core forward and the backward kernel, and the
+   backward's, the plain version's and the bound's times at the path
+   shape, at batch 4 and 1.
 15. ``FlowAdapter.velocity`` of ``smollm-360m`` (D 64, 15 query heads over 5
    kv heads) and ``qwen3-32b`` (qk_norm, D 128, 64 over 8) at full width,
    depth 2, over 512 + 1 + 4096 tokens, causal, through the kernels and the
@@ -118,12 +125,27 @@ script exits 2 before printing any result.
    (the attention backward 32 per loss backward, ``grpo_loss`` only for
    flow_grpo and mix_grpo, no ``sde_step`` in the NFT/AWM rollouts), finite
    metrics, params that move, s per step and peak memory.
-18. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path`` and
-   ``kernels`` JSON lines, the card's name and power limit, and the last
-   line ``{"ok": true, "device": {...}}``.
+18. One update of each of the five trainers on ``mamba2-370m`` at full
+   width, depth 2, batch 2, with the SSM leaves drawn, through the kernels
+   and through the plain versions on the same injected draws, as phase 9:
+   loss, grad norm, the grads of ``in_proj``, ``conv_w``, ``a_log`` and
+   ``dt_bias``, and the params after AdamW at stated bands.
+19. The SSM train path: ``repro_torch.launch.train.main`` at
+   ``mamba2-370m``'s full width and all 48 layers, bf16, phase 12's
+   geometry and phase 8's batch and rewards: ``flow_grpo`` for 2 steps
+   (and a traced third), then ``mix_grpo``, ``grpo_guard``, ``nft`` and
+   ``awm`` for 1 step each, with the SSM leaves drawn at train start, each
+   with launch counts that match its path (the scan forward 48 x T in the
+   rollout and 48 per loss forward, every one on the tensor-core kernel;
+   the backward 48 per loss backward), finite metrics, every layer's
+   ``a_log`` and ``dt_bias`` gradient at the first update finite and
+   nonzero, params that move, s per step and peak memory.
+20. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
+   ``ssm_train_path`` and ``kernels`` JSON lines, the card's name and
+   power limit, and the last line ``{"ok": true, "device": {...}}``.
 
 ``--only N,...`` runs just the device and build phases and phases N (3 and
-8-17) and prints no result lines: a development aid.
+8-19) and prints no result lines: a development aid.
 """
 from __future__ import annotations
 
@@ -160,7 +182,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd)
 from repro_torch.kernels.grpo_loss import grpo_loss, grpo_loss_bwd  # noqa: E402
 from repro_torch.kernels.sde_step import sde_step  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import params as params_lib  # noqa: E402
 from repro_torch.models.flow import FlowAdapter  # noqa: E402
@@ -260,7 +282,8 @@ def plain_dispatch():
     switch)."""
     saved = (ops._flash, ops._sde, ops._grpo, ops._ssd,
              fa_mod.flash_attention, fa_mod.flash_attention_bwd,
-             grpo_mod.grpo_loss, grpo_mod.grpo_loss_bwd)
+             grpo_mod.grpo_loss, grpo_mod.grpo_loss_bwd, ssd_mod.ssd_scan,
+             ssd_mod.ssd_scan_bwd)
     ops._flash = ref.flash_attention_ref
     ops._ssd = lambda x, dt, a, bm, cm, chunk: ref.ssd_chunked_ref(
         x, dt, a, bm, cm, chunk)
@@ -271,16 +294,20 @@ def plain_dispatch():
     fa_mod.flash_attention_bwd = _plain_flash_bwd
     grpo_mod.grpo_loss = _plain_grpo
     grpo_mod.grpo_loss_bwd = ref.grpo_loss_bwd_ref
+    ssd_mod.ssd_scan = ops._ssd
+    ssd_mod.ssd_scan_bwd = lambda x, dt, a, bm, cm, dy, dhT, *, chunk: \
+        ref.ssd_scan_bwd_ref(x, dt, a, bm, cm, dy, dhT, chunk)
     try:
         yield
     finally:
         (ops._flash, ops._sde, ops._grpo, ops._ssd, fa_mod.flash_attention,
          fa_mod.flash_attention_bwd, grpo_mod.grpo_loss,
-         grpo_mod.grpo_loss_bwd) = saved
+         grpo_mod.grpo_loss_bwd, ssd_mod.ssd_scan,
+         ssd_mod.ssd_scan_bwd) = saved
 
 
 COUNTED = (sde_step, flash_attention, flash_attention_bwd, grpo_loss,
-           grpo_loss_bwd, ssd_scan)
+           grpo_loss_bwd, ssd_scan, ssd_scan_bwd)
 
 
 def reset_counts() -> None:
@@ -860,6 +887,9 @@ def main_path() -> dict:
 
 # ------------------------------------------------------------------ phase 6
 PROFILE_GROUPS = (
+    # every kernel of csrc/ssd_scan_bwd.cu lives in namespace ssd_bwd, the
+    # forward's FMA passes that it reruns too
+    ("ssd_scan_bwd kernels", ("ssd_bwd",)),
     ("ssd_scan kernel", ("ssd_chunk_", "ssd_state_pass", "ssd_scan_wgmma")),
     ("flash_attention kernel", ("attn_fwd",)),
     ("flash_attention_bwd kernel", ("bwd_delta", "bwd_dkdv", "bwd_dq")),
@@ -974,14 +1004,39 @@ TRAIN_REWARDS = [{"reward_type": "text_render", "weight": 1.0},
                  {"reward_type": "latent_norm", "weight": 0.1}]
 
 
-class _Watch(loop_lib.Callback):
-    """Keeps a copy of a few attention weights at train start, so the run
-    can show that the params moved."""
-    KEYS = ("wq", "wk", "wv")
+class _TrainWatch(loop_lib.Callback):
+    """At train start: redraws leaves with ``draw(params, cfg)`` if given,
+    keeps a copy of the leaves ``keys`` of the blocks' ``block`` (so the run
+    can show that the params moved), and wraps the trainer's
+    ``apply_grads``, which clears the gradients, to keep those of
+    ``grad_keys`` at the first update."""
+
+    def __init__(self, block: str, keys: tuple, grad_keys: tuple = (),
+                 draw=None):
+        self.block, self.keys, self.grad_keys = block, keys, grad_keys
+        self.draw = draw
 
     def on_train_start(self, loop):
-        attn = loop.trainer.state.params["backbone"]["blocks"]["attn"]
-        self.before = {k: attn[k].clone() for k in self.KEYS}
+        tr = loop.trainer
+        if self.draw is not None:
+            self.draw(tr.state.params, tr.adapter.cfg)
+        leaves = tr.state.params["backbone"]["blocks"][self.block]
+        self.before = {k: leaves[k].clone() for k in self.keys}
+        self.first_grads = None
+        inner = tr.apply_grads
+
+        def apply_grads():
+            if self.first_grads is None:
+                self.first_grads = {k: leaves[k].grad.float().clone()
+                                    for k in self.grad_keys}
+            return inner()
+
+        tr.apply_grads = apply_grads
+
+    def moved(self, trainer) -> dict:
+        leaves = trainer.state.params["backbone"]["blocks"][self.block]
+        return {k: float((leaves[k].float() - self.before[k].float()
+                          ).abs().max()) for k in self.keys}
 
 
 def train_path(tmp: str) -> dict:
@@ -1006,7 +1061,7 @@ def train_path(tmp: str) -> dict:
             "--set", f"data.n_prompts={PROMPTS * TRAIN_STEPS}",
             "--set", "loop.save_every=0", "--set", "loop.log_every=1",
             "--set", f"loop.ckpt_dir={tmp}/ckpt"]
-    watch = _Watch()
+    watch = _TrainWatch("attn", ("wq", "wk", "wv"))
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     out = train.main(argv, callbacks=[watch])
@@ -1020,7 +1075,7 @@ def train_path(tmp: str) -> dict:
             "flash_attention": 2 * TRAIN_LAYERS * NUM_STEPS * n,
             "flash_attention_bwd": TRAIN_LAYERS * NUM_STEPS * n,
             "grpo_loss": NUM_STEPS * n, "grpo_loss_bwd": NUM_STEPS * n,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "ssd_scan_bwd": 0}
     log(f"  launches {launches} over {n} train steps (expected {want})")
     if launches != want:
         fail("the train path's kernel launches do not match the path")
@@ -1031,9 +1086,7 @@ def train_path(tmp: str) -> dict:
             v for k, v in r.items() if k.startswith("reward/")]
         if not all(math.isfinite(v) for v in vals):
             fail(f"train step {r['step']}: non-finite metrics {r}")
-    attn = trainer.state.params["backbone"]["blocks"]["attn"]
-    moved = {k: float((attn[k].float() - watch.before[k].float()).abs().max())
-             for k in watch.KEYS}
+    moved = watch.moved(trainer)
     if int(trainer.state.opt.step) != n or not all(moved.values()):
         fail(f"the params did not move: step {int(trainer.state.opt.step)}, "
              f"max |change| {moved}")
@@ -1076,6 +1129,11 @@ GRPO_FAMILY = ("flow_grpo", "mix_grpo", "grpo_guard")
 # own rollout (latents 4e-3 apart after 4 steps, phase 7) and bf16 P and
 # dS in the attention backward
 GRAD_BAND = 5e-2
+# of the weights that the plain route's AdamW step moved, the share that
+# differ between the routes: they differ only where the two gradients'
+# signs do (both within their gap of zero) or their rounding lands one ulp
+# apart; a step in the wrong direction would make about all of them differ
+PARAM_DIFF_SHARE = 0.25
 
 
 def _loss_band(name: str, k: dict, p: dict) -> float:
@@ -1099,16 +1157,22 @@ def _loss_band(name: str, k: dict, p: dict) -> float:
     return GRAD_BAND * abs(p["loss"])
 
 
-def check_update(dev, name: str) -> dict:
+def check_update(dev, name: str, arch: str = "flux_dit") -> dict:
     """One update of trainer ``name`` (rollout, rewards, loss and its
-    gradient, clip, AdamW) at full width, depth 2, batch 2, with the
-    modulation drawn, through the kernels and, on the same injected draws
-    (x_init, the rollout's eps, and for NFT/AWM the update's t and noise),
-    through the plain versions.  The clip range is widened to 0.2 so that
-    every sample's ratio lies inside the band on both routes (the kernel
-    rollout's log-density differs from the loss's by the gap phase 8
-    prints)."""
-    cfg = replace(configs.get("flux_dit"), n_layers=UPDATE_LAYERS)
+    gradient, clip, AdamW) of ``arch`` at full width, depth 2, batch 2,
+    through the kernels and, on the same injected draws (x_init, the
+    rollout's eps, and for NFT/AWM the update's t and noise), through the
+    plain versions.  ``flux_dit`` draws the modulation and holds the
+    attention weights' grads; ``mamba2-370m`` draws the SSM leaves and holds
+    the grads of in_proj, conv_w, a_log and dt_bias.  The clip range is
+    widened to 0.2 so that every sample's ratio lies inside the band on
+    both routes (the kernel rollout's log-density differs from the loss's
+    by the gap phase 8 prints)."""
+    ssm = arch == SSM_ARCH
+    cond_len = SSM_COND_LEN if ssm else COND_LEN
+    block, keys = (("ssm", SSM_GRAD_KEYS) if ssm
+                   else ("attn", ("wq", "wk", "wv")))
+    cfg = replace(configs.get(arch), n_layers=UPDATE_LAYERS)
     flow = FlowRLConfig(num_steps=NUM_STEPS, group_size=2,
                         clip_range=UPDATE_CLIP, latent_tokens=LAT_TOKENS,
                         latent_dim=LAT_DIM, advantage_agg="gdpo",
@@ -1117,7 +1181,7 @@ def check_update(dev, name: str) -> dict:
                                  RewardSpec("latent_norm", 0.1)))
     opt = OptimConfig(lr=1e-4, warmup_steps=1, total_steps=1000)
     gen = torch.Generator(device=dev).manual_seed(5)
-    cond = torch.randn(1, COND_LEN, COND_DIM, generator=gen, device=dev)
+    cond = torch.randn(1, cond_len, COND_DIM, generator=gen, device=dev)
     x_init = torch.randn(2, LAT_TOKENS, LAT_DIM, generator=gen, device=dev)
     eps = torch.randn(NUM_STEPS, 2, LAT_TOKENS, LAT_DIM, generator=gen,
                       device=dev)
@@ -1129,16 +1193,20 @@ def check_update(dev, name: str) -> dict:
         tr = registry.build("trainer", name, cfg, flow, opt, seed=0,
                             cond_dim=COND_DIM, device=dev, params=params)
         if params is None:
-            draw_modulation(tr.state.params, cfg.d_model, seed=6)
+            if ssm:
+                draw_ssm(tr.state.params, seed=6)
+            else:
+                draw_modulation(tr.state.params, cfg.d_model, seed=6)
             params = _clone(tr.state.params)
+            start = _clone(params)
         ctx = plain_dispatch() if route == "plain" else contextlib.nullcontext()
         with ctx:
             traj = tr.sample(tr.state.params, cond, None, x_init=x_init,
                              eps=eps)
             _, adv, stats = tr._rewards(traj.x0, {"cond": traj.cond})
             loss, aux = tr.backward(traj, adv, t=t_u, eps=eps_u)
-            attn = tr.state.params["backbone"]["blocks"]["attn"]
-            grads = {k: attn[k].grad.clone() for k in ("wq", "wk", "wv")}
+            leaves = tr.state.params["backbone"]["blocks"][block]
+            grads = {k: leaves[k].grad.clone() for k in keys}
             gnorm, lr = tr.apply_grads()
         torch.cuda.synchronize()
         runs[route] = {"loss": float(loss), "grad_norm": float(gnorm),
@@ -1157,32 +1225,43 @@ def check_update(dev, name: str) -> dict:
     gn_err = abs(k["grad_norm"] - p["grad_norm"]) / p["grad_norm"]
     # AdamW's first step moves each weight by lr * g / (|g| + eps), ~lr
     # times the gradient's sign: where the two routes' gradients share it
-    # the weights agree to their rounding; elsewhere they differ by 2 lr
-    p_err, p_max, n_diff, n_all = 0.0, 0.0, 0, 0
-    for (_, a), (_, b) in zip(params_lib.leaves(k["params"]),
-                              params_lib.leaves(p["params"])):
+    # the weights agree to their rounding; elsewhere they differ by 2 lr.
+    # Each leaf is held to 2 lr plus one bf16 ulp of its own max |p|
+    p_err, p_ratio, p_band, p_leaf = 0.0, 0.0, 0.0, ""
+    n_diff, n_moved, n_all = 0, 0, 0
+    for (path, a), (_, b), (_, b0) in zip(params_lib.leaves(k["params"]),
+                                          params_lib.leaves(p["params"]),
+                                          params_lib.leaves(start)):
         d = (a.float() - b.float()).abs()
-        p_err = max(p_err, float(d.max()))
-        p_max = max(p_max, float(b.float().abs().max()))
+        b_max = float(b.float().abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(b_max)) - 7) if b_max > 0 else 0.0
+        band = 2 * k["lr"] + ulp
+        d_max = float(d.max())
+        p_err = max(p_err, d_max)
+        if d_max / band >= p_ratio:
+            p_ratio, p_band, p_leaf = d_max / band, band, "/".join(path)
         n_diff += int((d > 0).sum())
+        n_moved += int((b != b0).sum())
         n_all += d.numel()
-    ulp = 2.0 ** (math.floor(math.log2(p_max)) - 7)
-    p_band = 2 * k["lr"] + ulp
+    del start
+    diff_share = n_diff / max(n_moved, 1)
     aux = ", ".join(f"{a} {k['aux'][a]:.4e} / {p['aux'][a]:.4e}"
                     for a in k["aux"])
-    log(f"  one {name} update, flux_dit depth {UPDATE_LAYERS}, batch 2, "
+    log(f"  one {name} update, {arch} depth {UPDATE_LAYERS}, batch 2, "
         f"kernels vs plain: loss {k['loss']:+.4e} / {p['loss']:+.4e}, "
         f"grad_norm {k['grad_norm']:.4e} / {p['grad_norm']:.4e} "
         f"({gn_err:.2e}), reward {k['reward']:+.4e} / {p['reward']:+.4e}, "
         f"{aux}")
-    log(f"  grads of wq/wk/wv: max|kernel - plain| / max|plain| "
-        f"{grad_err['wq']:.3e}/{grad_err['wk']:.3e}/{grad_err['wv']:.3e} "
-        f"(band {GRAD_BAND}); params after AdamW: max|diff| {p_err:.3e} "
-        f"(band 2 lr + one bf16 ulp of max|p| = {p_band:.3e}), "
-        f"{n_diff} of {n_all} weights differ")
+    log(f"  grads of {'/'.join(keys)}: max|kernel - plain| / max|plain| "
+        + "/".join(f"{grad_err[n]:.3e}" for n in keys)
+        + f" (band {GRAD_BAND}); params after AdamW: max|diff| {p_err:.3e}, "
+        f"nearest its leaf's band (2 lr + one bf16 ulp of the leaf's max|p|) "
+        f"{p_leaf} at {p_ratio:.3f} of {p_band:.3e}; {n_diff} of the "
+        f"{n_moved} weights the step moved differ ({diff_share:.4f}, band "
+        f"{PARAM_DIFF_SHARE}), of {n_all}")
     if zero:
         fail(f"{name}: the gradients of {zero} are zero: the check cannot "
-             "see the attention backward")
+             f"see the {block} backward")
     if max(grad_err.values()) > GRAD_BAND or gn_err > GRAD_BAND:
         fail(f"{name}: the update's gradients through the kernels disagree "
              "with the plain versions")
@@ -1190,20 +1269,26 @@ def check_update(dev, name: str) -> dict:
     if abs(k["loss"] - p["loss"]) > loss_band:
         fail(f"{name}: the update's loss through the kernels disagrees with "
              f"the plain versions beyond {loss_band:.3e}")
-    if p_err > p_band:
-        fail(f"{name}: the params after AdamW disagree between the routes")
+    if p_ratio > 1:
+        fail(f"{name}: the params of {p_leaf} after AdamW disagree between "
+             "the routes")
+    if n_moved == 0 or diff_share > PARAM_DIFF_SHARE:
+        fail(f"{name}: the AdamW step moved {n_moved} weights, of which "
+             f"{diff_share:.4f} differ between the routes")
     return {"grad_err": grad_err, "grad_norm_err": gn_err,
             "loss": [k["loss"], p["loss"]], "loss_band": loss_band,
             "aux": [k["aux"], p["aux"]], "param_max_diff": p_err,
-            "param_band": p_band, "params_differing": n_diff,
-            "params_total": n_all}
+            "param_leaf": p_leaf, "param_band": p_band,
+            "param_band_share": p_ratio, "params_differing": n_diff,
+            "params_moved": n_moved, "params_total": n_all}
 
 
-def check_updates(dev) -> dict:
-    """Phase 9 for each of the five trainers."""
+def check_updates(dev, arch: str = "flux_dit") -> dict:
+    """Phase 9 (``flux_dit``) or 18 (``mamba2-370m``) for each of the five
+    trainers."""
     out = {}
     for name in TRAINERS:
-        out[name] = check_update(dev, name)
+        out[name] = check_update(dev, name, arch)
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -1612,100 +1697,175 @@ def check_ssm_replay() -> dict:
             "velocity_gaps": gaps}
 
 # ----------------------------------------------------------------- phase 14
-class _Snapshot(loop_lib.Callback):
-    """Keeps the trainer and a copy of its params at train start."""
-
-    def on_train_start(self, loop):
-        self.trainer = loop.trainer
-        self.before = _clone(loop.trainer.state.params)
-
-
-SSD_REFUSAL_LAYERS, SSD_REFUSAL_STEPS = 2, 2
+# max |kernel - plain| / max |plain| of each gradient: f32 sums in another
+# order; in bf16 dx, dbm and dcm are rounded once from f32 by both (a tie
+# lands one bf16 ulp, 2^-8 of the value, apart), ddt and da stay f32
+SSD_BWD_BAND = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+SSD_BWD_F32_BAND = 1e-4
+SSD_GRADS = ("dx", "ddt", "da", "dbm", "dcm")
 
 
-def check_ssd_grad_refusal(tmp: str) -> dict:
-    """The ``ssd_scan`` kernel has no backward: ``ops.ssd_scan`` on CUDA
-    inputs that require grad raises and launches nothing (under
-    ``no_grad`` the same call launches), and ``repro_torch.launch.train
-    --arch mamba2-370m`` (full width, 2 layers, the serving geometry)
-    refuses in its first loss, after the rollout and before any parameter
-    moves: the optimizer never steps, every leaf is bitwise as at train
-    start and none is left requiring grad."""
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(11)
-    args = _ssd_inputs(g, dev, 1, 256, 4, SSM_HEAD_DIM, SSM_STATE, "mamba2",
-                       torch.bfloat16)
-    refused = []
-    for i, name in enumerate(("x", "dt", "a", "bm", "cm")):
-        call = list(args)
-        call[i] = call[i].detach().clone().requires_grad_()
-        before = (ssd_scan.launches, dict(ssd_scan.variant_launches))
-        try:
-            ops.ssd_scan(*call, chunk=SSM_CHUNK)
-        except NotImplementedError as e:
-            if "Queue 2 item 1" not in str(e):
-                fail(f"ssd_scan refused {name} without naming the backward's "
-                     f"ROADMAP item: {e}")
-            refused.append(name)
-        else:
-            fail(f"ops.ssd_scan ran with {name} requiring grad")
-        if (ssd_scan.launches, dict(ssd_scan.variant_launches)) != before:
-            fail("the refused ssd_scan call launched a kernel")
-        with torch.no_grad():
-            n0 = ssd_scan.launches
-            ops.ssd_scan(*call, chunk=SSM_CHUNK)
-            if ssd_scan.launches != n0 + 1:
-                fail("ssd_scan under no_grad did not launch")
-    log(f"  ops.ssd_scan with each of {refused} requiring grad: raised "
-        f"NotImplementedError, no launch; under no_grad: launched")
-    argv = ["--arch", SSM_ARCH, "--sde", "flow_sde", "--device", "cuda",
-            "--trainer", "flow_grpo", "--steps", "1",
-            "--set", "arch_overrides=" + json.dumps(
-                {"n_layers": SSD_REFUSAL_LAYERS}),
-            "--set", "param_dtype=bfloat16",
-            "--set", f"flow.num_steps={SSD_REFUSAL_STEPS}",
-            "--set", f"flow.group_size={GROUP}",
-            "--set", f"flow.latent_tokens={LAT_TOKENS}",
-            "--set", f"flow.latent_dim={LAT_DIM}",
-            "--set", f"flow.cache_dir={tmp}/cache_ssm",
-            "--set", "data.encoder=" + json.dumps(
-                {"cond_dim": COND_DIM, "cond_len": SSM_COND_LEN}),
-            "--set", "data.batch_prompts=1", "--set", "data.n_prompts=1",
-            "--set", "loop.save_every=0", "--set", "loop.log_every=1",
-            "--set", f"loop.ckpt_dir={tmp}/ckpt_ssm"]
-    snap = _Snapshot()
+def _ssd_conv_slices(x, bm, cm):
+    """x, bm and cm as column slices of one (B, L, H P + 2 N) buffer, as
+    the model passes them (the conv output's token stride, 2304 at the
+    path shape)."""
+    B, L, H, P = x.shape
+    buf = torch.cat([x.reshape(B, L, H * P), bm, cm], dim=-1)
+    N = bm.shape[-1]
+    return (buf[..., :H * P].unflatten(-1, (H, P)),
+            buf[..., H * P:H * P + N], buf[..., H * P + N:])
+
+
+def _ssd_bwd_times(dev, g, B) -> dict:
+    """Device ms of the backward kernel (replayed graphs) and of its plain
+    version, and the bound, at the path shape with batch ``B`` (bf16, dhT
+    absent as in training).  Bound: each input and output once (x, dy, dx,
+    bm, cm, dbm, dcm in bf16; dt, ddt, a, da in f32) over the memory rate,
+    and the products' operations over the bf16 tensor-core rate: per chunk
+    S = C B^T, dS B and dS^T C (3 Q Q N, shared by the heads); per head
+    dy x^T and (S M)^T dy (2 Q Q P) and five Q P N products, h_prev,
+    dh_prev, dh B^T, dy h_prev (dC's carried term) and dh^T x (dB's).  The
+    kernel also forms h_prev C^T for ddt's carried term; that is
+    sum_n C[q,n] (dy[q] h_prev)[n], O(Q N) more once dy h_prev is there, so
+    the bound does not count it."""
+    L, H, P, N, Q = SSM_SEQ, SSM_HEADS, SSM_HEAD_DIM, SSM_STATE, SSM_CHUNK
+    x, dt, a, bm, cm = _ssd_inputs(g, dev, B, L, H, P, N, "mamba2",
+                                   torch.bfloat16)
+    x, bm, cm = _ssd_conv_slices(x, bm, cm)
+    dy = torch.randn(x.shape, generator=g, device=dev).to(x.dtype)
+    ms = graph_ms(lambda: ssd_scan_bwd(x, dt, a, bm, cm, dy, None, chunk=Q),
+                  3)
+    call_ms = cuda_ms(lambda: ssd_scan_bwd(x, dt, a, bm, cm, dy, None,
+                                           chunk=Q), 5)
+    plain_ms = cuda_ms(lambda: ref.ssd_scan_bwd_ref(x, dt, a, bm, cm, dy,
+                                                    None, Q), 2, 1)
+    nc = L // Q
+    nbytes = (3 * x.numel() * 2 + 4 * B * L * N * 2 + 2 * dt.numel() * 4
+              + 2 * H * 4)
+    flops = 2 * B * nc * (3 * Q * Q * N + H * (2 * Q * Q * P + 5 * Q * P * N))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    log(f"  ssd_scan_bwd path (B={B}, L={L}, H={H}, P={P}, N={N}, Q={Q}) "
+        f"bf16: kernel {ms:.4f} ms on the device ({call_ms:.4f} ms a call "
+        f"with the host's launch), plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    del x, dt, a, bm, cm, dy
+    torch.cuda.empty_cache()
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def check_ssd_bwd(dev) -> dict:
+    """The ssd_scan backward kernel against its plain closed form
+    (``ref.ssd_scan_bwd_ref``) and torch.autograd through the plain
+    chunked forward, on phase 10's cases and the path shape at batch 4 and
+    1, x, bm and cm as column slices of one buffer as the model passes
+    them, f32 and bf16, dhT zero (None) and drawn, bitwise on rerun; the
+    slow-decay cases must make the gradient carried across chunks most of
+    dx.  Then ``ops.ssd_scan`` with an input requiring grad runs
+    ``SSDScanFn`` (one forward and one backward launch); then times at the
+    path shape."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    P_, N_, Q_ = SSM_HEAD_DIM, SSM_STATE, SSM_CHUNK
+    cases = [  # B, L, H, P, N, chunk, kind
+        (2, 128, 2, 32, 64, 32, "sweep"), (1, 256, 4, 64, 128, 128, "sweep"),
+        (3, 64, 1, 16, 32, 64, "sweep"),
+        (2, 384, 1, P_, N_, Q_, "sweep"), (2, 128, 4, P_, N_, Q_, "sweep"),
+        (1, 21, 3, 8, 16, 32, "sweep"), (2, 96, 16, 32, 32, 32, "sweep"),
+        (2, 1024, 8, P_, N_, Q_, "mamba2"), (2, 1024, 4, P_, N_, Q_, "slow"),
+        (B_SERVE, SSM_SEQ, SSM_HEADS, P_, N_, Q_, "mamba2"),
+        (1, SSM_SEQ, SSM_HEADS, P_, N_, Q_, "mamba2"),
+        (B_SERVE, SSM_SEQ, SSM_HEADS, P_, N_, Q_, "slow"),
+    ]
+    path_err = 0.0
+    worst = {}
+    for (B, L, H, P, N, Q, kind) in cases:
+        for dt_ in (torch.float32, torch.bfloat16):
+            x, dt, a, bm, cm = _ssd_inputs(g, dev, B, L, H, P, N, kind, dt_)
+            x, bm, cm = _ssd_conv_slices(x, bm, cm)
+            dy = torch.randn(x.shape, generator=g, device=dev).to(dt_)
+            for dh in (None, torch.randn((B, H, P, N), generator=g,
+                                         device=dev)):
+                got = ssd_scan_bwd(x, dt, a, bm, cm, dy, dh, chunk=Q)
+                again = ssd_scan_bwd(x, dt, a, bm, cm, dy, dh, chunk=Q)
+                if not all(torch.equal(u, v) for u, v in zip(got, again)):
+                    fail(f"ssd_scan_bwd not bitwise equal on rerun at "
+                         f"{(B, L, H, P, N, Q)} {kind} {dt_}")
+                want = ref.ssd_scan_bwd_ref(x, dt, a, bm, cm, dy, dh, Q)
+                errs = [_rel(u, v) for u, v in zip(got, want)]
+                leaves = [t.detach().clone().requires_grad_()
+                          for t in (x, dt, a, bm, cm)]
+                y, hT = ref.ssd_chunked_ref(*leaves, Q)
+                outs, cots = [y], [dy]
+                if dh is not None:
+                    outs.append(hT)
+                    cots.append(dh)
+                auto = torch.autograd.grad(outs, leaves, cots)
+                aerrs = [_rel(u, v) for u, v in zip(got, auto)]
+                del leaves, y, hT, outs, cots, auto
+                # how much of dx the gradient carried across chunks makes:
+                # the plain backward with every chunk on its own
+                q = min(Q, L)
+                loc = ref.ssd_scan_bwd_ref(
+                    *(t.reshape(B * (L // q), q, *t.shape[2:])
+                      for t in (x, dt)), a,
+                    *(t.reshape(B * (L // q), q, -1) for t in (bm, cm)),
+                    dy.reshape(B * (L // q), q, H, P), None, q)[0]
+                carried = _rel(loc.reshape(x.shape), want[0])
+                torch.cuda.synchronize()
+                f32_out = (False, True, True, False, False)
+                bands = [SSD_BWD_F32_BAND if f else SSD_BWD_BAND[dt_]
+                         for f in f32_out]
+                log(f"  ssd_scan_bwd B={B} L={L} H={H} P={P} N={N} Q={q} "
+                    f"{kind} {dt_} dhT {'drawn' if dh is not None else 'None'}"
+                    f": vs plain " + "/".join(f"{e:.1e}" for e in errs)
+                    + ", vs autograd " + "/".join(f"{e:.1e}" for e in aerrs)
+                    + f" ({'/'.join(SSD_GRADS)}; bands "
+                    + "/".join(str(b) for b in bands)
+                    + f"); carried {carried:.3f} of max|dx|")
+                for n, e, ae, band in zip(SSD_GRADS, errs, aerrs, bands):
+                    worst[n] = max(worst.get(n, 0.0), e, ae)
+                    if not (e <= band and ae <= band):
+                        fail(f"ssd_scan_bwd {n} off at {(B, L, H, P, N, Q)} "
+                             f"{kind} {dt_}")
+                if kind == "slow" and L > Q and carried < 0.5:
+                    fail("the slow-decay case does not make the carried "
+                         "gradient most of dx")
+                if L == SSM_SEQ and dt_ == torch.bfloat16:
+                    path_err = max(path_err, max(
+                        float((u.float() - v.float()).abs().max())
+                        for u, v in zip(got, want)))
+                del got, again, want, loc
+            del x, dt, a, bm, cm, dy
+            torch.cuda.empty_cache()
+    # ops.ssd_scan with an input requiring grad: SSDScanFn, through the
+    # tensor-core forward and the backward kernel
+    x, dt, a, bm, cm = _ssd_inputs(g, dev, 1, 256, 4, P_, N_, "mamba2",
+                                   torch.bfloat16)
+    x.requires_grad_()
     reset_counts()
-    try:
-        train.main(argv, callbacks=[snap])
-    except NotImplementedError as e:
-        msg = str(e)
-    else:
-        fail("launch.train --arch mamba2-370m trained on the card without "
-             "an ssd_scan backward")
-    launches = counts()
-    tr = snap.trainer
-    leaves = list(params_lib.leaves(tr.state.params))
-    moved = [".".join(path) for (path, a), (_, b) in zip(
-        leaves, params_lib.leaves(snap.before)) if not torch.equal(a, b)]
-    live = [".".join(path) for path, a in leaves
-            if a.requires_grad or a.grad is not None]
-    want_scans = SSD_REFUSAL_LAYERS * SSD_REFUSAL_STEPS
-    log(f"  launch.train --arch {SSM_ARCH} ({SSD_REFUSAL_LAYERS} layers): "
-        f"refused with \"{msg[:80]}...\"; optimizer step "
-        f"{int(tr.state.opt.step)}, {len(moved)} of {len(leaves)} leaves "
-        f"changed, {len(live)} left requiring grad; launches {launches}")
-    if "Queue 2 item 1" not in msg:
-        fail(f"the train path refused for another reason: {msg}")
-    if int(tr.state.opt.step) != 0 or moved or live:
-        fail(f"the refused train step touched the params: step "
-             f"{int(tr.state.opt.step)}, moved {moved[:4]}, live {live[:4]}")
-    if launches["ssd_scan"] != want_scans or launches["sde_step"] != \
-            SSD_REFUSAL_STEPS:
-        fail(f"the refused step's rollout launched {launches}, expected "
-             f"{want_scans} scans and {SSD_REFUSAL_STEPS} sde steps")
-    del snap, tr, leaves
-    return {"refused_inputs": refused, "train_refusal": msg,
-            "rollout_launches": launches}
+    y, _ = ops.ssd_scan(x, dt, a, bm, cm, chunk=Q_)
+    y.float().sum().backward()
+    seen = (counts(), dict(ssd_scan.variant_launches), type(y.grad_fn))
+    log(f"  ops.ssd_scan with x requiring grad: {seen[2].__name__}, "
+        f"launches {seen[0]}, forward variants {seen[1]}")
+    if seen[0]["ssd_scan"] != 1 or seen[0]["ssd_scan_bwd"] != 1 or \
+            seen[1]["wgmma"] != 1 or "SSDScanFn" not in seen[2].__name__:
+        fail("ops.ssd_scan with an input requiring grad did not run "
+             "SSDScanFn through the kernels")
+    del x, dt, a, bm, cm, y
+    times = {B: _ssd_bwd_times(dev, g, B) for B in (B_SERVE, 1)}
+    t4 = times[B_SERVE]
+    return {"name": "ssd_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+            "replaces": "none (JAX autodiff of src/repro/models/ssm.py:84, "
+                        "ssd_chunked)",
+            "max_abs_err": path_err, "max_rel_err": worst, "ms": t4["ms"],
+            "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
+            "bound_by": t4["bound_by"], "library_ms": None,
+            "times_by_batch": times}
 
 
 # ----------------------------------------------------------------- phase 15
@@ -1860,50 +2020,44 @@ def dense_serve_path() -> dict:
 
 
 # ----------------------------------------------------------------- phase 17
-class _DrawAttention(loop_lib.Callback):
-    """Draws wq/wk (``draw_attention``) at train start, before any step."""
-
-    def on_train_start(self, loop):
-        draw_attention(loop.trainer.state.params,
-                       loop.trainer.adapter.cfg.d_model, seed=15)
-
-
-def _dense_train_want(name: str, steps: int) -> dict:
-    """Kernel launches of ``steps`` train steps of trainer ``name`` on the
-    32-layer dense path at T = 4: the rollout's attention forward per layer
-    and step and its sde_step per SDE step; the loss's forward and backward
-    per layer at each SDE step (GRPO family) or once (NFT/AWM), and the
-    grpo_loss kernels only where the reference's kernel condition holds."""
+def _train_want(name: str, steps: int, layers: int, fwd: str, bwd: str
+                ) -> dict:
+    """Kernel launches of ``steps`` train steps of trainer ``name`` at
+    T = 4 over ``layers`` blocks that each run kernel ``fwd`` forward and
+    ``bwd`` backward: the rollout's forward per layer and step and its
+    sde_step per SDE step; the loss's forward and backward per layer at
+    each SDE step (GRPO family) or once (NFT/AWM), and the grpo_loss
+    kernels only where the reference's kernel condition holds."""
     sde = {"mix_grpo": 2}.get(name, NUM_STEPS)   # MixGRPO: window 2
-    want = {"sde_step": 0, "flash_attention": 0, "flash_attention_bwd": 0,
-            "grpo_loss": 0, "grpo_loss_bwd": 0, "ssd_scan": 0}
-    rollout = DENSE_LAYERS * NUM_STEPS
+    passes = sde if name in GRPO_FAMILY else 1
+    want = {fn.__name__: 0 for fn in COUNTED}
+    want[fwd] = layers * (NUM_STEPS + passes)
+    want[bwd] = layers * passes
     if name in GRPO_FAMILY:
         want["sde_step"] = sde
-        want["flash_attention"] = rollout + DENSE_LAYERS * sde
-        want["flash_attention_bwd"] = DENSE_LAYERS * sde
         if name != "grpo_guard":
             want["grpo_loss"] = want["grpo_loss_bwd"] = sde
-    else:
-        want["flash_attention"] = rollout + DENSE_LAYERS
-        want["flash_attention_bwd"] = DENSE_LAYERS
     return {k: v * steps for k, v in want.items()}
 
 
-def dense_train_path(tmp: str) -> dict:
-    """``repro_torch.launch.train.main`` on the card at smollm-360m's full
-    width and all 32 layers, bf16, the serving geometry, T = 4, 2 prompts x
-    group 2, phase 8's rewards under gdpo: flow_grpo for 2 steps (and one
-    more, traced), then mix_grpo, grpo_guard, nft and awm for 1 step each,
-    with wq/wk drawn at train start (``draw_attention``: at the
-    repository's init the gradient norm overflows).  Per trainer: launch
-    counts that match its path, finite metrics, params that move, s per
-    step and peak memory."""
+def train_trainers(tmp: str, arch: str, layers: int, cond_len: int,
+                   kernels: tuple, make_watch) -> dict:
+    """``repro_torch.launch.train.main`` on the card at ``arch``'s full
+    width and ``layers`` layers, bf16, ``cond_len`` condition tokens, one
+    time token and phase 8's latents, T = 4, 2 prompts x group 2, phase
+    8's rewards under gdpo: flow_grpo for 2 steps (and one more, traced),
+    then mix_grpo, grpo_guard, nft and awm for 1 step each, each under a
+    fresh ``make_watch()``.  Per trainer: launch counts that match its path
+    (``kernels``: the block's forward and backward kernel; every
+    ``ssd_scan`` on the tensor-core kernel), finite metrics, every layer's
+    gradient of the watch's ``grad_keys`` at the first update finite and
+    nonzero, params that move, s per step and peak memory."""
     out = {}
     for name in TRAINERS:
         n = TRAIN_STEPS if name == "flow_grpo" else 1
-        argv = ["--arch", DENSE_ARCH, "--sde", "flow_sde", "--device", "cuda",
+        argv = ["--arch", arch, "--sde", "flow_sde", "--device", "cuda",
                 "--trainer", name, "--steps", str(n),
+                "--set", "arch_overrides=" + json.dumps({"n_layers": layers}),
                 "--set", "param_dtype=bfloat16",
                 "--set", f"flow.num_steps={NUM_STEPS}",
                 "--set", f"flow.group_size={GROUP}",
@@ -1911,29 +2065,31 @@ def dense_train_path(tmp: str) -> dict:
                 "--set", f"flow.latent_dim={LAT_DIM}",
                 "--set", "flow.advantage_agg=gdpo",
                 "--set", "flow.rewards=" + json.dumps(TRAIN_REWARDS),
-                "--set", f"flow.cache_dir={tmp}/cache",
+                "--set", f"flow.cache_dir={tmp}/cache_{arch}",
                 "--set", "data.encoder=" + json.dumps(
-                    {"cond_dim": COND_DIM, "cond_len": COND_LEN}),
+                    {"cond_dim": COND_DIM, "cond_len": cond_len}),
                 "--set", f"data.batch_prompts={PROMPTS}",
                 "--set", f"data.n_prompts={PROMPTS * n}",
                 "--set", "loop.save_every=0", "--set", "loop.log_every=1",
-                "--set", f"loop.ckpt_dir={tmp}/ckpt_{name}"]
-        watch = _Watch()
+                "--set", f"loop.ckpt_dir={tmp}/ckpt_{arch}_{name}"]
+        watch = make_watch()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        res = train.main(argv, callbacks=[_DrawAttention(), watch])
+        res = train.main(argv, callbacks=[watch])
         launches = counts()
+        variants = dict(ssd_scan.variant_launches)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         hist = res["history"]
         trainer = res["experiment"].build_trainer()
-        want = _dense_train_want(name, n)
+        want = _train_want(name, n, layers, *kernels)
         log(f"  {name}: launches {launches} over {n} train steps (expected "
-            f"{want})")
-        if trainer.adapter.cfg.n_layers != DENSE_LAYERS:
+            f"{want}); ssd_scan variants {variants}")
+        if trainer.adapter.cfg.n_layers != layers:
             fail(f"{name} trained {trainer.adapter.cfg.n_layers} layers")
-        if launches != want:
-            fail(f"{name}: the dense train path's kernel launches do not "
+        if launches != want or variants != {"wgmma": want["ssd_scan"],
+                                             "fma": 0}:
+            fail(f"{name}: the {arch} train path's kernel launches do not "
                  "match the path")
         if len(hist) != n:
             fail(f"{name}: {len(hist)} train steps ran, expected {n}")
@@ -1942,9 +2098,15 @@ def dense_train_path(tmp: str) -> dict:
                     if isinstance(v, float) and k != "steps_per_s"]
             if not all(math.isfinite(v) for v in vals):
                 fail(f"{name} step {r['step']}: non-finite metrics {r}")
-        attn = trainer.state.params["backbone"]["blocks"]["attn"]
-        moved = {k: float((attn[k].float() - watch.before[k].float()
-                           ).abs().max()) for k in watch.KEYS}
+        grads = watch.first_grads
+        layer_min = {k: float(g.flatten(1).abs().amax(1).min())
+                     for k, g in grads.items()}
+        if not (all(torch.isfinite(g).all() for g in grads.values())
+                and all(m > 0 for m in layer_min.values())):
+            fail(f"{name}: a layer's gradient of {list(grads)} at the first "
+                 f"update is zero or not finite (smallest per-layer max "
+                 f"|grad| {layer_min})")
+        moved = watch.moved(trainer)
         if int(trainer.state.opt.step) != n or not all(moved.values()):
             fail(f"{name}: the params did not move: step "
                  f"{int(trainer.state.opt.step)}, max |change| {moved}")
@@ -1958,16 +2120,18 @@ def dense_train_path(tmp: str) -> dict:
                 f"{r['loss']:+.4e}, grad_norm {r['grad_norm']:.4e}, reward "
                 f"{r['reward']:+.4e}{grpo}")
         log(f"  {name}: max_memory_allocated {peak / 2**30:.2f} GiB "
-            f"({peak} bytes); params moved by up to {moved}")
+            f"({peak} bytes); first update's smallest per-layer max |grad| "
+            f"{layer_min}; params moved by up to {moved}")
         row = {"launches": launches, "s_per_step": [r["dt"] for r in hist],
                "peak_bytes": peak, "loss": [r["loss"] for r in hist],
                "grad_norm": [r["grad_norm"] for r in hist],
-               "reward": [r["reward"] for r in hist]}
+               "reward": [r["reward"] for r in hist],
+               "first_grad_layer_min": layer_min}
         if name in GRPO_FAMILY:
             row["clip_frac"] = [r["clip_frac"] for r in hist]
             row["logp_gap"] = [r["logp_gap"] for r in hist]
         if name == "flow_grpo":
-            cond = torch.randn(PROMPTS, COND_LEN, COND_DIM,
+            cond = torch.randn(PROMPTS, cond_len, COND_DIM,
                                device=trainer.device)
             it = [n]
 
@@ -1977,14 +2141,57 @@ def dense_train_path(tmp: str) -> dict:
                 return float(m["loss"])
 
             row["profile"] = profile(
-                one_step, f"one {DENSE_ARCH} train step, {PROMPTS} x {GROUP}"
-                          f" samples, {DENSE_LAYERS} layers, {NUM_STEPS} "
-                          "timesteps")
+                one_step, f"one {arch} train step, {PROMPTS} x {GROUP} "
+                          f"samples, {layers} layers, {NUM_STEPS} timesteps")
         out[name] = row
-        del res, trainer, watch, attn
+        del res, trainer, watch
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+def dense_train_path(tmp: str) -> dict:
+    """``train_trainers`` at smollm-360m's full width and all 32 layers,
+    phase 8's geometry, with wq/wk drawn at train start
+    (``draw_attention``: at the repository's init the gradients grow ~5x a
+    layer and the gradient norm overflows); the first update's wq/wk
+    gradients are held."""
+    return train_trainers(
+        tmp, DENSE_ARCH, DENSE_LAYERS, COND_LEN,
+        ("flash_attention", "flash_attention_bwd"),
+        lambda: _TrainWatch("attn", ("wq", "wk", "wv"), ("wq", "wk"),
+                            lambda p, cfg: draw_attention(p, cfg.d_model,
+                                                          seed=15)))
+
+
+# ----------------------------------------------------------------- phase 18
+# the leaves whose gradients phase 18 holds: in_proj and conv_w feed the
+# scan's x, B, C and dt; a_log reaches the output only through the scan, so
+# a zero there would mean the scan's gradient was lost
+SSM_GRAD_KEYS = ("in_proj", "conv_w", "a_log", "dt_bias")
+
+
+# ----------------------------------------------------------------- phase 19
+SSM_TRAIN_LAYERS = 48
+
+
+def ssm_train_path(tmp: str) -> dict:
+    """``train_trainers`` at mamba2-370m's full width and all 48 layers,
+    the serving cell's geometry (511 + 1 + 4096 = 36 x 128 tokens), with
+    the SSM leaves drawn at train start (``draw_ssm``: at the repository's
+    init the carried state reaches only the first tokens of a chunk, so a
+    wrong inter-chunk gradient would hardly show).  Every layer's a_log
+    and dt_bias gradient at the first update is held (a_log reaches the
+    output only through the scan).  The leaves watched for movement are
+    ones whose AdamW steps (~lr) exceed their bf16 spacing: dt_bias
+    (|dt_bias| 2-7, a spacing of 2^-6 to 2^-5) does not move in bf16 at lr
+    1e-4."""
+    return train_trainers(
+        tmp, SSM_ARCH, SSM_TRAIN_LAYERS, SSM_COND_LEN,
+        ("ssd_scan", "ssd_scan_bwd"),
+        lambda: _TrainWatch("ssm", ("conv_w", "conv_b", "a_log"),
+                            ("a_log", "dt_bias"),
+                            lambda p, cfg: draw_ssm(p, seed=19)))
 
 
 def _clone(tree):
@@ -2002,7 +2209,7 @@ def _cast(tree, dtype):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", metavar="N,N,...",
-                    help="run only these of phases 3-17 after the device and "
+                    help="run only these of phases 3-19 after the device and "
                          "build phases, and print no result lines (a "
                          "development aid; the check runs every phase)")
     args = ap.parse_args(argv)
@@ -2091,14 +2298,14 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    with tempfile.TemporaryDirectory() as tmp:
-        log("[14] ssd_scan refuses gradients on the card")
-        dense_res = {"ssd_grad": check_ssd_grad_refusal(tmp)}
-        gc.collect()
-        torch.cuda.empty_cache()
+    log("[14] ssd_scan backward against its plain versions")
+    ssd_bwd_row = check_ssd_bwd(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    with tempfile.TemporaryDirectory() as tmp:
         log("[15] dense velocity at full width, depth 2")
-        dense_res["velocity_checks"] = check_dense_velocities(dev)
+        dense_res = {"velocity_checks": check_dense_velocities(dev)}
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2111,6 +2318,18 @@ def main(argv=None) -> int:
         log(f"[17] dense train path: repro_torch.launch.train, {DENSE_ARCH}"
             f", {DENSE_LAYERS} layers, the five trainers")
         dense_res["train"] = dense_train_path(tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log(f"[18] one update of each trainer on {SSM_ARCH} through the "
+            f"kernels vs the plain versions")
+        ssm_update = check_updates(dev, SSM_ARCH)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log(f"[19] ssm train path: repro_torch.launch.train, {SSM_ARCH}, "
+            f"{SSM_TRAIN_LAYERS} layers, the five trainers")
+        ssm_train = ssm_train_path(tmp)
 
     def by_path(name: str) -> dict:
         return {"serve": res["launches"][name],
@@ -2118,17 +2337,22 @@ def main(argv=None) -> int:
                 "serve_ssm": ssm_res["launches"][name],
                 "serve_dense": dense_res["serve"]["launches"][name],
                 "train_dense": {t: r["launches"][name]
-                                for t, r in dense_res["train"].items()}}
+                                for t, r in dense_res["train"].items()},
+                "train_ssm": {t: r["launches"][name]
+                              for t, r in ssm_train.items()}}
 
     for row in rows:
         row["launches"] = train_res["launches"][row["name"]]
         row["launches_by_path"] = by_path(row["name"])
     ssd_row["launches"] = ssm_res["launches"]["ssd_scan"]
     ssd_row["launches_by_path"] = by_path("ssd_scan")
-    rows.append(ssd_row)
+    ssd_bwd_row["launches"] = ssm_train["flow_grpo"]["launches"][
+        "ssd_scan_bwd"]
+    ssd_bwd_row["launches_by_path"] = by_path("ssd_scan_bwd")
+    rows += [ssd_row, ssd_bwd_row]
     keys = ("name", "route", "variant", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "launches_by_path", "times_by_batch",
+            "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "launches_by_path", "times_by_batch",
             "dense_shape")
     print(json.dumps({"main_path": {k: v for k, v in res.items()
                                     if k != "launches"}}))
@@ -2138,6 +2362,8 @@ def main(argv=None) -> int:
     print(json.dumps({"ssm_path": {k: v for k, v in ssm_res.items()
                                    if k != "launches"}}))
     print(json.dumps({"dense_path": dense_res}))
+    print(json.dumps({"ssm_train_path": ssm_train,
+                      "update_check": ssm_update}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(card_line())
@@ -2160,9 +2386,11 @@ def run_only(dev, only: set) -> int:
               8: _in_tmp(train_path), 9: lambda: check_updates(dev),
               10: lambda: check_ssd(dev), 11: lambda: check_ssm_velocity(dev),
               12: ssm_path, 13: check_ssm_replay,
-              14: _in_tmp(check_ssd_grad_refusal),
+              14: lambda: check_ssd_bwd(dev),
               15: lambda: check_dense_velocities(dev),
-              16: dense_serve_path, 17: _in_tmp(dense_train_path)}
+              16: dense_serve_path, 17: _in_tmp(dense_train_path),
+              18: lambda: check_updates(dev, SSM_ARCH),
+              19: _in_tmp(ssm_train_path)}
     for n in sorted(only):
         if n not in phases:
             fail(f"--only: phase {n} cannot run alone")

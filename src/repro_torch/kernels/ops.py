@@ -6,8 +6,9 @@ the plain PyTorch version (``kernels/ref.py``), a CUDA tensor to the
 hand-written kernel, which raises if it cannot build, if the card is not
 sm_90, or if the launch fails.  There is no fallback from a CUDA tensor to
 the plain version and no switch to force one.  Where gradients flow
-(attention with an input that requires grad, the trainer's GRPO loss) the
-call goes through an autograd Function whose backward routes the same way.
+(attention or the SSD scan with an input that requires grad, the trainer's
+GRPO loss) the call goes through an autograd Function whose backward routes
+the same way.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.grpo_loss import GRPOLossFn
 from repro_torch.kernels.grpo_loss import grpo_loss as _grpo
 from repro_torch.kernels.sde_step import sde_step as _sde
+from repro_torch.kernels.ssd_scan import SSDScanFn
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd
 
 
@@ -39,20 +41,15 @@ def sde_step(v, x, eps, t, t_next, *, eta=0.7):
 
 def ssd_scan(x, dt, a, bm, cm, *, chunk=128):
     """Mamba-2 SSD chunked scan from a zero state: (y (B,L,H,P) in x's
-    dtype, final state (B,H,P,N) f32).  On the CPU autograd runs through
-    the plain version.  The kernel has no backward yet, so off the CPU a
-    call that would need one (grad enabled, an input requiring grad)
-    raises ``NotImplementedError`` before anything is checked or
-    launched."""
-    if x.device.type == "cpu":
-        return ref.ssd_chunked_ref(x, dt, a, bm, cm, chunk)
+    dtype, final state (B,H,P,N) f32).  With grad enabled and any input
+    requiring grad the call goes through ``SSDScanFn`` (the hand-written
+    backward on the card, the plain closed form on the CPU); otherwise it
+    routes by device."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, a, bm, cm)):
-        raise NotImplementedError(
-            "ssd_scan: the CUDA kernel has no backward yet (ROADMAP.md "
-            "Queue 2 item 1, the ssd_scan backward), so the ssm family "
-            "cannot be trained on the card; its gradients would silently "
-            "lose the scan's part")
+        return SSDScanFn.apply(x, dt, a, bm, cm, chunk)
+    if x.device.type == "cpu":
+        return ref.ssd_chunked_ref(x, dt, a, bm, cm, chunk)
     return _ssd(x, dt, a, bm, cm, chunk=chunk)
 
 

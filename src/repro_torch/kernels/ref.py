@@ -280,3 +280,102 @@ def ssd_tensor_core_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              + lo.transpose(-1, -2) @ bc)
     y = torch.stack(ys, dim=1).transpose(2, 3).reshape(B, L, H, Pd)
     return y.to(x.dtype), h
+
+
+def ssd_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                     bm: torch.Tensor, cm: torch.Tensor, dy: torch.Tensor,
+                     dhT: Optional[torch.Tensor], chunk: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor, torch.Tensor]:
+    """(dx, ddt, da, dbm, dcm) of ``ssd_chunked_ref`` from a zero state at
+    upstream gradients dy (of y) and dhT (of the final state; ``None`` for
+    zero), written out in closed form along the kernel's own dataflow
+    (``csrc/ssd_scan_bwd.cu``), in f32; dx, dbm and dcm are cast to their
+    inputs' dtypes.  Per (b, h) and chunk, with cum the running sum of
+    dA = dt a, total = cum[Q-1], S = C B^T (shared by the heads),
+    E[q,k] = exp(cum[q] - cum[k]) and M = E dt[k] on and below the
+    diagonal, w[k] = exp(total - cum[k]) dt[k], and dh the gradient of the
+    state leaving the chunk:
+
+        dh_prev = exp(total) dh + sum_q exp(cum[q]) dy[q] C[q]^T
+        dx[k]   = sum_q S[q,k] M[q,k] dy[q] + w[k] dh B[k]
+        dS      = sum_h M (dy x^T)                     (then dC, dB)
+        dC[q]   = sum_k dS[q,k] B[k] + sum_h exp(cum[q]) h_prev^T dy[q]
+        dB[k]   = sum_q dS[q,k] C[q] + sum_h w[k] dh^T x[k]
+        ddt[k]  = sum_q S E (dy.x)[q,k] + exp(total - cum[k]) x[k].dh B[k]
+                  + a dA[k]
+
+    where dA is the reverse running sum of the gradient of cum:
+    T = S M (dy x^T), U[k] = w[k] x[k].dh B[k],
+    dcum[q] = sum_k T[q,k] - sum_k T[k,q] + exp(cum[q]) dy[q].h_prev C[q]
+    - U[q], and dcum[Q-1] also takes exp(total) <dh, h_prev> + sum_k U[k]
+    (total is cum[Q-1]); da = sum over (b, l) of dt dA.  exp is evaluated
+    only on and below the diagonal, as the forward does."""
+    B, L, H, Pd = x.shape
+    N = bm.shape[-1]
+    Q = min(chunk, L)
+    if L % Q:
+        raise ValueError(f"ssd scan: sequence length {L} is no multiple of "
+                         f"the chunk {Q}")
+    nc = L // Q
+    af = a.to(F32)
+    xf = x.to(F32).reshape(B, nc, Q, H, Pd).transpose(2, 3)   # (B,nc,H,Q,P)
+    dyf = dy.to(F32).reshape(B, nc, Q, H, Pd).transpose(2, 3)
+    dtf = dt.to(F32).reshape(B, nc, Q, H).transpose(2, 3)     # (B,nc,H,Q)
+    bf = bm.to(F32).reshape(B, nc, 1, Q, N)
+    cf = cm.to(F32).reshape(B, nc, 1, Q, N)
+    cum = torch.cumsum(dtf * af[:, None], dim=-1)
+    total = cum[..., -1:]
+    lower = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    seg = torch.where(lower, cum[..., :, None] - cum[..., None, :], 0.0)
+    E = torch.where(lower, torch.exp(seg), 0.0)               # (B,nc,H,Q,Q)
+    del seg
+    S = cf @ bf.transpose(-1, -2)                             # (B,nc,1,Q,Q)
+    ecum = torch.exp(cum)
+    e2 = torch.exp(total - cum)
+    w = e2 * dtf
+
+    # the states entering (h_prev) and the gradients leaving (dh) each chunk
+    states = (xf * w[..., None]).transpose(-1, -2) @ bf       # (B,nc,H,P,N)
+    own = (dyf * ecum[..., None]).transpose(-1, -2) @ cf
+    decay = torch.exp(total[..., 0])                          # (B,nc,H)
+    h = torch.zeros((B, H, Pd, N), dtype=F32, device=x.device)
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = h * decay[:, c, :, None, None] + states[:, c]
+    h_prev = torch.stack(h_prev, dim=1)
+    s = (torch.zeros((B, H, Pd, N), dtype=F32, device=x.device)
+         if dhT is None else dhT.to(F32))
+    dh = [None] * nc
+    for c in reversed(range(nc)):
+        dh[c] = s
+        s = s * decay[:, c, :, None, None] + own[:, c]
+    dh = torch.stack(dh, dim=1)
+    del states, own, h, s
+
+    G = dyf @ xf.transpose(-1, -2)                            # (B,nc,H,Q,Q)
+    Sd = S * E * G                                            # S E (dy.x)
+    M = E * dtf[..., None, :]
+    del E
+    dS = (M * G).sum(2, keepdim=True)                         # (B,nc,1,Q,Q)
+    T = Sd * dtf[..., None, :]
+    del G
+    V = bf @ dh.transpose(-1, -2)                             # dh B[k]
+    dx = (S * M).transpose(-1, -2) @ dyf + w[..., None] * V
+    del M
+    xv = (xf * V).sum(-1)                                     # (B,nc,H,Q)
+    del V
+    dyz = (dyf * (cf @ h_prev.transpose(-1, -2))).sum(-1)     # dy.h_prev C
+    dc = (dS @ bf)[:, :, 0] + ((dyf * ecum[..., None]) @ h_prev).sum(2)
+    db = (dS.transpose(-1, -2) @ cf)[:, :, 0] + (
+        (xf * w[..., None]) @ dh).sum(2)
+    U = w * xv
+    dcum = T.sum(-1) - T.sum(-2) + ecum * dyz - U
+    dcum[..., -1] += decay * (dh * h_prev).sum((-1, -2)) + U.sum(-1)
+    dA = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+    ddt = Sd.sum(-2) + e2 * xv + af[:, None] * dA
+    da = (dtf * dA).sum((0, 1, 3))
+    return (dx.transpose(2, 3).reshape(B, L, H, Pd).to(x.dtype),
+            ddt.transpose(2, 3).reshape(B, L, H), da,
+            db.reshape(B, L, N).to(bm.dtype), dc.reshape(B, L, N).to(cm.dtype))

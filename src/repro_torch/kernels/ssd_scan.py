@@ -1,22 +1,29 @@
-"""CUDA wrapper of the Mamba-2 SSD chunked scan (``csrc/ssd_scan.cu``).
+"""CUDA wrappers of the Mamba-2 SSD chunked scan (``csrc/ssd_scan.cu``) and
+its backward (``csrc/ssd_scan_bwd.cu``), and the differentiable scan
+``SSDScanFn``.
 
-``ssd_scan`` takes CUDA tensors only; ``kernels/ops.py`` sends CPU tensors
-to the plain chunked version ``ref.ssd_chunked_ref``.  Two kernels, chosen
-by ``tensor_core_route`` from dtype, shape and alignment alone: Mamba-2's
-bf16 shape (head dim 64, state 128, chunk 128, TMA-aligned) runs
+``ssd_scan`` and ``ssd_scan_bwd`` take CUDA tensors only; ``kernels/ops.py``
+sends CPU tensors to the plain chunked version ``ref.ssd_chunked_ref``, and
+``SSDScanFn`` sends them to ``ref.ssd_chunked_ref`` and
+``ref.ssd_scan_bwd_ref``.  The forward has two kernels, chosen by
+``tensor_core_route`` from dtype, shape and alignment alone: Mamba-2's bf16
+shape (head dim 64, state 128, chunk 128, TMA-aligned) runs
 ``ssd_scan_wgmma`` (one block per (batch, head) walking its chunks, state
 on chip, products on the tensor cores); f32 and every other shape run the
-four f32 FMA passes.  ``ssd_scan.launches`` counts the calls that launched
-a kernel, ``ssd_scan.variant_launches`` the same calls by variant.
+four f32 FMA passes.  The backward is f32 FMA passes for every dtype and
+shape: it recomputes the chunk states from the inputs, so ``SSDScanFn``
+saves only x, dt, a, bm and cm.  ``ssd_scan.launches`` counts the calls
+that launched a forward kernel, ``ssd_scan.variant_launches`` the same
+calls by variant, ``ssd_scan_bwd.launches`` the backward's calls.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 from repro_torch.kernels.sde_step import require_sm90
 
 F32 = torch.float32
@@ -42,6 +49,15 @@ def _tc_lib():
     fn = _build.load("ssd_scan").ssd_scan_wgmma_fwd
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+            ctypes.c_longlong] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_lib():
+    fn = _build.load("ssd_scan_bwd").ssd_scan_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + [
             ctypes.c_longlong] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -149,3 +165,101 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 ssd_scan.launches = 0
 ssd_scan.variant_launches = {"wgmma": 0, "fma": 0}
+
+
+# heads per block of the backward's chunk kernel: the kernel's grid and the
+# number of dS partials both follow from it (passed as ``hpb``)
+BWD_HEADS_PER_BLOCK = 8
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 bm: torch.Tensor, cm: torch.Tensor, dy: torch.Tensor,
+                 dhT: Optional[torch.Tensor], *, chunk: int = 128
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor, torch.Tensor]:
+    """(dx, ddt, da, dbm, dcm) of ``ssd_scan`` from a zero state at the
+    upstream gradients dy (B,L,H,P) in x's dtype, contiguous, and dhT
+    (B,H,P,N) f32 contiguous or ``None`` (zero): dx in x's dtype, ddt and
+    da f32, dbm and dcm in bm's dtype, all contiguous.  Inputs as
+    ``ssd_scan``, on one CUDA device."""
+    Q = _check(x, dt, a, bm, cm, chunk)
+    B, L, H, P = x.shape
+    N = bm.shape[-1]
+    if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous() \
+            or dy.device != x.device:
+        raise ValueError(f"ssd_scan_bwd: dy must be a contiguous "
+                         f"{tuple(x.shape)} {x.dtype} tensor beside x, got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    if dhT is not None and (tuple(dhT.shape) != (B, H, P, N)
+                            or dhT.dtype != F32 or not dhT.is_contiguous()
+                            or dhT.device != x.device):
+        raise ValueError(f"ssd_scan_bwd: dhT must be a contiguous "
+                         f"{(B, H, P, N)} float32 tensor beside x or None, "
+                         f"got {tuple(dhT.shape)} {dhT.dtype}")
+    dev = x.device
+    nc = L // Q
+    G = -(-H // BWD_HEADS_PER_BLOCK)
+    dx = torch.empty((B, L, H, P), dtype=x.dtype, device=dev)
+    ddt = torch.empty((B, L, H), dtype=F32, device=dev)
+    da = torch.empty((H,), dtype=F32, device=dev)
+    dbm = torch.empty((B, L, N), dtype=bm.dtype, device=dev)
+    dcm = torch.empty((B, L, N), dtype=bm.dtype, device=dev)
+    scores = torch.empty((B, nc, Q, Q), dtype=F32, device=dev)
+    states = torch.empty((B, nc, H, P, N), dtype=F32, device=dev)
+    dh = torch.empty((B, nc, H, P, N), dtype=F32, device=dev)
+    decay = torch.empty((B, nc, H), dtype=F32, device=dev)
+    dapart = torch.empty((B, nc, H), dtype=F32, device=dev)
+    dspart = torch.empty((B, nc, G, Q, Q), dtype=F32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _bwd_lib()(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
+        cm.data_ptr(), dy.data_ptr(), None if dhT is None else dhT.data_ptr(),
+        dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), dbm.data_ptr(),
+        dcm.data_ptr(), scores.data_ptr(), states.data_ptr(),
+        decay.data_ptr(), dh.data_ptr(), dapart.data_ptr(), dspart.data_ptr(),
+        DTYPES[x.dtype], B, L, H, P, N, Q, BWD_HEADS_PER_BLOCK,
+        x.stride(0), x.stride(1),
+        bm.stride(0), bm.stride(1), cm.stride(0), cm.stride(1), stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan_bwd kernel launch failed: CUDA error "
+                           f"{rc}")
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, da, dbm, dcm
+
+
+ssd_scan_bwd.launches = 0
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The differentiable scan from a zero state: (y, final state).  The
+    forward takes the route serving takes (``ssd_scan``) and saves only its
+    inputs; the backward recomputes the chunk states from them.  CPU tensors
+    take the plain versions (``ref.ssd_chunked_ref`` /
+    ``ref.ssd_scan_bwd_ref``), CUDA tensors the kernels; there is no
+    fallback in either direction.  An unused final state (training calls
+    the scan without a cache) reaches the backward as ``None``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bm, cm, chunk: int):
+        if x.device.type == "cpu":
+            y, hT = ref.ssd_chunked_ref(x, dt, a, bm, cm, chunk)
+        else:
+            y, hT = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+        ctx.save_for_backward(x, dt, a, bm, cm)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        x, dt, a, bm, cm = ctx.saved_tensors
+        dy = (torch.zeros_like(x) if dy is None
+              else dy.to(x.dtype).contiguous())
+        if dhT is not None:
+            dhT = dhT.to(F32).contiguous()
+        if x.device.type == "cpu":
+            grads = ref.ssd_scan_bwd_ref(x, dt, a, bm, cm, dy, dhT,
+                                         ctx.chunk)
+        else:
+            grads = ssd_scan_bwd(x, dt, a, bm, cm, dy, dhT, chunk=ctx.chunk)
+        return (*grads, None)

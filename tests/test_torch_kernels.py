@@ -370,18 +370,26 @@ def _chip_smoke():
 @pytest.mark.parametrize("source,group", [
     ("flash_attention.cu", "flash_attention kernel"),
     ("flash_attention_bwd.cu", "flash_attention_bwd kernel"),
-    ("ssd_scan.cu", "ssd_scan kernel")])
+    ("ssd_scan.cu", "ssd_scan kernel"),
+    ("ssd_scan_bwd.cu", "ssd_scan_bwd kernels")])
 def test_profile_groups_attribute_every_attention_kernel(source, group):
-    """chip_smoke's profiles (phases 6, 8 and 12) put every kernel of the
-    attention and scan sources in its own group, not in "other" or the
-    matmuls."""
-    text = (_build.CSRC / source).read_text()
+    """chip_smoke's profiles (phases 6, 8, 12, 17 and 19) put every kernel
+    of the attention and scan sources, and of the ``csrc`` headers they
+    include, in its own group, not in "other" or the matmuls.  The scan's
+    backward reruns the forward's FMA passes (``ssd_fma.cuh``) inside its
+    namespace ``ssd_bwd``, which tells the two apart by name."""
+    own = text = (_build.CSRC / source).read_text()
+    for inc in re.findall(r'#include "(\w+\.cuh)"', own):
+        text += (_build.CSRC / inc).read_text()
     names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
                        r"\s+)?(\w+)\s*\(", text)
     assert len(names) >= 3, names
+    space = re.search(r"^namespace (\w+) \{", own, re.M)
+    prefix = f"{space.group(1)}::" if space else ""
     cs = _chip_smoke()
     for name in names:
         # the profiler reports demangled template instances
-        shown = f"void (anonymous namespace)::{name}<128>(BwdParams)"
-        assert cs._profile_group(name) == group, name
+        shown = f"void {prefix}(anonymous namespace)::{name}<128>(BwdParams)"
         assert cs._profile_group(shown) == group, shown
+        if not prefix:
+            assert cs._profile_group(name) == group, name

@@ -1,8 +1,11 @@
-"""Parity of the port's Mamba-2 serving path with the JAX package, on the
-CPU: the SSD scan's plain versions against the JAX oracle and the
-interpret-mode Pallas kernel, ``ssm.apply_full``, the ``ssm`` backbone, the
-causal ``FlowAdapter.velocity``, ``rollout_keyed`` end to end and the serve
-CLI, on reduced ``mamba2-370m``; and the full config's spec tree.
+"""Parity of the port's Mamba-2 path with the JAX package, on the CPU: the
+SSD scan's plain versions against the JAX oracle and the interpret-mode
+Pallas kernel, the scan's closed-form backward (``ref.ssd_scan_bwd_ref``,
+the CUDA backward's equations) against ``jax.vjp`` of the reference's
+``ssd_chunked`` and torch autograd, ``SSDScanFn`` behind ``ops.ssd_scan``,
+``ssm.apply_full``, the ``ssm`` backbone, the causal
+``FlowAdapter.velocity``, ``rollout_keyed`` end to end and the serve CLI,
+on reduced ``mamba2-370m``; and the full config's spec tree.
 
 The scan's inputs cover the reference's sweep (``tests/test_kernels.py``)
 and two slow-decay cases, in which the state carried across chunks makes
@@ -37,7 +40,9 @@ from repro_torch.config import FlowRLConfig as TFlowRLConfig
 from repro_torch.core import schedulers as tsched
 from repro_torch.core.rollout import rollout_keyed as trollout_keyed
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.ssd_scan import SSDScanFn
 from repro_torch.kernels.ssd_scan import ssd_scan as cuda_ssd_scan
+from repro_torch.kernels.ssd_scan import ssd_scan_bwd as cuda_ssd_scan_bwd
 from repro_torch.kernels.ssd_scan import tensor_core_route
 from repro_torch.launch import serve as tserve
 from repro_torch.models import params as tparams
@@ -271,30 +276,129 @@ def test_cuda_wrapper_refuses_cpu_tensors(route):
 
 
 @pytest.mark.parametrize("leaf", ["x", "dt", "a", "bm", "cm"])
-def test_ssd_scan_refuses_gradients_off_the_cpu(leaf):
-    """The CUDA kernel has no backward: off the CPU, with grad enabled and
-    any input requiring grad, ``ops.ssd_scan`` raises before the wrapper's
-    device and shape checks (so ``meta`` tensors show it here) and counts
-    no launch.  Under ``no_grad`` the same call passes the grad check and
-    stops at the device check instead.  On the CPU autograd runs through
-    the plain version and the output keeps its ``grad_fn``."""
+def test_ssd_scan_gradient_reaches_each_input(leaf):
+    """With grad enabled and any input requiring grad, ``ops.ssd_scan``
+    runs ``SSDScanFn``: on the CPU its backward is the plain closed form,
+    and each leaf's gradient equals ``jax.vjp`` of the reference's
+    ``ssd_chunked`` (f32, both outputs' cotangents drawn: 1e-4 of max |jax|,
+    sums in another order).  Off the CPU the same call reaches the CUDA
+    wrapper, never the plain version: ``meta`` tensors stop at its device
+    check, with no launch counted."""
     names = ("x", "dt", "a", "bm", "cm")
-    x, dt, a, bm, cm, Q = _cpu_inputs("wgmma")
-    meta = {n: t.to("meta") for n, t in zip(names, (x, dt, a, bm, cm))}
-    meta[leaf] = meta[leaf].float().requires_grad_()
-    before = (cuda_ssd_scan.launches, dict(cuda_ssd_scan.variant_launches))
-    with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
-        ops.ssd_scan(*(meta[n] for n in names), chunk=Q)
-    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors"):
-        ops.ssd_scan(*(meta[n] for n in names), chunk=Q)
-    assert (cuda_ssd_scan.launches,
-            dict(cuda_ssd_scan.variant_launches)) == before
-    cpu = {n: t.float() for n, t in zip(names, (x, dt, a, bm, cm))}
+    (B, L, H, P, N, Q), kind = SCAN_CASES[3]
+    arrays = _scan_inputs(4, B, L, H, P, N, kind)
+    jin, tin = _pair(arrays, "float32")
+    rng = np.random.default_rng(5)
+    dy = rng.standard_normal((B, L, H, P)).astype(np.float32)
+    dh = rng.standard_normal((B, H, P, N)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jssm.ssd_chunked(*a, Q), *jin)
+    want = vjp((jnp.asarray(dy), jnp.asarray(dh)))[names.index(leaf)]
+    cpu = dict(zip(names, tin))
     cpu[leaf] = cpu[leaf].clone().requires_grad_()
     y, h = ops.ssd_scan(*(cpu[n] for n in names), chunk=Q)
-    assert y.grad_fn is not None
-    # the final state does not depend on C
-    assert (h.grad_fn is None) == (leaf == "cm")
+    assert type(y.grad_fn).__name__ == "SSDScanFnBackward"
+    torch.autograd.backward((y, h), (torch.from_numpy(dy),
+                                     torch.from_numpy(dh)))
+    got = cpu[leaf].grad.numpy()
+    want = np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-4 * float(np.abs(want).max()))
+    meta = {n: t.to("meta") for n, t in zip(names, tin)}
+    meta[leaf] = meta[leaf].requires_grad_()
+    before = (cuda_ssd_scan.launches, dict(cuda_ssd_scan.variant_launches),
+              cuda_ssd_scan_bwd.launches)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.ssd_scan(*(meta[n] for n in names), chunk=Q)
+    assert (cuda_ssd_scan.launches, dict(cuda_ssd_scan.variant_launches),
+            cuda_ssd_scan_bwd.launches) == before
+
+
+# the closed-form backward against the reference's autodiff: f32 outputs
+# to 1e-4 of max |jax| (sums in another order; measured <= 3.3e-5); in bf16
+# dx, dbm and dcm are rounded once from f32 by both (a tie lands one bf16
+# ulp, 2^-8, apart; measured <= 9.3e-4), ddt and da stay f32
+BWD_BAND = {"float32": (1e-4,) * 5,
+            "bfloat16": (1e-2, 1e-4, 1e-4, 1e-2, 1e-2)}
+
+
+def _cotangents(seed, B, L, H, P, N, zero_dh):
+    rng = np.random.default_rng(seed)
+    dy = rng.standard_normal((B, L, H, P)).astype(np.float32)
+    dh = (np.zeros((B, H, P, N), np.float32) if zero_dh
+          else rng.standard_normal((B, H, P, N)).astype(np.float32))
+    return dy, dh
+
+
+@pytest.mark.parametrize("case", SCAN_CASES,
+                         ids=[f"{k}-{'x'.join(map(str, s))}"
+                              for s, k in SCAN_CASES])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dh", ["zero", "drawn"])
+def test_ssd_scan_bwd_ref_matches_jax_vjp(case, dtype, dh):
+    """``ref.ssd_scan_bwd_ref`` (the kernel's equations, written out)
+    against ``jax.vjp`` of the reference's ``ssd_chunked`` on the same
+    inputs and cotangents: dy in x's dtype, dhT f32 (``None`` for the
+    zero one, as training passes it)."""
+    (B, L, H, P, N, Q), kind = case
+    jin, tin = _pair(_scan_inputs(2, B, L, H, P, N, kind), dtype)
+    dy, dhT = _cotangents(3, B, L, H, P, N, dh == "zero")
+    _, vjp = jax.vjp(lambda *a: jssm.ssd_chunked(*a, Q), *jin)
+    want = vjp((jnp.asarray(dy).astype(JAX_DT[dtype]), jnp.asarray(dhT)))
+    got = ref.ssd_scan_bwd_ref(
+        *tin, torch.from_numpy(dy).to(TORCH_DT[dtype]),
+        None if dh == "zero" else torch.from_numpy(dhT), Q)
+    assert [t.dtype for t in got] == [TORCH_DT[dtype], torch.float32,
+                                      torch.float32, TORCH_DT[dtype],
+                                      TORCH_DT[dtype]]
+    for name, g, w, band in zip(("dx", "ddt", "da", "dbm", "dcm"), got,
+                                want, BWD_BAND[dtype]):
+        w = _np(w)
+        np.testing.assert_allclose(_np(g), w, rtol=0,
+                                   atol=band * float(np.abs(w).max()),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("case", SCAN_CASES,
+                         ids=[f"{k}-{'x'.join(map(str, s))}"
+                              for s, k in SCAN_CASES])
+@pytest.mark.parametrize("dh", ["zero", "drawn"])
+def test_ssd_scan_bwd_ref_equals_torch_autograd(case, dh):
+    """The closed form against torch autograd through
+    ``ref.ssd_chunked_ref``, f32: 1e-4 of max |autograd| (one chain of f32
+    sums against another; in f64 the two agree to 1e-14)."""
+    (B, L, H, P, N, Q), kind = case
+    _, tin = _pair(_scan_inputs(6, B, L, H, P, N, kind), "float32")
+    dy, dhT = _cotangents(7, B, L, H, P, N, dh == "zero")
+    leaves = [t.clone().requires_grad_() for t in tin]
+    y, h = ref.ssd_chunked_ref(*leaves, Q)
+    outs, cots = [y], [torch.from_numpy(dy)]
+    if dh == "drawn":
+        outs.append(h)
+        cots.append(torch.from_numpy(dhT))
+    want = torch.autograd.grad(outs, leaves, cots)
+    got = ref.ssd_scan_bwd_ref(*tin, torch.from_numpy(dy),
+                               None if dh == "zero" else
+                               torch.from_numpy(dhT), Q)
+    for name, g, w in zip(("dx", "ddt", "da", "dbm", "dcm"), got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-4 * float(w.abs().max()),
+                                   err_msg=name)
+
+
+def test_ssd_scan_fn_saves_only_the_inputs():
+    """``SSDScanFn`` keeps x, dt, a, bm and cm for its backward (it
+    recomputes the chunk states), and an unused final state costs the
+    backward nothing: autograd hands it ``None``."""
+    (B, L, H, P, N, Q), kind = SCAN_CASES[0]
+    _, tin = _pair(_scan_inputs(8, B, L, H, P, N, kind), "float32")
+    leaves = [t.clone().requires_grad_() for t in tin]
+    y, _ = SSDScanFn.apply(*leaves, Q)
+    assert [t.data_ptr() for t in y.grad_fn.saved_tensors] == [
+        t.data_ptr() for t in leaves]
+    y.sum().backward()
+    want = ref.ssd_scan_bwd_ref(*tin, torch.ones_like(tin[0]), None, Q)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
 
 
 # the bands chip_smoke's phase 10 holds the bf16 kernel to, of max |oracle|

@@ -1,6 +1,8 @@
 """Parity of the port's four other trainers (``mix_grpo``, ``grpo_guard``,
-``nft``, ``awm``) with the JAX package, on the CPU, and the reference's
-trainer × backbone cross-combination on the port.
+``nft``, ``awm``) with the JAX package, on the CPU, the reference's
+trainer × backbone cross-combination on the port, and replayed
+``flow_grpo`` and ``nft`` steps on the reduced ``mamba2-370m`` (the scan's
+closed-form backward against JAX autodiff).
 
 Both packages run on the same numbers: parameters and reward towers are
 made by the JAX package and carried across; the JAX package's random draws
@@ -30,6 +32,8 @@ from repro_torch.config import RewardSpec as TSpec
 from repro_torch.core.rollout import Trajectory as TTrajectory
 from repro_torch.models import params as tparams
 
+from test_torch_ssm import COND_LEN as SSM_COND_LEN
+from test_torch_ssm import _draw_ssm
 from test_torch_training import (REWARDS, _carry_store, _jax_rollout_draws,
                                  _np_tree, _specs)
 from torch_parity import (COND_DIM, COND_LEN, LATENT_DIM, LATENT_TOKENS,
@@ -62,7 +66,8 @@ TINY_OPT = TOptim(lr=3e-4, total_steps=50, warmup_steps=2)
 def test_cross_combination(tname, arch):
     """Any (trainer × backbone family) pair builds and steps from config
     alone (tests/test_trainers.py:27-36), and the step moves the params.
-    Mamba-2 trains here through the differentiable plain scan."""
+    Mamba-2 trains here through ``SSDScanFn``, whose backward on the CPU is
+    the plain closed form ``ref.ssd_scan_bwd_ref``."""
     cfg = tconfigs.get_reduced(arch)
     tr = tregistry.build("trainer", tname, cfg, TINY_FLOW, TINY_OPT,
                          device="cpu")
@@ -94,10 +99,11 @@ def test_sde_modes_and_microbatch_flags_match_the_reference():
 
 
 # ------------------------------------------------------- replayed steps
-def _trainer_pair(name, T=3, G=2, agg="gdpo", seed=0, **flow_kw):
-    """A JAX and a port trainer ``name`` over the reduced flux_dit in f32,
-    on one parameter tree (adaLN modulation drawn) and one set of reward
-    towers."""
+def _trainer_pair(name, T=3, G=2, agg="gdpo", seed=0, arch="flux_dit",
+                  **flow_kw):
+    """A JAX and a port trainer ``name`` over the reduced ``arch`` in f32,
+    on one parameter tree (adaLN modulation drawn for flux_dit, the SSM
+    leaves for mamba2-370m) and one set of reward towers."""
     kw = dict(num_steps=T, group_size=G, clip_range=0.2,
               latent_tokens=LATENT_TOKENS, latent_dim=LATENT_DIM,
               advantage_agg=agg, **flow_kw)
@@ -105,14 +111,16 @@ def _trainer_pair(name, T=3, G=2, agg="gdpo", seed=0, **flow_kw):
     tflow = TFlow(**kw, rewards=_specs(REWARDS, TSpec))
     jopt = JOptim(lr=1e-3, total_steps=10, warmup_steps=2)
     topt = TOptim(lr=1e-3, total_steps=10, warmup_steps=2)
-    jtr = jregistry.build("trainer", name, jconfigs.get_reduced("flux_dit"),
+    jtr = jregistry.build("trainer", name, jconfigs.get_reduced(arch),
                           jflow, jopt, key=jax.random.PRNGKey(seed),
                           cond_dim=COND_DIM, dtype=jnp.float32)
     tree = _randomize_ada(_np_tree(jtr.state.params),
                           np.random.default_rng(seed + 100))
+    if arch == "mamba2-370m":
+        tree = _draw_ssm(tree, np.random.default_rng(seed + 200))
     jp = jax.tree.map(jnp.asarray, tree)
     jtr.state = JRLState(jp, jtr.optimizer.init(jp))
-    ttr = tregistry.build("trainer", name, tconfigs.get_reduced("flux_dit"),
+    ttr = tregistry.build("trainer", name, tconfigs.get_reduced(arch),
                           tflow, topt, device="cpu", cond_dim=COND_DIM,
                           dtype=torch.float32,
                           params=tparams.from_numpy(tree, "cpu"))
@@ -147,23 +155,17 @@ def _step_draws(jtr, key, it, B):
 
 # aux metrics each trainer returns beside loss / grad_norm / lr, and the
 # absolute band each is held to (the GRPO family's clip fraction exactly)
-AUX = {"mix_grpo": {"clip_frac": 0.0, "adv_std": 1e-5},
+AUX = {"flow_grpo": {"clip_frac": 0.0},
+       "mix_grpo": {"clip_frac": 0.0, "adv_std": 1e-5},
        "grpo_guard": {"clip_frac": 0.0, "adv_std": 1e-5},
        "nft": {"r_mean": 1e-5, "vel_err": 1e-5},
        "awm": {"vel_err": 1e-5, "adv_clip_frac": 0.0}}
 
 
-@pytest.mark.parametrize("name", NEW_TRAINERS)
-def test_trainer_step_matches_jax(name):
-    """Two full ``step``s of each new trainer (rollout, three rewards under
-    gdpo, the loss and its gradient, global-norm clip, AdamW) on the
-    reference's draws, as ``test_flow_grpo_step_matches_jax`` holds
-    flow_grpo.  MixGRPO slides its window every step, so the two steps
-    train different timesteps."""
-    kw = {"sde_window": 2, "sde_window_shift_every": 1} \
-        if name == "mix_grpo" else {}
-    jtr, ttr = _trainer_pair(name, **kw)
-    (cond,) = normal(8, (2, COND_LEN, COND_DIM))
+def _replay_two_steps(name, jtr, ttr, cond_len):
+    """Two full ``step``s of a trainer pair on the reference's draws, held
+    step by step and at the end (the params after AdamW)."""
+    (cond,) = normal(8, (2, cond_len, COND_DIM))
     key = jax.random.PRNGKey(4)
     B = 2 * jtr.flow.group_size
     for it in range(2):
@@ -198,6 +200,44 @@ def test_trainer_step_matches_jax(name):
     flat = np.concatenate([d.ravel() for d in diffs])
     assert flat.max() <= 4 * lr
     assert np.mean(flat > lr / 10) < 1e-3
+
+
+@pytest.mark.parametrize("name", NEW_TRAINERS)
+def test_trainer_step_matches_jax(name):
+    """Two full ``step``s of each new trainer (rollout, three rewards under
+    gdpo, the loss and its gradient, global-norm clip, AdamW) on the
+    reference's draws, as ``test_flow_grpo_step_matches_jax`` holds
+    flow_grpo.  MixGRPO slides its window every step, so the two steps
+    train different timesteps."""
+    kw = {"sde_window": 2, "sde_window_shift_every": 1} \
+        if name == "mix_grpo" else {}
+    jtr, ttr = _trainer_pair(name, **kw)
+    _replay_two_steps(name, jtr, ttr, COND_LEN)
+
+
+@pytest.mark.parametrize("name", ["flow_grpo", "nft"])
+def test_mamba2_trainer_step_matches_jax(name):
+    """Two full ``step``s of ``flow_grpo`` (a loss backward per SDE step)
+    and ``nft`` (one over the batch) on the reduced ``mamba2-370m``, SSM
+    leaves drawn, on the reference's draws: the port's scan gradient is the
+    closed-form backward of ``SSDScanFn``, the reference's JAX autodiff of
+    ``ssd_chunked``.  The condition is 31 tokens, so that with the time
+    token and 64 latents the sequence is three chunks of 32."""
+    jtr, ttr = _trainer_pair(name, arch="mamba2-370m")
+    ssm = ttr.state.params["backbone"]["blocks"]["ssm"]
+    before = {k: ssm[k].numpy().copy() for k in ("a_log", "dt_bias")}
+    _replay_two_steps(name, jtr, ttr, SSM_COND_LEN)
+    # a_log reaches the loss only through the scan: its two AdamW moves
+    # (and dt_bias's) agree with the reference's to 1e-2 of the largest
+    # move (measured <= 1.5e-3 of it), which the global checks above, over
+    # 1e5 weights, could not see
+    jssm_leaves = _np_tree(jtr.state.params)["backbone"]["blocks"]["ssm"]
+    for k, b in before.items():
+        want = jssm_leaves[k] - b
+        assert np.abs(want).max() > 0
+        np.testing.assert_allclose(ssm[k].numpy() - b, want, rtol=0,
+                                   atol=1e-2 * np.abs(want).max(),
+                                   err_msg=k)
 
 
 @pytest.mark.parametrize("how", ["uniform", "logit_normal", "discrete"])
