@@ -12,8 +12,9 @@ script exits 2 before printing any result.
    source, all started together) and prints the build seconds, and the
    counts of ``HGMMA``, ``UTMALDG`` and ``HMMA`` in the SASS of each
    library with a bf16 tensor-core kernel (``cuobjdump``): the attention
-   forward and backward and ``ssd_scan`` run on wgmma and TMA, and the
-   phase fails if one of them has no HGMMA or no UTMALDG.
+   forward and backward, ``ssd_scan`` and its tensor-core backward run on
+   wgmma and TMA, and the phase fails if one of them has no HGMMA or no
+   UTMALDG.
 3. Kernels against their plain PyTorch versions on the card, at the shapes
    the serving and training paths give them and at small, odd, causal,
    windowed, GQA and ragged shapes: ``sde_step``, the attention forward
@@ -91,17 +92,21 @@ script exits 2 before printing any result.
    phase prints one velocity's gap between the kernels and the plain
    versions beside the gap between two chunkings of the plain scan, in f32
    and bf16.
-14. The ``ssd_scan`` backward kernel (``ssd_scan_bwd``) against its plain
-   closed form (``ref.ssd_scan_bwd_ref``) and against torch.autograd
-   through the plain chunked forward, on phase 10's cases and the path
-   shape at batch 4 and 1, x, bm and cm as column slices of one buffer (as
-   the model passes them), f32 and bf16, dhT absent and drawn, bitwise on
-   rerun, each gradient within its band of max |plain|; the slow-decay
-   cases must make the gradient carried across chunks most of dx.  Then
-   ``ops.ssd_scan`` with an input requiring grad must run ``SSDScanFn``
-   through the tensor-core forward and the backward kernel, and the
-   backward's, the plain version's and the bound's times at the path
-   shape, at batch 4 and 1.
+14. The ``ssd_scan`` backward (``ssd_scan_bwd``) against its plain closed
+   form (``ref.ssd_scan_bwd_ref``) and against torch.autograd through the
+   plain chunked forward, on phase 10's cases and the path shape at batch
+   4 and 1, x, bm and cm as column slices of one buffer (as the model
+   passes them), f32 and bf16, dhT absent and drawn, bitwise on rerun,
+   each gradient within its band of max |plain|; the slow-decay cases must
+   make the gradient carried across chunks most of dx.  Each case must run
+   the variant its dtype and shape call for: bf16 at head dim 64, state
+   128, chunk 128 (``tensor_core_bwd_route``) the tensor-core backward
+   (held also against its own rounding written out,
+   ``ref.ssd_tensor_core_bwd_ref``, as a diagnostic), the rest the f32 FMA
+   passes.  Then ``ops.ssd_scan`` with an input requiring grad must run
+   ``SSDScanFn`` through both tensor-core kernels, and the tensor-core
+   backward's, the FMA passes', the plain version's and the bound's times
+   at the path shape, at batch 4 and 1.
 15. ``FlowAdapter.velocity`` of ``smollm-360m`` (D 64, 15 query heads over 5
    kv heads) and ``qwen3-32b`` (qk_norm, D 128, 64 over 8) at full width,
    depth 2, over 512 + 1 + 4096 tokens, causal, through the kernels and the
@@ -129,7 +134,8 @@ script exits 2 before printing any result.
    width, depth 2, batch 2, with the SSM leaves drawn, through the kernels
    and through the plain versions on the same injected draws, as phase 9:
    loss, grad norm, the grads of ``in_proj``, ``conv_w``, ``a_log`` and
-   ``dt_bias``, and the params after AdamW at stated bands.
+   ``dt_bias``, and the params after AdamW at stated bands; every scan
+   backward through the kernels runs the tensor-core variant.
 19. The SSM train path: ``repro_torch.launch.train.main`` at
    ``mamba2-370m``'s full width and all 48 layers, bf16, phase 12's
    geometry and phase 8's batch and rewards: ``flow_grpo`` for 2 steps
@@ -137,7 +143,8 @@ script exits 2 before printing any result.
    ``awm`` for 1 step each, with the SSM leaves drawn at train start, each
    with launch counts that match its path (the scan forward 48 x T in the
    rollout and 48 per loss forward, every one on the tensor-core kernel;
-   the backward 48 per loss backward), finite metrics, every layer's
+   the backward 48 per loss backward, every one on the tensor-core
+   backward), finite metrics, every layer's
    ``a_log`` and ``dt_bias`` gradient at the first update finite and
    nonzero, params that move, s per step and peak memory.
 20. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
@@ -313,8 +320,9 @@ COUNTED = (sde_step, flash_attention, flash_attention_bwd, grpo_loss,
 def reset_counts() -> None:
     for fn in COUNTED:
         fn.launches = 0
-    for variant in ssd_scan.variant_launches:
-        ssd_scan.variant_launches[variant] = 0
+    for fn in (ssd_scan, ssd_scan_bwd):
+        for variant in fn.variant_launches:
+            fn.variant_launches[variant] = 0
 
 
 def counts() -> dict:
@@ -887,8 +895,9 @@ def main_path() -> dict:
 
 # ------------------------------------------------------------------ phase 6
 PROFILE_GROUPS = (
-    # every kernel of csrc/ssd_scan_bwd.cu lives in namespace ssd_bwd, the
-    # forward's FMA passes that it reruns too
+    # every kernel of csrc/ssd_scan_bwd.cu and csrc/ssd_scan_bwd_wgmma.cu
+    # lives in namespace ssd_bwd, the forward's FMA passes that the first
+    # reruns too
     ("ssd_scan_bwd kernels", ("ssd_bwd",)),
     ("ssd_scan kernel", ("ssd_chunk_", "ssd_state_pass", "ssd_scan_wgmma")),
     ("flash_attention kernel", ("attn_fwd",)),
@@ -1200,6 +1209,7 @@ def check_update(dev, name: str, arch: str = "flux_dit") -> dict:
             params = _clone(tr.state.params)
             start = _clone(params)
         ctx = plain_dispatch() if route == "plain" else contextlib.nullcontext()
+        reset_counts()
         with ctx:
             traj = tr.sample(tr.state.params, cond, None, x_init=x_init,
                              eps=eps)
@@ -1209,6 +1219,13 @@ def check_update(dev, name: str, arch: str = "flux_dit") -> dict:
             grads = {k: leaves[k].grad.clone() for k in keys}
             gnorm, lr = tr.apply_grads()
         torch.cuda.synchronize()
+        if route == "kernel" and ssm and (
+                ssd_scan_bwd.variant_launches["fma"] != 0
+                or ssd_scan_bwd.variant_launches["wgmma"]
+                != ssd_scan_bwd.launches or ssd_scan_bwd.launches == 0):
+            fail(f"{name}: the {arch} update's scan backward did not run on "
+                 f"the tensor cores: {ssd_scan_bwd.launches} launches, "
+                 f"variants {ssd_scan_bwd.variant_launches}")
         runs[route] = {"loss": float(loss), "grad_norm": float(gnorm),
                        "lr": lr, "grads": grads,
                        "aux": {a: float(v) for a, v in aux.items()},
@@ -1717,11 +1734,12 @@ def _ssd_conv_slices(x, bm, cm):
 
 
 def _ssd_bwd_times(dev, g, B) -> dict:
-    """Device ms of the backward kernel (replayed graphs) and of its plain
-    version, and the bound, at the path shape with batch ``B`` (bf16, dhT
-    absent as in training).  Bound: each input and output once (x, dy, dx,
-    bm, cm, dbm, dcm in bf16; dt, ddt, a, da in f32) over the memory rate,
-    and the products' operations over the bf16 tensor-core rate: per chunk
+    """Device ms of the tensor-core backward and of the FMA passes on the
+    same inputs (replayed graphs), of the plain version, and the bound, at
+    the path shape with batch ``B`` (bf16, dhT absent as in training).
+    Bound: each input and output once (x, dy, dx, bm, cm, dbm, dcm in
+    bf16; dt, ddt, a, da in f32) over the memory rate, and the products'
+    operations over the bf16 tensor-core rate: per chunk
     S = C B^T, dS B and dS^T C (3 Q Q N, shared by the heads); per head
     dy x^T and (S M)^T dy (2 Q Q P) and five Q P N products, h_prev,
     dh_prev, dh B^T, dy h_prev (dC's carried term) and dh^T x (dB's).  The
@@ -1733,6 +1751,9 @@ def _ssd_bwd_times(dev, g, B) -> dict:
                                    torch.bfloat16)
     x, bm, cm = _ssd_conv_slices(x, bm, cm)
     dy = torch.randn(x.shape, generator=g, device=dev).to(x.dtype)
+    with fma_route():
+        fma_ms = graph_ms(lambda: ssd_scan_bwd(x, dt, a, bm, cm, dy, None,
+                                               chunk=Q), 3)
     ms = graph_ms(lambda: ssd_scan_bwd(x, dt, a, bm, cm, dy, None, chunk=Q),
                   3)
     call_ms = cuda_ms(lambda: ssd_scan_bwd(x, dt, a, bm, cm, dy, None,
@@ -1747,13 +1768,14 @@ def _ssd_bwd_times(dev, g, B) -> dict:
     t_ops = flops / BF16_FLOPS * 1e3
     bound = max(t_bytes, t_ops)
     log(f"  ssd_scan_bwd path (B={B}, L={L}, H={H}, P={P}, N={N}, Q={Q}) "
-        f"bf16: kernel {ms:.4f} ms on the device ({call_ms:.4f} ms a call "
-        f"with the host's launch), plain {plain_ms:.4f} ms, bound "
-        f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        f"bf16: tensor-core kernels {ms:.4f} ms on the device ({call_ms:.4f}"
+        f" ms a call with the host's launch), the f32 FMA passes "
+        f"{fma_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
     del x, dt, a, bm, cm, dy
     torch.cuda.empty_cache()
-    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "bound_ms": bound,
+    return {"ms": ms, "call_ms": call_ms, "fma_ms": fma_ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -1765,8 +1787,12 @@ def check_ssd_bwd(dev) -> dict:
     them, f32 and bf16, dhT zero (None) and drawn, bitwise on rerun; the
     slow-decay cases must make the gradient carried across chunks most of
     dx.  Then ``ops.ssd_scan`` with an input requiring grad runs
-    ``SSDScanFn`` (one forward and one backward launch); then times at the
-    path shape."""
+    ``SSDScanFn`` (one forward and one backward launch, both on the tensor
+    cores); then times at the path shape.  Each case must run the variant
+    its dtype and shape call for: bf16 at head dim 64, state 128, chunk 128
+    (``tensor_core_bwd_route``) the tensor-core backward (held also against
+    its own rounding written out, ``ref.ssd_tensor_core_bwd_ref``, as a
+    diagnostic up to L = 1024), the rest the f32 FMA passes."""
     g = torch.Generator(device=dev).manual_seed(13)
     P_, N_, Q_ = SSM_HEAD_DIM, SSM_STATE, SSM_CHUNK
     cases = [  # B, L, H, P, N, chunk, kind
@@ -1780,15 +1806,27 @@ def check_ssd_bwd(dev) -> dict:
         (B_SERVE, SSM_SEQ, SSM_HEADS, P_, N_, Q_, "slow"),
     ]
     path_err = 0.0
-    worst = {}
+    worst, worst_tc = {}, {}
     for (B, L, H, P, N, Q, kind) in cases:
         for dt_ in (torch.float32, torch.bfloat16):
             x, dt, a, bm, cm = _ssd_inputs(g, dev, B, L, H, P, N, kind, dt_)
             x, bm, cm = _ssd_conv_slices(x, bm, cm)
             dy = torch.randn(x.shape, generator=g, device=dev).to(dt_)
+            want_v = ("wgmma" if dt_ == torch.bfloat16
+                      and (P, N, min(Q, L)) == (P_, N_, Q_) else "fma")
+            if ssd_mod.tensor_core_bwd_route(x, bm, cm, dy, Q) != (
+                    want_v == "wgmma"):
+                fail(f"tensor_core_bwd_route disagrees with the shape rule at "
+                     f"{(B, L, H, P, N, Q)} {dt_}")
             for dh in (None, torch.randn((B, H, P, N), generator=g,
                                          device=dev)):
+                before = dict(ssd_scan_bwd.variant_launches)
                 got = ssd_scan_bwd(x, dt, a, bm, cm, dy, dh, chunk=Q)
+                ran = [k for k, n in ssd_scan_bwd.variant_launches.items()
+                       if n != before[k]]
+                if ran != [want_v]:
+                    fail(f"ssd_scan_bwd at {(B, L, H, P, N, Q)} {dt_} ran "
+                         f"{ran}, not {want_v}")
                 again = ssd_scan_bwd(x, dt, a, bm, cm, dy, dh, chunk=Q)
                 if not all(torch.equal(u, v) for u, v in zip(got, again)):
                     fail(f"ssd_scan_bwd not bitwise equal on rerun at "
@@ -1814,17 +1852,26 @@ def check_ssd_bwd(dev) -> dict:
                     *(t.reshape(B * (L // q), q, -1) for t in (bm, cm)),
                     dy.reshape(B * (L // q), q, H, P), None, q)[0]
                 carried = _rel(loc.reshape(x.shape), want[0])
+                # the tensor-core backward against its rounding written out
+                emu = ""
+                if want_v == "wgmma" and L <= 1024:
+                    e = ref.ssd_tensor_core_bwd_ref(x, dt, a, bm, cm, dy, dh,
+                                                    Q)
+                    emu = "; vs its rounding written out " + "/".join(
+                        f"{_rel(u, v):.1e}" for u, v in zip(got, e))
+                    del e
                 torch.cuda.synchronize()
                 f32_out = (False, True, True, False, False)
                 bands = [SSD_BWD_F32_BAND if f else SSD_BWD_BAND[dt_]
                          for f in f32_out]
                 log(f"  ssd_scan_bwd B={B} L={L} H={H} P={P} N={N} Q={q} "
                     f"{kind} {dt_} dhT {'drawn' if dh is not None else 'None'}"
-                    f": vs plain " + "/".join(f"{e:.1e}" for e in errs)
+                    f" [{want_v}]: vs plain "
+                    + "/".join(f"{e:.1e}" for e in errs)
                     + ", vs autograd " + "/".join(f"{e:.1e}" for e in aerrs)
                     + f" ({'/'.join(SSD_GRADS)}; bands "
                     + "/".join(str(b) for b in bands)
-                    + f"); carried {carried:.3f} of max|dx|")
+                    + f"); carried {carried:.3f} of max|dx|{emu}")
                 for n, e, ae, band in zip(SSD_GRADS, errs, aerrs, bands):
                     worst[n] = max(worst.get(n, 0.0), e, ae)
                     if not (e <= band and ae <= band):
@@ -1833,6 +1880,9 @@ def check_ssd_bwd(dev) -> dict:
                 if kind == "slow" and L > Q and carried < 0.5:
                     fail("the slow-decay case does not make the carried "
                          "gradient most of dx")
+                if want_v == "wgmma":
+                    for n, e, ae in zip(SSD_GRADS, errs, aerrs):
+                        worst_tc[n] = max(worst_tc.get(n, 0.0), e, ae)
                 if L == SSM_SEQ and dt_ == torch.bfloat16:
                     path_err = max(path_err, max(
                         float((u.float() - v.float()).abs().max())
@@ -1848,24 +1898,30 @@ def check_ssd_bwd(dev) -> dict:
     reset_counts()
     y, _ = ops.ssd_scan(x, dt, a, bm, cm, chunk=Q_)
     y.float().sum().backward()
-    seen = (counts(), dict(ssd_scan.variant_launches), type(y.grad_fn))
+    seen = (counts(), dict(ssd_scan.variant_launches), type(y.grad_fn),
+            dict(ssd_scan_bwd.variant_launches))
     log(f"  ops.ssd_scan with x requiring grad: {seen[2].__name__}, "
-        f"launches {seen[0]}, forward variants {seen[1]}")
+        f"launches {seen[0]}, forward variants {seen[1]}, backward "
+        f"variants {seen[3]}")
     if seen[0]["ssd_scan"] != 1 or seen[0]["ssd_scan_bwd"] != 1 or \
-            seen[1]["wgmma"] != 1 or "SSDScanFn" not in seen[2].__name__:
+            seen[1]["wgmma"] != 1 or seen[3]["wgmma"] != 1 or \
+            "SSDScanFn" not in seen[2].__name__:
         fail("ops.ssd_scan with an input requiring grad did not run "
              "SSDScanFn through the kernels")
     del x, dt, a, bm, cm, y
     times = {B: _ssd_bwd_times(dev, g, B) for B in (B_SERVE, 1)}
     t4 = times[B_SERVE]
-    return {"name": "ssd_scan_bwd", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+    log(f"  ssd_scan_bwd worst of max|kernel - plain or autograd| / "
+        f"max|plain| over the tensor-core cases: {json.dumps(worst_tc)}")
+    return {"name": "ssd_scan_bwd", "route": "cuda", "variant": "wgmma",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd_wgmma.cu",
             "replaces": "none (JAX autodiff of src/repro/models/ssm.py:84, "
                         "ssd_chunked)",
-            "max_abs_err": path_err, "max_rel_err": worst, "ms": t4["ms"],
-            "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
-            "bound_by": t4["bound_by"], "library_ms": None,
-            "times_by_batch": times}
+            "max_abs_err": path_err, "max_rel_err": worst,
+            "max_rel_err_wgmma": worst_tc, "ms": t4["ms"],
+            "fma_ms": t4["fma_ms"], "plain_ms": t4["plain_ms"],
+            "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"],
+            "library_ms": None, "times_by_batch": times}
 
 
 # ----------------------------------------------------------------- phase 15
@@ -2078,17 +2134,20 @@ def train_trainers(tmp: str, arch: str, layers: int, cond_len: int,
         res = train.main(argv, callbacks=[watch])
         launches = counts()
         variants = dict(ssd_scan.variant_launches)
+        bwd_variants = dict(ssd_scan_bwd.variant_launches)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         hist = res["history"]
         trainer = res["experiment"].build_trainer()
         want = _train_want(name, n, layers, *kernels)
         log(f"  {name}: launches {launches} over {n} train steps (expected "
-            f"{want}); ssd_scan variants {variants}")
+            f"{want}); ssd_scan variants {variants}, ssd_scan_bwd variants "
+            f"{bwd_variants}")
         if trainer.adapter.cfg.n_layers != layers:
             fail(f"{name} trained {trainer.adapter.cfg.n_layers} layers")
-        if launches != want or variants != {"wgmma": want["ssd_scan"],
-                                             "fma": 0}:
+        if launches != want or variants != {
+                "wgmma": want["ssd_scan"], "fma": 0} or bwd_variants != {
+                "wgmma": want["ssd_scan_bwd"], "fma": 0}:
             fail(f"{name}: the {arch} train path's kernel launches do not "
                  "match the path")
         if len(hist) != n:
@@ -2235,7 +2294,8 @@ def main(argv=None) -> int:
         f"wall, one nvcc per source in parallel)")
     for name in _build.sources():
         _build.load(name)
-    for name in ("flash_attention", "flash_attention_bwd", "ssd_scan"):
+    for name in ("flash_attention", "flash_attention_bwd", "ssd_scan",
+                 "ssd_scan_bwd_wgmma"):
         sass = sass_counts(name)
         log(f"    {name} SASS: {json.dumps(sass)}")
         if isinstance(sass, dict) and not (sass["HGMMA"] and sass["UTMALDG"]):
@@ -2351,9 +2411,9 @@ def main(argv=None) -> int:
     ssd_bwd_row["launches_by_path"] = by_path("ssd_scan_bwd")
     rows += [ssd_row, ssd_bwd_row]
     keys = ("name", "route", "variant", "source", "replaces", "launches",
-            "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "launches_by_path", "times_by_batch",
-            "dense_shape")
+            "max_abs_err", "max_rel_err", "max_rel_err_wgmma", "ms", "fma_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_by_path", "times_by_batch", "dense_shape")
     print(json.dumps({"main_path": {k: v for k, v in res.items()
                                     if k != "launches"}}))
     print(json.dumps({"train_path": {k: v for k, v in train_res.items()

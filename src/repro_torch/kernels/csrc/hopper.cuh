@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu) and the bf16 SSD scan
-// (ssd_scan.cu): TMA tile loads completed on
-// mbarriers, warpgroup matrix products (wgmma) with shared-memory operand
-// descriptors, register reallocation between warpgroups, and the host-side
-// encoding of a tensor map over a (B, S, heads, D) bf16 tensor.
+// (flash_attention.cu, flash_attention_bwd.cu) and the bf16 SSD scan and
+// its backward (ssd_scan.cu, ssd_scan_bwd_wgmma.cu): TMA tile loads
+// completed on mbarriers and TMA tile stores, warpgroup matrix products
+// (wgmma) with shared-memory operand descriptors, register reallocation
+// between warpgroups, and the host-side encoding of a tensor map over a
+// (B, S, heads, D) bf16 tensor.
 //
 // Tile layout.  A tile of R rows (sequence positions) by D columns (the
 // head dim) lies in shared memory as D / W column blocks of W = min(D, 64)
@@ -71,6 +72,12 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 
+// Arrives at named barrier `id` without waiting: the producer side of a
+// handoff whose consumer side waits in bar_sync with the same count.
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
 // Orders this thread's ordinary shared-memory stores before later reads by
 // the async proxy (wgmma operands written by threads, not by TMA).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -95,6 +102,36 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2}], [%3];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
          "r"(smem_u32(bar)) : "memory");
+}
+
+// A box from shared memory to global memory through a tensor map (the
+// writing threads fence_proxy_async and sync first); completes as part of
+// the issuing thread's bulk group.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// until at most N of this thread's bulk groups are incomplete (their
+// global writes included)
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // ------------------------------------------------------ tile geometry
@@ -150,6 +187,21 @@ __device__ __forceinline__ void load_tile(unsigned char* tile,
     for (int r = 0; r < R; r += 64)
       tma_load_4d(tile + cb * T::kBlock + r * T::RB, map, bar, cb * T::W,
                   head, s0 + r, b);
+}
+
+// load_tile's inverse: the tile to rows [s0, s0 + R) of head `head`,
+// batch b, in the caller's bulk group
+template <int D, int R>
+__device__ __forceinline__ void store_tile(const CUtensorMap* map,
+                                           const unsigned char* tile,
+                                           int head, int s0, int b) {
+  using T = Tile<D, R>;
+#pragma unroll
+  for (int cb = 0; cb < D / T::W; ++cb)
+#pragma unroll
+    for (int r = 0; r < R; r += 64)
+      tma_store_4d(map, tile + cb * T::kBlock + r * T::RB, cb * T::W, head,
+                   s0 + r, b);
 }
 
 // ------------------------------------------------------------- wgmma
@@ -248,6 +300,17 @@ __device__ __forceinline__ void wgmma_ss_tt(float (&d)[32], uint64_t da,
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// wgmma_ss_tt with N = 128 (m64n128, both operands MN-major).
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

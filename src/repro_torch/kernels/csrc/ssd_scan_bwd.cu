@@ -31,7 +31,9 @@
 // O(Q N) more, and is not counted.
 //
 // Design: the f32 FMA passes of the forward, simple and exact to f32
-// rounding, in eight launches:
+// rounding, in eight launches.  They serve f32 and every shape but
+// Mamba-2's bf16 one, which csrc/ssd_scan_bwd_wgmma.cu takes
+// (kernels/ssd_scan.py: tensor_core_bwd_route):
 //   1-3. the forward's passes 1-3 (ssd_fma.cuh) recompute S and each
 //      chunk's entering state h_prev into scratch, so the autograd Function
 //      saves only the inputs (h_prev of one call is 151 MB at the path

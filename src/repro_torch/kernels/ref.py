@@ -379,3 +379,124 @@ def ssd_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return (dx.transpose(2, 3).reshape(B, L, H, Pd).to(x.dtype),
             ddt.transpose(2, 3).reshape(B, L, H), da,
             db.reshape(B, L, N).to(bm.dtype), dc.reshape(B, L, N).to(cm.dtype))
+
+
+# the operands the tensor-core backward splits into bf16 hi + lo (all of
+# them by default; ``ssd_tensor_core_bwd_ref`` takes a subset to show what
+# each split buys)
+TC_BWD_SPLITS = ("h_prev", "dh", "ed")
+
+
+def ssd_tensor_core_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
+                            a: torch.Tensor, bm: torch.Tensor,
+                            cm: torch.Tensor, dy: torch.Tensor,
+                            dhT: Optional[torch.Tensor], chunk: int, *,
+                            splits=TC_BWD_SPLITS
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """(dx, ddt, da, dbm, dcm) as the bf16 tensor-core backward rounds
+    them (``csrc/ssd_scan_bwd_wgmma.cu``), in the equations of
+    ``ssd_scan_bwd_ref``.  x, B, C and dy are bf16 and enter every product
+    exactly; every sum is f32.  The f32 factors that become product
+    operands are rounded where they do:
+
+    * the states entering the chunks come from the tensor-core forward's
+      update (``ssd_tensor_core_ref``) and are stored as bf16 hi + lo
+      (``h_prev``): both parts feed dy.(h_prev C) and <dh, h_prev>, which
+      reach ddt and da; the hi part alone feeds dC's carried term;
+    * dh, the gradient of the state leaving a chunk, is split as it feeds
+      x.(dh B) and dx's carried term (``dh``); its hi part alone feeds dB's
+      carried term;
+    * exp(cum) dy, the operand of dh's update, is split (``ed``);
+    * S M (dx's product) and each head's dS = M (dy x^T) are rounded once
+      to bf16; dS summed over the heads in f32 is split again for dS B and
+      dS^T C; exp(cum) dy and w x for the carried terms of dC and dB are
+      rounded once.
+
+    ``splits`` names the hi + lo splits kept (the others keep the hi part
+    alone).  The kernel's own arithmetic, for rehearsing its precision; not
+    a reference of the function."""
+    B, L, H, Pd = x.shape
+    N = bm.shape[-1]
+    Q = min(chunk, L)
+    if L % Q:
+        raise ValueError(f"ssd scan: sequence length {L} is no multiple of "
+                         f"the chunk {Q}")
+    nc = L // Q
+    bf16 = torch.bfloat16
+
+    def rnd(t):
+        return t.to(bf16).to(F32)
+
+    def split(t, name):
+        hi = rnd(t)
+        return hi + rnd(t - hi) if name in splits else hi
+
+    af = a.to(F32)
+    xf = x.to(F32).reshape(B, nc, Q, H, Pd).transpose(2, 3)   # (B,nc,H,Q,P)
+    dyf = dy.to(F32).reshape(B, nc, Q, H, Pd).transpose(2, 3)
+    dtf = dt.to(F32).reshape(B, nc, Q, H).transpose(2, 3)     # (B,nc,H,Q)
+    bf = bm.to(F32).reshape(B, nc, 1, Q, N)
+    cf = cm.to(F32).reshape(B, nc, 1, Q, N)
+    cum = torch.cumsum(dtf * af[:, None], dim=-1)
+    lower = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+
+    # the states entering each chunk, as the forward's update forms them
+    h = torch.zeros((B, H, Pd, N), dtype=F32, device=x.device)
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        cu, d = cum[:, c], dtf[:, c]
+        total = cu[..., -1:]
+        xw = (torch.exp(total - cu) * d)[..., None] * xf[:, c]
+        hi = rnd(xw)
+        h = (torch.exp(total)[..., None] * h + hi.transpose(-1, -2) @ bf[:, c]
+             + rnd(xw - hi).transpose(-1, -2) @ bf[:, c])
+
+    dh = (torch.zeros((B, H, Pd, N), dtype=F32, device=x.device)
+          if dhT is None else dhT.to(F32))
+    dx, ddt, db, dc = [None] * nc, [None] * nc, [None] * nc, [None] * nc
+    da = torch.zeros(H, dtype=F32, device=x.device)
+    for c in reversed(range(nc)):
+        cu, d = cum[:, c], dtf[:, c]                          # (B,H,Q)
+        total = cu[..., -1:]
+        xc, dyc, bc, cc = xf[:, c], dyf[:, c], bf[:, c], cf[:, c]
+        seg = torch.where(lower, cu[..., :, None] - cu[..., None, :], 0.0)
+        E = torch.where(lower, torch.exp(seg), 0.0)           # [q, k]
+        S = cc @ bc.transpose(-1, -2)                         # (B,1,Q,Q)
+        G = dyc @ xc.transpose(-1, -2)                        # (B,H,Q,Q)
+        M = E * d[..., None, :]
+        sd = S * E * G
+        col_sd = sd.sum(-2)                                   # over q
+        row_t = (sd * d[..., None, :]).sum(-1)                # over k
+        w = torch.exp(total - cu) * d
+        e2 = torch.exp(total - cu)
+        ecum = torch.exp(cu)
+        hp = split(h_prev[c], "h_prev")
+        V = bc @ split(dh, "dh").transpose(-1, -2)            # dh B[k]
+        dx[c] = (rnd(S * M).transpose(-1, -2) @ dyc + w[..., None] * V)
+        xv = (xc * V).sum(-1)
+        dyz = (dyc * (cc @ hp.transpose(-1, -2))).sum(-1)     # dy.h_prev C
+        U = w * xv
+        dcum = row_t - d * col_sd + ecum * dyz - U
+        dcum[..., -1] += (torch.exp(total[..., 0])
+                          * (dh * hp).sum((-1, -2)) + U.sum(-1))
+        dA = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+        ddt[c] = col_sd + e2 * xv + af[:, None] * dA
+        da += (d * dA).sum((0, 2))
+        dS = rnd(M * G).sum(1, keepdim=True)                  # (B,1,Q,Q)
+        dsp = rnd(dS) + rnd(dS - rnd(dS))
+        db[c] = (dsp.transpose(-1, -2) @ cc)[:, 0] + (
+            rnd(w[..., None] * xc) @ rnd(dh)).sum(1)
+        dc[c] = (dsp @ bc)[:, 0] + (
+            rnd(ecum[..., None] * dyc) @ rnd(h_prev[c])).sum(1)
+        if c > 0:
+            ed = split(ecum[..., None] * dyc, "ed")
+            dh = (torch.exp(total)[..., None] * dh
+                  + ed.transpose(-1, -2) @ cc)
+    dx = torch.stack(dx, 1).transpose(2, 3).reshape(B, L, H, Pd)
+    ddt = torch.stack(ddt, 1).transpose(2, 3).reshape(B, L, H)
+    return (dx.to(x.dtype), ddt, da,
+            torch.stack(db, 1).reshape(B, L, N).to(bm.dtype),
+            torch.stack(dc, 1).reshape(B, L, N).to(cm.dtype))

@@ -10,11 +10,16 @@ sends CPU tensors to the plain chunked version ``ref.ssd_chunked_ref``, and
 shape (head dim 64, state 128, chunk 128, TMA-aligned) runs
 ``ssd_scan_wgmma`` (one block per (batch, head) walking its chunks, state
 on chip, products on the tensor cores); f32 and every other shape run the
-four f32 FMA passes.  The backward is f32 FMA passes for every dtype and
-shape: it recomputes the chunk states from the inputs, so ``SSDScanFn``
-saves only x, dt, a, bm and cm.  ``ssd_scan.launches`` counts the calls
-that launched a forward kernel, ``ssd_scan.variant_launches`` the same
-calls by variant, ``ssd_scan_bwd.launches`` the backward's calls.
+four f32 FMA passes.  The backward has two as well, chosen by
+``tensor_core_bwd_route`` (the forward's route and a contiguous dy): the
+bf16 shape runs ``csrc/ssd_scan_bwd_wgmma.cu`` (a forward walk storing the
+chunk states, a reverse walk per (batch, head) with dh on chip, a kernel
+summing dB and dC over the heads, all on the tensor cores), f32 and every
+other shape the f32 FMA passes of ``csrc/ssd_scan_bwd.cu``.  Both
+recompute the chunk states from the inputs, so ``SSDScanFn`` saves only x,
+dt, a, bm and cm.  ``ssd_scan.launches`` counts the calls that launched a
+forward kernel, ``ssd_scan.variant_launches`` the same calls by variant,
+and ``ssd_scan_bwd.launches`` / ``.variant_launches`` the backward's.
 """
 from __future__ import annotations
 
@@ -63,6 +68,15 @@ def _bwd_lib():
     return fn
 
 
+def _bwd_tc_lib():
+    fn = _build.load("ssd_scan_bwd_wgmma").ssd_scan_bwd_wgmma
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 3 + [
+            ctypes.c_longlong] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def tensor_core_route(x: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
                       chunk: int) -> bool:
     """Whether ``ssd_scan`` runs the tensor-core kernel on these inputs:
@@ -80,6 +94,19 @@ def tensor_core_route(x: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
         return False
     return all((B == 1 or t.stride(0) % 8 == 0)
                and (L == 1 or t.stride(1) % 8 == 0) for t in (x, bm, cm))
+
+
+def tensor_core_bwd_route(x: torch.Tensor, bm: torch.Tensor,
+                          cm: torch.Tensor, dy: torch.Tensor,
+                          chunk: int) -> bool:
+    """Whether ``ssd_scan_bwd`` runs the tensor-core backward
+    (``csrc/ssd_scan_bwd_wgmma.cu``) on these inputs: the forward's
+    ``tensor_core_route`` and a contiguous dy of x's shape and dtype that
+    starts on 16 bytes (TMA reads it too).  Depends on nothing but dtype,
+    shape, strides and addresses."""
+    return (tensor_core_route(x, bm, cm, chunk) and dy.dtype == x.dtype
+            and dy.shape == x.shape and dy.is_contiguous()
+            and dy.data_ptr() % 16 == 0)
 
 
 def _check(x, dt, a, bm, cm, chunk: int) -> int:
@@ -167,9 +194,12 @@ ssd_scan.launches = 0
 ssd_scan.variant_launches = {"wgmma": 0, "fma": 0}
 
 
-# heads per block of the backward's chunk kernel: the kernel's grid and the
-# number of dS partials both follow from it (passed as ``hpb``)
+# heads per block of the backward's FMA chunk kernel: the kernel's grid and
+# the number of dS partials both follow from it (passed as ``hpb``)
 BWD_HEADS_PER_BLOCK = 8
+# 32-bit words of one (batch, chunk, head)'s dS^T that the tensor-core
+# backward keeps between its kernels (csrc/ssd_scan_bwd_wgmma.cu: kDsWords)
+TC_BWD_DS_WORDS = 3 * 2048
 
 
 def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -181,7 +211,9 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     upstream gradients dy (B,L,H,P) in x's dtype, contiguous, and dhT
     (B,H,P,N) f32 contiguous or ``None`` (zero): dx in x's dtype, ddt and
     da f32, dbm and dcm in bm's dtype, all contiguous.  Inputs as
-    ``ssd_scan``, on one CUDA device."""
+    ``ssd_scan``, on one CUDA device.  ``tensor_core_bwd_route`` picks the
+    kernels: the tensor-core ones for Mamba-2's bf16 shape, the f32 FMA
+    passes for the rest."""
     Q = _check(x, dt, a, bm, cm, chunk)
     B, L, H, P = x.shape
     N = bm.shape[-1]
@@ -198,36 +230,59 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                          f"got {tuple(dhT.shape)} {dhT.dtype}")
     dev = x.device
     nc = L // Q
-    G = -(-H // BWD_HEADS_PER_BLOCK)
     dx = torch.empty((B, L, H, P), dtype=x.dtype, device=dev)
     ddt = torch.empty((B, L, H), dtype=F32, device=dev)
     da = torch.empty((H,), dtype=F32, device=dev)
     dbm = torch.empty((B, L, N), dtype=bm.dtype, device=dev)
     dcm = torch.empty((B, L, N), dtype=bm.dtype, device=dev)
-    scores = torch.empty((B, nc, Q, Q), dtype=F32, device=dev)
-    states = torch.empty((B, nc, H, P, N), dtype=F32, device=dev)
-    dh = torch.empty((B, nc, H, P, N), dtype=F32, device=dev)
-    decay = torch.empty((B, nc, H), dtype=F32, device=dev)
     dapart = torch.empty((B, nc, H), dtype=F32, device=dev)
-    dspart = torch.empty((B, nc, G, Q, Q), dtype=F32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _bwd_lib()(
-        x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
-        cm.data_ptr(), dy.data_ptr(), None if dhT is None else dhT.data_ptr(),
-        dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), dbm.data_ptr(),
-        dcm.data_ptr(), scores.data_ptr(), states.data_ptr(),
-        decay.data_ptr(), dh.data_ptr(), dapart.data_ptr(), dspart.data_ptr(),
-        DTYPES[x.dtype], B, L, H, P, N, Q, BWD_HEADS_PER_BLOCK,
-        x.stride(0), x.stride(1),
-        bm.stride(0), bm.stride(1), cm.stride(0), cm.stride(1), stream)
+    strides = (x.stride(0), x.stride(1), bm.stride(0), bm.stride(1),
+               cm.stride(0), cm.stride(1))
+    dh_ptr = None if dhT is None else dhT.data_ptr()
+    if tensor_core_bwd_route(x, bm, cm, dy, chunk):
+        variant = "wgmma"
+        # the chunk states (hi + lo), dh's hi part, each head's dS^T, w and
+        # exp(cum), kept between the kernels
+        hp_hi, hp_lo, dh_hi = (torch.empty((B, nc, H, P, N), dtype=x.dtype,
+                                           device=dev) for _ in range(3))
+        ds = torch.empty((B, nc, H, TC_BWD_DS_WORDS), dtype=torch.int32,
+                         device=dev)
+        wk, ecq = (torch.empty((B, nc, H, Q), dtype=F32, device=dev)
+                   for _ in range(2))
+        rc = _bwd_tc_lib()(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
+            cm.data_ptr(), dy.data_ptr(), dh_ptr, dx.data_ptr(),
+            ddt.data_ptr(), da.data_ptr(), dbm.data_ptr(), dcm.data_ptr(),
+            hp_hi.data_ptr(), hp_lo.data_ptr(), dh_hi.data_ptr(),
+            ds.data_ptr(), wk.data_ptr(), ecq.data_ptr(), dapart.data_ptr(),
+            B, L, H, *strides, stream)
+    else:
+        variant = "fma"
+        G = -(-H // BWD_HEADS_PER_BLOCK)
+        scores = torch.empty((B, nc, Q, Q), dtype=F32, device=dev)
+        states = torch.empty((B, nc, H, P, N), dtype=F32, device=dev)
+        dh = torch.empty((B, nc, H, P, N), dtype=F32, device=dev)
+        decay = torch.empty((B, nc, H), dtype=F32, device=dev)
+        dspart = torch.empty((B, nc, G, Q, Q), dtype=F32, device=dev)
+        rc = _bwd_lib()(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
+            cm.data_ptr(), dy.data_ptr(), dh_ptr, dx.data_ptr(),
+            ddt.data_ptr(), da.data_ptr(), dbm.data_ptr(), dcm.data_ptr(),
+            scores.data_ptr(), states.data_ptr(), decay.data_ptr(),
+            dh.data_ptr(), dapart.data_ptr(), dspart.data_ptr(),
+            DTYPES[x.dtype], B, L, H, P, N, Q, BWD_HEADS_PER_BLOCK,
+            *strides, stream)
     if rc != 0:
-        raise RuntimeError(f"ssd_scan_bwd kernel launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"ssd_scan_bwd kernel launch failed ({variant}): "
+                           f"CUDA error {rc}")
     ssd_scan_bwd.launches += 1
+    ssd_scan_bwd.variant_launches[variant] += 1
     return dx, ddt, da, dbm, dcm
 
 
 ssd_scan_bwd.launches = 0
+ssd_scan_bwd.variant_launches = {"wgmma": 0, "fma": 0}
 
 
 class SSDScanFn(torch.autograd.Function):

@@ -43,7 +43,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ssd_scan import SSDScanFn
 from repro_torch.kernels.ssd_scan import ssd_scan as cuda_ssd_scan
 from repro_torch.kernels.ssd_scan import ssd_scan_bwd as cuda_ssd_scan_bwd
-from repro_torch.kernels.ssd_scan import tensor_core_route
+from repro_torch.kernels.ssd_scan import (tensor_core_bwd_route,
+                                          tensor_core_route)
 from repro_torch.launch import serve as tserve
 from repro_torch.models import params as tparams
 from repro_torch.models import ssm as tssm
@@ -261,18 +262,26 @@ def _cpu_inputs(route):
 
 @pytest.mark.parametrize("route", ["fma", "wgmma"])
 def test_cuda_wrapper_refuses_cpu_tensors(route):
-    """A CPU tensor never reaches the CUDA wrapper's kernel, whichever
-    kernel its dtype and shape would pick: it raises (``ops`` routes CPU
-    tensors to the plain version before it, and no launch is counted)."""
+    """A CPU tensor never reaches the CUDA wrappers' kernels, forward or
+    backward, whichever kernel its dtype and shape would pick: each raises
+    (``ops`` and ``SSDScanFn`` route CPU tensors to the plain versions
+    before them, and no launch is counted)."""
     x, dt, a, bm, cm, Q = _cpu_inputs(route)
+    dy = torch.zeros(x.shape, dtype=x.dtype)
     assert tensor_core_route(x, bm, cm, Q) == (route == "wgmma")
-    before = (cuda_ssd_scan.launches, dict(cuda_ssd_scan.variant_launches))
+    assert tensor_core_bwd_route(x, bm, cm, dy, Q) == (route == "wgmma")
+    before = (cuda_ssd_scan.launches, dict(cuda_ssd_scan.variant_launches),
+              cuda_ssd_scan_bwd.launches,
+              dict(cuda_ssd_scan_bwd.variant_launches))
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_ssd_scan(x, dt, a, bm, cm, chunk=Q)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_ssd_scan_bwd(x, dt, a, bm, cm, dy, None, chunk=Q)
     y, h = ops.ssd_scan(x, dt, a, bm, cm, chunk=Q)
     assert y.dtype == x.dtype and h.dtype == torch.float32
-    assert (cuda_ssd_scan.launches,
-            dict(cuda_ssd_scan.variant_launches)) == before
+    assert (cuda_ssd_scan.launches, dict(cuda_ssd_scan.variant_launches),
+            cuda_ssd_scan_bwd.launches,
+            dict(cuda_ssd_scan_bwd.variant_launches)) == before
 
 
 @pytest.mark.parametrize("leaf", ["x", "dt", "a", "bm", "cm"])
@@ -450,6 +459,96 @@ def test_tensor_core_rounding_needs_the_state_split():
     assert _rel(h.numpy(), _np(h_o)) > 5 * TC_H_BAND
     _, h_e = ref.ssd_tensor_core_ref(*tin, Q)
     assert _rel(_np(h_e), _np(h_o)) <= TC_H_BAND
+
+
+# the tensor-core backward's rounding at the kernel's shape over four chunks
+TC_BWD_SHAPE = (1, 512, 2, 64, 128, 128)
+
+
+def _tc_bwd_case(kind, dh):
+    """bf16 inputs and cotangents for both packages, and ``jax.vjp`` of the
+    reference's ``ssd_chunked`` at them."""
+    B, L, H, P, N, Q = TC_BWD_SHAPE
+    jin, tin = _pair(_scan_inputs(7, B, L, H, P, N, kind), "bfloat16")
+    dy, dhT = _cotangents(3, B, L, H, P, N, dh == "zero")
+    _, vjp = jax.vjp(lambda *a: jssm.ssd_chunked(*a, Q), *jin)
+    want = vjp((jnp.asarray(dy).astype(jnp.bfloat16), jnp.asarray(dhT)))
+    tcot = (torch.from_numpy(dy).to(torch.bfloat16),
+            None if dh == "zero" else torch.from_numpy(dhT))
+    return tin, tcot, [_np(w) for w in want]
+
+
+@pytest.mark.parametrize("kind", ["sweep", "mamba2", "slow"])
+@pytest.mark.parametrize("dh", ["zero", "drawn"])
+def test_tensor_core_bwd_rounding_holds_the_card_bands(kind, dh):
+    """The tensor-core backward's rounding, written out in plain PyTorch
+    (``ref.ssd_tensor_core_bwd_ref``: h_prev, dh and exp(cum) dy split into
+    bf16 hi + lo where they reach ddt or da, S M, dS and the carried
+    operands rounded once), against ``jax.vjp`` of the reference at the
+    kernel's shape (head dim 64, state 128, chunk 128) over four chunks:
+    every gradient within the band phase 14 holds the card's kernel to, dx,
+    dbm, dcm 1e-2 and ddt, da 1e-4 of max |jax| (rehearsed: at most 6.0e-3
+    and 2.7e-5)."""
+    tin, tcot, want = _tc_bwd_case(kind, dh)
+    got = ref.ssd_tensor_core_bwd_ref(*tin, *tcot, TC_BWD_SHAPE[-1])
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.float32,
+                                      torch.float32, torch.bfloat16,
+                                      torch.bfloat16]
+    for name, g, w, band in zip(("dx", "ddt", "da", "dbm", "dcm"), got,
+                                want, BWD_BAND["bfloat16"]):
+        assert _rel(_np(g), w) <= band, name
+
+
+@pytest.mark.parametrize("dropped", list(ref.TC_BWD_SPLITS))
+def test_tensor_core_bwd_rounding_needs_each_split(dropped):
+    """Why the backward splits h_prev, dh and exp(cum) dy into bf16 hi + lo:
+    with any one of them rounded once (the hi part alone), ddt or da leaves
+    its 1e-4 band on the slow-decay draw, where the carried state and its
+    gradient make most of both; with all three split both hold it."""
+    tin, tcot, want = _tc_bwd_case("slow", "zero")
+    Q = TC_BWD_SHAPE[-1]
+    kept = tuple(s for s in ref.TC_BWD_SPLITS if s != dropped)
+    got = ref.ssd_tensor_core_bwd_ref(*tin, *tcot, Q, splits=kept)
+    assert max(_rel(_np(got[1]), want[1]), _rel(_np(got[2]), want[2])) > (
+        5 * BWD_BAND["bfloat16"][1])
+    got = ref.ssd_tensor_core_bwd_ref(*tin, *tcot, Q)
+    assert max(_rel(_np(got[1]), want[1]), _rel(_np(got[2]), want[2])) <= (
+        BWD_BAND["bfloat16"][1])
+
+
+def test_tensor_core_bwd_route_takes_the_training_path_and_nothing_else():
+    """The rule that picks the tensor-core backward: the forward's route
+    (the training path's strided bf16 slices at Mamba-2's shape, batch 4
+    or 1) with a contiguous bf16 dy that starts on 16 bytes, as
+    ``SSDScanFn`` hands it.  f32, another chunk, the odd shapes, a strided,
+    misaligned or f32 dy go to the FMA passes."""
+    xh, bm, cm, Q = _conv_slices(2, 256, torch.bfloat16)
+    dy = torch.zeros(xh.shape, dtype=torch.bfloat16)
+    assert tensor_core_bwd_route(xh, bm, cm, dy, Q)
+    assert tensor_core_bwd_route(xh[:1], bm[:1], cm[:1], dy[:1], Q)
+    xf, bf, cf, _ = _conv_slices(2, 256, torch.float32)
+    assert not tensor_core_bwd_route(xf, bf, cf, dy.float(), Q)
+    assert not tensor_core_bwd_route(xh, bm, cm, dy, 64)
+    for (B, L, H, P, N, chunk) in [(2, 128, 2, 32, 64, 32),
+                                   (3, 64, 1, 16, 32, 64),
+                                   (1, 21, 3, 8, 16, 32),
+                                   (2, 96, 16, 32, 32, 32)]:
+        x = torch.zeros(B, L, H, P, dtype=torch.bfloat16)
+        b = torch.zeros(B, L, N, dtype=torch.bfloat16)
+        assert not tensor_core_bwd_route(x, b, b, torch.zeros_like(x),
+                                         chunk), (B, L, H, P, N)
+    # dy: strided (heads swapped), one element off 16 bytes, f32
+    assert not tensor_core_bwd_route(
+        xh, bm, cm, dy.transpose(1, 2).contiguous().transpose(1, 2), Q)
+    flat = torch.zeros(dy.numel() + 1, dtype=torch.bfloat16)
+    assert not tensor_core_bwd_route(xh, bm, cm,
+                                     flat[1:].view(dy.shape), Q)
+    assert not tensor_core_bwd_route(xh, bm, cm, dy.float(), Q)
+    # the forward's route decides the rest: an unaligned x refuses both
+    conv = torch.zeros(2, 256, 2048 + 2 * 128 + 8, dtype=torch.bfloat16)
+    x1 = conv[..., 1:2049].reshape(2, 256, 32, 64)
+    b1 = conv[..., 2049:2177]
+    assert not tensor_core_bwd_route(x1, b1, b1, dy, 128)
 
 
 # ------------------------------------------------------------- the model
