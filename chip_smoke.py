@@ -147,12 +147,41 @@ script exits 2 before printing any result.
    backward), finite metrics, every layer's
    ``a_log`` and ``dt_bias`` gradient at the first update finite and
    nonzero, params that move, s per step and peak memory.
-20. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
-   ``ssm_train_path`` and ``kernels`` JSON lines, the card's name and
-   power limit, and the last line ``{"ok": true, "device": {...}}``.
+20. ``mamba2-370m`` at all 48 layers through ``launch.train`` under
+   ``--set perf.remat=block --set perf.log_memory=true``, phase 19's
+   geometry, batch, T and rewards: ``flow_grpo`` for 2 steps and a traced
+   third, with launch counts (every scan forward twice per layer and SDE
+   step of the loss: once in the forward, once recomputed in the
+   backward), s per step, peak memory and ``memory_stats``; then 1 step
+   each under ``none``, ``scan`` and ``scan`` + ``remat_offload``, whose
+   loss, grad norm and reward must be bitwise equal; then one update at
+   depth 2 under ``block`` against ``none`` on one set of injected draws,
+   to the reference's band.
+21. The fused, pipelined step on the same model at 48 layers:
+   ``--set perf.fuse_step=true --set perf.remat=block --set
+   perf.offload_rewards=true --set perf.policy_dtype=bfloat16 --set
+   loop.pipeline=2``, 4 steps: one capture and three CUDA-graph replays,
+   launch counts (each kernel counted for the eager step and the capture),
+   s per step, peak memory, the reward towers' bytes freed, and a profile
+   of one more replay.  At depth 2 from one state and one set of injected
+   draws: a replayed fused step against the eager step, to the reference's
+   fuse_step band (and whether bitwise); an eager step under
+   ``torch.cuda.set_sync_debug_mode("error")``; the ``policy_dtype=
+   "float32"`` velocity on bf16 parameters through the kernels' f32
+   variants against the plain versions (``mamba2-370m`` and
+   ``flux_dit``).
+22. ``flux_dit`` at full width and 16 of its 38 blocks under
+   ``perf.remat=block`` through ``launch.train``, ``flow_grpo`` for 2
+   steps at phase 8's geometry, batch and rewards; then ``smollm-360m`` at
+   all 32 layers under ``block`` for 1 step; launch counts, s per step and
+   peak memory.
+23. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
+   ``ssm_train_path``, ``perf_path`` and ``kernels`` JSON lines, the card's
+   name and power limit, and the last line ``{"ok": true, "device":
+   {...}}``.
 
 ``--only N,...`` runs just the device and build phases and phases N (3 and
-8-19) and prints no result lines: a development aid.
+8-22) and prints no result lines: a development aid.
 """
 from __future__ import annotations
 
@@ -177,11 +206,12 @@ import torch  # noqa: E402
 from repro_torch import configs, registry  # noqa: E402
 from repro_torch.api import loop as loop_lib  # noqa: E402
 from repro_torch.config import (FlowRLConfig, OptimConfig,  # noqa: E402
-                                RewardSpec, replace)
+                                PerfConfig, RewardSpec, replace)
 from repro_torch.core.rollout import (  # noqa: E402
     request_draws, request_seeds, rollout_keyed)
 from repro_torch.data import synthetic_prompts  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import counts as counts_lib  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import grpo_loss as grpo_mod  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
@@ -313,8 +343,7 @@ def plain_dispatch():
          ssd_mod.ssd_scan_bwd) = saved
 
 
-COUNTED = (sde_step, flash_attention, flash_attention_bwd, grpo_loss,
-           grpo_loss_bwd, ssd_scan, ssd_scan_bwd)
+COUNTED = counts_lib.COUNTED
 
 
 def reset_counts() -> None:
@@ -1014,7 +1043,8 @@ TRAIN_REWARDS = [{"reward_type": "text_render", "weight": 1.0},
 
 
 class _TrainWatch(loop_lib.Callback):
-    """At train start: redraws leaves with ``draw(params, cfg)`` if given,
+    """At train start: sets the launch counts to 0, redraws leaves with
+    ``draw(params, cfg)`` if given,
     keeps a copy of the leaves ``keys`` of the blocks' ``block`` (so the run
     can show that the params moved), and wraps the trainer's
     ``apply_grads``, which clears the gradients, to keep those of
@@ -1026,6 +1056,9 @@ class _TrainWatch(loop_lib.Callback):
         self.draw = draw
 
     def on_train_start(self, loop):
+        # the counts cover the train loop, not ``perf.log_memory``'s
+        # ``memory_stats`` run before it
+        reset_counts()
         tr = loop.trainer
         if self.draw is not None:
             self.draw(tr.state.params, tr.adapter.cfg)
@@ -1166,6 +1199,36 @@ def _loss_band(name: str, k: dict, p: dict) -> float:
     return GRAD_BAND * abs(p["loss"])
 
 
+def _param_gap(got, want, start, lr: float) -> dict:
+    """The params after one AdamW step of two routes from ``start``.
+    AdamW's first step moves each weight by lr * g / (|g| + eps), ~lr
+    times the gradient's sign: where the two routes' gradients share it
+    the weights agree to their rounding; elsewhere they differ by 2 lr.
+    So each leaf is held to 2 lr plus one bf16 ulp of its own max |p|
+    (``param_band_share`` <= 1), and the share of the weights the step
+    moved that differ is counted."""
+    p_err, p_ratio, p_band, p_leaf = 0.0, 0.0, 0.0, ""
+    n_diff, n_moved, n_all = 0, 0, 0
+    for (path, a), (_, b), (_, b0) in zip(params_lib.leaves(got),
+                                          params_lib.leaves(want),
+                                          params_lib.leaves(start)):
+        d = (a.float() - b.float()).abs()
+        b_max = float(b.float().abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(b_max)) - 7) if b_max > 0 else 0.0
+        band = 2 * lr + ulp
+        d_max = float(d.max())
+        p_err = max(p_err, d_max)
+        if d_max / band >= p_ratio:
+            p_ratio, p_band, p_leaf = d_max / band, band, "/".join(path)
+        n_diff += int((d > 0).sum())
+        n_moved += int((b != b0).sum())
+        n_all += d.numel()
+    return {"param_max_diff": p_err, "param_leaf": p_leaf,
+            "param_band": p_band, "param_band_share": p_ratio,
+            "params_differing": n_diff, "params_moved": n_moved,
+            "params_total": n_all}
+
+
 def check_update(dev, name: str, arch: str = "flux_dit") -> dict:
     """One update of trainer ``name`` (rollout, rewards, loss and its
     gradient, clip, AdamW) of ``arch`` at full width, depth 2, batch 2,
@@ -1217,7 +1280,10 @@ def check_update(dev, name: str, arch: str = "flux_dit") -> dict:
             loss, aux = tr.backward(traj, adv, t=t_u, eps=eps_u)
             leaves = tr.state.params["backbone"]["blocks"][block]
             grads = {k: leaves[k].grad.clone() for k in keys}
+            tr._begin_update()
             gnorm, lr = tr.apply_grads()
+            tr._end_update()
+            lr = float(lr)
         torch.cuda.synchronize()
         if route == "kernel" and ssm and (
                 ssd_scan_bwd.variant_launches["fma"] != 0
@@ -1240,26 +1306,12 @@ def check_update(dev, name: str, arch: str = "flux_dit") -> dict:
                               ).max()) for n in k["grads"]}
     zero = [n for n, g in k["grads"].items() if not g.abs().max() > 0]
     gn_err = abs(k["grad_norm"] - p["grad_norm"]) / p["grad_norm"]
-    # AdamW's first step moves each weight by lr * g / (|g| + eps), ~lr
-    # times the gradient's sign: where the two routes' gradients share it
-    # the weights agree to their rounding; elsewhere they differ by 2 lr.
-    # Each leaf is held to 2 lr plus one bf16 ulp of its own max |p|
-    p_err, p_ratio, p_band, p_leaf = 0.0, 0.0, 0.0, ""
-    n_diff, n_moved, n_all = 0, 0, 0
-    for (path, a), (_, b), (_, b0) in zip(params_lib.leaves(k["params"]),
-                                          params_lib.leaves(p["params"]),
-                                          params_lib.leaves(start)):
-        d = (a.float() - b.float()).abs()
-        b_max = float(b.float().abs().max())
-        ulp = 2.0 ** (math.floor(math.log2(b_max)) - 7) if b_max > 0 else 0.0
-        band = 2 * k["lr"] + ulp
-        d_max = float(d.max())
-        p_err = max(p_err, d_max)
-        if d_max / band >= p_ratio:
-            p_ratio, p_band, p_leaf = d_max / band, band, "/".join(path)
-        n_diff += int((d > 0).sum())
-        n_moved += int((b != b0).sum())
-        n_all += d.numel()
+    gap = _param_gap(k["params"], p["params"], start, k["lr"])
+    p_err, p_ratio, p_band, p_leaf = (gap["param_max_diff"],
+                                      gap["param_band_share"],
+                                      gap["param_band"], gap["param_leaf"])
+    n_diff, n_moved, n_all = (gap["params_differing"], gap["params_moved"],
+                              gap["params_total"])
     del start
     diff_share = n_diff / max(n_moved, 1)
     aux = ", ".join(f"{a} {k['aux'][a]:.4e} / {p['aux'][a]:.4e}"
@@ -1294,10 +1346,7 @@ def check_update(dev, name: str, arch: str = "flux_dit") -> dict:
              f"{diff_share:.4f} differ between the routes")
     return {"grad_err": grad_err, "grad_norm_err": gn_err,
             "loss": [k["loss"], p["loss"]], "loss_band": loss_band,
-            "aux": [k["aux"], p["aux"]], "param_max_diff": p_err,
-            "param_leaf": p_leaf, "param_band": p_band,
-            "param_band_share": p_ratio, "params_differing": n_diff,
-            "params_moved": n_moved, "params_total": n_all}
+            "aux": [k["aux"], p["aux"]], **gap}
 
 
 def check_updates(dev, arch: str = "flux_dit") -> dict:
@@ -2076,18 +2125,20 @@ def dense_serve_path() -> dict:
 
 
 # ----------------------------------------------------------------- phase 17
-def _train_want(name: str, steps: int, layers: int, fwd: str, bwd: str
-                ) -> dict:
+def _train_want(name: str, steps: int, layers: int, fwd: str, bwd: str,
+                remat: str = "none") -> dict:
     """Kernel launches of ``steps`` train steps of trainer ``name`` at
     T = 4 over ``layers`` blocks that each run kernel ``fwd`` forward and
     ``bwd`` backward: the rollout's forward per layer and step and its
     sde_step per SDE step; the loss's forward and backward per layer at
-    each SDE step (GRPO family) or once (NFT/AWM), and the grpo_loss
+    each SDE step (GRPO family) or once (NFT/AWM), the forward twice under
+    ``remat="block"`` (once more in the backward), and the grpo_loss
     kernels only where the reference's kernel condition holds."""
     sde = {"mix_grpo": 2}.get(name, NUM_STEPS)   # MixGRPO: window 2
     passes = sde if name in GRPO_FAMILY else 1
     want = {fn.__name__: 0 for fn in COUNTED}
-    want[fwd] = layers * (NUM_STEPS + passes)
+    want[fwd] = layers * (NUM_STEPS + (2 if remat == "block" else 1)
+                          * passes)
     want[bwd] = layers * passes
     if name in GRPO_FAMILY:
         want["sde_step"] = sde
@@ -2096,114 +2147,147 @@ def _train_want(name: str, steps: int, layers: int, fwd: str, bwd: str
     return {k: v * steps for k, v in want.items()}
 
 
+def _train_argv(tmp: str, arch: str, layers: int, cond_len: int, name: str,
+                n: int, tag: str, extra=()) -> list:
+    return ["--arch", arch, "--sde", "flow_sde", "--device", "cuda",
+            "--trainer", name, "--steps", str(n),
+            "--set", "arch_overrides=" + json.dumps({"n_layers": layers}),
+            "--set", "param_dtype=bfloat16",
+            "--set", f"flow.num_steps={NUM_STEPS}",
+            "--set", f"flow.group_size={GROUP}",
+            "--set", f"flow.latent_tokens={LAT_TOKENS}",
+            "--set", f"flow.latent_dim={LAT_DIM}",
+            "--set", "flow.advantage_agg=gdpo",
+            "--set", "flow.rewards=" + json.dumps(TRAIN_REWARDS),
+            "--set", f"flow.cache_dir={tmp}/cache_{arch}",
+            "--set", "data.encoder=" + json.dumps(
+                {"cond_dim": COND_DIM, "cond_len": cond_len}),
+            "--set", f"data.batch_prompts={PROMPTS}",
+            "--set", f"data.n_prompts={PROMPTS * n}",
+            "--set", "loop.save_every=0", "--set", "loop.log_every=1",
+            "--set", f"loop.ckpt_dir={tmp}/ckpt_{arch}_{name}_{tag}",
+            *extra]
+
+
+def train_one(tmp: str, arch: str, layers: int, cond_len: int, kernels: tuple,
+              watch, name: str, n: int, *, extra=(), tag: str = "",
+              remat: str = "none", captured: bool = False,
+              profile_what: str = "") -> dict:
+    """``repro_torch.launch.train.main`` on the card: trainer ``name`` for
+    ``n`` steps at ``arch``'s full width and ``layers`` layers, bf16,
+    ``cond_len`` condition tokens, one time token and phase 8's latents,
+    T = 4, 2 prompts x group 2, phase 8's rewards under gdpo, the
+    ``--set`` switches ``extra``, under ``watch`` (a ``_TrainWatch``).
+    Launch counts that match the path (``kernels``: the block's forward
+    and backward kernel; every ``ssd_scan`` on the tensor-core kernel;
+    ``captured``: the first step ran eagerly and was captured once, and
+    the counters count each replay's kernels, ``kernels.counts``), finite
+    metrics, every layer's gradient of the watch's ``grad_keys`` at the
+    first update finite and nonzero, params that move, s per step, peak
+    memory, and with ``profile_what`` a profile of one more step.  Returns
+    the row and the trainer."""
+    argv = _train_argv(tmp, arch, layers, cond_len, name, n, tag, extra)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = train.main(argv, callbacks=[watch])
+    launches = counts()
+    variants = dict(ssd_scan.variant_launches)
+    bwd_variants = dict(ssd_scan_bwd.variant_launches)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    hist = res["history"]
+    trainer = res["experiment"].build_trainer()
+    want = _train_want(name, n, layers, *kernels, remat=remat)
+    label = f"{name}{' ' + tag if tag else ''}"
+    log(f"  {label}: launches {launches} over {n} train steps (expected "
+        f"{want}); ssd_scan variants {variants}, ssd_scan_bwd variants "
+        f"{bwd_variants}")
+    if trainer.adapter.cfg.n_layers != layers:
+        fail(f"{label} trained {trainer.adapter.cfg.n_layers} layers")
+    if launches != want or variants != {
+            "wgmma": want["ssd_scan"], "fma": 0} or bwd_variants != {
+            "wgmma": want["ssd_scan_bwd"], "fma": 0}:
+        fail(f"{label}: the {arch} train path's kernel launches do not "
+             "match the path")
+    if len(hist) != n:
+        fail(f"{label}: {len(hist)} train steps ran, expected {n}")
+    for r in hist:
+        vals = [v for k, v in r.items()
+                if isinstance(v, float) and k != "steps_per_s"]
+        if not all(math.isfinite(v) for v in vals):
+            fail(f"{label} step {r['step']}: non-finite metrics {r}")
+    grads = watch.first_grads
+    layer_min = {k: float(g.flatten(1).abs().amax(1).min())
+                 for k, g in grads.items()}
+    if not (all(torch.isfinite(g).all() for g in grads.values())
+            and all(m > 0 for m in layer_min.values())):
+        fail(f"{label}: a layer's gradient of {list(grads)} at the first "
+             f"update is zero or not finite (smallest per-layer max "
+             f"|grad| {layer_min})")
+    moved = watch.moved(trainer)
+    if int(trainer.state.opt.step) != n or not all(moved.values()):
+        fail(f"{label}: the params did not move: step "
+             f"{int(trainer.state.opt.step)}, max |change| {moved}")
+    for r in hist:
+        grpo = (f", clip_frac {r['clip_frac']:.3f}, max|logp_new - "
+                f"logp_old| {r['logp_gap']:.4e}" if name in GRPO_FAMILY
+                else "".join(f", {k} {r[k]:.4e}" for k in
+                             ("r_mean", "vel_err", "adv_clip_frac")
+                             if k in r))
+        log(f"  {label} step {r['step']}: {r['dt']:.4f} s, loss "
+            f"{r['loss']:+.4e}, grad_norm {r['grad_norm']:.4e}, reward "
+            f"{r['reward']:+.4e}{grpo}")
+    sps = hist[-1]["steps_per_s"]
+    log(f"  {label}: max_memory_allocated {peak / 2**30:.2f} GiB "
+        f"({peak} bytes; reserved {peak_reserved}); {sps:.4f} steps/s from "
+        f"the second dispatch; "
+        f"first update's smallest per-layer max |grad| {layer_min}; params "
+        f"moved by up to {moved}")
+    row = {"launches": launches, "s_per_step": [r["dt"] for r in hist],
+           "steps_per_s": sps, "peak_bytes": peak,
+           "peak_reserved_bytes": peak_reserved,
+           "memory_stats": res["memory_stats"],
+           "loss": [r["loss"] for r in hist],
+           "grad_norm": [r["grad_norm"] for r in hist],
+           "reward": [r["reward"] for r in hist],
+           "first_grad_layer_min": layer_min}
+    if name in GRPO_FAMILY:
+        row["clip_frac"] = [r["clip_frac"] for r in hist]
+        row["logp_gap"] = [r["logp_gap"] for r in hist]
+    if captured:
+        row["fused"] = trainer._fused.report()
+        log(f"  {label}: fused step {row['fused']}")
+        if (row["fused"]["captures"], row["fused"]["replays"]) != (1, n - 1):
+            fail(f"{label}: expected 1 capture and {n - 1} replays")
+    if profile_what:
+        cond = torch.randn(PROMPTS, cond_len, COND_DIM, device=trainer.device)
+        it = [n]
+
+        def one_step():
+            m = trainer.step(cond, 0, it=it[0])
+            it[0] += 1
+            return float(m["loss"])
+
+        row["profile"] = profile(one_step, profile_what)
+    return row, trainer
+
+
 def train_trainers(tmp: str, arch: str, layers: int, cond_len: int,
                    kernels: tuple, make_watch) -> dict:
-    """``repro_torch.launch.train.main`` on the card at ``arch``'s full
-    width and ``layers`` layers, bf16, ``cond_len`` condition tokens, one
-    time token and phase 8's latents, T = 4, 2 prompts x group 2, phase
-    8's rewards under gdpo: flow_grpo for 2 steps (and one more, traced),
-    then mix_grpo, grpo_guard, nft and awm for 1 step each, each under a
-    fresh ``make_watch()``.  Per trainer: launch counts that match its path
-    (``kernels``: the block's forward and backward kernel; every
-    ``ssd_scan`` on the tensor-core kernel), finite metrics, every layer's
-    gradient of the watch's ``grad_keys`` at the first update finite and
-    nonzero, params that move, s per step and peak memory."""
+    """``train_one`` for flow_grpo (2 steps and a traced third), then
+    mix_grpo, grpo_guard, nft and awm (1 step each), each under a fresh
+    ``make_watch()``."""
     out = {}
     for name in TRAINERS:
         n = TRAIN_STEPS if name == "flow_grpo" else 1
-        argv = ["--arch", arch, "--sde", "flow_sde", "--device", "cuda",
-                "--trainer", name, "--steps", str(n),
-                "--set", "arch_overrides=" + json.dumps({"n_layers": layers}),
-                "--set", "param_dtype=bfloat16",
-                "--set", f"flow.num_steps={NUM_STEPS}",
-                "--set", f"flow.group_size={GROUP}",
-                "--set", f"flow.latent_tokens={LAT_TOKENS}",
-                "--set", f"flow.latent_dim={LAT_DIM}",
-                "--set", "flow.advantage_agg=gdpo",
-                "--set", "flow.rewards=" + json.dumps(TRAIN_REWARDS),
-                "--set", f"flow.cache_dir={tmp}/cache_{arch}",
-                "--set", "data.encoder=" + json.dumps(
-                    {"cond_dim": COND_DIM, "cond_len": cond_len}),
-                "--set", f"data.batch_prompts={PROMPTS}",
-                "--set", f"data.n_prompts={PROMPTS * n}",
-                "--set", "loop.save_every=0", "--set", "loop.log_every=1",
-                "--set", f"loop.ckpt_dir={tmp}/ckpt_{arch}_{name}"]
-        watch = make_watch()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        res = train.main(argv, callbacks=[watch])
-        launches = counts()
-        variants = dict(ssd_scan.variant_launches)
-        bwd_variants = dict(ssd_scan_bwd.variant_launches)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
-        hist = res["history"]
-        trainer = res["experiment"].build_trainer()
-        want = _train_want(name, n, layers, *kernels)
-        log(f"  {name}: launches {launches} over {n} train steps (expected "
-            f"{want}); ssd_scan variants {variants}, ssd_scan_bwd variants "
-            f"{bwd_variants}")
-        if trainer.adapter.cfg.n_layers != layers:
-            fail(f"{name} trained {trainer.adapter.cfg.n_layers} layers")
-        if launches != want or variants != {
-                "wgmma": want["ssd_scan"], "fma": 0} or bwd_variants != {
-                "wgmma": want["ssd_scan_bwd"], "fma": 0}:
-            fail(f"{name}: the {arch} train path's kernel launches do not "
-                 "match the path")
-        if len(hist) != n:
-            fail(f"{name}: {len(hist)} train steps ran, expected {n}")
-        for r in hist:
-            vals = [v for k, v in r.items()
-                    if isinstance(v, float) and k != "steps_per_s"]
-            if not all(math.isfinite(v) for v in vals):
-                fail(f"{name} step {r['step']}: non-finite metrics {r}")
-        grads = watch.first_grads
-        layer_min = {k: float(g.flatten(1).abs().amax(1).min())
-                     for k, g in grads.items()}
-        if not (all(torch.isfinite(g).all() for g in grads.values())
-                and all(m > 0 for m in layer_min.values())):
-            fail(f"{name}: a layer's gradient of {list(grads)} at the first "
-                 f"update is zero or not finite (smallest per-layer max "
-                 f"|grad| {layer_min})")
-        moved = watch.moved(trainer)
-        if int(trainer.state.opt.step) != n or not all(moved.values()):
-            fail(f"{name}: the params did not move: step "
-                 f"{int(trainer.state.opt.step)}, max |change| {moved}")
-        for r in hist:
-            grpo = (f", clip_frac {r['clip_frac']:.3f}, max|logp_new - "
-                    f"logp_old| {r['logp_gap']:.4e}" if name in GRPO_FAMILY
-                    else "".join(f", {k} {r[k]:.4e}" for k in
-                                 ("r_mean", "vel_err", "adv_clip_frac")
-                                 if k in r))
-            log(f"  {name} step {r['step']}: {r['dt']:.4f} s, loss "
-                f"{r['loss']:+.4e}, grad_norm {r['grad_norm']:.4e}, reward "
-                f"{r['reward']:+.4e}{grpo}")
-        log(f"  {name}: max_memory_allocated {peak / 2**30:.2f} GiB "
-            f"({peak} bytes); first update's smallest per-layer max |grad| "
-            f"{layer_min}; params moved by up to {moved}")
-        row = {"launches": launches, "s_per_step": [r["dt"] for r in hist],
-               "peak_bytes": peak, "loss": [r["loss"] for r in hist],
-               "grad_norm": [r["grad_norm"] for r in hist],
-               "reward": [r["reward"] for r in hist],
-               "first_grad_layer_min": layer_min}
-        if name in GRPO_FAMILY:
-            row["clip_frac"] = [r["clip_frac"] for r in hist]
-            row["logp_gap"] = [r["logp_gap"] for r in hist]
-        if name == "flow_grpo":
-            cond = torch.randn(PROMPTS, cond_len, COND_DIM,
-                               device=trainer.device)
-            it = [n]
-
-            def one_step():
-                m = trainer.step(cond, 0, it=it[0])
-                it[0] += 1
-                return float(m["loss"])
-
-            row["profile"] = profile(
-                one_step, f"one {arch} train step, {PROMPTS} x {GROUP} "
-                          f"samples, {layers} layers, {NUM_STEPS} timesteps")
-        out[name] = row
-        del res, trainer, watch
+        what = (f"one {arch} train step, {PROMPTS} x {GROUP} samples, "
+                f"{layers} layers, {NUM_STEPS} timesteps"
+                if name == "flow_grpo" else "")
+        out[name], trainer = train_one(tmp, arch, layers, cond_len, kernels,
+                                       make_watch(), name, n,
+                                       profile_what=what)
+        del trainer
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -2253,6 +2337,362 @@ def ssm_train_path(tmp: str) -> dict:
                             lambda p, cfg: draw_ssm(p, seed=19)))
 
 
+# ----------------------------------------------------------------- phase 20
+SSM_KERNELS = ("ssd_scan", "ssd_scan_bwd")
+BLOCK = ("--set", "perf.remat=block")
+# the reference's fuse_step / remat="block" bands (tests/test_perf.py):
+# loss rtol 1e-5 / atol 1e-6; params rtol 1e-5 / atol 1e-6 (fused); the
+# block params are held to check_update's per-leaf band (``_param_gap``),
+# much tighter at lr 1e-4 than the reference's bf16 atol 2e-2
+REF_RTOL, REF_ATOL = 1e-5, 1e-6
+
+
+def _ssm_watch():
+    return _TrainWatch("ssm", ("conv_w", "conv_b", "a_log"),
+                       ("a_log", "dt_bias"),
+                       lambda p, cfg: draw_ssm(p, seed=19))
+
+
+def ssm_block_path(tmp: str, none_row=None) -> dict:
+    """mamba2-370m at 48 layers through ``launch.train`` under
+    ``perf.remat=block`` (with ``perf.log_memory``): flow_grpo for 2 steps
+    and a traced third, every scan forward twice per layer and SDE step of
+    the loss.  Then 1 step under ``scan`` + ``remat_offload`` on phase
+    19's prompts, against phase 19's first flow_grpo step (``none_row``;
+    run here for 1 step when the phase runs alone): the same loss, grad
+    norm and reward, bitwise (on the port both are the program of
+    ``none``), and the peaks beside each other."""
+    out = {}
+    out["block"], trainer = train_one(
+        tmp, SSM_ARCH, SSM_TRAIN_LAYERS, SSM_COND_LEN, SSM_KERNELS,
+        _ssm_watch(), "flow_grpo", TRAIN_STEPS,
+        extra=BLOCK + ("--set", "perf.log_memory=true"), tag="block",
+        remat="block",
+        profile_what=f"one {SSM_ARCH} train step under remat=block, "
+                     f"{SSM_TRAIN_LAYERS} layers")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 19's dataset: the prompt order depends on its size
+    prompts = ("--set", f"data.n_prompts={PROMPTS * TRAIN_STEPS}")
+    modes = {"none": prompts,
+             "scan_offload": prompts + ("--set", "perf.remat=scan", "--set",
+                                        "perf.remat_offload=true")}
+    if none_row is not None:
+        out["none"] = none_row
+        del modes["none"]
+    for mode, extra in modes.items():
+        out[mode], trainer = train_one(
+            tmp, SSM_ARCH, SSM_TRAIN_LAYERS, SSM_COND_LEN, SSM_KERNELS,
+            _ssm_watch(), "flow_grpo", 1, extra=extra, tag=mode)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = out["none"], out["scan_offload"]
+    same = all(a[k][0] == b[k][0] for k in ("loss", "grad_norm", "reward"))
+    log(f"  none{' (phase 19)' if none_row is not None else ''} / scan + "
+        f"remat_offload, first step: loss {a['loss'][0]!r} / "
+        f"{b['loss'][0]!r}, grad_norm {a['grad_norm'][0]!r} / "
+        f"{b['grad_norm'][0]!r}, reward {a['reward'][0]!r} / "
+        f"{b['reward'][0]!r}; bitwise {same}; peak {a['peak_bytes']} / "
+        f"{b['peak_bytes']} bytes")
+    if not same:
+        fail("remat=scan with remat_offload changed the step")
+    out["scan_offload"]["bitwise_none"] = same
+    if none_row is not None:
+        del out["none"]
+    return out
+
+
+def check_block_update(dev, arch: str) -> dict:
+    """One flow_grpo step of ``arch`` at full width, depth 2 (mamba2-370m
+    with its SSM leaves drawn, flux_dit with its modulation drawn), under
+    remat="none" and "block" from one state on one set of injected draws:
+    block runs each forward kernel once more per layer and SDE step (the
+    recompute), and the step is held to the reference's band of none:
+    loss and grad norm within rtol 1e-5 (loss atol 1e-6), each param leaf
+    within 2 lr + one bf16 ulp of its max |p| (``_param_gap``), and at
+    most PARAM_DIFF_SHARE of the moved weights differing.  Says whether
+    the two are bitwise equal."""
+    ssm = arch == SSM_ARCH
+    kernel = "ssd_scan" if ssm else "flash_attention"
+    cfg = replace(configs.get(arch), n_layers=UPDATE_LAYERS)
+    flow = FlowRLConfig(num_steps=NUM_STEPS, group_size=2,
+                        clip_range=UPDATE_CLIP, latent_tokens=LAT_TOKENS,
+                        latent_dim=LAT_DIM, advantage_agg="gdpo",
+                        rewards=(RewardSpec("pickscore", 1.0, args={
+                            "latent_dim": LAT_DIM, "cond_dim": COND_DIM}),
+                                 RewardSpec("latent_norm", 0.1)))
+    opt = OptimConfig(lr=1e-4, warmup_steps=1, total_steps=1000)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    cond = torch.randn(1, SSM_COND_LEN if ssm else COND_LEN, COND_DIM,
+                       generator=gen, device=dev)
+    draws = {"x_init": torch.randn(2, LAT_TOKENS, LAT_DIM, generator=gen,
+                                   device=dev),
+             "eps": torch.randn(NUM_STEPS, 2, LAT_TOKENS, LAT_DIM,
+                                generator=gen, device=dev)}
+    runs, params, start = {}, None, None
+    for mode in ("none", "block"):
+        tr = registry.build("trainer", "flow_grpo", cfg, flow, opt, seed=0,
+                            cond_dim=COND_DIM, device=dev, params=params,
+                            perf=PerfConfig(remat=mode))
+        if params is None:
+            if ssm:
+                draw_ssm(tr.state.params, seed=21)
+            else:
+                draw_modulation(tr.state.params, cfg.d_model, seed=21)
+            params = _clone(tr.state.params)
+            start = _clone(params)
+        reset_counts()
+        m = tr.step(cond, 0, it=0, **draws)
+        runs[mode] = {"metrics": {k: float(v) for k, v in m.items()},
+                      "launches": counts(), "params": tr.state.params}
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = runs["none"], runs["block"]
+    want = {"none": UPDATE_LAYERS * 2 * NUM_STEPS,    # rollout, loss
+            "block": UPDATE_LAYERS * 3 * NUM_STEPS}   # and the recompute
+    ran = {m: runs[m]["launches"][kernel] for m in want}
+    if ran != want:
+        fail(f"{arch}: {kernel} ran {ran} forwards under none / block, "
+             f"expected {want}")
+    gap = _param_gap(b["params"], a["params"], start, opt.lr)
+    del start
+    share = gap["params_differing"] / max(gap["params_moved"], 1)
+    bitwise = a["metrics"] == b["metrics"] and gap["param_max_diff"] == 0.0
+    la, lb = a["metrics"]["loss"], b["metrics"]["loss"]
+    ga, gb = a["metrics"]["grad_norm"], b["metrics"]["grad_norm"]
+    log(f"  one flow_grpo step, {arch} depth {UPDATE_LAYERS}, none / block: "
+        f"loss {la!r} / {lb!r}, grad_norm {ga!r} / {gb!r}; params max|diff| "
+        f"{gap['param_max_diff']:.3e}, nearest its leaf's band "
+        f"{gap['param_leaf']} at {gap['param_band_share']:.3f} of "
+        f"{gap['param_band']:.3e}; {gap['params_differing']} of the "
+        f"{gap['params_moved']} weights the step moved differ; bitwise "
+        f"{bitwise}; {kernel} forwards {ran}")
+    if (abs(lb - la) > REF_ATOL + REF_RTOL * abs(la)
+            or abs(gb - ga) > REF_RTOL * abs(ga)):
+        fail(f"{arch}: remat=block's loss or grad norm is off the "
+             "reference's band of remat=none")
+    if (gap["param_band_share"] > 1 or gap["params_moved"] == 0
+            or share > PARAM_DIFF_SHARE):
+        fail(f"{arch}: remat=block's params after AdamW are off the band of "
+             f"remat=none ({gap})")
+    return {"loss": [la, lb], "grad_norm": [ga, gb], "bitwise": bitwise,
+            "forward_launches": ran, **gap}
+
+
+# ----------------------------------------------------------------- phase 21
+FUSED_STEPS = 4
+FUSED = ("--set", "perf.fuse_step=true", "--set", "perf.remat=block",
+         "--set", "perf.offload_rewards=true",
+         "--set", "perf.policy_dtype=bfloat16", "--set", "loop.pipeline=2",
+         "--set", "perf.log_memory=true")
+# f32 activations through two layers on the kernels' f32 variants against
+# the plain versions: f32 sums in another order
+F32_VEL_BAND = 1e-3
+
+
+def fused_path(tmp: str) -> dict:
+    """mamba2-370m at 48 layers through ``launch.train`` with the fused
+    step (captured once, then replayed), block remat, the reward towers
+    offloaded to host memory, an explicit bf16 policy and a pipeline of 2,
+    for 4 steps, and a profile of one more replay.  The launch counts are
+    those of the kernels that ran: the eager first step and each replay.
+    The towers' bytes are computed from their shapes; what is checked is
+    that their store is in pinned host memory."""
+    row, trainer = train_one(
+        tmp, SSM_ARCH, SSM_TRAIN_LAYERS, SSM_COND_LEN, SSM_KERNELS,
+        _ssm_watch(), "flow_grpo", FUSED_STEPS, extra=FUSED, tag="fused",
+        remat="block", captured=True,
+        profile_what=f"one replayed fused {SSM_ARCH} train step, "
+                     f"{SSM_TRAIN_LAYERS} layers")
+    from repro_torch.perf import reward_tower_report
+    row["reward_towers"] = reward_tower_report(trainer)
+    store = [t for _, t in params_lib.leaves(trainer.loader.param_store())
+             if t is not None]
+    pinned = bool(store) and all(t.device.type == "cpu" and t.is_pinned()
+                                 for t in store)
+    log(f"  fused: reward towers {row['reward_towers']} (bytes from their "
+        f"shapes); their {len(store)} leaves in pinned host memory: "
+        f"{pinned}")
+    if not pinned:
+        fail("offload_rewards left a reward tower leaf off pinned host "
+             "memory")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_fused_update(dev) -> dict:
+    """At full width, depth 2, SSM leaves drawn, block remat, towers
+    offloaded, bf16 policy: the fused step (its step 0 eager and
+    captured, step 1 replayed) against the eager step from one state on
+    one set of injected draws, to the reference's fuse_step band (params
+    rtol 1e-5 / atol 1e-6, loss rtol 1e-5 / atol 1e-5), and whether
+    bitwise; then one eager step under set_sync_debug_mode("error")."""
+    cfg = replace(configs.get(SSM_ARCH), n_layers=UPDATE_LAYERS)
+    flow = FlowRLConfig(num_steps=NUM_STEPS, group_size=2,
+                        clip_range=UPDATE_CLIP, latent_tokens=LAT_TOKENS,
+                        latent_dim=LAT_DIM, advantage_agg="gdpo",
+                        rewards=(
+                            RewardSpec("text_render", 1.0, args={
+                                "latent_dim": LAT_DIM,
+                                "latent_tokens": LAT_TOKENS,
+                                "cond_dim": COND_DIM}),
+                            RewardSpec("pickscore", 0.25, args={
+                                "latent_dim": LAT_DIM, "cond_dim": COND_DIM}),
+                            RewardSpec("latent_norm", 0.1)))
+    opt = OptimConfig(lr=1e-4, warmup_steps=1, total_steps=1000)
+    perf = dict(remat="block", offload_rewards=True, policy_dtype="bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    cond = torch.randn(1, SSM_COND_LEN, COND_DIM, generator=gen, device=dev)
+    draws = [{"x_init": torch.randn(2, LAT_TOKENS, LAT_DIM, generator=gen,
+                                    device=dev),
+              "eps": torch.randn(NUM_STEPS, 2, LAT_TOKENS, LAT_DIM,
+                                 generator=gen, device=dev)}
+             for _ in range(2)]
+    eager = registry.build("trainer", "flow_grpo", cfg, flow, opt, seed=0,
+                           cond_dim=COND_DIM, device=dev,
+                           perf=PerfConfig(**perf))
+    draw_ssm(eager.state.params, seed=22)
+    fused = registry.build("trainer", "flow_grpo", cfg, flow, opt, seed=0,
+                           cond_dim=COND_DIM, device=dev,
+                           params=_clone(eager.state.params),
+                           perf=PerfConfig(fuse_step=True, **perf))
+    me, mf, ran = [], [], []
+    for it in range(2):
+        reset_counts()
+        me.append({k: float(v) for k, v in eager.step(
+            cond, 0, it=it, **draws[it]).items()})
+        ran_eager = counts()
+        reset_counts()
+        mf.append({k: float(v) for k, v in fused.step(
+            cond, 0, it=it, **draws[it]).items()})
+        ran.append((ran_eager, counts()))
+    rep = fused._fused.report()
+    if (rep["captures"], rep["replays"]) != (1, 1):
+        fail(f"the fused step did not capture once and replay once: {rep}")
+    # the counters count what ran: the eager step and its capture (taken
+    # back out) at step 0, the replay at step 1, each the eager step's
+    log(f"  launches per step, eager / fused: {ran}")
+    if not all(e == f and e["ssd_scan"] > 0 for e, f in ran):
+        fail("the fused step's launch counts are not the eager step's")
+    p_err, bitwise = 0.0, me == mf
+    for (_, a), (_, b) in zip(params_lib.leaves(eager.state.params),
+                              params_lib.leaves(fused.state.params)):
+        d = (a.float() - b.float()).abs()
+        p_err = max(p_err, float((d - REF_RTOL * b.float().abs()).max()))
+        bitwise = bitwise and bool((d == 0).all())
+    le, lf = me[1]["loss"], mf[1]["loss"]
+    log(f"  depth {UPDATE_LAYERS}, step 1 eager vs replayed: loss {le!r} / "
+        f"{lf!r}, grad_norm {me[1]['grad_norm']!r} / {mf[1]['grad_norm']!r},"
+        f" reward {me[1]['reward_mean']!r} / {mf[1]['reward_mean']!r}; "
+        f"params max(|diff| - rtol |p|) {p_err:.3e} (atol {REF_ATOL}); "
+        f"bitwise {bitwise}; {rep}")
+    if abs(lf - le) > 1e-5 + REF_RTOL * abs(le) or p_err > REF_ATOL:
+        fail("the replayed fused step is off the reference's band of the "
+             "eager step")
+    del fused
+    gc.collect()
+    eager.prefetch_reward_params()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m = eager.step(cond, 0, it=2)
+        eager.prefetch_reward_params()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    loss = float(m["loss"])
+    log(f"  an eager step under set_sync_debug_mode('error'): no host "
+        f"synchronisation raised; loss {loss!r}")
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": [le, lf], "param_excess": p_err, "bitwise": bitwise,
+            "fused": rep, "launches_eager_fused": ran,
+            "sync_free_loss": loss}
+
+
+def check_f32_policy_velocity(dev) -> dict:
+    """``FlowAdapter(policy_dtype=float32)`` on bf16 parameters at full
+    width, depth 2, batch 1, on the path geometry, for mamba2-370m (SSM
+    leaves drawn) and flux_dit (modulation drawn): through the kernels'
+    f32 variants (the scan's FMA passes, the attention's f32 kernel)
+    against the plain versions, within F32_VEL_BAND of max |v|."""
+    out = {}
+    for arch, cond_len in ((SSM_ARCH, SSM_COND_LEN), ("flux_dit", COND_LEN)):
+        cfg = replace(configs.get(arch), n_layers=2)
+        adapter = FlowAdapter(cfg, FlowRLConfig(latent_tokens=LAT_TOKENS,
+                                                latent_dim=LAT_DIM),
+                              COND_DIM, policy_dtype=torch.float32)
+        gen = torch.Generator(device=dev).manual_seed(23)
+        p = params_lib.init(adapter.spec(), gen, torch.bfloat16, dev)
+        if arch == SSM_ARCH:
+            draw_ssm(p, seed=24)
+        else:
+            draw_modulation(p, cfg.d_model, seed=24)
+        x = torch.randn(1, LAT_TOKENS, LAT_DIM, generator=gen, device=dev)
+        cond = torch.randn(1, cond_len, COND_DIM, generator=gen, device=dev)
+        t = torch.full((1,), 0.7, device=dev)
+        reset_counts()
+        with torch.no_grad():
+            vk = adapter.velocity(p, x, t, cond)
+            ran = counts()
+            variants = dict(ssd_scan.variant_launches)
+            with plain_dispatch():
+                vp = adapter.velocity(p, x, t, cond)
+        torch.cuda.synchronize()
+        err, scale = float((vk - vp).abs().max()), float(vp.abs().max())
+        log(f"  f32 policy on bf16 params, {arch} depth 2: max|kernel - "
+            f"plain| {err:.3e} of max|v| {scale:.3e} (band "
+            f"{F32_VEL_BAND * scale:.3e}); launches {ran}, ssd_scan "
+            f"variants {variants}")
+        kernel = "ssd_scan" if arch == SSM_ARCH else "flash_attention"
+        if ran[kernel] != 2 or (arch == SSM_ARCH and variants != {
+                "wgmma": 0, "fma": 2}):
+            fail(f"the f32 {arch} velocity did not run the f32 kernels")
+        if not (torch.isfinite(vk).all() and err <= F32_VEL_BAND * scale):
+            fail(f"the f32-policy {arch} velocity is off its band")
+        out[arch] = {"max_abs_err": err, "max_abs": scale}
+        del p
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------- phase 22
+FLUX_BLOCK_LAYERS = 16
+
+
+def flux_block_path(tmp: str) -> dict:
+    """flux_dit at full width and 16 of its 38 blocks under
+    ``perf.remat=block`` through ``launch.train``: flow_grpo for 2 steps,
+    phase 8's geometry, batch and rewards; then smollm-360m at all 32
+    layers under block for 1 step (wq/wk drawn, as phase 17)."""
+    out = {}
+    out["flux_dit"], trainer = train_one(
+        tmp, "flux_dit", FLUX_BLOCK_LAYERS, COND_LEN,
+        ("flash_attention", "flash_attention_bwd"),
+        _TrainWatch("attn", ("wq", "wk", "wv")), "flow_grpo", TRAIN_STEPS,
+        extra=BLOCK + ("--set", "perf.log_memory=true"), tag="block",
+        remat="block")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    out[DENSE_ARCH], trainer = train_one(
+        tmp, DENSE_ARCH, DENSE_LAYERS, COND_LEN,
+        ("flash_attention", "flash_attention_bwd"),
+        _TrainWatch("attn", ("wq", "wk", "wv"), ("wq", "wk"),
+                    lambda p, cfg: draw_attention(p, cfg.d_model, seed=15)),
+        "flow_grpo", 1, extra=BLOCK, tag="block", remat="block")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _clone(tree):
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
@@ -2268,7 +2708,7 @@ def _cast(tree, dtype):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", metavar="N,N,...",
-                    help="run only these of phases 3-19 after the device and "
+                    help="run only these of phases 3-22 after the device and "
                          "build phases, and print no result lines (a "
                          "development aid; the check runs every phase)")
     args = ap.parse_args(argv)
@@ -2390,6 +2830,33 @@ def main(argv=None) -> int:
         log(f"[19] ssm train path: repro_torch.launch.train, {SSM_ARCH}, "
             f"{SSM_TRAIN_LAYERS} layers, the five trainers")
         ssm_train = ssm_train_path(tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log(f"[20] {SSM_ARCH}, {SSM_TRAIN_LAYERS} layers, under "
+            f"perf.remat=block; scan + remat_offload against phase 19's "
+            f"none; one update at depth {UPDATE_LAYERS} under block against "
+            f"none")
+        perf_res = {"ssm_block": ssm_block_path(tmp,
+                                                ssm_train["flow_grpo"]),
+                    "block_update": check_block_update(dev, SSM_ARCH)}
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log(f"[21] the fused, pipelined step: {SSM_ARCH}, "
+            f"{SSM_TRAIN_LAYERS} layers, {FUSED_STEPS} steps; at depth "
+            f"{UPDATE_LAYERS} replayed against eager, sync-free, f32 policy")
+        perf_res["fused"] = fused_path(tmp)
+        perf_res["fused_update"] = check_fused_update(dev)
+        perf_res["f32_policy_velocity"] = check_f32_policy_velocity(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log(f"[22] flux_dit at {FLUX_BLOCK_LAYERS} blocks and {DENSE_ARCH} "
+            f"at {DENSE_LAYERS} layers under perf.remat=block; one flux_dit "
+            f"update at depth {UPDATE_LAYERS} under block against none")
+        perf_res["block_train"] = flux_block_path(tmp)
+        perf_res["flux_block_update"] = check_block_update(dev, "flux_dit")
 
     def by_path(name: str) -> dict:
         return {"serve": res["launches"][name],
@@ -2399,7 +2866,14 @@ def main(argv=None) -> int:
                 "train_dense": {t: r["launches"][name]
                                 for t, r in dense_res["train"].items()},
                 "train_ssm": {t: r["launches"][name]
-                              for t, r in ssm_train.items()}}
+                              for t, r in ssm_train.items()},
+                "train_ssm_block": perf_res["ssm_block"]["block"][
+                    "launches"][name],
+                "train_ssm_fused": perf_res["fused"]["launches"][name],
+                "train_flux16_block": perf_res["block_train"]["flux_dit"][
+                    "launches"][name],
+                "train_dense_block": perf_res["block_train"][DENSE_ARCH][
+                    "launches"][name]}
 
     for row in rows:
         row["launches"] = train_res["launches"][row["name"]]
@@ -2424,6 +2898,7 @@ def main(argv=None) -> int:
     print(json.dumps({"dense_path": dense_res}))
     print(json.dumps({"ssm_train_path": ssm_train,
                       "update_check": ssm_update}))
+    print(json.dumps({"perf_path": perf_res}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(card_line())
@@ -2450,7 +2925,13 @@ def run_only(dev, only: set) -> int:
               15: lambda: check_dense_velocities(dev),
               16: dense_serve_path, 17: _in_tmp(dense_train_path),
               18: lambda: check_updates(dev, SSM_ARCH),
-              19: _in_tmp(ssm_train_path)}
+              19: _in_tmp(ssm_train_path),
+              20: lambda: (_in_tmp(ssm_block_path)(),
+                           check_block_update(dev, SSM_ARCH)),
+              21: lambda: (_in_tmp(fused_path)(), check_fused_update(dev),
+                           check_f32_policy_velocity(dev)),
+              22: lambda: (_in_tmp(flux_block_path)(),
+                           check_block_update(dev, "flux_dit"))}
     for n in sorted(only):
         if n not in phases:
             fail(f"--only: phase {n} cannot run alone")

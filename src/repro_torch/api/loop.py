@@ -7,15 +7,24 @@ condition embeddings from the :class:`ConditionProvider`, run
 saves the trainer's full ``RLState`` (params and AdamW moments), so a
 resumed run continues bit-identically.
 
-``trainer.step`` returns device scalars; the loop fetches a step's metrics
-with one host transfer (``_drain_one``), which is also the only point where
-the host waits for the device.  Only ``pipeline=1`` is ported: each step is
-drained right after it is dispatched (the reference's sequential loop).
-Deeper pipelines raise ``NotImplementedError`` (ROADMAP.md Queue 1 item
-14).  The callback contract is the reference's: callbacks fire on drained
-steps, and one that must see ``trainer.state`` exactly as of its step
-(``PeriodicCheckpoint``) says so through ``wants_sync``, which forces a full
-drain before anything newer is dispatched.
+``trainer.step`` returns device scalars and waits for nothing on the
+device; the loop fetches a step's metrics with one host transfer
+(``_drain_one``), the only point where the host waits for the device.
+
+Pipelining (``LoopConfig.pipeline``), as the reference's: with
+``pipeline=K`` up to K-1 steps are dispatched and not yet drained, so the
+host's work for step N+1 (the next prompt batch, its conditions, the
+dispatch of its kernels or its graph replay) overlaps step N on the
+device.  ``pipeline=1`` is the sequential loop, bitwise; ``pipeline>1``
+changes when metrics are observed, never what is computed.  The state is
+updated in place and stream order serialises the steps, so K bounds only
+the metric lag.  The callback contract is the reference's: callbacks fire
+on drained steps, in step order, and one that must see ``trainer.state``
+exactly as of its step (``PeriodicCheckpoint``) says so through
+``wants_sync``, which drains every in-flight step before anything newer is
+dispatched, so a checkpoint taken mid-pipeline resumes bitwise.  After each
+dispatch the loop also starts the copy of host-offloaded reward towers
+(``trainer.prefetch_reward_params``, ``perf.offload_rewards``).
 
 Per row, ``dt`` is the step's dispatch→drain wall time in seconds
 (unrounded) and ``steps_per_s`` the drained-step rate from the second
@@ -159,19 +168,17 @@ class TrainLoop:
     ``start_step > 0`` resumes: the data stream is fast-forwarded past the
     batches already consumed and step ``it`` samples from ``fold_seed(seed,
     it)``, so a resumed run replays the schedule of an uninterrupted one.
-    After each dispatch the loop pulls the next prompt batch and, when the
-    provider has ``prefetch``, warms its conditions on the provider's
-    background worker before draining."""
+    After each dispatch the loop pulls the next prompt batch, warms its
+    conditions on the provider's background worker when the provider has
+    ``prefetch``, and starts the reward towers' copy when the trainer has
+    ``prefetch_reward_params``, all before draining.  ``pipeline`` is the
+    most dispatched-not-yet-drained steps (module docstring)."""
 
     def __init__(self, trainer, provider, dataset, *, steps: int, seed: int,
                  start_step: int = 0, callbacks: Sequence[Callback] = (),
                  pipeline: int = 1):
         if pipeline < 1:
             raise ValueError(f"pipeline depth must be >= 1, got {pipeline}")
-        if pipeline > 1:
-            raise NotImplementedError(
-                f"loop.pipeline={pipeline}: only the sequential loop "
-                "(pipeline=1) is ported (ROADMAP.md Queue 1 item 14)")
         self.trainer = trainer
         self.provider = provider
         self.dataset = dataset
@@ -238,6 +245,8 @@ class TrainLoop:
         pending: Deque[Tuple[int, Any, float]] = deque()
         next_prompts: Optional[List[str]] = None
         can_prefetch = hasattr(self.provider, "prefetch")
+        can_prefetch_rewards = hasattr(self.trainer,
+                                       "prefetch_reward_params")
         for it in range(self.start_step, self.steps):
             if self._stop:
                 break
@@ -254,6 +263,8 @@ class TrainLoop:
                 next_prompts = next(stream)
                 if can_prefetch:
                     self.provider.prefetch(next_prompts)
+            if can_prefetch_rewards:
+                self.trainer.prefetch_reward_params()
             barrier = any(getattr(cb, "wants_sync", _no_sync)(self, it)
                           for cb in self.callbacks)
             limit = 0 if barrier else self.pipeline - 1

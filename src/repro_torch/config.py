@@ -5,7 +5,7 @@ serving and the five trainers read.
 block), ``FlowRLConfig`` (trainer, SDE dynamics, rewards, preprocessing,
 latent geometry), ``OptimConfig``, ``DataConfig``
 (prompt dataset and frozen encoder), ``DistConfig`` and ``PerfConfig``
-(layouts and performance policies; only the defaults are ported),
+(the device layout, only 1 x 1 ported, and the performance policies),
 ``LoopConfig`` and ``RunConfig`` load from dicts/JSON through the same
 strict typed :func:`from_dict` as the reference, with the reference's
 defaults (``src/repro/config.py``).
@@ -119,28 +119,42 @@ class DistConfig:
 
 @dataclass(frozen=True)
 class PerfConfig:
-    """Train-step performance policy (the reference's ``repro.perf``
-    switches).  Only the defaults are ported: any other value raises
-    ``NotImplementedError`` naming ROADMAP Queue 1 item 14."""
+    """Train-step performance policy (``repro_torch.perf``), the
+    reference's switches with its defaults and validation.
+
+    A *runtime* choice, not experiment identity: checkpoints written under
+    one policy resume under any other.  ``remat``: ``"none"``; ``"scan"``,
+    which in the port is the program of ``"none"`` (its losses already
+    back-propagate one timestep at a time); ``"block"`` checkpoints each
+    backbone layer of the loss's velocity forward and recomputes it in the
+    backward (f32-rounding-equal).  ``fuse_step``: sample, rewards,
+    advantages and update as one function, captured once per SDE-mask
+    pattern into a CUDA graph and replayed (eager on the CPU).
+    ``policy_dtype``: the activation dtype of the velocity field ("" = the
+    parameter dtype; log-probabilities and the optimizer stay f32).
+    ``log_memory``: report ``memory_stats`` at train start.
+    ``offload_rewards``: keep the frozen reward towers in pinned host
+    memory and copy them to the device for each step's reward phase.
+    ``remat_offload`` (needs ``remat="scan"``): saved copies of the named
+    velocity residual go to pinned host memory until the backward."""
     remat: str = "none"            # none | scan | block
     fuse_step: bool = False
     policy_dtype: str = ""         # "" | "bfloat16" | "float32"
     log_memory: bool = False
     offload_rewards: bool = False
-    remat_offload: bool = False
+    remat_offload: bool = False    # requires remat="scan"
 
 
 def check_ported_layout(dist: "DistConfig", perf: "PerfConfig") -> None:
-    """Raise ``NotImplementedError`` for a layout or perf policy the port
-    does not have yet."""
+    """Raise ``NotImplementedError`` for a device layout the port does not
+    have yet, and ``ValueError`` for a perf policy the reference's
+    ``validate`` refuses."""
     if dist.data_parallel != 1 or dist.model_parallel != 1:
         raise NotImplementedError(
             f"dist={dist}: only the single-device layout is ported "
             "(ROADMAP.md Queue 1 item 15, distributed/)")
-    if perf != PerfConfig():
-        raise NotImplementedError(
-            f"perf={perf}: only the default performance policy is ported "
-            "(ROADMAP.md Queue 1 item 14, perf/)")
+    from repro_torch.perf.policy import validate
+    validate(perf)
 
 
 @dataclass(frozen=True)
@@ -159,8 +173,8 @@ class DataConfig:
 @dataclass(frozen=True)
 class LoopConfig:
     """TrainLoop behaviour: length, logging, checkpointing, early stop.
-    ``pipeline`` must be 1 (the sequential loop); deeper pipelines are not
-    ported (ROADMAP.md Queue 1 item 14)."""
+    ``pipeline``: the most dispatched-not-yet-drained steps (1 = the
+    sequential loop)."""
     steps: int = 100
     pipeline: int = 1                    # max dispatched-not-drained steps
     log_every: int = 10                  # 0 -> silent

@@ -85,6 +85,11 @@ class FrozenTextEncoder:
                                  f"vocab={vocab} hidden={hidden} "
                                  f"depth={depth} cond_dim={cond_dim}")
 
+    @property
+    def n_params(self) -> int:
+        return int(self.embed.numel() + sum(w.numel() for w in self.layers)
+                   + self.w_out.numel())
+
     def tokenize(self, prompt: str) -> np.ndarray:
         words = (prompt.lower().split() + ["<pad>"] * self.cond_len)
         ids = [int(hashlib.sha1(w.encode()).hexdigest()[:8], 16) % self.vocab
@@ -162,6 +167,16 @@ def preprocess_dataset(prompts: Sequence[str], cache: PreprocessCache,
     return n
 
 
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``.  To a CUDA device through pinned memory
+    and a non-blocking copy, which waits for no device work: a pipelined
+    loop fetches the next conditions while a step is in flight."""
+    t = torch.from_numpy(a)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 class ConditionProvider:
     """Training- and serving-phase condition source, on ``device``.
 
@@ -198,6 +213,10 @@ class ConditionProvider:
     def encoder_resident(self) -> bool:
         return self._encoder is not None
 
+    @property
+    def resident_param_bytes(self) -> int:
+        return (self._encoder.n_params * 4) if self._encoder else 0
+
     def _ensure_encoder(self) -> FrozenTextEncoder:
         if self._encoder is None:
             self._encoder = FrozenTextEncoder(**self._encoder_kw,
@@ -224,8 +243,8 @@ class ConditionProvider:
     def _get_now(self, prompts: Sequence[str]) -> Dict[str, torch.Tensor]:
         if self.preprocessing:
             arrs = [self._cached(p) for p in prompts]
-            return {k: torch.from_numpy(np.stack([a[k] for a in arrs])).to(
-                self.device) for k in ("cond", "pooled")}
+            return {k: _to_device(np.stack([a[k] for a in arrs]), self.device)
+                    for k in ("cond", "pooled")}
         return self._ensure_encoder().encode(prompts)
 
     def prefetch(self, prompts: Sequence[str]) -> None:

@@ -47,28 +47,44 @@ class MultiRewardLoader:
 
     def bind(self, store: Dict[str, object]) -> None:
         """Replace the store (keyed by model_id) and point every model at
-        it — how the tests carry the reference's towers across."""
+        it: how ``perf.offload_rewards`` moves the towers to host memory
+        (the reference's ``rebase``), and how the tests carry the
+        reference's towers across."""
         if set(store) != set(self._param_store):
             raise ValueError(
                 f"store keys {sorted(store)} != loaded model ids "
                 f"{sorted(self._param_store)}")
         self._param_store = dict(store)
+        self._point(self._param_store)
+
+    def _point(self, store: Dict[str, object]) -> None:
         for model in self.models:
-            model.set_params(self._param_store[model.model_id])
+            model.set_params(store[model.model_id])
 
     @torch.no_grad()
     def compute_all(self, x0: torch.Tensor, cond_meta: Dict, *,
-                    group_size: int) -> Dict[str, torch.Tensor]:
+                    group_size: int, params: Dict[str, object] = None
+                    ) -> Dict[str, torch.Tensor]:
         """{reward_name: (B,) raw rewards} for every configured reward
-        (groupwise models are evaluated within GRPO groups)."""
-        out = {}
-        for i, (spec, model) in enumerate(zip(self.specs, self.models)):
-            name = f"{spec.reward_type}:{i}"
-            if model.kind == "groupwise":
-                out[name] = model.score(x0, cond_meta, group_size=group_size)
-            else:
-                out[name] = model.score(x0, cond_meta)
-        return out
+        (groupwise models are evaluated within GRPO groups).  ``params``
+        replaces the store for this evaluation (the device copy of
+        host-offloaded towers); the models point at the store again
+        afterwards."""
+        if params is not None:
+            self._point(params)
+        try:
+            out = {}
+            for i, (spec, model) in enumerate(zip(self.specs, self.models)):
+                name = f"{spec.reward_type}:{i}"
+                if model.kind == "groupwise":
+                    out[name] = model.score(x0, cond_meta,
+                                            group_size=group_size)
+                else:
+                    out[name] = model.score(x0, cond_meta)
+            return out
+        finally:
+            if params is not None:
+                self._point(self._param_store)
 
     def weight_map(self) -> Dict[str, float]:
         return {f"{s.reward_type}:{i}": s.weight

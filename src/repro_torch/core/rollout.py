@@ -12,6 +12,16 @@ Both take the init latent and the noise as tensors instead when given, so
 tests replay the JAX package's draws.  The denoising loop is a Python loop
 over steps; the time grid stays on the host and each step receives
 ``t``/``t_next`` as Python floats.  Sampling never builds an autograd graph.
+
+The port has none of the reference's remat primitives
+(``checkpoint_scan_body``, ``name_residual``): its losses run their
+timesteps as a Python loop and back-propagate each one at once, so there
+is no scan body to checkpoint or to offload residuals from, and
+``remat="scan"``, with or without ``remat_offload``, is the program of
+``"none"``.  Nor does ``rollout`` take the reference's ``remat``
+arguments, which act only where a rollout is differentiated: the port's
+never is (the fused step detaches it, as the reference's
+``stop_gradient`` does).
 """
 from __future__ import annotations
 
@@ -179,10 +189,13 @@ def rollout_keyed(adapter: FlowAdapter, params, cond: torch.Tensor,
 
 def group_repeat(cond: torch.Tensor, group_size: int) -> torch.Tensor:
     """(P, Lc, D) prompts -> (P·G, Lc, D) with each prompt repeated G times
-    (consecutive — group g of prompt p occupies rows p·G..p·G+G−1)."""
+    (consecutive — group g of prompt p occupies rows p·G..p·G+G−1).  An
+    expand and a copy: no device-to-host read of the output size."""
     if group_size < 1:
         raise ValueError(f"group_size must be >= 1, got {group_size}")
-    return torch.repeat_interleave(cond, group_size, dim=0)
+    P = cond.shape[0]
+    return cond.unsqueeze(1).expand(P, group_size, *cond.shape[1:]).reshape(
+        P * group_size, *cond.shape[1:])
 
 
 def mix_sde_mask(num_steps: int, window: int, shift: int = 0

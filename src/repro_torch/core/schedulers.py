@@ -35,7 +35,12 @@ LOG2PI = math.log(2.0 * math.pi)
 
 
 def _f32(v, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=F32, device=like.device)
+    """``v`` as an f32 0-d tensor on ``like``'s device.  A Python number is
+    written by a fill, never copied from the host, so the train step
+    neither waits for the device nor breaks a CUDA-graph capture."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=like.device, dtype=F32)
+    return torch.full((), float(v), dtype=F32, device=like.device)
 
 
 def _sum_dims(x: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,8 @@
 Owns sampling (``rollout``), reward computation (``MultiRewardLoader``),
 advantage aggregation and the optimization step.  Subclasses implement
 ``loss_fn``.  The port runs on one device (``device``, default ``cuda``);
-other layouts and perf policies raise ``NotImplementedError``.
+other layouts raise ``NotImplementedError``.  ``perf`` takes every policy
+the reference accepts (``repro_torch.perf``).
 
 The parameters stay the nested dict of tensors that ``models.params``
 builds.  ``_update`` marks the leaves ``requires_grad``, lets ``loss_fn``
@@ -21,14 +22,22 @@ and forward-process noise of the NFT/AWM losses) from one seeded with
 ``fold_seed(fold_seed(seed, it), 1)``, so a resumed run replays an
 uninterrupted one.  ``step`` also takes the rollout's ``x_init`` / ``eps``
 and the update's ``update_t`` / ``update_eps`` to replay injected draws.
+
+The step never waits for the device: its host values (the time grid, the
+SDE mask, the AdamW counter) stay on the host, a step's learning rate and
+bias corrections reach the device as fills (``_begin_update``), and the
+metrics stay device scalars, so a pipelined ``TrainLoop`` can dispatch the
+next step while this one runs.  With ``perf.fuse_step`` the same step body
+runs as a CUDA graph (``repro_torch.perf.fused``).
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch import optim, registry
+from repro_torch import optim, perf as perf_lib, registry
 from repro_torch.config import (ArchConfig, DistConfig, FlowRLConfig,
                                 OptimConfig, PerfConfig, RewardSpec,
                                 check_ported_layout)
@@ -79,12 +88,15 @@ class BaseTrainer:
         if flow_cfg.group_size < 1:
             raise ValueError(
                 f"flow.group_size must be >= 1, got {flow_cfg.group_size}")
-        check_ported_layout(dist or DistConfig(), perf or PerfConfig())
+        self.perf = perf or PerfConfig()
+        check_ported_layout(dist or DistConfig(), self.perf)
         self.device = resolve_device(device)
         self.cfg = arch_cfg
         self.flow = flow_cfg
         self.opt_cfg = opt_cfg
-        self.adapter = FlowAdapter(arch_cfg, flow_cfg, cond_dim)
+        self.adapter = FlowAdapter(
+            arch_cfg, flow_cfg, cond_dim,
+            policy_dtype=perf_lib.resolve_policy_dtype(self.perf))
         if not self.rollout_sde:
             self.sde_mode = "all_ode"
         elif type(self).sde_mask is BaseTrainer.sde_mask:
@@ -102,11 +114,39 @@ class BaseTrainer:
         specs = flow_cfg.rewards or DEFAULT_REWARDS
         self.loader = MultiRewardLoader(specs, fold_seed(seed, 1),
                                         self.device)
+        # perf.offload_rewards: the frozen towers live in pinned host memory
+        # and each step's reward phase reads a device copy of them
+        self._reward_store_host = None
+        self._reward_prefetch = None
+        self._copy_stream = None
+        if self.perf.offload_rewards:
+            self._reward_store_host = perf_lib.offload_param_store(
+                self.loader)
+            if self.device.type == "cuda":
+                self._copy_stream = torch.cuda.Stream(self.device)
         self._lr = optim.make_schedule(opt_cfg)
+        # a step's learning rate and bias corrections on the device, and
+        # the discrete timestep grid, made once: the step copies nothing
+        # from the host
+        self._scalars = optim.step_scalars(self.device)
+        self._grid = torch.from_numpy(self.scheduler.timesteps(
+            flow_cfg.num_steps)[:-1]).to(self.device)
+        # no attach_engine yet (ROADMAP Queue 1 item 13); the reference
+        # refuses fuse_step with an attached engine, as this must then
+        self._fused = (perf_lib.make_fused_step(self) if self.perf.fuse_step
+                       else None)
 
     # ------------------------------------------------------------- sampling
     def sde_mask(self, it: int):
         return None  # default: all steps stochastic (or all ODE)
+
+    def _sample(self, params, cond_g: torch.Tensor,
+                generator: Optional[torch.Generator], sde_mask, *,
+                x_init: Optional[torch.Tensor] = None,
+                eps: Optional[torch.Tensor] = None) -> Trajectory:
+        return rollout(self.adapter, params, cond_g, generator,
+                       self.scheduler, self.flow.num_steps, sde_mask,
+                       sde_mode=self.sde_mode, x_init=x_init, eps=eps)
 
     def sample(self, params, cond: torch.Tensor,
                generator: Optional[torch.Generator], it: int = 0, *,
@@ -114,21 +154,52 @@ class BaseTrainer:
                eps: Optional[torch.Tensor] = None) -> Trajectory:
         """cond: (P, Lc, D) prompt embeddings -> grouped trajectories
         (P·G samples)."""
-        cond_g = group_repeat(cond, self.flow.group_size)
-        return rollout(self.adapter, params, cond_g, generator,
-                       self.scheduler, self.flow.num_steps,
-                       self.sde_mask(it), sde_mode=self.sde_mode,
-                       x_init=x_init, eps=eps)
+        return self._sample(params, group_repeat(cond, self.flow.group_size),
+                            generator, self.sde_mask(it), x_init=x_init,
+                            eps=eps)
 
     # -------------------------------------------------------------- rewards
-    def _rewards(self, x0: torch.Tensor, cond_meta: Dict
+    @property
+    def offloads_rewards(self) -> bool:
+        """Whether the frozen reward towers live in host memory
+        (``perf.offload_rewards``)."""
+        return self._reward_store_host is not None
+
+    def prefetch_reward_params(self) -> None:
+        """Start the copy of the host-offloaded reward towers for the next
+        step (no-op without ``perf.offload_rewards``, with one pending, or
+        under ``perf.fuse_step``, whose captured step copies them itself).
+        The TrainLoop calls this right after each dispatch, so the copy
+        overlaps the in-flight step; the next step's reward phase consumes
+        it."""
+        if (self._reward_store_host is None or self._fused is not None
+                or self._reward_prefetch is not None):
+            return
+        self._reward_prefetch = perf_lib.prefetch_tree(
+            self._reward_store_host, self.device, self._copy_stream)
+
+    def _take_reward_params(self):
+        """The pending prefetch of the reward towers if the loop armed
+        one, else a copy started now."""
+        pre, self._reward_prefetch = self._reward_prefetch, None
+        if pre is None:
+            pre = perf_lib.prefetch_tree(self._reward_store_host,
+                                         self.device, self._copy_stream)
+        return pre
+
+    def _rewards(self, x0: torch.Tensor, cond_meta: Dict,
+                 reward_params=None
                  ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
                             Dict[str, torch.Tensor]]:
         """(raw rewards, advantages, reward stats); the stats (the weighted
         ``reward_mean`` the optimizer ascends and the per-reward means) are
-        device scalars."""
+        device scalars.  ``reward_params`` (``perf.offload_rewards``) is the
+        towers' prefetched device copy, waited on here."""
         G = self.flow.group_size
-        rew = self.loader.compute_all(x0, cond_meta, group_size=G)
+        store = (None if reward_params is None
+                 else perf_lib.wait_tree(reward_params))
+        rew = self.loader.compute_all(x0, cond_meta, group_size=G,
+                                      params=store)
         weights = self.loader.weight_map()
         adv = compute_advantages(self.flow.advantage_agg, rew, weights, G)
         stats = {f"reward/{name}": r.to(F32).mean()
@@ -146,7 +217,18 @@ class BaseTrainer:
         raise NotImplementedError
 
     def velocity(self, params, x, t, cond):
-        return self.adapter.velocity(params, x, t, cond)
+        # loss-side velocity: block remat checkpoints each backbone layer
+        # of the forward the backward runs again
+        return self.adapter.velocity(
+            params, x, t, cond, remat=perf_lib.block_remat(self.perf.remat))
+
+    def memory_stats(self, cond: torch.Tensor) -> Dict[str, Dict]:
+        """The bytes the update's autograd graph saves for the backward
+        (and the device peak over it, on CUDA) for a (P, Lc, cond_dim)
+        prompt batch, the state's and the reward towers' bytes, and the
+        fused step's graphs (``repro_torch.perf.memory``).  Runs the
+        update's loss and backward once; the params do not change."""
+        return perf_lib.update_memory(self, cond)
 
     def sample_timesteps(self, generator: Optional[torch.Generator],
                          batch: int, *, draw: Optional[torch.Tensor] = None
@@ -165,15 +247,18 @@ class BaseTrainer:
         if how == "uniform":
             u = draw if draw is not None else torch.rand(
                 (batch,), generator=generator, dtype=F32, device=dev)
-            lo, hi = torch.tensor([0.02, 0.98], dtype=F32, device=dev)
-            return torch.maximum(lo, u.to(F32) * (hi - lo) + lo)
+            # f32 lo and hi - lo, host scalars: u * (hi - lo) + lo, at
+            # least lo, as the reference's uniform(minval, maxval)
+            lo = np.float32(0.02)
+            span = np.float32(0.98) - lo
+            return torch.clamp_min(u.to(F32) * float(span) + float(lo),
+                                   float(lo))
         if how == "logit_normal":
             z = draw if draw is not None else torch.randn(
                 (batch,), generator=generator, dtype=F32, device=dev)
             return torch.sigmoid(z.to(F32))
         if how == "discrete":
-            grid = torch.from_numpy(
-                self.scheduler.timesteps(self.flow.num_steps)[:-1]).to(dev)
+            grid = self._grid.to(dev)
             idx = draw if draw is not None else torch.randint(
                 0, grid.shape[0], (batch,), generator=generator, device=dev)
             return grid[idx.long()]
@@ -219,19 +304,31 @@ class BaseTrainer:
                 p.grad = torch.zeros_like(p)
         return loss, aux
 
-    def apply_grads(self) -> Tuple[torch.Tensor, float]:
+    def _begin_update(self) -> None:
+        """Write the coming optimizer step's learning rate and bias
+        corrections into the device scalars ``apply_grads`` reads."""
+        step = int(self.state.opt.step) + 1
+        optim.write_step_scalars(self._scalars, self.opt_cfg, step,
+                                 self._lr(step - 1))
+
+    def _end_update(self) -> None:
+        """Advance the host step counter past the step ``_begin_update``
+        began."""
+        self.state.opt.step.add_(1)
+
+    def apply_grads(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Clip the leaves' ``.grad`` by their global norm, take one
-        optimizer step in place and clear the gradients.  Returns
-        (grad norm before clipping, learning rate)."""
+        optimizer step in place and clear the gradients: device work only,
+        between ``_begin_update`` and ``_end_update``.  Returns (grad norm
+        before clipping, learning rate), device scalars."""
         params = self.state.params
         grads = _map(params, lambda p: p.grad)
         _, gnorm = optim.clip_by_global_norm(grads, self.opt_cfg.grad_clip)
-        lr = self._lr(int(self.state.opt.step))
-        self.optimizer.update(params, grads, self.state.opt, self.opt_cfg,
-                              lr)
+        self.optimizer.apply(params, grads, self.state.opt, self.opt_cfg,
+                             self._scalars)
         for _, p in params_lib.leaves(params):
             p.grad = None
-        return gnorm, lr
+        return gnorm, self._scalars.lr.clone()
 
     def _update(self, traj: Trajectory, adv: torch.Tensor,
                 generator: Optional[torch.Generator] = None, *,
@@ -241,11 +338,31 @@ class BaseTrainer:
         loss, aux = self.backward(traj, adv, generator, t=t, eps=eps)
         gnorm, lr = self.apply_grads()
         metrics = dict(aux)
-        metrics.update(loss=loss, grad_norm=gnorm,
-                       lr=torch.tensor(lr, dtype=F32, device=loss.device))
+        metrics.update(loss=loss, grad_norm=gnorm, lr=lr)
         return metrics
 
     # ------------------------------------------------------------ iteration
+    def _step_body(self, cond: torch.Tensor, gen_sample, gen_update,
+                   sde_mask, draws: Dict[str, Optional[torch.Tensor]]
+                   ) -> Dict[str, torch.Tensor]:
+        """Rollout -> rewards -> advantages -> update, device work only
+        (``step`` and the fused step run it between ``_begin_update`` and
+        ``_end_update``)."""
+        traj = self._sample(self.state.params,
+                            group_repeat(cond, self.flow.group_size),
+                            gen_sample, sde_mask, x_init=draws.get("x_init"),
+                            eps=draws.get("eps"))
+        # the towers' device copy is referenced only inside ``_rewards``,
+        # so it is freed before the update's backward sets the peak
+        _, adv, reward_stats = self._rewards(
+            traj.x0, {"cond": traj.cond},
+            self._take_reward_params() if self.offloads_rewards else None)
+        metrics = self._update(traj, adv, gen_update,
+                               t=draws.get("update_t"),
+                               eps=draws.get("update_eps"))
+        metrics.update(reward_stats)
+        return metrics
+
     def step(self, cond: torch.Tensor, seed: int, it: int = 0, *,
              x_init: Optional[torch.Tensor] = None,
              eps: Optional[torch.Tensor] = None,
@@ -260,14 +377,18 @@ class BaseTrainer:
         the update's (the forward-process losses' timesteps and noise).
         Returns a flat dict of device scalars (loss, grad_norm, lr, the
         trainer's aux metrics, reward_mean and the per-reward means);
-        callers fetch them with one host transfer."""
+        callers fetch them with one host transfer.  With
+        ``perf.fuse_step`` the step is the fused one."""
+        if self._fused is not None:
+            return self._fused(cond, seed, it, x_init=x_init, eps=eps,
+                               update_t=update_t, update_eps=update_eps)
         step_seed = fold_seed(seed, it)
         gen = torch.Generator(device=self.device).manual_seed(step_seed)
-        traj = self.sample(self.state.params, cond, gen, it, x_init=x_init,
-                           eps=eps)
-        _, adv, reward_stats = self._rewards(traj.x0, {"cond": traj.cond})
         gen_u = torch.Generator(device=self.device).manual_seed(
             fold_seed(step_seed, 1))
-        metrics = self._update(traj, adv, gen_u, t=update_t, eps=update_eps)
-        metrics.update(reward_stats)
+        self._begin_update()
+        metrics = self._step_body(cond, gen, gen_u, self.sde_mask(it), {
+            "x_init": x_init, "eps": eps, "update_t": update_t,
+            "update_eps": update_eps})
+        self._end_update()
         return metrics

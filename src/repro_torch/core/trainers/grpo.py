@@ -36,11 +36,15 @@ class FlowGRPOTrainer(BaseTrainer):
         The T timesteps run as a Python loop, and each SDE step's term
         ``step_loss.mean() / n_sde`` is back-propagated at once, so only one
         timestep's activations are live at a time (at FLUX.1-dev's 4608
-        tokens this is what lets one card hold the step).  The gradients
-        accumulate in the parameters' ``.grad`` in the parameter dtype, as
-        the reference's scan transpose accumulates them; the result equals
-        its single ``value_and_grad`` up to f32 summation order.  The loss
-        draws nothing (``generator``, ``t`` and ``eps`` are unused).  ``n_sde``
+        tokens this is what lets one card hold the step): the footprint the
+        reference buys with ``jax.checkpoint`` around its loss scan, so
+        ``perf.remat="scan"``, with or without ``remat_offload``, runs this
+        same program, and ``"block"`` checkpoints each backbone layer
+        inside ``self.velocity``.  The gradients accumulate in the
+        parameters' ``.grad`` in the parameter dtype, as the reference's
+        scan transpose accumulates them; the result equals its single
+        ``value_and_grad`` up to f32 summation order.  The loss draws
+        nothing (``generator``, ``t`` and ``eps`` are unused).  ``n_sde``
         is known on the host from the trajectory's mask, and ODE steps,
         whose loss the reference masks to zero, are skipped.
 

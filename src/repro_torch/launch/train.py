@@ -17,12 +17,29 @@ raises).
       --set 'data.encoder={"cond_dim":32,"cond_len":4,"vocab":256,"hidden":64}' \\
       --set flow.cache_dir=/tmp/v_cache --set loop.ckpt_dir=/tmp/v_ckpt
 
+The perf policies and the pipelined loop take the reference's switches
+(``--set perf.remat=block``, ``perf.fuse_step``, ``perf.policy_dtype``,
+``perf.offload_rewards``, ``perf.remat=scan --set perf.remat_offload=true``,
+``perf.log_memory``, ``loop.pipeline=N``); a non-default policy prints the
+reference's ``[perf]`` banner, and ``perf.log_memory`` one ``[perf]`` line
+per ``memory_stats`` entry before training.
+
 ``main`` takes extra TrainLoop callbacks and returns ``Experiment.train``'s
-result plus the ``experiment``, for callers that drive it in-process.
+result plus the ``experiment`` and the ``memory_stats`` it printed (None
+without ``perf.log_memory``), for callers that drive it in-process.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.api import Experiment
+
+
+def _pretty(mem: dict) -> str:
+    return " ".join(
+        f"{k[:-len('_bytes')]}={v / 1e6:.2f}MB"
+        if k.endswith("_bytes") and isinstance(v, (int, float))
+        else f"{k}={v}" for k, v in mem.items() if v is not None)
 
 
 def main(argv=None, callbacks=()) -> dict:
@@ -32,6 +49,25 @@ def main(argv=None, callbacks=()) -> dict:
           f"({d['arch']['n_params'] / 1e6:.1f}M params), "
           f"sde={d['scheduler']['name']}, rewards={d['rewards']}, "
           f"device={d['device']}", flush=True)
+    p = exp.cfg.perf
+    if exp.cfg.loop.pipeline != 1:
+        print(f"[perf] loop.pipeline={exp.cfg.loop.pipeline} "
+              "(metrics drain up to pipeline-1 steps late; computation "
+              "is unchanged)", flush=True)
+    if p != type(p)():
+        print(f"[perf] remat={p.remat} fuse_step={p.fuse_step}"
+              + (f" policy_dtype={p.policy_dtype}" if p.policy_dtype else "")
+              + (" offload_rewards=true" if p.offload_rewards else "")
+              + (" remat_offload=true" if p.remat_offload else ""),
+              flush=True)
+    mem_stats = None
+    if p.log_memory:
+        tr = exp.build_trainer()
+        cond = torch.zeros((exp.cfg.data.batch_prompts, exp.cond_len,
+                            exp.cond_dim), device=exp.device)
+        mem_stats = tr.memory_stats(cond)
+        for name, mem in mem_stats.items():
+            print(f"[perf] {name} memory_stats: {_pretty(mem)}", flush=True)
     result = exp.train(callbacks)
     hist = result["history"]
     if hist:
@@ -39,6 +75,7 @@ def main(argv=None, callbacks=()) -> dict:
               f"; reward {hist[0]['reward']:+.4f} -> {hist[-1]['reward']:+.4f}",
               flush=True)
     result["experiment"] = exp
+    result["memory_stats"] = mem_stats
     return result
 
 

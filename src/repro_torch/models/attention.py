@@ -39,7 +39,7 @@ def spec(cfg: ArchConfig) -> Dict:
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, S, d) x (d, N, hd) -> (B, S, N, hd) in x's dtype."""
     d, n, hd = w.shape
-    out = torch.matmul(x, w.reshape(d, n * hd))
+    out = torch.matmul(x, w.to(x.dtype).reshape(d, n * hd))
     return out.reshape(*x.shape[:-1], n, hd).to(x.dtype)
 
 
@@ -67,4 +67,4 @@ def apply_full(p: Dict, cfg: ArchConfig, x: torch.Tensor, *,
     o = ops.flash_attention(q, k, v, causal=causal, window=window)
     H, hd, d = p["wo"].shape
     return torch.matmul(o.reshape(B, S, H * hd),
-                        p["wo"].reshape(H * hd, d)).to(x.dtype)
+                        p["wo"].to(x.dtype).reshape(H * hd, d)).to(x.dtype)

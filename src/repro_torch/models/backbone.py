@@ -11,12 +11,20 @@ the bidirectional adaLN-zero blocks, ``dense`` the pre-norm blocks
 causally by the flow adapter), ``ssm`` the Mamba-2 blocks ``[ln, SSD]``
 (causal by construction).  The other families (``moe``, ``hybrid``,
 ``vlm``, ``audio``) and the decode paths are not ported yet.
+
+``remat=True`` (``PerfConfig.remat="block"``) runs each block call under
+``torch.utils.checkpoint`` (non-reentrant) when grad is enabled: the
+backward keeps each block's inputs only and runs the block's forward again,
+kernels included, as the reference's ``jax.checkpoint`` around its scan
+body does.  The blocks draw nothing, so the RNG state is not stashed.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig
 from repro_torch.models import attention, layers, ssm
@@ -86,7 +94,7 @@ class Backbone:
                     window: int, positions: torch.Tensor,
                     cond: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        mod = torch.matmul(cond, p["ada"]).to(x.dtype)
+        mod = torch.matmul(cond, p["ada"].to(cond.dtype)).to(x.dtype)
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = torch.chunk(mod, 6, dim=-1)
         h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
         h = h * (1 + sc_a[:, None]) + sh_a[:, None]
@@ -113,25 +121,31 @@ class Backbone:
 
     def forward_embeds(self, params: Dict, x: torch.Tensor, *,
                        causal: bool = True, window: int = 0,
-                       cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       cond: Optional[torch.Tensor] = None,
+                       remat: bool = False) -> torch.Tensor:
         """Run all blocks over embedded inputs x: (B, S, d); returns the
         normed hidden states.  ``dit`` needs the adaLN conditioning vector
         ``cond`` (B, d); ``dense`` takes none; ``ssm`` is causal whatever
-        ``causal`` says and takes no ``cond``."""
+        ``causal`` says and takes no ``cond``.  ``remat`` checkpoints each
+        block (module docstring)."""
         cfg = self.cfg
-        if cfg.family == "ssm":
-            for p in _unbind(params["blocks"], cfg.n_layers):
-                x = self._ssm_block(p, x)
-            return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         if cfg.family == "dit" and cond is None:
             raise _not_ported("dit without adaLN conditioning")
-        positions = torch.arange(x.shape[1], dtype=torch.int32,
-                                 device=x.device)
-        for p in _unbind(params["blocks"], cfg.n_layers):
+        if cfg.family == "ssm":
+            block = self._ssm_block
+        else:
+            positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                     device=x.device)
+            kw = dict(causal=causal, window=window, positions=positions)
             if cfg.family == "dense":
-                x = self._dense_block(p, x, causal=causal, window=window,
-                                      positions=positions)
+                block = functools.partial(self._dense_block, **kw)
             else:
-                x = self._attn_block(p, x, causal=causal, window=window,
-                                     positions=positions, cond=cond)
+                block = functools.partial(self._attn_block, cond=cond, **kw)
+        remat = remat and torch.is_grad_enabled()
+        for p in _unbind(params["blocks"], cfg.n_layers):
+            if remat:
+                x = checkpoint(block, p, x, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = block(p, x)
         return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -8,6 +8,11 @@ as the adaLN modulation vector (a FLUX-style DiT); the other families run
 causally over ``[cond prefix; time token; latent tokens]`` (ported so far:
 the ``dense`` LM family, and the ``ssm`` family, causal by construction),
 with no sliding window (``window=0``), as the reference runs them.
+
+``policy_dtype`` (``PerfConfig.policy_dtype``) sets the activation dtype;
+None keeps the parameter dtype, the bitwise default.  ``velocity(...,
+remat=True)`` checkpoints each backbone block (``PerfConfig.remat="block"``,
+the loss side).
 """
 from __future__ import annotations
 
@@ -29,11 +34,12 @@ class FlowAdapter:
     """Velocity-field adapter over a Backbone."""
 
     def __init__(self, cfg: ArchConfig, flow_cfg: FlowRLConfig,
-                 cond_dim: int = 512):
+                 cond_dim: int = 512, policy_dtype=None):
         self.cfg = cfg
         self.flow_cfg = flow_cfg
         self.cond_dim = cond_dim
         self.backbone = Backbone(cfg)
+        self.policy_dtype = policy_dtype
 
     def spec(self) -> Dict:
         d = self.cfg.d_model
@@ -48,28 +54,32 @@ class FlowAdapter:
         }
 
     def velocity(self, params: Dict, x_t: torch.Tensor, t: torch.Tensor,
-                 cond: torch.Tensor) -> torch.Tensor:
+                 cond: torch.Tensor, *, remat: bool = False) -> torch.Tensor:
         """x_t: (B, Lt, latent_dim); t: (B,) in [0,1]; cond: (B, Lc,
-        cond_dim).  Activations run in the parameter dtype; returns v:
-        (B, Lt, latent_dim), always float32."""
+        cond_dim).  Activations run in ``policy_dtype`` or else the
+        parameter dtype; ``remat`` checkpoints each backbone block.
+        Returns v: (B, Lt, latent_dim), always float32."""
         Lt = x_t.shape[1]
-        dtype = params["latent_in"].dtype
-        h_lat = torch.matmul(x_t.to(dtype), params["latent_in"]).to(dtype)
-        h_cond = torch.matmul(cond.to(dtype), params["cond_proj"]).to(dtype)
+        dtype = self.policy_dtype or params["latent_in"].dtype
+        h_lat = torch.matmul(x_t.to(dtype),
+                             params["latent_in"].to(dtype)).to(dtype)
+        h_cond = torch.matmul(cond.to(dtype),
+                              params["cond_proj"].to(dtype)).to(dtype)
         t_feat = layers.timestep_embedding(t, self.cfg.d_model).to(dtype)
-        t_hid = torch.nn.functional.silu(
-            torch.matmul(t_feat, params["time_w1"]).to(F32)).to(dtype)
-        t_emb = torch.matmul(t_hid, params["time_w2"]).to(dtype)
+        t_hid = torch.nn.functional.silu(torch.matmul(
+            t_feat, params["time_w1"].to(dtype)).to(F32)).to(dtype)
+        t_emb = torch.matmul(t_hid, params["time_w2"].to(dtype)).to(dtype)
         if self.cfg.family == "dit":
             # bidirectional DiT: condition prefix + adaLN time modulation
             x = torch.cat([h_cond, h_lat], dim=1)
             hidden = self.backbone.forward_embeds(params["backbone"], x,
-                                                  causal=False, cond=t_emb)
+                                                  causal=False, cond=t_emb,
+                                                  remat=remat)
         else:
             # causal DiT: [cond prefix; time token; latent tokens]
             x = torch.cat([h_cond, t_emb[:, None, :], h_lat], dim=1)
             hidden = self.backbone.forward_embeds(params["backbone"], x,
-                                                  causal=True)
+                                                  causal=True, remat=remat)
         h_out = hidden[:, -Lt:]
         return torch.matmul(h_out.to(F32), params["latent_out"].to(F32))
 

@@ -7,6 +7,12 @@ keeps it in f32 (the SwiGLU gate and up projections, the time MLP's silu
 input), the port takes the bf16 result of ``torch.matmul`` — accumulated in
 f32, rounded once to bf16 — and upcasts it: the same to bf16 rounding, not
 bitwise.  In f32 every product is an f32 matmul, as in the reference.
+
+Under ``PerfConfig.policy_dtype="float32"`` on bf16 parameters the
+activations are f32 and the weights bf16.  JAX's einsum promotes the pair
+to f32; ``torch.matmul`` refuses mixed dtypes, so every product takes its
+weight as ``w.to(x.dtype)``: the activation dtype, and the same tensor,
+with no launch, when the dtypes already agree.
 """
 from __future__ import annotations
 
@@ -73,10 +79,10 @@ def mlp_spec(d: int, f: int) -> dict:
 
 
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    g = torch.matmul(x, p["w_gate"]).to(F32)
-    u = torch.matmul(x, p["w_up"]).to(F32)
+    g = torch.matmul(x, p["w_gate"].to(x.dtype)).to(F32)
+    u = torch.matmul(x, p["w_up"].to(x.dtype)).to(F32)
     h = (torch.nn.functional.silu(g) * u).to(x.dtype)
-    return torch.matmul(h, p["w_down"]).to(x.dtype)
+    return torch.matmul(h, p["w_down"].to(x.dtype)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -90,7 +90,7 @@ def apply_full(p: Dict, cfg: ArchConfig, x: torch.Tensor, *,
     """Full-sequence SSD block. x: (B, S, d)."""
     m = dims(cfg)
     B, S, _ = x.shape
-    zxbcdt = torch.matmul(x, p["in_proj"]).to(x.dtype)
+    zxbcdt = torch.matmul(x, p["in_proj"].to(x.dtype)).to(x.dtype)
     z, xin, bc, dt_raw = _split_proj(cfg, zxbcdt)
     conv_in = torch.cat([xin, bc], dim=-1)
     conv_out = _causal_conv(conv_in, p["conv_w"], p["conv_b"])
@@ -105,7 +105,7 @@ def apply_full(p: Dict, cfg: ArchConfig, x: torch.Tensor, *,
     y = y.reshape(B, S, m["d_in"])
     y = layers.rmsnorm(p["norm"], y * F.silu(z.to(F32)).to(x.dtype),
                        cfg.norm_eps)
-    out = torch.matmul(y, p["out_proj"]).to(x.dtype)
+    out = torch.matmul(y, p["out_proj"].to(y.dtype)).to(x.dtype)
     cache = None
     if return_cache:
         cache = SSMCache(conv=conv_in[:, S - (m["d_conv"] - 1):, :],

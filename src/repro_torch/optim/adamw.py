@@ -5,10 +5,18 @@ dtype (bf16 params, f32 state), the update computed in f32 and cast back to
 the parameter dtype.  ``torch.optim.AdamW`` is not used: it keeps the
 moments in the parameter dtype.
 
-Unlike the reference, which returns new trees, ``adamw_update`` updates the
+Unlike the reference, which returns new trees, the update writes the
 parameters and both moments in place (one leaf at a time, so the f32
-temporaries never exceed one leaf) and returns the same objects: at full
-width a second copy of the state would not fit beside the first.
+temporaries never exceed one leaf): at full width a second copy of the
+state would not fit beside the first.
+
+The step counter stays on the host (``AdamWState.step``, what checkpoints
+save).  A step's learning rate and bias corrections are host values too,
+computed once per step and written into three device scalars
+(:class:`StepScalars`, by fills: no host-to-device copy), which
+``adamw_apply`` reads; so the device work of a step never waits on the
+host and can be captured into a CUDA graph, whose replays read the
+scalars written before each replay.
 """
 from __future__ import annotations
 
@@ -28,6 +36,14 @@ class AdamWState(NamedTuple):
     nu: Dict            # second moments (f32)
 
 
+class StepScalars(NamedTuple):
+    """One step's learning rate and bias corrections, f32 0-d tensors on
+    the parameters' device."""
+    lr: torch.Tensor
+    c1: torch.Tensor
+    c2: torch.Tensor
+
+
 def _zeros_like_tree(tree):
     if isinstance(tree, dict):
         return {k: _zeros_like_tree(v) for k, v in tree.items()}
@@ -40,30 +56,60 @@ def adamw_init(params) -> AdamWState:
                       nu=_zeros_like_tree(params))
 
 
-@torch.no_grad()
-def adamw_update(params, grads, state: AdamWState, cfg: OptimConfig,
-                 lr: float) -> Tuple[Dict, AdamWState]:
-    """One AdamW step.  ``grads`` is a tree like ``params`` (any dtype);
-    ``lr`` the step's learning rate.  Returns ``(params, state)``, both
-    updated in place."""
+def bias_corrections(cfg: OptimConfig, step: int) -> Tuple[float, float]:
+    """(1 - b1 ** step, 1 - b2 ** step), each computed in f32 as the
+    reference computes it, as Python floats (exact f32 values)."""
     b1, b2 = cfg.betas
-    step = int(state.step) + 1
-    # bias corrections in f32, as the reference computes 1 - b ** step
-    c1 = torch.tensor(1.0, dtype=F32) - torch.tensor(b1, dtype=F32) ** step
-    c2 = torch.tensor(1.0, dtype=F32) - torch.tensor(b2, dtype=F32) ** step
-    lr = torch.tensor(lr, dtype=F32)
+    one = torch.tensor(1.0, dtype=F32)
+    return (float(one - torch.tensor(b1, dtype=F32) ** step),
+            float(one - torch.tensor(b2, dtype=F32) ** step))
+
+
+def step_scalars(device) -> StepScalars:
+    return StepScalars(*(torch.zeros((), dtype=F32, device=device)
+                         for _ in range(3)))
+
+
+def write_step_scalars(scalars: StepScalars, cfg: OptimConfig, step: int,
+                       lr: float) -> None:
+    """Write step ``step``'s (1-based) learning rate and bias corrections
+    into ``scalars``, enqueued behind the device work already in flight."""
+    for t, v in zip(scalars, (lr, *bias_corrections(cfg, step))):
+        t.fill_(v)
+
+
+@torch.no_grad()
+def adamw_apply(params, grads, state: AdamWState, cfg: OptimConfig,
+                scalars: StepScalars) -> None:
+    """The device half of one AdamW step: moments and params updated in
+    place from ``scalars``; reads and writes no host value (the caller
+    advances ``state.step``)."""
+    b1, b2 = cfg.betas
     g_leaves = dict(leaves(grads))
     m_leaves = dict(leaves(state.mu))
     v_leaves = dict(leaves(state.nu))
     for path, p in leaves(params):
         g, m, v = g_leaves[path], m_leaves[path], v_leaves[path]
-        dev = p.device
         gf = g.to(F32)
         m.mul_(b1).add_(gf * (1 - b1))
         v.mul_(b2).add_(gf * (1 - b2) * gf)
-        delta = (m / c1.to(dev)) / (torch.sqrt(v / c2.to(dev)) + cfg.eps)
+        delta = (m / scalars.c1) / (torch.sqrt(v / scalars.c2) + cfg.eps)
         if cfg.weight_decay:
             delta.add_(cfg.weight_decay * p.to(F32))
-        p.copy_((p.to(F32) - lr.to(dev) * delta).to(p.dtype))
+        p.copy_((p.to(F32) - scalars.lr * delta).to(p.dtype))
+
+
+def adamw_update(params, grads, state: AdamWState, cfg: OptimConfig,
+                 lr: float) -> Tuple[Dict, AdamWState]:
+    """One AdamW step.  ``grads`` is a tree like ``params`` (any dtype);
+    ``lr`` the step's learning rate.  Returns ``(params, state)``, both
+    updated in place, and the host step counter advanced.  The reference's
+    whole-step API, kept as the parity tests' entry: the trainers write
+    the scalars once per step and call ``adamw_apply``."""
+    step = int(state.step) + 1
+    _, first = next(leaves(params))
+    scalars = step_scalars(first.device)
+    write_step_scalars(scalars, cfg, step, lr)
+    adamw_apply(params, grads, state, cfg, scalars)
     state.step.fill_(step)
     return params, state
