@@ -26,7 +26,9 @@ script exits 2 before printing any result.
    dense path's shape (4, 4609, 15 query heads over 5 kv heads of 64,
    causal, bf16: a GQA group of 3 and a one-row last query tile), held to
    the same band relative to max |plain| as the flux path shape, and timed
-   beside SDPA (``enable_gqa``) and the causal bound.
+   beside SDPA (``enable_gqa``) and the causal bound.  Beside the
+   ``grpo_loss`` rows, the device time of an empty kernel launch
+   (``torch.cuda._sleep(0)`` from a replayed graph): their floor.
 4. ``FlowAdapter.velocity`` at full ``flux_dit`` width, depth 2, through the
    kernels and through the plain versions, at the bf16 band.
 5. The main path: ``repro_torch.launch.serve.main`` serving 4 requests of
@@ -175,13 +177,32 @@ script exits 2 before printing any result.
    steps at phase 8's geometry, batch and rewards; then ``smollm-360m`` at
    all 32 layers under ``block`` for 1 step; launch counts, s per step and
    peak memory.
-23. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
-   ``ssm_train_path``, ``perf_path`` and ``kernels`` JSON lines, the card's
-   name and power limit, and the last line ``{"ok": true, "device":
-   {...}}``.
+23. ``distributed/`` on a one-rank NCCL group (the machine has one card,
+   and NCCL takes one rank per device): (a) the group over a ``file://``
+   store and its (1, 1) ("data", "model") mesh through
+   ``distributed.build_mesh``, with the per-layer gather's all-gather and
+   reduce-scatter on NCCL (bitwise the identity on one rank); (b) one
+   ``flow_grpo`` step of ``flux_dit`` and ``mamba2-370m`` at full width,
+   depth 2, through the mesh path (the reward gather, the gradient
+   all-reduce, the loss and metric reductions on NCCL) against the
+   no-mesh path, bitwise; ``dist.microbatch=2`` against 0 in f32 (one
+   loss and backward on one trajectory), against the reference's band and
+   held to the stated one; the fused step with ``microbatch=2`` on the
+   mesh (1 capture with its collectives, 1 replay bitwise the eager
+   step); (c) ``mamba2-370m`` at 48 layers under ``none`` and ``flux_dit``
+   at 16 blocks under ``block``, each with ``microbatch=2`` on the mesh,
+   through ``launch.train``, 2 steps: launch counts, s a step, steps/s,
+   peak memory, and the gradient all-reduce's device time against the
+   step; (d) the mesh trainer's checkpoint restored without a mesh,
+   bitwise; (e) ``mamba2-370m`` at 48 layers served on the mesh against
+   the engine without one, a bucket of 4, per request bitwise.
+24. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
+   ``ssm_train_path``, ``perf_path``, ``distributed_path`` and
+   ``kernels`` JSON lines, the card's name and power limit, and the last
+   line ``{"ok": true, "device": {...}}``.
 
 ``--only N,...`` runs just the device and build phases and phases N (3 and
-8-22) and prints no result lines: a development aid.
+8-23) and prints no result lines: a development aid.
 """
 from __future__ import annotations
 
@@ -804,6 +825,11 @@ def check_grpo(dev) -> list:
     B = 4
     lpn, lpo, adv, gl = (torch.randn(B, generator=g, device=dev)
                          for _ in range(4))
+    # the launch floor: the device time of an empty kernel (a zero-cycle
+    # spin, torch.cuda._sleep(0)) measured as the kernels are
+    floor_ms = graph_ms(lambda: torch.cuda._sleep(0), 40)
+    log(f"  an empty kernel launch: {floor_ms:.4f} ms on the device (replayed "
+        f"graph), the floor under any kernel of a few bytes")
     rows = []
     for name, kern, plain, n_in, n_out in (
             ("grpo_loss",
@@ -828,7 +854,8 @@ def check_grpo(dev) -> list:
                                   "src/repro/kernels/grpo_loss.py:80"),
                      "max_abs_err": err_f if name == "grpo_loss" else err_b,
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": "bytes", "library_ms": None})
+                     "bound_by": "bytes", "library_ms": None,
+                     "launch_floor_ms": floor_ms})
     return rows
 
 
@@ -2126,16 +2153,17 @@ def dense_serve_path() -> dict:
 
 # ----------------------------------------------------------------- phase 17
 def _train_want(name: str, steps: int, layers: int, fwd: str, bwd: str,
-                remat: str = "none") -> dict:
+                remat: str = "none", microbatch: int = 1) -> dict:
     """Kernel launches of ``steps`` train steps of trainer ``name`` at
     T = 4 over ``layers`` blocks that each run kernel ``fwd`` forward and
     ``bwd`` backward: the rollout's forward per layer and step and its
     sde_step per SDE step; the loss's forward and backward per layer at
     each SDE step (GRPO family) or once (NFT/AWM), the forward twice under
     ``remat="block"`` (once more in the backward), and the grpo_loss
-    kernels only where the reference's kernel condition holds."""
+    kernels only where the reference's kernel condition holds; each loss
+    pass once per chunk under ``dist.microbatch``."""
     sde = {"mix_grpo": 2}.get(name, NUM_STEPS)   # MixGRPO: window 2
-    passes = sde if name in GRPO_FAMILY else 1
+    passes = (sde if name in GRPO_FAMILY else 1) * microbatch
     want = {fn.__name__: 0 for fn in COUNTED}
     want[fwd] = layers * (NUM_STEPS + (2 if remat == "block" else 1)
                           * passes)
@@ -2143,7 +2171,7 @@ def _train_want(name: str, steps: int, layers: int, fwd: str, bwd: str,
     if name in GRPO_FAMILY:
         want["sde_step"] = sde
         if name != "grpo_guard":
-            want["grpo_loss"] = want["grpo_loss_bwd"] = sde
+            want["grpo_loss"] = want["grpo_loss_bwd"] = sde * microbatch
     return {k: v * steps for k, v in want.items()}
 
 
@@ -2172,7 +2200,8 @@ def _train_argv(tmp: str, arch: str, layers: int, cond_len: int, name: str,
 def train_one(tmp: str, arch: str, layers: int, cond_len: int, kernels: tuple,
               watch, name: str, n: int, *, extra=(), tag: str = "",
               remat: str = "none", captured: bool = False,
-              profile_what: str = "") -> dict:
+              profile_what: str = "", mesh=None, microbatch: int = 1
+              ) -> dict:
     """``repro_torch.launch.train.main`` on the card: trainer ``name`` for
     ``n`` steps at ``arch``'s full width and ``layers`` layers, bf16,
     ``cond_len`` condition tokens, one time token and phase 8's latents,
@@ -2184,12 +2213,14 @@ def train_one(tmp: str, arch: str, layers: int, cond_len: int, kernels: tuple,
     the counters count each replay's kernels, ``kernels.counts``), finite
     metrics, every layer's gradient of the watch's ``grad_keys`` at the
     first update finite and nonzero, params that move, s per step, peak
-    memory, and with ``profile_what`` a profile of one more step.  Returns
-    the row and the trainer."""
+    memory, and with ``profile_what`` a profile of one more step.
+    ``mesh`` is injected into the trainer; ``microbatch`` is the
+    ``dist.microbatch`` that ``extra`` sets.  Returns the row and the
+    trainer."""
     argv = _train_argv(tmp, arch, layers, cond_len, name, n, tag, extra)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    res = train.main(argv, callbacks=[watch])
+    res = train.main(argv, callbacks=[watch], mesh=mesh)
     launches = counts()
     variants = dict(ssd_scan.variant_launches)
     bwd_variants = dict(ssd_scan_bwd.variant_launches)
@@ -2198,7 +2229,8 @@ def train_one(tmp: str, arch: str, layers: int, cond_len: int, kernels: tuple,
     peak_reserved = torch.cuda.max_memory_reserved()
     hist = res["history"]
     trainer = res["experiment"].build_trainer()
-    want = _train_want(name, n, layers, *kernels, remat=remat)
+    want = _train_want(name, n, layers, *kernels, remat=remat,
+                       microbatch=microbatch)
     label = f"{name}{' ' + tag if tag else ''}"
     log(f"  {label}: launches {launches} over {n} train steps (expected "
         f"{want}); ssd_scan variants {variants}, ssd_scan_bwd variants "
@@ -2693,6 +2725,358 @@ def flux_block_path(tmp: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 23
+MB2 = ("--set", "dist.microbatch=2")
+# the reference's microbatch band (tests/test_distributed.py::
+# test_microbatch_grads_match_full_batch): loss atol 1e-7, grads rtol 1e-4 /
+# atol 1e-6, printed beside the gaps.  A chunk's velocity rounds otherwise
+# than the full batch's (another batch size), and the GRPO loss carries
+# that through its ratio of two full-width log-densities (sums over
+# 262,144 latent elements; PERF.md: 3.3e-3 to 6.8e-3 of a leaf's max
+# |grad| measured over two trajectories), so flow_grpo is held to
+# MB_GRPO_BAND of each leaf's max |grad| and of the loss; AWM's loss, with
+# no ratio, on injected draws, to MB_AWM_BAND (measured 2.4e-6 and 7.2e-6).
+# A wrong accumulation (a chunk lost, no division by k) is off by O(1).
+MB_LOSS_ATOL, MB_RTOL, MB_ATOL = 1e-7, 1e-4, 1e-6
+MB_GRPO_BAND, MB_AWM_BAND = 2e-2, 1e-3
+
+
+def one_rank_group(tmp: str):
+    """(a) A one-rank NCCL group (``file://`` store) and its (1, 1)
+    ("data", "model") mesh through ``distributed.build_mesh``; the
+    gather's all-gather and reduce-scatter on NCCL over a block leaf's
+    shape (bitwise the identity on one rank) and their times."""
+    import torch.distributed as dist
+    from repro_torch import distributed, sharding as shlib
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store",
+                            rank=0, world_size=1, device_id=dev)
+    mesh = distributed.build_mesh(1, 1, "cuda")
+    backend = dist.get_backend(mesh.get_group("data"))
+    x = torch.randn(3072, 12288, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    y = shlib.GatherParam.apply(x, 1, mesh.get_group("model"), 1)
+    g = torch.randn_like(y)
+    y.backward(g)
+    ok = bool(torch.equal(y.detach(), x.detach()) and torch.equal(x.grad, g))
+    group = mesh.get_group("model")
+    ag = cuda_ms(lambda: shlib.gather_dim(x.detach(), 1, group, 1), 5)
+    rs = cuda_ms(lambda: shlib.scatter_mean_dim(g, 1, group, 1), 5)
+    log(f"  one-rank group: backend {backend}, mesh {tuple(mesh.shape)} "
+        f"{mesh.mesh_dim_names}; GatherParam on (3072, 12288) bf16 bitwise "
+        f"the identity forward and backward: {ok}; all-gather {ag:.4f} ms, "
+        f"reduce-scatter (f32) {rs:.4f} ms")
+    if backend != "nccl" or not ok:
+        fail("the one-rank NCCL group or its gather is wrong")
+    return mesh, {"backend": backend, "gather_identity": ok,
+                  "all_gather_ms": ag, "reduce_scatter_ms": rs}
+
+
+def _mesh_setup(dev, arch: str, seed: int):
+    ssm = arch == SSM_ARCH
+    cfg = replace(configs.get(arch), n_layers=UPDATE_LAYERS)
+    flow = FlowRLConfig(num_steps=NUM_STEPS, group_size=2,
+                        clip_range=UPDATE_CLIP, latent_tokens=LAT_TOKENS,
+                        latent_dim=LAT_DIM, advantage_agg="gdpo",
+                        rewards=(RewardSpec("pickscore", 1.0, args={
+                            "latent_dim": LAT_DIM, "cond_dim": COND_DIM}),
+                                 RewardSpec("latent_norm", 0.1)))
+    opt = OptimConfig(lr=1e-4, warmup_steps=1, total_steps=1000)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cond = torch.randn(1, SSM_COND_LEN if ssm else COND_LEN, COND_DIM,
+                       generator=gen, device=dev)
+    return cfg, flow, opt, cond
+
+
+def _draw(tr, arch: str, seed: int) -> None:
+    if arch == SSM_ARCH:
+        draw_ssm(tr.state.params, seed=seed)
+    else:
+        draw_modulation(tr.state.params, tr.adapter.cfg.d_model, seed=seed)
+
+
+def check_mesh_update(dev, arch: str, mesh, tmp: str) -> dict:
+    """(b) One flow_grpo step of ``arch`` at full width, depth 2, through
+    the mesh path (the one-rank mesh injected: reward gather, gradient
+    all-reduce, loss and metric reductions on NCCL) and without a mesh,
+    from one state and seed: loss, grad norm and every param bitwise.
+    (d) for mamba2-370m: the mesh trainer's checkpoint (its canonical
+    state, saved) restored into a trainer without a mesh, bitwise."""
+    from repro_torch import checkpoint
+    cfg, flow, opt, cond = _mesh_setup(dev, arch, 23)
+    runs, params = {}, None
+    for name, m in (("none", None), ("mesh", mesh)):
+        tr = registry.build("trainer", "flow_grpo", cfg, flow, opt, seed=0,
+                            cond_dim=COND_DIM, device=dev, params=params,
+                            mesh=m)
+        if params is None:
+            _draw(tr, arch, 24)
+            params = _clone(tr.state.params)
+        reset_counts()
+        met = tr.step(cond, 5, it=0)
+        runs[name] = ({k: float(v) for k, v in met.items()}, counts(), tr)
+    (ma, la, a), (mb, lb, b) = runs["none"], runs["mesh"]
+    same = all(torch.equal(x, y) for (_, x), (_, y) in zip(
+        params_lib.leaves(a.state.params), params_lib.leaves(b.state.params)))
+    bitwise = ma == mb and same and la == lb
+    log(f"  {arch} depth {UPDATE_LAYERS}, no mesh / one-rank mesh: loss "
+        f"{ma['loss']!r} / {mb['loss']!r}, grad_norm {ma['grad_norm']!r} / "
+        f"{mb['grad_norm']!r}, reward {ma['reward_mean']!r} / "
+        f"{mb['reward_mean']!r}; every param equal {same}; launches equal "
+        f"{la == lb}; bitwise {bitwise}")
+    if not bitwise:
+        fail(f"{arch}: the one-rank mesh path is not bitwise the no-mesh "
+             "path")
+    out = {"loss": [ma["loss"], mb["loss"]], "bitwise": bitwise}
+    del a
+    runs.pop("none")
+    if arch == SSM_ARCH:
+        ckpt = f"{tmp}/ckpt_mesh"
+        state = b.canonical_state()
+        checkpoint.save_checkpoint(ckpt, 1, state)
+        fresh = registry.build("trainer", "flow_grpo", cfg, flow, opt,
+                               seed=1, cond_dim=COND_DIM, device=dev)
+        step, got = checkpoint.restore_latest(ckpt, fresh.state,
+                                              fresh.state_slicer())
+        rt = step == 1 and all(
+            torch.equal(x, y) for x, y in zip(_leaves(got), _leaves(state)))
+        log(f"  (d) checkpoint saved under the mesh, restored without one: "
+            f"step {step}, every leaf (params, moments, step) bitwise {rt}")
+        if not rt:
+            fail("the mesh checkpoint did not restore bitwise without a "
+                 "mesh")
+        out["checkpoint_roundtrip"] = rt
+        del fresh, got, state
+    del b, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(state):
+    from repro_torch.checkpoint.io import _flatten
+    return [t for _, t in _flatten(state)]
+
+
+def check_mesh_microbatch(dev, arch: str, mesh) -> dict:
+    """(b) ``dist.microbatch=2`` against 0 on the mesh, f32 params and
+    ``perf.policy_dtype=float32``, at full width, depth 2: one loss and
+    backward of ``flow_grpo`` on one rollout's trajectory and advantages,
+    and of ``awm`` on the same trajectory with injected timesteps and
+    noise; the loss and every gradient leaf against the reference's band
+    (printed: the share of elements outside it) and held to MB_GRPO_BAND
+    and MB_AWM_BAND of the loss and of each leaf's max |grad|."""
+    from repro_torch.config import DistConfig
+    cfg, flow, opt, cond = _mesh_setup(dev, arch, 25)
+    f32 = PerfConfig(policy_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    draws = {"t": torch.rand(2, generator=gen, device=dev) * 0.96 + 0.02,
+             "eps": torch.randn(2, LAT_TOKENS, LAT_DIM, generator=gen,
+                                device=dev)}
+    params, traj, adv, out = None, None, None, {}
+    for tname, band in (("flow_grpo", MB_GRPO_BAND), ("awm", MB_AWM_BAND)):
+        grads, losses, ran = {}, {}, {}
+        for k in (0, 2):
+            tr = registry.build("trainer", tname, cfg, flow, opt, seed=0,
+                                cond_dim=COND_DIM, device=dev,
+                                dtype=torch.float32, params=params, perf=f32,
+                                dist=DistConfig(microbatch=k), mesh=mesh)
+            if params is None:
+                _draw(tr, arch, 26)
+                params = tr.state.params
+                traj = tr.sample(params, cond, gen)
+                _, adv, _ = tr._rewards(traj.x0, {"cond": traj.cond})
+            kw = draws if tname == "awm" else {}
+            reset_counts()
+            loss, _ = tr.backward(traj, adv, None, **kw)
+            ran[k] = counts()
+            losses[k] = float(loss)
+            grads[k] = [p.grad.clone() for _, p in params_lib.leaves(params)]
+            for _, p in params_lib.leaves(params):
+                p.grad = None
+            del tr
+        worst, outside, total = 0.0, 0, 0
+        for g0, g2 in zip(grads[0], grads[2]):
+            d = (g2 - g0).abs()
+            worst = max(worst, float(d.max()) / max(float(g0.abs().max()),
+                                                    1e-30))
+            outside += int((d > MB_ATOL + MB_RTOL * g0.abs()).sum())
+            total += d.numel()
+        dl = abs(losses[2] - losses[0])
+        log(f"  {arch} depth {UPDATE_LAYERS}, f32, {tname}, microbatch 2 / 0:"
+            f" loss {losses[2]!r} / {losses[0]!r} (|diff| {dl:.3e}; "
+            f"reference atol {MB_LOSS_ATOL}); worst leaf max|diff| / "
+            f"max|grad| {worst:.3e} (held to {band}); {outside} of {total} "
+            f"gradient elements outside the reference's rtol {MB_RTOL} / "
+            f"atol {MB_ATOL}; loss-side launches {ran}")
+        if (not math.isfinite(losses[2]) or worst > band
+                or dl > band * max(abs(losses[0]), 1.0)):
+            fail(f"{arch}: {tname} with microbatch=2 is off its band of the "
+                 "full batch")
+        out[tname] = {"loss": [losses[0], losses[2]], "loss_gap": dl,
+                      "worst_leaf_share": worst, "band": band,
+                      "outside_reference_band": outside, "elements": total,
+                      "launches": {str(k): v for k, v in ran.items()}}
+        del grads
+    del traj, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_mesh_fused(dev, mesh) -> dict:
+    """(b) The fused step with ``dist.microbatch=2`` on the mesh,
+    mamba2-370m at full width, depth 2, bf16: step 0 eager and captured
+    (the graph holds the NCCL collectives), step 1 replayed, against the
+    eager mesh step on the same draws: bitwise, 1 capture and 1 replay."""
+    from repro_torch.config import DistConfig
+    cfg, flow, opt, cond = _mesh_setup(dev, SSM_ARCH, 28)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    draws = [{"x_init": torch.randn(2, LAT_TOKENS, LAT_DIM, generator=gen,
+                                    device=dev),
+              "eps": torch.randn(NUM_STEPS, 2, LAT_TOKENS, LAT_DIM,
+                                 generator=gen, device=dev)}
+             for _ in range(2)]
+    mb = DistConfig(microbatch=2)
+    eager = registry.build("trainer", "flow_grpo", cfg, flow, opt, seed=0,
+                           cond_dim=COND_DIM, device=dev, dist=mb, mesh=mesh)
+    _draw(eager, SSM_ARCH, 30)
+    fused = registry.build("trainer", "flow_grpo", cfg, flow, opt, seed=0,
+                           cond_dim=COND_DIM, device=dev, dist=mb, mesh=mesh,
+                           params=_clone(eager.state.params),
+                           perf=PerfConfig(fuse_step=True))
+    me, mf, ran = [], [], []
+    for it in range(2):
+        reset_counts()
+        me.append({k: float(v) for k, v in eager.step(
+            cond, 0, it=it, **draws[it]).items()})
+        ran_e = counts()
+        reset_counts()
+        mf.append({k: float(v) for k, v in fused.step(
+            cond, 0, it=it, **draws[it]).items()})
+        ran.append((ran_e, counts()))
+    rep = fused._fused.report()
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        params_lib.leaves(eager.state.params),
+        params_lib.leaves(fused.state.params)))
+    bitwise = me == mf and same
+    log(f"  fused + microbatch 2 on the mesh, {SSM_ARCH} depth "
+        f"{UPDATE_LAYERS}: {rep['captures']} capture(s), {rep['replays']} "
+        f"replay(s); step 1 eager / replayed loss {me[1]['loss']!r} / "
+        f"{mf[1]['loss']!r}, grad_norm {me[1]['grad_norm']!r} / "
+        f"{mf[1]['grad_norm']!r}; params equal {same}; bitwise {bitwise}; "
+        f"launches per step eager / fused {ran}")
+    if (rep["captures"], rep["replays"]) != (1, 1) or not bitwise or not all(
+            e == f for e, f in ran):
+        fail("the fused microbatched step on the mesh is not bitwise the "
+             "eager one")
+    del eager, fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"bitwise": bitwise, "fused": rep, "launches": ran}
+
+
+def mesh_train_path(tmp: str, mesh) -> dict:
+    """(c) Full width and depth through ``launch.train`` on the mesh with
+    ``dist.microbatch=2``, flow_grpo, 2 steps, phase 19's and phase 22's
+    geometry, batch and rewards: mamba2-370m at 48 layers under
+    ``remat=none`` (SSM leaves drawn), then flux_dit at 16 blocks under
+    ``block``.  Launch counts (each loss pass once per chunk), s a step,
+    steps/s, peak allocated and reserved memory; and the device time of
+    the step's gradient all-reduce over the one-rank "data" group (every
+    leaf, f32), against the step."""
+    out = {}
+    out[SSM_ARCH], trainer = train_one(
+        tmp, SSM_ARCH, SSM_TRAIN_LAYERS, SSM_COND_LEN, SSM_KERNELS,
+        _ssm_watch(), "flow_grpo", TRAIN_STEPS, extra=MB2, tag="mb2",
+        mesh=mesh, microbatch=2)
+    for _, p in params_lib.leaves(trainer.state.params):
+        p.grad = torch.zeros_like(p)
+    sync = cuda_ms(trainer._sync_grads, 3)
+    for _, p in params_lib.leaves(trainer.state.params):
+        p.grad = None
+    step_ms = 1e3 / out[SSM_ARCH]["steps_per_s"]
+    out[SSM_ARCH]["grad_allreduce_ms"] = sync
+    out[SSM_ARCH]["grad_allreduce_share"] = sync / step_ms
+    log(f"  {SSM_ARCH}: the gradient all-reduce over the one-rank group "
+        f"{sync:.3f} ms a step, {100 * sync / step_ms:.3f} % of "
+        f"{step_ms:.1f} ms")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["flux_dit"], trainer = train_one(
+        tmp, "flux_dit", FLUX_BLOCK_LAYERS, COND_LEN,
+        ("flash_attention", "flash_attention_bwd"),
+        _TrainWatch("attn", ("wq", "wk", "wv")), "flow_grpo", TRAIN_STEPS,
+        extra=BLOCK + MB2, tag="block_mb2", remat="block", mesh=mesh,
+        microbatch=2)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_mesh_serving(dev, mesh) -> dict:
+    """(e) mamba2-370m at 48 layers, SSM leaves drawn, 4 requests in one
+    bucket of 4, 4 steps of flow_sde: the engine on the one-rank mesh
+    (its keyed executor: the bucket split over "data", the latents
+    all-gathered) against the engine without one, per request bitwise."""
+    from repro_torch.core import schedulers
+    from repro_torch.serving import ServingEngine
+    cfg = configs.get(SSM_ARCH)
+    flow = FlowRLConfig(num_steps=NUM_STEPS, latent_tokens=LAT_TOKENS,
+                        latent_dim=LAT_DIM, sde_type="flow_sde")
+    adapter = FlowAdapter(cfg, flow, COND_DIM)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    params = params_lib.init(adapter.spec(), gen, torch.bfloat16, dev)
+    draw_ssm(params, seed=32)
+    sched = schedulers.build("flow_sde", flow.eta)
+    cond = torch.randn(4, SSM_COND_LEN, COND_DIM, generator=gen,
+                       device=dev).cpu().numpy()
+    lat, stats = {}, {}
+    for name, m in (("none", None), ("mesh", mesh)):
+        eng = ServingEngine(adapter, sched, params, num_steps=NUM_STEPS,
+                            device=dev, max_batch=4, buckets=[4],
+                            cond_len=SSM_COND_LEN, mesh=m)
+        reset_counts()
+        lat[name] = eng.serve(cond, seed=33)
+        stats[name] = {"launches": counts(),
+                       "dispatches": eng.stats["dispatches"],
+                       "data_parallel": eng.stats["data_parallel"]}
+        del eng
+    same = bool(torch.equal(lat["none"], lat["mesh"]))
+    log(f"  served {SSM_ARCH} on the mesh / without: {stats}; per-request "
+        f"latents bitwise {same}")
+    if not same or not torch.isfinite(lat["mesh"]).all():
+        fail("sharded serving on the mesh is not bitwise the engine without "
+             "one")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"bitwise": same, **stats["mesh"]}
+
+
+def distributed_phase(dev, tmp: str) -> dict:
+    """Phase 23: (a) the one-rank NCCL group and mesh, (b) the mesh path
+    bitwise the no-mesh path (flux_dit, mamba2-370m), microbatch 2 against
+    0, the fused microbatched step on the mesh, (c) full-width, full-depth
+    microbatched training on the mesh, (d) the checkpoint round trip, (e)
+    sharded serving.  Destroys the group at the end."""
+    import torch.distributed as dist
+    mesh, out = one_rank_group(tmp)
+    try:
+        out["update"] = {a: check_mesh_update(dev, a, mesh, tmp)
+                         for a in ("flux_dit", SSM_ARCH)}
+        out["microbatch"] = {a: check_mesh_microbatch(dev, a, mesh)
+                             for a in ("flux_dit", SSM_ARCH)}
+        out["fused"] = check_mesh_fused(dev, mesh)
+        out["train"] = mesh_train_path(tmp, mesh)
+        out["serve"] = check_mesh_serving(dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def _clone(tree):
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
@@ -2708,7 +3092,7 @@ def _cast(tree, dtype):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", metavar="N,N,...",
-                    help="run only these of phases 3-22 after the device and "
+                    help="run only these of phases 3-23 after the device and "
                          "build phases, and print no result lines (a "
                          "development aid; the check runs every phase)")
     args = ap.parse_args(argv)
@@ -2857,6 +3241,15 @@ def main(argv=None) -> int:
             f"update at depth {UPDATE_LAYERS} under block against none")
         perf_res["block_train"] = flux_block_path(tmp)
         perf_res["flux_block_update"] = check_block_update(dev, "flux_dit")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log("[23] distributed/: a one-rank NCCL group and mesh; the mesh "
+            "path against none, microbatch 2, the fused step on the mesh; "
+            f"{SSM_ARCH} at {SSM_TRAIN_LAYERS} layers and flux_dit at "
+            f"{FLUX_BLOCK_LAYERS} blocks with microbatch 2; checkpoint; "
+            "sharded serving")
+        dist_res = distributed_phase(dev, tmp)
 
     def by_path(name: str) -> dict:
         return {"serve": res["launches"][name],
@@ -2873,7 +3266,12 @@ def main(argv=None) -> int:
                 "train_flux16_block": perf_res["block_train"]["flux_dit"][
                     "launches"][name],
                 "train_dense_block": perf_res["block_train"][DENSE_ARCH][
-                    "launches"][name]}
+                    "launches"][name],
+                "train_ssm_mb2_mesh": dist_res["train"][SSM_ARCH][
+                    "launches"][name],
+                "train_flux16_block_mb2_mesh": dist_res["train"]["flux_dit"][
+                    "launches"][name],
+                "serve_ssm_mesh": dist_res["serve"]["launches"][name]}
 
     for row in rows:
         row["launches"] = train_res["launches"][row["name"]]
@@ -2887,7 +3285,8 @@ def main(argv=None) -> int:
     keys = ("name", "route", "variant", "source", "replaces", "launches",
             "max_abs_err", "max_rel_err", "max_rel_err_wgmma", "ms", "fma_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_by_path", "times_by_batch", "dense_shape")
+            "launches_by_path", "times_by_batch", "dense_shape",
+            "launch_floor_ms")
     print(json.dumps({"main_path": {k: v for k, v in res.items()
                                     if k != "launches"}}))
     print(json.dumps({"train_path": {k: v for k, v in train_res.items()
@@ -2899,6 +3298,7 @@ def main(argv=None) -> int:
     print(json.dumps({"ssm_train_path": ssm_train,
                       "update_check": ssm_update}))
     print(json.dumps({"perf_path": perf_res}))
+    print(json.dumps({"distributed_path": dist_res}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(card_line())
@@ -2931,7 +3331,8 @@ def run_only(dev, only: set) -> int:
               21: lambda: (_in_tmp(fused_path)(), check_fused_update(dev),
                            check_f32_policy_velocity(dev)),
               22: lambda: (_in_tmp(flux_block_path)(),
-                           check_block_update(dev, "flux_dit"))}
+                           check_block_update(dev, "flux_dit")),
+              23: _in_tmp(lambda tmp: distributed_phase(dev, tmp))}
     for n in sorted(only):
         if n not in phases:
             fail(f"--only: phase {n} cannot run alone")

@@ -11,7 +11,9 @@ optimizer, dataset and the ``ConditionProvider`` by registry name:
     latents = exp.serve(["a fox in watercolor"])
 
 Everything runs on ``device`` (default ``cuda``; without a CUDA device the
-default raises).
+default raises).  ``cfg.dist`` lays the trainer and the serving engine out
+on a (data, model) mesh over the process group the caller (``torchrun``
+and the launch CLIs) initialised; ``describe()`` shows how it resolved.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
-from repro_torch import checkpoint, registry
+from repro_torch import checkpoint, distributed, registry
 from repro_torch.api import loop as loop_lib
 from repro_torch.api.overrides import apply_overrides, replace_fields
 from repro_torch.api.serving import DTYPES, FlowSampler
@@ -57,6 +59,9 @@ class Experiment:
     def __init__(self, cfg: RunConfig, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # an injected mesh for the trainer and the engine in place of the
+        # one cfg.dist resolves to (a one-rank group's (1, 1) included)
+        self.mesh = None
         self._arch: Optional[ArchConfig] = None
         self._trainer = None
         self._dataset = None
@@ -207,13 +212,14 @@ class Experiment:
                 self.arch, self.flow, self.cfg.optim,
                 seed=self.cfg.seed, cond_dim=self.cond_dim,
                 dtype=self.param_dtype, device=self.device,
-                dist=self.cfg.dist, perf=self.cfg.perf)
+                dist=self.cfg.dist, perf=self.cfg.perf, mesh=self.mesh)
         return self._trainer
 
     def describe(self) -> Dict[str, Any]:
         """Resolved-component summary (``registry.describe``)."""
         f = self.cfg.flow
         arch = self.arch
+        dp, mp = distributed.resolve_axes(self.cfg.dist)
         n = params_lib.n_params(FlowAdapter(arch, f, self.cond_dim).spec())
         return {
             "arch": {"name": arch.name, "family": arch.family,
@@ -225,6 +231,9 @@ class Experiment:
                                            self.cfg.optim.optimizer),
             "dataset": registry.describe("dataset", self.cfg.data.dataset),
             "device": str(self.device),
+            "dist": {"devices": distributed.world_size(),
+                     "data_parallel": dp, "model_parallel": mp,
+                     "microbatch": self.cfg.dist.microbatch},
         }
 
     # ---------------------------------------------------------------- train
@@ -244,6 +253,8 @@ class Experiment:
         return os.path.join(ckpt_dir, "experiment.json")
 
     def _write_ckpt_identity(self, ckpt_dir: str) -> None:
+        if not distributed.is_main_process():
+            return
         os.makedirs(ckpt_dir, exist_ok=True)
         with open(self._identity_path(ckpt_dir), "w") as f:
             json.dump(self._ckpt_identity(), f, indent=1)
@@ -303,8 +314,9 @@ class Experiment:
         if resume and checkpoint.latest_step(lc.ckpt_dir) is not None:
             self._check_ckpt_identity(lc.ckpt_dir)
             try:
-                step, state = checkpoint.restore_latest(lc.ckpt_dir,
-                                                        trainer.state)
+                # the canonical leaves on disk, cut to this rank's shards
+                step, state = checkpoint.restore_latest(
+                    lc.ckpt_dir, trainer.state, trainer.state_slicer())
             except ValueError as e:
                 raise ConfigError(
                     f"cannot resume from {lc.ckpt_dir!r}: {e} — set "
@@ -312,8 +324,9 @@ class Experiment:
                 ) from None
             trainer.state = state
             start_step = step
-            print(f"[resume] restored full RLState at step {step} "
-                  f"from {lc.ckpt_dir}", flush=True)
+            if distributed.is_main_process():
+                print(f"[resume] restored full RLState at step {step} "
+                      f"from {lc.ckpt_dir}", flush=True)
         if lc.save_every:
             if not resume and checkpoint.latest_step(lc.ckpt_dir) is not None:
                 raise ConfigError(
@@ -350,7 +363,7 @@ class Experiment:
                            step_tiers=step_tiers, deadline_s=deadline_s,
                            admission=admission, max_inflight=max_inflight,
                            dist=self.cfg.dist, provider=provider,
-                           cond_len=self.cond_len)
+                           cond_len=self.cond_len, mesh=self.mesh)
 
     def build_engine(self, max_batch: int = 8, params=None,
                      buckets: Optional[Sequence[int]] = None,

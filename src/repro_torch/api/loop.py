@@ -26,6 +26,12 @@ dispatched, so a checkpoint taken mid-pipeline resumes bitwise.  After each
 dispatch the loop also starts the copy of host-offloaded reward towers
 (``trainer.prefetch_reward_params``, ``perf.offload_rewards``).
 
+On a mesh every rank runs the loop over the same prompt batches and gets
+the same metrics (the trainer reduces them over the mesh); rank 0 alone
+prints, writes the JSON log and writes checkpoints, which hold the
+canonical unsharded state (``trainer.canonical_state()``, gathered on
+every rank, since the gather is a collective).
+
 Per row, ``dt`` is the step's dispatch→drain wall time in seconds
 (unrounded) and ``steps_per_s`` the drained-step rate from the second
 step's dispatch on (the first step carries the kernels' build).
@@ -41,6 +47,7 @@ from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import checkpoint
+from repro_torch.distributed.mesh import is_main_process
 
 
 def _no_sync(loop: "TrainLoop", step: int) -> bool:
@@ -75,6 +82,8 @@ class MetricLogger(Callback):
         self.every = every
 
     def on_step(self, loop, step, metrics):
+        if not is_main_process():
+            return
         if self.every and (step % self.every == 0
                            or step == loop.steps - 1):
             sps = metrics.get("steps_per_s", 0.0)
@@ -106,6 +115,8 @@ class JSONLogSink(Callback):
                 pass                     # unreadable prior log: start fresh
 
     def _flush(self, history) -> None:
+        if not is_main_process():
+            return
         os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
         tmp = self.path + ".tmp"
         with open(tmp, "w") as f:
@@ -134,8 +145,9 @@ class PeriodicCheckpoint(Callback):
 
     def on_step(self, loop, step, metrics):
         if self.every and (step + 1) % self.every == 0:
-            checkpoint.save_checkpoint(self.ckpt_dir, step + 1,
-                                       loop.trainer.state)
+            state = loop.trainer.canonical_state()
+            if is_main_process():
+                checkpoint.save_checkpoint(self.ckpt_dir, step + 1, state)
 
 
 class EarlyStop(Callback):
@@ -157,8 +169,10 @@ class EarlyStop(Callback):
             return
         self.stale += 1
         if self.stale >= self.patience:
-            print(f"[early-stop] {self.metric} stalled at {self.best:+.4f} "
-                  f"for {self.patience} steps", flush=True)
+            if is_main_process():
+                print(f"[early-stop] {self.metric} stalled at "
+                      f"{self.best:+.4f} for {self.patience} steps",
+                      flush=True)
             loop.request_stop()
 
 

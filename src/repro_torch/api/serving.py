@@ -4,7 +4,9 @@ thin client of :class:`repro_torch.serving.ServingEngine` (the port of
 
 It owns params + adapter + scheduler resolution and hands every batch to
 the engine.  Without ``params`` it serves freshly initialised weights, drawn
-on ``device`` from a generator seeded with ``seed``.  Request i of
+on ``device`` from a generator seeded with ``seed``.  ``dist`` (or an
+injected ``mesh``) shards the engine's inference over a (data, model)
+mesh; per-request latents are the one-device ones.  Request i of
 ``serve(cond, seed)`` runs under seed ``fold_seed(seed, i)``, so its latent
 does not depend on ``max_batch`` or the bucket layout.
 """
@@ -33,7 +35,7 @@ class FlowSampler:
                  step_tiers: Optional[Sequence[int]] = None,
                  deadline_s: float = 0.005, admission=None,
                  max_inflight: int = 4, dist=None, provider=None,
-                 cond_len: int = 16):
+                 cond_len: int = 16, mesh=None):
         if param_dtype not in DTYPES:
             raise ValueError(f"param_dtype must be one of {sorted(DTYPES)}, "
                              f"got {param_dtype!r}")
@@ -52,8 +54,10 @@ class FlowSampler:
             num_steps=flow_cfg.num_steps, device=self.device,
             max_batch=max_batch, buckets=buckets, step_tiers=step_tiers,
             deadline_s=deadline_s, admission=admission,
-            max_inflight=max_inflight, dist=dist, provider=provider,
-            cond_len=cond_len)
+            max_inflight=max_inflight, dist=dist, mesh=mesh,
+            provider=provider, cond_len=cond_len)
+        # on a "model" axis the engine holds this rank's shards
+        self.params = self.engine.params
 
     def warmup(self) -> dict:
         """Run the engine's bucket grid once; returns per-shape seconds."""

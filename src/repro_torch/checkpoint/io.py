@@ -9,13 +9,19 @@ its pytrees (``params/backbone/blocks/attn/wq``, ``opt/step``,
 through the manifest's dtype.  So a checkpoint crosses between the packages
 in both directions, bit for bit.  Writes are atomic (temp file + rename),
 the manifest first.
+
+On disk the layout is always the canonical, unsharded one: a trainer on
+a mesh saves ``canonical_state()`` (its shards all-gathered) from rank 0
+alone, and restores under any layout by passing its plan's ``slicer``,
+which cuts each leaf read from disk to the rank's shard before it reaches
+the device.  So a checkpoint moves between layouts bit for bit.
 """
 from __future__ import annotations
 
 import json
 import os
 import re
-from typing import Any, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -118,9 +124,13 @@ def _restore_leaf(arr: np.ndarray, dtype: str, like) -> torch.Tensor:
     return t
 
 
-def load_checkpoint(ckpt_dir: str, step: int, like: Any) -> Any:
+def load_checkpoint(ckpt_dir: str, step: int, like: Any,
+                    slicer: Optional[Callable[[str, np.ndarray], np.ndarray]]
+                    = None) -> Any:
     """Restore into the structure of ``like`` (shapes validated; each leaf
-    on the device of its counterpart in ``like``)."""
+    on the device of its counterpart in ``like``).  ``slicer(key, array)``
+    cuts each canonical leaf to the piece ``like`` holds (a
+    ``PartitionPlan.slicer``)."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(path + ".manifest", "rb") as f:
         manifest = _unpack_manifest(f.read())
@@ -132,7 +142,9 @@ def load_checkpoint(ckpt_dir: str, step: int, like: Any) -> Any:
                 f"checkpoint {path}.npz doesn't match the requested "
                 f"structure: {len(missing)} missing key(s), e.g. "
                 f"{missing[:3]}")
-        leaves = [_restore_leaf(z[key], manifest["dtypes"][key], leaf)
+        cut = slicer or (lambda key, arr: arr)
+        leaves = [_restore_leaf(cut(key, z[key]), manifest["dtypes"][key],
+                                leaf)
                   for key, leaf in flat]
     return _unflatten(like, iter(leaves))
 
@@ -145,10 +157,12 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_latest(ckpt_dir: str, like: Any) -> Tuple[Optional[int], Any]:
-    """Restore the newest checkpoint into the structure of ``like``;
-    ``(None, like)`` when there is none."""
+def restore_latest(ckpt_dir: str, like: Any, slicer=None
+                   ) -> Tuple[Optional[int], Any]:
+    """Restore the newest checkpoint into the structure of ``like``
+    (``slicer`` as for :func:`load_checkpoint`); ``(None, like)`` when
+    there is none."""
     step = latest_step(ckpt_dir)
     if step is None:
         return None, like
-    return step, load_checkpoint(ckpt_dir, step, like)
+    return step, load_checkpoint(ckpt_dir, step, like, slicer)

@@ -5,7 +5,7 @@ serving and the five trainers read.
 block), ``FlowRLConfig`` (trainer, SDE dynamics, rewards, preprocessing,
 latent geometry), ``OptimConfig``, ``DataConfig``
 (prompt dataset and frozen encoder), ``DistConfig`` and ``PerfConfig``
-(the device layout, only 1 x 1 ported, and the performance policies),
+(the (data, model) device layout and the performance policies),
 ``LoopConfig`` and ``RunConfig`` load from dicts/JSON through the same
 strict typed :func:`from_dict` as the reference, with the reference's
 defaults (``src/repro/config.py``).
@@ -110,11 +110,28 @@ class OptimConfig:
 
 @dataclass(frozen=True)
 class DistConfig:
-    """Device layout.  Only ``data_parallel = model_parallel = 1`` (one
-    device) is ported; anything else raises ``NotImplementedError`` where an
-    engine or a trainer is built (ROADMAP Queue 1 item 15)."""
+    """Distributed layout (``repro_torch.distributed``): a 2-D
+    ``("data", "model")`` mesh over the ranks of the process group.
+
+    ``data_parallel``: ranks on the "data" axis, over which the prompts x
+    groups batch is split; 1 (default) with ``model_parallel`` 1 is the
+    single-device path (no mesh, no collective); 0 means "every rank not
+    claimed by model_parallel".  ``model_parallel``: ranks on the "model"
+    axis, over which params and AdamW moments are sharded per the
+    ``PartitionPlan`` and gathered one layer at a time before use; 0 means
+    "every rank not claimed by data_parallel".  ``dp x mp`` is resolved
+    against the process group's world size (1 without a group).
+    ``microbatch``: split each batch into this many sequential
+    gradient-accumulation chunks (0/1 = one full-batch pass).
+    ``donate_state``: the reference donates the state to its jitted
+    update; the port's update is in place either way, so the field is
+    accepted, validated and changes nothing.  All four are runtime
+    choices, not experiment identity: a checkpoint written at one layout
+    resumes at any other."""
     data_parallel: int = 1
     model_parallel: int = 1
+    microbatch: int = 0
+    donate_state: bool = True
 
 
 @dataclass(frozen=True)
@@ -146,15 +163,14 @@ class PerfConfig:
 
 
 def check_ported_layout(dist: "DistConfig", perf: "PerfConfig") -> None:
-    """Raise ``NotImplementedError`` for a device layout the port does not
-    have yet, and ``ValueError`` for a perf policy the reference's
-    ``validate`` refuses."""
-    if dist.data_parallel != 1 or dist.model_parallel != 1:
-        raise NotImplementedError(
-            f"dist={dist}: only the single-device layout is ported "
-            "(ROADMAP.md Queue 1 item 15, distributed/)")
+    """Raise ``ValueError`` for a perf policy the reference's ``validate``
+    refuses, or a negative microbatch count (the layout's axes are
+    resolved against the process group by ``distributed.resolve_axes``)."""
     from repro_torch.perf.policy import validate
     validate(perf)
+    if dist.microbatch < 0:
+        raise ValueError(
+            f"dist.microbatch must be >= 0, got {dist.microbatch}")
 
 
 @dataclass(frozen=True)

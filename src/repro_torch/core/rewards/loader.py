@@ -62,19 +62,27 @@ class MultiRewardLoader:
             model.set_params(store[model.model_id])
 
     @torch.no_grad()
+    def has_kind(self, kind: str) -> bool:
+        """Whether any configured reward model is ``kind`` ("pointwise" or
+        "groupwise")."""
+        return any(m.kind == kind for m in self.models)
+
     def compute_all(self, x0: torch.Tensor, cond_meta: Dict, *,
-                    group_size: int, params: Dict[str, object] = None
+                    group_size: int, params: Dict[str, object] = None,
+                    kinds=("pointwise", "groupwise")
                     ) -> Dict[str, torch.Tensor]:
-        """{reward_name: (B,) raw rewards} for every configured reward
-        (groupwise models are evaluated within GRPO groups).  ``params``
-        replaces the store for this evaluation (the device copy of
-        host-offloaded towers); the models point at the store again
-        afterwards."""
+        """{reward_name: (B,) raw rewards} for every configured reward of
+        one of ``kinds`` (groupwise models are evaluated within GRPO
+        groups).  ``params`` replaces the store for this evaluation (the
+        device copy of host-offloaded towers); the models point at the
+        store again afterwards."""
         if params is not None:
             self._point(params)
         try:
             out = {}
             for i, (spec, model) in enumerate(zip(self.specs, self.models)):
+                if model.kind not in kinds:
+                    continue
                 name = f"{spec.reward_type}:{i}"
                 if model.kind == "groupwise":
                     out[name] = model.score(x0, cond_meta,

@@ -87,6 +87,40 @@ def _mask_list(sde_mask, num_steps: int) -> List[bool]:
     return mask
 
 
+def _stochastic(sde_mode: str, mask: List[bool]) -> List[bool]:
+    if sde_mode not in SDE_MODES:
+        raise ValueError(f"sde_mode must be one of {SDE_MODES}, "
+                         f"got {sde_mode!r}")
+    n = len(mask)
+    return {"all_sde": [True] * n, "all_ode": [False] * n,
+            "mixed": mask}[sde_mode]
+
+
+def rollout_draws(adapter: FlowAdapter, generator: Optional[torch.Generator],
+                  batch: int, num_steps: int,
+                  sde_mask: Optional[Sequence[bool]] = None, *,
+                  sde_mode: str = "mixed", device=None,
+                  draw_x_init: bool = True, draw_eps: bool = True
+                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The draws ``rollout`` makes for a batch of ``batch``: the init
+    latent ``(B, Lt, ld)`` (unless ``draw_x_init`` is False) and then the
+    step noise ``(T, B, Lt, ld)`` (None when no step is stochastic or
+    ``draw_eps`` is False), in that order from ``generator``.  A
+    data-parallel rank draws the whole batch's and keeps its rows, so
+    every layout samples the same trajectories."""
+    mask = _mask_list(sde_mask, num_steps)
+    stoch = _stochastic(sde_mode, mask)
+    x_init = (adapter.init_latent(generator, batch, device) if draw_x_init
+              else None)
+    eps = None
+    if draw_eps and any(stoch):
+        fc = adapter.flow_cfg
+        eps = torch.randn((num_steps, batch, fc.latent_tokens, fc.latent_dim),
+                          generator=generator, dtype=F32,
+                          device=device or generator.device)
+    return x_init, eps
+
+
 @torch.no_grad()
 def rollout(adapter: FlowAdapter, params, cond: torch.Tensor,
             generator: Optional[torch.Generator],
@@ -106,21 +140,18 @@ def rollout(adapter: FlowAdapter, params, cond: torch.Tensor,
     the host booleans of ``sde_mask``.  The trajectory carries
     ``sde_mask`` as given (all True by default), as the reference's
     does."""
-    if sde_mode not in SDE_MODES:
-        raise ValueError(f"sde_mode must be one of {SDE_MODES}, "
-                         f"got {sde_mode!r}")
     B = cond.shape[0]
     device = cond.device
     ts = scheduler.timesteps(num_steps)
     mask = _mask_list(sde_mask, num_steps)
-    stoch = {"all_sde": [True] * num_steps, "all_ode": [False] * num_steps,
-             "mixed": mask}[sde_mode]
-    if x_init is None:
-        x_init = adapter.init_latent(generator, B, device)
-    if eps is None and any(stoch):
-        fc = adapter.flow_cfg
-        eps = torch.randn((num_steps, B, fc.latent_tokens, fc.latent_dim),
-                          generator=generator, dtype=F32, device=device)
+    stoch = _stochastic(sde_mode, mask)
+    if x_init is None or (eps is None and any(stoch)):
+        x_d, eps_d = rollout_draws(adapter, generator, B, num_steps, mask,
+                                   sde_mode=sde_mode, device=device,
+                                   draw_x_init=x_init is None,
+                                   draw_eps=eps is None)
+        x_init = x_d if x_init is None else x_init
+        eps = eps_d if eps is None else eps
     x = x_init.to(device=device, dtype=F32)
     xs, logps = [x], []
     for i in range(num_steps):

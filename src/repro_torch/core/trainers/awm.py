@@ -52,6 +52,7 @@ class AWMTrainer(BaseTrainer):
         a = torch.clamp(adv, -self.adv_clip, self.adv_clip)
         loss = (a * se).mean()
         loss.backward()
-        aux = {"vel_err": torch.sqrt(se.detach().mean()),
-               "adv_clip_frac": (adv.abs() > self.adv_clip).to(F32).mean()}
+        aux = {"vel_err": torch.sqrt(self.batch_mean(se.detach().mean())),
+               "adv_clip_frac": self.batch_mean(
+                   (adv.abs() > self.adv_clip).to(F32).mean())}
         return loss.detach(), aux

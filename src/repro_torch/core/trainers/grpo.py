@@ -98,6 +98,7 @@ class FlowGRPOTrainer(BaseTrainer):
             loss_sum = loss_sum + term.detach()
             clip_sum = clip_sum + frac.detach().mean()
             gap = torch.maximum(gap, (logp_new.detach() - logp_old).abs().max())
-        aux = {"clip_frac": clip_sum / denom,
-               "adv_std": adv.std(correction=0), "logp_gap": gap}
+        # the batch's statistics (on a data mesh, over every rank's rows)
+        aux = {"clip_frac": self.batch_mean(clip_sum / denom),
+               "adv_std": self.batch_std(adv), "logp_gap": self.batch_max(gap)}
         return loss_sum / denom, aux

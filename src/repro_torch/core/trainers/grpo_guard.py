@@ -13,7 +13,8 @@ The reference sends only vanilla GRPO to its fused loss kernel
 (``repro/core/trainers/grpo.py:37-38``), so this trainer's loss takes the
 plain PyTorch branch of ``FlowGRPOTrainer.loss_fn``.  RatioNorm is a
 statistic of one timestep's batch, which the port's one backward per
-timestep holds whole.
+timestep holds whole; on a data mesh its mean is all-reduced over the
+"data" ranks (``BaseTrainer.batch_mean``).
 """
 from __future__ import annotations
 
@@ -34,5 +35,6 @@ class GRPOGuardTrainer(FlowGRPOTrainer):
                         is_sde: bool) -> torch.Tensor:
         # RatioNorm: divide by the batch-mean ratio at this timestep; the
         # mean is detached: the correction is a statistic, not a policy term
-        mean = ratio.detach().mean()
+        # (on a data mesh the whole batch's mean, over every rank's rows)
+        mean = self.batch_mean(ratio.detach().mean())
         return ratio / torch.clamp(mean, min=1e-6)

@@ -68,6 +68,6 @@ class DiffusionNFTTrainer(BaseTrainer):
         se_neg = (v_neg - target) ** 2
         loss = (r * se_pos + (1.0 - r) * se_neg).mean()
         loss.backward()
-        aux = {"r_mean": r.mean(),
-               "vel_err": torch.sqrt(se_pos.detach().mean())}
+        aux = {"r_mean": self.batch_mean(r.mean()),
+               "vel_err": torch.sqrt(self.batch_mean(se_pos.detach().mean()))}
         return loss.detach(), aux

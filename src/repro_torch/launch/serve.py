@@ -14,6 +14,11 @@ timings end in a host fetch of the latents, so they cover the device work.
       --requests 3 --set flow.num_steps=2 \\
       --set 'data.encoder={"cond_dim":32,"cond_len":4,"vocab":256,"hidden":64}'
 
+Sharded serving (``--set dist.data_parallel=N``, ``model_parallel``)
+runs under ``torchrun`` as the train CLI does: every rank submits the
+same requests, each runs its slice of every bucket, and rank 0 prints;
+per-request latents are the one-device ones.
+
 ``main`` returns ``{"latents", "stats", "warmup", "warmup_s", "encode_s",
 "serve_s", "engine"}`` for callers that drive it in-process.
 """
@@ -23,10 +28,13 @@ import json
 import time
 
 import numpy as np
+import torch.distributed as dist
 
+from repro_torch import distributed
 from repro_torch.api.experiment import Experiment, default_cli_config
 from repro_torch.config import replace
 from repro_torch.data import synthetic_prompts
+from repro_torch.launch.train import _log, join_group
 
 
 def serve_profile():
@@ -67,6 +75,15 @@ def main(argv=None) -> dict:
         ap.error("--max-batch must be >= 1")
     buckets = _int_list(args.bucket, "bucket", ap)
     step_tiers = _int_list(args.step_tiers, "step-tiers", ap)
+    created = join_group(args)
+    try:
+        return _serve(args, buckets, step_tiers)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _serve(args, buckets, step_tiers) -> dict:
     exp = Experiment.from_args(args, base=serve_profile())
 
     prompts = synthetic_prompts(args.requests)
@@ -81,21 +98,22 @@ def main(argv=None) -> dict:
     engine.encode(prompts)               # encoder weights + cond-cache fill
     enc_s = time.perf_counter() - t0
     grid = " ".join(f"{k}={v:.2f}s" for k, v in sorted(report.items()))
-    print(f"warmup: ran {len(report)} bucket shapes in {warm_s:.2f}s "
-          f"({grid}); cond encode+cache {enc_s:.2f}s", flush=True)
+    _log(f"warmup: ran {len(report)} bucket shapes in {warm_s:.2f}s "
+         f"({grid}); cond encode+cache {enc_s:.2f}s")
 
     t0 = time.perf_counter()
     latents = engine.serve(prompts, exp.cfg.seed)      # ends in a host fetch
     dt = max(time.perf_counter() - t0, 1e-9)
     s = engine.stats
     lat = latents.numpy()
-    print(f"steady-state: served {args.requests} requests in {dt:.3f}s "
-          f"({args.requests / dt:.3f} req/s) on {exp.device}; latents "
-          f"{tuple(lat.shape)}, rms={float(np.sqrt((lat ** 2).mean())):.3f}")
-    print(f"engine: buckets={s['buckets']} step_tiers={s['step_tiers']} "
-          f"dispatches={s['dispatches']} padded_lanes={s['padded_lanes']} "
-          f"cond_cache={s['cond_cache']}", flush=True)
-    if args.stats_json:
+    _log(f"steady-state: served {args.requests} requests in {dt:.3f}s "
+         f"({args.requests / dt:.3f} req/s) on {exp.device}; latents "
+         f"{tuple(lat.shape)}, rms={float(np.sqrt((lat ** 2).mean())):.3f}")
+    _log(f"engine: buckets={s['buckets']} step_tiers={s['step_tiers']} "
+         f"dispatches={s['dispatches']} padded_lanes={s['padded_lanes']} "
+         f"cond_cache={s['cond_cache']} data_parallel={s['data_parallel']} "
+         f"model_parallel={s['model_parallel']}")
+    if args.stats_json and distributed.is_main_process():
         payload = json.dumps(s, indent=2, sort_keys=True)
         if args.stats_json == "-":
             print(payload)

@@ -12,11 +12,17 @@ causally by the flow adapter), ``ssm`` the Mamba-2 blocks ``[ln, SSD]``
 (causal by construction).  The other families (``moe``, ``hybrid``,
 ``vlm``, ``audio``) and the decode paths are not ported yet.
 
+On a mesh with a "model" axis each block first gathers its slice of the
+sharded leaves (``repro_torch.sharding.constrain_params``, where the
+reference constrains each scan slice to the gathered layout), so the
+block's kernels see whole weights.
+
 ``remat=True`` (``PerfConfig.remat="block"``) runs each block call under
 ``torch.utils.checkpoint`` (non-reentrant) when grad is enabled: the
 backward keeps each block's inputs only and runs the block's forward again,
 kernels included, as the reference's ``jax.checkpoint`` around its scan
-body does.  The blocks draw nothing, so the RNG state is not stashed.
+body does, the gather included (a second all-gather).  The blocks draw
+nothing, so the RNG state is not stashed.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding as shlib
 from repro_torch.config import ArchConfig
 from repro_torch.models import attention, layers, ssm
 from repro_torch.models.params import P, stack
@@ -75,6 +82,10 @@ class Backbone:
         if cfg.family not in PORTED_FAMILIES:
             raise _not_ported(cfg.family)
         self.cfg = cfg
+        # the unstacked block spec: a layer slice's canonical shapes and
+        # logical axes, for the per-layer gather
+        self._block_spec = (_ssm_block_spec(cfg) if cfg.family == "ssm"
+                            else _attn_block_spec(cfg))
 
     def spec(self) -> Dict:
         cfg = self.cfg
@@ -83,9 +94,7 @@ class Backbone:
             "embed": P((cfg.vocab_size, d), ("vocab", "embed"), "small"),
             "final_norm": layers.rmsnorm_spec(d),
         }
-        block = (_ssm_block_spec(cfg) if cfg.family == "ssm"
-                 else _attn_block_spec(cfg))
-        s["blocks"] = stack(block, cfg.n_layers)
+        s["blocks"] = stack(self._block_spec, cfg.n_layers)
         if not cfg.tie_embeddings:
             s["lm_head"] = P((d, cfg.vocab_size), ("embed", "vocab"))
         return s
@@ -141,11 +150,15 @@ class Backbone:
                 block = functools.partial(self._dense_block, **kw)
             else:
                 block = functools.partial(self._attn_block, cond=cond, **kw)
+        mesh = shlib.current_mesh()
+
+        def run(p, x):
+            return block(shlib.constrain_params(p, self._block_spec, mesh), x)
         remat = remat and torch.is_grad_enabled()
         for p in _unbind(params["blocks"], cfg.n_layers):
             if remat:
-                x = checkpoint(block, p, x, use_reentrant=False,
+                x = checkpoint(run, p, x, use_reentrant=False,
                                preserve_rng_state=False)
             else:
-                x = block(p, x)
+                x = run(p, x)
         return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -9,6 +9,11 @@ causally over ``[cond prefix; time token; latent tokens]`` (ported so far:
 the ``dense`` LM family, and the ``ssm`` family, causal by construction),
 with no sliding window (``window=0``), as the reference runs them.
 
+On a mesh with a "model" axis the adapter's own sharded leaves (the
+latent, time and condition projections) are gathered whole at the top of
+``velocity`` and the backbone gathers each block's slice
+(``repro_torch.sharding.constrain_params``).
+
 ``policy_dtype`` (``PerfConfig.policy_dtype``) sets the activation dtype;
 None keeps the parameter dtype, the bitwise default.  ``velocity(...,
 remat=True)`` checkpoints each backbone block (``PerfConfig.remat="block"``,
@@ -21,6 +26,7 @@ from typing import Dict
 import torch
 
 from repro_torch import registry
+from repro_torch import sharding as shlib
 from repro_torch.config import ArchConfig, FlowRLConfig
 from repro_torch.models import layers
 from repro_torch.models.backbone import Backbone
@@ -33,6 +39,9 @@ F32 = torch.float32
 class FlowAdapter:
     """Velocity-field adapter over a Backbone."""
 
+    # the adapter's own leaves, gathered whole on a "model" axis
+    _OWN = ("latent_in", "latent_out", "time_w1", "time_w2", "cond_proj")
+
     def __init__(self, cfg: ArchConfig, flow_cfg: FlowRLConfig,
                  cond_dim: int = 512, policy_dtype=None):
         self.cfg = cfg
@@ -40,6 +49,7 @@ class FlowAdapter:
         self.cond_dim = cond_dim
         self.backbone = Backbone(cfg)
         self.policy_dtype = policy_dtype
+        self._spec = None
 
     def spec(self) -> Dict:
         d = self.cfg.d_model
@@ -60,6 +70,13 @@ class FlowAdapter:
         parameter dtype; ``remat`` checkpoints each backbone block.
         Returns v: (B, Lt, latent_dim), always float32."""
         Lt = x_t.shape[1]
+        if shlib.current_mesh() is not None:
+            if self._spec is None:
+                self._spec = self.spec()
+            own = shlib.constrain_params(
+                {k: params[k] for k in self._OWN},
+                {k: self._spec[k] for k in self._OWN})
+            params = dict(params, **own)
         dtype = self.policy_dtype or params["latent_in"].dtype
         h_lat = torch.matmul(x_t.to(dtype),
                              params["latent_in"].to(dtype)).to(dtype)

@@ -6,7 +6,9 @@ it come ``init`` (fresh tensors, drawn on the target device from an explicit
 ``torch.Generator``) and ``n_params``.  Parameters are nested dicts of
 tensors under the same key paths as the JAX package's pytrees;
 ``from_numpy`` carries a JAX parameter tree (as numpy arrays) across, and
-``state_dict`` flattens a tree to ``"."``-joined keys.
+``state_dict`` flattens a tree to ``"."``-joined keys.  ``model_shard_dim``
+is the per-leaf decision of the ``PartitionPlan``: the dim a leaf shards
+over the "model" mesh axis, from its logical axes alone.
 """
 from __future__ import annotations
 
@@ -53,6 +55,34 @@ def stack(spec, n: int, axis_name: Optional[str] = "layers"):
         return {k: stack(v, n, axis_name) for k, v in spec.items()}
     return P((n,) + spec.shape, (axis_name,) + spec.axes, spec.init,
              spec.scale)
+
+
+# Logical axes eligible for "model"-axis sharding, in priority order (the
+# reference's ``repro.models.params.MODEL_SHARDABLE``): for each leaf the
+# FIRST axis listed here whose dim divides the model-parallel size is the
+# one sharded.  Axes not listed (norm scales, head_dim, conv taps, the
+# stacking "layers" dim) are never sharded.
+MODEL_SHARDABLE: Tuple[str, ...] = (
+    "experts", "experts_mdl",
+    "heads", "kv_heads", "ssm_heads",
+    "inner", "mlp", "moe_f",
+    "vocab",
+    "embed", "embed_r", "moe_in", "moe_out",
+    "cond", "time", "latent",
+)
+
+
+def model_shard_dim(shape: Tuple[int, ...], axes: Tuple[Optional[str], ...],
+                    mp: int) -> Optional[int]:
+    """The dim of a leaf of canonical ``shape`` and logical ``axes`` to
+    shard over a "model" axis of size ``mp``, or None to replicate."""
+    if mp <= 1:
+        return None
+    for name in MODEL_SHARDABLE:
+        for i, ax in enumerate(axes):
+            if ax == name and shape[i] >= mp and shape[i] % mp == 0:
+                return i
+    return None
 
 
 def n_params(spec) -> int:

@@ -17,10 +17,14 @@ window moves with ``it``), which draws are injected, and the condition's
 shape.  A replay reads static inputs written before it: the condition and
 any injected draws (``copy_``), and the learning rate and bias corrections
 (``BaseTrainer._begin_update``).  The rollout's and the update's draws come
-from one persistent ``torch.Generator`` each, registered with every graph
-and re-seeded with ``fold_seed(seed, it)`` / ``fold_seed(.., 1)`` before
-each call, as ``BaseTrainer.step`` seeds its fresh generators, so a replay
-draws what the eager step draws.  The graph's outputs are cloned after each
+from persistent ``torch.Generator`` s (the update's: one per microbatch
+chunk under ``dist.microbatch``), registered with every graph and
+re-seeded before each call as ``BaseTrainer.step`` seeds its fresh ones
+(``fold_seed(seed, it)``, ``BaseTrainer.update_generators``), so a replay
+draws what the eager step draws.  On a mesh the step's collectives (the
+rewards' gather, the gradients' all-reduce, the layers' gathers) are
+captured with it: the eager first step has already run each of them on
+the group, so the communicators exist before the capture.  The graph's outputs are cloned after each
 replay: a pipelined loop reads them after the next replay has been queued.
 
 There is no fallback: a capture that fails raises with the operation CUDA
@@ -56,7 +60,9 @@ class FusedStep:
         self.trainer = trainer
         dev = trainer.device
         self.gen_sample = torch.Generator(device=dev)
-        self.gen_update = torch.Generator(device=dev)
+        k = trainer.dist.microbatch
+        self.gen_update = (torch.Generator(device=dev) if k <= 1 else
+                           [torch.Generator(device=dev) for _ in range(k)])
         self.captures = 0
         self.replays = 0
         self._graphs: Dict[tuple, _Graph] = {}
@@ -77,7 +83,8 @@ class FusedStep:
         step_seed = fold_seed(seed, it)
         tr._begin_update()
         self.gen_sample.manual_seed(step_seed)
-        self.gen_update.manual_seed(fold_seed(step_seed, 1))
+        for gen, s in zip(self._update_gens(), tr.update_seeds(step_seed)):
+            gen.manual_seed(s)
         if tr.device.type != "cuda":
             out = tr._step_body(cond, self.gen_sample, self.gen_update, mask,
                                 draws)
@@ -112,7 +119,7 @@ class FusedStep:
                                     self.gen_update, mask, static_draws)
         cur.wait_stream(s)
         graph = torch.cuda.CUDAGraph()
-        for gen in (self.gen_sample, self.gen_update):
+        for gen in (self.gen_sample, *self._update_gens()):
             graph.register_generator_state(gen)
         before = counts.read()
         with torch.cuda.graph(graph, pool=self._pool, stream=s):
@@ -124,6 +131,10 @@ class FusedStep:
                                    launches)
         self.captures += 1
         return metrics
+
+    def _update_gens(self):
+        return (self.gen_update if isinstance(self.gen_update, list)
+                else [self.gen_update])
 
     def report(self) -> Dict[str, object]:
         """Captures, replays, each graph's kernel launches per replay and

@@ -20,6 +20,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core.rollout import Trajectory, group_repeat
+from repro_torch.distributed.mesh import mesh_dp
 from repro_torch.models.params import leaves
 from repro_torch.perf.offload import reward_tower_report
 
@@ -79,8 +80,11 @@ class SavedBytes:
 
 
 def state_bytes(trainer) -> Dict[str, int]:
-    """Param + optimizer byte footprint; one device holds all of it (no
-    layout other than 1 x 1 is ported)."""
+    """Param + optimizer byte footprint: on a mesh the ``PartitionPlan``'s
+    ``bytes_report`` (the canonical total against what this rank holds),
+    without one all of it on the one device."""
+    if trainer.plan is not None:
+        return trainer.plan.bytes_report(trainer.state)
     total = 0
     for tree in (trainer.state.params, trainer.state.opt.mu,
                  trainer.state.opt.nu):
@@ -93,9 +97,11 @@ def state_bytes(trainer) -> Dict[str, int]:
 
 def _probe_trajectory(trainer, cond: torch.Tensor) -> Trajectory:
     """A trajectory of the step's shapes for a (P, Lc, cond_dim) prompt
-    batch, drawn from a fixed seed (values do not matter to the count)."""
+    batch (on a data mesh, this rank's rows of it), drawn from a fixed seed
+    (values do not matter to the count)."""
     f = trainer.flow
     cond_g = group_repeat(cond, f.group_size)
+    cond_g = cond_g[:cond_g.shape[0] // mesh_dp(trainer.mesh)]
     B, T, dev = cond_g.shape[0], f.num_steps, cond.device
     gen = torch.Generator(device=dev).manual_seed(0)
     xs = torch.randn((T + 1, B, f.latent_tokens, f.latent_dim),

@@ -22,10 +22,19 @@ batching, admission control, warmup and a cond-encoding cache: the port of
 * **Cond-encoding cache**: repeat prompts skip the ConditionProvider (an
   LRU keyed by prompt string).
 
+* **Sharded inference** (``dist`` / ``mesh``): on a (data, model) mesh
+  the bucket grid is dp-aligned and each data rank runs its slice of a
+  bucket (``repro_torch.distributed.make_rollout_keyed_sharded``); the
+  latents are all-gathered, so every rank holds the bucket's.  Each
+  request's latent is the one-device engine's (its draws are its own
+  seed's).  On a "model" axis the params are held as this rank's shards
+  of the ``PartitionPlan`` and each layer gathers its slice.  Every rank
+  submits the same requests in the same order.
+
 The port runs eagerly, so the reference's jit compile accounting
 (``compiles``, ``cold_dispatches``, ``compiled_shapes``) has no counterpart
-and is not in ``stats``.  Sharded inference (``dist`` beyond one device)
-and the trainer-facing ``rollout`` come with later slices.
+and is not in ``stats``.  The trainer-facing ``rollout`` comes with a
+later slice.
 """
 from __future__ import annotations
 
@@ -39,7 +48,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch.core.rollout import fold_seed, request_seeds, rollout_keyed
+from repro_torch import distributed
+from repro_torch.core.rollout import fold_seed, request_seeds
 from repro_torch.serving.admission import (AdmissionConfig, AdmissionController,
                                            RetryAfter)
 from repro_torch.serving.buckets import BucketGrid, StepGrid
@@ -156,7 +166,9 @@ class ServingEngine:
     ``step_tiers`` is the admitted ``num_steps`` ladder (always including
     ``num_steps``); ``admission`` configures priority classes / tenant
     weights / queue bounds; ``max_inflight`` bounds dispatched-but-unfetched
-    batches.  ``dist``: a ``DistConfig``; only one device is ported."""
+    batches.  ``dist``: a ``DistConfig``, resolved to the engine's mesh
+    (``mesh=`` injects one instead; ``plan`` a ``PartitionPlan``, built
+    from the adapter's spec when the mesh has a "model" axis)."""
 
     def __init__(self, adapter, scheduler, params, *, num_steps: int,
                  device, max_batch: int = 8,
@@ -164,15 +176,10 @@ class ServingEngine:
                  step_tiers: Optional[Sequence[int]] = None,
                  deadline_s: float = 0.005,
                  admission: Optional[AdmissionConfig] = None,
-                 max_inflight: int = 4, dist=None, provider=None,
-                 cond_len: int = 16, cond_cache_entries: int = 1024,
+                 max_inflight: int = 4, dist=None, mesh=None, plan=None,
+                 provider=None, cond_len: int = 16,
+                 cond_cache_entries: int = 1024,
                  clock: Callable[[], float] = time.monotonic):
-        if dist is not None and (dist.data_parallel, dist.model_parallel) \
-                != (1, 1):
-            raise NotImplementedError(
-                "sharded serving (dist.data_parallel/model_parallel > 1) is "
-                "not ported yet (ROADMAP.md Queue 1, distributed/); the "
-                "port serves on one device")
         if max_inflight < 1:
             raise ValueError(
                 f"max_inflight must be >= 1, got {max_inflight}")
@@ -180,8 +187,15 @@ class ServingEngine:
             raise ValueError("the serving engine needs params")
         self.adapter = adapter
         self.scheduler = scheduler
-        self.params = params
         self.device = torch.device(device)
+        if mesh is None and dist is not None:
+            mesh = distributed.train_mesh(dist, self.device.type)
+        self.mesh = mesh
+        if plan is None and distributed.mesh_mp(mesh) > 1:
+            plan = distributed.partition_plan(mesh, adapter.spec())
+        self.plan = plan
+        self.params = params if plan is None else plan.shard_state(params)
+        self._fns: Dict[int, Callable] = {}
         self.steps = StepGrid(step_tiers, default=num_steps)
         self.num_steps = num_steps
         self.deadline_s = deadline_s
@@ -189,7 +203,8 @@ class ServingEngine:
         self.provider = provider
         self.cond_len = cond_len
         self.clock = clock
-        self.grid = BucketGrid(buckets, max_batch=max_batch)
+        self.grid = BucketGrid(buckets, max_batch=max_batch,
+                               dp=distributed.mesh_dp(mesh))
         self.admission = AdmissionController(admission)
         self.cond_cache = CondCache(cond_cache_entries)
         self._base_seed = fold_seed(_AUTO_SEED_BASE, next(_ENGINE_SEQ))
@@ -328,11 +343,13 @@ class ServingEngine:
                  num_steps: int, params=None) -> torch.Tensor:
         """Run one bucket-shaped batch -> (bucket, Lt, ld) f32 latents on
         the engine's device (queued on the stream, not synchronised)."""
+        fn = self._fns.get(num_steps)
+        if fn is None:
+            fn = self._fns[num_steps] = distributed.make_rollout_keyed_sharded(
+                self.adapter, self.scheduler, num_steps, self.mesh,
+                x0_only=True, plan=self.plan)
         cond_t = torch.from_numpy(cond).to(self.device)
-        traj = rollout_keyed(self.adapter,
-                             self.params if params is None else params,
-                             cond_t, seeds, self.scheduler, num_steps)
-        return traj.x0
+        return fn(self.params if params is None else params, cond_t, seeds)
 
     def _pad(self, arr: np.ndarray, bucket: int) -> np.ndarray:
         pad = bucket - arr.shape[0]
@@ -452,6 +469,6 @@ class ServingEngine:
             "buckets": list(self.grid.sizes),
             "step_tiers": list(self.steps.sizes),
             "device": str(self.device),
-            "data_parallel": 1,
-            "model_parallel": 1,
+            "data_parallel": distributed.mesh_dp(self.mesh),
+            "model_parallel": distributed.mesh_mp(self.mesh),
         }

@@ -194,10 +194,13 @@ def test_engine_queue_backpressure_and_stats_json():
 
 
 def test_engine_refuses_sharded_layouts():
+    """A sharded layout larger than the process group (here none: one
+    device) is refused with the reference's ``resolve_axes`` error."""
     from repro_torch.config import DistConfig
     ja, ta = adapters(num_steps=2)
     _, tp = params_pair(ja, jnp.float32)
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(ValueError, match="dist.data_parallel=2 but only 1 "
+                       "device"):
         _engine(ta, tp, dist=DistConfig(data_parallel=2))
 
 

@@ -373,16 +373,18 @@ def test_reward_improves():
 
 
 def test_trainer_refuses_unported_layouts_and_policies():
-    """A layout other than 1 x 1 is not ported (item 15); every perf policy
-    is, and a value the reference's ``validate`` refuses raises its
-    ``ValueError``."""
+    """Every layout and perf policy is ported: a perf value the reference's
+    ``validate`` refuses raises its ``ValueError``, and a layout larger
+    than the process group (here none: one device) raises the reference's
+    ``resolve_axes`` error."""
     from repro_torch.config import DistConfig, PerfConfig
     flow = TFlow(num_steps=2, group_size=2, latent_tokens=8, latent_dim=8)
     args = (tconfigs.get_reduced("flux_dit"), flow, TOptim())
     with pytest.raises(ValueError, match="perf.remat must be one of"):
         tregistry.build("trainer", "flow_grpo", *args, device="cpu",
                         perf=PerfConfig(remat="blocks"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+    with pytest.raises(ValueError, match="dist.data_parallel=2 but only 1 "
+                       "device"):
         tregistry.build("trainer", "flow_grpo", *args, device="cpu",
                         dist=DistConfig(data_parallel=2))
 
