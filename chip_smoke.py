@@ -196,13 +196,28 @@ script exits 2 before printing any result.
    step; (d) the mesh trainer's checkpoint restored without a mesh,
    bitwise; (e) ``mamba2-370m`` at 48 layers served on the mesh against
    the engine without one, a bucket of 4, per request bitwise.
-24. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
-   ``ssm_train_path``, ``perf_path``, ``distributed_path`` and
-   ``kernels`` JSON lines, the card's name and power limit, and the last
-   line ``{"ok": true, "device": {...}}``.
+24. Training through the serving engine: ``flow_grpo`` on
+   ``mamba2-370m`` at its published width and all 48 layers, bf16, phase
+   19's geometry, batch and rewards, through ``Experiment.build_trainer()``,
+   ``trainer.attach_engine(ServingEngine.for_trainer(trainer,
+   max_batch=2))`` and ``Experiment.train()`` for 2 steps: each rollout of
+   2 prompts x group 2 runs in 2 chunks of bucket 2 (the engine's
+   dispatches ``{"b2/s4": 4}``, no padded lane); launch counts per step
+   (``sde_step`` 8, the scan forward 48 x 4 x 2 in the rollout and 48 x 4
+   in the loss, its backward 48 x 4, ``grpo_loss`` and its backward 4
+   each), finite metrics, first-update gradients, params that move, s a
+   step and memory beside phase 19's engine-free run.  Then at depth 2 in
+   f32 on injected draws: ``flow_grpo`` through the engine in one chunk
+   bitwise the engine-free step, in two chunks within stated bands of one
+   (trajectory, loss, every leaf's gradient), ``awm`` likewise; and the
+   two-chunk engine step on a one-rank NCCL mesh bitwise the no-mesh one.
+25. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
+   ``ssm_train_path``, ``perf_path``, ``distributed_path``,
+   ``engine_path`` and ``kernels`` JSON lines, the card's name and power
+   limit, and the last line ``{"ok": true, "device": {...}}``.
 
 ``--only N,...`` runs just the device and build phases and phases N (3 and
-8-23) and prints no result lines: a development aid.
+8-24) and prints no result lines: a development aid.
 """
 from __future__ import annotations
 
@@ -225,6 +240,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 from repro_torch import configs, registry  # noqa: E402
+from repro_torch.api import Experiment  # noqa: E402
 from repro_torch.api import loop as loop_lib  # noqa: E402
 from repro_torch.config import (FlowRLConfig, OptimConfig,  # noqa: E402
                                 PerfConfig, RewardSpec, replace)
@@ -244,6 +260,7 @@ from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import params as params_lib  # noqa: E402
 from repro_torch.models.flow import FlowAdapter  # noqa: E402
+from repro_torch.serving import ServingEngine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory and bf16 tensor
 # cores; f32 outside the tensor cores for the elementwise kernel
@@ -2153,11 +2170,13 @@ def dense_serve_path() -> dict:
 
 # ----------------------------------------------------------------- phase 17
 def _train_want(name: str, steps: int, layers: int, fwd: str, bwd: str,
-                remat: str = "none", microbatch: int = 1) -> dict:
+                remat: str = "none", microbatch: int = 1,
+                rollout_chunks: int = 1) -> dict:
     """Kernel launches of ``steps`` train steps of trainer ``name`` at
     T = 4 over ``layers`` blocks that each run kernel ``fwd`` forward and
     ``bwd`` backward: the rollout's forward per layer and step and its
-    sde_step per SDE step; the loss's forward and backward per layer at
+    sde_step per SDE step, once per chunk of an attached engine's rollout
+    (``rollout_chunks``); the loss's forward and backward per layer at
     each SDE step (GRPO family) or once (NFT/AWM), the forward twice under
     ``remat="block"`` (once more in the backward), and the grpo_loss
     kernels only where the reference's kernel condition holds; each loss
@@ -2165,11 +2184,11 @@ def _train_want(name: str, steps: int, layers: int, fwd: str, bwd: str,
     sde = {"mix_grpo": 2}.get(name, NUM_STEPS)   # MixGRPO: window 2
     passes = (sde if name in GRPO_FAMILY else 1) * microbatch
     want = {fn.__name__: 0 for fn in COUNTED}
-    want[fwd] = layers * (NUM_STEPS + (2 if remat == "block" else 1)
-                          * passes)
+    want[fwd] = layers * (NUM_STEPS * rollout_chunks
+                          + (2 if remat == "block" else 1) * passes)
     want[bwd] = layers * passes
     if name in GRPO_FAMILY:
-        want["sde_step"] = sde
+        want["sde_step"] = sde * rollout_chunks
         if name != "grpo_guard":
             want["grpo_loss"] = want["grpo_loss_bwd"] = sde * microbatch
     return {k: v * steps for k, v in want.items()}
@@ -2200,8 +2219,8 @@ def _train_argv(tmp: str, arch: str, layers: int, cond_len: int, name: str,
 def train_one(tmp: str, arch: str, layers: int, cond_len: int, kernels: tuple,
               watch, name: str, n: int, *, extra=(), tag: str = "",
               remat: str = "none", captured: bool = False,
-              profile_what: str = "", mesh=None, microbatch: int = 1
-              ) -> dict:
+              profile_what: str = "", mesh=None, microbatch: int = 1,
+              engine_batch: int = 0) -> dict:
     """``repro_torch.launch.train.main`` on the card: trainer ``name`` for
     ``n`` steps at ``arch``'s full width and ``layers`` layers, bf16,
     ``cond_len`` condition tokens, one time token and phase 8's latents,
@@ -2215,12 +2234,28 @@ def train_one(tmp: str, arch: str, layers: int, cond_len: int, kernels: tuple,
     first update finite and nonzero, params that move, s per step, peak
     memory, and with ``profile_what`` a profile of one more step.
     ``mesh`` is injected into the trainer; ``microbatch`` is the
-    ``dist.microbatch`` that ``extra`` sets.  Returns the row and the
+    ``dist.microbatch`` that ``extra`` sets.  With ``engine_batch`` the
+    run goes through the Experiment API instead, with a serving engine of
+    that ``max_batch`` attached: ``Experiment.build_trainer()``,
+    ``trainer.attach_engine(ServingEngine.for_trainer(trainer,
+    max_batch=engine_batch))``, ``Experiment.train()``; its rollouts then
+    run in chunks of ``engine_batch`` rows.  Returns the row and the
     trainer."""
     argv = _train_argv(tmp, arch, layers, cond_len, name, n, tag, extra)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    res = train.main(argv, callbacks=[watch], mesh=mesh)
+    engine, chunks = None, 1
+    if engine_batch:
+        exp = Experiment.from_args(Experiment.cli_parser().parse_args(argv))
+        engine = ServingEngine.for_trainer(exp.build_trainer(),
+                                           max_batch=engine_batch,
+                                           cond_len=exp.cond_len)
+        exp.build_trainer().attach_engine(engine)
+        chunks = -(-PROMPTS * GROUP // engine_batch)
+        res = exp.train([watch])
+        res.update(experiment=exp, memory_stats=None)
+    else:
+        res = train.main(argv, callbacks=[watch], mesh=mesh)
     launches = counts()
     variants = dict(ssd_scan.variant_launches)
     bwd_variants = dict(ssd_scan_bwd.variant_launches)
@@ -2230,7 +2265,7 @@ def train_one(tmp: str, arch: str, layers: int, cond_len: int, kernels: tuple,
     hist = res["history"]
     trainer = res["experiment"].build_trainer()
     want = _train_want(name, n, layers, *kernels, remat=remat,
-                       microbatch=microbatch)
+                       microbatch=microbatch, rollout_chunks=chunks)
     label = f"{name}{' ' + tag if tag else ''}"
     log(f"  {label}: launches {launches} over {n} train steps (expected "
         f"{want}); ssd_scan variants {variants}, ssd_scan_bwd variants "
@@ -2287,6 +2322,10 @@ def train_one(tmp: str, arch: str, layers: int, cond_len: int, kernels: tuple,
     if name in GRPO_FAMILY:
         row["clip_frac"] = [r["clip_frac"] for r in hist]
         row["logp_gap"] = [r["logp_gap"] for r in hist]
+    if engine is not None:
+        row["engine"] = {k: engine.stats[k] for k in
+                         ("dispatches", "padded_lanes", "buckets")}
+        log(f"  {label}: engine {row['engine']}")
     if captured:
         row["fused"] = trainer._fused.report()
         log(f"  {label}: fused step {row['fused']}")
@@ -2741,15 +2780,15 @@ MB_LOSS_ATOL, MB_RTOL, MB_ATOL = 1e-7, 1e-4, 1e-6
 MB_GRPO_BAND, MB_AWM_BAND = 2e-2, 1e-3
 
 
-def one_rank_group(tmp: str):
-    """(a) A one-rank NCCL group (``file://`` store) and its (1, 1)
-    ("data", "model") mesh through ``distributed.build_mesh``; the
+def one_rank_group(tmp: str, store: str = "nccl_store"):
+    """(a) A one-rank NCCL group (``file://`` store ``tmp/store``) and its
+    (1, 1) ("data", "model") mesh through ``distributed.build_mesh``; the
     gather's all-gather and reduce-scatter on NCCL over a block leaf's
     shape (bitwise the identity on one rank) and their times."""
     import torch.distributed as dist
     from repro_torch import distributed, sharding as shlib
     dev = torch.device("cuda", 0)
-    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store",
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/{store}",
                             rank=0, world_size=1, device_id=dev)
     mesh = distributed.build_mesh(1, 1, "cuda")
     backend = dist.get_backend(mesh.get_group("data"))
@@ -3077,6 +3116,229 @@ def distributed_phase(dev, tmp: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 24
+# training through the serving engine: its rollouts of 2 prompts x group 2
+# run in chunks of ENGINE_BATCH rows (2 chunks a step)
+ENGINE_BATCH = 2
+# phase 19's engine-free flow_grpo on the same cell, for comparison when
+# phase 19 did not run in this call (as recorded in PERF.md §5, NVIDIA
+# H100 80GB HBM3, 700 W: the second step's seconds, max_memory_allocated)
+PHASE19_S_PER_STEP, PHASE19_PEAK_GIB = 3.2484, 67.33
+# one flow_grpo / awm step at depth 2 in f32 on injected draws, the
+# engine's rollout in one chunk (max_batch 4) against two (max_batch 2):
+# the two chunkings' latents differ by f32 rounding (a chunk's velocity at
+# another batch size), held to ENGINE_XS_BAND of max |xs|; the GRPO loss
+# carries that through its ratio, so flow_grpo's loss and each leaf's
+# max |grad| are held to phase 23's MB_GRPO_BAND, awm's to MB_AWM_BAND
+ENGINE_XS_BAND = 1e-4
+
+
+def _engine_step(dev, tname: str, params, cond, draws, engine_batch: int,
+                 mesh=None) -> dict:
+    """One ``tname`` step of mamba2-370m at full width, depth 2, f32 (the
+    ``_mesh_setup`` cell), from ``params`` on injected ``draws``, through
+    an attached engine of ``max_batch`` ``engine_batch`` (none if 0):
+    metrics, launch counts, the trajectory, the gradients before the
+    optimizer step, the params after it and the engine's dispatches."""
+    cfg, flow, opt, _ = _mesh_setup(dev, SSM_ARCH, 30)
+    tr = registry.build("trainer", tname, cfg, flow, opt, seed=0,
+                        cond_dim=COND_DIM, device=dev, dtype=torch.float32,
+                        params=_clone(params), mesh=mesh,
+                        perf=PerfConfig(policy_dtype="float32"))
+    eng = None
+    if engine_batch:
+        eng = ServingEngine.for_trainer(tr, max_batch=engine_batch,
+                                        cond_len=SSM_COND_LEN)
+        tr.attach_engine(eng)
+    seen = {}
+    inner_sample, inner_apply = tr._sample, tr.apply_grads
+
+    def sample(*a, **kw):
+        seen["traj"] = inner_sample(*a, **kw)
+        return seen["traj"]
+
+    def apply_grads():
+        seen["grads"] = [p.grad.clone()
+                         for _, p in params_lib.leaves(tr.state.params)]
+        return inner_apply()
+
+    tr._sample, tr.apply_grads = sample, apply_grads
+    reset_counts()
+    met = tr.step(cond, 5, it=0, **draws)
+    seen.update(metrics={k: float(v) for k, v in met.items()},
+                launches=counts(),
+                params=[p.clone() for _, p in
+                        params_lib.leaves(tr.state.params)],
+                dispatches=None if eng is None else eng.stats["dispatches"])
+    del tr, eng
+    return seen
+
+
+def _grad_share(a: list, b: list) -> float:
+    """The largest per-leaf max |a - b| / max |b|."""
+    return max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+               for x, y in zip(a, b))
+
+
+def check_engine_updates(dev, tmp: str) -> dict:
+    """At depth 2 in f32 on injected draws (x_init, the rollout's eps, and
+    for awm the update's t and noise), 2 prompts x group 2: flow_grpo and
+    awm without an engine, through an engine in one chunk (max_batch 4)
+    and in two (max_batch 2).  flow_grpo in one chunk is bitwise the
+    engine-free step (metrics, every param after AdamW, launches); in two
+    chunks its trajectory is within ENGINE_XS_BAND of max |xs| and its
+    loss and every leaf's gradient within MB_GRPO_BAND; awm's (engine in
+    one chunk against none: its ODE through ``step_with_eps`` against
+    ``step_ode``, and two chunks against one) within MB_AWM_BAND.  Then on
+    a one-rank NCCL group and mesh: the two-chunk engine step on the mesh
+    bitwise the no-mesh one."""
+    import torch.distributed as dist
+    cfg, flow, opt, _ = _mesh_setup(dev, SSM_ARCH, 30)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    B = 2 * flow.group_size
+    cond = torch.randn(2, SSM_COND_LEN, COND_DIM, generator=gen, device=dev)
+    draws = {"x_init": torch.randn(B, LAT_TOKENS, LAT_DIM, generator=gen,
+                                   device=dev),
+             "eps": torch.randn(NUM_STEPS, B, LAT_TOKENS, LAT_DIM,
+                                generator=gen, device=dev)}
+    awm_draws = dict(draws, update_t=torch.rand(B, generator=gen, device=dev)
+                     * 0.96 + 0.02,
+                     update_eps=torch.randn(B, LAT_TOKENS, LAT_DIM,
+                                            generator=gen, device=dev))
+    tr = registry.build("trainer", "flow_grpo", cfg, flow, opt, seed=0,
+                        cond_dim=COND_DIM, device=dev, dtype=torch.float32)
+    draw_ssm(tr.state.params, seed=32)
+    params = _clone(tr.state.params)
+    del tr
+    out = {}
+    for tname, band, kw in (("flow_grpo", MB_GRPO_BAND, draws),
+                            ("awm", MB_AWM_BAND, awm_draws)):
+        runs = {k: _engine_step(dev, tname, params, cond, kw, k)
+                for k in (0, 4, 2)}
+        free, one, two = runs[0], runs[4], runs[2]
+        scale = float(one["traj"].xs.abs().max())
+        xs_gap = float((two["traj"].xs - one["traj"].xs).abs().max()) / scale
+        free_gap = float((one["traj"].xs - free["traj"].xs).abs().max()
+                         ) / scale
+        bitwise = (one["metrics"] == free["metrics"]
+                   and one["launches"] == free["launches"]
+                   and all(torch.equal(a, b) for a, b in
+                           zip(one["params"], free["params"])))
+        loss = {k: r["metrics"]["loss"] for k, r in runs.items()}
+        two_share = _grad_share(two["grads"], one["grads"])
+        one_share = _grad_share(one["grads"], free["grads"])
+        log(f"  {tname} depth {UPDATE_LAYERS}, f32: loss no engine / "
+            f"max_batch 4 / max_batch 2 {loss[0]!r} / {loss[4]!r} / "
+            f"{loss[2]!r}; max_batch 4 bitwise the engine-free step "
+            f"{bitwise} (xs gap {free_gap:.3e}, worst leaf grad gap "
+            f"{one_share:.3e} of max |grad|); max_batch 2 against 4: xs gap "
+            f"{xs_gap:.3e} of max |xs| (band {ENGINE_XS_BAND}), worst leaf "
+            f"grad gap {two_share:.3e} (band {band}); dispatches "
+            f"{one['dispatches']} / {two['dispatches']}; launches "
+            f"{free['launches']} / {one['launches']} / {two['launches']}")
+        if (one["dispatches"], two["dispatches"]) != (
+                {f"b4/s{NUM_STEPS}": 1}, {f"b2/s{NUM_STEPS}": 2}):
+            fail(f"{tname}: the engine's rollout did not run in the "
+                 "expected chunks")
+        if not all(math.isfinite(v) for v in loss.values()):
+            fail(f"{tname}: a non-finite loss through the engine")
+        if tname == "flow_grpo" and not bitwise:
+            fail("flow_grpo through the engine in one chunk is not bitwise "
+                 "the engine-free step")
+        if tname == "awm" and (
+                one_share > band or abs(loss[4] - loss[0]) > band * max(
+                    abs(loss[0]), 1.0)):
+            fail("awm through the engine is off its band of the "
+                 "engine-free step")
+        if (xs_gap > ENGINE_XS_BAND or two_share > band
+                or abs(loss[2] - loss[4]) > band * max(abs(loss[4]), 1.0)):
+            fail(f"{tname}: the engine's two chunks are off their band of "
+                 "one")
+        out[tname] = {"loss": [loss[0], loss[4], loss[2]],
+                      "one_chunk_bitwise": bitwise,
+                      "one_chunk_xs_gap": free_gap,
+                      "one_chunk_grad_share": one_share,
+                      "two_chunk_xs_gap": xs_gap,
+                      "two_chunk_grad_share": two_share, "band": band,
+                      "launches": [free["launches"], one["launches"],
+                                   two["launches"]]}
+        del runs, free, one, two
+        gc.collect()
+    mesh, grp = one_rank_group(tmp, "nccl_store_24")
+    try:
+        none = _engine_step(dev, "flow_grpo", params, cond, draws, 2)
+        on = _engine_step(dev, "flow_grpo", params, cond, draws, 2,
+                          mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    parts = {
+        "metrics": [k for k in none["metrics"]
+                    if on["metrics"].get(k) != none["metrics"][k]],
+        "launches": on["launches"] == none["launches"],
+        "xs": torch.equal(on["traj"].xs, none["traj"].xs),
+        "logps": torch.equal(on["traj"].logps, none["traj"].logps),
+        "grads": sum(not torch.equal(a, b)
+                     for a, b in zip(on["grads"], none["grads"])),
+        "params": sum(not torch.equal(a, b)
+                      for a, b in zip(on["params"], none["params"]))}
+    same = (not parts["metrics"] and parts["launches"] and parts["xs"]
+            and parts["logps"] and not parts["grads"]
+            and not parts["params"])
+    log(f"  flow_grpo depth {UPDATE_LAYERS}, engine max_batch 2, one-rank "
+        f"{grp['backend']} mesh / no mesh: loss {on['metrics']['loss']!r} / "
+        f"{none['metrics']['loss']!r}; bitwise {same} (metrics that differ "
+        f"{parts['metrics']}, launches equal {parts['launches']}, xs equal "
+        f"{parts['xs']}, logps equal {parts['logps']}, leaves whose grad / "
+        f"param differ {parts['grads']} / {parts['params']} of "
+        f"{len(none['params'])})")
+    if not same:
+        fail("the engine path on the one-rank mesh is not bitwise the "
+             "no-mesh engine path")
+    out["mesh_bitwise"] = same
+    del none, on, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def engine_phase(dev, tmp: str, phase19=None) -> dict:
+    """Phase 24: flow_grpo on mamba2-370m at its published width and all
+    48 layers, bf16, trained 2 steps through an attached engine whose
+    rollouts run in chunks of ENGINE_BATCH (``train_one`` with
+    ``engine_batch``: launch counts, finite metrics, first-update
+    gradients, params that move), its engine's dispatches, s a step and
+    memory beside phase 19's engine-free run (``phase19``, its row, when
+    it ran in this call); then ``check_engine_updates``."""
+    row, trainer = train_one(
+        tmp, SSM_ARCH, SSM_TRAIN_LAYERS, SSM_COND_LEN, SSM_KERNELS,
+        _TrainWatch("ssm", ("conv_w", "conv_b", "a_log"),
+                    ("a_log", "dt_bias"),
+                    lambda p, cfg: draw_ssm(p, seed=19)),
+        "flow_grpo", TRAIN_STEPS, tag="engine", engine_batch=ENGINE_BATCH)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {f"b{ENGINE_BATCH}/s{NUM_STEPS}":
+            TRAIN_STEPS * PROMPTS * GROUP // ENGINE_BATCH}
+    if row["engine"]["dispatches"] != want or row["engine"]["padded_lanes"]:
+        fail(f"the engine dispatched {row['engine']}, expected {want} and "
+             "no padded lane")
+    if phase19 is not None:
+        ref_s = phase19["s_per_step"][-1]
+        ref_gib = phase19["peak_bytes"] / 2**30
+        src = "phase 19 in this run"
+    else:
+        ref_s, ref_gib = PHASE19_S_PER_STEP, PHASE19_PEAK_GIB
+        src = "phase 19 as recorded in PERF.md"
+    log(f"  through the engine: {row['s_per_step'][-1]:.4f} s a step, "
+        f"max_memory_allocated {row['peak_bytes'] / 2**30:.2f} GiB, reserved "
+        f"{row['peak_reserved_bytes'] / 2**30:.2f} GiB; engine-free "
+        f"({src}): {ref_s:.4f} s, {ref_gib:.2f} GiB")
+    row["engine_free"] = {"s_per_step": ref_s, "peak_gib": ref_gib,
+                          "source": src}
+    return {"train": row, "update": check_engine_updates(dev, tmp)}
+
+
 def _clone(tree):
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
@@ -3092,7 +3354,7 @@ def _cast(tree, dtype):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", metavar="N,N,...",
-                    help="run only these of phases 3-23 after the device and "
+                    help="run only these of phases 3-24 after the device and "
                          "build phases, and print no result lines (a "
                          "development aid; the check runs every phase)")
     args = ap.parse_args(argv)
@@ -3250,6 +3512,14 @@ def main(argv=None) -> int:
             f"{FLUX_BLOCK_LAYERS} blocks with microbatch 2; checkpoint; "
             "sharded serving")
         dist_res = distributed_phase(dev, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log(f"[24] training through the serving engine: {SSM_ARCH}, "
+            f"{SSM_TRAIN_LAYERS} layers, rollouts in chunks of "
+            f"{ENGINE_BATCH}; at depth {UPDATE_LAYERS} against the "
+            "engine-free step and on a one-rank mesh")
+        engine_res = engine_phase(dev, tmp, ssm_train["flow_grpo"])
 
     def by_path(name: str) -> dict:
         return {"serve": res["launches"][name],
@@ -3271,7 +3541,8 @@ def main(argv=None) -> int:
                     "launches"][name],
                 "train_flux16_block_mb2_mesh": dist_res["train"]["flux_dit"][
                     "launches"][name],
-                "serve_ssm_mesh": dist_res["serve"]["launches"][name]}
+                "serve_ssm_mesh": dist_res["serve"]["launches"][name],
+                "train_ssm_engine": engine_res["train"]["launches"][name]}
 
     for row in rows:
         row["launches"] = train_res["launches"][row["name"]]
@@ -3299,6 +3570,7 @@ def main(argv=None) -> int:
                       "update_check": ssm_update}))
     print(json.dumps({"perf_path": perf_res}))
     print(json.dumps({"distributed_path": dist_res}))
+    print(json.dumps({"engine_path": engine_res}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(card_line())
@@ -3332,7 +3604,8 @@ def run_only(dev, only: set) -> int:
                            check_f32_policy_velocity(dev)),
               22: lambda: (_in_tmp(flux_block_path)(),
                            check_block_update(dev, "flux_dit")),
-              23: _in_tmp(lambda tmp: distributed_phase(dev, tmp))}
+              23: _in_tmp(lambda tmp: distributed_phase(dev, tmp)),
+              24: _in_tmp(lambda tmp: engine_phase(dev, tmp))}
     for n in sorted(only):
         if n not in phases:
             fail(f"--only: phase {n} cannot run alone")

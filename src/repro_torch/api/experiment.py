@@ -36,8 +36,6 @@ from repro_torch.config import (ArchConfig, ConfigError, FlowRLConfig,
 from repro_torch.core.preprocess import (ConditionProvider, PreprocessCache,
                                          preprocess_dataset)
 from repro_torch.device import resolve_device
-from repro_torch.models import params as params_lib
-from repro_torch.models.flow import FlowAdapter
 
 
 def default_cli_config() -> RunConfig:
@@ -220,10 +218,9 @@ class Experiment:
         f = self.cfg.flow
         arch = self.arch
         dp, mp = distributed.resolve_axes(self.cfg.dist)
-        n = params_lib.n_params(FlowAdapter(arch, f, self.cond_dim).spec())
         return {
             "arch": {"name": arch.name, "family": arch.family,
-                     "n_params": n},
+                     "n_params": arch.n_params()},
             "trainer": registry.describe("trainer", f.trainer_type),
             "scheduler": registry.describe("scheduler", f.sde_type),
             "rewards": [s.reward_type for s in f.rewards],

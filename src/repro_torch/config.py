@@ -57,6 +57,52 @@ class ArchConfig:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
 
+    @property
+    def attn_free(self) -> bool:
+        return self.family == "ssm"
+
+    def n_params(self) -> int:
+        """Total backbone parameter count, the reference's analytic one
+        (embeddings, layers and final norm).  The hybrid, MoE and
+        frontend families are not ported yet and raise."""
+        if self.family not in _COUNTED_FAMILIES:
+            raise NotImplementedError(
+                f"n_params of family {self.family!r} is not ported to "
+                "repro_torch yet (ROADMAP.md Queue 1: 'Other families'); "
+                f"{_COUNTED_FAMILIES} are")
+        d = self.d_model
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            per_layer = _ssm_layer_params(self)
+        else:
+            per_layer = (_attn_params(self, self.resolved_head_dim)
+                         + 3 * d * self.d_ff + 2 * d)
+        return emb + self.n_layers * per_layer + d
+
+    def n_active_params(self) -> int:
+        """Active params per token: all of them outside MoE."""
+        return self.n_params()
+
+
+_COUNTED_FAMILIES = ("dit", "dense", "ssm")
+
+
+def _attn_params(cfg: ArchConfig, hd: int) -> int:
+    d = cfg.d_model
+    return (d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+            + cfg.n_heads * hd * d)
+
+
+def _ssm_layer_params(cfg: ArchConfig) -> int:
+    s = cfg.ssm or SSMConfig()
+    d = cfg.d_model
+    d_in = s.expand * d
+    n_heads = d_in // s.head_dim
+    # in_proj produces [z, x, B, C, dt]
+    in_proj = d * (2 * d_in + 2 * s.d_state + n_heads)
+    return (in_proj + d_in * d + s.d_conv * (d_in + 2 * s.d_state)
+            + 2 * n_heads + d)
+
 
 @dataclass(frozen=True)
 class RewardSpec:

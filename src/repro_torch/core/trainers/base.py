@@ -20,8 +20,14 @@ step ``it`` of ``step(cond, seed, it)`` samples from a generator seeded with
 ``fold_seed(seed, it)`` and draws the update's randomness (the timesteps
 and forward-process noise of the NFT/AWM losses) from one seeded with
 ``fold_seed(fold_seed(seed, it), 1)``, so a resumed run replays an
-uninterrupted one.  ``step`` also takes the rollout's ``x_init`` / ``eps``
-and the update's ``update_t`` / ``update_eps`` to replay injected draws.
+uninterrupted one.  With a serving engine attached (``attach_engine``) the
+rollout's draws are the engine's per-request ones instead: row i of step
+``it`` draws from ``fold_seed(fold_seed(s, 0), i)`` with ``s =
+fold_seed(seed, it)`` (the seed of the sampling generator; the
+reference's ``fold_in(k_s, i)``), a stream apart from the update's
+``fold_seed(s, 1)``.  ``step`` also takes the rollout's ``x_init`` /
+``eps`` and the update's ``update_t`` / ``update_eps`` to replay injected
+draws.
 
 The step never waits for the device: its host values (the time grid, the
 SDE mask, the AdamW counter) stay on the host, a step's learning rate and
@@ -171,8 +177,7 @@ class BaseTrainer:
         self._scalars = optim.step_scalars(self.device)
         self._grid = torch.from_numpy(self.scheduler.timesteps(
             flow_cfg.num_steps)[:-1]).to(self.device)
-        # no attach_engine yet (ROADMAP Queue 1 item 13); the reference
-        # refuses fuse_step with an attached engine, as this must then
+        self._engine = None
         self._fused = (perf_lib.make_fused_step(self) if self.perf.fuse_step
                        else None)
 
@@ -239,22 +244,78 @@ class BaseTrainer:
         return shlib.all_reduce_max(x, self._dgroup)
 
     def batch_std(self, x: torch.Tensor) -> torch.Tensor:
-        """Population std of a (rows,) tensor over the whole batch."""
-        if self.mesh is None:
-            return x.std(correction=0)
+        """Population std of a (rows,) tensor over the whole batch, in two
+        passes (the mean, then the mean squared deviation), as the
+        reference's ``jnp.std``; one program with or without a mesh, so a
+        one-rank mesh is bitwise the no-mesh path."""
         mu = self.batch_mean(x.mean())
         return torch.sqrt(self.batch_mean(((x - mu) ** 2).mean()))
 
     # ------------------------------------------------------------- sampling
+    def attach_engine(self, engine) -> None:
+        """Opt online rollouts into a :class:`repro_torch.serving
+        .ServingEngine` (usually ``ServingEngine.for_trainer(self)``):
+        sampling then runs the per-request-seeded, bucket-padded,
+        capacity-chunked path the serving stack uses.  The engine must use
+        this trainer's num_steps, scheduler (type and η) and mesh; ``None``
+        detaches.  A mismatched scheduler would make the update's
+        recomputed log-probs another transition density than the one
+        sampled under, so the components are checked here."""
+        if engine is not None:
+            if self.perf.fuse_step:
+                raise ValueError(
+                    "perf.fuse_step and an attached serving engine are "
+                    "mutually exclusive: the engine's bucketed rollout is "
+                    "host-driven and cannot live inside the fused jit — "
+                    "set perf.fuse_step=false or detach the engine")
+            if engine.num_steps != self.flow.num_steps:
+                raise ValueError(
+                    f"engine.num_steps={engine.num_steps} != trainer "
+                    f"num_steps={self.flow.num_steps}")
+            if engine.scheduler != self.scheduler:
+                raise ValueError(
+                    f"engine scheduler {engine.scheduler!r} != trainer "
+                    f"scheduler {self.scheduler!r} — rollout dynamics and "
+                    "the update's logprob must match")
+            if engine.mesh is not self.mesh and engine.mesh != self.mesh:
+                raise ValueError(
+                    f"engine mesh {engine.mesh} != trainer mesh "
+                    f"{self.mesh} — build via ServingEngine.for_trainer")
+        self._engine = engine
+
     def sde_mask(self, it: int):
         return None  # default: all steps stochastic (or all ODE)
+
+    def _engine_sample(self, params, cond_g: torch.Tensor,
+                       generator: torch.Generator, sde_mask, *,
+                       x_init: Optional[torch.Tensor] = None,
+                       eps: Optional[torch.Tensor] = None) -> Trajectory:
+        """The attached engine's rollout of ``cond_g`` (the reference's
+        engine branch of ``sample``: an all-True mask when the trainer has
+        none, so NFT/AWM step through ``step_with_eps``), seeded
+        ``fold_seed(generator.initial_seed(), 0)``; on a data mesh, this
+        rank's rows of the gathered trajectory."""
+        if sde_mask is None:
+            sde_mask = [True] * self.flow.num_steps
+        traj = self._engine.rollout(
+            params, cond_g, fold_seed(generator.initial_seed(), 0),
+            sde_mask=sde_mask, x_init=x_init, eps=eps)
+        if self._dp == 1:
+            return traj
+        rows = self._layout(cond_g.shape[0])[0]
+        return traj._replace(xs=traj.xs[:, rows], logps=traj.logps[:, rows],
+                             cond=traj.cond[rows])
 
     def _sample(self, params, cond_g: torch.Tensor,
                 generator: Optional[torch.Generator], sde_mask, *,
                 x_init: Optional[torch.Tensor] = None,
                 eps: Optional[torch.Tensor] = None) -> Trajectory:
         """Rollout of the full group-repeated batch ``cond_g``, or on a data
-        mesh of this rank's rows of it, from the whole batch's draws."""
+        mesh of this rank's rows of it, from the whole batch's draws
+        (through the attached engine, if any)."""
+        if self._engine is not None:
+            return self._engine_sample(params, cond_g, generator, sde_mask,
+                                       x_init=x_init, eps=eps)
         T = self.flow.num_steps
         if self._dp > 1:
             B = cond_g.shape[0]

@@ -82,25 +82,31 @@ def rollout_sharded(adapter, params, cond: torch.Tensor, seed: int,
 
 def make_rollout_keyed_sharded(adapter, scheduler, num_steps: int, mesh,
                                x0_only: bool = False, plan=None):
-    """``fn(params, cond, seeds, sde_mask) -> Trajectory`` (or the final
-    latents (B, Lt, ld) with ``x0_only``) over the whole bucket, each data
-    rank running its slice of the requests; without a mesh the plain
-    ``rollout_keyed``.  The bucket must divide the data axis (the engine's
-    grid is dp-aligned).  ``plan`` is accepted for the reference's
-    signature: the params arrive already laid out by it."""
+    """``fn(params, cond, seeds, sde_mask, *, x_init=None, eps=None) ->
+    Trajectory`` (or the final latents (B, Lt, ld) with ``x0_only``) over
+    the whole bucket, each data rank running its slice of the requests;
+    without a mesh the plain ``rollout_keyed``.  The bucket must divide the
+    data axis (the engine's grid is dp-aligned).  ``x_init`` / ``eps``, the
+    whole bucket's, replace the seeded draws (each rank takes its rows).
+    ``plan`` is accepted for the reference's signature: the params arrive
+    already laid out by it."""
 
     @torch.no_grad()
     def run(params, cond: torch.Tensor, seeds: Sequence[int],
-            sde_mask: Optional[Sequence[bool]] = None):
+            sde_mask: Optional[Sequence[bool]] = None, *,
+            x_init: Optional[torch.Tensor] = None,
+            eps: Optional[torch.Tensor] = None):
         if mesh is None:
             traj = rollout_keyed(adapter, params, cond, seeds, scheduler,
-                                 num_steps, sde_mask)
+                                 num_steps, sde_mask, x_init=x_init, eps=eps)
             return traj.x0 if x0_only else traj
         rows = _local(cond.shape[0], mesh, "keyed rollout")
         with shlib.param_gather(mesh):
-            traj = rollout_keyed(adapter, params, cond[rows],
-                                 list(seeds)[rows], scheduler, num_steps,
-                                 sde_mask)
+            traj = rollout_keyed(
+                adapter, params, cond[rows], list(seeds)[rows], scheduler,
+                num_steps, sde_mask,
+                x_init=None if x_init is None else x_init[rows],
+                eps=None if eps is None else eps[:, rows])
         group, dp = data_group(mesh), mesh_dp(mesh)
         if x0_only:
             return shlib.all_gather_rows(traj.x0.contiguous(), group, dp)

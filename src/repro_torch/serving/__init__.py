@@ -1,9 +1,10 @@
 """``repro_torch.serving`` — the port's inference subsystem: a request-queue
 engine with bucketed continuous batching, priority classes with
 weighted-fair dequeue, SLO deadlines, admission control with structured
-retry-after backpressure, warmup and an LRU cond-encoding cache, on one
-device.  ``FlowSampler`` (``repro_torch.api.serving``) and
-``repro_torch.launch.serve`` are thin clients."""
+retry-after backpressure, warmup and an LRU cond-encoding cache, sharded
+over a (data, model) mesh.  ``FlowSampler`` (``repro_torch.api.serving``)
+and ``repro_torch.launch.serve`` are thin clients; trainers opt in via
+``BaseTrainer.attach_engine``."""
 from repro_torch.serving.admission import (DEFAULT_CLASSES, AdmissionConfig,
                                            AdmissionController, PriorityClass,
                                            RetryAfter)

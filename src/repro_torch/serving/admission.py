@@ -32,8 +32,9 @@ load, so its policy lives here, separate from the dispatch mechanics:
   applies: a deadline is a promise, fairness is a policy.
 
 Everything here is pure host-side bookkeeping driven by the caller's
-clock — no wall-clock reads, no randomness — which is what makes a seeded
-fuzz harness over it deterministic.
+clock — no wall-clock reads, no randomness — which is what makes the
+seeded fuzz harness in ``tests/test_torch_serving_engine.py``
+deterministic.
 """
 from __future__ import annotations
 

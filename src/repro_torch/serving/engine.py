@@ -31,10 +31,18 @@ batching, admission control, warmup and a cond-encoding cache: the port of
   of the ``PartitionPlan`` and each layer gathers its slice.  Every rank
   submits the same requests in the same order.
 
+* **Trainer rollouts** (``for_trainer`` / ``rollout``, what
+  ``BaseTrainer.attach_engine`` opts into): a batch of B rows runs in
+  capacity-sized chunks, each padded on the device to its smallest bucket
+  and run through the same executor as the queue path, and the full
+  Trajectory of exactly B rows comes back; row i draws from
+  ``fold_seed(seed, i)``, so its trajectory does not depend on the
+  chunking.  Such an engine may hold no params: the trainer passes its own
+  to every call.
+
 The port runs eagerly, so the reference's jit compile accounting
 (``compiles``, ``cold_dispatches``, ``compiled_shapes``) has no counterpart
-and is not in ``stats``.  The trainer-facing ``rollout`` comes with a
-later slice.
+and is not in ``stats``.
 """
 from __future__ import annotations
 
@@ -49,7 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch import distributed
-from repro_torch.core.rollout import fold_seed, request_seeds
+from repro_torch.core.rollout import Trajectory, fold_seed, request_seeds
 from repro_torch.serving.admission import (AdmissionConfig, AdmissionController,
                                            RetryAfter)
 from repro_torch.serving.buckets import BucketGrid, StepGrid
@@ -163,6 +171,10 @@ class ServingEngine:
     """Bucketed continuous-batching inference over a FlowAdapter, on
     ``device`` (the device the params lie on).
 
+    ``params`` may be None for the trainer-rollout path (params are then
+    passed per :meth:`rollout` call); the queue path (:meth:`submit` /
+    :meth:`serve`) and :meth:`warmup` need them.
+
     ``step_tiers`` is the admitted ``num_steps`` ladder (always including
     ``num_steps``); ``admission`` configures priority classes / tenant
     weights / queue bounds; ``max_inflight`` bounds dispatched-but-unfetched
@@ -170,7 +182,7 @@ class ServingEngine:
     (``mesh=`` injects one instead; ``plan`` a ``PartitionPlan``, built
     from the adapter's spec when the mesh has a "model" axis)."""
 
-    def __init__(self, adapter, scheduler, params, *, num_steps: int,
+    def __init__(self, adapter, scheduler, params=None, *, num_steps: int,
                  device, max_batch: int = 8,
                  buckets: Optional[Sequence[int]] = None,
                  step_tiers: Optional[Sequence[int]] = None,
@@ -183,8 +195,6 @@ class ServingEngine:
         if max_inflight < 1:
             raise ValueError(
                 f"max_inflight must be >= 1, got {max_inflight}")
-        if params is None:
-            raise ValueError("the serving engine needs params")
         self.adapter = adapter
         self.scheduler = scheduler
         self.device = torch.device(device)
@@ -194,8 +204,9 @@ class ServingEngine:
         if plan is None and distributed.mesh_mp(mesh) > 1:
             plan = distributed.partition_plan(mesh, adapter.spec())
         self.plan = plan
-        self.params = params if plan is None else plan.shard_state(params)
-        self._fns: Dict[int, Callable] = {}
+        self.params = (params if plan is None or params is None
+                       else plan.shard_state(params))
+        self._fns: Dict[tuple, Callable] = {}
         self.steps = StepGrid(step_tiers, default=num_steps)
         self.num_steps = num_steps
         self.deadline_s = deadline_s
@@ -216,6 +227,19 @@ class ServingEngine:
             "warmup_s": 0.0, "served_by_class": {}, "served_by_tenant": {},
             "slo_misses": {},
         }
+
+    # ---------------------------------------------------------- construction
+    @classmethod
+    def for_trainer(cls, trainer, **kw) -> "ServingEngine":
+        """Engine sharing a trainer's adapter, scheduler, num_steps, device
+        and mesh (and by default its ``PartitionPlan``) — the object to pass
+        to ``trainer.attach_engine``.  ``max_batch`` caps the rollout chunk
+        size (a memory bound); larger batches run in capacity-sized
+        chunks."""
+        kw.setdefault("plan", getattr(trainer, "plan", None))
+        return cls(trainer.adapter, trainer.scheduler,
+                   num_steps=trainer.flow.num_steps, device=trainer.device,
+                   mesh=trainer.mesh, **kw)
 
     # -------------------------------------------------------------- encoding
     def encode(self, prompts: Sequence[str]) -> np.ndarray:
@@ -338,25 +362,43 @@ class ServingEngine:
     def _resolve_steps(self, num_steps: Optional[int]) -> int:
         return self.steps.resolve(num_steps)
 
+    def _account(self, bucket: int, num_steps: int, n_real: int) -> None:
+        """The dispatch and padding counters of one bucket, for the queue
+        and the rollout paths alike."""
+        d = self.counters["dispatches"]
+        d[(bucket, num_steps)] = d.get((bucket, num_steps), 0) + 1
+        self.counters["padded_lanes"] += bucket - n_real
+
+    def _fn(self, num_steps: int, x0_only: bool = False) -> Callable:
+        fn = self._fns.get((num_steps, x0_only))
+        if fn is None:
+            fn = self._fns[(num_steps, x0_only)] = \
+                distributed.make_rollout_keyed_sharded(
+                    self.adapter, self.scheduler, num_steps, self.mesh,
+                    x0_only=x0_only, plan=self.plan)
+        return fn
+
     @torch.no_grad()
     def _execute(self, cond: np.ndarray, seeds: Sequence[int],
                  num_steps: int, params=None) -> torch.Tensor:
         """Run one bucket-shaped batch -> (bucket, Lt, ld) f32 latents on
         the engine's device (queued on the stream, not synchronised)."""
-        fn = self._fns.get(num_steps)
-        if fn is None:
-            fn = self._fns[num_steps] = distributed.make_rollout_keyed_sharded(
-                self.adapter, self.scheduler, num_steps, self.mesh,
-                x0_only=True, plan=self.plan)
         cond_t = torch.from_numpy(cond).to(self.device)
-        return fn(self.params if params is None else params, cond_t, seeds)
+        return self._fn(num_steps, x0_only=True)(
+            self.params if params is None else params, cond_t, seeds)
 
-    def _pad(self, arr: np.ndarray, bucket: int) -> np.ndarray:
-        pad = bucket - arr.shape[0]
+    @staticmethod
+    def _pad(arr, bucket: int, dim: int = 0):
+        """``arr`` (numpy or a tensor, padded where it lies) with zero rows
+        up to ``bucket`` along ``dim``."""
+        pad = bucket - arr.shape[dim]
         if not pad:
             return arr
-        return np.concatenate(
-            [arr, np.zeros((pad,) + arr.shape[1:], arr.dtype)])
+        shape = list(arr.shape)
+        shape[dim] = pad
+        if isinstance(arr, np.ndarray):
+            return np.concatenate([arr, np.zeros(shape, arr.dtype)], dim)
+        return torch.cat([arr, arr.new_zeros(shape)], dim)
 
     def _retire_inflight(self) -> None:
         self._inflight -= 1
@@ -364,11 +406,13 @@ class ServingEngine:
         self._pump(self.clock())
 
     def _dispatch(self, batch: List[Request]) -> None:
+        if self.params is None:
+            raise RuntimeError(
+                "engine has no params — pass params= at construction for "
+                "the queue path (or use engine.rollout for trainers)")
         steps = batch[0].num_steps
         bucket = self.grid.pick(len(batch))
-        d = self.counters["dispatches"]
-        d[(bucket, steps)] = d.get((bucket, steps), 0) + 1
-        self.counters["padded_lanes"] += bucket - len(batch)
+        self._account(bucket, steps, len(batch))
         now = self.clock()
         served_c = self.counters["served_by_class"]
         served_t = self.counters["served_by_tenant"]
@@ -422,6 +466,49 @@ class ServingEngine:
         self.drain()
         return torch.from_numpy(np.stack([h.result() for h in handles]))
 
+    @torch.no_grad()
+    def rollout(self, params, cond: torch.Tensor, seed: int,
+                sde_mask=None, num_steps: Optional[int] = None, *,
+                x_init: Optional[torch.Tensor] = None,
+                eps: Optional[torch.Tensor] = None) -> Trajectory:
+        """Trainer-facing batched rollout: cond (B, Lc, D) on the engine's
+        device, row i drawing from ``fold_seed(seed, i)``; capacity-sized
+        chunks, each padded on the device to its smallest bucket (padded
+        lanes take seed 0 and zero rows, and are cut off), and the full
+        Trajectory of exactly B rows out.  ``params`` are used as given
+        (a trainer's are already laid out by its plan).  ``x_init`` (B,
+        Lt, ld) and ``eps`` (T, B, Lt, ld) replace the seeded draws."""
+        steps = self._resolve_steps(num_steps)
+        B = cond.shape[0]
+        seeds = request_seeds(seed, B)
+        cap = self.grid.capacity
+        fn = self._fn(steps)
+        chunks: List[Trajectory] = []
+        for i in range(0, B, cap):
+            c = cond[i:i + cap]
+            n = c.shape[0]
+            bucket = self.grid.pick(n)
+            self._account(bucket, steps, n)
+            draws = {}
+            if x_init is not None:
+                draws["x_init"] = self._pad(x_init[i:i + cap], bucket)
+            if eps is not None:
+                draws["eps"] = self._pad(eps[:, i:i + cap], bucket, dim=1)
+            traj = fn(params, self._pad(c, bucket),
+                      seeds[i:i + cap] + [0] * (bucket - n), sde_mask,
+                      **draws)
+            if bucket != n:
+                traj = traj._replace(xs=traj.xs[:, :n],
+                                     logps=traj.logps[:, :n],
+                                     cond=traj.cond[:n])
+            chunks.append(traj)
+        if len(chunks) == 1:
+            return chunks[0]
+        return chunks[0]._replace(
+            xs=torch.cat([t.xs for t in chunks], 1),
+            logps=torch.cat([t.logps for t in chunks], 1),
+            cond=torch.cat([t.cond for t in chunks], 0))
+
     # ---------------------------------------------------------------- warmup
     def warmup(self, num_steps_tiers: Optional[Sequence[int]] = None,
                params=None) -> Dict[str, float]:
@@ -429,6 +516,8 @@ class ServingEngine:
         that kernel builds, library handles and the allocator's pools are in
         place before traffic.  Returns per-shape seconds (synchronised);
         the total also lands in ``counters['warmup_s']``."""
+        if params is None and self.params is None:
+            raise RuntimeError("warmup needs params")
         tiers = sorted(set(num_steps_tiers or self.steps.sizes))
         report: Dict[str, float] = {}
         for steps in tiers:

@@ -335,6 +335,35 @@ def test_sharded_serving_is_per_request_bitwise(two_ranks):
     assert res["dp1/stats"]["data_parallel"] == 1
 
 
+def test_engine_attached_training_at_dp2_matches_one_device(two_ranks):
+    """flow_grpo through an attached engine whose ``max_batch`` (4) is
+    below the batch (2 prompts x 4), at dp = 2 and at mp = 2 against dp =
+    1, 2 steps, in the reference's band.  The engine's dp-aligned buckets run each chunk
+    half on each rank and gather it; each rank then hands the update its
+    own rows of the trajectory: the one-device engine's rows, to f32
+    rounding (a chunk's rows roll out in a batch of 2 on a rank and of 4
+    on one device; the band of ``tests/test_torch_serving.py``)."""
+    res = two_ranks["engine"]
+    h_ref, p_ref = res["dp1"]
+    for layout in ("dp2", "mp2"):
+        h, p = res[layout]
+        _close(h_ref, h, p_ref, p, f"flow_grpo engine {layout}")
+    # mp = 2: the trainer's shards, each layer gathered whole, roll out the
+    # one-device engine's trajectory to f32 rounding
+    assert res["mp2/xs_gap"] <= 1e-5
+    assert res["mp2/stats"]["dispatches"] == {"b4/s3": 6}
+    # one sample and two steps, each 8 rows in two chunks of 4
+    assert res["dp1/stats"]["dispatches"] == {"b4/s3": 6}
+    assert res["dp2/stats"]["dispatches"] == {"b4/s3": 6}
+    assert res["dp2/stats"]["buckets"] == [2, 4]
+    assert res["dp2/stats"]["data_parallel"] == 2
+    assert res["dp2/stats"]["padded_lanes"] == 0
+    (rows0, gaps0), (rows1, gaps1) = res["own_rows"]
+    assert (rows0, rows1) == ([0, 1, 2, 3], [4, 5, 6, 7])
+    for xs_gap, logps_gap, cond_equal in (gaps0, gaps1):
+        assert xs_gap <= 1e-5 and logps_gap <= 1e-5 and cond_equal
+
+
 def test_straddling_groups_use_full_batch_statistics(two_ranks):
     """3 prompts x groups of 4 on two data ranks of 6 rows each, so the
     second prompt's group is split 2 + 2 between them, with a groupwise

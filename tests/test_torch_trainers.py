@@ -162,14 +162,15 @@ AUX = {"flow_grpo": {"clip_frac": 0.0},
        "awm": {"vel_err": 1e-5, "adv_clip_frac": 0.0}}
 
 
-def _replay_two_steps(name, jtr, ttr, cond_len):
-    """Two full ``step``s of a trainer pair on the reference's draws, held
+def _replay_two_steps(name, jtr, ttr, cond_len, step_draws=None):
+    """Two full ``step``s of a trainer pair on the reference's draws
+    (``step_draws(jtr, key, it, B)``, by default ``_step_draws``), held
     step by step and at the end (the params after AdamW)."""
     (cond,) = normal(8, (2, cond_len, COND_DIM))
     key = jax.random.PRNGKey(4)
     B = 2 * jtr.flow.group_size
     for it in range(2):
-        draws = _step_draws(jtr, key, it, B)
+        draws = (step_draws or _step_draws)(jtr, key, it, B)
         jm = jax.device_get(jtr.step(jnp.asarray(cond), key, it=it))
         tm = ttr.step(to_torch(cond), 0, it=it, **draws)
         assert set(tm) - {"logp_gap"} == set(jm)

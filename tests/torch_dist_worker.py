@@ -106,7 +106,48 @@ def two_ranks(tmp):
     out["norm"] = sharded_norm()
     out["serve"] = serve_dp2()
     out["rollout_sharded"] = sharded_rollout()
+    out["engine"] = engine_dp2()
     return out
+
+
+def engine_dp2():
+    """flow_grpo with an attached engine (``max_batch`` 4 below the batch
+    of 2 prompts x 4): dp = 2 and mp = 2 (the trainer's shards passed
+    to the engine as they are) against dp = 1, 2 steps; and each rank's
+    sampled rows against the one-device engine's rows that ``_layout``
+    gives that rank (max |xs gap|, max relative logps gap, cond equal;
+    gathered from both ranks)."""
+    from repro_torch.serving import ServingEngine
+    res = {}
+    for name, dc in (("dp1", DistConfig()),
+                     ("dp2", DistConfig(data_parallel=2)),
+                     ("mp2", DistConfig(model_parallel=2))):
+        tr = build("flow_grpo", dc, mesh=None)
+        eng = ServingEngine.for_trainer(tr, max_batch=4, cond_len=COND_LEN)
+        tr.attach_engine(eng)
+        gen = torch.Generator().manual_seed(11)
+        traj = tr.sample(tr.state.params, cond_batch(), gen)
+        hist = []
+        for it in range(2):
+            m = tr.step(cond_batch(), 7, it=it)
+            hist.append({k: float(v) for k, v in m.items()})
+        res[name] = (hist, canonical_params(tr))
+        res[name + "/traj"] = traj
+        res[name + "/stats"] = {k: eng.stats[k] for k in
+                                ("buckets", "data_parallel", "dispatches",
+                                 "padded_lanes")}
+        res[name + "/rows"] = tr._layout(8)[0].tolist()
+    one, mine = res.pop("dp1/traj"), res.pop("dp2/traj")
+    res["mp2/xs_gap"] = float((res.pop("mp2/traj").xs - one.xs).abs().max())
+    rows = res["dp2/rows"]
+    gaps = (float((mine.xs - one.xs[:, rows]).abs().max()),
+            float(((mine.logps - one.logps[:, rows]).abs()
+                   / one.logps[:, rows].abs()).max()),
+            torch.equal(mine.cond, one.cond[rows]))
+    flags = [None] * dist.get_world_size()
+    dist.all_gather_object(flags, (rows, gaps))
+    res["own_rows"] = flags
+    return res
 
 
 def sharded_rollout():
