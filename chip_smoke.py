@@ -211,13 +211,43 @@ script exits 2 before printing any result.
    bitwise the engine-free step, in two chunks within stated bands of one
    (trajectory, loss, every leaf's gradient), ``awm`` likewise; and the
    two-chunk engine step on a one-rank NCCL mesh bitwise the no-mesh one.
-25. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
+25. The attention kernels at head dim 80 (zamba2-2.7b's shared attention:
+   tiles padded to 96 columns on the tensor cores) against their plain
+   versions and torch.autograd, forward (o and LSE) and backward, at the
+   path shape (4, 4608, 32 / 32 heads of 80, causal) in bf16 on the
+   tensor-core kernels and in f32 on the FMA kernels, ragged (1, 129, 2 /
+   1) and (2, 77, 4 / 2), a window and a bidirectional case, each call on
+   the variant its dtype calls for (``variant_launches``); the kernel, FMA,
+   plain and SDPA times and the bounds at the path shape.  Then the scan
+   and its backward at the hybrid's shape (4, 4608, 80 heads of 64, state
+   64, chunk 128, bf16), which run the FMA passes, against the plain
+   versions, with times and byte bounds.
+26. The hybrid serving path: ``repro_torch.launch.serve.main`` serving 4
+   requests of ``zamba2-2.7b`` (54 layers in 9 groups of 6 Mamba-2 blocks
+   and one shared attention block, bf16, random weights from a seed) over
+   511 + 1 + 4096 tokens under ``flow_sde``, 4 steps: launch counts (a
+   velocity: ``ssd_scan`` 54, all on the FMA passes, ``flash_attention``
+   9, all on the tensor cores; ``sde_step`` 4 per batch), the latents
+   bitwise ``rollout_keyed``'s through the kernels, s per step, req/s,
+   peak memory and a profile of one step; then the velocity at depth 2 (2
+   groups of one SSM block) with the SSM leaves and the shared wq/wk
+   drawn, through the kernels against the plain versions in f32 and bf16.
+27. The hybrid train path: ``repro_torch.launch.train.main`` at
+   ``zamba2-2.7b``'s full width and all 54 layers under
+   ``perf.remat=block``, ``flow_grpo`` for 2 steps and a traced third at
+   phase 19's geometry, batch and rewards, SSM leaves and shared wq/wk
+   drawn at train start: launch counts on their variants, every layer's
+   a_log and dt_bias gradient, s per step, peak memory and
+   ``memory_stats``; then one update of each of the five trainers at depth
+   2 against the plain versions, as phase 18.
+28. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
    ``ssm_train_path``, ``perf_path``, ``distributed_path``,
-   ``engine_path`` and ``kernels`` JSON lines, the card's name and power
-   limit, and the last line ``{"ok": true, "device": {...}}``.
+   ``engine_path``, ``hybrid_path`` and ``kernels`` JSON lines, the card's
+   name and power limit, and the last line ``{"ok": true, "device":
+   {...}}``.
 
 ``--only N,...`` runs just the device and build phases and phases N (3 and
-8-24) and prints no result lines: a development aid.
+8-27) and prints no result lines: a development aid.
 """
 from __future__ import annotations
 
@@ -382,18 +412,31 @@ def plain_dispatch():
 
 
 COUNTED = counts_lib.COUNTED
+COUNTED_BY_NAME = {fn.__name__: fn for fn in COUNTED}
 
 
 def reset_counts() -> None:
     for fn in COUNTED:
         fn.launches = 0
-    for fn in (ssd_scan, ssd_scan_bwd):
-        for variant in fn.variant_launches:
+        for variant in getattr(fn, "variant_launches", {}):
             fn.variant_launches[variant] = 0
 
 
 def counts() -> dict:
     return {fn.__name__: fn.launches for fn in COUNTED}
+
+
+def all_variants() -> dict:
+    """Each counted kernel's launches by variant (the attention and scan
+    wrappers: ``wgmma`` / ``fma``)."""
+    return {fn.__name__: dict(fn.variant_launches) for fn in COUNTED
+            if hasattr(fn, "variant_launches")}
+
+
+def routed(n: int, variant: str) -> dict:
+    """The variant counts of ``n`` launches all on ``variant``."""
+    return {"wgmma": n if variant == "wgmma" else 0,
+            "fma": n if variant == "fma" else 0}
 
 
 def card_line() -> str:
@@ -499,6 +542,9 @@ def check_attention(dev) -> dict:
         # and the 64-byte swizzle of D = 32 under a window
         (1, 1000, 1000, 8, 2, 128, True, 0, torch.bfloat16),
         (1, 300, 300, 4, 2, 32, True, 128, torch.bfloat16),
+        # a window of 256 over 1000 keys: rows of the second consumer
+        # whose first key tile lies wholly outside their window
+        (1, 1000, 1000, 8, 2, 128, True, 256, torch.bfloat16),
         # the dense path: a GQA group of 3, causal, ragged last tile
         (B_SERVE, DENSE_SEQ, DENSE_SEQ, DENSE_HEADS, DENSE_KV_HEADS,
          DENSE_HEAD_DIM, True, 0, torch.bfloat16),
@@ -629,6 +675,7 @@ ATTN_BWD_CASES = [  # B, Sq, Sk, H, K, D, causal, window, dtype
     (1, 300, 300, 4, 2, 128, True, 0, torch.bfloat16),
     (1, 1000, 1000, 8, 2, 128, True, 0, torch.bfloat16),
     (1, 300, 300, 4, 2, 32, True, 128, torch.bfloat16),
+    (1, 1000, 1000, 8, 2, 128, True, 256, torch.bfloat16),
     (1, SEQ, SEQ, HEADS, HEADS, HEAD_DIM, False, 0, torch.bfloat16),
     # query counts that are no multiple of 4: the LSE and delta rows are
     # padded to a 16-byte pitch for the kernels' TMA loads
@@ -990,7 +1037,12 @@ def _profile_group(name: str) -> str:
 
 def profile(fn, what: str) -> dict:
     """Trace one call of ``fn`` (warmed up) with ``torch.profiler``: device
-    time by kernel group and the device's idle share over the call."""
+    time by kernel group and the device's idle share over the call.  The
+    cached blocks are released before the warm-up call: a train step of
+    54-layer zamba2-2.7b after the script's earlier phases found too few
+    contiguous ones for its largest tensors."""
+    gc.collect()
+    torch.cuda.empty_cache()
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -1092,12 +1144,14 @@ class _TrainWatch(loop_lib.Callback):
     keeps a copy of the leaves ``keys`` of the blocks' ``block`` (so the run
     can show that the params moved), and wraps the trainer's
     ``apply_grads``, which clears the gradients, to keep those of
-    ``grad_keys`` at the first update."""
+    ``grad_keys`` at the first update, one row per layer (the leaves are
+    stacked over their first ``stack_dims`` dims: 2 for the hybrid's
+    (groups, attn_every))."""
 
     def __init__(self, block: str, keys: tuple, grad_keys: tuple = (),
-                 draw=None):
+                 draw=None, stack_dims: int = 1):
         self.block, self.keys, self.grad_keys = block, keys, grad_keys
-        self.draw = draw
+        self.draw, self.stack_dims = draw, stack_dims
 
     def on_train_start(self, loop):
         # the counts cover the train loop, not ``perf.log_memory``'s
@@ -1113,8 +1167,10 @@ class _TrainWatch(loop_lib.Callback):
 
         def apply_grads():
             if self.first_grads is None:
-                self.first_grads = {k: leaves[k].grad.float().clone()
-                                    for k in self.grad_keys}
+                self.first_grads = {
+                    k: leaves[k].grad.float().flatten(
+                        0, self.stack_dims - 1).clone()
+                    for k in self.grad_keys}
             return inner()
 
         tr.apply_grads = apply_grads
@@ -1280,15 +1336,22 @@ def check_update(dev, name: str, arch: str = "flux_dit") -> dict:
     rollout's eps, and for NFT/AWM the update's t and noise), through the
     plain versions.  ``flux_dit`` draws the modulation and holds the
     attention weights' grads; ``mamba2-370m`` draws the SSM leaves and holds
-    the grads of in_proj, conv_w, a_log and dt_bias.  The clip range is
+    the grads of in_proj, conv_w, a_log and dt_bias; ``zamba2-2.7b`` (2
+    groups of one SSM block, ``depth_cfg``) draws the SSM leaves and the
+    shared wq/wk and holds those SSM grads and the shared block's wq, wk
+    and wv (the sum over its two sites).  The clip range is
     widened to 0.2 so that every sample's ratio lies inside the band on
     both routes (the kernel rollout's log-density differs from the loss's
     by the gap phase 8 prints)."""
-    ssm = arch == SSM_ARCH
+    hybrid = arch == HY_ARCH
+    ssm = arch == SSM_ARCH or hybrid
     cond_len = SSM_COND_LEN if ssm else COND_LEN
-    block, keys = (("ssm", SSM_GRAD_KEYS) if ssm
-                   else ("attn", ("wq", "wk", "wv")))
-    cfg = replace(configs.get(arch), n_layers=UPDATE_LAYERS)
+    paths = ([("blocks", "ssm", k) for k in SSM_GRAD_KEYS] if ssm
+             else [("blocks", "attn", k) for k in ("wq", "wk", "wv")])
+    if hybrid:
+        paths += [("shared_attn", "attn", k) for k in ("wq", "wk", "wv")]
+    keys = ["/".join(p[1:]) for p in paths]
+    cfg = depth_cfg(arch, UPDATE_LAYERS)
     flow = FlowRLConfig(num_steps=NUM_STEPS, group_size=2,
                         clip_range=UPDATE_CLIP, latent_tokens=LAT_TOKENS,
                         latent_dim=LAT_DIM, advantage_agg="gdpo",
@@ -1311,6 +1374,9 @@ def check_update(dev, name: str, arch: str = "flux_dit") -> dict:
         if params is None:
             if ssm:
                 draw_ssm(tr.state.params, seed=6)
+                if hybrid:
+                    draw_shared_attention(tr.state.params, cfg.d_model,
+                                          seed=6)
             else:
                 draw_modulation(tr.state.params, cfg.d_model, seed=6)
             params = _clone(tr.state.params)
@@ -1322,20 +1388,27 @@ def check_update(dev, name: str, arch: str = "flux_dit") -> dict:
                              eps=eps)
             _, adv, stats = tr._rewards(traj.x0, {"cond": traj.cond})
             loss, aux = tr.backward(traj, adv, t=t_u, eps=eps_u)
-            leaves = tr.state.params["backbone"]["blocks"][block]
-            grads = {k: leaves[k].grad.clone() for k in keys}
+            bb = tr.state.params["backbone"]
+            grads = {k: bb[p[0]][p[1]][p[2]].grad.clone()
+                     for k, p in zip(keys, paths)}
             tr._begin_update()
             gnorm, lr = tr.apply_grads()
             tr._end_update()
             lr = float(lr)
         torch.cuda.synchronize()
-        if route == "kernel" and ssm and (
-                ssd_scan_bwd.variant_launches["fma"] != 0
-                or ssd_scan_bwd.variant_launches["wgmma"]
-                != ssd_scan_bwd.launches or ssd_scan_bwd.launches == 0):
-            fail(f"{name}: the {arch} update's scan backward did not run on "
-                 f"the tensor cores: {ssd_scan_bwd.launches} launches, "
-                 f"variants {ssd_scan_bwd.variant_launches}")
+        # mamba2-370m's scan backward on the tensor cores; zamba2-2.7b's
+        # (state 64) on the FMA passes, its attention backward on the
+        # tensor cores
+        want_routes = ({"ssd_scan_bwd": "fma", "flash_attention_bwd": "wgmma"}
+                       if hybrid else {"ssd_scan_bwd": "wgmma"} if ssm
+                       else {})
+        ran = all_variants()
+        if route == "kernel" and any(
+                ran[kn] != routed(COUNTED_BY_NAME[kn].launches, v)
+                or COUNTED_BY_NAME[kn].launches == 0
+                for kn, v in want_routes.items()):
+            fail(f"{name}: the {arch} update's backward kernels did not run "
+                 f"on their routes {want_routes}: variants {ran}")
         runs[route] = {"loss": float(loss), "grad_norm": float(gnorm),
                        "lr": lr, "grads": grads,
                        "aux": {a: float(v) for a, v in aux.items()},
@@ -1365,8 +1438,8 @@ def check_update(dev, name: str, arch: str = "flux_dit") -> dict:
         f"grad_norm {k['grad_norm']:.4e} / {p['grad_norm']:.4e} "
         f"({gn_err:.2e}), reward {k['reward']:+.4e} / {p['reward']:+.4e}, "
         f"{aux}")
-    log(f"  grads of {'/'.join(keys)}: max|kernel - plain| / max|plain| "
-        + "/".join(f"{grad_err[n]:.3e}" for n in keys)
+    log(f"  grads of {', '.join(keys)}: max|kernel - plain| / max|plain| "
+        + ", ".join(f"{grad_err[n]:.3e}" for n in keys)
         + f" (band {GRAD_BAND}); params after AdamW: max|diff| {p_err:.3e}, "
         f"nearest its leaf's band (2 lr + one bf16 ulp of the leaf's max|p|) "
         f"{p_leaf} at {p_ratio:.3f} of {p_band:.3e}; {n_diff} of the "
@@ -1374,7 +1447,7 @@ def check_update(dev, name: str, arch: str = "flux_dit") -> dict:
         f"{PARAM_DIFF_SHARE}), of {n_all}")
     if zero:
         fail(f"{name}: the gradients of {zero} are zero: the check cannot "
-             f"see the {block} backward")
+             f"see their backward")
     if max(grad_err.values()) > GRAD_BAND or gn_err > GRAD_BAND:
         fail(f"{name}: the update's gradients through the kernels disagree "
              "with the plain versions")
@@ -1467,6 +1540,35 @@ def _ssd_variant(call):
     return out, ran[0]
 
 
+def _ssd_fwd_bound(B, L, H, P, N, Q) -> tuple:
+    """(bound ms, "bytes" or "operations", bytes, flops) of one bf16 scan:
+    x, bm, cm, dt and a read once, y and the f32 final state written once;
+    per chunk C B^T (shared by the heads) and per head L' x, C h_prev and
+    the state update at the bf16 tensor-core rate."""
+    nc = L // Q
+    nbytes = (2 * B * L * H * P * 2 + B * L * H * 4 + H * 4
+              + 2 * B * L * N * 2 + B * H * P * N * 4)
+    flops = 2 * B * nc * Q * (Q * N + H * Q * P + 2 * H * P * N)
+    return _bound(nbytes, flops) + (nbytes, flops)
+
+
+def _ssd_bwd_bound(B, L, H, P, N, Q) -> tuple:
+    """The same for the scan's backward (``_ssd_bwd_times`` counts)."""
+    nc = L // Q
+    nbytes = (3 * B * L * H * P * 2 + 4 * B * L * N * 2 + 2 * B * L * H * 4
+              + 2 * H * 4)
+    flops = 2 * B * nc * (3 * Q * Q * N + H * (2 * Q * Q * P + 5 * Q * P * N))
+    return _bound(nbytes, flops) + (nbytes, flops)
+
+
+def _bound(nbytes: float, flops: float) -> tuple:
+    """(ms, what bounds it): the larger of the bytes over the memory rate
+    and the operations over the bf16 tensor-core rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def _ssd_times(dev, g, B) -> dict:
     """Device ms of the tensor-core kernel and of the FMA passes on the same
     bf16 inputs (replayed graphs), of the plain version, and the bound, at
@@ -1479,13 +1581,7 @@ def _ssd_times(dev, g, B) -> dict:
     ms = graph_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=Q), 5)
     call_ms = cuda_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=Q), 20)
     plain_ms = cuda_ms(lambda: ref.ssd_chunked_ref(x, dt, a, bm, cm, Q), 3, 1)
-    nc = L // Q
-    nbytes = (2 * x.numel() * 2 + dt.numel() * 4 + a.numel() * 4
-              + 2 * bm.numel() * 2 + B * H * P * N * 4)
-    flops = 2 * B * nc * Q * (Q * N + H * Q * P + 2 * H * P * N)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
-    bound = max(t_bytes, t_ops)
+    bound, by, nbytes, flops = _ssd_fwd_bound(B, L, H, P, N, Q)
     log(f"  ssd_scan path (B={B}, L={L}, H={H}, P={P}, N={N}, Q={Q}) bf16: "
         f"kernel {ms:.4f} ms on the device ({call_ms:.4f} ms a call with "
         f"the host's launch), the f32 FMA passes {fma_ms:.4f} ms, plain "
@@ -1494,8 +1590,7 @@ def _ssd_times(dev, g, B) -> dict:
     del x, dt, a, bm, cm
     torch.cuda.empty_cache()
     return {"ms": ms, "call_ms": call_ms, "fma_ms": fma_ms,
-            "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
 
 
 def check_ssd(dev) -> dict:
@@ -1853,13 +1948,7 @@ def _ssd_bwd_times(dev, g, B) -> dict:
                                            chunk=Q), 5)
     plain_ms = cuda_ms(lambda: ref.ssd_scan_bwd_ref(x, dt, a, bm, cm, dy,
                                                     None, Q), 2, 1)
-    nc = L // Q
-    nbytes = (3 * x.numel() * 2 + 4 * B * L * N * 2 + 2 * dt.numel() * 4
-              + 2 * H * 4)
-    flops = 2 * B * nc * (3 * Q * Q * N + H * (2 * Q * Q * P + 5 * Q * P * N))
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
-    bound = max(t_bytes, t_ops)
+    bound, by, nbytes, flops = _ssd_bwd_bound(B, L, H, P, N, Q)
     log(f"  ssd_scan_bwd path (B={B}, L={L}, H={H}, P={P}, N={N}, Q={Q}) "
         f"bf16: tensor-core kernels {ms:.4f} ms on the device ({call_ms:.4f}"
         f" ms a call with the host's launch), the f32 FMA passes "
@@ -1868,8 +1957,7 @@ def _ssd_bwd_times(dev, g, B) -> dict:
     del x, dt, a, bm, cm, dy
     torch.cuda.empty_cache()
     return {"ms": ms, "call_ms": call_ms, "fma_ms": fma_ms,
-            "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
 
 
 def check_ssd_bwd(dev) -> dict:
@@ -2174,7 +2262,9 @@ def _train_want(name: str, steps: int, layers: int, fwd: str, bwd: str,
                 rollout_chunks: int = 1) -> dict:
     """Kernel launches of ``steps`` train steps of trainer ``name`` at
     T = 4 over ``layers`` blocks that each run kernel ``fwd`` forward and
-    ``bwd`` backward: the rollout's forward per layer and step and its
+    ``bwd`` backward (or, as dicts, each kernel's launches a velocity and
+    a loss backward: the hybrid's scan and shared attention): the
+    rollout's forward per layer and step and its
     sde_step per SDE step, once per chunk of an attached engine's rollout
     (``rollout_chunks``); the loss's forward and backward per layer at
     each SDE step (GRPO family) or once (NFT/AWM), the forward twice under
@@ -2184,9 +2274,13 @@ def _train_want(name: str, steps: int, layers: int, fwd: str, bwd: str,
     sde = {"mix_grpo": 2}.get(name, NUM_STEPS)   # MixGRPO: window 2
     passes = (sde if name in GRPO_FAMILY else 1) * microbatch
     want = {fn.__name__: 0 for fn in COUNTED}
-    want[fwd] = layers * (NUM_STEPS * rollout_chunks
-                          + (2 if remat == "block" else 1) * passes)
-    want[bwd] = layers * passes
+    fwd = fwd if isinstance(fwd, dict) else {fwd: layers}
+    bwd = bwd if isinstance(bwd, dict) else {bwd: layers}
+    for k, n in fwd.items():
+        want[k] = n * (NUM_STEPS * rollout_chunks
+                       + (2 if remat == "block" else 1) * passes)
+    for k, n in bwd.items():
+        want[k] = n * passes
     if name in GRPO_FAMILY:
         want["sde_step"] = sde * rollout_chunks
         if name != "grpo_guard":
@@ -2220,7 +2314,7 @@ def train_one(tmp: str, arch: str, layers: int, cond_len: int, kernels: tuple,
               watch, name: str, n: int, *, extra=(), tag: str = "",
               remat: str = "none", captured: bool = False,
               profile_what: str = "", mesh=None, microbatch: int = 1,
-              engine_batch: int = 0) -> dict:
+              engine_batch: int = 0, routes=None) -> dict:
     """``repro_torch.launch.train.main`` on the card: trainer ``name`` for
     ``n`` steps at ``arch``'s full width and ``layers`` layers, bf16,
     ``cond_len`` condition tokens, one time token and phase 8's latents,
@@ -2239,8 +2333,10 @@ def train_one(tmp: str, arch: str, layers: int, cond_len: int, kernels: tuple,
     that ``max_batch`` attached: ``Experiment.build_trainer()``,
     ``trainer.attach_engine(ServingEngine.for_trainer(trainer,
     max_batch=engine_batch))``, ``Experiment.train()``; its rollouts then
-    run in chunks of ``engine_batch`` rows.  Returns the row and the
-    trainer."""
+    run in chunks of ``engine_batch`` rows.  ``routes`` (kernel -> variant)
+    replaces the default variant check (every ``ssd_scan`` launch and its
+    backward's on the tensor cores) with one for each kernel it names.
+    Returns the row and the trainer."""
     argv = _train_argv(tmp, arch, layers, cond_len, name, n, tag, extra)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2272,11 +2368,12 @@ def train_one(tmp: str, arch: str, layers: int, cond_len: int, kernels: tuple,
         f"{bwd_variants}")
     if trainer.adapter.cfg.n_layers != layers:
         fail(f"{label} trained {trainer.adapter.cfg.n_layers} layers")
-    if launches != want or variants != {
-            "wgmma": want["ssd_scan"], "fma": 0} or bwd_variants != {
-            "wgmma": want["ssd_scan_bwd"], "fma": 0}:
+    routes = routes or {"ssd_scan": "wgmma", "ssd_scan_bwd": "wgmma"}
+    ran = all_variants()
+    if launches != want or any(ran[k] != routed(want[k], v)
+                               for k, v in routes.items()):
         fail(f"{label}: the {arch} train path's kernel launches do not "
-             "match the path")
+             f"match the path (variants {ran}, routes {routes})")
     if len(hist) != n:
         fail(f"{label}: {len(hist)} train steps ran, expected {n}")
     for r in hist:
@@ -3339,6 +3436,458 @@ def engine_phase(dev, tmp: str, phase19=None) -> dict:
     return {"train": row, "update": check_engine_updates(dev, tmp)}
 
 
+# ----------------------------------------------------------------- phase 25
+# the hybrid's path: zamba2-2.7b at its published width (arXiv:2411.15242:
+# 54 Mamba-2 layers in 9 groups of 6, each group followed by one shared
+# attention + SwiGLU block, causal GQA with 32 heads of 80; SSD heads 80 of
+# 64, state 64, chunk 128) over 511 + 1 + 4096 = 36 x 128 tokens
+HY_ARCH, HY_LAYERS, HY_COND_LEN = "zamba2-2.7b", 54, 511
+HY_SEQ = HY_COND_LEN + 1 + LAT_TOKENS
+HY_SITES, HY_HEADS, HY_HEAD_DIM = 9, 32, 80
+HY_SSD_HEADS, HY_STATE = 80, 64
+HY_KERNELS = ({"ssd_scan": HY_LAYERS, "flash_attention": HY_SITES},
+              {"ssd_scan_bwd": HY_LAYERS, "flash_attention_bwd": HY_SITES})
+# state 64 is no shape of the tensor-core scan: the FMA passes run it, and
+# the shared attention's bf16 D = 80 runs on the tensor cores
+HY_ROUTES = {"ssd_scan": "fma", "ssd_scan_bwd": "fma",
+             "flash_attention": "wgmma", "flash_attention_bwd": "wgmma"}
+
+
+def depth_cfg(arch: str, layers: int):
+    """``arch``'s full-width config cut to ``layers`` layers; the hybrid
+    below one group of ``attn_every`` keeps whole groups of one SSM block
+    each, so that every cut still runs its shared block at every group."""
+    cfg = configs.get(arch)
+    if cfg.family == "hybrid" and layers < cfg.hybrid.attn_every:
+        return replace(cfg, n_layers=layers,
+                       hybrid=replace(cfg.hybrid, attn_every=1))
+    return replace(cfg, n_layers=layers)
+
+
+def draw_shared_attention(p: dict, d_model: int, seed: int) -> None:
+    """The hybrid's shared wq and wk redrawn at std 1/sqrt(d_model), in
+    place, for ``draw_attention``'s reason (at the repository's init the
+    logits have std ~ d_model / n_heads, 80 at zamba2-2.7b's width, and the
+    softmax is one-hot: tests/test_torch_hybrid.py)."""
+    attn = p["backbone"]["shared_attn"]["attn"]
+    gen = torch.Generator(device=attn["wq"].device).manual_seed(seed)
+    for key in ("wq", "wk"):
+        attn[key].copy_(torch.randn(attn[key].shape, generator=gen,
+                                    device=attn[key].device) / d_model ** 0.5)
+
+
+def draw_hybrid(p: dict, cfg, seed: int) -> None:
+    draw_ssm(p, seed=seed)
+    draw_shared_attention(p, cfg.d_model, seed=seed + 1)
+
+
+D80_CASES = [  # B, Sq, H, K, causal, window, dtype
+    (B_SERVE, HY_SEQ, HY_HEADS, HY_HEADS, True, 0, torch.bfloat16),
+    (B_SERVE, HY_SEQ, HY_HEADS, HY_HEADS, True, 0, torch.float32),
+    (1, 129, 2, 1, True, 0, torch.bfloat16),
+    (1, 129, 2, 1, True, 0, torch.float32),
+    (2, 77, 4, 2, True, 0, torch.bfloat16),
+    (2, 77, 4, 2, True, 0, torch.float32),
+    (1, 1000, 4, 2, True, 256, torch.bfloat16),
+    (1, 300, 4, 2, False, 0, torch.bfloat16),
+]
+
+
+def _causal_flops_d80() -> float:
+    """Operations of the causal forward at the hybrid path's attention
+    shape: the two products over the half of the score matrix the mask
+    keeps, 4 B H S^2 D / 2."""
+    return 4 * B_SERVE * HY_HEADS * HY_SEQ ** 2 * HY_HEAD_DIM / 2
+
+
+def check_attention_d80(dev) -> list:
+    """The attention forward (o and its LSE) and backward at head dim 80
+    against their plain versions and torch.autograd through the plain
+    forward, with phase 3's bands: the path shape (4, 4608, 32 / 32 heads
+    of 80, causal) in bf16 on the tensor-core kernels and in f32 on the FMA
+    kernels, ragged (1, 129, 2 / 1) and (2, 77, 4 / 2), a window of 256
+    over 1000 and a bidirectional case.  Each call must run the variant its
+    dtype calls for (``variant_launches``).  Then kernel (replayed graph),
+    plain and SDPA times and the bound at the path shape, forward and
+    backward.  Returns the two kernel rows."""
+    g = torch.Generator(device=dev).manual_seed(25)
+    errs = {}
+    for (B, S, H, K, causal, window, dt) in D80_CASES:
+        D = HY_HEAD_DIM
+        q = torch.randn(B, S, H, D, generator=g, device=dev).to(dt)
+        k = torch.randn(B, S, K, D, generator=g, device=dev).to(dt)
+        v = torch.randn(B, S, K, D, generator=g, device=dev).to(dt)
+        do = torch.randn(B, S, H, D, generator=g, device=dev).to(dt)
+        variant = "wgmma" if dt == torch.bfloat16 else "fma"
+        if fa_mod.tensor_core_route(q, k, v) != (variant == "wgmma"):
+            fail(f"tensor_core_route disagrees with the dtype rule at "
+                 f"{(B, S, H, K, D)} {dt}")
+        before = all_variants()
+        o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  window=window)
+        ran = all_variants()
+        for name in ("flash_attention", "flash_attention_bwd"):
+            if ran[name][variant] - before[name][variant] != 1:
+                fail(f"{name} at D = 80 {dt} did not run its {variant} "
+                     f"kernel: {before[name]} -> {ran[name]}")
+        # the plain versions one batch row at a time (a whole (4, 4608,
+        # 32, 4608) f32 score tensor is 10.9 GB)
+        rows = [ref.flash_attention_fwd_ref(q[i:i + 1], k[i:i + 1],
+                                            v[i:i + 1], causal=causal,
+                                            window=window) for i in range(B)]
+        r = torch.cat([a for a, _ in rows])
+        lse_ref = torch.cat([b for _, b in rows])
+        want = [torch.cat(t) for t in zip(*(
+            ref.flash_attention_bwd_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                        o[i:i + 1], lse[i:i + 1],
+                                        do[i:i + 1], causal=causal,
+                                        window=window) for i in range(B)))]
+        leaves = [a[:1].float().requires_grad_() for a in (q, k, v)]
+        ref.flash_attention_ref(*leaves, causal=causal,
+                                window=window).backward(do[:1].float())
+        torch.cuda.synchronize()
+        err = float((o.float() - r.float()).abs().max())
+        lse_err = float((lse - lse_ref).abs().max()) / max(
+            1.0, float(lse_ref.abs().max()))
+        gerr = _grad_errs(got, want)
+        auto = _grad_errs([a[:1] for a in got], [a.grad for a in leaves])
+        path = S == HY_SEQ
+        if path:
+            limit = PATH_ATTN_BAND * float(r.float().abs().max())
+            ok = err <= limit
+        else:
+            tol = 2e-5 if dt == torch.float32 else 2e-2
+            limit = tol
+            ok = torch.allclose(o.float(), r.float(), atol=tol, rtol=tol)
+        band = ATTN_BWD_BAND[dt]
+        log(f"  D=80 B={B} S={S} H={H} K={K} causal={causal} window={window} "
+            f"{dt} ({variant}): o max|err| {err:.3e} (limit {limit:.3e}), "
+            f"lse {lse_err:.2e}; dq/dk/dv vs plain {gerr[0]:.2e}/"
+            f"{gerr[1]:.2e}/{gerr[2]:.2e}, vs autograd {auto[0]:.2e}/"
+            f"{auto[1]:.2e}/{auto[2]:.2e} of max|plain| (band {band})")
+        if not ok or lse_err > LSE_BAND:
+            fail(f"flash_attention off at D = 80, {(B, S, H, K)} {dt}")
+        if max(gerr + auto) > band:
+            fail(f"flash_attention_bwd off at D = 80, {(B, S, H, K)} {dt}")
+        if path:
+            errs[dt] = (err, max(float((a.float() - b.float()).abs().max())
+                                 for a, b in zip(got, want)))
+        del q, k, v, do, o, lse, got, want, rows, r, lse_ref, leaves
+        torch.cuda.empty_cache()
+    return _attention_d80_times(dev, g, errs)
+
+
+def _attention_d80_times(dev, g, errs) -> list:
+    """Forward and backward at the path shape (4, 4608, 32 heads of 80,
+    causal): the bf16 kernels and the f32 FMA kernels from replayed
+    graphs, the plain versions and SDPA (and its backward) with CUDA
+    events, and the bounds: 4 B H S^2 D / 2 operations forward, 2.5 x that
+    backward, at the bf16 tensor-core rate."""
+    shp = (B_SERVE, HY_SEQ, HY_HEADS, HY_HEAD_DIM)
+    q, k, v, do = (torch.randn(shp, generator=g, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    ms = graph_ms(lambda: flash_attention(q, k, v, causal=True), 3)
+    lse_ms = graph_ms(lambda: flash_attention(q, k, v, causal=True,
+                                              return_lse=True), 3)
+    bwd_ms = graph_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                  causal=True), 3)
+    q32, k32, v32, do32 = (a.float() for a in (q, k, v, do))
+    o32, lse32 = flash_attention(q32, k32, v32, causal=True, return_lse=True)
+    fma_ms = graph_ms(lambda: flash_attention(q32, k32, v32, causal=True), 1)
+    fma_bwd_ms = graph_ms(lambda: flash_attention_bwd(
+        q32, k32, v32, o32, lse32, do32, causal=True), 1)
+    del q32, k32, v32, do32, o32, lse32
+    torch.cuda.empty_cache()
+    # the plain versions one batch row at a time, as the checks run them
+    # (a whole batch's f32 scores and probabilities would take ~50 GB)
+    rows_b = range(B_SERVE)
+    plain_ms = cuda_ms(lambda: [ref.flash_attention_ref(
+        q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=True) for i in rows_b],
+        1, 1)
+    torch.cuda.empty_cache()
+    plain_bwd_ms = cuda_ms(lambda: [ref.flash_attention_bwd_ref(
+        q[i:i + 1], k[i:i + 1], v[i:i + 1], o[i:i + 1], lse[i:i + 1],
+        do[i:i + 1], causal=True) for i in rows_b], 1, 1)
+    torch.cuda.empty_cache()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_()
+                  for a in (q, k, v))
+    with torch.no_grad():
+        sdpa_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 10)
+    out = sdpa(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 5)
+    flops = _causal_flops_d80()
+    rows = []
+    for name, kms, fms, pms, lms, f, nbytes, src, rep_ in (
+            ("flash_attention_d80", ms, fma_ms, plain_ms, sdpa_ms, flops,
+             4 * q.numel() * 2, "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:81"),
+            ("flash_attention_bwd_d80", bwd_ms, fma_bwd_ms, plain_bwd_ms,
+             sdpa_bwd_ms, 2.5 * flops, 7 * q.numel() * 2 + 4 * lse.numel(),
+             "flash_attention_bwd.cu",
+             "none (JAX autodiff of src/repro/models/attention.py:71, "
+             "attention_chunked)")):
+        bound, by = _bound(nbytes, f)
+        log(f"  {name} path {shp} causal bf16: kernel {kms:.4f} ms "
+            f"(wgmma), the f32 FMA kernel {fms:.4f} ms, plain {pms:.3f} ms "
+            f"(a batch row at a time), "
+            f"SDPA{' backward' if 'bwd' in name else ''} {lms:.4f} ms, "
+            f"bound {bound:.4f} ms ({f / 1e12:.4f} TFLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+        rows.append({
+            "name": name, "route": "cuda", "variant": "wgmma",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": rep_,
+            "max_abs_err": errs[torch.bfloat16][0 if "bwd" not in name
+                                                else 1],
+            "max_abs_err_f32": errs[torch.float32][0 if "bwd" not in name
+                                                   else 1],
+            "ms": kms, "fma_ms": fms, "plain_ms": pms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lms})
+    rows[0]["forward_with_lse_ms"] = lse_ms
+    del q, k, v, do, o, lse, qt, kt, vt, out, dot
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_ssd_zamba(dev) -> list:
+    """The scan forward and backward at the hybrid path's shape (4, 4608,
+    80 heads of 64, state 64, chunk 128, bf16, x, bm and cm as column
+    slices of one buffer as the model passes them), which take the f32 FMA
+    passes (state 64 is no shape of the tensor-core kernels): against the
+    plain versions at phase 10's and 14's bf16 bands, on the FMA variant,
+    then their times (replayed graphs), the plain versions' and the byte
+    bounds.  Returns the two kernel rows."""
+    g = torch.Generator(device=dev).manual_seed(26)
+    B, L, H, P, N, Q = (B_SERVE, HY_SEQ, HY_SSD_HEADS, SSM_HEAD_DIM,
+                        HY_STATE, SSM_CHUNK)
+    x, dt, a, bm, cm = _ssd_inputs(g, dev, B, L, H, P, N, "mamba2",
+                                   torch.bfloat16)
+    x, bm, cm = _ssd_conv_slices(x, bm, cm)
+    dy = torch.randn(x.shape, generator=g, device=dev).to(x.dtype)
+    before = all_variants()
+    y, hT = ssd_scan(x, dt, a, bm, cm, chunk=Q)
+    grads = ssd_scan_bwd(x, dt, a, bm, cm, dy, None, chunk=Q)
+    ran = all_variants()
+    for name in ("ssd_scan", "ssd_scan_bwd"):
+        if ran[name]["fma"] - before[name]["fma"] != 1:
+            fail(f"{name} at the zamba2 shape did not run the FMA passes")
+    y_ref, h_ref = ref.ssd_chunked_ref(x, dt, a, bm, cm, Q)
+    want = ref.ssd_scan_bwd_ref(x, dt, a, bm, cm, dy, None, Q)
+    torch.cuda.synchronize()
+    y_err, h_err = _rel(y, y_ref), _rel(hT, h_ref)
+    g_err = [_rel(a_, b_) for a_, b_ in zip(grads, want)]
+    log(f"  ssd_scan zamba2 shape (B={B}, L={L}, H={H}, P={P}, N={N}, Q={Q}) "
+        f"bf16 (fma): y {y_err:.2e}, final state {h_err:.2e} of max|plain| "
+        f"(bands {SSD_Y_BAND[torch.bfloat16]}, {SSD_H_BAND}); backward "
+        + ", ".join(f"{n} {e:.2e}" for n, e in zip(SSD_GRADS, g_err))
+        + f" (band {SSD_BWD_BAND[torch.bfloat16]})")
+    if y_err > SSD_Y_BAND[torch.bfloat16] or h_err > SSD_H_BAND:
+        fail("ssd_scan off at the zamba2 shape")
+    if max(g_err) > SSD_BWD_BAND[torch.bfloat16]:
+        fail("ssd_scan_bwd off at the zamba2 shape")
+    del y, hT, grads, y_ref, h_ref, want
+    torch.cuda.empty_cache()
+    ms = graph_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=Q), 5)
+    bwd_ms = graph_ms(lambda: ssd_scan_bwd(x, dt, a, bm, cm, dy, None,
+                                           chunk=Q), 3)
+    plain_ms = cuda_ms(lambda: ref.ssd_chunked_ref(x, dt, a, bm, cm, Q), 2, 1)
+    plain_bwd_ms = cuda_ms(lambda: ref.ssd_scan_bwd_ref(
+        x, dt, a, bm, cm, dy, None, Q), 1, 1)
+    rows = []
+    for name, kms, pms, bound_fn, rep_ in (
+            ("ssd_scan_zamba2", ms, plain_ms, _ssd_fwd_bound,
+             "src/repro/kernels/ssd_scan.py:77"),
+            ("ssd_scan_bwd_zamba2", bwd_ms, plain_bwd_ms, _ssd_bwd_bound,
+             "none (JAX autodiff of src/repro/models/ssm.py:84)")):
+        bound, by, nbytes, flops = bound_fn(B, L, H, P, N, Q)
+        log(f"  {name} (B={B}, L={L}, H={H}, P={P}, N={N}, Q={Q}) bf16 on "
+            f"the FMA passes: {kms:.4f} ms on the device, plain {pms:.3f} "
+            f"ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP)")
+        src = "ssd_scan.cu" if "bwd" not in name else "ssd_scan_bwd.cu"
+        rows.append({
+            "name": name, "route": "cuda", "variant": "fma",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": rep_,
+            "max_abs_err": y_err if "bwd" not in name else max(g_err),
+            "max_rel_err": y_err if "bwd" not in name else max(g_err),
+            "ms": kms, "plain_ms": pms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None})
+    del x, dt, a, bm, cm, dy
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kernels_d80(dev) -> list:
+    """Phase 25: the D = 80 attention rows and the zamba2-shape scan
+    rows."""
+    return check_attention_d80(dev) + check_ssd_zamba(dev)
+
+
+# ----------------------------------------------------------------- phase 26
+def _hy_argv(dtype: str) -> list:
+    return ["--arch", HY_ARCH, "--sde", "flow_sde", "--device", "cuda",
+            "--requests", str(B_SERVE), "--max-batch", str(B_SERVE),
+            "--bucket", str(B_SERVE),
+            "--set", f"flow.num_steps={NUM_STEPS}",
+            "--set", f"flow.latent_tokens={LAT_TOKENS}",
+            "--set", f"flow.latent_dim={LAT_DIM}",
+            "--set", f"param_dtype={dtype}",
+            "--set", "data.encoder=" + json.dumps(
+                {"cond_dim": COND_DIM, "cond_len": HY_COND_LEN})]
+
+
+def hybrid_serve_path(dev) -> dict:
+    """``repro_torch.launch.serve.main`` serving 4 requests of zamba2-2.7b
+    (54 layers, bf16, random weights from a seed) over 511 + 1 + 4096
+    tokens under flow_sde, 4 steps: launch counts (a velocity: ``ssd_scan``
+    54, all on the FMA passes, ``flash_attention`` 9, all on the tensor
+    cores), the latents bitwise ``rollout_keyed``'s through the kernels,
+    s per step, req/s, peak memory and a profile of one step; then the
+    velocity at depth 2 (``depth_cfg``) with the SSM leaves and the shared
+    wq/wk drawn, through the kernels against the plain versions, in f32
+    (the FMA kernels) and in bf16 (the tensor-core attention)."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = serve.main(_hy_argv("bfloat16"))
+    launches = counts()
+    ran = all_variants()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    stats, lat, eng = out["stats"], out["latents"], out["engine"]
+    batches = len(out["warmup"]) + sum(stats["dispatches"].values())
+    serve_batches = sum(stats["dispatches"].values())
+    want = {name: 0 for name in launches}
+    want["sde_step"] = NUM_STEPS * batches
+    want["ssd_scan"] = HY_LAYERS * NUM_STEPS * batches
+    want["flash_attention"] = HY_SITES * NUM_STEPS * batches
+    log(f"  launches {launches} over {batches} batches (warmup + serve; "
+        f"expected {want}); variants {ran}")
+    if eng.adapter.cfg.n_layers != HY_LAYERS:
+        fail(f"served {eng.adapter.cfg.n_layers} layers, not {HY_LAYERS}")
+    if tuple(lat.shape) != (B_SERVE, LAT_TOKENS, LAT_DIM) or not \
+            torch.isfinite(lat).all():
+        fail(f"hybrid latents: shape {tuple(lat.shape)} or not finite")
+    if launches != want or any(
+            ran[k] != routed(want[k], HY_ROUTES[k])
+            for k in ("ssd_scan", "flash_attention")):
+        fail("the hybrid serving path's kernel launches do not match the "
+             "path")
+    prompts = synthetic_prompts(B_SERVE)
+    cond = torch.from_numpy(eng.encode(prompts)).to(eng.device)
+    with torch.no_grad():
+        traj = rollout_keyed(eng.adapter, eng.params, cond,
+                             request_seeds(0, B_SERVE), eng.scheduler,
+                             NUM_STEPS)
+    if not torch.equal(traj.x0.cpu(), lat):
+        fail("the hybrid engine's latents differ from rollout_keyed's")
+    del traj
+    serve_s = out["serve_s"]
+    res = {"launches": launches, "variants": ran, "batches": batches,
+           "req_per_s": B_SERVE / serve_s,
+           "s_per_step": serve_s / (serve_batches * NUM_STEPS),
+           "serve_s": serve_s, "warmup_s": out["warmup_s"],
+           "peak_bytes": peak,
+           "n_params": params_lib.n_params(eng.adapter.spec()),
+           "latents_equal_rollout_keyed": True}
+    log(f"  hybrid path: {res['req_per_s']:.4f} req/s, "
+        f"{res['s_per_step']:.4f} s per denoising step (batch {B_SERVE}), "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB ({peak} bytes), "
+        f"{res['n_params']} params; latents bitwise rollout_keyed's")
+    res["profile"] = profile_step(eng, HY_SEQ)
+    del eng, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["velocity_checks"] = check_hybrid_velocity(dev)
+    return res
+
+
+def check_hybrid_velocity(dev) -> dict:
+    """``FlowAdapter.velocity`` of zamba2-2.7b at full width and depth 2
+    (two groups of one SSM block and the shared block: ``depth_cfg``) over
+    511 + 1 + 4096 tokens, SSM leaves and shared wq/wk drawn, through the
+    kernels against the plain versions: in f32 (every kernel's f32 FMA
+    variant) within F32_VEL_BAND of max |v|, and in bf16 (the attention
+    on the tensor cores at D = 80) within BF16_BAND."""
+    cfg = depth_cfg(HY_ARCH, UPDATE_LAYERS)
+    adapter = FlowAdapter(cfg, FlowRLConfig(latent_tokens=LAT_TOKENS,
+                                            latent_dim=LAT_DIM), COND_DIM)
+    out = {}
+    for name, dtype, band in (("f32", torch.float32, F32_VEL_BAND),
+                              ("bf16", torch.bfloat16, BF16_BAND)):
+        gen = torch.Generator(device=dev).manual_seed(27)
+        p = params_lib.init(adapter.spec(), gen, dtype, dev)
+        draw_hybrid(p, cfg, seed=28)
+        x = torch.randn(1, LAT_TOKENS, LAT_DIM, generator=gen, device=dev)
+        cond = torch.randn(1, HY_COND_LEN, COND_DIM, generator=gen,
+                           device=dev)
+        t = torch.full((1,), 0.7, device=dev)
+        reset_counts()
+        with torch.no_grad():
+            vk = adapter.velocity(p, x, t, cond)
+            ran, variants = counts(), all_variants()
+            with plain_dispatch():
+                vp = adapter.velocity(p, x, t, cond)
+        torch.cuda.synchronize()
+        err, scale = float((vk - vp).abs().max()), float(vp.abs().max())
+        attn = "wgmma" if dtype == torch.bfloat16 else "fma"
+        log(f"  velocity {HY_ARCH} depth {UPDATE_LAYERS} (2 groups), {name}: "
+            f"max|kernel - plain| {err:.3e} of max|v| {scale:.3e} (band "
+            f"{band * scale:.3e}); launches {ran}, variants {variants}")
+        if (ran["ssd_scan"], ran["flash_attention"]) != (2, 2) or \
+                variants["ssd_scan"] != routed(2, "fma") or \
+                variants["flash_attention"] != routed(2, attn):
+            fail(f"the {name} hybrid velocity did not run its kernels")
+        if not (torch.isfinite(vk).all() and err <= band * scale):
+            fail(f"the {name} hybrid velocity is off its band")
+        out[name] = {"max_abs_err": err, "max_abs": scale,
+                     "band": band * scale}
+        del p
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------- phase 27
+HY_TRAIN_LAYERS = 54
+
+
+def _hy_watch():
+    return _TrainWatch("ssm", ("conv_w", "conv_b", "a_log"),
+                       ("a_log", "dt_bias"),
+                       lambda p, cfg: draw_hybrid(p, cfg, seed=29),
+                       stack_dims=2)
+
+
+def hybrid_train_path(dev, tmp: str) -> dict:
+    """zamba2-2.7b at full width and all 54 layers through ``launch.train``
+    under ``perf.remat=block`` (each group checkpointed) with
+    ``perf.log_memory``, flow_grpo, phase 19's geometry, batch and rewards,
+    SSM leaves and shared wq/wk drawn at train start, 2 steps and a traced
+    third: launch counts (a velocity 54 scans and 9 attentions, the loss
+    each forward twice, the backward once, per SDE step), every layer's
+    a_log and dt_bias gradient at the first update, s per step, peak
+    memory; then one update of each of the five trainers at depth 2
+    against the plain versions (``check_updates``)."""
+    row, trainer = train_one(
+        tmp, HY_ARCH, HY_TRAIN_LAYERS, HY_COND_LEN, HY_KERNELS, _hy_watch(),
+        "flow_grpo", TRAIN_STEPS,
+        extra=BLOCK + ("--set", "perf.log_memory=true"), tag="block",
+        remat="block", routes=HY_ROUTES,
+        profile_what=f"one {HY_ARCH} train step under remat=block, "
+                     f"{HY_TRAIN_LAYERS} layers")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"block": row, "update_check": check_updates(dev, HY_ARCH)}
+
+
 def _clone(tree):
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
@@ -3354,7 +3903,7 @@ def _cast(tree, dtype):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", metavar="N,N,...",
-                    help="run only these of phases 3-24 after the device and "
+                    help="run only these of phases 3-27 after the device and "
                          "build phases, and print no result lines (a "
                          "development aid; the check runs every phase)")
     args = ap.parse_args(argv)
@@ -3520,6 +4069,27 @@ def main(argv=None) -> int:
             f"{ENGINE_BATCH}; at depth {UPDATE_LAYERS} against the "
             "engine-free step and on a one-rank mesh")
         engine_res = engine_phase(dev, tmp, ssm_train["flow_grpo"])
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log("[25] the attention kernels at head dim 80 and the scan at the "
+            f"{HY_ARCH} shape against their plain versions; times")
+        hy_rows = kernels_d80(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log(f"[26] hybrid path: repro_torch.launch.serve, {HY_ARCH}, "
+            f"{HY_LAYERS} layers; the velocity at depth {UPDATE_LAYERS} "
+            "against the plain versions")
+        hy_res = {"serve": hybrid_serve_path(dev)}
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log(f"[27] hybrid train path: repro_torch.launch.train, {HY_ARCH}, "
+            f"{HY_TRAIN_LAYERS} layers under perf.remat=block; one update "
+            f"of each trainer at depth {UPDATE_LAYERS} against the plain "
+            "versions")
+        hy_res["train"] = hybrid_train_path(dev, tmp)
 
     def by_path(name: str) -> dict:
         return {"serve": res["launches"][name],
@@ -3542,7 +4112,10 @@ def main(argv=None) -> int:
                 "train_flux16_block_mb2_mesh": dist_res["train"]["flux_dit"][
                     "launches"][name],
                 "serve_ssm_mesh": dist_res["serve"]["launches"][name],
-                "train_ssm_engine": engine_res["train"]["launches"][name]}
+                "train_ssm_engine": engine_res["train"]["launches"][name],
+                "serve_hybrid": hy_res["serve"]["launches"][name],
+                "train_hybrid_block": hy_res["train"]["block"]["launches"][
+                    name]}
 
     for row in rows:
         row["launches"] = train_res["launches"][row["name"]]
@@ -3553,11 +4126,19 @@ def main(argv=None) -> int:
         "ssd_scan_bwd"]
     ssd_bwd_row["launches_by_path"] = by_path("ssd_scan_bwd")
     rows += [ssd_row, ssd_bwd_row]
+    # the hybrid's rows: launches on its serving path (forwards) and its
+    # train path (backwards)
+    for row in hy_rows:
+        base = row["name"].rsplit("_", 1)[0]
+        path = "serve_hybrid" if "bwd" not in base else "train_hybrid_block"
+        row["launches_by_path"] = by_path(base)
+        row["launches"] = row["launches_by_path"][path]
+    rows += hy_rows
     keys = ("name", "route", "variant", "source", "replaces", "launches",
             "max_abs_err", "max_rel_err", "max_rel_err_wgmma", "ms", "fma_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path", "times_by_batch", "dense_shape",
-            "launch_floor_ms")
+            "launch_floor_ms", "max_abs_err_f32", "forward_with_lse_ms")
     print(json.dumps({"main_path": {k: v for k, v in res.items()
                                     if k != "launches"}}))
     print(json.dumps({"train_path": {k: v for k, v in train_res.items()
@@ -3571,6 +4152,7 @@ def main(argv=None) -> int:
     print(json.dumps({"perf_path": perf_res}))
     print(json.dumps({"distributed_path": dist_res}))
     print(json.dumps({"engine_path": engine_res}))
+    print(json.dumps({"hybrid_path": hy_res}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(card_line())
@@ -3605,7 +4187,10 @@ def run_only(dev, only: set) -> int:
               22: lambda: (_in_tmp(flux_block_path)(),
                            check_block_update(dev, "flux_dit")),
               23: _in_tmp(lambda tmp: distributed_phase(dev, tmp)),
-              24: _in_tmp(lambda tmp: engine_phase(dev, tmp))}
+              24: _in_tmp(lambda tmp: engine_phase(dev, tmp)),
+              25: lambda: kernels_d80(dev),
+              26: lambda: hybrid_serve_path(dev),
+              27: _in_tmp(lambda tmp: hybrid_train_path(dev, tmp))}
     for n in sorted(only):
         if n not in phases:
             fail(f"--only: phase {n} cannot run alone")

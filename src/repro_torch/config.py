@@ -2,13 +2,13 @@
 serving and the five trainers read.
 
 ``ArchConfig`` (backbone geometry, with ``SSMConfig`` for the Mamba-2
-block), ``FlowRLConfig`` (trainer, SDE dynamics, rewards, preprocessing,
-latent geometry), ``OptimConfig``, ``DataConfig``
-(prompt dataset and frozen encoder), ``DistConfig`` and ``PerfConfig``
-(the (data, model) device layout and the performance policies),
-``LoopConfig`` and ``RunConfig`` load from dicts/JSON through the same
-strict typed :func:`from_dict` as the reference, with the reference's
-defaults (``src/repro/config.py``).
+block and ``HybridConfig`` for the Zamba2 schedule), ``FlowRLConfig``
+(trainer, SDE dynamics, rewards, preprocessing, latent geometry),
+``OptimConfig``, ``DataConfig`` (prompt dataset and frozen encoder),
+``DistConfig`` and ``PerfConfig`` (the (data, model) device layout and the
+performance policies), ``LoopConfig`` and ``RunConfig`` load from
+dicts/JSON through the same strict typed :func:`from_dict` as the
+reference, with the reference's defaults (``src/repro/config.py``).
 """
 from __future__ import annotations
 
@@ -32,6 +32,14 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class HybridConfig:
+    """Zamba2-style hybrid schedule: runs of SSM blocks with a periodically
+    applied *shared* attention block (single parameter set reused)."""
+    attn_every: int = 6        # one attn application per `attn_every` layers
+    shared_attn: bool = True   # reuse one attention block's params
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str                       # one of FAMILIES
@@ -48,6 +56,7 @@ class ArchConfig:
     tie_embeddings: bool = False
     window: int = 0
     ssm: Optional[SSMConfig] = None
+    hybrid: Optional[HybridConfig] = None
     # citation of the source paper / model card for this config
     source: str = ""
 
@@ -63,8 +72,8 @@ class ArchConfig:
 
     def n_params(self) -> int:
         """Total backbone parameter count, the reference's analytic one
-        (embeddings, layers and final norm).  The hybrid, MoE and
-        frontend families are not ported yet and raise."""
+        (embeddings, layers and final norm).  The MoE and frontend
+        families are not ported yet and raise."""
         if self.family not in _COUNTED_FAMILIES:
             raise NotImplementedError(
                 f"n_params of family {self.family!r} is not ported to "
@@ -72,6 +81,13 @@ class ArchConfig:
                 f"{_COUNTED_FAMILIES} are")
         d = self.d_model
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.family == "hybrid":
+            hy = self.hybrid or HybridConfig()
+            copies = 1 if hy.shared_attn else self.n_layers // hy.attn_every
+            attn = (_attn_params(self, self.resolved_head_dim)
+                    + 3 * d * self.d_ff)
+            return (emb + self.n_layers * _ssm_layer_params(self)
+                    + copies * attn + d)
         if self.family == "ssm":
             per_layer = _ssm_layer_params(self)
         else:
@@ -84,7 +100,7 @@ class ArchConfig:
         return self.n_params()
 
 
-_COUNTED_FAMILIES = ("dit", "dense", "ssm")
+_COUNTED_FAMILIES = ("dit", "dense", "ssm", "hybrid")
 
 
 def _attn_params(cfg: ArchConfig, hd: int) -> int:

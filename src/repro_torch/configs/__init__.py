@@ -2,8 +2,8 @@
 
 Each module exports ``config()`` (the full-scale config) and ``reduced()``
 (≤2 layers, CPU smoke scale).  The paper's own DiT family, the dense LM
-family and the Mamba-2 SSM are ported so far; the other archs of
-``repro.configs`` come with their families.
+family, the Mamba-2 SSM and the Zamba2 hybrid are ported so far; the other
+archs of ``repro.configs`` come with their families.
 """
 from __future__ import annotations
 
@@ -13,7 +13,8 @@ from repro_torch import registry
 from repro_torch.config import ArchConfig
 
 # the reference's assigned archs whose family the port runs so far
-ARCH_IDS = ["yi-34b", "smollm-360m", "qwen3-32b", "yi-9b", "mamba2-370m"]
+ARCH_IDS = ["yi-34b", "smollm-360m", "qwen3-32b", "yi-9b", "mamba2-370m",
+            "zamba2-2.7b"]
 
 PAPER_ARCHS = ["flux_dit"]
 

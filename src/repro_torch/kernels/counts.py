@@ -1,7 +1,8 @@
 """The kernel wrappers' launch counters, read and added to as one.
 
-Each wrapper adds one to its ``.launches`` (and ``ssd_scan``'s two to
-``.variant_launches[variant]``) where it launches its kernel.  A kernel
+Each wrapper adds one to its ``.launches`` (and the attention's and
+``ssd_scan``'s four to ``.variant_launches[variant]``) where it launches its
+kernel.  A kernel
 launched while a CUDA graph is being captured is only recorded, and runs
 each time the graph is replayed: ``perf.fused.FusedStep`` takes a capture's
 counts back out with :func:`add` (``times=-1``) and adds them again at

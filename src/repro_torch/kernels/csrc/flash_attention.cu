@@ -12,6 +12,14 @@
 // units at 16 a clock per SM, about half the products' time, so they have to
 // run under the products.
 //
+// Head dims 32, 64, 80 and 128.  At D = 80 (zamba2-2.7b's shared attention)
+// the bf16 kernel stores its tiles padded to 96 columns (hopper.cuh: three
+// 32-column blocks, TMA filling columns 80-95 with zeros): S = Q K^T runs the
+// 5 real k16 steps, O += P V runs at n = 96 (a whole number of 32-column
+// swizzle atoms, which the MN-major descriptor needs) and the epilogue
+// stores columns < 80, so the tensor work is 1.2x the useful work.  The
+// scale is 80^-1/2 from the wrapper, never from the padded width.
+//
 // Two kernels, chosen by dtype and layout (mma_aligned).  bf16 inputs whose
 // base pointers are 16-byte aligned and whose strides are multiples of 8
 // elements (what TMA needs; the DiT path) run attn_fwd_wgmma: TMA loads into
@@ -226,7 +234,7 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
 // before each exponential, masks only on tiles that cross a boundary)
 // while P V runs; then it rescales O and rounds P to bf16 in place (an
 // m64nN accumulator is already the A-fragment layout).  At D = 128 and 64
-// the tiles use the 128-byte swizzle, at D = 32 the 64-byte one.  Nothing
+// the tiles use the 128-byte swizzle, at D = 32 and 80 the 64-byte one.  Nothing
 // orders the two consumers: making them take turns (the FA3 ping-pong) or
 // starting one half a tile late measured slower on the H100.
 // ---------------------------------------------------------------------------
@@ -311,7 +319,7 @@ __device__ __forceinline__ void attn_fwd_wgmma_body(const FwdParams& p) {
   }
   hopper::setmaxnreg_inc<240>();
 
-  constexpr int NO = D / 2;          // output accumulator registers
+  constexpr int NO = L::QT::DP / 2;  // output accumulator registers
   constexpr int NS = kWgBK / 2;      // score accumulator registers
   const int tid = threadIdx.x & 127, w = wg - 1;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tg = lane & 3;
@@ -386,13 +394,20 @@ __device__ __forceinline__ void attn_fwd_wgmma_body(const FwdParams& p) {
     const float al0 = hopper::ex2(m0 - mn0), al1 = hopper::ex2(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
+    // A row that has seen only masked keys so far (its first tile lies
+    // wholly outside its window) has mn = kNegInf * sl2 rounded, and
+    // fma(kNegInf, sl2, -mn) is that product's rounding error, up to 1e22:
+    // its exponential would be inf.  Such a tile's probabilities are 0, so
+    // any finite base gives them: take 0.
+    const float b0 = mx0 == kNegInf ? 0.f : mn0;
+    const float b1 = mx1 == kNegInf ? 0.f : mn1;
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
     for (int j = 0; j < NS / 4; ++j) {
-      s[4 * j + 0] = hopper::ex2(fmaf(s[4 * j + 0], sl2, -mn0));
-      s[4 * j + 1] = hopper::ex2(fmaf(s[4 * j + 1], sl2, -mn0));
-      s[4 * j + 2] = hopper::ex2(fmaf(s[4 * j + 2], sl2, -mn1));
-      s[4 * j + 3] = hopper::ex2(fmaf(s[4 * j + 3], sl2, -mn1));
+      s[4 * j + 0] = hopper::ex2(fmaf(s[4 * j + 0], sl2, -b0));
+      s[4 * j + 1] = hopper::ex2(fmaf(s[4 * j + 1], sl2, -b0));
+      s[4 * j + 2] = hopper::ex2(fmaf(s[4 * j + 2], sl2, -b1));
+      s[4 * j + 3] = hopper::ex2(fmaf(s[4 * j + 3], sl2, -b1));
       rs0 += s[4 * j + 0] + s[4 * j + 1];
       rs1 += s[4 * j + 2] + s[4 * j + 3];
     }
@@ -445,7 +460,7 @@ __device__ __forceinline__ void attn_fwd_wgmma_body(const FwdParams& p) {
   }
   __nv_bfloat16* op = p.o + b * p.ob + h * p.oh;
 #pragma unroll
-  for (int j = 0; j < NO / 4; ++j) {
+  for (int j = 0; j < D / 8; ++j) {   // the D real columns, not the padding
     const int c = j * 8 + tg * 2;
     if (row0 < p.Sq)
       *reinterpret_cast<uint32_t*>(op + row0 * p.os + c) =
@@ -534,6 +549,7 @@ int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
   switch (D) {
     case 32: return launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, stream);
+    case 80: return launch<T, 80>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -566,6 +582,7 @@ extern "C" int flash_attention_fwd(
     switch (D) {
       case 32: return launch_wgmma<32>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, s);
       case 64: return launch_wgmma<64>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, s);
+      case 80: return launch_wgmma<80>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, s);
       case 128: return launch_wgmma<128>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, s);
       default: return (int)cudaErrorInvalidValue;
     }

@@ -34,6 +34,11 @@
 // pass keeps the determinism of one owner per output with no inter-block
 // waits, for 40 % more tensor work.
 //
+// Head dims 32, 64, 80 and 128.  At D = 80 the bf16 kernels store tiles
+// padded to 96 columns (hopper.cuh), reduce over D in its 5 real k16 steps
+// (S^T, dP^T, S, dP), run the products whose N is D (dV, dK, dQ) at n = 96
+// and store columns < 80, as the forward does.
+//
 // bf16 inputs whose base pointers (and LSE and delta) are 16-byte aligned,
 // whose strides are multiples of 8 elements (the DiT path) and whose LSE
 // and delta rows start on 16 bytes (a row pitch that is a multiple of 4;
@@ -343,7 +348,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_fma(Args a) {
 // "empty" one, on which the consumers' eight warps arrive); warpgroups 1 and
 // 2 compute, 64 rows each.  Tiles are 64-row TMA boxes laid out for wgmma
 // (hopper.cuh): the 128-byte swizzle at D = 128 and 64, the 64-byte one at
-// D = 32.  Masks are evaluated only on tiles that cross a boundary (ragged
+// D = 32 and 80 (three 32-column blocks, padded to 96).  Masks are evaluated only on tiles that cross a boundary (ragged
 // tail, causal diagonal, window edge); elsewhere every pair is visible.
 //
 // dK/dV: a block owns kKeyTile = 128 keys of one (batch, kv head); K and V
@@ -461,7 +466,7 @@ bwd_dkdv_wgmma(const __grid_constant__ BwdParams p) {
   }
   hopper::setmaxnreg_inc<240>();
 
-  constexpr int NA = D / 2;          // dK / dV accumulator registers
+  constexpr int NA = L::KT::DP / 2;  // dK / dV accumulator registers
   constexpr int NS = kQStep / 2;     // S^T / dP^T accumulator registers
   const int tid = threadIdx.x & 127, w = wg - 1;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tg = lane & 3;
@@ -564,7 +569,7 @@ bwd_dkdv_wgmma(const __grid_constant__ BwdParams p) {
   bf16* dkp = static_cast<bf16*>(a.dk) + b * a.sdk.b + kvh * a.sdk.h;
   bf16* dvp = static_cast<bf16*>(a.dv) + b * a.sdv.b + kvh * a.sdv.h;
 #pragma unroll
-  for (int j = 0; j < NA / 4; ++j) {
+  for (int j = 0; j < D / 8; ++j) {   // the D real columns, not the padding
     const int c = j * 8 + tg * 2;
     if (kpos0 < a.Sk) {
       *reinterpret_cast<uint32_t*>(dkp + kpos0 * a.sdk.s + c) =
@@ -642,7 +647,7 @@ bwd_dq_wgmma(const __grid_constant__ BwdParams p) {
   }
   hopper::setmaxnreg_inc<240>();
 
-  constexpr int NA = D / 2;          // dQ accumulator registers
+  constexpr int NA = L::QT::DP / 2;  // dQ accumulator registers
   constexpr int NS = kKStep / 2;     // S / dP accumulator registers
   const int tid = threadIdx.x & 127, w = wg - 1;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tg = lane & 3;
@@ -729,7 +734,7 @@ bwd_dq_wgmma(const __grid_constant__ BwdParams p) {
 
   bf16* dqp = static_cast<bf16*>(a.dq) + b * a.sdq.b + h * a.sdq.h;
 #pragma unroll
-  for (int j = 0; j < NA / 4; ++j) {
+  for (int j = 0; j < D / 8; ++j) {   // the D real columns, not the padding
     const int c = j * 8 + tg * 2;
     if (row0 < a.Sq)
       *reinterpret_cast<uint32_t*>(dqp + row0 * a.sdq.s + c) =
@@ -804,6 +809,7 @@ int launch_fma_d(const Args& a, int D, cudaStream_t s) {
   switch (D) {
     case 32: return launch_fma<T, 32>(a, s);
     case 64: return launch_fma<T, 64>(a, s);
+    case 80: return launch_fma<T, 80>(a, s);
     case 128: return launch_fma<T, 128>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -865,6 +871,7 @@ extern "C" int flash_attention_bwd(
     switch (D) {
       case 32: return launch_wgmma<32>(a, s);
       case 64: return launch_wgmma<64>(a, s);
+      case 80: return launch_wgmma<80>(a, s);
       case 128: return launch_wgmma<128>(a, s);
       default: return (int)cudaErrorInvalidValue;
     }

@@ -7,12 +7,20 @@
 // (B, S, heads, D) bf16 tensor.
 //
 // Tile layout.  A tile of R rows (sequence positions) by D columns (the
-// head dim) lies in shared memory as D / W column blocks of W = min(D, 64)
-// bf16 values, each block R rows of W * 2 bytes.  A TMA box is 64 rows of one
-// column block, written with the hardware's 128-byte swizzle (64-byte for
-// D = 32), so that block is exactly the canonical wgmma layout: 8-row atoms
-// of 8 * W * 2 bytes (the descriptors' stride byte offset).  Every tile starts
-// on a 1024-byte boundary, as the swizzle needs.  A tile is read two ways:
+// head dim) lies in shared memory as NB = ceil(D / W) column blocks of W
+// bf16 values (W = 64 where D is a multiple of 64, else 32), each block R
+// rows of W * 2 bytes.  A TMA box is 64 rows of one column block, written
+// with the hardware's 128-byte swizzle (64-byte where W = 32), so that block
+// is exactly the canonical wgmma layout: 8-row atoms of 8 * W * 2 bytes (the
+// descriptors' stride byte offset).  A D that is no multiple of W (80, the
+// zamba2 head dim) is stored padded to DP = NB * W columns (96 = three
+// 32-column blocks): the last box reaches past column D of the tensor, and
+// TMA fills its columns D..DP-1 with zeros (the tensor map's global width
+// stays D; the transaction count is the whole box).  Products that reduce
+// over D run D / 16 steps and never read the padding; products whose N is D
+// run at n = DP and their epilogues store the first D columns.  Every tile
+// starts on a 1024-byte boundary, as the swizzle needs.  A tile is read two
+// ways:
 //   * K-major (rows are the product's M or N, columns its reduction): the
 //     descriptor of 16 reduction columns starting at c points at column
 //     block c / W, 2 (c % W) bytes in;
@@ -137,13 +145,15 @@ __device__ __forceinline__ void bulk_wait() {
 // ------------------------------------------------------ tile geometry
 template <int D, int R>
 struct Tile {
-  static constexpr int W = D < 64 ? D : 64;        // columns of a block
+  static constexpr int W = D % 64 == 0 ? 64 : 32;  // columns of a block
+  static constexpr int NB = (D + W - 1) / W;       // column blocks
+  static constexpr int DP = NB * W;                // stored (padded) width
   static constexpr int RB = W * 2;                 // bytes of a block row
   static constexpr int kBlock = R * RB;            // bytes of a column block
-  static constexpr int kBytes = R * D * 2;
+  static constexpr int kBytes = R * DP * 2;
   static constexpr uint64_t kLayout = RB == 128 ? 1 : 2;   // SW128 / SW64
-  static_assert(R % 64 == 0 && D % W == 0 && (RB == 128 || RB == 64),
-                "tiles are 64-row multiples of 32 or 64-column blocks");
+  static_assert(R % 64 == 0 && D % 16 == 0,
+                "tiles are 64-row multiples, D a multiple of 16");
 };
 
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
@@ -165,7 +175,7 @@ __device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int row,
   return make_desc(a, 16, 8 * T::RB, T::kLayout);
 }
 
-// reduction rows [16 kk, 16 kk + 16), all D columns
+// reduction rows [16 kk, 16 kk + 16), all DP columns
 template <int D, int R>
 __device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int kk) {
   using T = Tile<D, R>;
@@ -173,8 +183,8 @@ __device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int kk) {
                    T::kLayout);
 }
 
-// rows [s0, s0 + R) of head `head`, batch b: D / W column blocks of R / 64
-// boxes, all completing on `bar`
+// rows [s0, s0 + R) of head `head`, batch b: NB column blocks of R / 64
+// boxes, all completing on `bar` (kBytes of transactions)
 template <int D, int R>
 __device__ __forceinline__ void load_tile(unsigned char* tile,
                                           const CUtensorMap* map,
@@ -182,7 +192,7 @@ __device__ __forceinline__ void load_tile(unsigned char* tile,
                                           int b) {
   using T = Tile<D, R>;
 #pragma unroll
-  for (int cb = 0; cb < D / T::W; ++cb)
+  for (int cb = 0; cb < T::NB; ++cb)
 #pragma unroll
     for (int r = 0; r < R; r += 64)
       tma_load_4d(tile + cb * T::kBlock + r * T::RB, map, bar, cb * T::W,
@@ -197,7 +207,7 @@ __device__ __forceinline__ void store_tile(const CUtensorMap* map,
                                            int head, int s0, int b) {
   using T = Tile<D, R>;
 #pragma unroll
-  for (int cb = 0; cb < D / T::W; ++cb)
+  for (int cb = 0; cb < T::NB; ++cb)
 #pragma unroll
     for (int r = 0; r < R; r += 64)
       tma_store_4d(map, tile + cb * T::kBlock + r * T::RB, cb * T::W, head,
@@ -338,6 +348,17 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// N = 96: the padded width of a D = 80 tile (three 32-column blocks)
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[48], const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
   asm volatile(
@@ -359,8 +380,10 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], const uint32_t (&a)[
 
 // ------------------------------------------------------------ host side
 // A (D, heads, S, B) view of a (B, S, heads, D) bf16 tensor with element
-// strides sb, ss, sh (multiples of 8), boxes of 64 rows by min(D, 64)
-// columns, swizzled for wgmma; rows and columns past the end read as zeros.
+// strides sb, ss, sh (multiples of 8), boxes of 64 rows by one column block
+// of Tile (64 columns where D is a multiple of 64, else 32), swizzled for
+// wgmma; rows and columns past the end (a padded D's last block) read as
+// zeros.
 inline CUresult encode_bshd(CUtensorMap* map, const void* ptr, int D,
                             int heads, int S, int B, long long sb,
                             long long ss, long long sh) {
@@ -368,7 +391,7 @@ inline CUresult encode_bshd(CUtensorMap* map, const void* ptr, int D,
   if (heads == 1) sh = D;
   if (S == 1) ss = sh * heads;
   if (B == 1) sb = ss * S;
-  const int w = D < 64 ? D : 64;
+  const int w = D % 64 == 0 ? 64 : 32;
   cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
                         (cuuint64_t)B};
   cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,

@@ -3,9 +3,14 @@ and backward (``csrc/flash_attention_bwd.cu``), and their autograd Function.
 
 ``flash_attention`` and ``flash_attention_bwd`` take CUDA tensors only;
 ``kernels/ops.py`` sends CPU tensors to the plain versions in
-``kernels/ref.py``.  Each counts the calls that launched its kernels in
-``.launches``.  ``FlashAttentionFn`` is the differentiable attention: its
-forward keeps q, k, v, o and the rows' log-sum-exp, and its backward runs
+``kernels/ref.py``.  Head dims 32, 64, 80 (zamba2-2.7b's shared attention;
+the bf16 kernels store it padded to 96 columns) and 128.  Each wrapper
+counts the calls that launched its kernels in ``.launches`` and the same
+calls by variant in ``.variant_launches``: ``"wgmma"`` for the bf16
+tensor-core kernels (TMA and ``wgmma``), ``"fma"`` for the f32 CUDA-core
+ones, chosen by ``tensor_core_route`` from dtype and layout alone.
+``FlashAttentionFn`` is the differentiable attention: its forward keeps
+q, k, v, o and the rows' log-sum-exp, and its backward runs
 ``flash_attention_bwd``; both pick the plain version for CPU tensors and the
 kernel for CUDA tensors, by device alone.
 """
@@ -19,7 +24,7 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.sde_step import require_sm90
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 # values per 16 bytes of f32: the backward's lse and delta row pitch
 LSE_ROW_ALIGN = 4
 
@@ -34,6 +39,23 @@ def _lib():
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def tensor_core_route(*tensors: torch.Tensor) -> bool:
+    """Whether the attention kernels run their bf16 tensor-core variant on
+    these tensors (the forward's q, k, v, o; the backward's q, k, v, o, do,
+    dq, dk, dv, lse and delta): bf16, and what TMA needs
+    (``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``:
+    ``mma_aligned``): every tensor starts on 16 bytes and every batch,
+    sequence and head stride of a (B, S, heads, D) tensor is a multiple of
+    8 elements.  Anything else (f32, or bf16 that breaks that alignment)
+    runs the f32 FMA kernels.  Depends on nothing but dtype, strides and
+    addresses."""
+    if tensors[0].dtype != torch.bfloat16:
+        return False
+    return all(t.data_ptr() % 16 == 0
+               and (t.dim() != 4 or all(s % 8 == 0 for s in t.stride()[:3]))
+               for t in tensors)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -68,7 +90,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     return_lse: bool = False):
     """q: (B, Sq, H, D); k, v: (B, Sk, K, D) with H % K == 0, on one CUDA
-    device, all float32 or all bfloat16, D in {32, 64, 128} and contiguous
+    device, all float32 or all bfloat16, D in {32, 64, 80, 128} and contiguous
     (other strides are free).  Sq and Sk are any lengths.  Returns o
     (B, Sq, H, D) in q's dtype, contiguous; with ``return_lse`` also each
     row's log-sum-exp (B, H, Sq) f32, and o is bitwise the same either
@@ -91,6 +113,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise RuntimeError(
                 f"flash_attention kernel launch failed: CUDA error {rc}")
         flash_attention.launches += 1
+        flash_attention.variant_launches[
+            "wgmma" if tensor_core_route(q, k, v, o) else "fma"] += 1
     return (o, lse) if return_lse else o
 
 
@@ -155,11 +179,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(
             f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.variant_launches[
+        "wgmma" if tensor_core_route(q, k, v, o, do, dq, dk, dv, lse, delta)
+        else "fma"] += 1
     return dq, dk, dv
 
 
 flash_attention.launches = 0
+flash_attention.variant_launches = {"wgmma": 0, "fma": 0}
 flash_attention_bwd.launches = 0
+flash_attention_bwd.variant_launches = {"wgmma": 0, "fma": 0}
 
 
 class FlashAttentionFn(torch.autograd.Function):

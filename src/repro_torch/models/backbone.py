@@ -1,28 +1,37 @@
-"""Backbone of the port: the ``dit``, ``dense`` and ``ssm`` branches of
-``repro.models.backbone``.
+"""Backbone of the port: the ``dit``, ``dense``, ``ssm`` and ``hybrid``
+branches of ``repro.models.backbone``.
 
 The spec is the reference's whole tree (embedding, final norm, LM head and
-``n_layers`` stacked blocks), so parameter trees cross between the packages
-key for key.  ``forward_embeds`` runs the blocks as a Python loop over
-slices of the stacked ``(n_layers, ...)`` leaves where the reference scans;
-the slices are views, so gradients reach the stacked leaves.  ``dit`` runs
-the bidirectional adaLN-zero blocks, ``dense`` the pre-norm blocks
-``[ln, attention, ln, SwiGLU]`` with no modulation (the LM family, run
-causally by the flow adapter), ``ssm`` the Mamba-2 blocks ``[ln, SSD]``
-(causal by construction).  The other families (``moe``, ``hybrid``,
-``vlm``, ``audio``) and the decode paths are not ported yet.
+the stacked blocks), so parameter trees cross between the packages key for
+key.  ``forward_embeds`` runs the blocks as a Python loop over slices of
+the stacked leaves where the reference scans; the slices are views, so
+gradients reach the stacked leaves.  ``dit`` runs the bidirectional
+adaLN-zero blocks, ``dense`` the pre-norm blocks ``[ln, attention, ln,
+SwiGLU]`` with no modulation (the LM family, run causally by the flow
+adapter), ``ssm`` the Mamba-2 blocks ``[ln, SSD]`` (causal by
+construction).  ``hybrid`` (Zamba2) stacks the Mamba-2 blocks twice,
+``(n_layers // attn_every, attn_every, ...)`` with the outer axis named
+"groups", and after each group's SSM blocks applies the one *shared*
+``[ln, attention, ln, SwiGLU]`` block (``shared_attn``, unstacked), so its
+gradient is the sum over its ``n_layers // attn_every`` sites.  The shared
+attention runs causally with the caller's ``window``: the flow adapter
+passes 0, as the reference does, so the config's sliding window (8192 for
+``zamba2-2.7b``) does not act on the velocity path.  The other families
+(``moe``, ``vlm``, ``audio``) and the decode paths are not ported yet.
 
 On a mesh with a "model" axis each block first gathers its slice of the
 sharded leaves (``repro_torch.sharding.constrain_params``, where the
 reference constrains each scan slice to the gathered layout), so the
-block's kernels see whole weights.
+block's kernels see whole weights; the hybrid's shared block is gathered
+at each of its sites, as the reference's ``_gather`` does inside its scan.
 
-``remat=True`` (``PerfConfig.remat="block"``) runs each block call under
-``torch.utils.checkpoint`` (non-reentrant) when grad is enabled: the
-backward keeps each block's inputs only and runs the block's forward again,
-kernels included, as the reference's ``jax.checkpoint`` around its scan
-body does, the gather included (a second all-gather).  The blocks draw
-nothing, so the RNG state is not stashed.
+``remat=True`` (``PerfConfig.remat="block"``) runs each block call (each
+group of the hybrid: the reference's ``jax.checkpoint`` wraps its group
+body) under ``torch.utils.checkpoint`` (non-reentrant) when grad is
+enabled: the backward keeps each unit's inputs only and runs its forward
+again, kernels included, as the reference's ``jax.checkpoint`` around its
+scan body does, the gather included (a second all-gather).  The blocks
+draw nothing, so the RNG state is not stashed.
 """
 from __future__ import annotations
 
@@ -37,15 +46,15 @@ from repro_torch.config import ArchConfig
 from repro_torch.models import attention, layers, ssm
 from repro_torch.models.params import P, stack
 
-PORTED_FAMILIES = ("dit", "dense", "ssm")
+PORTED_FAMILIES = ("dit", "dense", "ssm", "hybrid")
 
 
 def _not_ported(family: str) -> NotImplementedError:
     return NotImplementedError(
         f"backbone family {family!r} is not ported to repro_torch yet "
         "(ROADMAP.md Queue 1: 'Other families'); 'dit' (flux_dit), 'dense' "
-        "(smollm-360m, yi-9b, yi-34b, qwen3-32b) and 'ssm' (mamba2-370m), "
-        "full-sequence forward, run")
+        "(smollm-360m, yi-9b, yi-34b, qwen3-32b), 'ssm' (mamba2-370m) and "
+        "'hybrid' (zamba2-2.7b), full-sequence forward, run")
 
 
 def _attn_block_spec(cfg: ArchConfig) -> Dict:
@@ -66,15 +75,17 @@ def _ssm_block_spec(cfg: ArchConfig) -> Dict:
     return {"ln": layers.rmsnorm_spec(cfg.d_model), "ssm": ssm.spec(cfg)}
 
 
-def _unbind(tree: Dict, n: int) -> List[Dict]:
-    """The n per-layer slices of a stacked tree, as views.  Unbinding each
-    leaf once (instead of indexing it once per layer) gives the backward
-    one stack of the layers' gradients per leaf rather than a full-size
-    zero-filled gradient for every layer."""
+def _unbind(tree: Dict, n: int, axes: int = 1) -> List[Dict]:
+    """The n per-layer slices of a tree stacked over its first ``axes``
+    dims (2 for the hybrid's (groups, attn_every) stack), as views in
+    row-major layer order.  Unbinding each leaf once (instead of indexing it
+    once per layer) gives the backward one stack of the layers' gradients
+    per leaf rather than a full-size zero-filled gradient for every
+    layer."""
     if isinstance(tree, dict):
-        per_key = {k: _unbind(v, n) for k, v in tree.items()}
+        per_key = {k: _unbind(v, n, axes) for k, v in tree.items()}
         return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
-    return list(torch.unbind(tree, 0))
+    return list(torch.unbind(tree.flatten(0, axes - 1), 0))
 
 
 class Backbone:
@@ -84,8 +95,13 @@ class Backbone:
         self.cfg = cfg
         # the unstacked block spec: a layer slice's canonical shapes and
         # logical axes, for the per-layer gather
-        self._block_spec = (_ssm_block_spec(cfg) if cfg.family == "ssm"
+        self._block_spec = (_ssm_block_spec(cfg)
+                            if cfg.family in ("ssm", "hybrid")
                             else _attn_block_spec(cfg))
+        if cfg.family == "hybrid":
+            self._every = cfg.hybrid.attn_every
+            self._groups = cfg.n_layers // self._every
+            self._shared_spec = _attn_block_spec(cfg)
 
     def spec(self) -> Dict:
         cfg = self.cfg
@@ -94,7 +110,12 @@ class Backbone:
             "embed": P((cfg.vocab_size, d), ("vocab", "embed"), "small"),
             "final_norm": layers.rmsnorm_spec(d),
         }
-        s["blocks"] = stack(self._block_spec, cfg.n_layers)
+        if cfg.family == "hybrid":
+            inner = stack(self._block_spec, self._every, None)
+            s["blocks"] = stack(inner, self._groups, "groups")
+            s["shared_attn"] = self._shared_spec
+        else:
+            s["blocks"] = stack(self._block_spec, cfg.n_layers)
         if not cfg.tie_embeddings:
             s["lm_head"] = P((d, cfg.vocab_size), ("embed", "vocab"))
         return s
@@ -134,31 +155,49 @@ class Backbone:
                        remat: bool = False) -> torch.Tensor:
         """Run all blocks over embedded inputs x: (B, S, d); returns the
         normed hidden states.  ``dit`` needs the adaLN conditioning vector
-        ``cond`` (B, d); ``dense`` takes none; ``ssm`` is causal whatever
-        ``causal`` says and takes no ``cond``.  ``remat`` checkpoints each
-        block (module docstring)."""
+        ``cond`` (B, d); ``dense`` and ``hybrid`` take none; ``ssm`` is
+        causal whatever ``causal`` says and takes no ``cond``.  ``remat``
+        checkpoints each block, each group of the hybrid (module
+        docstring)."""
         cfg = self.cfg
         if cfg.family == "dit" and cond is None:
             raise _not_ported("dit without adaLN conditioning")
-        if cfg.family == "ssm":
-            block = self._ssm_block
-        else:
+        mesh = shlib.current_mesh()
+        if cfg.family != "ssm":
             positions = torch.arange(x.shape[1], dtype=torch.int32,
                                      device=x.device)
             kw = dict(causal=causal, window=window, positions=positions)
-            if cfg.family == "dense":
-                block = functools.partial(self._dense_block, **kw)
-            else:
-                block = functools.partial(self._attn_block, cond=cond, **kw)
-        mesh = shlib.current_mesh()
+        if cfg.family in ("ssm", "hybrid"):
+            block = self._ssm_block
+        elif cfg.family == "dense":
+            block = functools.partial(self._dense_block, **kw)
+        else:
+            block = functools.partial(self._attn_block, cond=cond, **kw)
 
         def run(p, x):
             return block(shlib.constrain_params(p, self._block_spec, mesh), x)
+
+        if cfg.family == "hybrid":
+            shared = functools.partial(self._dense_block, **kw)
+
+            def run_group(ps, p_shared, x):
+                for p in ps:
+                    x = run(p, x)
+                return shared(shlib.constrain_params(
+                    p_shared, self._shared_spec, mesh), x)
+
+            every = self._every
+            slices = _unbind(params["blocks"], self._groups * every, axes=2)
+            units = [(run_group, (slices[i:i + every], params["shared_attn"]))
+                     for i in range(0, len(slices), every)]
+        else:
+            units = [(run, (p,)) for p in _unbind(params["blocks"],
+                                                  cfg.n_layers)]
         remat = remat and torch.is_grad_enabled()
-        for p in _unbind(params["blocks"], cfg.n_layers):
+        for fn, args in units:
             if remat:
-                x = checkpoint(run, p, x, use_reentrant=False,
+                x = checkpoint(fn, *args, x, use_reentrant=False,
                                preserve_rng_state=False)
             else:
-                x = run(p, x)
+                x = fn(*args, x)
         return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -106,11 +106,11 @@ def _init_leaf(p: P, gen: torch.Generator, dtype, device) -> torch.Tensor:
         raise ValueError(f"unknown init {p.init}")
     std = _std(p)
     out = torch.empty(p.shape, dtype=dtype, device=device)
-    # a stacked leaf is drawn one layer slice at a time, so the f32 draw
-    # never holds more than one layer (at full width the stacked w_gate
-    # alone would be a 5.7 GB f32 temporary)
+    # a stacked leaf is drawn one layer (or hybrid group) slice at a time,
+    # so the f32 draw never holds more than one (at full width the stacked
+    # w_gate alone would be a 5.7 GB f32 temporary)
     slices = [out[i] for i in range(p.shape[0])] if (
-        p.axes and p.axes[0] == "layers") else [out]
+        p.axes and p.axes[0] in ("layers", "groups")) else [out]
     for sl in slices:
         draw = torch.randn(sl.shape, generator=gen, dtype=torch.float32,
                            device=device)

@@ -6,9 +6,12 @@ the parameter dtype.  ``torch.optim.AdamW`` is not used: it keeps the
 moments in the parameter dtype.
 
 Unlike the reference, which returns new trees, the update writes the
-parameters and both moments in place (one leaf at a time, so the f32
-temporaries never exceed one leaf): at full width a second copy of the
-state would not fit beside the first.
+parameters and both moments in place, a leaf at a time and a large leaf a
+leading-dim chunk of at most ``CHUNK`` elements at a time, so the f32
+temporaries never exceed one chunk: at full width a second copy of the
+state would not fit beside the first, and a stacked leaf's f32 temporaries
+alone would take several GiB (``zamba2-2.7b``'s in_proj, 1.44 B values, is
+5.4 GiB in f32).  The update is elementwise, so chunking changes no bit.
 
 The step counter stays on the host (``AdamWState.step``, what checkpoints
 save).  A step's learning rate and bias corrections are host values too,
@@ -28,6 +31,8 @@ from repro_torch.config import OptimConfig
 from repro_torch.models.params import leaves
 
 F32 = torch.float32
+# elements of the largest slice updated at once (256 MiB of f32)
+CHUNK = 1 << 26
 
 
 class AdamWState(NamedTuple):
@@ -84,19 +89,31 @@ def adamw_apply(params, grads, state: AdamWState, cfg: OptimConfig,
     """The device half of one AdamW step: moments and params updated in
     place from ``scalars``; reads and writes no host value (the caller
     advances ``state.step``)."""
-    b1, b2 = cfg.betas
     g_leaves = dict(leaves(grads))
     m_leaves = dict(leaves(state.mu))
     v_leaves = dict(leaves(state.nu))
     for path, p in leaves(params):
         g, m, v = g_leaves[path], m_leaves[path], v_leaves[path]
-        gf = g.to(F32)
-        m.mul_(b1).add_(gf * (1 - b1))
-        v.mul_(b2).add_(gf * (1 - b2) * gf)
-        delta = (m / scalars.c1) / (torch.sqrt(v / scalars.c2) + cfg.eps)
-        if cfg.weight_decay:
-            delta.add_(cfg.weight_decay * p.to(F32))
-        p.copy_((p.to(F32) - scalars.lr * delta).to(p.dtype))
+        if p.dim() == 0 or p.numel() <= CHUNK:
+            _adamw_slice(p, g, m, v, cfg, scalars)
+            continue
+        rows = max(1, CHUNK // (p.numel() // p.shape[0]))
+        for r in range(0, p.shape[0], rows):
+            _adamw_slice(p[r:r + rows], g[r:r + rows], m[r:r + rows],
+                         v[r:r + rows], cfg, scalars)
+
+
+def _adamw_slice(p, g, m, v, cfg: OptimConfig,
+                 scalars: StepScalars) -> None:
+    """AdamW on one leaf or leading-dim slice of one, in place."""
+    b1, b2 = cfg.betas
+    gf = g.to(F32)
+    m.mul_(b1).add_(gf * (1 - b1))
+    v.mul_(b2).add_(gf * (1 - b2) * gf)
+    delta = (m / scalars.c1) / (torch.sqrt(v / scalars.c2) + cfg.eps)
+    if cfg.weight_decay:
+        delta.add_(cfg.weight_decay * p.to(F32))
+    p.copy_((p.to(F32) - scalars.lr * delta).to(p.dtype))
 
 
 def adamw_update(params, grads, state: AdamWState, cfg: OptimConfig,

@@ -44,7 +44,7 @@ from test_torch_training import _np_tree
 from torch_parity import COND_DIM, COND_LEN, normal, to_torch
 from torch_parity import one_torch_thread  # noqa: F401  (autouse fixture)
 
-ARCHS = ["flux_dit", "mamba2-370m", "smollm-360m"]
+ARCHS = ["flux_dit", "mamba2-370m", "smollm-360m", "zamba2-2.7b"]
 
 
 # ------------------------------------------------------- the plan's dims
@@ -314,6 +314,28 @@ def test_checkpoint_moves_between_layouts_bitwise(four_ranks):
     saved leaves' slices, and gather back to them), and training goes on
     from it."""
     res = four_ranks["ckpt"]
+    assert res["dp1"] == (2, True)
+    step, shards_equal, gathered_equal, rep = res["mp4"]
+    assert (step, shards_equal, gathered_equal) == (2, True, True)
+    assert rep["per_device_bytes"] < 0.3 * rep["total_bytes"]
+    assert np.isfinite(res["mp4_continues"])
+
+
+def test_hybrid_two_axis_training_matches_single_device(four_ranks):
+    """flow_grpo on a narrowed zamba2-2.7b (2 groups of 2 SSM blocks and the
+    shared block) at dp = 2 x mp = 2, 2 steps against one device: the
+    "groups" stacking axis is never sharded, the shared block's leaves
+    shard over "model" like the dense ones and are gathered at each site."""
+    h_ref, h, params_ref, params, rep = four_ranks["hybrid"]
+    _close(h_ref, h, params_ref, params, "hybrid dp2xmp2")
+    assert rep["sharded_leaves"] > 0
+    assert rep["per_device_bytes"] < 0.55 * rep["total_bytes"]
+
+
+def test_hybrid_checkpoint_moves_between_layouts_bitwise(four_ranks):
+    """The hybrid's dp = 2 x mp = 2 checkpoint restores bitwise at dp = 1
+    and at mp = 4, and training goes on from it."""
+    res = four_ranks["hybrid/ckpt"]
     assert res["dp1"] == (2, True)
     step, shards_equal, gathered_equal, rep = res["mp4"]
     assert (step, shards_equal, gathered_equal) == (2, True, True)

@@ -100,10 +100,11 @@ def test_sde_modes_and_microbatch_flags_match_the_reference():
 
 # ------------------------------------------------------- replayed steps
 def _trainer_pair(name, T=3, G=2, agg="gdpo", seed=0, arch="flux_dit",
-                  **flow_kw):
+                  draw=None, **flow_kw):
     """A JAX and a port trainer ``name`` over the reduced ``arch`` in f32,
     on one parameter tree (adaLN modulation drawn for flux_dit, the SSM
-    leaves for mamba2-370m) and one set of reward towers."""
+    leaves for mamba2-370m and zamba2-2.7b, then ``draw(tree)`` if given)
+    and one set of reward towers."""
     kw = dict(num_steps=T, group_size=G, clip_range=0.2,
               latent_tokens=LATENT_TOKENS, latent_dim=LATENT_DIM,
               advantage_agg=agg, **flow_kw)
@@ -116,8 +117,10 @@ def _trainer_pair(name, T=3, G=2, agg="gdpo", seed=0, arch="flux_dit",
                           cond_dim=COND_DIM, dtype=jnp.float32)
     tree = _randomize_ada(_np_tree(jtr.state.params),
                           np.random.default_rng(seed + 100))
-    if arch == "mamba2-370m":
+    if arch in ("mamba2-370m", "zamba2-2.7b"):
         tree = _draw_ssm(tree, np.random.default_rng(seed + 200))
+    if draw is not None:
+        tree = draw(tree)
     jp = jax.tree.map(jnp.asarray, tree)
     jtr.state = JRLState(jp, jtr.optimizer.init(jp))
     ttr = tregistry.build("trainer", name, tconfigs.get_reduced(arch),

@@ -162,6 +162,35 @@ def test_adamw_keeps_f32_moments_over_bf16_params():
     assert float(st.mu["w"][0]) == pytest.approx(0.1)
 
 
+def test_adamw_chunked_leaves_are_bitwise_the_whole_leaf(monkeypatch):
+    """A leaf larger than ``adamw.CHUNK`` is updated a leading-dim chunk at
+    a time; the update is elementwise, so three steps with a tiny chunk
+    (every row alone, and a 1-D leaf whole) give bitwise the params and
+    moments of whole-leaf updates, weight decay and bf16 params included."""
+    from repro_torch.optim import adamw as tadamw
+    g0 = torch.Generator().manual_seed(4)
+    p0 = {"stacked": torch.randn(5, 3, 7, generator=g0).bfloat16(),
+          "vec": torch.randn(40, generator=g0),
+          "mat": torch.randn(3, 11, 2, generator=g0)}
+    grads = [{k: torch.randn(v.shape, generator=g0) for k, v in p0.items()}
+             for _ in range(3)]
+    cfg = TOptim(weight_decay=0.01)
+
+    def run(chunk):
+        monkeypatch.setattr(tadamw, "CHUNK", chunk)
+        p = {k: v.clone() for k, v in p0.items()}
+        st = adamw_init(p)
+        for g in grads:
+            adamw_update(p, g, st, cfg, 1e-3)
+        return p, st
+
+    (pa, sa), (pb, sb) = run(1 << 26), run(7)
+    for k in p0:
+        assert torch.equal(pa[k], pb[k]) and not torch.equal(pa[k], p0[k])
+        assert torch.equal(sa.mu[k], sb.mu[k])
+        assert torch.equal(sa.nu[k], sb.nu[k])
+
+
 # ----------------------------------------------------------------- rewards
 @pytest.mark.parametrize("name", ["text_render", "pickscore", "latent_norm",
                                   "pref_group"])

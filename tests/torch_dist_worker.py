@@ -16,8 +16,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import checkpoint, configs, distributed, registry
-from repro_torch.config import (DistConfig, FlowRLConfig, OptimConfig,
-                                RewardSpec)
+from repro_torch.config import (DistConfig, FlowRLConfig, HybridConfig,
+                                OptimConfig, RewardSpec, SSMConfig)
 from repro_torch.models import params as tparams
 
 COND_LEN, COND_DIM = 4, 32
@@ -42,9 +42,22 @@ def arch():
                                d_ff=128, vocab_size=64)
 
 
-def build(tname, dist_cfg=None, mesh=None, rewards=REWARDS, **flow_kw):
+def hybrid_arch():
+    """zamba2-2.7b's reduced config narrowed for the CPU: 2 groups of 2 SSM
+    blocks (8 SSD heads of 16, state 16, chunk 16) and the shared block (4
+    heads of 16), width 64."""
+    return dataclasses.replace(
+        configs.get_reduced("zamba2-2.7b"), n_layers=4, d_model=64,
+        n_heads=4, n_kv_heads=4, head_dim=16, d_ff=128, vocab_size=64,
+        ssm=SSMConfig(d_state=16, expand=2, head_dim=16, chunk=16, d_conv=4),
+        hybrid=HybridConfig(attn_every=2, shared_attn=True))
+
+
+def build(tname, dist_cfg=None, mesh=None, rewards=REWARDS, arch_cfg=None,
+          **flow_kw):
     flow = FlowRLConfig(**{**FLOW, **flow_kw}, rewards=rewards)
-    return registry.build("trainer", tname, arch(), flow, OPT, seed=0,
+    return registry.build("trainer", tname, arch_cfg or arch(), flow, OPT,
+                          seed=0,
                           cond_dim=COND_DIM, dtype=torch.float32,
                           device="cpu", dist=dist_cfg, mesh=mesh)
 
@@ -210,8 +223,10 @@ def serve_dp2():
 
 
 def four_ranks(tmp):
-    """dp=2 x mp=2 against one device for the four trainer families; a
-    dp=2 x mp=2 checkpoint restored at dp=1 and at mp=4."""
+    """dp=2 x mp=2 against one device for the four trainer families and for
+    flow_grpo on the hybrid (its "groups" stack and shared block through
+    the plan and the per-layer gather); a dp=2 x mp=2 checkpoint of each
+    architecture restored at dp=1 and at mp=4."""
     out = {}
     for tname in ("flow_grpo", "grpo_guard", "nft", "awm"):
         ref, h_ref = train(tname, mesh=None, dist_cfg=DistConfig())
@@ -225,6 +240,19 @@ def four_ranks(tmp):
                 checkpoint.save_checkpoint(ckpt, 2, state)
             dist.barrier()
             out["ckpt"] = restore_layouts(ckpt, state)
+    hy = hybrid_arch()
+    ref, h_ref = train("flow_grpo", mesh=None, dist_cfg=DistConfig(),
+                       arch_cfg=hy)
+    tr, h = train("flow_grpo", DistConfig(data_parallel=2, model_parallel=2),
+                  arch_cfg=hy)
+    out["hybrid"] = (h_ref, h, canonical_params(ref), canonical_params(tr),
+                     tr.plan.bytes_report(tr.state))
+    ckpt = os.path.join(tmp, "ckpt_hybrid")
+    state = tr.canonical_state()
+    if dist.get_rank() == 0:
+        checkpoint.save_checkpoint(ckpt, 2, state)
+    dist.barrier()
+    out["hybrid/ckpt"] = restore_layouts(ckpt, state, hy)
     return out
 
 
@@ -232,16 +260,16 @@ def _flat(state):
     return [(k, v) for k, v in checkpoint.io._flatten(state)]
 
 
-def restore_layouts(ckpt, saved):
+def restore_layouts(ckpt, saved, arch_cfg=None):
     """Restore ``ckpt`` at dp=1 (no mesh) and at mp=4: bitwise the saved
     canonical state, leaf by leaf (at mp=4 each rank's shards against the
     saved leaves' slices, then gathered back whole)."""
     res = {}
-    one = build("flow_grpo", DistConfig(), mesh=None)
+    one = build("flow_grpo", DistConfig(), mesh=None, arch_cfg=arch_cfg)
     step, st = checkpoint.restore_latest(ckpt, one.state, one.state_slicer())
     res["dp1"] = (step, all(torch.equal(a, b) for (_, a), (_, b) in
                             zip(_flat(st), _flat(saved))))
-    mp4 = build("flow_grpo", DistConfig(model_parallel=4))
+    mp4 = build("flow_grpo", DistConfig(model_parallel=4), arch_cfg=arch_cfg)
     step, st = checkpoint.restore_latest(ckpt, mp4.state, mp4.state_slicer())
     placed = mp4.place_state(saved)
     mp4.state = st
