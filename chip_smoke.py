@@ -240,14 +240,55 @@ script exits 2 before printing any result.
    a_log and dt_bias gradient, s per step, peak memory and
    ``memory_stats``; then one update of each of the five trainers at depth
    2 against the plain versions, as phase 18.
-28. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
+28. The attention kernels at a query/key dim of 192 and a value dim of 128
+   (DeepSeek-V2's latent attention: 128 + 64 rope dims of query and key,
+   128 of value, scale 192^-1/2) against their plain versions and
+   torch.autograd, forward (o and LSE) and backward, at the path shape (4,
+   4608, 128 / 128 heads, causal) in bf16 on the tensor-core kernels and in
+   f32 on the FMA kernels, ragged (1, 129, 2 / 1) and (2, 77 queries over
+   130 keys, 4 / 2), a window and a bidirectional case, each on the
+   variant its dtype calls for; at the path shape every row (query row of
+   o and dq, key row of dk and dv) within ``ROW_BAND`` of its own max
+   |plain|, a band that two deliberately wrong kernels must fail; the
+   wrapper refuses (192, 64); then the kernel, FMA, plain and SDPA times
+   (SDPA on its fused backends) and the bounds at the path shape.
+29. ``deepseek-v2-236b`` served: ``repro_torch.launch.serve.main`` serving 4
+   requests at full width and 6 layers (the dense one and 5 MoE layers of
+   160 routed experts top-6 and 2 shared; ~21.3 B params; 236 B do not fit
+   one card) over 511 + 1 + 4096 tokens under ``flow_sde``, 4 steps:
+   launch counts (``flash_attention`` 6 a velocity, all on the tensor
+   cores; ``sde_step`` 4 per batch), the latents bitwise
+   ``rollout_keyed``'s, the share of routed assignments dropped at
+   capacity per MoE layer, s per step, req/s, peak memory and a profile of
+   one step; then the velocity at depth 2, batch 1, w_uq/w_uk drawn,
+   through the kernels against the plain versions on the kernel pass's
+   expert assignments, in bf16 and f32 (the unforced gap, the differing
+   assignments and the gap at the repository's init printed beside it).
+30. ``deepseek-v2-236b`` trained: ``repro_torch.launch.train.main`` at full
+   width and 2 layers (the dense one and one MoE layer) under
+   ``perf.remat=block`` with the reward towers offloaded
+   (``perf.offload_rewards``) under the allocator's expandable segments
+   (``PYTORCH_CUDA_ALLOC_CONF``, which the script sets for itself unless
+   the caller has), ``flow_grpo`` for 2 steps and a traced third at
+   phase 19's batch, T and rewards over 511 + 1 + 4096 tokens: launch
+   counts (the attention backward 2 per loss backward, ``grpo_loss`` and
+   its backward T each), the router's and expert tables' first-update
+   gradients, finite metrics, params that move, s per step, peak memory
+   and ``memory_stats``; then one update of each of the five trainers at
+   depth 2 (32 routed experts, 511 + 1 + 512 tokens) through the kernels
+   against the plain versions on the kernel pass's routing.
+31. ``grok-1-314b`` served at full width and 4 layers (8 experts top-2 of
+   width 32768, 48 query heads over 8 kv heads of 128; ~21.4 B params) as
+   phase 29, and its velocity at depth 2 as phase 29's.  grok is not
+   trained on one card: one full-width layer is ~59 GB of training state.
+32. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
    ``ssm_train_path``, ``perf_path``, ``distributed_path``,
-   ``engine_path``, ``hybrid_path`` and ``kernels`` JSON lines, the card's
-   name and power limit, and the last line ``{"ok": true, "device":
-   {...}}``.
+   ``engine_path``, ``hybrid_path``, ``moe_path`` and ``kernels`` JSON
+   lines, the card's name and power limit, and the last line ``{"ok":
+   true, "device": {...}}``.
 
 ``--only N,...`` runs just the device and build phases and phases N (3 and
-8-27) and prints no result lines: a development aid.
+8-31) and prints no result lines: a development aid.
 """
 from __future__ import annotations
 
@@ -256,6 +297,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -266,6 +308,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# deepseek-v2-236b's training (phase 30) fits one card only with the
+# caching allocator's expandable segments (scripts/moe_train_memory.py):
+# set for the whole process before CUDA starts, as a user's launch of that
+# cell sets it; an explicit setting is kept
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import torch  # noqa: E402
 
@@ -288,6 +335,7 @@ from repro_torch.kernels.grpo_loss import grpo_loss, grpo_loss_bwd  # noqa: E402
 from repro_torch.kernels.sde_step import sde_step  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import params as params_lib  # noqa: E402
 from repro_torch.models.flow import FlowAdapter  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
@@ -420,6 +468,8 @@ def reset_counts() -> None:
         fn.launches = 0
         for variant in getattr(fn, "variant_launches", {}):
             fn.variant_launches[variant] = 0
+        for pair in getattr(fn, "pair_launches", {}):
+            fn.pair_launches[pair] = 0
 
 
 def counts() -> dict:
@@ -431,6 +481,13 @@ def all_variants() -> dict:
     wrappers: ``wgmma`` / ``fma``)."""
     return {fn.__name__: dict(fn.variant_launches) for fn in COUNTED
             if hasattr(fn, "variant_launches")}
+
+
+def pair_counts() -> dict:
+    """The attention wrappers' launches by (query/key, value) dim pair
+    (``pair_launches``, keyed ``"192x128"``)."""
+    return {fn.__name__: dict(fn.pair_launches) for fn in COUNTED
+            if hasattr(fn, "pair_launches")}
 
 
 def routed(n: int, variant: str) -> dict:
@@ -688,6 +745,13 @@ ATTN_BWD_CASES = [  # B, Sq, Sk, H, K, D, causal, window, dtype
 # another order; bf16 rounds P and dS for the second products and the
 # outputs once (one bf16 ulp is 2^-8 of the top binade)
 ATTN_BWD_BAND = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the (192, 128) path shape, each row against its own max |plain|
+# (``_row_errs``): in bf16 four roundings (2^-8 each) of the row's largest
+# value, from P, dS and the output; in f32 the FMA kernels' exp and online
+# rescaling leave ~1e-5 of a row in o, which dq's rows amplify ~10x where
+# dP - delta nearly cancels (1.1e-4 measured on an H100)
+ROW_BAND = {torch.float32: 5e-4, torch.bfloat16: 1.6e-2}
+ROW_FLOOR = 0.1
 LSE_BAND = 1e-5          # max |lse - plain| / max(1, max |plain lse|)
 
 
@@ -1138,15 +1202,23 @@ TRAIN_REWARDS = [{"reward_type": "text_render", "weight": 1.0},
                  {"reward_type": "latent_norm", "weight": 0.1}]
 
 
+def _layer_abs_max(g: torch.Tensor, stack_dims: int) -> torch.Tensor:
+    """Each layer's max |g| (f32, NaN if the layer has one) of a leaf
+    stacked over its first ``stack_dims`` dims, from ``aminmax``: no
+    copy of the leaf (a deepseek expert table's f32 copy is 4.7 GiB)."""
+    lo, hi = torch.aminmax(g.flatten(0, stack_dims - 1).flatten(1), dim=1)
+    return torch.maximum(-lo, hi).float()
+
+
 class _TrainWatch(loop_lib.Callback):
     """At train start: sets the launch counts to 0, redraws leaves with
     ``draw(params, cfg)`` if given,
     keeps a copy of the leaves ``keys`` of the blocks' ``block`` (so the run
     can show that the params moved), and wraps the trainer's
-    ``apply_grads``, which clears the gradients, to keep those of
-    ``grad_keys`` at the first update, one row per layer (the leaves are
-    stacked over their first ``stack_dims`` dims: 2 for the hybrid's
-    (groups, attn_every))."""
+    ``apply_grads``, which clears the gradients, to keep each layer's max
+    |grad| of ``grad_keys`` at the first update (the leaves are stacked
+    over their first ``stack_dims`` dims: 2 for the hybrid's (groups,
+    attn_every))."""
 
     def __init__(self, block: str, keys: tuple, grad_keys: tuple = (),
                  draw=None, stack_dims: int = 1):
@@ -1168,8 +1240,7 @@ class _TrainWatch(loop_lib.Callback):
         def apply_grads():
             if self.first_grads is None:
                 self.first_grads = {
-                    k: leaves[k].grad.float().flatten(
-                        0, self.stack_dims - 1).clone()
+                    k: _layer_abs_max(leaves[k].grad, self.stack_dims)
                     for k in self.grad_keys}
             return inner()
 
@@ -2353,6 +2424,7 @@ def train_one(tmp: str, arch: str, layers: int, cond_len: int, kernels: tuple,
     else:
         res = train.main(argv, callbacks=[watch], mesh=mesh)
     launches = counts()
+    pairs = pair_counts()
     variants = dict(ssd_scan.variant_launches)
     bwd_variants = dict(ssd_scan_bwd.variant_launches)
     torch.cuda.synchronize()
@@ -2382,8 +2454,7 @@ def train_one(tmp: str, arch: str, layers: int, cond_len: int, kernels: tuple,
         if not all(math.isfinite(v) for v in vals):
             fail(f"{label} step {r['step']}: non-finite metrics {r}")
     grads = watch.first_grads
-    layer_min = {k: float(g.flatten(1).abs().amax(1).min())
-                 for k, g in grads.items()}
+    layer_min = {k: float(g.min()) for k, g in grads.items()}
     if not (all(torch.isfinite(g).all() for g in grads.values())
             and all(m > 0 for m in layer_min.values())):
         fail(f"{label}: a layer's gradient of {list(grads)} at the first "
@@ -2408,7 +2479,8 @@ def train_one(tmp: str, arch: str, layers: int, cond_len: int, kernels: tuple,
         f"the second dispatch; "
         f"first update's smallest per-layer max |grad| {layer_min}; params "
         f"moved by up to {moved}")
-    row = {"launches": launches, "s_per_step": [r["dt"] for r in hist],
+    row = {"launches": launches, "pair_launches": pairs,
+           "s_per_step": [r["dt"] for r in hist],
            "steps_per_s": sps, "peak_bytes": peak,
            "peak_reserved_bytes": peak_reserved,
            "memory_stats": res["memory_stats"],
@@ -3888,6 +3960,731 @@ def hybrid_train_path(dev, tmp: str) -> dict:
     return {"block": row, "update_check": check_updates(dev, HY_ARCH)}
 
 
+# ----------------------------------------------------------------- phase 28
+DS_ARCH, GROK_ARCH = "deepseek-v2-236b", "grok-1-314b"
+MLA_HEADS, MLA_QK, MLA_V = 128, 192, 128
+MLA_CASES = [  # B, Sq, Sk, H, K, causal, window, dtype
+    (B_SERVE, HY_SEQ, HY_SEQ, MLA_HEADS, MLA_HEADS, True, 0, torch.bfloat16),
+    (B_SERVE, HY_SEQ, HY_SEQ, MLA_HEADS, MLA_HEADS, True, 0, torch.float32),
+    (1, 129, 129, 2, 1, True, 0, torch.bfloat16),
+    (1, 129, 129, 2, 1, True, 0, torch.float32),
+    (2, 77, 130, 4, 2, True, 0, torch.bfloat16),
+    (2, 77, 130, 4, 2, True, 0, torch.float32),
+    (1, 1000, 1000, 4, 2, True, 256, torch.bfloat16),
+    (1, 300, 300, 4, 2, False, 0, torch.bfloat16),
+]
+# heads of one plain call at the path shape: (1, 4608, 32, 4608) f32
+# scores are 2.7 GB (all 128 heads would be 10.9 GB, and the backward
+# holds several such tensors)
+MLA_PLAIN_HEADS = 32
+
+
+def _mla_plain(fn, q, k, v, *rest, causal=True, window=0):
+    """``fn`` (a plain attention forward or backward) one batch row and
+    ``MLA_PLAIN_HEADS`` kv heads (with their query heads) at a time,
+    concatenated back: the same function, within the card's memory."""
+    B, H, K = q.shape[0], q.shape[2], k.shape[2]
+    G, step = H // K, max(1, MLA_PLAIN_HEADS // (H // K))
+    outs = []
+    for i in range(B):
+        parts = []
+        for k0 in range(0, K, step):
+            qs = slice(k0 * G, (k0 + step) * G)
+            ks = slice(k0, k0 + step)
+            args = [q[i:i + 1, :, qs], k[i:i + 1, :, ks], v[i:i + 1, :, ks]]
+            for t in rest:   # o, lse (B, H, Sq), do: query-head tensors
+                args.append(t[i:i + 1, qs] if t.dim() == 3
+                            else t[i:i + 1, :, qs])
+            parts.append(fn(*args, causal=causal, window=window))
+        outs.append(parts)
+    def join(pieces):   # heads are dim 1 of lse (B, H, Sq), else dim 2
+        return torch.cat(pieces, dim=1 if pieces[0].dim() == 3 else 2)
+
+    if isinstance(outs[0][0], torch.Tensor):
+        return torch.cat([join(parts) for parts in outs])
+    return tuple(torch.cat([join([p[j] for p in parts]) for parts in outs])
+                 for j in range(len(outs[0][0])))
+
+
+def _mla_flops(backward: bool = False) -> float:
+    """Operations of the causal attention at the MLA path's shape: each
+    product over the half of the score matrix the mask keeps (S (S + 1) /
+    2 pairs), 2 flops a multiply-add; forward QK^T at 192 and PV at 128,
+    backward QK^T and dO V^T recomputed, dV at 128, dQ and dK at 192."""
+    pairs = B_SERVE * MLA_HEADS * HY_SEQ * (HY_SEQ + 1) / 2
+    dims = (MLA_QK + MLA_V + MLA_V + MLA_QK + MLA_QK if backward
+            else MLA_QK + MLA_V)
+    return 2 * pairs * dims
+
+
+def _row_errs(got, want) -> list:
+    """For each pair: the largest over rows (every index but the last dim)
+    of max |got - want| in the row over the row's scale, its max |want|
+    but at least ``ROW_FLOOR`` of the median row's.  The floor is for a row
+    whose plain result vanishes by cancellation: under a causal mask dq's
+    first query row sees one key, where dS = P (dP - delta) is 0."""
+    out = []
+    for a, b in zip(got, want):
+        b = b.float()
+        scale = b.abs().amax(-1)
+        scale = scale.clamp_min(ROW_FLOOR * float(scale.median()))
+        err = (a.float() - b).abs().amax(-1)
+        out.append(float((err / scale).max()))
+        del b, scale, err
+    return out
+
+
+def _mla_row_check_power(q, k, v, o, lse, do, r, got, want, band) -> None:
+    """The per-row check against two wrong kernels at the path shape: o
+    whose later half of the query rows read each value row one key late
+    (v rolled by one key), and dv whose later half of the key rows took
+    each upstream gradient one query late (do rolled by one query).  Both
+    must fail the row band; printed beside what the whole-tensor limit of
+    phases 3 and 25 (``PATH_ATTN_BAND`` x max |plain|) would say."""
+    half = q.shape[1] // 2
+    wrong = o.clone()
+    wrong[:, half:] = flash_attention(q, k, v.roll(1, 1))[:, half:]
+    wrong_dv = got[2].clone()
+    wrong_dv[:, half:] = flash_attention_bwd(q, k, v, o, lse,
+                                             do.roll(1, 1))[2][:, half:]
+    for name, bad, plain in (("o", wrong, r), ("dv", wrong_dv, want[2])):
+        (row,) = _row_errs([bad], [plain])
+        whole = float((bad.float() - plain.float()).abs().max())
+        old = PATH_ATTN_BAND * float(plain.float().abs().max())
+        log(f"  (192, 128) a wrong {name} (later half one row late): per-row "
+            f"{row:.3e} (band {band}); max|err| {whole:.3e} against the "
+            f"whole-tensor limit {old:.3e}: "
+            f"{'passes' if whole <= old else 'fails'} there")
+        if row <= band:
+            fail(f"the per-row check passes a wrong {name} at (192, 128)")
+    del wrong, wrong_dv
+    torch.cuda.empty_cache()
+
+
+def check_attention_mla(dev) -> list:
+    """The attention forward (o and its LSE) and backward at a query/key
+    dim of 192 and a value dim of 128 (DeepSeek-V2's latent attention)
+    against their plain versions and torch.autograd through the plain
+    forward, with phase 3's bands: the path shape (4, 4608, 128 / 128
+    heads, causal) in bf16 on the tensor-core kernels and in f32 on the FMA
+    kernels, ragged (1, 129, 2 / 1) and (2, 77 queries over 130 keys, 4 /
+    2), a window of 256 over 1000 and a bidirectional case.  At the path
+    shape every row is also held to ``ROW_BAND`` of its own max |plain|
+    (``_row_errs``), and that check must reject two wrong kernels
+    (``_mla_row_check_power``).  Each call must
+    run the variant its dtype calls for (``variant_launches``), and the
+    wrapper must refuse a pair it has no kernel for.  Then the times and
+    bounds at the path shape (``_attention_mla_times``).  Returns the two
+    kernel rows."""
+    g = torch.Generator(device=dev).manual_seed(28)
+    errs = {}
+    try:
+        z = torch.zeros(1, 8, 1, MLA_QK, device=dev, dtype=torch.bfloat16)
+        flash_attention(z, z, z[..., :64])
+        fail("flash_attention accepted (192, 64) head dims")
+    except ValueError as e:
+        log(f"  (192, 64) refused: {e}")
+    for (B, Sq, Sk, H, K, causal, window, dt) in MLA_CASES:
+        q = torch.randn(B, Sq, H, MLA_QK, generator=g, device=dev).to(dt)
+        k = torch.randn(B, Sk, K, MLA_QK, generator=g, device=dev).to(dt)
+        v = torch.randn(B, Sk, K, MLA_V, generator=g, device=dev).to(dt)
+        do = torch.randn(B, Sq, H, MLA_V, generator=g, device=dev).to(dt)
+        variant = "wgmma" if dt == torch.bfloat16 else "fma"
+        if fa_mod.tensor_core_route(q, k, v) != (variant == "wgmma"):
+            fail(f"tensor_core_route disagrees with the dtype rule at "
+                 f"{(B, Sq, Sk, H, K)} {dt}")
+        before = all_variants()
+        o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
+        o2 = flash_attention(q, k, v, causal=causal, window=window)
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  window=window)
+        ran = all_variants()
+        if ran["flash_attention"][variant] - before[
+                "flash_attention"][variant] != 2 or ran[
+                "flash_attention_bwd"][variant] - before[
+                "flash_attention_bwd"][variant] != 1:
+            fail(f"the (192, 128) attention {dt} did not run its {variant} "
+                 f"kernels: {before} -> {ran}")
+        if tuple(o.shape) != (B, Sq, H, MLA_V) or not torch.equal(o, o2):
+            fail("the (192, 128) forward's o has the wrong shape or moves "
+                 "with return_lse")
+        r, lse_ref = _mla_plain(ref.flash_attention_fwd_ref, q, k, v,
+                                causal=causal, window=window)
+        want = _mla_plain(ref.flash_attention_bwd_ref, q, k, v, o, lse, do,
+                          causal=causal, window=window)
+        hs = min(H, MLA_PLAIN_HEADS)
+        ks = max(1, hs * K // H)
+        leaves = [q[:1, :, :hs].float().requires_grad_(),
+                  k[:1, :, :ks].float().requires_grad_(),
+                  v[:1, :, :ks].float().requires_grad_()]
+        ref.flash_attention_ref(*leaves, causal=causal, window=window
+                                ).backward(do[:1, :, :hs].float())
+        torch.cuda.synchronize()
+        err = float((o.float() - r.float()).abs().max())
+        lse_err = float((lse - lse_ref).abs().max()) / max(
+            1.0, float(lse_ref.abs().max()))
+        gerr = _grad_errs(got, want)
+        got0 = [got[0][:1, :, :hs], got[1][:1, :, :ks], got[2][:1, :, :ks]]
+        autos = [a.grad for a in leaves]
+        auto = _grad_errs(got0, autos)
+        path = Sq == HY_SEQ
+        band = ATTN_BWD_BAND[dt]
+        if path:
+            # each row (query row of o and dq, key row of dk and dv) at its
+            # own scale: max |plain| over the whole tensor is set by the
+            # first rows (o's row 0 is v_0), 3-4 times a late row's.  The
+            # backward is held so against the plain backward, which takes
+            # the kernel's o and lse; autograd recomputes o in f32, and
+            # where a row's dq or dk nearly cancels, the forward's bf16
+            # rounding of o (through delta = rowsum(dO o)) is most of the
+            # row, so autograd keeps the whole-tensor band (its per-row
+            # reading is printed)
+            row_band = ROW_BAND[dt]
+            (row_o,), rows_g = _row_errs([o], [r]), _row_errs(got, want)
+            rows_a = _row_errs(got0, autos)
+            limit = row_band
+            ok = row_o <= row_band
+            log(f"  (192, 128) path {dt}: per-row max|err| / max|plain| of "
+                f"the row: o {row_o:.3e}; dq/dk/dv vs plain "
+                f"{rows_g[0]:.3e}/{rows_g[1]:.3e}/{rows_g[2]:.3e} (band "
+                f"{row_band} a row); vs autograd {rows_a[0]:.3e}/"
+                f"{rows_a[1]:.3e}/{rows_a[2]:.3e}")
+            if max(rows_g) > row_band:
+                fail(f"flash_attention_bwd off at (192, 128), a row past "
+                     f"its band at {(B, Sq, Sk, H, K)} {dt}")
+            if dt == torch.bfloat16:
+                _mla_row_check_power(q, k, v, o, lse, do, r, got, want,
+                                     row_band)
+        else:
+            tol = 2e-5 if dt == torch.float32 else 2e-2
+            limit = tol
+            ok = torch.allclose(o.float(), r.float(), atol=tol, rtol=tol)
+        log(f"  (192, 128) B={B} Sq={Sq} Sk={Sk} H={H} K={K} causal={causal}"
+            f" window={window} {dt} ({variant}): o max|err| {err:.3e} "
+            f"(limit {limit:.3e}{' a row' if path else ''}), lse "
+            f"{lse_err:.2e}; dq/dk/dv vs plain {gerr[0]:.2e}/{gerr[1]:.2e}/"
+            f"{gerr[2]:.2e}, vs autograd {auto[0]:.2e}/{auto[1]:.2e}/"
+            f"{auto[2]:.2e} of max|plain| (band {band})")
+        if not ok or lse_err > LSE_BAND:
+            fail(f"flash_attention off at (192, 128), "
+                 f"{(B, Sq, Sk, H, K)} {dt}")
+        if max(gerr + auto) > band:
+            fail(f"flash_attention_bwd off at (192, 128), "
+                 f"{(B, Sq, Sk, H, K)} {dt}")
+        if path:
+            errs[dt] = (err, max(float((a.float() - b.float()).abs().max())
+                                 for a, b in zip(got, want)))
+        del q, k, v, do, o, o2, lse, got, want, r, lse_ref, leaves
+        torch.cuda.empty_cache()
+    return _attention_mla_times(dev, g, errs)
+
+
+def _sdpa_mla_ms(q, k, v, do) -> tuple:
+    """SDPA's forward and backward ms at (192, 128) on its fused backends
+    (flash, memory-efficient, cuDNN; the math backend would hold the whole
+    score matrix), or (None, None, reason) where none of them takes the
+    pair."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_()
+                  for a in (q, k, v))
+    try:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            with torch.no_grad():
+                fwd = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 5)
+            out = sdpa(qt, kt, vt, is_causal=True)
+            dot = do.transpose(1, 2)
+            bwd = cuda_ms(lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True), 3)
+        return fwd, bwd, "fused SDPA backend"
+    except RuntimeError as e:
+        return None, None, f"no fused SDPA backend takes it: {e}"[:300]
+
+
+def _attention_mla_times(dev, g, errs) -> list:
+    """Forward and backward at the MLA path shape (4, 4608, 128 heads,
+    192 / 128, causal): the bf16 kernels and the f32 FMA kernels from
+    replayed graphs, the plain versions (``_mla_plain``) and SDPA with CUDA
+    events, and the bounds (``_mla_flops`` at the bf16 tensor-core rate;
+    each input read once, each output written once)."""
+    B, S, H = B_SERVE, HY_SEQ, MLA_HEADS
+    q, k = (torch.randn(B, S, H, MLA_QK, generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    v, do = (torch.randn(B, S, H, MLA_V, generator=g, device=dev,
+                         dtype=torch.bfloat16) for _ in range(2))
+    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    ms = graph_ms(lambda: flash_attention(q, k, v, causal=True), 3)
+    lse_ms = graph_ms(lambda: flash_attention(q, k, v, causal=True,
+                                              return_lse=True), 3)
+    bwd_ms = graph_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                  causal=True), 2)
+    q32, k32, v32, do32 = (a.float() for a in (q, k, v, do))
+    o32, lse32 = flash_attention(q32, k32, v32, causal=True, return_lse=True)
+    fma_ms = graph_ms(lambda: flash_attention(q32, k32, v32, causal=True), 1,
+                      2)
+    fma_bwd_ms = graph_ms(lambda: flash_attention_bwd(
+        q32, k32, v32, o32, lse32, do32, causal=True), 1, 2)
+    del q32, k32, v32, do32, o32, lse32
+    torch.cuda.empty_cache()
+    plain_ms = cuda_ms(lambda: _mla_plain(ref.flash_attention_ref, q, k, v),
+                       1, 0)
+    torch.cuda.empty_cache()
+    plain_bwd_ms = cuda_ms(lambda: _mla_plain(
+        ref.flash_attention_bwd_ref, q, k, v, o, lse, do), 1, 0)
+    torch.cuda.empty_cache()
+    sdpa_ms, sdpa_bwd_ms, sdpa_note = _sdpa_mla_ms(q, k, v, do)
+    torch.cuda.empty_cache()
+    el = 2   # bf16 bytes
+    fwd_bytes = (q.numel() + k.numel() + v.numel() + o.numel()) * el
+    bwd_bytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                 + o.numel() + do.numel()) * el + 4 * lse.numel()
+    rows = []
+    for name, kms, fms, pms, lms, flops, nbytes, src, rep_ in (
+            ("flash_attention_mla", ms, fma_ms, plain_ms, sdpa_ms,
+             _mla_flops(), fwd_bytes, "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:81"),
+            ("flash_attention_bwd_mla", bwd_ms, fma_bwd_ms, plain_bwd_ms,
+             sdpa_bwd_ms, _mla_flops(True), bwd_bytes,
+             "flash_attention_bwd.cu",
+             "none (JAX autodiff of src/repro/models/layers.py "
+             "attention_chunked, called at src/repro/models/mla.py:108)")):
+        bound, by = _bound(nbytes, flops)
+        lib = "none" if lms is None else f"{lms:.4f} ms"
+        log(f"  {name} path ({B}, {S}, {H} / {H} heads, 192 / 128) causal "
+            f"bf16: kernel {kms:.4f} ms (wgmma), the f32 FMA kernel "
+            f"{fms:.4f} ms, plain {pms:.3f} ms (32 heads of a batch row "
+            f"at a time), SDPA{' backward' if 'bwd' in name else ''} {lib} "
+            f"({sdpa_note}), bound {bound:.4f} ms ({flops / 1e12:.4f} TFLOP,"
+            f" {nbytes / 1e6:.1f} MB)")
+        rows.append({
+            "name": name, "route": "cuda", "variant": "wgmma",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": rep_,
+            "max_abs_err": errs[torch.bfloat16][0 if "bwd" not in name
+                                                else 1],
+            "max_abs_err_f32": errs[torch.float32][0 if "bwd" not in name
+                                                   else 1],
+            "ms": kms, "fma_ms": fms, "plain_ms": pms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lms, "library_note": sdpa_note})
+    rows[0]["forward_with_lse_ms"] = lse_ms
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------------ phases 29-31
+# the MoE family at published width over the hybrid's geometry (511 + 1 +
+# 4096 tokens): deepseek-v2-236b served at 6 layers (the dense one and 5
+# MoE layers of 160 routed experts top-6 and 2 shared: ~21.3 B params) and
+# trained at 2 (the dense one and 1 MoE), grok-1-314b served at 4 (8
+# experts top-2 of width 32768): 236 B and 314 B params do not fit one card
+DS_SERVE_LAYERS, DS_TRAIN_LAYERS, GROK_SERVE_LAYERS = 6, 2, 4
+MOE_ROUTES = {"flash_attention": "wgmma", "flash_attention_bwd": "wgmma"}
+# the trainers' comparison at depth 2: 511 + 1 + 512 tokens (the plain
+# attention's (2, 1024, 128, 1024) f32 scores) and 32 routed experts (two
+# trainers' params, grads and AdamW moments at 160 experts take ~86 GB)
+MOE_UPDATE_LAT, MOE_UPDATE_EXPERTS = 512, 32
+
+
+def draw_qk_proj(p: dict, cfg, seed: int) -> None:
+    """The attention's query and key projections redrawn in place: GQA's
+    wq/wk at std 1/sqrt(d_model) (``draw_attention``'s reason), MLA's
+    w_uq/w_uk at 1/sqrt(their latent rank) (the repository's init takes
+    their fan-in from the head axis: tests/test_torch_moe.py)."""
+    bb = p["backbone"]
+    gen = torch.Generator(device=bb["final_norm"].device).manual_seed(seed)
+    for stack in ("dense_blocks", "blocks"):
+        if stack not in bb:
+            continue
+        attn = bb[stack]["attn"]
+        for key in ("wq", "wk", "w_uq", "w_uk"):
+            if key in attn:
+                w = attn[key]
+                fan_in = cfg.d_model if key in ("wq", "wk") else w.shape[-3]
+                w.copy_(torch.randn(w.shape, generator=gen, device=w.device)
+                        / fan_in ** 0.5)
+
+
+@contextlib.contextmanager
+def routing(record=None, replay=None):
+    """Each MoE call's expert assignments appended to ``record``, or
+    replaced by the next of ``replay`` (the gates then taken from the
+    call's own probabilities at those experts, renormalised as the router
+    does): a comparison aid of this script, so that a plain pass can take
+    the kernel pass's routing where the two differ by a near-tie."""
+    saved = moe_mod.route
+
+    def route(p, cfg, xg):
+        logits, probs, gates, idx = saved(p, cfg, xg)
+        if record is not None:
+            record.append(idx.clone())
+        if replay is not None:
+            idx = replay.pop(0)
+            gates = probs.gather(-1, idx)
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                        min=1e-9)
+        return logits, probs, gates, idx
+
+    moe_mod.route = route
+    try:
+        yield
+    finally:
+        moe_mod.route = saved
+
+
+def _assign_diff(a: list, b: list) -> int:
+    """Token-expert assignments of two recorded routings that differ."""
+    return sum(int((x.sort(-1).values != y.sort(-1).values).sum())
+               for x, y in zip(a, b))
+
+
+def _moe_argv(arch: str, layers: int) -> list:
+    return ["--arch", arch, "--sde", "flow_sde", "--device", "cuda",
+            "--requests", str(B_SERVE), "--max-batch", str(B_SERVE),
+            "--bucket", str(B_SERVE),
+            "--set", "arch_overrides=" + json.dumps({"n_layers": layers}),
+            "--set", f"flow.num_steps={NUM_STEPS}",
+            "--set", f"flow.latent_tokens={LAT_TOKENS}",
+            "--set", f"flow.latent_dim={LAT_DIM}",
+            "--set", "param_dtype=bfloat16",
+            "--set", "data.encoder=" + json.dumps(
+                {"cond_dim": COND_DIM, "cond_len": HY_COND_LEN})]
+
+
+def moe_serve_path(arch: str, layers: int) -> dict:
+    """``repro_torch.launch.serve.main`` serving 4 requests of ``arch`` at
+    full width and ``layers`` layers (bf16, random weights from a seed)
+    over 511 + 1 + 4096 tokens under flow_sde, 4 steps: launch counts (a
+    velocity: ``flash_attention`` once a layer, all on the tensor cores;
+    ``sde_step`` 4 per batch), the latents bitwise ``rollout_keyed``'s
+    through the kernels, the share of routed assignments dropped at
+    capacity in each MoE layer over that rollout, s per step, req/s, peak
+    memory and a profile of one step."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = serve.main(_moe_argv(arch, layers))
+    launches = counts()
+    ran = all_variants()
+    pairs = pair_counts()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    stats, lat, eng = out["stats"], out["latents"], out["engine"]
+    batches = len(out["warmup"]) + sum(stats["dispatches"].values())
+    serve_batches = sum(stats["dispatches"].values())
+    want = {name: 0 for name in launches}
+    want["sde_step"] = NUM_STEPS * batches
+    want["flash_attention"] = layers * NUM_STEPS * batches
+    log(f"  launches {launches} over {batches} batches (warmup + serve; "
+        f"expected {want}); variants {ran}")
+    cfg = eng.adapter.cfg
+    if cfg.n_layers != layers or cfg.d_model != configs.get(arch).d_model:
+        fail(f"served {cfg.n_layers} layers of width {cfg.d_model}")
+    if tuple(lat.shape) != (B_SERVE, LAT_TOKENS, LAT_DIM) or not \
+            torch.isfinite(lat).all():
+        fail(f"{arch} latents: shape {tuple(lat.shape)} or not finite")
+    # every attention of the path at the arch's one dim pair
+    hd = cfg.resolved_head_dim
+    pair = f"{MLA_QK}x{MLA_V}" if cfg.mla else f"{hd}x{hd}"
+    log(f"  launches by dim pair {pairs}")
+    if launches != want or ran["flash_attention"] != routed(
+            want["flash_attention"], "wgmma") or pairs[
+            "flash_attention"][pair] != want["flash_attention"]:
+        fail(f"the {arch} serving path's kernel launches do not match the "
+             "path")
+    prompts = synthetic_prompts(B_SERVE)
+    cond = torch.from_numpy(eng.encode(prompts)).to(eng.device)
+    assigned = []
+    with torch.no_grad(), routing(record=assigned):
+        traj = rollout_keyed(eng.adapter, eng.params, cond,
+                             request_seeds(0, B_SERVE), eng.scheduler,
+                             NUM_STEPS)
+    # each MoE call's share of routed assignments past its experts'
+    # capacity (the router's assignments through the dispatch's own slots)
+    cap = moe_mod.capacity(HY_SEQ, cfg)
+    n_moe = layers - cfg.moe.first_k_dense
+    drops = torch.stack([
+        1.0 - moe_mod._slots(idx, cfg.moe.n_experts, cap)[1].float().mean()
+        for idx in assigned]).view(NUM_STEPS, n_moe)
+    if not torch.equal(traj.x0.cpu(), lat):
+        fail(f"the {arch} engine's latents differ from rollout_keyed's")
+    del traj
+    per_layer = [float(v) for v in drops.mean(0)]
+    serve_s = out["serve_s"]
+    res = {"layers": layers, "launches": launches, "variants": ran,
+           "pair_launches": pairs,
+           "batches": batches, "req_per_s": B_SERVE / serve_s,
+           "s_per_step": serve_s / (serve_batches * NUM_STEPS),
+           "serve_s": serve_s, "warmup_s": out["warmup_s"],
+           "peak_bytes": peak,
+           "n_params": params_lib.n_params(eng.adapter.spec()),
+           "capacity": cap,
+           "dropped_share_per_moe_layer": per_layer,
+           "dropped_share_per_step": [float(v) for v in drops.mean(1)],
+           "latents_equal_rollout_keyed": True}
+    log(f"  {arch} path ({layers} layers): {res['req_per_s']:.4f} req/s, "
+        f"{res['s_per_step']:.4f} s per denoising step (batch {B_SERVE}), "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB ({peak} bytes), "
+        f"{res['n_params']} params; latents bitwise rollout_keyed's; "
+        f"capacity {res['capacity']} slots an expert, routed assignments "
+        f"dropped per MoE layer {[f'{v:.4f}' for v in per_layer]}")
+    res["profile"] = profile_step(eng, HY_SEQ)
+    del eng, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_moe_velocity(dev, arch: str) -> dict:
+    """``FlowAdapter.velocity`` of ``arch`` at full width and depth 2 (for
+    deepseek the dense layer and one MoE layer of 160 experts) over 511 +
+    1 + 4096 tokens, batch 1, the attention's query and key projections
+    drawn (``draw_qk_proj``), through the kernels and through the plain
+    versions, in bf16 and f32.  The router makes the comparison
+    discontinuous: a near-tie among the experts flips on the attention's
+    rounding.  So the plain pass takes the kernel pass's expert
+    assignments (``routing``) and is held to the band (BF16_BAND, or
+    F32_VEL_BAND in f32); the unforced plain pass's gap and its count of
+    differing assignments are printed beside it without a band, and so is
+    the forced gap at the repository's init (no draw)."""
+    cfg = depth_cfg(arch, UPDATE_LAYERS)
+    adapter = FlowAdapter(cfg, FlowRLConfig(latent_tokens=LAT_TOKENS,
+                                            latent_dim=LAT_DIM), COND_DIM)
+    out = {}
+    for name, dtype, band, draw in (
+            ("bf16", torch.bfloat16, BF16_BAND, True),
+            ("f32", torch.float32, F32_VEL_BAND, True),
+            ("bf16_repository_init", torch.bfloat16, None, False)):
+        gen = torch.Generator(device=dev).manual_seed(31)
+        p = params_lib.init(adapter.spec(), gen, dtype, dev)
+        if draw:
+            draw_qk_proj(p, cfg, seed=32)
+        x = torch.randn(1, LAT_TOKENS, LAT_DIM, generator=gen, device=dev)
+        cond = torch.randn(1, HY_COND_LEN, COND_DIM, generator=gen,
+                           device=dev)
+        t = torch.full((1,), 0.7, device=dev)
+        rec_k, rec_p = [], []
+        reset_counts()
+        with torch.no_grad():
+            with routing(record=rec_k):
+                vk = adapter.velocity(p, x, t, cond)
+            ran, variants = counts(), all_variants()
+            with plain_dispatch():
+                with routing(record=rec_p):
+                    vu = adapter.velocity(p, x, t, cond)
+                with routing(replay=list(rec_k)):
+                    vp = adapter.velocity(p, x, t, cond)
+        torch.cuda.synchronize()
+        scale = float(vp.abs().max())
+        err = float((vk - vp).abs().max())
+        unforced = float((vk - vu).abs().max())
+        n_diff = _assign_diff(rec_k, rec_p)
+        n_all = sum(r.numel() for r in rec_k)
+        attn = "wgmma" if dtype == torch.bfloat16 else "fma"
+        bs = "no band" if band is None else f"band {band * scale:.3e}"
+        log(f"  velocity {arch} depth {UPDATE_LAYERS}, {name}: max|kernel - "
+            f"plain| {err:.3e} of max|v| {scale:.3e} ({bs}) with the plain "
+            f"pass on the kernel pass's routing; unforced {unforced:.3e}, "
+            f"{n_diff} of {n_all} assignments differ; launches {ran}, "
+            f"variants {variants['flash_attention']}")
+        if ran["flash_attention"] != UPDATE_LAYERS or \
+                variants["flash_attention"] != routed(UPDATE_LAYERS, attn):
+            fail(f"the {name} {arch} velocity did not run its kernels")
+        if not torch.isfinite(vk).all() or (band is not None
+                                            and err > band * scale):
+            fail(f"the {name} {arch} velocity is off its band")
+        out[name] = {"max_abs_err": err, "max_abs": scale,
+                     "band": None if band is None else band * scale,
+                     "unforced_max_abs_err": unforced,
+                     "assignments_differing": n_diff,
+                     "assignments": n_all}
+        del p, vk, vp, vu
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def deepseek_serve_phase(dev) -> dict:
+    """Phase 29."""
+    res = {"serve": moe_serve_path(DS_ARCH, DS_SERVE_LAYERS)}
+    res["velocity_checks"] = check_moe_velocity(dev, DS_ARCH)
+    return res
+
+
+def _ds_watch():
+    # the moves are watched on the router (a copy of an expert table would
+    # take 2.3 GiB beside the state); the first update's gradients on the
+    # router and all three tables
+    return _TrainWatch("ffn", ("router",),
+                       ("router", "w_gate", "w_up", "w_down"),
+                       lambda p, cfg: draw_qk_proj(p, cfg, seed=33))
+
+
+def deepseek_train_phase(dev, tmp: str) -> dict:
+    """Phase 30: deepseek-v2-236b at full width and 2 layers (the dense one
+    and one MoE layer of 160 routed experts) through ``launch.train`` under
+    ``perf.remat=block`` with ``perf.log_memory`` and
+    ``perf.offload_rewards`` (the reward towers, 4.0 GiB at this geometry,
+    wait on the host between uses: beside 50 GiB of state and one MoE
+    layer's backward they do not fit) under the allocator's expandable
+    segments, which the script sets for itself (without either, or AdamW's
+    flat chunks, the cell runs out of memory:
+    ``scripts/moe_train_memory.py``), flow_grpo, phase 19's
+    batch, T and rewards over 511 + 1 + 4096 tokens, w_uq/w_uk drawn at
+    train start, 2 steps and a traced third: launch counts (the attention
+    forward once a layer a velocity, twice in the loss; its backward once
+    a layer a loss backward; ``grpo_loss`` and its backward T each), the
+    router's and expert tables' gradients at the first update, s per
+    step, peak memory and ``memory_stats``; then one update of each of the
+    five trainers at depth 2 against the plain versions
+    (``check_moe_update``)."""
+    kernels = ({"flash_attention": DS_TRAIN_LAYERS},
+               {"flash_attention_bwd": DS_TRAIN_LAYERS})
+    row, trainer = train_one(
+        tmp, DS_ARCH, DS_TRAIN_LAYERS, HY_COND_LEN, kernels, _ds_watch(),
+        "flow_grpo", TRAIN_STEPS,
+        extra=BLOCK + ("--set", "perf.log_memory=true",
+                       "--set", "perf.offload_rewards=true"),
+        tag="block", remat="block", routes=MOE_ROUTES,
+        profile_what=f"one {DS_ARCH} train step under remat=block, "
+                     f"{DS_TRAIN_LAYERS} layers")
+    del trainer
+    gc.collect()   # the trainer's 50 GiB of state sit in reference cycles
+    torch.cuda.empty_cache()
+    pair = f"{MLA_QK}x{MLA_V}"
+    if any(row["pair_launches"][k][pair] != row["launches"][k]
+           for k in ("flash_attention", "flash_attention_bwd")):
+        fail(f"the {DS_ARCH} train path ran an attention at another dim "
+             f"pair than {pair}: {row['pair_launches']}")
+    updates = {}
+    for name in TRAINERS:
+        updates[name] = check_moe_update(dev, name)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"block": row, "update_check": updates}
+
+
+def check_moe_update(dev, name: str) -> dict:
+    """One update of trainer ``name`` on deepseek-v2-236b at full width,
+    depth 2 (the dense layer and one MoE layer cut to 32 routed experts,
+    top-6, 2 shared), over 511 + 1 + 512 tokens, batch 2, w_uq/w_uk drawn,
+    through the kernels and, on the same injected draws, through the plain
+    versions with the kernel pass's expert assignments (``routing``):
+    loss, grad norm, the grads of both layers' w_uq, w_uk, w_uv and the
+    MoE layer's router and expert tables, and the params after AdamW, at
+    ``check_update``'s bands."""
+    base = depth_cfg(DS_ARCH, UPDATE_LAYERS)
+    cfg = replace(base, moe=replace(base.moe,
+                                    n_experts=MOE_UPDATE_EXPERTS))
+    paths = ([(s, "attn", k) for s in ("dense_blocks", "blocks")
+              for k in ("w_uq", "w_uk", "w_uv")]
+             + [("blocks", "ffn", k) for k in ("router", "w_gate", "w_up",
+                                               "w_down")])
+    keys = ["/".join(p) for p in paths]
+    flow = FlowRLConfig(num_steps=NUM_STEPS, group_size=2,
+                        clip_range=UPDATE_CLIP, latent_tokens=MOE_UPDATE_LAT,
+                        latent_dim=LAT_DIM, advantage_agg="gdpo",
+                        rewards=(RewardSpec("pickscore", 1.0, args={
+                            "latent_dim": LAT_DIM, "cond_dim": COND_DIM}),
+                                 RewardSpec("latent_norm", 0.1)))
+    opt = OptimConfig(lr=1e-4, warmup_steps=1, total_steps=1000)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cond = torch.randn(1, HY_COND_LEN, COND_DIM, generator=gen, device=dev)
+    x_init = torch.randn(2, MOE_UPDATE_LAT, LAT_DIM, generator=gen,
+                         device=dev)
+    eps = torch.randn(NUM_STEPS, 2, MOE_UPDATE_LAT, LAT_DIM, generator=gen,
+                      device=dev)
+    t_u = 0.02 + 0.96 * torch.rand(2, generator=gen, device=dev)
+    eps_u = torch.randn(2, MOE_UPDATE_LAT, LAT_DIM, generator=gen,
+                        device=dev)
+    runs, params, recorded = {}, None, []
+    for route in ("kernel", "plain"):
+        tr = registry.build("trainer", name, cfg, flow, opt, seed=0,
+                            cond_dim=COND_DIM, device=dev, params=params)
+        if params is None:
+            draw_qk_proj(tr.state.params, cfg, seed=6)
+            params = _clone(tr.state.params)
+            start = _clone(params)
+        ctx = plain_dispatch() if route == "plain" else contextlib.nullcontext()
+        rctx = (routing(record=recorded) if route == "kernel"
+                else routing(replay=list(recorded)))
+        reset_counts()
+        with ctx, rctx:
+            traj = tr.sample(tr.state.params, cond, None, x_init=x_init,
+                             eps=eps)
+            _, adv, stats = tr._rewards(traj.x0, {"cond": traj.cond})
+            loss, aux = tr.backward(traj, adv, t=t_u, eps=eps_u)
+            bb = tr.state.params["backbone"]
+            grads = {k: bb[p[0]][p[1]][p[2]].grad.clone()
+                     for k, p in zip(keys, paths)}
+            tr._begin_update()
+            gnorm, lr = tr.apply_grads()
+            tr._end_update()
+            lr = float(lr)
+        torch.cuda.synchronize()
+        ran = all_variants()
+        if route == "kernel" and (
+                ran["flash_attention_bwd"] != routed(
+                    flash_attention_bwd.launches, "wgmma")
+                or flash_attention_bwd.launches == 0):
+            fail(f"{name}: the {DS_ARCH} update's attention backward did not "
+                 f"run on the tensor cores: {ran}")
+        runs[route] = {"loss": float(loss), "grad_norm": float(gnorm),
+                       "lr": lr, "grads": grads,
+                       "aux": {a: float(v) for a, v in aux.items()},
+                       "reward": float(stats["reward_mean"]),
+                       "adv_abs": float(adv.abs().mean()),
+                       "params": tr.state.params}
+        del tr, traj
+        torch.cuda.empty_cache()
+    k, p = runs["kernel"], runs["plain"]
+    grad_err = {n: float((k["grads"][n].float() - p["grads"][n].float()
+                          ).abs().max()) / float(p["grads"][n].float().abs(
+                              ).max()) for n in k["grads"]}
+    zero = [n for n, g in k["grads"].items() if not g.abs().max() > 0]
+    gn_err = abs(k["grad_norm"] - p["grad_norm"]) / p["grad_norm"]
+    gap = _param_gap(k["params"], p["params"], start, k["lr"])
+    del start
+    diff_share = gap["params_differing"] / max(gap["params_moved"], 1)
+    log(f"  one {name} update, {DS_ARCH} depth {UPDATE_LAYERS} "
+        f"({MOE_UPDATE_EXPERTS} routed experts, {MOE_UPDATE_LAT} latent "
+        f"tokens), batch 2, kernels vs plain on the kernel's routing: loss "
+        f"{k['loss']:+.4e} / {p['loss']:+.4e}, grad_norm "
+        f"{k['grad_norm']:.4e} / {p['grad_norm']:.4e} ({gn_err:.2e}), "
+        f"reward {k['reward']:+.4e} / {p['reward']:+.4e}")
+    log(f"  grads max|kernel - plain| / max|plain|: "
+        + ", ".join(f"{n} {grad_err[n]:.3e}" for n in keys)
+        + f" (band {GRAD_BAND}); params after AdamW: nearest its band "
+        f"{gap['param_leaf']} at {gap['param_band_share']:.3f}; "
+        f"{gap['params_differing']} of the {gap['params_moved']} weights "
+        f"the step moved differ ({diff_share:.4f}, band {PARAM_DIFF_SHARE})")
+    if zero:
+        fail(f"{name}: the gradients of {zero} are zero")
+    if max(grad_err.values()) > GRAD_BAND or gn_err > GRAD_BAND:
+        fail(f"{name}: the {DS_ARCH} update's gradients through the kernels "
+             "disagree with the plain versions")
+    loss_band = _loss_band(name, k, p)
+    if abs(k["loss"] - p["loss"]) > loss_band:
+        fail(f"{name}: the {DS_ARCH} update's loss disagrees beyond "
+             f"{loss_band:.3e}")
+    if gap["param_band_share"] > 1 or gap["params_moved"] == 0 or \
+            diff_share > PARAM_DIFF_SHARE:
+        fail(f"{name}: the {DS_ARCH} params after AdamW disagree between "
+             "the routes")
+    return {"grad_err": grad_err, "grad_norm_err": gn_err,
+            "loss": [k["loss"], p["loss"]], "loss_band": loss_band, **gap}
+
+
+def grok_serve_phase(dev) -> dict:
+    """Phase 31."""
+    res = {"serve": moe_serve_path(GROK_ARCH, GROK_SERVE_LAYERS)}
+    res["velocity_checks"] = check_moe_velocity(dev, GROK_ARCH)
+    return res
+
+
 def _clone(tree):
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
@@ -3903,7 +4700,7 @@ def _cast(tree, dtype):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", metavar="N,N,...",
-                    help="run only these of phases 3-27 after the device and "
+                    help="run only these of phases 3-31 after the device and "
                          "build phases, and print no result lines (a "
                          "development aid; the check runs every phase)")
     args = ap.parse_args(argv)
@@ -4090,6 +4887,34 @@ def main(argv=None) -> int:
             f"of each trainer at depth {UPDATE_LAYERS} against the plain "
             "versions")
         hy_res["train"] = hybrid_train_path(dev, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log("[28] the attention kernels at a query/key dim of 192 and a "
+            "value dim of 128 against their plain versions; times")
+        mla_rows = check_attention_mla(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log(f"[29] {DS_ARCH} served: repro_torch.launch.serve at "
+            f"{DS_SERVE_LAYERS} layers; the velocity at depth "
+            f"{UPDATE_LAYERS} against the plain versions")
+        moe_res = {DS_ARCH: deepseek_serve_phase(dev)}
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log(f"[30] {DS_ARCH} trained: repro_torch.launch.train at "
+            f"{DS_TRAIN_LAYERS} layers under perf.remat=block; one update of "
+            f"each trainer at depth {UPDATE_LAYERS} against the plain "
+            "versions")
+        moe_res[DS_ARCH]["train"] = deepseek_train_phase(dev, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log(f"[31] {GROK_ARCH} served: repro_torch.launch.serve at "
+            f"{GROK_SERVE_LAYERS} layers; the velocity at depth "
+            f"{UPDATE_LAYERS} against the plain versions")
+        moe_res[GROK_ARCH] = grok_serve_phase(dev)
 
     def by_path(name: str) -> dict:
         return {"serve": res["launches"][name],
@@ -4115,7 +4940,11 @@ def main(argv=None) -> int:
                 "train_ssm_engine": engine_res["train"]["launches"][name],
                 "serve_hybrid": hy_res["serve"]["launches"][name],
                 "train_hybrid_block": hy_res["train"]["block"]["launches"][
-                    name]}
+                    name],
+                "serve_deepseek": moe_res[DS_ARCH]["serve"]["launches"][name],
+                "train_deepseek_block": moe_res[DS_ARCH]["train"]["block"][
+                    "launches"][name],
+                "serve_grok": moe_res[GROK_ARCH]["serve"]["launches"][name]}
 
     for row in rows:
         row["launches"] = train_res["launches"][row["name"]]
@@ -4134,11 +4963,28 @@ def main(argv=None) -> int:
         row["launches_by_path"] = by_path(base)
         row["launches"] = row["launches_by_path"][path]
     rows += hy_rows
+    # the (192, 128) rows: the wrappers' launches at that dim pair on the
+    # MoE paths (``pair_launches``; the earlier paths' archs have no
+    # latent attention), on deepseek's serving path (forwards) and its
+    # train path (backwards)
+    ds = moe_res[DS_ARCH]
+    for row in mla_rows:
+        base = row["name"].rsplit("_", 1)[0]
+        path = "serve_deepseek" if "bwd" not in base else \
+            "train_deepseek_block"
+        row["launches_by_path"] = {
+            p: r["pair_launches"][base][f"{MLA_QK}x{MLA_V}"] for p, r in (
+                ("serve_deepseek", ds["serve"]),
+                ("train_deepseek_block", ds["train"]["block"]),
+                ("serve_grok", moe_res[GROK_ARCH]["serve"]))}
+        row["launches"] = row["launches_by_path"][path]
+    rows += mla_rows
     keys = ("name", "route", "variant", "source", "replaces", "launches",
             "max_abs_err", "max_rel_err", "max_rel_err_wgmma", "ms", "fma_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path", "times_by_batch", "dense_shape",
-            "launch_floor_ms", "max_abs_err_f32", "forward_with_lse_ms")
+            "launch_floor_ms", "max_abs_err_f32", "forward_with_lse_ms",
+            "library_note")
     print(json.dumps({"main_path": {k: v for k, v in res.items()
                                     if k != "launches"}}))
     print(json.dumps({"train_path": {k: v for k, v in train_res.items()
@@ -4153,6 +4999,7 @@ def main(argv=None) -> int:
     print(json.dumps({"distributed_path": dist_res}))
     print(json.dumps({"engine_path": engine_res}))
     print(json.dumps({"hybrid_path": hy_res}))
+    print(json.dumps({"moe_path": moe_res}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(card_line())
@@ -4190,7 +5037,11 @@ def run_only(dev, only: set) -> int:
               24: _in_tmp(lambda tmp: engine_phase(dev, tmp)),
               25: lambda: kernels_d80(dev),
               26: lambda: hybrid_serve_path(dev),
-              27: _in_tmp(lambda tmp: hybrid_train_path(dev, tmp))}
+              27: _in_tmp(lambda tmp: hybrid_train_path(dev, tmp)),
+              28: lambda: check_attention_mla(dev),
+              29: lambda: deepseek_serve_phase(dev),
+              30: _in_tmp(lambda tmp: deepseek_train_phase(dev, tmp)),
+              31: lambda: grok_serve_phase(dev)}
     for n in sorted(only):
         if n not in phases:
             fail(f"--only: phase {n} cannot run alone")

@@ -1,8 +1,10 @@
 """Typed configuration of the port: the subset of ``repro.config`` that
 serving and the five trainers read.
 
-``ArchConfig`` (backbone geometry, with ``SSMConfig`` for the Mamba-2
-block and ``HybridConfig`` for the Zamba2 schedule), ``FlowRLConfig``
+``ArchConfig`` (backbone geometry, with ``MoEConfig`` for the
+mixture-of-experts FFN, ``MLAConfig`` for DeepSeek-V2's latent attention,
+``SSMConfig`` for the Mamba-2 block and ``HybridConfig`` for the Zamba2
+schedule), ``FlowRLConfig``
 (trainer, SDE dynamics, rewards, preprocessing, latent geometry),
 ``OptimConfig``, ``DataConfig`` (prompt dataset and frozen encoder),
 ``DistConfig`` and ``PerfConfig`` (the (data, model) device layout and the
@@ -19,6 +21,33 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio", "dit")
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    # d_ff of each routed expert (dense d_ff field is used for dense layers)
+    expert_d_ff: int = 0
+    # first k layers stay dense (deepseek-v2 style)
+    first_k_dense: int = 0
+    # load-balance auxiliary loss coefficient
+    aux_loss_coef: float = 0.01
+    # router jitter / z-loss
+    router_z_coef: float = 1e-3
+    # sharding strategy: "tensor" (shard expert d_ff) | "expert" (all-to-all)
+    sharding: str = "tensor"
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 Multi-head Latent Attention."""
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 1536
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -55,6 +84,8 @@ class ArchConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     window: int = 0
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
     # citation of the source paper / model card for this config
@@ -72,8 +103,8 @@ class ArchConfig:
 
     def n_params(self) -> int:
         """Total backbone parameter count, the reference's analytic one
-        (embeddings, layers and final norm).  The MoE and frontend
-        families are not ported yet and raise."""
+        (embeddings, layers and final norm).  The frontend families are
+        not ported yet and raise."""
         if self.family not in _COUNTED_FAMILIES:
             raise NotImplementedError(
                 f"n_params of family {self.family!r} is not ported to "
@@ -91,22 +122,54 @@ class ArchConfig:
         if self.family == "ssm":
             per_layer = _ssm_layer_params(self)
         else:
-            per_layer = (_attn_params(self, self.resolved_head_dim)
-                         + 3 * d * self.d_ff + 2 * d)
+            attn = (_mla_params(self) if self.mla
+                    else _attn_params(self, self.resolved_head_dim))
+            if self.moe and self.moe.n_experts:
+                m = self.moe
+                moe_layers = self.n_layers - m.first_k_dense
+                ffn_moe = d * m.n_experts + (
+                    (m.n_experts + m.n_shared_experts) * 3 * d
+                    * m.expert_d_ff)
+                return (emb + self.n_layers * (attn + 2 * d)
+                        + moe_layers * ffn_moe
+                        + m.first_k_dense * 3 * d * self.d_ff + d)
+            per_layer = attn + 3 * d * self.d_ff + 2 * d
         return emb + self.n_layers * per_layer + d
 
     def n_active_params(self) -> int:
-        """Active params per token: all of them outside MoE."""
-        return self.n_params()
+        """Active params per token (MoE: only top_k + shared experts)."""
+        if not (self.moe and self.moe.n_experts):
+            return self.n_params()
+        d, m = self.d_model, self.moe
+        attn = (_mla_params(self) if self.mla
+                else _attn_params(self, self.resolved_head_dim))
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        moe_layers = self.n_layers - m.first_k_dense
+        active_ffn = ((m.top_k + m.n_shared_experts) * 3 * d * m.expert_d_ff
+                      + d * m.n_experts)
+        return (emb + self.n_layers * (attn + 2 * d)
+                + moe_layers * active_ffn
+                + m.first_k_dense * 3 * d * self.d_ff + d)
 
 
-_COUNTED_FAMILIES = ("dit", "dense", "ssm", "hybrid")
+_COUNTED_FAMILIES = ("dit", "dense", "moe", "ssm", "hybrid")
 
 
 def _attn_params(cfg: ArchConfig, hd: int) -> int:
     d = cfg.d_model
     return (d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
             + cfg.n_heads * hd * d)
+
+
+def _mla_params(cfg: ArchConfig) -> int:
+    m = cfg.mla
+    d = cfg.d_model
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return (d * m.q_lora_rank + m.q_lora_rank * cfg.n_heads * qk
+            + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+            + m.kv_lora_rank * cfg.n_heads * (m.qk_nope_head_dim
+                                              + m.v_head_dim)
+            + cfg.n_heads * m.v_head_dim * d)
 
 
 def _ssm_layer_params(cfg: ArchConfig) -> int:

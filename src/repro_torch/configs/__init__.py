@@ -2,8 +2,10 @@
 
 Each module exports ``config()`` (the full-scale config) and ``reduced()``
 (≤2 layers, CPU smoke scale).  The paper's own DiT family, the dense LM
-family, the Mamba-2 SSM and the Zamba2 hybrid are ported so far; the other
-archs of ``repro.configs`` come with their families.
+family, the MoE family (grok-1 and DeepSeek-V2 with its latent attention),
+the Mamba-2 SSM and the Zamba2 hybrid are ported so far; the frontend archs
+of ``repro.configs`` (``internvl2-1b``, ``musicgen-large``) come with their
+families.
 """
 from __future__ import annotations
 
@@ -13,8 +15,8 @@ from repro_torch import registry
 from repro_torch.config import ArchConfig
 
 # the reference's assigned archs whose family the port runs so far
-ARCH_IDS = ["yi-34b", "smollm-360m", "qwen3-32b", "yi-9b", "mamba2-370m",
-            "zamba2-2.7b"]
+ARCH_IDS = ["zamba2-2.7b", "grok-1-314b", "yi-34b", "deepseek-v2-236b",
+            "smollm-360m", "qwen3-32b", "yi-9b", "mamba2-370m"]
 
 PAPER_ARCHS = ["flux_dit"]
 

@@ -1,8 +1,8 @@
 """The kernel wrappers' launch counters, read and added to as one.
 
 Each wrapper adds one to its ``.launches`` (and the attention's and
-``ssd_scan``'s four to ``.variant_launches[variant]``) where it launches its
-kernel.  A kernel
+``ssd_scan``'s four to ``.variant_launches[variant]``, the attention's two
+to ``.pair_launches[dims]``) where it launches its kernel.  A kernel
 launched while a CUDA graph is being captured is only recorded, and runs
 each time the graph is replayed: ``perf.fused.FusedStep`` takes a capture's
 counts back out with :func:`add` (``times=-1``) and adds them again at
@@ -24,12 +24,14 @@ COUNTED = (sde_step, flash_attention, flash_attention_bwd, grpo_loss,
 
 def read() -> Dict[str, int]:
     """Every counter: ``name`` and, for a kernel with variants,
-    ``name/variant``."""
+    ``name/variant``; with dim pairs, ``name@dims``."""
     out = {}
     for fn in COUNTED:
         out[fn.__name__] = fn.launches
         for v, n in getattr(fn, "variant_launches", {}).items():
             out[f"{fn.__name__}/{v}"] = n
+        for pair, n in getattr(fn, "pair_launches", {}).items():
+            out[f"{fn.__name__}@{pair}"] = n
     return out
 
 
@@ -45,3 +47,6 @@ def add(delta: Dict[str, int], times: int = 1) -> None:
         variants = getattr(fn, "variant_launches", {})
         for v in variants:
             variants[v] += times * delta[f"{fn.__name__}/{v}"]
+        pairs = getattr(fn, "pair_launches", {})
+        for pair in pairs:
+            pairs[pair] += times * delta[f"{fn.__name__}@{pair}"]

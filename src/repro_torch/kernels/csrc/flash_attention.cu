@@ -3,7 +3,9 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:flash_attention
 // (body _attn_kernel): o = softmax(q k^T / sqrt(D) + mask) v with GQA (kv
 // head = h / (H/K)), optional causal and sliding-window masks, running max,
-// sum and accumulator in f32, output in q's dtype.
+// sum and accumulator in f32, output in q's dtype.  As in the TPU kernel the
+// value dim DV is free of the query/key dim D: q, k are (.., D), v and o
+// (.., DV), and the scale stays D^-1/2 (the wrapper passes it).
 //
 // Bound on the H100: operations.  At the DiT shape (S = 4608, D = 128) the
 // two products do 4 S^2 D flops per head against 4 S D elements moved, some
@@ -12,9 +14,16 @@
 // units at 16 a clock per SM, about half the products' time, so they have to
 // run under the products.
 //
-// Head dims 32, 64, 80 and 128.  At D = 80 (zamba2-2.7b's shared attention)
-// the bf16 kernel stores its tiles padded to 96 columns (hopper.cuh: three
-// 32-column blocks, TMA filling columns 80-95 with zeros): S = Q K^T runs the
+// (D, DV) pairs: (32, 32), (64, 64), (80, 80), (128, 128), and (192, 128),
+// DeepSeek-V2's latent attention (128 + 64 rope dims of query and key, 128
+// of value).  At (192, 128) S = Q K^T runs 12 k16 steps over three 64-column
+// blocks, O += P V runs at n = 128, and the ring holds 2 stages of K (48 KB)
+// and V (32 KB) beside Q (48 KB) where the equal dims hold 3: three would
+// take 288 KB of the 227 KB a block may have (FwdLayout::kStages).
+//
+// At D = 80 (zamba2-2.7b's shared attention) the bf16 kernel stores its
+// tiles padded to 96 columns (hopper.cuh: three 32-column blocks, TMA
+// filling columns 80-95 with zeros): S = Q K^T runs the
 // 5 real k16 steps, O += P V runs at n = 96 (a whole number of 32-column
 // swizzle atoms, which the MN-major descriptor needs) and the epilogue
 // stores columns < 80, so the tensor work is 1.2x the useful work.  The
@@ -75,12 +84,12 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
-template <int D>
+template <int D, int DV>
 constexpr int smem_floats() {
-  return D * kPitch + D * kPitch + kBK * D + kBK * kPitch;
+  return D * kPitch + D * kPitch + kBK * DV + kBK * kPitch;
 }
 
-template <typename T, int D, bool kLse>
+template <typename T, int D, int DV, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
@@ -88,12 +97,12 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
          long long qb, long long qs, long long qh, long long kb, long long ks,
          long long kh, long long vb, long long vs, long long vh, long long ob,
          long long os, long long oh, int causal, int window, float scale) {
-  constexpr int DC = D / 16;   // output columns per thread
+  constexpr int DC = DV / 16;  // output columns per thread
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);   // [D][kPitch]
   float* Kt = Qt + D * kPitch;                   // [D][kPitch]
-  float* Vs = Kt + D * kPitch;                   // [kBK][D]
-  float* Pt = Vs + kBK * D;                      // [kBK][kPitch]
+  float* Vs = Kt + D * kPitch;                   // [kBK][DV]
+  float* Pt = Vs + kBK * DV;                     // [kBK][kPitch]
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
@@ -129,10 +138,16 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
       float kv = 0.f, vv = 0.f;
       if (k0 + r < Sk) {
         kv = to_f32(kp[(k0 + r) * ks + d]);
-        vv = to_f32(vp[(k0 + r) * vs + d]);
+        if constexpr (D == DV) vv = to_f32(vp[(k0 + r) * vs + d]);
       }
       Kt[d * kPitch + r] = kv;
-      Vs[r * D + d] = vv;
+      if constexpr (D == DV) Vs[r * D + d] = vv;
+    }
+    if constexpr (D != DV) {
+      for (int i = tid; i < kBK * DV; i += kThreads) {
+        const int r = i / DV, d = i % DV;
+        Vs[r * DV + d] = k0 + r < Sk ? to_f32(vp[(k0 + r) * vs + d]) : 0.f;
+      }
     }
     __syncthreads();
 
@@ -197,7 +212,7 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
       const float pv[4] = {p.x, p.y, p.z, p.w};
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
-        const float vv = Vs[j * D + tx + 16 * c];
+        const float vv = Vs[j * DV + tx + 16 * c];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
       }
@@ -223,7 +238,8 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
 // A block of three warpgroups owns kWgBQ = 128 query rows of one (batch,
 // head).  Warpgroup 0 is the producer: after giving most of its registers
 // to the others (setmaxnreg), one thread TMA-loads the Q tile once and then
-// the K and V tiles of kWgBK = 128 keys into a ring of kStages = 3 stages.
+// the K and V tiles of kWgBK = 128 keys into a ring of kStages = 3 stages
+// (2 at D = 192, where 3 do not fit).
 // Each operand of a stage has a "full" barrier (the copy completes it) and
 // an "empty" one, on which the consumers' eight warps arrive: K's once S is
 // formed, V's once P V is, so the next K is loaded while V is still read.
@@ -233,15 +249,16 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
 // only, and runs the online softmax (base 2, the scale folded into one FMA
 // before each exponential, masks only on tiles that cross a boundary)
 // while P V runs; then it rescales O and rounds P to bf16 in place (an
-// m64nN accumulator is already the A-fragment layout).  At D = 128 and 64
-// the tiles use the 128-byte swizzle, at D = 32 and 80 the 64-byte one.  Nothing
+// m64nN accumulator is already the A-fragment layout).  At D = 128, 64 and
+// 192 the tiles use the 128-byte swizzle, at D = 32 and 80 the 64-byte one;
+// V's tiles are laid out for DV, Q's and K's for D.  Nothing
 // orders the two consumers: making them take turns (the FA3 ping-pong) or
 // starting one half a tile late measured slower on the H100.
 // ---------------------------------------------------------------------------
 constexpr int kWgThreads = 384;
 constexpr int kWgBQ = 128;   // query rows of a block, 64 a consumer
 constexpr int kWgBK = 128;   // keys of a ring stage
-constexpr int kStages = 3;
+constexpr int kSmemMax = 232448;   // dynamic shared memory a block may have
 
 struct FwdParams {
   CUtensorMap tq, tk, tv;   // (D, heads, S, B) views, 64-row boxes
@@ -252,20 +269,30 @@ struct FwdParams {
   float scale_log2;
 };
 
-template <int D>
-struct FwdLayout {
+// Q, then the K ring and the V ring, then the barriers; 3 stages where they
+// fit, else 2
+template <int D, int DV, int kS = 3>
+struct FwdLayoutS {
   using QT = hopper::Tile<D, kWgBQ>;
   using KT = hopper::Tile<D, kWgBK>;
+  using VT = hopper::Tile<DV, kWgBK>;
+  static constexpr int kStages = kS;
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + QT::kBytes;
   static constexpr int kV = kK + kStages * KT::kBytes;
-  static constexpr int kBar = kV + kStages * KT::kBytes;
+  static constexpr int kBar = kV + kStages * VT::kBytes;
   static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages) + 1024;
 };
 
-template <int D, bool kLse>
+template <int D, int DV>
+using FwdLayout = FwdLayoutS<D, DV,
+                             FwdLayoutS<D, DV, 3>::kBytes <= kSmemMax ? 3 : 2>;
+
+template <int D, int DV, bool kLse>
 __device__ __forceinline__ void attn_fwd_wgmma_body(const FwdParams& p) {
-  using L = FwdLayout<D>;
+  using L = FwdLayout<D, DV>;
+  constexpr int kStages = L::kStages;
+  static_assert(L::kBytes <= kSmemMax, "the ring does not fit");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   uint64_t* full_q = reinterpret_cast<uint64_t*>(sm + L::kBar);
@@ -305,13 +332,13 @@ __device__ __forceinline__ void attn_fwd_wgmma_body(const FwdParams& p) {
       uint32_t phase = 0;
       for (int t = t0; t < t1; ++t) {
         unsigned char* kt = sm + L::kK + stage * L::KT::kBytes;
-        unsigned char* vt = sm + L::kV + stage * L::KT::kBytes;
+        unsigned char* vt = sm + L::kV + stage * L::VT::kBytes;
         hopper::mbar_wait(&empty_k[stage], phase ^ 1);
         hopper::mbar_expect_tx(&full_k[stage], L::KT::kBytes);
         hopper::load_tile<D, kWgBK>(kt, &p.tk, &full_k[stage], kvh, t * kWgBK, b);
         hopper::mbar_wait(&empty_v[stage], phase ^ 1);
-        hopper::mbar_expect_tx(&full_v[stage], L::KT::kBytes);
-        hopper::load_tile<D, kWgBK>(vt, &p.tv, &full_v[stage], kvh, t * kWgBK, b);
+        hopper::mbar_expect_tx(&full_v[stage], L::VT::kBytes);
+        hopper::load_tile<DV, kWgBK>(vt, &p.tv, &full_v[stage], kvh, t * kWgBK, b);
         if (++stage == kStages) { stage = 0; phase ^= 1; }
       }
     }
@@ -319,7 +346,7 @@ __device__ __forceinline__ void attn_fwd_wgmma_body(const FwdParams& p) {
   }
   hopper::setmaxnreg_inc<240>();
 
-  constexpr int NO = L::QT::DP / 2;  // output accumulator registers
+  constexpr int NO = L::VT::DP / 2;  // output accumulator registers
   constexpr int NS = kWgBK / 2;      // score accumulator registers
   const int tid = threadIdx.x & 127, w = wg - 1;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tg = lane & 3;
@@ -351,10 +378,10 @@ __device__ __forceinline__ void attn_fwd_wgmma_body(const FwdParams& p) {
                        hopper::desc_k<D, kWgBK>(kt, 0, kc), kc > 0);
     hopper::wgmma_commit();
     if (t > t0) {
-      const unsigned char* vt = sm + L::kV + prev * L::KT::kBytes;
+      const unsigned char* vt = sm + L::kV + prev * L::VT::kBytes;
 #pragma unroll
       for (int kk = 0; kk < kWgBK / 16; ++kk)
-        hopper::wgmma_rs_tb(o, pa[kk], hopper::desc_mn<D, kWgBK>(vt, kk),
+        hopper::wgmma_rs_tb(o, pa[kk], hopper::desc_mn<DV, kWgBK>(vt, kk),
                             t - 1 > t0 || kk > 0);
       hopper::wgmma_commit();
     }
@@ -433,13 +460,13 @@ __device__ __forceinline__ void attn_fwd_wgmma_body(const FwdParams& p) {
     if (++stage == kStages) { stage = 0; phase ^= 1; }
   }
   {   // the last tile's O += P V
-    const unsigned char* vt = sm + L::kV + prev * L::KT::kBytes;
+    const unsigned char* vt = sm + L::kV + prev * L::VT::kBytes;
     hopper::mbar_wait(&full_v[prev], prev_phase);
     hopper::fence_regs(o);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kWgBK / 16; ++kk)
-      hopper::wgmma_rs_tb(o, pa[kk], hopper::desc_mn<D, kWgBK>(vt, kk),
+      hopper::wgmma_rs_tb(o, pa[kk], hopper::desc_mn<DV, kWgBK>(vt, kk),
                           t1 - 1 > t0 || kk > 0);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -460,7 +487,7 @@ __device__ __forceinline__ void attn_fwd_wgmma_body(const FwdParams& p) {
   }
   __nv_bfloat16* op = p.o + b * p.ob + h * p.oh;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {   // the D real columns, not the padding
+  for (int j = 0; j < DV / 8; ++j) {   // the DV real columns, not the padding
     const int c = j * 8 + tg * 2;
     if (row0 < p.Sq)
       *reinterpret_cast<uint32_t*>(op + row0 * p.os + c) =
@@ -473,19 +500,19 @@ __device__ __forceinline__ void attn_fwd_wgmma_body(const FwdParams& p) {
 
 // One kernel per variant, so that the serving path's carries no LSE code;
 // both run the same body, so o is bitwise the same.
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kWgThreads, 1)
 attn_fwd_wgmma(const __grid_constant__ FwdParams p) {
-  attn_fwd_wgmma_body<D, false>(p);
+  attn_fwd_wgmma_body<D, DV, false>(p);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kWgThreads, 1)
 attn_fwd_wgmma_lse(const __grid_constant__ FwdParams p) {
-  attn_fwd_wgmma_body<D, true>(p);
+  attn_fwd_wgmma_body<D, DV, true>(p);
 }
 
-template <int D>
+template <int D, int DV>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  float* lse, int B, int Sq, int Sk, int H, int K,
                  const long long* st, int causal, int window, float scale,
@@ -495,7 +522,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   if (cr == CUDA_SUCCESS)
     cr = encode_bshd(&p.tk, k, D, K, Sk, B, st[3], st[4], st[5]);
   if (cr == CUDA_SUCCESS)
-    cr = encode_bshd(&p.tv, v, D, K, Sk, B, st[6], st[7], st[8]);
+    cr = encode_bshd(&p.tv, v, DV, K, Sk, B, st[6], st[7], st[8]);
   if (cr != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
   p.o = static_cast<__nv_bfloat16*>(o);
   p.lse = lse;
@@ -503,8 +530,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   p.Sq = Sq; p.Sk = Sk; p.H = H; p.G = H / K;
   p.causal = causal; p.window = window;
   p.scale_log2 = scale * 1.4426950408889634f;
-  auto kernel = lse ? attn_fwd_wgmma_lse<D> : attn_fwd_wgmma<D>;
-  constexpr int smem = FwdLayout<D>::kBytes;
+  auto kernel = lse ? attn_fwd_wgmma_lse<D, DV> : attn_fwd_wgmma<D, DV>;
+  constexpr int smem = FwdLayout<D, DV>::kBytes;
   static bool sized[2] = {false, false};
   const int rc = size_once(kernel, smem, &sized[lse != nullptr]);
   if (rc) return rc;
@@ -524,12 +551,12 @@ bool mma_aligned(const void* q, const void* k, const void* v, const void* o,
   return true;
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int Sq, int Sk, int H, int K, const long long* st,
            int causal, int window, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<D>();
-  auto kernel = lse ? attn_fwd<T, D, true> : attn_fwd<T, D, false>;
+  const size_t smem = sizeof(float) * smem_floats<D, DV>();
+  auto kernel = lse ? attn_fwd<T, D, DV, true> : attn_fwd<T, D, DV, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -544,20 +571,21 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
-             int B, int Sq, int Sk, int H, int K, int D, const long long* st,
-             int causal, int window, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, stream);
-    case 80: return launch<T, 80>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+             int B, int Sq, int Sk, int H, int K, int D, int DV,
+             const long long* st, int causal, int window, float scale,
+             cudaStream_t stream) {
+#define FA_FMA(d, dv) \
+  if (D == d && DV == dv) \
+    return launch<T, d, dv>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, stream);
+  FA_FMA(32, 32) FA_FMA(64, 64) FA_FMA(80, 80) FA_FMA(128, 128) FA_FMA(192, 128)
+#undef FA_FMA
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  Strides are in
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  q and k are
+// (.., D), v and o (.., Dv), (D, Dv) one of the pairs above.  Strides are in
 // elements, in the order q (batch, seq, head), k (...), v (...), o (...); the
 // D axis is contiguous.  lse is null or a contiguous (B, H, Sq) float32
 // array that receives each row's log-sum-exp of the scaled, masked scores
@@ -567,7 +595,7 @@ int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse_out,
     int dtype, int B,
-    int Sq, int Sk, int H, int K, int D, long long qb, long long qs,
+    int Sq, int Sk, int H, int K, int D, int Dv, long long qb, long long qs,
     long long qh, long long kb, long long ks, long long kh, long long vb,
     long long vs, long long vh, long long ob, long long os, long long oh,
     int causal, int window, float scale, void* stream) {
@@ -576,16 +604,15 @@ extern "C" int flash_attention_fwd(
   float* lse = static_cast<float*>(lse_out);
   if (K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_d<float>(q, k, v, o, lse, B, Sq, Sk, H, K, D, st, causal, window, scale, s);
+    return launch_d<float>(q, k, v, o, lse, B, Sq, Sk, H, K, D, Dv, st, causal, window, scale, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (mma_aligned(q, k, v, o, st)) {
-    switch (D) {
-      case 32: return launch_wgmma<32>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, s);
-      case 64: return launch_wgmma<64>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, s);
-      case 80: return launch_wgmma<80>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, s);
-      case 128: return launch_wgmma<128>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, s);
-      default: return (int)cudaErrorInvalidValue;
-    }
+#define FA_WG(d, dv) \
+    if (D == d && Dv == dv) \
+      return launch_wgmma<d, dv>(q, k, v, o, lse, B, Sq, Sk, H, K, st, causal, window, scale, s);
+    FA_WG(32, 32) FA_WG(64, 64) FA_WG(80, 80) FA_WG(128, 128) FA_WG(192, 128)
+#undef FA_WG
+    return (int)cudaErrorInvalidValue;
   }
-  return launch_d<__nv_bfloat16>(q, k, v, o, lse, B, Sq, Sk, H, K, D, st, causal, window, scale, s);
+  return launch_d<__nv_bfloat16>(q, k, v, o, lse, B, Sq, Sk, H, K, D, Dv, st, causal, window, scale, s);
 }

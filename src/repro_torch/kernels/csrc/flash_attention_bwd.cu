@@ -1,6 +1,7 @@
 // Blocked attention, backward: dq, dk, dv of o = softmax(q k^T / sqrt(D) +
 // mask) v under the forward's masks (causal, sliding window, ragged tails)
-// and GQA, with dk and dv summed over the query heads of each kv head.
+// and GQA, with dk and dv summed over the query heads of each kv head.  q,
+// k, dq, dk are (.., D); v, o, dout, dv (.., DV), as in the forward.
 //
 // The TPU package has no Pallas counterpart: its model calls the jnp
 // attention_chunked (src/repro/models/attention.py:71) and JAX differentiates
@@ -34,7 +35,18 @@
 // pass keeps the determinism of one owner per output with no inter-block
 // waits, for 40 % more tensor work.
 //
-// Head dims 32, 64, 80 and 128.  At D = 80 the bf16 kernels store tiles
+// (D, DV) pairs: (32, 32), (64, 64), (80, 80), (128, 128) and (192, 128)
+// (DeepSeek-V2's latent attention).  At (192, 128) the rings hold 3 stages
+// where the equal dims hold 4 (DkdvLayout, DqLayout: 4 would take 244 and 240
+// KB of the 227 KB a block may have), and the dK/dV pass runs as two
+// kernels over the same key tiles (kPart below): dK at 64 keys x 192 columns
+// is 96 f32 registers a thread and dV 64 more, which with S^T, dP^T and
+// their bf16 copies (96) passes the 240 a consumer thread may hold.  The
+// first kernel accumulates dV and dK's columns 0-63, the second dK's columns
+// 64-191; each recomputes S^T and dP^T, so the pass does 1.5 times the
+// tensor work of one kernel.  The dQ product runs at n = 192.
+//
+// At D = 80 the bf16 kernels store tiles
 // padded to 96 columns (hopper.cuh), reduce over D in its 5 real k16 steps
 // (S^T, dP^T, S, dP), run the products whose N is D (dV, dK, dQ) at n = 96
 // and store columns < 80, as the forward does.
@@ -140,14 +152,16 @@ constexpr int kT = 64;
 constexpr int kPitch = 68;
 constexpr int kThreads = 256;
 
-template <int D>
-constexpr int dkdv_fma_floats() { return 4 * D * kPitch + 2 * kT * kPitch + 2 * kT; }
-template <int D>
-constexpr int dq_fma_floats() { return 4 * D * kPitch + kT * kPitch + 2 * kT; }
+template <int D, int DV>
+constexpr int dkdv_fma_floats() {
+  return 2 * (D + DV) * kPitch + 2 * kT * kPitch + 2 * kT;
+}
+template <int D, int DV>
+constexpr int dq_fma_floats() { return 2 * (D + DV) * kPitch + kT * kPitch + 2 * kT; }
 
 // S and dP micro-tiles: rows ty*4+i of A/G (queries), columns tx*4+j of
-// B/V (keys), from transposed tiles
-template <int D>
+// B/V (keys), from transposed tiles (A, B of D rows; G, V of DV)
+template <int D, int DV>
 __device__ __forceinline__ void micro_tiles(const float* At, const float* Bt,
                                             const float* Gt, const float* Vt,
                                             int ty, int tx, float (&s)[4][4],
@@ -156,8 +170,9 @@ __device__ __forceinline__ void micro_tiles(const float* At, const float* Bt,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+  constexpr int DM = D < DV ? D : DV;
 #pragma unroll 4
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < DM; ++d) {
     const float4 qa = *reinterpret_cast<const float4*>(&At[d * kPitch + ty * 4]);
     const float4 kb = *reinterpret_cast<const float4*>(&Bt[d * kPitch + tx * 4]);
     const float4 ga = *reinterpret_cast<const float4*>(&Gt[d * kPitch + ty * 4]);
@@ -172,6 +187,27 @@ __device__ __forceinline__ void micro_tiles(const float* At, const float* Bt,
         dp[i][j] = fmaf(g4[i], v4[j], dp[i][j]);
       }
   }
+  // the rest of the wider of the two reductions (none at equal dims)
+#pragma unroll 4
+  for (int d = DM; d < D; ++d) {
+    const float4 qa = *reinterpret_cast<const float4*>(&At[d * kPitch + ty * 4]);
+    const float4 kb = *reinterpret_cast<const float4*>(&Bt[d * kPitch + tx * 4]);
+    const float q4[4] = {qa.x, qa.y, qa.z, qa.w}, k4[4] = {kb.x, kb.y, kb.z, kb.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(q4[i], k4[j], s[i][j]);
+  }
+#pragma unroll 4
+  for (int d = DM; d < DV; ++d) {
+    const float4 ga = *reinterpret_cast<const float4*>(&Gt[d * kPitch + ty * 4]);
+    const float4 vb = *reinterpret_cast<const float4*>(&Vt[d * kPitch + tx * 4]);
+    const float g4[4] = {ga.x, ga.y, ga.z, ga.w}, v4[4] = {vb.x, vb.y, vb.z, vb.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(g4[i], v4[j], dp[i][j]);
+  }
 }
 
 // rows [r0, r0 + kT) of a (B, S, heads, D) tensor into a transposed tile,
@@ -185,15 +221,15 @@ __device__ __forceinline__ void load_t(float* dst, const T* src, long long rs,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads) bwd_dkdv_fma(Args a) {
-  constexpr int DC = D / 4;
+  constexpr int DC = D / 4, DCV = DV / 4;
   extern __shared__ float4 smem4[];
   float* Kt = reinterpret_cast<float*>(smem4);   // [D][kPitch] keys
-  float* Vt = Kt + D * kPitch;
-  float* Qt = Vt + D * kPitch;                   // [D][kPitch] queries
-  float* Gt = Qt + D * kPitch;                   // dO
-  float* Ps = Gt + D * kPitch;                   // [query][kPitch]
+  float* Vt = Kt + D * kPitch;                   // [DV][kPitch]
+  float* Qt = Vt + DV * kPitch;                  // [D][kPitch] queries
+  float* Gt = Qt + D * kPitch;                   // dO, [DV][kPitch]
+  float* Ps = Gt + DV * kPitch;                  // [query][kPitch]
   float* Ss = Ps + kT * kPitch;                  // dS, [query][kPitch]
   float* Ls = Ss + kT * kPitch;                  // lse of the tile's queries
   float* Ds = Ls + kT;                           // delta
@@ -203,12 +239,14 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_fma(Args a) {
   const int k0 = blockIdx.x * kT, kvh = blockIdx.y, b = blockIdx.z;
   load_t<T, D>(Kt, static_cast<const T*>(a.k) + b * a.sk.b + kvh * a.sk.h,
                a.sk.s, k0, a.Sk);
-  load_t<T, D>(Vt, static_cast<const T*>(a.v) + b * a.sv.b + kvh * a.sv.h,
-               a.sv.s, k0, a.Sk);
+  load_t<T, DV>(Vt, static_cast<const T*>(a.v) + b * a.sv.b + kvh * a.sv.h,
+                a.sv.s, k0, a.Sk);
 
-  float dk[DC], dv[DC];
+  float dk[DC], dv[DCV];
 #pragma unroll
-  for (int c = 0; c < DC; ++c) dk[c] = dv[c] = 0.f;
+  for (int c = 0; c < DC; ++c) dk[c] = 0.f;
+#pragma unroll
+  for (int c = 0; c < DCV; ++c) dv[c] = 0.f;
 
   for (int g = 0; g < a.G; ++g) {
     const int h = kvh * a.G + g;
@@ -220,7 +258,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_fma(Args a) {
       if (!tiles_meet(q0, q0 + kT - 1, k0, k0 + kT - 1, a)) continue;
       __syncthreads();   // K/V stored; the previous tile's readers done
       load_t<T, D>(Qt, qp, a.sq.s, q0, a.Sq);
-      load_t<T, D>(Gt, gp, a.sdo.s, q0, a.Sq);
+      load_t<T, DV>(Gt, gp, a.sdo.s, q0, a.Sq);
       if (tid < kT) {
         const bool in = q0 + tid < a.Sq;
         Ls[tid] = in ? lp[q0 + tid] : 0.f;
@@ -228,7 +266,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_fma(Args a) {
       }
       __syncthreads();
       float s[4][4], dp[4][4];
-      micro_tiles<D>(Qt, Kt, Gt, Vt, ty, tx, s, dp);
+      micro_tiles<D, DV>(Qt, Kt, Gt, Vt, ty, tx, s, dp);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = ty * 4 + i;
@@ -250,11 +288,11 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_fma(Args a) {
       for (int i = 0; i < kT; ++i) {
         const float p = Ps[i * kPitch + jr], ds = Ss[i * kPitch + jr];
 #pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const int d = cg + 4 * c;
-          dv[c] = fmaf(p, Gt[d * kPitch + i], dv[c]);
-          dk[c] = fmaf(ds, Qt[d * kPitch + i], dk[c]);
-        }
+        for (int c = 0; c < DCV; ++c)
+          dv[c] = fmaf(p, Gt[(cg + 4 * c) * kPitch + i], dv[c]);
+#pragma unroll
+        for (int c = 0; c < DC; ++c)
+          dk[c] = fmaf(ds, Qt[(cg + 4 * c) * kPitch + i], dk[c]);
       }
     }
   }
@@ -262,22 +300,21 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_fma(Args a) {
     T* dkp = static_cast<T*>(a.dk) + b * a.sdk.b + (k0 + jr) * a.sdk.s + kvh * a.sdk.h;
     T* dvp = static_cast<T*>(a.dv) + b * a.sdv.b + (k0 + jr) * a.sdv.s + kvh * a.sdv.h;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      dkp[cg + 4 * c] = from_f32<T>(dk[c] * a.scale);
-      dvp[cg + 4 * c] = from_f32<T>(dv[c]);
-    }
+    for (int c = 0; c < DC; ++c) dkp[cg + 4 * c] = from_f32<T>(dk[c] * a.scale);
+#pragma unroll
+    for (int c = 0; c < DCV; ++c) dvp[cg + 4 * c] = from_f32<T>(dv[c]);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads) bwd_dq_fma(Args a) {
   constexpr int DC = D / 4;
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);   // [D][kPitch] queries
-  float* Gt = Qt + D * kPitch;                   // dO
-  float* Kt = Gt + D * kPitch;                   // [D][kPitch] keys
-  float* Vt = Kt + D * kPitch;
-  float* Ss = Vt + D * kPitch;                   // dS, [query][kPitch]
+  float* Gt = Qt + D * kPitch;                   // dO, [DV][kPitch]
+  float* Kt = Gt + DV * kPitch;                  // [D][kPitch] keys
+  float* Vt = Kt + D * kPitch;                   // [DV][kPitch]
+  float* Ss = Vt + DV * kPitch;                  // dS, [query][kPitch]
   float* Ls = Ss + kT * kPitch;
   float* Ds = Ls + kT;
 
@@ -287,8 +324,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_fma(Args a) {
   const int kvh = h / a.G;
   load_t<T, D>(Qt, static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h,
                a.sq.s, q0, a.Sq);
-  load_t<T, D>(Gt, static_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h,
-               a.sdo.s, q0, a.Sq);
+  load_t<T, DV>(Gt, static_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h,
+                a.sdo.s, q0, a.Sq);
   if (tid < kT) {
     const bool in = q0 + tid < a.Sq;
     const long long base = ((long long)b * a.H + h) * a.Sp + q0 + tid;
@@ -306,10 +343,10 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_fma(Args a) {
     if (!tiles_meet(q0, q0 + kT - 1, k0, k0 + kT - 1, a)) continue;
     __syncthreads();   // Q/dO stored; the previous tile's readers done
     load_t<T, D>(Kt, kp, a.sk.s, k0, a.Sk);
-    load_t<T, D>(Vt, vp, a.sv.s, k0, a.Sk);
+    load_t<T, DV>(Vt, vp, a.sv.s, k0, a.Sk);
     __syncthreads();
     float s[4][4], dp[4][4];
-    micro_tiles<D>(Qt, Kt, Gt, Vt, ty, tx, s, dp);
+    micro_tiles<D, DV>(Qt, Kt, Gt, Vt, ty, tx, s, dp);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty * 4 + i;
@@ -344,7 +381,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_fma(Args a) {
 //
 // Both kernels run three warpgroups: warpgroup 0 gives most of its registers
 // away (setmaxnreg) and one of its threads TMA-loads tiles into a ring of
-// kStages = 4 stages (a "full" barrier each, completed by the copies, and an
+// kStages = 4 stages (3 at D = 192; a "full" barrier each, completed by the
+// copies, and an
 // "empty" one, on which the consumers' eight warps arrive); warpgroups 1 and
 // 2 compute, 64 rows each.  Tiles are 64-row TMA boxes laid out for wgmma
 // (hopper.cuh): the 128-byte swizzle at D = 128 and 64, the 64-byte one at
@@ -370,7 +408,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_fma(Args a) {
 // dQ += dS K with K read MN-major, released likewise one tile later.
 // ---------------------------------------------------------------------------
 constexpr int kWgThreads = 384;
-constexpr int kStages = 4;
+constexpr int kSmemMax = 232448;   // dynamic shared memory a block may have
 constexpr int kKeyTile = 128;  // dK/dV block: keys, 64 a consumer
 constexpr int kQStep = 64;     // dK/dV ring stage: queries
 constexpr int kQTile = 128;    // dQ block: queries, 64 a consumer
@@ -394,26 +432,52 @@ __device__ __forceinline__ bool tiles_full(int q0, int q1, int k0, int k1,
   return true;
 }
 
-template <int D>
-struct DkdvLayout {
+// K and V resident, then the ring of (Q, dO, LSE, delta) stages, then the
+// barriers; 4 stages where they fit, else 3
+template <int D, int DV, int kS>
+struct DkdvLayoutS {
   using KT = hopper::Tile<D, kKeyTile>;
+  using VT = hopper::Tile<DV, kKeyTile>;
   using QT = hopper::Tile<D, kQStep>;
+  using OT = hopper::Tile<DV, kQStep>;
+  static constexpr int kStages = kS;
   static constexpr int kK = 0;
   static constexpr int kV = KT::kBytes;
-  static constexpr int kRing = 2 * KT::kBytes;
+  static constexpr int kRing = KT::kBytes + VT::kBytes;
   static constexpr int kDo = QT::kBytes;            // within a stage
-  static constexpr int kLse = 2 * QT::kBytes;
+  static constexpr int kLse = QT::kBytes + OT::kBytes;
   static constexpr int kDelta = kLse + 512;
   static constexpr int kStage = kLse + 1024;
-  static constexpr int kStageTx = 2 * QT::kBytes + 2 * kQStep * 4;
+  static constexpr int kStageTx = QT::kBytes + OT::kBytes + 2 * kQStep * 4;
   static constexpr int kBar = kRing + kStages * kStage;
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
 
-template <int D>
+template <int D, int DV>
+using DkdvLayout = DkdvLayoutS<D, DV,
+                               DkdvLayoutS<D, DV, 4>::kBytes <= kSmemMax ? 4 : 3>;
+
+// Which accumulators a dK/dV kernel keeps: kPart 0 all of dK and dV (the
+// equal dims), 1 dV and dK's first 64 columns, 2 dK's columns from 64 on
+// (the two kernels of a split pass, module comment).
+template <int D, int DV>
+constexpr bool dkdv_split() { return D != DV; }
+
+template <int D, int DV, int kPart>
+struct DkdvPart {
+  static constexpr int DP = hopper::Tile<D, kQStep>::DP;
+  static constexpr bool kDv = kPart != 2;
+  static constexpr int kC0 = kPart == 2 ? 64 : 0;      // dK's first column
+  static constexpr int kN = kPart == 0 ? DP : kPart == 1 ? 64 : DP - 64;
+};
+
+template <int D, int DV, int kPart>
 __global__ void __launch_bounds__(kWgThreads, 1)
 bwd_dkdv_wgmma(const __grid_constant__ BwdParams p) {
-  using L = DkdvLayout<D>;
+  using L = DkdvLayout<D, DV>;
+  using Part = DkdvPart<D, DV, kPart>;
+  constexpr int kStages = L::kStages;
+  static_assert(L::kBytes <= kSmemMax, "the ring does not fit");
   const Args& a = p.a;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
@@ -437,9 +501,9 @@ bwd_dkdv_wgmma(const __grid_constant__ BwdParams p) {
   if (wg == 0) {
     hopper::setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
-      hopper::mbar_expect_tx(full_kv, 2 * L::KT::kBytes);
+      hopper::mbar_expect_tx(full_kv, L::KT::kBytes + L::VT::kBytes);
       hopper::load_tile<D, kKeyTile>(sm + L::kK, &p.tk, full_kv, kvh, k0, b);
-      hopper::load_tile<D, kKeyTile>(sm + L::kV, &p.tv, full_kv, kvh, k0, b);
+      hopper::load_tile<DV, kKeyTile>(sm + L::kV, &p.tv, full_kv, kvh, k0, b);
       int stage = 0;
       uint32_t phase = 0;
       for (int gh = 0; gh < a.G; ++gh) {
@@ -453,8 +517,8 @@ bwd_dkdv_wgmma(const __grid_constant__ BwdParams p) {
           unsigned char* st = sm + L::kRing + stage * L::kStage;
           hopper::mbar_expect_tx(&full[stage], L::kStageTx);
           hopper::load_tile<D, kQStep>(st, &p.tq, &full[stage], h, q0, b);
-          hopper::load_tile<D, kQStep>(st + L::kDo, &p.tdo, &full[stage], h,
-                                       q0, b);
+          hopper::load_tile<DV, kQStep>(st + L::kDo, &p.tdo, &full[stage], h,
+                                        q0, b);
           hopper::tma_load_1d(st + L::kLse, &p.tlse, &full[stage], row + q0);
           hopper::tma_load_1d(st + L::kDelta, &p.tdelta, &full[stage],
                               row + q0);
@@ -466,14 +530,15 @@ bwd_dkdv_wgmma(const __grid_constant__ BwdParams p) {
   }
   hopper::setmaxnreg_inc<240>();
 
-  constexpr int NA = L::KT::DP / 2;  // dK / dV accumulator registers
-  constexpr int NS = kQStep / 2;     // S^T / dP^T accumulator registers
+  constexpr int NK = Part::kN / 2;    // dK accumulator registers
+  constexpr int NV = Part::kDv ? L::VT::DP / 2 : 1;   // dV's
+  constexpr int NS = kQStep / 2;      // S^T / dP^T accumulator registers
   const int tid = threadIdx.x & 127, w = wg - 1;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tg = lane & 3;
   const int kw = k0 + 64 * w;                   // this warpgroup's first key
   const int kpos0 = kw + warp * 16 + g, kpos1 = kpos0 + 8;
 
-  float dk[NA], dv[NA];   // first written by the first tile's products
+  float dk[NK], dv[NV];   // first written by the first tile's products
 
   hopper::mbar_wait(full_kv, 0);
   int stage = 0, prev = -1;   // prev: the stage whose dV, dK are in flight
@@ -496,11 +561,11 @@ bwd_dkdv_wgmma(const __grid_constant__ BwdParams p) {
                          hopper::desc_k<D, kQStep>(st, 0, kc), kc > 0);
       hopper::wgmma_commit();
 #pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc)
-        hopper::wgmma_ss(dp, hopper::desc_k<D, kKeyTile>(sm + L::kV, 64 * w, kc),
-                         hopper::desc_k<D, kQStep>(st + L::kDo, 0, kc), kc > 0);
+      for (int kc = 0; kc < DV / 16; ++kc)
+        hopper::wgmma_ss(dp, hopper::desc_k<DV, kKeyTile>(sm + L::kV, 64 * w, kc),
+                         hopper::desc_k<DV, kQStep>(st + L::kDo, 0, kc), kc > 0);
       hopper::wgmma_commit();
-      if (prev >= 0) {   // the previous tile's dV and dK are done
+      if (prev >= 0) {   // the previous tile's dV and dK (or dK) are done
         hopper::wgmma_wait<2>();
         __syncwarp();
         if (lane == 0) hopper::mbar_arrive(&empty[prev]);
@@ -526,17 +591,21 @@ bwd_dkdv_wgmma(const __grid_constant__ BwdParams p) {
             if (!visible(q0 + j * 8 + tg * 2 + (c & 1), c < 2 ? kpos0 : kpos1, a))
               s[4 * j + c] = 0.f;
       }
+      if constexpr (Part::kDv) {
 #pragma unroll
-      for (int kk = 0; kk < kQStep / 16; ++kk) hopper::acc_to_a(pa[kk], s, kk);
-      hopper::wgmma_fence();
+        for (int kk = 0; kk < kQStep / 16; ++kk) hopper::acc_to_a(pa[kk], s, kk);
+        hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kQStep / 16; ++kk)
-        hopper::wgmma_rs_tb(dv, pa[kk], hopper::desc_mn<D, kQStep>(st + L::kDo, kk),
-                            prev >= 0 || kk > 0);
-      hopper::wgmma_commit();
-
-      // dS^T = P^T (dP^T - delta) while dV accumulates
-      hopper::wgmma_wait<1>();
+        for (int kk = 0; kk < kQStep / 16; ++kk)
+          hopper::wgmma_rs_tb(dv, pa[kk],
+                              hopper::desc_mn<DV, kQStep>(st + L::kDo, kk),
+                              prev >= 0 || kk > 0);
+        hopper::wgmma_commit();
+        // dS^T = P^T (dP^T - delta) while dV accumulates
+        hopper::wgmma_wait<1>();
+      } else {
+        hopper::wgmma_wait<0>();
+      }
       hopper::fence_regs(dp);
 #pragma unroll
       for (int j = 0; j < NS / 4; ++j) {
@@ -549,9 +618,11 @@ bwd_dkdv_wgmma(const __grid_constant__ BwdParams p) {
 #pragma unroll
       for (int kk = 0; kk < kQStep / 16; ++kk) hopper::acc_to_a(sa[kk], dp, kk);
       hopper::wgmma_fence();
+      // dK's columns [kC0, kC0 + kN): Q from its column block kC0 / 64
+      const unsigned char* qc = st + (Part::kC0 / L::QT::W) * L::QT::kBlock;
 #pragma unroll
       for (int kk = 0; kk < kQStep / 16; ++kk)
-        hopper::wgmma_rs_tb(dk, sa[kk], hopper::desc_mn<D, kQStep>(st, kk),
+        hopper::wgmma_rs_tb(dk, sa[kk], hopper::desc_mn<D, kQStep>(qc, kk),
                             prev >= 0 || kk > 0);
       hopper::wgmma_commit();
       prev = stage;
@@ -563,45 +634,66 @@ bwd_dkdv_wgmma(const __grid_constant__ BwdParams p) {
   hopper::fence_regs(dk);
   if (prev < 0) {   // no query sees these keys
 #pragma unroll
-    for (int i = 0; i < NA; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < NK; ++i) dk[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) dv[i] = 0.f;
   }
 
   bf16* dkp = static_cast<bf16*>(a.dk) + b * a.sdk.b + kvh * a.sdk.h;
   bf16* dvp = static_cast<bf16*>(a.dv) + b * a.sdv.b + kvh * a.sdv.h;
+  // dK's real columns of this part, not the padding
+  constexpr int kKCols = (D - Part::kC0 < Part::kN ? D - Part::kC0 : Part::kN);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {   // the D real columns, not the padding
-    const int c = j * 8 + tg * 2;
-    if (kpos0 < a.Sk) {
+  for (int j = 0; j < kKCols / 8; ++j) {
+    const int c = Part::kC0 + j * 8 + tg * 2;
+    if (kpos0 < a.Sk)
       *reinterpret_cast<uint32_t*>(dkp + kpos0 * a.sdk.s + c) =
           hopper::pack_bf16(dk[4 * j] * a.scale, dk[4 * j + 1] * a.scale);
-      *reinterpret_cast<uint32_t*>(dvp + kpos0 * a.sdv.s + c) =
-          hopper::pack_bf16(dv[4 * j], dv[4 * j + 1]);
-    }
-    if (kpos1 < a.Sk) {
+    if (kpos1 < a.Sk)
       *reinterpret_cast<uint32_t*>(dkp + kpos1 * a.sdk.s + c) =
           hopper::pack_bf16(dk[4 * j + 2] * a.scale, dk[4 * j + 3] * a.scale);
-      *reinterpret_cast<uint32_t*>(dvp + kpos1 * a.sdv.s + c) =
-          hopper::pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
+  }
+  if constexpr (Part::kDv) {
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j) {   // the DV real columns
+      const int c = j * 8 + tg * 2;
+      if (kpos0 < a.Sk)
+        *reinterpret_cast<uint32_t*>(dvp + kpos0 * a.sdv.s + c) =
+            hopper::pack_bf16(dv[4 * j], dv[4 * j + 1]);
+      if (kpos1 < a.Sk)
+        *reinterpret_cast<uint32_t*>(dvp + kpos1 * a.sdv.s + c) =
+            hopper::pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
     }
   }
 }
 
-template <int D>
-struct DqLayout {
+// Q and dO resident, then the ring of (K, V) stages, then the barriers; 4
+// stages where they fit, else 3
+template <int D, int DV, int kS>
+struct DqLayoutS {
   using QT = hopper::Tile<D, kQTile>;
+  using OT = hopper::Tile<DV, kQTile>;
   using KT = hopper::Tile<D, kKStep>;
+  using VT = hopper::Tile<DV, kKStep>;
+  static constexpr int kStages = kS;
   static constexpr int kQ = 0;
   static constexpr int kDo = QT::kBytes;
-  static constexpr int kRing = 2 * QT::kBytes;
-  static constexpr int kStage = 2 * KT::kBytes;     // K, then V
+  static constexpr int kRing = QT::kBytes + OT::kBytes;
+  static constexpr int kStage = KT::kBytes + VT::kBytes;   // K, then V
   static constexpr int kBar = kRing + kStages * kStage;
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
 
-template <int D>
+template <int D, int DV>
+using DqLayout = DqLayoutS<D, DV,
+                           DqLayoutS<D, DV, 4>::kBytes <= kSmemMax ? 4 : 3>;
+
+template <int D, int DV>
 __global__ void __launch_bounds__(kWgThreads, 1)
 bwd_dq_wgmma(const __grid_constant__ BwdParams p) {
-  using L = DqLayout<D>;
+  using L = DqLayout<D, DV>;
+  constexpr int kStages = L::kStages;
+  static_assert(L::kBytes <= kSmemMax, "the ring does not fit");
   const Args& a = p.a;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
@@ -626,9 +718,9 @@ bwd_dq_wgmma(const __grid_constant__ BwdParams p) {
   if (wg == 0) {
     hopper::setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
-      hopper::mbar_expect_tx(full_qo, 2 * L::QT::kBytes);
+      hopper::mbar_expect_tx(full_qo, L::QT::kBytes + L::OT::kBytes);
       hopper::load_tile<D, kQTile>(sm + L::kQ, &p.tq, full_qo, h, q0, b);
-      hopper::load_tile<D, kQTile>(sm + L::kDo, &p.tdo, full_qo, h, q0, b);
+      hopper::load_tile<DV, kQTile>(sm + L::kDo, &p.tdo, full_qo, h, q0, b);
       int stage = 0;
       uint32_t phase = 0;
       for (int kt = 0; kt < n_kt; ++kt) {
@@ -638,8 +730,8 @@ bwd_dq_wgmma(const __grid_constant__ BwdParams p) {
         unsigned char* st = sm + L::kRing + stage * L::kStage;
         hopper::mbar_expect_tx(&full[stage], L::kStage);
         hopper::load_tile<D, kKStep>(st, &p.tk, &full[stage], kvh, k0, b);
-        hopper::load_tile<D, kKStep>(st + L::KT::kBytes, &p.tv, &full[stage],
-                                     kvh, k0, b);
+        hopper::load_tile<DV, kKStep>(st + L::KT::kBytes, &p.tv, &full[stage],
+                                      kvh, k0, b);
         if (++stage == kStages) { stage = 0; phase ^= 1; }
       }
     }
@@ -679,9 +771,9 @@ bwd_dq_wgmma(const __grid_constant__ BwdParams p) {
                        hopper::desc_k<D, kKStep>(kt_s, 0, kc), kc > 0);
     hopper::wgmma_commit();
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc)
-      hopper::wgmma_ss(dp, hopper::desc_k<D, kQTile>(sm + L::kDo, 64 * w, kc),
-                       hopper::desc_k<D, kKStep>(vt_s, 0, kc), kc > 0);
+    for (int kc = 0; kc < DV / 16; ++kc)
+      hopper::wgmma_ss(dp, hopper::desc_k<DV, kQTile>(sm + L::kDo, 64 * w, kc),
+                       hopper::desc_k<DV, kKStep>(vt_s, 0, kc), kc > 0);
     hopper::wgmma_commit();
     if (prev >= 0) {   // the previous tile's dQ is done
       hopper::wgmma_wait<2>();
@@ -754,65 +846,75 @@ int launch_delta(const Args& a, int D, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int launch_fma(const Args& a, cudaStream_t s) {
-  const int sm1 = (int)sizeof(float) * dkdv_fma_floats<D>();
-  const int sm2 = (int)sizeof(float) * dq_fma_floats<D>();
+  const int sm1 = (int)sizeof(float) * dkdv_fma_floats<D, DV>();
+  const int sm2 = (int)sizeof(float) * dq_fma_floats<D, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkdv_fma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm1);
+      bwd_dkdv_fma<T, D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm1);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(
-      bwd_dq_fma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm2);
+      bwd_dq_fma<T, D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm2);
   if (err != cudaSuccess) return (int)err;
-  int rc = launch_delta<T>(a, D, s);
+  int rc = launch_delta<T>(a, DV, s);
   if (rc) return rc;
-  bwd_dkdv_fma<T, D><<<dim3(cdiv(a.Sk, kT), a.K, a.B), kThreads, sm1, s>>>(a);
+  bwd_dkdv_fma<T, D, DV><<<dim3(cdiv(a.Sk, kT), a.K, a.B), kThreads, sm1, s>>>(a);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
-  bwd_dq_fma<T, D><<<dim3(cdiv(a.Sq, kT), a.H, a.B), kThreads, sm2, s>>>(a);
+  bwd_dq_fma<T, D, DV><<<dim3(cdiv(a.Sq, kT), a.H, a.B), kThreads, sm2, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV, int kPart>
+int launch_dkdv(const BwdParams& p, cudaStream_t s) {
+  static bool sized = false;
+  const int rc = size_once(bwd_dkdv_wgmma<D, DV, kPart>,
+                           DkdvLayout<D, DV>::kBytes, &sized);
+  if (rc) return rc;
+  bwd_dkdv_wgmma<D, DV, kPart><<<dim3(cdiv(p.a.Sk, kKeyTile), p.a.K, p.a.B),
+                                 kWgThreads, DkdvLayout<D, DV>::kBytes, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int DV>
 int launch_wgmma(const Args& a, cudaStream_t s) {
-  static bool sized[2] = {false, false};
-  int rc = size_once(bwd_dkdv_wgmma<D>, DkdvLayout<D>::kBytes, &sized[0]);
-  if (!rc) rc = size_once(bwd_dq_wgmma<D>, DqLayout<D>::kBytes, &sized[1]);
+  static bool sized = false;
+  int rc = size_once(bwd_dq_wgmma<D, DV>, DqLayout<D, DV>::kBytes, &sized);
   if (rc) return rc;
   BwdParams p;
   CUresult cr = encode_bshd(&p.tq, a.q, D, a.H, a.Sq, a.B, a.sq.b, a.sq.s, a.sq.h);
   if (cr == CUDA_SUCCESS)
     cr = encode_bshd(&p.tk, a.k, D, a.K, a.Sk, a.B, a.sk.b, a.sk.s, a.sk.h);
   if (cr == CUDA_SUCCESS)
-    cr = encode_bshd(&p.tv, a.v, D, a.K, a.Sk, a.B, a.sv.b, a.sv.s, a.sv.h);
+    cr = encode_bshd(&p.tv, a.v, DV, a.K, a.Sk, a.B, a.sv.b, a.sv.s, a.sv.h);
   if (cr == CUDA_SUCCESS)
-    cr = encode_bshd(&p.tdo, a.dout, D, a.H, a.Sq, a.B, a.sdo.b, a.sdo.s, a.sdo.h);
+    cr = encode_bshd(&p.tdo, a.dout, DV, a.H, a.Sq, a.B, a.sdo.b, a.sdo.s, a.sdo.h);
   const long long rows = (long long)a.B * a.H * a.Sp;
   if (cr == CUDA_SUCCESS) cr = encode_f32_rows(&p.tlse, a.lse, rows);
   if (cr == CUDA_SUCCESS) cr = encode_f32_rows(&p.tdelta, a.delta, rows);
   if (cr != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
   p.a = a;
   p.scale_log2 = a.scale * kLog2e;
-  rc = launch_delta<bf16>(a, D, s);
+  rc = launch_delta<bf16>(a, DV, s);
   if (rc) return rc;
-  bwd_dkdv_wgmma<D><<<dim3(cdiv(a.Sk, kKeyTile), a.K, a.B), kWgThreads,
-                      DkdvLayout<D>::kBytes, s>>>(p);
-  rc = (int)cudaGetLastError();
+  if constexpr (dkdv_split<D, DV>()) {
+    rc = launch_dkdv<D, DV, 1>(p, s);
+    if (!rc) rc = launch_dkdv<D, DV, 2>(p, s);
+  } else {
+    rc = launch_dkdv<D, DV, 0>(p, s);
+  }
   if (rc) return rc;
-  bwd_dq_wgmma<D><<<dim3(cdiv(a.Sq, kQTile), a.H, a.B), kWgThreads,
-                    DqLayout<D>::kBytes, s>>>(p);
+  bwd_dq_wgmma<D, DV><<<dim3(cdiv(a.Sq, kQTile), a.H, a.B), kWgThreads,
+                        DqLayout<D, DV>::kBytes, s>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_fma_d(const Args& a, int D, cudaStream_t s) {
-  switch (D) {
-    case 32: return launch_fma<T, 32>(a, s);
-    case 64: return launch_fma<T, 64>(a, s);
-    case 80: return launch_fma<T, 80>(a, s);
-    case 128: return launch_fma<T, 128>(a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+int launch_fma_d(const Args& a, int D, int DV, cudaStream_t s) {
+#define FA_FMA(d, dv) if (D == d && DV == dv) return launch_fma<T, d, dv>(a, s);
+  FA_FMA(32, 32) FA_FMA(64, 64) FA_FMA(80, 80) FA_FMA(128, 128) FA_FMA(192, 128)
+#undef FA_FMA
+  return (int)cudaErrorInvalidValue;
 }
 
 // TMA reads the tiles and the LSE and delta rows: every base pointer 16-byte
@@ -837,7 +939,8 @@ bool mma_aligned(const Args& a) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dq, dk, dv share it).
-// q, o, dout, dq are (B, Sq, H, D); k, v, dk, dv are (B, Sk, K, D); lse and
+// q, dq are (B, Sq, H, D), o, dout (B, Sq, H, Dv); k, dk (B, Sk, K, D), v,
+// dv (B, Sk, K, Dv), (D, Dv) one of the pairs above; lse and
 // delta are contiguous (B, H, lse_pitch) float32 whose rows hold Sq values
 // each (lse from the forward, delta scratch); the bf16 tensor-core path
 // needs lse_pitch to be a multiple of 4.  strides holds 24 element strides:
@@ -848,7 +951,7 @@ bool mma_aligned(const Args& a) {
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
-    void* dv, int dtype, int B, int Sq, int Sk, int H, int K, int D,
+    void* dv, int dtype, int B, int Sq, int Sk, int H, int K, int D, int Dv,
     int lse_pitch, const long long* strides, int causal, int window,
     float scale, void* stream) {
   if (K <= 0 || H % K != 0 || B <= 0 || Sq <= 0 || Sk <= 0 || lse_pitch < Sq)
@@ -865,16 +968,13 @@ extern "C" int flash_attention_bwd(
   a.Sp = lse_pitch;
   a.causal = causal; a.window = window; a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_fma_d<float>(a, D, s);
+  if (dtype == 0) return launch_fma_d<float>(a, D, Dv, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (mma_aligned(a)) {
-    switch (D) {
-      case 32: return launch_wgmma<32>(a, s);
-      case 64: return launch_wgmma<64>(a, s);
-      case 80: return launch_wgmma<80>(a, s);
-      case 128: return launch_wgmma<128>(a, s);
-      default: return (int)cudaErrorInvalidValue;
-    }
+#define FA_WG(d, dv) if (D == d && Dv == dv) return launch_wgmma<d, dv>(a, s);
+    FA_WG(32, 32) FA_WG(64, 64) FA_WG(80, 80) FA_WG(128, 128) FA_WG(192, 128)
+#undef FA_WG
+    return (int)cudaErrorInvalidValue;
   }
-  return launch_fma_d<bf16>(a, D, s);
+  return launch_fma_d<bf16>(a, D, Dv, s);
 }

@@ -3,12 +3,17 @@ and backward (``csrc/flash_attention_bwd.cu``), and their autograd Function.
 
 ``flash_attention`` and ``flash_attention_bwd`` take CUDA tensors only;
 ``kernels/ops.py`` sends CPU tensors to the plain versions in
-``kernels/ref.py``.  Head dims 32, 64, 80 (zamba2-2.7b's shared attention;
-the bf16 kernels store it padded to 96 columns) and 128.  Each wrapper
-counts the calls that launched its kernels in ``.launches`` and the same
-calls by variant in ``.variant_launches``: ``"wgmma"`` for the bf16
+``kernels/ref.py``.  The value dim may differ from the query/key dim, as in
+the TPU kernel: the (query/key, value) dims the kernels are built for are
+``DIM_PAIRS``, every head dim of ``HEAD_DIMS`` with itself (80 is
+zamba2-2.7b's shared attention, stored padded to 96 columns by the bf16
+kernels) and (192, 128), DeepSeek-V2's latent attention; the scale is the
+query/key dim's ``D ** -0.5``.  Each wrapper
+counts the calls that launched its kernels in ``.launches``, the same
+calls by variant in ``.variant_launches`` (``"wgmma"`` for the bf16
 tensor-core kernels (TMA and ``wgmma``), ``"fma"`` for the f32 CUDA-core
-ones, chosen by ``tensor_core_route`` from dtype and layout alone.
+ones, chosen by ``tensor_core_route`` from dtype and layout alone) and by
+dim pair in ``.pair_launches`` (keyed ``"192x128"``).
 ``FlashAttentionFn`` is the differentiable attention: its forward keeps
 q, k, v, o and the rows' log-sum-exp, and its backward runs
 ``flash_attention_bwd``; both pick the plain version for CPU tensors and the
@@ -25,6 +30,7 @@ from repro_torch.kernels.sde_step import require_sm90
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128)
+DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 # values per 16 bytes of f32: the backward's lse and delta row pitch
 LSE_ROW_ALIGN = 4
 
@@ -33,7 +39,7 @@ def _lib():
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                        + [ctypes.c_longlong] * 12
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                           ctypes.c_void_p])
@@ -60,16 +66,18 @@ def tensor_core_route(*tensors: torch.Tensor) -> bool:
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            window: int) -> None:
-    require_sm90(q.device)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be (B, S, heads, D)")
     B, Sq, H, D = q.shape
     Bk, Sk, K, Dk = k.shape
-    if Bk != B or tuple(v.shape) != tuple(k.shape) or Dk != D:
+    if (Bk != B or Dk != D
+            or tuple(v.shape[:3]) != tuple(k.shape[:3])):
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} do not fit")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    if (D, v.shape[3]) not in DIM_PAIRS:
+        raise ValueError(f"flash_attention: (query/key, value) head dims "
+                         f"{(D, v.shape[3])} not in {DIM_PAIRS}")
+    require_sm90(q.device)
     if K < 1 or H % K:
         raise ValueError(f"flash_attention: {H} query heads over {K} kv heads")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
@@ -89,16 +97,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     return_lse: bool = False):
-    """q: (B, Sq, H, D); k, v: (B, Sk, K, D) with H % K == 0, on one CUDA
-    device, all float32 or all bfloat16, D in {32, 64, 80, 128} and contiguous
-    (other strides are free).  Sq and Sk are any lengths.  Returns o
-    (B, Sq, H, D) in q's dtype, contiguous; with ``return_lse`` also each
+    """q: (B, Sq, H, D); k: (B, Sk, K, D); v: (B, Sk, K, Dv) with H % K ==
+    0, on one CUDA device, all float32 or all bfloat16, (D, Dv) in
+    ``DIM_PAIRS`` and the head dims contiguous (other strides are free).
+    Sq and Sk are any lengths.  Scaled by D ** -0.5.  Returns o
+    (B, Sq, H, Dv) in q's dtype, contiguous; with ``return_lse`` also each
     row's log-sum-exp (B, H, Sq) f32, and o is bitwise the same either
     way."""
     _check(q, k, v, window)
     B, Sq, H, D = q.shape
-    Sk, K = k.shape[1], k.shape[2]
-    o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    Sk, K, Dv = k.shape[1], k.shape[2], v.shape[3]
+    o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if o.numel():
@@ -107,7 +116,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    *o.stride()[:3]]
         rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     None if lse is None else lse.data_ptr(),
-                    DTYPES[q.dtype], B, Sq, Sk, H, K, D, *strides,
+                    DTYPES[q.dtype], B, Sq, Sk, H, K, D, Dv, *strides,
                     int(bool(causal)), int(window), float(D ** -0.5), stream)
         if rc != 0:
             raise RuntimeError(
@@ -115,13 +124,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         flash_attention.launches += 1
         flash_attention.variant_launches[
             "wgmma" if tensor_core_route(q, k, v, o) else "fma"] += 1
+        flash_attention.pair_launches[f"{D}x{Dv}"] += 1
     return (o, lse) if return_lse else o
 
 
 def _bwd_lib():
     fn = _build.load("flash_attention_bwd").flash_attention_bwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                           ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -132,18 +142,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         *, causal: bool = True, window: int = 0):
     """(dq, dk, dv) of ``flash_attention`` at upstream gradient ``do``
-    (B, Sq, H, D), from the forward's o and lse; the layouts and dtypes of
-    the forward, dk and dv summed over each GQA group.  Three launches (the
-    delta pass, dK/dV, dQ) count as one call.  The kernels read lse and
+    (B, Sq, H, Dv), from the forward's o and lse; the layouts and dtypes of
+    the forward, dk and dv summed over each GQA group.  The launches (the
+    delta pass, dK/dV, dQ; dK/dV in two kernels at (192, 128)) count as one
+    call.  The kernels read lse and
     delta rows by TMA, which needs each row to start on 16 bytes: for an Sq
     that is no multiple of 4 the rows are copied into a padded pitch."""
     _check(q, k, v, window)
     B, Sq, H, D = q.shape
-    Sk, K = k.shape[1], k.shape[2]
-    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
+    Sk, K, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if tuple(o.shape) != (B, Sq, H, Dv) or tuple(do.shape) != (B, Sq, H, Dv):
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
-                         f"{tuple(do.shape)} must have q's shape "
-                         f"{tuple(q.shape)}")
+                         f"{tuple(do.shape)} must be (B, Sq, H, Dv) = "
+                         f"{(B, Sq, H, Dv)}")
     if o.dtype != q.dtype or do.dtype != q.dtype:
         raise TypeError("flash_attention_bwd: o and do must have q's dtype")
     if o.stride(-1) != 1 or do.stride(-1) != 1:
@@ -159,7 +170,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "devices")
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, K, D), dtype=q.dtype, device=q.device)
-    dv = torch.empty((B, Sk, K, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Sk, K, Dv), dtype=q.dtype, device=q.device)
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     pitch = -(-Sq // LSE_ROW_ALIGN) * LSE_ROW_ALIGN
@@ -172,7 +183,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                    DTYPES[q.dtype], B, Sq, Sk, H, K, D, pitch,
+                    DTYPES[q.dtype], B, Sq, Sk, H, K, D, Dv, pitch,
                     ctypes.cast(strides, ctypes.c_void_p),
                     int(bool(causal)), int(window), float(D ** -0.5), stream)
     if rc != 0:
@@ -182,13 +193,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     flash_attention_bwd.variant_launches[
         "wgmma" if tensor_core_route(q, k, v, o, do, dq, dk, dv, lse, delta)
         else "fma"] += 1
+    flash_attention_bwd.pair_launches[f"{D}x{Dv}"] += 1
     return dq, dk, dv
 
 
 flash_attention.launches = 0
 flash_attention.variant_launches = {"wgmma": 0, "fma": 0}
+flash_attention.pair_launches = {f"{d}x{dv}": 0 for d, dv in DIM_PAIRS}
 flash_attention_bwd.launches = 0
 flash_attention_bwd.variant_launches = {"wgmma": 0, "fma": 0}
+flash_attention_bwd.pair_launches = {f"{d}x{dv}": 0 for d, dv in DIM_PAIRS}
 
 
 class FlashAttentionFn(torch.autograd.Function):

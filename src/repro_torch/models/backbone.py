@@ -1,5 +1,5 @@
-"""Backbone of the port: the ``dit``, ``dense``, ``ssm`` and ``hybrid``
-branches of ``repro.models.backbone``.
+"""Backbone of the port: the ``dit``, ``dense``, ``moe``, ``ssm`` and
+``hybrid`` branches of ``repro.models.backbone``.
 
 The spec is the reference's whole tree (embedding, final norm, LM head and
 the stacked blocks), so parameter trees cross between the packages key for
@@ -16,14 +16,21 @@ construction).  ``hybrid`` (Zamba2) stacks the Mamba-2 blocks twice,
 gradient is the sum over its ``n_layers // attn_every`` sites.  The shared
 attention runs causally with the caller's ``window``: the flow adapter
 passes 0, as the reference does, so the config's sliding window (8192 for
-``zamba2-2.7b``) does not act on the velocity path.  The other families
-(``moe``, ``vlm``, ``audio``) and the decode paths are not ported yet.
+``zamba2-2.7b``) does not act on the velocity path.  ``moe`` (grok-1,
+DeepSeek-V2) runs the dense family's blocks with the SwiGLU replaced by
+the mixture of experts (``models/moe.py``), after ``first_k_dense`` plain
+blocks stacked apart as ``dense_blocks``; with ``cfg.mla`` set the
+attention is the latent attention of ``models/mla.py``.  The MoE blocks'
+auxiliary losses are discarded, as the reference's flow adapter discards
+them.  The frontend families (``vlm``, ``audio``) and the decode paths
+are not ported yet.
 
 On a mesh with a "model" axis each block first gathers its slice of the
 sharded leaves (``repro_torch.sharding.constrain_params``, where the
 reference constrains each scan slice to the gathered layout), so the
-block's kernels see whole weights; the hybrid's shared block is gathered
-at each of its sites, as the reference's ``_gather`` does inside its scan.
+block's kernels see whole weights (each against its own unstacked spec:
+dense or MoE); the hybrid's shared block is gathered at each of its
+sites, as the reference's ``_gather`` does inside its scan.
 
 ``remat=True`` (``PerfConfig.remat="block"``) runs each block call (each
 group of the hybrid: the reference's ``jax.checkpoint`` wraps its group
@@ -43,27 +50,29 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import sharding as shlib
 from repro_torch.config import ArchConfig
-from repro_torch.models import attention, layers, ssm
+from repro_torch.models import attention, layers, mla, moe, ssm
 from repro_torch.models.params import P, stack
 
-PORTED_FAMILIES = ("dit", "dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dit", "dense", "moe", "ssm", "hybrid")
 
 
 def _not_ported(family: str) -> NotImplementedError:
     return NotImplementedError(
         f"backbone family {family!r} is not ported to repro_torch yet "
         "(ROADMAP.md Queue 1: 'Other families'); 'dit' (flux_dit), 'dense' "
-        "(smollm-360m, yi-9b, yi-34b, qwen3-32b), 'ssm' (mamba2-370m) and "
-        "'hybrid' (zamba2-2.7b), full-sequence forward, run")
+        "(smollm-360m, yi-9b, yi-34b, qwen3-32b), 'moe' (grok-1-314b, "
+        "deepseek-v2-236b), 'ssm' (mamba2-370m) and 'hybrid' (zamba2-2.7b), "
+        "full-sequence forward, run")
 
 
-def _attn_block_spec(cfg: ArchConfig) -> Dict:
+def _attn_block_spec(cfg: ArchConfig, ffn: str = "mlp") -> Dict:
     d = cfg.d_model
     s = {
         "ln1": layers.rmsnorm_spec(d),
-        "attn": attention.spec(cfg),
+        "attn": mla.spec(cfg) if cfg.mla else attention.spec(cfg),
         "ln2": layers.rmsnorm_spec(d),
-        "ffn": layers.mlp_spec(d, cfg.d_ff),
+        "ffn": (moe.spec(cfg) if ffn == "moe"
+                else layers.mlp_spec(d, cfg.d_ff)),
     }
     if cfg.family == "dit":
         # adaLN-zero: cond vector -> 6 modulation params per block
@@ -97,7 +106,11 @@ class Backbone:
         # logical axes, for the per-layer gather
         self._block_spec = (_ssm_block_spec(cfg)
                             if cfg.family in ("ssm", "hybrid")
-                            else _attn_block_spec(cfg))
+                            else _attn_block_spec(cfg, "moe")
+                            if cfg.family == "moe" else _attn_block_spec(cfg))
+        self._first_dense = cfg.moe.first_k_dense if cfg.family == "moe" else 0
+        if self._first_dense:
+            self._dense_spec = _attn_block_spec(cfg)
         if cfg.family == "hybrid":
             self._every = cfg.hybrid.attn_every
             self._groups = cfg.n_layers // self._every
@@ -115,7 +128,10 @@ class Backbone:
             s["blocks"] = stack(inner, self._groups, "groups")
             s["shared_attn"] = self._shared_spec
         else:
-            s["blocks"] = stack(self._block_spec, cfg.n_layers)
+            if self._first_dense:
+                s["dense_blocks"] = stack(self._dense_spec, self._first_dense)
+            s["blocks"] = stack(self._block_spec,
+                                cfg.n_layers - self._first_dense)
         if not cfg.tie_embeddings:
             s["lm_head"] = P((d, cfg.vocab_size), ("embed", "vocab"))
         return s
@@ -136,12 +152,19 @@ class Backbone:
         return x + g_m[:, None] * layers.mlp(p["ffn"], h)
 
     def _dense_block(self, p: Dict, x: torch.Tensor, *, causal: bool,
-                     window: int, positions: torch.Tensor) -> torch.Tensor:
+                     window: int, positions: torch.Tensor,
+                     ffn: str = "mlp") -> torch.Tensor:
+        """[ln, attention, ln, FFN]: the dense family's block, the
+        hybrid's shared block and the MoE family's (MLA attention with
+        ``cfg.mla``; ``ffn="moe"``: the mixture of experts)."""
         cfg = self.cfg
         h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
-        x = x + attention.apply_full(p["attn"], cfg, h, causal=causal,
-                                     window=window, positions=positions)
+        attn_fn = mla.apply_full if cfg.mla else attention.apply_full
+        x = x + attn_fn(p["attn"], cfg, h, causal=causal, window=window,
+                        positions=positions)
         h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        if ffn == "moe":
+            return x + moe.apply(p["ffn"], cfg, h)[0]
         return x + layers.mlp(p["ffn"], h)
 
     def _ssm_block(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -155,7 +178,7 @@ class Backbone:
                        remat: bool = False) -> torch.Tensor:
         """Run all blocks over embedded inputs x: (B, S, d); returns the
         normed hidden states.  ``dit`` needs the adaLN conditioning vector
-        ``cond`` (B, d); ``dense`` and ``hybrid`` take none; ``ssm`` is
+        ``cond`` (B, d); ``dense``, ``moe`` and ``hybrid`` take none; ``ssm`` is
         causal whatever ``causal`` says and takes no ``cond``.  ``remat``
         checkpoints each block, each group of the hybrid (module
         docstring)."""
@@ -169,13 +192,16 @@ class Backbone:
             kw = dict(causal=causal, window=window, positions=positions)
         if cfg.family in ("ssm", "hybrid"):
             block = self._ssm_block
-        elif cfg.family == "dense":
+        elif cfg.family in ("dense", "moe"):
             block = functools.partial(self._dense_block, **kw)
+            if cfg.family == "moe":
+                dense_block, block = block, functools.partial(
+                    self._dense_block, ffn="moe", **kw)
         else:
             block = functools.partial(self._attn_block, cond=cond, **kw)
 
-        def run(p, x):
-            return block(shlib.constrain_params(p, self._block_spec, mesh), x)
+        def run(p, x, spec=self._block_spec, block=block):
+            return block(shlib.constrain_params(p, spec, mesh), x)
 
         if cfg.family == "hybrid":
             shared = functools.partial(self._dense_block, **kw)
@@ -191,8 +217,14 @@ class Backbone:
             units = [(run_group, (slices[i:i + every], params["shared_attn"]))
                      for i in range(0, len(slices), every)]
         else:
-            units = [(run, (p,)) for p in _unbind(params["blocks"],
-                                                  cfg.n_layers)]
+            units = []
+            if self._first_dense:
+                run_dense = functools.partial(run, spec=self._dense_spec,
+                                              block=dense_block)
+                units = [(run_dense, (p,)) for p in _unbind(
+                    params["dense_blocks"], self._first_dense)]
+            units += [(run, (p,)) for p in _unbind(
+                params["blocks"], cfg.n_layers - self._first_dense)]
         remat = remat and torch.is_grad_enabled()
         for fn, args in units:
             if remat:

@@ -7,7 +7,7 @@ moments in the parameter dtype.
 
 Unlike the reference, which returns new trees, the update writes the
 parameters and both moments in place, a leaf at a time and a large leaf a
-leading-dim chunk of at most ``CHUNK`` elements at a time, so the f32
+flat chunk of at most ``CHUNK`` elements at a time, so the f32
 temporaries never exceed one chunk: at full width a second copy of the
 state would not fit beside the first, and a stacked leaf's f32 temporaries
 alone would take several GiB (``zamba2-2.7b``'s in_proj, 1.44 B values, is
@@ -97,15 +97,18 @@ def adamw_apply(params, grads, state: AdamWState, cfg: OptimConfig,
         if p.dim() == 0 or p.numel() <= CHUNK:
             _adamw_slice(p, g, m, v, cfg, scalars)
             continue
-        rows = max(1, CHUNK // (p.numel() // p.shape[0]))
-        for r in range(0, p.shape[0], rows):
-            _adamw_slice(p[r:r + rows], g[r:r + rows], m[r:r + rows],
-                         v[r:r + rows], cfg, scalars)
+        # flat chunks of the contiguous leaf and moments (a stack of one
+        # layer, such as a full-width MoE expert table of 1.26 B values,
+        # has no leading dim to cut)
+        flat = [t.view(-1) for t in (p, m, v)] + [g.reshape(-1)]
+        for i in range(0, p.numel(), CHUNK):
+            pc, mc, vc, gc = (t[i:i + CHUNK] for t in flat)
+            _adamw_slice(pc, gc, mc, vc, cfg, scalars)
 
 
 def _adamw_slice(p, g, m, v, cfg: OptimConfig,
                  scalars: StepScalars) -> None:
-    """AdamW on one leaf or leading-dim slice of one, in place."""
+    """AdamW on one leaf or flat chunk of one, in place."""
     b1, b2 = cfg.betas
     gf = g.to(F32)
     m.mul_(b1).add_(gf * (1 - b1))

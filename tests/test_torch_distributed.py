@@ -44,7 +44,8 @@ from test_torch_training import _np_tree
 from torch_parity import COND_DIM, COND_LEN, normal, to_torch
 from torch_parity import one_torch_thread  # noqa: F401  (autouse fixture)
 
-ARCHS = ["flux_dit", "mamba2-370m", "smollm-360m", "zamba2-2.7b"]
+ARCHS = ["flux_dit", "mamba2-370m", "smollm-360m", "zamba2-2.7b",
+         "grok-1-314b", "deepseek-v2-236b"]
 
 
 # ------------------------------------------------------- the plan's dims

@@ -55,9 +55,9 @@ def test_full_flux_dit_spec_matches_jax():
 
 def test_other_families_are_not_ported():
     from repro_torch.config import ArchConfig, SSMConfig
-    # the hybrid (zamba2-2.7b) is ported since the hybrid slice; the MoE
-    # and frontend families are not yet
-    for family in ("moe", "vlm"):
+    # the hybrid (zamba2-2.7b) and the MoE family (grok-1-314b,
+    # deepseek-v2-236b) are ported; the frontend families are not yet
+    for family in ("vlm", "audio"):
         cfg = ArchConfig(name="x", family=family, n_layers=1, d_model=8,
                          n_heads=1, n_kv_heads=1, d_ff=8, vocab_size=8,
                          ssm=SSMConfig(d_state=4, head_dim=4, chunk=4))

@@ -163,10 +163,11 @@ def test_adamw_keeps_f32_moments_over_bf16_params():
 
 
 def test_adamw_chunked_leaves_are_bitwise_the_whole_leaf(monkeypatch):
-    """A leaf larger than ``adamw.CHUNK`` is updated a leading-dim chunk at
-    a time; the update is elementwise, so three steps with a tiny chunk
-    (every row alone, and a 1-D leaf whole) give bitwise the params and
-    moments of whole-leaf updates, weight decay and bf16 params included."""
+    """A leaf larger than ``adamw.CHUNK`` is updated a flat chunk of at most
+    that many elements at a time; the update is elementwise, so three steps
+    with a chunk of 7 (cutting every leaf across its rows) give bitwise the
+    params and moments of whole-leaf updates, weight decay and bf16 params
+    included."""
     from repro_torch.optim import adamw as tadamw
     g0 = torch.Generator().manual_seed(4)
     p0 = {"stacked": torch.randn(5, 3, 7, generator=g0).bfloat16(),

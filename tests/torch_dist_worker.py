@@ -17,7 +17,8 @@ import torch.distributed as dist
 
 from repro_torch import checkpoint, configs, distributed, registry
 from repro_torch.config import (DistConfig, FlowRLConfig, HybridConfig,
-                                OptimConfig, RewardSpec, SSMConfig)
+                                MLAConfig, MoEConfig, OptimConfig,
+                                RewardSpec, SSMConfig)
 from repro_torch.models import params as tparams
 
 COND_LEN, COND_DIM = 4, 32
@@ -51,6 +52,25 @@ def hybrid_arch():
         n_heads=4, n_kv_heads=4, head_dim=16, d_ff=128, vocab_size=64,
         ssm=SSMConfig(d_state=16, expand=2, head_dim=16, chunk=16, d_conv=4),
         hybrid=HybridConfig(attn_every=2, shared_attn=True))
+
+
+def moe_arch(name):
+    """The reduced MoE archs narrowed for the CPU, width 64: grok (4 heads
+    over 2 kv heads of 16, 4 experts top-2) and deepseek (a dense layer and
+    an MoE layer, latent attention at q/k 16 + 8 rope and v 16, 4 routed
+    experts top-2 and a shared one)."""
+    cfg = configs.get_reduced(name)
+    if name == "grok-1-314b":
+        return dataclasses.replace(
+            cfg, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+            d_ff=128, vocab_size=64,
+            moe=MoEConfig(n_experts=4, top_k=2, expert_d_ff=64))
+    return dataclasses.replace(
+        cfg, d_model=64, n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=64,
+        moe=MoEConfig(n_experts=4, top_k=2, n_shared_experts=1,
+                      expert_d_ff=32, first_k_dense=1),
+        mla=MLAConfig(kv_lora_rank=32, q_lora_rank=32, qk_nope_head_dim=16,
+                      qk_rope_head_dim=8, v_head_dim=16))
 
 
 def build(tname, dist_cfg=None, mesh=None, rewards=REWARDS, arch_cfg=None,
@@ -285,7 +305,26 @@ def restore_layouts(ckpt, saved, arch_cfg=None):
     return res
 
 
-SCENARIOS = {"two_ranks": two_ranks, "four_ranks": four_ranks}
+def moe_four_ranks(tmp):
+    """dp=2 x mp=2 against one device for flow_grpo on both MoE archs: the
+    stacked expert tables shard over "model" by expert, MLA's
+    up-projections by head, and each block gathers its slice against its
+    own (dense or MoE) spec."""
+    out = {}
+    for name in ("grok-1-314b", "deepseek-v2-236b"):
+        cfg = moe_arch(name)
+        ref, h_ref = train("flow_grpo", mesh=None, dist_cfg=DistConfig(),
+                           arch_cfg=cfg)
+        tr, h = train("flow_grpo",
+                      DistConfig(data_parallel=2, model_parallel=2),
+                      arch_cfg=cfg)
+        out[name] = (h_ref, h, canonical_params(ref), canonical_params(tr),
+                     tr.plan.bytes_report(tr.state))
+    return out
+
+
+SCENARIOS = {"two_ranks": two_ranks, "four_ranks": four_ranks,
+             "moe_four_ranks": moe_four_ranks}
 
 
 def run(rank, world, store, scenario, out):
