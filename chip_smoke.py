@@ -281,14 +281,65 @@ script exits 2 before printing any result.
    width 32768, 48 query heads over 8 kv heads of 128; ~21.4 B params) as
    phase 29, and its velocity at depth 2 as phase 29's.  grok is not
    trained on one card: one full-width layer is ~59 GB of training state.
-32. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
+32. The attention kernels at the frontend archs' shapes, head dim 64,
+   causal: internvl2-1b's flow shape (4, 4608, 14 query heads over 2 kv
+   heads: a GQA group of 7, the longest walk of query heads per key tile
+   in the dK/dV pass yet) and musicgen-large's (4, 4608, 32 over 32), and
+   the LM train step's (8, 4096 + 256, 14 / 2: phase 34's batch and
+   length), forward (o and LSE) and backward, each in bf16 on the
+   tensor-core kernels and in f32 on the FMA kernels: every row (query
+   row of o and dq, key row of dk and dv) within ``ROW_BAND`` of its own
+   max |plain|, the backward also against torch.autograd on one batch
+   row; then the kernel, FMA, plain and SDPA (``enable_gqa``, fused
+   backends) times and the operation bounds.  (The prefill's shape is
+   checked and timed in phase 35, at the batch the prefill runs.)
+33. The frontend archs' flow path: ``repro_torch.launch.serve.main``
+   serving 4 requests of internvl2-1b at all 24 layers and of
+   musicgen-large at all 48 (bf16, random weights from a seed) over 511 +
+   1 + 4096 tokens, 4 steps (``flash_attention`` n_layers a velocity on
+   the tensor cores, ``sde_step`` 4 a batch), s per step, req/s, peak
+   memory; the velocity at depth 2 against the plain versions at the
+   bf16 band (wq/wk drawn at 1/sqrt(d_model); the gap at the
+   repository's init printed); and ``launch.train`` flow_grpo for 2 steps
+   at all layers (musicgen-large under ``perf.remat=block``: its 3.23 B
+   params with bf16 grads and f32 moments are ≈ 38.8 GB), AdamW at lr
+   1e-3 with weight decay 4 (lr * wd past half a bf16 ulp, so the decay
+   shows in bf16 params): launch counts, finite metrics, params that move, and
+   ``frontend_proj`` (which the velocity never reads) with a zero
+   gradient, moved by the decay alone.
+34. The LM task path's train step (``tasks.make_train_step``) on
+   internvl2-1b at full width and all 24 layers: ``train_4k``'s 4096
+   tokens after the 256-token vision prefix, batch 8 of ``TokenStream``
+   (the global batch of 256 cut to one card), 3 steps: launch counts
+   (attention forward 2 x 24 a step under the per-block remat, backward
+   24), s a step, tokens/s, peak memory, CE and a profile of one step;
+   then at depth 2 the loss,
+   ce, gradient norm and every leaf's gradient through the kernels
+   against the plain versions.
+35. Prefill and decode.  For every arch the reference registers (all 11)
+   at full width and depth 2 (zamba2-2.7b one group of 6 SSM blocks and
+   the shared block; deepseek-v2-236b its dense layer and one MoE layer),
+   f32: prefill through the kernels, one-token decodes, against the
+   forward through the kernels (attention archs 511 + 1 against 512;
+   mamba2-370m 128 + 128 decodes against 256; zamba2-2.7b 127 + 1 against
+   128) and against prefill + decode through the plain versions, MoE
+   capacity raised so nothing is dropped (``ample_capacity``).  Then
+   internvl2-1b at all 24 layers in bf16: prefill at ``prefill_32k``'s
+   length (32768 + 256) at the largest batch <= 32 the card holds, 16
+   decode steps from its caches; the attention forward at that prefill's
+   shape (B, 32768 + 256, 14 / 2) in bf16 and f32 against the reference's
+   chunked jnp path (one sequence and a query chunk at a time) row by row,
+   with its times as phase 32's; and ``decode_32k``: batch 128 over zero
+   caches of 32768 entries (a 51.5 GB KV cache): tokens/s, ms a step,
+   peak memory, and a profile of one decode_32k step.
+36. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
    ``ssm_train_path``, ``perf_path``, ``distributed_path``,
-   ``engine_path``, ``hybrid_path``, ``moe_path`` and ``kernels`` JSON
-   lines, the card's name and power limit, and the last line ``{"ok":
-   true, "device": {...}}``.
+   ``engine_path``, ``hybrid_path``, ``moe_path``, ``frontend_path``,
+   ``lm_path`` and ``kernels`` JSON lines, the card's name and power
+   limit, and the last line ``{"ok": true, "device": {...}}``.
 
 ``--only N,...`` runs just the device and build phases and phases N (3 and
-8-31) and prints no result lines: a development aid.
+8-35) and prints no result lines: a development aid.
 """
 from __future__ import annotations
 
@@ -319,11 +370,13 @@ import torch  # noqa: E402
 from repro_torch import configs, registry  # noqa: E402
 from repro_torch.api import Experiment  # noqa: E402
 from repro_torch.api import loop as loop_lib  # noqa: E402
-from repro_torch.config import (FlowRLConfig, OptimConfig,  # noqa: E402
-                                PerfConfig, RewardSpec, replace)
+from repro_torch import optim as optim_lib  # noqa: E402
+from repro_torch.config import (INPUT_SHAPES, FlowRLConfig,  # noqa: E402
+                                OptimConfig, PerfConfig, RewardSpec,
+                                replace)
 from repro_torch.core.rollout import (  # noqa: E402
     request_draws, request_seeds, rollout_keyed)
-from repro_torch.data import synthetic_prompts  # noqa: E402
+from repro_torch.data import TokenStream, synthetic_prompts  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import counts as counts_lib  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
@@ -335,9 +388,12 @@ from repro_torch.kernels.grpo_loss import grpo_loss, grpo_loss_bwd  # noqa: E402
 from repro_torch.kernels.sde_step import sde_step  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.models import frontends, tasks  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import params as params_lib  # noqa: E402
+from repro_torch.models.backbone import Backbone  # noqa: E402
 from repro_torch.models.flow import FlowAdapter  # noqa: E402
+from repro_torch.models.layers import attention_chunked  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory and bf16 tensor
@@ -2196,23 +2252,25 @@ def draw_attention(p: dict, d_model: int, seed: int) -> None:
                                     device=layer.device) / d_model ** 0.5)
 
 
-def check_dense_velocity(dev, arch: str, draw_qk: bool) -> dict:
+def check_dense_velocity(dev, arch: str, draw_qk: bool,
+                         cond_len: int = COND_LEN) -> dict:
     """``FlowAdapter.velocity`` of ``arch`` at full width, depth 2, over
-    512 + 1 + 4096 tokens, through the kernels (one attention launch per
-    block) and through the plain versions, at the bf16 band.  With
-    ``draw_qk`` the gap at the repository's init is printed (no band: the
-    logits are near one-hot there, ``draw_attention``) and the band holds
-    with wq/wk drawn."""
+    ``cond_len`` + 1 + 4096 tokens (512 + 1 + 4096 by default), through
+    the kernels (one attention launch per block) and through the plain
+    versions, at the bf16 band.  With ``draw_qk`` the gap at the
+    repository's init is printed (no band: the logits are near one-hot
+    there, ``draw_attention``) and the band holds with wq/wk drawn."""
     cfg = replace(configs.get(arch), n_layers=2)
     adapter = FlowAdapter(cfg, FlowRLConfig(latent_tokens=LAT_TOKENS,
                                             latent_dim=LAT_DIM), COND_DIM)
     gen = torch.Generator(device=dev).manual_seed(12)
     p = params_lib.init(adapter.spec(), gen, torch.bfloat16, dev)
     x = torch.randn(1, LAT_TOKENS, LAT_DIM, generator=gen, device=dev)
-    cond = torch.randn(1, COND_LEN, COND_DIM, generator=gen, device=dev)
+    cond = torch.randn(1, cond_len, COND_DIM, generator=gen, device=dev)
     t = torch.tensor([0.7], device=dev)
     hd = cfg.resolved_head_dim
-    shape = (f"{arch} depth 2 (1, {DENSE_SEQ} tokens, {cfg.n_heads} q / "
+    seq = cond_len + 1 + LAT_TOKENS
+    shape = (f"{arch} depth 2 (1, {seq} tokens, {cfg.n_heads} q / "
              f"{cfg.n_kv_heads} kv heads of {hd}, qk_norm {cfg.qk_norm})")
     res = {"heads": [cfg.n_heads, cfg.n_kv_heads, hd]}
     if draw_qk:
@@ -4685,6 +4743,800 @@ def grok_serve_phase(dev) -> dict:
     return res
 
 
+# ------------------------------------------------------------ phases 32-35
+# the frontend families at published width over the hybrid's geometry (511
+# + 1 + 4096 = 4608 tokens, causal, head dim 64): internvl2-1b (24 layers,
+# 14 query heads over 2 kv heads: a GQA group of 7) and musicgen-large (48
+# layers, 32 heads over 32: a group of 1); the LM task path on internvl2-1b
+# at the reference's input shapes
+FE_ARCHS = {"internvl2-1b": 24, "musicgen-large": 48}
+FE_HEAD_DIM = 64
+# AdamW in the frontend archs' flow training: the velocity never reads
+# frontend_proj, so its gradient is zero and it moves by the decay alone.
+# The default OptimConfig decays nothing, and a bf16 param moves only when
+# lr * wd passes half its ulp (2^-9 to 2^-8 of the value): at lr 1e-3 from
+# the first step (warmup 1) and wd 4, lr * wd = 4e-3 a step
+FE_LR, FE_WD = 1e-3, 4.0
+LM_ARCH = "internvl2-1b"
+# train_4k: 4096 tokens after the 256-token vision prefix; its global batch
+# of 256 is cut to 8 sequences, what one card trains in one step
+LM_SEQ, LM_BATCH, LM_STEPS = INPUT_SHAPES["train_4k"].seq_len, 8, 3
+PREFILL_SEQ = INPUT_SHAPES["prefill_32k"].seq_len
+PREFILL_BATCHES = (32, 16, 8, 4, 2, 1)   # prefill_32k's 32, then halved
+LM_DECODES = 16
+DECODE_SHAPE = INPUT_SHAPES["decode_32k"]
+DECODE_STEPS = 4
+# decode against the forward at depth 2 in f32: the attention kernels' FMA
+# route against plain decode math, f32 sums in another order
+DECODE_BAND = 1e-3       # max |decode - forward| / max |forward logits|
+# the LM train step at depth 2 through the kernels against the plain
+# versions, bf16: the loss to 1e-3 of itself, the gradient norm to 2e-2,
+# each leaf's gradient to GRAD_BAND of its max |plain|
+LM_LOSS_BAND, LM_GNORM_BAND = 1e-3, 2e-2
+
+
+def _fe_attention_cases() -> list:
+    """(name, what, B, S, H, K, backward) of the attention at phase 32's
+    shapes, forward and backward: both archs' flow shapes and
+    internvl2-1b's LM train step (``LM_BATCH`` x (``LM_SEQ`` + its
+    256-token prefix))."""
+    iv, mg = configs.get("internvl2-1b"), configs.get("musicgen-large")
+    return [("g7", "internvl2-1b flow", B_SERVE, HY_SEQ, iv.n_heads,
+             iv.n_kv_heads, True),
+            ("g1", "musicgen-large flow", B_SERVE, HY_SEQ, mg.n_heads,
+             mg.n_kv_heads, True),
+            ("lm", "internvl2-1b LM train", LM_BATCH,
+             LM_SEQ + iv.frontend.n_tokens, iv.n_heads, iv.n_kv_heads, True)]
+
+
+def _prefill_plain(q, k, v):
+    """The plain attention at the prefill shape, one sequence and a query
+    chunk of 1024 at a time (``layers.attention_chunked``, the reference's
+    jnp path: the kernels' plain version would hold the (33024, 33024) f32
+    scores of 14 heads, 61 GB a sequence)."""
+    return torch.cat([attention_chunked(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                        causal=True, chunk_q=1024)
+                      for i in range(q.shape[0])])
+
+
+def _fe_qkv(g, dev, B, S, H, K, dt, with_do):
+    q = torch.randn(B, S, H, FE_HEAD_DIM, generator=g, device=dev).to(dt)
+    k, v = (torch.randn(B, S, K, FE_HEAD_DIM, generator=g, device=dev).to(dt)
+            for _ in range(2))
+    do = torch.randn_like(q) if with_do else None
+    return q, k, v, do
+
+
+def _fe_attention_case(dev, g, name, what, B, S, H, K, bwd, dt) -> dict:
+    """One shape and dtype: o and LSE, and with ``bwd`` dq, dk, dv, held
+    row by row against the plain versions (``_row_errs`` at
+    ``ROW_BAND``), the LSE at ``LSE_BAND``, the backward also against
+    torch.autograd through the plain forward (one batch row, at
+    ``ATTN_BWD_BAND`` of the whole tensor, phase 28's reason), each call
+    on the variant its dtype calls for."""
+    q, k, v, do = _fe_qkv(g, dev, B, S, H, K, dt, bwd)
+    variant = "wgmma" if dt == torch.bfloat16 else "fma"
+    before = all_variants()
+    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=True) if bwd \
+        else None
+    ran = all_variants()
+    if ran["flash_attention"][variant] - before["flash_attention"][
+            variant] != 1 or (bwd and ran["flash_attention_bwd"][variant]
+                              - before["flash_attention_bwd"][variant]
+                              != 1):
+        fail(f"the attention at the {what} shape {dt} did not run its "
+             f"{variant} kernels: {before} -> {ran}")
+    out = {"max_abs_err_bwd": None, "grad_rows": None}
+    if bwd:
+        r, lse_ref = _mla_plain(ref.flash_attention_fwd_ref, q, k, v)
+        want = _mla_plain(ref.flash_attention_bwd_ref, q, k, v, o, lse, do)
+        lse_err = float((lse - lse_ref).abs().max()) / max(
+            1.0, float(lse_ref.abs().max()))
+        leaves = [t[:1].float().requires_grad_() for t in (q, k, v)]
+        ref.flash_attention_ref(*leaves, causal=True).backward(
+            do[:1].float())
+        auto = _grad_errs([t[:1] for t in got], [t.grad for t in leaves])
+        rows_g = _row_errs(got, want)
+        out.update(grad_rows=rows_g, max_abs_err_bwd=max(
+            float((a.float() - b.float()).abs().max())
+            for a, b in zip(got, want)), autograd=auto, lse_err=lse_err)
+        del want, leaves, lse_ref
+    else:
+        r = _prefill_plain(q, k, v)
+        lse_err, auto, rows_g = 0.0, [0.0], [0.0]
+    torch.cuda.synchronize()
+    (row_o,) = _row_errs([o], [r])
+    err = float((o.float() - r.float()).abs().max())
+    band = ROW_BAND[dt]
+    log(f"  {what} ({B}, {S}, {H} / {K} heads of {FE_HEAD_DIM}) causal {dt} "
+        f"({variant}): per-row max|err| / max|plain| of the row: o "
+        f"{row_o:.3e}" + (f", dq/dk/dv {rows_g[0]:.3e}/{rows_g[1]:.3e}/"
+                          f"{rows_g[2]:.3e}; vs autograd {auto[0]:.2e}/"
+                          f"{auto[1]:.2e}/{auto[2]:.2e} of max|plain| (band "
+                          f"{ATTN_BWD_BAND[dt]}); lse {lse_err:.2e}"
+                          if bwd else "") +
+        f" (band {band} a row); o max|err| {err:.3e}")
+    if row_o > band or max(rows_g) > band or lse_err > LSE_BAND or \
+            max(auto) > ATTN_BWD_BAND[dt]:
+        fail(f"the attention at the {what} shape is off its band ({dt})")
+    out.update(o_row=row_o, max_abs_err=err)
+    del q, k, v, do, o, lse, got, r
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sdpa_gqa_ms(q, k, v, do) -> tuple:
+    """SDPA's forward (and with ``do`` backward) ms on its fused backends
+    with ``enable_gqa``; where none takes the GQA call, on k and v
+    expanded to every query head (the expansion untimed).  Returns (fwd,
+    bwd or None, note)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+    G = q.shape[2] // k.shape[2]
+    for gqa in (True, False):
+        qt, kt, vt = (a.transpose(1, 2).detach() for a in (q, k, v))
+        if not gqa:
+            kt, vt = (a.repeat_interleave(G, dim=1) for a in (kt, vt))
+        qt, kt, vt = (a.requires_grad_(do is not None) for a in (qt, kt, vt))
+        try:
+            with sdpa_kernel(fused):
+                with torch.no_grad():
+                    fwd = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                               enable_gqa=gqa), 3)
+                bwd = None
+                if do is not None:
+                    out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=gqa)
+                    dot = do.transpose(1, 2)
+                    bwd = cuda_ms(lambda: torch.autograd.grad(
+                        out, (qt, kt, vt), dot, retain_graph=True), 3)
+            return fwd, bwd, ("fused SDPA backend, enable_gqa" if gqa else
+                              "fused SDPA backend on k, v expanded to "
+                              "every query head (no fused backend takes "
+                              "enable_gqa here)")
+        except RuntimeError as e:
+            note = f"no fused SDPA backend takes it: {e}"[:300]
+    return None, None, note
+
+
+def _fe_attention_times(dev, g, name, what, B, S, H, K, bwd, errs) -> list:
+    """bf16 kernel and f32 FMA kernel ms from replayed graphs, the plain
+    versions' and SDPA's ms with CUDA events, and the operation bounds
+    (each product over the S (S + 1) / 2 pairs the causal mask keeps at
+    the bf16 tensor-core rate: forward 4 D a pair, backward 10 D; bytes:
+    each input read once, each output written once).  The rows of the
+    ``kernels`` line."""
+    q, k, v, do = _fe_qkv(g, dev, B, S, H, K, torch.bfloat16, bwd)
+    pairs = B * H * S * (S + 1) / 2
+    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    ms = graph_ms(lambda: flash_attention(q, k, v, causal=True), 2)
+    plain = (lambda: _mla_plain(ref.flash_attention_ref, q, k, v)) if bwd \
+        else (lambda: _prefill_plain(q, k, v))
+    plain_ms = cuda_ms(plain, 1, 0)
+    torch.cuda.empty_cache()
+    q32, k32, v32 = (a.float() for a in (q, k, v))
+    fma_ms = graph_ms(lambda: flash_attention(q32, k32, v32, causal=True),
+                      1, 2)
+    sdpa_ms, sdpa_bwd_ms, note = _sdpa_gqa_ms(q, k, v, do)
+    torch.cuda.empty_cache()
+    el = 2
+    rows = []
+    fwd_bound = _bound((2 * q.numel() + 2 * k.numel()) * el,
+                       4 * pairs * FE_HEAD_DIM)
+    rows.append({"name": f"flash_attention_{name}", "kms": ms,
+                 "fma": fma_ms, "plain": plain_ms, "lib": sdpa_ms,
+                 "bound": fwd_bound, "err": errs[torch.bfloat16][0],
+                 "err32": errs[torch.float32][0], "src": "flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention.py:81"})
+    if bwd:
+        do32 = do.float()
+        o32, lse32 = flash_attention(q32, k32, v32, causal=True,
+                                     return_lse=True)
+        bwd_ms = graph_ms(lambda: flash_attention_bwd(
+            q, k, v, o, lse, do, causal=True), 2)
+        fma_bwd_ms = graph_ms(lambda: flash_attention_bwd(
+            q32, k32, v32, o32, lse32, do32, causal=True), 1, 2)
+        del do32, o32, lse32
+        torch.cuda.empty_cache()
+        plain_bwd_ms = cuda_ms(lambda: _mla_plain(
+            ref.flash_attention_bwd_ref, q, k, v, o, lse, do), 1, 0)
+        torch.cuda.empty_cache()
+        nbytes = (4 * q.numel() + 4 * k.numel()) * el + 4 * lse.numel()
+        rows.append({"name": f"flash_attention_bwd_{name}", "kms": bwd_ms,
+                     "fma": fma_bwd_ms, "plain": plain_bwd_ms,
+                     "lib": sdpa_bwd_ms,
+                     "bound": _bound(nbytes, 10 * pairs * FE_HEAD_DIM),
+                     "err": errs[torch.bfloat16][1],
+                     "err32": errs[torch.float32][1],
+                     "src": "flash_attention_bwd.cu",
+                     "replaces": "none (JAX autodiff of src/repro/models/"
+                                 "attention.py:71)"})
+    out = []
+    for r in rows:
+        bound, by = r["bound"]
+        lib = "none" if r["lib"] is None else f"{r['lib']:.4f} ms"
+        log(f"  {r['name']} {what} ({B}, {S}, {H} / {K} heads of "
+            f"{FE_HEAD_DIM}) causal bf16: kernel {r['kms']:.4f} ms (wgmma), "
+            f"the f32 FMA kernel {r['fma']:.4f} ms, plain {r['plain']:.3f} "
+            f"ms, SDPA{' backward' if 'bwd' in r['name'] else ''} {lib} "
+            f"({note}), bound {bound:.4f} ms ({by})")
+        out.append({
+            "name": r["name"], "route": "cuda", "variant": "wgmma",
+            "source": f"src/repro_torch/kernels/csrc/{r['src']}",
+            "replaces": r["replaces"], "max_abs_err": r["err"],
+            "max_abs_err_f32": r["err32"], "ms": r["kms"],
+            "fma_ms": r["fma"], "plain_ms": r["plain"], "bound_ms": bound,
+            "bound_by": by, "library_ms": r["lib"], "library_note": note,
+            "shape": [B, S, H, K, FE_HEAD_DIM]})
+    del q, k, v, do, o, lse, q32, k32, v32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fe_attention_rows(dev, g, name, what, B, S, H, K, bwd) -> list:
+    """One shape: the bf16 and f32 checks, then the times; its kernel
+    rows."""
+    errs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        r = _fe_attention_case(dev, g, name, what, B, S, H, K, bwd, dt)
+        errs[dt] = (r["max_abs_err"], r["max_abs_err_bwd"])
+    rows = _fe_attention_times(dev, g, name, what, B, S, H, K, bwd, errs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_attention_frontends(dev) -> list:
+    """Phase 32: the attention kernels at the new shapes (a GQA group of 7
+    and of 1 at head dim 64, and the LM train step's batch and length) in
+    bf16 on the tensor cores and f32 on the FMA kernels against their
+    plain versions, then their times beside SDPA and the bounds.  Returns
+    the kernel rows."""
+    g = torch.Generator(device=dev).manual_seed(32)
+    rows = []
+    for case in _fe_attention_cases():
+        rows += _fe_attention_rows(dev, g, *case)
+    return rows
+
+
+# ----------------------------------------------------------------- phase 33
+def _fe_argv(arch: str) -> list:
+    return ["--arch", arch, "--sde", "flow_sde", "--device", "cuda",
+            "--requests", str(B_SERVE), "--max-batch", str(B_SERVE),
+            "--bucket", str(B_SERVE),
+            "--set", f"flow.num_steps={NUM_STEPS}",
+            "--set", f"flow.latent_tokens={LAT_TOKENS}",
+            "--set", f"flow.latent_dim={LAT_DIM}",
+            "--set", "param_dtype=bfloat16",
+            "--set", "data.encoder=" + json.dumps(
+                {"cond_dim": COND_DIM, "cond_len": HY_COND_LEN})]
+
+
+def frontend_serve_path(arch: str, layers: int) -> dict:
+    """``repro_torch.launch.serve.main`` serving 4 requests of ``arch`` at
+    full width and depth (bf16, random weights from a seed) over 511 + 1 +
+    4096 tokens under flow_sde, 4 steps: launch counts (``flash_attention``
+    ``layers`` a velocity, all on the tensor cores; ``sde_step`` 4 a
+    batch), s per step, req/s and peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = serve.main(_fe_argv(arch))
+    launches = counts()
+    ran = all_variants()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    stats, lat, eng = out["stats"], out["latents"], out["engine"]
+    batches = len(out["warmup"]) + sum(stats["dispatches"].values())
+    serve_batches = sum(stats["dispatches"].values())
+    want = {name: 0 for name in launches}
+    want["sde_step"] = NUM_STEPS * batches
+    want["flash_attention"] = layers * NUM_STEPS * batches
+    log(f"  {arch}: launches {launches} over {batches} batches (warmup + "
+        f"serve; expected {want}), attention variants "
+        f"{ran['flash_attention']}")
+    if eng.adapter.cfg.n_layers != layers:
+        fail(f"served {eng.adapter.cfg.n_layers} layers of {arch}")
+    if tuple(lat.shape) != (B_SERVE, LAT_TOKENS, LAT_DIM) or not \
+            torch.isfinite(lat).all():
+        fail(f"{arch} latents: shape {tuple(lat.shape)} or not finite")
+    if launches != want or ran["flash_attention"] != routed(
+            want["flash_attention"], "wgmma"):
+        fail(f"the {arch} serving path's kernel launches do not match")
+    serve_s = out["serve_s"]
+    res = {"launches": launches, "batches": batches,
+           "req_per_s": B_SERVE / serve_s,
+           "s_per_step": serve_s / (serve_batches * NUM_STEPS),
+           "serve_s": serve_s, "warmup_s": out["warmup_s"],
+           "peak_bytes": peak,
+           "n_params": params_lib.n_params(eng.adapter.spec())}
+    log(f"  {arch} serving: {res['req_per_s']:.4f} req/s, "
+        f"{res['s_per_step']:.4f} s per denoising step (batch {B_SERVE}), "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB ({peak} bytes), "
+        f"{res['n_params']} params")
+    del eng, out
+    return res
+
+
+class _FrontendWatch(_TrainWatch):
+    """``_TrainWatch`` over the attention leaves (wq/wk drawn at train
+    start, ``draw_attention``), which also keeps ``frontend_proj`` at
+    train start and its largest |gradient| at the first update."""
+
+    def __init__(self, seed: int):
+        super().__init__("attn", ("wq", "wk", "wv"), ("wq", "wk"),
+                         lambda p, cfg: draw_attention(p, cfg.d_model,
+                                                       seed=seed))
+
+    def on_train_start(self, loop):
+        super().on_train_start(loop)
+        tr = loop.trainer
+        fp = tr.state.params["backbone"]["frontend_proj"]
+        self.fp_before, self.fp_grad = fp.clone(), None
+        inner = tr.apply_grads
+
+        def apply_grads():
+            if self.fp_grad is None:
+                self.fp_grad = float(fp.grad.abs().max())
+            return inner()
+
+        tr.apply_grads = apply_grads
+
+
+def frontend_train_path(tmp: str, arch: str, layers: int) -> dict:
+    """``repro_torch.launch.train.main``: flow_grpo for 2 steps at
+    ``arch``'s full width and all its layers, phase 19's batch, T and
+    rewards over 511 + 1 + 4096 tokens, AdamW at ``FE_LR`` with weight
+    decay ``FE_WD``, wq/wk drawn at train start; musicgen-large under
+    ``perf.remat=block`` (its 3.23 B params with bf16 grads and f32
+    moments are ≈ 38.8 GB before activations; 48 layers of saved
+    activations do not fit beside them), internvl2-1b under ``none``.
+    ``train_one``'s checks, and ``frontend_proj``: a zero gradient at the
+    first update, and after the two steps each element its start times
+    (1 - lr * wd) per step, as AdamW's f32 update with no moment writes
+    it (within one bf16 rounding a step)."""
+    block = arch == "musicgen-large"
+    watch = _FrontendWatch(seed=33)
+    extra = (BLOCK if block else ()) + (
+        "--set", f"optim.lr={FE_LR}", "--set", "optim.warmup_steps=1",
+        "--set", f"optim.weight_decay={FE_WD}")
+    row, trainer = train_one(
+        tmp, arch, layers, HY_COND_LEN,
+        ("flash_attention", "flash_attention_bwd"), watch, "flow_grpo",
+        TRAIN_STEPS, extra=extra, remat="block" if block else "none",
+        routes={"flash_attention": "wgmma", "flash_attention_bwd": "wgmma"})
+    fp = trainer.state.params["backbone"]["frontend_proj"]
+    want = watch.fp_before
+    for i in range(TRAIN_STEPS):
+        lr = torch.tensor(trainer._lr(i), dtype=torch.float32,
+                          device=fp.device)
+        w32 = want.float()
+        want = (w32 - lr * (FE_WD * w32)).to(want.dtype)
+    gap = float((fp.float() - want.float()).abs().max())
+    ulp = float(want.float().abs().max()) * 2.0 ** -8 * TRAIN_STEPS
+    moved = float((fp.float() - watch.fp_before.float()).abs().max())
+    log(f"  {arch}: frontend_proj's gradient at the first update max "
+        f"{watch.fp_grad}; after {TRAIN_STEPS} steps max|p - p0 (1 - lr "
+        f"wd)^n| {gap:.3e} (bitwise: {torch.equal(fp, want)}; band "
+        f"{ulp:.3e}), moved by {moved:.3e}; remat "
+        f"{'block' if block else 'none'}")
+    if watch.fp_grad != 0.0 or gap > ulp or moved == 0.0:
+        fail(f"{arch}'s frontend_proj did not move by AdamW's decay alone")
+    row.update(frontend_proj={"grad_max": watch.fp_grad, "decay_gap": gap,
+                              "bitwise": torch.equal(fp, want),
+                              "moved": moved},
+               remat="block" if block else "none")
+    del trainer
+    return row
+
+
+def frontend_phase(dev, tmp: str) -> dict:
+    """Phase 33: each frontend arch served at all its layers, its
+    velocity at depth 2 against the plain versions (wq/wk drawn; the gap
+    at the repository's init printed), and trained at all its layers."""
+    out = {}
+    for arch, layers in FE_ARCHS.items():
+        res = {"serve": frontend_serve_path(arch, layers)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["velocity_check"] = check_dense_velocity(dev, arch, True,
+                                                     cond_len=HY_COND_LEN)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["train"] = frontend_train_path(tmp, arch, layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = res
+    return out
+
+
+# ----------------------------------------------------------------- phase 34
+def _lm_batch(cfg, stream, gen, batch: int) -> dict:
+    """One ``TokenStream`` batch on the card with the stub frontend's
+    prefix embeddings drawn from ``gen``."""
+    nb = next(stream)
+    dev = gen.device
+    return {"tokens": torch.from_numpy(nb["tokens"]).to(dev),
+            "labels": torch.from_numpy(nb["labels"]).to(dev),
+            "prefix_embed": frontends.build(cfg.frontend).embeddings(
+                gen, batch)}
+
+
+def lm_train_path(dev) -> dict:
+    """``tasks.make_train_step`` on internvl2-1b at full width and all 24
+    layers (bf16, random weights from a seed, wq/wk drawn at
+    1/sqrt(d_model)), ``train_4k``'s 4096 tokens after the 256-token
+    vision prefix, batch ``LM_BATCH`` of ``TokenStream``, the default
+    ``OptimConfig``, ``LM_STEPS`` steps: launch counts (attention forward
+    2 x 24 a step under the per-block remat, backward 24, all on the
+    tensor cores), finite metrics, params that move, s a step, tokens/s
+    (CE tokens, after the prefix), peak memory and CE, and a profile of
+    one more step."""
+    cfg = configs.get(LM_ARCH)
+    L = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(34)
+    p = tasks.init_params(cfg, gen, torch.bfloat16, dev)
+    draw_attention({"backbone": p}, cfg.d_model, seed=35)
+    step = tasks.make_train_step(cfg, OptimConfig())
+    state = tasks.TrainState(p, optim_lib.adamw_init(p))
+    stream = TokenStream(cfg.vocab_size, LM_BATCH, LM_SEQ, seed=0).batches()
+    before = {k: p["blocks"]["attn"][k].clone() for k in ("wq", "wk")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    hist = []
+    for i in range(LM_STEPS):
+        batch = _lm_batch(cfg, stream, gen, LM_BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        m = {k: float(v) for k, v in m.items()}
+        dt = time.perf_counter() - t0
+        m["dt"] = dt
+        hist.append(m)
+        log(f"  LM step {i}: {dt:.4f} s, loss {m['loss']:.4f}, ce "
+            f"{m['ce']:.4f}, grad_norm {m['grad_norm']:.4e}, lr "
+            f"{m['lr']:.3e}")
+    launches = counts()
+    ran = all_variants()
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in launches}
+    want["flash_attention"] = 2 * L * LM_STEPS
+    want["flash_attention_bwd"] = L * LM_STEPS
+    log(f"  LM train: launches {launches} (expected {want}); variants "
+        f"{ran['flash_attention']}, {ran['flash_attention_bwd']}")
+    if launches != want or ran["flash_attention"] != routed(
+            want["flash_attention"], "wgmma") or ran[
+            "flash_attention_bwd"] != routed(want["flash_attention_bwd"],
+                                             "wgmma"):
+        fail("the LM train step's kernel launches do not match the path")
+    if not all(math.isfinite(v) for m in hist for v in m.values()):
+        fail(f"the LM train step's metrics are not finite: {hist}")
+    moved = {k: float((p["blocks"]["attn"][k].float() - v.float()).abs()
+                      .max()) for k, v in before.items()}
+    if int(state.opt.step) != LM_STEPS or not all(moved.values()):
+        fail(f"the LM train step did not move the params: {moved}")
+    steady = [m["dt"] for m in hist[1:]]
+    s_step = sum(steady) / len(steady)
+    extra = [_lm_batch(cfg, stream, gen, LM_BATCH) for _ in range(2)]
+    held = [state]
+
+    def one_step():
+        held[0], _ = step(held[0], extra.pop())
+
+    prof = profile(one_step, f"one LM train step, {LM_ARCH} {L} layers, "
+                   f"batch {LM_BATCH}")
+    res = {"launches": launches, "s_per_step": [m["dt"] for m in hist],
+           "tokens_per_s": LM_BATCH * LM_SEQ / s_step,
+           "peak_bytes": peak, "ce": [m["ce"] for m in hist],
+           "loss": [m["loss"] for m in hist],
+           "grad_norm": [m["grad_norm"] for m in hist],
+           "batch": LM_BATCH, "seq": LM_SEQ,
+           "prefix": cfg.frontend.n_tokens, "layers": L, "profile": prof}
+    log(f"  LM train {LM_ARCH}, {L} layers, batch {LM_BATCH} x ({LM_SEQ} + "
+        f"{cfg.frontend.n_tokens}) tokens: {s_step:.4f} s a step (steps "
+        f"2-{LM_STEPS}), {res['tokens_per_s']:.1f} tokens/s, "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB ({peak} bytes), CE "
+        f"{res['ce']}")
+    del p, state, step, held, extra
+    return res
+
+
+def _lm_grads(step, p, batch) -> tuple:
+    """(loss, ce, grad norm, grads) of the LM loss at ``p`` (f32 sums)."""
+    leaves = [t for _, t in params_lib.leaves(p)]
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        total, ce, _ = step.loss_fn(p, batch)
+        gs = torch.autograd.grad(total, leaves, allow_unused=True)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    gs = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, gs)]
+    gnorm = math.sqrt(sum(float((g.float() ** 2).sum()) for g in gs))
+    return float(total.detach()), float(ce.detach()), gnorm, gs
+
+
+def check_lm_update(dev) -> dict:
+    """The LM loss and its gradient at internvl2-1b's full width, depth 2,
+    batch 2 of ``TokenStream`` at ``train_4k``'s length with the vision
+    prefix, wq/wk drawn: through the kernels (attention forward 2 x 2,
+    backward 2) against the plain versions, loss and ce to
+    ``LM_LOSS_BAND`` of themselves, the gradient norm to
+    ``LM_GNORM_BAND``, every leaf's gradient to ``GRAD_BAND`` of its max
+    |plain|."""
+    cfg = replace(configs.get(LM_ARCH), n_layers=UPDATE_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(36)
+    p = tasks.init_params(cfg, gen, torch.bfloat16, dev)
+    draw_attention({"backbone": p}, cfg.d_model, seed=37)
+    step = tasks.make_train_step(cfg, OptimConfig())
+    stream = TokenStream(cfg.vocab_size, 2, LM_SEQ, seed=1).batches()
+    batch = _lm_batch(cfg, stream, gen, 2)
+    n0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    k = _lm_grads(step, p, batch)
+    nk = (flash_attention.launches - n0, flash_attention_bwd.launches - b0)
+    if nk != (2 * UPDATE_LAYERS, UPDATE_LAYERS):
+        fail(f"the depth-2 LM gradient launched {nk} attention kernels")
+    with plain_dispatch():
+        pl = _lm_grads(step, p, batch)
+    loss_gap = abs(k[0] - pl[0]) / abs(pl[0])
+    ce_gap = abs(k[1] - pl[1]) / abs(pl[1])
+    gn_gap = abs(k[2] - pl[2]) / pl[2]
+    leaf_gap = max(_rel(a, b) for a, b in zip(k[3], pl[3]))
+    log(f"  LM loss at depth {UPDATE_LAYERS}, bf16, kernels vs plain: loss "
+        f"{k[0]:.6f} / {pl[0]:.6f} ({loss_gap:.2e}), ce {ce_gap:.2e} (band "
+        f"{LM_LOSS_BAND}); grad norm {k[2]:.4e} / {pl[2]:.4e} "
+        f"({gn_gap:.2e}, band {LM_GNORM_BAND}); largest leaf gradient gap "
+        f"{leaf_gap:.3e} of its max (band {GRAD_BAND})")
+    if loss_gap > LM_LOSS_BAND or ce_gap > LM_LOSS_BAND or \
+            gn_gap > LM_GNORM_BAND or leaf_gap > GRAD_BAND:
+        fail("the LM loss or its gradient through the kernels is off the "
+             "plain versions")
+    return {"loss": [k[0], pl[0]], "ce": [k[1], pl[1]],
+            "grad_norm": [k[2], pl[2]], "leaf_gap": leaf_gap}
+
+
+# ----------------------------------------------------------------- phase 35
+def _decode_cfg(arch: str):
+    """Depth 2 (the hybrid: one group of its 6 SSM blocks and the shared
+    block; deepseek: its dense first layer and one MoE layer)."""
+    cfg = configs.get(arch)
+    if cfg.family == "hybrid":
+        return replace(cfg, n_layers=cfg.hybrid.attn_every)
+    return replace(cfg, n_layers=2)
+
+
+@contextlib.contextmanager
+def ample_capacity():
+    """Every MoE group's expert capacity raised to its token count, so no
+    assignment is dropped: a forward over S tokens drops assignments at
+    capacity that a one-token decode keeps, by design, so the two agree
+    only where nothing is dropped (the reference's test runs reduced
+    sizes, where capacity is ample).  A comparison aid of this script."""
+    saved = moe_mod.capacity
+    moe_mod.capacity = lambda tokens, cfg: max(4, -(-tokens // 4) * 4)
+    try:
+        yield
+    finally:
+        moe_mod.capacity = saved
+
+
+def check_decode_vs_forward(dev, arch: str) -> dict:
+    """prefill + decode against the forward at ``arch``'s full width and
+    depth 2 (``_decode_cfg``), f32 (the MoE router's near-ties do not flip
+    between the passes), batch 2, random weights from a seed with the
+    attention's query/key projections and the SSM leaves drawn: attention
+    families prefill 511 tokens (after any frontend prefix) and decode one
+    against the forward over 512; mamba2-370m prefills 128 and decodes 128
+    one at a time against the forward over 256 (every decoded position);
+    zamba2-2.7b prefills 127 and decodes 1 against the forward over 128
+    (the scan takes whole chunks of 128).  The prefill and the forward run
+    the kernels (their launches counted), the decode none; the decode
+    logits are also held against a prefill + decode through the plain
+    versions.  Both at ``DECODE_BAND`` of max |logits|."""
+    cfg = _decode_cfg(arch)
+    Q = cfg.ssm.chunk if cfg.ssm else 0
+    S, n_pre = {"ssm": (2 * Q, Q), "hybrid": (Q, Q - 1)}.get(
+        cfg.family, (512, 511))
+    gen = torch.Generator(device=dev).manual_seed(350)
+    p = tasks.init_params(cfg, gen, torch.float32, dev)
+    bb = {"backbone": p}
+    if cfg.family in ("ssm", "hybrid"):
+        draw_ssm(bb, seed=351)
+    if cfg.family == "hybrid":
+        draw_shared_attention(bb, cfg.d_model, seed=352)
+    elif cfg.family != "ssm":
+        draw_qk_proj(bb, cfg, seed=352)
+    toks = torch.randint(0, cfg.vocab_size, (2, S), generator=gen,
+                         device=dev)
+    pe = frontends.build(cfg.frontend).embeddings(gen, 2)
+    n_prefix = cfg.frontend.n_tokens
+    prefill, dec = tasks.make_prefill_step(cfg), tasks.make_decode_step(cfg)
+    model = Backbone(cfg)
+
+    def run():
+        batch = {"tokens": toks[:, :n_pre]}
+        if pe is not None:
+            batch["prefix_embed"] = pe
+        _, caches = prefill(p, batch)
+        outs = []
+        for i in range(n_pre, S):
+            lg, caches = dec(p, caches, toks[:, i:i + 1], n_prefix + i)
+            outs.append(lg)
+        return torch.stack(outs, 1)
+
+    with ample_capacity():
+        reset_counts()
+        dec_k = run()
+        pre_launches = counts()
+        with torch.no_grad():
+            hidden = model.forward_embeds(p, model.embed_inputs(p, toks, pe))
+            full = model.logits(p, hidden[:, n_prefix + n_pre:])
+        fwd_launches = counts()
+        with plain_dispatch():
+            dec_p = run()
+    torch.cuda.synchronize()
+    n_attn = (0 if cfg.family == "ssm" else 1 if cfg.family == "hybrid"
+              else cfg.n_layers)
+    n_scan = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    want = {name: 0 for name in pre_launches}
+    want.update(flash_attention=n_attn, ssd_scan=n_scan)
+    want2 = {k: 2 * v for k, v in want.items()}
+    scale = float(full.abs().max())
+    err_fwd = float((dec_k - full).abs().max()) / scale
+    err_plain = float((dec_k - dec_p).abs().max()) / float(
+        dec_p.abs().max())
+    log(f"  {arch} depth {cfg.n_layers} f32 ({cfg.family}): prefill "
+        f"{n_pre}{f' + {n_prefix} prefix' if n_prefix else ''}, decode "
+        f"{S - n_pre}: |decode - forward| {err_fwd:.3e}, |decode - plain "
+        f"decode| {err_plain:.3e} of max|logits| (band {DECODE_BAND}); "
+        f"launches prefill {pre_launches}, + forward {fwd_launches}")
+    if pre_launches != want or fwd_launches != want2:
+        fail(f"{arch}: the prefill / forward kernel launches do not match "
+             f"(expected {want}, then {want2})")
+    if not torch.isfinite(dec_k).all() or err_fwd > DECODE_BAND or \
+            err_plain > DECODE_BAND:
+        fail(f"{arch}: decode disagrees with the forward or the plain "
+             "versions")
+    del p, bb, dec_k, dec_p, full, hidden
+    return {"err_forward": err_fwd, "err_plain": err_plain,
+            "layers": cfg.n_layers, "decoded": S - n_pre}
+
+
+def lm_prefill_decode(dev) -> dict:
+    """internvl2-1b at full width and all 24 layers, bf16, wq/wk drawn:
+    prefill at ``prefill_32k``'s length (32768 tokens after the 256-token
+    prefix) at the largest batch of ``PREFILL_BATCHES`` the card holds
+    (each larger one printed with its out-of-memory), 24 attention
+    launches; then ``LM_DECODES`` decode steps from its caches (no kernel
+    launches); prefill tokens/s, decode ms a step, peak memory; the
+    attention's check and times at that prefill's shape, its batch
+    included (``kernel_rows``, phase 32's).  Then ``decode_32k``: batch
+    128 over ``init_caches`` of 32768 entries, ``DECODE_STEPS`` steps, ms
+    a step (from the second), peak memory and a profile of one more
+    step."""
+    cfg = configs.get(LM_ARCH)
+    L, n_pre = cfg.n_layers, cfg.frontend.n_tokens
+    gen = torch.Generator(device=dev).manual_seed(38)
+    p = tasks.init_params(cfg, gen, torch.bfloat16, dev)
+    draw_attention({"backbone": p}, cfg.d_model, seed=39)
+    prefill, dec = tasks.make_prefill_step(cfg), tasks.make_decode_step(cfg)
+    fe = frontends.build(cfg.frontend)
+    res, refused = {}, {}
+    for B in PREFILL_BATCHES:
+        toks = torch.randint(0, cfg.vocab_size, (B, PREFILL_SEQ),
+                             generator=gen, device=dev)
+        batch = {"tokens": toks, "prefix_embed": fe.embeddings(gen, B)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        try:
+            t0 = time.perf_counter()
+            logits, caches = prefill(p, batch)
+            torch.cuda.synchronize()
+            pre_s = time.perf_counter() - t0
+        except torch.cuda.OutOfMemoryError as e:
+            refused[B] = str(e).splitlines()[0][:200]
+            log(f"  prefill at batch {B}: out of memory ({refused[B]})")
+        else:
+            break
+        del batch, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        fail("prefill_32k fits at no batch")
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in launches}
+    want["flash_attention"] = L
+    if launches != want or all_variants()["flash_attention"] != routed(
+            L, "wgmma") or not torch.isfinite(logits).all():
+        fail(f"the prefill's launches {launches} do not match, or its "
+             "logits are not finite")
+    tokens = B * (PREFILL_SEQ + n_pre)
+    log(f"  prefill_32k {LM_ARCH} {L} layers at batch {B}: {pre_s:.4f} s, "
+        f"{tokens / pre_s:.1f} tokens/s, max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB ({peak} bytes); launches {launches}")
+    res["prefill"] = {"batch": B, "s": pre_s, "tokens_per_s": tokens / pre_s,
+                      "peak_bytes": peak, "launches": launches,
+                      "refused": refused}
+    tok = logits.argmax(-1)[:, None]
+    reset_counts()
+    times = []
+    for i in range(LM_DECODES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = dec(p, caches, tok, PREFILL_SEQ + n_pre + i)
+        tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if any(counts().values()) or not torch.isfinite(logits).all():
+        fail(f"the decode launched kernels {counts()} or its logits are "
+             "not finite")
+    peak = torch.cuda.max_memory_allocated()
+    dec_ms = 1e3 * sum(times[1:]) / (len(times) - 1)
+    log(f"  {LM_DECODES} decode steps at batch {B} from {PREFILL_SEQ + n_pre}"
+        f" cached entries: {dec_ms:.3f} ms a step (steps 2-{LM_DECODES}), "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    res["decode"] = {"batch": B, "ms_per_step": dec_ms,
+                     "s_per_step": times, "peak_bytes": peak}
+    del caches, logits, batch, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the attention at the prefill's own shape, its batch included
+    res["kernel_rows"] = _fe_attention_rows(
+        dev, torch.Generator(device=dev).manual_seed(320), "prefill",
+        f"{LM_ARCH} prefill_32k", B, PREFILL_SEQ + n_pre, cfg.n_heads,
+        cfg.n_kv_heads, False)
+    # decode_32k: batch 128 over zero caches of 32768 entries
+    Bd, T = DECODE_SHAPE.global_batch, DECODE_SHAPE.seq_len
+    torch.cuda.reset_peak_memory_stats()
+    caches = tasks.init_caches(cfg, Bd, T, torch.bfloat16, dev)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in (caches.k, caches.v))
+    tok = torch.randint(0, cfg.vocab_size, (Bd, 1), generator=gen,
+                        device=dev)
+    times = []
+    for i in range(DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = dec(p, caches, tok, T + i)
+        tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.isfinite(logits).all():
+        fail("decode_32k's logits are not finite")
+    ms = 1e3 * sum(times[1:]) / (len(times) - 1)
+    log(f"  decode_32k {LM_ARCH} {L} layers, batch {Bd} over {T} cached "
+        f"entries (KV cache {cache_bytes / 1e9:.2f} GB): {ms:.3f} ms a step "
+        f"(steps 2-{DECODE_STEPS}), {Bd / ms * 1e3:.1f} tokens/s, "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB ({peak} bytes)")
+    res["decode_32k"] = {"batch": Bd, "cache_len": T,
+                         "cache_bytes": cache_bytes, "ms_per_step": ms,
+                         "s_per_step": times, "peak_bytes": peak,
+                         "profile": profile(
+                             lambda: dec(p, caches, tok, T + DECODE_STEPS),
+                             f"one decode_32k step, {LM_ARCH} {L} layers, "
+                             f"batch {Bd}")}
+    del caches, logits, p
+    return res
+
+
+def lm_phase(dev) -> dict:
+    """Phase 35: the decode-versus-forward checks for every arch, then the
+    32k prefill, its decodes and decode_32k."""
+    res = {"decode_checks": {}}
+    for arch in configs.ARCH_IDS + configs.PAPER_ARCHS:
+        res["decode_checks"][arch] = check_decode_vs_forward(dev, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    res.update(lm_prefill_decode(dev))
+    return res
+
+
 def _clone(tree):
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
@@ -4700,7 +5552,7 @@ def _cast(tree, dtype):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", metavar="N,N,...",
-                    help="run only these of phases 3-31 after the device and "
+                    help="run only these of phases 3-35 after the device and "
                          "build phases, and print no result lines (a "
                          "development aid; the check runs every phase)")
     args = ap.parse_args(argv)
@@ -4915,6 +5767,39 @@ def main(argv=None) -> int:
             f"{GROK_SERVE_LAYERS} layers; the velocity at depth "
             f"{UPDATE_LAYERS} against the plain versions")
         moe_res[GROK_ARCH] = grok_serve_phase(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log("[32] the attention kernels at the frontend archs' shapes (GQA "
+            "groups of 7 and 1 at head dim 64) and the LM train step's, "
+            "against their plain versions; times")
+        fe_rows = check_attention_frontends(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log("[33] the frontend archs' flow path: " + ", ".join(
+            f"{a} served and trained at {n} layers" for a, n in
+            FE_ARCHS.items()) + f"; the velocity at depth {UPDATE_LAYERS} "
+            "against the plain versions")
+        fe_res = frontend_phase(dev, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    log(f"[34] the LM train step: {LM_ARCH} at full width and depth, "
+        f"train_4k's length, batch {LM_BATCH}; at depth {UPDATE_LAYERS} "
+        "against the plain versions")
+    lm_res = {"train": lm_train_path(dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_res["update_check"] = check_lm_update(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("[35] prefill and decode: decode against the forward for every "
+        f"arch at depth 2; {LM_ARCH} prefill_32k, decodes and decode_32k")
+    lm_res.update(lm_phase(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     def by_path(name: str) -> dict:
         return {"serve": res["launches"][name],
@@ -4944,7 +5829,13 @@ def main(argv=None) -> int:
                 "serve_deepseek": moe_res[DS_ARCH]["serve"]["launches"][name],
                 "train_deepseek_block": moe_res[DS_ARCH]["train"]["block"][
                     "launches"][name],
-                "serve_grok": moe_res[GROK_ARCH]["serve"]["launches"][name]}
+                "serve_grok": moe_res[GROK_ARCH]["serve"]["launches"][name],
+                **{f"serve_{a}": fe_res[a]["serve"]["launches"][name]
+                   for a in FE_ARCHS},
+                **{f"train_{a}": fe_res[a]["train"]["launches"][name]
+                   for a in FE_ARCHS},
+                "lm_train_internvl2": lm_res["train"]["launches"][name],
+                "lm_prefill_internvl2": lm_res["prefill"]["launches"][name]}
 
     for row in rows:
         row["launches"] = train_res["launches"][row["name"]]
@@ -4979,12 +5870,29 @@ def main(argv=None) -> int:
                 ("serve_grok", moe_res[GROK_ARCH]["serve"]))}
         row["launches"] = row["launches_by_path"][path]
     rows += mla_rows
+    # the new shapes' rows, each with the launches of the path that runs
+    # it at that shape: internvl2-1b's (a group of 7) and musicgen-large's
+    # (a group of 1) flow shapes on their own serving (forwards) and train
+    # (backwards) paths, the LM train shape on the LM train step, the
+    # prefill shape (at the prefill's batch) on the 32k prefill
+    fe_rows += lm_res.pop("kernel_rows")
+    for row in fe_rows:
+        bwd = "_bwd_" in row["name"]
+        row["launches_by_path"] = by_path("flash_attention_bwd" if bwd
+                                          else "flash_attention")
+        case = row["name"].rsplit("_", 1)[1]
+        row["launches"] = row["launches_by_path"][{
+            "g7": f"{'train' if bwd else 'serve'}_internvl2-1b",
+            "g1": f"{'train' if bwd else 'serve'}_musicgen-large",
+            "lm": "lm_train_internvl2",
+            "prefill": "lm_prefill_internvl2"}[case]]
+    rows += fe_rows
     keys = ("name", "route", "variant", "source", "replaces", "launches",
             "max_abs_err", "max_rel_err", "max_rel_err_wgmma", "ms", "fma_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path", "times_by_batch", "dense_shape",
             "launch_floor_ms", "max_abs_err_f32", "forward_with_lse_ms",
-            "library_note")
+            "library_note", "shape")
     print(json.dumps({"main_path": {k: v for k, v in res.items()
                                     if k != "launches"}}))
     print(json.dumps({"train_path": {k: v for k, v in train_res.items()
@@ -5000,6 +5908,8 @@ def main(argv=None) -> int:
     print(json.dumps({"engine_path": engine_res}))
     print(json.dumps({"hybrid_path": hy_res}))
     print(json.dumps({"moe_path": moe_res}))
+    print(json.dumps({"frontend_path": fe_res}))
+    print(json.dumps({"lm_path": lm_res}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(card_line())
@@ -5041,7 +5951,11 @@ def run_only(dev, only: set) -> int:
               28: lambda: check_attention_mla(dev),
               29: lambda: deepseek_serve_phase(dev),
               30: _in_tmp(lambda tmp: deepseek_train_phase(dev, tmp)),
-              31: lambda: grok_serve_phase(dev)}
+              31: lambda: grok_serve_phase(dev),
+              32: lambda: check_attention_frontends(dev),
+              33: _in_tmp(lambda tmp: frontend_phase(dev, tmp)),
+              34: lambda: (lm_train_path(dev), check_lm_update(dev)),
+              35: lambda: lm_phase(dev)}
     for n in sorted(only):
         if n not in phases:
             fail(f"--only: phase {n} cannot run alone")

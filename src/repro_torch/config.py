@@ -1,10 +1,11 @@
 """Typed configuration of the port: the subset of ``repro.config`` that
-serving and the five trainers read.
+serving, the five trainers and the LM task path read.
 
 ``ArchConfig`` (backbone geometry, with ``MoEConfig`` for the
 mixture-of-experts FFN, ``MLAConfig`` for DeepSeek-V2's latent attention,
-``SSMConfig`` for the Mamba-2 block and ``HybridConfig`` for the Zamba2
-schedule), ``FlowRLConfig``
+``SSMConfig`` for the Mamba-2 block, ``HybridConfig`` for the Zamba2
+schedule and ``FrontendConfig`` for the stub modality frontends),
+``InputShape`` with the LM task path's ``INPUT_SHAPES``, ``FlowRLConfig``
 (trainer, SDE dynamics, rewards, preprocessing, latent geometry),
 ``OptimConfig``, ``DataConfig`` (prompt dataset and frozen encoder),
 ``DistConfig`` and ``PerfConfig`` (the (data, model) device layout and the
@@ -69,6 +70,15 @@ class HybridConfig:
 
 
 @dataclass(frozen=True)
+class FrontendConfig:
+    """Stub modality frontend: precomputed patch/frame embeddings of the
+    right shape stand in for the encoder; the decoder consumes them."""
+    kind: str = "none"         # none | vision | audio
+    n_tokens: int = 0          # prefix length contributed by the frontend
+    embed_dim: int = 0         # embedding dim delivered (projected to d_model)
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str                       # one of FAMILIES
@@ -88,6 +98,7 @@ class ArchConfig:
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
+    frontend: FrontendConfig = field(default_factory=FrontendConfig)
     # citation of the source paper / model card for this config
     source: str = ""
 
@@ -103,13 +114,8 @@ class ArchConfig:
 
     def n_params(self) -> int:
         """Total backbone parameter count, the reference's analytic one
-        (embeddings, layers and final norm).  The frontend families are
-        not ported yet and raise."""
-        if self.family not in _COUNTED_FAMILIES:
-            raise NotImplementedError(
-                f"n_params of family {self.family!r} is not ported to "
-                "repro_torch yet (ROADMAP.md Queue 1: 'Other families'); "
-                f"{_COUNTED_FAMILIES} are")
+        (embeddings, layers and final norm; a frontend's projection is not
+        counted)."""
         d = self.d_model
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         if self.family == "hybrid":
@@ -152,9 +158,6 @@ class ArchConfig:
                 + m.first_k_dense * 3 * d * self.d_ff + d)
 
 
-_COUNTED_FAMILIES = ("dit", "dense", "moe", "ssm", "hybrid")
-
-
 def _attn_params(cfg: ArchConfig, hd: int) -> int:
     d = cfg.d_model
     return (d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
@@ -181,6 +184,22 @@ def _ssm_layer_params(cfg: ArchConfig) -> int:
     in_proj = d * (2 * d_in + 2 * s.d_state + n_heads)
     return (in_proj + d_in * d + s.d_conv * (d_in + 2 * s.d_state)
             + 2 * n_heads + d)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)

@@ -1,22 +1,22 @@
 """Architecture configs of the port, registered under the ``"arch"`` kind.
 
 Each module exports ``config()`` (the full-scale config) and ``reduced()``
-(≤2 layers, CPU smoke scale).  The paper's own DiT family, the dense LM
-family, the MoE family (grok-1 and DeepSeek-V2 with its latent attention),
-the Mamba-2 SSM and the Zamba2 hybrid are ported so far; the frontend archs
-of ``repro.configs`` (``internvl2-1b``, ``musicgen-large``) come with their
-families.
+(≤2 layers, CPU smoke scale).  ``ARCH_IDS`` are the reference's ten
+assigned archs in its order (every family: dense, MoE, SSM, hybrid and the
+frontend families ``vlm`` and ``audio``), ``PAPER_ARCHS`` the paper's own
+DiT, so the ``"arch"`` kind holds the reference's eleven names.
 """
 from __future__ import annotations
 
 import importlib
+from typing import List
 
 from repro_torch import registry
 from repro_torch.config import ArchConfig
 
-# the reference's assigned archs whose family the port runs so far
-ARCH_IDS = ["zamba2-2.7b", "grok-1-314b", "yi-34b", "deepseek-v2-236b",
-            "smollm-360m", "qwen3-32b", "yi-9b", "mamba2-370m"]
+ARCH_IDS = ["zamba2-2.7b", "grok-1-314b", "yi-34b", "internvl2-1b",
+            "deepseek-v2-236b", "smollm-360m", "qwen3-32b", "yi-9b",
+            "mamba2-370m", "musicgen-large"]
 
 PAPER_ARCHS = ["flux_dit"]
 
@@ -36,6 +36,10 @@ def get(arch: str) -> ArchConfig:
 
 def get_reduced(arch: str) -> ArchConfig:
     return _load(arch).reduced()
+
+
+def all_archs() -> List[str]:
+    return list(ARCH_IDS)
 
 
 def _arch_factory(arch: str):

@@ -5,9 +5,11 @@ Latent tokens are projected into the backbone width, prefixed with projected
 condition embeddings, run through the backbone, and projected back to latent
 space.  The ``dit`` family runs bidirectionally with the timestep embedding
 as the adaLN modulation vector (a FLUX-style DiT); the other families run
-causally over ``[cond prefix; time token; latent tokens]`` (ported so far:
-the ``dense`` LM family, and the ``ssm`` family, causal by construction),
-with no sliding window (``window=0``), as the reference runs them.
+causally over ``[cond prefix; time token; latent tokens]`` (the ``ssm``
+family and the SSM blocks of the hybrid causal by construction), with no
+sliding window (``window=0``), as the reference runs them.  The frontend
+families (``vlm``, ``audio``) run as the dense family: the velocity never
+reads the frontend, so ``frontend_proj`` gets no gradient here.
 
 On a mesh with a "model" axis the adapter's own sharded leaves (the
 latent, time and condition projections) are gathered whole at the top of

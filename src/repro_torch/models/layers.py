@@ -13,6 +13,15 @@ activations are f32 and the weights bf16.  JAX's einsum promotes the pair
 to f32; ``torch.matmul`` refuses mixed dtypes, so every product takes its
 weight as ``w.to(x.dtype)``: the activation dtype, and the same tensor,
 with no launch, when the dtypes already agree.
+
+The LM head's logits (``chunked_ce_loss``, ``Backbone.logits``) follow the
+same policy: the product runs in the activation dtype (a bf16 result,
+accumulated in f32) and is upcast, so the log-sum-exp, the softmax and
+the loss are f32 as in the reference, on logits rounded once to bf16.  An
+f32 product would run at 151,655 vocabulary columns outside the tensor
+cores (``internvl2-1b``).  Decode attention (``attend_one``) and the
+cross-entropy stay plain PyTorch, as the reference computes them in jnp
+outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.params import P
 
@@ -143,6 +153,62 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     outs = [one_chunk(qg[:, c:c + chunk_q], q_positions[c:c + chunk_q])
             for c in range(0, Sq, chunk_q)]
     return torch.cat(outs, dim=1).reshape(B, Sq, H, Dv)
+
+
+def attend_one(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """One query token over every key of k, v: the reference's
+    ``attention_decode`` once the cache and the new entry are joined
+    (``attention.apply_decode`` joins them once and keeps the join as the
+    rolled cache).
+
+    q: (B, 1, H, D); k, v: (B, T, K, D); no mask (a decode cache holds
+    only valid entries; a window is enforced by the cache's length).
+    Scores, softmax and the value product in f32, p cast to q's dtype in
+    between, as the reference's."""
+    B, _, H, D = q.shape
+    K = k.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    qg = q.reshape(B, K, H // K, D).to(F32)
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k.to(F32)) * scale
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bkgt,btkd->bkgd", p.to(F32), v.to(F32))
+    return o.reshape(B, 1, H, v.shape[-1]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy (vocab can be 150k; never materialise full logits)
+# ---------------------------------------------------------------------------
+
+def _chunk_ce(h_c: torch.Tensor, y_c: torch.Tensor, w_vocab: torch.Tensor
+              ) -> torch.Tensor:
+    logits = torch.matmul(h_c, w_vocab.to(h_c.dtype)).to(F32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
+    return torch.sum(logz - gold)
+
+
+def chunked_ce_loss(hidden: torch.Tensor, w_vocab: torch.Tensor,
+                    labels: torch.Tensor, *, chunk: int = 512
+                    ) -> torch.Tensor:
+    """hidden: (B, S, d); w_vocab: (d, V); labels: (B, S) integers.
+
+    Loops over sequence chunks so the (tokens, V) logit block peaks at
+    B*chunk*V instead of B*S*V; with grad enabled each chunk runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward (the
+    reference's ``jax.checkpoint``).  A ragged tail (S not a multiple of
+    ``chunk``) is one more, shorter chunk.  Returns the f32 mean."""
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    ckpt = torch.is_grad_enabled()
+    total = None
+    for c in range(0, S, chunk):
+        args = (hidden[:, c:c + chunk], labels[:, c:c + chunk], w_vocab)
+        part = (checkpoint(_chunk_ce, *args, use_reentrant=False,
+                           preserve_rng_state=False) if ckpt
+                else _chunk_ce(*args))
+        total = part if total is None else total + part
+    return total / (B * S)
 
 
 # ---------------------------------------------------------------------------

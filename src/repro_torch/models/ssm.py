@@ -8,7 +8,9 @@ plain chunked version on a CPU tensor.  Rounding follows the reference:
 depthwise conv accumulates tap by tap in f32, then applies silu and casts;
 softplus of dt runs in f32; ``d_skip`` is added in the activation dtype; the
 gated RMSNorm and an f32-accumulated ``out_proj`` come last.  The one-token
-decode path (``apply_decode``, ``ssd_decode_step``) is not ported yet.
+decode path (``apply_decode``, ``ssd_decode_step``) is plain PyTorch, as the
+reference computes it in jnp: the conv over the cached inputs and the new
+one, then one step of the recurrence on the f32 state.
 
 Shapes (per layer):
   x   (B, L, H, P)   values (H = d_inner/head_dim heads, P = head_dim)
@@ -111,3 +113,53 @@ def apply_full(p: Dict, cfg: ArchConfig, x: torch.Tensor, *,
         cache = SSMCache(conv=conv_in[:, S - (m["d_conv"] - 1):, :],
                          state=final_state)
     return out, cache
+
+
+def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+                    a: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-token recurrence. state (B,H,P,N); x (B,H,P); dt (B,H);
+    bm/cm (B,N). Returns (y (B,H,P), new_state (f32))."""
+    dA = torch.exp(dt.to(F32) * a.to(F32))                # (B,H)
+    upd = torch.einsum("bh,bn,bhp->bhpn", dt.to(F32), bm.to(F32),
+                       x.to(F32))
+    new_state = state.to(F32) * dA[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", new_state, cm.to(F32))
+    return y.to(x.dtype), new_state
+
+
+def apply_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor, cache: SSMCache
+                 ) -> Tuple[torch.Tensor, SSMCache]:
+    """One-token decode. x: (B, 1, d).  Returns the output and the new
+    cache (the conv window moved by one; the state after this token)."""
+    m = dims(cfg)
+    B = x.shape[0]
+    zxbcdt = torch.matmul(x, p["in_proj"].to(x.dtype)).to(x.dtype)
+    z, xin, bc, dt_raw = _split_proj(cfg, zxbcdt)
+    conv_in = torch.cat([xin, bc], dim=-1)                 # (B,1,conv_dim)
+    full = torch.cat([cache.conv.to(x.dtype), conv_in], dim=1)
+    co = (full.to(F32) * p["conv_w"].to(F32)[None]).sum(dim=1) \
+        + p["conv_b"].to(F32)
+    co = F.silu(co).to(x.dtype)                            # (B, conv_dim)
+    xin1 = co[:, :m["d_in"]].reshape(B, m["H"], m["P"])
+    bm1 = co[:, m["d_in"]:m["d_in"] + m["N"]]
+    cm1 = co[:, m["d_in"] + m["N"]:]
+    dt = F.softplus(dt_raw[:, 0].to(F32) + p["dt_bias"].to(F32))
+    a = -torch.exp(p["a_log"].to(F32))
+    y, new_state = ssd_decode_step(cache.state, xin1, dt, a, bm1, cm1)
+    y = y + xin1 * p["d_skip"].to(x.dtype)[None, :, None]
+    y = y.reshape(B, 1, m["d_in"])
+    y = layers.rmsnorm(p["norm"], y * F.silu(z.to(F32)).to(x.dtype),
+                       cfg.norm_eps)
+    out = torch.matmul(y, p["out_proj"].to(y.dtype)).to(x.dtype)
+    return out, SSMCache(conv=full[:, 1:, :], state=new_state)
+
+
+def init_cache_shapes(cfg: ArchConfig, batch: int):
+    m = dims(cfg)
+    return {
+        "conv": ((batch, m["d_conv"] - 1, m["conv_dim"]),
+                 ("batch", None, "inner")),
+        "state": ((batch, m["H"], m["P"], m["N"]),
+                  ("batch", "ssm_heads", None, None)),
+    }

@@ -18,8 +18,10 @@ _REGISTRY: Dict[str, Dict[str, Any]] = {}
 KINDS = ("adapter", "trainer", "reward", "scheduler", "arch", "frontend",
          "aggregator", "optimizer", "dataset")
 
-# the port's registering modules (the slices ported so far)
+# the port's registering modules (the reference's registering modules'
+# counterparts)
 AUTOLOAD = ("repro_torch.core.schedulers", "repro_torch.models.flow",
+            "repro_torch.models.frontends",
             "repro_torch.configs", "repro_torch.core.rewards",
             "repro_torch.optim", "repro_torch.data.prompts",
             "repro_torch.core.trainers")

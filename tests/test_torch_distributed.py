@@ -45,7 +45,7 @@ from torch_parity import COND_DIM, COND_LEN, normal, to_torch
 from torch_parity import one_torch_thread  # noqa: F401  (autouse fixture)
 
 ARCHS = ["flux_dit", "mamba2-370m", "smollm-360m", "zamba2-2.7b",
-         "grok-1-314b", "deepseek-v2-236b"]
+         "grok-1-314b", "deepseek-v2-236b", "internvl2-1b", "musicgen-large"]
 
 
 # ------------------------------------------------------- the plan's dims
@@ -342,6 +342,32 @@ def test_hybrid_checkpoint_moves_between_layouts_bitwise(four_ranks):
     assert (step, shards_equal, gathered_equal) == (2, True, True)
     assert rep["per_device_bytes"] < 0.3 * rep["total_bytes"]
     assert np.isfinite(res["mp4_continues"])
+
+
+@pytest.fixture(scope="module")
+def frontend_four_ranks(tmp_path_factory):
+    return worker.spawn(4, "frontend_four_ranks",
+                        tmp_path_factory.mktemp("frontend_four"), 240)
+
+
+@pytest.mark.parametrize("arch", ["internvl2-1b", "musicgen-large"])
+def test_frontend_two_axis_training_matches_single_device(
+        frontend_four_ranks, arch):
+    """flow_grpo on the narrowed frontend arch
+    (``torch_dist_worker.frontend_arch``) at dp = 2 x mp = 2 on four gloo
+    ranks, 2 steps against one device in the reference's band;
+    ``frontend_proj`` (axes (None, "embed")) shards its second dim over
+    "model" as the plan's rule says, gets no gradient on the flow path and
+    so comes back bitwise (AdamW without decay)."""
+    h_ref, h, params_ref, params, rep, dim, before = \
+        frontend_four_ranks[arch]
+    _close(h_ref, h, params_ref, params, f"{arch} dp2xmp2")
+    assert rep["sharded_leaves"] > 0
+    assert rep["per_device_bytes"] < 0.55 * rep["total_bytes"]
+    assert dim == 1
+    np.testing.assert_array_equal(params["backbone.frontend_proj"], before)
+    np.testing.assert_array_equal(params_ref["backbone.frontend_proj"],
+                                  before)
 
 
 def test_sharded_serving_is_per_request_bitwise(two_ranks):

@@ -11,7 +11,6 @@ from repro.models import layers as jlayers
 from repro.models import params as jparams
 from repro_torch.models import layers as tlayers
 from repro_torch.models import params as tparams
-from repro_torch.models.backbone import Backbone
 
 from torch_parity import (COND_DIM, COND_LEN, LATENT_DIM, LATENT_TOKENS,
                           adapters, normal, params_pair, to_torch)
@@ -51,18 +50,6 @@ def test_full_flux_dit_spec_matches_jax():
             == {p: l.shape for p, l in _spec_leaves(tspec)})
     # ≈8.1 B parameters at full width
     assert 8.0e9 < tparams.n_params(tspec) < 8.3e9
-
-
-def test_other_families_are_not_ported():
-    from repro_torch.config import ArchConfig, SSMConfig
-    # the hybrid (zamba2-2.7b) and the MoE family (grok-1-314b,
-    # deepseek-v2-236b) are ported; the frontend families are not yet
-    for family in ("vlm", "audio"):
-        cfg = ArchConfig(name="x", family=family, n_layers=1, d_model=8,
-                         n_heads=1, n_kv_heads=1, d_ff=8, vocab_size=8,
-                         ssm=SSMConfig(d_state=4, head_dim=4, chunk=4))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Backbone(cfg)
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])

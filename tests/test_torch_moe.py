@@ -414,8 +414,8 @@ def test_mla_apply_full_matches_jax(causal):
     x = _x((2, 24, jc.d_model), 7)
     want, _ = jmla.apply_full(jax.tree.map(jnp.asarray, p), jc,
                               jnp.asarray(x), causal=causal)
-    got = tmla.apply_full(tparams.from_numpy(p, "cpu"), tc,
-                          torch.from_numpy(x), causal=causal)
+    got, _ = tmla.apply_full(tparams.from_numpy(p, "cpu"), tc,
+                             torch.from_numpy(x), causal=causal)
     want = np.asarray(want)
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=0,

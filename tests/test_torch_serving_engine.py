@@ -869,15 +869,6 @@ def test_describe_arch_equals_the_reference(arch, reduced):
         assert got["arch"]["n_params"] == 5_939_371_008
 
 
-def test_n_params_of_unported_families_raises():
-    # the hybrid and MoE families are counted; the frontend families are
-    # not ported yet
-    cfg = dataclasses.replace(tconfigs.get_reduced("smollm-360m"),
-                              family="vlm")
-    with pytest.raises(NotImplementedError, match="vlm"):
-        cfg.n_params()
-
-
 # --------------------------------------------------------- fuzz harness
 #
 # A deterministic seeded fuzzer over submit/poll/fetch/drain interleavings

@@ -16,9 +16,9 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import checkpoint, configs, distributed, registry
-from repro_torch.config import (DistConfig, FlowRLConfig, HybridConfig,
-                                MLAConfig, MoEConfig, OptimConfig,
-                                RewardSpec, SSMConfig)
+from repro_torch.config import (DistConfig, FlowRLConfig, FrontendConfig,
+                                HybridConfig, MLAConfig, MoEConfig,
+                                OptimConfig, RewardSpec, SSMConfig)
 from repro_torch.models import params as tparams
 
 COND_LEN, COND_DIM = 4, 32
@@ -71,6 +71,22 @@ def moe_arch(name):
                       expert_d_ff=32, first_k_dense=1),
         mla=MLAConfig(kv_lora_rank=32, q_lora_rank=32, qk_nope_head_dim=16,
                       qk_rope_head_dim=8, v_head_dim=16))
+
+
+def frontend_arch(name):
+    """The frontend archs narrowed for the CPU, width 64: internvl2-1b (4
+    query heads over 2 kv heads of 16, a vision prefix of 64-wide
+    embeddings) and musicgen-large (4 heads of 16, an audio prefix of
+    32-wide ones).  The flow path never reads the prefix: frontend_proj
+    (embed_dim, 64) shards its "embed" dim over "model" and gets no
+    gradient."""
+    cfg = configs.get_reduced(name)
+    kv = 2 if name == "internvl2-1b" else 4
+    return dataclasses.replace(
+        cfg, d_model=64, n_heads=4, n_kv_heads=kv, head_dim=16, d_ff=128,
+        vocab_size=64, frontend=FrontendConfig(
+            kind=cfg.frontend.kind, n_tokens=4,
+            embed_dim=64 if name == "internvl2-1b" else 32))
 
 
 def build(tname, dist_cfg=None, mesh=None, rewards=REWARDS, arch_cfg=None,
@@ -323,8 +339,30 @@ def moe_four_ranks(tmp):
     return out
 
 
+def frontend_four_ranks(tmp):
+    """dp=2 x mp=2 against one device for flow_grpo on both frontend
+    archs; with each the plan's dim for frontend_proj and the leaf before
+    and after (canonical)."""
+    out = {}
+    for name in ("internvl2-1b", "musicgen-large"):
+        cfg = frontend_arch(name)
+        ref, h_ref = train("flow_grpo", mesh=None, dist_cfg=DistConfig(),
+                           arch_cfg=cfg)
+        before = canonical_params(build("flow_grpo", DistConfig(),
+                                        mesh=None, arch_cfg=cfg))
+        tr, h = train("flow_grpo",
+                      DistConfig(data_parallel=2, model_parallel=2),
+                      arch_cfg=cfg)
+        dim = tr.plan.param_specs()["backbone"]["frontend_proj"]
+        out[name] = (h_ref, h, canonical_params(ref), canonical_params(tr),
+                     tr.plan.bytes_report(tr.state), dim,
+                     before["backbone.frontend_proj"])
+    return out
+
+
 SCENARIOS = {"two_ranks": two_ranks, "four_ranks": four_ranks,
-             "moe_four_ranks": moe_four_ranks}
+             "moe_four_ranks": moe_four_ranks,
+             "frontend_four_ranks": frontend_four_ranks}
 
 
 def run(rank, world, store, scenario, out):
