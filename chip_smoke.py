@@ -313,7 +313,11 @@ script exits 2 before printing any result.
    (the global batch of 256 cut to one card), 3 steps: launch counts
    (attention forward 2 x 24 a step under the per-block remat, backward
    24), s a step, tokens/s, peak memory, CE and a profile of one step;
-   then at depth 2 the loss,
+   the step's MFU and hardware FLOP share from the cost model
+   (``launch.costs``, both below 100 %), and ``launch.dryrun`` of the same
+   step on meta tensors (one-rank layout), its predicted peak within 10 %
+   of the measured one (``max_memory_allocated`` over what was allocated
+   before the params); then at depth 2 the loss,
    ce, gradient norm and every leaf's gradient through the kernels
    against the plain versions.
 35. Prefill and decode.  For every arch the reference registers (all 11)
@@ -332,14 +336,22 @@ script exits 2 before printing any result.
    with its times as phase 32's; and ``decode_32k``: batch 128 over zero
    caches of 32768 entries (a 51.5 GB KV cache): tokens/s, ms a step,
    peak memory, and a profile of one decode_32k step.
-36. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
+36. The sweep: ``python -m repro_torch.launch.sweep`` in train
+   mode over ``flow.trainer_type=flow_grpo,awm``, a base config of
+   smollm-360m at full width and 8 of its 32 layers, 2 steps a combo, each
+   combo its own ``launch.train`` process on the card; its kernel counts
+   (written at its exit, ``REPRO_KERNEL_COUNTS``) against the path, 2
+   finite history rows an artifact, and a rerun that skips both.
+37. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
    ``ssm_train_path``, ``perf_path``, ``distributed_path``,
    ``engine_path``, ``hybrid_path``, ``moe_path``, ``frontend_path``,
-   ``lm_path`` and ``kernels`` JSON lines, the card's name and power
-   limit, and the last line ``{"ok": true, "device": {...}}``.
+   ``lm_path``, ``sweep_path``, ``phase_times`` and ``kernels`` JSON
+   lines, the card's name and power limit, and the last line ``{"ok":
+   true, "device": {...}}``.
 
-``--only N,...`` runs just the device and build phases and phases N (3 and
-8-35) and prints no result lines: a development aid.
+Each phase prints its seconds as it ends (``[N] took ... s``), and the
+script the total.  ``--only N,...`` runs just the device and build phases
+and phases N (3 and 8-36) and prints no result lines: a development aid.
 """
 from __future__ import annotations
 
@@ -357,6 +369,8 @@ import tempfile
 import time
 from pathlib import Path
 
+T_START = time.perf_counter()
+
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 # deepseek-v2-236b's training (phase 30) fits one card only with the
@@ -372,8 +386,8 @@ from repro_torch.api import Experiment  # noqa: E402
 from repro_torch.api import loop as loop_lib  # noqa: E402
 from repro_torch import optim as optim_lib  # noqa: E402
 from repro_torch.config import (INPUT_SHAPES, FlowRLConfig,  # noqa: E402
-                                OptimConfig, PerfConfig, RewardSpec,
-                                replace)
+                                InputShape, OptimConfig, PerfConfig,
+                                RewardSpec, replace)
 from repro_torch.core.rollout import (  # noqa: E402
     request_draws, request_seeds, rollout_keyed)
 from repro_torch.data import TokenStream, synthetic_prompts  # noqa: E402
@@ -387,7 +401,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.grpo_loss import grpo_loss, grpo_loss_bwd  # noqa: E402
 from repro_torch.kernels.sde_step import sde_step  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd  # noqa: E402
-from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch import costs as costs_lib  # noqa: E402
+from repro_torch.launch import dryrun, serve, train  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import frontends, tasks  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import params as params_lib  # noqa: E402
@@ -422,6 +438,37 @@ PATH_ATTN_BAND = 2e-2
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# the running phase and the seconds each phase took, from ``begin`` to the
+# next ``begin`` or ``end_phase``
+_PHASE = {"n": None, "t0": 0.0, "secs": {}}
+
+
+def end_phase() -> None:
+    """Close the running phase: print and keep its seconds."""
+    n = _PHASE["n"]
+    if n is not None:
+        secs = time.perf_counter() - _PHASE["t0"]
+        _PHASE["secs"][str(n)] = round(secs, 1)
+        log(f"    [{n}] took {secs:.1f} s")
+        _PHASE["n"] = None
+
+
+def begin(n: int, msg: str) -> None:
+    """Close the running phase and start phase ``n``."""
+    end_phase()
+    log(f"[{n}] {msg}")
+    _PHASE["n"], _PHASE["t0"] = n, time.perf_counter()
+
+
+def phase_times() -> dict:
+    """The per-phase seconds so far and the total since the script
+    started."""
+    end_phase()
+    total = time.perf_counter() - T_START
+    log(f"[time] phases {json.dumps(_PHASE['secs'])}; total {total:.1f} s")
+    return {"phase_s": dict(_PHASE["secs"]), "total_s": round(total, 1)}
 
 
 def fail(msg: str) -> None:
@@ -4773,6 +4820,10 @@ DECODE_BAND = 1e-3       # max |decode - forward| / max |forward logits|
 # versions, bf16: the loss to 1e-3 of itself, the gradient norm to 2e-2,
 # each leaf's gradient to GRAD_BAND of its max |plain|
 LM_LOSS_BAND, LM_GNORM_BAND = 1e-3, 2e-2
+# phase 34's step as the cost model and the dry run see it
+LM_SHAPE = InputShape("train_4k_b8", LM_SEQ, LM_BATCH, "train")
+# the dry run's predicted peak against the card's, relative
+DRYRUN_BAND = 0.10
 
 
 def _fe_attention_cases() -> list:
@@ -5175,15 +5226,20 @@ def lm_train_path(dev) -> dict:
     one more step."""
     cfg = configs.get(LM_ARCH)
     L = cfg.n_layers
+    # the step's own peak: everything allocated from here on (the params,
+    # the moments, the batches, the steps), over what earlier phases hold
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     gen = torch.Generator(device=dev).manual_seed(34)
     p = tasks.init_params(cfg, gen, torch.bfloat16, dev)
     draw_attention({"backbone": p}, cfg.d_model, seed=35)
     step = tasks.make_train_step(cfg, OptimConfig())
     state = tasks.TrainState(p, optim_lib.adamw_init(p))
     stream = TokenStream(cfg.vocab_size, LM_BATCH, LM_SEQ, seed=0).batches()
-    before = {k: p["blocks"]["attn"][k].clone() for k in ("wq", "wk")}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    # kept on the host, so the device peak is the step's alone
+    before = {k: p["blocks"]["attn"][k].to("cpu", copy=True)
+              for k in ("wq", "wk")}
     reset_counts()
     hist = []
     for i in range(LM_STEPS):
@@ -5201,6 +5257,7 @@ def lm_train_path(dev) -> dict:
     launches = counts()
     ran = all_variants()
     peak = torch.cuda.max_memory_allocated()
+    measured = peak - base
     want = {name: 0 for name in launches}
     want["flash_attention"] = 2 * L * LM_STEPS
     want["flash_attention_bwd"] = L * LM_STEPS
@@ -5213,8 +5270,8 @@ def lm_train_path(dev) -> dict:
         fail("the LM train step's kernel launches do not match the path")
     if not all(math.isfinite(v) for m in hist for v in m.values()):
         fail(f"the LM train step's metrics are not finite: {hist}")
-    moved = {k: float((p["blocks"]["attn"][k].float() - v.float()).abs()
-                      .max()) for k, v in before.items()}
+    moved = {k: float((p["blocks"]["attn"][k].cpu().float() - v.float())
+                      .abs().max()) for k, v in before.items()}
     if int(state.opt.step) != LM_STEPS or not all(moved.values()):
         fail(f"the LM train step did not move the params: {moved}")
     steady = [m["dt"] for m in hist[1:]]
@@ -5227,9 +5284,13 @@ def lm_train_path(dev) -> dict:
 
     prof = profile(one_step, f"one LM train step, {LM_ARCH} {L} layers, "
                    f"batch {LM_BATCH}")
+    shares = lm_step_shares(cfg, s_step)
+    dry = lm_dryrun_peak(cfg, measured)
     res = {"launches": launches, "s_per_step": [m["dt"] for m in hist],
            "tokens_per_s": LM_BATCH * LM_SEQ / s_step,
-           "peak_bytes": peak, "ce": [m["ce"] for m in hist],
+           "peak_bytes": peak, "step_peak_bytes": measured,
+           "cost_model": shares, "dryrun": dry,
+           "ce": [m["ce"] for m in hist],
            "loss": [m["loss"] for m in hist],
            "grad_norm": [m["grad_norm"] for m in hist],
            "batch": LM_BATCH, "seq": LM_SEQ,
@@ -5241,6 +5302,53 @@ def lm_train_path(dev) -> dict:
         f"{res['ce']}")
     del p, state, step, held, extra
     return res
+
+
+def lm_step_shares(cfg, s_step: float) -> dict:
+    """The LM train step's shares of the card's bf16 peak from the cost
+    model (``launch.costs``) at the step's shape (``LM_BATCH`` x 4096 text
+    tokens; the model counts no prefix token): MFU = model FLOPs (6 N_active
+    a token) / s a step / peak, and the hardware share = the FLOPs the
+    kernel path runs (4 forwards under the per-block remat, causal
+    attention halved) / s a step / peak.  Both must be below 1."""
+    c = costs_lib.step_costs(cfg, LM_SHAPE)
+    peak = mesh_lib.PEAK_FLOPS_BF16
+    out = {"model_flops": c.model_flops, "flops_kernel": c.flops_kernel,
+           "s_per_step": s_step, "mfu": c.model_flops / s_step / peak,
+           "hw_flops_share": c.flops_kernel / s_step / peak,
+           "peak_flops_bf16": peak}
+    log(f"  LM train step cost model: {c.model_flops:.4e} model FLOPs, "
+        f"{c.flops_kernel:.4e} kernel-path FLOPs a step; at {s_step:.4f} s "
+        f"a step MFU {100 * out['mfu']:.2f} %, hardware FLOP share "
+        f"{100 * out['hw_flops_share']:.2f} % of {peak:.3e} FLOP/s "
+        f"({mesh_lib.CARD} datasheet peak)")
+    if not (0 < out["mfu"] < 1 and 0 < out["hw_flops_share"] < 1):
+        fail(f"the LM step's FLOP shares are not below 100 %: {out}")
+    return out
+
+
+def lm_dryrun_peak(cfg, measured: int) -> dict:
+    """``launch.dryrun`` of phase 34's step on meta tensors (the same arch
+    and depth, ``LM_BATCH``, per-block remat, ``OptimConfig()``; the
+    one-rank layout): its predicted peak bytes against the measured one
+    (``max_memory_allocated`` over what was allocated before the params),
+    to ``DRYRUN_BAND``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = dryrun.run_one(LM_ARCH, LM_SHAPE, one_rank=True, out_dir=tmp,
+                             cfg=cfg)
+    pred = rec["memory"]["peak_bytes"]
+    ratio = pred / measured
+    out = {"predicted_peak_bytes": pred, "measured_peak_bytes": measured,
+           "ratio": ratio, "argument_bytes": rec["memory"]["argument_bytes"],
+           "temp_bytes": rec["memory"]["temp_bytes"], "run_s": rec["run_s"],
+           "collectives": rec["collectives"]["_total"]["count"]}
+    log(f"  dry run of the LM step (meta, one rank, {rec['run_s']} s): "
+        f"predicted peak {pred} bytes (arguments {out['argument_bytes']}, "
+        f"temporaries {out['temp_bytes']}), measured {measured} bytes, "
+        f"ratio {ratio:.4f} (band {DRYRUN_BAND})")
+    if abs(ratio - 1) > DRYRUN_BAND or out["collectives"]:
+        fail(f"the dry run's peak is off the measured one: {out}")
+    return out
 
 
 def _lm_grads(step, p, batch) -> tuple:
@@ -5525,6 +5633,94 @@ def lm_prefill_decode(dev) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 36
+SWEEP_LAYERS, SWEEP_STEPS = 8, 2
+SWEEP_TRAINERS = ("flow_grpo", "awm")
+
+
+def sweep_path(tmp: str) -> dict:
+    """``python -m repro_torch.launch.sweep`` in train mode on the card: a
+    base config of smollm-360m at full width and ``SWEEP_LAYERS`` of its 32
+    layers (``arch_overrides``) in phase 17's geometry, ``--steps 2`` over
+    ``--grid flow.trainer_type=flow_grpo,awm``.  Each combo is a fresh
+    ``repro_torch.launch.train`` process on the card, whose kernel
+    counters start at 0 and are written at its exit
+    (``REPRO_KERNEL_COUNTS``): they must match the path
+    (``_train_want``; the attention on the tensor cores); each artifact
+    must hold 2 finite history rows; the same command again skips both."""
+    work = os.path.join(tmp, "sweep")
+    kdir = os.path.join(work, "kernel_counts")
+    os.makedirs(kdir)
+    base = os.path.join(work, "base.json")
+    with open(base, "w") as f:
+        json.dump({"arch": DENSE_ARCH, "param_dtype": "bfloat16",
+                   "arch_overrides": {"n_layers": SWEEP_LAYERS},
+                   "flow": {"sde_type": "flow_sde", "num_steps": NUM_STEPS,
+                            "group_size": GROUP, "latent_tokens": LAT_TOKENS,
+                            "latent_dim": LAT_DIM, "advantage_agg": "gdpo",
+                            "rewards": TRAIN_REWARDS,
+                            "cache_dir": os.path.join(work, "cache")},
+                   "data": {"encoder": {"cond_dim": COND_DIM,
+                                        "cond_len": COND_LEN},
+                            "batch_prompts": PROMPTS,
+                            "n_prompts": PROMPTS * SWEEP_STEPS},
+                   "loop": {"save_every": 0, "log_every": 1}}, f)
+    cmd = [sys.executable, "-m", "repro_torch.launch.sweep", "--config",
+           base, "--steps", str(SWEEP_STEPS), "--device", "cuda", "--grid",
+           "flow.trainer_type=" + ",".join(SWEEP_TRAINERS)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=work, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=dict(env, REPRO_KERNEL_COUNTS=kdir))
+    out, err = proc.communicate(timeout=600)
+    first_s = time.perf_counter() - t0
+    log("  " + out.strip().replace("\n", "\n  "))
+    if proc.returncode != 0 or out.count("[ok]") != len(SWEEP_TRAINERS):
+        fail(f"the sweep failed (rc {proc.returncode}): {out}\n{err[-3000:]}")
+    # the combos' counters in the order they ran, the sweep's own left out
+    files = sorted((f for f in os.listdir(kdir)
+                    if f != f"{proc.pid}.json"),
+                   key=lambda f: os.path.getmtime(os.path.join(kdir, f)))
+    if len(files) != len(SWEEP_TRAINERS):
+        fail(f"the sweep's combos wrote {len(files)} kernel counts")
+    res = {"combos": {}, "s_first": first_s}
+    for name, fname in zip(SWEEP_TRAINERS, files):
+        with open(os.path.join(kdir, fname)) as f:
+            got = json.load(f)
+        want = _train_want(name, SWEEP_STEPS, SWEEP_LAYERS,
+                           "flash_attention", "flash_attention_bwd")
+        launches = {k: got[k] for k in want}
+        art = os.path.join(work, "experiments", "sweep",
+                           f"flow_trainer_type={name}.json")
+        with open(art) as f:
+            hist = json.load(f)
+        finite = all(math.isfinite(v) for r in hist for v in r.values()
+                     if isinstance(v, float))
+        log(f"  {name}: launches {launches} (expected {want}); "
+            f"{len(hist)} history rows, loss "
+            f"{[r['loss'] for r in hist]}")
+        if launches != want or got["flash_attention/wgmma"] != want[
+                "flash_attention"] or got["flash_attention_bwd/wgmma"] != \
+                want["flash_attention_bwd"]:
+            fail(f"the sweep's {name} combo's launches do not match the "
+                 f"path: {got}")
+        if len(hist) != SWEEP_STEPS or not finite:
+            fail(f"the sweep's {name} artifact is not {SWEEP_STEPS} finite "
+                 f"rows: {hist}")
+        res["combos"][name] = {"launches": launches, "history": hist}
+    t0 = time.perf_counter()
+    again = subprocess.run(cmd, cwd=work, capture_output=True, text=True,
+                           timeout=120, env=env)
+    res["s_rerun"] = time.perf_counter() - t0
+    if again.returncode != 0 or again.stdout.count("[skip]") != len(
+            SWEEP_TRAINERS):
+        fail(f"the sweep's rerun did not skip both combos: {again.stdout}")
+    log(f"  sweep: {first_s:.1f} s for {len(SWEEP_TRAINERS)} combos, the "
+        f"rerun {res['s_rerun']:.1f} s skipping both")
+    return res
+
+
 def lm_phase(dev) -> dict:
     """Phase 35: the decode-versus-forward checks for every arch, then the
     32k prefill, its decodes and decode_32k."""
@@ -5552,7 +5748,7 @@ def _cast(tree, dtype):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", metavar="N,N,...",
-                    help="run only these of phases 3-35 after the device and "
+                    help="run only these of phases 3-36 after the device and "
                          "build phases, and print no result lines (a "
                          "development aid; the check runs every phase)")
     args = ap.parse_args(argv)
@@ -5566,16 +5762,17 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     cap = torch.cuda.get_device_capability(dev)
     card = card_line()
-    log(f"[1] device: {torch.cuda.get_device_name(dev)} capability {cap}; "
+    begin(1, f"device: {torch.cuda.get_device_name(dev)} capability {cap}; "
         f"torch {torch.__version__} CUDA {torch.version.cuda}")
     log(card)
     if cap != (9, 0):
         fail(f"capability {cap}, the kernels are built for sm_90a")
 
+    begin(2, "build: one nvcc per source in parallel")
     t0 = time.perf_counter()
     secs = _build.build_all()
-    log(f"[2] build: {json.dumps(secs)} ({time.perf_counter() - t0:.2f} s "
-        f"wall, one nvcc per source in parallel)")
+    log(f"    build: {json.dumps(secs)} ({time.perf_counter() - t0:.2f} s "
+        f"wall)")
     for name in _build.sources():
         _build.load(name)
     for name in ("flash_attention", "flash_attention_bwd", "ssd_scan",
@@ -5588,96 +5785,96 @@ def main(argv=None) -> int:
     if only:
         return run_only(dev, only)
 
-    log("[3] kernels against their plain versions")
+    begin(3, "kernels against their plain versions")
     rows = [check_sde(dev), check_attention(dev), check_attention_bwd(dev),
             *check_grpo(dev)]
 
-    log("[4] velocity at full width, depth 2")
+    begin(4, "velocity at full width, depth 2")
     check_velocity(dev)
     torch.cuda.empty_cache()
 
-    log("[5] main path: repro_torch.launch.serve, full flux_dit")
+    begin(5, "main path: repro_torch.launch.serve, full flux_dit")
     res = main_path()
     eng, lat_zero = res.pop("engine"), res.pop("latents")
 
-    log("[6] profile of one denoising step of the engine")
+    begin(6, "profile of one denoising step of the engine")
     res["profile"] = profile_step(eng, SEQ)
 
-    log("[7] drawn modulation: served through the kernels vs plain replay")
+    begin(7, "drawn modulation: served through the kernels vs plain replay")
     res["modulated"] = check_modulated(eng, lat_zero)
     del eng, lat_zero
     gc.collect()
     torch.cuda.empty_cache()
 
-    log(f"[8] train path: repro_torch.launch.train, flux_dit at full width, "
+    begin(8, f"train path: repro_torch.launch.train, flux_dit at full width, "
         f"{TRAIN_LAYERS} blocks")
     with tempfile.TemporaryDirectory() as tmp:
         train_res = train_path(tmp)
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("[9] one update of each trainer through the kernels vs the plain "
+    begin(9, "one update of each trainer through the kernels vs the plain "
         "versions")
     update_res = check_updates(dev)
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("[10] ssd_scan against its plain versions")
+    begin(10, "ssd_scan against its plain versions")
     ssd_row = check_ssd(dev)
 
-    log(f"[11] velocity of {SSM_ARCH} at full width, depth 2")
+    begin(11, f"velocity of {SSM_ARCH} at full width, depth 2")
     ssm_vel = check_ssm_velocity(dev)
     gc.collect()
     torch.cuda.empty_cache()
 
-    log(f"[12] ssm path: repro_torch.launch.serve, {SSM_ARCH}, "
+    begin(12, f"ssm path: repro_torch.launch.serve, {SSM_ARCH}, "
         f"{SSM_LAYERS} layers")
     ssm_res = ssm_path()
     ssm_res["velocity_check"] = ssm_vel
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[13] {SSM_ARCH} in f32, SSM leaves drawn: served through the "
+    begin(13, f"{SSM_ARCH} in f32, SSM leaves drawn: served through the "
         f"kernels vs plain replay")
     ssm_res["replay_f32"] = check_ssm_replay()
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("[14] ssd_scan backward against its plain versions")
+    begin(14, "ssd_scan backward against its plain versions")
     ssd_bwd_row = check_ssd_bwd(dev)
     gc.collect()
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
-        log("[15] dense velocity at full width, depth 2")
+        begin(15, "dense velocity at full width, depth 2")
         dense_res = {"velocity_checks": check_dense_velocities(dev)}
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[16] dense path: repro_torch.launch.serve, {DENSE_ARCH}, "
+        begin(16, f"dense path: repro_torch.launch.serve, {DENSE_ARCH}, "
             f"{DENSE_LAYERS} layers")
         dense_res["serve"] = dense_serve_path()
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[17] dense train path: repro_torch.launch.train, {DENSE_ARCH}"
+        begin(17, f"dense train path: repro_torch.launch.train, {DENSE_ARCH}"
             f", {DENSE_LAYERS} layers, the five trainers")
         dense_res["train"] = dense_train_path(tmp)
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[18] one update of each trainer on {SSM_ARCH} through the "
+        begin(18, f"one update of each trainer on {SSM_ARCH} through the "
             f"kernels vs the plain versions")
         ssm_update = check_updates(dev, SSM_ARCH)
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[19] ssm train path: repro_torch.launch.train, {SSM_ARCH}, "
+        begin(19, f"ssm train path: repro_torch.launch.train, {SSM_ARCH}, "
             f"{SSM_TRAIN_LAYERS} layers, the five trainers")
         ssm_train = ssm_train_path(tmp)
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[20] {SSM_ARCH}, {SSM_TRAIN_LAYERS} layers, under "
+        begin(20, f"{SSM_ARCH}, {SSM_TRAIN_LAYERS} layers, under "
             f"perf.remat=block; scan + remat_offload against phase 19's "
             f"none; one update at depth {UPDATE_LAYERS} under block against "
             f"none")
@@ -5687,7 +5884,7 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[21] the fused, pipelined step: {SSM_ARCH}, "
+        begin(21, f"the fused, pipelined step: {SSM_ARCH}, "
             f"{SSM_TRAIN_LAYERS} layers, {FUSED_STEPS} steps; at depth "
             f"{UPDATE_LAYERS} replayed against eager, sync-free, f32 policy")
         perf_res["fused"] = fused_path(tmp)
@@ -5696,7 +5893,7 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[22] flux_dit at {FLUX_BLOCK_LAYERS} blocks and {DENSE_ARCH} "
+        begin(22, f"flux_dit at {FLUX_BLOCK_LAYERS} blocks and {DENSE_ARCH} "
             f"at {DENSE_LAYERS} layers under perf.remat=block; one flux_dit "
             f"update at depth {UPDATE_LAYERS} under block against none")
         perf_res["block_train"] = flux_block_path(tmp)
@@ -5704,7 +5901,7 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-        log("[23] distributed/: a one-rank NCCL group and mesh; the mesh "
+        begin(23, "distributed/: a one-rank NCCL group and mesh; the mesh "
             "path against none, microbatch 2, the fused step on the mesh; "
             f"{SSM_ARCH} at {SSM_TRAIN_LAYERS} layers and flux_dit at "
             f"{FLUX_BLOCK_LAYERS} blocks with microbatch 2; checkpoint; "
@@ -5713,7 +5910,7 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[24] training through the serving engine: {SSM_ARCH}, "
+        begin(24, f"training through the serving engine: {SSM_ARCH}, "
             f"{SSM_TRAIN_LAYERS} layers, rollouts in chunks of "
             f"{ENGINE_BATCH}; at depth {UPDATE_LAYERS} against the "
             "engine-free step and on a one-rank mesh")
@@ -5721,20 +5918,20 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-        log("[25] the attention kernels at head dim 80 and the scan at the "
+        begin(25, "the attention kernels at head dim 80 and the scan at the "
             f"{HY_ARCH} shape against their plain versions; times")
         hy_rows = kernels_d80(dev)
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[26] hybrid path: repro_torch.launch.serve, {HY_ARCH}, "
+        begin(26, f"hybrid path: repro_torch.launch.serve, {HY_ARCH}, "
             f"{HY_LAYERS} layers; the velocity at depth {UPDATE_LAYERS} "
             "against the plain versions")
         hy_res = {"serve": hybrid_serve_path(dev)}
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[27] hybrid train path: repro_torch.launch.train, {HY_ARCH}, "
+        begin(27, f"hybrid train path: repro_torch.launch.train, {HY_ARCH}, "
             f"{HY_TRAIN_LAYERS} layers under perf.remat=block; one update "
             f"of each trainer at depth {UPDATE_LAYERS} against the plain "
             "versions")
@@ -5742,20 +5939,20 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-        log("[28] the attention kernels at a query/key dim of 192 and a "
+        begin(28, "the attention kernels at a query/key dim of 192 and a "
             "value dim of 128 against their plain versions; times")
         mla_rows = check_attention_mla(dev)
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[29] {DS_ARCH} served: repro_torch.launch.serve at "
+        begin(29, f"{DS_ARCH} served: repro_torch.launch.serve at "
             f"{DS_SERVE_LAYERS} layers; the velocity at depth "
             f"{UPDATE_LAYERS} against the plain versions")
         moe_res = {DS_ARCH: deepseek_serve_phase(dev)}
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[30] {DS_ARCH} trained: repro_torch.launch.train at "
+        begin(30, f"{DS_ARCH} trained: repro_torch.launch.train at "
             f"{DS_TRAIN_LAYERS} layers under perf.remat=block; one update of "
             f"each trainer at depth {UPDATE_LAYERS} against the plain "
             "versions")
@@ -5763,21 +5960,21 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[31] {GROK_ARCH} served: repro_torch.launch.serve at "
+        begin(31, f"{GROK_ARCH} served: repro_torch.launch.serve at "
             f"{GROK_SERVE_LAYERS} layers; the velocity at depth "
             f"{UPDATE_LAYERS} against the plain versions")
         moe_res[GROK_ARCH] = grok_serve_phase(dev)
         gc.collect()
         torch.cuda.empty_cache()
 
-        log("[32] the attention kernels at the frontend archs' shapes (GQA "
+        begin(32, "the attention kernels at the frontend archs' shapes (GQA "
             "groups of 7 and 1 at head dim 64) and the LM train step's, "
             "against their plain versions; times")
         fe_rows = check_attention_frontends(dev)
         gc.collect()
         torch.cuda.empty_cache()
 
-        log("[33] the frontend archs' flow path: " + ", ".join(
+        begin(33, "the frontend archs' flow path: " + ", ".join(
             f"{a} served and trained at {n} layers" for a, n in
             FE_ARCHS.items()) + f"; the velocity at depth {UPDATE_LAYERS} "
             "against the plain versions")
@@ -5785,7 +5982,7 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-    log(f"[34] the LM train step: {LM_ARCH} at full width and depth, "
+    begin(34, f"the LM train step: {LM_ARCH} at full width and depth, "
         f"train_4k's length, batch {LM_BATCH}; at depth {UPDATE_LAYERS} "
         "against the plain versions")
     lm_res = {"train": lm_train_path(dev)}
@@ -5795,11 +5992,17 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("[35] prefill and decode: decode against the forward for every "
+    begin(35, "prefill and decode: decode against the forward for every "
         f"arch at depth 2; {LM_ARCH} prefill_32k, decodes and decode_32k")
     lm_res.update(lm_phase(dev))
     gc.collect()
     torch.cuda.empty_cache()
+
+    begin(36, f"the sweep: repro_torch.launch.sweep, {DENSE_ARCH} at "
+          f"{SWEEP_LAYERS} layers, {' and '.join(SWEEP_TRAINERS)}, "
+          f"{SWEEP_STEPS} steps each in its own process; then rerun")
+    with tempfile.TemporaryDirectory() as tmp:
+        sweep_res = sweep_path(tmp)
 
     def by_path(name: str) -> dict:
         return {"serve": res["launches"][name],
@@ -5835,7 +6038,9 @@ def main(argv=None) -> int:
                 **{f"train_{a}": fe_res[a]["train"]["launches"][name]
                    for a in FE_ARCHS},
                 "lm_train_internvl2": lm_res["train"]["launches"][name],
-                "lm_prefill_internvl2": lm_res["prefill"]["launches"][name]}
+                "lm_prefill_internvl2": lm_res["prefill"]["launches"][name],
+                **{f"sweep_{t}": r["launches"][name]
+                   for t, r in sweep_res["combos"].items()}}
 
     for row in rows:
         row["launches"] = train_res["launches"][row["name"]]
@@ -5910,6 +6115,8 @@ def main(argv=None) -> int:
     print(json.dumps({"moe_path": moe_res}))
     print(json.dumps({"frontend_path": fe_res}))
     print(json.dumps({"lm_path": lm_res}))
+    print(json.dumps({"sweep_path": sweep_res}))
+    print(json.dumps({"phase_times": phase_times()}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(card_line())
@@ -5955,14 +6162,15 @@ def run_only(dev, only: set) -> int:
               32: lambda: check_attention_frontends(dev),
               33: _in_tmp(lambda tmp: frontend_phase(dev, tmp)),
               34: lambda: (lm_train_path(dev), check_lm_update(dev)),
-              35: lambda: lm_phase(dev)}
+              35: lambda: lm_phase(dev), 36: _in_tmp(sweep_path)}
     for n in sorted(only):
         if n not in phases:
             fail(f"--only: phase {n} cannot run alone")
-        log(f"[{n}] (--only)")
+        begin(n, "(--only)")
         phases[n]()
         gc.collect()
         torch.cuda.empty_cache()
+    phase_times()
     return 0
 
 

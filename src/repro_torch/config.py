@@ -253,6 +253,32 @@ class OptimConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The reference's production-mesh description (``launch.mesh``),
+    field for field; the port's running layout is ``DistConfig``."""
+    data: int = 1
+    model: int = 1
+    pods: int = 1
+
+    @property
+    def n_devices(self) -> int:
+        return self.data * self.model * self.pods
+
+
+@dataclass(frozen=True)
+class ShardingConfig:
+    """The reference's sharding switches, field for field, accepted so
+    its run files load; the port's layout is fixed by its
+    ``PartitionPlan`` (ZeRO-3 over "model") and ``PerfConfig.remat``."""
+    # fsdp: additionally shard params over the data axis (zero-3)
+    fsdp: bool = True
+    # shard long decode KV caches over the data axis (distributed flash-decode)
+    seq_shard_decode: bool = True
+    # remat policy for train: "none" | "block" (checkpoint each layer block)
+    remat: str = "block"
+
+
+@dataclass(frozen=True)
 class DistConfig:
     """Distributed layout (``repro_torch.distributed``): a 2-D
     ``("data", "model")`` mesh over the ranks of the process group.
@@ -355,6 +381,9 @@ class RunConfig:
     reduced: bool = False
     # declarative field overrides applied onto the resolved ArchConfig
     arch_overrides: Dict[str, Any] = field(default_factory=dict)
+    shape: str = "train_4k"
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    sharding: ShardingConfig = field(default_factory=ShardingConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     flow: FlowRLConfig = field(default_factory=FlowRLConfig)
     dist: DistConfig = field(default_factory=DistConfig)
@@ -362,6 +391,7 @@ class RunConfig:
     data: DataConfig = field(default_factory=DataConfig)
     loop: LoopConfig = field(default_factory=LoopConfig)
     param_dtype: str = "bfloat16"        # bfloat16 | float32
+    activ_dtype: str = "bfloat16"
     seed: int = 0
 
 

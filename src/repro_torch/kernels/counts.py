@@ -7,9 +7,16 @@ launched while a CUDA graph is being captured is only recorded, and runs
 each time the graph is replayed: ``perf.fused.FusedStep`` takes a capture's
 counts back out with :func:`add` (``times=-1``) and adds them again at
 every replay, so the counters count the kernels that ran.
+
+A process started with ``REPRO_KERNEL_COUNTS`` set to a directory writes
+its counters there at exit, as ``<pid>.json``: how a caller reads the
+launches of processes it starts (a sweep's combos), each from 0.
 """
 from __future__ import annotations
 
+import atexit
+import json
+import os
 from typing import Dict
 
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -50,3 +57,12 @@ def add(delta: Dict[str, int], times: int = 1) -> None:
         pairs = getattr(fn, "pair_launches", {})
         for pair in pairs:
             pairs[pair] += times * delta[f"{fn.__name__}@{pair}"]
+
+
+def _write_at_exit(directory: str) -> None:
+    with open(os.path.join(directory, f"{os.getpid()}.json"), "w") as f:
+        json.dump(read(), f)
+
+
+if os.environ.get("REPRO_KERNEL_COUNTS"):
+    atexit.register(_write_at_exit, os.environ["REPRO_KERNEL_COUNTS"])

@@ -110,7 +110,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    if o.numel():
+    if o.numel() and q.device.type != "meta":
         stream = torch.cuda.current_stream(q.device).cuda_stream
         strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                    *o.stride()[:3]]
@@ -177,6 +177,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if pitch != Sq:
         lse = torch.nn.functional.pad(lse, (0, pitch - Sq))
     delta = torch.empty((B, H, pitch), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        return dq, dk, dv
     strides = (ctypes.c_longlong * 24)(*[
         s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]])
     stream = torch.cuda.current_stream(q.device).cuda_stream

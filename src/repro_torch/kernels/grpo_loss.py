@@ -66,6 +66,8 @@ def grpo_loss(logp_new: torch.Tensor, logp_old: torch.Tensor,
         mean_ptr = ratio_mean.data_ptr()
     loss = torch.empty_like(logp_new)
     frac = torch.empty_like(logp_new)
+    if logp_new.device.type == "meta":
+        return loss, frac
     stream = torch.cuda.current_stream(logp_new.device).cuda_stream
     rc = _fn("grpo_loss_fwd", 6, [ctypes.c_int, ctypes.c_float,
                                   ctypes.c_float, ctypes.c_float,
@@ -86,6 +88,8 @@ def grpo_loss_bwd(logp_new: torch.Tensor, logp_old: torch.Tensor,
     gradient ``g``, each (B,) f32."""
     B = _check("grpo_loss_bwd", logp_new, logp_old, adv, g)
     outs = [torch.empty_like(logp_new) for _ in range(3)]
+    if logp_new.device.type == "meta":
+        return outs[0], outs[1], outs[2]
     stream = torch.cuda.current_stream(logp_new.device).cuda_stream
     rc = _fn("grpo_loss_bwd", 7, [ctypes.c_int, ctypes.c_float,
                                   ctypes.c_float, ctypes.c_float])(

@@ -8,12 +8,15 @@ sm_90, or if the launch fails.  There is no fallback from a CUDA tensor to
 the plain version and no switch to force one.  Where gradients flow
 (attention or the SSD scan with an input that requires grad, the trainer's
 GRPO loss) the call goes through an autograd Function whose backward routes
-the same way.
+the same way.  A ``meta`` tensor (the dry run, ``launch/dryrun.py``) goes to
+the hand-written kernel's wrapper too, which allocates the card route's
+buffers and launches nothing.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import counts  # noqa: F401  (REPRO_KERNEL_COUNTS)
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import FlashAttentionFn
 from repro_torch.kernels.flash_attention import flash_attention as _flash

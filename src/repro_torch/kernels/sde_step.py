@@ -2,7 +2,10 @@
 
 ``sde_step`` takes CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to
 the plain version in ``kernels/ref.py``.  ``sde_step.launches`` counts the
-calls that launched the kernel.
+calls that launched the kernel.  On ``meta`` tensors (the dry run,
+``launch/dryrun.py``) every wrapper of this package checks its inputs,
+allocates every buffer its card route allocates and returns them without
+launching (and without counting).
 """
 from __future__ import annotations
 
@@ -33,6 +36,10 @@ def _lib():
 
 
 def require_sm90(device: torch.device) -> None:
+    """Raise unless ``device`` is an sm_90 card; a ``meta`` device (the
+    dry run's route, which launches nothing) passes unchecked."""
+    if device.type == "meta":
+        return
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {device}")
     cap = torch.cuda.get_device_capability(device)
@@ -71,6 +78,8 @@ def sde_step(v: torch.Tensor, x: torch.Tensor, eps: torch.Tensor, t, t_next,
     x_next = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     logp = torch.empty((B,), dtype=torch.float32, device=x.device)
     partials = torch.empty((B * nblk,), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        return x_next, logp
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _lib()(v.data_ptr(), x.data_ptr(), eps.data_ptr(),
                 x_next.data_ptr(), partials.data_ptr(), logp.data_ptr(),

@@ -163,11 +163,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     dev = x.device
     y = torch.empty((B, L, H, P), dtype=x.dtype, device=dev)
     hT = torch.empty((B, H, P, N), dtype=F32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    meta = dev.type == "meta"
+    stream = None if meta else torch.cuda.current_stream(dev).cuda_stream
     strides = (x.stride(0), x.stride(1), bm.stride(0), bm.stride(1),
                cm.stride(0), cm.stride(1))
     if tensor_core_route(x, bm, cm, chunk):
         variant = "wgmma"
+        if meta:
+            return y, hT
         rc = _tc_lib()(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
                        bm.data_ptr(), cm.data_ptr(), y.data_ptr(),
                        hT.data_ptr(), B, L, H, *strides, stream)
@@ -177,6 +180,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         scores = torch.empty((B, nc, Q, Q), dtype=F32, device=dev)
         states = torch.empty((B, nc, H, P, N), dtype=F32, device=dev)
         decay = torch.empty((B, nc, H), dtype=F32, device=dev)
+        if meta:
+            return y, hT
         rc = _lib()(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
                     bm.data_ptr(), cm.data_ptr(), y.data_ptr(),
                     hT.data_ptr(), scores.data_ptr(), states.data_ptr(),
@@ -236,7 +241,8 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     dbm = torch.empty((B, L, N), dtype=bm.dtype, device=dev)
     dcm = torch.empty((B, L, N), dtype=bm.dtype, device=dev)
     dapart = torch.empty((B, nc, H), dtype=F32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    meta = dev.type == "meta"
+    stream = None if meta else torch.cuda.current_stream(dev).cuda_stream
     strides = (x.stride(0), x.stride(1), bm.stride(0), bm.stride(1),
                cm.stride(0), cm.stride(1))
     dh_ptr = None if dhT is None else dhT.data_ptr()
@@ -250,6 +256,8 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                          device=dev)
         wk, ecq = (torch.empty((B, nc, H, Q), dtype=F32, device=dev)
                    for _ in range(2))
+        if meta:
+            return dx, ddt, da, dbm, dcm
         rc = _bwd_tc_lib()(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
             cm.data_ptr(), dy.data_ptr(), dh_ptr, dx.data_ptr(),
@@ -265,6 +273,8 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         dh = torch.empty((B, nc, H, P, N), dtype=F32, device=dev)
         decay = torch.empty((B, nc, H), dtype=F32, device=dev)
         dspart = torch.empty((B, nc, G, Q, Q), dtype=F32, device=dev)
+        if meta:
+            return dx, ddt, da, dbm, dcm
         rc = _bwd_lib()(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
             cm.data_ptr(), dy.data_ptr(), dh_ptr, dx.data_ptr(),

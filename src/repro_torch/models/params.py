@@ -6,7 +6,9 @@ it come ``init`` (fresh tensors, drawn on the target device from an explicit
 ``torch.Generator``) and ``n_params``.  Parameters are nested dicts of
 tensors under the same key paths as the JAX package's pytrees;
 ``from_numpy`` carries a JAX parameter tree (as numpy arrays) across, and
-``state_dict`` flattens a tree to ``"."``-joined keys.  ``model_shard_dim``
+``state_dict`` flattens a tree to ``"."``-joined keys; ``axes_tree`` and
+``shape_tree`` (meta tensors) are the dry run's stand-ins.
+``model_shard_dim``
 is the per-leaf decision of the ``PartitionPlan``: the dim a leaf shards
 over the "model" mesh axis, from its logical axes alone.
 """
@@ -83,6 +85,22 @@ def model_shard_dim(shape: Tuple[int, ...], axes: Tuple[Optional[str], ...],
             if ax == name and shape[i] >= mp and shape[i] % mp == 0:
                 return i
     return None
+
+
+def axes_tree(spec):
+    """The spec tree with each leaf replaced by its logical axes."""
+    if isinstance(spec, dict):
+        return {k: axes_tree(v) for k, v in spec.items()}
+    return spec.axes
+
+
+def shape_tree(spec, dtype=torch.bfloat16):
+    """The spec tree with each leaf replaced by an uninitialised tensor of
+    its shape on ``device="meta"`` (no storage): the stand-in of the
+    reference's ``ShapeDtypeStruct`` tree."""
+    if isinstance(spec, dict):
+        return {k: shape_tree(v, dtype) for k, v in spec.items()}
+    return torch.empty(spec.shape, dtype=dtype, device="meta")
 
 
 def n_params(spec) -> int:

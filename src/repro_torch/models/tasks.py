@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import optim, registry
+from repro_torch import sharding as shlib
 from repro_torch.config import ArchConfig, InputShape, OptimConfig
 from repro_torch.models import params as params_lib
 from repro_torch.models.backbone import Backbone
@@ -97,6 +98,10 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptimConfig, *,
     the auxiliary losses, as 0-d tensors on the device (no host sync).
     Leaves the loss does not reach (``frontend_proj`` without a prefix,
     ``dit``'s ``ada``) get zero gradients, as ``jax.grad`` gives them.
+    Under an installed gather context (``sharding.param_gather(mesh)``,
+    the batch split over "data", params laid out by the ``PartitionPlan``)
+    the gradients, loss and CE are averaged over the mesh as the trainers
+    average them (``_mesh_grads``) before the clip.
     ``train_step.loss_fn(params, batch) -> (total, ce, aux)`` is the
     differentiated loss alone, for callers that take its gradient
     themselves."""
@@ -130,7 +135,17 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptimConfig, *,
             for p in leaves:
                 p.requires_grad_(False)
         grads = _grads(params)
-        _, gnorm = optim.clip_by_global_norm(grads, opt_cfg.grad_clip)
+        mesh = shlib.current_mesh()
+        sharded, mgroup = frozenset(), None
+        if mesh is not None:
+            grads, sharded, mgroup = _mesh_grads(grads, mesh, model.spec())
+            total, ce = (shlib.all_reduce_mean(t.detach(),
+                                               mesh.get_group("data"),
+                                               int(mesh.size(0)))
+                         for t in (total, ce))
+        _, gnorm = optim.clip_by_global_norm(
+            grads, opt_cfg.grad_clip, sharded=sharded,
+            group=mgroup if sharded else None)
         step = int(state.opt.step) + 1
         scalars = optim.step_scalars(leaves[0].device)
         optim.write_step_scalars(scalars, opt_cfg, step, lr_fn(step - 1))
@@ -143,6 +158,28 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptimConfig, *,
 
     train_step.loss_fn = loss_fn
     return train_step
+
+
+def _mesh_grads(grads: Dict, mesh, spec) -> Tuple[Dict, frozenset, Any]:
+    """The gradients on a (data, model) mesh, as the trainers take them:
+    each averaged over "data" (f32), a leaf the ``PartitionPlan`` keeps
+    whole averaged over "model" too (a sharded leaf's gradient was
+    reduce-scattered by its gather).  Returns (grads, the sharded leaves'
+    paths, the "model" group) for the clip."""
+    dp, mp = int(mesh.size(0)), int(mesh.size(1))
+    dgroup, mgroup = mesh.get_group("data"), mesh.get_group("model")
+    specs = dict(params_lib.leaves(spec))
+    out: Dict = {}
+    sharded = set()
+    for path, g in params_lib.leaves(grads):
+        s = specs[path]
+        g = shlib.all_reduce_mean(g, dgroup, dp)
+        if params_lib.model_shard_dim(s.shape, s.axes, mp) is not None:
+            sharded.add(path)
+        elif mp > 1:
+            g = shlib.all_reduce_mean(g, mgroup, mp)
+        params_lib._set(out, path, g)
+    return out, frozenset(sharded), mgroup
 
 
 def _grads(tree: Dict) -> Dict:

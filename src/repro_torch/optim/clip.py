@@ -12,9 +12,9 @@ from __future__ import annotations
 from typing import Collection, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.models.params import leaves
+from repro_torch.sharding import all_reduce_sum_
 
 F32 = torch.float32
 
@@ -32,7 +32,7 @@ def global_norm(tree, *, sharded: Collection[Tuple[str, ...]] = (),
         else:
             sq = s if sq is None else sq + s
     if sh is not None:
-        dist.all_reduce(sh, op=dist.ReduceOp.SUM, group=group)
+        all_reduce_sum_(sh, group)
         sq = sh if sq is None else sq + sh
     return torch.sqrt(sq)
 

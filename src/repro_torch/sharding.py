@@ -22,11 +22,16 @@ shape and logical axes, so the gather agrees with the ``PartitionPlan``
 that sharded it.  Collectives here pick ``all_gather_single`` /
 ``reduce_scatter_single`` where torch has them and the ``*_tensor`` names
 (deprecated there, the only ones in older releases) otherwise.
+
+Every collective the port issues goes through a function here, and each
+one reports its kind, result bytes and group size to the recorders in
+``COLLECTIVE_HOOKS`` (empty unless ``launch.hlo_stats.record_collectives``
+is active), so one recorder sees the whole step.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -36,6 +41,18 @@ from repro_torch.models.params import P, model_shard_dim
 F32 = torch.float32
 
 _CTX: Dict = {"mesh": None}
+
+# callables ``hook(kind, result_bytes, group_size)``, one call per
+# collective issued (the reference's HLO op names as kinds)
+COLLECTIVE_HOOKS: List[Callable[[str, int, int], None]] = []
+
+
+def _note(kind: str, result: torch.Tensor, group, n: int = 0) -> None:
+    if COLLECTIVE_HOOKS:
+        nbytes = result.numel() * result.element_size()
+        g = n or dist.get_world_size(group)
+        for hook in COLLECTIVE_HOOKS:
+            hook(kind, nbytes, g)
 
 
 def _all_gather_fn():
@@ -54,6 +71,7 @@ def gather_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
                       dtype=src.dtype, device=src.device)
     _all_gather_fn()(out, src, group=group)
+    _note("all-gather", out, group, n)
     return out.movedim(0, dim).contiguous() if dim else out
 
 
@@ -65,6 +83,7 @@ def scatter_mean_dim(x: torch.Tensor, dim: int, group, n: int
     out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
                       dtype=F32, device=src.device)
     _reduce_scatter_fn()(out, src, group=group)
+    _note("reduce-scatter", out, group, n)
     out = out.div_(n).to(x.dtype)
     return out.movedim(0, dim).contiguous() if dim else out
 
@@ -79,13 +98,22 @@ def all_reduce_mean(x: torch.Tensor, group, n: int) -> torch.Tensor:
     dtype)."""
     y = x.detach().to(F32, copy=True)
     dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    _note("all-reduce", y, group, n)
     return y.div_(n).to(x.dtype)
 
 
 def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     y = x.detach().clone()
     dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    _note("all-reduce", y, group)
     return y
+
+
+def all_reduce_sum_(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over the group's ranks, in place (``x`` is returned)."""
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    _note("all-reduce", x, group)
+    return x
 
 
 class GatherParam(torch.autograd.Function):

@@ -39,7 +39,7 @@ from repro_torch.api.experiment import Experiment
 from repro_torch.config import FlowRLConfig as TFlowRLConfig
 from repro_torch.core import schedulers as tsched
 from repro_torch.core.rollout import rollout_keyed as trollout_keyed
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.ssd_scan import SSDScanFn
 from repro_torch.kernels.ssd_scan import ssd_scan as cuda_ssd_scan
 from repro_torch.kernels.ssd_scan import ssd_scan_bwd as cuda_ssd_scan_bwd
@@ -285,14 +285,15 @@ def test_cuda_wrapper_refuses_cpu_tensors(route):
 
 
 @pytest.mark.parametrize("leaf", ["x", "dt", "a", "bm", "cm"])
-def test_ssd_scan_gradient_reaches_each_input(leaf):
+def test_ssd_scan_gradient_reaches_each_input(leaf, monkeypatch):
     """With grad enabled and any input requiring grad, ``ops.ssd_scan``
     runs ``SSDScanFn``: on the CPU its backward is the plain closed form,
     and each leaf's gradient equals ``jax.vjp`` of the reference's
     ``ssd_chunked`` (f32, both outputs' cotangents drawn: 1e-4 of max |jax|,
     sums in another order).  Off the CPU the same call reaches the CUDA
-    wrapper, never the plain version: ``meta`` tensors stop at its device
-    check, with no launch counted."""
+    wrappers, never the plain versions: on ``meta`` tensors (the dry run's
+    route) forward and backward return the kernels' shapes and dtypes
+    without building, launching or counting anything."""
     names = ("x", "dt", "a", "bm", "cm")
     (B, L, H, P, N, Q), kind = SCAN_CASES[3]
     arrays = _scan_inputs(4, B, L, H, P, N, kind)
@@ -316,8 +317,22 @@ def test_ssd_scan_gradient_reaches_each_input(leaf):
     meta[leaf] = meta[leaf].requires_grad_()
     before = (cuda_ssd_scan.launches, dict(cuda_ssd_scan.variant_launches),
               cuda_ssd_scan_bwd.launches)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        ops.ssd_scan(*(meta[n] for n in names), chunk=Q)
+
+    def boom(*a, **k):
+        raise AssertionError("a meta tensor reached a plain version or a "
+                             "kernel build")
+    for name in ("ssd_chunked_ref", "ssd_scan_bwd_ref"):
+        monkeypatch.setattr(ref, name, boom)
+    monkeypatch.setattr(_build, "load", boom)
+    ym, hm = ops.ssd_scan(*(meta[n] for n in names), chunk=Q)
+    torch.autograd.backward((ym, hm), (torch.from_numpy(dy).to("meta"),
+                                       torch.from_numpy(dh).to("meta")))
+    assert (ym.device.type, tuple(ym.shape), ym.dtype) == (
+        "meta", tuple(y.shape), y.dtype)
+    assert (tuple(hm.shape), hm.dtype) == (tuple(h.shape), h.dtype)
+    g = meta[leaf].grad
+    assert (g.device.type, tuple(g.shape), g.dtype) == (
+        "meta", got.shape, cpu[leaf].dtype)
     assert (cuda_ssd_scan.launches, dict(cuda_ssd_scan.variant_launches),
             cuda_ssd_scan_bwd.launches) == before
 
