@@ -342,16 +342,22 @@ script exits 2 before printing any result.
    combo its own ``launch.train`` process on the card; its kernel counts
    (written at its exit, ``REPRO_KERNEL_COUNTS``) against the path, 2
    finite history rows an artifact, and a rerun that skips both.
-37. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
+37. The linter: ``python -m repro_torch.analysis --format json
+   src/repro_torch`` in a subprocess with ``torch``, ``numpy``, ``jax`` and
+   ``repro`` blocked (it is stdlib-only); it must exit 0 (every finding
+   suppressed inline with a reason, or in ``.torchlint-baseline.json``).
+   Prints the files linted, the new, suppressed and baselined counts and
+   the seconds.  Launches no kernel.
+38. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
    ``ssm_train_path``, ``perf_path``, ``distributed_path``,
    ``engine_path``, ``hybrid_path``, ``moe_path``, ``frontend_path``,
-   ``lm_path``, ``sweep_path``, ``phase_times`` and ``kernels`` JSON
-   lines, the card's name and power limit, and the last line ``{"ok":
+   ``lm_path``, ``sweep_path``, ``lint``, ``phase_times`` and ``kernels``
+   JSON lines, the card's name and power limit, and the last line ``{"ok":
    true, "device": {...}}``.
 
 Each phase prints its seconds as it ends (``[N] took ... s``), and the
 script the total.  ``--only N,...`` runs just the device and build phases
-and phases N (3 and 8-36) and prints no result lines: a development aid.
+and phases N (3 and 8-37) and prints no result lines: a development aid.
 """
 from __future__ import annotations
 
@@ -5721,6 +5727,42 @@ def sweep_path(tmp: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 37
+LINT_BLOCKED = ("torch", "numpy", "jax", "repro")
+
+
+def lint_path() -> dict:
+    """``python -m repro_torch.analysis --format json src/repro_torch`` in a
+    fresh interpreter with ``LINT_BLOCKED`` made unimportable, from the
+    checkout's root (so the committed ``.torchlint-baseline.json`` is the
+    baseline): it must exit 0 and import none of them."""
+    code = ("import runpy, sys\n"
+            f"for m in {LINT_BLOCKED!r}:\n"
+            "    sys.modules[m] = None\n"
+            "sys.argv = ['repro_torch.analysis', '--format', 'json', "
+            "'src/repro_torch']\n"
+            "runpy.run_module('repro_torch.analysis', run_name='__main__')\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"the linter exited {proc.returncode}: {proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-3000:]}")
+    rep = json.loads(proc.stdout)
+    res = {"files": rep["files"], "new": len(rep["new"]),
+           "suppressed": len(rep["suppressed"]),
+           "baselined": len(rep["baselined"]),
+           "stale_baseline": len(rep["stale_baseline"]),
+           "lint_s": rep["seconds"], "process_s": wall}
+    log(f"  torchlint: {res['files']} files, {res['new']} new, "
+        f"{res['suppressed']} suppressed, {res['baselined']} baselined; "
+        f"{res['lint_s']} s linting, {wall:.3f} s with the interpreter's "
+        "start")
+    return res
+
+
 def lm_phase(dev) -> dict:
     """Phase 35: the decode-versus-forward checks for every arch, then the
     32k prefill, its decodes and decode_32k."""
@@ -5748,7 +5790,7 @@ def _cast(tree, dtype):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", metavar="N,N,...",
-                    help="run only these of phases 3-36 after the device and "
+                    help="run only these of phases 3-37 after the device and "
                          "build phases, and print no result lines (a "
                          "development aid; the check runs every phase)")
     args = ap.parse_args(argv)
@@ -6004,6 +6046,10 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         sweep_res = sweep_path(tmp)
 
+    begin(37, "the linter: python -m repro_torch.analysis over "
+          "src/repro_torch with torch, numpy, jax and repro blocked")
+    lint_res = lint_path()
+
     def by_path(name: str) -> dict:
         return {"serve": res["launches"][name],
                 "train": train_res["launches"][name],
@@ -6116,6 +6162,7 @@ def main(argv=None) -> int:
     print(json.dumps({"frontend_path": fe_res}))
     print(json.dumps({"lm_path": lm_res}))
     print(json.dumps({"sweep_path": sweep_res}))
+    print(json.dumps({"lint": lint_res}))
     print(json.dumps({"phase_times": phase_times()}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
@@ -6162,7 +6209,8 @@ def run_only(dev, only: set) -> int:
               32: lambda: check_attention_frontends(dev),
               33: _in_tmp(lambda tmp: frontend_phase(dev, tmp)),
               34: lambda: (lm_train_path(dev), check_lm_update(dev)),
-              35: lambda: lm_phase(dev), 36: _in_tmp(sweep_path)}
+              35: lambda: lm_phase(dev), 36: _in_tmp(sweep_path),
+              37: lint_path}
     for n in sorted(only):
         if n not in phases:
             fail(f"--only: phase {n} cannot run alone")

@@ -1,0 +1,4 @@
+from repro_torch.analysis.cli import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -92,6 +92,9 @@ class MultiRewardLoader:
             return out
         finally:
             if params is not None:
+                # torchlint: disable=R003 — bind runs once, from
+                # offload_param_store at trainer construction, before any
+                # capture; this re-points the models and launches nothing
                 self._point(self._param_store)
 
     def weight_map(self) -> Dict[str, float]:
