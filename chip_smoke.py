@@ -66,11 +66,13 @@ script exits 2 before printing any result.
    (H = 1, L = Q, L = 3Q, a ragged 21-token chunk), Mamba-2's init, a slow
    decay (|dA| near 1e-3) in which the state carried across chunks makes
    most of y, and the path shape (B 4, L 4608, 32 heads of 64, N 128, Q
-   128), in f32 and bf16, bitwise on rerun.  Each case must run the variant
-   its dtype and shape call for: bf16 at head dim 64, state 128 and chunk
-   128 the tensor-core kernel (held also against its own rounding written
-   out, ``ref.ssd_tensor_core_ref``, as a diagnostic), the rest the f32
-   FMA passes.  Then the tensor-core kernel's, the FMA passes', the plain
+   128); at state 64 Mamba-2's init, a slow decay and zamba2-2.7b's path
+   shape (80 heads of 64, N 64) at batch 4 and 1; in f32 and bf16, bitwise
+   on rerun.  Each case must run the variant its dtype and shape call for:
+   bf16 at head dim 64, state 128 or 64 and chunk 128 the tensor-core
+   kernel (held also against its own rounding written out,
+   ``ref.ssd_tensor_core_ref``, as a diagnostic), the rest the f32 FMA
+   passes.  Then the tensor-core kernel's, the FMA passes', the plain
    version's and the bound's times at the path shape, at batch 4 and 1.
 11. ``FlowAdapter.velocity`` of ``mamba2-370m`` at full width, depth 2, over
    511 + 1 + 4096 tokens, with the SSM leaves drawn from Mamba-2's init,
@@ -100,9 +102,10 @@ script exits 2 before printing any result.
    4 and 1, x, bm and cm as column slices of one buffer (as the model
    passes them), f32 and bf16, dhT absent and drawn, bitwise on rerun,
    each gradient within its band of max |plain|; the slow-decay cases must
-   make the gradient carried across chunks most of dx.  Each case must run
-   the variant its dtype and shape call for: bf16 at head dim 64, state
-   128, chunk 128 (``tensor_core_bwd_route``) the tensor-core backward
+   make the gradient carried across chunks most of dx; phase 10's state-64
+   cases too.  Each case must run the variant its dtype and shape call for:
+   bf16 at head dim 64, state 128 or 64, chunk 128
+   (``tensor_core_bwd_route``) the tensor-core backward
    (held also against its own rounding written out,
    ``ref.ssd_tensor_core_bwd_ref``, as a diagnostic), the rest the f32 FMA
    passes.  Then ``ops.ssd_scan`` with an input requiring grad must run
@@ -220,14 +223,15 @@ script exits 2 before printing any result.
    the variant its dtype calls for (``variant_launches``); the kernel, FMA,
    plain and SDPA times and the bounds at the path shape.  Then the scan
    and its backward at the hybrid's shape (4, 4608, 80 heads of 64, state
-   64, chunk 128, bf16), which run the FMA passes, against the plain
-   versions, with times and byte bounds.
+   64, chunk 128, bf16), which run the tensor-core kernels at state 64,
+   against the plain versions, with the kernels', the f32 FMA passes'
+   (``fma_route``), the plain versions' and the bounds' times.
 26. The hybrid serving path: ``repro_torch.launch.serve.main`` serving 4
    requests of ``zamba2-2.7b`` (54 layers in 9 groups of 6 Mamba-2 blocks
    and one shared attention block, bf16, random weights from a seed) over
    511 + 1 + 4096 tokens under ``flow_sde``, 4 steps: launch counts (a
-   velocity: ``ssd_scan`` 54, all on the FMA passes, ``flash_attention``
-   9, all on the tensor cores; ``sde_step`` 4 per batch), the latents
+   velocity: ``ssd_scan`` 54, ``flash_attention`` 9, all on the tensor
+   cores; ``sde_step`` 4 per batch), the latents
    bitwise ``rollout_keyed``'s through the kernels, s per step, req/s,
    peak memory and a profile of one step; then the velocity at depth 2 (2
    groups of one SSM block) with the SSM leaves and the shared wq/wk
@@ -236,7 +240,8 @@ script exits 2 before printing any result.
    ``zamba2-2.7b``'s full width and all 54 layers under
    ``perf.remat=block``, ``flow_grpo`` for 2 steps and a traced third at
    phase 19's geometry, batch and rewards, SSM leaves and shared wq/wk
-   drawn at train start: launch counts on their variants, every layer's
+   drawn at train start: launch counts on their variants (every scan
+   forward and backward on the tensor cores), every layer's
    a_log and dt_bias gradient, s per step, peak memory and
    ``memory_stats``; then one update of each of the five trainers at depth
    2 against the plain versions, as phase 18.
@@ -1576,10 +1581,10 @@ def check_update(dev, name: str, arch: str = "flux_dit") -> dict:
             tr._end_update()
             lr = float(lr)
         torch.cuda.synchronize()
-        # mamba2-370m's scan backward on the tensor cores; zamba2-2.7b's
-        # (state 64) on the FMA passes, its attention backward on the
-        # tensor cores
-        want_routes = ({"ssd_scan_bwd": "fma", "flash_attention_bwd": "wgmma"}
+        # the scan backward on the tensor cores (mamba2-370m at state 128,
+        # zamba2-2.7b at 64), and zamba2-2.7b's attention backward
+        want_routes = ({"ssd_scan_bwd": "wgmma",
+                        "flash_attention_bwd": "wgmma"}
                        if hybrid else {"ssd_scan_bwd": "wgmma"} if ssm
                        else {})
         ran = all_variants()
@@ -1668,6 +1673,27 @@ SSM_HEADS, SSM_HEAD_DIM, SSM_STATE, SSM_CHUNK = 32, 64, 128, 128
 # is rounded once from f32 by both (a tie lands one bf16 ulp, 2^-8, apart)
 SSD_Y_BAND = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SSD_H_BAND = 1e-4        # the final state is f32 on both routes
+# the scan at state 64 (zamba2-2.7b's SSD heads: 80 of 64, N 64, chunk 128,
+# over phase 12's 4608 tokens): Mamba-2's init and a slow decay at a mid
+# size, and the hybrid path's shape at batch 4 and 1 (phases 10 and 14 run
+# them beside Mamba-2's cases)
+HY_SSD_HEADS, HY_STATE = 80, 64
+SSD_STATE64_CASES = [  # B, L, H, P, N, chunk, kind
+    (2, 1024, 8, SSM_HEAD_DIM, HY_STATE, SSM_CHUNK, "mamba2"),
+    (2, 1024, 4, SSM_HEAD_DIM, HY_STATE, SSM_CHUNK, "slow"),
+    (B_SERVE, SSM_SEQ, HY_SSD_HEADS, SSM_HEAD_DIM, HY_STATE, SSM_CHUNK,
+     "mamba2"),
+    (1, SSM_SEQ, HY_SSD_HEADS, SSM_HEAD_DIM, HY_STATE, SSM_CHUNK, "mamba2"),
+]
+
+
+def ssd_want(dtype, L, P, N, Q) -> str:
+    """The scan variant a call must run (forward and backward): the
+    tensor cores for bf16 at head dim 64, state 128 (Mamba-2) or 64
+    (zamba2) and a chunk of 128; the f32 FMA passes for the rest."""
+    return ("wgmma" if dtype == torch.bfloat16 and P == SSM_HEAD_DIM
+            and N in (SSM_STATE, HY_STATE) and min(Q, L) == SSM_CHUNK
+            else "fma")
 
 
 def _ssd_inputs(g, dev, B, L, H, P, N, kind, dtype):
@@ -1776,9 +1802,10 @@ def _ssd_times(dev, g, B) -> dict:
 def check_ssd(dev) -> dict:
     """ssd_scan against the plain chunked version (and the sequential
     recurrence at small lengths) over the reference's sweep, odd shapes,
-    the slow-decay cases and the path shape, f32 and bf16, bitwise on
-    rerun, each case on the variant its dtype and shape call for (bf16 at
-    head dim 64, state 128, chunk 128 on the tensor cores, the rest on the
+    the slow-decay cases and the path shape, and the state-64 cases
+    (``SSD_STATE64_CASES``), f32 and bf16, bitwise on rerun, each case on
+    the variant its dtype and shape call for (``ssd_want``: bf16 at head
+    dim 64, state 128 or 64, chunk 128 on the tensor cores, the rest on the
     FMA passes); then its times at the path shape at batch 4 and 1."""
     g = torch.Generator(device=dev).manual_seed(7)
     P_, N_, Q_ = SSM_HEAD_DIM, SSM_STATE, SSM_CHUNK
@@ -1790,15 +1817,14 @@ def check_ssd(dev) -> dict:
         (2, 1024, 8, P_, N_, Q_, "mamba2"), (2, 1024, 4, P_, N_, Q_, "slow"),
         (B_SERVE, SSM_SEQ, SSM_HEADS, P_, N_, Q_, "mamba2"),
         (B_SERVE, SSM_SEQ, SSM_HEADS, P_, N_, Q_, "slow"),
-    ]
+    ] + SSD_STATE64_CASES
     path_err = 0.0
     for (B, L, H, P, N, Q, kind) in cases:
         for dt_ in (torch.float32, torch.bfloat16):
             x, dt, a, bm, cm = _ssd_inputs(g, dev, B, L, H, P, N, kind, dt_)
             (y, hT), variant = _ssd_variant(
                 lambda: ssd_scan(x, dt, a, bm, cm, chunk=Q))
-            want = ("wgmma" if dt_ == torch.bfloat16
-                    and (P, N, min(Q, L)) == (P_, N_, Q_) else "fma")
+            want = ssd_want(dt_, L, P, N, Q)
             if variant != want:
                 fail(f"ssd_scan at {(B, L, H, P, N, Q)} {dt_} ran the "
                      f"{variant} variant, not {want}")
@@ -1838,7 +1864,7 @@ def check_ssd(dev) -> dict:
             if kind == "slow" and L > Q and carried < 0.5:
                 fail("the slow-decay case does not make the carried state "
                      "dominate y; it cannot check the inter-chunk decay")
-            if L == SSM_SEQ and dt_ == torch.bfloat16:
+            if L == SSM_SEQ and N == N_ and dt_ == torch.bfloat16:
                 path_err = max(path_err, float(
                     (y.float() - yp.float()).abs().max()))
             del x, dt, a, bm, cm, y, hT, y2, h2, yp, hp, loc
@@ -2150,8 +2176,9 @@ def check_ssd_bwd(dev) -> dict:
     dx.  Then ``ops.ssd_scan`` with an input requiring grad runs
     ``SSDScanFn`` (one forward and one backward launch, both on the tensor
     cores); then times at the path shape.  Each case must run the variant
-    its dtype and shape call for: bf16 at head dim 64, state 128, chunk 128
-    (``tensor_core_bwd_route``) the tensor-core backward (held also against
+    its dtype and shape call for (``ssd_want``): bf16 at head dim 64, state
+    128 or 64, chunk 128 (``tensor_core_bwd_route``) the tensor-core
+    backward (held also against
     its own rounding written out, ``ref.ssd_tensor_core_bwd_ref``, as a
     diagnostic up to L = 1024), the rest the f32 FMA passes."""
     g = torch.Generator(device=dev).manual_seed(13)
@@ -2165,7 +2192,7 @@ def check_ssd_bwd(dev) -> dict:
         (B_SERVE, SSM_SEQ, SSM_HEADS, P_, N_, Q_, "mamba2"),
         (1, SSM_SEQ, SSM_HEADS, P_, N_, Q_, "mamba2"),
         (B_SERVE, SSM_SEQ, SSM_HEADS, P_, N_, Q_, "slow"),
-    ]
+    ] + SSD_STATE64_CASES
     path_err = 0.0
     worst, worst_tc = {}, {}
     for (B, L, H, P, N, Q, kind) in cases:
@@ -2173,8 +2200,7 @@ def check_ssd_bwd(dev) -> dict:
             x, dt, a, bm, cm = _ssd_inputs(g, dev, B, L, H, P, N, kind, dt_)
             x, bm, cm = _ssd_conv_slices(x, bm, cm)
             dy = torch.randn(x.shape, generator=g, device=dev).to(dt_)
-            want_v = ("wgmma" if dt_ == torch.bfloat16
-                      and (P, N, min(Q, L)) == (P_, N_, Q_) else "fma")
+            want_v = ssd_want(dt_, L, P, N, Q)
             if ssd_mod.tensor_core_bwd_route(x, bm, cm, dy, Q) != (
                     want_v == "wgmma"):
                 fail(f"tensor_core_bwd_route disagrees with the shape rule at "
@@ -2244,7 +2270,7 @@ def check_ssd_bwd(dev) -> dict:
                 if want_v == "wgmma":
                     for n, e, ae in zip(SSD_GRADS, errs, aerrs):
                         worst_tc[n] = max(worst_tc.get(n, 0.0), e, ae)
-                if L == SSM_SEQ and dt_ == torch.bfloat16:
+                if L == SSM_SEQ and N == N_ and dt_ == torch.bfloat16:
                     path_err = max(path_err, max(
                         float((u.float() - v.float()).abs().max())
                         for u, v in zip(got, want)))
@@ -3627,12 +3653,11 @@ def engine_phase(dev, tmp: str, phase19=None) -> dict:
 HY_ARCH, HY_LAYERS, HY_COND_LEN = "zamba2-2.7b", 54, 511
 HY_SEQ = HY_COND_LEN + 1 + LAT_TOKENS
 HY_SITES, HY_HEADS, HY_HEAD_DIM = 9, 32, 80
-HY_SSD_HEADS, HY_STATE = 80, 64
 HY_KERNELS = ({"ssd_scan": HY_LAYERS, "flash_attention": HY_SITES},
               {"ssd_scan_bwd": HY_LAYERS, "flash_attention_bwd": HY_SITES})
-# state 64 is no shape of the tensor-core scan: the FMA passes run it, and
-# the shared attention's bf16 D = 80 runs on the tensor cores
-HY_ROUTES = {"ssd_scan": "fma", "ssd_scan_bwd": "fma",
+# every kernel of the bf16 hybrid runs on the tensor cores: the scan at
+# state 64 and the shared attention at D = 80
+HY_ROUTES = {"ssd_scan": "wgmma", "ssd_scan_bwd": "wgmma",
              "flash_attention": "wgmma", "flash_attention_bwd": "wgmma"}
 
 
@@ -3841,11 +3866,12 @@ def _attention_d80_times(dev, g, errs) -> list:
 def check_ssd_zamba(dev) -> list:
     """The scan forward and backward at the hybrid path's shape (4, 4608,
     80 heads of 64, state 64, chunk 128, bf16, x, bm and cm as column
-    slices of one buffer as the model passes them), which take the f32 FMA
-    passes (state 64 is no shape of the tensor-core kernels): against the
-    plain versions at phase 10's and 14's bf16 bands, on the FMA variant,
-    then their times (replayed graphs), the plain versions' and the byte
-    bounds.  Returns the two kernel rows."""
+    slices of one buffer as the model passes them), which take the
+    tensor-core kernels at state 64: against the plain versions at phase
+    10's and 14's bf16 bands, on the wgmma variant, then their times
+    (replayed graphs), the f32 FMA passes' on the same inputs
+    (``fma_route``), the plain versions' and the bounds.  Returns the two
+    kernel rows."""
     g = torch.Generator(device=dev).manual_seed(26)
     B, L, H, P, N, Q = (B_SERVE, HY_SEQ, HY_SSD_HEADS, SSM_HEAD_DIM,
                         HY_STATE, SSM_CHUNK)
@@ -3858,50 +3884,63 @@ def check_ssd_zamba(dev) -> list:
     grads = ssd_scan_bwd(x, dt, a, bm, cm, dy, None, chunk=Q)
     ran = all_variants()
     for name in ("ssd_scan", "ssd_scan_bwd"):
-        if ran[name]["fma"] - before[name]["fma"] != 1:
-            fail(f"{name} at the zamba2 shape did not run the FMA passes")
+        if ran[name]["wgmma"] - before[name]["wgmma"] != 1:
+            fail(f"{name} at the zamba2 shape did not run the tensor-core "
+                 f"kernel")
     y_ref, h_ref = ref.ssd_chunked_ref(x, dt, a, bm, cm, Q)
     want = ref.ssd_scan_bwd_ref(x, dt, a, bm, cm, dy, None, Q)
     torch.cuda.synchronize()
     y_err, h_err = _rel(y, y_ref), _rel(hT, h_ref)
     g_err = [_rel(a_, b_) for a_, b_ in zip(grads, want)]
+    abs_err = [float((y.float() - y_ref.float()).abs().max()), max(
+        float((a_.float() - b_.float()).abs().max())
+        for a_, b_ in zip(grads, want))]
     log(f"  ssd_scan zamba2 shape (B={B}, L={L}, H={H}, P={P}, N={N}, Q={Q}) "
-        f"bf16 (fma): y {y_err:.2e}, final state {h_err:.2e} of max|plain| "
+        f"bf16 (wgmma): y {y_err:.2e}, final state {h_err:.2e} of max|plain| "
         f"(bands {SSD_Y_BAND[torch.bfloat16]}, {SSD_H_BAND}); backward "
         + ", ".join(f"{n} {e:.2e}" for n, e in zip(SSD_GRADS, g_err))
-        + f" (band {SSD_BWD_BAND[torch.bfloat16]})")
+        + " (bands " + "/".join(str(SSD_BWD_F32_BAND if f else
+                                    SSD_BWD_BAND[torch.bfloat16])
+                                for f in (False, True, True, False, False))
+        + ")")
     if y_err > SSD_Y_BAND[torch.bfloat16] or h_err > SSD_H_BAND:
         fail("ssd_scan off at the zamba2 shape")
-    if max(g_err) > SSD_BWD_BAND[torch.bfloat16]:
-        fail("ssd_scan_bwd off at the zamba2 shape")
+    for n, e, f32_out in zip(SSD_GRADS, g_err,
+                             (False, True, True, False, False)):
+        if e > (SSD_BWD_F32_BAND if f32_out else SSD_BWD_BAND[torch.bfloat16]):
+            fail(f"ssd_scan_bwd {n} off at the zamba2 shape")
     del y, hT, grads, y_ref, h_ref, want
     torch.cuda.empty_cache()
     ms = graph_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=Q), 5)
     bwd_ms = graph_ms(lambda: ssd_scan_bwd(x, dt, a, bm, cm, dy, None,
                                            chunk=Q), 3)
+    with fma_route():
+        fma_ms = graph_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=Q), 5)
+        fma_bwd_ms = graph_ms(lambda: ssd_scan_bwd(x, dt, a, bm, cm, dy,
+                                                   None, chunk=Q), 3)
     plain_ms = cuda_ms(lambda: ref.ssd_chunked_ref(x, dt, a, bm, cm, Q), 2, 1)
     plain_bwd_ms = cuda_ms(lambda: ref.ssd_scan_bwd_ref(
         x, dt, a, bm, cm, dy, None, Q), 1, 1)
     rows = []
-    for name, kms, pms, bound_fn, rep_ in (
-            ("ssd_scan_zamba2", ms, plain_ms, _ssd_fwd_bound,
-             "src/repro/kernels/ssd_scan.py:77"),
-            ("ssd_scan_bwd_zamba2", bwd_ms, plain_bwd_ms, _ssd_bwd_bound,
-             "none (JAX autodiff of src/repro/models/ssm.py:84)")):
+    for name, kms, fms, pms, bound_fn, src, rep_, err, aerr in (
+            ("ssd_scan_zamba2", ms, fma_ms, plain_ms, _ssd_fwd_bound,
+             "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:77", y_err,
+             abs_err[0]),
+            ("ssd_scan_bwd_zamba2", bwd_ms, fma_bwd_ms, plain_bwd_ms,
+             _ssd_bwd_bound, "ssd_scan_bwd_wgmma.cu",
+             "none (JAX autodiff of src/repro/models/ssm.py:84)",
+             max(g_err), abs_err[1])):
         bound, by, nbytes, flops = bound_fn(B, L, H, P, N, Q)
         log(f"  {name} (B={B}, L={L}, H={H}, P={P}, N={N}, Q={Q}) bf16 on "
-            f"the FMA passes: {kms:.4f} ms on the device, plain {pms:.3f} "
-            f"ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP)")
-        src = "ssd_scan.cu" if "bwd" not in name else "ssd_scan_bwd.cu"
+            f"the tensor cores: {kms:.4f} ms on the device, the f32 FMA "
+            f"passes {fms:.4f} ms, plain {pms:.3f} ms, bound {bound:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
         rows.append({
-            "name": name, "route": "cuda", "variant": "fma",
+            "name": name, "route": "cuda", "variant": "wgmma",
             "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": rep_,
-            "max_abs_err": y_err if "bwd" not in name else max(g_err),
-            "max_rel_err": y_err if "bwd" not in name else max(g_err),
-            "ms": kms, "plain_ms": pms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None})
+            "replaces": rep_, "max_abs_err": aerr, "max_rel_err": err,
+            "ms": kms, "fma_ms": fms, "plain_ms": pms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None})
     del x, dt, a, bm, cm, dy
     torch.cuda.empty_cache()
     return rows
@@ -3930,8 +3969,8 @@ def hybrid_serve_path(dev) -> dict:
     """``repro_torch.launch.serve.main`` serving 4 requests of zamba2-2.7b
     (54 layers, bf16, random weights from a seed) over 511 + 1 + 4096
     tokens under flow_sde, 4 steps: launch counts (a velocity: ``ssd_scan``
-    54, all on the FMA passes, ``flash_attention`` 9, all on the tensor
-    cores), the latents bitwise ``rollout_keyed``'s through the kernels,
+    54 and ``flash_attention`` 9, all on the tensor cores), the latents
+    bitwise ``rollout_keyed``'s through the kernels,
     s per step, req/s, peak memory and a profile of one step; then the
     velocity at depth 2 (``depth_cfg``) with the SSM leaves and the shared
     wq/wk drawn, through the kernels against the plain versions, in f32
@@ -3997,7 +4036,8 @@ def check_hybrid_velocity(dev) -> dict:
     511 + 1 + 4096 tokens, SSM leaves and shared wq/wk drawn, through the
     kernels against the plain versions: in f32 (every kernel's f32 FMA
     variant) within F32_VEL_BAND of max |v|, and in bf16 (the attention
-    on the tensor cores at D = 80) within BF16_BAND."""
+    on the tensor cores at D = 80, the scan at state 64) within
+    BF16_BAND."""
     cfg = depth_cfg(HY_ARCH, UPDATE_LAYERS)
     adapter = FlowAdapter(cfg, FlowRLConfig(latent_tokens=LAT_TOKENS,
                                             latent_dim=LAT_DIM), COND_DIM)
@@ -4019,13 +4059,13 @@ def check_hybrid_velocity(dev) -> dict:
                 vp = adapter.velocity(p, x, t, cond)
         torch.cuda.synchronize()
         err, scale = float((vk - vp).abs().max()), float(vp.abs().max())
-        attn = "wgmma" if dtype == torch.bfloat16 else "fma"
+        route = "wgmma" if dtype == torch.bfloat16 else "fma"
         log(f"  velocity {HY_ARCH} depth {UPDATE_LAYERS} (2 groups), {name}: "
             f"max|kernel - plain| {err:.3e} of max|v| {scale:.3e} (band "
             f"{band * scale:.3e}); launches {ran}, variants {variants}")
         if (ran["ssd_scan"], ran["flash_attention"]) != (2, 2) or \
-                variants["ssd_scan"] != routed(2, "fma") or \
-                variants["flash_attention"] != routed(2, attn):
+                variants["ssd_scan"] != routed(2, route) or \
+                variants["flash_attention"] != routed(2, route):
             fail(f"the {name} hybrid velocity did not run its kernels")
         if not (torch.isfinite(vk).all() and err <= band * scale):
             fail(f"the {name} hybrid velocity is off its band")

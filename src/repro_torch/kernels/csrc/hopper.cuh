@@ -8,7 +8,9 @@
 //
 // Tile layout.  A tile of R rows (sequence positions) by D columns (the
 // head dim) lies in shared memory as NB = ceil(D / W) column blocks of W
-// bf16 values (W = 64 where D is a multiple of 64, else 32), each block R
+// bf16 values (W = 64 where D is a multiple of 64, else 32, unless the
+// caller names W: the scan's B and C tiles at state 64 take two 32-column
+// blocks, one per consumer warpgroup's half of the state), each block R
 // rows of W * 2 bytes.  A TMA box is 64 rows of one column block, written
 // with the hardware's 128-byte swizzle (64-byte where W = 32), so that block
 // is exactly the canonical wgmma layout: 8-row atoms of 8 * W * 2 bytes (the
@@ -143,9 +145,10 @@ __device__ __forceinline__ void bulk_wait() {
 }
 
 // ------------------------------------------------------ tile geometry
-template <int D, int R>
+template <int D, int R, int Wc = (D % 64 == 0 ? 64 : 32)>
 struct Tile {
-  static constexpr int W = D % 64 == 0 ? 64 : 32;  // columns of a block
+  static_assert(Wc == 64 || Wc == 32, "column blocks of 64 or 32");
+  static constexpr int W = Wc;                     // columns of a block
   static constexpr int NB = (D + W - 1) / W;       // column blocks
   static constexpr int DP = NB * W;                // stored (padded) width
   static constexpr int RB = W * 2;                 // bytes of a block row
@@ -156,6 +159,15 @@ struct Tile {
                 "tiles are 64-row multiples, D a multiple of 16");
 };
 
+// Byte offset of (row, col) in a tile of 128-byte rows with the 128-byte
+// swizzle (the 16-byte chunk j of row r lies at j ^ (r % 8)), made of
+// 64-column blocks of kBlock bytes each (a column below 64 needs none)
+template <int kBlock = 0>
+__device__ __forceinline__ int swz128(int row, int col) {
+  return (col >> 6) * kBlock + row * 128 +
+         ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+}
+
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
                                               uint32_t sbo, uint64_t layout) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
@@ -165,10 +177,10 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
 }
 
 // rows [row, row + 64 or N) and reduction columns [16 kc, 16 kc + 16)
-template <int D, int R>
+template <int D, int R, int Wc = (D % 64 == 0 ? 64 : 32)>
 __device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int row,
                                            int kc) {
-  using T = Tile<D, R>;
+  using T = Tile<D, R, Wc>;
   const int c = kc * 16;
   const uint32_t a = smem_u32(tile) + (c / T::W) * T::kBlock + row * T::RB
                      + (c % T::W) * 2;
@@ -176,21 +188,22 @@ __device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int row,
 }
 
 // reduction rows [16 kk, 16 kk + 16), all DP columns
-template <int D, int R>
+template <int D, int R, int Wc = (D % 64 == 0 ? 64 : 32)>
 __device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int kk) {
-  using T = Tile<D, R>;
+  using T = Tile<D, R, Wc>;
   return make_desc(smem_u32(tile) + kk * 16 * T::RB, T::kBlock, 8 * T::RB,
                    T::kLayout);
 }
 
 // rows [s0, s0 + R) of head `head`, batch b: NB column blocks of R / 64
-// boxes, all completing on `bar` (kBytes of transactions)
-template <int D, int R>
+// boxes, all completing on `bar` (kBytes of transactions); the map's boxes
+// are W columns wide (encode_bshd's w)
+template <int D, int R, int Wc = (D % 64 == 0 ? 64 : 32)>
 __device__ __forceinline__ void load_tile(unsigned char* tile,
                                           const CUtensorMap* map,
                                           uint64_t* bar, int head, int s0,
                                           int b) {
-  using T = Tile<D, R>;
+  using T = Tile<D, R, Wc>;
 #pragma unroll
   for (int cb = 0; cb < T::NB; ++cb)
 #pragma unroll
@@ -201,11 +214,11 @@ __device__ __forceinline__ void load_tile(unsigned char* tile,
 
 // load_tile's inverse: the tile to rows [s0, s0 + R) of head `head`,
 // batch b, in the caller's bulk group
-template <int D, int R>
+template <int D, int R, int Wc = (D % 64 == 0 ? 64 : 32)>
 __device__ __forceinline__ void store_tile(const CUtensorMap* map,
                                            const unsigned char* tile,
                                            int head, int s0, int b) {
-  using T = Tile<D, R>;
+  using T = Tile<D, R, Wc>;
 #pragma unroll
   for (int cb = 0; cb < T::NB; ++cb)
 #pragma unroll
@@ -298,8 +311,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// D (m64n64, f32) = A B + scale_d D with both operands read MN-major from
+// D (m64n32, f32) = A B + scale_d D with both operands read MN-major from
 // shared memory (A as 16 reduction rows of 64 M columns, B as desc_mn's).
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[16], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// wgmma_ss_tt with N = 64 (m64n64).
 __device__ __forceinline__ void wgmma_ss_tt(float (&d)[32], uint64_t da,
                                             uint64_t db, int scale_d) {
   asm volatile(
@@ -392,17 +417,17 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[96], const uint32_t (&a)[
 // ------------------------------------------------------------ host side
 // A (D, heads, S, B) view of a (B, S, heads, D) bf16 tensor with element
 // strides sb, ss, sh (multiples of 8), boxes of 64 rows by one column block
-// of Tile (64 columns where D is a multiple of 64, else 32), swizzled for
-// wgmma; rows and columns past the end (a padded D's last block) read as
-// zeros.
+// of Tile (w columns: by default 64 where D is a multiple of 64, else 32),
+// swizzled for wgmma; rows and columns past the end (a padded D's last
+// block) read as zeros.
 inline CUresult encode_bshd(CUtensorMap* map, const void* ptr, int D,
                             int heads, int S, int B, long long sb,
-                            long long ss, long long sh) {
+                            long long ss, long long sh, int w = 0) {
   // the stride of an axis of length 1 is never used; give it a legal value
   if (heads == 1) sh = D;
   if (S == 1) ss = sh * heads;
   if (B == 1) sb = ss * S;
-  const int w = D % 64 == 0 ? 64 : 32;
+  if (w == 0) w = D % 64 == 0 ? 64 : 32;
   cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
                         (cuuint64_t)B};
   cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,

@@ -9,19 +9,21 @@
 // The state starts at zero; y is stored in x's dtype and the final state
 // hT (B,H,P,N) in f32.
 //
-// Bound on the H100: bytes.  At the serving shape (B=4, L=4608, H=32,
-// P=64, N=128, Q=128, bf16) the inputs and outputs move ~167 MB (0.050 ms at
-// 3.35 TB/s) for ~30 GFLOP (0.030 ms on the bf16 tensor cores).
+// Bound on the H100: bytes.  At Mamba-2's serving shape (B=4, L=4608,
+// H=32, P=64, N=128, Q=128, bf16) the inputs and outputs move ~167 MB
+// (0.050 ms at 3.35 TB/s) for ~30 GFLOP (0.030 ms on the bf16 tensor
+// cores); at zamba2's (H=80, N=64) ~393 MB (0.117 ms).
 //
 // Two kernels, chosen by dtype and shape (kernels/ssd_scan.py:
 // tensor_core_route, mirrored by tc_aligned here).  bf16 x, B and C at
-// Mamba-2's shape (P = 64, N = 128, a chunk of 128, L a multiple of it)
-// whose base pointers are 16-byte aligned and whose batch and token strides
-// are multiples of 8 elements (what TMA needs; the serving path's column
-// slices of the conv output are) run ssd_scan_wgmma, the kernel of the
-// serving path.  f32 inputs and every other shape run the four FMA passes
-// below, exact to f32 rounding.  The route depends on nothing else; a
-// launch error is returned, never retried on the other kernel.
+// P = 64, a chunk of 128 (L a multiple of it) and a state of 128 (Mamba-2)
+// or 64 (zamba2), whose base pointers are 16-byte aligned and whose batch
+// and token strides are multiples of 8 elements (what TMA needs; the
+// serving path's column slices of the conv output are) run ssd_scan_wgmma,
+// instantiated at each state width.  f32 inputs and every other shape run
+// the four FMA passes below, exact to f32 rounding.  The route depends on
+// nothing else; a launch error is returned, never retried on the other
+// kernel.
 //
 // ssd_scan_wgmma follows the TPU kernel's dataflow: one block per (b, h)
 // walks the chunks in order with the (P, N) state on chip, so x, B and C
@@ -29,10 +31,10 @@
 // or decay scratch in device memory (the FMA passes round-trip ~600 MB of
 // it a call); every product runs on wgmma with f32 accumulation, TMA loads
 // a two-stage ring, and the state chain overlaps the next products (design
-// above the kernel).  It recomputes S = C B^T per head (shared by the 32
+// above the kernel).  It recomputes S = C B^T per head (shared by the
 // heads, cheap on the tensor cores) and does its state update twice (hi,
-// lo).  On an H100 SXM (700 W) it runs at 0.176 ms at the serving shape,
-// 3.5x its bound, against 2.36 ms for the FMA passes (PERF.md).
+// lo).  On an H100 SXM (700 W) it runs at 0.176 ms at Mamba-2's serving
+// shape, 3.5x its bound, against 2.36 ms for the FMA passes (PERF.md).
 //
 // Precision of ssd_scan_wgmma, by design.  x, B and C are bf16 and enter
 // every product exactly; S and all sums are f32.  Three factors exist only
@@ -41,8 +43,9 @@
 //     bf16 hi + lo (two products; ~2^-16 relative): with one rounding the
 //     final state misses its 1e-4 band by more than 5x on the slow-decay
 //     draw (ref.ssd_tensor_core_ref, the kernel's rounding written out, in
-//     tests/test_torch_ssm.py); with the split it holds <= 7.6e-6 of max
-//     |hT| on an H100 over chip_smoke.py's phase 10 cases;
+//     tests/test_torch_ssm.py, at state 128 and 64); with the split it
+//     holds <= 7.6e-6 of max |hT| on an H100 over chip_smoke.py's phase 10
+//     cases;
 //   * L' and the carried state h_prev (for C h_prev^T) are rounded once to
 //     bf16: y, itself stored in bf16, then holds <= 4.9e-3 of max |y| on the
 //     card against its 1e-2 band (the slow-decay case, where the carried
@@ -179,16 +182,19 @@ int launch(const void* x, const void* dt, const void* a, const void* bm,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: one block per (b, h) walks its chunks in order.
+// bf16 on the tensor cores: one block per (b, h) walks its chunks in order,
+// at a state width N of 128 (Mamba-2) or 64 (zamba2), a template argument.
 //
 // Warpgroup 0 is the producer: one thread TMA-loads chunk c's x (Q x P), B
-// and C (Q x N each) into a ring of two stages while the consumers work on
-// chunk c - 1.  Warpgroups 1 and 2 (W = 0, 1) own chunk rows [64W, 64W+64)
-// of S, L' and y, and state columns [64W, 64W+64) of h, which stays in
-// their accumulator registers from the first chunk to the last.  Per chunk:
+// and C (Q x N each) into a ring of two stages (kStages) while the
+// consumers work on chunk c - 1.  Warpgroups 1 and 2 (W = 0, 1) own chunk rows [64W, 64W+64)
+// of S, L' and y, and state columns [W N/2, (W+1) N/2) of h, which stays in
+// their m64n(N/2) accumulator registers from the first chunk to the last.
+// Per chunk:
 //   1. cum = cumsum(dt a) over the chunk (each warpgroup for itself);
 //   2. y = C h_prev^T (the carried state, from the bf16 h tile) and
-//      S = C B^T, both wgmma on shared-memory operands, in flight at once;
+//      S = C B^T, both wgmma on shared-memory operands over N / 16 steps,
+//      in flight at once;
 //   3. under them, xw = exp(total - cum[q]) dt[q] x[q][p] as hi + lo bf16
 //      tiles in x's own (swizzled) layout;
 //   4. y *= exp(cum[q]) once its product has landed; named barrier;
@@ -202,30 +208,58 @@ int launch(const void* x, const void* dt, const void* a, const void* bm,
 //      stored; named barrier.
 // The barrier of step 4 follows both warpgroups' C h_prev^T, so the h tile
 // may be overwritten after it; the barrier of step 7 publishes the new one.
+//
+// State 64.  The state (64 x 64) is split by columns, 32 a warpgroup (an
+// m64n32 update), rather than held by one warpgroup: the update is the
+// longest product of a chunk's chain (2 x 128 reduction steps of k16), and
+// split it takes half the time on each warpgroup, with no sum across them.
+// So that a warpgroup's 32 columns of B are one whole swizzle block, B and C
+// are stored at N = 64 as two 32-column blocks with the 64-byte swizzle
+// (the layout of the attention kernels' D = 80 tiles); every other tile
+// keeps the 128-byte one.  Step 2 runs 4 reduction steps, and B and C are
+// 16 KB each, so a ring stage takes 48 KB, not 80.
+// The room this frees is left unused.  A third stage holds loads the ring
+// does not wait for: a stage's 48 KB arrive under the previous chunk's
+// products, and a copy built with three stages
+// (scripts/ssd_scan_breakdown.py) runs in the same time.  Two heads a
+// block (B, C and S shared) would need four consumer warpgroups, 640
+// threads, at ~100 registers each; two blocks an SM need under 116
+// registers a consumer thread, and warpgroup 1 alone holds S (64
+// registers), y (32) and L' as A operands (32).  So the grid stays (H, B),
+// one block an SM: at zamba2's shape 4 x 80 = 320 blocks, 2.42 waves of
+// 132, the last 42 % full.  Each block is a chain of 36 dependent chunk
+// steps, so batch 4 costs three rounds of batch 1's one (PERF.md), about a
+// fifth more than 2.42 rounds would.
 // ---------------------------------------------------------------------------
 constexpr int kTcThreads = 384;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kTcQ = 128, kTcP = 64, kTcN = 128;
+constexpr int kTcQ = 128, kTcP = 64;
 using XTile = hopper::Tile<kTcP, kTcQ>;   // x, xw: 128 tokens x 64
-using BTile = hopper::Tile<kTcN, kTcQ>;   // B, C: 128 tokens x 128
-using HTile = hopper::Tile<kTcN, kTcP>;   // h_prev: 64 (p) x 128 (n)
 
+template <int N>
 struct TcLayout {
+  static_assert(N == 64 || N == 128, "state 64 or 128");
+  static constexpr int kHalf = N / 2;   // state columns of a warpgroup
+  // B, C: 128 tokens x N, as two blocks of kHalf columns
+  using BTile = hopper::Tile<N, kTcQ, kHalf>;
+  using HTile = hopper::Tile<N, kTcP>;   // h_prev: 64 (p) x N, 128-byte rows
+  static constexpr int kStages = 2;     // the ring of x, B and C tiles
   static constexpr int kX = 0;                          // within a stage
   static constexpr int kB = XTile::kBytes;
   static constexpr int kC = kB + BTile::kBytes;
   static constexpr int kStage = kC + BTile::kBytes;
-  static constexpr int kXwHi = 2 * kStage;
+  static constexpr int kXwHi = kStages * kStage;
   static constexpr int kXwLo = kXwHi + XTile::kBytes;
   static constexpr int kH = kXwLo + XTile::kBytes;
   static constexpr int kCum = kH + HTile::kBytes;       // [w][cum, dt][Q] f32
   static constexpr int kWsum = kCum + 2 * 2 * kTcQ * 4; // [w][4 warps] f32
-  static constexpr int kBar = kWsum + 2 * 4 * 4;        // full[2], empty[2]
-  static constexpr int kBytes = kBar + 4 * 8 + 1024;
+  static constexpr int kBar = kWsum + 2 * 4 * 4;        // full[], empty[]
+  static constexpr int kBytes = kBar + 2 * kStages * 8 + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory");
 };
 
 struct TcParams {
-  CUtensorMap tx, tb, tc;   // (64, H, L, B) view of x; (128, 1, L, B) of B, C
+  CUtensorMap tx, tb, tc;   // (64, H, L, B) view of x; (N, 1, L, B) of B, C
   const float* dt;
   const float* a;
   __nv_bfloat16* y;
@@ -240,16 +274,19 @@ __device__ __forceinline__ uint32_t split_bf16(float v0, float v1,
   return *reinterpret_cast<const uint32_t*>(&hi);
 }
 
-// The consumer warpgroup W (0 or 1) of ssd_scan_wgmma: chunk rows and
-// state columns [64W, 64W + 64), S, L' and L' x over NS keys.  W is a
-// template argument so that every wgmma sits on a path uniform
-// across the warpgroup as the compiler sees it (a branch on a thread index
-// between products makes ptxas serialise them, C7520).
-template <int W>
+// The consumer warpgroup W (0 or 1) of ssd_scan_wgmma: chunk rows [64W,
+// 64W + 64) and state columns [W N/2, (W + 1) N/2), S, L' and L' x over NS
+// keys.  W is a template argument so that every wgmma sits on a path
+// uniform across the warpgroup as the compiler sees it (a branch on a
+// thread index between products makes ptxas serialise them, C7520).
+template <int N, int W>
 __device__ __forceinline__ void tc_consume(const TcParams& p,
                                            unsigned char* sm, uint64_t* full,
                                            uint64_t* empty) {
-  using Lay = TcLayout;
+  using Lay = TcLayout<N>;
+  using BT = typename Lay::BTile;
+  using HT = typename Lay::HTile;
+  constexpr int kHalf = Lay::kHalf;
   constexpr int NS = W == 0 ? 64 : 128;
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x & 127;
@@ -266,13 +303,15 @@ __device__ __forceinline__ void tc_consume(const TcParams& p,
   const int r0 = 64 * W + warp * 16 + g, r1 = r0 + 8;
   const int rlast = 64 * W + warp * 16 + 15;
   const int p0 = warp * 16 + g;
+  const int n0 = kHalf * W + 2 * tg;   // this thread's first state column
   const long long ystride = (long long)p.H * kTcP;
 
-  float hs[32];   // the state: rows p0, p0 + 8; columns 64W + 8j + 2tg (+1)
+  // the state: rows p0, p0 + 8; columns n0 + 8j (+1)
+  float hs[kHalf / 2];
   float y[32];    // y: rows r0, r1; columns 8j + 2tg (+1)
   // the state entering the first chunk is zero
-  uint4* own = reinterpret_cast<uint4*>(ht + W * HTile::kBlock);
-  for (int i = tid; i < HTile::kBlock / 16; i += 128)
+  uint4* own = reinterpret_cast<uint4*>(ht + W * (HT::kBytes / 2));
+  for (int i = tid; i < HT::kBytes / 32; i += 128)
     own[i] = make_uint4(0, 0, 0, 0);
   hopper::fence_proxy_async();
   hopper::bar_sync(3, 256);
@@ -312,14 +351,14 @@ __device__ __forceinline__ void tc_consume(const TcParams& p,
     hopper::fence_regs(y);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < kTcN / 16; ++kc)
-      hopper::wgmma_ss(y, hopper::desc_k<kTcN, kTcQ>(ct, 64 * W, kc),
-                       hopper::desc_k<kTcN, kTcP>(ht, 0, kc), kc > 0);
+    for (int kc = 0; kc < N / 16; ++kc)
+      hopper::wgmma_ss(y, hopper::desc_k<N, kTcQ, kHalf>(ct, 64 * W, kc),
+                       hopper::desc_k<N, kTcP>(ht, 0, kc), kc > 0);
     hopper::wgmma_commit();
 #pragma unroll
-    for (int kc = 0; kc < kTcN / 16; ++kc)
-      hopper::wgmma_ss(s, hopper::desc_k<kTcN, kTcQ>(ct, 64 * W, kc),
-                       hopper::desc_k<kTcN, kTcQ>(bt, 0, kc), kc > 0);
+    for (int kc = 0; kc < N / 16; ++kc)
+      hopper::wgmma_ss(s, hopper::desc_k<N, kTcQ, kHalf>(ct, 64 * W, kc),
+                       hopper::desc_k<N, kTcQ, kHalf>(bt, 0, kc), kc > 0);
     hopper::wgmma_commit();
     // 3. under those products: xw = w[q] x[q][:] as hi + lo, this
     //    warpgroup's 64 rows, in x's layout (a row of x is one 128-byte line
@@ -362,20 +401,20 @@ __device__ __forceinline__ void tc_consume(const TcParams& p,
     if (c > 0) {
       const float dec = hopper::ex2(total * kLog2e);
 #pragma unroll
-      for (int i = 0; i < 32; ++i) hs[i] *= dec;
+      for (int i = 0; i < kHalf / 2; ++i) hs[i] *= dec;
     }
-    const unsigned char* bw = bt + W * BTile::kBlock;
+    const unsigned char* bw = bt + W * BT::kBlock;
     hopper::fence_regs(hs);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTcQ / 16; ++kk)
       hopper::wgmma_ss_tt(hs, hopper::desc_mn<kTcP, kTcQ>(xw_hi, kk),
-                          hopper::desc_mn<kTcP, kTcQ>(bw, kk),
+                          hopper::desc_mn<kHalf, kTcQ, kHalf>(bw, kk),
                           c > 0 || kk > 0);
 #pragma unroll
     for (int kk = 0; kk < kTcQ / 16; ++kk)
       hopper::wgmma_ss_tt(hs, hopper::desc_mn<kTcP, kTcQ>(xw_lo, kk),
-                          hopper::desc_mn<kTcP, kTcQ>(bw, kk), 1);
+                          hopper::desc_mn<kHalf, kTcQ, kHalf>(bw, kk), 1);
     hopper::wgmma_commit();
     hopper::wgmma_wait<1>();
     hopper::fence_regs(s);
@@ -415,16 +454,15 @@ __device__ __forceinline__ void tc_consume(const TcParams& p,
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(&empty[stage]);
 
-    // 7. h as bf16 for the next chunk (128-byte swizzle: the 16-byte chunk
-    //    j of row r lies at j ^ (r % 8)); then y
+    // 7. h as bf16 for the next chunk; then y
     if (c + 1 < p.nc) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        unsigned char* blk = ht + W * HTile::kBlock + 4 * tg;
-        *reinterpret_cast<uint32_t*>(blk + p0 * 128 + ((j ^ (p0 & 7)) << 4)) =
+      for (int j = 0; j < kHalf / 8; ++j) {
+        const int n = n0 + 8 * j;
+        *reinterpret_cast<uint32_t*>(ht + hopper::swz128<HT::kBlock>(p0, n)) =
             hopper::pack_bf16(hs[4 * j], hs[4 * j + 1]);
-        *reinterpret_cast<uint32_t*>(blk + (p0 + 8) * 128 +
-                                     ((j ^ ((p0 + 8) & 7)) << 4)) =
+        *reinterpret_cast<uint32_t*>(
+            ht + hopper::swz128<HT::kBlock>(p0 + 8, n)) =
             hopper::pack_bf16(hs[4 * j + 2], hs[4 * j + 3]);
       }
       hopper::fence_proxy_async();
@@ -439,30 +477,31 @@ __device__ __forceinline__ void tc_consume(const TcParams& p,
           hopper::pack_bf16(y[4 * j + 2], y[4 * j + 3]);
     }
     if (c + 1 < p.nc) hopper::bar_sync(3, 256);
-    if (++stage == 2) { stage = 0; phase ^= 1; }
+    if (++stage == Lay::kStages) { stage = 0; phase ^= 1; }
   }
 
-  float* hp = p.hT + ((long long)b * p.H + h) * kTcP * kTcN + 64 * W + 2 * tg;
+  float* hp = p.hT + ((long long)b * p.H + h) * kTcP * N + n0;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    *reinterpret_cast<float2*>(hp + p0 * kTcN + 8 * j) =
+  for (int j = 0; j < kHalf / 8; ++j) {
+    *reinterpret_cast<float2*>(hp + p0 * N + 8 * j) =
         make_float2(hs[4 * j], hs[4 * j + 1]);
-    *reinterpret_cast<float2*>(hp + (p0 + 8) * kTcN + 8 * j) =
+    *reinterpret_cast<float2*>(hp + (p0 + 8) * N + 8 * j) =
         make_float2(hs[4 * j + 2], hs[4 * j + 3]);
   }
 }
 
+template <int N>
 __global__ void __launch_bounds__(kTcThreads, 1)
 ssd_scan_wgmma(const __grid_constant__ TcParams p) {
-  using Lay = TcLayout;
+  using Lay = TcLayout<N>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + Lay::kBar);
-  uint64_t* empty = full + 2;
+  uint64_t* empty = full + Lay::kStages;
   const int h = blockIdx.x, b = blockIdx.y;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < Lay::kStages; ++s) {
       hopper::mbar_init(&full[s], 1);
       hopper::mbar_init(&empty[s], 8);
     }
@@ -482,20 +521,46 @@ ssd_scan_wgmma(const __grid_constant__ TcParams p) {
         hopper::mbar_expect_tx(&full[stage], Lay::kStage);
         hopper::load_tile<kTcP, kTcQ>(ring + Lay::kX, &p.tx, &full[stage], h,
                                       c * kTcQ, b);
-        hopper::load_tile<kTcN, kTcQ>(ring + Lay::kB, &p.tb, &full[stage], 0,
-                                      c * kTcQ, b);
-        hopper::load_tile<kTcN, kTcQ>(ring + Lay::kC, &p.tc, &full[stage], 0,
-                                      c * kTcQ, b);
-        if (++stage == 2) { stage = 0; phase ^= 1; }
+        hopper::load_tile<N, kTcQ, Lay::kHalf>(ring + Lay::kB, &p.tb,
+                                               &full[stage], 0, c * kTcQ, b);
+        hopper::load_tile<N, kTcQ, Lay::kHalf>(ring + Lay::kC, &p.tc,
+                                               &full[stage], 0, c * kTcQ, b);
+        if (++stage == Lay::kStages) { stage = 0; phase ^= 1; }
       }
     }
     return;
   }
   hopper::setmaxnreg_inc<240>();
   if (wg == 1)
-    tc_consume<0>(p, sm, full, empty);
+    tc_consume<N, 0>(p, sm, full, empty);
   else
-    tc_consume<1>(p, sm, full, empty);
+    tc_consume<N, 1>(p, sm, full, empty);
+}
+
+template <int N>
+int tc_launch(const void* x, const void* dt, const void* a, const void* bm,
+              const void* cm, void* y, void* hT, int B, int L, int H,
+              const long long* st, cudaStream_t stream) {
+  using Lay = TcLayout<N>;
+  TcParams p;
+  CUresult cr = encode_bshd(&p.tx, x, kTcP, H, L, B, st[0], st[1], kTcP);
+  if (cr == CUDA_SUCCESS)
+    cr = encode_bshd(&p.tb, bm, N, 1, L, B, st[2], st[3], N, Lay::kHalf);
+  if (cr == CUDA_SUCCESS)
+    cr = encode_bshd(&p.tc, cm, N, 1, L, B, st[4], st[5], N, Lay::kHalf);
+  if (cr != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  p.dt = static_cast<const float*>(dt);
+  p.a = static_cast<const float*>(a);
+  p.y = static_cast<__nv_bfloat16*>(y);
+  p.hT = static_cast<float*>(hT);
+  p.L = L;
+  p.H = H;
+  p.nc = L / kTcQ;
+  static bool sized = false;
+  const int rc = size_once(ssd_scan_wgmma<N>, Lay::kBytes, &sized);
+  if (rc) return rc;
+  ssd_scan_wgmma<N><<<dim3(H, B), kTcThreads, Lay::kBytes, stream>>>(p);
+  return cudaGetLastError();
 }
 
 // TMA reads x, B and C: base pointers 16-byte aligned, strides multiples of
@@ -538,40 +603,24 @@ int ssd_scan_fwd(const void* x, const void* dt, const void* a, const void* bm,
   return cudaErrorInvalidValue;
 }
 
-// The tensor-core kernel: bf16 x, bm, cm with P = 64, N = 128 and a chunk
-// of 128 (L a multiple of it), TMA-aligned (tc_aligned); within a token x
-// is packed over (H, P) and bm, cm are contiguous; y (B, L, H, P) bf16 and
-// hT (B, H, P, N) f32 are contiguous.  Needs no scratch.  Returns a CUDA
-// error code (0 on success).
+// The tensor-core kernel: bf16 x, bm, cm with P = 64, N = 64 or 128 and a
+// chunk of 128 (L a multiple of it), TMA-aligned (tc_aligned); within a
+// token x is packed over (H, P) and bm, cm are contiguous; y (B, L, H, P)
+// bf16 and hT (B, H, P, N) f32 are contiguous.  Needs no scratch.  Returns
+// a CUDA error code (0 on success).
 int ssd_scan_wgmma_fwd(const void* x, const void* dt, const void* a,
                        const void* bm, const void* cm, void* y, void* hT,
-                       int B, int L, int H, long long x_sb, long long x_sl,
-                       long long b_sb, long long b_sl, long long c_sb,
-                       long long c_sl, void* stream) {
+                       int B, int L, int H, int N, long long x_sb,
+                       long long x_sl, long long b_sb, long long b_sl,
+                       long long c_sb, long long c_sl, void* stream) {
   const long long st[6] = {x_sb, x_sl, b_sb, b_sl, c_sb, c_sl};
   if (B < 1 || H < 1 || L < kTcQ || L % kTcQ != 0 ||
       !tc_aligned(x, bm, cm, B, L, st))
     return cudaErrorInvalidValue;
-  TcParams p;
-  CUresult cr = encode_bshd(&p.tx, x, kTcP, H, L, B, x_sb, x_sl, kTcP);
-  if (cr == CUDA_SUCCESS)
-    cr = encode_bshd(&p.tb, bm, kTcN, 1, L, B, b_sb, b_sl, kTcN);
-  if (cr == CUDA_SUCCESS)
-    cr = encode_bshd(&p.tc, cm, kTcN, 1, L, B, c_sb, c_sl, kTcN);
-  if (cr != CUDA_SUCCESS) return cudaErrorInvalidValue;
-  p.dt = static_cast<const float*>(dt);
-  p.a = static_cast<const float*>(a);
-  p.y = static_cast<__nv_bfloat16*>(y);
-  p.hT = static_cast<float*>(hT);
-  p.L = L;
-  p.H = H;
-  p.nc = L / kTcQ;
-  static bool sized = false;
-  const int rc = size_once(ssd_scan_wgmma, TcLayout::kBytes, &sized);
-  if (rc) return rc;
-  ssd_scan_wgmma<<<dim3(H, B), kTcThreads, TcLayout::kBytes,
-                   static_cast<cudaStream_t>(stream)>>>(p);
-  return cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N == 128) return tc_launch<128>(x, dt, a, bm, cm, y, hT, B, L, H, st, s);
+  if (N == 64) return tc_launch<64>(x, dt, a, bm, cm, y, hT, B, L, H, st, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

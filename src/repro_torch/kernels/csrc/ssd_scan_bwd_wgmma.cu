@@ -1,5 +1,6 @@
 // Backward of the Mamba-2 SSD chunked scan on the tensor cores: bf16 x, B,
-// C and dy at Mamba-2's shape (head dim 64, state 128, chunk 128).
+// C and dy at head dim 64, chunk 128 and a state N of 128 (Mamba-2) or 64
+// (zamba2), N a template argument of every kernel.
 //
 // Replaces, with csrc/ssd_scan_bwd.cu (the f32 FMA passes, kept for f32 and
 // every other shape), the JAX package's autodiff of
@@ -18,9 +19,10 @@
 //   ddt, da from the row and column sums of S E (dy x^T) and the carried
 //   terms x.(dh B), dy.(h_prev C), <dh, h_prev> (ref.ssd_scan_bwd_ref).
 //
-// Bound on the H100: at the training path's shape (B 4, L 4608, H 32)
-// ~250 MB of inputs and outputs (0.0747 ms at 3.35 TB/s) and ~69.5 GFLOP
-// of products (0.0702 ms on the bf16 tensor cores): bytes, by a little.
+// Bound on the H100: at Mamba-2's training shape (B 4, L 4608, H 32, N
+// 128) ~250 MB of inputs and outputs (0.0747 ms at 3.35 TB/s) and ~69.5
+// GFLOP of products (0.0702 ms on the bf16 tensor cores): bytes, by a
+// little; at zamba2's (H 80, N 64) ~588 MB (0.175 ms), bytes.
 //
 // Design: four launches, every product on wgmma with f32 accumulation,
 // every tile loaded by TMA, no atomics (a rerun gives the same bits).
@@ -33,10 +35,12 @@
 //   2. ssd_bwd_reverse: one block per (b, h) walks the chunks from last to
 //      first with dh (P x N f32) in registers from dhT (or zero) to the
 //      first chunk.  A producer warp TMA-loads the chunk's x, dy, B, C and
-//      h_prev hi/lo tiles (128 KB: one stage; two would not fit beside the
-//      operand tiles).  Warpgroup W owns chunk rows [64W, 64W + 64) as k
-//      (dx, the transposed scores) and as q (dy.(h_prev C)), and state
-//      columns [64W, 64W + 64) of dh.  Per chunk:
+//      h_prev hi/lo tiles: 128 KB at N = 128, one stage (two would not fit
+//      beside the operand tiles); 80 KB at N = 64, two stages, so the next
+//      chunk's loads run under this one's products (RvLayout).  Warpgroup
+//      W owns chunk rows [64W, 64W + 64) as k (dx, the transposed scores)
+//      and as q (dy.(h_prev C)), and state columns [W N/2, (W + 1) N/2) of
+//      dh.  Per chunk:
 //        a. V = B dh^T and Y = C h_prev^T, each over the hi and lo tiles,
 //           and <dh, h_prev> under them; x.V and dy.Y per row, dx = w V;
 //        b. per 64 queries: S^T = B C^T and G^T = x dy^T; on and below the
@@ -58,11 +62,11 @@
 //      then adds each head's carried term, (w x) dh or (exp(cum) dy) h_prev,
 //      from a four-stage TMA ring of the head's tiles.
 //   4. ssd_bwd_da_tc: da summed over (batch, chunk) in order.
-// On an H100 SXM (700 W) the four take 0.677 ms at the path shape, 9.1x
-// the bound, against 8.05 ms for the FMA passes (PERF.md); their own
+// On an H100 SXM (700 W) the four take 0.677 ms at Mamba-2's path shape,
+// 9.1x the bound, against 8.05 ms for the FMA passes (PERF.md); their own
 // traffic (the scratch below, x and dy read twice) is ~1.3 GB, 0.39 ms.
 // Why the sums over the heads take a kernel of their own: B and C are
-// shared by the 32 heads, so dB and dC are sums over heads of (Q, N) f32
+// shared by all heads, so dB and dC are sums over heads of (Q, N) f32
 // terms; summing them where they are formed (one block per head) needs a
 // cluster reduction through distributed shared memory, and the per-head
 // tiles already fill the reverse kernel's shared memory.  The cost is
@@ -90,10 +94,23 @@ namespace {
 
 constexpr int kThreads = 384;   // a producer and two consumer warpgroups
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kQ = 128, kP = 64, kN = 128;
+constexpr int kQ = 128, kP = 64;
 using XTile = hopper::Tile<kP, kQ>;   // x, dy, xw, ed: 128 tokens x 64
-using BTile = hopper::Tile<kN, kQ>;   // B, C, dS^T: 128 rows x 128
-using HTile = hopper::Tile<kN, kP>;   // h_prev, dh: 64 (p) x 128 (n)
+using STile = hopper::Tile<kQ, kQ>;   // dS^T: 128 keys x 128 queries
+
+// The tiles of one state width N, a template argument of every kernel
+// below (128: Mamba-2; 64: zamba2).  Consumer warpgroup W owns state
+// columns [W N/2, (W + 1) N/2) of h or dh (an m64n(N/2) accumulator), so B
+// and C are stored as two column blocks of N/2, a warpgroup's half one
+// block: 128-byte swizzled blocks of 64 at N = 128, 64-byte swizzled blocks
+// of 32 at N = 64.  h_prev and dh keep 128-byte rows at both widths.
+template <int N>
+struct Shape {
+  static_assert(N == 64 || N == 128, "state 64 or 128");
+  static constexpr int kHalf = N / 2;
+  using BTile = hopper::Tile<N, kQ, kHalf>;   // B, C: 128 tokens x N
+  using HTile = hopper::Tile<N, kP>;          // h_prev, dh: 64 (p) x N
+};
 // dS^T words (bf16 pairs) of one (b, chunk, head): three 64 x 64 blocks
 // (k < 64, q < 64), (k < 64, q >= 64), (k >= 64, q >= 64), 2048 words each
 constexpr int kDsWords = 3 * 2048;
@@ -112,12 +129,6 @@ __device__ __forceinline__ float2 unpack(uint32_t w) {
 
 __device__ __forceinline__ float2 ld_pair(const unsigned char* p) {
   return unpack(*reinterpret_cast<const uint32_t*>(p));
-}
-
-// byte offset of (row, col) in one 64-column block of a swizzled tile
-// (128-byte rows; the 16-byte chunk j of row r lies at j ^ (r % 8))
-__device__ __forceinline__ int swz(int row, int col) {
-  return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -181,22 +192,23 @@ __device__ __forceinline__ void scaled_split(const unsigned char* src,
   }
 }
 
-// A (P x N) state held as a warpgroup's m64n64 accumulator (rows p0,
-// p0 + 8; columns 64W + 8j + 2tg, +1): its hi and lo bf16 parts into two
+// A (P x N) state held as a warpgroup's m64n(N/2) accumulator (rows p0,
+// p0 + 8; columns W N/2 + 8j + 2tg, +1): its hi and lo bf16 parts into two
 // HTiles
-template <int W>
-__device__ __forceinline__ void put_state(const float (&s)[32],
+template <int N, int W>
+__device__ __forceinline__ void put_state(const float (&s)[N / 4],
                                           unsigned char* hi_t,
                                           unsigned char* lo_t, int p0,
                                           int tg) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < N / 16; ++j) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       uint32_t lo;
       const uint32_t hi = split_bf16(s[4 * j + 2 * r], s[4 * j + 2 * r + 1],
                                      &lo);
-      const int o = W * HTile::kBlock + swz(p0 + 8 * r, 8 * j + 2 * tg);
+      const int o = hopper::swz128<Shape<N>::HTile::kBlock>(
+          p0 + 8 * r, W * (N / 2) + 8 * j + 2 * tg);
       *reinterpret_cast<uint32_t*>(hi_t + o) = hi;
       *reinterpret_cast<uint32_t*>(lo_t + o) = lo;
     }
@@ -216,7 +228,10 @@ struct StParams {
   int L, H, nc;
 };
 
-struct StLayout {
+template <int N>
+struct StLayout : Shape<N> {
+  using BTile = typename Shape<N>::BTile;
+  using HTile = typename Shape<N>::HTile;
   static constexpr int kX = 0;
   static constexpr int kB = XTile::kBytes;
   static constexpr int kStage = kB + BTile::kBytes;
@@ -227,13 +242,16 @@ struct StLayout {
   static constexpr int kWsum = kCum + 2 * 2 * kQ * 4;   // [w][4 warps]
   static constexpr int kBar = kWsum + 2 * 4 * 4;        // full[2], empty[2]
   static constexpr int kBytes = kBar + 4 * 8 + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory");
 };
 
-template <int W>
+template <int N, int W>
 __device__ __forceinline__ void st_consume(const StParams& p,
                                            unsigned char* sm, uint64_t* full,
                                            uint64_t* empty) {
-  using Lay = StLayout;
+  using Lay = StLayout<N>;
+  using HTile = typename Lay::HTile;
+  constexpr int kHalf = Lay::kHalf;
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x & 127;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tg = lane & 3;
@@ -245,9 +263,9 @@ __device__ __forceinline__ void st_consume(const StParams& p,
   const float av = p.a[h];
   const float* dtp = p.dt + (long long)b * p.L * p.H + h;
   const int p0 = warp * 16 + g;
-  float hs[32];
+  float hs[kHalf / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) hs[i] = 0.f;
+  for (int i = 0; i < kHalf / 2; ++i) hs[i] = 0.f;
   float dt_next = dtp[(long long)tid * p.H];
   int stage = 0;
   uint32_t phase = 0;
@@ -257,13 +275,13 @@ __device__ __forceinline__ void st_consume(const StParams& p,
     unsigned char* st_hi = sm + Lay::kSt + (c & 1) * 2 * HTile::kBytes;
     unsigned char* st_lo = st_hi + HTile::kBytes;
     const int row = (int)((((long long)b * p.nc + c) * p.H + h) * kP);
-    put_state<W>(hs, st_hi, st_lo, p0, tg);
+    put_state<N, W>(hs, st_hi, st_lo, p0, tg);
     if (c + 1 == p.nc) {   // the state leaving the last chunk is unused
       hopper::fence_proxy_async();
       hopper::bar_sync(3, 256);
       if (store_issuer()) {
-        hopper::store_tile<kN, kP>(&p.thi, st_hi, 0, row, 0);
-        hopper::store_tile<kN, kP>(&p.tlo, st_lo, 0, row, 0);
+        hopper::store_tile<N, kP>(&p.thi, st_hi, 0, row, 0);
+        hopper::store_tile<N, kP>(&p.tlo, st_lo, 0, row, 0);
         hopper::bulk_commit();
         hopper::bulk_wait<0>();
       }
@@ -280,24 +298,24 @@ __device__ __forceinline__ void st_consume(const StParams& p,
     hopper::fence_proxy_async();
     hopper::bar_sync(3, 256);
     if (store_issuer()) {
-      hopper::store_tile<kN, kP>(&p.thi, st_hi, 0, row, 0);
-      hopper::store_tile<kN, kP>(&p.tlo, st_lo, 0, row, 0);
+      hopper::store_tile<N, kP>(&p.thi, st_hi, 0, row, 0);
+      hopper::store_tile<N, kP>(&p.tlo, st_lo, 0, row, 0);
       hopper::bulk_commit();
     }
     const float dec = hopper::ex2(total * kLog2e);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) hs[i] *= dec;
-    const unsigned char* bw = bt + W * BTile::kBlock;
+    for (int i = 0; i < kHalf / 2; ++i) hs[i] *= dec;
+    const unsigned char* bw = bt + W * Lay::BTile::kBlock;
     hopper::fence_regs(hs);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kQ / 16; ++kk)
       hopper::wgmma_ss_tt(hs, hopper::desc_mn<kP, kQ>(xw_hi, kk),
-                          hopper::desc_mn<kP, kQ>(bw, kk), 1);
+                          hopper::desc_mn<kHalf, kQ, kHalf>(bw, kk), 1);
 #pragma unroll
     for (int kk = 0; kk < kQ / 16; ++kk)
       hopper::wgmma_ss_tt(hs, hopper::desc_mn<kP, kQ>(xw_lo, kk),
-                          hopper::desc_mn<kP, kQ>(bw, kk), 1);
+                          hopper::desc_mn<kHalf, kQ, kHalf>(bw, kk), 1);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(hs);
@@ -311,9 +329,10 @@ __device__ __forceinline__ void st_consume(const StParams& p,
   }
 }
 
+template <int N>
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_bwd_states(const __grid_constant__ StParams p) {
-  using Lay = StLayout;
+  using Lay = StLayout<N>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + Lay::kBar);
@@ -339,8 +358,8 @@ ssd_bwd_states(const __grid_constant__ StParams p) {
         hopper::mbar_expect_tx(&full[stage], Lay::kStage);
         hopper::load_tile<kP, kQ>(ring + Lay::kX, &p.tx, &full[stage], h,
                                   c * kQ, b);
-        hopper::load_tile<kN, kQ>(ring + Lay::kB, &p.tb, &full[stage], 0,
-                                  c * kQ, b);
+        hopper::load_tile<N, kQ, Lay::kHalf>(ring + Lay::kB, &p.tb,
+                                             &full[stage], 0, c * kQ, b);
         if (++stage == 2) { stage = 0; phase ^= 1; }
       }
     }
@@ -348,9 +367,9 @@ ssd_bwd_states(const __grid_constant__ StParams p) {
   }
   hopper::setmaxnreg_inc<240>();
   if (wg == 1)
-    st_consume<0>(p, sm, full, empty);
+    st_consume<N, 0>(p, sm, full, empty);
   else
-    st_consume<1>(p, sm, full, empty);
+    st_consume<N, 1>(p, sm, full, empty);
 }
 
 // ---------------------------------------------------------------------------
@@ -369,24 +388,38 @@ struct RvParams {
   int L, H, nc;
 };
 
-struct RvLayout {
-  static constexpr int kX = 0;
+// The ring holds kStages stages of a chunk's x, dy, B, C and h_prev hi/lo
+// tiles: one at N = 128 (128 KB), two at N = 64 (80 KB each).  The second
+// stage takes the room of dx's second staging tile (kDxTiles), so at N = 64
+// a chunk's dx waits until the previous chunk's dx store has read the one.
+template <int N>
+struct RvLayout : Shape<N> {
+  using BTile = typename Shape<N>::BTile;
+  using HTile = typename Shape<N>::HTile;
+  static constexpr int kStages = N == 64 ? 2 : 1;
+  static constexpr int kDxTiles = 3 - kStages;
+  // a tile of dh (P x N) or of ed (Q x P)
+  static constexpr int kTw = HTile::kBytes > XTile::kBytes ? HTile::kBytes
+                                                           : XTile::kBytes;
+  static constexpr int kX = 0;                          // within a stage
   static constexpr int kDy = kX + XTile::kBytes;
   static constexpr int kB = kDy + XTile::kBytes;
   static constexpr int kC = kB + BTile::kBytes;
   static constexpr int kHi = kC + BTile::kBytes;
   static constexpr int kLo = kHi + HTile::kBytes;
-  static constexpr int kStage = kLo + HTile::kBytes;    // 128 KB
-  static constexpr int kT0 = kStage;                    // dh hi / ed hi
-  static constexpr int kT1 = kT0 + HTile::kBytes;       // dh lo / ed lo
-  static constexpr int kDx = kT1 + HTile::kBytes;       // [par] dx XTile
-  static constexpr int kCum = kDx + 2 * XTile::kBytes;  // [par][w][cum, dt][Q]
+  static constexpr int kStage = kLo + HTile::kBytes;
+  static constexpr int kT0 = kStages * kStage;          // dh hi / ed hi
+  static constexpr int kT1 = kT0 + kTw;                 // dh lo / ed lo
+  static constexpr int kDx = kT1 + kTw;                 // [par] dx XTile
+  // [par][w][cum, dt][Q]
+  static constexpr int kCum = kDx + kDxTiles * XTile::kBytes;
   static constexpr int kWsum = kCum + 2 * 2 * 2 * kQ * 4;   // [w][4]
   static constexpr int kRow = kWsum + 2 * 4 * 4;        // [par][w][warp][Q]
   static constexpr int kVec = kRow + 2 * 8 * kQ * 4;    // [par][3][Q]
   static constexpr int kHd = kVec + 2 * 3 * kQ * 4;     // [par][w][warp]
-  static constexpr int kBar = kHd + 2 * 8 * 4;          // full, empty
-  static constexpr int kBytes = kBar + 2 * 8 + 1024;
+  static constexpr int kBar = kHd + 2 * 8 * 4;          // full[], empty[]
+  static constexpr int kBytes = kBar + 2 * kStages * 8 + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory");
 };
 
 // named barriers of the handoff between the consumers and the scalar warp
@@ -395,56 +428,53 @@ constexpr int kReadyBar = 4;   // + parity: a chunk's row sums are written
 constexpr int kFreeBar = 6;    // + parity: the scalar warp has read them
 constexpr int kHandoff = 256 + 32;
 
-template <int W>
+template <int N, int W>
 __device__ __forceinline__ void rv_consume(const RvParams& p,
                                            unsigned char* sm, uint64_t* full,
                                            uint64_t* empty) {
-  using Lay = RvLayout;
+  using Lay = RvLayout<N>;
+  constexpr int kHalf = Lay::kHalf;
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x & 127;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tg = lane & 3;
   float* wsum = reinterpret_cast<float*>(sm + Lay::kWsum) + W * 4;
   unsigned char* t0 = sm + Lay::kT0;
   unsigned char* t1 = sm + Lay::kT1;
-  const unsigned char* xt = sm + Lay::kX;
-  const unsigned char* dyt = sm + Lay::kDy;
-  const unsigned char* bt = sm + Lay::kB;
-  const unsigned char* ct = sm + Lay::kC;
-  const unsigned char* hit = sm + Lay::kHi;
-  const unsigned char* lot = sm + Lay::kLo;
   const float av = p.a[h];
   const float* dtp = p.dt + (long long)b * p.L * p.H + h;
-  const long long PN = (long long)kP * kN;
+  const long long PN = (long long)kP * N;
   const int p0 = warp * 16 + g;                       // state rows p0, p0 + 8
+  const int n0 = kHalf * W + 2 * tg;                  // first state column
   const int r0 = 64 * W + warp * 16 + g, r1 = r0 + 8; // chunk rows (k or q)
   const int row_last = (int)((((long long)b * p.nc + p.nc - 1) * p.H + h) *
                              kP);
 
   // dh leaving the last chunk: dhT or zero; its hi part stored for step 3
-  float dh[32];
+  float dh[kHalf / 2];
   if (p.dhT != nullptr) {
-    const float* src = p.dhT + ((long long)b * p.H + h) * PN + 64 * W + 2 * tg;
+    const float* src = p.dhT + ((long long)b * p.H + h) * PN + n0;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 u = *reinterpret_cast<const float2*>(src + p0 * kN + 8 * j);
+    for (int j = 0; j < kHalf / 8; ++j) {
+      const float2 u = *reinterpret_cast<const float2*>(src + p0 * N + 8 * j);
       const float2 v = *reinterpret_cast<const float2*>(
-          src + (p0 + 8) * kN + 8 * j);
+          src + (p0 + 8) * N + 8 * j);
       dh[4 * j] = u.x; dh[4 * j + 1] = u.y;
       dh[4 * j + 2] = v.x; dh[4 * j + 3] = v.y;
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dh[i] = 0.f;
+    for (int i = 0; i < kHalf / 2; ++i) dh[i] = 0.f;
   }
-  put_state<W>(dh, t0, t1, p0, tg);
+  put_state<N, W>(dh, t0, t1, p0, tg);
   hopper::fence_proxy_async();
   hopper::bar_sync(3, 256);
   if (store_issuer()) {
-    hopper::store_tile<kN, kP>(&p.tdh, t0, 0, row_last, 0);
+    hopper::store_tile<N, kP>(&p.tdh, t0, 0, row_last, 0);
     hopper::bulk_commit();
   }
 
   float dt_next = dtp[((long long)(p.nc - 1) * kQ + tid) * p.H];
+  int stage = 0;
   uint32_t phase = 0;
   for (int c = p.nc - 1; c >= 0; --c) {
     const int par = c & 1;
@@ -456,12 +486,20 @@ __device__ __forceinline__ void rv_consume(const RvParams& p,
     float* rowp = reinterpret_cast<float*>(sm + Lay::kRow) + par * 8 * kQ;
     float* vec = reinterpret_cast<float*>(sm + Lay::kVec) + par * 3 * kQ;
     float* hdp = reinterpret_cast<float*>(sm + Lay::kHd) + par * 8;
-    unsigned char* dxt = sm + Lay::kDx + par * XTile::kBytes;
+    unsigned char* dxt = sm + Lay::kDx + (par % Lay::kDxTiles) *
+                         XTile::kBytes;
     const long long bch = ((long long)b * p.nc + c) * p.H + h;
+    const unsigned char* ring = sm + stage * Lay::kStage;
+    const unsigned char* xt = ring + Lay::kX;
+    const unsigned char* dyt = ring + Lay::kDy;
+    const unsigned char* bt = ring + Lay::kB;
+    const unsigned char* ct = ring + Lay::kC;
+    const unsigned char* hit = ring + Lay::kHi;
+    const unsigned char* lot = ring + Lay::kLo;
     chunk_cum(dt_next, av, tid, wsum, cum, dts, 1 + W);
     if (c > 0) dt_next = dtp[((long long)(c - 1) * kQ + tid) * p.H];
     const float total = cum[kQ - 1];
-    hopper::mbar_wait(&full[0], phase);
+    hopper::mbar_wait(&full[stage], phase);
 
     // a. V = B dh^T (rows k) and Y = C h_prev^T (rows q), hi + lo each
     float v[32], yv[32];
@@ -469,31 +507,32 @@ __device__ __forceinline__ void rv_consume(const RvParams& p,
     hopper::fence_regs(yv);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < kN / 16; ++kc)
-      hopper::wgmma_ss(v, hopper::desc_k<kN, kQ>(bt, 64 * W, kc),
-                       hopper::desc_k<kN, kP>(t0, 0, kc), kc > 0);
+    for (int kc = 0; kc < N / 16; ++kc)
+      hopper::wgmma_ss(v, hopper::desc_k<N, kQ, kHalf>(bt, 64 * W, kc),
+                       hopper::desc_k<N, kP>(t0, 0, kc), kc > 0);
 #pragma unroll
-    for (int kc = 0; kc < kN / 16; ++kc)
-      hopper::wgmma_ss(v, hopper::desc_k<kN, kQ>(bt, 64 * W, kc),
-                       hopper::desc_k<kN, kP>(t1, 0, kc), 1);
+    for (int kc = 0; kc < N / 16; ++kc)
+      hopper::wgmma_ss(v, hopper::desc_k<N, kQ, kHalf>(bt, 64 * W, kc),
+                       hopper::desc_k<N, kP>(t1, 0, kc), 1);
     hopper::wgmma_commit();
 #pragma unroll
-    for (int kc = 0; kc < kN / 16; ++kc)
-      hopper::wgmma_ss(yv, hopper::desc_k<kN, kQ>(ct, 64 * W, kc),
-                       hopper::desc_k<kN, kP>(hit, 0, kc), kc > 0);
+    for (int kc = 0; kc < N / 16; ++kc)
+      hopper::wgmma_ss(yv, hopper::desc_k<N, kQ, kHalf>(ct, 64 * W, kc),
+                       hopper::desc_k<N, kP>(hit, 0, kc), kc > 0);
 #pragma unroll
-    for (int kc = 0; kc < kN / 16; ++kc)
-      hopper::wgmma_ss(yv, hopper::desc_k<kN, kQ>(ct, 64 * W, kc),
-                       hopper::desc_k<kN, kP>(lot, 0, kc), 1);
+    for (int kc = 0; kc < N / 16; ++kc)
+      hopper::wgmma_ss(yv, hopper::desc_k<N, kQ, kHalf>(ct, 64 * W, kc),
+                       hopper::desc_k<N, kP>(lot, 0, kc), 1);
     hopper::wgmma_commit();
     // under the products: <dh, h_prev> over this thread's elements
     {
       float hd = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kHalf / 8; ++j) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const int o = W * HTile::kBlock + swz(p0 + 8 * r, 8 * j + 2 * tg);
+          const int o = hopper::swz128<Lay::HTile::kBlock>(p0 + 8 * r,
+                                                           n0 + 8 * j);
           const float2 hi = ld_pair(hit + o), lo = ld_pair(lot + o);
           hd = fmaf(dh[4 * j + 2 * r], hi.x + lo.x, hd);
           hd = fmaf(dh[4 * j + 2 * r + 1], hi.y + lo.y, hd);
@@ -509,8 +548,8 @@ __device__ __forceinline__ void rv_consume(const RvParams& p,
       float s0 = 0.f, s1 = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float2 u = ld_pair(xt + swz(r0, 8 * j + 2 * tg));
-        const float2 w = ld_pair(xt + swz(r1, 8 * j + 2 * tg));
+        const float2 u = ld_pair(xt + hopper::swz128(r0, 8 * j + 2 * tg));
+        const float2 w = ld_pair(xt + hopper::swz128(r1, 8 * j + 2 * tg));
         s0 = fmaf(u.x, v[4 * j], fmaf(u.y, v[4 * j + 1], s0));
         s1 = fmaf(w.x, v[4 * j + 2], fmaf(w.y, v[4 * j + 3], s1));
       }
@@ -539,8 +578,8 @@ __device__ __forceinline__ void rv_consume(const RvParams& p,
       float s0 = 0.f, s1 = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float2 u = ld_pair(dyt + swz(r0, 8 * j + 2 * tg));
-        const float2 w = ld_pair(dyt + swz(r1, 8 * j + 2 * tg));
+        const float2 u = ld_pair(dyt + hopper::swz128(r0, 8 * j + 2 * tg));
+        const float2 w = ld_pair(dyt + hopper::swz128(r1, 8 * j + 2 * tg));
         s0 = fmaf(u.x, yv[4 * j], fmaf(u.y, yv[4 * j + 1], s0));
         s1 = fmaf(w.x, yv[4 * j + 2], fmaf(w.y, yv[4 * j + 3], s1));
       }
@@ -565,9 +604,9 @@ __device__ __forceinline__ void rv_consume(const RvParams& p,
       hopper::fence_regs(gg);
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kc = 0; kc < kN / 16; ++kc)
-        hopper::wgmma_ss(s, hopper::desc_k<kN, kQ>(bt, 64 * W, kc),
-                         hopper::desc_k<kN, kQ>(ct, q0, kc), kc > 0);
+      for (int kc = 0; kc < N / 16; ++kc)
+        hopper::wgmma_ss(s, hopper::desc_k<N, kQ, kHalf>(bt, 64 * W, kc),
+                         hopper::desc_k<N, kQ, kHalf>(ct, q0, kc), kc > 0);
 #pragma unroll
       for (int kc = 0; kc < kP / 16; ++kc)
         hopper::wgmma_ss(gg, hopper::desc_k<kP, kQ>(xt, 64 * W, kc),
@@ -644,12 +683,13 @@ __device__ __forceinline__ void rv_consume(const RvParams& p,
       vec[r1] = csd1;
     }
     // dx (bf16) into this parity's staging tile (its store of chunk c + 2
-    // has read it: the wait before step c of chunk c + 1)
+    // has read it: the wait before step c of chunk c + 1; with one tile,
+    // the store of chunk c + 1 has: the wait before step e of chunk c + 1)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      *reinterpret_cast<uint32_t*>(dxt + swz(r0, 8 * j + 2 * tg)) =
+      *reinterpret_cast<uint32_t*>(dxt + hopper::swz128(r0, 8 * j + 2 * tg)) =
           hopper::pack_bf16(v[4 * j], v[4 * j + 1]);
-      *reinterpret_cast<uint32_t*>(dxt + swz(r1, 8 * j + 2 * tg)) =
+      *reinterpret_cast<uint32_t*>(dxt + hopper::swz128(r1, 8 * j + 2 * tg)) =
           hopper::pack_bf16(v[4 * j + 2], v[4 * j + 3]);
     }
     hopper::fence_proxy_async();
@@ -670,41 +710,42 @@ __device__ __forceinline__ void rv_consume(const RvParams& p,
       hopper::bar_sync(3, 256);
       const float dec = hopper::ex2(total * kLog2e);
 #pragma unroll
-      for (int i = 0; i < 32; ++i) dh[i] *= dec;
-      const unsigned char* cw = ct + W * BTile::kBlock;
+      for (int i = 0; i < kHalf / 2; ++i) dh[i] *= dec;
+      const unsigned char* cw = ct + W * Lay::BTile::kBlock;
       hopper::fence_regs(dh);
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kQ / 16; ++kk)
         hopper::wgmma_ss_tt(dh, hopper::desc_mn<kP, kQ>(t0, kk),
-                            hopper::desc_mn<kP, kQ>(cw, kk), 1);
+                            hopper::desc_mn<kHalf, kQ, kHalf>(cw, kk), 1);
 #pragma unroll
       for (int kk = 0; kk < kQ / 16; ++kk)
         hopper::wgmma_ss_tt(dh, hopper::desc_mn<kP, kQ>(t1, kk),
-                            hopper::desc_mn<kP, kQ>(cw, kk), 1);
+                            hopper::desc_mn<kHalf, kQ, kHalf>(cw, kk), 1);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dh);
     }
     __syncwarp();
-    if (lane == 0) hopper::mbar_arrive(&empty[0]);
+    if (lane == 0) hopper::mbar_arrive(&empty[stage]);
     // this chunk's row sums are written: hand them to the scalar warp
     hopper::bar_arrive(kReadyBar + par, kHandoff);
 
     // e. dh's tiles for chunk c - 1 (both warpgroups' updates have read the
-    //    ed tiles) and its hi part stored for step 3
+    //    ed tiles) and its hi part stored for step 3; with one dx tile, this
+    //    chunk's dx store has read it before chunk c - 1 writes it
     if (c > 0) {
+      if (Lay::kDxTiles == 1 && store_issuer()) hopper::bulk_wait_read<0>();
       hopper::bar_sync(3, 256);
-      put_state<W>(dh, t0, t1, p0, tg);
+      put_state<N, W>(dh, t0, t1, p0, tg);
       hopper::fence_proxy_async();
       hopper::bar_sync(3, 256);
       if (store_issuer()) {
-        hopper::store_tile<kN, kP>(&p.tdh, t0, 0, (int)((bch - p.H) * kP),
-                                   0);
+        hopper::store_tile<N, kP>(&p.tdh, t0, 0, (int)((bch - p.H) * kP), 0);
         hopper::bulk_commit();
       }
     }
-    phase ^= 1;
+    if (++stage == Lay::kStages) { stage = 0; phase ^= 1; }
   }
   if (store_issuer()) hopper::bulk_wait<0>();
 }
@@ -712,9 +753,10 @@ __device__ __forceinline__ void rv_consume(const RvParams& p,
 // d. The scalar warp (the producer warpgroup's second): per chunk, once the
 // consumers hand over its row sums, cum's gradient, its reverse running sum
 // dA, ddt, the chunk's part of da, and w and exp(cum) for step 3.
+template <int N>
 __device__ __forceinline__ void rv_scalars(const RvParams& p,
                                            unsigned char* sm) {
-  using Lay = RvLayout;
+  using Lay = RvLayout<N>;
   const int h = blockIdx.x, b = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const float av = p.a[h];
@@ -786,17 +828,21 @@ __device__ __forceinline__ void rv_scalars(const RvParams& p,
   }
 }
 
+template <int N>
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_bwd_reverse(const __grid_constant__ RvParams p) {
-  using Lay = RvLayout;
+  using Lay = RvLayout<N>;
+  constexpr int kHalf = Lay::kHalf;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + Lay::kBar);
-  uint64_t* empty = full + 1;
+  uint64_t* empty = full + Lay::kStages;
   const int h = blockIdx.x, b = blockIdx.y;
   if (threadIdx.x == 0) {
-    hopper::mbar_init(full, 1);
-    hopper::mbar_init(empty, 8);
+    for (int s = 0; s < Lay::kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);
+    }
     hopper::fence_barrier_init();
   }
   __syncthreads();
@@ -804,29 +850,34 @@ ssd_bwd_reverse(const __grid_constant__ RvParams p) {
   if (wg == 0) {
     hopper::setmaxnreg_dec<56>();
     if (threadIdx.x == 0) {
+      int stage = 0;
       uint32_t phase = 0;
       for (int c = p.nc - 1; c >= 0; --c) {
-        hopper::mbar_wait(empty, phase ^ 1);
-        hopper::mbar_expect_tx(full, Lay::kStage);
-        hopper::load_tile<kP, kQ>(sm + Lay::kX, &p.tx, full, h, c * kQ, b);
-        hopper::load_tile<kP, kQ>(sm + Lay::kDy, &p.tdy, full, h, c * kQ, b);
-        hopper::load_tile<kN, kQ>(sm + Lay::kB, &p.tb, full, 0, c * kQ, b);
-        hopper::load_tile<kN, kQ>(sm + Lay::kC, &p.tc, full, 0, c * kQ, b);
+        unsigned char* ring = sm + stage * Lay::kStage;
+        uint64_t* bar = &full[stage];
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        hopper::mbar_expect_tx(bar, Lay::kStage);
+        hopper::load_tile<kP, kQ>(ring + Lay::kX, &p.tx, bar, h, c * kQ, b);
+        hopper::load_tile<kP, kQ>(ring + Lay::kDy, &p.tdy, bar, h, c * kQ, b);
+        hopper::load_tile<N, kQ, kHalf>(ring + Lay::kB, &p.tb, bar, 0,
+                                        c * kQ, b);
+        hopper::load_tile<N, kQ, kHalf>(ring + Lay::kC, &p.tc, bar, 0,
+                                        c * kQ, b);
         const int row = (int)((((long long)b * p.nc + c) * p.H + h) * kP);
-        hopper::load_tile<kN, kP>(sm + Lay::kHi, &p.thi, full, 0, row, 0);
-        hopper::load_tile<kN, kP>(sm + Lay::kLo, &p.tlo, full, 0, row, 0);
-        phase ^= 1;
+        hopper::load_tile<N, kP>(ring + Lay::kHi, &p.thi, bar, 0, row, 0);
+        hopper::load_tile<N, kP>(ring + Lay::kLo, &p.tlo, bar, 0, row, 0);
+        if (++stage == Lay::kStages) { stage = 0; phase ^= 1; }
       }
     } else if (threadIdx.x / 32 == 1) {
-      rv_scalars(p, sm);
+      rv_scalars<N>(p, sm);
     }
     return;
   }
   hopper::setmaxnreg_inc<224>();
   if (wg == 1)
-    rv_consume<0>(p, sm, full, empty);
+    rv_consume<N, 0>(p, sm, full, empty);
   else
-    rv_consume<1>(p, sm, full, empty);
+    rv_consume<N, 1>(p, sm, full, empty);
 }
 
 // ---------------------------------------------------------------------------
@@ -846,25 +897,33 @@ struct DbcParams {
 // flight under the fourth's products
 constexpr int kDbcStages = 4;
 
-struct DbcLayout {
+template <int N>
+struct DbcLayout : Shape<N> {
+  using BTile = typename Shape<N>::BTile;
+  using HTile = typename Shape<N>::HTile;
   static constexpr int kOther = 0;                      // C (dB) or B (dC)
   static constexpr int kSHi = BTile::kBytes;            // dS^T hi / lo (dC)
-  static constexpr int kSLo = kSHi + BTile::kBytes;
-  static constexpr int kRing = kSLo + BTile::kBytes;
+  static constexpr int kSLo = kSHi + STile::kBytes;
+  static constexpr int kRing = kSLo + STile::kBytes;
   static constexpr int kRows = 0;                       // within a stage
   static constexpr int kState = XTile::kBytes;
-  static constexpr int kStage = kState + HTile::kBytes; // 32 KB
+  static constexpr int kStage = kState + HTile::kBytes; // 32 or 24 KB
   // full[kDbcStages], empty[kDbcStages], once
   static constexpr int kBar = kRing + kDbcStages * kStage;
   static constexpr int kBytes = kBar + (2 * kDbcStages + 1) * 8 + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory");
 };
 
-// KIND 0: dB (rows k = 64W + ...), KIND 1: dC (rows q = 64W + ...)
-template <int W, int KIND>
+// KIND 0: dB (rows k = 64W + ...), KIND 1: dC (rows q = 64W + ...).  The
+// warpgroups split dB and dC by the chunk's rows, each holding all N
+// columns (an m64nN accumulator), at either width: dS^T's blocks of 64
+// queries, not B's or C's columns, are what a warpgroup takes.
+template <int N, int W, int KIND>
 __device__ __forceinline__ void dbc_consume(const DbcParams& p,
                                             unsigned char* sm, uint64_t* full,
                                             uint64_t* empty, uint64_t* once) {
-  using Lay = DbcLayout;
+  using Lay = DbcLayout<N>;
+  constexpr int kHalf = Lay::kHalf;
   constexpr int NB = W == 0 ? 2 : 1;   // dS^T blocks of this warpgroup's rows
   const int c = blockIdx.x, b = blockIdx.z;
   const int tid = threadIdx.x & 127;
@@ -874,7 +933,7 @@ __device__ __forceinline__ void dbc_consume(const DbcParams& p,
 
   // dS^T summed over the heads in order, rows k = r0, r1 of this warpgroup;
   // its block i (stored block 2W + i) covers queries [64 (W + i), + 64)
-  float acc[64];
+  float acc[N / 2];
   {
     float sum[NB * 32];
 #pragma unroll
@@ -915,11 +974,12 @@ __device__ __forceinline__ void dbc_consume(const DbcParams& p,
 #pragma unroll
       for (int kk = 0; kk < NB * 4; ++kk)
         hopper::wgmma_rs_tb(acc, ahi[kk],
-                            hopper::desc_mn<kN, kQ>(ct, 4 * W + kk), kk > 0);
+                            hopper::desc_mn<N, kQ, kHalf>(ct, 4 * W + kk),
+                            kk > 0);
 #pragma unroll
       for (int kk = 0; kk < NB * 4; ++kk)
         hopper::wgmma_rs_tb(acc, alo[kk],
-                            hopper::desc_mn<kN, kQ>(ct, 4 * W + kk), 1);
+                            hopper::desc_mn<N, kQ, kHalf>(ct, 4 * W + kk), 1);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(acc);
@@ -930,7 +990,7 @@ __device__ __forceinline__ void dbc_consume(const DbcParams& p,
       unsigned char* slo = sm + Lay::kSLo;
 #pragma unroll
       for (int blk = 0; blk < NB; ++blk) {
-        const int cb = (W + blk) * BTile::kBlock;
+        const int cb = (W + blk) * STile::kBlock;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -940,7 +1000,7 @@ __device__ __forceinline__ void dbc_consume(const DbcParams& p,
             const uint32_t hi = split_bf16(sum[blk * 32 + 4 * j + 2 * r],
                                            sum[blk * 32 + 4 * j + 2 * r + 1],
                                            &lo);
-            const int o = cb + swz(row, 8 * j + 2 * tg);
+            const int o = cb + hopper::swz128(row, 8 * j + 2 * tg);
             *reinterpret_cast<uint32_t*>(shi + o) = hi;
             *reinterpret_cast<uint32_t*>(slo + o) = lo;
           }
@@ -957,15 +1017,15 @@ __device__ __forceinline__ void dbc_consume(const DbcParams& p,
 #pragma unroll
       for (int kk = 0; kk < NK; ++kk)
         hopper::wgmma_ss_tt(acc,
-                            hopper::desc_mn<kN, kQ>(shi + W * BTile::kBlock,
+                            hopper::desc_mn<kQ, kQ>(shi + W * STile::kBlock,
                                                     kk),
-                            hopper::desc_mn<kN, kQ>(bt, kk), kk > 0);
+                            hopper::desc_mn<N, kQ, kHalf>(bt, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < NK; ++kk)
         hopper::wgmma_ss_tt(acc,
-                            hopper::desc_mn<kN, kQ>(slo + W * BTile::kBlock,
+                            hopper::desc_mn<kQ, kQ>(slo + W * STile::kBlock,
                                                     kk),
-                            hopper::desc_mn<kN, kQ>(bt, kk), 1);
+                            hopper::desc_mn<N, kQ, kHalf>(bt, kk), 1);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(acc);
@@ -995,8 +1055,8 @@ __device__ __forceinline__ void dbc_consume(const DbcParams& p,
 #pragma unroll
         for (int hb = 0; hb < 2; ++hb) {
           const int col = 16 * kk + 8 * hb + 2 * tg;
-          const float2 u = ld_pair(rows + swz(r0, col));
-          const float2 w = ld_pair(rows + swz(r1, col));
+          const float2 u = ld_pair(rows + hopper::swz128(r0, col));
+          const float2 w = ld_pair(rows + hopper::swz128(r1, col));
           af[kk][2 * hb] = hopper::pack_bf16(f0 * u.x, f0 * u.y);
           af[kk][2 * hb + 1] = hopper::pack_bf16(f1 * w.x, f1 * w.y);
         }
@@ -1005,7 +1065,7 @@ __device__ __forceinline__ void dbc_consume(const DbcParams& p,
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        hopper::wgmma_rs_tb(acc, af[kk], hopper::desc_mn<kN, kP>(st, kk), 1);
+        hopper::wgmma_rs_tb(acc, af[kk], hopper::desc_mn<N, kP>(st, kk), 1);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(acc);
@@ -1016,19 +1076,20 @@ __device__ __forceinline__ void dbc_consume(const DbcParams& p,
   }
 
   __nv_bfloat16* out = (KIND == 0 ? p.dbm : p.dcm)
-      + ((long long)b * p.L + (long long)c * kQ) * kN + 2 * tg;
+      + ((long long)b * p.L + (long long)c * kQ) * N + 2 * tg;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    *reinterpret_cast<uint32_t*>(out + r0 * kN + 8 * j) =
+  for (int j = 0; j < N / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(out + r0 * N + 8 * j) =
         hopper::pack_bf16(acc[4 * j], acc[4 * j + 1]);
-    *reinterpret_cast<uint32_t*>(out + r1 * kN + 8 * j) =
+    *reinterpret_cast<uint32_t*>(out + r1 * N + 8 * j) =
         hopper::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
+template <int N>
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_bwd_dbc_tc(const __grid_constant__ DbcParams p) {
-  using Lay = DbcLayout;
+  using Lay = DbcLayout<N>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + Lay::kBar);
@@ -1048,9 +1109,10 @@ ssd_bwd_dbc_tc(const __grid_constant__ DbcParams p) {
   if (wg == 0) {
     hopper::setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
-      hopper::mbar_expect_tx(once, BTile::kBytes);
-      hopper::load_tile<kN, kQ>(sm + Lay::kOther, kind == 0 ? &p.tc : &p.tb,
-                                once, 0, c * kQ, b);
+      hopper::mbar_expect_tx(once, Lay::BTile::kBytes);
+      hopper::load_tile<N, kQ, Lay::kHalf>(sm + Lay::kOther,
+                                           kind == 0 ? &p.tc : &p.tb, once,
+                                           0, c * kQ, b);
       if (kind == 0 || c > 0) {
         const CUtensorMap* rows = kind == 0 ? &p.tx : &p.tdy;
         const CUtensorMap* state = kind == 0 ? &p.tdh : &p.thi;
@@ -1063,8 +1125,8 @@ ssd_bwd_dbc_tc(const __grid_constant__ DbcParams p) {
           hopper::load_tile<kP, kQ>(ring + Lay::kRows, rows, &full[stage], hh,
                                     c * kQ, b);
           const int row = (int)((((long long)b * p.nc + c) * p.H + hh) * kP);
-          hopper::load_tile<kN, kP>(ring + Lay::kState, state, &full[stage],
-                                    0, row, 0);
+          hopper::load_tile<N, kP>(ring + Lay::kState, state, &full[stage],
+                                   0, row, 0);
           if (++stage == kDbcStages) { stage = 0; phase ^= 1; }
         }
       }
@@ -1074,14 +1136,14 @@ ssd_bwd_dbc_tc(const __grid_constant__ DbcParams p) {
   hopper::setmaxnreg_inc<240>();
   if (kind == 0) {
     if (wg == 1)
-      dbc_consume<0, 0>(p, sm, full, empty, once);
+      dbc_consume<N, 0, 0>(p, sm, full, empty, once);
     else
-      dbc_consume<1, 0>(p, sm, full, empty, once);
+      dbc_consume<N, 1, 0>(p, sm, full, empty, once);
   } else {
     if (wg == 1)
-      dbc_consume<0, 1>(p, sm, full, empty, once);
+      dbc_consume<N, 0, 1>(p, sm, full, empty, once);
     else
-      dbc_consume<1, 1>(p, sm, full, empty, once);
+      dbc_consume<N, 1, 1>(p, sm, full, empty, once);
   }
 }
 
@@ -1108,53 +1170,36 @@ bool tc_aligned(const void* const* ptrs, int n, int B, int L,
   return true;
 }
 
-}  // namespace
-}  // namespace ssd_bwd
-
-extern "C" {
-
-// bf16 x, bm, cm, dy (dy contiguous) with P = 64, N = 128 and a chunk of
-// 128 (L a multiple of it), TMA-aligned; dt, a, dhT (or null), ddt, da f32.
-// Scratch the caller allocates: hp_hi, hp_lo and dh_hi (B, L/128, H, 64,
-// 128) bf16, ds (B, L/128, H, 6144) 32-bit words, wk and ecq (B, L/128, H,
-// 128) f32, dapart (B, L/128, H) f32.  Outputs dx (B, L, H, 64), dbm and dcm
-// (B, L, 128) bf16 contiguous.  Returns a CUDA error code (0 on success).
-int ssd_scan_bwd_wgmma(const void* x, const void* dt, const void* a,
-                       const void* bm, const void* cm, const void* dy,
-                       const void* dhT, void* dx, void* ddt, void* da,
-                       void* dbm, void* dcm, void* hp_hi, void* hp_lo,
-                       void* dh_hi, void* ds, void* wk, void* ecq,
-                       void* dapart, int B, int L, int H, long long x_sb,
-                       long long x_sl, long long b_sb, long long b_sl,
-                       long long c_sb, long long c_sl, void* stream) {
-  using namespace ssd_bwd;
-  const long long st[6] = {x_sb, x_sl, b_sb, b_sl, c_sb, c_sl};
-  const void* ptrs[4] = {x, bm, cm, dy};
-  if (B < 1 || H < 1 || L < kQ || L % kQ != 0 ||
-      !tc_aligned(ptrs, 4, B, L, st, 3))
-    return cudaErrorInvalidValue;
+// The four launches at state width N (arguments as ssd_scan_bwd_wgmma's)
+template <int N>
+int bwd_launch(const void* x, const void* dt, const void* a, const void* bm,
+               const void* cm, const void* dy, const void* dhT, void* dx,
+               void* ddt, void* da, void* dbm, void* dcm, void* hp_hi,
+               void* hp_lo, void* dh_hi, void* ds, void* wk, void* ecq,
+               void* dapart, int B, int L, int H, const long long* st,
+               cudaStream_t s) {
+  constexpr int kHalf = N / 2;
   const int nc = L / kQ;
   const long long rows = (long long)B * nc * H * kP;
   if (rows >= (1LL << 31)) return cudaErrorInvalidValue;
   const long long dy_sl = (long long)H * kP, dy_sb = dy_sl * L;
   CUtensorMap tx, tdy, tdx, tb, tc, thi, tlo, tdh;
-  CUresult cr = encode_bshd(&tx, x, kP, H, L, B, x_sb, x_sl, kP);
+  CUresult cr = encode_bshd(&tx, x, kP, H, L, B, st[0], st[1], kP);
   if (cr == CUDA_SUCCESS)
     cr = encode_bshd(&tdy, dy, kP, H, L, B, dy_sb, dy_sl, kP);
   if (cr == CUDA_SUCCESS)
     cr = encode_bshd(&tdx, dx, kP, H, L, B, dy_sb, dy_sl, kP);
   if (cr == CUDA_SUCCESS)
-    cr = encode_bshd(&tb, bm, kN, 1, L, B, b_sb, b_sl, kN);
+    cr = encode_bshd(&tb, bm, N, 1, L, B, st[2], st[3], N, kHalf);
   if (cr == CUDA_SUCCESS)
-    cr = encode_bshd(&tc, cm, kN, 1, L, B, c_sb, c_sl, kN);
+    cr = encode_bshd(&tc, cm, N, 1, L, B, st[4], st[5], N, kHalf);
   if (cr == CUDA_SUCCESS)
-    cr = encode_bshd(&thi, hp_hi, kN, 1, (int)rows, 1, 0, kN, kN);
+    cr = encode_bshd(&thi, hp_hi, N, 1, (int)rows, 1, 0, N, N);
   if (cr == CUDA_SUCCESS)
-    cr = encode_bshd(&tlo, hp_lo, kN, 1, (int)rows, 1, 0, kN, kN);
+    cr = encode_bshd(&tlo, hp_lo, N, 1, (int)rows, 1, 0, N, N);
   if (cr == CUDA_SUCCESS)
-    cr = encode_bshd(&tdh, dh_hi, kN, 1, (int)rows, 1, 0, kN, kN);
+    cr = encode_bshd(&tdh, dh_hi, N, 1, (int)rows, 1, 0, N, N);
   if (cr != CUDA_SUCCESS) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* dtf = static_cast<const float*>(dt);
   const float* af = static_cast<const float*>(a);
 
@@ -1169,9 +1214,9 @@ int ssd_scan_bwd_wgmma(const void* x, const void* dt, const void* a,
   sp.H = H;
   sp.nc = nc;
   static bool sized_st = false, sized_rv = false, sized_dbc = false;
-  int rc = size_once(ssd_bwd_states, StLayout::kBytes, &sized_st);
+  int rc = size_once(ssd_bwd_states<N>, StLayout<N>::kBytes, &sized_st);
   if (rc) return rc;
-  ssd_bwd_states<<<dim3(H, B), kThreads, StLayout::kBytes, s>>>(sp);
+  ssd_bwd_states<N><<<dim3(H, B), kThreads, StLayout<N>::kBytes, s>>>(sp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -1195,9 +1240,9 @@ int ssd_scan_bwd_wgmma(const void* x, const void* dt, const void* a,
   rp.L = L;
   rp.H = H;
   rp.nc = nc;
-  rc = size_once(ssd_bwd_reverse, RvLayout::kBytes, &sized_rv);
+  rc = size_once(ssd_bwd_reverse<N>, RvLayout<N>::kBytes, &sized_rv);
   if (rc) return rc;
-  ssd_bwd_reverse<<<dim3(H, B), kThreads, RvLayout::kBytes, s>>>(rp);
+  ssd_bwd_reverse<N><<<dim3(H, B), kThreads, RvLayout<N>::kBytes, s>>>(rp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -1216,9 +1261,10 @@ int ssd_scan_bwd_wgmma(const void* x, const void* dt, const void* a,
   dp.L = L;
   dp.H = H;
   dp.nc = nc;
-  rc = size_once(ssd_bwd_dbc_tc, DbcLayout::kBytes, &sized_dbc);
+  rc = size_once(ssd_bwd_dbc_tc<N>, DbcLayout<N>::kBytes, &sized_dbc);
   if (rc) return rc;
-  ssd_bwd_dbc_tc<<<dim3(nc, 2, B), kThreads, DbcLayout::kBytes, s>>>(dp);
+  ssd_bwd_dbc_tc<N><<<dim3(nc, 2, B), kThreads, DbcLayout<N>::kBytes, s>>>(
+      dp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -1226,6 +1272,45 @@ int ssd_scan_bwd_wgmma(const void* x, const void* dt, const void* a,
       static_cast<const float*>(dapart), static_cast<float*>(da), H,
       B * nc);
   return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace ssd_bwd
+
+extern "C" {
+
+// bf16 x, bm, cm, dy (dy contiguous) with P = 64, N = 64 or 128 and a
+// chunk of 128 (L a multiple of it), TMA-aligned; dt, a, dhT (or null),
+// ddt, da f32.  Scratch the caller allocates: hp_hi, hp_lo and dh_hi
+// (B, L/128, H, 64, N) bf16, ds (B, L/128, H, 6144) 32-bit words, wk and
+// ecq (B, L/128, H, 128) f32, dapart (B, L/128, H) f32.  Outputs dx
+// (B, L, H, 64), dbm and dcm (B, L, N) bf16 contiguous.  Returns a CUDA
+// error code (0 on success).
+int ssd_scan_bwd_wgmma(const void* x, const void* dt, const void* a,
+                       const void* bm, const void* cm, const void* dy,
+                       const void* dhT, void* dx, void* ddt, void* da,
+                       void* dbm, void* dcm, void* hp_hi, void* hp_lo,
+                       void* dh_hi, void* ds, void* wk, void* ecq,
+                       void* dapart, int B, int L, int H, int N,
+                       long long x_sb, long long x_sl, long long b_sb,
+                       long long b_sl, long long c_sb, long long c_sl,
+                       void* stream) {
+  using namespace ssd_bwd;
+  const long long st[6] = {x_sb, x_sl, b_sb, b_sl, c_sb, c_sl};
+  const void* ptrs[4] = {x, bm, cm, dy};
+  if (B < 1 || H < 1 || L < kQ || L % kQ != 0 ||
+      !tc_aligned(ptrs, 4, B, L, st, 3))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N == 128)
+    return bwd_launch<128>(x, dt, a, bm, cm, dy, dhT, dx, ddt, da, dbm, dcm,
+                           hp_hi, hp_lo, dh_hi, ds, wk, ecq, dapart, B, L, H,
+                           st, s);
+  if (N == 64)
+    return bwd_launch<64>(x, dt, a, bm, cm, dy, dhT, dx, ddt, da, dbm, dcm,
+                          hp_hi, hp_lo, dh_hi, ds, wk, ecq, dapart, B, L, H,
+                          st, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -6,13 +6,13 @@ its backward (``csrc/ssd_scan_bwd.cu``), and the differentiable scan
 sends CPU tensors to the plain chunked version ``ref.ssd_chunked_ref``, and
 ``SSDScanFn`` sends them to ``ref.ssd_chunked_ref`` and
 ``ref.ssd_scan_bwd_ref``.  The forward has two kernels, chosen by
-``tensor_core_route`` from dtype, shape and alignment alone: Mamba-2's bf16
-shape (head dim 64, state 128, chunk 128, TMA-aligned) runs
+``tensor_core_route`` from dtype, shape and alignment alone: bf16 at head
+dim 64, state 128 (Mamba-2) or 64 (zamba2), chunk 128, TMA-aligned, runs
 ``ssd_scan_wgmma`` (one block per (batch, head) walking its chunks, state
-on chip, products on the tensor cores); f32 and every other shape run the
-four f32 FMA passes.  The backward has two as well, chosen by
+on chip, products on the tensor cores; the state width a compile-time
+parameter); f32 and every other shape run the four f32 FMA passes.  The backward has two as well, chosen by
 ``tensor_core_bwd_route`` (the forward's route and a contiguous dy): the
-bf16 shape runs ``csrc/ssd_scan_bwd_wgmma.cu`` (a forward walk storing the
+bf16 shapes run ``csrc/ssd_scan_bwd_wgmma.cu`` (a forward walk storing the
 chunk states, a reverse walk per (batch, head) with dh on chip, a kernel
 summing dB and dC over the heads, all on the tensor cores), f32 and every
 other shape the f32 FMA passes of ``csrc/ssd_scan_bwd.cu``.  Both
@@ -37,8 +37,9 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
 
 
-# the tensor-core kernel's one shape (csrc/ssd_scan.cu: kTcQ, kTcP, kTcN)
-TC_CHUNK, TC_HEAD_DIM, TC_STATE = 128, 64, 128
+# the tensor-core kernels' shapes (csrc/ssd_scan.cu: kTcQ, kTcP and the
+# state widths TcLayout is instantiated at)
+TC_CHUNK, TC_HEAD_DIM, TC_STATES = 128, 64, (64, 128)
 
 
 def _lib():
@@ -53,7 +54,7 @@ def _lib():
 def _tc_lib():
     fn = _build.load("ssd_scan").ssd_scan_wgmma_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
             ctypes.c_longlong] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -71,7 +72,7 @@ def _bwd_lib():
 def _bwd_tc_lib():
     fn = _build.load("ssd_scan_bwd_wgmma").ssd_scan_bwd_wgmma
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 + [
             ctypes.c_longlong] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -80,15 +81,15 @@ def _bwd_tc_lib():
 def tensor_core_route(x: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
                       chunk: int) -> bool:
     """Whether ``ssd_scan`` runs the tensor-core kernel on these inputs:
-    bf16, head dim 64, state 128, a chunk of 128 (``min(chunk, L)``), and
-    what TMA needs (``csrc/ssd_scan.cu: tc_aligned``): x, bm and cm start on
-    16 bytes and their batch and token strides are multiples of 8 elements
-    on every axis longer than one.  Depends on nothing but dtype, shape,
+    bf16, head dim 64, state 64 or 128, a chunk of 128 (``min(chunk, L)``),
+    and what TMA needs (``csrc/ssd_scan.cu: tc_aligned``): x, bm and cm
+    start on 16 bytes and their batch and token strides are multiples of 8
+    elements on every axis longer than one.  Depends on nothing but dtype, shape,
     strides and addresses; the inputs' other checks are ``ssd_scan``'s."""
     B, L, _, P = x.shape
     N = bm.shape[-1]
-    if x.dtype != torch.bfloat16 or (min(chunk, L), P, N) != (
-            TC_CHUNK, TC_HEAD_DIM, TC_STATE):
+    if x.dtype != torch.bfloat16 or (min(chunk, L), P) != (
+            TC_CHUNK, TC_HEAD_DIM) or N not in TC_STATES:
         return False
     if any(t.data_ptr() % 16 for t in (x, bm, cm)):
         return False
@@ -173,7 +174,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             return y, hT
         rc = _tc_lib()(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
                        bm.data_ptr(), cm.data_ptr(), y.data_ptr(),
-                       hT.data_ptr(), B, L, H, *strides, stream)
+                       hT.data_ptr(), B, L, H, N, *strides, stream)
     else:
         variant = "fma"
         nc = L // Q
@@ -217,8 +218,8 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     (B,H,P,N) f32 contiguous or ``None`` (zero): dx in x's dtype, ddt and
     da f32, dbm and dcm in bm's dtype, all contiguous.  Inputs as
     ``ssd_scan``, on one CUDA device.  ``tensor_core_bwd_route`` picks the
-    kernels: the tensor-core ones for Mamba-2's bf16 shape, the f32 FMA
-    passes for the rest."""
+    kernels: the tensor-core ones for the bf16 shapes at state 64 and 128,
+    the f32 FMA passes for the rest."""
     Q = _check(x, dt, a, bm, cm, chunk)
     B, L, H, P = x.shape
     N = bm.shape[-1]
@@ -264,7 +265,7 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             ddt.data_ptr(), da.data_ptr(), dbm.data_ptr(), dcm.data_ptr(),
             hp_hi.data_ptr(), hp_lo.data_ptr(), dh_hi.data_ptr(),
             ds.data_ptr(), wk.data_ptr(), ecq.data_ptr(), dapart.data_ptr(),
-            B, L, H, *strides, stream)
+            B, L, H, N, *strides, stream)
     else:
         variant = "fma"
         G = -(-H // BWD_HEADS_PER_BLOCK)

@@ -207,10 +207,16 @@ def test_sequence_must_be_a_multiple_of_the_chunk():
     assert tuple(y.shape) == (1, 96, 2, 8)
 
 
-def _conv_slices(B, L, dtype):
+# the two archs whose scans run on the tensor cores: Mamba-2 at state 128
+# (d_in 2048, row stride 2304) and zamba2's SSM blocks at state 64 (d_in
+# 5120, 80 heads of 64, row stride 5248)
+TC_ARCHS = {"mamba2-370m": 2048 + 2 * 128, "zamba2-2.7b": 5120 + 2 * 64}
+
+
+def _conv_slices(B, L, dtype, arch=ARCH):
     """x, bm, cm as ``ssm.apply_full`` hands them to the scan: column
-    slices of one (B, L, d_in + 2N) conv output of full mamba2-370m."""
-    m = tssm.dims(tconfigs.get(ARCH))
+    slices of one (B, L, d_in + 2N) conv output of full ``arch``."""
+    m = tssm.dims(tconfigs.get(arch))
     conv = torch.zeros(B, L, m["d_in"] + 2 * m["N"], dtype=dtype)
     xh = conv[..., :m["d_in"]].reshape(B, L, m["H"], m["P"])
     bm = conv[..., m["d_in"]:m["d_in"] + m["N"]]
@@ -218,17 +224,32 @@ def _conv_slices(B, L, dtype):
     return xh, bm, cm, m["Q"]
 
 
-def test_tensor_core_route_takes_the_serving_path_and_nothing_else():
+def _misaligned_slices(arch, extra):
+    """``arch``'s conv slices in a buffer ``extra`` columns wider, x
+    starting one element in (``extra`` 8: an unaligned base) or at 0
+    (``extra`` 1: an odd row stride)."""
+    m = tssm.dims(tconfigs.get(arch))
+    d_in, N = m["d_in"], m["N"]
+    conv = torch.zeros(2, 256, d_in + 2 * N + extra, dtype=torch.bfloat16)
+    o = 1 if extra == 8 else 0
+    return (conv[..., o:o + d_in].reshape(2, 256, m["H"], m["P"]),
+            conv[..., o + d_in:o + d_in + N],
+            conv[..., o + d_in + N:o + d_in + 2 * N])
+
+
+@pytest.mark.parametrize("arch", list(TC_ARCHS))
+def test_tensor_core_route_takes_the_serving_path_and_nothing_else(arch):
     """The rule that picks the bf16 tensor-core kernel: the serving path's
-    strided bf16 slices at Mamba-2's shape go to it; f32, each odd shape
-    of chip_smoke's phase 10, another chunk, an unaligned base or row
-    stride go to the FMA passes.  The rule reads dtype, shape, strides and
-    addresses only, so it is the same on the CPU."""
-    xh, bm, cm, Q = _conv_slices(2, 256, torch.bfloat16)
-    assert xh.stride(1) == bm.stride(1) == 2048 + 2 * 128
+    strided bf16 slices at Mamba-2's shape (state 128) and at zamba2's
+    (state 64) go to it; f32, each odd shape of chip_smoke's phase 10
+    (state 32 or 16, head dim 32, chunk 64), another chunk, an unaligned
+    base or row stride go to the FMA passes.  The rule reads dtype, shape,
+    strides and addresses only, so it is the same on the CPU."""
+    xh, bm, cm, Q = _conv_slices(2, 256, torch.bfloat16, arch)
+    assert xh.stride(1) == bm.stride(1) == TC_ARCHS[arch]
     assert tensor_core_route(xh, bm, cm, Q)
     assert tensor_core_route(xh[:1], bm[:1], cm[:1], Q)   # batch 1
-    assert not tensor_core_route(*_conv_slices(2, 256, torch.float32))
+    assert not tensor_core_route(*_conv_slices(2, 256, torch.float32, arch))
     assert not tensor_core_route(xh, bm, cm, 64)
     # phase 10's odd shapes, bf16: (B, L, H, P, N, chunk)
     for (B, L, H, P, N, chunk) in [(2, 128, 2, 32, 64, 32),
@@ -239,28 +260,24 @@ def test_tensor_core_route_takes_the_serving_path_and_nothing_else():
         b = torch.zeros(B, L, N, dtype=torch.bfloat16)
         assert not tensor_core_route(x, b, b, chunk), (B, L, H, P, N)
     # an unaligned base (one element in) and an odd row stride
-    conv = torch.zeros(2, 256, 2048 + 2 * 128 + 8, dtype=torch.bfloat16)
-    x1 = conv[..., 1:2049].reshape(2, 256, 32, 64)
-    b1 = conv[..., 2049:2177]
-    assert not tensor_core_route(x1, b1, b1, 128)
-    odd = torch.zeros(2, 256, 2048 + 2 * 128 + 1, dtype=torch.bfloat16)
-    xo = odd[..., :2048].reshape(2, 256, 32, 64)
-    assert not tensor_core_route(xo, odd[..., 2048:2176], odd[..., 2176:2304],
-                                 128)
+    assert not tensor_core_route(*_misaligned_slices(arch, 8), 128)
+    assert not tensor_core_route(*_misaligned_slices(arch, 1), 128)
 
 
 def _cpu_inputs(route):
     """(x, dt, a, bm, cm, chunk) on the CPU that would take ``route`` on
-    the card: a small f32 sweep case, or the serving path's bf16 slices."""
+    the card: a small f32 sweep case, or the serving path's bf16 slices
+    at state 128 (``wgmma``, mamba2-370m) or 64 (``wgmma64``, zamba2)."""
     if route == "fma":
         _, tin = _pair(_scan_inputs(6, 1, 32, 2, 8, 16, "sweep"), "float32")
         return (*tin, 32)
-    xh, bm, cm, Q = _conv_slices(1, 128, torch.bfloat16)
+    arch = "zamba2-2.7b" if route == "wgmma64" else ARCH
+    xh, bm, cm, Q = _conv_slices(1, 128, torch.bfloat16, arch)
     H = xh.shape[2]
     return xh, torch.full((1, 128, H), 0.01), -torch.ones(H), bm, cm, Q
 
 
-@pytest.mark.parametrize("route", ["fma", "wgmma"])
+@pytest.mark.parametrize("route", ["fma", "wgmma", "wgmma64"])
 def test_cuda_wrapper_refuses_cpu_tensors(route):
     """A CPU tensor never reaches the CUDA wrappers' kernels, forward or
     backward, whichever kernel its dtype and shape would pick: each raises
@@ -268,8 +285,9 @@ def test_cuda_wrapper_refuses_cpu_tensors(route):
     before them, and no launch is counted)."""
     x, dt, a, bm, cm, Q = _cpu_inputs(route)
     dy = torch.zeros(x.shape, dtype=x.dtype)
-    assert tensor_core_route(x, bm, cm, Q) == (route == "wgmma")
-    assert tensor_core_bwd_route(x, bm, cm, dy, Q) == (route == "wgmma")
+    tc = route.startswith("wgmma")
+    assert tensor_core_route(x, bm, cm, Q) == tc
+    assert tensor_core_bwd_route(x, bm, cm, dy, Q) == tc
     before = (cuda_ssd_scan.launches, dict(cuda_ssd_scan.variant_launches),
               cuda_ssd_scan_bwd.launches,
               dict(cuda_ssd_scan_bwd.variant_launches))
@@ -434,15 +452,21 @@ def _rel(got, want):
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
+# the tensor-core kernels' shapes over four chunks: head dim 64, chunk 128,
+# state 128 (Mamba-2) and 64 (zamba2)
+TC_STATES = [128, 64]
+
+
+@pytest.mark.parametrize("N", TC_STATES)
 @pytest.mark.parametrize("kind", ["sweep", "mamba2", "slow"])
-def test_tensor_core_rounding_holds_the_bf16_bands(kind):
+def test_tensor_core_rounding_holds_the_bf16_bands(kind, N):
     """The tensor-core kernel's rounding, written out in plain PyTorch
     (``ref.ssd_tensor_core_ref``: L' and h_prev rounded once to bf16, the
     state-update operand split into bf16 hi + lo), against the JAX oracle
-    at the kernel's shape (head dim 64, state 128, chunk 128) over four
-    chunks: y within 1e-2 and the final state within 1e-4 of max |oracle|,
-    the bands the card holds the kernel to."""
-    B, L, H, P, N, Q = 1, 512, 2, 64, 128, 128
+    at the kernel's shapes (head dim 64, state 128 or 64, chunk 128) over
+    four chunks: y within 1e-2 and the final state within 1e-4 of max
+    |oracle|, the bands the card holds the kernel to."""
+    B, L, H, P, Q = 1, 512, 2, 64, 128
     jin, tin = _pair(_scan_inputs(7, B, L, H, P, N, kind), "bfloat16")
     y_o, h_o = jref.ssd_scan_ref(*jin)
     y_e, h_e = ref.ssd_tensor_core_ref(*tin, Q)
@@ -451,11 +475,13 @@ def test_tensor_core_rounding_holds_the_bf16_bands(kind):
     assert _rel(_np(h_e), _np(h_o)) <= TC_H_BAND
 
 
-def test_tensor_core_rounding_needs_the_state_split():
+@pytest.mark.parametrize("N", TC_STATES)
+def test_tensor_core_rounding_needs_the_state_split(N):
     """Why the state update takes two products: with its operand rounded
     once to bf16 (the hi part alone) the final state leaves its 1e-4 band,
-    on the slow-decay draw where the state carries most of y."""
-    B, L, H, P, N, Q = 1, 512, 2, 64, 128, 128
+    on the slow-decay draw where the state carries most of y, at either
+    state width."""
+    B, L, H, P, Q = 1, 512, 2, 64, 128
     jin, tin = _pair(_scan_inputs(7, B, L, H, P, N, "slow"), "bfloat16")
     _, h_o = jref.ssd_scan_ref(*jin)
     x, dt, a, bm, cm = (t.float() for t in tin)
@@ -476,14 +502,15 @@ def test_tensor_core_rounding_needs_the_state_split():
     assert _rel(_np(h_e), _np(h_o)) <= TC_H_BAND
 
 
-# the tensor-core backward's rounding at the kernel's shape over four chunks
-TC_BWD_SHAPE = (1, 512, 2, 64, 128, 128)
+# the tensor-core backward's rounding at the kernels' shapes over four
+# chunks, by state width
+TC_BWD_SHAPE = {N: (1, 512, 2, 64, N, 128) for N in TC_STATES}
 
 
-def _tc_bwd_case(kind, dh):
+def _tc_bwd_case(kind, dh, N):
     """bf16 inputs and cotangents for both packages, and ``jax.vjp`` of the
-    reference's ``ssd_chunked`` at them."""
-    B, L, H, P, N, Q = TC_BWD_SHAPE
+    reference's ``ssd_chunked`` at them, at state ``N``."""
+    B, L, H, P, N, Q = TC_BWD_SHAPE[N]
     jin, tin = _pair(_scan_inputs(7, B, L, H, P, N, kind), "bfloat16")
     dy, dhT = _cotangents(3, B, L, H, P, N, dh == "zero")
     _, vjp = jax.vjp(lambda *a: jssm.ssd_chunked(*a, Q), *jin)
@@ -493,19 +520,21 @@ def _tc_bwd_case(kind, dh):
     return tin, tcot, [_np(w) for w in want]
 
 
+@pytest.mark.parametrize("N", TC_STATES)
 @pytest.mark.parametrize("kind", ["sweep", "mamba2", "slow"])
 @pytest.mark.parametrize("dh", ["zero", "drawn"])
-def test_tensor_core_bwd_rounding_holds_the_card_bands(kind, dh):
+def test_tensor_core_bwd_rounding_holds_the_card_bands(kind, dh, N):
     """The tensor-core backward's rounding, written out in plain PyTorch
     (``ref.ssd_tensor_core_bwd_ref``: h_prev, dh and exp(cum) dy split into
     bf16 hi + lo where they reach ddt or da, S M, dS and the carried
     operands rounded once), against ``jax.vjp`` of the reference at the
-    kernel's shape (head dim 64, state 128, chunk 128) over four chunks:
+    kernels' shapes (head dim 64, state 128 or 64, chunk 128) over four
+    chunks:
     every gradient within the band phase 14 holds the card's kernel to, dx,
     dbm, dcm 1e-2 and ddt, da 1e-4 of max |jax| (rehearsed: at most 6.0e-3
     and 2.7e-5)."""
-    tin, tcot, want = _tc_bwd_case(kind, dh)
-    got = ref.ssd_tensor_core_bwd_ref(*tin, *tcot, TC_BWD_SHAPE[-1])
+    tin, tcot, want = _tc_bwd_case(kind, dh, N)
+    got = ref.ssd_tensor_core_bwd_ref(*tin, *tcot, TC_BWD_SHAPE[N][-1])
     assert [t.dtype for t in got] == [torch.bfloat16, torch.float32,
                                       torch.float32, torch.bfloat16,
                                       torch.bfloat16]
@@ -514,14 +543,15 @@ def test_tensor_core_bwd_rounding_holds_the_card_bands(kind, dh):
         assert _rel(_np(g), w) <= band, name
 
 
+@pytest.mark.parametrize("N", TC_STATES)
 @pytest.mark.parametrize("dropped", list(ref.TC_BWD_SPLITS))
-def test_tensor_core_bwd_rounding_needs_each_split(dropped):
+def test_tensor_core_bwd_rounding_needs_each_split(dropped, N):
     """Why the backward splits h_prev, dh and exp(cum) dy into bf16 hi + lo:
     with any one of them rounded once (the hi part alone), ddt or da leaves
     its 1e-4 band on the slow-decay draw, where the carried state and its
     gradient make most of both; with all three split both hold it."""
-    tin, tcot, want = _tc_bwd_case("slow", "zero")
-    Q = TC_BWD_SHAPE[-1]
+    tin, tcot, want = _tc_bwd_case("slow", "zero", N)
+    Q = TC_BWD_SHAPE[N][-1]
     kept = tuple(s for s in ref.TC_BWD_SPLITS if s != dropped)
     got = ref.ssd_tensor_core_bwd_ref(*tin, *tcot, Q, splits=kept)
     assert max(_rel(_np(got[1]), want[1]), _rel(_np(got[2]), want[2])) > (
@@ -531,17 +561,19 @@ def test_tensor_core_bwd_rounding_needs_each_split(dropped):
         BWD_BAND["bfloat16"][1])
 
 
-def test_tensor_core_bwd_route_takes_the_training_path_and_nothing_else():
+@pytest.mark.parametrize("arch", list(TC_ARCHS))
+def test_tensor_core_bwd_route_takes_the_training_path_and_nothing_else(
+        arch):
     """The rule that picks the tensor-core backward: the forward's route
-    (the training path's strided bf16 slices at Mamba-2's shape, batch 4
-    or 1) with a contiguous bf16 dy that starts on 16 bytes, as
-    ``SSDScanFn`` hands it.  f32, another chunk, the odd shapes, a strided,
-    misaligned or f32 dy go to the FMA passes."""
-    xh, bm, cm, Q = _conv_slices(2, 256, torch.bfloat16)
+    (the training path's strided bf16 slices at Mamba-2's shape or at
+    zamba2's state 64, batch 4 or 1) with a contiguous bf16 dy that starts
+    on 16 bytes, as ``SSDScanFn`` hands it.  f32, another chunk, the odd
+    shapes, a strided, misaligned or f32 dy go to the FMA passes."""
+    xh, bm, cm, Q = _conv_slices(2, 256, torch.bfloat16, arch)
     dy = torch.zeros(xh.shape, dtype=torch.bfloat16)
     assert tensor_core_bwd_route(xh, bm, cm, dy, Q)
     assert tensor_core_bwd_route(xh[:1], bm[:1], cm[:1], dy[:1], Q)
-    xf, bf, cf, _ = _conv_slices(2, 256, torch.float32)
+    xf, bf, cf, _ = _conv_slices(2, 256, torch.float32, arch)
     assert not tensor_core_bwd_route(xf, bf, cf, dy.float(), Q)
     assert not tensor_core_bwd_route(xh, bm, cm, dy, 64)
     for (B, L, H, P, N, chunk) in [(2, 128, 2, 32, 64, 32),
@@ -560,10 +592,7 @@ def test_tensor_core_bwd_route_takes_the_training_path_and_nothing_else():
                                      flat[1:].view(dy.shape), Q)
     assert not tensor_core_bwd_route(xh, bm, cm, dy.float(), Q)
     # the forward's route decides the rest: an unaligned x refuses both
-    conv = torch.zeros(2, 256, 2048 + 2 * 128 + 8, dtype=torch.bfloat16)
-    x1 = conv[..., 1:2049].reshape(2, 256, 32, 64)
-    b1 = conv[..., 2049:2177]
-    assert not tensor_core_bwd_route(x1, b1, b1, dy, 128)
+    assert not tensor_core_bwd_route(*_misaligned_slices(arch, 8), dy, 128)
 
 
 # ------------------------------------------------------------- the model
