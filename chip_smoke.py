@@ -353,16 +353,31 @@ script exits 2 before printing any result.
    suppressed inline with a reason, or in ``.torchlint-baseline.json``).
    Prints the files linted, the new, suppressed and baselined counts and
    the seconds.  Launches no kernel.
-38. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
+38. The reference's production layout (``repro_torch.sharding``'s rule
+   tables: attention, SwiGLU and the vocabulary tensor-parallel over
+   "model", ZeRO-3 over "data", KV caches by head) on a one-rank NCCL
+   group's (1, 1) mesh: internvl2-1b at full width and all 24 layers
+   (bf16, wq/wk drawn), batch 8 of ``train_4k``'s length after the vision
+   prefix, 2 LM train steps, then a prefill of 2 rows over 1024 tokens and
+   4 greedy decodes, bitwise the no-mesh path (loss, grad norm, every
+   param, every logit), attention launches 2 x 24 forwards and 24
+   backwards a step on ``wgmma``, no collective but the one-rank data
+   means (at (1, 1) the layout shards nothing: its traffic is tested on
+   four gloo ranks, ``tests/test_torch_layout.py``); the one-rank dry run
+   of that step, its predicted peak within 10 % of the measured one; and
+   two 16 x 16 pairs (``qwen3-32b`` ``train_4k``,
+   ``musicgen-large`` ``decode_32k``), each a ``launch.dryrun`` process
+   started at the phase's start: predicted peak a rank and fit.
+39. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
    ``ssm_train_path``, ``perf_path``, ``distributed_path``,
    ``engine_path``, ``hybrid_path``, ``moe_path``, ``frontend_path``,
-   ``lm_path``, ``sweep_path``, ``lint``, ``phase_times`` and ``kernels``
-   JSON lines, the card's name and power limit, and the last line ``{"ok":
-   true, "device": {...}}``.
+   ``lm_path``, ``sweep_path``, ``lint``, ``layout_path``, ``phase_times``
+   and ``kernels`` JSON lines, the card's name and power limit, and the
+   last line ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds as it ends (``[N] took ... s``), and the
 script the total.  ``--only N,...`` runs just the device and build phases
-and phases N (3 and 8-37) and prints no result lines: a development aid.
+and phases N (3 and 8-38) and prints no result lines: a development aid.
 """
 from __future__ import annotations
 
@@ -5827,10 +5842,214 @@ def _cast(tree, dtype):
     return tree.to(dtype)
 
 
+# ----------------------------------------------------------------- phase 38
+# the production layout's serving check: prefill over this many text
+# tokens (after the prefix) of two of the step's rows, then decodes
+LAYOUT_PREFILL_SEQ, LAYOUT_ROWS, LAYOUT_DECODES, LAYOUT_STEPS = 1024, 2, 4, 2
+# the 16 x 16 pairs the phase dry-runs, each in its own process
+LAYOUT_PAIRS = (("qwen3-32b", "train_4k"), ("musicgen-large", "decode_32k"))
+
+
+def _layout_dryruns(tmp: str) -> dict:
+    """Start the phase's dry runs on the host, each a process (the fake
+    group is global to its process): the LM step of ``_layout_run`` on one
+    rank (``one_rank``: at (1, 1) the production layout shards nothing,
+    so its bytes are the no-mesh path's), and ``LAYOUT_PAIRS`` at 16 x 16
+    through ``python -m repro_torch.launch.dryrun``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    out = os.path.join(tmp, "layout_dryrun")
+    code = (
+        "from repro_torch import configs\n"
+        "from repro_torch.config import InputShape\n"
+        "from repro_torch.launch import dryrun\n"
+        f"dryrun.run_one({LM_ARCH!r}, InputShape({LM_SHAPE.name!r}, "
+        f"{LM_SHAPE.seq_len}, {LM_SHAPE.global_batch}, 'train'), "
+        f"out_dir={out!r}, one_rank=True)\n")
+    procs = {"one_rank": subprocess.Popen(
+        [sys.executable, "-c", code], cwd=str(ROOT), env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)}
+    for arch, shape in LAYOUT_PAIRS:
+        procs[f"{arch}__{shape}"] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out-dir", out], cwd=str(ROOT),
+            env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True)
+    return {"dir": out, "procs": procs}
+
+
+def _layout_records(runs: dict) -> dict:
+    """Wait for ``_layout_dryruns``' processes and read their records."""
+    out = {}
+    for name, proc in runs["procs"].items():
+        err = proc.communicate(timeout=300)[1]
+        if proc.returncode:
+            fail(f"the dry run {name} failed: {err[-2000:]}")
+    for f in sorted(os.listdir(runs["dir"])):
+        with open(os.path.join(runs["dir"], f)) as fh:
+            rec = json.load(fh)
+        out[f"{rec['arch']}__{rec['shape']}__{rec['mesh']}"] = rec
+    return out
+
+
+def _layout_run(dev, cfg, batches, mesh=None) -> dict:
+    """``LAYOUT_STEPS`` LM train steps of ``cfg`` from params drawn from a
+    seed (wq/wk drawn), then the prefill of ``LAYOUT_ROWS`` rows over
+    ``LAYOUT_PREFILL_SEQ`` tokens and ``LAYOUT_DECODES`` greedy decodes;
+    on ``mesh`` under the production rules, else with no mesh.  Metrics,
+    attention launches and variants of the train steps, the steps' peak
+    over what was allocated before the params, the collectives issued
+    (kind, group size), logits and params on the host."""
+    from repro_torch.launch import hlo_stats
+    from repro_torch import sharding as shlib
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(380)
+    p = tasks.init_params(cfg, gen, torch.bfloat16, dev)
+    draw_attention({"backbone": p}, cfg.d_model, seed=381)
+    step = tasks.make_train_step(cfg, OptimConfig())
+    state = tasks.TrainState(p, optim_lib.adamw_init(p))
+    ctx = (contextlib.nullcontext() if mesh is None else shlib.param_gather(
+        mesh, shlib.production_rules(mesh)))
+    with ctx, hlo_stats.record_collectives() as coll:
+        reset_counts()
+        hist = []
+        for b in batches:
+            state, m = step(state, b)
+            hist.append({k: float(v) for k, v in m.items()})
+        launches, variants = counts(), all_variants()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        b = batches[0]
+        pre = {"tokens": b["tokens"][:LAYOUT_ROWS, :LAYOUT_PREFILL_SEQ],
+               "prefix_embed": b["prefix_embed"][:LAYOUT_ROWS]}
+        logits, caches = tasks.make_prefill_step(cfg)(p, pre)
+        dec = tasks.make_decode_step(cfg)
+        outs = [logits.cpu()]
+        pos = LAYOUT_PREFILL_SEQ + cfg.frontend.n_tokens
+        for i in range(LAYOUT_DECODES):
+            logits, caches = dec(p, caches, logits.argmax(-1)[:, None],
+                                 pos + i)
+            outs.append(logits.cpu())
+    out = {"metrics": hist, "launches": launches, "variants": variants,
+           "step_peak_bytes": peak, "logits": outs,
+           "collectives": sorted({(k, g) for k, _, g in coll}),
+           "params": [t.cpu() for _, t in params_lib.leaves(p)]}
+    del p, state, step, caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def layout_phase(dev, tmp: str) -> dict:
+    """Phase 38: the reference's production layout (``sharding``'s rule
+    tables: tensor parallel over "model", ZeRO-3 over "data", KV caches by
+    head) on a one-rank NCCL group.  internvl2-1b at full width and all 24
+    layers, bf16, wq/wk drawn, ``LM_BATCH`` rows of ``train_4k``'s length
+    after the vision prefix: ``LAYOUT_STEPS`` LM train steps, the prefill
+    and ``LAYOUT_DECODES`` decode steps under the production rules on the
+    (1, 1) mesh, bitwise the no-mesh path (loss, grad norm, every param,
+    every logit), the attention launches (2 x 24 forwards and 24
+    backwards a step, all on ``wgmma``); the dry run's predicted peak of
+    that step (one rank) against the measured one, to ``DRYRUN_BAND``; and
+    two 16 x 16 pairs' predicted peaks and fit.  At (1, 1) the layout
+    shards nothing (an axis of one rank splits no leaf), so no gather, no
+    tensor-parallel operator and no vocabulary-parallel CE runs: the only
+    collectives are the one-rank data means, which the phase checks.  The
+    layout's traffic is held against one device on four gloo ranks by
+    ``tests/test_torch_layout.py``, not on the card."""
+    import torch.distributed as dist
+    runs = _layout_dryruns(tmp)
+    cfg = configs.get(LM_ARCH)
+    L = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(382)
+    stream = TokenStream(cfg.vocab_size, LM_BATCH, LM_SEQ, seed=38).batches()
+    batches = [_lm_batch(cfg, stream, gen, LM_BATCH)
+               for _ in range(LAYOUT_STEPS)]
+    mesh, grp = one_rank_group(tmp, "nccl_store_38")
+    try:
+        on = _layout_run(dev, cfg, batches, mesh)
+    finally:
+        dist.destroy_process_group()
+    off = _layout_run(dev, cfg, batches)
+    n_fwd, n_bwd = 2 * L * LAYOUT_STEPS, L * LAYOUT_STEPS
+    want = {name: 0 for name in on["launches"]}
+    want.update(flash_attention=n_fwd, flash_attention_bwd=n_bwd)
+    launches_ok = (on["launches"] == want == off["launches"]
+                   and on["variants"]["flash_attention"] == routed(
+                       n_fwd, "wgmma")
+                   and on["variants"]["flash_attention_bwd"] == routed(
+                       n_bwd, "wgmma"))
+    diff = {"metrics": [k for a, b in zip(on["metrics"], off["metrics"])
+                        for k in a if a[k] != b[k]],
+            "params": sum(not torch.equal(a, b)
+                          for a, b in zip(on["params"], off["params"])),
+            "logits": sum(not torch.equal(a, b)
+                          for a, b in zip(on["logits"], off["logits"]))}
+    same = not diff["metrics"] and not diff["params"] and not diff["logits"]
+    # the data means of the gradients, loss and CE: all-reduces of one rank
+    coll_ok = on["collectives"] == [("all-reduce", 1)]
+    finite = all(math.isfinite(v) for m in on["metrics"] for v in m.values())
+    log(f"  {LM_ARCH} {L} layers, batch {LM_BATCH} x ({LM_SEQ} + "
+        f"{cfg.frontend.n_tokens}), {LAYOUT_STEPS} LM steps, prefill "
+        f"{LAYOUT_ROWS} x {LAYOUT_PREFILL_SEQ} and {LAYOUT_DECODES} decodes: "
+        f"production rules on the one-rank {grp['backend']} mesh / no mesh: "
+        f"loss {[m['loss'] for m in on['metrics']]} / "
+        f"{[m['loss'] for m in off['metrics']]}, grad_norm "
+        f"{[m['grad_norm'] for m in on['metrics']]}; bitwise {same} "
+        f"(metrics that differ {diff['metrics']}, params that differ "
+        f"{diff['params']} of {len(on['params'])}, logit steps that differ "
+        f"{diff['logits']} of {len(on['logits'])}); launches "
+        f"{on['launches']} (expected {want}), variants {on['variants']}; "
+        f"collectives (kind, ranks) {on['collectives']} (only the one-rank "
+        f"data means expected)")
+    if not (same and launches_ok and finite and coll_ok):
+        fail("the production layout on one rank is not the no-mesh path, or "
+             "its launches or collectives do not match")
+    recs = _layout_records(runs)
+    one = next(r for k, r in recs.items() if k.endswith("__rank1"))
+    pred, measured = one["memory"]["peak_bytes"], on["step_peak_bytes"]
+    ratio = pred / measured
+    card = card_line()
+    log(f"  dry run of that step (meta, one rank, {one['run_s']} s): "
+        f"predicted peak {pred} bytes (arguments "
+        f"{one['memory']['argument_bytes']}, temporaries "
+        f"{one['memory']['temp_bytes']}), measured {measured} bytes "
+        f"(max_memory_allocated over the params' start), ratio {ratio:.4f} "
+        f"(band {DRYRUN_BAND}); {card}")
+    if abs(ratio - 1) > DRYRUN_BAND:
+        fail(f"the dry run's peak {pred} is off the measured {measured}")
+    pairs = {}
+    for arch, shape in LAYOUT_PAIRS:
+        r = recs[f"{arch}__{shape}__pod16x16"]
+        m = r["memory"]
+        pairs[f"{arch}__{shape}"] = {
+            "state_bytes": m["state_bytes"], "argument_bytes":
+            m["argument_bytes"], "temp_bytes": m["temp_bytes"],
+            "peak_bytes": m["peak_bytes"], "fits_80gb": r["fits_80gb"],
+            "run_s": r["run_s"], "layout": r["layout"],
+            "collectives": r["collectives"]["_total"]}
+        log(f"  16 x 16 dry run {arch} {shape} (rank 0 of 256, meta, the "
+            f"host's CPU, {r['run_s']} s): state {m['state_bytes'] / 1e9:.2f}"
+            f" GB, arguments {m['argument_bytes'] / 1e9:.2f} GB, temporaries "
+            f"{m['temp_bytes'] / 1e9:.2f} GB, peak {m['peak_bytes'] / 1e9:.2f}"
+            f" GB a rank, fits 80 GB: {r['fits_80gb']}; a prediction for "
+            f"{mesh_lib.CARD} ranks, measured beside {card}")
+    return {"bitwise": same, "diff": diff, "launches": on["launches"],
+            "collectives": on["collectives"],
+            "variants": on["variants"], "metrics": on["metrics"],
+            "dryrun": {"predicted_peak_bytes": pred,
+                       "measured_peak_bytes": measured, "ratio": ratio,
+                       "argument_bytes": one["memory"]["argument_bytes"],
+                       "temp_bytes": one["memory"]["temp_bytes"],
+                       "run_s": one["run_s"]},
+            "pairs": pairs, "card": card}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", metavar="N,N,...",
-                    help="run only these of phases 3-37 after the device and "
+                    help="run only these of phases 3-38 after the device and "
                          "build phases, and print no result lines (a "
                          "development aid; the check runs every phase)")
     args = ap.parse_args(argv)
@@ -6090,6 +6309,13 @@ def main(argv=None) -> int:
           "src/repro_torch with torch, numpy, jax and repro blocked")
     lint_res = lint_path()
 
+    begin(38, f"the production layout (tensor parallel over model, ZeRO-3 "
+          f"over data) on a one-rank NCCL group: {LM_ARCH} at full width "
+          f"and depth, {LAYOUT_STEPS} LM steps, prefill and decodes against "
+          f"no mesh; the dry run against the card; two 16 x 16 pairs")
+    with tempfile.TemporaryDirectory() as tmp:
+        layout_res = layout_phase(dev, tmp)
+
     def by_path(name: str) -> dict:
         return {"serve": res["launches"][name],
                 "train": train_res["launches"][name],
@@ -6125,6 +6351,7 @@ def main(argv=None) -> int:
                    for a in FE_ARCHS},
                 "lm_train_internvl2": lm_res["train"]["launches"][name],
                 "lm_prefill_internvl2": lm_res["prefill"]["launches"][name],
+                "lm_train_internvl2_production": layout_res["launches"][name],
                 **{f"sweep_{t}": r["launches"][name]
                    for t, r in sweep_res["combos"].items()}}
 
@@ -6203,6 +6430,7 @@ def main(argv=None) -> int:
     print(json.dumps({"lm_path": lm_res}))
     print(json.dumps({"sweep_path": sweep_res}))
     print(json.dumps({"lint": lint_res}))
+    print(json.dumps({"layout_path": layout_res}))
     print(json.dumps({"phase_times": phase_times()}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
@@ -6250,7 +6478,8 @@ def run_only(dev, only: set) -> int:
               33: _in_tmp(lambda tmp: frontend_phase(dev, tmp)),
               34: lambda: (lm_train_path(dev), check_lm_update(dev)),
               35: lambda: lm_phase(dev), 36: _in_tmp(sweep_path),
-              37: lint_path}
+              37: lint_path,
+              38: _in_tmp(lambda tmp: layout_phase(dev, tmp))}
     for n in sorted(only):
         if n not in phases:
             fail(f"--only: phase {n} cannot run alone")

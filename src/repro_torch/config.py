@@ -268,8 +268,12 @@ class MeshConfig:
 @dataclass(frozen=True)
 class ShardingConfig:
     """The reference's sharding switches, field for field, accepted so
-    its run files load; the port's layout is fixed by its
-    ``PartitionPlan`` (ZeRO-3 over "model") and ``PerfConfig.remat``."""
+    its run files load; no code of the port reads them.  The trainers lay
+    params out by their ``PartitionPlan`` (ZeRO-3 over "model") and remat
+    by ``PerfConfig.remat``; the dry run (``launch.specs``) runs the
+    reference's production layout (``repro_torch.sharding``'s rule tables:
+    FSDP over "data" for training, tensor parallel over "model"), and
+    shards decode caches by batch and kv head, never by sequence."""
     # fsdp: additionally shard params over the data axis (zero-3)
     fsdp: bool = True
     # shard long decode KV caches over the data axis (distributed flash-decode)

@@ -106,7 +106,8 @@ class BaseTrainer:
                  opt_cfg: OptimConfig, *, seed: int = 0,
                  cond_dim: int = 512, dtype=torch.bfloat16, device=None,
                  dist: Optional[DistConfig] = None,
-                 perf: Optional[PerfConfig] = None, params=None, mesh=None):
+                 perf: Optional[PerfConfig] = None, params=None, mesh=None,
+                 rules: bool = False):
         if flow_cfg.group_size < 1:
             raise ValueError(
                 f"flow.group_size must be >= 1, got {flow_cfg.group_size}")
@@ -140,17 +141,18 @@ class BaseTrainer:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = params_lib.init(spec, gen, dtype, self.device)
-        # the PartitionPlan: every leaf replicated, or sharded over "model"
-        # (the AdamW moments follow, being made from the shards)
-        self.plan = distributed.partition_plan(self.mesh, spec)
+        # the layout (the AdamW moments follow it, being made from the
+        # shards)
+        if rules and self.perf.fuse_step:
+            raise ValueError("a captured step (perf.fuse_step) is not built "
+                             "for the production rules")
+        self._spec = spec
+        self.plan, self._rules, self._sharded = self.layout_plan(
+            self.mesh, spec, rules)
         self._dp = distributed.mesh_dp(self.mesh)
         self._mp = distributed.mesh_mp(self.mesh)
-        self._sharded = frozenset()
         if self.plan is not None:
             params = self.plan.shard_state(params)
-            self._sharded = frozenset(
-                path for path, d in params_lib.leaves(self.plan.param_specs())
-                if d is not None)
             self._dgroup = distributed.data_group(self.mesh)
             self._mgroup = distributed.model_group(self.mesh)
         self._row_cache: Dict[int, tuple] = {}
@@ -182,6 +184,25 @@ class BaseTrainer:
                        else None)
 
     # --------------------------------------------------------------- layout
+    @staticmethod
+    def layout_plan(mesh, spec, rules: bool = False):
+        """(plan, rules, the clip's layout) of a trainer's state on
+        ``mesh``: the ``PartitionPlan`` (every leaf replicated or sharded
+        over "model", ZeRO-3 over "model"; no plan without a mesh), or with
+        ``rules`` the reference's production rules
+        (``sharding.production_rules``) and their ``RulePlan``."""
+        if not rules:
+            plan = distributed.partition_plan(mesh, spec)
+            return plan, None, frozenset(
+                () if plan is None else
+                (path for path, d in params_lib.leaves(plan.param_specs())
+                 if d is not None))
+        if mesh is None:
+            raise ValueError("the production rules lay out a mesh")
+        r = shlib.production_rules(mesh)
+        return (distributed.RulePlan(mesh, spec, r), r,
+                shlib.norm_layout(spec, mesh, r))
+
     def place_state(self, state: RLState) -> RLState:
         """A canonical (unsharded) RLState laid out for this trainer's
         mesh: each leaf the plan shards sliced to this rank's shard;
@@ -191,8 +212,8 @@ class BaseTrainer:
 
     def canonical_state(self) -> RLState:
         """The state in the canonical unsharded layout (what checkpoints
-        hold): the shards all-gathered over "model", a collective over
-        the mesh; the live state itself without a mesh or at mp = 1."""
+        hold): the shards all-gathered over their mesh axes, a collective
+        over the mesh; the live state itself without a mesh."""
         return (self.state if self.plan is None
                 else self.plan.gather_state(self.state))
 
@@ -262,6 +283,11 @@ class BaseTrainer:
         recomputed log-probs another transition density than the one
         sampled under, so the components are checked here."""
         if engine is not None:
+            if self._rules is not None:
+                raise ValueError(
+                    "a trainer laid out by the production rules (rules="
+                    "True) takes no serving engine: the engine's rollouts "
+                    "run the PartitionPlan's layout")
             if self.perf.fuse_step:
                 raise ValueError(
                     "perf.fuse_step and an attached serving engine are "
@@ -345,7 +371,7 @@ class BaseTrainer:
         cond_g = group_repeat(cond, self.flow.group_size)
         distributed.check_batch_divisible(cond_g.shape[0], self.mesh,
                                           self.dist.microbatch)
-        with shlib.param_gather(self.mesh):
+        with self._gather():
             return self._sample(params, cond_g, generator, self.sde_mask(it),
                                 x_init=x_init, eps=eps)
 
@@ -538,7 +564,7 @@ class BaseTrainer:
             self._draw_rows = (B // k, torch.arange(
                 r * n, (r + 1) * n, device=self.device))
         try:
-            with shlib.param_gather(self.mesh):
+            with self._gather():
                 if k > 1:
                     gens = (list(generator)
                             if isinstance(generator, (list, tuple))
@@ -566,13 +592,20 @@ class BaseTrainer:
             loss = self.batch_mean(loss)
         return loss, aux
 
+    def _gather(self):
+        """The gather context of this trainer's layout."""
+        return shlib.param_gather(self.mesh, self._rules)
+
     def _sync_grads(self) -> None:
-        """Average the gradients over "data" (f32), and the replicated
-        leaves' over "model" as well."""
-        for path, p in params_lib.leaves(self.state.params):
-            g = shlib.all_reduce_mean(p.grad, self._dgroup, self._dp)
-            if self._mp > 1 and path not in self._sharded:
-                g = shlib.all_reduce_mean(g, self._mgroup, self._mp)
+        """Reduce the gradients over the mesh (``sharding.mesh_grads``):
+        each averaged over "data" (f32), and the replicated leaves' over
+        "model" as well; under the production rules a leaf stored over
+        "data" was averaged by its gather's reduce-scatter."""
+        params = self.state.params
+        grads, _ = shlib.mesh_grads(_map(params, lambda p: p.grad),
+                                    self._spec, self.mesh, self._rules)
+        for (_, p), (_, g) in zip(params_lib.leaves(params),
+                                  params_lib.leaves(grads)):
             p.grad = g
 
     def _begin_update(self) -> None:
@@ -643,7 +676,7 @@ class BaseTrainer:
         cond_g = group_repeat(cond, self.flow.group_size)
         distributed.check_batch_divisible(cond_g.shape[0], self.mesh,
                                           self.dist.microbatch)
-        with shlib.param_gather(self.mesh):
+        with self._gather():
             traj = self._sample(self.state.params, cond_g, gen_sample,
                                 sde_mask, x_init=draws.get("x_init"),
                                 eps=draws.get("eps"))

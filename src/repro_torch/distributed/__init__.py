@@ -26,7 +26,8 @@ from repro_torch.distributed.microbatch import (accumulated_value_and_grad,
 from repro_torch.distributed.shard import (make_rollout_keyed_sharded,
                                            make_rollout_sharded,
                                            rollout_sharded)
-from repro_torch.distributed.sharding import (PartitionPlan, batch_sharding,
+from repro_torch.distributed.sharding import (PartitionPlan, RulePlan,
+                                              batch_sharding,
                                               check_batch_divisible,
                                               partition_plan, replicated)
 
@@ -37,6 +38,6 @@ __all__ = [
     "resolve_data_parallel", "resolve_model_parallel", "train_mesh",
     "world_size", "accumulated_value_and_grad", "chunk_batch",
     "chunk_trajectory", "make_rollout_keyed_sharded", "make_rollout_sharded",
-    "rollout_sharded", "PartitionPlan", "batch_sharding",
+    "rollout_sharded", "PartitionPlan", "RulePlan", "batch_sharding",
     "check_batch_divisible", "partition_plan", "replicated",
 ]

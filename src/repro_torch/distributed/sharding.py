@@ -11,17 +11,21 @@ replicated or ``Shard(dim)`` over "model", with ``dim`` chosen by
 ``bytes_report``) and adds what the reference gets from ``device_put`` and
 ``device_get``: :meth:`PartitionPlan.shard_state` slices a canonical
 (unsharded) state to this rank's shards, :meth:`PartitionPlan.gather_state`
-all-gathers the shards back over "model".  The reference's ``jit_*``
+all-gathers the shards back over "model".  :class:`RulePlan` is the same
+interface for a state laid out by the production rules
+(``repro_torch.sharding``).  The reference's ``jit_*``
 wrappers have no counterpart: the port runs eagerly, and its trainer and
 engine issue the collectives themselves.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import Replicate, Shard
 
+from repro_torch import sharding as shlib
 from repro_torch.distributed.mesh import (MODEL_AXIS, mesh_dp, mesh_mp,
                                           model_group, model_rank)
 from repro_torch.models import params as params_lib
@@ -135,12 +139,14 @@ class PartitionPlan:
 
     # ---------------------------------------------------------- layouts
     def shard_leaf(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
-        """This rank's shard of canonical ``t`` (a contiguous copy), or
-        ``t`` itself when replicated."""
+        """This rank's shard of canonical ``t`` (a copy with a storage of
+        its own: a view would keep the canonical storage alive), or ``t``
+        itself when replicated."""
         if dim is None:
             return t
         n = t.shape[dim] // self.model_parallel
-        return t.narrow(dim, model_rank(self.mesh) * n, n).contiguous()
+        return t.narrow(dim, model_rank(self.mesh) * n, n).clone(
+            memory_format=torch.contiguous_format)
 
     def shard_state(self, state):
         """A canonical tree (params, or a whole RLState) sliced to this
@@ -201,6 +207,104 @@ class PartitionPlan:
             per_dev += nbytes // (self.model_parallel if dim is not None
                                   else 1)
             sharded += dim is not None
+        return {"total_bytes": int(total), "per_device_bytes": int(per_dev),
+                "sharded_leaves": int(sharded)}
+
+
+class RulePlan(PartitionPlan):
+    """The layout of a model's params, and of any state leaf mirroring a
+    param, under the production rules' storage table (``rules.stored`` of
+    a ``repro_torch.sharding.Rules``): each leaf's (data dim, model dim),
+    ``sharding.stored_layout``.  It keeps the ``PartitionPlan``'s
+    interface, so a trainer laid out by the rules (``BaseTrainer(...,
+    rules=True)``) checkpoints the canonical state, resumes under any
+    layout and reports its bytes as under the plan.  A leaf's
+    entry is its (data dim, model dim), or None where it is whole."""
+
+    def __init__(self, mesh, spec, rules):
+        self.mesh = mesh
+        self.spec = spec
+        self.rules = rules
+        self.model_parallel = mesh_mp(mesh)
+        self.data_parallel = mesh_dp(mesh)
+        self._table = []
+        for path, p in params_lib.leaves(spec):
+            dims = shlib.stored_layout(p.shape, p.axes, rules.stored, mesh)
+            self._table.append((path, tuple(p.shape),
+                                None if dims == (None, None) else dims))
+
+    def param_shardings(self):
+        raise NotImplementedError(
+            "a RulePlan leaf may shard two dims; read param_specs")
+
+    def _local_shape(self, shape, dims):
+        return (shape if dims is None
+                else shlib.local_shape(shape, dims, self.mesh))
+
+    def _cuts(self, dims):
+        """(dim, ranks, this rank's index) of each sharded dim."""
+        return [(d, shlib.axis_size(self.mesh, name),
+                 shlib._coord(self.mesh, name))
+                for d, name in zip(dims, ("data", "model")) if d is not None]
+
+    def shard_leaf(self, t: torch.Tensor, dims) -> torch.Tensor:
+        """This rank's shard of canonical ``t``: a copy with a storage of
+        its own (a view would keep the canonical storage alive), or ``t``
+        itself when whole."""
+        if dims is None:
+            return t
+        for d, n, r in self._cuts(dims):
+            k = t.shape[d] // n
+            t = t.narrow(d, r * k, k)
+        return t.clone(memory_format=torch.contiguous_format)
+
+    def gather_state(self, state):
+        """The canonical tree of a sharded one: each sharded dim
+        all-gathered over its axis (collective over the mesh)."""
+        flat_dims = dict(_flatten(self.state_shardings(state)))
+
+        def one(path, leaf):
+            dims = flat_dims[path]
+            for d, name in zip(dims or (), ("data", "model")):
+                if d is not None:
+                    leaf = gather_dim(leaf, d, self.mesh.get_group(name),
+                                      shlib.axis_size(self.mesh, name))
+            return leaf
+        return _map(state, one)
+
+    def slicer(self, state):
+        """``checkpoint.load_checkpoint``'s ``fn(key, array)``: each
+        canonical leaf read from disk cut to this rank's shard."""
+        flat = {"/".join(path): dims for path, dims in
+                _flatten(self.state_shardings(state))}
+
+        def cut(key, arr):
+            dims = flat.get(key)
+            if dims is None:
+                return arr
+            idx = [slice(None)] * arr.ndim
+            for d, n, r in self._cuts(dims):
+                k = arr.shape[d] // n
+                idx[d] = slice(r * k, (r + 1) * k)
+            return arr[tuple(idx)]
+        return cut
+
+    def bytes_report(self, state) -> Dict[str, int]:
+        """The canonical byte total against what one rank holds; ``state``
+        may be canonical or laid out by the plan."""
+        total = per_dev = sharded = 0
+        for path, leaf in _flatten(state):
+            if not isinstance(leaf, torch.Tensor):
+                continue
+            dims, pshape = self._match(path, _shape(leaf))
+            nbytes = leaf.numel() * leaf.element_size()
+            split = 1 if dims is None else math.prod(
+                n for _, n, _ in self._cuts(dims))
+            if dims is not None and _shape(leaf) != pshape:
+                nbytes *= split                  # a shard: scale it up
+            total += nbytes
+            per_dev += nbytes // split
+            sharded += dims is not None
         return {"total_bytes": int(total), "per_device_bytes": int(per_dev),
                 "sharded_leaves": int(sharded)}
 

@@ -22,8 +22,11 @@ Per pair it records to experiments/dryrun/<arch>__<shape>__<mesh>.json:
     the aten ops it dispatched.
   * run_s — the seconds of the meta pass, in place of the reference's
     ``lower_s`` / ``compile_s`` (the port has no compile step).
-  * layout — the port's layout (``specs.layout``), which is not the
-    reference's: see ``launch.specs``.
+  * layout — the layout the step ran under (``specs.layout``): the
+    reference's production layout (rule tables, tensor parallel over
+    "model", ZeRO-3 over "data"; see ``launch.specs``), whether the
+    weights shard over "data" (``fsdp``), and the differences by
+    construction.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch yi-9b --shape train_4k [--multi-pod]
@@ -153,9 +156,12 @@ def run_one(arch: str, shape: Union[str, InputShape], *,
     if flow_rl:
         fn, args = specs.build_flow_step(cfg, mesh)
         batch = specs.FLOW_PROMPTS * specs.FLOW_GROUP
+        fsdp = True
     else:
         fn, args = specs.build_step(cfg, shape, mesh)
         batch = shape.global_batch
+        fsdp = shape.kind == "train" or (
+            mesh is not None and specs.inference_fsdp(cfg, mesh))
     res = measure(fn, args)
     # the first argument is the state (train) or the params (serving)
     res["memory"]["state_bytes"] = _nbytes(args[0])
@@ -173,7 +179,8 @@ def run_one(arch: str, shape: Union[str, InputShape], *,
         "n_layers": cfg.n_layers,
         "n_params": cfg.n_params(),
         "n_active_params": cfg.n_active_params(),
-        "layout": specs.layout(mesh, batch),
+        "layout": specs.layout(mesh, batch, fsdp=fsdp),
+        "fsdp": fsdp,
         "run_s": round(res["run_s"], 2),
         "memory": res["memory"],
         "fits_80gb": res["memory"]["peak_bytes"] <= mesh_lib.HBM_BYTES,

@@ -5,18 +5,29 @@ tensor of a step's state and inputs lies on ``device="meta"`` (shapes and
 dtypes, no storage), apart from the few host values the port keeps on the
 host (the AdamW step counter, a trajectory's time grid and SDE mask).
 
-**The layout is the port's own.**  The reference returns
-``NamedSharding`` trees for XLA's SPMD partitioner (FSDP over "data" as
-well, tensor-parallel heads; ``repro.sharding``'s rule tables).  The port
-has no partitioner and runs one layout: params and AdamW moments sharded
-over "model" by the ``PartitionPlan`` (``model_shard_dim``), each layer's
-slice gathered whole before use (ZeRO-3, ``sharding.constrain_params``),
-the batch split over "data".  So each spec here is this rank's shard
-(``PartitionPlan._local_shape``), and the second value of each pair is the
-plan's tree of sharded dims (None where a leaf is whole).  A batch that
-the data axis does not divide (``long_500k``'s one sequence) is run whole
-by every data rank.  With ``mesh=None`` everything is the exact
-single-device path.
+**The layout is the reference's production layout** (``repro.sharding``'s
+rule tables, ``repro_torch.sharding``): params and AdamW moments sharded
+over "model" on ``heads``, ``kv_heads``, ``mlp``, ``vocab``, ``inner`` and
+``experts_mdl``, and over "data" on ``embed``, ``embed_r``, ``moe_in`` and
+``moe_out`` (``param_rules``, ``fsdp``), a sharding dropped where the
+axis does not divide the dim; a leaf left whole on every rank that way
+is stored over "model" as the trainers' ``PartitionPlan`` stores it and
+gathered whole at use (``sharding.stored_layout``).  Inference weights
+shard over "data" only when ``2 · n_params / mp`` exceeds
+``INFERENCE_FSDP_THRESHOLD``.  At use each block gathers its "data"
+shard (ZeRO-3 over "data") and keeps its "model" shard: attention, the
+SwiGLU MLP and the vocabulary run tensor-parallel; the Mamba-2 blocks,
+MLA and the routed experts are gathered whole
+(``sharding.GATHERED_WHOLE``).  The batch splits over
+"data" and the decode caches hold this rank's rows and kv heads.  Where
+the reference leaves a serving step's weights to XLA
+(``set_param_gather(None)``), the port gathers the "data" shard at use as
+in training.  So each spec here is this rank's shard, and the second
+value of each pair is the tree of each leaf's (data dim, model dim).  A
+batch that the data axis does not divide (``long_500k``'s one sequence)
+is run whole by every data rank.  ``build_flow_step(fsdp=False)`` keeps
+the trainers' own layout (the ``PartitionPlan``: ZeRO-3 over "model").
+With ``mesh=None`` everything is the exact single-device path.
 """
 from __future__ import annotations
 
@@ -28,8 +39,8 @@ from repro_torch import optim
 from repro_torch import sharding as shlib
 from repro_torch.config import (ArchConfig, DistConfig, FlowRLConfig,
                                 InputShape, OptimConfig, PerfConfig)
+from repro_torch.core.trainers.base import RLState
 from repro_torch.distributed import mesh as mesh_lib
-from repro_torch.distributed.sharding import partition_plan
 from repro_torch.models import params as params_lib
 from repro_torch.models import tasks
 from repro_torch.models.backbone import Backbone
@@ -40,6 +51,9 @@ I32 = torch.int32
 META = torch.device("meta")
 # the flow update's batch: prompts x group (the reference's defaults)
 FLOW_PROMPTS, FLOW_GROUP = 32, 8
+# bytes a rank above which inference weights also shard over "data"
+# (the reference's weight-gathered serving mode for 100B+ models)
+INFERENCE_FSDP_THRESHOLD = 10e9
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -53,7 +67,7 @@ def local_batch(batch: int, mesh) -> int:
     return batch // dp if batch % dp == 0 else batch
 
 
-def layout(mesh, batch: int) -> str:
+def layout(mesh, batch: int, *, fsdp: bool = True) -> str:
     """The record's description of the layout a step runs under."""
     dp, mp = mesh_lib.mesh_dp(mesh), mesh_lib.mesh_mp(mesh)
     if mesh is None:
@@ -61,35 +75,56 @@ def layout(mesh, batch: int) -> str:
     split = (f"batch {batch} split over data ({dp})" if batch % dp == 0
              else f"batch {batch} whole on every data rank ({dp} does not "
                   "divide it)")
-    return (f"port: params and AdamW moments sharded over model ({mp}) by "
-            f"the PartitionPlan, each layer gathered whole before use "
-            f"(ZeRO-3); {split}")
+    data = (f"and over data ({dp}) on embed, embed_r, moe_in, moe_out, "
+            f"gathered over data at use" if fsdp else
+            "and not over data (serving weights below the inference "
+            "threshold)")
+    return (f"production (ZeRO-3 over data, tensor parallel over model): "
+            f"params sharded over model ({mp}) on heads, kv_heads, mlp, "
+            f"vocab, inner, experts_mdl {data}, a leaf whole under these "
+            f"over model as the PartitionPlan; attention, SwiGLU and the "
+            f"vocabulary tensor-parallel, Mamba-2, MLA, routed experts and "
+            f"the leaves whole under the tables gathered whole at use; "
+            f"{split}; KV caches by kv head over model")
 
 
 # ---------------------------------------------------------------------------
 # Parameter / optimizer / cache specs
 # ---------------------------------------------------------------------------
 
-def _spec_shards(spec, mesh, dtype) -> Tuple[Any, Any]:
-    """(this rank's meta shards, sharded-dim tree) of a param spec tree."""
-    plan = partition_plan(mesh, spec)
+def _rule_shards(spec, mesh, rules, dtype) -> Tuple[Any, Any]:
+    """(this rank's meta shards, (data dim, model dim) tree) of a param
+    spec tree under a rule table (whole leaves without a mesh)."""
     shapes: Dict = {}
     dims: Dict = {}
     for path, p in params_lib.leaves(spec):
-        dim = (None if plan is None else
-               params_lib.model_shard_dim(p.shape, p.axes,
-                                          plan.model_parallel))
-        local = p.shape if plan is None else plan._local_shape(p.shape, dim)
-        params_lib._set(shapes, path, _meta(local, dtype))
-        params_lib._set(dims, path, dim)
+        d = ((None, None) if mesh is None else
+             shlib.stored_layout(p.shape, p.axes, rules, mesh))
+        params_lib._set(shapes, path,
+                        _meta(shlib.local_shape(p.shape, d, mesh), dtype))
+        params_lib._set(dims, path, d)
     return shapes, dims
 
 
-def param_specs(cfg: ArchConfig, mesh) -> Tuple[Any, Any]:
-    """(meta params tree of this rank's shards, sharded-dim tree) for the
-    backbone in bf16: one layout for serving and training, where the
-    reference's ``train`` switch picks between two."""
-    return _spec_shards(Backbone(cfg).spec(), mesh, BF16)
+def inference_fsdp(cfg: ArchConfig, mesh, fsdp: bool = False) -> bool:
+    """Whether serving weights shard over "data" too: asked for, or bf16
+    weights over "model" alone above ``INFERENCE_FSDP_THRESHOLD`` bytes a
+    rank (the reference's ``param_specs(train=False)``)."""
+    return fsdp or (2.0 * cfg.n_params() / mesh_lib.mesh_mp(mesh)
+                    > INFERENCE_FSDP_THRESHOLD)
+
+
+def param_specs(cfg: ArchConfig, mesh, *, train: bool, fsdp: bool = True
+                ) -> Tuple[Any, Any]:
+    """(meta params tree of this rank's shards, (data dim, model dim)
+    tree) for the backbone in bf16 under ``param_rules``; at inference
+    (``train=False``) without ``fsdp`` the weights shard over "data" only
+    above the threshold (:func:`inference_fsdp`)."""
+    if not train:
+        fsdp = inference_fsdp(cfg, mesh, fsdp)
+    rules = None if mesh is None else shlib.param_rules(mesh, fsdp=fsdp,
+                                                        train=train)
+    return _rule_shards(Backbone(cfg).spec(), mesh, rules, BF16)
 
 
 def _state(p_shapes) -> optim.AdamWState:
@@ -105,19 +140,27 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def train_state_specs(cfg: ArchConfig, mesh):
-    """(meta ``TrainState``, sharded-dim tree of its params): bf16 params,
-    f32 moments mirroring them, the step counter on the host."""
-    p_shapes, p_dims = param_specs(cfg, mesh)
+def train_state_specs(cfg: ArchConfig, mesh, *, fsdp: bool = True):
+    """(meta ``TrainState``, (data dim, model dim) tree of its params):
+    bf16 params, f32 moments mirroring them, the step counter on the
+    host."""
+    p_shapes, p_dims = param_specs(cfg, mesh, train=True, fsdp=fsdp)
     return tasks.TrainState(params=p_shapes, opt=_state(p_shapes)), p_dims
 
 
+def _rules(mesh, fsdp: bool) -> Optional[shlib.Rules]:
+    """The production layout's rules (None without a mesh)."""
+    return (None if mesh is None else
+            shlib.production_rules(mesh, fsdp=fsdp))
+
+
 def cache_specs(cfg: ArchConfig, shape: InputShape, mesh):
-    """The caches ``tasks.init_caches`` preallocates for this rank's rows of
-    a decode shape (bf16, the SSM state f32), on meta."""
-    return tasks.init_caches(cfg, local_batch(shape.global_batch, mesh),
-                             tasks.effective_cache_len(cfg, shape), BF16,
-                             META)
+    """The caches ``tasks.init_caches`` preallocates for this rank's rows
+    and kv heads of a decode shape (bf16, the SSM state f32), on meta."""
+    with shlib.param_gather(mesh, _rules(mesh, False)):
+        return tasks.init_caches(cfg, local_batch(shape.global_batch, mesh),
+                                 tasks.effective_cache_len(cfg, shape), BF16,
+                                 META)
 
 
 # ---------------------------------------------------------------------------
@@ -146,14 +189,14 @@ def input_specs(cfg: ArchConfig, shape: InputShape, mesh
 # Step builders for the dry run
 # ---------------------------------------------------------------------------
 
-def _on_mesh(fn, mesh):
-    """``fn`` run under the mesh's gather context (``fn`` itself without a
-    mesh: the single-device path)."""
+def _on_mesh(fn, mesh, rules: Optional[shlib.Rules]):
+    """``fn`` run under the mesh's gather context with ``rules`` (``fn``
+    itself without a mesh: the single-device path)."""
     if mesh is None:
         return fn
 
     def run(*args):
-        with shlib.param_gather(mesh):
+        with shlib.param_gather(mesh, rules):
             return fn(*args)
     return run
 
@@ -162,24 +205,25 @@ def build_step(cfg: ArchConfig, shape: InputShape, mesh,
                opt_cfg: Optional[OptimConfig] = None):
     """Returns ``(fn, args)``: the port's own step for ``shape.kind``
     (``tasks.make_train_step`` with per-block remat, ``make_prefill_step``
-    or ``make_decode_step``) and this rank's meta arguments; ``fn(*args)``
-    runs it."""
+    or ``make_decode_step``) under the production layout, and this rank's
+    meta arguments; ``fn(*args)`` runs it."""
     opt_cfg = opt_cfg or OptimConfig()
     window = tasks.effective_window(cfg, shape)
     batch = input_specs(cfg, shape, mesh)
     if shape.kind == "train":
         step = tasks.make_train_step(cfg, opt_cfg, window=window, remat=True)
         state, _ = train_state_specs(cfg, mesh)
-        return _on_mesh(step, mesh), (state, batch)
-    params, _ = param_specs(cfg, mesh)
+        return _on_mesh(step, mesh, _rules(mesh, True)), (state, batch)
+    params, _ = param_specs(cfg, mesh, train=False, fsdp=False)
+    rules = _rules(mesh, mesh is not None and inference_fsdp(cfg, mesh))
     if shape.kind == "prefill":
         step = tasks.make_prefill_step(cfg, window=window)
-        return _on_mesh(step, mesh), (params, batch)
+        return _on_mesh(step, mesh, rules), (params, batch)
     step = tasks.make_decode_step(cfg, window=window)
     caches = cache_specs(cfg, shape, mesh)
     # the token after a full cache: the ring's last slot at a window
     pos = tasks.effective_cache_len(cfg, shape) - 1
-    return _on_mesh(step, mesh), (params, caches, batch["token"], pos)
+    return _on_mesh(step, mesh, rules), (params, caches, batch["token"], pos)
 
 
 # ---------------------------------------------------------------------------
@@ -190,17 +234,18 @@ def build_flow_step(cfg: ArchConfig, mesh, *,
                     num_steps: int = 10, latent_tokens: int = 1024,
                     latent_dim: int = 16, cond_len: int = 16,
                     cond_dim: int = 512, group_size: int = FLOW_GROUP,
-                    prompts: int = FLOW_PROMPTS):
+                    prompts: int = FLOW_PROMPTS, fsdp: bool = True):
     """The paper's own training step (the ``FlowGRPOTrainer`` update: the
     GRPO loss over every SDE step, its backward, the gradients' mesh
-    averages, clip and AdamW) at production scale.  Returns ``(fn, (state,
+    reduction, clip and AdamW) at production scale, under the reference's
+    FSDP rules (``repro/launch/specs.py:257``); ``fsdp=False``: the
+    trainers' own layout (the ``PartitionPlan``).  Returns ``(fn, (state,
     traj, adv))``; the trainer is built without params or reward towers
     (``__new__``, as the reference does), its state being the meta
     argument."""
     from repro_torch import registry
     from repro_torch.core import schedulers
     from repro_torch.core.rollout import Trajectory
-    from repro_torch.core.trainers.base import RLState
     from repro_torch.core.trainers.grpo import FlowGRPOTrainer
     from repro_torch.models.flow import FlowAdapter
 
@@ -217,11 +262,9 @@ def build_flow_step(cfg: ArchConfig, mesh, *,
     tr.sde_mode = "all_sde"
     tr.scheduler = schedulers.build(flow_cfg.sde_type, flow_cfg.eta)
     spec = tr.adapter.spec()
-    tr.plan = partition_plan(mesh, spec)
-    tr._dp, tr._mp = dp, mp
-    p_shapes, p_dims = _spec_shards(spec, mesh, BF16)
-    tr._sharded = frozenset(path for path, d in params_lib.leaves(p_dims)
-                            if d is not None)
+    tr._spec, tr._dp, tr._mp = spec, dp, mp
+    tr.plan, tr._rules, tr._sharded = FlowGRPOTrainer.layout_plan(
+        mesh, spec, fsdp and mesh is not None)
     if mesh is not None:
         tr._dgroup = mesh_lib.data_group(mesh)
         tr._mgroup = mesh_lib.model_group(mesh)
@@ -230,6 +273,9 @@ def build_flow_step(cfg: ArchConfig, mesh, *,
     tr.optimizer = registry.build("optimizer", opt_cfg.optimizer)
     tr._lr = optim.make_schedule(opt_cfg)
     tr._scalars = optim.step_scalars(META)
+    p_shapes = params_lib.shape_tree(spec, BF16)
+    if tr.plan is not None:
+        p_shapes = tr.plan.shard_state(p_shapes)
     state = RLState(params=p_shapes, opt=_state(p_shapes))
 
     B = local_batch(prompts * group_size, mesh)

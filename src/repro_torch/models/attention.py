@@ -11,6 +11,21 @@ kernel, and the forward's output is bitwise the one the rollout saw.
 values (prefill).  ``apply_decode`` runs one token against a cache in
 plain PyTorch (``layers.attend_one``), as the reference does in jnp, and
 rolls the cache: the oldest entry out, the new one in.
+
+Tensor parallel over "model" (the production layout of
+``repro_torch.sharding``): when ``wq`` holds fewer heads than
+``cfg.n_heads`` it is this rank's column shard, and the block runs its
+local heads, read from the shards' shapes.  x enters through *f*
+(``sharding.copy_to_model``); q, k and v are projected for the local
+heads; the kernel runs on them; ``wo`` is row-parallel and its partial
+outputs are summed by *g* (``sharding.reduce_from_model``).  Where the kv
+heads do not shard (fewer than the "model" ranks, or not a multiple),
+every rank holds ``wk`` / ``wv`` whole, projects every kv head (so a
+prefill or decode cache stays whole, as the reference's cache layout
+keeps it) and slices the kv heads its q heads read; those weights, and
+``q_norm`` / ``k_norm``, enter through *f* as well, so their gradient is
+the sum of the ranks' parts.  With whole heads the block is the
+single-device one.
 """
 from __future__ import annotations
 
@@ -18,6 +33,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import sharding as shlib
 from repro_torch.config import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers
@@ -71,6 +87,41 @@ def _out(p: Dict, o: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                         p["wo"].to(x.dtype).reshape(H * hd, d)).to(x.dtype)
 
 
+def _parallel(p: Dict, cfg: ArchConfig, x: torch.Tensor):
+    """``(p, x, tp)`` for a tensor-parallel block (``tp`` None: whole
+    heads, ``p`` and ``x`` as given): x and every weight the rank holds
+    whole through *f*."""
+    tp = shlib.tp_for(p["wq"].shape[1], cfg.n_heads)
+    if tp is None:
+        return p, x, None
+    kv_whole = p["wk"].shape[1] == cfg.n_kv_heads
+    p = {k: shlib.copy_to_model(w, tp)
+         if k in ("q_norm", "k_norm") or (kv_whole and k in ("wk", "wv"))
+         else w for k, w in p.items()}
+    return p, shlib.copy_to_model(x, tp), tp
+
+
+def _local_kv(cfg: ArchConfig, tp, h_local: int, k: torch.Tensor,
+              v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kv heads this rank's q heads read, from whole (B, T, K, D) k and
+    v (``k``, ``v`` themselves when they are this rank's shard already):
+    a contiguous slice when the local q heads cover whole GQA groups or
+    lie in one, else one kv head per q head."""
+    K = cfg.n_kv_heads
+    if tp is None or k.shape[2] != K:
+        return k, v
+    group = cfg.n_heads // K
+    h0 = tp.rank * h_local
+    lo, hi = h0 // group, (h0 + h_local - 1) // group + 1
+    if h_local % (hi - lo) == 0 and all(
+            (h0 + j) // group == lo + j // (h_local // (hi - lo))
+            for j in range(h_local)):
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    idx = torch.tensor([(h0 + j) // group for j in range(h_local)],
+                       device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def apply_full(p: Dict, cfg: ArchConfig, x: torch.Tensor, *,
                causal: bool = True, window: int = 0,
                positions: Optional[torch.Tensor] = None,
@@ -81,9 +132,14 @@ def apply_full(p: Dict, cfg: ArchConfig, x: torch.Tensor, *,
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    p, x, tp = _parallel(p, cfg, x)
     q, k, v = _qkv(p, cfg, x, positions)
-    o = ops.flash_attention(q, k, v, causal=causal, window=window)
-    return _out(p, o, x), (KVCache(k, v) if return_cache else None)
+    kq, vq = _local_kv(cfg, tp, q.shape[2], k, v)
+    o = ops.flash_attention(q, kq, vq, causal=causal, window=window)
+    out = _out(p, o, x)
+    if tp is not None:
+        out = shlib.reduce_from_model(out, tp)
+    return out, (KVCache(k, v) if return_cache else None)
 
 
 def apply_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor, cache: KVCache,
@@ -95,15 +151,22 @@ def apply_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor, cache: KVCache,
     cache: the oldest entry out, the new one in (views of the joined
     tensors the attention read; the caller stores them)."""
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    p, x, tp = _parallel(p, cfg, x)
     q, k_new, v_new = _qkv(p, cfg, x, positions)
     k = torch.cat([cache.k, k_new], dim=1)
     v = torch.cat([cache.v, v_new], dim=1)
-    o = layers.attend_one(q, k, v)
-    return _out(p, o, x), KVCache(k[:, 1:], v[:, 1:])
+    o = layers.attend_one(q, *_local_kv(cfg, tp, q.shape[2], k, v))
+    out = _out(p, o, x)
+    if tp is not None:
+        out = shlib.reduce_from_model(out, tp)
+    return out, KVCache(k[:, 1:], v[:, 1:])
 
 
 def init_cache_shape(cfg: ArchConfig, batch: int, cache_len: int
                      ) -> Tuple[Tuple[int, ...], Tuple]:
+    """The canonical (shape, logical axes) of a layer's k or v cache (a
+    rank of the production layout holds ``sharding.cache_extent`` of its
+    kv heads)."""
     hd = cfg.resolved_head_dim
     shape = (batch, cache_len, cfg.n_kv_heads, hd)
     axes = ("batch", "cache_seq", "kv_heads", "head_dim")

@@ -42,12 +42,22 @@ caches and writes the rolled caches back into them (the reference returns
 new arrays; at ``decode_32k``'s 51.5 GB a second copy would not fit one
 card).  Decode runs in plain PyTorch: no Pallas kernel covers it.
 
-On a mesh with a "model" axis each block first gathers its slice of the
+On a mesh with a "model" axis each block first lays out its slice of the
 sharded leaves (``repro_torch.sharding.constrain_params``, where the
-reference constrains each scan slice to the gathered layout), so the
-block's kernels see whole weights (each against its own unstacked spec:
-dense or MoE); the hybrid's shared block is gathered at each of its
-sites, as the reference's ``_gather`` does inside its scan.
+reference constrains each scan slice to the gathered layout; each
+against its own unstacked spec: dense or MoE); the hybrid's shared block
+is laid out at each of its sites, as the reference's ``_gather`` does
+inside its scan.  In the trainers' layout every leaf is gathered whole,
+so the block's kernels see whole weights.  Under the production rules
+the "data" shards are gathered and the "model" shards kept: attention
+and the SwiGLU MLP (the MoE family's shared experts too) run
+tensor-parallel (``attention``, ``layers.mlp``), as do the embedding (each
+rank looks up its vocabulary rows, the others' tokens masked, the sum
+taken over "model"), the LM head and the CE (``layers.chunked_ce_loss``);
+the serving steps gather the logits over "model" before they return.
+The Mamba-2 blocks, MLA and the routed experts are gathered whole
+(``sharding.GATHERED_WHOLE``, named per block by ``_parts``), and the
+decode caches hold this rank's kv heads (``sharding.cache_extent``).
 
 ``remat=True`` (``PerfConfig.remat="block"``, and the LM train step's
 default) runs each block call (each group of the hybrid: the reference's
@@ -91,6 +101,19 @@ def _attn_block_spec(cfg: ArchConfig, ffn: str = "mlp") -> Dict:
 
 def _ssm_block_spec(cfg: ArchConfig) -> Dict:
     return {"ln": layers.rmsnorm_spec(cfg.d_model), "ssm": ssm.spec(cfg)}
+
+
+def _parts(cfg: ArchConfig, spec: Dict):
+    """The ``GATHERED_WHOLE`` names of a block spec's parts that do not
+    run tensor-parallel (``sharding.constrain_params``' ``parts``)."""
+    parts: Dict = {}
+    if "ssm" in spec:
+        parts["ssm"] = "ssm"
+    if "attn" in spec and cfg.mla:
+        parts["attn"] = "mla"
+    if "router" in spec.get("ffn", {}):
+        parts["ffn"] = {k: "experts" for k in ("w_gate", "w_up", "w_down")}
+    return parts or None
 
 
 def _unbind(tree: Dict, n: int, axes: int = 1) -> List[Dict]:
@@ -169,6 +192,9 @@ class Backbone:
             self._groups = cfg.n_layers // self._every
             self._shared_spec = _attn_block_spec(cfg)
         self._top_spec = None
+        self._block_parts = _parts(cfg, self._block_spec)
+        if self._first_dense:
+            self._dense_parts = _parts(cfg, self._dense_spec)
 
     def spec(self) -> Dict:
         cfg = self.cfg
@@ -195,7 +221,9 @@ class Backbone:
 
     def _own(self, params: Dict, key: str) -> torch.Tensor:
         """A top-level leaf (embedding, LM head, frontend projection),
-        gathered whole on a "model" axis."""
+        laid out for use: gathered whole on a "model" axis, or under the
+        production rules its "data" shard gathered (the vocabulary stays
+        sharded over "model")."""
         if shlib.current_mesh() is None:
             return params[key]
         if self._top_spec is None:
@@ -221,7 +249,7 @@ class Backbone:
         x = x + g_a[:, None] * a_out
         h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
         h = h * (1 + sc_m[:, None]) + sh_m[:, None]
-        return x + g_m[:, None] * layers.mlp(p["ffn"], h), {}
+        return x + g_m[:, None] * layers.mlp(p["ffn"], h, cfg.d_ff), {}
 
     def _dense_block(self, p: Dict, x: torch.Tensor, slot=None, *,
                      causal: bool, window: int, positions: torch.Tensor,
@@ -244,7 +272,7 @@ class Backbone:
         if ffn == "moe":
             f_out, aux = moe.apply(p["ffn"], cfg, h)
             return x + f_out, aux
-        return x + layers.mlp(p["ffn"], h), {}
+        return x + layers.mlp(p["ffn"], h, cfg.d_ff), {}
 
     def _ssm_block(self, p: Dict, x: torch.Tensor, slot=None
                    ) -> Tuple[torch.Tensor, Dict]:
@@ -268,7 +296,7 @@ class Backbone:
         h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
         if ffn == "moe":
             return x + moe.apply(p["ffn"], cfg, h)[0]
-        return x + layers.mlp(p["ffn"], h)
+        return x + layers.mlp(p["ffn"], h, cfg.d_ff)
 
     def _ssm_block_decode(self, p: Dict, x: torch.Tensor, slot
                           ) -> torch.Tensor:
@@ -284,8 +312,17 @@ class Backbone:
         """Token embeddings (B, S, d), after the frontend prefix
         ``prefix_embed`` (B, n_prefix, embed_dim) projected by
         ``frontend_proj`` when given: (B, n_prefix + S, d)."""
-        x = torch.nn.functional.embedding(tokens.long(),
-                                          self._own(params, "embed"))
+        w = self._own(params, "embed")
+        tp = shlib.tp_for(w.shape[0], self.cfg.vocab_size)
+        if tp is None:
+            x = torch.nn.functional.embedding(tokens.long(), w)
+        else:
+            ids = tokens.long() - tp.rank * w.shape[0]
+            own = (ids >= 0) & (ids < w.shape[0])
+            x = torch.nn.functional.embedding(
+                torch.where(own, ids, torch.zeros_like(ids)), w)
+            x = shlib.reduce_from_model(
+                x.masked_fill(~own[..., None], 0), tp)
         if prefix_embed is not None:
             w = self._own(params, "frontend_proj")
             pe = torch.matmul(prefix_embed.to(x.dtype),
@@ -301,9 +338,12 @@ class Backbone:
 
     def logits(self, params: Dict, hidden: torch.Tensor) -> torch.Tensor:
         """f32 logits of the product in the activation dtype
-        (``layers``' numerics policy)."""
+        (``layers``' numerics policy), over the whole vocabulary (a
+        vocab-parallel head's columns gathered over "model")."""
         head = self.head_matrix(params)
-        return torch.matmul(hidden, head.to(hidden.dtype)).to(F32)
+        out = torch.matmul(hidden, head.to(hidden.dtype)).to(F32)
+        tp = shlib.tp_for(head.shape[1], self.cfg.vocab_size)
+        return out if tp is None else shlib.gather_model(out, -1, tp)
 
     # ---------------------------------------------------- full sequence
     def forward_embeds(self, params: Dict, x: torch.Tensor, *,
@@ -324,7 +364,7 @@ class Backbone:
         (module docstring)."""
         cfg = self.cfg
         fam = cfg.family
-        mesh = shlib.current_mesh()
+        mesh, rules = shlib.current_mesh(), shlib.current_rules()
         caches = (self.init_caches(x.shape[0], x.shape[1], x.dtype,
                                    x.device) if return_caches else None)
         if fam != "ssm":
@@ -341,8 +381,10 @@ class Backbone:
                 dense_block, block = block, functools.partial(
                     self._dense_block, ffn="moe", **kw)
 
-        def run(p, x, slot=None, spec=self._block_spec, block=block):
-            return block(shlib.constrain_params(p, spec, mesh), x, slot)
+        def run(p, x, slot=None, spec=self._block_spec, block=block,
+                parts=self._block_parts):
+            return block(shlib.constrain_params(p, spec, mesh, rules, parts),
+                         x, slot)
 
         if fam == "hybrid":
             shared = functools.partial(self._dense_block, **kw)
@@ -352,7 +394,7 @@ class Backbone:
                     x, _ = run(p, x, None if slot is None
                                else _index(slot[0], j))
                 return shared(shlib.constrain_params(
-                    p_shared, self._shared_spec, mesh), x,
+                    p_shared, self._shared_spec, mesh, rules), x,
                     None if slot is None else slot[1])
 
             every = self._every
@@ -365,7 +407,8 @@ class Backbone:
             if self._first_dense:
                 caches_d, caches_m = caches or (None, None)
                 run_dense = functools.partial(run, spec=self._dense_spec,
-                                              block=dense_block)
+                                              block=dense_block,
+                                              parts=self._dense_parts)
                 units = [(run_dense, (p,), _index(caches_d, i))
                          for i, p in enumerate(_unbind(
                              params["dense_blocks"], self._first_dense))]
@@ -399,10 +442,10 @@ class Backbone:
         returned with the normed hidden states."""
         cfg = self.cfg
         fam = cfg.family
-        mesh = shlib.current_mesh()
+        mesh, rules = shlib.current_mesh(), shlib.current_rules()
 
-        def gathered(p, spec):
-            return shlib.constrain_params(p, spec, mesh)
+        def gathered(p, spec, parts=None):
+            return shlib.constrain_params(p, spec, mesh, rules, parts)
 
         if fam in ("ssm", "hybrid"):
             n = cfg.n_layers
@@ -412,8 +455,9 @@ class Backbone:
             for i, p in enumerate(ps):
                 slot = (_index(_index(caches[0], i // every), i % every)
                         if fam == "hybrid" else _index(caches, i))
-                x = self._ssm_block_decode(gathered(p, self._block_spec), x,
-                                           slot)
+                x = self._ssm_block_decode(
+                    gathered(p, self._block_spec, self._block_parts), x,
+                    slot)
                 if fam == "hybrid" and i % every == every - 1:
                     x = self._attn_block_decode(
                         gathered(params["shared_attn"], self._shared_spec),
@@ -422,18 +466,20 @@ class Backbone:
             units = []
             if self._first_dense:
                 caches_d, caches_m = caches
-                units = [(p, self._dense_spec, _index(caches_d, i), "mlp")
+                units = [(p, self._dense_spec, self._dense_parts,
+                          _index(caches_d, i), "mlp")
                          for i, p in enumerate(_unbind(
                              params["dense_blocks"], self._first_dense))]
             else:
                 caches_m = caches
             ffn = "moe" if fam == "moe" else "mlp"
-            units += [(p, self._block_spec, _index(caches_m, i), ffn)
+            units += [(p, self._block_spec, self._block_parts,
+                       _index(caches_m, i), ffn)
                       for i, p in enumerate(_unbind(
                           params["blocks"], cfg.n_layers - self._first_dense))]
-            for p, spec, slot, ffn in units:
-                x = self._attn_block_decode(gathered(p, spec), x, slot, pos,
-                                            window, ffn)
+            for p, spec, parts, slot, ffn in units:
+                x = self._attn_block_decode(gathered(p, spec, parts), x, slot,
+                                            pos, window, ffn)
         return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps), caches
 
     # -------------------------------------------------------- cache specs
@@ -477,9 +523,13 @@ class Backbone:
         latent entries and the SSM conv window in ``dtype``, the SSM state
         in f32 (the scan's and the recurrence's state dtype; the
         reference's zeros take ``dtype`` and turn f32 at its first
-        decode)."""
+        decode).  Under the production rules the kv heads are this rank's
+        (``sharding.cache_extent``)."""
         def leaf(sa, name):
-            return torch.zeros(sa[0], dtype=F32 if name == "state" else dtype,
+            shape = tuple(shlib.cache_extent(n, "kv_heads")
+                          if ax == "kv_heads" else n
+                          for n, ax in zip(*sa))
+            return torch.zeros(shape, dtype=F32 if name == "state" else dtype,
                                device=device)
 
         return map_cache_spec(leaf, self.cache_specs(batch, cache_len))

@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding as shlib
 from repro_torch.models.params import P
 
 F32 = torch.float32
@@ -88,11 +89,22 @@ def mlp_spec(d: int, f: int) -> dict:
     }
 
 
-def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, width: Optional[int] = None
+        ) -> torch.Tensor:
+    """SwiGLU.  ``width``: the canonical hidden width; a narrower
+    ``w_gate`` is this rank's shard of the production layout, and the MLP
+    runs tensor-parallel over "model": x through *f*, ``w_gate`` and
+    ``w_up`` column-parallel, ``w_down`` row-parallel, its partial outputs
+    summed by *g* (``repro_torch.sharding``)."""
+    tp = None if width is None else shlib.tp_for(p["w_gate"].shape[1],
+                                                 width)
+    if tp is not None:
+        x = shlib.copy_to_model(x, tp)
     g = torch.matmul(x, p["w_gate"].to(x.dtype)).to(F32)
     u = torch.matmul(x, p["w_up"].to(x.dtype)).to(F32)
     h = (torch.nn.functional.silu(g) * u).to(x.dtype)
-    return torch.matmul(h, p["w_down"].to(x.dtype)).to(x.dtype)
+    out = torch.matmul(h, p["w_down"].to(x.dtype)).to(x.dtype)
+    return out if tp is None else shlib.reduce_from_model(out, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -180,30 +192,70 @@ def attend_one(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # Chunked cross-entropy (vocab can be 150k; never materialise full logits)
 # ---------------------------------------------------------------------------
 
-def _chunk_ce(h_c: torch.Tensor, y_c: torch.Tensor, w_vocab: torch.Tensor
-              ) -> torch.Tensor:
+def _chunk_ce(h_c: torch.Tensor, y_c: torch.Tensor, w_vocab: torch.Tensor,
+              tp=None) -> torch.Tensor:
     logits = torch.matmul(h_c, w_vocab.to(h_c.dtype)).to(F32)
+    if tp is not None:
+        return _VocabParallelCE.apply(logits, y_c, tp)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
     return torch.sum(logz - gold)
 
 
+class _VocabParallelCE(torch.autograd.Function):
+    """sum(logz - gold) over tokens from this rank's vocabulary columns of
+    the logits: the max and the sum of exponentials all-reduced over
+    "model", the gold logit from the rank that owns it (the others add
+    0).  Backward: softmax minus the one-hot of the label, on this rank's
+    columns."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, tp):
+        v_local = logits.shape[-1]
+        m = shlib.all_reduce_max(logits.amax(dim=-1), tp.group)
+        e = torch.exp(logits - m[..., None])
+        s = shlib.all_reduce_sum_(e.sum(dim=-1), tp.group)
+        ids = labels.long() - tp.rank * v_local
+        own = (ids >= 0) & (ids < v_local)
+        ids = torch.where(own, ids, torch.zeros_like(ids))
+        gold = torch.gather(logits, -1, ids[..., None])[..., 0]
+        gold = shlib.all_reduce_sum_(torch.where(own, gold,
+                                                 torch.zeros_like(gold)),
+                                     tp.group)
+        ctx.save_for_backward(e.div_(s[..., None]), ids, own)
+        return torch.sum(m + torch.log(s) - gold)
+
+    @staticmethod
+    def backward(ctx, grad):
+        p, ids, own = ctx.saved_tensors
+        g = p.clone()
+        g.scatter_add_(-1, ids[..., None], -own[..., None].to(g.dtype))
+        return g.mul_(grad), None, None
+
+
 def chunked_ce_loss(hidden: torch.Tensor, w_vocab: torch.Tensor,
-                    labels: torch.Tensor, *, chunk: int = 512
-                    ) -> torch.Tensor:
+                    labels: torch.Tensor, *, chunk: int = 512,
+                    vocab_size: Optional[int] = None) -> torch.Tensor:
     """hidden: (B, S, d); w_vocab: (d, V); labels: (B, S) integers.
 
     Loops over sequence chunks so the (tokens, V) logit block peaks at
     B*chunk*V instead of B*S*V; with grad enabled each chunk runs under
     ``torch.utils.checkpoint`` and is recomputed in the backward (the
     reference's ``jax.checkpoint``).  A ragged tail (S not a multiple of
-    ``chunk``) is one more, shorter chunk.  Returns the f32 mean."""
+    ``chunk``) is one more, shorter chunk.  ``vocab_size``: the canonical
+    V; a narrower ``w_vocab`` is this rank's column shard of the
+    production layout, and the CE is vocab-parallel over "model" (hidden
+    through *f*).  Returns the f32 mean."""
     B, S, _ = hidden.shape
+    tp = (None if vocab_size is None
+          else shlib.tp_for(w_vocab.shape[1], vocab_size))
+    if tp is not None:
+        hidden = shlib.copy_to_model(hidden, tp)
     chunk = min(chunk, S)
     ckpt = torch.is_grad_enabled()
     total = None
     for c in range(0, S, chunk):
-        args = (hidden[:, c:c + chunk], labels[:, c:c + chunk], w_vocab)
+        args = (hidden[:, c:c + chunk], labels[:, c:c + chunk], w_vocab, tp)
         part = (checkpoint(_chunk_ce, *args, use_reentrant=False,
                            preserve_rng_state=False) if ckpt
                 else _chunk_ce(*args))

@@ -278,7 +278,8 @@ def apply(p: Dict, cfg: ArchConfig, x: torch.Tensor
         out = out.reshape(B, S, d)
 
     if m.n_shared_experts:
-        out = out + layers.mlp(p["shared"], x)
+        out = out + layers.mlp(p["shared"], x,
+                               m.n_shared_experts * m.expert_d_ff)
 
     # auxiliary losses (Switch-style load balance + router z-loss)
     me = probs.mean(dim=(0, 1))

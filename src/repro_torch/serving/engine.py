@@ -201,6 +201,10 @@ class ServingEngine:
         if mesh is None and dist is not None:
             mesh = distributed.train_mesh(dist, self.device.type)
         self.mesh = mesh
+        if getattr(plan, "rules", None) is not None:
+            raise ValueError("the engine's rollouts run the PartitionPlan's "
+                             "layout, not the production rules' (a trainer "
+                             "built with rules=True)")
         if plan is None and distributed.mesh_mp(mesh) > 1:
             plan = distributed.partition_plan(mesh, adapter.spec())
         self.plan = plan

@@ -1,51 +1,300 @@
-"""Weight-gathered FSDP for the port — the counterpart of
-``repro.sharding``'s gather context (``set_param_gather``,
-``constrain_params``), and the collectives the distributed path uses.
+"""Logical-axis rule tables, the gather context that lays params out at
+use, tensor parallelism over "model", and the collectives the distributed
+path uses — the counterpart of ``repro.sharding``.
 
-The reference stores params sharded over the "model" mesh axis and leaves
-the in-layer layout to XLA's partitioner, which it steers with a
-gathered-weight constraint on each layer's slice ("the MaxText
-approach").  The port has no partitioner, so it fixes that layout to
-gather-before-use (ZeRO-3): ``constrain_params`` all-gathers each sharded
-leaf of a layer's slice over the "model" group in the forward
-(``all_gather_into_tensor``) and reduce-scatters its gradient back to the
-shard in the backward (``reduce_scatter_tensor``, then / mp: the ranks of
-the group run the same batch, so the mean of their gradients is the
-gradient).  Every kernel sees whole, local, contiguous tensors; the two
-layouts compute the same function.
+**Rule tables** (``batch_axes``, ``param_rules``, ``act_rules``,
+``gathered_param_rules``, ``pspec``): the reference's tables key for key,
+as plain tuples of mesh-axis names (no ``PartitionSpec``).  A mesh is the
+port's ``DeviceMesh`` (``mesh_dim_names``) or anything with the
+reference's ``axis_names`` and ``shape`` mapping.  :func:`leaf_layout`
+gives a leaf its (data dim, model dim) under a table, dropping a sharding
+that the axis does not divide (the reference's ``launch/specs.py:66-72``)
+or whose axis has one rank; :func:`stored_layout` is the same for
+storage, where a leaf the table leaves whole on every rank is split over
+"model" as the trainers split it.  Storage, the gather and the dry run
+all read these two.
 
-The context is installed per call (:func:`param_gather`) by whoever runs
-the model on a mesh (the trainer, the serving engine); with no mesh, or a
-mesh whose "model" axis is 1, ``constrain_params`` returns its input.
-Which dim of a leaf is sharded is ``model_shard_dim`` of its canonical
-shape and logical axes, so the gather agrees with the ``PartitionPlan``
-that sharded it.  Collectives here pick ``all_gather_single`` /
-``reduce_scatter_single`` where torch has them and the ``*_tensor`` names
-(deprecated there, the only ones in older releases) otherwise.
+**Two layouts.**  ``param_gather(mesh)`` with no rules is the trainers'
+ZeRO-3 over "model": params stored sharded by the ``PartitionPlan``
+(``model_shard_dim``), each layer's slice all-gathered whole over the
+"model" group before use (``GatherParam``) and its gradient
+reduce-scattered back (then / mp: the ranks of the group run the same
+batch), so every kernel sees whole weights.  ``param_gather(mesh,
+rules)`` with :func:`production_rules` is the reference's production
+layout:
+
+* storage by ``rules.stored`` (``param_rules``, :func:`stored_layout`): a
+  leaf's "data" dim split by dp and its "model" dim by mp; a leaf the
+  reference keeps whole on every rank is split over "model" on the dim
+  the trainers' ``PartitionPlan`` picks and gathered whole at use (a
+  difference by construction: no leaf takes more of a rank than under
+  the trainers' layout);
+* at use (``rules.prules``, ``gathered_param_rules``) ``constrain_params``
+  all-gathers the "data" dim over the data group; its backward is a
+  reduce-scatter mean over "data", which is the data-parallel gradient
+  (the data ranks hold different batches);
+* the "model" dim stays sharded: attention, the SwiGLU MLP and the
+  vocabulary run tensor-parallel with Megatron's two operators,
+  :func:`copy_to_model` (*f*: identity forward, all-reduce over "model"
+  backward) and :func:`reduce_from_model` (*g*: all-reduce forward,
+  identity backward), partial sums added in f32 and cast back;
+* the parts in ``GATHERED_WHOLE`` are not tensor-parallel yet: their
+  "model" dim is gathered too, as in the trainers' layout;
+* ``rules.arules`` (``act_rules``) lays out the decode caches: kv heads over
+  "model" where the axis divides them.
+
+With no mesh, or a mesh whose axes are 1, nothing is gathered and no
+operator runs: the layouts compute the single-device function, bit for
+bit on one rank.  :func:`mesh_grads` is the gradients' reduction after a
+backward under either layout, and gives the clip the groups each leaf's
+pieces are spread over, so the global norm counts every element once.
 
 Every collective the port issues goes through a function here, and each
 one reports its kind, result bytes and group size to the recorders in
 ``COLLECTIVE_HOOKS`` (empty unless ``launch.hlo_stats.record_collectives``
-is active), so one recorder sees the whole step.
+is active), so one recorder sees the whole step.  Collectives pick
+``all_gather_single`` / ``reduce_scatter_single`` where torch has them
+and the ``*_tensor`` names (deprecated there, the only ones in older
+releases) otherwise.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, List, Optional
+import math
+import os
+from typing import (Callable, Dict, List, NamedTuple, Optional, Tuple,
+                    Union)
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.models.params import P, model_shard_dim
+from repro_torch.models.params import P, _set, leaves, model_shard_dim
 
 F32 = torch.float32
 
-_CTX: Dict = {"mesh": None}
+Axes = Tuple[Optional[str], ...]
+RuleTable = Dict[str, Union[str, Tuple[str, ...], None]]
+
+
+class Rules(NamedTuple):
+    """The production layout's three tables, named as ``param_gather``'s
+    arguments: ``param_gather(mesh, **rules._asdict())``."""
+    prules: RuleTable       # params at use (gathered_param_rules)
+    arules: RuleTable       # activations and caches (act_rules)
+    stored: RuleTable       # params in storage (param_rules)
+
+
+class TP(NamedTuple):
+    """The "model" group a tensor-parallel block reduces over."""
+    group: object
+    size: int
+    rank: int
+
+
+_CTX: Dict = {"mesh": None, "rules": None, "tp": None}
 
 # callables ``hook(kind, result_bytes, group_size)``, one call per
 # collective issued (the reference's HLO op names as kinds)
 COLLECTIVE_HOOKS: List[Callable[[str, int, int], None]] = []
 
+# The block parts that do not run tensor-parallel over "model" yet: under
+# the production rules their leaves are gathered whole at use (the "model"
+# dim as well as the "data" dim), so every "model" rank computes them on
+# the same rows.  Every other part keeps its "model" shard at use.
+GATHERED_WHOLE: Dict[str, str] = {
+    "ssm": "Mamba-2's in_proj packs z, x, B, C and dt on one `inner` axis "
+           "(models/ssm.py:57) and its gated norm spans `inner`: a split "
+           "over 'model' needs the packed projection re-laid and the "
+           "norm's statistics all-reduced",
+    "mla": "multi-head latent attention: the heads come out of shared "
+           "latent projections (w_dq, w_dkv) and decode absorbs w_uk / "
+           "w_uv into the latent cache",
+    "experts": "routed experts: the reference keeps moe_in / moe_out "
+               "sharded over 'data' at use (tensor mode) or its experts "
+               "over 'model' with an all-to-all (ep_model); neither "
+               "dispatch is ported, so the experts are gathered whole",
+}
+
+
+# ---------------------------------------------------------------------------
+# Mesh axes and rule tables
+# ---------------------------------------------------------------------------
+
+def _moe_mode() -> str:
+    return os.environ.get("REPRO_MOE_MODE", "tensor")
+
+
+def axis_names(mesh) -> Tuple[str, ...]:
+    """The mesh's axis names (``DeviceMesh.mesh_dim_names`` or a
+    reference-style ``axis_names``)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names if names is not None else mesh.axis_names)
+
+
+def axis_size(mesh, name: str) -> int:
+    """Ranks on the axis ``name`` (1 for no mesh or an absent axis)."""
+    if mesh is None:
+        return 1
+    names = axis_names(mesh)
+    if name not in names:
+        return 1
+    if hasattr(mesh, "mesh_dim_names"):
+        return int(mesh.size(names.index(name)))
+    return int(mesh.shape[name])
+
+
+def _coord(mesh, name: str) -> int:
+    return int(mesh.get_coordinate()[axis_names(mesh).index(name)])
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    """Mesh axes the batch dim is sharded over."""
+    return tuple(a for a in ("pod", "data") if a in axis_names(mesh))
+
+
+def param_rules(mesh, *, fsdp: bool = True, train: bool = True
+                ) -> RuleTable:
+    """Rules for parameter logical axes (``train`` is the reference's
+    argument; its table does not read it)."""
+    fsdp_axis = "data" if (fsdp and "data" in axis_names(mesh)) else None
+    return {
+        "embed": fsdp_axis,        # d_model rows of big matrices (zero-3)
+        "embed_r": fsdp_axis,      # d_model as the output dim (w_down, wo)
+        "heads": "model",
+        "kv_heads": "model",
+        "q_lora": None,
+        "kv_lora": None,
+        "head_dim": None,
+        "mlp": "model",
+        "vocab": "model",
+        "experts": None,           # tensor/dense: experts replicated
+        "experts_mdl": "model",    # ep_model: experts over the model axis
+        "moe_f": None,
+        "moe_in": fsdp_axis,
+        "moe_out": fsdp_axis,
+        "layers": None,
+        "groups": None,
+        "state": None,
+        "conv": None,
+        "inner": "model",          # ssm d_inner
+        "ssm_heads": "model",
+        "norm": None,
+        "latent": None,
+        "time": None,
+    }
+
+
+def act_rules(mesh, *, seq_shard: bool = False) -> RuleTable:
+    """Rules for activation / cache logical axes."""
+    b = batch_axes(mesh)
+    return {
+        "batch": b if b else None,
+        "seq": None,
+        "cache_seq": ("data" if (seq_shard and "data" in axis_names(mesh))
+                      else None),
+        "embed": None,
+        "embed_r": None,
+        "heads": "model",
+        "kv_heads": "model",
+        "kv_lora": None,
+        "head_dim": None,
+        "mlp": "model",
+        "vocab": "model",
+        "experts": None,
+        "experts_mdl": "model",
+        "moe_f": None,
+        "moe_in": None,
+        "moe_out": None,
+        "state": None,
+        "inner": "model",
+        "ssm_heads": "model",
+        "latent": None,
+        "cond": None,
+        "group": None,
+        "time": None,
+        "scalar": None,
+    }
+
+
+def gathered_param_rules(mesh) -> RuleTable:
+    """Layout of a weight slice while it is used: "model"-sharded axes
+    stay sharded, the "data" shard is gathered, except the expert weights'
+    ``moe_in`` / ``moe_out`` in tensor and dense modes (the reference
+    keeps them sharded over "data"; the port gathers its experts whole,
+    ``GATHERED_WHOLE``)."""
+    r = param_rules(mesh, fsdp=False)
+    if _moe_mode() != "ep_model":
+        stored = param_rules(mesh, fsdp=True)
+        r["moe_in"] = stored["moe_in"]
+        r["moe_out"] = stored["moe_out"]
+    return r
+
+
+def pspec(axes: Axes, rules: RuleTable) -> Tuple:
+    """The mesh axes (or None) of each logical axis: the reference's
+    ``PartitionSpec`` entries as a tuple."""
+    return tuple(None if a is None else rules.get(a, None) for a in axes)
+
+
+def production_rules(mesh, *, fsdp: bool = True) -> Rules:
+    """The reference's production layout: params stored by
+    ``param_rules(fsdp=fsdp)``, used by ``gathered_param_rules``,
+    activations and caches by ``act_rules``."""
+    return Rules(prules=gathered_param_rules(mesh), arules=act_rules(mesh),
+                 stored=param_rules(mesh, fsdp=fsdp))
+
+
+def leaf_layout(shape: Tuple[int, ...], axes: Axes, rules: RuleTable,
+                mesh) -> Tuple[Optional[int], Optional[int]]:
+    """(data dim, model dim) of a leaf of canonical ``shape`` and logical
+    ``axes`` under ``rules``: the dims the table maps to "data" and to
+    "model", each dropped where that axis's size does not divide the dim
+    or is 1 (a one-rank axis shards nothing)."""
+    data = model = None
+    for i, (ax, n) in enumerate(zip(axes, shape)):
+        m = rules.get(ax) if ax else None
+        if m is None:
+            continue
+        names = m if isinstance(m, tuple) else (m,)
+        size = math.prod(axis_size(mesh, a) for a in names)
+        if size <= 1 or n % size:
+            continue
+        if "data" in names:
+            data = i
+        if "model" in names:
+            model = i
+    return data, model
+
+
+def local_shape(shape: Tuple[int, ...], dims: Tuple[Optional[int],
+                                                    Optional[int]],
+                mesh) -> Tuple[int, ...]:
+    """This rank's shard of a leaf of ``shape`` laid out as ``dims``."""
+    s = list(shape)
+    for d, name in zip(dims, ("data", "model")):
+        if d is not None:
+            s[d] //= axis_size(mesh, name)
+    return tuple(s)
+
+
+def stored_layout(shape: Tuple[int, ...], axes: Axes, rules: RuleTable,
+                  mesh) -> Tuple[Optional[int], Optional[int]]:
+    """(data dim, model dim) of a leaf in storage under the table
+    ``rules``: :func:`leaf_layout`, except that a leaf the table leaves
+    whole on every rank (no axis it maps divides, as 56 heads over 16, or
+    none is mapped, as a norm scale when serving) is split over "model"
+    as the trainers' ``PartitionPlan`` splits it (``model_shard_dim``) and
+    gathered whole at use.  So no leaf holds more of a rank than under the
+    trainers' ZeRO-3 over "model", where the reference keeps it whole."""
+    d, m = leaf_layout(shape, axes, rules, mesh)
+    if d is None and m is None:
+        m = model_shard_dim(shape, axes, axis_size(mesh, "model"))
+    return d, m
+
+
+# ---------------------------------------------------------------------------
+# Collectives
+# ---------------------------------------------------------------------------
 
 def _note(kind: str, result: torch.Tensor, group, n: int = 0) -> None:
     if COLLECTIVE_HOOKS:
@@ -102,6 +351,12 @@ def all_reduce_mean(x: torch.Tensor, group, n: int) -> torch.Tensor:
     return y.div_(n).to(x.dtype)
 
 
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over the group's ranks, in f32 (a new tensor of ``x``'s
+    dtype)."""
+    return all_reduce_sum_(x.detach().to(F32, copy=True), group).to(x.dtype)
+
+
 def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     y = x.detach().clone()
     dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
@@ -117,9 +372,11 @@ def all_reduce_sum_(x: torch.Tensor, group) -> torch.Tensor:
 
 
 class GatherParam(torch.autograd.Function):
-    """Forward: the whole leaf from its shards (all-gather along ``dim``
-    over ``group``); backward: the gradient's mean over the group,
-    reduce-scattered back to this rank's shard."""
+    """Forward: the leaf gathered along ``dim`` from its shards over
+    ``group``; backward: the gradient's mean over the group,
+    reduce-scattered back to this rank's shard.  Over "model" (the ranks
+    run the same batch) the mean is the gradient; over "data" (each rank
+    its own rows) it is the data-parallel gradient."""
 
     @staticmethod
     def forward(ctx, shard, dim, group, n):
@@ -132,25 +389,78 @@ class GatherParam(torch.autograd.Function):
             None, None
 
 
-def set_param_gather(mesh) -> None:
-    """Install (or clear, with None) the gather context."""
-    _CTX["mesh"] = mesh
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's *f*: identity forward; backward the gradient summed over
+    the "model" group (f32, cast back)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's *g*: forward the partial outputs summed over the "model"
+    group (f32, cast back); backward identity."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """*f*: ``x`` entering a tensor-parallel region (an activation, or a
+    weight that every "model" rank holds whole and uses on its own
+    heads)."""
+    return _CopyToModel.apply(x, tp.group)
+
+
+def reduce_from_model(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """*g*: the sum of the "model" ranks' partial ``x``."""
+    return _ReduceFromModel.apply(x, tp.group)
+
+
+def gather_model(x: torch.Tensor, dim: int, tp: TP) -> torch.Tensor:
+    """The "model" ranks' ``x`` concatenated along ``dim`` (no grad: the
+    serving steps' logits)."""
+    return gather_dim(x, dim % x.ndim, tp.group, tp.size)
+
+
+# ---------------------------------------------------------------------------
+# The gather context
+# ---------------------------------------------------------------------------
+
+def set_param_gather(mesh, rules: Optional[Rules] = None) -> None:
+    """Install (or clear, with None) the gather context: without
+    ``rules`` the trainers' ZeRO-3 over "model", with them (the
+    reference's ``prules`` and ``arules`` and the storage table,
+    :func:`production_rules`) the production layout."""
+    if mesh is None:
+        rules = None
+    mp = axis_size(mesh, "model")
+    _CTX["mesh"], _CTX["rules"] = mesh, rules
+    _CTX["tp"] = (TP(mesh.get_group("model"), mp, _coord(mesh, "model"))
+                  if rules is not None and mp > 1 else None)
 
 
 @contextlib.contextmanager
-def param_gather(mesh):
-    """Install the gather context for ``mesh`` for the ``with`` body and
-    restore the previous one after."""
-    prev = _CTX["mesh"]
-    set_param_gather(mesh)
+def param_gather(mesh, rules: Optional[Rules] = None):
+    """Install the gather context for ``mesh`` (and rules) for the
+    ``with`` body and restore the previous one after."""
+    prev = dict(_CTX)
+    set_param_gather(mesh, rules)
     try:
         yield
     finally:
-        set_param_gather(prev)
-
-
-def _mesh_mp(mesh) -> int:
-    return 1 if mesh is None else int(mesh.size(1))
+        _CTX.update(prev)
 
 
 def current_mesh():
@@ -158,26 +468,144 @@ def current_mesh():
     return _CTX["mesh"]
 
 
-def constrain_params(params, spec, mesh=None):
-    """``params`` with each leaf that the plan shards gathered whole.
+def current_rules() -> Optional[Rules]:
+    """The installed production rules (None: no mesh, or the trainers'
+    layout)."""
+    return _CTX["rules"]
+
+
+def tp_for(local: int, full: int) -> Optional[TP]:
+    """The installed ``TP`` when a weight's ``local`` extent is a shard of
+    ``full`` (the block runs tensor-parallel), None when it is whole."""
+    if local == full:
+        return None
+    tp = _CTX["tp"]
+    if tp is None or local * tp.size != full:
+        raise RuntimeError(
+            f"a {local}-wide shard of a {full}-wide weight outside the "
+            "production layout's gather context")
+    return tp
+
+
+def cache_extent(n: int, axis: str) -> int:
+    """This rank's extent of a cache dim of size ``n`` on logical
+    ``axis`` under the installed activation rules (kv heads over
+    "model"); ``n`` without them."""
+    tp = _CTX["tp"]
+    if tp is None or _CTX["rules"].arules.get(axis) != "model" or \
+            n % tp.size:
+        return n
+    return n // tp.size
+
+
+def _part_of(parts, key):
+    if parts is None or isinstance(parts, str):
+        return parts
+    return parts.get(key)
+
+
+def constrain_params(params, spec, mesh=None, rules: Optional[Rules] = None,
+                     parts=None):
+    """``params`` laid out for use.
 
     ``spec`` is the spec tree of ``params`` (:class:`P` leaves with the
     canonical shapes and logical axes; a layer's slice takes the unstacked
-    block spec).  ``mesh`` defaults to the installed context's (a block
-    recomputed in the backward passes the one its forward saw).  Identity
-    with no mesh or a "model" axis of 1."""
-    mesh = _CTX["mesh"] if mesh is None else mesh
-    mp = _mesh_mp(mesh)
-    if mp <= 1:
-        return params
-    group = mesh.get_group("model")
+    block spec).  ``mesh`` and ``rules`` default to the installed
+    context's (a block recomputed in the backward passes the ones its
+    forward saw).  Without rules each leaf the ``PartitionPlan`` shards
+    over "model" is gathered whole; identity with no mesh or a "model"
+    axis of 1.  With rules each leaf's stored "data" shard is gathered and
+    its "model" shard kept, except under the names of ``GATHERED_WHOLE``
+    in ``parts`` (a tree over ``params``' keys: a name applies to the
+    subtree under it), whose "model" shard is gathered too."""
+    if mesh is None:
+        mesh, rules = _CTX["mesh"], _CTX["rules"]
+    if rules is None:
+        mp = axis_size(mesh, "model")
+        if mp <= 1:
+            return params
+        group = mesh.get_group("model")
 
-    def one(p, s: Optional[P]):
+        def one(p, s: Optional[P]):
+            if isinstance(p, dict):
+                return {k: one(v, s[k]) for k, v in p.items()}
+            dim = model_shard_dim(s.shape, s.axes, mp)
+            if dim is None:
+                return p
+            return GatherParam.apply(p, dim, group, mp)
+
+        return one(params, spec)
+
+    def lay(p, s: P, part):
         if isinstance(p, dict):
-            return {k: one(v, s[k]) for k, v in p.items()}
-        dim = model_shard_dim(s.shape, s.axes, mp)
-        if dim is None:
-            return p
-        return GatherParam.apply(p, dim, group, mp)
+            return {k: lay(v, s[k], _part_of(part, k)) for k, v in p.items()}
+        d, m = stored_layout(s.shape, s.axes, rules.stored, mesh)
+        ud, um = leaf_layout(s.shape, s.axes, rules.prules, mesh)
+        if part is not None:
+            if part not in GATHERED_WHOLE:
+                raise KeyError(f"{part!r} is not in GATHERED_WHOLE")
+            ud = um = None
+        for dim, use, name in ((d, ud, "data"), (m, um, "model")):
+            if dim is not None and use != dim:
+                p = GatherParam.apply(p, dim, mesh.get_group(name),
+                                      axis_size(mesh, name))
+        return p
 
-    return one(params, spec)
+    return lay(params, spec, parts)
+
+
+# ---------------------------------------------------------------------------
+# Gradients after a backward
+# ---------------------------------------------------------------------------
+
+def mesh_grads(grads, spec, mesh, rules: Optional[Rules] = None
+               ) -> Tuple[Dict, Dict]:
+    """The gradients of a backward on a (data, model) mesh, reduced to
+    the step's gradient, and the clip's layout (:func:`norm_layout`).
+
+    Without rules (the trainers' ZeRO-3 over "model"): each averaged over
+    "data" (f32), a leaf the ``PartitionPlan`` keeps whole averaged over
+    "model" too (a sharded leaf's gradient was reduce-scattered by its
+    gather).  With rules: a leaf stored sharded over "data" was averaged
+    by its gather's reduce-scatter; every other leaf (tensor-parallel over
+    "model", or replicated) is averaged over "data" only: its "model"
+    ranks hold the same gradient (*f* summed the partial ones) or
+    distinct pieces of it."""
+    sharded = norm_layout(spec, mesh, rules)
+    dp, mp = axis_size(mesh, "data"), axis_size(mesh, "model")
+    dgroup, mgroup = mesh.get_group("data"), mesh.get_group("model")
+    specs = dict(leaves(spec))
+    out: Dict = {}
+    for path, g in leaves(grads):
+        s = specs[path]
+        if rules is None:
+            g = all_reduce_mean(g, dgroup, dp)
+            if mp > 1 and path not in sharded:
+                g = all_reduce_mean(g, mgroup, mp)
+        elif stored_layout(s.shape, s.axes, rules.stored, mesh)[0] is None:
+            g = all_reduce_mean(g, dgroup, dp)
+        _set(out, path, g)
+    return out, sharded
+
+
+def norm_layout(spec, mesh, rules: Optional[Rules] = None) -> Dict:
+    """The path of each leaf a rank holds a piece of, mapped to the
+    groups the pieces are spread over ("model", then "data"), for
+    ``optim.clip_by_global_norm``: without rules the ``PartitionPlan``'s
+    sharded leaves over "model"; with rules each leaf's stored layout."""
+    if mesh is None:
+        return {}
+    out = {}
+    mp = axis_size(mesh, "model")
+    dgroup, mgroup = mesh.get_group("data"), mesh.get_group("model")
+    for path, s in leaves(spec):
+        if rules is None:
+            if model_shard_dim(s.shape, s.axes, mp) is not None:
+                out[path] = (mgroup,)
+            continue
+        d, m = stored_layout(s.shape, s.axes, rules.stored, mesh)
+        groups = tuple(grp for dim, grp in ((m, mgroup), (d, dgroup))
+                       if dim is not None)
+        if groups:
+            out[path] = groups
+    return out

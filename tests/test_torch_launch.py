@@ -11,9 +11,10 @@ fields it reads, against the JAX package, on the CPU.
 * On a ``fake`` process group of 8 ranks (4 x 2), in a subprocess (the
   group is global to its process): the reduced ``qwen3-32b`` train step
   logs collectives, three archs' decode steps run on meta, and the flow
-  state's per-rank bytes equal the reference ``PartitionPlan``'s
-  ``bytes_report`` (a JAX subprocess on 8 host devices) for every reduced
-  arch, exactly.
+  state's per-rank bytes equal those of the reference's
+  ``build_flow_step`` layout (its FSDP rule tables), and at ``fsdp=False``
+  the reference ``PartitionPlan``'s ``bytes_report`` (a JAX subprocess on
+  8 host devices), for every reduced arch, exactly.
 * The kernel wrappers' meta route: hand-kernel shapes and dtypes, no
   build, no launch, no capability check.
 * The LM train step on a 2-rank gloo mesh (dp = 2) against one device.
@@ -195,9 +196,10 @@ _FAKE = """
         out["decode/" + arch] = {"memory": res["memory"],
                                  "logits": list(fn(*args)[0].shape)}
     out["flow_state_bytes"] = {
-        a: dryrun._nbytes(specs.build_flow_step(
-            configs.get_reduced(a), mesh)[1][0])
-        for a in configs.ARCH_IDS + configs.PAPER_ARCHS}
+        str(fsdp): {a: dryrun._nbytes(specs.build_flow_step(
+            configs.get_reduced(a), mesh, fsdp=fsdp)[1][0])
+            for a in configs.ARCH_IDS + configs.PAPER_ARCHS}
+        for fsdp in (True, False)}
     print(json.dumps(out))
 """
 
@@ -209,24 +211,46 @@ _REF_BYTES = """
     from repro import configs, optim
     from repro.config import FlowRLConfig
     from repro.core.trainers.base import RLState
+    from jax.sharding import NamedSharding, PartitionSpec
+    from repro import sharding as shlib
     from repro.distributed.sharding import PartitionPlan
+    from repro.launch import specs
     from repro.models import params as params_lib
     from repro.models.flow import FlowAdapter
     mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(4, 2),
                              ("data", "model"))
     flow = FlowRLConfig(num_steps=10, group_size=8, latent_tokens=1024,
                         latent_dim=16)
-    out = {}
+    out = {"True": {}, "False": {}}
     for a in configs.ARCH_IDS + configs.PAPER_ARCHS:
-        spec = FlowAdapter(configs.get_reduced(a), flow, 512).spec()
+        cfg = configs.get_reduced(a)
+        spec = FlowAdapter(cfg, flow, 512).spec()
         p = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype),
                          params_lib.shape_tree(spec, jnp.bfloat16))
         f32 = lambda t: jnp.zeros(t.shape, jnp.float32)
         st = RLState(params=p, opt=optim.AdamWState(
             step=jnp.zeros((), jnp.int32), mu=jax.tree.map(f32, p),
             nu=jax.tree.map(f32, p)))
-        out[a] = PartitionPlan(mesh, spec).bytes_report(st)[
+        out["False"][a] = PartitionPlan(mesh, spec).bytes_report(st)[
             "per_device_bytes"]
+        # the reference's build_flow_step layout (specs.py:254-268): its
+        # FSDP rule tables, a sharding dropped where it does not divide;
+        # bf16 params, f32 moments mirroring them, the int32 step
+        rules = shlib.param_rules(mesh, fsdp=True, train=True)
+        axes = params_lib.axes_tree(spec)
+        shapes = params_lib.shape_tree(spec, jnp.bfloat16)
+        is_ax = lambda x: isinstance(x, tuple) and all(
+            isinstance(e, (str, type(None))) for e in x)
+
+        def n_local(ax, s):
+            sp = [rules.get(n) if n else None for n in ax]
+            sp = [m if m is None or specs._divisible(d, mesh, m) else None
+                  for m, d in zip(sp, s.shape)]
+            return int(np.prod(NamedSharding(mesh, PartitionSpec(*sp))
+                               .shard_shape(s.shape)))
+        n = sum(jax.tree.leaves(jax.tree.map(n_local, axes, shapes,
+                                             is_leaf=is_ax)))
+        out["True"][a] = n * (2 + 4 + 4) + 4
     print(json.dumps(out))
 """
 
@@ -237,10 +261,11 @@ def fake_group_run():
 
 
 def test_dryrun_train_step_logs_collectives(fake_group_run):
-    """The reduced qwen3-32b train step at (4, 2): the ZeRO-3 gathers and
-    reduce-scatters over "model" (one pair per sharded leaf of every layer,
-    the remat's recompute gathering again), the gradients' all-reduces;
-    argument bytes above 0 and at least the state's."""
+    """The reduced qwen3-32b train step at (4, 2) under the production
+    layout: the ZeRO-3 gathers and reduce-scatters over "data" (one pair
+    per data-sharded leaf of every layer, the remat's recompute gathering
+    again), the tensor-parallel and gradient all-reduces; argument bytes
+    above 0 and at least the state's."""
     res = fake_group_run["train"]
     coll = res["collectives"]
     assert coll["_total"]["count"] > 0
@@ -265,12 +290,22 @@ def test_dryrun_decode_steps_run_on_meta(fake_group_run):
         assert r["memory"]["peak_bytes"] >= r["memory"]["argument_bytes"] > 0
 
 
-def test_dryrun_flow_state_bytes_equal_reference_plan(fake_group_run):
+@pytest.fixture(scope="module")
+def ref_flow_bytes():
+    return json.loads(_run(_REF_BYTES, timeout=300).strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("fsdp", [True, False])
+def test_dryrun_flow_state_bytes_equal_reference_plan(fake_group_run,
+                                                      ref_flow_bytes, fsdp):
     """Per-rank bytes of the flow update's state (bf16 params, f32 AdamW
-    moments, the step counter) at (dp, mp) = (4, 2), every reduced arch:
-    exactly the reference PartitionPlan's ``per_device_bytes``."""
-    want = json.loads(_run(_REF_BYTES, timeout=300).strip().splitlines()[-1])
-    assert fake_group_run["flow_state_bytes"] == want
+    moments, the step counter) at (dp, mp) = (4, 2), every reduced arch,
+    exactly: under the reference's ``build_flow_step`` layout (its FSDP
+    rule tables, ``repro/launch/specs.py:257``) by default, and at
+    ``fsdp=False`` (the trainers' own layout) the reference
+    ``PartitionPlan``'s ``per_device_bytes``."""
+    assert fake_group_run["flow_state_bytes"][str(fsdp)] == \
+        ref_flow_bytes[str(fsdp)]
 
 
 def test_dryrun_cli_production_mesh(tmp_path):

@@ -1,0 +1,427 @@
+"""The reference's production layout on the port (``repro_torch.sharding``'s
+rule tables, ``launch.specs``, tensor parallelism over "model", ZeRO-3
+over "data"), against the JAX package, on the CPU.
+
+* The rule tables (``batch_axes``, ``param_rules``, ``act_rules``,
+  ``gathered_param_rules``, ``pspec``) equal the reference's key for key,
+  under both MoE modes, on duck-typed meshes.
+* At (data, model) = (4, 2): the per-leaf shard shapes of ``param_specs``
+  (train; inference with and without FSDP), ``train_state_specs``,
+  ``cache_specs`` at a divisible batch and the flow step's state equal the
+  reference's ``NamedSharding(...).shard_shape`` (a JAX subprocess on 8
+  faked CPU devices) for every reduced arch, exactly; the SSM caches are
+  whole over "model" (``GATHERED_WHOLE["ssm"]``), and a param the
+  reference keeps whole on every rank is split over "model" as its
+  trainers' ``PartitionPlan`` splits it (``sharding.stored_layout``).
+* The inference-FSDP decision equals the reference's for the 11 full
+  archs at mp 16.
+* Four gloo ranks, f32, against one device (``tests/torch_layout_worker``,
+  one spawn for every case): the first step's gradients, two LM train
+  steps, the prefill and four decode steps, and the collectives each
+  issues by kind and mesh axis; two ``flow_grpo`` steps laid out by the
+  rules (``BaseTrainer(..., rules=True)``, the dry run's flow step), and that
+  trainer's canonical state, checkpoint slicer and byte report.
+"""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+from repro import configs as jconfigs
+from repro import sharding as jsh
+from repro.launch import specs as jspecs
+from repro_torch import configs as tconfigs
+from repro_torch import sharding as tsh
+from repro_torch.config import InputShape
+from repro_torch.launch import specs as tspecs
+from repro_torch.models import params as tparams
+from repro_torch.models.backbone import Backbone
+
+import torch_layout_worker as worker
+from torch_parity import one_torch_thread  # noqa: F401  (autouse fixture)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "src")
+REDUCED = tconfigs.ARCH_IDS + tconfigs.PAPER_ARCHS
+DECODE = ("d", 64, 8, "decode")
+
+
+class DuckMesh:
+    """What the rule tables and the shard shapes read of a mesh: axis
+    names and sizes (the reference's ``axis_names`` / ``shape``, the
+    port's ``size``), rank 0's coordinate and no groups."""
+
+    def __init__(self, names, sizes):
+        self.axis_names = tuple(names)
+        self.shape = dict(zip(names, sizes))
+
+    def size(self, dim):
+        return list(self.shape.values())[dim]
+
+    def get_coordinate(self):
+        return [0] * len(self.axis_names)
+
+    def get_group(self, name):
+        return None
+
+
+MESHES = [(("data", "model"), (4, 2)), (("pod", "data", "model"), (2, 4, 2)),
+          (("model",), (2,))]
+
+
+# ----------------------------------------------------------- rule tables
+@pytest.mark.parametrize("moe_mode", ["tensor", "ep_model"])
+@pytest.mark.parametrize("names,sizes", MESHES)
+def test_rule_tables_equal_reference(names, sizes, moe_mode, monkeypatch):
+    """Every table for every switch, equal key for key (exact); ``pspec``
+    over the logical axes of every reduced arch's leaves."""
+    monkeypatch.setenv("REPRO_MOE_MODE", moe_mode)
+    mesh = DuckMesh(names, sizes)
+    assert tsh.batch_axes(mesh) == jsh.batch_axes(mesh)
+    for fsdp in (True, False):
+        for train in (True, False):
+            assert tsh.param_rules(mesh, fsdp=fsdp, train=train) == \
+                jsh.param_rules(mesh, fsdp=fsdp, train=train)
+    for seq in (True, False):
+        assert tsh.act_rules(mesh, seq_shard=seq) == \
+            jsh.act_rules(mesh, seq_shard=seq)
+    assert tsh.gathered_param_rules(mesh) == jsh.gathered_param_rules(mesh)
+    rules = [tsh.param_rules(mesh), tsh.act_rules(mesh),
+             tsh.gathered_param_rules(mesh)]
+    for a in REDUCED:
+        for _, p in tparams.leaves(Backbone(
+                tconfigs.get_reduced(a)).spec()):
+            for r in rules:
+                assert tsh.pspec(p.axes, r) == tuple(jsh.pspec(p.axes, r))
+
+
+def test_production_rules_are_the_reference_defaults():
+    """``production_rules``: what the reference's ``set_param_gather(mesh)``
+    installs for training (``gathered_param_rules``, ``act_rules``) over
+    storage by ``param_rules``; every ``GATHERED_WHOLE`` entry gives its
+    reason."""
+    mesh = DuckMesh(("data", "model"), (4, 2))
+    r = tsh.production_rules(mesh)
+    assert r.prules == jsh.gathered_param_rules(mesh)
+    assert r.arules == jsh.act_rules(mesh)
+    assert r.stored == jsh.param_rules(mesh, fsdp=True)
+    assert tsh.production_rules(mesh, fsdp=False).stored == \
+        jsh.param_rules(mesh, fsdp=False)
+    assert set(tsh.GATHERED_WHOLE) == {"ssm", "mla", "experts"}
+    assert all(len(why) > 40 for why in tsh.GATHERED_WHOLE.values())
+
+
+# ------------------------------------------------------ shard shapes
+_REF_SHARDS = """
+    import os
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    import json
+    import jax, numpy as np
+    from jax.sharding import NamedSharding, PartitionSpec
+    from repro import configs, sharding as shlib
+    from repro.config import FlowRLConfig, InputShape
+    from repro.launch import specs
+    from repro.models import params as params_lib
+    from repro.models.flow import FlowAdapter
+    from repro.models.backbone import Backbone
+    mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(4, 2),
+                             ("data", "model"))
+    is_ax = lambda x: isinstance(x, tuple) and all(
+        isinstance(e, (str, type(None))) for e in x)
+
+    def name(path):
+        return ".".join(str(getattr(k, "key", getattr(k, "name", k)))
+                        for k in path)
+
+    def flat(shapes, shards):
+        out = {}
+        for (path, s), sh in zip(
+                jax.tree_util.tree_flatten_with_path(shapes)[0],
+                jax.tree.leaves(shards)):
+            out[name(path)] = list(sh.shard_shape(s.shape))
+        return out
+
+    def plan(spec):
+        # each param's whole shape and the reference trainers'
+        # PartitionPlan dim over a "model" axis of 2
+        axes = jax.tree_util.tree_flatten_with_path(
+            params_lib.axes_tree(spec), is_leaf=is_ax)[0]
+        shapes = jax.tree.leaves(params_lib.shape_tree(spec,
+                                                       jax.numpy.bfloat16))
+        return {name(path): [list(s.shape),
+                             params_lib.model_shard_dim(s.shape, ax, 2)]
+                for (path, ax), s in zip(axes, shapes)}
+
+    out = {}
+    for a in configs.ARCH_IDS + configs.PAPER_ARCHS:
+        cfg = configs.get_reduced(a)
+        rec = {"plan": plan(Backbone(cfg).spec()),
+               "train": flat(*specs.param_specs(cfg, mesh, train=True)),
+               "serve": flat(*specs.param_specs(cfg, mesh, train=False,
+                                                fsdp=False)),
+               "serve_fsdp": flat(*specs.param_specs(cfg, mesh, train=False,
+                                                     fsdp=True))}
+        st, sts = specs.train_state_specs(cfg, mesh)
+        rec["state"] = flat(st, sts)
+        cs, css = specs.cache_specs(cfg, InputShape(*%r), mesh)
+        rec["caches"] = [[list(s.shape), list(sh.shard_shape(s.shape)),
+                          [e for e in sh.spec] + [None] * (
+                              len(s.shape) - len(sh.spec))]
+                         for s, sh in zip(jax.tree.leaves(cs),
+                                          jax.tree.leaves(css))]
+        # the flow step's state: build_flow_step's rules (specs.py:257)
+        spec = FlowAdapter(cfg, FlowRLConfig(
+            num_steps=10, group_size=8, latent_tokens=1024, latent_dim=16),
+            512).spec()
+        rules = shlib.param_rules(mesh, fsdp=True, train=True)
+        shapes = params_lib.shape_tree(spec, jax.numpy.bfloat16)
+        axes = params_lib.axes_tree(spec)
+        rec["flow_plan"] = plan(spec)
+
+        def to_shard(ax, s):
+            sp = []
+            for n, dim in zip(ax, s.shape):
+                m = rules.get(n) if n else None
+                if m is not None and not specs._divisible(dim, mesh, m):
+                    m = None
+                sp.append(m)
+            return NamedSharding(mesh, PartitionSpec(*sp))
+        rec["flow"] = flat(shapes, jax.tree.map(to_shard, axes, shapes,
+                                                is_leaf=is_ax))
+        out[a] = rec
+    print(json.dumps(out))
+""" % (DECODE,)
+
+
+def _run(code: str, timeout: int = 300) -> str:
+    r = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
+                       capture_output=True, text=True, timeout=timeout,
+                       env={**os.environ, "PYTHONPATH": SRC,
+                            "OMP_NUM_THREADS": "1"}, cwd=ROOT)
+    assert r.returncode == 0, r.stderr[-3000:]
+    return r.stdout
+
+
+@pytest.fixture(scope="module")
+def ref_shards():
+    return json.loads(_run(_REF_SHARDS).strip().splitlines()[-1])
+
+
+def _shapes(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_shapes(tree[k], f"{prefix}{k}."))
+        return out
+    if isinstance(tree, tuple):
+        out = {}
+        for name, v in zip(getattr(tree, "_fields", range(len(tree))), tree):
+            out.update(_shapes(v, f"{prefix}{name}."))
+        return out
+    return {prefix[:-1]: list(tree.shape)}
+
+
+MESH = DuckMesh(("data", "model"), (4, 2))
+
+
+def _stored(ref, plan):
+    """The reference's shard shapes, except that a leaf the reference
+    keeps whole on every rank is split over "model" (2 ranks) on the dim
+    of the reference trainers' ``PartitionPlan``
+    (``repro.models.params.model_shard_dim``; ``plan``: each param's whole
+    shape and that dim): the port's storage of such leaves
+    (``sharding.stored_layout``, a difference by construction)."""
+    out = {}
+    for key, shard in ref.items():
+        p = max((k for k in plan if key == k or key.endswith("." + k)),
+                key=len, default=None)
+        if p is not None and shard == plan[p][0] and plan[p][1] is not None:
+            shard = list(shard)
+            shard[plan[p][1]] //= 2
+        out[key] = shard
+    return out
+
+
+@pytest.mark.parametrize("arch", REDUCED)
+def test_param_shards_equal_reference(ref_shards, arch):
+    """``param_specs`` for training and for serving (the threshold's
+    choice, and FSDP forced), and ``train_state_specs`` (params and both
+    moments; the step counter a scalar): this rank's shard of every leaf
+    is the reference's ``shard_shape``, exactly, where a leaf the
+    reference keeps whole on every rank is split over "model" as its
+    ``PartitionPlan`` splits it (``_stored``)."""
+    cfg = tconfigs.get_reduced(arch)
+    ref = ref_shards[arch]
+    plan = ref["plan"]
+    assert _shapes(tspecs.param_specs(cfg, MESH, train=True)[0]) == \
+        _stored(ref["train"], plan)
+    assert _shapes(tspecs.param_specs(cfg, MESH, train=False,
+                                      fsdp=False)[0]) == \
+        _stored(ref["serve"], plan)
+    assert _shapes(tspecs.param_specs(cfg, MESH, train=False,
+                                      fsdp=True)[0]) == \
+        _stored(ref["serve_fsdp"], plan)
+    st, _ = tspecs.train_state_specs(cfg, MESH)
+    assert _shapes(st) == _stored(ref["state"], plan)
+
+
+@pytest.mark.parametrize("arch", REDUCED)
+def test_cache_and_flow_shards_equal_reference(ref_shards, arch):
+    """``cache_specs`` at batch 8 (divisible by the data axis) and the
+    flow update's state (``build_flow_step``): the reference's shard
+    shapes, exactly; kv heads over "model" where 2 divides them.  The SSM
+    caches' "model" dims (``inner``, ``ssm_heads``) stay whole: the
+    Mamba-2 blocks are gathered whole at use until they are
+    tensor-parallel (``GATHERED_WHOLE["ssm"]``)."""
+    cfg = tconfigs.get_reduced(arch)
+    ref = ref_shards[arch]
+    caches = tspecs.cache_specs(cfg, InputShape(*DECODE), MESH)
+    got = list(_shapes(caches).items())
+    assert len(got) == len(ref["caches"])
+    for (name, shape), (whole, shard, spec) in zip(got, ref["caches"]):
+        ssm = name.split(".")[-1] in ("conv", "state")
+        want = [w if (ssm and e == "model") else s
+                for w, s, e in zip(whole, shard, spec)]
+        assert shape == want, name
+    _, (state, _, _) = tspecs.build_flow_step(cfg, MESH)
+    flow = _stored(ref["flow"], ref["flow_plan"])
+    assert _shapes(state.params) == flow
+    assert _shapes(state.opt.mu) == flow
+
+
+@pytest.mark.parametrize("arch", tconfigs.ARCH_IDS + tconfigs.PAPER_ARCHS)
+def test_inference_fsdp_decision_equals_reference(arch):
+    """At mp 16 serving weights shard over "data" exactly where the
+    reference's ``param_specs(train=False, fsdp=False)`` would: bf16
+    weights over "model" alone above 10e9 bytes a rank."""
+    cfg = tconfigs.get(arch)
+    want = (2.0 * jconfigs.get(arch).n_params() / 16
+            > jspecs.INFERENCE_FSDP_THRESHOLD)
+    assert tspecs.INFERENCE_FSDP_THRESHOLD == jspecs.INFERENCE_FSDP_THRESHOLD
+    assert tspecs.inference_fsdp(cfg, DuckMesh(("data", "model"),
+                                               (16, 16))) == want
+
+
+# ------------------------------------------------- four gloo ranks
+@pytest.fixture(scope="module")
+def four_ranks(tmp_path_factory):
+    return worker.spawn(tmp_path_factory.mktemp("layout"), 240)
+
+
+CASES = [c[0] for c in worker.CASES]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_layout_train_steps_match_one_device(four_ranks, case):
+    """Two LM train steps on the mesh against one device on the whole
+    batch, f32.  The first step's gradients (before the clip) to 1e-5 of
+    each leaf's max |grad| (measured ≤ 2.0e-6): every matmul's partial
+    sums reduce in another order under tensor parallelism.  Loss and grad
+    norm of both steps to 1e-5 relative.  Params after the two AdamW
+    steps at lr 1e-3 to 1e-4 absolute (measured 1.3e-5 – 4.6e-5): AdamW's
+    first steps divide each gradient by its own magnitude, so the
+    reordering noise of a near-zero gradient shows at a few % of the step
+    size; a wrong reduction moves the gradients by O(1) of their max."""
+    r = four_ranks[case]
+    assert r["grad_gap"] < 1e-5
+    np.testing.assert_allclose(r["loss"][1], r["loss"][0], rtol=1e-5)
+    np.testing.assert_allclose(r["gnorm"][1], r["gnorm"][0], rtol=1e-5)
+    assert r["param_gap"] < 1e-4
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_layout_prefill_and_decode_match_one_device(four_ranks, case):
+    """The prefill's last logits and four decode steps (the one-device
+    trained params, this rank's rows): within 1e-5 of max |logits| of
+    one device, and gathered over "model" to the whole vocabulary."""
+    r = four_ranks[case]
+    cfg = tconfigs.get_reduced(dict((c[0], c[1]) for c in worker.CASES)
+                               [case])
+    dp = dict((c[0], c[2]) for c in worker.CASES)[case][0]
+    assert r["logit_gap"] < 1e-5
+    assert tuple(r["logits_shape"]) == (worker.BATCH // dp, cfg.vocab_size)
+
+
+# collectives a case issues, by (kind, mesh axis): the data shards'
+# gathers and reduce-scatters, the tensor-parallel all-reduces over
+# "model", the gradients' means over "data"; the SSM blocks gathered whole
+# over "model", and at (1, 4) qwen3's wk / wv (2 kv heads over 4 ranks, no
+# "data" shard at dp 1: stored over "model" on embed, ``stored_layout``);
+# serving gathers the logits over "model"
+_TRAIN = {("all-gather", "data"), ("reduce-scatter", "data"),
+          ("all-reduce", "model"), ("all-reduce", "data")}
+_SERVE = {("all-gather", "data"), ("all-gather", "model"),
+          ("all-reduce", "model")}
+WANT = {"qwen3_2x2": (_TRAIN, _SERVE),
+        "qwen3_1x4": ({("all-reduce", "model"), ("all-reduce", "data"),
+                       ("all-gather", "model"), ("reduce-scatter", "model")},
+                      {("all-gather", "model"), ("all-reduce", "model")}),
+        "internvl2_2x2": (_TRAIN, _SERVE),
+        "zamba2_2x2": (_TRAIN | {("all-gather", "model"),
+                                 ("reduce-scatter", "model")}, _SERVE)}
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_layout_collectives_by_axis(four_ranks, case):
+    """Every collective the train steps and the serving steps issue, by
+    kind and mesh axis, is what the layout calls for (exact sets)."""
+    r = four_ranks[case]
+    train, serve = WANT[case]
+    assert {tuple(c) for c in r["train_collectives"]} == train
+    assert {tuple(c) for c in r["serve_collectives"]} == serve
+
+
+def test_flow_grpo_under_rules_matches_one_device(four_ranks):
+    """Two ``flow_grpo`` steps (rollout, rewards, update) of a narrowed
+    ``flux_dit`` laid out by the production rules at (2, 2)
+    (``BaseTrainer(..., rules=True)``, as ``build_flow_step``) against one
+    device, f32: every metric but the loss to 1e-5 relative (the loss is a
+    residue of order 1e-8, to 1e-10 absolute), params to 1e-5 absolute
+    (measured 8.0e-7), read back through ``canonical_state``."""
+    r = four_ranks["flow_grpo_2x2"]
+    for one, two in zip(*r["metrics"]):
+        assert set(one) == set(two)
+        for k in one:
+            if k == "loss":
+                assert abs(one[k] - two[k]) < 1e-10
+            else:
+                np.testing.assert_allclose(two[k], one[k], rtol=1e-5,
+                                           atol=1e-7, err_msg=k)
+    assert r["param_gap"] < 1e-5
+
+
+def test_rules_trainer_keeps_checkpoints_canonical(four_ranks):
+    """A trainer built with ``rules=True`` has the rules' layout as its
+    plan: ``canonical_state()`` gives back the one-device params bitwise
+    (the same seed), the
+    checkpoint slicer cuts each canonical leaf to this rank's shard
+    bitwise, the byte report's total is the one-device state's while a
+    rank holds less of it, and after two steps the gathered AdamW first
+    moments are the one-device ones to 1e-5 of each leaf's max (they are
+    the gradients' average, which the params' band above bounds).  A
+    serving engine for it is refused: its rollouts run the
+    ``PartitionPlan``'s layout."""
+    r = four_ranks["flow_grpo_2x2"]
+    assert r["canonical_equal"] and r["sliced_equal"]
+    assert r["engine_refused"]
+    assert r["bytes"]["total_bytes"] == r["bytes_one"]["total_bytes"]
+    assert 0 < r["bytes"]["per_device_bytes"] < r["bytes"]["total_bytes"]
+    assert r["bytes"]["sharded_leaves"] > 0
+    assert r["mu_gap"] < 1e-5
+
+
+def test_rules_trainer_needs_a_mesh():
+    """``rules=True`` lays out a mesh: without one the trainer refuses."""
+    import torch
+    import torch_dist_worker as dw
+    from repro_torch import registry
+    from repro_torch.config import FlowRLConfig
+    with pytest.raises(ValueError, match="production rules"):
+        registry.build("trainer", "flow_grpo", dw.arch(),
+                       FlowRLConfig(**dw.FLOW, rewards=dw.REWARDS), dw.OPT,
+                       cond_dim=dw.COND_DIM, dtype=torch.float32,
+                       device="cpu", rules=True)

@@ -1,0 +1,278 @@
+"""The production layout's multi-rank cases of
+``tests/test_torch_layout.py``, run on four spawned gloo ranks
+(``file://`` store).
+
+Imports only torch and the port (spawned children import this module, not
+the test file, which imports JAX).  Each case takes a reduced arch in f32
+(wq / wk drawn at 1/sqrt(d_model): the repository's init is chaotic, see
+``tests/test_torch_dense.py``) and, on one device (every rank, the whole
+batch) and on a (data, model) mesh under ``sharding.production_rules``
+(this rank's rows, its shards of the params and moments): the first
+step's gradients, two LM train steps, then the one-device trained params'
+prefill and four decode steps, recording the collectives by (kind, axis).
+``flow_case``: two ``flow_grpo`` steps (rollout, rewards, update) of the
+narrowed ``flux_dit`` of ``torch_dist_worker`` laid out by the rules
+(``BaseTrainer(..., rules=True)``: the dry run's flow step) against one
+device, and the trainer's canonical state, checkpoint slicer and byte
+report under them.  Rank 0 pickles the gaps to ``out``.
+"""
+import os
+import pickle
+import tempfile
+import traceback
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import configs, optim, sharding as sh
+from repro_torch.config import OptimConfig
+from repro_torch.distributed import RulePlan, build_mesh
+from repro_torch.perf import memory
+from repro_torch.serving import ServingEngine
+from repro_torch.models import tasks
+from repro_torch.models.backbone import Backbone
+from repro_torch.models.params import leaves
+
+# (name, arch, (dp, mp)): q and kv heads sharded; q heads sharded over
+# whole kv heads; heads whole with the MLP and vocabulary parallel and the
+# vision prefix; the SSM blocks gathered and the shared attention parallel
+CASES = (("qwen3_2x2", "qwen3-32b", (2, 2)),
+         ("qwen3_1x4", "qwen3-32b", (1, 4)),
+         ("internvl2_2x2", "internvl2-1b", (2, 2)),
+         ("zamba2_2x2", "zamba2-2.7b", (2, 2)))
+BATCH, SEQ, STEPS, DECODES = 4, 32, 2, 4
+OPT = OptimConfig(lr=1e-3, total_steps=10, warmup_steps=1)
+_COLL = {"all_reduce": "all-reduce",
+         "all_gather_into_tensor": "all-gather",
+         "all_gather_single": "all-gather",
+         "reduce_scatter_tensor": "reduce-scatter",
+         "reduce_scatter_single": "reduce-scatter"}
+
+
+class Recorder:
+    """Wraps ``torch.distributed``'s collectives to record each call's
+    kind and the mesh axis of its group ("data", "model" or "world")."""
+
+    def __init__(self):
+        self.log, self.axes, self._orig = set(), {}, {}
+
+    def __enter__(self):
+        for name, kind in _COLL.items():
+            fn = getattr(dist, name, None)
+            if fn is None:
+                continue
+            self._orig[name] = fn
+
+            def wrapped(*a, _fn=fn, _kind=kind, group=None, **k):
+                ranks = tuple(dist.get_process_group_ranks(group)
+                              if group is not None else
+                              range(dist.get_world_size()))
+                self.log.add((_kind, self.axes.get(ranks, "world")))
+                return _fn(*a, group=group, **k)
+            setattr(dist, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(dist, name, fn)
+
+
+def _fresh(cfg):
+    p = tasks.init_params(cfg, torch.Generator().manual_seed(0),
+                          torch.float32, "cpu")
+    gen = torch.Generator().manual_seed(1)
+    for blk in (p["blocks"], p.get("shared_attn", {})):
+        for k in ("wq", "wk"):
+            if k in blk.get("attn", {}):
+                w = blk["attn"][k]
+                w.copy_(torch.randn(w.shape, generator=gen)
+                        / cfg.d_model ** 0.5)
+    return tasks.TrainState(p, optim.adamw_init(p))
+
+
+def _grads(step, params, batch):
+    """The loss's gradients at ``params`` (no optimizer step)."""
+    lv = [t for _, t in leaves(params)]
+    for t in lv:
+        t.requires_grad_(True)
+    try:
+        step.loss_fn(params, batch)[0].backward()
+    finally:
+        for t in lv:
+            t.requires_grad_(False)
+    return tasks._grads(params)
+
+
+def _serve(cfg, params, batch, tokens):
+    """Prefill logits and the logits of ``DECODES`` decode steps fed
+    ``tokens`` (B, DECODES)."""
+    prefill = tasks.make_prefill_step(cfg)
+    decode = tasks.make_decode_step(cfg)
+    lg, caches = prefill(params, {k: v for k, v in batch.items()
+                                  if k != "labels"})
+    out = [lg]
+    pos = SEQ + cfg.frontend.n_tokens
+    for i in range(DECODES):
+        lg, caches = decode(params, caches, tokens[:, i:i + 1], pos + i)
+        out.append(lg)
+    return out
+
+
+def case(arch, dp, mp):
+    cfg = configs.get_reduced(arch)
+    spec = Backbone(cfg).spec()
+    batch = tasks.synthetic_batch(cfg, BATCH, SEQ, seed=1, device="cpu")
+    step = tasks.make_train_step(cfg, OPT)
+    one = _fresh(cfg)
+    g_one = _grads(step, one.params, batch)
+    m_one = [step(one, batch)[1] for _ in range(STEPS)]
+    lg_one = _serve(cfg, one.params, batch, torch.zeros(
+        (BATCH, DECODES), dtype=torch.int32))
+    tokens = torch.stack([g.argmax(-1) for g in lg_one[:DECODES]],
+                         1).to(torch.int32)
+    lg_one = _serve(cfg, one.params, batch, tokens)
+
+    mesh = build_mesh(dp, mp, "cpu")
+    rules = sh.production_rules(mesh)
+    rec = Recorder()
+    for axis in ("data", "model"):
+        rec.axes[tuple(dist.get_process_group_ranks(
+            mesh.get_group(axis)))] = axis
+    r = mesh.get_coordinate()[0]
+    n = BATCH // dp
+    rows = {k: v[r * n:(r + 1) * n] for k, v in batch.items()}
+    plan = RulePlan(mesh, spec, rules)
+    local = plan.shard_state(_fresh(cfg).params)
+    state = tasks.TrainState(local, optim.adamw_init(local))
+    with sh.param_gather(mesh, rules):
+        g_two = _grads(step, local, rows)
+        with rec:
+            m_two = [step(state, rows)[1] for _ in range(STEPS)]
+        train_log, rec.log = rec.log, set()
+        with rec:
+            lg_two = _serve(cfg, plan.shard_state(one.params),
+                            rows, tokens[r * n:(r + 1) * n])
+    g_two = plan.gather_state(sh.mesh_grads(g_two, spec, mesh, rules)[0])
+    g_gap = max(float((a - b).abs().max() / a.abs().max().clamp_min(1e-30))
+                for (_, a), (_, b) in zip(leaves(g_one), leaves(g_two)))
+    whole = plan.gather_state(state.params)
+    gap = max(float((a - b).abs().max()) for (_, a), (_, b) in zip(
+        leaves(one.params), leaves(whole)))
+    lg_gap = torch.tensor(max(
+        float((a[r * n:(r + 1) * n] - b).abs().max() / a.abs().max())
+        for a, b in zip(lg_one, lg_two)))
+    dist.all_reduce(lg_gap, op=dist.ReduceOp.MAX)
+    return {"loss": [[float(m["loss"]) for m in ms] for ms in (m_one, m_two)],
+            "gnorm": [[float(m["grad_norm"]) for m in ms]
+                      for ms in (m_one, m_two)],
+            "grad_gap": g_gap, "param_gap": gap,
+            "logit_gap": float(lg_gap),
+            "logits_shape": tuple(lg_two[0].shape),
+            "train_collectives": sorted(train_log),
+            "serve_collectives": sorted(rec.log)}
+
+
+def flow_case(dp=2, mp=2):
+    """``flow_grpo``, two steps, f32: one device against the (dp, mp) mesh
+    under the production rules (every rank builds the canonical params
+    from the same seed, then keeps its shards)."""
+    import torch_dist_worker as dw
+    from repro_torch import registry
+    from repro_torch.config import DistConfig, FlowRLConfig
+    ref, h_ref = dw.train("flow_grpo", mesh=None, dist_cfg=DistConfig())
+    mesh = build_mesh(dp, mp, "cpu")
+    tr = registry.build(
+        "trainer", "flow_grpo", dw.arch(),
+        FlowRLConfig(**dw.FLOW, rewards=dw.REWARDS), dw.OPT, seed=0,
+        cond_dim=dw.COND_DIM, dtype=torch.float32, device="cpu",
+        dist=DistConfig(data_parallel=dp, model_parallel=mp), mesh=mesh,
+        rules=True)
+    canonical = dw.build("flow_grpo", mesh=None,
+                         dist_cfg=DistConfig()).state.params
+    # the layout's own round trips, before any step: the canonical state
+    # (the one-device params, the same seed), the checkpoint slicer and
+    # the byte report
+    back = tr.canonical_state()
+    canon_equal = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        leaves(canonical), leaves(back.params)))
+    cut = tr.state_slicer()
+    sliced_equal = all(
+        torch.equal(torch.as_tensor(cut("params/" + "/".join(path),
+                                        a.numpy())), b)
+        for (path, a), (_, b) in zip(leaves(canonical),
+                                     leaves(tr.state.params)))
+    report = memory.state_bytes(tr)
+    try:
+        ServingEngine.for_trainer(tr)
+        engine_refused = False
+    except ValueError:
+        engine_refused = True
+    cond = dw.cond_batch(2)
+    hist = [{k: float(v) for k, v in tr.step(cond, 7, it=it).items()}
+            for it in range(2)]
+    whole = tr.canonical_state()
+    gap = max(float((a - b).abs().max()) for (_, a), (_, b) in zip(
+        leaves(ref.state.params), leaves(whole.params)))
+    moments = max(float((a - b).abs().max() / a.abs().max())
+                  for (_, a), (_, b) in zip(leaves(ref.state.opt.mu),
+                                            leaves(whole.opt.mu)))
+    return {"metrics": [h_ref, hist], "param_gap": gap, "mu_gap": moments,
+            "canonical_equal": canon_equal, "sliced_equal": sliced_equal,
+            "bytes": report, "bytes_one": memory.state_bytes(ref),
+            "engine_refused": engine_refused}
+
+
+def run(rank, world, store, out):
+    """Entry point of one spawned rank: every case in turn."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        res = {name: case(arch, *shape) for name, arch, shape in CASES}
+        res["flow_grpo_2x2"] = flow_case()
+        if rank == 0:
+            with open(out, "wb") as f:
+                pickle.dump(res, f)
+    except BaseException:
+        with open(f"{out}.err{rank}", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(tmp_path, timeout, world=4):
+    """Every case on ``world`` spawned gloo ranks; rank 0's results, or an
+    AssertionError with the ranks' tracebacks on a failure or after
+    ``timeout`` seconds."""
+    import multiprocessing as mp
+    import time
+    ctx = mp.get_context("spawn")
+    store = os.path.join(str(tmp_path), "layout.store")
+    out = os.path.join(str(tmp_path), "layout.pkl")
+    procs = [ctx.Process(target=run, args=(r, world, store, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.1))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    errs = "".join(f"--- rank {r}\n" + open(f"{out}.err{r}").read()
+                   for r in range(world) if os.path.exists(f"{out}.err{r}"))
+    if hung or errs or any(p.exitcode for p in procs):
+        raise AssertionError(f"layout cases failed or hung (exit codes "
+                             f"{[p.exitcode for p in procs]})\n{errs}")
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+if __name__ == "__main__":
+    import json
+    with tempfile.TemporaryDirectory() as tmp:
+        res = spawn(tmp, 600)
+    for k, v in res.items():
+        print(k, json.dumps(v))
