@@ -237,7 +237,8 @@ script exits 2 before printing any result.
    groups of one SSM block) with the SSM leaves and the shared wq/wk
    drawn, through the kernels against the plain versions in f32 and bf16.
 27. The hybrid train path: ``repro_torch.launch.train.main`` at
-   ``zamba2-2.7b``'s full width and all 54 layers under
+   ``zamba2-2.7b``'s full width and 30 of its 54 layers (5 of its 9
+   groups) under
    ``perf.remat=block``, ``flow_grpo`` for 2 steps and a traced third at
    phase 19's geometry, batch and rewards, SSM leaves and shared wq/wk
    drawn at train start: launch counts on their variants (every scan
@@ -368,16 +369,35 @@ script exits 2 before printing any result.
    two 16 x 16 pairs (``qwen3-32b`` ``train_4k``,
    ``musicgen-large`` ``decode_32k``), each a ``launch.dryrun`` process
    started at the phase's start: predicted peak a rank and fit.
-39. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
+39. The MoE family tensor-parallel over "model" at the production
+   layout's mp = 16, emulated on the card: one full-width
+   ``deepseek-v2-236b`` MoE layer (MLA, 160 routed experts top-6, 2
+   shared) and one ``grok-1-314b`` MoE layer (GQA, 8 experts top-2), bf16,
+   random weights from a seed, their attention and mixture-of-experts
+   regions from random normed inputs at the flow shape (4 x 4608) and
+   random upstream gradients: whole, then as each of the 16 ranks in turn
+   with its shard of every leaf (MLA's and GQA's heads, the experts' and
+   shared experts' hidden dim) over a one-rank NCCL group standing in for
+   the 16 (its *f* and *g* the identity, so each rank's outputs and input
+   gradients are its partial sums).  The ranks' outputs and input
+   gradients, summed, the shards' gradients, concatenated, and the
+   gradients of the leaves every rank holds whole (MLA's latent
+   projections and norms, the router, grok's kv projections), summed, are
+   each held to 3e-2 of the whole layer's max; the ranks' attention runs
+   16 forwards and 16 backwards on ``wgmma``, deepseek's at 8 heads of
+   (192, 128).  Then that rank shape against its plain versions, and its
+   kernel, plain, SDPA and bound times.
+40. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
    ``ssm_train_path``, ``perf_path``, ``distributed_path``,
    ``engine_path``, ``hybrid_path``, ``moe_path``, ``frontend_path``,
-   ``lm_path``, ``sweep_path``, ``lint``, ``layout_path``, ``phase_times``
-   and ``kernels`` JSON lines, the card's name and power limit, and the
-   last line ``{"ok": true, "device": {...}}``.
+   ``lm_path``, ``sweep_path``, ``lint``, ``layout_path``,
+   ``moe_layer_path``, ``phase_times`` and ``kernels`` JSON lines, the
+   card's name and power limit, and the last line ``{"ok": true,
+   "device": {...}}``.
 
 Each phase prints its seconds as it ends (``[N] took ... s``), and the
 script the total.  ``--only N,...`` runs just the device and build phases
-and phases N (3 and 8-38) and prints no result lines: a development aid.
+and phases N (3 and 8-39) and prints no result lines: a development aid.
 """
 from __future__ import annotations
 
@@ -4093,7 +4113,14 @@ def check_hybrid_velocity(dev) -> dict:
 
 
 # ----------------------------------------------------------------- phase 27
-HY_TRAIN_LAYERS = 54
+# 5 of the hybrid's 9 groups: cut from all 54 layers when the whole script
+# reached ≈ 1050 s of its 1200 (the MoE layer phase, 39, came in); the
+# serving path (26) keeps all 54
+HY_TRAIN_LAYERS = 30
+HY_TRAIN_KERNELS = (
+    {"ssd_scan": HY_TRAIN_LAYERS, "flash_attention": HY_TRAIN_LAYERS // 6},
+    {"ssd_scan_bwd": HY_TRAIN_LAYERS,
+     "flash_attention_bwd": HY_TRAIN_LAYERS // 6})
 
 
 def _hy_watch():
@@ -4104,17 +4131,18 @@ def _hy_watch():
 
 
 def hybrid_train_path(dev, tmp: str) -> dict:
-    """zamba2-2.7b at full width and all 54 layers through ``launch.train``
-    under ``perf.remat=block`` (each group checkpointed) with
-    ``perf.log_memory``, flow_grpo, phase 19's geometry, batch and rewards,
-    SSM leaves and shared wq/wk drawn at train start, 2 steps and a traced
-    third: launch counts (a velocity 54 scans and 9 attentions, the loss
-    each forward twice, the backward once, per SDE step), every layer's
-    a_log and dt_bias gradient at the first update, s per step, peak
-    memory; then one update of each of the five trainers at depth 2
+    """zamba2-2.7b at full width and ``HY_TRAIN_LAYERS`` layers through
+    ``launch.train`` under ``perf.remat=block`` (each group checkpointed)
+    with ``perf.log_memory``, flow_grpo, phase 19's geometry, batch and
+    rewards, SSM leaves and shared wq/wk drawn at train start, 2 steps and
+    a traced third: launch counts (a velocity 30 scans and 5 attentions,
+    the loss each forward twice, the backward once, per SDE step), every
+    layer's a_log and dt_bias gradient at the first update, s per step,
+    peak memory; then one update of each of the five trainers at depth 2
     against the plain versions (``check_updates``)."""
     row, trainer = train_one(
-        tmp, HY_ARCH, HY_TRAIN_LAYERS, HY_COND_LEN, HY_KERNELS, _hy_watch(),
+        tmp, HY_ARCH, HY_TRAIN_LAYERS, HY_COND_LEN, HY_TRAIN_KERNELS,
+        _hy_watch(),
         "flow_grpo", TRAIN_STEPS,
         extra=BLOCK + ("--set", "perf.log_memory=true"), tag="block",
         remat="block", routes=HY_ROUTES,
@@ -4172,12 +4200,13 @@ def _mla_plain(fn, q, k, v, *rest, causal=True, window=0):
                  for j in range(len(outs[0][0])))
 
 
-def _mla_flops(backward: bool = False) -> float:
-    """Operations of the causal attention at the MLA path's shape: each
-    product over the half of the score matrix the mask keeps (S (S + 1) /
-    2 pairs), 2 flops a multiply-add; forward QK^T at 192 and PV at 128,
-    backward QK^T and dO V^T recomputed, dV at 128, dQ and dK at 192."""
-    pairs = B_SERVE * MLA_HEADS * HY_SEQ * (HY_SEQ + 1) / 2
+def _mla_flops(backward: bool = False, heads: int = MLA_HEADS) -> float:
+    """Operations of the causal attention at the MLA path's shape (at
+    ``heads`` heads): each product over the half of the score matrix the
+    mask keeps (S (S + 1) / 2 pairs), 2 flops a multiply-add; forward QK^T
+    at 192 and PV at 128, backward QK^T and dO V^T recomputed, dV at 128,
+    dQ and dK at 192."""
+    pairs = B_SERVE * heads * HY_SEQ * (HY_SEQ + 1) / 2
     dims = (MLA_QK + MLA_V + MLA_V + MLA_QK + MLA_QK if backward
             else MLA_QK + MLA_V)
     return 2 * pairs * dims
@@ -4463,15 +4492,19 @@ def draw_qk_proj(p: dict, cfg, seed: int) -> None:
     bb = p["backbone"]
     gen = torch.Generator(device=bb["final_norm"].device).manual_seed(seed)
     for stack in ("dense_blocks", "blocks"):
-        if stack not in bb:
-            continue
-        attn = bb[stack]["attn"]
-        for key in ("wq", "wk", "w_uq", "w_uk"):
-            if key in attn:
-                w = attn[key]
-                fan_in = cfg.d_model if key in ("wq", "wk") else w.shape[-3]
-                w.copy_(torch.randn(w.shape, generator=gen, device=w.device)
-                        / fan_in ** 0.5)
+        if stack in bb:
+            _draw_qk(bb[stack]["attn"], cfg, gen)
+
+
+def _draw_qk(attn: dict, cfg, gen) -> None:
+    """``draw_qk_proj``'s draw of one attention's leaves (stacked or a
+    layer's)."""
+    for key in ("wq", "wk", "w_uq", "w_uk"):
+        if key in attn:
+            w = attn[key]
+            fan_in = cfg.d_model if key in ("wq", "wk") else w.shape[-3]
+            w.copy_(torch.randn(w.shape, generator=gen, device=w.device)
+                    / fan_in ** 0.5)
 
 
 @contextlib.contextmanager
@@ -6046,10 +6079,305 @@ def layout_phase(dev, tmp: str) -> dict:
             "pairs": pairs, "card": card}
 
 
+# ----------------------------------------------------------------- phase 39
+# the MoE family tensor-parallel over "model" at the production layout's
+# mp = 16, emulated on one card: the 16 ranks' shards of one full-width MoE
+# layer run in turn, each with its f and g over a one-rank group (the
+# identity), so that each rank's outputs and input gradients are its
+# partial sums and this phase takes the sixteen ranks' sums itself
+LAYER_MP = 16
+# max |sum over the ranks - whole| / max |whole| of the outputs, input
+# gradients and weight gradients, bf16: a rank's partial products round to
+# bf16 (up to 2^-9 of the partial) before the sum, where the whole layer
+# rounds its sum once; sixteen such roundings of partials up to max |whole|
+LAYER_RANK_BAND = 3e-2
+
+
+class _ModelAxis:
+    """A ("data", "model") mesh of 1 x ``mp`` ranks as the rule tables
+    read one (``axis_names`` and ``shape``), for the shards' layout."""
+
+    def __init__(self, mp: int):
+        self.axis_names = ("data", "model")
+        self.shape = {"data": 1, "model": mp}
+
+
+@contextlib.contextmanager
+def model_rank(group, mp: int, r: int):
+    """The tensor-parallel context of rank ``r`` of ``mp`` whose
+    collectives run over the one-rank ``group``: *f* and *g* are the
+    identity, the blocks read their local heads and hidden dims from the
+    shards' shapes (this script's emulation; the port installs a "model"
+    group only from a mesh, ``sharding.param_gather``)."""
+    from repro_torch import sharding as shlib
+    prev = dict(shlib._CTX)
+    shlib._CTX.update(mesh=None, rules=None,
+                      tp=shlib.TP(group, mp, r))
+    try:
+        yield
+    finally:
+        shlib._CTX.update(prev)
+
+
+@contextlib.contextmanager
+def attention_shapes(record: list):
+    """The q shape of every ``ops.flash_attention`` call appended to
+    ``record``."""
+    saved = ops.flash_attention
+
+    def call(q, *a, **k):
+        record.append(tuple(q.shape))
+        return saved(q, *a, **k)
+
+    ops.flash_attention = call
+    try:
+        yield
+    finally:
+        ops.flash_attention = saved
+
+
+def _layer_regions(cfg) -> tuple:
+    """The MoE layer's two tensor-parallel regions, each from its normed
+    input: the attention (MLA, or GQA for grok) and the mixture of experts
+    (routed and shared; the auxiliary losses, which every "model" rank
+    computes whole, are held on four gloo ranks by the tests)."""
+    from repro_torch.models import attention as attn_mod, mla as mla_mod
+    apply = mla_mod.apply_full if cfg.mla else attn_mod.apply_full
+    return (("attn", lambda p, h: apply(p, cfg, h)[0]),
+            ("ffn", lambda p, h: moe_mod.apply(p, cfg, h, aux=False)[0]))
+
+
+def _region(fn, p: dict, h, dy) -> tuple:
+    """(output, input gradient, {leaf path: gradient}) of ``fn(p, h)``
+    against the upstream gradient ``dy``."""
+    leaves = dict(params_lib.leaves(p))
+    for t in leaves.values():
+        t.requires_grad_(True)
+    x = h.detach().requires_grad_()
+    y = fn(p, x)
+    y.backward(dy)
+    grads = {path: t.grad for path, t in leaves.items()}
+    for t in leaves.values():
+        t.requires_grad_(False)
+        t.grad = None
+    return y.detach(), x.grad, grads
+
+
+def layer_ranks(dev, arch: str, group, mp: int = LAYER_MP, cfg=None,
+                seed: int = 39) -> dict:
+    """One MoE layer of ``arch`` (``cfg``: another config, as a reduced
+    one) at full width, bf16 on the card, random weights from ``seed``
+    (the query and key projections drawn as ``draw_qk_proj``), its two
+    regions from random normed inputs at the flow shape (``B_SERVE`` x
+    ``HY_SEQ``) and random upstream gradients: once whole, then as each of
+    ``mp`` ranks with its shard of every leaf (``sharding.use_layout``
+    under the production rules: MLA's and GQA's heads, the experts' and
+    the shared experts' hidden dim) under ``model_rank``.  The ranks'
+    outputs and input gradients, summed, the shards' gradients,
+    concatenated, and the gradients of the leaves whole on every rank
+    (MLA's latent projections and norms, the router, grok's kv
+    projections: each rank's heads or hidden dims add a part), summed, are
+    held against the whole layer's to ``LAYER_RANK_BAND``.  Returns the
+    gaps, the ranks' kernel launches by variant and dim pair and the q
+    shape of every attention call."""
+    from repro_torch import sharding as shlib
+    cfg = cfg or configs.get(arch)
+    spec = Backbone(cfg)._block_spec
+    axis = _ModelAxis(mp)
+    rules = shlib.production_rules(axis)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = params_lib.init(spec, gen, torch.bfloat16, dev)
+    _draw_qk(p["attn"], cfg, gen)
+    shape = (B_SERVE, HY_SEQ, cfg.d_model)
+    out = {"gaps": {}, "launches": {}, "variants": {}, "pairs": {},
+           "q_shapes": {}}
+    for name, fn in _layer_regions(cfg):
+        ps, sp = p[name], spec[name]
+        h, dy = (torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        y, dx, grads = _region(fn, ps, h, dy)
+        dims = {path: shlib.use_layout(s.shape, s.axes, rules, axis)[1]
+                for path, s in params_lib.leaves(sp)}
+        y_sum = torch.zeros_like(y, dtype=torch.float32)
+        dx_sum = torch.zeros_like(dx, dtype=torch.float32)
+        g_sum = {path: torch.zeros_like(g, dtype=torch.float32)
+                 for path, g in grads.items()}
+        reset_counts()
+        q_shapes = []
+        for r in range(mp):
+            shard = {}
+            for path, t in params_lib.leaves(ps):
+                m = dims[path]
+                if m is not None:
+                    k = t.shape[m] // mp
+                    t = t.narrow(m, r * k, k)
+                params_lib._set(shard, path, t.clone())
+            with model_rank(group, mp, r), attention_shapes(q_shapes):
+                y_r, dx_r, g_r = _region(fn, shard, h, dy)
+            y_sum += y_r.float()
+            dx_sum += dx_r.float()
+            for path, g in g_r.items():
+                m = dims[path]
+                if m is None:
+                    g_sum[path] += g.float()
+                else:
+                    k = g.shape[m]
+                    g_sum[path].narrow(m, r * k, k).copy_(g.float())
+            del shard, y_r, dx_r, g_r
+        gaps = {"out": _rel(y_sum, y), "dx": _rel(dx_sum, dx)}
+        gaps.update({"/".join(path) + (" (sum)" if dims[path] is None
+                                       else " (shards)"):
+                     _rel(g_sum[path], grads[path]) for path in grads})
+        out["gaps"][name] = gaps
+        out["launches"][name] = counts()
+        out["variants"][name] = all_variants()
+        out["pairs"][name] = pair_counts()
+        out["q_shapes"][name] = sorted(set(q_shapes))
+        out["q_calls"] = out.get("q_calls", 0) + len(q_shapes)
+        del y, dx, grads, y_sum, dx_sum, g_sum
+    del p
+    gc.collect()
+    return out
+
+
+def _attention_mla_rank_rows(dev) -> list:
+    """The attention at a rank's share of MLA's heads (``B_SERVE``,
+    ``HY_SEQ``, 128 / ``LAYER_MP`` heads, 192 / 128, causal, bf16): the
+    forward and backward against their plain versions, each row to
+    ``ROW_BAND`` of its own max |plain| (phase 28's path check); then the
+    kernels' times from replayed graphs, the plain versions' and SDPA's
+    with CUDA events, and the bounds."""
+    g = torch.Generator(device=dev).manual_seed(391)
+    B, S, H = B_SERVE, HY_SEQ, MLA_HEADS // LAYER_MP
+    q, k = (torch.randn(B, S, H, MLA_QK, generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    v, do = (torch.randn(B, S, H, MLA_V, generator=g, device=dev,
+                         dtype=torch.bfloat16) for _ in range(2))
+    before = all_variants()
+    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    ran = all_variants()
+    if ran["flash_attention"]["wgmma"] - before["flash_attention"][
+            "wgmma"] != 1 or ran["flash_attention_bwd"]["wgmma"] - before[
+            "flash_attention_bwd"]["wgmma"] != 1:
+        fail(f"the attention at {H} heads of (192, 128) did not run on "
+             "wgmma")
+    r, _ = _mla_plain(ref.flash_attention_fwd_ref, q, k, v)
+    want = _mla_plain(ref.flash_attention_bwd_ref, q, k, v, o, lse, do)
+    band = ROW_BAND[torch.bfloat16]
+    (row_o,), rows_g = _row_errs([o], [r]), _row_errs(got, want)
+    err = float((o.float() - r.float()).abs().max())
+    gerr = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(got, want))
+    log(f"  rank attention ({B}, {S}, {H} heads, 192 / 128) causal bf16 "
+        f"(wgmma): per-row o {row_o:.3e}, dq/dk/dv {rows_g[0]:.3e}/"
+        f"{rows_g[1]:.3e}/{rows_g[2]:.3e} (band {band} a row); max|err| "
+        f"o {err:.3e}, grads {gerr:.3e}")
+    if max([row_o] + rows_g) > band:
+        fail(f"the attention at {H} heads of (192, 128) is off its band")
+    del r, want, got
+    ms = graph_ms(lambda: flash_attention(q, k, v, causal=True), 5)
+    bwd_ms = graph_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                  causal=True), 5)
+    plain_ms = cuda_ms(lambda: _mla_plain(ref.flash_attention_ref, q, k, v),
+                       2, 1)
+    plain_bwd_ms = cuda_ms(lambda: _mla_plain(
+        ref.flash_attention_bwd_ref, q, k, v, o, lse, do), 2, 1)
+    sdpa_ms, sdpa_bwd_ms, note = _sdpa_mla_ms(q, k, v, do)
+    fwd_bytes = (q.numel() + k.numel() + v.numel() + o.numel()) * 2
+    bwd_bytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                 + o.numel() + do.numel()) * 2 + 4 * lse.numel()
+    rows = []
+    for name, kms, pms, lms, flops, nbytes, src, e in (
+            ("flash_attention_mla_rank", ms, plain_ms, sdpa_ms,
+             _mla_flops(heads=H), fwd_bytes, "flash_attention.cu", err),
+            ("flash_attention_bwd_mla_rank", bwd_ms, plain_bwd_ms,
+             sdpa_bwd_ms, _mla_flops(True, H), bwd_bytes,
+             "flash_attention_bwd.cu", gerr)):
+        bound, by = _bound(nbytes, flops)
+        lib = "none" if lms is None else f"{lms:.4f} ms"
+        log(f"  {name} ({B}, {S}, {H} heads, 192 / 128) causal bf16: kernel "
+            f"{kms:.4f} ms (wgmma), plain {pms:.3f} ms, SDPA {lib} ({note}),"
+            f" bound {bound:.4f} ms ({flops / 1e12:.4f} TFLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+        rows.append({
+            "name": name, "route": "cuda", "variant": "wgmma",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": ("src/repro/kernels/flash_attention.py:81"
+                         if "bwd" not in name else
+                         "none (JAX autodiff of src/repro/models/layers.py "
+                         "attention_chunked, called at "
+                         "src/repro/models/mla.py:108)"),
+            "max_abs_err": e, "ms": kms,
+            "plain_ms": pms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lms, "library_note": note,
+            "shape": [B, S, H, MLA_QK, MLA_V]})
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return rows
+
+
+def moe_layer_phase(dev, tmp: str) -> dict:
+    """Phase 39: ``layer_ranks`` for one ``deepseek-v2-236b`` and one
+    ``grok-1-314b`` MoE layer at mp = 16 on a one-rank NCCL group: every
+    gap within ``LAYER_RANK_BAND``; the ranks' attention 16 forwards and
+    16 backwards on ``wgmma``, deepseek's at 8 heads of (192, 128) and
+    grok's at 3 query heads over its 8 kv heads of 128 (the kv heads do
+    not divide 16: each rank projects all 8 and reads one), no other
+    kernel; then the rank's MLA attention shape against its plain
+    versions, and its times (``_attention_mla_rank_rows``)."""
+    import torch.distributed as dist
+    mesh, _ = one_rank_group(tmp, "nccl_store_39")
+    try:
+        res = {arch: layer_ranks(dev, arch, mesh.get_group("model"))
+               for arch in (DS_ARCH, GROK_ARCH)}
+    finally:
+        dist.destroy_process_group()
+    ok = True
+    for arch, r in res.items():
+        cfg = configs.get(arch)
+        pair = f"{MLA_QK}x{MLA_V}" if cfg.mla else (
+            f"{cfg.resolved_head_dim}x{cfg.resolved_head_dim}")
+        q_shape = ((B_SERVE, HY_SEQ, MLA_HEADS // LAYER_MP, MLA_QK)
+                   if cfg.mla else (B_SERVE, HY_SEQ,
+                                    cfg.n_heads // LAYER_MP,
+                                    cfg.resolved_head_dim))
+        want = {name: 0 for name in r["launches"]["attn"]}
+        want.update(flash_attention=LAYER_MP, flash_attention_bwd=LAYER_MP)
+        worst = {name: max(g.values()) for name, g in r["gaps"].items()}
+        launches_ok = (
+            r["launches"]["attn"] == want
+            and all(v == 0 for v in r["launches"]["ffn"].values())
+            and r["variants"]["attn"]["flash_attention"] == routed(
+                LAYER_MP, "wgmma")
+            and r["variants"]["attn"]["flash_attention_bwd"] == routed(
+                LAYER_MP, "wgmma")
+            and r["pairs"]["attn"]["flash_attention"].get(pair) == LAYER_MP
+            and r["pairs"]["attn"]["flash_attention_bwd"].get(pair)
+            == LAYER_MP
+            and r["q_shapes"]["attn"] == [q_shape]
+            and r["q_calls"] == LAYER_MP)
+        log(f"  {arch} one MoE layer at mp {LAYER_MP} ({LAYER_MP} ranks in "
+            f"turn), ({B_SERVE}, {HY_SEQ}) bf16: worst gap a region "
+            f"{worst} (band {LAYER_RANK_BAND}); every gap "
+            f"{json.dumps(r['gaps'])}; the ranks' launches "
+            f"{r['launches']['attn']} (expected {want}), variants "
+            f"{r['variants']['attn']}, by dim pair {r['pairs']['attn']}, "
+            f"q shapes {r['q_shapes']['attn']}")
+        if max(worst.values()) > LAYER_RANK_BAND or not launches_ok:
+            ok = False
+    if not ok:
+        fail("a MoE layer's 16 rank shards do not sum to the whole layer, "
+             "or their attention did not run as the layout calls for")
+    res["rank_rows"] = _attention_mla_rank_rows(dev)
+    res["card"] = card_line()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", metavar="N,N,...",
-                    help="run only these of phases 3-38 after the device and "
+                    help="run only these of phases 3-39 after the device and "
                          "build phases, and print no result lines (a "
                          "development aid; the check runs every phase)")
     args = ap.parse_args(argv)
@@ -6315,6 +6643,17 @@ def main(argv=None) -> int:
           f"no mesh; the dry run against the card; two 16 x 16 pairs")
     with tempfile.TemporaryDirectory() as tmp:
         layout_res = layout_phase(dev, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    begin(39, f"the MoE family tensor-parallel at mp {LAYER_MP}: one "
+          f"{DS_ARCH} and one {GROK_ARCH} MoE layer at full width, their "
+          f"{LAYER_MP} rank shards in turn against the whole layer")
+    with tempfile.TemporaryDirectory() as tmp:
+        layer_res = moe_layer_phase(dev, tmp)
+
+    def layer_launches(arch: str, name: str) -> int:
+        return layer_res[arch]["launches"]["attn"].get(name, 0)
 
     def by_path(name: str) -> dict:
         return {"serve": res["launches"][name],
@@ -6353,7 +6692,9 @@ def main(argv=None) -> int:
                 "lm_prefill_internvl2": lm_res["prefill"]["launches"][name],
                 "lm_train_internvl2_production": layout_res["launches"][name],
                 **{f"sweep_{t}": r["launches"][name]
-                   for t, r in sweep_res["combos"].items()}}
+                   for t, r in sweep_res["combos"].items()},
+                "layer_deepseek_mp16": layer_launches(DS_ARCH, name),
+                "layer_grok_mp16": layer_launches(GROK_ARCH, name)}
 
     for row in rows:
         row["launches"] = train_res["launches"][row["name"]]
@@ -6388,6 +6729,15 @@ def main(argv=None) -> int:
                 ("serve_grok", moe_res[GROK_ARCH]["serve"]))}
         row["launches"] = row["launches_by_path"][path]
     rows += mla_rows
+    # the rank's (192, 128) shape (8 of 128 heads): launches on phase 39's
+    # deepseek layer, the (192, 128) pair's there
+    for row in layer_res["rank_rows"]:
+        base = row["name"].rsplit("_mla_rank", 1)[0]
+        row["launches_by_path"] = {
+            "layer_deepseek_mp16": layer_res[DS_ARCH]["pairs"]["attn"][base][
+                f"{MLA_QK}x{MLA_V}"]}
+        row["launches"] = row["launches_by_path"]["layer_deepseek_mp16"]
+    rows += layer_res["rank_rows"]
     # the new shapes' rows, each with the launches of the path that runs
     # it at that shape: internvl2-1b's (a group of 7) and musicgen-large's
     # (a group of 1) flow shapes on their own serving (forwards) and train
@@ -6431,6 +6781,8 @@ def main(argv=None) -> int:
     print(json.dumps({"sweep_path": sweep_res}))
     print(json.dumps({"lint": lint_res}))
     print(json.dumps({"layout_path": layout_res}))
+    print(json.dumps({"moe_layer_path": {k: v for k, v in layer_res.items()
+                                         if k != "rank_rows"}}))
     print(json.dumps({"phase_times": phase_times()}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
@@ -6479,7 +6831,8 @@ def run_only(dev, only: set) -> int:
               34: lambda: (lm_train_path(dev), check_lm_update(dev)),
               35: lambda: lm_phase(dev), 36: _in_tmp(sweep_path),
               37: lint_path,
-              38: _in_tmp(lambda tmp: layout_phase(dev, tmp))}
+              38: _in_tmp(lambda tmp: layout_phase(dev, tmp)),
+              39: _in_tmp(lambda tmp: moe_layer_phase(dev, tmp))}
     for n in sorted(only):
         if n not in phases:
             fail(f"--only: phase {n} cannot run alone")

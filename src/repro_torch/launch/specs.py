@@ -15,11 +15,14 @@ is stored over "model" as the trainers' ``PartitionPlan`` stores it and
 gathered whole at use (``sharding.stored_layout``).  Inference weights
 shard over "data" only when ``2 · n_params / mp`` exceeds
 ``INFERENCE_FSDP_THRESHOLD``.  At use each block gathers its "data"
-shard (ZeRO-3 over "data") and keeps its "model" shard: attention, the
-SwiGLU MLP and the vocabulary run tensor-parallel; the Mamba-2 blocks,
-MLA and the routed experts are gathered whole
-(``sharding.GATHERED_WHOLE``).  The batch splits over
-"data" and the decode caches hold this rank's rows and kv heads.  Where
+shard (ZeRO-3 over "data", the expert tables' ``moe_in`` / ``moe_out``
+too, ``sharding.DATA_GATHERED_AXES``) and keeps its "model" shard:
+attention, MLA, the SwiGLU MLP, the routed experts' hidden dim and the
+vocabulary run tensor-parallel; the Mamba-2 blocks, and the routed
+experts under ``ep_model``, are gathered whole
+(``sharding.GATHERED_WHOLE``).  The batch splits over "data" and the
+decode caches hold this rank's rows and kv heads (MLA's latent cache has
+no heads axis and stays whole over "model").  Where
 the reference leaves a serving step's weights to XLA
 (``set_param_gather(None)``), the port gathers the "data" shard at use as
 in training.  So each spec here is this rank's shard, and the second
@@ -82,10 +85,12 @@ def layout(mesh, batch: int, *, fsdp: bool = True) -> str:
     return (f"production (ZeRO-3 over data, tensor parallel over model): "
             f"params sharded over model ({mp}) on heads, kv_heads, mlp, "
             f"vocab, inner, experts_mdl {data}, a leaf whole under these "
-            f"over model as the PartitionPlan; attention, SwiGLU and the "
-            f"vocabulary tensor-parallel, Mamba-2, MLA, routed experts and "
-            f"the leaves whole under the tables gathered whole at use; "
-            f"{split}; KV caches by kv head over model")
+            f"over model as the PartitionPlan; attention, MLA, SwiGLU, the "
+            f"routed experts' hidden dim and the vocabulary "
+            f"tensor-parallel, Mamba-2, ep_model's routed experts and the "
+            f"leaves whole under the tables gathered whole at use; "
+            f"{split}; KV caches by kv head over model, MLA's latent cache "
+            f"whole")
 
 
 # ---------------------------------------------------------------------------

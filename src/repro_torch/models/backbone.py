@@ -29,9 +29,11 @@ attention of ``models/mla.py``.
 
 Two callers, two costs.  The flow adapter calls ``forward_embeds`` for the
 hidden states alone: no cache is allocated and the MoE blocks' auxiliary
-losses are dropped, as the reference's adapter drops them.  The LM task
-path (``models/tasks.py``) asks for them: ``return_aux`` sums each MoE
-block's losses over the layers (the loss is CE + aux), ``return_caches``
+losses are not computed (the reference's adapter computes and drops
+them).  The LM task path (``models/tasks.py``) asks for them:
+``return_aux`` sums each MoE block's losses over the layers (the loss is
+CE + aux; on a mesh their means span every "data" rank's rows),
+``return_caches``
 returns each layer's KV / latent / SSM cache stacked as the reference's
 scans stack them (leading layer dims; the hybrid's ``(ssm (groups, every,
 ...), attn (groups, ...))``, the MoE family's ``(dense, moe)`` pair when it
@@ -49,15 +51,16 @@ against its own unstacked spec: dense or MoE); the hybrid's shared block
 is laid out at each of its sites, as the reference's ``_gather`` does
 inside its scan.  In the trainers' layout every leaf is gathered whole,
 so the block's kernels see whole weights.  Under the production rules
-the "data" shards are gathered and the "model" shards kept: attention
-and the SwiGLU MLP (the MoE family's shared experts too) run
-tensor-parallel (``attention``, ``layers.mlp``), as do the embedding (each
-rank looks up its vocabulary rows, the others' tokens masked, the sum
-taken over "model"), the LM head and the CE (``layers.chunked_ce_loss``);
-the serving steps gather the logits over "model" before they return.
-The Mamba-2 blocks, MLA and the routed experts are gathered whole
-(``sharding.GATHERED_WHOLE``, named per block by ``_parts``), and the
-decode caches hold this rank's kv heads (``sharding.cache_extent``).
+the "data" shards are gathered and the "model" shards kept: attention,
+MLA, the SwiGLU MLP and the MoE family's routed and shared experts run
+tensor-parallel (``attention``, ``mla``, ``layers.mlp``, ``moe``), as do
+the embedding (each rank looks up its vocabulary rows, the others' tokens
+masked, the sum taken over "model"), the LM head and the CE
+(``layers.chunked_ce_loss``); the serving steps gather the logits over
+"model" before they return.  The Mamba-2 blocks, and the routed experts
+under ``ep_model``, are gathered whole (``sharding.GATHERED_WHOLE``, named
+per block by ``_parts``); the decode caches hold this rank's kv heads
+(``sharding.cache_extent``; MLA's latent cache has none and stays whole).
 
 ``remat=True`` (``PerfConfig.remat="block"``, and the LM train step's
 default) runs each block call (each group of the hybrid: the reference's
@@ -109,9 +112,7 @@ def _parts(cfg: ArchConfig, spec: Dict):
     parts: Dict = {}
     if "ssm" in spec:
         parts["ssm"] = "ssm"
-    if "attn" in spec and cfg.mla:
-        parts["attn"] = "mla"
-    if "router" in spec.get("ffn", {}):
+    if "router" in spec.get("ffn", {}) and moe.moe_mode(cfg) == "ep_model":
         parts["ffn"] = {k: "experts" for k in ("w_gate", "w_up", "w_down")}
     return parts or None
 
@@ -253,12 +254,14 @@ class Backbone:
 
     def _dense_block(self, p: Dict, x: torch.Tensor, slot=None, *,
                      causal: bool, window: int, positions: torch.Tensor,
-                     ffn: str = "mlp") -> Tuple[torch.Tensor, Dict]:
+                     ffn: str = "mlp", aux: bool = False
+                     ) -> Tuple[torch.Tensor, Dict]:
         """[ln, attention, ln, FFN]: the dense and frontend families'
         block, the hybrid's shared block, the MoE family's (MLA attention
         with ``cfg.mla``; ``ffn="moe"``: the mixture of experts, whose
-        auxiliary losses it returns) and ``dit``'s unmodulated block.
-        With a cache ``slot`` the layer's cache is written into it."""
+        auxiliary losses it returns with ``aux``) and ``dit``'s
+        unmodulated block.  With a cache ``slot`` the layer's cache is
+        written into it."""
         cfg = self.cfg
         h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
         attn_fn = mla.apply_full if cfg.mla else attention.apply_full
@@ -270,8 +273,8 @@ class Backbone:
         x = x + a_out
         h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
         if ffn == "moe":
-            f_out, aux = moe.apply(p["ffn"], cfg, h)
-            return x + f_out, aux
+            f_out, losses = moe.apply(p["ffn"], cfg, h, aux)
+            return x + f_out, losses
         return x + layers.mlp(p["ffn"], h, cfg.d_ff), {}
 
     def _ssm_block(self, p: Dict, x: torch.Tensor, slot=None
@@ -295,7 +298,7 @@ class Backbone:
         x = x + a_out
         h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
         if ffn == "moe":
-            return x + moe.apply(p["ffn"], cfg, h)[0]
+            return x + moe.apply(p["ffn"], cfg, h, aux=False)[0]
         return x + layers.mlp(p["ffn"], h, cfg.d_ff)
 
     def _ssm_block_decode(self, p: Dict, x: torch.Tensor, slot
@@ -379,7 +382,7 @@ class Backbone:
             block = functools.partial(self._dense_block, **kw)
             if fam == "moe":
                 dense_block, block = block, functools.partial(
-                    self._dense_block, ffn="moe", **kw)
+                    self._dense_block, ffn="moe", aux=return_aux, **kw)
 
         def run(p, x, slot=None, spec=self._block_spec, block=block,
                 parts=self._block_parts):

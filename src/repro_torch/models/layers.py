@@ -100,11 +100,17 @@ def mlp(p: dict, x: torch.Tensor, width: Optional[int] = None
                                                  width)
     if tp is not None:
         x = shlib.copy_to_model(x, tp)
+    out = swiglu(p, x)
+    return out if tp is None else shlib.reduce_from_model(out, tp)
+
+
+def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU product over the hidden dim ``p`` holds, in x's dtype:
+    with a rank's shard of it, that rank's partial output."""
     g = torch.matmul(x, p["w_gate"].to(x.dtype)).to(F32)
     u = torch.matmul(x, p["w_up"].to(x.dtype)).to(F32)
     h = (torch.nn.functional.silu(g) * u).to(x.dtype)
-    out = torch.matmul(h, p["w_down"].to(x.dtype)).to(x.dtype)
-    return out if tp is None else shlib.reduce_from_model(out, tp)
+    return torch.matmul(h, p["w_down"].to(x.dtype)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,24 @@ logical axis, so on a "model" axis the ``PartitionPlan`` shards them
 head-parallel; the latent down-projections carry "q_lora"/"kv_lora" and
 fall back to embed sharding.
 
+Tensor parallel over "model" (the production layout of
+``repro_torch.sharding``): when ``w_uq`` holds fewer heads than
+``cfg.n_heads`` it is this rank's shard, and the block runs its local
+heads, read from the shards' shapes.  The latent projections and their
+norms (``w_dq``, ``q_norm``, ``w_dkv``, ``kv_norm``) are whole on every
+rank, which computes the same ``cq``, ``c_kv`` and ``k_rope``; these
+three enter the heads through *f* (``sharding.copy_to_model``), since
+each rank's gradient into them is a partial sum over its own heads.
+That one all-reduce of the latents (``q_lora_rank + kv_lora_rank +
+qk_rope_head_dim`` values a token) stands for those of x and of the four
+whole weights, whose gradients are then whole on every rank.  ``w_uq``,
+``w_uk`` and ``w_uv`` produce the local heads; ``wo``'s rows are the
+local heads, so its output is a partial sum that *g*
+(``sharding.reduce_from_model``) adds in f32.  The absorbed decode runs
+per local head the same way against the latent cache, which has no heads
+axis and stays whole on every "model" rank.  With whole heads the block
+is the single-device one.
+
 The cache (``MLACache``) holds the rank-compressed latent ``c_kv`` and the
 shared RoPE key, never per-head keys and values.  ``apply_decode`` is the
 reference's absorbed decode, in plain PyTorch as the reference's jnp:
@@ -29,6 +47,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import sharding as shlib
 from repro_torch.config import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers
@@ -69,13 +88,18 @@ def _up(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], h, k).to(x.dtype)
 
 
-def _q_proj(p: Dict, cfg: ArchConfig, x: torch.Tensor,
+def _q_latent(p: Dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """cq (B,S,q_lora_rank): the normed query latent."""
+    return layers.rmsnorm(p["q_norm"],
+                          torch.matmul(x, p["w_dq"].to(x.dtype)).to(x.dtype),
+                          cfg.norm_eps)
+
+
+def _q_proj(p: Dict, cfg: ArchConfig, cq: torch.Tensor,
             positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (q_nope (B,S,H,Dn), q_rope (B,S,H,Dr))."""
+    """Returns (q_nope (B,S,H,Dn), q_rope (B,S,H,Dr)) of the heads
+    ``w_uq`` holds."""
     m = cfg.mla
-    cq = layers.rmsnorm(p["q_norm"],
-                        torch.matmul(x, p["w_dq"].to(x.dtype)).to(x.dtype),
-                        cfg.norm_eps)
     q = _up(cq, p["w_uq"])
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = layers.apply_rope(q[..., m.qk_nope_head_dim:], positions,
@@ -95,31 +119,49 @@ def _kv_latent(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     return c_kv, k_rope
 
 
+def _latents(p: Dict, cfg: ArchConfig, x: torch.Tensor,
+             positions: torch.Tensor):
+    """(c_kv, k_rope, (cq, c_kv, k_rope) as the heads read them, tp): the
+    latents of x (c_kv and k_rope as the cache keeps them), the heads'
+    copies of all three through *f* under tensor parallelism (``tp`` not
+    None: ``w_uq`` holds this rank's heads), themselves without."""
+    cq = _q_latent(p, cfg, x)
+    c_kv, k_rope = _kv_latent(p, cfg, x, positions)
+    tp = shlib.tp_for(p["w_uq"].shape[1], cfg.n_heads)
+    lat = (cq, c_kv, k_rope)
+    if tp is not None:
+        lat = tuple(shlib.copy_to_model(t, tp) for t in lat)
+    return c_kv, k_rope, lat, tp
+
+
 def apply_full(p: Dict, cfg: ArchConfig, x: torch.Tensor, *,
                causal: bool = True, window: int = 0,
                positions: Optional[torch.Tensor] = None,
                return_cache: bool = False
                ) -> Tuple[torch.Tensor, Optional[MLACache]]:
-    """Train/prefill path: expand the latent into per-head K/V.
+    """Train/prefill path: expand the latent into per-head K/V (this
+    rank's heads under tensor parallelism).
     x: (B, S, d) -> ((B, S, d), the layer's MLACache or None)."""
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.n_heads
+    H = p["w_uq"].shape[1]
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    q_nope, q_rope = _q_proj(p, cfg, x, positions)
-    c_kv, k_rope = _kv_latent(p, cfg, x, positions)
-    k_nope = _up(c_kv, p["w_uk"])
-    v = _up(c_kv, p["w_uv"])
+    c_kv, k_rope, (cq, c_h, kr_h), tp = _latents(p, cfg, x, positions)
+    q_nope, q_rope = _q_proj(p, cfg, cq, positions)
+    k_nope = _up(c_h, p["w_uk"])
+    v = _up(c_h, p["w_uv"])
     # nope + rope in one (B, S, H, 192) operand; the rope key is shared by
     # every head
     q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+    k = torch.cat([k_nope, kr_h[:, :, None, :].expand(
         B, S, H, m.qk_rope_head_dim)], dim=-1)
     o = ops.flash_attention(q, k, v, causal=causal, window=window)
     out = torch.matmul(o.reshape(B, S, H * m.v_head_dim),
                        p["wo"].to(x.dtype).reshape(H * m.v_head_dim,
                                                    cfg.d_model)).to(x.dtype)
+    if tp is not None:
+        out = shlib.reduce_from_model(out, tp)
     return out, (MLACache(c_kv, k_rope) if return_cache else None)
 
 
@@ -132,13 +174,15 @@ def apply_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor, cache: MLACache,
     out_h    = (softmax · c_kv) · W_uv_h
 
     Products take f32 operands (the reference's f32 accumulation) and
-    round to the activation dtype where the reference casts.  Returns the
-    output and the rolled cache (views of the joined tensors)."""
+    round to the activation dtype where the reference casts.  Under tensor
+    parallelism h runs over this rank's heads and the output is the
+    ranks' f32 sum.  Returns the output and the rolled cache (views of the
+    joined tensors)."""
     m = cfg.mla
     dt = x.dtype
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_rope = _q_proj(p, cfg, x, positions)       # (B,1,H,*)
-    c_new, kr_new = _kv_latent(p, cfg, x, positions)     # (B,1,R),(B,1,Dr)
+    c_new, kr_new, (cq, _, _), tp = _latents(p, cfg, x, positions)
+    q_nope, q_rope = _q_proj(p, cfg, cq, positions)      # (B,1,H,*)
     # attend over the FULL cache plus the new entry (T+1)...
     c_kv = torch.cat([cache.c_kv, c_new], dim=1)
     k_rope = torch.cat([cache.k_rope, kr_new], dim=1)
@@ -154,8 +198,10 @@ def apply_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor, cache: MLACache,
     o_lat = torch.einsum("bht,btr->bhr", w.to(F32), c_f).to(dt)
     # absorb W_uv on the way out
     o = torch.einsum("bhr,rhk->bhk", o_lat.to(F32), p["w_uv"].to(F32)).to(dt)
-    res = torch.einsum("bhk,hkd->bd", o.to(F32),
-                       p["wo"].to(F32))[:, None, :].to(dt)
+    res = torch.einsum("bhk,hkd->bd", o.to(F32), p["wo"].to(F32))
+    if tp is not None:
+        res = shlib.reduce_from_model(res, tp)
+    res = res[:, None, :].to(dt)
     # ...then roll the ring buffer (oldest entry out, shape stays static)
     return res, MLACache(c_kv[:, 1:], k_rope[:, 1:])
 

@@ -32,6 +32,19 @@ here only in the logical axes of the expert tables, which the
 ``PartitionPlan`` reads), "dense" computes every expert on every token and
 mixes by dense gates.
 
+Tensor parallel over "model" (the production layout of
+``repro_torch.sharding``, tensor and dense modes): when ``w_gate`` is
+narrower than ``expert_d_ff`` each rank holds every expert's ``f / mp``
+slice of ``w_gate``, ``w_up`` and ``w_down``, runs its slice of each
+SwiGLU and combines its partial results with the gates as one device
+does; one *g* (``sharding.reduce_from_model``) adds the ranks' partial
+(G, T, d) in f32, with the shared experts' partial (their hidden dim
+sharded alike) in the same sum.  The rows enter the experts through *f*
+(``sharding.copy_to_model``), and so do the gates: they multiply partial
+results, so each rank's gradient into them is partial.  The router reads
+x itself, and the auxiliary losses, computed the same on every rank, send
+their gradient to it once.
+
 ``apply`` returns ``(out, aux)`` with the Switch load-balance loss and the
 router z-loss.
 """
@@ -42,6 +55,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import sharding as shlib
 from repro_torch.config import ArchConfig
 from repro_torch.models import layers
 from repro_torch.models.params import P
@@ -205,6 +219,12 @@ class _RoutedExperts(torch.autograd.Function):
 def _slot_dispatch(p: Dict, cfg: ArchConfig, xg: torch.Tensor,
                    gates: torch.Tensor, idx: torch.Tensor, C: int
                    ) -> torch.Tensor:
+    """The routed experts' gated results (G, T, d) over the hidden dim
+    ``w_gate`` holds (a rank's partial sum under tensor parallelism).  A
+    chunk holds as many experts as on one device, whose gate/up transient
+    the whole ``expert_d_ff`` sizes: a rank's narrower one would take more
+    experts a chunk, and its d-wide rows and results would grow with
+    them."""
     G, T, d = xg.shape
     m = cfg.moe
     E, k, f = m.n_experts, m.top_k, m.expert_d_ff
@@ -232,9 +252,10 @@ def _dense_all_experts(p: Dict, cfg: ArchConfig, xg: torch.Tensor,
                        gates: torch.Tensor, idx: torch.Tensor
                        ) -> torch.Tensor:
     """Small-E mode: every expert on every token, mixed by dense gates
-    (the gates folded into h before one (E·f -> d) contraction)."""
+    (the gates folded into h before one (E·f -> d) contraction), over the
+    hidden dim ``w_gate`` holds."""
     G, T, d = xg.shape
-    E, f = cfg.moe.n_experts, cfg.moe.expert_d_ff
+    E, f = cfg.moe.n_experts, p["w_gate"].shape[-1]
     dt = xg.dtype
     gates_dense = torch.zeros((G, T, E), dtype=dt, device=xg.device)
     gates_dense.scatter_(2, idx, gates.to(dt))
@@ -257,10 +278,15 @@ def route(p: Dict, cfg: ArchConfig, xg: torch.Tensor
     return logits, probs, gates, idx
 
 
-def apply(p: Dict, cfg: ArchConfig, x: torch.Tensor
+def apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, aux: bool = True
           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d) -> (y, aux).  Groups = sequences (the whole batch for
-    single-token inputs)."""
+    single-token inputs).  ``aux=False`` returns no auxiliary losses (the
+    callers that drop them).  On a mesh whose "data" ranks hold
+    different rows the load-balance loss's two means are taken over every
+    rank's rows (``sharding.mean_over_data``), as the reference's means
+    over its sharded batch are: the loss is a product of two means, so
+    the ranks' own losses would not average to it."""
     m = cfg.moe
     B, S, d = x.shape
     xg = x.reshape(1, B, d) if S == 1 else x
@@ -269,6 +295,9 @@ def apply(p: Dict, cfg: ArchConfig, x: torch.Tensor
     C = capacity(T, cfg)
 
     logits, probs, gates, idx = route(p, cfg, xg)
+    tp = shlib.tp_for(p["w_gate"].shape[-1], m.expert_d_ff)
+    if tp is not None:
+        xg, gates = (shlib.copy_to_model(t, tp) for t in (xg, gates))
 
     if moe_mode(cfg) == "dense":
         out = _dense_all_experts(p, cfg, xg, gates, idx)
@@ -278,15 +307,22 @@ def apply(p: Dict, cfg: ArchConfig, x: torch.Tensor
         out = out.reshape(B, S, d)
 
     if m.n_shared_experts:
-        out = out + layers.mlp(p["shared"], x,
-                               m.n_shared_experts * m.expert_d_ff)
+        width = m.n_shared_experts * m.expert_d_ff
+        if tp is None:
+            out = out + layers.mlp(p["shared"], x, width)
+        else:   # this rank's slice of the shared experts, in the same g
+            out = out + layers.swiglu(p["shared"], xg.view(B, S, d))
+    if tp is not None:
+        out = shlib.reduce_from_model(out, tp)
 
+    if not aux:
+        return out, {}
     # auxiliary losses (Switch-style load balance + router z-loss)
-    me = probs.mean(dim=(0, 1))
-    ce = torch.nn.functional.one_hot(idx, E).to(F32).sum(2).mean(dim=(0, 1))
-    aux = {
+    me = shlib.mean_over_data(probs.mean(dim=(0, 1)))
+    ce = shlib.mean_over_data(torch.nn.functional.one_hot(idx, E).to(F32)
+                              .sum(2).mean(dim=(0, 1)))
+    return out, {
         "moe_lb_loss": E * torch.sum(me * ce) * m.aux_loss_coef,
         "moe_z_loss": (torch.logsumexp(logits, dim=-1) ** 2).mean()
         * m.router_z_coef,
     }
-    return out, aux

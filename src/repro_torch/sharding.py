@@ -33,13 +33,21 @@ layout:
   all-gathers the "data" dim over the data group; its backward is a
   reduce-scatter mean over "data", which is the data-parallel gradient
   (the data ranks hold different batches);
-* the "model" dim stays sharded: attention, the SwiGLU MLP and the
-  vocabulary run tensor-parallel with Megatron's two operators,
-  :func:`copy_to_model` (*f*: identity forward, all-reduce over "model"
-  backward) and :func:`reduce_from_model` (*g*: all-reduce forward,
-  identity backward), partial sums added in f32 and cast back;
+* the "model" dim stays sharded: attention, MLA, the SwiGLU MLP, the
+  routed and shared experts and the vocabulary run tensor-parallel with
+  Megatron's two operators, :func:`copy_to_model` (*f*: identity
+  forward, all-reduce over "model" backward) and
+  :func:`reduce_from_model` (*g*: all-reduce forward, identity
+  backward), partial sums added in f32 and cast back;
+* the expert tables' ``moe_in`` / ``moe_out`` dims, which the
+  reference's ``gathered_param_rules`` keeps sharded over "data" at use
+  (tensor and dense modes; XLA then moves the token rows), are gathered
+  over "data" like every other leaf (``DATA_GATHERED_AXES``, a
+  difference by construction: the port's dispatch is local to a rank's
+  rows);
 * the parts in ``GATHERED_WHOLE`` are not tensor-parallel yet: their
-  "model" dim is gathered too, as in the trainers' layout;
+  "model" dim is gathered too, as in the trainers' layout (the Mamba-2
+  blocks, and the routed experts under ``ep_model`` only);
 * ``rules.arules`` (``act_rules``) lays out the decode caches: kv heads over
   "model" where the axis divides them.
 
@@ -100,20 +108,29 @@ COLLECTIVE_HOOKS: List[Callable[[str, int, int], None]] = []
 # The block parts that do not run tensor-parallel over "model" yet: under
 # the production rules their leaves are gathered whole at use (the "model"
 # dim as well as the "data" dim), so every "model" rank computes them on
-# the same rows.  Every other part keeps its "model" shard at use.
+# the same rows.  Every other part keeps its "model" shard at use.  The
+# backbone names "experts" only under ``REPRO_MOE_MODE=ep_model``; in
+# tensor and dense modes the routed experts run tensor-parallel over
+# their hidden dim (``models/moe.py``).
 GATHERED_WHOLE: Dict[str, str] = {
     "ssm": "Mamba-2's in_proj packs z, x, B, C and dt on one `inner` axis "
            "(models/ssm.py:57) and its gated norm spans `inner`: a split "
            "over 'model' needs the packed projection re-laid and the "
            "norm's statistics all-reduced",
-    "mla": "multi-head latent attention: the heads come out of shared "
-           "latent projections (w_dq, w_dkv) and decode absorbs w_uk / "
-           "w_uv into the latent cache",
-    "experts": "routed experts: the reference keeps moe_in / moe_out "
-               "sharded over 'data' at use (tensor mode) or its experts "
-               "over 'model' with an all-to-all (ep_model); neither "
-               "dispatch is ported, so the experts are gathered whole",
+    "experts": "ep_model only: the reference lays the experts over "
+               "'model' (experts_mdl) and sends each token row to its "
+               "experts' rank and back with an all-to-all; that all-to-all "
+               "is not ported, so under ep_model the routed experts are "
+               "gathered whole",
 }
+
+# Logical axes whose "data" shard the port gathers at use where the
+# reference's ``gathered_param_rules`` keeps it (the expert tables' d_model
+# dims in tensor and dense modes): kept sharded, a rank would have to send
+# every token row it routes to each "data" rank, ≈ 4 GB a layer at
+# deepseek-v2-236b's train_4k, where the gather moves the rank's f / mp
+# slice of the experts, ≈ 0.5 GB.
+DATA_GATHERED_AXES = ("moe_in", "moe_out")
 
 
 # ---------------------------------------------------------------------------
@@ -220,8 +237,8 @@ def gathered_param_rules(mesh) -> RuleTable:
     """Layout of a weight slice while it is used: "model"-sharded axes
     stay sharded, the "data" shard is gathered, except the expert weights'
     ``moe_in`` / ``moe_out`` in tensor and dense modes (the reference
-    keeps them sharded over "data"; the port gathers its experts whole,
-    ``GATHERED_WHOLE``)."""
+    keeps them sharded over "data"; the port gathers them,
+    ``DATA_GATHERED_AXES`` and :func:`use_layout`)."""
     r = param_rules(mesh, fsdp=False)
     if _moe_mode() != "ep_model":
         stored = param_rules(mesh, fsdp=True)
@@ -289,6 +306,24 @@ def stored_layout(shape: Tuple[int, ...], axes: Axes, rules: RuleTable,
     d, m = leaf_layout(shape, axes, rules, mesh)
     if d is None and m is None:
         m = model_shard_dim(shape, axes, axis_size(mesh, "model"))
+    return d, m
+
+
+def use_layout(shape: Tuple[int, ...], axes: Axes, rules: Rules, mesh,
+               part: Optional[str] = None
+               ) -> Tuple[Optional[int], Optional[int]]:
+    """(data dim, model dim) of a leaf while it is used under the
+    production ``rules``: :func:`leaf_layout` under ``rules.prules``,
+    except that a dim on an axis of ``DATA_GATHERED_AXES`` is gathered
+    over "data" and a leaf of a ``GATHERED_WHOLE`` ``part`` is gathered
+    whole."""
+    if part is not None:
+        if part not in GATHERED_WHOLE:
+            raise KeyError(f"{part!r} is not in GATHERED_WHOLE")
+        return None, None
+    d, m = leaf_layout(shape, axes, rules.prules, mesh)
+    if d is not None and axes[d] in DATA_GATHERED_AXES:
+        d = None
     return d, m
 
 
@@ -416,6 +451,32 @@ class _ReduceFromModel(torch.autograd.Function):
         return grad, None
 
 
+class _MeanOverData(torch.autograd.Function):
+    """Forward: the mean over the "data" group (f32, cast back); backward:
+    identity.  Each data rank's gradient then carries its rows' share of
+    a statistic of every rank's rows, and the data mean of the ranks'
+    gradients is the one-device gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        return all_reduce_mean(x, group, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def mean_over_data(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over the installed mesh's "data" ranks (``x``
+    itself with no mesh or one data rank): a statistic of this rank's
+    rows made the statistic of the whole batch (equal rows a rank)."""
+    mesh = _CTX["mesh"]
+    n = axis_size(mesh, "data")
+    if n <= 1:
+        return x
+    return _MeanOverData.apply(x, mesh.get_group("data"), n)
+
+
 def copy_to_model(x: torch.Tensor, tp: TP) -> torch.Tensor:
     """*f*: ``x`` entering a tensor-parallel region (an activation, or a
     weight that every "model" rank holds whole and uses on its own
@@ -515,9 +576,10 @@ def constrain_params(params, spec, mesh=None, rules: Optional[Rules] = None,
     forward saw).  Without rules each leaf the ``PartitionPlan`` shards
     over "model" is gathered whole; identity with no mesh or a "model"
     axis of 1.  With rules each leaf's stored "data" shard is gathered and
-    its "model" shard kept, except under the names of ``GATHERED_WHOLE``
-    in ``parts`` (a tree over ``params``' keys: a name applies to the
-    subtree under it), whose "model" shard is gathered too."""
+    its "model" shard kept (:func:`use_layout`), except under the names of
+    ``GATHERED_WHOLE`` in ``parts`` (a tree over ``params``' keys: a name
+    applies to the subtree under it), whose "model" shard is gathered
+    too."""
     if mesh is None:
         mesh, rules = _CTX["mesh"], _CTX["rules"]
     if rules is None:
@@ -540,11 +602,7 @@ def constrain_params(params, spec, mesh=None, rules: Optional[Rules] = None,
         if isinstance(p, dict):
             return {k: lay(v, s[k], _part_of(part, k)) for k, v in p.items()}
         d, m = stored_layout(s.shape, s.axes, rules.stored, mesh)
-        ud, um = leaf_layout(s.shape, s.axes, rules.prules, mesh)
-        if part is not None:
-            if part not in GATHERED_WHOLE:
-                raise KeyError(f"{part!r} is not in GATHERED_WHOLE")
-            ud = um = None
+        ud, um = use_layout(s.shape, s.axes, rules, mesh, part)
         for dim, use, name in ((d, ud, "data"), (m, um, "model")):
             if dim is not None and use != dim:
                 p = GatherParam.apply(p, dim, mesh.get_group(name),

@@ -13,14 +13,23 @@ over "data"), against the JAX package, on the CPU.
   whole over "model" (``GATHERED_WHOLE["ssm"]``), and a param the
   reference keeps whole on every rank is split over "model" as its
   trainers' ``PartitionPlan`` splits it (``sharding.stored_layout``).
+* At use (``sharding.use_layout``), every MLA and expert leaf keeps the
+  "model" dim of the reference's ``gathered_param_rules`` in tensor and
+  dense modes, and its "data" dim except the expert tables' ``moe_in`` /
+  ``moe_out``, which the port gathers (``DATA_GATHERED_AXES``); under
+  ``ep_model`` the expert tables are gathered whole (``GATHERED_WHOLE``).
 * The inference-FSDP decision equals the reference's for the 11 full
   archs at mp 16.
 * Four gloo ranks, f32, against one device (``tests/torch_layout_worker``,
   one spawn for every case): the first step's gradients, two LM train
   steps, the prefill and four decode steps, and the collectives each
-  issues by kind and mesh axis; two ``flow_grpo`` steps laid out by the
-  rules (``BaseTrainer(..., rules=True)``, the dry run's flow step), and that
-  trainer's canonical state, checkpoint slicer and byte report.
+  runs by kind and mesh axis, and the leaves all-gathered over "model"
+  (none of MLA's or the experts'); the router's and MLA's latent
+  projections' gradients at mp 2 and 4; two ``flow_grpo`` steps laid out
+  by the rules (``BaseTrainer(..., rules=True)``, the dry run's flow
+  step), and that trainer's canonical state, checkpoint slicer and byte
+  report, on the narrowed ``flux_dit`` and the two MoE archs, whose
+  checkpoints resume exactly.
 """
 import json
 import os
@@ -39,7 +48,7 @@ from repro_torch import sharding as tsh
 from repro_torch.config import InputShape
 from repro_torch.launch import specs as tspecs
 from repro_torch.models import params as tparams
-from repro_torch.models.backbone import Backbone
+from repro_torch.models.backbone import Backbone, _parts
 
 import torch_layout_worker as worker
 from torch_parity import one_torch_thread  # noqa: F401  (autouse fixture)
@@ -111,8 +120,85 @@ def test_production_rules_are_the_reference_defaults():
     assert r.stored == jsh.param_rules(mesh, fsdp=True)
     assert tsh.production_rules(mesh, fsdp=False).stored == \
         jsh.param_rules(mesh, fsdp=False)
-    assert set(tsh.GATHERED_WHOLE) == {"ssm", "mla", "experts"}
+    assert set(tsh.GATHERED_WHOLE) == {"ssm", "experts"}
     assert all(len(why) > 40 for why in tsh.GATHERED_WHOLE.values())
+
+
+@pytest.mark.parametrize("moe_mode", ["tensor", "dense", "ep_model"])
+def test_parts_gather_experts_whole_under_ep_model_only(moe_mode,
+                                                        monkeypatch):
+    """``_parts`` names no MLA part, and the routed experts'
+    tables ("experts") under ``ep_model`` only, whose all-to-all is not
+    ported; the SSM blocks are named in every mode."""
+    monkeypatch.setenv("REPRO_MOE_MODE", moe_mode)
+    for arch in ("deepseek-v2-236b", "grok-1-314b", "zamba2-2.7b"):
+        bb = Backbone(tconfigs.get_reduced(arch))
+        parts = _parts(bb.cfg, bb._block_spec)
+        if arch == "zamba2-2.7b":
+            assert parts == {"ssm": "ssm"}
+        elif moe_mode == "ep_model":
+            assert parts == {"ffn": {k: "experts" for k in
+                                     ("w_gate", "w_up", "w_down")}}
+        else:
+            assert parts is None
+    assert _parts(bb.cfg, Backbone(tconfigs.get_reduced(
+        "deepseek-v2-236b"))._dense_spec) is None
+
+
+def _ref_use(shape, axes, rules, mesh):
+    """The reference's at-use (data dim, model dim) of a leaf: its
+    ``pspec`` under ``gathered_param_rules``, a sharding dropped where the
+    axis does not divide the dim (``repro/launch/specs.py:66-72``)."""
+    data = model = None
+    for i, (n, m) in enumerate(zip(shape, jsh.pspec(axes, rules))):
+        if m is None or n % mesh.shape[m]:
+            continue
+        if m == "data":
+            data = i
+        if m == "model":
+            model = i
+    return data, model
+
+
+@pytest.mark.parametrize("moe_mode", ["tensor", "dense", "ep_model"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "grok-1-314b"])
+def test_mla_and_expert_use_layout_equals_reference(arch, moe_mode,
+                                                     monkeypatch):
+    """At (4, 2), each leaf of an MLA block and each expert table at use
+    (``sharding.use_layout`` with the block's ``_parts``): its "model" dim
+    is the reference's ``gathered_param_rules`` one (tensor and dense
+    modes; the experts' hidden dim, MLA's heads); its "data" dim too,
+    except ``moe_in`` / ``moe_out``, which the reference keeps over
+    "data" and the port gathers (a difference by construction); under
+    ``ep_model`` the expert tables are gathered whole."""
+    monkeypatch.setenv("REPRO_MOE_MODE", moe_mode)
+    ref_rules = jsh.gathered_param_rules(MESH)
+    rules = tsh.production_rules(MESH)
+    assert rules.prules == ref_rules
+    bb = Backbone(tconfigs.get_reduced(arch))
+    seen = 0
+    for spec in (bb._block_spec, getattr(bb, "_dense_spec", None)):
+        if spec is None:
+            continue
+        parts = _parts(bb.cfg, spec) or {}
+        for path, p in tparams.leaves(spec):
+            expert = path[0] == "ffn" and "router" in spec["ffn"] and \
+                path[1] in ("w_gate", "w_up", "w_down")
+            if not (expert or (path[0] == "attn" and bb.cfg.mla)):
+                continue
+            part = parts.get("ffn", {}).get(path[1]) if expert else None
+            got = tsh.use_layout(p.shape, p.axes, rules, MESH, part)
+            want = _ref_use(p.shape, p.axes, ref_rules, MESH)
+            if expert and moe_mode == "ep_model":
+                assert got == (None, None), path
+            else:
+                assert got[1] == want[1], path
+                gathered = want[0] is not None and \
+                    p.axes[want[0]] in ("moe_in", "moe_out")
+                assert got[0] == (None if gathered else want[0]), path
+                assert gathered == (expert and want[0] is not None)
+            seen += 1
+    assert seen >= (11 if arch == "deepseek-v2-236b" else 3)
 
 
 # ------------------------------------------------------ shard shapes
@@ -348,21 +434,27 @@ def test_layout_prefill_and_decode_match_one_device(four_ranks, case):
 
 # collectives a case issues, by (kind, mesh axis): the data shards'
 # gathers and reduce-scatters, the tensor-parallel all-reduces over
-# "model", the gradients' means over "data"; the SSM blocks gathered whole
-# over "model", and at (1, 4) qwen3's wk / wv (2 kv heads over 4 ranks, no
-# "data" shard at dp 1: stored over "model" on embed, ``stored_layout``);
-# serving gathers the logits over "model"
+# "model", the gradients' means over "data" (and the load-balance loss's
+# means over every data rank's rows); the SSM blocks gathered whole over
+# "model", and at (1, 4) qwen3's and grok's wk / wv (2 kv heads over 4
+# ranks, no "data" shard at dp 1: stored over "model" on embed,
+# ``stored_layout``; grok's router likewise); serving gathers the logits
+# over "model"
 _TRAIN = {("all-gather", "data"), ("reduce-scatter", "data"),
           ("all-reduce", "model"), ("all-reduce", "data")}
 _SERVE = {("all-gather", "data"), ("all-gather", "model"),
           ("all-reduce", "model")}
+_TRAIN_1X4 = ({("all-reduce", "model"), ("all-reduce", "data"),
+               ("all-gather", "model"), ("reduce-scatter", "model")},
+              {("all-gather", "model"), ("all-reduce", "model")})
 WANT = {"qwen3_2x2": (_TRAIN, _SERVE),
-        "qwen3_1x4": ({("all-reduce", "model"), ("all-reduce", "data"),
-                       ("all-gather", "model"), ("reduce-scatter", "model")},
-                      {("all-gather", "model"), ("all-reduce", "model")}),
+        "qwen3_1x4": _TRAIN_1X4,
         "internvl2_2x2": (_TRAIN, _SERVE),
         "zamba2_2x2": (_TRAIN | {("all-gather", "model"),
-                                 ("reduce-scatter", "model")}, _SERVE)}
+                                 ("reduce-scatter", "model")}, _SERVE),
+        "deepseek_2x2": (_TRAIN, _SERVE),
+        "grok_1x4": _TRAIN_1X4,
+        "grok_dense_2x2": (_TRAIN, _SERVE)}
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -373,6 +465,54 @@ def test_layout_collectives_by_axis(four_ranks, case):
     train, serve = WANT[case]
     assert {tuple(c) for c in r["train_collectives"]} == train
     assert {tuple(c) for c in r["serve_collectives"]} == serve
+
+
+MOE_CASES = [c[0] for c in worker.CASES if c[1] in ("deepseek-v2-236b",
+                                                     "grok-1-314b")]
+
+
+@pytest.mark.parametrize("case", MOE_CASES)
+def test_layout_keeps_mla_and_experts_sharded(four_ranks, case):
+    """Under the MoE cases no MLA leaf and no expert table (routed or
+    shared) is all-gathered over "model", in training or serving: no
+    output shape of the recorder's all-gathers over "model" is one of
+    theirs gathered.  The same check sees zamba2's SSM leaves, which are
+    gathered whole (``GATHERED_WHOLE["ssm"]``), among its gathers."""
+    r = four_ranks[case]
+    assert r["tp_leaf_gathers"]
+    gathered = {tuple(s) for s in r["model_gathers"]}
+    hit = {k: v for k, v in r["tp_leaf_gathers"].items()
+           if tuple(v) in gathered}
+    assert not hit
+    z = four_ranks["zamba2_2x2"]
+    assert {tuple(v) for v in z["ssm_leaf_gathers"].values()} <= \
+        {tuple(s) for s in z["model_gathers"]}
+
+
+# the router at mp 2 and 4, and MLA's latent projections and norms
+_ROUTER_CASES = {"deepseek_2x2": 2, "grok_dense_2x2": 2, "grok_1x4": 4,
+                 "deepseek_1x4": 4}
+
+
+@pytest.mark.parametrize("case", sorted(_ROUTER_CASES))
+def test_router_and_latent_gradients_match_one_device(four_ranks, case):
+    """The first step's gradient of every layer's router (its gates
+    multiply the experts' partial results, and the auxiliary losses are
+    computed the same on every "model" rank) and of MLA's latent
+    projections and norms (``w_dq``, ``q_norm``, ``w_dkv``, ``kv_norm``:
+    whole on every rank, each rank's heads adding a part) at mp 2 and 4,
+    within 1e-5 of the leaf's max |grad| of one device: a gradient counted
+    mp times, or a part missing, is off by O(1) of it."""
+    gaps = four_ranks[case]["grad_gaps"]
+    keys = [k for k in gaps if k.endswith(("/router", "/w_dq", "/q_norm",
+                                           "/w_dkv", "/kv_norm"))]
+    assert any(k.endswith("/router") for k in keys)
+    if case.startswith("deepseek"):
+        assert sum(k.endswith("/w_dq") for k in keys) == 2
+    for k in keys:
+        assert gaps[k] < 1e-5, k
+    mesh = dict((c[0], c[2]) for c in worker.CASES + worker.GRAD_CASES)
+    assert mesh[case][1] == _ROUTER_CASES[case]
 
 
 def test_flow_grpo_under_rules_matches_one_device(four_ranks):
@@ -412,6 +552,38 @@ def test_rules_trainer_keeps_checkpoints_canonical(four_ranks):
     assert 0 < r["bytes"]["per_device_bytes"] < r["bytes"]["total_bytes"]
     assert r["bytes"]["sharded_leaves"] > 0
     assert r["mu_gap"] < 1e-5
+
+
+@pytest.mark.parametrize("case", [c[0] for c in worker.FLOW_CASES])
+def test_moe_rules_trainer_matches_one_device_and_resumes(four_ranks, case):
+    """``flow_grpo`` on the narrowed ``deepseek-v2-236b`` at (2, 2) and
+    ``grok-1-314b`` at (1, 4) built with ``rules=True`` (MLA's heads and
+    the experts' hidden dim over "model"), two steps against one device,
+    f32: every metric but the loss to 1e-5 relative (the loss, a residue of
+    order 1e-8, to 1e-7 absolute), params to the LM cases' 1e-4 absolute
+    (measured ≤ 1.0e-5) and the gathered AdamW first moments to 1e-4 of
+    each leaf's max (measured ≤ 3.7e-5); its canonical state, slicer and
+    byte report as the flux case's.  A checkpoint of the two steps,
+    restored by a new trainer under the rules, is the first trainer's
+    state bitwise, and the two take the same third step bitwise (metrics
+    and params)."""
+    r = four_ranks[case]
+    for one, two in zip(*r["metrics"]):
+        assert set(one) == set(two)
+        for k in one:
+            if k == "loss":
+                assert abs(one[k] - two[k]) < 1e-7
+            else:
+                np.testing.assert_allclose(two[k], one[k], rtol=1e-5,
+                                           atol=1e-7, err_msg=k)
+    assert r["param_gap"] < 1e-4 and r["mu_gap"] < 1e-4
+    assert r["canonical_equal"] and r["sliced_equal"]
+    assert r["bytes"]["total_bytes"] == r["bytes_one"]["total_bytes"]
+    assert 0 < r["bytes"]["per_device_bytes"] < r["bytes"]["total_bytes"]
+    res = r["resume"]
+    assert res["step"] == 2 and res["restored_equal"]
+    assert res["third_step"][0] == res["third_step"][1]
+    assert res["params_equal"]
 
 
 def test_rules_trainer_needs_a_mesh():

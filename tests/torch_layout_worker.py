@@ -4,18 +4,26 @@
 
 Imports only torch and the port (spawned children import this module, not
 the test file, which imports JAX).  Each case takes a reduced arch in f32
-(wq / wk drawn at 1/sqrt(d_model): the repository's init is chaotic, see
-``tests/test_torch_dense.py``) and, on one device (every rank, the whole
-batch) and on a (data, model) mesh under ``sharding.production_rules``
-(this rank's rows, its shards of the params and moments): the first
-step's gradients, two LM train steps, then the one-device trained params'
-prefill and four decode steps, recording the collectives by (kind, axis).
+(wq / wk drawn at 1/sqrt(d_model), MLA's w_uq / w_uk at 1/sqrt(their
+latent rank): the repository's init is chaotic, see
+``tests/test_torch_dense.py`` and ``tests/test_torch_moe.py``) and, on one
+device (every rank, the whole batch) and on a (data, model) mesh under
+``sharding.production_rules`` (this rank's rows, its shards of the params
+and moments): the first step's gradients (each leaf's gap), two LM train
+steps, then the one-device trained params' prefill and four decode
+steps, recording the collectives by (kind, axis) and the shapes that are
+all-gathered over "model".  ``GRAD_CASES`` take the first step's
+gradients alone.
 ``flow_case``: two ``flow_grpo`` steps (rollout, rewards, update) of the
-narrowed ``flux_dit`` of ``torch_dist_worker`` laid out by the rules
-(``BaseTrainer(..., rules=True)``: the dry run's flow step) against one
-device, and the trainer's canonical state, checkpoint slicer and byte
-report under them.  Rank 0 pickles the gaps to ``out``.
+narrowed ``flux_dit`` of ``torch_dist_worker`` (``FLOW_CASES``: and of its
+narrowed MoE archs) laid out by the rules (``BaseTrainer(...,
+rules=True)``: the dry run's flow step) against one device, the
+trainer's canonical state, checkpoint slicer and byte report under them,
+and for the MoE archs a checkpoint of the two steps resumed by a new
+trainer, whose third step must equal the first trainer's.  Rank 0
+pickles the gaps to ``out``.
 """
+import contextlib
 import os
 import pickle
 import tempfile
@@ -33,13 +41,22 @@ from repro_torch.models import tasks
 from repro_torch.models.backbone import Backbone
 from repro_torch.models.params import leaves
 
-# (name, arch, (dp, mp)): q and kv heads sharded; q heads sharded over
-# whole kv heads; heads whole with the MLP and vocabulary parallel and the
-# vision prefix; the SSM blocks gathered and the shared attention parallel
-CASES = (("qwen3_2x2", "qwen3-32b", (2, 2)),
-         ("qwen3_1x4", "qwen3-32b", (1, 4)),
-         ("internvl2_2x2", "internvl2-1b", (2, 2)),
-         ("zamba2_2x2", "zamba2-2.7b", (2, 2)))
+# (name, arch, (dp, mp), REPRO_MOE_MODE): q and kv heads sharded; q heads
+# sharded over whole kv heads; heads whole with the MLP and vocabulary
+# parallel and the vision prefix; the SSM blocks gathered and the shared
+# attention parallel; MLA's heads and the routed and shared experts'
+# hidden dim parallel (a dense first layer); grok's experts at f / 4 with
+# 2 kv heads over 4 ranks; grok's experts in dense mode
+CASES = (("qwen3_2x2", "qwen3-32b", (2, 2), None),
+         ("qwen3_1x4", "qwen3-32b", (1, 4), None),
+         ("internvl2_2x2", "internvl2-1b", (2, 2), None),
+         ("zamba2_2x2", "zamba2-2.7b", (2, 2), None),
+         ("deepseek_2x2", "deepseek-v2-236b", (2, 2), None),
+         ("grok_1x4", "grok-1-314b", (1, 4), None),
+         ("grok_dense_2x2", "grok-1-314b", (2, 2), "dense"))
+# the first step's gradients only: MLA's latent projections and the router
+# at mp 4
+GRAD_CASES = (("deepseek_1x4", "deepseek-v2-236b", (1, 4), None),)
 BATCH, SEQ, STEPS, DECODES = 4, 32, 2, 4
 OPT = OptimConfig(lr=1e-3, total_steps=10, warmup_steps=1)
 _COLL = {"all_reduce": "all-reduce",
@@ -51,10 +68,12 @@ _COLL = {"all_reduce": "all-reduce",
 
 class Recorder:
     """Wraps ``torch.distributed``'s collectives to record each call's
-    kind and the mesh axis of its group ("data", "model" or "world")."""
+    kind and the mesh axis of its group ("data", "model" or "world"), and
+    the output shape of each all-gather over "model" (``model_gathers``)."""
 
     def __init__(self):
         self.log, self.axes, self._orig = set(), {}, {}
+        self.model_gathers = set()
 
     def __enter__(self):
         for name, kind in _COLL.items():
@@ -67,7 +86,10 @@ class Recorder:
                 ranks = tuple(dist.get_process_group_ranks(group)
                               if group is not None else
                               range(dist.get_world_size()))
-                self.log.add((_kind, self.axes.get(ranks, "world")))
+                axis = self.axes.get(ranks, "world")
+                self.log.add((_kind, axis))
+                if _kind == "all-gather" and axis == "model":
+                    self.model_gathers.add(tuple(a[0].shape))
                 return _fn(*a, group=group, **k)
             setattr(dist, name, wrapped)
         return self
@@ -77,17 +99,55 @@ class Recorder:
             setattr(dist, name, fn)
 
 
+# the seed of the drawn projections, by reduced arch (1 elsewhere).  At
+# seed 1 deepseek's dense_blocks/ln1 has an element whose gradient is
+# 7.3e-9 in f64, under f32's reordering noise (one device gives -1.2e-9,
+# the mesh -9.5e-9): AdamW (eps 1e-8) turns such an element's update into
+# noise, 0.1 to 0.5 of the step, past the params' band by reordering alone
+DRAW_SEEDS = {"deepseek-v2-236b-reduced": 2}
+
+
 def _fresh(cfg):
     p = tasks.init_params(cfg, torch.Generator().manual_seed(0),
                           torch.float32, "cpu")
-    gen = torch.Generator().manual_seed(1)
-    for blk in (p["blocks"], p.get("shared_attn", {})):
-        for k in ("wq", "wk"):
+    gen = torch.Generator().manual_seed(DRAW_SEEDS.get(cfg.name, 1))
+    for blk in (p.get("dense_blocks", {}), p["blocks"],
+                p.get("shared_attn", {})):
+        for k in ("wq", "wk", "w_uq", "w_uk"):
             if k in blk.get("attn", {}):
                 w = blk["attn"][k]
-                w.copy_(torch.randn(w.shape, generator=gen)
-                        / cfg.d_model ** 0.5)
+                fan_in = cfg.d_model if k in ("wq", "wk") else w.shape[-3]
+                w.copy_(torch.randn(w.shape, generator=gen) / fan_in ** 0.5)
     return tasks.TrainState(p, optim.adamw_init(p))
+
+
+def tp_leaves(spec):
+    """The paths of the leaves that run tensor-parallel over "model" since
+    MLA and the routed experts left ``GATHERED_WHOLE``: every leaf of an
+    MLA block, and the expert tables under a router (the routed experts'
+    and the shared ones'; not the router)."""
+    out = []
+    for path, _ in leaves(spec):
+        for i, k in enumerate(path[:-1]):
+            node = _at(spec, path[:i + 1])
+            if (k == "attn" and "w_dq" in node) or (
+                    k == "ffn" and "router" in node
+                    and path[-1] != "router"):
+                out.append(path)
+                break
+    return out
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def gathered_shape(shape, dim):
+    """The output shape of an all-gather of a leaf of canonical ``shape``
+    along ``dim`` (``sharding.gather_dim`` gathers it as dim 0)."""
+    return (shape[dim],) + tuple(shape[:dim]) + tuple(shape[dim + 1:])
 
 
 def _grads(step, params, batch):
@@ -118,6 +178,36 @@ def _serve(cfg, params, batch, tokens):
     return out
 
 
+def _mesh_and_rows(batch, dp, mp):
+    mesh = build_mesh(dp, mp, "cpu")
+    r = mesh.get_coordinate()[0]
+    n = BATCH // dp
+    return mesh, r, n, {k: v[r * n:(r + 1) * n] for k, v in batch.items()}
+
+
+def _leaf_gaps(g_one, g_two):
+    """Each leaf's max |one - two| over the one-device max |grad|."""
+    return {"/".join(path): float((a - b).abs().max()
+                                  / a.abs().max().clamp_min(1e-30))
+            for (path, a), (_, b) in zip(leaves(g_one), leaves(g_two))}
+
+
+def grad_case(arch, dp, mp):
+    """The first step's gradients alone, one device against the mesh."""
+    cfg = configs.get_reduced(arch)
+    spec = Backbone(cfg).spec()
+    batch = tasks.synthetic_batch(cfg, BATCH, SEQ, seed=1, device="cpu")
+    step = tasks.make_train_step(cfg, OPT)
+    g_one = _grads(step, _fresh(cfg).params, batch)
+    mesh, r, n, rows = _mesh_and_rows(batch, dp, mp)
+    rules = sh.production_rules(mesh)
+    plan = RulePlan(mesh, spec, rules)
+    with sh.param_gather(mesh, rules):
+        g_two = _grads(step, plan.shard_state(_fresh(cfg).params), rows)
+    g_two = plan.gather_state(sh.mesh_grads(g_two, spec, mesh, rules)[0])
+    return {"grad_gaps": _leaf_gaps(g_one, g_two)}
+
+
 def case(arch, dp, mp):
     cfg = configs.get_reduced(arch)
     spec = Backbone(cfg).spec()
@@ -132,15 +222,12 @@ def case(arch, dp, mp):
                          1).to(torch.int32)
     lg_one = _serve(cfg, one.params, batch, tokens)
 
-    mesh = build_mesh(dp, mp, "cpu")
+    mesh, r, n, rows = _mesh_and_rows(batch, dp, mp)
     rules = sh.production_rules(mesh)
     rec = Recorder()
     for axis in ("data", "model"):
         rec.axes[tuple(dist.get_process_group_ranks(
             mesh.get_group(axis)))] = axis
-    r = mesh.get_coordinate()[0]
-    n = BATCH // dp
-    rows = {k: v[r * n:(r + 1) * n] for k, v in batch.items()}
     plan = RulePlan(mesh, spec, rules)
     local = plan.shard_state(_fresh(cfg).params)
     state = tasks.TrainState(local, optim.adamw_init(local))
@@ -153,8 +240,7 @@ def case(arch, dp, mp):
             lg_two = _serve(cfg, plan.shard_state(one.params),
                             rows, tokens[r * n:(r + 1) * n])
     g_two = plan.gather_state(sh.mesh_grads(g_two, spec, mesh, rules)[0])
-    g_gap = max(float((a - b).abs().max() / a.abs().max().clamp_min(1e-30))
-                for (_, a), (_, b) in zip(leaves(g_one), leaves(g_two)))
+    g_gaps = _leaf_gaps(g_one, g_two)
     whole = plan.gather_state(state.params)
     gap = max(float((a - b).abs().max()) for (_, a), (_, b) in zip(
         leaves(one.params), leaves(whole)))
@@ -165,30 +251,71 @@ def case(arch, dp, mp):
     return {"loss": [[float(m["loss"]) for m in ms] for ms in (m_one, m_two)],
             "gnorm": [[float(m["grad_norm"]) for m in ms]
                       for ms in (m_one, m_two)],
-            "grad_gap": g_gap, "param_gap": gap,
+            "grad_gap": max(g_gaps.values()), "grad_gaps": g_gaps,
+            "param_gap": gap,
             "logit_gap": float(lg_gap),
             "logits_shape": tuple(lg_two[0].shape),
             "train_collectives": sorted(train_log),
-            "serve_collectives": sorted(rec.log)}
+            "serve_collectives": sorted(rec.log),
+            "model_gathers": sorted(rec.model_gathers),
+            "tp_leaf_gathers": _gather_shapes(spec, rules, mesh,
+                                              tp_leaves(spec)),
+            "ssm_leaf_gathers": _gather_shapes(
+                spec, rules, mesh,
+                [p for p, _ in leaves(spec) if "ssm" in p])}
 
 
-def flow_case(dp=2, mp=2):
-    """``flow_grpo``, two steps, f32: one device against the (dp, mp) mesh
-    under the production rules (every rank builds the canonical params
-    from the same seed, then keeps its shards)."""
-    import torch_dist_worker as dw
+def _gather_shapes(spec, rules, mesh, paths):
+    """Each stored "model" shard of the leaves at ``paths`` (a layer's
+    slice of the stacked leaf) as an all-gather over "model" would output
+    it."""
+    out = {}
+    for path in paths:
+        s = _at(spec, path)
+        # the stacking dims: (layers,), or the hybrid's (groups, every)
+        lead = 2 if s.axes[:2] == ("groups", None) else 1
+        shape, axes = s.shape[lead:], s.axes[lead:]
+        m = sh.stored_layout(shape, axes, rules.stored, mesh)[1]
+        if m is not None:
+            out["/".join(path)] = gathered_shape(shape, m)
+    return out
+
+
+# (name, narrowed MoE arch of torch_dist_worker, (dp, mp)): MLA's heads and
+# the experts' hidden dim over "model" (the flux case is flow_grpo_2x2)
+FLOW_CASES = (("flow_grpo_deepseek_2x2", "deepseek-v2-236b", (2, 2)),
+              ("flow_grpo_grok_1x4", "grok-1-314b", (1, 4)))
+
+
+def _rules_trainer(dw, cfg, dp, mp, mesh):
     from repro_torch import registry
     from repro_torch.config import DistConfig, FlowRLConfig
-    ref, h_ref = dw.train("flow_grpo", mesh=None, dist_cfg=DistConfig())
-    mesh = build_mesh(dp, mp, "cpu")
-    tr = registry.build(
-        "trainer", "flow_grpo", dw.arch(),
+    return registry.build(
+        "trainer", "flow_grpo", cfg,
         FlowRLConfig(**dw.FLOW, rewards=dw.REWARDS), dw.OPT, seed=0,
         cond_dim=dw.COND_DIM, dtype=torch.float32, device="cpu",
         dist=DistConfig(data_parallel=dp, model_parallel=mp), mesh=mesh,
         rules=True)
-    canonical = dw.build("flow_grpo", mesh=None,
-                         dist_cfg=DistConfig()).state.params
+
+
+def flow_case(dp=2, mp=2, arch=None, tmp=None):
+    """``flow_grpo``, two steps, f32: one device against the (dp, mp) mesh
+    under the production rules (every rank builds the canonical params
+    from the same seed, then keeps its shards); ``arch`` a narrowed MoE
+    arch of ``torch_dist_worker`` (the narrowed ``flux_dit`` without).
+    With ``tmp`` the two steps' canonical state is checkpointed there,
+    restored by a new trainer under the rules and both take a third
+    step."""
+    import torch_dist_worker as dw
+    from repro_torch import checkpoint
+    from repro_torch.config import DistConfig
+    cfg = dw.moe_arch(arch) if arch else dw.arch()
+    ref, h_ref = dw.train("flow_grpo", mesh=None, dist_cfg=DistConfig(),
+                          arch_cfg=cfg)
+    mesh = build_mesh(dp, mp, "cpu")
+    tr = _rules_trainer(dw, cfg, dp, mp, mesh)
+    canonical = dw.build("flow_grpo", mesh=None, dist_cfg=DistConfig(),
+                         arch_cfg=cfg).state.params
     # the layout's own round trips, before any step: the canonical state
     # (the one-device params, the same seed), the checkpoint slicer and
     # the byte report
@@ -216,10 +343,45 @@ def flow_case(dp=2, mp=2):
     moments = max(float((a - b).abs().max() / a.abs().max())
                   for (_, a), (_, b) in zip(leaves(ref.state.opt.mu),
                                             leaves(whole.opt.mu)))
-    return {"metrics": [h_ref, hist], "param_gap": gap, "mu_gap": moments,
-            "canonical_equal": canon_equal, "sliced_equal": sliced_equal,
-            "bytes": report, "bytes_one": memory.state_bytes(ref),
-            "engine_refused": engine_refused}
+    out = {"metrics": [h_ref, hist], "param_gap": gap, "mu_gap": moments,
+           "canonical_equal": canon_equal, "sliced_equal": sliced_equal,
+           "bytes": report, "bytes_one": memory.state_bytes(ref),
+           "engine_refused": engine_refused}
+    if tmp is not None:
+        ckpt = os.path.join(tmp, f"ckpt_{arch}")
+        if dist.get_rank() == 0:
+            checkpoint.save_checkpoint(ckpt, 2, whole)
+        dist.barrier()
+        back = _rules_trainer(dw, cfg, dp, mp, mesh)
+        step, back.state = checkpoint.restore_latest(ckpt, back.state,
+                                                     back.state_slicer())
+        restored = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            leaves(tr.state.params), leaves(back.state.params))) and all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(
+                leaves(tr.state.opt.mu), leaves(back.state.opt.mu)))
+        third = [{k: float(v) for k, v in t.step(cond, 7, it=2).items()}
+                 for t in (tr, back)]
+        out["resume"] = {
+            "step": step, "restored_equal": restored,
+            "third_step": third,
+            "params_equal": all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                leaves(tr.state.params), leaves(back.state.params)))}
+    return out
+
+
+@contextlib.contextmanager
+def moe_mode(mode):
+    """``REPRO_MOE_MODE`` set to ``mode`` (None: as it was) in the body."""
+    prev = os.environ.get("REPRO_MOE_MODE")
+    if mode is not None:
+        os.environ["REPRO_MOE_MODE"] = mode
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("REPRO_MOE_MODE", None)
+        else:
+            os.environ["REPRO_MOE_MODE"] = prev
 
 
 def run(rank, world, store, out):
@@ -228,8 +390,15 @@ def run(rank, world, store, out):
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
-        res = {name: case(arch, *shape) for name, arch, shape in CASES}
+        res = {}
+        for cases, fn in ((CASES, case), (GRAD_CASES, grad_case)):
+            for name, arch, shape, mode in cases:
+                with moe_mode(mode):
+                    res[name] = fn(arch, *shape)
         res["flow_grpo_2x2"] = flow_case()
+        for name, arch, shape in FLOW_CASES:
+            res[name] = flow_case(*shape, arch=arch,
+                                  tmp=os.path.dirname(out))
         if rank == 0:
             with open(out, "wb") as f:
                 pickle.dump(res, f)
