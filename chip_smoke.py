@@ -387,17 +387,36 @@ script exits 2 before printing any result.
    16 forwards and 16 backwards on ``wgmma``, deepseek's at 8 heads of
    (192, 128).  Then that rank shape against its plain versions, and its
    kernel, plain, SDPA and bound times.
-40. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
+40. The Mamba-2 blocks tensor-parallel over "model" at mp = 16, emulated
+   as in phase 39: one full-width ``zamba2-2.7b`` block (80 SSD heads of
+   64, state 64) and one ``mamba2-370m`` block (32 heads, state 128),
+   bf16, SSM leaves drawn from Mamba-2's init, from a random normed input
+   at the flow shape (4 x 4608) and a random upstream gradient: whole,
+   then as each of the 16 ranks with its shard of every leaf (in_proj's
+   and the conv's components by rank, the heads' a_log, d_skip, dt_bias,
+   norm rows and out_proj rows).  Two exchanges a one-rank group cannot
+   carry are emulated: each rank is handed the gathered B and C columns
+   of in_proj and the conv, and their gradients are summed over the
+   ranks; the gated norm's sum of squares is summed over the ranks in a
+   first pass, each rank's gradient of the total in a second, and the
+   backward runs in a third with their sum.  Outputs and input gradients
+   (summed), the shards' gradients (concatenated) and the B / C columns'
+   (summed) are held to 3e-2 of the whole block's max; every scan, 48
+   forwards and 16 backwards, runs on ``wgmma`` at a rank's heads,
+   (4, 4608, 5, 64) at state 64 and (4, 4608, 2, 64) at state 128.  Then
+   those two scan shapes against their plain versions, and their kernel,
+   FMA-pass, plain and bound times.
+41. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
    ``ssm_train_path``, ``perf_path``, ``distributed_path``,
    ``engine_path``, ``hybrid_path``, ``moe_path``, ``frontend_path``,
    ``lm_path``, ``sweep_path``, ``lint``, ``layout_path``,
-   ``moe_layer_path``, ``phase_times`` and ``kernels`` JSON lines, the
-   card's name and power limit, and the last line ``{"ok": true,
-   "device": {...}}``.
+   ``moe_layer_path``, ``ssm_layer_path``, ``phase_times`` and
+   ``kernels`` JSON lines, the card's name and power limit, and the last
+   line ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds as it ends (``[N] took ... s``), and the
 script the total.  ``--only N,...`` runs just the device and build phases
-and phases N (3 and 8-39) and prints no result lines: a development aid.
+and phases N (3 and 8-40) and prints no result lines: a development aid.
 """
 from __future__ import annotations
 
@@ -1923,7 +1942,11 @@ def draw_ssm(p: dict, seed: int) -> None:
     the bias) and zero the skip D, in place.  At the repository's init
     (conv taps at 0.02) the scan moves the velocity by under 1 %, and the
     skip hides it further, so a check could not see it."""
-    s = p["backbone"]["blocks"]["ssm"]
+    draw_ssm_leaves(p["backbone"]["blocks"]["ssm"], seed)
+
+
+def draw_ssm_leaves(s: dict, seed: int) -> None:
+    """``draw_ssm`` on one SSM leaf tree (stacked or one block's)."""
     gen = torch.Generator(device=s["conv_w"].device).manual_seed(seed)
 
     def draw(shape, lo, hi):
@@ -3900,16 +3923,22 @@ def _attention_d80_times(dev, g, errs) -> list:
 
 def check_ssd_zamba(dev) -> list:
     """The scan forward and backward at the hybrid path's shape (4, 4608,
-    80 heads of 64, state 64, chunk 128, bf16, x, bm and cm as column
-    slices of one buffer as the model passes them), which take the
-    tensor-core kernels at state 64: against the plain versions at phase
-    10's and 14's bf16 bands, on the wgmma variant, then their times
-    (replayed graphs), the f32 FMA passes' on the same inputs
-    (``fma_route``), the plain versions' and the bounds.  Returns the two
-    kernel rows."""
-    g = torch.Generator(device=dev).manual_seed(26)
-    B, L, H, P, N, Q = (B_SERVE, HY_SEQ, HY_SSD_HEADS, SSM_HEAD_DIM,
-                        HY_STATE, SSM_CHUNK)
+    80 heads of 64, state 64, chunk 128, bf16), which take the tensor-core
+    kernels at state 64 (``ssd_shape_rows``)."""
+    return ssd_shape_rows(dev, HY_SSD_HEADS, HY_STATE, "zamba2", 26)
+
+
+def ssd_shape_rows(dev, H: int, N: int, tag: str, seed: int) -> list:
+    """The scan forward and backward at (``B_SERVE``, ``HY_SEQ``, ``H``
+    heads of 64, state ``N``, chunk 128, bf16, x, bm and cm as column
+    slices of one buffer as the model passes them), on the tensor-core
+    kernels: against the plain versions at phase 10's and 14's bf16
+    bands, on the wgmma variant, then their times (replayed graphs), the
+    f32 FMA passes' on the same inputs (``fma_route``), the plain
+    versions' and the bounds.  Returns the two kernel rows, named
+    ``ssd_scan_<tag>`` and ``ssd_scan_bwd_<tag>``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, L, P, Q = B_SERVE, HY_SEQ, SSM_HEAD_DIM, SSM_CHUNK
     x, dt, a, bm, cm = _ssd_inputs(g, dev, B, L, H, P, N, "mamba2",
                                    torch.bfloat16)
     x, bm, cm = _ssd_conv_slices(x, bm, cm)
@@ -3920,7 +3949,7 @@ def check_ssd_zamba(dev) -> list:
     ran = all_variants()
     for name in ("ssd_scan", "ssd_scan_bwd"):
         if ran[name]["wgmma"] - before[name]["wgmma"] != 1:
-            fail(f"{name} at the zamba2 shape did not run the tensor-core "
+            fail(f"{name} at the {tag} shape did not run the tensor-core "
                  f"kernel")
     y_ref, h_ref = ref.ssd_chunked_ref(x, dt, a, bm, cm, Q)
     want = ref.ssd_scan_bwd_ref(x, dt, a, bm, cm, dy, None, Q)
@@ -3930,7 +3959,7 @@ def check_ssd_zamba(dev) -> list:
     abs_err = [float((y.float() - y_ref.float()).abs().max()), max(
         float((a_.float() - b_.float()).abs().max())
         for a_, b_ in zip(grads, want))]
-    log(f"  ssd_scan zamba2 shape (B={B}, L={L}, H={H}, P={P}, N={N}, Q={Q}) "
+    log(f"  ssd_scan {tag} shape (B={B}, L={L}, H={H}, P={P}, N={N}, Q={Q}) "
         f"bf16 (wgmma): y {y_err:.2e}, final state {h_err:.2e} of max|plain| "
         f"(bands {SSD_Y_BAND[torch.bfloat16]}, {SSD_H_BAND}); backward "
         + ", ".join(f"{n} {e:.2e}" for n, e in zip(SSD_GRADS, g_err))
@@ -3939,11 +3968,11 @@ def check_ssd_zamba(dev) -> list:
                                 for f in (False, True, True, False, False))
         + ")")
     if y_err > SSD_Y_BAND[torch.bfloat16] or h_err > SSD_H_BAND:
-        fail("ssd_scan off at the zamba2 shape")
+        fail(f"ssd_scan off at the {tag} shape")
     for n, e, f32_out in zip(SSD_GRADS, g_err,
                              (False, True, True, False, False)):
         if e > (SSD_BWD_F32_BAND if f32_out else SSD_BWD_BAND[torch.bfloat16]):
-            fail(f"ssd_scan_bwd {n} off at the zamba2 shape")
+            fail(f"ssd_scan_bwd {n} off at the {tag} shape")
     del y, hT, grads, y_ref, h_ref, want
     torch.cuda.empty_cache()
     ms = graph_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=Q), 5)
@@ -3958,10 +3987,10 @@ def check_ssd_zamba(dev) -> list:
         x, dt, a, bm, cm, dy, None, Q), 1, 1)
     rows = []
     for name, kms, fms, pms, bound_fn, src, rep_, err, aerr in (
-            ("ssd_scan_zamba2", ms, fma_ms, plain_ms, _ssd_fwd_bound,
+            (f"ssd_scan_{tag}", ms, fma_ms, plain_ms, _ssd_fwd_bound,
              "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:77", y_err,
              abs_err[0]),
-            ("ssd_scan_bwd_zamba2", bwd_ms, fma_bwd_ms, plain_bwd_ms,
+            (f"ssd_scan_bwd_{tag}", bwd_ms, fma_bwd_ms, plain_bwd_ms,
              _ssd_bwd_bound, "ssd_scan_bwd_wgmma.cu",
              "none (JAX autodiff of src/repro/models/ssm.py:84)",
              max(g_err), abs_err[1])):
@@ -3975,7 +4004,8 @@ def check_ssd_zamba(dev) -> list:
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": rep_, "max_abs_err": aerr, "max_rel_err": err,
             "ms": kms, "fma_ms": fms, "plain_ms": pms, "bound_ms": bound,
-            "bound_by": by, "library_ms": None})
+            "bound_by": by, "library_ms": None,
+            "shape": [B, L, H, P, N, Q]})
     del x, dt, a, bm, cm, dy
     torch.cuda.empty_cache()
     return rows
@@ -6374,10 +6404,262 @@ def moe_layer_phase(dev, tmp: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 40
+# the Mamba-2 blocks tensor-parallel over "model" at mp = 16, emulated on one
+# card as phase 39 emulates the MoE layer: each rank's shards run in turn
+# over a one-rank group.  Two of the block's collectives carry values
+# between ranks mid-block, which a one-rank group cannot: the gather of the
+# B and C columns (each rank is handed the gathered columns, and each
+# rank's gradient of them is summed as the reduce-scatter sums it), and
+# the gated norm's sum of squares (``_SsmNormStat``: three passes over the
+# ranks, the statistic first, then each rank's gradient of the total, then
+# the backward with their sum).  (tag, arch) of the two blocks:
+SSM_LAYER_ARCHS = (("zamba2", HY_ARCH), ("mamba2", SSM_ARCH))
+
+
+class _StatStop(Exception):
+    """Ends the statistic pass once a rank's sum of squares is known."""
+
+
+class _SsmNormStat(torch.autograd.Function):
+    """A rank's norm statistic under the emulation: forward the total over
+    the ranks, backward the sum of the ranks' gradients of it, both
+    collected by earlier passes over the ranks."""
+
+    @staticmethod
+    def forward(ctx, x, total, grad_total):
+        ctx.grad_total = grad_total
+        return total.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.grad_total, None, None
+
+
+@contextlib.contextmanager
+def _ssm_rank_collectives(bc_in, stat):
+    """``sharding.gather_model_sum`` handing each rank ``bc_in()`` (the
+    gathered B and C columns) and ``sharding.sum_over_model`` replaced by
+    ``stat`` in the body; ``ops.ssd_scan`` left as it is."""
+    from repro_torch import sharding as shlib
+    saved = shlib.gather_model_sum, shlib.sum_over_model
+    shlib.gather_model_sum = lambda x, dim, tp: bc_in()
+    shlib.sum_over_model = stat
+    try:
+        yield
+    finally:
+        shlib.gather_model_sum, shlib.sum_over_model = saved
+
+
+@contextlib.contextmanager
+def scan_shapes(record: list):
+    """(x shape, state width) of every ``ops.ssd_scan`` call appended to
+    ``record``."""
+    saved = ops.ssd_scan
+
+    def call(x, dt, a, bm, cm, **k):
+        record.append(tuple(x.shape) + (bm.shape[-1],))
+        return saved(x, dt, a, bm, cm, **k)
+
+    ops.ssd_scan = call
+    try:
+        yield
+    finally:
+        ops.ssd_scan = saved
+
+
+def ssm_layer_ranks(dev, arch: str, group, mp: int = LAYER_MP, cfg=None,
+                    seed: int = 40) -> dict:
+    """One Mamba-2 block of ``arch`` (``cfg``: another config, as a reduced
+    one) at full width, bf16 on the card, random weights from ``seed``
+    with the SSM leaves drawn from Mamba-2's init (``draw_ssm_leaves``),
+    from a random normed input at the flow shape (``B_SERVE`` x
+    ``HY_SEQ``) and a random upstream gradient: once whole, then as each of
+    ``mp`` ranks with its shard of every leaf (the production layout's
+    ``use_layout``, a packed leaf cut by ``sharding.pack_cut``) under
+    ``model_rank``, the B / C gather and the norm's statistic emulated
+    (``_ssm_rank_collectives``).  The ranks' outputs and input gradients,
+    summed, the shards' gradients, concatenated, and the gathered B / C
+    columns' gradients, summed, are held against the whole block's to
+    ``LAYER_RANK_BAND``.  Returns the gaps, the ranks' kernel launches by
+    variant and the (x shape, N) of every scan call."""
+    from repro_torch import sharding as shlib
+    from repro_torch.models import ssm as ssm_mod
+    cfg = cfg or configs.get(arch)
+    m = ssm_mod.dims(cfg)
+    d_in, N, K, d = m["d_in"], m["N"], m["d_conv"], cfg.d_model
+    spec = ssm_mod.spec(cfg)
+    rules = shlib.production_rules(_ModelAxis(mp))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = params_lib.init(spec, gen, torch.bfloat16, dev)
+    draw_ssm_leaves(p, seed)
+    h, dy = (torch.randn((B_SERVE, HY_SEQ, d), generator=gen,
+                         device=dev).to(torch.bfloat16) for _ in range(2))
+
+    def fn(q, x):
+        return ssm_mod.apply_full(q, cfg, x)[0]
+
+    y, dx, grads = _region(fn, p, h, dy)
+    # the B and C columns of in_proj, conv_w and conv_b, canonical [B | C],
+    # and in the order an all-gather of the ranks' packed shards gives them
+    whole_bc = torch.cat([p["in_proj"][:, 2 * d_in:2 * d_in + 2 * N],
+                          p["conv_w"][:, d_in:], p["conv_b"][None, d_in:]], 0)
+    order = [c for r in range(mp) for c in shlib.pack_columns((N, N), mp, r)]
+    gathered = whole_bc[:, order].contiguous()
+    cut = {}
+    for path, s in params_lib.leaves(spec):
+        dim = shlib.use_layout(s.shape, s.axes, rules, _ModelAxis(mp))[1]
+        cut[path] = (dim, s.parts if shlib.packed(s.parts, s.shape, dim, mp)
+                     else ())
+
+    def shard_of(r):
+        out = {}
+        for path, t in params_lib.leaves(p):
+            dim, parts = cut[path]
+            if parts:
+                t = shlib.pack_cut(t, dim, parts, mp, r)
+            elif dim is not None:
+                k = t.shape[dim] // mp
+                t = t.narrow(dim, r * k, k)
+            params_lib._set(out, path, t.clone())
+        return out
+
+    reset_counts()
+    shapes = []
+    # pass 1: each rank's sum of squares (forward to the norm)
+    stats = []
+
+    def record(x, tp):
+        stats.append(x.detach().clone())
+        raise _StatStop
+
+    with torch.no_grad(), scan_shapes(shapes):
+        for r in range(mp):
+            with model_rank(group, mp, r), _ssm_rank_collectives(
+                    lambda: gathered, record):
+                try:
+                    fn(shard_of(r), h)
+                except _StatStop:
+                    pass
+    total = torch.stack(stats).sum(0)
+    # pass 2: each rank's gradient of the total
+    grad_total = torch.zeros_like(total)
+    for r in range(mp):
+        t = total.clone().requires_grad_()
+        with model_rank(group, mp, r), _ssm_rank_collectives(
+                lambda: gathered, lambda x, tp: t), scan_shapes(shapes):
+            y_r = fn(shard_of(r), h)
+        grad_total += torch.autograd.grad(y_r, t, dy)[0]
+        del y_r
+    # pass 3: the backward with the summed gradient of the statistic
+    y_sum = torch.zeros_like(y, dtype=torch.float32)
+    dx_sum = torch.zeros_like(dx, dtype=torch.float32)
+    g_cat = {path: torch.zeros_like(g, dtype=torch.float32)
+             for path, g in grads.items()}
+    bc_sum = torch.zeros_like(gathered, dtype=torch.float32)
+    for r in range(mp):
+        bc_in = gathered.clone().requires_grad_()
+        shard = shard_of(r)
+        with model_rank(group, mp, r), _ssm_rank_collectives(
+                lambda: bc_in, lambda x, tp: _SsmNormStat.apply(
+                    x, total, grad_total)), scan_shapes(shapes):
+            y_r, dx_r, g_r = _region(fn, shard, h, dy)
+        y_sum += y_r.float()
+        dx_sum += dx_r.float()
+        bc_sum += bc_in.grad.float()
+        held = dict(params_lib.leaves(shard))
+        for path, g in g_r.items():
+            dim, parts = cut[path]
+            if g is None:      # a leaf this rank does not read
+                g = torch.zeros_like(held[path])
+            if dim is None:
+                g_cat[path] += g.float()
+            elif parts:
+                cols = torch.tensor(shlib.pack_columns(parts, mp, r),
+                                    device=dev)
+                g_cat[path].index_add_(dim, cols, g.float())
+            else:
+                k = g.shape[dim]
+                g_cat[path].narrow(dim, r * k, k).add_(g.float())
+        del shard, y_r, dx_r, g_r, bc_in
+    bc = torch.empty_like(bc_sum)
+    bc[:, order] = bc_sum
+    g_cat[("in_proj",)][:, 2 * d_in:2 * d_in + 2 * N] += bc[:d]
+    g_cat[("conv_w",)][:, d_in:] += bc[d:d + K]
+    g_cat[("conv_b",)][d_in:] += bc[d + K]
+    whole_bc_grad = torch.cat([
+        grads[("in_proj",)][:, 2 * d_in:2 * d_in + 2 * N],
+        grads[("conv_w",)][:, d_in:], grads[("conv_b",)][None, d_in:]], 0)
+    gaps = {"out": _rel(y_sum, y), "dx": _rel(dx_sum, dx),
+            "B/C columns (sum)": _rel(bc, whole_bc_grad)}
+    gaps.update({"/".join(path) + (" (sum)" if cut[path][0] is None
+                                   else " (shards)"):
+                 _rel(g_cat[path], grads[path]) for path in grads})
+    out = {"gaps": gaps, "launches": counts(), "variants": all_variants(),
+           "scan_shapes": sorted(set(shapes)), "scan_calls": len(shapes)}
+    del p, y, dx, grads, y_sum, dx_sum, g_cat, gathered, whole_bc
+    gc.collect()
+    return out
+
+
+def ssm_layer_phase(dev, tmp: str) -> dict:
+    """Phase 40: ``ssm_layer_ranks`` for one ``zamba2-2.7b`` and one
+    ``mamba2-370m`` Mamba-2 block at mp = 16 on a one-rank NCCL group:
+    every gap within ``LAYER_RANK_BAND``; every scan of the ranks, three
+    forwards and one backward a rank, on ``wgmma`` at a rank's heads (5 of
+    80 at state 64, 2 of 32 at state 128), no other kernel; then the scan
+    forward and backward at those shapes against their plain versions, and
+    their times (``ssd_shape_rows``)."""
+    import torch.distributed as dist
+    mesh, _ = one_rank_group(tmp, "nccl_store_40")
+    try:
+        res = {tag: ssm_layer_ranks(dev, arch, mesh.get_group("model"))
+               for tag, arch in SSM_LAYER_ARCHS}
+    finally:
+        dist.destroy_process_group()
+    ok = True
+    for tag, arch in SSM_LAYER_ARCHS:
+        r = res[tag]
+        cfg = configs.get(arch)
+        H = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+        want_shape = [(B_SERVE, HY_SEQ, H // LAYER_MP, cfg.ssm.head_dim,
+                       cfg.ssm.d_state)]
+        want = {name: 0 for name in r["launches"]}
+        want.update(ssd_scan=3 * LAYER_MP, ssd_scan_bwd=LAYER_MP)
+        worst = max(r["gaps"].values())
+        launches_ok = (
+            r["launches"] == want
+            and r["variants"]["ssd_scan"] == routed(3 * LAYER_MP, "wgmma")
+            and r["variants"]["ssd_scan_bwd"] == routed(LAYER_MP, "wgmma")
+            and r["scan_shapes"] == want_shape
+            and r["scan_calls"] == 3 * LAYER_MP)
+        log(f"  {arch} one Mamba-2 block at mp {LAYER_MP} ({LAYER_MP} ranks "
+            f"in turn), ({B_SERVE}, {HY_SEQ}) bf16: worst gap {worst:.3e} "
+            f"(band {LAYER_RANK_BAND}); every gap {json.dumps(r['gaps'])}; "
+            f"the ranks' launches {r['launches']} (expected {want}), "
+            f"variants {r['variants']['ssd_scan']} / "
+            f"{r['variants']['ssd_scan_bwd']}, scan (x shape, N) "
+            f"{r['scan_shapes']} (expected {want_shape})")
+        if worst > LAYER_RANK_BAND or not launches_ok:
+            ok = False
+    if not ok:
+        fail("a Mamba-2 block's 16 rank shards do not match the whole block, "
+             "or their scans did not run as the layout calls for")
+    res["rank_rows"] = []
+    for tag, arch in SSM_LAYER_ARCHS:
+        cfg = configs.get(arch)
+        H = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+        res["rank_rows"] += ssd_shape_rows(dev, H // LAYER_MP,
+                                           cfg.ssm.d_state, f"{tag}_rank",
+                                           400 + len(res["rank_rows"]))
+    res["card"] = card_line()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", metavar="N,N,...",
-                    help="run only these of phases 3-39 after the device and "
+                    help="run only these of phases 3-40 after the device and "
                          "build phases, and print no result lines (a "
                          "development aid; the check runs every phase)")
     args = ap.parse_args(argv)
@@ -6652,6 +6934,12 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         layer_res = moe_layer_phase(dev, tmp)
 
+    begin(40, f"the Mamba-2 blocks tensor-parallel at mp {LAYER_MP}: one "
+          f"{HY_ARCH} and one {SSM_ARCH} block at full width, their "
+          f"{LAYER_MP} rank shards in turn against the whole block")
+    with tempfile.TemporaryDirectory() as tmp:
+        ssm_layer_res = ssm_layer_phase(dev, tmp)
+
     def layer_launches(arch: str, name: str) -> int:
         return layer_res[arch]["launches"]["attn"].get(name, 0)
 
@@ -6694,7 +6982,9 @@ def main(argv=None) -> int:
                 **{f"sweep_{t}": r["launches"][name]
                    for t, r in sweep_res["combos"].items()},
                 "layer_deepseek_mp16": layer_launches(DS_ARCH, name),
-                "layer_grok_mp16": layer_launches(GROK_ARCH, name)}
+                "layer_grok_mp16": layer_launches(GROK_ARCH, name),
+                **{f"layer_{tag}_mp16": ssm_layer_res[tag]["launches"][name]
+                   for tag, _ in SSM_LAYER_ARCHS}}
 
     for row in rows:
         row["launches"] = train_res["launches"][row["name"]]
@@ -6738,6 +7028,14 @@ def main(argv=None) -> int:
                 f"{MLA_QK}x{MLA_V}"]}
         row["launches"] = row["launches_by_path"]["layer_deepseek_mp16"]
     rows += layer_res["rank_rows"]
+    # the scan at a rank's heads (phase 40): launches on that rank's block
+    for row in ssm_layer_res["rank_rows"]:
+        kernel, tag, _ = row["name"].rsplit("_", 2)
+        path = f"layer_{tag}_mp16"
+        row["launches_by_path"] = {
+            path: ssm_layer_res[tag]["launches"][kernel]}
+        row["launches"] = row["launches_by_path"][path]
+    rows += ssm_layer_res["rank_rows"]
     # the new shapes' rows, each with the launches of the path that runs
     # it at that shape: internvl2-1b's (a group of 7) and musicgen-large's
     # (a group of 1) flow shapes on their own serving (forwards) and train
@@ -6783,6 +7081,8 @@ def main(argv=None) -> int:
     print(json.dumps({"layout_path": layout_res}))
     print(json.dumps({"moe_layer_path": {k: v for k, v in layer_res.items()
                                          if k != "rank_rows"}}))
+    print(json.dumps({"ssm_layer_path": {
+        k: v for k, v in ssm_layer_res.items() if k != "rank_rows"}}))
     print(json.dumps({"phase_times": phase_times()}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
@@ -6832,7 +7132,8 @@ def run_only(dev, only: set) -> int:
               35: lambda: lm_phase(dev), 36: _in_tmp(sweep_path),
               37: lint_path,
               38: _in_tmp(lambda tmp: layout_phase(dev, tmp)),
-              39: _in_tmp(lambda tmp: moe_layer_phase(dev, tmp))}
+              39: _in_tmp(lambda tmp: moe_layer_phase(dev, tmp)),
+              40: _in_tmp(lambda tmp: ssm_layer_phase(dev, tmp))}
     for n in sorted(only):
         if n not in phases:
             fail(f"--only: phase {n} cannot run alone")

@@ -215,11 +215,16 @@ class RulePlan(PartitionPlan):
     """The layout of a model's params, and of any state leaf mirroring a
     param, under the production rules' storage table (``rules.stored`` of
     a ``repro_torch.sharding.Rules``): each leaf's (data dim, model dim),
-    ``sharding.stored_layout``.  It keeps the ``PartitionPlan``'s
+    ``sharding.stored_layout``, a packed leaf's model dim cut component by
+    component (``sharding.pack_cut``).  It keeps the ``PartitionPlan``'s
     interface, so a trainer laid out by the rules (``BaseTrainer(...,
     rules=True)``) checkpoints the canonical state, resumes under any
-    layout and reports its bytes as under the plan.  A leaf's
-    entry is its (data dim, model dim), or None where it is whole."""
+    layout and reports its bytes as under the plan.  A leaf's entry is
+    its (data dim, model dim, component widths), or None where it is
+    whole: a dim is None where its axis does not split the leaf, and the
+    widths are those of a model dim cut component by component
+    (``sharding.packed``; empty for a contiguous cut).  A plain tuple, a
+    leaf of the trees ``state_shardings`` returns."""
 
     def __init__(self, mesh, spec, rules):
         self.mesh = mesh
@@ -229,9 +234,12 @@ class RulePlan(PartitionPlan):
         self.data_parallel = mesh_dp(mesh)
         self._table = []
         for path, p in params_lib.leaves(spec):
-            dims = shlib.stored_layout(p.shape, p.axes, rules.stored, mesh)
+            d, m = shlib.stored_layout(p.shape, p.axes, rules.stored, mesh)
+            parts = (p.parts if shlib.packed(p.parts, p.shape, m,
+                                             self.model_parallel) else ())
             self._table.append((path, tuple(p.shape),
-                                None if dims == (None, None) else dims))
+                                None if (d, m) == (None, None)
+                                else (d, m, parts)))
 
     def param_shardings(self):
         raise NotImplementedError(
@@ -242,9 +250,11 @@ class RulePlan(PartitionPlan):
                 else shlib.local_shape(shape, dims, self.mesh))
 
     def _cuts(self, dims):
-        """(dim, ranks, this rank's index) of each sharded dim."""
+        """(dim, ranks, this rank's index, component widths or ()) of each
+        sharded dim."""
         return [(d, shlib.axis_size(self.mesh, name),
-                 shlib._coord(self.mesh, name))
+                 shlib._coord(self.mesh, name),
+                 dims[2] if name == "model" else ())
                 for d, name in zip(dims, ("data", "model")) if d is not None]
 
     def shard_leaf(self, t: torch.Tensor, dims) -> torch.Tensor:
@@ -253,22 +263,30 @@ class RulePlan(PartitionPlan):
         itself when whole."""
         if dims is None:
             return t
-        for d, n, r in self._cuts(dims):
-            k = t.shape[d] // n
-            t = t.narrow(d, r * k, k)
+        for d, n, r, parts in self._cuts(dims):
+            if parts:
+                t = shlib.pack_cut(t, d, parts, n, r)
+            else:
+                k = t.shape[d] // n
+                t = t.narrow(d, r * k, k)
         return t.clone(memory_format=torch.contiguous_format)
 
     def gather_state(self, state):
         """The canonical tree of a sharded one: each sharded dim
-        all-gathered over its axis (collective over the mesh)."""
+        all-gathered over its axis (collective over the mesh), a packed
+        one put back in canonical order."""
         flat_dims = dict(_flatten(self.state_shardings(state)))
 
         def one(path, leaf):
             dims = flat_dims[path]
-            for d, name in zip(dims or (), ("data", "model")):
+            if dims is None:
+                return leaf
+            for d, name in zip(dims, ("data", "model")):
                 if d is not None:
-                    leaf = gather_dim(leaf, d, self.mesh.get_group(name),
-                                      shlib.axis_size(self.mesh, name))
+                    n = shlib.axis_size(self.mesh, name)
+                    leaf = gather_dim(leaf, d, self.mesh.get_group(name), n)
+                    if name == "model" and dims[2]:
+                        leaf = shlib.unpack(leaf, d, dims[2], n)
             return leaf
         return _map(state, one)
 
@@ -283,9 +301,10 @@ class RulePlan(PartitionPlan):
             if dims is None:
                 return arr
             idx = [slice(None)] * arr.ndim
-            for d, n, r in self._cuts(dims):
+            for d, n, r, parts in self._cuts(dims):
                 k = arr.shape[d] // n
-                idx[d] = slice(r * k, (r + 1) * k)
+                idx[d] = (shlib.pack_columns(parts, n, r) if parts
+                          else slice(r * k, (r + 1) * k))
             return arr[tuple(idx)]
         return cut
 
@@ -299,7 +318,7 @@ class RulePlan(PartitionPlan):
             dims, pshape = self._match(path, _shape(leaf))
             nbytes = leaf.numel() * leaf.element_size()
             split = 1 if dims is None else math.prod(
-                n for _, n, _ in self._cuts(dims))
+                n for _, n, _, _ in self._cuts(dims))
             if dims is not None and _shape(leaf) != pshape:
                 nbytes *= split                  # a shard: scale it up
             total += nbytes

@@ -17,12 +17,13 @@ shard over "data" only when ``2 · n_params / mp`` exceeds
 ``INFERENCE_FSDP_THRESHOLD``.  At use each block gathers its "data"
 shard (ZeRO-3 over "data", the expert tables' ``moe_in`` / ``moe_out``
 too, ``sharding.DATA_GATHERED_AXES``) and keeps its "model" shard:
-attention, MLA, the SwiGLU MLP, the routed experts' hidden dim and the
-vocabulary run tensor-parallel; the Mamba-2 blocks, and the routed
-experts under ``ep_model``, are gathered whole
+attention, MLA, the SwiGLU MLP, the routed experts' hidden dim, the
+Mamba-2 blocks' SSD heads and the vocabulary run tensor-parallel; the
+routed experts under ``ep_model`` are gathered whole
 (``sharding.GATHERED_WHOLE``).  The batch splits over "data" and the
-decode caches hold this rank's rows and kv heads (MLA's latent cache has
-no heads axis and stays whole over "model").  Where
+decode caches hold this rank's rows, kv heads, SSD heads and conv
+channels (MLA's latent cache has no heads axis and stays whole over
+"model").  Where
 the reference leaves a serving step's weights to XLA
 (``set_param_gather(None)``), the port gathers the "data" shard at use as
 in training.  So each spec here is this rank's shard, and the second
@@ -86,11 +87,11 @@ def layout(mesh, batch: int, *, fsdp: bool = True) -> str:
             f"params sharded over model ({mp}) on heads, kv_heads, mlp, "
             f"vocab, inner, experts_mdl {data}, a leaf whole under these "
             f"over model as the PartitionPlan; attention, MLA, SwiGLU, the "
-            f"routed experts' hidden dim and the vocabulary "
-            f"tensor-parallel, Mamba-2, ep_model's routed experts and the "
+            f"routed experts' hidden dim, Mamba-2's SSD heads and the "
+            f"vocabulary tensor-parallel, ep_model's routed experts and the "
             f"leaves whole under the tables gathered whole at use; "
-            f"{split}; KV caches by kv head over model, MLA's latent cache "
-            f"whole")
+            f"{split}; KV caches by kv head and SSM caches by SSD head over "
+            f"model, MLA's latent cache whole")
 
 
 # ---------------------------------------------------------------------------
@@ -160,8 +161,9 @@ def _rules(mesh, fsdp: bool) -> Optional[shlib.Rules]:
 
 
 def cache_specs(cfg: ArchConfig, shape: InputShape, mesh):
-    """The caches ``tasks.init_caches`` preallocates for this rank's rows
-    and kv heads of a decode shape (bf16, the SSM state f32), on meta."""
+    """The caches ``tasks.init_caches`` preallocates for this rank's rows,
+    kv heads, SSD heads and conv channels of a decode shape (bf16, the SSM
+    state f32), on meta."""
     with shlib.param_gather(mesh, _rules(mesh, False)):
         return tasks.init_caches(cfg, local_batch(shape.global_batch, mesh),
                                  tasks.effective_cache_len(cfg, shape), BF16,

@@ -57,9 +57,12 @@ tensor-parallel (``attention``, ``mla``, ``layers.mlp``, ``moe``), as do
 the embedding (each rank looks up its vocabulary rows, the others' tokens
 masked, the sum taken over "model"), the LM head and the CE
 (``layers.chunked_ce_loss``); the serving steps gather the logits over
-"model" before they return.  The Mamba-2 blocks, and the routed experts
-under ``ep_model``, are gathered whole (``sharding.GATHERED_WHOLE``, named
-per block by ``_parts``); the decode caches hold this rank's kv heads
+"model" before they return.  The Mamba-2 blocks run tensor-parallel over
+their SSD heads (``ssm``) where the "model" axis divides the heads and
+the state; the routed experts under ``ep_model``, and a Mamba-2 block the
+axis does not divide, are gathered whole (``sharding.GATHERED_WHOLE``,
+named per block by ``_parts``); the decode caches hold this rank's kv
+heads, and its SSD heads' states and conv channels
 (``sharding.cache_extent``; MLA's latent cache has none and stays whole).
 
 ``remat=True`` (``PerfConfig.remat="block"``, and the LM train step's
@@ -106,12 +109,13 @@ def _ssm_block_spec(cfg: ArchConfig) -> Dict:
     return {"ln": layers.rmsnorm_spec(cfg.d_model), "ssm": ssm.spec(cfg)}
 
 
-def _parts(cfg: ArchConfig, spec: Dict):
+def _parts(cfg: ArchConfig, spec: Dict, mp: int = 1):
     """The ``GATHERED_WHOLE`` names of a block spec's parts that do not
-    run tensor-parallel (``sharding.constrain_params``' ``parts``)."""
+    run tensor-parallel over a "model" axis of ``mp`` ranks
+    (``sharding.constrain_params``' ``parts``)."""
     parts: Dict = {}
-    if "ssm" in spec:
-        parts["ssm"] = "ssm"
+    if "ssm" in spec and mp > 1 and not ssm.splits(cfg, mp):
+        parts["ssm"] = "ssm_undivided"
     if "router" in spec.get("ffn", {}) and moe.moe_mode(cfg) == "ep_model":
         parts["ffn"] = {k: "experts" for k in ("w_gate", "w_up", "w_down")}
     return parts or None
@@ -193,7 +197,6 @@ class Backbone:
             self._groups = cfg.n_layers // self._every
             self._shared_spec = _attn_block_spec(cfg)
         self._top_spec = None
-        self._block_parts = _parts(cfg, self._block_spec)
         if self._first_dense:
             self._dense_parts = _parts(cfg, self._dense_spec)
 
@@ -368,6 +371,8 @@ class Backbone:
         cfg = self.cfg
         fam = cfg.family
         mesh, rules = shlib.current_mesh(), shlib.current_rules()
+        block_parts = _parts(cfg, self._block_spec,
+                             shlib.axis_size(mesh, "model"))
         caches = (self.init_caches(x.shape[0], x.shape[1], x.dtype,
                                    x.device) if return_caches else None)
         if fam != "ssm":
@@ -385,7 +390,7 @@ class Backbone:
                     self._dense_block, ffn="moe", aux=return_aux, **kw)
 
         def run(p, x, slot=None, spec=self._block_spec, block=block,
-                parts=self._block_parts):
+                parts=block_parts):
             return block(shlib.constrain_params(p, spec, mesh, rules, parts),
                          x, slot)
 
@@ -446,6 +451,8 @@ class Backbone:
         cfg = self.cfg
         fam = cfg.family
         mesh, rules = shlib.current_mesh(), shlib.current_rules()
+        block_parts = _parts(cfg, self._block_spec,
+                             shlib.axis_size(mesh, "model"))
 
         def gathered(p, spec, parts=None):
             return shlib.constrain_params(p, spec, mesh, rules, parts)
@@ -459,8 +466,7 @@ class Backbone:
                 slot = (_index(_index(caches[0], i // every), i % every)
                         if fam == "hybrid" else _index(caches, i))
                 x = self._ssm_block_decode(
-                    gathered(p, self._block_spec, self._block_parts), x,
-                    slot)
+                    gathered(p, self._block_spec, block_parts), x, slot)
                 if fam == "hybrid" and i % every == every - 1:
                     x = self._attn_block_decode(
                         gathered(params["shared_attn"], self._shared_spec),
@@ -476,7 +482,7 @@ class Backbone:
             else:
                 caches_m = caches
             ffn = "moe" if fam == "moe" else "mlp"
-            units += [(p, self._block_spec, self._block_parts,
+            units += [(p, self._block_spec, block_parts,
                        _index(caches_m, i), ffn)
                       for i, p in enumerate(_unbind(
                           params["blocks"], cfg.n_layers - self._first_dense))]
@@ -527,10 +533,16 @@ class Backbone:
         in f32 (the scan's and the recurrence's state dtype; the
         reference's zeros take ``dtype`` and turn f32 at its first
         decode).  Under the production rules the kv heads are this rank's
-        (``sharding.cache_extent``)."""
+        (``sharding.cache_extent``), and so are the SSD heads and the conv
+        channels where the Mamba-2 blocks run tensor-parallel."""
+        tp = shlib.current_tp()
+        split = {"kv_heads"}
+        if self.cfg.family in ("ssm", "hybrid") and tp is not None and \
+                ssm.splits(self.cfg, tp.size):
+            split |= {"inner", "ssm_heads"}
+
         def leaf(sa, name):
-            shape = tuple(shlib.cache_extent(n, "kv_heads")
-                          if ax == "kv_heads" else n
+            shape = tuple(shlib.cache_extent(n, ax) if ax in split else n
                           for n, ax in zip(*sa))
             return torch.zeros(shape, dtype=F32 if name == "state" else dtype,
                                device=device)

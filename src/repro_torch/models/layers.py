@@ -45,10 +45,18 @@ def rmsnorm_spec(d: int) -> P:
     return P((d,), ("norm",), "ones")
 
 
-def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-5
-            ) -> torch.Tensor:
+def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-5,
+            tp: Optional[shlib.TP] = None) -> torch.Tensor:
+    """RMSNorm over the last dim.  With ``tp`` x (and ``w``) is this
+    rank's slice of a dim split evenly over "model": the f32 sum of
+    squares is summed over the ranks (``sharding.sum_over_model``) and
+    divided by the whole width."""
     xf = x.to(F32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if tp is None:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        var = shlib.sum_over_model(torch.sum(xf * xf, dim=-1, keepdim=True),
+                                   tp) / (x.shape[-1] * tp.size)
     y = xf * torch.rsqrt(var + eps)
     return (y * w.to(F32)).to(x.dtype)
 

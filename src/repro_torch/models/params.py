@@ -28,6 +28,10 @@ class P:
     axes: Tuple[Optional[str], ...]
     init: str = "normal"          # normal | zeros | ones | small
     scale: Optional[float] = None  # stddev override; default 1/sqrt(fan_in)
+    # the widths of the components packed along the last dim (Mamba-2's
+    # in_proj: z, x, B, C, dt; its conv: x, B, C), where a split over
+    # "model" takes each component's slice (``sharding.packed``)
+    parts: Tuple[int, ...] = ()
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
@@ -56,7 +60,7 @@ def stack(spec, n: int, axis_name: Optional[str] = "layers"):
     if isinstance(spec, dict):
         return {k: stack(v, n, axis_name) for k, v in spec.items()}
     return P((n,) + spec.shape, (axis_name,) + spec.axes, spec.init,
-             spec.scale)
+             spec.scale, spec.parts)
 
 
 # Logical axes eligible for "model"-axis sharding, in priority order (the

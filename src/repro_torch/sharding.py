@@ -45,10 +45,28 @@ layout:
   over "data" like every other leaf (``DATA_GATHERED_AXES``, a
   difference by construction: the port's dispatch is local to a rank's
   rows);
-* the parts in ``GATHERED_WHOLE`` are not tensor-parallel yet: their
-  "model" dim is gathered too, as in the trainers' layout (the Mamba-2
-  blocks, and the routed experts under ``ep_model`` only);
-* ``rules.arules`` (``act_rules``) lays out the decode caches: kv heads over
+* the Mamba-2 blocks run tensor-parallel over their SSD heads where the
+  axis divides the heads and the state (``models/ssm.py``): ``in_proj``,
+  the conv, the gated norm and ``out_proj`` at a rank's heads, x through
+  *f*, ``out_proj``'s partial sums through *g*.  Their packed leaves
+  (``in_proj``'s z, x, B, C, dt; the conv's x, B, C: ``P.parts``) are
+  stored with each component's slice of the rank (:func:`pack_cut`), the
+  reference's shard shape in component order.  Every head reads all of B
+  and C (one state group), so the block gathers their columns of
+  ``in_proj`` and the conv over "model" (:func:`gather_model_sum`, route
+  (a): d_model × 2N values a layer, where *f* on the (B, L, 2N)
+  activations would all-reduce those in the backward); a rank's gradient
+  of them is its heads' part, so the gather's backward sums over "model"
+  where ``GatherParam``'s means.  The gated RMSNorm spans the whole inner
+  width: each rank's sum of squares is all-reduced over "model" forward
+  and backward (:func:`sum_over_model`);
+* the parts in ``GATHERED_WHOLE`` are not tensor-parallel: their "model"
+  dim is gathered too, as in the trainers' layout (the routed experts
+  under ``ep_model``, and a Mamba-2 block whose heads or state the axis
+  does not divide), a packed leaf put back in canonical order
+  (:func:`unpack`);
+* ``rules.arules`` (``act_rules``) lays out the decode caches: kv heads,
+  and the SSM caches' heads and conv channels (x, B, C each by rank), over
   "model" where the axis divides them.
 
 With no mesh, or a mesh whose axes are 1, nothing is gathered and no
@@ -105,18 +123,20 @@ _CTX: Dict = {"mesh": None, "rules": None, "tp": None}
 # collective issued (the reference's HLO op names as kinds)
 COLLECTIVE_HOOKS: List[Callable[[str, int, int], None]] = []
 
-# The block parts that do not run tensor-parallel over "model" yet: under
-# the production rules their leaves are gathered whole at use (the "model"
-# dim as well as the "data" dim), so every "model" rank computes them on
-# the same rows.  Every other part keeps its "model" shard at use.  The
-# backbone names "experts" only under ``REPRO_MOE_MODE=ep_model``; in
-# tensor and dense modes the routed experts run tensor-parallel over
-# their hidden dim (``models/moe.py``).
+# The block parts that do not run tensor-parallel over "model": under the
+# production rules their leaves are gathered whole at use (the "model" dim
+# as well as the "data" dim), so every "model" rank computes them on the
+# same rows.  Every other part keeps its "model" shard at use.  The
+# backbone names "experts" only under ``REPRO_MOE_MODE=ep_model`` (in
+# tensor and dense modes the routed experts run tensor-parallel over their
+# hidden dim, ``models/moe.py``) and "ssm_undivided" only where the
+# "model" axis does not divide a Mamba-2 block's heads and state.
 GATHERED_WHOLE: Dict[str, str] = {
-    "ssm": "Mamba-2's in_proj packs z, x, B, C and dt on one `inner` axis "
-           "(models/ssm.py:57) and its gated norm spans `inner`: a split "
-           "over 'model' needs the packed projection re-laid and the "
-           "norm's statistics all-reduced",
+    "ssm_undivided": "a Mamba-2 block whose SSD heads or state the 'model' "
+                     "axis does not divide (models/ssm.py: splits): a "
+                     "rank's heads would take uneven slices of the packed "
+                     "in_proj, so it runs whole on every rank, as kv heads "
+                     "that do not divide do",
     "experts": "ep_model only: the reference lays the experts over "
                "'model' (experts_mdl) and sends each token row to its "
                "experts' rank and back with an all-to-all; that all-to-all "
@@ -294,6 +314,53 @@ def local_shape(shape: Tuple[int, ...], dims: Tuple[Optional[int],
     return tuple(s)
 
 
+def packed(parts: Tuple[int, ...], shape: Tuple[int, ...],
+           dim: Optional[int], n: int) -> bool:
+    """Whether a leaf whose last dim packs components of widths ``parts``
+    (``P.parts``) and is split ``n`` ways on ``dim`` is cut component by
+    component: ``dim`` is that last dim and ``n`` divides every width.
+    Otherwise the cut is a contiguous slice, as for any leaf."""
+    return (bool(parts) and dim is not None and dim == len(shape) - 1
+            and n > 1 and all(w % n == 0 for w in parts))
+
+
+def pack_columns(parts: Tuple[int, ...], n: int, r: int) -> List[int]:
+    """The canonical indices, along the packed dim, of rank ``r``'s shard
+    of ``n``: the r-th ``1/n`` of each component, in component order."""
+    out: List[int] = []
+    start = 0
+    for w in parts:
+        k = w // n
+        out.extend(range(start + r * k, start + (r + 1) * k))
+        start += w
+    return out
+
+
+def pack_cut(t: torch.Tensor, dim: int, parts: Tuple[int, ...], n: int,
+             r: int) -> torch.Tensor:
+    """Rank ``r``'s shard of ``t`` packed along ``dim`` (a new tensor)."""
+    pieces, start = [], 0
+    for w in parts:
+        k = w // n
+        pieces.append(t.narrow(dim, start + r * k, k))
+        start += w
+    return torch.cat(pieces, dim)
+
+
+def unpack(t: torch.Tensor, dim: int, parts: Tuple[int, ...], n: int
+           ) -> torch.Tensor:
+    """The canonical order of ``t``, the ``n`` ranks' packed shards
+    concatenated along ``dim`` (rank order): each component's ``n`` slices
+    put back together, component after component."""
+    shards = torch.chunk(t, n, dim)
+    out, start = [], 0
+    for w in parts:
+        k = w // n
+        out += [s.narrow(dim, start, k) for s in shards]
+        start += k
+    return torch.cat(out, dim)
+
+
 def stored_layout(shape: Tuple[int, ...], axes: Axes, rules: RuleTable,
                   mesh) -> Tuple[Optional[int], Optional[int]]:
     """(data dim, model dim) of a leaf in storage under the table
@@ -359,16 +426,19 @@ def gather_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     return out.movedim(0, dim).contiguous() if dim else out
 
 
-def scatter_mean_dim(x: torch.Tensor, dim: int, group, n: int
-                     ) -> torch.Tensor:
-    """This rank's ``1/n`` chunk along ``dim`` of the mean over the ``n``
-    ranks of ``x``: reduce-scattered in f32 and cast back."""
+def scatter_mean_dim(x: torch.Tensor, dim: int, group, n: int,
+                     mean: bool = True) -> torch.Tensor:
+    """This rank's ``1/n`` chunk along ``dim`` of the mean (``mean``, else
+    the sum) over the ``n`` ranks of ``x``: reduce-scattered in f32 and
+    cast back."""
     src = x.to(F32).movedim(dim, 0).contiguous()
     out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
                       dtype=F32, device=src.device)
     _reduce_scatter_fn()(out, src, group=group)
     _note("reduce-scatter", out, group, n)
-    out = out.div_(n).to(x.dtype)
+    if mean:
+        out.div_(n)
+    out = out.to(x.dtype)
     return out.movedim(0, dim).contiguous() if dim else out
 
 
@@ -422,6 +492,39 @@ class GatherParam(torch.autograd.Function):
     def backward(ctx, grad):
         return scatter_mean_dim(grad, ctx.dim, ctx.group, ctx.n), None, \
             None, None
+
+
+class _GatherSumOverModel(torch.autograd.Function):
+    """Forward: ``x`` gathered along ``dim`` from the "model" group;
+    backward: this rank's chunk of the gradient summed over the group (a
+    weight each rank uses on its own heads, so that each holds a part of
+    its gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return gather_dim(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return scatter_mean_dim(grad, ctx.dim, ctx.group, ctx.n,
+                                mean=False), None, None, None
+
+
+class _SumOverModel(torch.autograd.Function):
+    """Forward and backward: the sum over the "model" group (f32, cast
+    back).  A statistic every rank's slice adds to and every rank reads:
+    the gradient of a rank's part is the sum of the ranks' gradients of
+    the total (*g*, then *f*)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad, ctx.group), None
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -489,6 +592,18 @@ def reduce_from_model(x: torch.Tensor, tp: TP) -> torch.Tensor:
     return _ReduceFromModel.apply(x, tp.group)
 
 
+def gather_model_sum(x: torch.Tensor, dim: int, tp: TP) -> torch.Tensor:
+    """The "model" ranks' ``x`` concatenated along ``dim``, its gradient
+    summed over the ranks (``_GatherSumOverModel``)."""
+    return _GatherSumOverModel.apply(x, dim % x.ndim, tp.group, tp.size)
+
+
+def sum_over_model(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """The sum of the "model" ranks' ``x``, its gradient the sum of the
+    ranks' gradients (``_SumOverModel``)."""
+    return _SumOverModel.apply(x, tp.group)
+
+
 def gather_model(x: torch.Tensor, dim: int, tp: TP) -> torch.Tensor:
     """The "model" ranks' ``x`` concatenated along ``dim`` (no grad: the
     serving steps' logits)."""
@@ -535,6 +650,12 @@ def current_rules() -> Optional[Rules]:
     return _CTX["rules"]
 
 
+def current_tp() -> Optional[TP]:
+    """The installed "model" group of the production layout (None: no
+    rules, or one "model" rank)."""
+    return _CTX["tp"]
+
+
 def tp_for(local: int, full: int) -> Optional[TP]:
     """The installed ``TP`` when a weight's ``local`` extent is a shard of
     ``full`` (the block runs tensor-parallel), None when it is whole."""
@@ -550,8 +671,8 @@ def tp_for(local: int, full: int) -> Optional[TP]:
 
 def cache_extent(n: int, axis: str) -> int:
     """This rank's extent of a cache dim of size ``n`` on logical
-    ``axis`` under the installed activation rules (kv heads over
-    "model"); ``n`` without them."""
+    ``axis`` under the installed activation rules (kv heads, SSD heads
+    and the SSM's conv channels over "model"); ``n`` without them."""
     tp = _CTX["tp"]
     if tp is None or _CTX["rules"].arules.get(axis) != "model" or \
             n % tp.size:
@@ -605,8 +726,10 @@ def constrain_params(params, spec, mesh=None, rules: Optional[Rules] = None,
         ud, um = use_layout(s.shape, s.axes, rules, mesh, part)
         for dim, use, name in ((d, ud, "data"), (m, um, "model")):
             if dim is not None and use != dim:
-                p = GatherParam.apply(p, dim, mesh.get_group(name),
-                                      axis_size(mesh, name))
+                n = axis_size(mesh, name)
+                p = GatherParam.apply(p, dim, mesh.get_group(name), n)
+                if name == "model" and packed(s.parts, s.shape, dim, n):
+                    p = unpack(p, dim, s.parts, n)
         return p
 
     return lay(params, spec, parts)

@@ -9,10 +9,10 @@ over "data"), against the JAX package, on the CPU.
   (train; inference with and without FSDP), ``train_state_specs``,
   ``cache_specs`` at a divisible batch and the flow step's state equal the
   reference's ``NamedSharding(...).shard_shape`` (a JAX subprocess on 8
-  faked CPU devices) for every reduced arch, exactly; the SSM caches are
-  whole over "model" (``GATHERED_WHOLE["ssm"]``), and a param the
-  reference keeps whole on every rank is split over "model" as its
-  trainers' ``PartitionPlan`` splits it (``sharding.stored_layout``).
+  faked CPU devices) for every reduced arch, exactly (the SSM caches by
+  SSD head and conv channel too), and a param the reference keeps whole
+  on every rank is split over "model" as its trainers' ``PartitionPlan``
+  splits it (``sharding.stored_layout``).
 * At use (``sharding.use_layout``), every MLA and expert leaf keeps the
   "model" dim of the reference's ``gathered_param_rules`` in tensor and
   dense modes, and its "data" dim except the expert tables' ``moe_in`` /
@@ -24,11 +24,12 @@ over "data"), against the JAX package, on the CPU.
   one spawn for every case): the first step's gradients, two LM train
   steps, the prefill and four decode steps, and the collectives each
   runs by kind and mesh axis, and the leaves all-gathered over "model"
-  (none of MLA's or the experts'); the router's and MLA's latent
-  projections' gradients at mp 2 and 4; two ``flow_grpo`` steps laid out
-  by the rules (``BaseTrainer(..., rules=True)``, the dry run's flow
-  step), and that trainer's canonical state, checkpoint slicer and byte
-  report, on the narrowed ``flux_dit`` and the two MoE archs, whose
+  (none of MLA's, the experts' or the Mamba-2 blocks'); the router's,
+  MLA's latent projections' and the Mamba-2 blocks' gradients at mp 2
+  and 4; two ``flow_grpo`` steps laid out by the rules
+  (``BaseTrainer(..., rules=True)``, the dry run's flow step), and that
+  trainer's canonical state, checkpoint slicer and byte report, on the
+  narrowed ``flux_dit``, the two MoE archs and ``mamba2-370m``, whose
   checkpoints resume exactly.
 """
 import json
@@ -39,6 +40,7 @@ import textwrap
 
 import numpy as np
 import pytest
+import torch
 
 from repro import configs as jconfigs
 from repro import sharding as jsh
@@ -120,7 +122,7 @@ def test_production_rules_are_the_reference_defaults():
     assert r.stored == jsh.param_rules(mesh, fsdp=True)
     assert tsh.production_rules(mesh, fsdp=False).stored == \
         jsh.param_rules(mesh, fsdp=False)
-    assert set(tsh.GATHERED_WHOLE) == {"ssm", "experts"}
+    assert set(tsh.GATHERED_WHOLE) == {"ssm_undivided", "experts"}
     assert all(len(why) > 40 for why in tsh.GATHERED_WHOLE.values())
 
 
@@ -129,13 +131,19 @@ def test_parts_gather_experts_whole_under_ep_model_only(moe_mode,
                                                         monkeypatch):
     """``_parts`` names no MLA part, and the routed experts'
     tables ("experts") under ``ep_model`` only, whose all-to-all is not
-    ported; the SSM blocks are named in every mode."""
+    ported; the SSM blocks in no mode where the "model" axis divides their
+    heads and state (16 and 32 in the reduced zamba2: mp 2 and 4), and as
+    "ssm_undivided" where it does not (mp 3)."""
     monkeypatch.setenv("REPRO_MOE_MODE", moe_mode)
     for arch in ("deepseek-v2-236b", "grok-1-314b", "zamba2-2.7b"):
         bb = Backbone(tconfigs.get_reduced(arch))
         parts = _parts(bb.cfg, bb._block_spec)
         if arch == "zamba2-2.7b":
-            assert parts == {"ssm": "ssm"}
+            assert parts is None
+            assert all(_parts(bb.cfg, bb._block_spec, mp) is None
+                       for mp in (2, 4, 16))
+            assert _parts(bb.cfg, bb._block_spec, 3) == {
+                "ssm": "ssm_undivided"}
         elif moe_mode == "ep_model":
             assert parts == {"ffn": {k: "experts" for k in
                                      ("w_gate", "w_up", "w_down")}}
@@ -359,20 +367,16 @@ def test_param_shards_equal_reference(ref_shards, arch):
 def test_cache_and_flow_shards_equal_reference(ref_shards, arch):
     """``cache_specs`` at batch 8 (divisible by the data axis) and the
     flow update's state (``build_flow_step``): the reference's shard
-    shapes, exactly; kv heads over "model" where 2 divides them.  The SSM
-    caches' "model" dims (``inner``, ``ssm_heads``) stay whole: the
-    Mamba-2 blocks are gathered whole at use until they are
-    tensor-parallel (``GATHERED_WHOLE["ssm"]``)."""
+    shapes, exactly; kv heads over "model" where 2 divides them, and the
+    SSM caches' conv channels (``inner``) and states (``ssm_heads``)
+    too: the Mamba-2 blocks run tensor-parallel over their heads."""
     cfg = tconfigs.get_reduced(arch)
     ref = ref_shards[arch]
     caches = tspecs.cache_specs(cfg, InputShape(*DECODE), MESH)
     got = list(_shapes(caches).items())
     assert len(got) == len(ref["caches"])
     for (name, shape), (whole, shard, spec) in zip(got, ref["caches"]):
-        ssm = name.split(".")[-1] in ("conv", "state")
-        want = [w if (ssm and e == "model") else s
-                for w, s, e in zip(whole, shard, spec)]
-        assert shape == want, name
+        assert shape == shard, name
     _, (state, _, _) = tspecs.build_flow_step(cfg, MESH)
     flow = _stored(ref["flow"], ref["flow_plan"])
     assert _shapes(state.params) == flow
@@ -435,11 +439,12 @@ def test_layout_prefill_and_decode_match_one_device(four_ranks, case):
 # collectives a case issues, by (kind, mesh axis): the data shards'
 # gathers and reduce-scatters, the tensor-parallel all-reduces over
 # "model", the gradients' means over "data" (and the load-balance loss's
-# means over every data rank's rows); the SSM blocks gathered whole over
-# "model", and at (1, 4) qwen3's and grok's wk / wv (2 kv heads over 4
-# ranks, no "data" shard at dp 1: stored over "model" on embed,
-# ``stored_layout``; grok's router likewise); serving gathers the logits
-# over "model"
+# means over every data rank's rows); the SSM blocks' B and C columns
+# gathered over "model" and their gradients reduce-scattered back (route
+# (a), ``models/ssm.py``), and at (1, 4) qwen3's and grok's wk / wv (2 kv
+# heads over 4 ranks, no "data" shard at dp 1: stored over "model" on
+# embed, ``stored_layout``; grok's router likewise); serving gathers the
+# logits over "model" (and the SSM decode its B and C channels)
 _TRAIN = {("all-gather", "data"), ("reduce-scatter", "data"),
           ("all-reduce", "model"), ("all-reduce", "data")}
 _SERVE = {("all-gather", "data"), ("all-gather", "model"),
@@ -454,7 +459,8 @@ WANT = {"qwen3_2x2": (_TRAIN, _SERVE),
                                  ("reduce-scatter", "model")}, _SERVE),
         "deepseek_2x2": (_TRAIN, _SERVE),
         "grok_1x4": _TRAIN_1X4,
-        "grok_dense_2x2": (_TRAIN, _SERVE)}
+        "grok_dense_2x2": (_TRAIN, _SERVE),
+        "mamba2_1x4": _TRAIN_1X4}
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -476,17 +482,22 @@ def test_layout_keeps_mla_and_experts_sharded(four_ranks, case):
     """Under the MoE cases no MLA leaf and no expert table (routed or
     shared) is all-gathered over "model", in training or serving: no
     output shape of the recorder's all-gathers over "model" is one of
-    theirs gathered.  The same check sees zamba2's SSM leaves, which are
-    gathered whole (``GATHERED_WHOLE["ssm"]``), among its gathers."""
+    theirs gathered.  Under zamba2 and mamba2 no SSM leaf is: the only
+    gather of theirs is the B and C columns of in_proj, conv_w and conv_b
+    (route (a), ``models/ssm.py``), whose output shape is seen."""
     r = four_ranks[case]
     assert r["tp_leaf_gathers"]
     gathered = {tuple(s) for s in r["model_gathers"]}
     hit = {k: v for k, v in r["tp_leaf_gathers"].items()
            if tuple(v) in gathered}
     assert not hit
-    z = four_ranks["zamba2_2x2"]
-    assert {tuple(v) for v in z["ssm_leaf_gathers"].values()} <= \
-        {tuple(s) for s in z["model_gathers"]}
+    for ssm_case in ("zamba2_2x2", "mamba2_1x4"):
+        z = four_ranks[ssm_case]
+        assert z["ssm_leaf_gathers"]
+        gathered = {tuple(s) for s in z["model_gathers"]}
+        assert not {tuple(v) for v in z["ssm_leaf_gathers"].values()} & \
+            gathered, ssm_case
+        assert tuple(z["ssm_bc_gather"]) in gathered, ssm_case
 
 
 # the router at mp 2 and 4, and MLA's latent projections and norms
@@ -513,6 +524,67 @@ def test_router_and_latent_gradients_match_one_device(four_ranks, case):
         assert gaps[k] < 1e-5, k
     mesh = dict((c[0], c[2]) for c in worker.CASES + worker.GRAD_CASES)
     assert mesh[case][1] == _ROUTER_CASES[case]
+
+
+# the Mamba-2 blocks at mp 2 and 4, each arch at both
+_SSM_CASES = {"zamba2_2x2": 2, "zamba2_1x4": 4, "mamba2_1x4": 4,
+              "mamba2_2x2": 2}
+
+
+@pytest.mark.parametrize("case", sorted(_SSM_CASES))
+def test_ssm_gradients_match_one_device(four_ranks, case):
+    """The first step's gradient of every Mamba-2 layer's ``in_proj``,
+    ``conv_w``, ``conv_b`` and ``norm`` at mp 2 and 4 (the B and C
+    columns gathered from every rank, each rank's gradient of them its
+    heads' part; the gated norm's statistic summed over the ranks),
+    within 1e-5 of the leaf's max |grad| of one device: a 1/mp mean of
+    the B and C columns' gradient, or a norm statistic that is only a
+    rank's, is off by O(1) of it."""
+    gaps = four_ranks[case]["grad_gaps"]
+    keys = [k for k in gaps if k.endswith(("/ssm/in_proj", "/ssm/conv_w",
+                                           "/ssm/conv_b", "/ssm/norm"))]
+    assert len(keys) == 4
+    for k in keys:
+        assert gaps[k] < 1e-5, k
+    mesh = dict((c[0], c[2]) for c in worker.CASES + worker.GRAD_CASES)
+    assert mesh[case][1] == _SSM_CASES[case]
+
+
+def test_undivided_ssm_is_gathered_whole_and_matches_one_device(
+        four_ranks):
+    """A Mamba-2 block whose heads the "model" axis does not divide (6
+    over 4 ranks) runs whole on every rank (``_parts``:
+    ``GATHERED_WHOLE["ssm_undivided"]``), its conv stored component by
+    component and put back in canonical order when gathered
+    (``sharding.unpack``): the first step's gradient of every leaf within
+    1e-5 of its max |grad| of one device."""
+    cfg = worker.config(worker.UNDIVIDED)
+    bb = Backbone(cfg)
+    assert _parts(cfg, bb._block_spec, 4) == {"ssm": "ssm_undivided"}
+    conv = bb._block_spec["ssm"]["conv_w"]
+    assert tsh.packed(conv.parts, conv.shape, 1, 4)
+    gaps = four_ranks["mamba2_h6_1x4"]["grad_gaps"]
+    assert sum("/ssm/" in k for k in gaps) == 8
+    for k, v in gaps.items():
+        assert v < 1e-5, k
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_packed_cut_round_trips(n):
+    """``pack_cut`` takes each component's r-th slice (the indices
+    ``pack_columns`` names), and ``unpack`` of the ranks' shards in rank
+    order is the canonical tensor, bitwise; ``packed`` holds where every
+    width divides and the packed dim is the last."""
+    parts = (8, 8, 4, 4, 12)
+    t = torch.arange(3 * sum(parts), dtype=torch.float32).reshape(3, -1)
+    shards = [tsh.pack_cut(t, 1, parts, n, r) for r in range(n)]
+    for r, sh in enumerate(shards):
+        assert torch.equal(sh, t[:, tsh.pack_columns(parts, n, r)])
+    assert torch.equal(tsh.unpack(torch.cat(shards, 1), 1, parts, n), t)
+    assert tsh.packed(parts, tuple(t.shape), 1, n)
+    assert not tsh.packed(parts, tuple(t.shape), 0, n)
+    assert not tsh.packed(parts, tuple(t.shape), 1, 3)
+    assert not tsh.packed((), tuple(t.shape), 1, n)
 
 
 def test_flow_grpo_under_rules_matches_one_device(four_ranks):
@@ -556,9 +628,10 @@ def test_rules_trainer_keeps_checkpoints_canonical(four_ranks):
 
 @pytest.mark.parametrize("case", [c[0] for c in worker.FLOW_CASES])
 def test_moe_rules_trainer_matches_one_device_and_resumes(four_ranks, case):
-    """``flow_grpo`` on the narrowed ``deepseek-v2-236b`` at (2, 2) and
-    ``grok-1-314b`` at (1, 4) built with ``rules=True`` (MLA's heads and
-    the experts' hidden dim over "model"), two steps against one device,
+    """``flow_grpo`` on the narrowed ``deepseek-v2-236b`` at (2, 2),
+    ``grok-1-314b`` at (1, 4) and ``mamba2-370m`` at (2, 2) built with
+    ``rules=True`` (MLA's heads, the experts' hidden dim and the SSD heads
+    over "model"), two steps against one device,
     f32: every metric but the loss to 1e-5 relative (the loss, a residue of
     order 1e-8, to 1e-7 absolute), params to the LM cases' 1e-4 absolute
     (measured ≤ 1.0e-5) and the gathered AdamW first moments to 1e-4 of

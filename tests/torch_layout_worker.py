@@ -16,11 +16,12 @@ all-gathered over "model".  ``GRAD_CASES`` take the first step's
 gradients alone.
 ``flow_case``: two ``flow_grpo`` steps (rollout, rewards, update) of the
 narrowed ``flux_dit`` of ``torch_dist_worker`` (``FLOW_CASES``: and of its
-narrowed MoE archs) laid out by the rules (``BaseTrainer(...,
-rules=True)``: the dry run's flow step) against one device, the
-trainer's canonical state, checkpoint slicer and byte report under them,
-and for the MoE archs a checkpoint of the two steps resumed by a new
-trainer, whose third step must equal the first trainer's.  Rank 0
+narrowed MoE archs and a narrowed ``mamba2-370m``) laid out by the rules
+(``BaseTrainer(..., rules=True)``: the dry run's flow step) against one
+device, the trainer's canonical state, checkpoint slicer and byte report
+under them, and for the ``FLOW_CASES`` a checkpoint of the two steps
+resumed by a new trainer, whose third step must equal the first
+trainer's.  Rank 0
 pickles the gaps to ``out``.
 """
 import contextlib
@@ -41,22 +42,31 @@ from repro_torch.models import tasks
 from repro_torch.models.backbone import Backbone
 from repro_torch.models.params import leaves
 
+# a Mamba-2 block whose 6 SSD heads 4 "model" ranks do not divide: gathered
+# whole at use (``GATHERED_WHOLE["ssm_undivided"]``), its conv still stored
+# by component
+UNDIVIDED = "mamba2-370m@6heads"
 # (name, arch, (dp, mp), REPRO_MOE_MODE): q and kv heads sharded; q heads
 # sharded over whole kv heads; heads whole with the MLP and vocabulary
-# parallel and the vision prefix; the SSM blocks gathered and the shared
+# parallel and the vision prefix; the SSM blocks' heads and the shared
 # attention parallel; MLA's heads and the routed and shared experts'
 # hidden dim parallel (a dense first layer); grok's experts at f / 4 with
-# 2 kv heads over 4 ranks; grok's experts in dense mode
+# 2 kv heads over 4 ranks; grok's experts in dense mode; Mamba-2's heads
+# at 4 of 16 a rank
 CASES = (("qwen3_2x2", "qwen3-32b", (2, 2), None),
          ("qwen3_1x4", "qwen3-32b", (1, 4), None),
          ("internvl2_2x2", "internvl2-1b", (2, 2), None),
          ("zamba2_2x2", "zamba2-2.7b", (2, 2), None),
          ("deepseek_2x2", "deepseek-v2-236b", (2, 2), None),
          ("grok_1x4", "grok-1-314b", (1, 4), None),
-         ("grok_dense_2x2", "grok-1-314b", (2, 2), "dense"))
+         ("grok_dense_2x2", "grok-1-314b", (2, 2), "dense"),
+         ("mamba2_1x4", "mamba2-370m", (1, 4), None))
 # the first step's gradients only: MLA's latent projections and the router
-# at mp 4
-GRAD_CASES = (("deepseek_1x4", "deepseek-v2-236b", (1, 4), None),)
+# at mp 4; the SSM blocks at the mp the CASES above leave out
+GRAD_CASES = (("deepseek_1x4", "deepseek-v2-236b", (1, 4), None),
+              ("zamba2_1x4", "zamba2-2.7b", (1, 4), None),
+              ("mamba2_2x2", "mamba2-370m", (2, 2), None),
+              ("mamba2_h6_1x4", UNDIVIDED, (1, 4), None))
 BATCH, SEQ, STEPS, DECODES = 4, 32, 2, 4
 OPT = OptimConfig(lr=1e-3, total_steps=10, warmup_steps=1)
 _COLL = {"all_reduce": "all-reduce",
@@ -192,9 +202,21 @@ def _leaf_gaps(g_one, g_two):
             for (path, a), (_, b) in zip(leaves(g_one), leaves(g_two))}
 
 
+def config(arch):
+    """A case's reduced config; ``UNDIVIDED``: mamba2-370m's at width 192,
+    6 SSD heads of 64."""
+    if arch != UNDIVIDED:
+        return configs.get_reduced(arch)
+    import dataclasses
+    from repro_torch.config import SSMConfig
+    return dataclasses.replace(
+        configs.get_reduced("mamba2-370m"), d_model=192,
+        ssm=SSMConfig(d_state=32, expand=2, head_dim=64, chunk=32, d_conv=4))
+
+
 def grad_case(arch, dp, mp):
     """The first step's gradients alone, one device against the mesh."""
-    cfg = configs.get_reduced(arch)
+    cfg = config(arch)
     spec = Backbone(cfg).spec()
     batch = tasks.synthetic_batch(cfg, BATCH, SEQ, seed=1, device="cpu")
     step = tasks.make_train_step(cfg, OPT)
@@ -262,7 +284,18 @@ def case(arch, dp, mp):
                                               tp_leaves(spec)),
             "ssm_leaf_gathers": _gather_shapes(
                 spec, rules, mesh,
-                [p for p, _ in leaves(spec) if "ssm" in p])}
+                [p for p, _ in leaves(spec) if "ssm" in p]),
+            "ssm_bc_gather": _bc_gather_shape(cfg, mp)}
+
+
+def _bc_gather_shape(cfg, mp):
+    """The output shape of a Mamba-2 block's one all-gather over "model"
+    in training (route (a), ``models/ssm.py``: the B and C columns of
+    in_proj, conv_w and conv_b, d_model + d_conv + 1 rows of 2N / mp a
+    rank, gathered as dim 0), or None for an arch without one."""
+    if cfg.ssm is None or cfg.family not in ("ssm", "hybrid"):
+        return None
+    return (2 * cfg.ssm.d_state, cfg.d_model + cfg.ssm.d_conv + 1)
 
 
 def _gather_shapes(spec, rules, mesh, paths):
@@ -281,10 +314,25 @@ def _gather_shapes(spec, rules, mesh, paths):
     return out
 
 
-# (name, narrowed MoE arch of torch_dist_worker, (dp, mp)): MLA's heads and
-# the experts' hidden dim over "model" (the flux case is flow_grpo_2x2)
+# (name, narrowed arch, (dp, mp)): MLA's heads and the experts' hidden dim
+# over "model" (torch_dist_worker's MoE archs), Mamba-2's SSD heads
+# (``narrow``; the flux case is flow_grpo_2x2)
 FLOW_CASES = (("flow_grpo_deepseek_2x2", "deepseek-v2-236b", (2, 2)),
-              ("flow_grpo_grok_1x4", "grok-1-314b", (1, 4)))
+              ("flow_grpo_grok_1x4", "grok-1-314b", (1, 4)),
+              ("flow_grpo_mamba2_2x2", "mamba2-370m", (2, 2)))
+
+
+def narrow(dw, arch):
+    """A flow case's arch narrowed for the CPU: torch_dist_worker's MoE
+    archs, or mamba2-370m's reduced config at width 64 (2 layers, 8 SSD
+    heads of 16, state 16, chunk 16)."""
+    if arch != "mamba2-370m":
+        return dw.moe_arch(arch)
+    import dataclasses
+    from repro_torch.config import SSMConfig
+    return dataclasses.replace(
+        configs.get_reduced(arch), d_model=64, vocab_size=64,
+        ssm=SSMConfig(d_state=16, expand=2, head_dim=16, chunk=16, d_conv=4))
 
 
 def _rules_trainer(dw, cfg, dp, mp, mesh):
@@ -301,15 +349,15 @@ def _rules_trainer(dw, cfg, dp, mp, mesh):
 def flow_case(dp=2, mp=2, arch=None, tmp=None):
     """``flow_grpo``, two steps, f32: one device against the (dp, mp) mesh
     under the production rules (every rank builds the canonical params
-    from the same seed, then keeps its shards); ``arch`` a narrowed MoE
-    arch of ``torch_dist_worker`` (the narrowed ``flux_dit`` without).
+    from the same seed, then keeps its shards); ``arch`` narrowed by
+    ``narrow`` (the narrowed ``flux_dit`` without).
     With ``tmp`` the two steps' canonical state is checkpointed there,
     restored by a new trainer under the rules and both take a third
     step."""
     import torch_dist_worker as dw
     from repro_torch import checkpoint
     from repro_torch.config import DistConfig
-    cfg = dw.moe_arch(arch) if arch else dw.arch()
+    cfg = narrow(dw, arch) if arch else dw.arch()
     ref, h_ref = dw.train("flow_grpo", mesh=None, dist_cfg=DistConfig(),
                           arch_cfg=cfg)
     mesh = build_mesh(dp, mp, "cpu")
