@@ -237,8 +237,8 @@ script exits 2 before printing any result.
    groups of one SSM block) with the SSM leaves and the shared wq/wk
    drawn, through the kernels against the plain versions in f32 and bf16.
 27. The hybrid train path: ``repro_torch.launch.train.main`` at
-   ``zamba2-2.7b``'s full width and 30 of its 54 layers (5 of its 9
-   groups) under
+   ``zamba2-2.7b``'s full width and 12 of its 54 layers (2 of its 9
+   groups, two shared-attention sites) under
    ``perf.remat=block``, ``flow_grpo`` for 2 steps and a traced third at
    phase 19's geometry, batch and rewards, SSM leaves and shared wq/wk
    drawn at train start: launch counts on their variants (every scan
@@ -406,17 +406,30 @@ script exits 2 before printing any result.
    (4, 4608, 5, 64) at state 64 and (4, 4608, 2, 64) at state 128.  Then
    those two scan shapes against their plain versions, and their kernel,
    FMA-pass, plain and bound times.
-41. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
+41. The sequence-sharded decode (the reference's ``cache_seq`` rule under
+   ``REPRO_CACHE_SEQ_SHARD=model``) at mp = 16, emulated on the card: one
+   ``flux_dit`` attention layer (24 heads of 128, whole over "model"),
+   one ``qwen3-32b`` layer (4 of 64 q heads a rank, 8 kv heads whole) and
+   one ``deepseek-v2-236b`` MLA layer (8 of 128 heads a rank) at full
+   width over a 32768-entry cache of ``decode_32k``'s 8 rows a data rank,
+   4 decode steps: the 16 ranks run the port's own decode at once, one
+   host thread each, over a group whose collectives meet at a barrier
+   (``ThreadGroup``), each with its 2048-entry segment.  Each step's
+   output within 2e-2 of one device's max (the port's decode on the same
+   card), the rolled segments, concatenated, equal to one device's rolled
+   cache bit for bit; then ms a step of the whole layer and of one rank
+   on its segment, beside their bytes bounds at 3.35 TB/s.
+42. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
    ``ssm_train_path``, ``perf_path``, ``distributed_path``,
    ``engine_path``, ``hybrid_path``, ``moe_path``, ``frontend_path``,
    ``lm_path``, ``sweep_path``, ``lint``, ``layout_path``,
-   ``moe_layer_path``, ``ssm_layer_path``, ``phase_times`` and
-   ``kernels`` JSON lines, the card's name and power limit, and the last
-   line ``{"ok": true, "device": {...}}``.
+   ``moe_layer_path``, ``ssm_layer_path``, ``seq_decode_path``,
+   ``phase_times`` and ``kernels`` JSON lines, the card's name and power
+   limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds as it ends (``[N] took ... s``), and the
 script the total.  ``--only N,...`` runs just the device and build phases
-and phases N (3 and 8-40) and prints no result lines: a development aid.
+and phases N (3 and 8-41) and prints no result lines: a development aid.
 """
 from __future__ import annotations
 
@@ -4143,10 +4156,11 @@ def check_hybrid_velocity(dev) -> dict:
 
 
 # ----------------------------------------------------------------- phase 27
-# 5 of the hybrid's 9 groups: cut from all 54 layers when the whole script
-# reached ≈ 1050 s of its 1200 (the MoE layer phase, 39, came in); the
-# serving path (26) keeps all 54
-HY_TRAIN_LAYERS = 30
+# 2 of the hybrid's 9 groups (12 layers, two shared-attention sites): cut
+# from all 54 layers to 30 when the whole script reached ≈ 1050 s of its
+# 1200 (the MoE layer phase, 39, came in), then to 12 to make room for the
+# sequence-sharded decode (phase 41); the serving path (26) keeps all 54
+HY_TRAIN_LAYERS = 12
 HY_TRAIN_KERNELS = (
     {"ssd_scan": HY_TRAIN_LAYERS, "flash_attention": HY_TRAIN_LAYERS // 6},
     {"ssd_scan_bwd": HY_TRAIN_LAYERS,
@@ -4165,7 +4179,7 @@ def hybrid_train_path(dev, tmp: str) -> dict:
     ``launch.train`` under ``perf.remat=block`` (each group checkpointed)
     with ``perf.log_memory``, flow_grpo, phase 19's geometry, batch and
     rewards, SSM leaves and shared wq/wk drawn at train start, 2 steps and
-    a traced third: launch counts (a velocity 30 scans and 5 attentions,
+    a traced third: launch counts (a velocity 12 scans and 2 attentions,
     the loss each forward twice, the backward once, per SDE step), every
     layer's a_log and dt_bias gradient at the first update, s per step,
     peak memory; then one update of each of the five trainers at depth 2
@@ -6656,10 +6670,316 @@ def ssm_layer_phase(dev, tmp: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 41
+# the sequence-sharded decode at mp = 16 (the reference's cache_seq rule
+# under REPRO_CACHE_SEQ_SHARD=model), emulated on one card: the 16 ranks
+# run the port's own decode at once, one host thread each, over a group
+# whose collectives meet at a barrier (``ThreadGroup``).  Each rank holds
+# its 2048-entry segment of a 32768-entry cache at decode_32k's 8 rows a
+# data rank (128 over 16)
+SEQ_LAYERS = (("flux_dit", "24 heads of 128, whole over model"),
+              ("qwen3-32b", "4 of 64 q heads a rank, 8 kv heads whole"),
+              ("deepseek-v2-236b", "MLA, 8 of 128 heads a rank"))
+SEQ_ROWS = INPUT_SHAPES["decode_32k"].global_batch // LAYER_MP
+SEQ_CACHE = INPUT_SHAPES["decode_32k"].seq_len
+SEQ_STEPS = 4
+# max |rank's output - one device's| / max |one device's|, bf16: the merge
+# adds each segment's sums in another order, so the f32 values before each
+# later bf16 rounding differ in their last bits; a value that sits at a
+# rounding boundary then lands one ulp (2^-8 of it) away, at p, at the
+# attention output (o, or MLA's o_lat and o), and at the layer's output:
+# three roundings, each at most 2^-8 of max, and the second and third
+# carry the earlier one's ulp through a product with random weights.  A
+# merge that drops the global max or a segment moves the output by O(1)
+# of its max.
+SEQ_BAND = 2e-2
+
+
+class ThreadGroup:
+    """A process-group stand-in for ``n`` host threads of this process,
+    one emulated rank each (``rank`` is the calling thread's): the port's
+    all-reduces and all-gathers on it meet at a barrier, rank 0 combines
+    the ranks' tensors in rank order, and every rank copies the result.
+    All threads issue work to the one default stream, so the card runs it
+    in the order the barriers impose.  ``solo``: a group of ``n`` whose
+    collectives see this rank alone (an all-reduce is the identity, a
+    gather repeats the rank's tensor), for timing one rank."""
+
+    def __init__(self, n: int, solo: bool = False):
+        import threading
+        self.n, self.solo = n, solo
+        self.local = threading.local()
+        self.slots = [None] * n
+        self.barrier = threading.Barrier(n, timeout=120)
+
+    @property
+    def rank(self) -> int:
+        return self.local.rank
+
+    def all_reduce(self, x, op) -> None:
+        import torch.distributed as dist
+        if self.solo:
+            return
+        r = self.rank
+        self.slots[r] = x
+        self.barrier.wait()
+        if r == 0:
+            acc = self.slots[0].clone()
+            for t in self.slots[1:]:
+                if op == dist.ReduceOp.MAX:
+                    torch.maximum(acc, t, out=acc)
+                else:
+                    acc += t
+            self.result = acc
+        self.barrier.wait()
+        x.copy_(self.result)
+        self.barrier.wait()
+
+    def all_gather(self, out, src) -> None:
+        if self.solo:
+            out.view(self.n, *src.shape).copy_(src.expand(self.n,
+                                                          *src.shape))
+            return
+        self.slots[self.rank] = src
+        self.barrier.wait()
+        torch.cat(self.slots, 0, out=out)
+        self.barrier.wait()
+
+
+class _ThreadCtx(dict):
+    """``sharding._CTX`` with one value per host thread (each emulated
+    rank installs its own "model" group and sequence axis), starting from
+    the values it had."""
+
+    def __init__(self, base: dict):
+        import threading
+        super().__init__(base)
+        self._tl = threading.local()
+
+    def _mine(self) -> dict:
+        d = getattr(self._tl, "d", None)
+        if d is None:
+            d = self._tl.d = dict(super().items())
+        return d
+
+    def __getitem__(self, k):
+        return self._mine()[k]
+
+    def __setitem__(self, k, v):
+        self._mine()[k] = v
+
+    def update(self, *a, **k):
+        self._mine().update(*a, **k)
+
+
+@contextlib.contextmanager
+def thread_ranks():
+    """The port's collectives on a ``ThreadGroup`` routed to it, and the
+    sharding context made per thread, for the ``with`` body."""
+    import torch.distributed as dist
+    from repro_torch import sharding as shlib
+    names = ("all_reduce", "all_gather_into_tensor", "all_gather_single")
+    saved = {n: getattr(dist, n, None) for n in names}
+
+    def all_reduce(x, op=dist.ReduceOp.SUM, group=None, **k):
+        if isinstance(group, ThreadGroup):
+            return group.all_reduce(x, op)
+        return saved["all_reduce"](x, op=op, group=group, **k)
+
+    def gather(name):
+        def fn(out, src, group=None, **k):
+            if isinstance(group, ThreadGroup):
+                return group.all_gather(out, src)
+            return saved[name](out, src, group=group, **k)
+        return fn
+
+    ctx = shlib._CTX
+    dist.all_reduce = all_reduce
+    for n in names[1:]:
+        if saved[n] is not None:
+            setattr(dist, n, gather(n))
+    shlib._CTX = _ThreadCtx(ctx)
+    try:
+        yield
+    finally:
+        shlib._CTX = ctx
+        for n, fn in saved.items():
+            if fn is not None:
+                setattr(dist, n, fn)
+
+
+def _seq_rank_ctx(group, mp: int, r: int, tensor_parallel: bool) -> None:
+    """This thread's sharding context: rank ``r`` of ``mp`` on "model",
+    which also carries the caches' sequence."""
+    from repro_torch import sharding as shlib
+    group.local.rank = r
+    shlib._CTX.update(mesh=None, rules=None,
+                      tp=shlib.TP(group, mp, r) if tensor_parallel else None,
+                      seq=shlib.SeqGroup("model", group, mp, r))
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in (tree.values() if isinstance(tree, dict) else tree))
+
+
+def seq_layer_ranks(dev, arch: str, mp: int = LAYER_MP, cfg=None,
+                    rows: int = SEQ_ROWS, cache_len: int = SEQ_CACHE,
+                    steps: int = SEQ_STEPS, seed: int = 41,
+                    time_it: bool = True) -> dict:
+    """One attention layer of ``arch`` (``cfg``: another config, as a
+    reduced one) at full width, bf16, random weights from ``seed`` (q and
+    k projections drawn as ``draw_qk_proj``) and a random ``cache_len``
+    cache of ``rows`` rows: ``steps`` decode steps of the port's decode
+    (``attention.apply_decode`` or ``mla.apply_decode``) on one device,
+    and as ``mp`` ranks at once (``ThreadGroup``, ``thread_ranks``), each
+    with its shard of the weights (``sharding.use_layout``: the heads
+    where the axis divides them) and its ``cache_len / mp`` segment.
+    Each step: the worst rank's output gap to one device's, and whether
+    the ranks' rolled segments, concatenated, equal one device's rolled
+    cache bit for bit.  Then (``time_it``) ms a step of the whole layer
+    and of the last rank on its segment (its collectives seeing it alone),
+    beside their bytes bounds at 3.35 TB/s."""
+    import threading
+    from repro_torch import sharding as shlib
+    from repro_torch.models import attention as attn_mod, mla as mla_mod
+    cfg = cfg or configs.get(arch)
+    spec = Backbone(cfg)._block_spec["attn"]
+    axis = _ModelAxis(mp)
+    rules = shlib.production_rules(axis)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = params_lib.init(spec, gen, torch.bfloat16, dev)
+    _draw_qk(p, cfg, gen)
+    if cfg.mla:
+        decode, mk = mla_mod.apply_decode, mla_mod.MLACache
+        shapes = [(rows, cache_len, cfg.mla.kv_lora_rank),
+                  (rows, cache_len, cfg.mla.qk_rope_head_dim)]
+    else:
+        decode, mk = attn_mod.apply_decode, attn_mod.KVCache
+        shapes = [(rows, cache_len, cfg.n_kv_heads,
+                   cfg.resolved_head_dim)] * 2
+    whole = mk(*(torch.randn(s, generator=gen, device=dev).to(
+        torch.bfloat16) for s in shapes))
+    xs = [torch.randn((rows, 1, cfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(steps)]
+    dims = {path: shlib.use_layout(s.shape, s.axes, rules, axis)[1]
+            for path, s in params_lib.leaves(spec)}
+    tensor_parallel = any(m is not None for m in dims.values())
+
+    def shard(r):
+        out = {}
+        for path, t in params_lib.leaves(p):
+            m = dims[path]
+            if m is not None:
+                k = t.shape[m] // mp
+                t = t.narrow(m, r * k, k)
+            params_lib._set(out, path, t.contiguous())
+        return out
+
+    seg = cache_len // mp
+    ps = [shard(r) for r in range(mp)]
+    segs = [mk(*(t[:, r * seg:(r + 1) * seg].clone() for t in whole))
+            for r in range(mp)]
+    group = ThreadGroup(mp)
+    outs = [[None] * mp for _ in range(steps)]
+    calls, errors = [0] * mp, []
+
+    def rank(r):
+        try:
+            _seq_rank_ctx(group, mp, r, tensor_parallel)
+            with torch.no_grad():
+                for i in range(steps):
+                    outs[i][r], segs[r] = decode(ps[r], cfg, xs[i], segs[r],
+                                                 cache_len + i)
+                    calls[r] += 1
+        except Exception as e:   # the others leave the barrier too
+            errors.append(f"rank {r}: {type(e).__name__}: {e}")
+            group.barrier.abort()
+
+    gaps, rolled_equal = [], []
+    cache = whole
+    with thread_ranks():
+        threads = [threading.Thread(target=rank, args=(r,))
+                   for r in range(mp)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            fail("phase 41: an emulated rank failed: " + "; ".join(errors))
+        with torch.no_grad():
+            for i in range(steps):
+                y, cache = decode(p, cfg, xs[i], cache, cache_len + i)
+                gaps.append(max(_rel(o.float(), y.float())
+                                for o in outs[i]))
+        rolled_equal = [bool(torch.equal(torch.cat([s[j] for s in segs], 1),
+                                         cache[j]))
+                        for j in range(len(cache))]
+        res = {"gaps": gaps, "rolled_bitwise": rolled_equal,
+               "rank_calls": calls, "tensor_parallel": tensor_parallel,
+               "segment": seg, "q_heads_a_rank": (
+                   ps[0]["w_uq" if cfg.mla else "wq"].shape[1])}
+        if time_it:
+            bw = mesh_lib.HBM_BW
+            solo = ThreadGroup(mp, solo=True)
+            _seq_rank_ctx(solo, mp, mp - 1, tensor_parallel)
+            last = segs[-1]
+            with torch.no_grad():
+                rank_ms = cuda_ms(lambda: decode(ps[-1], cfg, xs[0], last,
+                                                 cache_len), 10)
+            shlib._CTX.update(tp=None, seq=None)
+            with torch.no_grad():
+                whole_ms = cuda_ms(lambda: decode(p, cfg, xs[0], cache,
+                                                  cache_len), 5)
+            # each cache tensor read once and its rolled copy written once,
+            # the weights read once
+            rank_bytes = 2 * _nbytes(list(last)) + _nbytes(
+                dict(params_lib.leaves(ps[-1])))
+            whole_bytes = 2 * _nbytes(list(cache)) + _nbytes(
+                dict(params_lib.leaves(p)))
+            res.update(rank_ms=rank_ms, whole_ms=whole_ms,
+                       rank_bound_ms=rank_bytes / bw * 1e3,
+                       whole_bound_ms=whole_bytes / bw * 1e3,
+                       rank_bytes=rank_bytes, whole_bytes=whole_bytes)
+    del p, ps, segs, whole, cache
+    gc.collect()
+    return res
+
+
+def seq_decode_phase(dev) -> dict:
+    """Phase 41: ``seq_layer_ranks`` for one ``flux_dit``, one
+    ``qwen3-32b`` and one ``deepseek-v2-236b`` attention layer at mp =
+    16: every step's worst rank within ``SEQ_BAND`` of one device's
+    output, the rolled segments gathered equal to one device's rolled
+    cache bit for bit, every rank's own decode called every step, and
+    the times."""
+    res, ok = {}, True
+    for arch, what in SEQ_LAYERS:
+        r = seq_layer_ranks(dev, arch)
+        res[arch] = r
+        good = (max(r["gaps"]) <= SEQ_BAND and all(r["rolled_bitwise"])
+                and r["rank_calls"] == [SEQ_STEPS] * LAYER_MP)
+        log(f"  {arch} ({what}) at mp {LAYER_MP}, {SEQ_ROWS} rows x "
+            f"{SEQ_CACHE} entries, {r['segment']} a rank: output gaps "
+            f"{['%.3e' % g for g in r['gaps']]} (band {SEQ_BAND}), rolled "
+            f"segments bitwise {r['rolled_bitwise']}, the ranks' decode "
+            f"calls {r['rank_calls']}; ms a step: whole layer "
+            f"{r['whole_ms']:.4f} (bytes bound {r['whole_bound_ms']:.4f}), "
+            f"one rank's segment {r['rank_ms']:.4f} (bytes bound "
+            f"{r['rank_bound_ms']:.4f}, {r['rank_bytes']} B at 3.35 TB/s)")
+        ok &= good
+        torch.cuda.empty_cache()
+    if not ok:
+        fail("the sequence-sharded decode's ranks do not match one device, "
+             "or their rolled segments are not one device's cache")
+    res["card"] = card_line()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", metavar="N,N,...",
-                    help="run only these of phases 3-40 after the device and "
+                    help="run only these of phases 3-41 after the device and "
                          "build phases, and print no result lines (a "
                          "development aid; the check runs every phase)")
     args = ap.parse_args(argv)
@@ -6940,6 +7260,12 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ssm_layer_res = ssm_layer_phase(dev, tmp)
 
+    begin(41, f"the sequence-sharded decode at mp {LAYER_MP}: one "
+          f"flux_dit, one qwen3-32b and one {DS_ARCH} attention layer at "
+          f"full width over a {SEQ_CACHE}-entry cache, the {LAYER_MP} "
+          f"ranks' segments at once against one device")
+    seq_res = seq_decode_phase(dev)
+
     def layer_launches(arch: str, name: str) -> int:
         return layer_res[arch]["launches"]["attn"].get(name, 0)
 
@@ -7083,6 +7409,7 @@ def main(argv=None) -> int:
                                          if k != "rank_rows"}}))
     print(json.dumps({"ssm_layer_path": {
         k: v for k, v in ssm_layer_res.items() if k != "rank_rows"}}))
+    print(json.dumps({"seq_decode_path": seq_res}))
     print(json.dumps({"phase_times": phase_times()}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
@@ -7133,7 +7460,8 @@ def run_only(dev, only: set) -> int:
               37: lint_path,
               38: _in_tmp(lambda tmp: layout_phase(dev, tmp)),
               39: _in_tmp(lambda tmp: moe_layer_phase(dev, tmp)),
-              40: _in_tmp(lambda tmp: ssm_layer_phase(dev, tmp))}
+              40: _in_tmp(lambda tmp: ssm_layer_phase(dev, tmp)),
+              41: lambda: seq_decode_phase(dev)}
     for n in sorted(only):
         if n not in phases:
             fail(f"--only: phase {n} cannot run alone")

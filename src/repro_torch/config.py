@@ -273,7 +273,10 @@ class ShardingConfig:
     by ``PerfConfig.remat``; the dry run (``launch.specs``) runs the
     reference's production layout (``repro_torch.sharding``'s rule tables:
     FSDP over "data" for training, tensor parallel over "model"), and
-    shards decode caches by batch and kv head, never by sequence."""
+    shards decode caches by batch and kv head, and by sequence under the
+    reference's ``cache_seq`` rule (``launch/specs.cache_rules``: over
+    "data" when the batch does not divide the data axis, or over the
+    axis ``REPRO_CACHE_SEQ_SHARD`` names)."""
     # fsdp: additionally shard params over the data axis (zero-3)
     fsdp: bool = True
     # shard long decode KV caches over the data axis (distributed flash-decode)

@@ -179,7 +179,10 @@ def run_one(arch: str, shape: Union[str, InputShape], *,
         "n_layers": cfg.n_layers,
         "n_params": cfg.n_params(),
         "n_active_params": cfg.n_active_params(),
-        "layout": specs.layout(mesh, batch, fsdp=fsdp),
+        "layout": specs.layout(mesh, batch, fsdp=fsdp, cache_seq=(
+            specs.cache_rules(cfg, shape, mesh).arules["cache_seq"]
+            if shape.kind == "decode" and mesh is not None and not flow_rl
+            else None)),
         "fsdp": fsdp,
         "run_s": round(res["run_s"], 2),
         "memory": res["memory"],

@@ -23,7 +23,13 @@ routed experts under ``ep_model`` are gathered whole
 (``sharding.GATHERED_WHOLE``).  The batch splits over "data" and the
 decode caches hold this rank's rows, kv heads, SSD heads and conv
 channels (MLA's latent cache has no heads axis and stays whole over
-"model").  Where
+"model"), and their sequence follows the reference's ``cache_seq`` rule
+(:func:`cache_rules`): over "data" when the data axis does not divide
+the batch, over the axis ``REPRO_CACHE_SEQ_SHARD`` names when that is
+set, dropped where the axis does not divide the cache length, and a
+layout with one mesh axis on two dims of a cache leaf refused
+(``sharding.CacheLayoutError``, the reference's ``DuplicateSpecError``).
+Where
 the reference leaves a serving step's weights to XLA
 (``set_param_gather(None)``), the port gathers the "data" shard at use as
 in training.  So each spec here is this rank's shard, and the second
@@ -35,6 +41,7 @@ With ``mesh=None`` everything is the exact single-device path.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -47,7 +54,7 @@ from repro_torch.core.trainers.base import RLState
 from repro_torch.distributed import mesh as mesh_lib
 from repro_torch.models import params as params_lib
 from repro_torch.models import tasks
-from repro_torch.models.backbone import Backbone
+from repro_torch.models.backbone import Backbone, map_cache_spec
 
 BF16 = torch.bfloat16
 F32 = torch.float32
@@ -71,8 +78,11 @@ def local_batch(batch: int, mesh) -> int:
     return batch // dp if batch % dp == 0 else batch
 
 
-def layout(mesh, batch: int, *, fsdp: bool = True) -> str:
-    """The record's description of the layout a step runs under."""
+def layout(mesh, batch: int, *, fsdp: bool = True,
+           cache_seq: Optional[str] = None) -> str:
+    """The record's description of the layout a step runs under
+    (``cache_seq``: the mesh axis a decode cache's sequence is split
+    over)."""
     dp, mp = mesh_lib.mesh_dp(mesh), mesh_lib.mesh_mp(mesh)
     if mesh is None:
         return "single device: no mesh, no collective"
@@ -91,7 +101,10 @@ def layout(mesh, batch: int, *, fsdp: bool = True) -> str:
             f"vocabulary tensor-parallel, ep_model's routed experts and the "
             f"leaves whole under the tables gathered whole at use; "
             f"{split}; KV caches by kv head and SSM caches by SSD head over "
-            f"model, MLA's latent cache whole")
+            f"model, MLA's latent cache whole over model"
+            + (f"; KV and latent caches' sequence over {cache_seq} (segment "
+               f"attention merged over {cache_seq}, the ring rolled across "
+               f"segments)" if cache_seq else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -160,11 +173,52 @@ def _rules(mesh, fsdp: bool) -> Optional[shlib.Rules]:
             shlib.production_rules(mesh, fsdp=fsdp))
 
 
-def cache_specs(cfg: ArchConfig, shape: InputShape, mesh):
+def cache_rules(cfg: ArchConfig, shape: InputShape, mesh, *,
+                fsdp: bool = False) -> Optional[shlib.Rules]:
+    """The production rules of a decode step of ``shape``, their cache
+    entries the reference's (``repro/launch/specs.py`` ``cache_specs``):
+    the cache's sequence over "data" only when the batch cannot use the
+    data axis, the batch rule dropped then, and ``REPRO_CACHE_SEQ_SHARD``
+    naming the sequence's axis when set.  Every cache leaf is checked as
+    the reference's ``NamedSharding`` checks it
+    (``sharding.check_cache_leaf``: ``CacheLayoutError`` where one axis
+    lands on two dims); the sequence rule is then dropped where its axis
+    does not divide the cache length or has one rank, as the reference's
+    ``leaf`` drops it.  None without a mesh."""
+    if mesh is None:
+        return None
+    batch = shape.global_batch
+    cache_len = tasks.effective_cache_len(cfg, shape)
+    # shard cache seq over data only when the batch can't use the data axis
+    b_ax = shlib.batch_axes(mesh)
+    batch_shardable = shlib.divisible(batch, mesh, b_ax)
+    rules = shlib.production_rules(mesh, fsdp=fsdp,
+                                   seq_shard=not batch_shardable)
+    if not batch_shardable:
+        rules.arules["batch"] = None
+    # sequence-sharded flash-decode: the decode caches' sequence over the
+    # axis the knob names (the reference's memory-capacity lever)
+    if os.environ.get("REPRO_CACHE_SEQ_SHARD"):
+        rules.arules["cache_seq"] = os.environ["REPRO_CACHE_SEQ_SHARD"]
+    map_cache_spec(lambda sa, name: shlib.check_cache_leaf(
+        name, sa[0], sa[1], rules.arules, mesh),
+        Backbone(cfg).cache_specs(batch, cache_len))
+    ax = rules.arules["cache_seq"]
+    if ax is not None and (shlib.axis_size(mesh, ax) <= 1 or
+                           not shlib.divisible(cache_len, mesh, ax)):
+        rules.arules["cache_seq"] = None
+    return rules
+
+
+def cache_specs(cfg: ArchConfig, shape: InputShape, mesh,
+                rules: Optional[shlib.Rules] = None):
     """The caches ``tasks.init_caches`` preallocates for this rank's rows,
-    kv heads, SSD heads and conv channels of a decode shape (bf16, the SSM
-    state f32), on meta."""
-    with shlib.param_gather(mesh, _rules(mesh, False)):
+    kv heads, SSD heads, conv channels and sequence segment of a decode
+    shape (bf16, the SSM state f32), on meta, under ``rules``
+    (:func:`cache_rules` by default)."""
+    if rules is None:
+        rules = cache_rules(cfg, shape, mesh)
+    with shlib.param_gather(mesh, rules):
         return tasks.init_caches(cfg, local_batch(shape.global_batch, mesh),
                                  tasks.effective_cache_len(cfg, shape), BF16,
                                  META)
@@ -222,12 +276,13 @@ def build_step(cfg: ArchConfig, shape: InputShape, mesh,
         state, _ = train_state_specs(cfg, mesh)
         return _on_mesh(step, mesh, _rules(mesh, True)), (state, batch)
     params, _ = param_specs(cfg, mesh, train=False, fsdp=False)
-    rules = _rules(mesh, mesh is not None and inference_fsdp(cfg, mesh))
+    fsdp = mesh is not None and inference_fsdp(cfg, mesh)
     if shape.kind == "prefill":
         step = tasks.make_prefill_step(cfg, window=window)
-        return _on_mesh(step, mesh, rules), (params, batch)
+        return _on_mesh(step, mesh, _rules(mesh, fsdp)), (params, batch)
     step = tasks.make_decode_step(cfg, window=window)
-    caches = cache_specs(cfg, shape, mesh)
+    rules = cache_rules(cfg, shape, mesh, fsdp=fsdp)
+    caches = cache_specs(cfg, shape, mesh, rules)
     # the token after a full cache: the ring's last slot at a window
     pos = tasks.effective_cache_len(cfg, shape) - 1
     return _on_mesh(step, mesh, rules), (params, caches, batch["token"], pos)

@@ -8,7 +8,8 @@ or v requires grad (the training loss) the call returns through
 ``FlashAttentionFn``, whose backward is the hand-written attention-backward
 kernel, and the forward's output is bitwise the one the rollout saw.
 ``apply_full(return_cache=True)`` also returns the layer's roped keys and
-values (prefill).  ``apply_decode`` runs one token against a cache in
+values (prefill; this rank's segment of them when the rules split the
+cache's sequence).  ``apply_decode`` runs one token against a cache in
 plain PyTorch (``layers.attend_one``), as the reference does in jnp, and
 rolls the cache: the oldest entry out, the new one in.
 
@@ -24,8 +25,19 @@ every rank holds ``wk`` / ``wv`` whole, projects every kv head (so a
 prefill or decode cache stays whole, as the reference's cache layout
 keeps it) and slices the kv heads its q heads read; those weights, and
 ``q_norm`` / ``k_norm``, enter through *f* as well, so their gradient is
-the sum of the ranks' parts.  With whole heads the block is the
-single-device one.
+the sum of the ranks' parts.  ``wo``'s partial product stays f32 until
+*g* has summed it.  With whole heads the block is the single-device one.
+
+Sequence-sharded decode (``sharding.current_seq``: the reference's
+``cache_seq`` rule): rank r of the cache's axis holds entries
+[r·T/n, (r+1)·T/n) of the ring.  Each rank scores its segment (the last
+rank the new entry too), the softmax is merged over the axis and the f32
+p·v partials summed (``layers.attend_segment``), and the ring rolls
+across the segments (``layers.roll_segments``).  Where the q heads are a
+shard over that same axis ("model"; the kv heads are then whole, or the
+layout is refused), q is first gathered over it, so that every rank
+scores every head on its segment, and each rank keeps its own heads'
+rows of the merged output for ``wo``.
 """
 from __future__ import annotations
 
@@ -80,11 +92,15 @@ def _qkv(p: Dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor
     return q, k, v
 
 
-def _out(p: Dict, o: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def _out(p: Dict, o: torch.Tensor, x: torch.Tensor, tp=None
+         ) -> torch.Tensor:
+    """``wo`` over the heads ``o`` holds, in x's dtype; under tensor
+    parallelism the ranks' f32 partials summed by *g* and rounded once."""
     B, S = o.shape[:2]
     H, hd, d = p["wo"].shape
-    return torch.matmul(o.reshape(B, S, H * hd),
-                        p["wo"].to(x.dtype).reshape(H * hd, d)).to(x.dtype)
+    out = layers.row_parallel(o.reshape(B, S, H * hd),
+                              p["wo"].reshape(H * hd, d), tp)
+    return out if tp is None else shlib.reduce_from_model(out, tp, x.dtype)
 
 
 def _parallel(p: Dict, cfg: ArchConfig, x: torch.Tensor):
@@ -136,10 +152,10 @@ def apply_full(p: Dict, cfg: ArchConfig, x: torch.Tensor, *,
     q, k, v = _qkv(p, cfg, x, positions)
     kq, vq = _local_kv(cfg, tp, q.shape[2], k, v)
     o = ops.flash_attention(q, kq, vq, causal=causal, window=window)
-    out = _out(p, o, x)
-    if tp is not None:
-        out = shlib.reduce_from_model(out, tp)
-    return out, (KVCache(k, v) if return_cache else None)
+    out = _out(p, o, x, tp)
+    if not return_cache:
+        return out, None
+    return out, KVCache(shlib.seq_segment(k), shlib.seq_segment(v))
 
 
 def apply_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor, cache: KVCache,
@@ -153,20 +169,32 @@ def apply_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor, cache: KVCache,
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     p, x, tp = _parallel(p, cfg, x)
     q, k_new, v_new = _qkv(p, cfg, x, positions)
-    k = torch.cat([cache.k, k_new], dim=1)
-    v = torch.cat([cache.v, v_new], dim=1)
-    o = layers.attend_one(q, *_local_kv(cfg, tp, q.shape[2], k, v))
-    out = _out(p, o, x)
-    if tp is not None:
-        out = shlib.reduce_from_model(out, tp)
-    return out, KVCache(k[:, 1:], v[:, 1:])
+    seq = shlib.current_seq()
+    if seq is None:
+        k = torch.cat([cache.k, k_new], dim=1)
+        v = torch.cat([cache.v, v_new], dim=1)
+        o = layers.attend_one(q, *_local_kv(cfg, tp, q.shape[2], k, v))
+        return _out(p, o, x, tp), KVCache(k[:, 1:], v[:, 1:])
+    h = q.shape[2]
+    every_head = tp is not None and seq.axis == "model"
+    if every_head:
+        q = shlib.gather_model(q, 2, tp)
+        kv = (cache.k, cache.v, k_new, v_new)
+    else:
+        kv = (*_local_kv(cfg, tp, h, cache.k, cache.v),
+              *_local_kv(cfg, tp, h, k_new, v_new))
+    o = layers.attend_segment(q, *kv, seq)
+    if every_head:
+        o = o[:, :, tp.rank * h:(tp.rank + 1) * h]
+    return _out(p, o, x, tp), KVCache(*layers.roll_segments(
+        (cache.k, cache.v), (k_new, v_new), seq))
 
 
 def init_cache_shape(cfg: ArchConfig, batch: int, cache_len: int
                      ) -> Tuple[Tuple[int, ...], Tuple]:
     """The canonical (shape, logical axes) of a layer's k or v cache (a
     rank of the production layout holds ``sharding.cache_extent`` of its
-    kv heads)."""
+    kv heads and of its sequence)."""
     hd = cfg.resolved_head_dim
     shape = (batch, cache_len, cfg.n_kv_heads, hd)
     axes = ("batch", "cache_seq", "kv_heads", "head_dim")

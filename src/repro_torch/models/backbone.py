@@ -63,7 +63,12 @@ the state; the routed experts under ``ep_model``, and a Mamba-2 block the
 axis does not divide, are gathered whole (``sharding.GATHERED_WHOLE``,
 named per block by ``_parts``); the decode caches hold this rank's kv
 heads, and its SSD heads' states and conv channels
-(``sharding.cache_extent``; MLA's latent cache has none and stays whole).
+(``sharding.cache_extent``; MLA's latent cache has none), and where the
+rules split a cache's sequence (``cache_seq``: the reference's rule,
+``launch/specs.cache_rules``) this rank's contiguous segment of every
+attention and latent cache: the prefill writes its segment of the whole
+cache it computed, and the decode merges the segments' attention and
+rolls the ring across them (``attention``, ``mla``).
 
 ``remat=True`` (``PerfConfig.remat="block"``, and the LM train step's
 default) runs each block call (each group of the hybrid: the reference's
@@ -534,9 +539,10 @@ class Backbone:
         reference's zeros take ``dtype`` and turn f32 at its first
         decode).  Under the production rules the kv heads are this rank's
         (``sharding.cache_extent``), and so are the SSD heads and the conv
-        channels where the Mamba-2 blocks run tensor-parallel."""
+        channels where the Mamba-2 blocks run tensor-parallel, and the
+        sequence where the rules split it (``cache_seq``)."""
         tp = shlib.current_tp()
-        split = {"kv_heads"}
+        split = {"kv_heads", "cache_seq"}
         if self.cfg.family in ("ssm", "hybrid") and tp is not None and \
                 ssm.splits(self.cfg, tp.size):
             split |= {"inner", "ssm_heads"}

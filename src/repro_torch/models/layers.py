@@ -22,6 +22,18 @@ f32 product would run at 151,655 vocabulary columns outside the tensor
 cores (``internvl2-1b``).  Decode attention (``attend_one``) and the
 cross-entropy stay plain PyTorch, as the reference computes them in jnp
 outside any Pallas kernel.
+
+Under tensor parallelism a row-parallel product (``wo``, ``w_down``,
+``out_proj``, the experts' ``w_down``) is the rank's partial sum: it stays
+f32 (``row_parallel``: a bf16 GEMM with an f32 output on the card and on
+meta, f32 operands on the CPU, where the product of two bf16 values is
+exact) and *g* sums the ranks' partials and rounds once, as the
+reference's ``reduce_dtype`` accumulates; its gradients are the bf16
+product's.  With a decode cache's sequence split over a mesh axis
+(``sharding.current_seq``) each rank scores its segment and the softmax
+is merged over the axis (``merged_softmax``: the all-reduced max and sum
+of exponentials, p rounded after the division as the reference rounds
+it); ``roll_segments`` rolls the ring across the segments.
 """
 from __future__ import annotations
 
@@ -86,6 +98,60 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 # ---------------------------------------------------------------------------
+# Row-parallel products (f32 partial sums for g)
+# ---------------------------------------------------------------------------
+
+def f32_product(a: torch.Tensor, b: torch.Tensor, op=torch.mm
+                ) -> torch.Tensor:
+    """``op(a, b)`` (``torch.mm`` or ``torch.bmm``) of two operands of one
+    dtype with an f32 result: the GEMM's own f32 output on the card and
+    on meta, f32 operands on the CPU (no ``out_dtype`` there)."""
+    if a.dtype == F32:
+        return op(a, b)
+    if a.device.type == "cpu":
+        return op(a.to(F32), b.to(F32))
+    return op(a, b, out_dtype=F32)
+
+
+class _Carried(torch.autograd.Function):
+    """The carrier of a row-parallel partial ``a @ w`` (a (..., K),
+    w (K, N), one dtype; ``sharding.Partial``): saves a and w and returns
+    zeros of the product's shape with no storage.  The backward is the
+    product's in a's dtype, the two GEMMs ``torch.matmul`` runs for it."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return torch.zeros((), dtype=a.dtype, device=a.device).expand(
+            *a.shape[:-1], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, w = ctx.saved_tensors
+        g = grad.reshape(-1, w.shape[1])
+        da = dw = None
+        if ctx.needs_input_grad[0]:
+            da = g.mm(w.t()).view(a.shape)
+        if ctx.needs_input_grad[1]:
+            dw = a.reshape(-1, a.shape[-1]).t().mm(g)
+        return da, dw
+
+
+def row_parallel(a: torch.Tensor, w: torch.Tensor, tp=None):
+    """``a @ w`` (w cast to a's dtype): in a's dtype when whole (``tp``
+    None); under tensor parallelism the rank's partial sum as a
+    ``sharding.Partial``: the f32 product (``f32_product``), computed when
+    ``sharding.reduce_from_model`` adds it and rounds once, and its
+    carrier."""
+    w = w.to(a.dtype)
+    if tp is None:
+        return torch.matmul(a, w).to(a.dtype)
+    return shlib.Partial(
+        lambda: f32_product(a.reshape(-1, a.shape[-1]), w).view(
+            *a.shape[:-1], w.shape[1]), _Carried.apply(a, w))
+
+
+# ---------------------------------------------------------------------------
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
 
@@ -108,17 +174,18 @@ def mlp(p: dict, x: torch.Tensor, width: Optional[int] = None
                                                  width)
     if tp is not None:
         x = shlib.copy_to_model(x, tp)
-    out = swiglu(p, x)
-    return out if tp is None else shlib.reduce_from_model(out, tp)
+    out = swiglu(p, x, tp)
+    return out if tp is None else shlib.reduce_from_model(out, tp, x.dtype)
 
 
-def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+def swiglu(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
     """The SwiGLU product over the hidden dim ``p`` holds, in x's dtype:
-    with a rank's shard of it, that rank's partial output."""
+    with a rank's shard of it (``tp``), that rank's partial output, a
+    ``sharding.Partial`` (``row_parallel``)."""
     g = torch.matmul(x, p["w_gate"].to(x.dtype)).to(F32)
     u = torch.matmul(x, p["w_up"].to(x.dtype)).to(F32)
     h = (torch.nn.functional.silu(g) * u).to(x.dtype)
-    return torch.matmul(h, p["w_down"].to(x.dtype)).to(x.dtype)
+    return row_parallel(h, p["w_down"], tp)
 
 
 # ---------------------------------------------------------------------------
@@ -200,6 +267,64 @@ def attend_one(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1).to(q.dtype)
     o = torch.einsum("bkgt,btkd->bkgd", p.to(F32), v.to(F32))
     return o.reshape(B, 1, H, v.shape[-1]).to(q.dtype)
+
+
+def merged_softmax(s: torch.Tensor, seq, dtype) -> torch.Tensor:
+    """The softmax over the last dim of scores ``s`` (f32) whose entries
+    are spread over the ranks of ``seq`` (a ``sharding.SeqGroup``, each
+    rank its segment's): the max and the sum of exp(s - max) all-reduced
+    over the group, p = exp(s - max) / sum rounded to ``dtype`` (where the
+    reference rounds its softmax)."""
+    m = shlib.all_reduce_max(s.amax(dim=-1, keepdim=True), seq.group)
+    e = torch.exp(s - m)
+    den = shlib.all_reduce_sum_(e.sum(dim=-1, keepdim=True), seq.group)
+    return e.div_(den).to(dtype)
+
+
+def attend_segment(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   k_new: torch.Tensor, v_new: torch.Tensor, seq,
+                   scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`attend_one` over a cache whose sequence is split over the
+    ranks of ``seq``: q (B, 1, H, D) against this rank's segment k, v
+    (B, T/n, K, D), and on the last rank (which stores it) the new entry
+    k_new, v_new (B, 1, K, D) too, so every entry is scored once; the
+    softmax merged over the group (:func:`merged_softmax`) and the f32
+    partial p·v all-reduced and rounded once."""
+    B, _, H, D = q.shape
+    K, T = k.shape[2], k.shape[1]
+    scale = scale if scale is not None else D ** -0.5
+    qg = q.reshape(B, K, H // K, D).to(F32)
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k.to(F32)) * scale
+    last = seq.rank == seq.size - 1
+    if last:
+        s_new = torch.einsum("bkgd,bkd->bkg", qg, k_new[:, 0].to(F32))
+        s = torch.cat([s, (s_new * scale)[..., None]], dim=-1)
+    p = merged_softmax(s, seq, q.dtype).to(F32)
+    o = torch.einsum("bkgt,btkd->bkgd", p[..., :T], v.to(F32))
+    if last:
+        o += p[..., T:] * v_new[:, 0].to(F32)[:, :, None, :]
+    o = shlib.all_reduce_sum_(o, seq.group)
+    return o.reshape(B, 1, H, v.shape[-1]).to(q.dtype)
+
+
+def roll_segments(segs, news, seq):
+    """The ring rolled one entry across the segments of ``seq``'s ranks:
+    each of this rank's cache tensors ``segs`` (B, T/n, ...) without its
+    first entry, followed by the next rank's first entry, or on the last
+    rank by the new entry (``news``, (B, 1, ...) each).  One all-gather of
+    the ranks' first entries, not of the caches."""
+    B = segs[0].shape[0]
+    firsts = torch.cat([t[:, :1].reshape(B, -1) for t in segs], dim=-1)
+    every = shlib.gather_dim(firsts[None], 0, seq.group, seq.size)
+    nxt = (torch.cat([t.reshape(B, -1) for t in news], dim=-1)
+           if seq.rank == seq.size - 1 else every[seq.rank + 1])
+    out, c = [], 0
+    for t in segs:
+        w = math.prod(t.shape[2:])
+        out.append(torch.cat([t[:, 1:], nxt[:, c:c + w].view(
+            B, 1, *t.shape[2:])], dim=1))
+        c += w
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------

@@ -28,11 +28,22 @@ That one all-reduce of the latents (``q_lora_rank + kv_lora_rank +
 qk_rope_head_dim`` values a token) stands for those of x and of the four
 whole weights, whose gradients are then whole on every rank.  ``w_uq``,
 ``w_uk`` and ``w_uv`` produce the local heads; ``wo``'s rows are the
-local heads, so its output is a partial sum that *g*
-(``sharding.reduce_from_model``) adds in f32.  The absorbed decode runs
-per local head the same way against the latent cache, which has no heads
-axis and stays whole on every "model" rank.  With whole heads the block
-is the single-device one.
+local heads, so its output is a partial sum, kept f32
+(``layers.row_parallel``), that *g* (``sharding.reduce_from_model``)
+adds and rounds once.  The absorbed decode runs per local head the same
+way against the latent cache, which has no heads axis and stays whole on
+every "model" rank unless the rules split its sequence.  With whole
+heads the block is the single-device one.
+
+Sequence-sharded decode (``sharding.current_seq``, the reference's
+``cache_seq`` rule): rank r of the cache's axis holds entries
+[r·T/n, (r+1)·T/n) of ``c_kv`` and ``k_rope``.  The absorbed queries
+``q_abs`` and ``q_rope`` are gathered over "model" when the heads are a
+shard over that axis, each rank scores every head on its segment (the
+last rank the new entry too), the softmax is merged over the axis
+(``layers.merged_softmax``), the f32 ``o_lat`` partials are all-reduced
+and rounded once, each rank keeps its heads' rows, and the ring rolls
+across the segments (``layers.roll_segments``).
 
 The cache (``MLACache``) holds the rank-compressed latent ``c_kv`` and the
 shared RoPE key, never per-head keys and values.  ``apply_decode`` is the
@@ -157,12 +168,14 @@ def apply_full(p: Dict, cfg: ArchConfig, x: torch.Tensor, *,
     k = torch.cat([k_nope, kr_h[:, :, None, :].expand(
         B, S, H, m.qk_rope_head_dim)], dim=-1)
     o = ops.flash_attention(q, k, v, causal=causal, window=window)
-    out = torch.matmul(o.reshape(B, S, H * m.v_head_dim),
-                       p["wo"].to(x.dtype).reshape(H * m.v_head_dim,
-                                                   cfg.d_model)).to(x.dtype)
+    out = layers.row_parallel(o.reshape(B, S, H * m.v_head_dim),
+                              p["wo"].reshape(H * m.v_head_dim, cfg.d_model),
+                              tp)
     if tp is not None:
-        out = shlib.reduce_from_model(out, tp)
-    return out, (MLACache(c_kv, k_rope) if return_cache else None)
+        out = shlib.reduce_from_model(out, tp, x.dtype)
+    if not return_cache:
+        return out, None
+    return out, MLACache(shlib.seq_segment(c_kv), shlib.seq_segment(k_rope))
 
 
 def apply_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor, cache: MLACache,
@@ -183,27 +196,66 @@ def apply_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor, cache: MLACache,
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     c_new, kr_new, (cq, _, _), tp = _latents(p, cfg, x, positions)
     q_nope, q_rope = _q_proj(p, cfg, cq, positions)      # (B,1,H,*)
-    # attend over the FULL cache plus the new entry (T+1)...
-    c_kv = torch.cat([cache.c_kv, c_new], dim=1)
-    k_rope = torch.cat([cache.k_rope, kr_new], dim=1)
     # absorb W_uk into the query: (B,H,R)
     q_abs = torch.einsum("bhk,rhk->bhr", q_nope[:, 0].to(F32),
                          p["w_uk"].to(F32)).to(dt)
-    c_f = c_kv.to(F32)
-    s_nope = torch.einsum("bhr,btr->bht", q_abs.to(F32), c_f)
-    s_rope = torch.einsum("bhk,btk->bht", q_rope[:, 0].to(F32),
-                          k_rope.to(F32))
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    w = torch.softmax((s_nope + s_rope) * scale, dim=-1).to(dt)
-    o_lat = torch.einsum("bht,btr->bhr", w.to(F32), c_f).to(dt)
+    seq = shlib.current_seq()
+    if seq is not None:
+        o_lat, new_cache = _segment_latent(cache, c_new, kr_new, q_abs,
+                                           q_rope[:, 0], scale, tp, seq)
+    else:
+        # attend over the FULL cache plus the new entry (T+1)...
+        c_kv = torch.cat([cache.c_kv, c_new], dim=1)
+        k_rope = torch.cat([cache.k_rope, kr_new], dim=1)
+        c_f = c_kv.to(F32)
+        s_nope = torch.einsum("bhr,btr->bht", q_abs.to(F32), c_f)
+        s_rope = torch.einsum("bhk,btk->bht", q_rope[:, 0].to(F32),
+                              k_rope.to(F32))
+        w = torch.softmax((s_nope + s_rope) * scale, dim=-1).to(dt)
+        o_lat = torch.einsum("bht,btr->bhr", w.to(F32), c_f).to(dt)
+        # ...then roll the ring buffer (oldest entry out, shape static)
+        new_cache = MLACache(c_kv[:, 1:], k_rope[:, 1:])
     # absorb W_uv on the way out
     o = torch.einsum("bhr,rhk->bhk", o_lat.to(F32), p["w_uv"].to(F32)).to(dt)
     res = torch.einsum("bhk,hkd->bd", o.to(F32), p["wo"].to(F32))
     if tp is not None:
         res = shlib.reduce_from_model(res, tp)
-    res = res[:, None, :].to(dt)
-    # ...then roll the ring buffer (oldest entry out, shape stays static)
-    return res, MLACache(c_kv[:, 1:], k_rope[:, 1:])
+    return res[:, None, :].to(dt), new_cache
+
+
+def _segment_latent(cache: MLACache, c_new: torch.Tensor,
+                    kr_new: torch.Tensor, q_abs: torch.Tensor,
+                    q_rope: torch.Tensor, scale: float, tp, seq
+                    ) -> Tuple[torch.Tensor, MLACache]:
+    """The absorbed attention over a latent cache whose sequence is split
+    over ``seq`` (module docstring): (o_lat (B, H, R) of this rank's
+    heads, in q_abs's dtype; the rolled segments)."""
+    dt = q_abs.dtype
+    h = q_abs.shape[1]
+    every_head = tp is not None and seq.axis == "model"
+    if every_head:
+        q_abs = shlib.gather_model(q_abs, 1, tp)
+        q_rope = shlib.gather_model(q_rope, 1, tp)
+    qa, qr = q_abs.to(F32), q_rope.to(F32)
+    c_f = cache.c_kv.to(F32)
+    s = (torch.einsum("bhr,btr->bht", qa, c_f)
+         + torch.einsum("bhk,btk->bht", qr, cache.k_rope.to(F32)))
+    last = seq.rank == seq.size - 1
+    if last:
+        s_new = (torch.einsum("bhr,br->bh", qa, c_new[:, 0].to(F32))
+                 + torch.einsum("bhk,bk->bh", qr, kr_new[:, 0].to(F32)))
+        s = torch.cat([s, s_new[..., None]], dim=-1)
+    T = c_f.shape[1]
+    w = layers.merged_softmax(s * scale, seq, dt).to(F32)
+    o_lat = torch.einsum("bht,btr->bhr", w[..., :T], c_f)
+    if last:
+        o_lat += w[..., T:] * c_new[:, 0].to(F32)[:, None, :]
+    o_lat = shlib.all_reduce_sum_(o_lat, seq.group).to(dt)
+    if every_head:
+        o_lat = o_lat[:, tp.rank * h:(tp.rank + 1) * h]
+    return o_lat, MLACache(*layers.roll_segments(
+        (cache.c_kv, cache.k_rope), (c_new, kr_new), seq))
 
 
 def init_cache_shapes(cfg: ArchConfig, batch: int, cache_len: int):

@@ -38,9 +38,13 @@ narrower than ``expert_d_ff`` each rank holds every expert's ``f / mp``
 slice of ``w_gate``, ``w_up`` and ``w_down``, runs its slice of each
 SwiGLU and combines its partial results with the gates as one device
 does; one *g* (``sharding.reduce_from_model``) adds the ranks' partial
-(G, T, d) in f32, with the shared experts' partial (their hidden dim
-sharded alike) in the same sum.  The rows enter the experts through *f*
-(``sharding.copy_to_model``), and so do the gates: they multiply partial
+(G, T, d), with the shared experts' partial (their hidden dim sharded
+alike) in the same sum.  The partials stay f32 until that sum, which is
+rounded once: the routed experts' ``w_down`` products, their gated sum
+over the top-k and the dense route's one contraction in f32
+(``layers.f32_product``, ``layers.row_parallel``).  The rows enter the
+experts through *f* (``sharding.copy_to_model``), and so do the gates:
+they multiply partial
 results, so each rank's gradient into them is partial.  The router reads
 x itself, and the auxiliary losses, computed the same on every rank, send
 their gradient to it once.
@@ -157,26 +161,59 @@ class _RoutedExperts(torch.autograd.Function):
     one tensor each.  At deepseek-v2-236b's width over 4 x 4608 tokens
     this keeps the buffer, the results, their gradients and all 160
     experts' f32 values (each 2 to 7.5 GB) off the card, which one MoE
-    layer's training needs beside its 50 GiB of state."""
+    layer's training needs beside its 50 GiB of state.
+
+    ``f32`` (a rank's partial sums under tensor parallelism): the
+    products, their gates and each token's sum stay f32 until *g*, and
+    the call returns them with a carrier (``sharding.Partial``), so the
+    gradient arrives in the activation dtype.  Each expert's gated
+    results are added straight into their tokens' rows of an f32
+    (A / k, d) output (``index_add_``, expert by expert: an
+    expert's slots hold distinct tokens, so no two values meet in a row
+    and the sum's order is the experts', the same on rerun; an empty
+    slot's value is zero and is added to a row of its own index, where it
+    changes nothing), so the (A + 1, d) buffer is not held in f32."""
 
     @staticmethod
-    def forward(ctx, xs, fill, w, wg, wu, wd, k, step):
+    def forward(ctx, xs, fill, w, wg, wu, wd, k, step, f32=False):
         A = xs.shape[0] - 1
         w1 = torch.cat([w, w.new_zeros(1)])
-        out = xs.new_zeros((A + 1, xs.shape[1]))
+        if f32:
+            out = xs.new_zeros((A // k, xs.shape[1]), dtype=F32)
+            spread = torch.arange(fill.shape[1],
+                                  device=fill.device) % (A // k)
+        else:
+            out = xs.new_zeros((A + 1, xs.shape[1]))
         for e0 in range(0, fill.shape[0], step):
             c = slice(e0, e0 + step)
             rows = fill[c].reshape(-1)
             xb = xs.index_select(0, rows).view(*fill[c].shape, -1)
-            y = torch.bmm(_swiglu(xb, wg[c], wu[c])[-1], wd[c])
-            out.index_copy_(0, rows, y.view(rows.shape[0], -1)
-                            * w1.index_select(0, rows)[:, None])
+            if not f32:
+                y = torch.bmm(_swiglu(xb, wg[c], wu[c])[-1], wd[c])
+                out.index_copy_(0, rows, y.view(rows.shape[0], -1)
+                                * w1.index_select(0, rows)[:, None])
+                continue
+            y = layers.f32_product(_swiglu(xb, wg[c], wu[c])[-1], wd[c],
+                                   torch.bmm)
+            del xb
+            y.mul_(w1.index_select(0, rows).view(*fill[c].shape, 1))
+            tok = torch.where(fill[c] < A, fill[c] // k, spread)
+            for e in range(y.shape[0]):
+                out.index_add_(0, tok[e], y[e])
+            del y
         ctx.save_for_backward(xs, fill, w1, wg, wu, wd)
         ctx.k, ctx.step = k, step
-        return out[:A].view(A // k, k, -1).sum(dim=1)
+        if not f32:
+            return out[:A].view(A // k, k, -1).sum(dim=1)
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(out)
+        return out, shlib.carrier(out, xs.dtype)
 
     @staticmethod
-    def backward(ctx, dtok):
+    def backward(ctx, *grads):
+        dtok = grads[-1]     # the output's, or an f32 forward's carrier's
+        if dtok is None:
+            return (None,) * 9
         xs, fill, w1, wg, wu, wd = ctx.saved_tensors
         A, dt = xs.shape[0] - 1, xs.dtype
         dxs = torch.zeros_like(xs)
@@ -213,14 +250,15 @@ class _RoutedExperts(torch.autograd.Function):
             # which is dropped
             dxs.index_add_(0, rows, dxb.view(rows.shape[0], -1))
         dxs[A].zero_()
-        return (dxs, None, dw[:A], dwg, dwu, dwd, None, None)
+        return (dxs, None, dw[:A], dwg, dwu, dwd, None, None, None)
 
 
 def _slot_dispatch(p: Dict, cfg: ArchConfig, xg: torch.Tensor,
-                   gates: torch.Tensor, idx: torch.Tensor, C: int
-                   ) -> torch.Tensor:
+                   gates: torch.Tensor, idx: torch.Tensor, C: int,
+                   tp=None) -> torch.Tensor:
     """The routed experts' gated results (G, T, d) over the hidden dim
-    ``w_gate`` holds (a rank's partial sum under tensor parallelism).  A
+    ``w_gate`` holds (a rank's partial sum under tensor parallelism,
+    ``tp``: f32, the experts' products and their gated sum in f32).  A
     chunk holds as many experts as on one device, whose gate/up transient
     the whole ``expert_d_ff`` sizes: a rank's narrower one would take more
     experts a chunk, and its d-wide rows and results would grow with
@@ -244,16 +282,20 @@ def _slot_dispatch(p: Dict, cfg: ArchConfig, xg: torch.Tensor,
     w = (gates.reshape(A).to(xg.dtype) * keep.reshape(A))
     step = max(1, _CHUNK_ELEMS // max(G * C * f, 1))
     out = _RoutedExperts.apply(xs, fill, w, *(
-        p[n].to(xg.dtype) for n in ("w_gate", "w_up", "w_down")), k, step)
+        p[n].to(xg.dtype) for n in ("w_gate", "w_up", "w_down")), k, step,
+        tp is not None)
+    if tp is not None:
+        return shlib.Partial(*out).reshape(G, T, d)
     return out.view(G, T, d)
 
 
 def _dense_all_experts(p: Dict, cfg: ArchConfig, xg: torch.Tensor,
-                       gates: torch.Tensor, idx: torch.Tensor
+                       gates: torch.Tensor, idx: torch.Tensor, tp=None
                        ) -> torch.Tensor:
     """Small-E mode: every expert on every token, mixed by dense gates
     (the gates folded into h before one (E·f -> d) contraction), over the
-    hidden dim ``w_gate`` holds."""
+    hidden dim ``w_gate`` holds (the contraction a rank's f32 partial
+    under tensor parallelism, ``tp``)."""
     G, T, d = xg.shape
     E, f = cfg.moe.n_experts, p["w_gate"].shape[-1]
     dt = xg.dtype
@@ -263,8 +305,8 @@ def _dense_all_experts(p: Dict, cfg: ArchConfig, xg: torch.Tensor,
     u = torch.einsum("gtd,edf->gtef", xg, p["w_up"].to(dt)).to(F32)
     h = (torch.nn.functional.silu(g) * u).to(dt)
     h = h * gates_dense[..., None]
-    return torch.matmul(h.reshape(G, T, E * f),
-                        p["w_down"].to(dt).reshape(E * f, d)).to(dt)
+    return layers.row_parallel(h.reshape(G, T, E * f),
+                               p["w_down"].reshape(E * f, d), tp)
 
 
 def route(p: Dict, cfg: ArchConfig, xg: torch.Tensor
@@ -300,9 +342,9 @@ def apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, aux: bool = True
         xg, gates = (shlib.copy_to_model(t, tp) for t in (xg, gates))
 
     if moe_mode(cfg) == "dense":
-        out = _dense_all_experts(p, cfg, xg, gates, idx)
+        out = _dense_all_experts(p, cfg, xg, gates, idx, tp)
     else:
-        out = _slot_dispatch(p, cfg, xg, gates, idx, C)
+        out = _slot_dispatch(p, cfg, xg, gates, idx, C, tp)
     if S == 1:
         out = out.reshape(B, S, d)
 
@@ -311,9 +353,9 @@ def apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, aux: bool = True
         if tp is None:
             out = out + layers.mlp(p["shared"], x, width)
         else:   # this rank's slice of the shared experts, in the same g
-            out = out + layers.swiglu(p["shared"], xg.view(B, S, d))
+            out = (out, layers.swiglu(p["shared"], xg.view(B, S, d), tp))
     if tp is not None:
-        out = shlib.reduce_from_model(out, tp)
+        out = shlib.reduce_from_model(out, tp, x.dtype)
 
     if not aux:
         return out, {}

@@ -148,12 +148,12 @@ def _whole_bc(p: Dict, m: Dict, n: int, tp) -> Tuple[torch.Tensor, ...]:
 def _norm_and_out(p: Dict, cfg: ArchConfig, y: torch.Tensor,
                   z: torch.Tensor, tp) -> torch.Tensor:
     """The gated RMSNorm over the inner width (its statistic over every
-    rank's slice under tensor parallelism) and ``out_proj`` (its partial
-    sums added by *g*)."""
+    rank's slice under tensor parallelism) and ``out_proj`` (its f32
+    partial sums added by *g* and rounded once)."""
     y = layers.rmsnorm(p["norm"], y * F.silu(z.to(F32)).to(y.dtype),
                        cfg.norm_eps, tp)
-    out = torch.matmul(y, p["out_proj"].to(y.dtype)).to(y.dtype)
-    return out if tp is None else shlib.reduce_from_model(out, tp)
+    out = layers.row_parallel(y, p["out_proj"], tp)
+    return out if tp is None else shlib.reduce_from_model(out, tp, y.dtype)
 
 
 def apply_full(p: Dict, cfg: ArchConfig, x: torch.Tensor, *,

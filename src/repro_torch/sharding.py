@@ -38,7 +38,9 @@ layout:
   Megatron's two operators, :func:`copy_to_model` (*f*: identity
   forward, all-reduce over "model" backward) and
   :func:`reduce_from_model` (*g*: all-reduce forward, identity
-  backward), partial sums added in f32 and cast back;
+  backward): each rank's row-parallel product stays f32
+  (``models/layers.row_parallel``) and *g* sums it in place and rounds
+  once, as the reference's ``reduce_dtype`` accumulates;
 * the expert tables' ``moe_in`` / ``moe_out`` dims, which the
   reference's ``gathered_param_rules`` keeps sharded over "data" at use
   (tensor and dense modes; XLA then moves the token rows), are gathered
@@ -67,7 +69,14 @@ layout:
   (:func:`unpack`);
 * ``rules.arules`` (``act_rules``) lays out the decode caches: kv heads,
   and the SSM caches' heads and conv channels (x, B, C each by rank), over
-  "model" where the axis divides them.
+  "model" where the axis divides them, and an attention or latent cache's
+  sequence over the axis its ``cache_seq`` entry names (the reference's
+  rule, ``launch/specs.py``'s ``cache_rules``: "data" when the batch does
+  not divide the data axis, or the axis ``REPRO_CACHE_SEQ_SHARD`` names).
+  Rank r of that axis holds positions [r·T/n, (r+1)·T/n) of the ring
+  (:func:`current_seq`, :func:`seq_segment`); a layout that puts one mesh
+  axis on two dims of a cache leaf is refused (:func:`check_cache_leaf`,
+  ``CacheLayoutError``), as the reference's ``NamedSharding`` refuses it.
 
 With no mesh, or a mesh whose axes are 1, nothing is gathered and no
 operator runs: the layouts compute the single-device function, bit for
@@ -117,7 +126,21 @@ class TP(NamedTuple):
     rank: int
 
 
-_CTX: Dict = {"mesh": None, "rules": None, "tp": None}
+class SeqGroup(NamedTuple):
+    """The mesh axis a decode cache's sequence is split over: rank ``rank``
+    of ``size`` holds the ``rank``-th contiguous segment of the ring."""
+    axis: str
+    group: object
+    size: int
+    rank: int
+
+
+class CacheLayoutError(ValueError):
+    """A cache layout that maps one mesh axis to two dims of one leaf (the
+    reference's ``DuplicateSpecError``)."""
+
+
+_CTX: Dict = {"mesh": None, "rules": None, "tp": None, "seq": None}
 
 # callables ``hook(kind, result_bytes, group_size)``, one call per
 # collective issued (the reference's HLO op names as kinds)
@@ -273,12 +296,52 @@ def pspec(axes: Axes, rules: RuleTable) -> Tuple:
     return tuple(None if a is None else rules.get(a, None) for a in axes)
 
 
-def production_rules(mesh, *, fsdp: bool = True) -> Rules:
+def production_rules(mesh, *, fsdp: bool = True, seq_shard: bool = False
+                     ) -> Rules:
     """The reference's production layout: params stored by
     ``param_rules(fsdp=fsdp)``, used by ``gathered_param_rules``,
-    activations and caches by ``act_rules``."""
-    return Rules(prules=gathered_param_rules(mesh), arules=act_rules(mesh),
+    activations and caches by ``act_rules(seq_shard=seq_shard)``."""
+    return Rules(prules=gathered_param_rules(mesh),
+                 arules=act_rules(mesh, seq_shard=seq_shard),
                  stored=param_rules(mesh, fsdp=fsdp))
+
+
+def divisible(n: int, mesh, names) -> bool:
+    """Whether the mesh axes ``names`` (one name or a tuple; an axis the
+    mesh lacks counts 1) divide ``n``: the reference's
+    ``launch/specs.py`` ``_divisible``."""
+    size = 1
+    for a in (names if isinstance(names, tuple) else (names,)):
+        size *= axis_size(mesh, a)
+    return n % size == 0
+
+
+def check_cache_leaf(name: str, shape: Tuple[int, ...], axes: Axes,
+                     rules: RuleTable, mesh) -> None:
+    """Check a cache leaf of canonical ``shape`` and logical ``axes`` as
+    the reference's ``NamedSharding`` checks its ``PartitionSpec``
+    (``launch/specs.py``'s ``cache_specs.leaf``: each axis's rule,
+    dropped where the mesh axes do not divide the dim): raises
+    ``CacheLayoutError`` naming the leaf and the axis where one mesh axis
+    lands on two dims, or a rule names an axis the mesh lacks."""
+    seen = {}
+    for i, (ax, n) in enumerate(zip(axes, shape)):
+        m = rules.get(ax) if ax else None
+        if m is not None and not divisible(n, mesh, m):
+            m = None
+        for a in (m if isinstance(m, tuple) else (m,)):
+            if a is None:
+                continue
+            if a not in axis_names(mesh):
+                raise CacheLayoutError(
+                    f"cache leaf {name!r}: {ax!r} names mesh axis {a!r}, "
+                    f"which the mesh {axis_names(mesh)} lacks")
+            if a in seen:
+                raise CacheLayoutError(
+                    f"cache leaf {name!r} {tuple(shape)}: mesh axis {a!r} "
+                    f"would shard both dim {seen[a]} ({axes[seen[a]]}) and "
+                    f"dim {i} ({ax})")
+            seen[a] = i
 
 
 def leaf_layout(shape: Tuple[int, ...], axes: Axes, rules: RuleTable,
@@ -554,6 +617,50 @@ class _ReduceFromModel(torch.autograd.Function):
         return grad, None
 
 
+class Partial(NamedTuple):
+    """A rank's row-parallel partial sum kept f32 for *g*: ``value``, the
+    f32 tensor (no gradient) or a function that computes it when *g*
+    runs, and ``carrier``, zeros of its shape in the activation dtype with
+    no storage, by which the gradient, in that dtype, enters the product
+    that made it (``models/layers.row_parallel``).  So no f32 copy of the
+    gradient is made (an f32 autograd input to *g* would have autograd
+    upcast its gradient), and a checkpoint's rerun, which stops once the
+    backward's saved tensors are back, stops before the product."""
+    value: object
+    carrier: torch.Tensor
+
+    def f32(self) -> torch.Tensor:
+        """The f32 partial (computed, where ``value`` is a function)."""
+        return self.value() if callable(self.value) else self.value
+
+    def reshape(self, *shape) -> "Partial":
+        return Partial(lambda: self.f32().reshape(*shape),
+                       self.carrier.reshape(*shape))
+
+
+def carrier(value: torch.Tensor, dtype) -> torch.Tensor:
+    """Zeros of ``value``'s shape in ``dtype``, no storage (a
+    :class:`Partial`'s carrier)."""
+    return torch.zeros((), dtype=dtype, device=value.device).expand(
+        value.shape)
+
+
+class _ReducePartials(torch.autograd.Function):
+    """*g* over :class:`Partial` sums: forward the partials' f32 values
+    added in place, summed over the "model" group in place and rounded
+    once to ``dtype``; backward the gradient, in ``dtype``, to each
+    carrier."""
+
+    @staticmethod
+    def forward(ctx, group, dtype, value, *carriers):
+        ctx.n = len(carriers)
+        return all_reduce_sum_(value, group).to(dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None, None, None) + (grad,) * ctx.n
+
+
 class _MeanOverData(torch.autograd.Function):
     """Forward: the mean over the "data" group (f32, cast back); backward:
     identity.  Each data rank's gradient then carries its rows' share of
@@ -587,9 +694,21 @@ def copy_to_model(x: torch.Tensor, tp: TP) -> torch.Tensor:
     return _CopyToModel.apply(x, tp.group)
 
 
-def reduce_from_model(x: torch.Tensor, tp: TP) -> torch.Tensor:
-    """*g*: the sum of the "model" ranks' partial ``x``."""
-    return _ReduceFromModel.apply(x, tp.group)
+def reduce_from_model(x, tp: TP, dtype=None) -> torch.Tensor:
+    """*g*: the sum of the "model" ranks' partial ``x``.  A tensor is
+    summed in f32 and cast back to its dtype; a :class:`Partial`, or a
+    tuple of them (their sum), is summed in f32 in place and rounded once
+    to ``dtype`` (the carriers' by default), the reference's
+    ``reduce_dtype`` accumulation."""
+    if isinstance(x, torch.Tensor):
+        return _ReduceFromModel.apply(x, tp.group)
+    parts = (x,) if isinstance(x, Partial) else tuple(x)
+    with torch.no_grad():
+        value = parts[0].f32()
+        for p in parts[1:]:
+            value.add_(p.f32())
+    return _ReducePartials.apply(tp.group, dtype or parts[0].carrier.dtype,
+                                 value, *(p.carrier for p in parts))
 
 
 def gather_model_sum(x: torch.Tensor, dim: int, tp: TP) -> torch.Tensor:
@@ -625,6 +744,10 @@ def set_param_gather(mesh, rules: Optional[Rules] = None) -> None:
     _CTX["mesh"], _CTX["rules"] = mesh, rules
     _CTX["tp"] = (TP(mesh.get_group("model"), mp, _coord(mesh, "model"))
                   if rules is not None and mp > 1 else None)
+    ax = None if rules is None else rules.arules.get("cache_seq")
+    n = 1 if ax is None else axis_size(mesh, ax)
+    _CTX["seq"] = (SeqGroup(ax, mesh.get_group(ax), n, _coord(mesh, ax))
+                   if n > 1 else None)
 
 
 @contextlib.contextmanager
@@ -669,15 +792,45 @@ def tp_for(local: int, full: int) -> Optional[TP]:
     return tp
 
 
+def current_seq() -> Optional[SeqGroup]:
+    """The installed decode caches' sequence axis (None: the caches hold
+    the whole ring)."""
+    return _CTX["seq"]
+
+
 def cache_extent(n: int, axis: str) -> int:
     """This rank's extent of a cache dim of size ``n`` on logical
     ``axis`` under the installed activation rules (kv heads, SSD heads
-    and the SSM's conv channels over "model"); ``n`` without them."""
+    and the SSM's conv channels over "model", the sequence over the
+    ``cache_seq`` axis); ``n`` without them.  The rules that shard the
+    sequence were built for a cache length that axis divides
+    (``launch/specs.cache_rules`` drops the rule otherwise), so another
+    length raises."""
+    if axis == "cache_seq":
+        seq = _CTX["seq"]
+        if seq is None:
+            return n
+        if n % seq.size:
+            raise CacheLayoutError(
+                f"a {n}-entry cache under rules that split the sequence over "
+                f"{seq.size} {seq.axis!r} ranks")
+        return n // seq.size
     tp = _CTX["tp"]
     if tp is None or _CTX["rules"].arules.get(axis) != "model" or \
             n % tp.size:
         return n
     return n // tp.size
+
+
+def seq_segment(t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This rank's contiguous segment along ``dim`` of a whole cache ``t``
+    (a prefill's, which every rank of the sequence axis computed alike);
+    ``t`` itself when the sequence is not split."""
+    seq = _CTX["seq"]
+    if seq is None:
+        return t
+    n = cache_extent(t.shape[dim], "cache_seq")
+    return t.narrow(dim, seq.rank * n, n)
 
 
 def _part_of(parts, key):
