@@ -419,17 +419,32 @@ script exits 2 before printing any result.
    card), the rolled segments, concatenated, equal to one device's rolled
    cache bit for bit; then ms a step of the whole layer and of one rank
    on its segment, beside their bytes bounds at 3.35 TB/s.
-42. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
+42. Expert parallelism (``REPRO_MOE_MODE=ep_model``) at mp = 16, emulated
+   on the card: one ``deepseek-v2-236b`` MoE layer at full width (MLA and
+   the routed and shared experts) at 4 x 4608 in bf16, whole, then as the
+   16 ranks at once on host threads over a ``ThreadGroup``, each with its
+   8 of 128 MLA heads, its 10 of 160 routed experts at the whole hidden
+   dim and its 1/16 of the shared experts: the forwards' *g* all-reduces
+   meet across the ranks, the backwards run one rank after another and
+   the script sums what *f*'s backward would.  Each output, the summed
+   input gradients and every weight gradient within 3e-2 of the whole
+   layer's max; the attention 16 forwards and 16 backwards on ``wgmma`` at
+   8 heads of (192, 128), nothing else; every MoE call on 10 experts'
+   tables; each *g* handed f32.  Again under ``REPRO_BF16_REDUCE=1``, each
+   *g* handed bf16.  Then one rank's routed experts, forward and
+   backward, tensor mode (160 experts at f 96) against ep_model (10 at f
+   1536), CUDA events beside their bounds.
+43. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
    ``ssm_train_path``, ``perf_path``, ``distributed_path``,
    ``engine_path``, ``hybrid_path``, ``moe_path``, ``frontend_path``,
    ``lm_path``, ``sweep_path``, ``lint``, ``layout_path``,
    ``moe_layer_path``, ``ssm_layer_path``, ``seq_decode_path``,
-   ``phase_times`` and ``kernels`` JSON lines, the card's name and power
+   ``ep_layer_path``, ``phase_times`` and ``kernels`` JSON lines, the card's name and power
    limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds as it ends (``[N] took ... s``), and the
 script the total.  ``--only N,...`` runs just the device and build phases
-and phases N (3 and 8-41) and prints no result lines: a development aid.
+and phases N (3 and 8-42) and prints no result lines: a development aid.
 """
 from __future__ import annotations
 
@@ -6711,6 +6726,8 @@ class ThreadGroup:
         self.local = threading.local()
         self.slots = [None] * n
         self.barrier = threading.Barrier(n, timeout=120)
+        # (dtype, shape) of each all-reduce the ranks meet in, when a list
+        self.log = None
 
     @property
     def rank(self) -> int:
@@ -6724,6 +6741,8 @@ class ThreadGroup:
         self.slots[r] = x
         self.barrier.wait()
         if r == 0:
+            if self.log is not None:
+                self.log.append((x.dtype, tuple(x.shape)))
             acc = self.slots[0].clone()
             for t in self.slots[1:]:
                 if op == dist.ReduceOp.MAX:
@@ -6976,10 +6995,342 @@ def seq_decode_phase(dev) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 42
+# expert parallelism (REPRO_MOE_MODE=ep_model) at mp = 16 on one card: a
+# full-width deepseek-v2-236b MoE layer, whole and as the 16 ranks at once
+# on host threads (``ThreadGroup``), each with its 8 of 128 MLA heads, its
+# 10 of 160 routed experts at the whole hidden dim and its 1/16 of the
+# shared experts' hidden dim; then the same ranks with REPRO_BF16_REDUCE.
+# Each rank's forward runs the port's own code, and its g all-reduces
+# meet the other ranks' at the group's barrier.  The backwards run one
+# rank after another from this thread, over the group in its solo mode,
+# and this phase sums the ranks' input gradients and the gradients of the
+# leaves every rank holds whole (f's backward all-reduce): autograd runs
+# every backward on a CUDA tensor on one device thread, where a barrier
+# across the ranks' backwards would wait for itself.  (tag, REPRO_BF16_REDUCE)
+# of the two passes:
+EP_PASSES = (("ep_model", None), ("ep_model_bf16_reduce", "1"))
+
+
+@contextlib.contextmanager
+def env_vars(**values):
+    """The environment variables set to ``values`` (None: unset) in the
+    body."""
+    prev = {k: os.environ.get(k) for k in values}
+
+    def put(vals):
+        for k, v in vals.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    put(values)
+    try:
+        yield
+    finally:
+        put(prev)
+
+
+@contextlib.contextmanager
+def rank_calls(lock, q_shapes: list, expert_uses: list):
+    """Each ``ops.flash_attention`` call made under ``lock`` (the
+    wrappers' launch counters are plain attributes, added to one thread
+    at a time) with its q shape appended to ``q_shapes``; each MoE call's
+    routed expert table shapes appended to ``expert_uses``."""
+    saved_fa, saved_moe = ops.flash_attention, moe_mod.apply
+
+    def fa(q, *a, **k):
+        with lock:
+            q_shapes.append(tuple(q.shape))
+            return saved_fa(q, *a, **k)
+
+    def moe_apply(p, *a, **k):
+        expert_uses.extend(tuple(p[n].shape)
+                           for n in ("w_gate", "w_up", "w_down"))
+        return saved_moe(p, *a, **k)
+
+    ops.flash_attention, moe_mod.apply = fa, moe_apply
+    try:
+        yield
+    finally:
+        ops.flash_attention, moe_mod.apply = saved_fa, saved_moe
+
+
+def _ep_pass(fn, shards: list, dims: dict, h, dy, want: tuple) -> dict:
+    """One region of the ``mp`` ranks (``shards``: each rank's leaves;
+    ``dims``: each leaf's "model" dim, None where every rank holds it
+    whole): the forwards at once on host threads over a ``ThreadGroup``,
+    then each rank's backward in turn over the group in its solo mode.
+    ``want`` = (the whole region's output, input gradient, {leaf path:
+    gradient}).  Returns the gaps (each rank's output; the ranks' input
+    gradients summed; each leaf's gradient, the shards' concatenated or
+    the whole leaves' summed), the launches, the q shapes, the routed
+    expert tables' shapes at use and the dtype and shape of each all-reduce
+    the forwards handed the group."""
+    import threading
+    from repro_torch import sharding as shlib
+    y, dx, grads = want
+    mp = len(shards)
+    group = ThreadGroup(mp)
+    group.log = []
+    # a leaf every rank holds whole is one tensor in every shard: its
+    # gradient is read and cleared after each rank's backward
+    leaves = [dict(params_lib.leaves(s)) for s in shards]
+    xs = [h.detach().requires_grad_() for _ in range(mp)]
+    ys, errors, q_shapes, uses = [None] * mp, [], [], []
+
+    def rank(r):
+        try:
+            group.local.rank = r
+            shlib._CTX.update(mesh=None, rules=None,
+                              tp=shlib.TP(group, mp, r), seq=None)
+            ys[r] = fn(shards[r], xs[r])
+        except Exception as e:   # the others leave the barrier too
+            errors.append(f"rank {r}: {type(e).__name__}: {e}")
+            group.barrier.abort()
+
+    for lv in leaves:
+        for t in lv.values():
+            t.requires_grad_(True)
+    lock = threading.Lock()
+    reset_counts()
+    with thread_ranks(), rank_calls(lock, q_shapes, uses):
+        threads = [threading.Thread(target=rank, args=(r,))
+                   for r in range(mp)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            fail("phase 42: an emulated rank failed: " + "; ".join(errors))
+        forward_log = list(group.log)
+        group.solo = True
+        with torch.no_grad():
+            out_gap = max(_rel(t, y) for t in ys)
+        dx_sum = torch.zeros_like(dx, dtype=torch.float32)
+        g_sum = {path: torch.zeros_like(g, dtype=torch.float32)
+                 for path, g in grads.items() if dims[path] is None}
+        g_err = dict.fromkeys(grads, 0.0)
+        for r in range(mp):
+            ys[r].backward(dy)
+            ys[r] = None
+            dx_sum += xs[r].grad.float()
+            xs[r].grad = None
+            for path, t in leaves[r].items():
+                m = dims[path]
+                if m is None:
+                    g_sum[path] += t.grad.float()
+                else:
+                    k = t.grad.shape[m]
+                    want_r = grads[path].narrow(m, r * k, k)
+                    g_err[path] = max(g_err[path], float(
+                        (t.grad.float() - want_r.float()).abs().max()))
+                t.grad = None
+    for lv in leaves:
+        for t in lv.values():
+            t.requires_grad_(False)
+    gaps = {"out": out_gap, "dx": _rel(dx_sum, dx)}
+    for path, g in grads.items():
+        key = "/".join(path) + (" (sum)" if dims[path] is None
+                                else " (shards)")
+        gaps[key] = (_rel(g_sum[path], g) if dims[path] is None else
+                     g_err[path] / max(float(g.float().abs().max()), 1e-30))
+    return {"gaps": gaps, "launches": counts(), "variants": all_variants(),
+            "pairs": pair_counts(), "q_shapes": sorted(set(q_shapes)),
+            "q_calls": len(q_shapes), "expert_uses": sorted(set(uses)),
+            "g_all_reduces": [[str(dt), list(s)] for dt, s in forward_log]}
+
+
+def _expert_times(p: dict, cfg, h, dy, mp: int, r: int) -> dict:
+    """Rank ``r``'s routed experts of the MoE layer ``p`` at mp, forward
+    and backward (``moe._slot_dispatch`` with its partial through *g* over
+    a solo ``ThreadGroup``, and the backward into the tables and the
+    rows), on the normed input ``h`` and the router's own assignments:
+    tensor mode (every expert at f / mp) against ep_model (E / mp experts
+    at the whole f).  ms from CUDA events, with the bound: the larger of
+    the bytes (the rows, the rank's tables, the upstream gradient in; the
+    output, the rows' and the tables' gradients out) over the memory rate
+    and the operations (three products forward, six backward, over the
+    assignments the capacity keeps in the rank's experts) over the bf16
+    tensor-core rate."""
+    from repro_torch import sharding as shlib
+    m = cfg.moe
+    E, f, d = m.n_experts, m.expert_d_ff, cfg.d_model
+    G, T, _ = h.shape
+    C = moe_mod.capacity(T, cfg)
+    with torch.no_grad():
+        _, _, gates, idx = moe_mod.route(p, cfg, h)
+        _, keep = moe_mod._slots(idx, E, C)
+        kept = torch.bincount(idx.reshape(-1)[keep.reshape(-1)],
+                              minlength=E)
+    n, fl = E // mp, f // mp
+    modes = {
+        "tensor": ({nm: p[nm].narrow(2 if nm != "w_down" else 1, r * fl,
+                                     fl).contiguous()
+                    for nm in ("w_gate", "w_up", "w_down")},
+                   int(kept.sum()), E, fl),
+        "ep_model": ({nm: p[nm].narrow(0, r * n, n)
+                      for nm in ("w_gate", "w_up", "w_down")},
+                     int(kept[r * n:(r + 1) * n].sum()), n, fl * mp)}
+    solo = ThreadGroup(mp, solo=True)
+    out = {}
+    with thread_ranks():
+        solo.local.rank = r
+        tp = shlib.TP(solo, mp, r)
+        for mode, (tabs, rows, n_e, width) in modes.items():
+            for t in tabs.values():
+                t.requires_grad_(True)
+            x = h.detach().requires_grad_()
+
+            def step():
+                y = shlib.reduce_from_model(moe_mod._slot_dispatch(
+                    tabs, cfg, x, gates, idx, C, tp), tp, x.dtype)
+                y.backward(dy)
+                x.grad = None
+                for t in tabs.values():
+                    t.grad = None
+
+            ms = cuda_ms(step, 3, 1)
+            for t in tabs.values():
+                t.requires_grad_(False)
+            flops = 9 * 2 * rows * d * width
+            table_bytes = 3 * n_e * d * width * 2
+            nbytes = 2 * table_bytes + 4 * G * T * d * 2
+            bound, by = _bound(nbytes, flops)
+            out[mode] = {"experts": n_e, "f": width, "kept_rows": rows,
+                         "ms": ms, "bound_ms": bound, "bound_by": by,
+                         "tflop": flops / 1e12, "mbytes": nbytes / 1e6}
+    return out
+
+
+def ep_layer_ranks(dev, arch: str = DS_ARCH, mp: int = LAYER_MP, cfg=None,
+                   seed: int = 42, time_it: bool = True) -> dict:
+    """One MoE layer of ``arch`` (``cfg``: another config, as a reduced
+    one) under ``REPRO_MOE_MODE=ep_model`` at full width, bf16, random
+    weights from ``seed`` (the query and key projections drawn as
+    ``draw_qk_proj``), its two regions (``_layer_regions``) from random
+    normed inputs at the flow shape (``B_SERVE`` x ``HY_SEQ``) and random
+    upstream gradients: once whole, then as the ``mp`` ranks of each pass
+    of ``EP_PASSES`` (``_ep_pass``), each rank with its shard of every
+    leaf (``sharding.use_layout`` under the production rules: MLA's heads,
+    the routed experts' expert dim, the shared experts' hidden dim).  Then
+    (``time_it``) one rank's routed experts in both modes
+    (``_expert_times``)."""
+    from repro_torch import sharding as shlib
+    cfg = cfg or configs.get(arch)
+    axis = _ModelAxis(mp)
+    with env_vars(REPRO_MOE_MODE="ep_model", REPRO_BF16_REDUCE=None):
+        spec = Backbone(cfg)._block_spec
+        rules = shlib.production_rules(axis)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = params_lib.init(spec, gen, torch.bfloat16, dev)
+    _draw_qk(p["attn"], cfg, gen)
+    shape = (B_SERVE, HY_SEQ, cfg.d_model)
+    out = {tag: {} for tag, _ in EP_PASSES}
+    for name, fn in _layer_regions(cfg):
+        ps, sp = p[name], spec[name]
+        h, dy = (torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        with env_vars(REPRO_MOE_MODE="ep_model", REPRO_BF16_REDUCE=None):
+            want = _region(fn, ps, h, dy)
+        dims = {path: shlib.use_layout(s.shape, s.axes, rules, axis)[1]
+                for path, s in params_lib.leaves(sp)}
+        shards = []
+        for r in range(mp):
+            shard = {}
+            for path, t in params_lib.leaves(ps):
+                m = dims[path]
+                if m is not None:
+                    k = t.shape[m] // mp
+                    t = t.narrow(m, r * k, k).contiguous()
+                params_lib._set(shard, path, t)
+            shards.append(shard)
+        for tag, bf16 in EP_PASSES:
+            with env_vars(REPRO_MOE_MODE="ep_model", REPRO_BF16_REDUCE=bf16):
+                out[tag][name] = _ep_pass(fn, shards, dims, h, dy, want)
+        if name == "ffn" and time_it:
+            out["expert_times"] = _expert_times(ps, cfg, h, dy, mp, mp - 1)
+        del shards, want, h, dy
+        gc.collect()
+        torch.cuda.empty_cache()
+    del p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_layer_phase(dev) -> dict:
+    """Phase 42: ``ep_layer_ranks`` for one ``deepseek-v2-236b`` MoE layer
+    at mp = 16.  In each pass: every gap within ``LAYER_RANK_BAND``; the
+    ranks' attention 16 forwards and 16 backwards on ``wgmma`` at 8 heads
+    of (192, 128), no other kernel; every MoE call on 10 of the 160
+    experts at the whole hidden dim; each region's one *g* all-reduce a
+    forward handed the group in f32, or in bf16 under
+    ``REPRO_BF16_REDUCE``.  Then one rank's routed experts timed in both
+    modes beside their bounds."""
+    cfg = configs.get(DS_ARCH)
+    m = cfg.moe
+    res = ep_layer_ranks(dev)
+    n = m.n_experts // LAYER_MP
+    uses = sorted({(n, cfg.d_model, m.expert_d_ff),
+                   (n, m.expert_d_ff, cfg.d_model)})
+    pair = f"{MLA_QK}x{MLA_V}"
+    q_shape = (B_SERVE, HY_SEQ, MLA_HEADS // LAYER_MP, MLA_QK)
+    ok = True
+    for tag, bf16 in EP_PASSES:
+        r = res[tag]
+        att, ffn = r["attn"], r["ffn"]
+        want = {name: 0 for name in att["launches"]}
+        want.update(flash_attention=LAYER_MP, flash_attention_bwd=LAYER_MP)
+        g_dtype = "torch.bfloat16" if bf16 else "torch.float32"
+        g_shape = [B_SERVE, HY_SEQ, cfg.d_model]
+        worst = {name: max(r[name]["gaps"].values())
+                 for name in ("attn", "ffn")}
+        launches_ok = (
+            att["launches"] == want
+            and all(v == 0 for v in ffn["launches"].values())
+            and att["variants"]["flash_attention"] == routed(LAYER_MP,
+                                                             "wgmma")
+            and att["variants"]["flash_attention_bwd"] == routed(LAYER_MP,
+                                                                 "wgmma")
+            and att["pairs"]["flash_attention"].get(pair) == LAYER_MP
+            and att["pairs"]["flash_attention_bwd"].get(pair) == LAYER_MP
+            and att["q_shapes"] == [q_shape] and att["q_calls"] == LAYER_MP)
+        experts_ok = [tuple(s) for s in ffn["expert_uses"]] == uses
+        g_ok = all(r[name]["g_all_reduces"] == [[g_dtype, g_shape]]
+                   for name in ("attn", "ffn"))
+        log(f"  {tag}: {DS_ARCH} one MoE layer at mp {LAYER_MP} ({LAYER_MP} "
+            f"ranks at once), ({B_SERVE}, {HY_SEQ}) bf16: worst gap a region "
+            f"{worst} (band {LAYER_RANK_BAND}); every gap "
+            f"{json.dumps({k: r[k]['gaps'] for k in ('attn', 'ffn')})}; "
+            f"the ranks' launches {att['launches']} (expected {want}), "
+            f"variants {att['variants']}, by dim pair {att['pairs']}, q "
+            f"shapes {att['q_shapes']}; expert tables at use "
+            f"{ffn['expert_uses']} (expected {uses}); g all-reduces "
+            f"attn {att['g_all_reduces']}, ffn {ffn['g_all_reduces']} "
+            f"(expected {g_dtype})")
+        if (max(worst.values()) > LAYER_RANK_BAND or not launches_ok
+                or not experts_ok or not g_ok):
+            ok = False
+    t = res["expert_times"]
+    for mode, row in t.items():
+        log(f"  one rank's routed experts ({mode}: {row['experts']} experts "
+            f"at f {row['f']}, {row['kept_rows']} kept assignments), "
+            f"forward + backward: {row['ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
+            f"{row['tflop']:.4f} TFLOP, {row['mbytes']:.1f} MB)")
+    if not ok:
+        fail("the ep_model layer's 16 ranks do not match the whole layer, "
+             "or their attention, expert tables or g all-reduces are not "
+             "what the layout calls for")
+    res["card"] = card_line()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", metavar="N,N,...",
-                    help="run only these of phases 3-41 after the device and "
+                    help="run only these of phases 3-42 after the device and "
                          "build phases, and print no result lines (a "
                          "development aid; the check runs every phase)")
     args = ap.parse_args(argv)
@@ -7266,6 +7617,12 @@ def main(argv=None) -> int:
           f"ranks' segments at once against one device")
     seq_res = seq_decode_phase(dev)
 
+    begin(42, f"expert parallelism (ep_model) at mp {LAYER_MP}: one "
+          f"{DS_ARCH} MoE layer at full width, its {LAYER_MP} ranks at once "
+          f"against the whole layer, then under REPRO_BF16_REDUCE; one "
+          f"rank's routed experts timed in tensor mode and ep_model")
+    ep_res = ep_layer_phase(dev)
+
     def layer_launches(arch: str, name: str) -> int:
         return layer_res[arch]["launches"]["attn"].get(name, 0)
 
@@ -7310,7 +7667,9 @@ def main(argv=None) -> int:
                 "layer_deepseek_mp16": layer_launches(DS_ARCH, name),
                 "layer_grok_mp16": layer_launches(GROK_ARCH, name),
                 **{f"layer_{tag}_mp16": ssm_layer_res[tag]["launches"][name]
-                   for tag, _ in SSM_LAYER_ARCHS}}
+                   for tag, _ in SSM_LAYER_ARCHS},
+                **{f"layer_deepseek_ep16{tag[8:]}": ep_res[tag]["attn"][
+                    "launches"][name] for tag, _ in EP_PASSES}}
 
     for row in rows:
         row["launches"] = train_res["launches"][row["name"]]
@@ -7351,7 +7710,9 @@ def main(argv=None) -> int:
         base = row["name"].rsplit("_mla_rank", 1)[0]
         row["launches_by_path"] = {
             "layer_deepseek_mp16": layer_res[DS_ARCH]["pairs"]["attn"][base][
-                f"{MLA_QK}x{MLA_V}"]}
+                f"{MLA_QK}x{MLA_V}"],
+            **{f"layer_deepseek_ep16{tag[8:]}": ep_res[tag]["attn"]["pairs"][
+                base][f"{MLA_QK}x{MLA_V}"] for tag, _ in EP_PASSES}}
         row["launches"] = row["launches_by_path"]["layer_deepseek_mp16"]
     rows += layer_res["rank_rows"]
     # the scan at a rank's heads (phase 40): launches on that rank's block
@@ -7410,6 +7771,7 @@ def main(argv=None) -> int:
     print(json.dumps({"ssm_layer_path": {
         k: v for k, v in ssm_layer_res.items() if k != "rank_rows"}}))
     print(json.dumps({"seq_decode_path": seq_res}))
+    print(json.dumps({"ep_layer_path": ep_res}))
     print(json.dumps({"phase_times": phase_times()}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
@@ -7461,7 +7823,8 @@ def run_only(dev, only: set) -> int:
               38: _in_tmp(lambda tmp: layout_phase(dev, tmp)),
               39: _in_tmp(lambda tmp: moe_layer_phase(dev, tmp)),
               40: _in_tmp(lambda tmp: ssm_layer_phase(dev, tmp)),
-              41: lambda: seq_decode_phase(dev)}
+              41: lambda: seq_decode_phase(dev),
+              42: lambda: ep_layer_phase(dev)}
     for n in sorted(only):
         if n not in phases:
             fail(f"--only: phase {n} cannot run alone")

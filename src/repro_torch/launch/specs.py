@@ -18,9 +18,11 @@ shard over "data" only when ``2 · n_params / mp`` exceeds
 shard (ZeRO-3 over "data", the expert tables' ``moe_in`` / ``moe_out``
 too, ``sharding.DATA_GATHERED_AXES``) and keeps its "model" shard:
 attention, MLA, the SwiGLU MLP, the routed experts' hidden dim, the
-Mamba-2 blocks' SSD heads and the vocabulary run tensor-parallel; the
-routed experts under ``ep_model`` are gathered whole
-(``sharding.GATHERED_WHOLE``).  The batch splits over "data" and the
+Mamba-2 blocks' SSD heads and the vocabulary run tensor-parallel; under
+``ep_model`` each rank runs its E / mp routed experts at the whole hidden
+dim (expert parallel), or, where the axis does not divide E, every
+expert gathered whole (``sharding.GATHERED_WHOLE``).  Under
+``REPRO_BF16_REDUCE`` the row-parallel partials are summed in bf16.  The batch splits over "data" and the
 decode caches hold this rank's rows, kv heads, SSD heads and conv
 channels (MLA's latent cache has no heads axis and stays whole over
 "model"), and their sequence follows the reference's ``cache_seq`` rule
@@ -93,13 +95,20 @@ def layout(mesh, batch: int, *, fsdp: bool = True,
             f"gathered over data at use" if fsdp else
             "and not over data (serving weights below the inference "
             "threshold)")
+    ep = os.environ.get("REPRO_MOE_MODE") == "ep_model"
+    experts = ("the routed experts expert-parallel (E / model experts a "
+               "rank at the whole hidden dim; gathered whole where model "
+               "does not divide E)" if ep else
+               "the routed experts' hidden dim")
+    reduce = ("; row-parallel partials summed in bf16 (REPRO_BF16_REDUCE)"
+              if os.environ.get("REPRO_BF16_REDUCE") else "")
     return (f"production (ZeRO-3 over data, tensor parallel over model): "
             f"params sharded over model ({mp}) on heads, kv_heads, mlp, "
             f"vocab, inner, experts_mdl {data}, a leaf whole under these "
-            f"over model as the PartitionPlan; attention, MLA, SwiGLU, the "
-            f"routed experts' hidden dim, Mamba-2's SSD heads and the "
-            f"vocabulary tensor-parallel, ep_model's routed experts and the "
-            f"leaves whole under the tables gathered whole at use; "
+            f"over model as the PartitionPlan; attention, MLA, SwiGLU, "
+            f"{experts}, Mamba-2's SSD heads and the vocabulary parallel "
+            f"over model, the leaves whole under the tables gathered whole "
+            f"at use{reduce}; "
             f"{split}; KV caches by kv head and SSM caches by SSD head over "
             f"model, MLA's latent cache whole over model"
             + (f"; KV and latent caches' sequence over {cache_seq} (segment "

@@ -59,9 +59,12 @@ masked, the sum taken over "model"), the LM head and the CE
 (``layers.chunked_ce_loss``); the serving steps gather the logits over
 "model" before they return.  The Mamba-2 blocks run tensor-parallel over
 their SSD heads (``ssm``) where the "model" axis divides the heads and
-the state; the routed experts under ``ep_model``, and a Mamba-2 block the
-axis does not divide, are gathered whole (``sharding.GATHERED_WHOLE``,
-named per block by ``_parts``); the decode caches hold this rank's kv
+the state; under ``ep_model`` each rank runs its E / mp routed experts
+at their whole hidden dim (expert parallel, ``moe``); the routed experts
+under ``ep_model`` where the axis does not divide E, and a Mamba-2 block
+the axis does not divide, are gathered whole
+(``sharding.GATHERED_WHOLE``, named per block by ``_parts``); the decode
+caches hold this rank's kv
 heads, and its SSD heads' states and conv channels
 (``sharding.cache_extent``; MLA's latent cache has none), and where the
 rules split a cache's sequence (``cache_seq``: the reference's rule,
@@ -121,8 +124,10 @@ def _parts(cfg: ArchConfig, spec: Dict, mp: int = 1):
     parts: Dict = {}
     if "ssm" in spec and mp > 1 and not ssm.splits(cfg, mp):
         parts["ssm"] = "ssm_undivided"
-    if "router" in spec.get("ffn", {}) and moe.moe_mode(cfg) == "ep_model":
-        parts["ffn"] = {k: "experts" for k in ("w_gate", "w_up", "w_down")}
+    if ("router" in spec.get("ffn", {}) and mp > 1
+            and moe.moe_mode(cfg) == "ep_model" and cfg.moe.n_experts % mp):
+        parts["ffn"] = {k: "experts_undivided"
+                        for k in ("w_gate", "w_up", "w_down")}
     return parts or None
 
 

@@ -29,7 +29,11 @@ f32 (``row_parallel``: a bf16 GEMM with an f32 output on the card and on
 meta, f32 operands on the CPU, where the product of two bf16 values is
 exact) and *g* sums the ranks' partials and rounds once, as the
 reference's ``reduce_dtype`` accumulates; its gradients are the bf16
-product's.  With a decode cache's sequence split over a mesh axis
+product's.  ``REPRO_BF16_REDUCE`` set (``reduce_dtype``, read at call
+time as the reference reads it) rounds each rank's partial to bf16 once
+and *g* sums the bf16 partials: half the bytes of each such all-reduce,
+the reference's Megatron-style trade.  With no "model" group the switch
+changes nothing: a whole product is rounded once either way.  With a decode cache's sequence split over a mesh axis
 (``sharding.current_seq``) each rank scores its segment and the softmax
 is merged over the axis (``merged_softmax``: the all-reduced max and sum
 of exponentials, p rounded after the division as the reference rounds
@@ -38,6 +42,7 @@ it); ``roll_segments`` rolls the ring across the segments.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -98,8 +103,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 # ---------------------------------------------------------------------------
-# Row-parallel products (f32 partial sums for g)
+# Row-parallel products (f32 partial sums for g, or bf16 under the switch)
 # ---------------------------------------------------------------------------
+
+def reduce_dtype() -> torch.dtype:
+    """The dtype a rank's row-parallel partial sum is handed to *g* in:
+    bf16 when ``REPRO_BF16_REDUCE`` is set and non-empty, f32 otherwise
+    (the reference's ``reduce_dtype``)."""
+    return torch.bfloat16 if os.environ.get("REPRO_BF16_REDUCE") else F32
+
 
 def f32_product(a: torch.Tensor, b: torch.Tensor, op=torch.mm
                 ) -> torch.Tensor:
@@ -137,17 +149,29 @@ class _Carried(torch.autograd.Function):
         return da, dw
 
 
+def partial_product(a: torch.Tensor, b: torch.Tensor, op=torch.mm
+                    ) -> torch.Tensor:
+    """``op(a, b)`` as a rank's partial sum: f32 (``f32_product``), or
+    rounded once to ``reduce_dtype()`` under ``REPRO_BF16_REDUCE``."""
+    rd = reduce_dtype()
+    if rd == F32:
+        return f32_product(a, b, op)
+    if a.dtype == rd:
+        return op(a, b)
+    return f32_product(a, b, op).to(rd)
+
+
 def row_parallel(a: torch.Tensor, w: torch.Tensor, tp=None):
     """``a @ w`` (w cast to a's dtype): in a's dtype when whole (``tp``
     None); under tensor parallelism the rank's partial sum as a
-    ``sharding.Partial``: the f32 product (``f32_product``), computed when
-    ``sharding.reduce_from_model`` adds it and rounds once, and its
-    carrier."""
+    ``sharding.Partial``: the product in ``reduce_dtype()``
+    (``partial_product``), computed when ``sharding.reduce_from_model``
+    adds it, and its carrier."""
     w = w.to(a.dtype)
     if tp is None:
         return torch.matmul(a, w).to(a.dtype)
     return shlib.Partial(
-        lambda: f32_product(a.reshape(-1, a.shape[-1]), w).view(
+        lambda: partial_product(a.reshape(-1, a.shape[-1]), w).view(
             *a.shape[:-1], w.shape[1]), _Carried.apply(a, w))
 
 

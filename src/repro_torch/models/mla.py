@@ -30,7 +30,11 @@ whole weights, whose gradients are then whole on every rank.  ``w_uq``,
 ``w_uk`` and ``w_uv`` produce the local heads; ``wo``'s rows are the
 local heads, so its output is a partial sum, kept f32
 (``layers.row_parallel``), that *g* (``sharding.reduce_from_model``)
-adds and rounds once.  The absorbed decode runs per local head the same
+adds and rounds once; under ``REPRO_BF16_REDUCE`` the partial is rounded
+to bf16 on the rank and summed in bf16, as at every row-parallel site
+(the reference's MLA asks its ``wo`` products for f32 in either case,
+``repro/models/mla.py``; the port applies the switch to every site
+alike).  The absorbed decode runs per local head the same
 way against the latent cache, which has no heads axis and stays whole on
 every "model" rank unless the rules split its sequence.  With whole
 heads the block is the single-device one.
@@ -219,8 +223,9 @@ def apply_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor, cache: MLACache,
     # absorb W_uv on the way out
     o = torch.einsum("bhr,rhk->bhk", o_lat.to(F32), p["w_uv"].to(F32)).to(dt)
     res = torch.einsum("bhk,hkd->bd", o.to(F32), p["wo"].to(F32))
-    if tp is not None:
-        res = shlib.reduce_from_model(res, tp)
+    if tp is not None:   # the f32 partial, or bf16 under the switch
+        res = shlib.reduce_from_model(shlib.Partial(
+            res.to(layers.reduce_dtype()), shlib.carrier(res, dt)), tp, dt)
     return res[:, None, :].to(dt), new_cache
 
 

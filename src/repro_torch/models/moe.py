@@ -27,24 +27,38 @@ as ``layers.mlp`` does (the same to bf16 rounding as the reference's f32
 result, not bitwise).
 
 Modes (``moe_mode``): "tensor" (default) and "ep_model" run the slot
-dispatch (they differ in the reference only in the partitioner's layout;
-here only in the logical axes of the expert tables, which the
-``PartitionPlan`` reads), "dense" computes every expert on every token and
-mixes by dense gates.
+dispatch (they differ in the logical axes of the expert tables, which the
+layouts read, and so in which shard of them a rank holds), "dense"
+computes every expert on every token and mixes by dense gates.
 
-Tensor parallel over "model" (the production layout of
-``repro_torch.sharding``, tensor and dense modes): when ``w_gate`` is
-narrower than ``expert_d_ff`` each rank holds every expert's ``f / mp``
-slice of ``w_gate``, ``w_up`` and ``w_down``, runs its slice of each
-SwiGLU and combines its partial results with the gates as one device
-does; one *g* (``sharding.reduce_from_model``) adds the ranks' partial
-(G, T, d), with the shared experts' partial (their hidden dim sharded
-alike) in the same sum.  The partials stay f32 until that sum, which is
-rounded once: the routed experts' ``w_down`` products, their gated sum
-over the top-k and the dense route's one contraction in f32
-(``layers.f32_product``, ``layers.row_parallel``).  The rows enter the
-experts through *f* (``sharding.copy_to_model``), and so do the gates:
-they multiply partial
+Under the production layout of ``repro_torch.sharding`` the routed
+experts run over "model" in one of two ways, read from the shapes of the
+tables a rank holds (``w_gate`` narrower than the config in either its
+expert dim or its hidden dim):
+
+* tensor parallel (tensor and dense modes): each rank holds every
+  expert's ``f / mp`` slice of ``w_gate``, ``w_up`` and ``w_down`` and
+  runs its slice of each SwiGLU;
+* expert parallel (``ep_model``, where the axis divides E): rank r holds
+  experts [r·E/mp, (r+1)·E/mp) at the whole ``expert_d_ff`` and runs
+  those experts' slots alone.  The rows are replicated over "model" (the
+  batch splits over "data" only), so a rank fills its experts' slots from
+  the rows it holds: no row is sent to another rank, and no (G, E, C, d)
+  buffer or gather of results exists.
+
+Either way the rank combines its partial results with the gates as one
+device does, and one *g* (``sharding.reduce_from_model``) adds the ranks'
+partial (G, T, d), with the shared experts' partial (their hidden dim
+sharded over "model") in the same sum.  The router and the slot table
+run over all E experts on every rank, so the drop order is the whole
+group's.  The partials stay f32 until that sum, which is rounded once:
+the routed experts' ``w_down`` products, their gated sum over the top-k
+and the dense route's one contraction in f32 (``layers.f32_product``,
+``layers.row_parallel``); under ``REPRO_BF16_REDUCE`` each slot's product
+is rounded to bf16 and multiplied by its gate there, as the reference's
+slot route does, the top-k summed, and the bf16 partial is summed by *g*
+(``layers.reduce_dtype``).  The rows enter the experts through *f*
+(``sharding.copy_to_model``), and so do the gates: they multiply partial
 results, so each rank's gradient into them is partial.  The router reads
 x itself, and the auxiliary losses, computed the same on every rank, send
 their gradient to it once.
@@ -163,22 +177,25 @@ class _RoutedExperts(torch.autograd.Function):
     experts' f32 values (each 2 to 7.5 GB) off the card, which one MoE
     layer's training needs beside its 50 GiB of state.
 
-    ``f32`` (a rank's partial sums under tensor parallelism): the
-    products, their gates and each token's sum stay f32 until *g*, and
-    the call returns them with a carrier (``sharding.Partial``), so the
-    gradient arrives in the activation dtype.  Each expert's gated
-    results are added straight into their tokens' rows of an f32
-    (A / k, d) output (``index_add_``, expert by expert: an
+    ``part`` (a rank's partial sums under tensor or expert parallelism:
+    the dtype *g* sums them in, ``layers.reduce_dtype``): the call returns
+    them with a carrier (``sharding.Partial``), so the gradient arrives in
+    the activation dtype.  In f32 the products, their gates and each
+    token's sum stay f32 until *g*; in bf16 each slot's product is
+    rounded to bf16 (``layers.partial_product``) and multiplied by its
+    gate there, and each token's sum is rounded to bf16 once.  Each
+    expert's gated results are added straight into their tokens' rows of
+    an f32 (A / k, d) output (``index_add_``, expert by expert: an
     expert's slots hold distinct tokens, so no two values meet in a row
     and the sum's order is the experts', the same on rerun; an empty
     slot's value is zero and is added to a row of its own index, where it
-    changes nothing), so the (A + 1, d) buffer is not held in f32."""
+    changes nothing), so the (A + 1, d) buffer is not held."""
 
     @staticmethod
-    def forward(ctx, xs, fill, w, wg, wu, wd, k, step, f32=False):
+    def forward(ctx, xs, fill, w, wg, wu, wd, k, step, part=None):
         A = xs.shape[0] - 1
         w1 = torch.cat([w, w.new_zeros(1)])
-        if f32:
+        if part is not None:
             out = xs.new_zeros((A // k, xs.shape[1]), dtype=F32)
             spread = torch.arange(fill.shape[1],
                                   device=fill.device) % (A // k)
@@ -188,23 +205,24 @@ class _RoutedExperts(torch.autograd.Function):
             c = slice(e0, e0 + step)
             rows = fill[c].reshape(-1)
             xb = xs.index_select(0, rows).view(*fill[c].shape, -1)
-            if not f32:
+            if part is None:
                 y = torch.bmm(_swiglu(xb, wg[c], wu[c])[-1], wd[c])
                 out.index_copy_(0, rows, y.view(rows.shape[0], -1)
                                 * w1.index_select(0, rows)[:, None])
                 continue
-            y = layers.f32_product(_swiglu(xb, wg[c], wu[c])[-1], wd[c],
-                                   torch.bmm)
+            y = layers.partial_product(_swiglu(xb, wg[c], wu[c])[-1], wd[c],
+                                       torch.bmm)
             del xb
             y.mul_(w1.index_select(0, rows).view(*fill[c].shape, 1))
             tok = torch.where(fill[c] < A, fill[c] // k, spread)
             for e in range(y.shape[0]):
-                out.index_add_(0, tok[e], y[e])
+                out.index_add_(0, tok[e], y[e].to(F32))
             del y
         ctx.save_for_backward(xs, fill, w1, wg, wu, wd)
         ctx.k, ctx.step = k, step
-        if not f32:
+        if part is None:
             return out[:A].view(A // k, k, -1).sum(dim=1)
+        out = out.to(part)
         ctx.set_materialize_grads(False)
         ctx.mark_non_differentiable(out)
         return out, shlib.carrier(out, xs.dtype)
@@ -256,16 +274,19 @@ class _RoutedExperts(torch.autograd.Function):
 def _slot_dispatch(p: Dict, cfg: ArchConfig, xg: torch.Tensor,
                    gates: torch.Tensor, idx: torch.Tensor, C: int,
                    tp=None) -> torch.Tensor:
-    """The routed experts' gated results (G, T, d) over the hidden dim
-    ``w_gate`` holds (a rank's partial sum under tensor parallelism,
-    ``tp``: f32, the experts' products and their gated sum in f32).  A
-    chunk holds as many experts as on one device, whose gate/up transient
-    the whole ``expert_d_ff`` sizes: a rank's narrower one would take more
-    experts a chunk, and its d-wide rows and results would grow with
-    them."""
+    """The routed experts' gated results (G, T, d) over the experts and
+    the hidden dim ``w_gate`` holds (a rank's partial sum under tensor or
+    expert parallelism, ``tp``: a ``sharding.Partial`` in
+    ``layers.reduce_dtype()``).  The slots are those of all E experts;
+    a rank holding E / mp experts (rank r: [r·E/mp, (r+1)·E/mp)) fills
+    theirs.  A chunk holds as many experts as on one device, whose
+    gate/up transient the whole ``expert_d_ff`` sizes: a rank's narrower
+    one would take more experts a chunk, and its d-wide rows and results
+    would grow with them."""
     G, T, d = xg.shape
     m = cfg.moe
     E, k, f = m.n_experts, m.top_k, m.expert_d_ff
+    mine = p["w_gate"].shape[0]
     A = G * T * k
     slot, keep = _slots(idx, E, C)
     dev = xg.device
@@ -278,12 +299,15 @@ def _slot_dispatch(p: Dict, cfg: ArchConfig, xg: torch.Tensor,
     # so that each expert's slots are contiguous
     fill = torch.full((G, E * C + 1), A, dtype=torch.long, device=dev)
     fill.scatter_(1, slot, torch.arange(A, device=dev).view(G, T * k))
-    fill = fill[:, :E * C].view(G, E, C).transpose(0, 1).reshape(E, G * C)
+    fill = fill[:, :E * C].view(G, E, C).transpose(0, 1)
+    if mine != E:    # expert parallel: this rank's experts' slots
+        fill = fill[tp.rank * mine:(tp.rank + 1) * mine]
+    fill = fill.reshape(mine, G * C)
     w = (gates.reshape(A).to(xg.dtype) * keep.reshape(A))
     step = max(1, _CHUNK_ELEMS // max(G * C * f, 1))
     out = _RoutedExperts.apply(xs, fill, w, *(
         p[n].to(xg.dtype) for n in ("w_gate", "w_up", "w_down")), k, step,
-        tp is not None)
+        None if tp is None else layers.reduce_dtype())
     if tp is not None:
         return shlib.Partial(*out).reshape(G, T, d)
     return out.view(G, T, d)
@@ -337,7 +361,10 @@ def apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, aux: bool = True
     C = capacity(T, cfg)
 
     logits, probs, gates, idx = route(p, cfg, xg)
-    tp = shlib.tp_for(p["w_gate"].shape[-1], m.expert_d_ff)
+    # a shard of the tables' expert dim (expert parallel) or of their
+    # hidden dim (tensor parallel)
+    wg = p["w_gate"]
+    tp = shlib.tp_for(wg.shape[0] * wg.shape[-1], E * m.expert_d_ff)
     if tp is not None:
         xg, gates = (shlib.copy_to_model(t, tp) for t in (xg, gates))
 
@@ -348,14 +375,20 @@ def apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, aux: bool = True
     if S == 1:
         out = out.reshape(B, S, d)
 
+    shared = None
     if m.n_shared_experts:
         width = m.n_shared_experts * m.expert_d_ff
-        if tp is None:
-            out = out + layers.mlp(p["shared"], x, width)
-        else:   # this rank's slice of the shared experts, in the same g
+        if tp is not None and shlib.tp_for(p["shared"]["w_gate"].shape[1],
+                                           width):
+            # this rank's slice of the shared experts, in the same g
             out = (out, layers.swiglu(p["shared"], xg.view(B, S, d), tp))
+        else:   # whole on every rank, added after g
+            def shared():
+                return layers.mlp(p["shared"], x, width)
     if tp is not None:
         out = shlib.reduce_from_model(out, tp, x.dtype)
+    if shared is not None:
+        out = out + shared()
 
     if not aux:
         return out, {}

@@ -40,11 +40,28 @@ layout:
   :func:`reduce_from_model` (*g*: all-reduce forward, identity
   backward): each rank's row-parallel product stays f32
   (``models/layers.row_parallel``) and *g* sums it in place and rounds
-  once, as the reference's ``reduce_dtype`` accumulates;
+  once, as the reference's ``reduce_dtype`` accumulates; under
+  ``REPRO_BF16_REDUCE`` (``models/layers.reduce_dtype``) each rank rounds
+  its partial to bf16 and *g* sums bf16, half the bytes;
+* under ``REPRO_MOE_MODE=ep_model`` the routed experts' tables are laid
+  out as the reference lays them at use: experts over "model"
+  (``experts_mdl``, rank r holding [r·E/mp, (r+1)·E/mp)) at the whole
+  hidden dim (``moe_f``), their ``moe_in`` / ``moe_out`` dims gathered
+  over "data".  Each rank runs its experts' slots (``models/moe.py``,
+  expert parallel).  The reference moves its (G, E, C, d) dispatch
+  buffer to the experts' ranks and gathers the results back around the
+  expert products; its token rows are replicated over "model" (the batch
+  splits over "pod" / "data" only), so the first move is a local slice
+  and the second an all-gather of G·E·C·d values.  The port's rows are
+  replicated over "model" too, so each rank fills its own experts' slots
+  from the rows it holds, and its f32 gated sum joins the shared
+  experts' partial in the one *g* tensor mode runs (a difference by
+  construction: the layout is the reference's, the collective is *g*;
+  no all-to-all, no buffer, no gather of results);
 * the expert tables' ``moe_in`` / ``moe_out`` dims, which the
   reference's ``gathered_param_rules`` keeps sharded over "data" at use
-  (tensor and dense modes; XLA then moves the token rows), are gathered
-  over "data" like every other leaf (``DATA_GATHERED_AXES``, a
+  in tensor and dense modes (XLA then moves the token rows), are
+  gathered over "data" like every other leaf (``DATA_GATHERED_AXES``, a
   difference by construction: the port's dispatch is local to a rank's
   rows);
 * the Mamba-2 blocks run tensor-parallel over their SSD heads where the
@@ -64,9 +81,9 @@ layout:
   and backward (:func:`sum_over_model`);
 * the parts in ``GATHERED_WHOLE`` are not tensor-parallel: their "model"
   dim is gathered too, as in the trainers' layout (the routed experts
-  under ``ep_model``, and a Mamba-2 block whose heads or state the axis
-  does not divide), a packed leaf put back in canonical order
-  (:func:`unpack`);
+  under ``ep_model`` where the axis does not divide E, and a Mamba-2
+  block whose heads or state the axis does not divide), a packed leaf
+  put back in canonical order (:func:`unpack`);
 * ``rules.arules`` (``act_rules``) lays out the decode caches: kv heads,
   and the SSM caches' heads and conv channels (x, B, C each by rank), over
   "model" where the axis divides them, and an attention or latent cache's
@@ -146,13 +163,14 @@ _CTX: Dict = {"mesh": None, "rules": None, "tp": None, "seq": None}
 # collective issued (the reference's HLO op names as kinds)
 COLLECTIVE_HOOKS: List[Callable[[str, int, int], None]] = []
 
-# The block parts that do not run tensor-parallel over "model": under the
+# The block parts that do not run parallel over "model": under the
 # production rules their leaves are gathered whole at use (the "model" dim
 # as well as the "data" dim), so every "model" rank computes them on the
 # same rows.  Every other part keeps its "model" shard at use.  The
-# backbone names "experts" only under ``REPRO_MOE_MODE=ep_model`` (in
-# tensor and dense modes the routed experts run tensor-parallel over their
-# hidden dim, ``models/moe.py``) and "ssm_undivided" only where the
+# backbone names "experts_undivided" only under ``REPRO_MOE_MODE=ep_model``
+# where the "model" axis does not divide E (in tensor and dense modes the
+# routed experts run tensor-parallel over their hidden dim, under ep_model
+# expert-parallel, ``models/moe.py``) and "ssm_undivided" only where the
 # "model" axis does not divide a Mamba-2 block's heads and state.
 GATHERED_WHOLE: Dict[str, str] = {
     "ssm_undivided": "a Mamba-2 block whose SSD heads or state the 'model' "
@@ -160,11 +178,12 @@ GATHERED_WHOLE: Dict[str, str] = {
                      "rank's heads would take uneven slices of the packed "
                      "in_proj, so it runs whole on every rank, as kv heads "
                      "that do not divide do",
-    "experts": "ep_model only: the reference lays the experts over "
-               "'model' (experts_mdl) and sends each token row to its "
-               "experts' rank and back with an all-to-all; that all-to-all "
-               "is not ported, so under ep_model the routed experts are "
-               "gathered whole",
+    "experts_undivided": "ep_model where the 'model' axis does not divide "
+                         "the routed experts (grok-1-314b's 8 over 16): the "
+                         "reference drops a sharding its axis does not "
+                         "divide (launch/specs.py:66-72) and so keeps every "
+                         "expert, at the whole hidden dim, on every rank; "
+                         "so does the port",
 }
 
 # Logical axes whose "data" shard the port gathers at use where the
@@ -618,23 +637,25 @@ class _ReduceFromModel(torch.autograd.Function):
 
 
 class Partial(NamedTuple):
-    """A rank's row-parallel partial sum kept f32 for *g*: ``value``, the
-    f32 tensor (no gradient) or a function that computes it when *g*
-    runs, and ``carrier``, zeros of its shape in the activation dtype with
-    no storage, by which the gradient, in that dtype, enters the product
-    that made it (``models/layers.row_parallel``).  So no f32 copy of the
-    gradient is made (an f32 autograd input to *g* would have autograd
-    upcast its gradient), and a checkpoint's rerun, which stops once the
-    backward's saved tensors are back, stops before the product."""
+    """A rank's row-parallel partial sum for *g*, in the dtype *g* sums
+    it in (f32, or bf16 under ``REPRO_BF16_REDUCE``:
+    ``models/layers.reduce_dtype``): ``value``, the tensor (no gradient)
+    or a function that computes it when *g* runs, and ``carrier``, zeros
+    of its shape in the activation dtype with no storage, by which the
+    gradient, in that dtype, enters the product that made it
+    (``models/layers.row_parallel``).  So no f32 copy of the gradient is
+    made (an f32 autograd input to *g* would have autograd upcast its
+    gradient), and a checkpoint's rerun, which stops once the backward's
+    saved tensors are back, stops before the product."""
     value: object
     carrier: torch.Tensor
 
-    def f32(self) -> torch.Tensor:
-        """The f32 partial (computed, where ``value`` is a function)."""
+    def tensor(self) -> torch.Tensor:
+        """The partial (computed, where ``value`` is a function)."""
         return self.value() if callable(self.value) else self.value
 
     def reshape(self, *shape) -> "Partial":
-        return Partial(lambda: self.f32().reshape(*shape),
+        return Partial(lambda: self.tensor().reshape(*shape),
                        self.carrier.reshape(*shape))
 
 
@@ -646,9 +667,9 @@ def carrier(value: torch.Tensor, dtype) -> torch.Tensor:
 
 
 class _ReducePartials(torch.autograd.Function):
-    """*g* over :class:`Partial` sums: forward the partials' f32 values
-    added in place, summed over the "model" group in place and rounded
-    once to ``dtype``; backward the gradient, in ``dtype``, to each
+    """*g* over :class:`Partial` sums: forward the partials' values added
+    in place, summed over the "model" group in place in their dtype and
+    cast to ``dtype``; backward the gradient, in ``dtype``, to each
     carrier."""
 
     @staticmethod
@@ -697,16 +718,17 @@ def copy_to_model(x: torch.Tensor, tp: TP) -> torch.Tensor:
 def reduce_from_model(x, tp: TP, dtype=None) -> torch.Tensor:
     """*g*: the sum of the "model" ranks' partial ``x``.  A tensor is
     summed in f32 and cast back to its dtype; a :class:`Partial`, or a
-    tuple of them (their sum), is summed in f32 in place and rounded once
-    to ``dtype`` (the carriers' by default), the reference's
+    tuple of them (their sum), is summed in place in the partials' dtype
+    (f32, or bf16 under ``REPRO_BF16_REDUCE``) and cast once to
+    ``dtype`` (the carriers' by default), the reference's
     ``reduce_dtype`` accumulation."""
     if isinstance(x, torch.Tensor):
         return _ReduceFromModel.apply(x, tp.group)
     parts = (x,) if isinstance(x, Partial) else tuple(x)
     with torch.no_grad():
-        value = parts[0].f32()
+        value = parts[0].tensor()
         for p in parts[1:]:
-            value.add_(p.f32())
+            value.add_(p.tensor())
     return _ReducePartials.apply(tp.group, dtype or parts[0].carrier.dtype,
                                  value, *(p.carrier for p in parts))
 

@@ -17,7 +17,10 @@ over "data"), against the JAX package, on the CPU.
   "model" dim of the reference's ``gathered_param_rules`` in tensor and
   dense modes, and its "data" dim except the expert tables' ``moe_in`` /
   ``moe_out``, which the port gathers (``DATA_GATHERED_AXES``); under
-  ``ep_model`` the expert tables are gathered whole (``GATHERED_WHOLE``).
+  ``ep_model`` every expert table has the reference's at-use layout
+  exactly (experts over "model", ``moe_in`` / ``moe_out`` gathered),
+  and is gathered whole where the axis does not divide E
+  (``GATHERED_WHOLE["experts_undivided"]``).
 * The inference-FSDP decision equals the reference's for the 11 full
   archs at mp 16.
 * Four gloo ranks, f32, against one device (``tests/torch_layout_worker``,
@@ -31,6 +34,12 @@ over "data"), against the JAX package, on the CPU.
   trainer's canonical state, checkpoint slicer and byte report, on the
   narrowed ``flux_dit``, the two MoE archs and ``mamba2-370m``, whose
   checkpoints resume exactly.
+* Expert parallelism (``REPRO_MOE_MODE=ep_model``) on the same ranks:
+  deepseek at (2, 2) and (1, 4), grok at (1, 4), each rank holding and
+  using E / mp experts at the whole hidden dim, with tensor mode's
+  collectives; the undivided deepseek at (1, 3) on three ranks, gathered
+  whole; a ``flow_grpo`` trainer under it, and a tensor-mode checkpoint
+  resumed under it; and ``chip_smoke.py``'s phase 42 on 4 host threads.
 """
 import json
 import os
@@ -122,17 +131,19 @@ def test_production_rules_are_the_reference_defaults():
     assert r.stored == jsh.param_rules(mesh, fsdp=True)
     assert tsh.production_rules(mesh, fsdp=False).stored == \
         jsh.param_rules(mesh, fsdp=False)
-    assert set(tsh.GATHERED_WHOLE) == {"ssm_undivided", "experts"}
+    assert set(tsh.GATHERED_WHOLE) == {"ssm_undivided", "experts_undivided"}
     assert all(len(why) > 40 for why in tsh.GATHERED_WHOLE.values())
 
 
 @pytest.mark.parametrize("moe_mode", ["tensor", "dense", "ep_model"])
 def test_parts_gather_experts_whole_under_ep_model_only(moe_mode,
                                                         monkeypatch):
-    """``_parts`` names no MLA part, and the routed experts'
-    tables ("experts") under ``ep_model`` only, whose all-to-all is not
-    ported; the SSM blocks in no mode where the "model" axis divides their
-    heads and state (16 and 32 in the reduced zamba2: mp 2 and 4), and as
+    """``_parts`` names no MLA part, and the routed experts' tables
+    ("experts_undivided") under ``ep_model`` only, and there only where
+    the "model" axis does not divide E (the reduced 4 experts over 3;
+    over 2 and 4 each rank runs its own experts, expert-parallel); the
+    SSM blocks in no mode where the "model" axis divides their heads and
+    state (16 and 32 in the reduced zamba2: mp 2 and 4), and as
     "ssm_undivided" where it does not (mp 3)."""
     monkeypatch.setenv("REPRO_MOE_MODE", moe_mode)
     for arch in ("deepseek-v2-236b", "grok-1-314b", "zamba2-2.7b"):
@@ -144,11 +155,16 @@ def test_parts_gather_experts_whole_under_ep_model_only(moe_mode,
                        for mp in (2, 4, 16))
             assert _parts(bb.cfg, bb._block_spec, 3) == {
                 "ssm": "ssm_undivided"}
-        elif moe_mode == "ep_model":
-            assert parts == {"ffn": {k: "experts" for k in
-                                     ("w_gate", "w_up", "w_down")}}
+            continue
+        assert parts is None
+        assert all(_parts(bb.cfg, bb._block_spec, mp) is None
+                   for mp in (2, 4))
+        if moe_mode == "ep_model":
+            assert _parts(bb.cfg, bb._block_spec, 3) == {
+                "ffn": {k: "experts_undivided" for k in
+                        ("w_gate", "w_up", "w_down")}}
         else:
-            assert parts is None
+            assert _parts(bb.cfg, bb._block_spec, 3) is None
     assert _parts(bb.cfg, Backbone(tconfigs.get_reduced(
         "deepseek-v2-236b"))._dense_spec) is None
 
@@ -178,7 +194,10 @@ def test_mla_and_expert_use_layout_equals_reference(arch, moe_mode,
     modes; the experts' hidden dim, MLA's heads); its "data" dim too,
     except ``moe_in`` / ``moe_out``, which the reference keeps over
     "data" and the port gathers (a difference by construction); under
-    ``ep_model`` the expert tables are gathered whole."""
+    ``ep_model`` the expert tables' layout is the reference's exactly,
+    both dims (experts over "model", ``moe_in`` / ``moe_out`` gathered
+    over "data"), at the mesh's 2 "model" ranks and, gathered whole as
+    the reference keeps them, at 3, which does not divide E."""
     monkeypatch.setenv("REPRO_MOE_MODE", moe_mode)
     ref_rules = jsh.gathered_param_rules(MESH)
     rules = tsh.production_rules(MESH)
@@ -198,7 +217,15 @@ def test_mla_and_expert_use_layout_equals_reference(arch, moe_mode,
             got = tsh.use_layout(p.shape, p.axes, rules, MESH, part)
             want = _ref_use(p.shape, p.axes, ref_rules, MESH)
             if expert and moe_mode == "ep_model":
-                assert got == (None, None), path
+                assert part is None
+                assert got == want, path
+                assert p.axes[want[1]] == "experts_mdl", path
+                assert want[0] is None, path
+                part3 = (_parts(bb.cfg, spec, 3) or {})["ffn"][path[1]]
+                assert tsh.use_layout(p.shape, p.axes, rules, MESH3,
+                                      part3) == (None, None) == _ref_use(
+                    p.shape, p.axes, jsh.gathered_param_rules(MESH3),
+                    MESH3), path
             else:
                 assert got[1] == want[1], path
                 gathered = want[0] is not None and \
@@ -320,6 +347,8 @@ def _shapes(tree, prefix=""):
 
 
 MESH = DuckMesh(("data", "model"), (4, 2))
+# a "model" axis that does not divide the reduced MoE archs' 4 experts
+MESH3 = DuckMesh(("data", "model"), (4, 3))
 
 
 def _stored(ref, plan):
@@ -423,15 +452,17 @@ def test_layout_train_steps_match_one_device(four_ranks, case):
     assert r["param_gap"] < 1e-4
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + [c[0] for c in
+                                         worker.SERVE_CASES])
 def test_layout_prefill_and_decode_match_one_device(four_ranks, case):
     """The prefill's last logits and four decode steps (the one-device
-    trained params, this rank's rows): within 1e-5 of max |logits| of
-    one device, and gathered over "model" to the whole vocabulary."""
+    trained params, this rank's rows; the initial ones for the
+    ``SERVE_CASES``): within 1e-5 of max |logits| of one device, and
+    gathered over "model" to the whole vocabulary."""
     r = four_ranks[case]
-    cfg = tconfigs.get_reduced(dict((c[0], c[1]) for c in worker.CASES)
-                               [case])
-    dp = dict((c[0], c[2]) for c in worker.CASES)[case][0]
+    serving = worker.CASES + worker.SERVE_CASES
+    cfg = tconfigs.get_reduced(dict((c[0], c[1]) for c in serving)[case])
+    dp = dict((c[0], c[2]) for c in serving)[case][0]
     assert r["logit_gap"] < 1e-5
     assert tuple(r["logits_shape"]) == (worker.BATCH // dp, cfg.vocab_size)
 
@@ -460,7 +491,9 @@ WANT = {"qwen3_2x2": (_TRAIN, _SERVE),
         "deepseek_2x2": (_TRAIN, _SERVE),
         "grok_1x4": _TRAIN_1X4,
         "grok_dense_2x2": (_TRAIN, _SERVE),
-        "mamba2_1x4": _TRAIN_1X4}
+        "mamba2_1x4": _TRAIN_1X4,
+        "deepseek_ep_2x2": (_TRAIN, _SERVE),
+        "grok_ep_1x4": _TRAIN_1X4}
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -502,7 +535,8 @@ def test_layout_keeps_mla_and_experts_sharded(four_ranks, case):
 
 # the router at mp 2 and 4, and MLA's latent projections and norms
 _ROUTER_CASES = {"deepseek_2x2": 2, "grok_dense_2x2": 2, "grok_1x4": 4,
-                 "deepseek_1x4": 4}
+                 "deepseek_1x4": 4, "deepseek_ep_1x4": 4,
+                 "deepseek_ep_2x2": 2, "grok_ep_1x4": 4}
 
 
 @pytest.mark.parametrize("case", sorted(_ROUTER_CASES))
@@ -524,6 +558,104 @@ def test_router_and_latent_gradients_match_one_device(four_ranks, case):
         assert gaps[k] < 1e-5, k
     mesh = dict((c[0], c[2]) for c in worker.CASES + worker.GRAD_CASES)
     assert mesh[case][1] == _ROUTER_CASES[case]
+
+
+# expert parallel (ep_model) and the tensor-mode case of the same arch
+# whose collectives it must equal
+_EP_CASES = {"deepseek_ep_1x4": None, "deepseek_ep_2x2": "deepseek_2x2",
+             "grok_ep_1x4": "grok_1x4"}
+
+
+def _expert_shapes(cfg, dp, mp, stored):
+    """The routed expert tables' shapes a rank holds under ep_model:
+    E / mp experts at the whole hidden dim, d_model over "data" in
+    storage (``stored``, with the stacked layers' dim) and whole at use."""
+    m = cfg.moe
+    e, f = m.n_experts // mp, m.expert_d_ff
+    d = cfg.d_model // dp if stored else cfg.d_model
+    lead = (cfg.n_layers - m.first_k_dense,) if stored else ()
+    return sorted({lead + (e, d, f), lead + (e, f, d)})
+
+
+@pytest.mark.parametrize("case", sorted(_EP_CASES))
+def test_ep_model_ranks_run_their_own_experts(four_ranks, case):
+    """Under ``REPRO_MOE_MODE=ep_model`` each rank stores its E / mp
+    experts at the whole hidden dim (their d_model dim over "data") and
+    every MoE call, in training and serving, runs on exactly those, with
+    d_model gathered: no rank holds more than E / mp experts at use.  The
+    first step's gradient of every leaf is within 1e-5 of its max of one
+    device (the tensor-mode cases' band).  The collectives by kind and
+    axis are tensor mode's on the same arch and mesh (no all-to-all: the
+    rows are replicated over "model", and the routed partials join the
+    shared experts' in the one *g*)."""
+    r = four_ranks[case]
+    arch, (dp, mp), mode = {c[0]: c[1:] for c in
+                            worker.CASES + worker.SERVE_CASES}[case]
+    assert mode == "ep_model"
+    cfg = tconfigs.get_reduced(arch)
+    assert [tuple(s) for s in r["local_experts"]] == _expert_shapes(
+        cfg, dp, mp, True)
+    assert [tuple(s) for s in r["expert_uses"]] == _expert_shapes(
+        cfg, dp, mp, False)
+    assert max(r["grad_gaps"].values()) < 1e-5
+    twin = _EP_CASES[case]
+    if twin is not None:
+        for k in ("train_collectives", "serve_collectives"):
+            assert r[k] == four_ranks[twin][k], k
+    assert not any(c[0] == "all-to-all" for k in (
+        "train_collectives", "serve_collectives") for c in r.get(k, ()))
+    assert r["serve_collectives"]
+
+
+@pytest.fixture(scope="module")
+def three_ranks(tmp_path_factory):
+    return worker.spawn(tmp_path_factory.mktemp("layout3"), 120, world=3)
+
+
+def test_ep_model_undivided_experts_are_gathered_whole(three_ranks):
+    """Under ``ep_model`` on a "model" axis of 3, which does not divide
+    the reduced deepseek's 4 experts, the routed experts are gathered
+    whole (``GATHERED_WHOLE["experts_undivided"]``, the reference's
+    layout, which drops the sharding; at dp 1 no dim of theirs divides 3,
+    so each rank stores them whole): every MoE call runs all 4 at the
+    whole hidden dim, and the case holds one device within the
+    tensor-mode cases' bands: gradients to 1e-5 of each leaf's max,
+    loss and grad norm to 1e-5 relative, params to 1e-4, logits to
+    1e-5."""
+    name, arch, (dp, mp), _ = worker.UNDIVIDED_CASES[0]
+    r = three_ranks[name]
+    cfg = tconfigs.get_reduced(arch)
+    m = cfg.moe
+    assert [tuple(s) for s in r["expert_uses"]] == sorted(
+        {(m.n_experts, cfg.d_model, m.expert_d_ff),
+         (m.n_experts, m.expert_d_ff, cfg.d_model)})
+    n_moe = cfg.n_layers - m.first_k_dense
+    assert [tuple(s) for s in r["local_experts"]] == [
+        (n_moe,) + s for s in map(tuple, r["expert_uses"])]
+    assert r["grad_gap"] < 1e-5
+    np.testing.assert_allclose(r["loss"][1], r["loss"][0], rtol=1e-5)
+    np.testing.assert_allclose(r["gnorm"][1], r["gnorm"][0], rtol=1e-5)
+    assert r["param_gap"] < 1e-4
+    assert r["logit_gap"] < 1e-5
+
+
+def test_tensor_mode_checkpoint_resumes_under_ep_model(four_ranks):
+    """A checkpoint of the narrowed deepseek's two ``flow_grpo`` steps in
+    tensor mode at (2, 2), restored by a rules trainer under
+    ``ep_model`` at (1, 4): its canonical params and AdamW first moments
+    are the checkpoint's, bitwise, while the rank holds one of the 4
+    experts at the whole hidden dim."""
+    import torch_dist_worker as dw
+    r = four_ranks["cross_mode_resume"]
+    assert r["step"] == 2
+    assert r["params_equal"] and r["mu_equal"]
+    _, arch, (dp, mp), _ = worker.CROSS
+    cfg = worker.narrow(dw, arch)
+    m = cfg.moe
+    lead = (cfg.n_layers - m.first_k_dense, m.n_experts // mp)
+    assert [tuple(s) for s in r["experts"]] == sorted(
+        {lead + (cfg.d_model, m.expert_d_ff),
+         lead + (m.expert_d_ff, cfg.d_model)})
 
 
 # the Mamba-2 blocks at mp 2 and 4, each arch at both
@@ -670,3 +802,40 @@ def test_rules_trainer_needs_a_mesh():
                        FlowRLConfig(**dw.FLOW, rewards=dw.REWARDS), dw.OPT,
                        cond_dim=dw.COND_DIM, dtype=torch.float32,
                        device="cpu", rules=True)
+
+
+def test_card_ep_phase_runs_its_ranks_on_the_cpu(monkeypatch):
+    """``chip_smoke.py``'s phase 42 (``ep_layer_ranks``) on the CPU at the
+    reduced deepseek, mp 4, 2 x 64 rows: the 4 ranks at once on host
+    threads over its ``ThreadGroup`` under ``ep_model``, each MoE call on
+    one of the 4 experts at the whole hidden dim, the forwards' *g*
+    handed f32 (bf16 under ``REPRO_BF16_REDUCE``), every output,
+    summed input gradient and weight gradient within the card's 3e-2
+    of the whole layer's max; and one rank's routed experts run in
+    tensor mode and ep_model with the same products counted."""
+    import importlib.util
+    path = os.path.join(ROOT, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_ep", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    monkeypatch.setattr(cs, "HY_SEQ", 64)
+    monkeypatch.setattr(cs, "B_SERVE", 2)
+    monkeypatch.setattr(cs, "cuda_ms", lambda fn, iters, warmup=2: (
+        fn(), 0.0)[1])
+    cfg = tconfigs.get_reduced("deepseek-v2-236b")
+    res = cs.ep_layer_ranks(torch.device("cpu"), cfg=cfg, mp=4)
+    m, shape = cfg.moe, [2, 64, cfg.d_model]
+    for tag, bf16 in cs.EP_PASSES:
+        dtype = "torch.bfloat16" if bf16 else "torch.float32"
+        for name in ("attn", "ffn"):
+            r = res[tag][name]
+            assert max(r["gaps"].values()) <= cs.LAYER_RANK_BAND, (tag, name)
+            assert r["g_all_reduces"] == [[dtype, shape]], (tag, name)
+        assert [tuple(s) for s in res[tag]["ffn"]["expert_uses"]] == sorted(
+            {(1, cfg.d_model, m.expert_d_ff),
+             (1, m.expert_d_ff, cfg.d_model)})
+        assert res[tag]["attn"]["q_calls"] == 4
+    t = res["expert_times"]
+    assert (t["tensor"]["experts"], t["tensor"]["f"]) == (4, 32)
+    assert (t["ep_model"]["experts"], t["ep_model"]["f"]) == (1, 128)
+    assert t["tensor"]["mbytes"] == t["ep_model"]["mbytes"]

@@ -27,6 +27,7 @@ import sys
 import textwrap
 
 import pytest
+import torch
 
 from repro_torch import configs as tconfigs
 from repro_torch import sharding as tsh
@@ -211,17 +212,44 @@ def test_seq_sharded_decode_matches_one_device(seq_ranks, case):
     assert r["roll_mismatches"] == 0
 
 
+def _partials(r):
+    """A site's all-reduces over "model" of its output's shape: the *g*
+    of its row-parallel partials (the gated norm's statistic is
+    another)."""
+    return [a for a in r["all_reduces"] if tuple(a[1]) == tuple(
+        r["out_shape"])]
+
+
+@pytest.mark.parametrize("bf16_reduce", [None, "1"])
 @pytest.mark.parametrize("site", [s[0] for s in worker._sites()])
-def test_row_parallel_sums_round_once(seq_ranks, site):
+def test_row_parallel_sums_round_once(seq_ranks, site, bf16_reduce):
     """At (1, 4) in bf16 each row-parallel site's output is the ranks' f32
     partials summed and rounded once: within one bf16 ulp of one device's
-    output (``worker._ulps``; the MoE slot route against one device's
-    products summed in f32 and rounded once, since one device rounds each
-    expert's product and gated value first).  Rounding each rank's
-    partial to bf16 before the sum was 12–34 ulps off."""
-    r = seq_ranks["reduce"][site]
+    output (``worker._ulps``; the MoE slot route, tensor- and
+    expert-parallel, against one device's products summed in f32 and
+    rounded once, since one device rounds each expert's product and
+    gated value first).  Rounding each rank's partial to bf16 before the
+    sum was 12–34 ulps off.  Under ``REPRO_BF16_REDUCE`` every site hands
+    *g* its partial in bf16: each all-reduce of a partial carries bf16,
+    at half the bytes of the f32 one, and the output is within 2e-2 of
+    max |one device's| (4 partials each rounded to bf16, 2^-9 of a
+    partial up to max |output|, and three bf16 additions: 7 x 2^-9 =
+    1.4e-2, beside one device's own rounding; measured ≤ 7.7e-3)."""
+    r = seq_ranks["reduce" if bf16_reduce is None else "reduce_bf16"][site]
     assert r["dtype"] == "torch.bfloat16"
-    assert r["ulps"] <= 1.0
+    partials = _partials(r)
+    assert len(partials) == 1
+    if bf16_reduce is None:
+        assert r["ulps"] <= 1.0
+        assert partials[0][0] == "torch.float32"
+        return
+    f32 = _partials(seq_ranks["reduce"][site])
+    assert partials[0][0] == "torch.bfloat16"
+    assert 2 * partials[0][2] == f32[0][2]
+    assert r["rel"] <= 2e-2
+    others = [a for a in r["all_reduces"] if a not in partials]
+    assert others == [a for a in seq_ranks["reduce"][site]["all_reduces"]
+                      if a not in f32]
 
 
 def test_row_parallel_gradients_are_the_bf16_products(seq_ranks):
@@ -232,3 +260,65 @@ def test_row_parallel_gradients_are_the_bf16_products(seq_ranks):
     r = seq_ranks["grads"]
     assert r["bitwise"]
     assert r["dtypes"] == ["torch.bfloat16"] * 3
+
+
+@pytest.mark.parametrize("value", [None, "", "1", "0", "true"])
+def test_reduce_dtype_follows_the_reference(value, monkeypatch):
+    """``layers.reduce_dtype()`` is the reference's ``reduce_dtype()``
+    (bf16 when ``REPRO_BF16_REDUCE`` is set and non-empty, f32 otherwise),
+    read at call time."""
+    import jax.numpy as jnp
+    from repro.models import layers as jlayers
+    from repro_torch.models import layers as tlayers
+    if value is None:
+        monkeypatch.delenv("REPRO_BF16_REDUCE", raising=False)
+    else:
+        monkeypatch.setenv("REPRO_BF16_REDUCE", value)
+    want = {jnp.bfloat16: torch.bfloat16,
+            jnp.float32: torch.float32}[jlayers.reduce_dtype()]
+    assert tlayers.reduce_dtype() == want
+
+
+@pytest.mark.parametrize("arch,mode", [("qwen3-32b", None),
+                                       ("deepseek-v2-236b", None),
+                                       ("grok-1-314b", "dense"),
+                                       ("mamba2-370m", None)])
+def test_bf16_reduce_is_bitwise_neutral_without_a_mesh(arch, mode,
+                                                       monkeypatch):
+    """With no mesh ``REPRO_BF16_REDUCE`` changes no bit: the LM loss and
+    every gradient of a reduced arch in bf16, and the prefill's and a
+    decode step's logits, equal the switch unset exactly (a whole
+    product is rounded once either way)."""
+    from repro_torch.models import tasks
+    from repro_torch.models.params import leaves
+    if mode is not None:
+        monkeypatch.setenv("REPRO_MOE_MODE", mode)
+    cfg = tconfigs.get_reduced(arch)
+    batch = tasks.synthetic_batch(cfg, 2, 32, seed=3, device="cpu")
+    runs = []
+    for value in (None, "1"):
+        if value is None:
+            monkeypatch.delenv("REPRO_BF16_REDUCE", raising=False)
+        else:
+            monkeypatch.setenv("REPRO_BF16_REDUCE", value)
+        p = tasks.init_params(cfg, torch.Generator().manual_seed(0),
+                              torch.bfloat16, "cpu")
+        for _, t in leaves(p):
+            t.requires_grad_(True)
+        step = tasks.make_train_step(cfg, tasks_opt())
+        loss = step.loss_fn(p, batch)[0]
+        loss.backward()
+        with torch.no_grad():
+            lg, caches = tasks.make_prefill_step(cfg)(p, {
+                k: v for k, v in batch.items() if k != "labels"})
+            lg2, _ = tasks.make_decode_step(cfg)(
+                p, caches, lg.argmax(-1)[:, None].to(torch.int32),
+                32 + cfg.frontend.n_tokens)
+        runs.append([loss.detach(), lg, lg2] + [t.grad for _, t in
+                                                leaves(p)])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def tasks_opt():
+    from repro_torch.config import OptimConfig
+    return OptimConfig(lr=1e-3, total_steps=10, warmup_steps=1)

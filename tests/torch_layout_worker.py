@@ -38,7 +38,7 @@ from repro_torch.config import OptimConfig
 from repro_torch.distributed import RulePlan, build_mesh
 from repro_torch.perf import memory
 from repro_torch.serving import ServingEngine
-from repro_torch.models import tasks
+from repro_torch.models import moe, tasks
 from repro_torch.models.backbone import Backbone
 from repro_torch.models.params import leaves
 
@@ -52,7 +52,9 @@ UNDIVIDED = "mamba2-370m@6heads"
 # attention parallel; MLA's heads and the routed and shared experts'
 # hidden dim parallel (a dense first layer); grok's experts at f / 4 with
 # 2 kv heads over 4 ranks; grok's experts in dense mode; Mamba-2's heads
-# at 4 of 16 a rank
+# at 4 of 16 a rank; then expert parallel (ep_model): deepseek's 4
+# experts two a rank beside its shared experts' hidden dim, grok's 4
+# experts one a rank
 CASES = (("qwen3_2x2", "qwen3-32b", (2, 2), None),
          ("qwen3_1x4", "qwen3-32b", (1, 4), None),
          ("internvl2_2x2", "internvl2-1b", (2, 2), None),
@@ -60,10 +62,28 @@ CASES = (("qwen3_2x2", "qwen3-32b", (2, 2), None),
          ("deepseek_2x2", "deepseek-v2-236b", (2, 2), None),
          ("grok_1x4", "grok-1-314b", (1, 4), None),
          ("grok_dense_2x2", "grok-1-314b", (2, 2), "dense"),
-         ("mamba2_1x4", "mamba2-370m", (1, 4), None))
+         ("mamba2_1x4", "mamba2-370m", (1, 4), None),
+         ("deepseek_ep_2x2", "deepseek-v2-236b", (2, 2), "ep_model"),
+         ("grok_ep_1x4", "grok-1-314b", (1, 4), "ep_model"))
+# three ranks (``spawn(..., world=3)``): ep_model where the "model" axis
+# does not divide the reduced 4 experts, gathered whole
+# (``GATHERED_WHOLE["experts_undivided"]``)
+UNDIVIDED_CASES = (("deepseek_ep_1x3", "deepseek-v2-236b", (1, 3),
+                    "ep_model"),)
+# the serving steps alone (``case(..., train=False)``), merged into the
+# GRAD_CASES result of the same name: ep_model's prefill and decode at
+# (1, 4)
+SERVE_CASES = (("deepseek_ep_1x4", "deepseek-v2-236b", (1, 4), "ep_model"),)
 # the first step's gradients only: MLA's latent projections and the router
-# at mp 4; the SSM blocks at the mp the CASES above leave out
+# at mp 4, in tensor mode and under ep_model (one expert a rank); the
+# SSM blocks at the mp the CASES above leave out.  The two LM train steps
+# are not held at deepseek's mp 4: one element of w_dkv, whose first
+# gradient is 2.2e-7 of its leaf's max, moves by reordering noise alone,
+# which AdamW scales to the step size (9.7e-5 of the params' 1e-4 band in
+# tensor mode, 1.4e-4 under ep_model, where every gradient is within
+# 1.6e-6 of its leaf's max)
 GRAD_CASES = (("deepseek_1x4", "deepseek-v2-236b", (1, 4), None),
+              ("deepseek_ep_1x4", "deepseek-v2-236b", (1, 4), "ep_model"),
               ("zamba2_1x4", "zamba2-2.7b", (1, 4), None),
               ("mamba2_2x2", "mamba2-370m", (2, 2), None),
               ("mamba2_h6_1x4", UNDIVIDED, (1, 4), None))
@@ -73,19 +93,31 @@ _COLL = {"all_reduce": "all-reduce",
          "all_gather_into_tensor": "all-gather",
          "all_gather_single": "all-gather",
          "reduce_scatter_tensor": "reduce-scatter",
-         "reduce_scatter_single": "reduce-scatter"}
+         "reduce_scatter_single": "reduce-scatter",
+         "all_to_all": "all-to-all",
+         "all_to_all_single": "all-to-all"}
 
 
 class Recorder:
     """Wraps ``torch.distributed``'s collectives to record each call's
     kind and the mesh axis of its group ("data", "model" or "world"), and
-    the output shape of each all-gather over "model" (``model_gathers``)."""
+    the output shape of each all-gather over "model" (``model_gathers``);
+    and the routed expert tables' shapes each MoE call runs on
+    (``expert_uses``: ``moe.apply``'s ``w_gate``, ``w_up`` and
+    ``w_down``)."""
 
     def __init__(self):
         self.log, self.axes, self._orig = set(), {}, {}
-        self.model_gathers = set()
+        self.model_gathers, self.expert_uses = set(), set()
 
     def __enter__(self):
+        apply = self._orig["moe.apply"] = moe.apply
+
+        def moe_apply(p, *a, **k):
+            self.expert_uses.update(tuple(p[n].shape) for n in
+                                    ("w_gate", "w_up", "w_down"))
+            return apply(p, *a, **k)
+        moe.apply = moe_apply
         for name, kind in _COLL.items():
             fn = getattr(dist, name, None)
             if fn is None:
@@ -105,6 +137,7 @@ class Recorder:
         return self
 
     def __exit__(self, *exc):
+        moe.apply = self._orig.pop("moe.apply")
         for name, fn in self._orig.items():
             setattr(dist, name, fn)
 
@@ -146,6 +179,14 @@ def tp_leaves(spec):
                 out.append(path)
                 break
     return out
+
+
+def expert_tables(spec):
+    """The paths of the routed expert tables (``w_gate``, ``w_up``,
+    ``w_down`` beside a router)."""
+    return {path for path, _ in leaves(spec)
+            if path[-1] in ("w_gate", "w_up", "w_down")
+            and "router" in _at(spec, path[:-1])}
 
 
 def _at(tree, path):
@@ -230,14 +271,18 @@ def grad_case(arch, dp, mp):
     return {"grad_gaps": _leaf_gaps(g_one, g_two)}
 
 
-def case(arch, dp, mp):
+def case(arch, dp, mp, train=True):
+    """One device against the (dp, mp) mesh: the first step's gradients,
+    two LM train steps, then the trained params' prefill and decode steps;
+    with ``train=False`` the serving steps alone, on the initial params."""
     cfg = configs.get_reduced(arch)
     spec = Backbone(cfg).spec()
     batch = tasks.synthetic_batch(cfg, BATCH, SEQ, seed=1, device="cpu")
     step = tasks.make_train_step(cfg, OPT)
     one = _fresh(cfg)
-    g_one = _grads(step, one.params, batch)
-    m_one = [step(one, batch)[1] for _ in range(STEPS)]
+    if train:
+        g_one = _grads(step, one.params, batch)
+        m_one = [step(one, batch)[1] for _ in range(STEPS)]
     lg_one = _serve(cfg, one.params, batch, torch.zeros(
         (BATCH, DECODES), dtype=torch.int32))
     tokens = torch.stack([g.argmax(-1) for g in lg_one[:DECODES]],
@@ -254,38 +299,45 @@ def case(arch, dp, mp):
     local = plan.shard_state(_fresh(cfg).params)
     state = tasks.TrainState(local, optim.adamw_init(local))
     with sh.param_gather(mesh, rules):
-        g_two = _grads(step, local, rows)
-        with rec:
-            m_two = [step(state, rows)[1] for _ in range(STEPS)]
+        if train:
+            g_two = _grads(step, local, rows)
+            with rec:
+                m_two = [step(state, rows)[1] for _ in range(STEPS)]
         train_log, rec.log = rec.log, set()
         with rec:
             lg_two = _serve(cfg, plan.shard_state(one.params),
                             rows, tokens[r * n:(r + 1) * n])
+    lg_gap = torch.tensor(max(
+        float((a[r * n:(r + 1) * n] - b).abs().max() / a.abs().max())
+        for a, b in zip(lg_one, lg_two)))
+    dist.all_reduce(lg_gap, op=dist.ReduceOp.MAX)
+    experts = expert_tables(spec)
+    out = {"local_experts": sorted({tuple(t.shape) for path, t in
+                                    leaves(local) if path in experts}),
+           "expert_uses": sorted(rec.expert_uses),
+           "logit_gap": float(lg_gap),
+           "logits_shape": tuple(lg_two[0].shape),
+           "serve_collectives": sorted(rec.log),
+           "model_gathers": sorted(rec.model_gathers),
+           "tp_leaf_gathers": _gather_shapes(spec, rules, mesh,
+                                             tp_leaves(spec)),
+           "ssm_leaf_gathers": _gather_shapes(
+               spec, rules, mesh,
+               [p for p, _ in leaves(spec) if "ssm" in p]),
+           "ssm_bc_gather": _bc_gather_shape(cfg, mp)}
+    if not train:
+        return out
     g_two = plan.gather_state(sh.mesh_grads(g_two, spec, mesh, rules)[0])
     g_gaps = _leaf_gaps(g_one, g_two)
     whole = plan.gather_state(state.params)
     gap = max(float((a - b).abs().max()) for (_, a), (_, b) in zip(
         leaves(one.params), leaves(whole)))
-    lg_gap = torch.tensor(max(
-        float((a[r * n:(r + 1) * n] - b).abs().max() / a.abs().max())
-        for a, b in zip(lg_one, lg_two)))
-    dist.all_reduce(lg_gap, op=dist.ReduceOp.MAX)
-    return {"loss": [[float(m["loss"]) for m in ms] for ms in (m_one, m_two)],
-            "gnorm": [[float(m["grad_norm"]) for m in ms]
-                      for ms in (m_one, m_two)],
-            "grad_gap": max(g_gaps.values()), "grad_gaps": g_gaps,
-            "param_gap": gap,
-            "logit_gap": float(lg_gap),
-            "logits_shape": tuple(lg_two[0].shape),
-            "train_collectives": sorted(train_log),
-            "serve_collectives": sorted(rec.log),
-            "model_gathers": sorted(rec.model_gathers),
-            "tp_leaf_gathers": _gather_shapes(spec, rules, mesh,
-                                              tp_leaves(spec)),
-            "ssm_leaf_gathers": _gather_shapes(
-                spec, rules, mesh,
-                [p for p, _ in leaves(spec) if "ssm" in p]),
-            "ssm_bc_gather": _bc_gather_shape(cfg, mp)}
+    out.update(
+        loss=[[float(m["loss"]) for m in ms] for ms in (m_one, m_two)],
+        gnorm=[[float(m["grad_norm"]) for m in ms] for ms in (m_one, m_two)],
+        grad_gap=max(g_gaps.values()), grad_gaps=g_gaps, param_gap=gap,
+        train_collectives=sorted(train_log))
+    return out
 
 
 def _bc_gather_shape(cfg, mp):
@@ -314,12 +366,18 @@ def _gather_shapes(spec, rules, mesh, paths):
     return out
 
 
-# (name, narrowed arch, (dp, mp)): MLA's heads and the experts' hidden dim
-# over "model" (torch_dist_worker's MoE archs), Mamba-2's SSD heads
-# (``narrow``; the flux case is flow_grpo_2x2)
-FLOW_CASES = (("flow_grpo_deepseek_2x2", "deepseek-v2-236b", (2, 2)),
-              ("flow_grpo_grok_1x4", "grok-1-314b", (1, 4)),
-              ("flow_grpo_mamba2_2x2", "mamba2-370m", (2, 2)))
+# (name, narrowed arch, (dp, mp), REPRO_MOE_MODE): MLA's heads and the
+# experts' hidden dim over "model" (torch_dist_worker's MoE archs),
+# Mamba-2's SSD heads (``narrow``; the flux case is flow_grpo_2x2), and
+# the experts over "model" (ep_model)
+FLOW_CASES = (("flow_grpo_deepseek_2x2", "deepseek-v2-236b", (2, 2), None),
+              ("flow_grpo_grok_1x4", "grok-1-314b", (1, 4), None),
+              ("flow_grpo_mamba2_2x2", "mamba2-370m", (2, 2), None),
+              ("flow_grpo_deepseek_ep_2x2", "deepseek-v2-236b", (2, 2),
+               "ep_model"))
+# a checkpoint of the first FLOW_CASES case (tensor mode at (2, 2)),
+# restored under ep_model at (1, 4)
+CROSS = ("flow_grpo_deepseek_2x2", "deepseek-v2-236b", (1, 4), "ep_model")
 
 
 def narrow(dw, arch):
@@ -346,14 +404,14 @@ def _rules_trainer(dw, cfg, dp, mp, mesh):
         rules=True)
 
 
-def flow_case(dp=2, mp=2, arch=None, tmp=None):
+def flow_case(dp=2, mp=2, arch=None, tmp=None, name=None):
     """``flow_grpo``, two steps, f32: one device against the (dp, mp) mesh
     under the production rules (every rank builds the canonical params
     from the same seed, then keeps its shards); ``arch`` narrowed by
     ``narrow`` (the narrowed ``flux_dit`` without).
-    With ``tmp`` the two steps' canonical state is checkpointed there,
-    restored by a new trainer under the rules and both take a third
-    step."""
+    With ``tmp`` the two steps' canonical state is checkpointed there
+    (under ``name``), restored by a new trainer under the rules and both
+    take a third step."""
     import torch_dist_worker as dw
     from repro_torch import checkpoint
     from repro_torch.config import DistConfig
@@ -396,7 +454,7 @@ def flow_case(dp=2, mp=2, arch=None, tmp=None):
            "bytes": report, "bytes_one": memory.state_bytes(ref),
            "engine_refused": engine_refused}
     if tmp is not None:
-        ckpt = os.path.join(tmp, f"ckpt_{arch}")
+        ckpt = os.path.join(tmp, f"ckpt_{name}")
         if dist.get_rank() == 0:
             checkpoint.save_checkpoint(ckpt, 2, whole)
         dist.barrier()
@@ -432,21 +490,66 @@ def moe_mode(mode):
             os.environ["REPRO_MOE_MODE"] = prev
 
 
+def cross_mode_resume(tmp, name, arch, dp, mp):
+    """A rules trainer built at (dp, mp) under the current
+    ``REPRO_MOE_MODE`` restores the checkpoint the case ``name`` saved
+    (another mode, another mesh): its canonical state against the
+    checkpoint restored on one device, bitwise (params and AdamW
+    moments), and the routed expert tables' shapes this rank holds."""
+    import torch_dist_worker as dw
+    from repro_torch import checkpoint
+    from repro_torch.config import DistConfig
+    cfg = narrow(dw, arch)
+    ckpt = os.path.join(tmp, f"ckpt_{name}")
+    one = dw.build("flow_grpo", mesh=None, dist_cfg=DistConfig(),
+                   arch_cfg=cfg)
+    _, one.state = checkpoint.restore_latest(ckpt, one.state)
+    tr = _rules_trainer(dw, cfg, dp, mp, build_mesh(dp, mp, "cpu"))
+    step, tr.state = checkpoint.restore_latest(ckpt, tr.state,
+                                               tr.state_slicer())
+    back = tr.canonical_state()
+    experts = sorted({tuple(t.shape) for path, t in leaves(tr.state.params)
+                      if path[-1] in ("w_gate", "w_up", "w_down")
+                      and "router" in _at(tr.state.params, path[:-1])})
+    return {"step": step, "experts": experts,
+            "params_equal": all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                leaves(one.state.params), leaves(back.params))),
+            "mu_equal": all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                leaves(one.state.opt.mu), leaves(back.opt.mu)))}
+
+
 def run(rank, world, store, out):
-    """Entry point of one spawned rank: every case in turn."""
+    """Entry point of one spawned rank: every case in turn (four ranks),
+    or the ``UNDIVIDED_CASES`` (three)."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
         res = {}
+        if world == 3:
+            for name, arch, shape, mode in UNDIVIDED_CASES:
+                with moe_mode(mode):
+                    res[name] = case(arch, *shape)
+            if rank == 0:
+                with open(out, "wb") as f:
+                    pickle.dump(res, f)
+            return
         for cases, fn in ((CASES, case), (GRAD_CASES, grad_case)):
             for name, arch, shape, mode in cases:
                 with moe_mode(mode):
                     res[name] = fn(arch, *shape)
+        for name, arch, shape, mode in SERVE_CASES:
+            with moe_mode(mode):
+                res[name].update(case(arch, *shape, train=False))
         res["flow_grpo_2x2"] = flow_case()
-        for name, arch, shape in FLOW_CASES:
-            res[name] = flow_case(*shape, arch=arch,
-                                  tmp=os.path.dirname(out))
+        for name, arch, shape, mode in FLOW_CASES:
+            with moe_mode(mode):
+                res[name] = flow_case(*shape, arch=arch,
+                                      tmp=os.path.dirname(out), name=name)
+        name, arch, shape, mode = CROSS
+        with moe_mode(mode):
+            res["cross_mode_resume"] = cross_mode_resume(
+                os.path.dirname(out), name, arch, *shape)
         if rank == 0:
             with open(out, "wb") as f:
                 pickle.dump(res, f)

@@ -58,18 +58,44 @@ SEQ_CASES = (("smollm_model_1x4", "smollm-360m", (1, 4), "model", 4),
 
 
 @contextlib.contextmanager
-def cache_seq_knob(value):
-    """``REPRO_CACHE_SEQ_SHARD`` set to ``value`` (None: unset) in the
-    body."""
-    prev = os.environ.pop("REPRO_CACHE_SEQ_SHARD", None)
+def env_var(name, value):
+    """The environment variable ``name`` set to ``value`` (None: unset) in
+    the body."""
+    prev = os.environ.pop(name, None)
     if value is not None:
-        os.environ["REPRO_CACHE_SEQ_SHARD"] = value
+        os.environ[name] = value
     try:
         yield
     finally:
-        os.environ.pop("REPRO_CACHE_SEQ_SHARD", None)
+        os.environ.pop(name, None)
         if prev is not None:
-            os.environ["REPRO_CACHE_SEQ_SHARD"] = prev
+            os.environ[name] = prev
+
+
+def cache_seq_knob(value):
+    """``REPRO_CACHE_SEQ_SHARD`` set to ``value`` (None: unset) in the
+    body."""
+    return env_var("REPRO_CACHE_SEQ_SHARD", value)
+
+
+@contextlib.contextmanager
+def model_all_reduces(group):
+    """The (dtype, shape) of each ``dist.all_reduce`` over ``group``
+    made in the body, appended to the list it yields."""
+    seen, saved = [], dist.all_reduce
+
+    def all_reduce(x, *a, group=None, **k):
+        if group is not None and dist.get_process_group_ranks(group) == \
+                dist.get_process_group_ranks(want):
+            seen.append((str(x.dtype), tuple(x.shape),
+                         x.numel() * x.element_size()))
+        return saved(x, *a, group=group, **k)
+    want = group
+    dist.all_reduce = all_reduce
+    try:
+        yield seen
+    finally:
+        dist.all_reduce = saved
 
 
 def _flat(tree):
@@ -232,7 +258,7 @@ def _sites():
         out = moe._slot_dispatch(f, cfg, x, gates, idx,
                                  moe.capacity(x.shape[1], cfg), one_rank)
         shared = layers.swiglu(f["shared"], x, one_rank)
-        return (out.f32() + shared.f32()).to(x.dtype)
+        return (out.tensor() + shared.tensor()).to(x.dtype)
 
     def out_proj(p, cfg, x):
         return ssm.apply_full(p["ssm"], cfg, x)[0]
@@ -241,18 +267,23 @@ def _sites():
             ("mla_wo", "deepseek-v2-236b", latent, latent, None),
             ("moe_slot", "deepseek-v2-236b", experts, routed_sum, None),
             ("moe_dense", "grok-1-314b", experts, experts, "dense"),
-            ("ssm_out_proj", "mamba2-370m", out_proj, out_proj, None))
+            ("ssm_out_proj", "mamba2-370m", out_proj, out_proj, None),
+            ("moe_slot_ep", "deepseek-v2-236b", experts, routed_sum,
+             "ep_model"))
 
 
-def reduce_case(mp=4):
-    """Each row-parallel site's output under tensor parallelism at mp, in
-    bf16, against one device's (the slot route's: its products' sum
-    rounded once, ``_sites``), in bf16 ulps (``_ulps``)."""
+def reduce_case(mp=4, bf16_reduce=None):
+    """Each row-parallel site's output under tensor (or, ``moe_slot_ep``,
+    expert) parallelism at mp, in bf16, against one device's (the slot
+    route's: its products' sum in the reduce dtype, ``_sites``), in bf16
+    ulps (``_ulps``); and the (dtype, shape, bytes) of each all-reduce
+    over "model" the site made, with ``REPRO_BF16_REDUCE`` set to
+    ``bf16_reduce``."""
     out = {}
     mesh = build_mesh(1, mp, "cpu")
     rules = sh.production_rules(mesh)
     for name, arch, fn, ref, mode in _sites():
-        with moe_mode(mode):
+        with moe_mode(mode), env_var("REPRO_BF16_REDUCE", bf16_reduce):
             cfg = configs.get_reduced(arch)
             bb = Backbone(cfg)
             params = _cast(tasks.init_params(
@@ -267,13 +298,17 @@ def reduce_case(mp=4):
             with torch.no_grad():
                 one = ref(p, cfg, x)
                 plan = RulePlan(mesh, spec, rules)
-                with sh.param_gather(mesh, rules):
+                with sh.param_gather(mesh, rules), model_all_reduces(
+                        mesh.get_group("model")) as seen:
                     two = fn(sh.constrain_params(plan.shard_state(p), spec),
                              cfg, x)
             out[name] = {"ulps": _ulps(one, two),
                          "max_abs": float((one.float() - two.float())
                                           .abs().max()),
-                         "dtype": str(two.dtype)}
+                         "rel": float((one.float() - two.float()).abs().max()
+                                      / one.float().abs().max()),
+                         "dtype": str(two.dtype), "out_shape": tuple(
+                             two.shape), "all_reduces": seen}
     return out
 
 
@@ -309,7 +344,8 @@ def run(rank, world, store, out):
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
-        res = {"reduce": reduce_case(), "grads": grad_case()}
+        res = {"reduce": reduce_case(), "grads": grad_case(),
+               "reduce_bf16": reduce_case(bf16_reduce="1")}
         for name, arch, shape, knob, batch in SEQ_CASES:
             res[name] = seq_case(arch, *shape, knob, batch)
         if rank == 0:
