@@ -434,17 +434,35 @@ script exits 2 before printing any result.
    *g* handed bf16.  Then one rank's routed experts, forward and
    backward, tensor mode (160 experts at f 96) against ep_model (10 at f
    1536), CUDA events beside their bounds.
-43. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
+43. The activation-gathered route (``REPRO_NO_WEIGHT_GATHER``, and every
+   decode) at dp = 16, emulated on the card: each rank holds 1/16 of
+   every matrix's d dim, kept at use, and each product moves rows over
+   "data" instead (``sharding.rows_in`` / ``rows_out``).  One full-width
+   ``smollm-360m`` dense layer and one ``mamba2-370m`` block at 16 rows x
+   1024 tokens in bf16, a row a rank: whole, then as the 16 ranks, their
+   forwards at once on host threads over a ``ThreadGroup`` (its
+   all-gathers, reduce-scatters and all-to-alls meeting at a barrier),
+   their backwards in rounds (autograd runs every CUDA backward on one
+   device thread, so each rank's backward reruns until every collective
+   it reaches has all the ranks' inputs).  The outputs and input
+   gradients (the ranks' rows), each matrix's shard gradient times 16 and
+   the whole leaves' gradients summed within 3e-2 of the whole layer's
+   max; the attention and the scan forward and backward on ``wgmma`` at a
+   rank's row, nothing else.  Then one ``deepseek-v2-236b`` decode layer
+   (MLA's absorbed decode and the MoE, capacity ample) at 128 rows over a
+   4096-entry cache, 8 rows a rank, against one device.
+44. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
    ``ssm_train_path``, ``perf_path``, ``distributed_path``,
    ``engine_path``, ``hybrid_path``, ``moe_path``, ``frontend_path``,
    ``lm_path``, ``sweep_path``, ``lint``, ``layout_path``,
    ``moe_layer_path``, ``ssm_layer_path``, ``seq_decode_path``,
-   ``ep_layer_path``, ``phase_times`` and ``kernels`` JSON lines, the card's name and power
-   limit, and the last line ``{"ok": true, "device": {...}}``.
+   ``ep_layer_path``, ``route_path``, ``phase_times`` and ``kernels``
+   JSON lines, the card's name and power limit, and the last line
+   ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds as it ends (``[N] took ... s``), and the
 script the total.  ``--only N,...`` runs just the device and build phases
-and phases N (3 and 8-42) and prints no result lines: a development aid.
+and phases N (3 and 8-43) and prints no result lines: a development aid.
 """
 from __future__ import annotations
 
@@ -6153,12 +6171,13 @@ LAYER_RANK_BAND = 3e-2
 
 
 class _ModelAxis:
-    """A ("data", "model") mesh of 1 x ``mp`` ranks as the rule tables
-    read one (``axis_names`` and ``shape``), for the shards' layout."""
+    """A ("data", "model") mesh of ``dp`` x ``mp`` ranks as the rule
+    tables read one (``axis_names`` and ``shape``), for the shards'
+    layout."""
 
-    def __init__(self, mp: int):
+    def __init__(self, mp: int, dp: int = 1):
         self.axis_names = ("data", "model")
-        self.shape = {"data": 1, "model": mp}
+        self.shape = {"data": dp, "model": mp}
 
 
 @contextlib.contextmanager
@@ -6728,13 +6747,70 @@ class ThreadGroup:
         self.barrier = threading.Barrier(n, timeout=120)
         # (dtype, shape) of each all-reduce the ranks meet in, when a list
         self.log = None
+        # the backward rounds' state (``begin_rounds``), and the rank whose
+        # backward runs
+        self.rounds, self.current = None, 0
 
     @property
     def rank(self) -> int:
-        return self.local.rank
+        return self.current if self.rounds is not None else self.local.rank
+
+    # -- backward rounds: autograd runs every CUDA backward on one device
+    # thread, so the ranks' backwards cannot meet at a barrier.  They run
+    # one after another, each from the start, as often as it takes: a
+    # rank stops (``_RoundStop``) at the first collective whose other
+    # ranks' inputs are not all known, having left its own; once every
+    # rank has left its input to a collective, ``settle`` computes each
+    # rank's result, and the next round serves it and goes on to the next
+    # collective.
+    def begin_rounds(self) -> None:
+        self.rounds = {"calls": [0] * self.n, "inputs": {}, "results": {},
+                       "stopped": False}
+
+    def _round(self, kind: str, out, src, op=None) -> None:
+        st, r = self.rounds, self.current
+        i = st["calls"][r]
+        st["calls"][r] += 1
+        res = st["results"].get((i, r))
+        if res is not None:
+            out.copy_(res.view_as(out))
+            return
+        st["inputs"].setdefault((i, r), (kind, op, src.clone()))
+        st["stopped"] = True
+        raise _RoundStop(f"rank {r} at collective {i} ({kind})")
+
+    def settle(self) -> bool:
+        """The results of every collective all ranks have reached; whether
+        there was one."""
+        import torch.distributed as dist
+        st, n = self.rounds, self.n
+        ready = sorted({i for i, _ in st["inputs"]
+                        if all((i, r) in st["inputs"] for r in range(n))})
+        for i in ready:
+            kind, op, _ = st["inputs"][(i, 0)]
+            srcs = [st["inputs"].pop((i, r))[2] for r in range(n)]
+            if kind == "all-gather":
+                outs = [torch.cat(srcs, 0)] * n
+            elif kind == "all-to-all":
+                outs = [torch.cat([t.chunk(n)[r] for t in srcs], 0)
+                        for r in range(n)]
+            else:
+                acc = srcs[0].clone()
+                for t in srcs[1:]:
+                    if op == dist.ReduceOp.MAX:
+                        torch.maximum(acc, t, out=acc)
+                    else:
+                        acc += t
+                outs = ([acc] * n if kind == "all-reduce"
+                        else list(acc.chunk(n)))
+            for r in range(n):
+                st["results"][(i, r)] = outs[r]
+        return bool(ready)
 
     def all_reduce(self, x, op) -> None:
         import torch.distributed as dist
+        if self.rounds is not None:
+            return self._round("all-reduce", x, x, op)
         if self.solo:
             return
         r = self.rank
@@ -6755,6 +6831,8 @@ class ThreadGroup:
         self.barrier.wait()
 
     def all_gather(self, out, src) -> None:
+        if self.rounds is not None:
+            return self._round("all-gather", out, src)
         if self.solo:
             out.view(self.n, *src.shape).copy_(src.expand(self.n,
                                                           *src.shape))
@@ -6762,6 +6840,36 @@ class ThreadGroup:
         self.slots[self.rank] = src
         self.barrier.wait()
         torch.cat(self.slots, 0, out=out)
+        self.barrier.wait()
+
+    def reduce_scatter(self, out, src) -> None:
+        """This rank's chunk (dim 0) of the ranks' sum, added in rank
+        order in ``src``'s dtype."""
+        if self.rounds is not None:
+            return self._round("reduce-scatter", out, src)
+        r = self.rank
+        if self.solo:
+            out.copy_(src.chunk(self.n)[r])
+            return
+        self.slots[r] = src
+        self.barrier.wait()
+        acc = self.slots[0].chunk(self.n)[r].clone()
+        for t in self.slots[1:]:
+            acc += t.chunk(self.n)[r]
+        out.copy_(acc)
+        self.barrier.wait()
+
+    def all_to_all(self, out, src) -> None:
+        """Chunk r (dim 0) of each rank's ``src``, in rank order."""
+        if self.rounds is not None:
+            return self._round("all-to-all", out, src)
+        r = self.rank
+        if self.solo:
+            out.copy_(src)
+            return
+        self.slots[r] = src
+        self.barrier.wait()
+        torch.cat([t.chunk(self.n)[r] for t in self.slots], 0, out=out)
         self.barrier.wait()
 
 
@@ -6797,7 +6905,9 @@ def thread_ranks():
     sharding context made per thread, for the ``with`` body."""
     import torch.distributed as dist
     from repro_torch import sharding as shlib
-    names = ("all_reduce", "all_gather_into_tensor", "all_gather_single")
+    names = ("all_reduce", "all_gather_into_tensor", "all_gather_single",
+             "reduce_scatter_tensor", "reduce_scatter_single",
+             "all_to_all_single")
     saved = {n: getattr(dist, n, None) for n in names}
 
     def all_reduce(x, op=dist.ReduceOp.SUM, group=None, **k):
@@ -6805,18 +6915,20 @@ def thread_ranks():
             return group.all_reduce(x, op)
         return saved["all_reduce"](x, op=op, group=group, **k)
 
-    def gather(name):
-        def fn(out, src, group=None, **k):
+    def routed_to(name, method):
+        def fn(out, src, *a, group=None, **k):
             if isinstance(group, ThreadGroup):
-                return group.all_gather(out, src)
-            return saved[name](out, src, group=group, **k)
+                return getattr(group, method)(out, src)
+            return saved[name](out, src, *a, group=group, **k)
         return fn
 
     ctx = shlib._CTX
     dist.all_reduce = all_reduce
     for n in names[1:]:
         if saved[n] is not None:
-            setattr(dist, n, gather(n))
+            setattr(dist, n, routed_to(n, "all_gather" if "gather" in n
+                                       else "reduce_scatter" if "scatter"
+                                       in n else "all_to_all"))
     shlib._CTX = _ThreadCtx(ctx)
     try:
         yield
@@ -7327,10 +7439,364 @@ def ep_layer_phase(dev) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 43
+# the activation-gathered route (REPRO_NO_WEIGHT_GATHER, and every decode)
+# at dp = 16 on one card: each rank holds 1/16 of every matrix's d dim
+# (its stored "data" shard, kept at use) and each product moves rows over
+# "data" instead (``sharding.rows_in`` / ``rows_out``).  One full-width
+# smollm-360m dense layer and one mamba2-370m block at 16 rows x 1024
+# tokens (a row a rank), forward and backward, then one deepseek-v2-236b
+# decode layer (MLA and MoE) at decode_32k's 128 rows over a 4096-entry
+# cache.  The ranks' forwards run at once on host threads over a
+# ``ThreadGroup``; their backwards in rounds (``ThreadGroup.begin_rounds``).
+NWG_DP, NWG_SEQ = 16, 1024
+NWG_LAYERS = (("smollm", DENSE_ARCH), ("mamba2", SSM_ARCH))
+NWG_ROWS, NWG_CACHE = INPUT_SHAPES["decode_32k"].global_batch, 4096
+
+
+class _RoundStop(Exception):
+    """Ends a rank's backward at a collective whose other ranks' inputs
+    are not all known yet (``ThreadGroup._round``)."""
+
+
+def _route_shards(p: dict, spec: dict, dp: int) -> tuple:
+    """(each rank's leaves, each leaf's "data" dim at use) on the route:
+    a matrix's dim cut to rank r's 1/dp (``sharding.use_layout`` under
+    ``production_rules(activations=True)``), every other leaf whole (one
+    tensor, shared by the ranks)."""
+    from repro_torch import sharding as shlib
+    axis = _ModelAxis(1, dp)
+    rules = shlib.production_rules(axis, activations=True)
+    dims = {path: shlib.use_layout(s.shape, s.axes, rules, axis)[0]
+            for path, s in params_lib.leaves(spec)}
+    shards = []
+    for r in range(dp):
+        shard = {}
+        for path, t in params_lib.leaves(p):
+            d = dims[path]
+            if d is not None:
+                k = t.shape[d] // dp
+                t = t.narrow(d, r * k, k).contiguous()
+            params_lib._set(shard, path, t)
+        shards.append(shard)
+    return shards, dims
+
+
+@contextlib.contextmanager
+def locked_kernels(lock, shapes: list):
+    """``ops.flash_attention`` and ``ops.ssd_scan`` called under ``lock``
+    (their launch counters are plain attributes), each call's q or x
+    shape appended to ``shapes`` with its kernel's name."""
+    saved = ops.flash_attention, ops.ssd_scan
+
+    def wrap(name, fn):
+        def call(x, *a, **k):
+            with lock:
+                shapes.append((name, tuple(x.shape)))
+                return fn(x, *a, **k)
+        return call
+
+    ops.flash_attention = wrap("flash_attention", saved[0])
+    ops.ssd_scan = wrap("ssd_scan", saved[1])
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.ssd_scan = saved
+
+
+def _rank_rows_ctx(group, dp: int, r: int) -> None:
+    """This thread's sharding context: rank ``r`` of ``dp`` on the
+    route's "data" axis, each rank its own rows."""
+    from repro_torch import sharding as shlib
+    group.local.rank = r
+    shlib._CTX.update(mesh=None, rules=None, tp=None, seq=None,
+                      rows=shlib.RowGroup(group, dp, r, True))
+
+
+def _threads(fn, group, what: str) -> None:
+    """``fn(r)`` for every rank r of ``group`` at once, one host thread
+    each; a rank's exception fails the phase."""
+    import threading
+    errors = []
+
+    def rank(r):
+        try:
+            fn(r)
+        except Exception as e:   # the others leave the barrier too
+            errors.append(f"rank {r}: {type(e).__name__}: {e}")
+            group.barrier.abort()
+
+    threads = [threading.Thread(target=rank, args=(r,))
+               for r in range(group.n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        fail(f"phase 43: an emulated rank failed ({what}): "
+             + "; ".join(errors))
+
+
+def route_layer_ranks(dev, arch: str, dp: int = NWG_DP, cfg=None,
+                      seq: int = NWG_SEQ, seed: int = 43) -> dict:
+    """One block of ``arch`` (``cfg``: another config, as a reduced one) at
+    full width, bf16, random weights from ``seed`` (the q and k
+    projections drawn as ``draw_qk_proj``, the SSM leaves from Mamba-2's
+    init), on ``dp`` random rows of ``seq`` tokens and a random upstream
+    gradient: once whole, then as ``dp`` ranks on the activation-gathered
+    route, rank r holding row r and 1/dp of every matrix's d dim.  The
+    forwards run at once on host threads over a ``ThreadGroup``, the
+    backwards in rounds.  Gaps to the whole block: the ranks' outputs and
+    input gradients (their rows, concatenated), each matrix's shard
+    gradient times dp (the route's gradient is the data-parallel mean)
+    against its slice, each whole leaf's gradients summed over the ranks.
+    Returns the gaps, the launches, the kernels' shapes, the rounds, the
+    seconds and the peak memory of the ranks against the reckoning of
+    their gathered rows and f32 partials."""
+    import threading
+    from repro_torch import sharding as shlib
+    cfg = cfg or configs.get(arch)
+    bb = Backbone(cfg)
+    spec = bb._block_spec
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = params_lib.init(spec, gen, torch.bfloat16, dev)
+    if "ssm" in spec:
+        draw_ssm_leaves(p["ssm"], seed)
+
+        def fn(q, x):
+            return bb._ssm_block(q, x)[0]
+    else:
+        _draw_qk(p["attn"], cfg, gen)
+        pos = torch.arange(seq, dtype=torch.int32, device=dev)
+
+        def fn(q, x):
+            return bb._dense_block(q, x, causal=True, window=0,
+                                   positions=pos)[0]
+    h, dy = (torch.randn((dp, seq, cfg.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16) for _ in range(2))
+    y, dx, grads = _region(fn, p, h, dy)
+    shards, dims = _route_shards(p, spec, dp)
+    leaves = [dict(params_lib.leaves(s)) for s in shards]
+    every = list({id(t): t for lv in leaves for t in lv.values()}.values())
+    for t in every:
+        t.requires_grad_(True)
+    xs = [h[r:r + 1].detach().clone().requires_grad_() for r in range(dp)]
+    ys, got, dxs = [None] * dp, [None] * dp, [None] * dp
+    group = ThreadGroup(dp)
+    lock, shapes = threading.Lock(), []
+    # the reckoning: every rank's largest gathered rows (bf16) and f32
+    # partial at once
+    widths = [math.prod(s.shape[1:]) if d == 0 else math.prod(s.shape[:d])
+              for path, s in params_lib.leaves(spec)
+              for d in [dims[path]] if d is not None]
+    reckoned = dp * dp * seq * (cfg.d_model * 2 + max(widths) * 4)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    reset_counts()
+    t0 = time.perf_counter()
+
+    def forward(r):
+        _rank_rows_ctx(group, dp, r)
+        ys[r] = fn(shards[r], xs[r])
+
+    with thread_ranks(), locked_kernels(lock, shapes):
+        _threads(forward, group, "forward")
+        fwd_s = time.perf_counter() - t0
+        group.begin_rounds()
+        rounds = 0
+        while not all(g is not None for g in got):
+            rounds += 1
+            for r in range(dp):
+                if got[r] is not None:
+                    continue
+                group.current = r
+                group.rounds["calls"][r] = 0
+                for t in every + [xs[r]]:
+                    t.grad = None
+                try:
+                    ys[r].backward(dy[r:r + 1], retain_graph=True)
+                except Exception:
+                    if not group.rounds["stopped"]:
+                        raise
+                    group.rounds["stopped"] = False
+                    continue
+                got[r] = {path: (torch.zeros_like(t) if t.grad is None
+                                 else t.grad.clone())
+                          for path, t in leaves[r].items()}
+                dxs[r] = xs[r].grad.clone()
+            if not all(g is not None for g in got) and not group.settle():
+                fail(f"phase 43: the {arch} ranks' backwards stopped "
+                     f"without a collective to settle")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base
+            if dev.type == "cuda" else 0)
+    launches, variants = counts(), all_variants()
+    for t in every:
+        t.requires_grad_(False)
+        t.grad = None
+    with torch.no_grad():
+        gaps = {"out": _rel(torch.cat([t.detach() for t in ys]), y),
+                "dx (rows)": _rel(torch.cat(dxs), dx)}
+        for path, want in grads.items():
+            d = dims[path]
+            key = "/".join(path)
+            if d is None:
+                gaps[key + " (sum)"] = _rel(
+                    sum(g[path].float() for g in got), want)
+                continue
+            k = want.shape[d] // dp
+            err = max(float((g[path].float() * dp - want.narrow(
+                d, r * k, k).float()).abs().max()) for r, g in
+                enumerate(got))
+            gaps[key + " (shard x dp)"] = err / max(
+                float(want.float().abs().max()), 1e-30)
+    res = {"gaps": gaps, "rounds": rounds, "launches": launches,
+           "variants": variants,
+           "shapes": sorted({f"{n} {s}" for n, s in shapes}),
+           "kernel_calls": len(shapes), "forward_s": fwd_s,
+           "total_s": total_s, "peak_bytes": peak,
+           "reckoned_bytes": reckoned}
+    del ys, got, dxs, xs, shards, leaves, every, p, y, dx, grads, h, dy
+    gc.collect()
+    return res
+
+
+def route_decode_ranks(dev, dp: int = NWG_DP, cfg=None,
+                       rows: int = NWG_ROWS, cache_len: int = NWG_CACHE,
+                       seed: int = 44) -> dict:
+    """One ``deepseek-v2-236b`` decode layer (``cfg``: another config) at
+    full width, bf16, random weights from ``seed`` (MLA's w_uq / w_uk as
+    ``draw_qk_proj``) and a random latent cache of ``rows`` x
+    ``cache_len``: the port's decode block (MLA's absorbed decode and the
+    MoE) once whole, then as ``dp`` ranks on the activation-gathered route
+    at once on host threads, rank r holding rows/dp rows of the token and
+    the cache and 1/dp of every matrix's d dim, every expert's capacity
+    ample (``ample_capacity``: a rank's group is its own rows).  Gaps of
+    the outputs and the rolled caches to one device's, and the seconds.
+    One device takes the ranks' expert assignments (``routing``'s replay,
+    the gates from its own probabilities): a rank's layer input differs
+    from one device's by bf16 roundings (the attention's d-partials add
+    in another order), which moves a token's router logits by ≈ 1e-3 of
+    their size and can swap its k-th and (k+1)-th experts; the swaps are
+    counted (``flipped``)."""
+    from repro_torch.models import mla as mla_mod
+    cfg = cfg or configs.get(DS_ARCH)
+    bb = Backbone(cfg)
+    spec = bb._block_spec
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = params_lib.init(spec, gen, torch.bfloat16, dev)
+    _draw_qk(p["attn"], cfg, gen)
+    m = cfg.mla
+    x = torch.randn((rows, 1, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    cache = mla_mod.MLACache(*(torch.randn(
+        (rows, cache_len, w), generator=gen, device=dev).to(torch.bfloat16)
+        for w in (m.kv_lora_rank, m.qk_rope_head_dim)))
+    shards, _ = _route_shards(p, spec, dp)
+    k = rows // dp
+    slots = [mla_mod.MLACache(*(t[r * k:(r + 1) * k].clone()
+                                for t in cache)) for r in range(dp)]
+    whole = mla_mod.MLACache(*(t.clone() for t in cache))
+    ys, picks = [None] * dp, [None] * dp
+    group = ThreadGroup(dp)
+    route = moe_mod.route
+
+    def picked(q, c, xg):
+        out = route(q, c, xg)
+        picks[group.rank] = out[3].clone()
+        return out
+
+    def rank(r):
+        _rank_rows_ctx(group, dp, r)
+        with torch.no_grad():
+            ys[r] = bb._attn_block_decode(shards[r], x[r * k:(r + 1) * k],
+                                          slots[r], cache_len, 0, "moe")
+
+    own = []
+    with ample_capacity():
+        t0 = time.perf_counter()
+        moe_mod.route = picked
+        try:
+            with thread_ranks():
+                _threads(rank, group, "decode")
+        finally:
+            moe_mod.route = route
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ranks_s = time.perf_counter() - t0
+        chosen = torch.cat(picks, 1)
+        with torch.no_grad(), routing(record=own, replay=[chosen]):
+            y = bb._attn_block_decode(p, x, whole, cache_len, 0, "moe")
+    res = {"gaps": {"out": _rel(torch.cat(ys), y), **{
+        f"rolled {f}": _rel(torch.cat([getattr(s, f) for s in slots]),
+                            getattr(whole, f)) for f in whole._fields}},
+           "flipped": _assign_diff(own, [chosen]),
+           "assignments": chosen.numel(), "ranks_s": ranks_s,
+           "rows_a_rank": k}
+    del p, shards, slots, whole, cache, ys, y
+    gc.collect()
+    return res
+
+
+def route_phase(dev) -> dict:
+    """Phase 43: ``route_layer_ranks`` for one ``smollm-360m`` dense layer
+    and one ``mamba2-370m`` block at dp = 16, then ``route_decode_ranks``
+    for one ``deepseek-v2-236b`` decode layer.  Every gap within
+    ``LAYER_RANK_BAND``; the dense layer's 16 attention forwards and its
+    backwards, the block's 16 scans and their backwards, all on
+    ``wgmma`` at a rank's row, no other kernel."""
+    res, ok = {}, True
+    for tag, arch in NWG_LAYERS:
+        r = route_layer_ranks(dev, arch)
+        res[tag] = r
+        cfg = configs.get(arch)
+        fwd, bwd = (("flash_attention", "flash_attention_bwd")
+                    if tag == "smollm" else ("ssd_scan", "ssd_scan_bwd"))
+        lv = r["launches"]
+        good = (max(r["gaps"].values()) <= LAYER_RANK_BAND
+                and lv[fwd] == NWG_DP and lv[bwd] >= NWG_DP
+                and all(v == 0 for n, v in lv.items() if n not in (fwd, bwd))
+                and r["variants"][fwd] == routed(lv[fwd], "wgmma")
+                and r["variants"][bwd] == routed(lv[bwd], "wgmma"))
+        log(f"  {arch} one {'layer' if tag == 'smollm' else 'block'} at dp "
+            f"{NWG_DP} ({NWG_DP} rows x {NWG_SEQ}, a row a rank, bf16): "
+            f"worst gap {max(r['gaps'].values()):.3e} (band "
+            f"{LAYER_RANK_BAND}); every gap {json.dumps(r['gaps'])}; "
+            f"backward rounds {r['rounds']}; launches "
+            f"{ {n: v for n, v in lv.items() if v} } variants "
+            f"{ {n: r['variants'][n] for n in (fwd, bwd)} }, shapes "
+            f"{r['shapes']}; forward {r['forward_s']:.2f} s, forward + "
+            f"backward {r['total_s']:.2f} s; peak of the ranks "
+            f"{r['peak_bytes'] / 1e9:.2f} GB (reckoned gathered rows and "
+            f"f32 partials at once {r['reckoned_bytes'] / 1e9:.2f} GB; d "
+            f"{cfg.d_model})")
+        ok &= good
+        torch.cuda.empty_cache()
+    d = route_decode_ranks(dev)
+    res["deepseek_decode"] = d
+    log(f"  {DS_ARCH} one decode layer at dp {NWG_DP} ({NWG_ROWS} rows, "
+        f"{d['rows_a_rank']} a rank, {NWG_CACHE}-entry cache): gaps "
+        f"{json.dumps(d['gaps'])} (band {LAYER_RANK_BAND}), one device on "
+        f"the ranks' routing ({d['flipped']} of {d['assignments']} "
+        f"assignments its own router swaps); the ranks {d['ranks_s']:.2f} s")
+    ok &= max(d["gaps"].values()) <= LAYER_RANK_BAND
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("the activation-gathered route's ranks do not match one "
+             "device, or their kernels are not the wgmma ones at a rank's "
+             "row")
+    res["card"] = card_line()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", metavar="N,N,...",
-                    help="run only these of phases 3-42 after the device and "
+                    help="run only these of phases 3-43 after the device and "
                          "build phases, and print no result lines (a "
                          "development aid; the check runs every phase)")
     args = ap.parse_args(argv)
@@ -7623,6 +8089,13 @@ def main(argv=None) -> int:
           f"rank's routed experts timed in tensor mode and ep_model")
     ep_res = ep_layer_phase(dev)
 
+    begin(43, f"the activation-gathered route (REPRO_NO_WEIGHT_GATHER, and "
+          f"decode) at dp {NWG_DP}: one {DENSE_ARCH} layer and one "
+          f"{SSM_ARCH} block at full width, {NWG_DP} rows x {NWG_SEQ}, the "
+          f"ranks' forwards at once and their backwards in rounds, then one "
+          f"{DS_ARCH} decode layer at {NWG_ROWS} rows, against one device")
+    nwg_res = route_phase(dev)
+
     def layer_launches(arch: str, name: str) -> int:
         return layer_res[arch]["launches"]["attn"].get(name, 0)
 
@@ -7669,7 +8142,9 @@ def main(argv=None) -> int:
                 **{f"layer_{tag}_mp16": ssm_layer_res[tag]["launches"][name]
                    for tag, _ in SSM_LAYER_ARCHS},
                 **{f"layer_deepseek_ep16{tag[8:]}": ep_res[tag]["attn"][
-                    "launches"][name] for tag, _ in EP_PASSES}}
+                    "launches"][name] for tag, _ in EP_PASSES},
+                **{f"nwg16_{tag}": nwg_res[tag]["launches"][name]
+                   for tag, _ in NWG_LAYERS}}
 
     for row in rows:
         row["launches"] = train_res["launches"][row["name"]]
@@ -7772,6 +8247,7 @@ def main(argv=None) -> int:
         k: v for k, v in ssm_layer_res.items() if k != "rank_rows"}}))
     print(json.dumps({"seq_decode_path": seq_res}))
     print(json.dumps({"ep_layer_path": ep_res}))
+    print(json.dumps({"route_path": nwg_res}))
     print(json.dumps({"phase_times": phase_times()}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
@@ -7824,7 +8300,8 @@ def run_only(dev, only: set) -> int:
               39: _in_tmp(lambda tmp: moe_layer_phase(dev, tmp)),
               40: _in_tmp(lambda tmp: ssm_layer_phase(dev, tmp)),
               41: lambda: seq_decode_phase(dev),
-              42: lambda: ep_layer_phase(dev)}
+              42: lambda: ep_layer_phase(dev),
+              43: lambda: route_phase(dev)}
     for n in sorted(only):
         if n not in phases:
             fail(f"--only: phase {n} cannot run alone")

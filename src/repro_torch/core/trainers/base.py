@@ -190,7 +190,10 @@ class BaseTrainer:
         ``mesh``: the ``PartitionPlan`` (every leaf replicated or sharded
         over "model", ZeRO-3 over "model"; no plan without a mesh), or with
         ``rules`` the reference's production rules
-        (``sharding.production_rules``) and their ``RulePlan``."""
+        (``sharding.production_rules``) and their ``RulePlan``, on the
+        activation-gathered route under ``REPRO_NO_WEIGHT_GATHER``
+        (``sharding.no_weight_gather``: the matrices keep their "data"
+        shard at use and each product gathers its rows)."""
         if not rules:
             plan = distributed.partition_plan(mesh, spec)
             return plan, None, frozenset(
@@ -199,7 +202,8 @@ class BaseTrainer:
                  if d is not None))
         if mesh is None:
             raise ValueError("the production rules lay out a mesh")
-        r = shlib.production_rules(mesh)
+        r = shlib.production_rules(mesh,
+                                   activations=shlib.no_weight_gather())
         return (distributed.RulePlan(mesh, spec, r), r,
                 shlib.norm_layout(spec, mesh, r))
 

@@ -26,7 +26,11 @@ Per pair it records to experiments/dryrun/<arch>__<shape>__<mesh>.json:
     reference's production layout (rule tables, tensor parallel over
     "model", ZeRO-3 over "data"; see ``launch.specs``), whether the
     weights shard over "data" (``fsdp``), and the differences by
-    construction.
+    construction; route: ``"weights"`` (each matrix's "data" shard
+    gathered at use) or ``"activations"`` (decode always, train and
+    prefill under ``REPRO_NO_WEIGHT_GATHER``: each product gathers its
+    rows instead; ``launch.sweep --env REPRO_NO_WEIGHT_GATHER=1 --variant
+    nwg`` names those records ``__nwg``).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch yi-9b --shape train_4k [--multi-pod]
@@ -50,6 +54,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from repro_torch import configs
+from repro_torch import sharding as shlib
 from repro_torch.config import INPUT_SHAPES, InputShape
 from repro_torch.launch import costs as costs_lib
 from repro_torch.launch import hlo_stats
@@ -157,7 +162,9 @@ def run_one(arch: str, shape: Union[str, InputShape], *,
         fn, args = specs.build_flow_step(cfg, mesh)
         batch = specs.FLOW_PROMPTS * specs.FLOW_GROUP
         fsdp = True
+        route = "activations" if shlib.no_weight_gather() else "weights"
     else:
+        route = specs.step_route(shape)
         fn, args = specs.build_step(cfg, shape, mesh)
         batch = shape.global_batch
         fsdp = shape.kind == "train" or (
@@ -182,8 +189,9 @@ def run_one(arch: str, shape: Union[str, InputShape], *,
         "layout": specs.layout(mesh, batch, fsdp=fsdp, cache_seq=(
             specs.cache_rules(cfg, shape, mesh).arules["cache_seq"]
             if shape.kind == "decode" and mesh is not None and not flow_rl
-            else None)),
+            else None), route=route),
         "fsdp": fsdp,
+        "route": route,
         "run_s": round(res["run_s"], 2),
         "memory": res["memory"],
         "fits_80gb": res["memory"]["peak_bytes"] <= mesh_lib.HBM_BYTES,

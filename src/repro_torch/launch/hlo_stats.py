@@ -6,7 +6,8 @@ text and multiplies each scanned (``while``) body by its trip count; the
 port's layers run as a Python loop, so each collective is recorded once,
 as it is issued.  Every collective the port issues goes through
 ``repro_torch.sharding`` (``gather_dim`` and ``all_gather_rows``:
-all-gather; ``scatter_mean_dim``: reduce-scatter; ``all_reduce_mean``,
+all-gather; ``reduce_scatter_dim`` and ``scatter_mean_dim``:
+reduce-scatter; ``exchange``: all-to-all; ``all_reduce_mean``,
 ``all_reduce_max`` and ``all_reduce_sum_``: all-reduce), which reports
 each one's kind, result bytes and group size to the hooks that
 :func:`record_collectives` installs.  Outside that context nothing is

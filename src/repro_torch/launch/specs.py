@@ -32,12 +32,21 @@ set, dropped where the axis does not divide the cache length, and a
 layout with one mesh axis on two dims of a cache leaf refused
 (``sharding.CacheLayoutError``, the reference's ``DuplicateSpecError``).
 Where
-the reference leaves a serving step's weights to XLA
-(``set_param_gather(None)``), the port gathers the "data" shard at use as
-in training.  So each spec here is this rank's shard, and the second
+the reference leaves a step's weights to XLA (``set_param_gather(None)``:
+at decode always, at prefill and in training under
+``REPRO_NO_WEIGHT_GATHER``, read with the reference's truthiness, "0"
+too) the port takes the activation-gathered route
+(``sharding.production_rules(activations=True)``): each matrix keeps its
+"data" shard at use, each product gathers its rows over "data", sums its
+d-partials back onto the rank's rows (the input side) or sends each row's
+columns home by one all-to-all (the output side).  Prefill without the
+switch gathers the "data" shard at use, as training does (a difference by
+construction: the reference leaves prefill to XLA whatever the switch).
+So each spec here is this rank's shard, and the second
 value of each pair is the tree of each leaf's (data dim, model dim).  A
 batch that the data axis does not divide (``long_500k``'s one sequence)
-is run whole by every data rank.  ``build_flow_step(fsdp=False)`` keeps
+is run whole by every data rank (on the route its d-partials are then
+all-reduced over "data").  ``build_flow_step(fsdp=False)`` keeps
 the trainers' own layout (the ``PartitionPlan``: ZeRO-3 over "model").
 With ``mesh=None`` everything is the exact single-device path.
 """
@@ -81,10 +90,10 @@ def local_batch(batch: int, mesh) -> int:
 
 
 def layout(mesh, batch: int, *, fsdp: bool = True,
-           cache_seq: Optional[str] = None) -> str:
+           cache_seq: Optional[str] = None, route: str = "weights") -> str:
     """The record's description of the layout a step runs under
     (``cache_seq``: the mesh axis a decode cache's sequence is split
-    over)."""
+    over; ``route``: ``Rules.route``)."""
     dp, mp = mesh_lib.mesh_dp(mesh), mesh_lib.mesh_mp(mesh)
     if mesh is None:
         return "single device: no mesh, no collective"
@@ -92,7 +101,11 @@ def layout(mesh, batch: int, *, fsdp: bool = True,
              else f"batch {batch} whole on every data rank ({dp} does not "
                   "divide it)")
     data = (f"and over data ({dp}) on embed, embed_r, moe_in, moe_out, "
-            f"gathered over data at use" if fsdp else
+            + ("gathered over data at use" if route == "weights" else
+               "kept sharded over data at use (the activation-gathered "
+               "route: each product's rows gathered over data, its "
+               "d-partials summed back or its columns sent home by one "
+               "all-to-all)") if fsdp else
             "and not over data (serving weights below the inference "
             "threshold)")
     ep = os.environ.get("REPRO_MOE_MODE") == "ep_model"
@@ -176,14 +189,26 @@ def train_state_specs(cfg: ArchConfig, mesh, *, fsdp: bool = True):
     return tasks.TrainState(params=p_shapes, opt=_state(p_shapes)), p_dims
 
 
-def _rules(mesh, fsdp: bool) -> Optional[shlib.Rules]:
-    """The production layout's rules (None without a mesh)."""
+def _rules(mesh, fsdp: bool, activations: bool = False
+           ) -> Optional[shlib.Rules]:
+    """The production layout's rules (None without a mesh), on the
+    activation-gathered route with ``activations``."""
     return (None if mesh is None else
-            shlib.production_rules(mesh, fsdp=fsdp))
+            shlib.production_rules(mesh, fsdp=fsdp, activations=activations))
+
+
+def step_route(shape: InputShape) -> str:
+    """The route a step of ``shape`` takes (``Rules.route``): decode
+    always takes the activation-gathered route, as the reference's
+    ``set_param_gather(None)`` at decode; train and prefill under
+    ``REPRO_NO_WEIGHT_GATHER``."""
+    return ("activations" if shape.kind == "decode"
+            or shlib.no_weight_gather() else "weights")
 
 
 def cache_rules(cfg: ArchConfig, shape: InputShape, mesh, *,
-                fsdp: bool = False) -> Optional[shlib.Rules]:
+                fsdp: bool = False, activations: bool = False
+                ) -> Optional[shlib.Rules]:
     """The production rules of a decode step of ``shape``, their cache
     entries the reference's (``repro/launch/specs.py`` ``cache_specs``):
     the cache's sequence over "data" only when the batch cannot use the
@@ -193,7 +218,8 @@ def cache_rules(cfg: ArchConfig, shape: InputShape, mesh, *,
     (``sharding.check_cache_leaf``: ``CacheLayoutError`` where one axis
     lands on two dims); the sequence rule is then dropped where its axis
     does not divide the cache length or has one rank, as the reference's
-    ``leaf`` drops it.  None without a mesh."""
+    ``leaf`` drops it; ``activations``: on the activation-gathered
+    route.  None without a mesh."""
     if mesh is None:
         return None
     batch = shape.global_batch
@@ -202,7 +228,8 @@ def cache_rules(cfg: ArchConfig, shape: InputShape, mesh, *,
     b_ax = shlib.batch_axes(mesh)
     batch_shardable = shlib.divisible(batch, mesh, b_ax)
     rules = shlib.production_rules(mesh, fsdp=fsdp,
-                                   seq_shard=not batch_shardable)
+                                   seq_shard=not batch_shardable,
+                                   activations=activations)
     if not batch_shardable:
         rules.arules["batch"] = None
     # sequence-sharded flash-decode: the decode caches' sequence over the
@@ -275,22 +302,24 @@ def build_step(cfg: ArchConfig, shape: InputShape, mesh,
                opt_cfg: Optional[OptimConfig] = None):
     """Returns ``(fn, args)``: the port's own step for ``shape.kind``
     (``tasks.make_train_step`` with per-block remat, ``make_prefill_step``
-    or ``make_decode_step``) under the production layout, and this rank's
-    meta arguments; ``fn(*args)`` runs it."""
+    or ``make_decode_step``) under the production layout on the route
+    :func:`step_route` names, and this rank's meta arguments;
+    ``fn(*args)`` runs it."""
     opt_cfg = opt_cfg or OptimConfig()
     window = tasks.effective_window(cfg, shape)
     batch = input_specs(cfg, shape, mesh)
+    act = step_route(shape) == "activations"
     if shape.kind == "train":
         step = tasks.make_train_step(cfg, opt_cfg, window=window, remat=True)
         state, _ = train_state_specs(cfg, mesh)
-        return _on_mesh(step, mesh, _rules(mesh, True)), (state, batch)
+        return _on_mesh(step, mesh, _rules(mesh, True, act)), (state, batch)
     params, _ = param_specs(cfg, mesh, train=False, fsdp=False)
     fsdp = mesh is not None and inference_fsdp(cfg, mesh)
     if shape.kind == "prefill":
         step = tasks.make_prefill_step(cfg, window=window)
-        return _on_mesh(step, mesh, _rules(mesh, fsdp)), (params, batch)
+        return _on_mesh(step, mesh, _rules(mesh, fsdp, act)), (params, batch)
     step = tasks.make_decode_step(cfg, window=window)
-    rules = cache_rules(cfg, shape, mesh, fsdp=fsdp)
+    rules = cache_rules(cfg, shape, mesh, fsdp=fsdp, activations=True)
     caches = cache_specs(cfg, shape, mesh, rules)
     # the token after a full cache: the ring's last slot at a window
     pos = tasks.effective_cache_len(cfg, shape) - 1
@@ -310,7 +339,9 @@ def build_flow_step(cfg: ArchConfig, mesh, *,
     GRPO loss over every SDE step, its backward, the gradients' mesh
     reduction, clip and AdamW) at production scale, under the reference's
     FSDP rules (``repro/launch/specs.py:257``); ``fsdp=False``: the
-    trainers' own layout (the ``PartitionPlan``).  Returns ``(fn, (state,
+    trainers' own layout (the ``PartitionPlan``).  Under
+    ``REPRO_NO_WEIGHT_GATHER`` the rules take the activation-gathered route
+    (``BaseTrainer.layout_plan`` reads the switch).  Returns ``(fn, (state,
     traj, adv))``; the trainer is built without params or reward towers
     (``__new__``, as the reference does), its state being the meta
     argument."""

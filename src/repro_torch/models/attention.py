@@ -28,6 +28,11 @@ keeps it) and slices the kv heads its q heads read; those weights, and
 the sum of the ranks' parts.  ``wo``'s partial product stays f32 until
 *g* has summed it.  With whole heads the block is the single-device one.
 
+On the activation-gathered route (``sharding.current_rows``) ``wq``,
+``wk``, ``wv`` keep their "data" shard of d and go through
+``layers.dense``, ``wo`` through ``layers.row_parallel``: the rows move
+over "data" instead of the weights.
+
 Sequence-sharded decode (``sharding.current_seq``: the reference's
 ``cache_seq`` rule): rank r of the cache's axis holds entries
 [r·T/n, (r+1)·T/n) of the ring.  Each rank scores its segment (the last
@@ -73,10 +78,11 @@ def spec(cfg: ArchConfig) -> Dict:
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, S, d) x (d, N, hd) -> (B, S, N, hd) in x's dtype."""
+    """(B, S, d) x (d, N, hd) -> (B, S, N, hd) in x's dtype (w's d a
+    "data" shard on the activation-gathered route: ``layers.dense``)."""
     d, n, hd = w.shape
-    out = torch.matmul(x, w.to(x.dtype).reshape(d, n * hd))
-    return out.reshape(*x.shape[:-1], n, hd).to(x.dtype)
+    out = layers.dense(x, w.reshape(d, n * hd))
+    return out.reshape(*x.shape[:-1], n, hd)
 
 
 def _qkv(p: Dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor
@@ -99,7 +105,7 @@ def _out(p: Dict, o: torch.Tensor, x: torch.Tensor, tp=None
     B, S = o.shape[:2]
     H, hd, d = p["wo"].shape
     out = layers.row_parallel(o.reshape(B, S, H * hd),
-                              p["wo"].reshape(H * hd, d), tp)
+                              p["wo"].reshape(H * hd, d), tp, x.shape[-1])
     return out if tp is None else shlib.reduce_from_model(out, tp, x.dtype)
 
 

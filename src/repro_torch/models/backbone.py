@@ -51,7 +51,10 @@ against its own unstacked spec: dense or MoE); the hybrid's shared block
 is laid out at each of its sites, as the reference's ``_gather`` does
 inside its scan.  In the trainers' layout every leaf is gathered whole,
 so the block's kernels see whole weights.  Under the production rules
-the "data" shards are gathered and the "model" shards kept: attention,
+the "data" shards are gathered (on the activation-gathered route kept,
+each product gathering its rows over "data" instead: every product goes
+through ``layers.dense`` / ``row_parallel``, the embedding through
+``sharding.lookup_rows``) and the "model" shards kept: attention,
 MLA, the SwiGLU MLP and the MoE family's routed and shared experts run
 tensor-parallel (``attention``, ``mla``, ``layers.mlp``, ``moe``), as do
 the embedding (each rank looks up its vocabulary rows, the others' tokens
@@ -251,7 +254,7 @@ class Backbone:
                     cond: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
         """The adaLN-zero DiT block, modulated by ``cond`` (B, d)."""
         cfg = self.cfg
-        mod = torch.matmul(cond, p["ada"].to(cond.dtype)).to(x.dtype)
+        mod = layers.dense(cond, p["ada"]).to(x.dtype)
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = torch.chunk(mod, 6, dim=-1)
         h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
         h = h * (1 + sc_a[:, None]) + sh_a[:, None]
@@ -329,20 +332,26 @@ class Backbone:
         ``prefix_embed`` (B, n_prefix, embed_dim) projected by
         ``frontend_proj`` when given: (B, n_prefix + S, d)."""
         w = self._own(params, "embed")
+        d = self.cfg.d_model
         tp = shlib.tp_for(w.shape[0], self.cfg.vocab_size)
-        if tp is None:
-            x = torch.nn.functional.embedding(tokens.long(), w)
-        else:
+
+        def lookup(tokens, w):
+            if tp is None:
+                return torch.nn.functional.embedding(tokens.long(), w)
             ids = tokens.long() - tp.rank * w.shape[0]
             own = (ids >= 0) & (ids < w.shape[0])
             x = torch.nn.functional.embedding(
                 torch.where(own, ids, torch.zeros_like(ids)), w)
-            x = shlib.reduce_from_model(
+            return shlib.reduce_from_model(
                 x.masked_fill(~own[..., None], 0), tp)
+
+        rows = shlib.rows_for(w.shape[1], d)
+        x = (lookup(tokens, w) if rows is None
+             else shlib.lookup_rows(tokens, w, rows, lookup))
         if prefix_embed is not None:
-            w = self._own(params, "frontend_proj")
-            pe = torch.matmul(prefix_embed.to(x.dtype),
-                              w.to(x.dtype)).to(x.dtype)
+            pe = layers.row_parallel(prefix_embed.to(x.dtype),
+                                     self._own(params, "frontend_proj"),
+                                     None, d)
             x = torch.cat([pe, x], dim=1)
         return x
 
@@ -357,7 +366,7 @@ class Backbone:
         (``layers``' numerics policy), over the whole vocabulary (a
         vocab-parallel head's columns gathered over "model")."""
         head = self.head_matrix(params)
-        out = torch.matmul(hidden, head.to(hidden.dtype)).to(F32)
+        out = layers.dense(hidden, head).to(F32)
         tp = shlib.tp_for(head.shape[1], self.cfg.vocab_size)
         return out if tp is None else shlib.gather_model(out, -1, tp)
 

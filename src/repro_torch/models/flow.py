@@ -14,7 +14,9 @@ reads the frontend, so ``frontend_proj`` gets no gradient here.
 On a mesh with a "model" axis the adapter's own sharded leaves (the
 latent, time and condition projections) are gathered whole at the top of
 ``velocity`` and the backbone gathers each block's slice
-(``repro_torch.sharding.constrain_params``).
+(``repro_torch.sharding.constrain_params``); on the activation-gathered
+route the projections keep their "data" shard and go through
+``layers.dense`` / ``row_parallel``.
 
 ``policy_dtype`` (``PerfConfig.policy_dtype``) sets the activation dtype;
 None keeps the parameter dtype, the bitwise default.  ``velocity(...,
@@ -80,14 +82,15 @@ class FlowAdapter:
                 {k: self._spec[k] for k in self._OWN})
             params = dict(params, **own)
         dtype = self.policy_dtype or params["latent_in"].dtype
-        h_lat = torch.matmul(x_t.to(dtype),
-                             params["latent_in"].to(dtype)).to(dtype)
-        h_cond = torch.matmul(cond.to(dtype),
-                              params["cond_proj"].to(dtype)).to(dtype)
-        t_feat = layers.timestep_embedding(t, self.cfg.d_model).to(dtype)
-        t_hid = torch.nn.functional.silu(torch.matmul(
-            t_feat, params["time_w1"].to(dtype)).to(F32)).to(dtype)
-        t_emb = torch.matmul(t_hid, params["time_w2"].to(dtype)).to(dtype)
+        d = self.cfg.d_model
+        h_lat = layers.row_parallel(x_t.to(dtype), params["latent_in"],
+                                    None, d)
+        h_cond = layers.row_parallel(cond.to(dtype), params["cond_proj"],
+                                     None, d)
+        t_feat = layers.timestep_embedding(t, d).to(dtype)
+        t_hid = torch.nn.functional.silu(layers.dense(
+            t_feat, params["time_w1"]).to(F32)).to(dtype)
+        t_emb = layers.row_parallel(t_hid, params["time_w2"], None, d)
         if self.cfg.family == "dit":
             # bidirectional DiT: condition prefix + adaLN time modulation
             x = torch.cat([h_cond, h_lat], dim=1)
@@ -100,7 +103,7 @@ class FlowAdapter:
             hidden = self.backbone.forward_embeds(params["backbone"], x,
                                                   causal=True, remat=remat)
         h_out = hidden[:, -Lt:]
-        return torch.matmul(h_out.to(F32), params["latent_out"].to(F32))
+        return layers.dense(h_out.to(F32), params["latent_out"])
 
     def init_latent(self, generator: torch.Generator, batch: int,
                     device=None) -> torch.Tensor:

@@ -33,7 +33,12 @@ product's.  ``REPRO_BF16_REDUCE`` set (``reduce_dtype``, read at call
 time as the reference reads it) rounds each rank's partial to bf16 once
 and *g* sums the bf16 partials: half the bytes of each such all-reduce,
 the reference's Megatron-style trade.  With no "model" group the switch
-changes nothing: a whole product is rounded once either way.  With a decode cache's sequence split over a mesh axis
+changes nothing: a whole product is rounded once either way.  On the
+activation-gathered route (``sharding.current_rows``) a weight narrower
+than its product's dim is this rank's "data" shard of it: ``dense``
+(the contraction dim) and ``row_parallel`` given the canonical output
+width run the product through ``sharding.rows_in`` / ``rows_out``, the
+d-partials in ``reduce_dtype()`` as *g*'s.  With a decode cache's sequence split over a mesh axis
 (``sharding.current_seq``) each rank scores its segment and the softmax
 is merged over the axis (``merged_softmax``: the all-reduced max and sum
 of exponentials, p rounded after the division as the reference rounds
@@ -161,18 +166,42 @@ def partial_product(a: torch.Tensor, b: torch.Tensor, op=torch.mm
     return f32_product(a, b, op).to(rd)
 
 
-def row_parallel(a: torch.Tensor, w: torch.Tensor, tp=None):
+def row_parallel(a: torch.Tensor, w: torch.Tensor, tp=None,
+                 full: Optional[int] = None):
     """``a @ w`` (w cast to a's dtype): in a's dtype when whole (``tp``
     None); under tensor parallelism the rank's partial sum as a
     ``sharding.Partial``: the product in ``reduce_dtype()``
     (``partial_product``), computed when ``sharding.reduce_from_model``
-    adds it, and its carrier."""
+    adds it, and its carrier.  ``full``: the canonical output width; a
+    narrower ``w`` is this rank's "data" shard of its columns on the
+    activation-gathered route (``sharding.rows_out``)."""
     w = w.to(a.dtype)
+    rows = None if full is None else shlib.rows_for(w.shape[1], full)
+    if rows is not None:
+        if tp is None:
+            return shlib.rows_out(a, w, rows)
+        return shlib.Partial(
+            lambda: shlib.rows_out_value(a, w, rows, partial_product),
+            shlib.rows_out(a, w, rows, carry=True))
     if tp is None:
         return torch.matmul(a, w).to(a.dtype)
     return shlib.Partial(
         lambda: partial_product(a.reshape(-1, a.shape[-1]), w).view(
             *a.shape[:-1], w.shape[1]), _Carried.apply(a, w))
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (w (K, N) cast to x's dtype) in x's dtype.  A ``w`` with
+    fewer rows than x's K is this rank's "data" shard of the contraction
+    dim on the activation-gathered route (``sharding.rows_in``): the
+    d-partial in ``reduce_dtype()`` (f32 for f32 operands), summed onto
+    this rank's rows and rounded once."""
+    w = w.to(x.dtype)
+    rows = shlib.rows_for(w.shape[0], x.shape[-1])
+    if rows is None:
+        return torch.matmul(x, w).to(x.dtype)
+    return shlib.rows_in(x, w, rows, f32_product if x.dtype == F32
+                         else partial_product)
 
 
 # ---------------------------------------------------------------------------
@@ -206,10 +235,10 @@ def swiglu(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
     """The SwiGLU product over the hidden dim ``p`` holds, in x's dtype:
     with a rank's shard of it (``tp``), that rank's partial output, a
     ``sharding.Partial`` (``row_parallel``)."""
-    g = torch.matmul(x, p["w_gate"].to(x.dtype)).to(F32)
-    u = torch.matmul(x, p["w_up"].to(x.dtype)).to(F32)
+    g = dense(x, p["w_gate"]).to(F32)
+    u = dense(x, p["w_up"]).to(F32)
     h = (torch.nn.functional.silu(g) * u).to(x.dtype)
-    return row_parallel(h, p["w_down"], tp)
+    return row_parallel(h, p["w_down"], tp, x.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -357,7 +386,7 @@ def roll_segments(segs, news, seq):
 
 def _chunk_ce(h_c: torch.Tensor, y_c: torch.Tensor, w_vocab: torch.Tensor,
               tp=None) -> torch.Tensor:
-    logits = torch.matmul(h_c, w_vocab.to(h_c.dtype)).to(F32)
+    logits = dense(h_c, w_vocab).to(F32)
     if tp is not None:
         return _VocabParallelCE.apply(logits, y_c, tp)
     logz = torch.logsumexp(logits, dim=-1)

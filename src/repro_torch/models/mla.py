@@ -49,6 +49,11 @@ last rank the new entry too), the softmax is merged over the axis
 and rounded once, each rank keeps its heads' rows, and the ring rolls
 across the segments (``layers.roll_segments``).
 
+On the activation-gathered route the latent down-projections go
+through ``layers.dense`` and ``wo`` through ``layers.row_parallel`` (the
+absorbed decode's f32 ``wo`` product through ``sharding.rows_out_value``):
+each keeps its "data" shard and moves rows.
+
 The cache (``MLACache``) holds the rank-compressed latent ``c_kv`` and the
 shared RoPE key, never per-head keys and values.  ``apply_decode`` is the
 reference's absorbed decode, in plain PyTorch as the reference's jnp:
@@ -105,8 +110,7 @@ def _up(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _q_latent(p: Dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """cq (B,S,q_lora_rank): the normed query latent."""
-    return layers.rmsnorm(p["q_norm"],
-                          torch.matmul(x, p["w_dq"].to(x.dtype)).to(x.dtype),
+    return layers.rmsnorm(p["q_norm"], layers.dense(x, p["w_dq"]),
                           cfg.norm_eps)
 
 
@@ -126,7 +130,7 @@ def _kv_latent(p: Dict, cfg: ArchConfig, x: torch.Tensor,
                positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (c_kv (B,S,R), k_rope (B,S,Dr))."""
     m = cfg.mla
-    dkv = torch.matmul(x, p["w_dkv"].to(x.dtype)).to(x.dtype)
+    dkv = layers.dense(x, p["w_dkv"])
     c_kv = layers.rmsnorm(p["kv_norm"], dkv[..., :m.kv_lora_rank],
                           cfg.norm_eps)
     k_rope = layers.apply_rope(dkv[..., m.kv_lora_rank:][:, :, None, :],
@@ -173,8 +177,8 @@ def apply_full(p: Dict, cfg: ArchConfig, x: torch.Tensor, *,
         B, S, H, m.qk_rope_head_dim)], dim=-1)
     o = ops.flash_attention(q, k, v, causal=causal, window=window)
     out = layers.row_parallel(o.reshape(B, S, H * m.v_head_dim),
-                              p["wo"].reshape(H * m.v_head_dim, cfg.d_model),
-                              tp)
+                              p["wo"].reshape(H * m.v_head_dim, -1), tp,
+                              cfg.d_model)
     if tp is not None:
         out = shlib.reduce_from_model(out, tp, x.dtype)
     if not return_cache:
@@ -222,7 +226,13 @@ def apply_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor, cache: MLACache,
         new_cache = MLACache(c_kv[:, 1:], k_rope[:, 1:])
     # absorb W_uv on the way out
     o = torch.einsum("bhr,rhk->bhk", o_lat.to(F32), p["w_uv"].to(F32)).to(dt)
-    res = torch.einsum("bhk,hkd->bd", o.to(F32), p["wo"].to(F32))
+    rows = shlib.rows_for(p["wo"].shape[-1], cfg.d_model)
+    if rows is None:
+        res = torch.einsum("bhk,hkd->bd", o.to(F32), p["wo"].to(F32))
+    else:   # wo's d a "data" shard: the rows gathered, the columns home
+        res = shlib.rows_out_value(o.to(F32).flatten(1),
+                                   p["wo"].to(F32).flatten(0, 1), rows,
+                                   torch.mm)
     if tp is not None:   # the f32 partial, or bf16 under the switch
         res = shlib.reduce_from_model(shlib.Partial(
             res.to(layers.reduce_dtype()), shlib.carrier(res, dt)), tp, dt)

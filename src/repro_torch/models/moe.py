@@ -63,6 +63,17 @@ results, so each rank's gradient into them is partial.  The router reads
 x itself, and the auxiliary losses, computed the same on every rank, send
 their gradient to it once.
 
+On the activation-gathered route (``sharding.rows_for``: the tables'
+``moe_in`` / ``moe_out`` dims a "data" shard at use, the reference's
+``gathered_param_rules`` layout in tensor mode) each rank still routes
+its own rows; each chunk of experts takes this rank's d-columns of every
+rank's slot rows by one all-to-all, sums the gate and up d-partials back
+onto its slots, gathers every rank's h for the down product and sends
+each slot's columns home (``_swiglu``, ``_down``; the backward the
+mirror, the tables' gradients divided by the data ranks).  The router,
+the shared experts and the dense mode's products go through
+``layers.dense`` / ``row_parallel``.
+
 ``apply`` returns ``(out, aux)`` with the Switch load-balance loss and the
 router z-loss.
 """
@@ -139,14 +150,34 @@ def _slots(idx: torch.Tensor, E: int, C: int
     return slot, keep
 
 
-def _swiglu(xb: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor
-            ) -> Tuple[torch.Tensor, ...]:
+def _swiglu(xb: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+            route=None) -> Tuple[torch.Tensor, ...]:
     """A chunk of experts' gate and up products in f32 (rounded to the
     activation dtype first, as ``layers.mlp``) and h = silu(g) u in the
-    activation dtype."""
-    g = torch.bmm(xb, wg).to(F32)
-    u = torch.bmm(xb, wu).to(F32)
+    activation dtype.  On the activation-gathered route (``route``: the
+    tables' d a "data" shard) this rank's d-columns of every rank's slot
+    rows arrive by one all-to-all (``sharding.rows_away``: a slot buffer
+    is mostly empty slots at a few tokens a group, and the whole rows
+    would be n times the bytes), are multiplied, and the d-partials
+    (``layers.partial_product``) summed back onto this rank's slots."""
+    if route is None:
+        g = torch.bmm(xb, wg).to(F32)
+        u = torch.bmm(xb, wu).to(F32)
+    else:
+        xs = shlib.rows_away(xb, route)
+        g, u = (shlib.rows_sum(layers.partial_product(xs, w, torch.bmm),
+                               route).to(xb.dtype).to(F32) for w in (wg, wu))
     return g, u, (torch.nn.functional.silu(g) * u).to(xb.dtype)
+
+
+def _down(h: torch.Tensor, wd: torch.Tensor, route, prod=torch.bmm
+          ) -> torch.Tensor:
+    """A chunk of experts' down products ``prod(h, wd)`` (E_c, M, d); on
+    the route (``wd``'s d a "data" shard) every rank's slot rows times
+    this rank's columns, each slot's columns sent home."""
+    if route is None:
+        return prod(h, wd)
+    return shlib.rows_home(prod(shlib.rows_gather(h, route), wd), route)
 
 
 class _RoutedExperts(torch.autograd.Function):
@@ -192,7 +223,8 @@ class _RoutedExperts(torch.autograd.Function):
     changes nothing), so the (A + 1, d) buffer is not held."""
 
     @staticmethod
-    def forward(ctx, xs, fill, w, wg, wu, wd, k, step, part=None):
+    def forward(ctx, xs, fill, w, wg, wu, wd, k, step, part=None,
+                route=None):
         A = xs.shape[0] - 1
         w1 = torch.cat([w, w.new_zeros(1)])
         if part is not None:
@@ -205,13 +237,14 @@ class _RoutedExperts(torch.autograd.Function):
             c = slice(e0, e0 + step)
             rows = fill[c].reshape(-1)
             xb = xs.index_select(0, rows).view(*fill[c].shape, -1)
+            h = _swiglu(xb, wg[c], wu[c], route)[-1]
             if part is None:
-                y = torch.bmm(_swiglu(xb, wg[c], wu[c])[-1], wd[c])
+                y = _down(h, wd[c], route)
                 out.index_copy_(0, rows, y.view(rows.shape[0], -1)
                                 * w1.index_select(0, rows)[:, None])
                 continue
-            y = layers.partial_product(_swiglu(xb, wg[c], wu[c])[-1], wd[c],
-                                       torch.bmm)
+            y = _down(h, wd[c], route, lambda a, b: layers.partial_product(
+                a, b, torch.bmm))
             del xb
             y.mul_(w1.index_select(0, rows).view(*fill[c].shape, 1))
             tok = torch.where(fill[c] < A, fill[c] // k, spread)
@@ -219,7 +252,7 @@ class _RoutedExperts(torch.autograd.Function):
                 out.index_add_(0, tok[e], y[e].to(F32))
             del y
         ctx.save_for_backward(xs, fill, w1, wg, wu, wd)
-        ctx.k, ctx.step = k, step
+        ctx.k, ctx.step, ctx.route = k, step, route
         if part is None:
             return out[:A].view(A // k, k, -1).sum(dim=1)
         out = out.to(part)
@@ -231,9 +264,12 @@ class _RoutedExperts(torch.autograd.Function):
     def backward(ctx, *grads):
         dtok = grads[-1]     # the output's, or an f32 forward's carrier's
         if dtok is None:
-            return (None,) * 9
+            return (None,) * 10
         xs, fill, w1, wg, wu, wd = ctx.saved_tensors
-        A, dt = xs.shape[0] - 1, xs.dtype
+        A, dt, route = xs.shape[0] - 1, xs.dtype, ctx.route
+        # the route's tables' gradients: sums over every rank's slots,
+        # divided by the ranks when their rows differ
+        mean = route.size if route is not None and route.split else 1
         dxs = torch.zeros_like(xs)
         dw = torch.zeros_like(w1)
         dwg, dwu, dwd = (torch.zeros_like(t) for t in (wg, wu, wd))
@@ -242,8 +278,8 @@ class _RoutedExperts(torch.autograd.Function):
             rows = fill[c].reshape(-1)
             n_e = fill[c].shape[0]
             xb = xs.index_select(0, rows).view(*fill[c].shape, -1)
-            g, u, h = _swiglu(xb, wg[c], wu[c])
-            y = torch.bmm(h, wd[c]).view(rows.shape[0], -1)
+            g, u, h = _swiglu(xb, wg[c], wu[c], route)
+            y = _down(h, wd[c], route).view(rows.shape[0], -1)
             # the gradient of y w at each slot: its token's (an empty
             # slot's, A, reads token 0 and is zeroed)
             live = rows < A
@@ -253,22 +289,32 @@ class _RoutedExperts(torch.autograd.Function):
             dy = (dslot * w1.index_select(0, rows)[:, None]).view(
                 n_e, -1, y.shape[-1])
             del y, dslot
-            dwd[c].baddbmm_(h.transpose(1, 2), dy)
+            if route is not None:   # every rank's slots, this rank's d
+                dy = shlib.rows_away(dy, route).contiguous()
+                h = shlib.rows_gather(h, route)
+            dwd[c].baddbmm_(h.transpose(1, 2), dy, alpha=1 / mean)
             dh = torch.bmm(dy, wd[c].transpose(1, 2)).to(F32)
+            if route is not None:
+                dh = shlib.rows_sum(dh, route)
             du = (dh * torch.nn.functional.silu(g)).to(dt)
             # silu'(g) = sig (1 + g (1 - sig)), as torch's silu backward
             sig = torch.sigmoid(g)
             dg = (dh * u * sig * (1 + g * (1 - sig))).to(dt)
             del g, u, sig, h, dh, dy
-            dwg[c].baddbmm_(xb.transpose(1, 2), dg)
-            dwu[c].baddbmm_(xb.transpose(1, 2), du)
+            if route is not None:
+                xb = shlib.rows_away(xb, route)
+                dg, du = (shlib.rows_gather(t, route) for t in (dg, du))
+            dwg[c].baddbmm_(xb.transpose(1, 2), dg, alpha=1 / mean)
+            dwu[c].baddbmm_(xb.transpose(1, 2), du, alpha=1 / mean)
             dxb = torch.bmm(dg, wg[c].transpose(1, 2))
             dxb += torch.bmm(du, wu[c].transpose(1, 2))
+            if route is not None:
+                dxb = shlib.rows_home(dxb, route)
             # kept slots add into distinct rows; the empty ones into row A,
             # which is dropped
             dxs.index_add_(0, rows, dxb.view(rows.shape[0], -1))
         dxs[A].zero_()
-        return (dxs, None, dw[:A], dwg, dwu, dwd, None, None, None)
+        return (dxs, None, dw[:A], dwg, dwu, dwd, None, None, None, None)
 
 
 def _slot_dispatch(p: Dict, cfg: ArchConfig, xg: torch.Tensor,
@@ -307,7 +353,8 @@ def _slot_dispatch(p: Dict, cfg: ArchConfig, xg: torch.Tensor,
     step = max(1, _CHUNK_ELEMS // max(G * C * f, 1))
     out = _RoutedExperts.apply(xs, fill, w, *(
         p[n].to(xg.dtype) for n in ("w_gate", "w_up", "w_down")), k, step,
-        None if tp is None else layers.reduce_dtype())
+        None if tp is None else layers.reduce_dtype(),
+        shlib.rows_for(p["w_gate"].shape[1], d))
     if tp is not None:
         return shlib.Partial(*out).reshape(G, T, d)
     return out.view(G, T, d)
@@ -325,19 +372,23 @@ def _dense_all_experts(p: Dict, cfg: ArchConfig, xg: torch.Tensor,
     dt = xg.dtype
     gates_dense = torch.zeros((G, T, E), dtype=dt, device=xg.device)
     gates_dense.scatter_(2, idx, gates.to(dt))
-    g = torch.einsum("gtd,edf->gtef", xg, p["w_gate"].to(dt)).to(F32)
-    u = torch.einsum("gtd,edf->gtef", xg, p["w_up"].to(dt)).to(F32)
+    if shlib.rows_for(p["w_gate"].shape[1], d) is None:
+        g, u = (torch.einsum("gtd,edf->gtef", xg, p[n].to(dt)).to(F32)
+                for n in ("w_gate", "w_up"))
+    else:   # the tables' d a "data" shard: one (d / n, E·f) product each
+        g, u = (layers.dense(xg, p[n].transpose(0, 1).reshape(
+            -1, E * f)).view(G, T, E, f).to(F32) for n in ("w_gate", "w_up"))
     h = (torch.nn.functional.silu(g) * u).to(dt)
     h = h * gates_dense[..., None]
     return layers.row_parallel(h.reshape(G, T, E * f),
-                               p["w_down"].reshape(E * f, d), tp)
+                               p["w_down"].reshape(E * f, -1), tp, d)
 
 
 def route(p: Dict, cfg: ArchConfig, xg: torch.Tensor
           ) -> Tuple[torch.Tensor, ...]:
     """The router: (logits (G, T, E) f32, probs, gates (G, T, k)
     renormalised over the top-k, idx (G, T, k) expert assignments)."""
-    logits = torch.matmul(xg.to(F32), p["router"].to(F32))
+    logits = layers.dense(xg.to(F32), p["router"])
     probs = torch.softmax(logits, dim=-1)
     gates, idx = torch.topk(probs, cfg.moe.top_k, dim=-1)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)

@@ -29,7 +29,10 @@ inner width's statistic: each rank's sum of squares is all-reduced
 that *g* adds in f32.  The decode step computes its B and C channels
 locally (the conv is depthwise) and all-gathers them; its caches hold the
 rank's conv channels ``[x_r, B_r, C_r]`` and its heads' states.  With
-whole leaves the block is the single-device one.
+whole leaves the block is the single-device one.  On the
+activation-gathered route ``in_proj`` (its d rows a "data" shard, the
+gathered B / C columns too) goes through ``layers.dense`` and
+``out_proj`` through ``layers.row_parallel``.
 
 Shapes (per layer):
   x   (B, L, H, P)   values (H = d_inner/head_dim heads, P = head_dim)
@@ -152,7 +155,7 @@ def _norm_and_out(p: Dict, cfg: ArchConfig, y: torch.Tensor,
     partial sums added by *g* and rounded once)."""
     y = layers.rmsnorm(p["norm"], y * F.silu(z.to(F32)).to(y.dtype),
                        cfg.norm_eps, tp)
-    out = layers.row_parallel(y, p["out_proj"], tp)
+    out = layers.row_parallel(y, p["out_proj"], tp, cfg.d_model)
     return out if tp is None else shlib.reduce_from_model(out, tp, y.dtype)
 
 
@@ -168,7 +171,7 @@ def apply_full(p: Dict, cfg: ArchConfig, x: torch.Tensor, *,
     if tp is not None:
         x = shlib.copy_to_model(x, tp)
         w_in, conv_w, conv_b = _whole_bc(p, m, n, tp)
-    zxbcdt = torch.matmul(x, w_in.to(x.dtype)).to(x.dtype)
+    zxbcdt = layers.dense(x, w_in)
     z, xin, bc, dt_raw = _split_proj(m, zxbcdt, m["N"])
     conv_in = torch.cat([xin, bc], dim=-1)
     conv_out = _causal_conv(conv_in, conv_w, conv_b)
@@ -215,7 +218,7 @@ def apply_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor, cache: SSMCache
     B = x.shape[0]
     if tp is not None:
         x = shlib.copy_to_model(x, tp)
-    zxbcdt = torch.matmul(x, p["in_proj"].to(x.dtype)).to(x.dtype)
+    zxbcdt = layers.dense(x, p["in_proj"])
     z, xin, bc, dt_raw = _split_proj(m, zxbcdt, n)
     conv_in = torch.cat([xin, bc], dim=-1)                 # (B,1,conv_dim)
     full = torch.cat([cache.conv.to(x.dtype), conv_in], dim=1)

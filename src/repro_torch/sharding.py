@@ -14,7 +14,8 @@ storage, where a leaf the table leaves whole on every rank is split over
 "model" as the trainers split it.  Storage, the gather and the dry run
 all read these two.
 
-**Two layouts.**  ``param_gather(mesh)`` with no rules is the trainers'
+**Two layouts, the second with two routes.**  ``param_gather(mesh)``
+with no rules is the trainers'
 ZeRO-3 over "model": params stored sharded by the ``PartitionPlan``
 (``model_shard_dim``), each layer's slice all-gathered whole over the
 "model" group before use (``GatherParam``) and its gradient
@@ -84,6 +85,27 @@ layout:
   under ``ep_model`` where the axis does not divide E, and a Mamba-2
   block whose heads or state the axis does not divide), a packed leaf
   put back in canonical order (:func:`unpack`);
+* on the activation-gathered route (``Rules.route == "activations"``,
+  :func:`production_rules` with ``activations``: the reference's
+  ``set_param_gather(None)``, at decode always and under
+  ``REPRO_NO_WEIGHT_GATHER``, :func:`no_weight_gather`) every matrix
+  keeps its stored "data" shard at use (:func:`use_layout`; the vectors
+  are still gathered, ``DATA_GATHERED_AXES`` retired), and each product
+  moves rows over "data" instead (:class:`RowGroup`, :func:`rows_for`).
+  The input side (the "data" dim is the contraction: :func:`rows_in`)
+  gathers every rank's rows, multiplies this rank's d-columns of them by
+  its shard and reduce-scatters the d-partial, in the dtype ``prod``
+  gives it (``models/layers.reduce_dtype``), back onto the rank's rows;
+  the output side (:func:`rows_out`) multiplies the gathered rows by its
+  shard and sends each row's d / n columns home by one all-to-all
+  (:func:`rows_home`).  Each backward is the forward's mirror (an
+  all-gather for a reduce-scatter, an all-to-all back for the
+  gather-and-cut and for the all-to-all, a reduce-scatter for the
+  output side's gather), and a weight's gradient, summed over every
+  rank's rows, is divided by n once: the data-parallel mean, which
+  :func:`mesh_grads` then leaves alone.  Where every rank holds every
+  row (a batch the data axis does not divide: the rules' ``batch`` entry
+  dropped) the d-partials are all-reduced and the columns all-gathered;
 * ``rules.arules`` (``act_rules``) lays out the decode caches: kv heads,
   and the SSM caches' heads and conv channels (x, B, C each by rank), over
   "model" where the axis divides them, and an attention or latent cache's
@@ -129,11 +151,14 @@ RuleTable = Dict[str, Union[str, Tuple[str, ...], None]]
 
 
 class Rules(NamedTuple):
-    """The production layout's three tables, named as ``param_gather``'s
-    arguments: ``param_gather(mesh, **rules._asdict())``."""
+    """The production layout's three tables and its route: ``"weights"``
+    (each matrix's "data" shard gathered at use) or ``"activations"``
+    (the matrices keep it; each product gathers its rows,
+    :func:`rows_in` / :func:`rows_out`)."""
     prules: RuleTable       # params at use (gathered_param_rules)
     arules: RuleTable       # activations and caches (act_rules)
     stored: RuleTable       # params in storage (param_rules)
+    route: str = "weights"
 
 
 class TP(NamedTuple):
@@ -152,12 +177,23 @@ class SeqGroup(NamedTuple):
     rank: int
 
 
+class RowGroup(NamedTuple):
+    """The "data" group of the activation-gathered route: ``split`` when
+    each rank holds its own 1/``size`` of the rows, else (a batch the
+    axis does not divide) every rank holds them all."""
+    group: object
+    size: int
+    rank: int
+    split: bool
+
+
 class CacheLayoutError(ValueError):
     """A cache layout that maps one mesh axis to two dims of one leaf (the
     reference's ``DuplicateSpecError``)."""
 
 
-_CTX: Dict = {"mesh": None, "rules": None, "tp": None, "seq": None}
+_CTX: Dict = {"mesh": None, "rules": None, "tp": None, "seq": None,
+              "rows": None}
 
 # callables ``hook(kind, result_bytes, group_size)``, one call per
 # collective issued (the reference's HLO op names as kinds)
@@ -201,6 +237,12 @@ DATA_GATHERED_AXES = ("moe_in", "moe_out")
 
 def _moe_mode() -> str:
     return os.environ.get("REPRO_MOE_MODE", "tensor")
+
+
+def no_weight_gather() -> bool:
+    """``REPRO_NO_WEIGHT_GATHER`` set to any non-empty value ("0" too, the
+    reference's truthiness): the activation-gathered route."""
+    return bool(os.environ.get("REPRO_NO_WEIGHT_GATHER"))
 
 
 def axis_names(mesh) -> Tuple[str, ...]:
@@ -315,14 +357,17 @@ def pspec(axes: Axes, rules: RuleTable) -> Tuple:
     return tuple(None if a is None else rules.get(a, None) for a in axes)
 
 
-def production_rules(mesh, *, fsdp: bool = True, seq_shard: bool = False
-                     ) -> Rules:
+def production_rules(mesh, *, fsdp: bool = True, seq_shard: bool = False,
+                     activations: bool = False) -> Rules:
     """The reference's production layout: params stored by
     ``param_rules(fsdp=fsdp)``, used by ``gathered_param_rules``,
-    activations and caches by ``act_rules(seq_shard=seq_shard)``."""
+    activations and caches by ``act_rules(seq_shard=seq_shard)``; with
+    ``activations`` the activation-gathered route (the reference's
+    ``set_param_gather(None)``)."""
     return Rules(prules=gathered_param_rules(mesh),
                  arules=act_rules(mesh, seq_shard=seq_shard),
-                 stored=param_rules(mesh, fsdp=fsdp))
+                 stored=param_rules(mesh, fsdp=fsdp),
+                 route="activations" if activations else "weights")
 
 
 def divisible(n: int, mesh, names) -> bool:
@@ -465,15 +510,19 @@ def use_layout(shape: Tuple[int, ...], axes: Axes, rules: Rules, mesh,
     production ``rules``: :func:`leaf_layout` under ``rules.prules``,
     except that a dim on an axis of ``DATA_GATHERED_AXES`` is gathered
     over "data" and a leaf of a ``GATHERED_WHOLE`` ``part`` is gathered
-    whole."""
+    whole.  On the activation-gathered route a matrix (two dims or more)
+    keeps its stored "data" dim, those too."""
+    route = rules.route == "activations" and len(shape) > 1
+    if route:
+        kept = stored_layout(shape, axes, rules.stored, mesh)[0]
     if part is not None:
         if part not in GATHERED_WHOLE:
             raise KeyError(f"{part!r} is not in GATHERED_WHOLE")
-        return None, None
+        return (kept if route else None), None
     d, m = leaf_layout(shape, axes, rules.prules, mesh)
     if d is not None and axes[d] in DATA_GATHERED_AXES:
         d = None
-    return d, m
+    return (kept if route else d), m
 
 
 # ---------------------------------------------------------------------------
@@ -513,14 +562,21 @@ def scatter_mean_dim(x: torch.Tensor, dim: int, group, n: int,
     """This rank's ``1/n`` chunk along ``dim`` of the mean (``mean``, else
     the sum) over the ``n`` ranks of ``x``: reduce-scattered in f32 and
     cast back."""
-    src = x.to(F32).movedim(dim, 0).contiguous()
-    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
-                      dtype=F32, device=src.device)
-    _reduce_scatter_fn()(out, src, group=group)
-    _note("reduce-scatter", out, group, n)
+    out = reduce_scatter_dim(x.to(F32), dim, group, n)
     if mean:
         out.div_(n)
-    out = out.to(x.dtype)
+    return out.to(x.dtype)
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group, n: int
+                       ) -> torch.Tensor:
+    """This rank's ``1/n`` chunk along ``dim`` of the sum over the ``n``
+    ranks of ``x``, in ``x``'s dtype."""
+    src = x.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    _reduce_scatter_fn()(out, src, group=group)
+    _note("reduce-scatter", out, group, n)
     return out.movedim(0, dim).contiguous() if dim else out
 
 
@@ -752,6 +808,201 @@ def gather_model(x: torch.Tensor, dim: int, tp: TP) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The activation-gathered route: rows over "data" around each product
+# ---------------------------------------------------------------------------
+
+def exchange(x: torch.Tensor, split: int, cat: int, group, n: int
+             ) -> torch.Tensor:
+    """One all-to-all: ``x`` cut into ``n`` chunks along ``split``, chunk
+    j sent to rank j, and the chunks received concatenated along ``cat``
+    (rank order)."""
+    src = torch.stack(x.chunk(n, split), 0).contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    _note("all-to-all", out, group, n)
+    return torch.cat(out.unbind(0), cat)
+
+
+def rows_gather(x: torch.Tensor, rows: RowGroup) -> torch.Tensor:
+    """(..., R, K) -> (..., nR, K): every rank's rows (dim -2), in rank
+    order; ``x`` itself when every rank holds them all."""
+    return (gather_dim(x, x.ndim - 2, rows.group, rows.size) if rows.split
+            else x)
+
+
+def rows_sum(y: torch.Tensor, rows: RowGroup) -> torch.Tensor:
+    """The sum over the ranks of partial ``y`` (..., nR, N) on this rank's
+    rows, in ``y``'s dtype: a reduce-scatter over dim -2, or an
+    all-reduce when every rank holds every row."""
+    if rows.split:
+        return reduce_scatter_dim(y, y.ndim - 2, rows.group, rows.size)
+    return all_reduce_sum_(y.contiguous(), rows.group)
+
+
+def rows_home(y: torch.Tensor, rows: RowGroup) -> torch.Tensor:
+    """(..., nR, c) of this rank's c columns of every row -> (..., R, nc)
+    of every column of its rows: one all-to-all (an all-gather of the
+    columns when every rank holds every row)."""
+    if rows.split:
+        return exchange(y, y.ndim - 2, y.ndim - 1, rows.group, rows.size)
+    return gather_dim(y, y.ndim - 1, rows.group, rows.size)
+
+
+def rows_away(z: torch.Tensor, rows: RowGroup) -> torch.Tensor:
+    """:func:`rows_home`'s inverse: (..., R, nc) -> (..., nR, c) (this
+    rank's columns, sliced when every rank holds every row)."""
+    if rows.split:
+        return exchange(z, z.ndim - 1, z.ndim - 2, rows.group, rows.size)
+    return my_cols(z, rows)
+
+
+def my_cols(x: torch.Tensor, rows: RowGroup) -> torch.Tensor:
+    """This rank's ``1/n`` of the last dim of ``x``."""
+    k = x.shape[-1] // rows.size
+    return x[..., rows.rank * k:(rows.rank + 1) * k]
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, x.shape[-1])
+
+
+class _RowsIn(torch.autograd.Function):
+    """A product whose contraction dim is sharded over "data" (the input
+    side: ``wq``, ``w_gate``, ``in_proj``, the LM head, ...): x (R, K)
+    this rank's rows, w (K / n, N) its shard.  Forward: the rows gathered
+    (:func:`rows_gather`), this rank's K / n columns of them times w in
+    ``prod``'s dtype (the d-partial: ``layers.partial_product``, f32 or
+    bf16 under ``REPRO_BF16_REDUCE``), summed back onto this rank's rows
+    (:func:`rows_sum`) and cast once to x's dtype.  Backward, the mirror:
+    the output gradient gathered, the columns' gradient sent home
+    (:func:`rows_home`), and w's gradient, a sum over every rank's rows,
+    divided by n (the data-parallel mean) when the ranks' rows differ."""
+
+    @staticmethod
+    def forward(ctx, x, w, rows, prod):
+        xs = my_cols(rows_gather(x, rows), rows).contiguous()
+        ctx.save_for_backward(xs, w)
+        ctx.rows = rows
+        return rows_sum(prod(xs, w), rows).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        xs, w = ctx.saved_tensors
+        rows = ctx.rows
+        gy = rows_gather(grad.contiguous(), rows)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = rows_home(gy.mm(w.t()), rows)
+        if ctx.needs_input_grad[1]:
+            dw = xs.t().mm(gy)
+            if rows.split:
+                dw.div_(rows.size)
+        return dx, dw, None, None
+
+
+class _RowsOut(torch.autograd.Function):
+    """A product whose output dim is sharded over "data" (the output
+    side: ``wo``, ``w_down``, ``out_proj``, ...): h (R, F) this rank's
+    rows, w (F, D / n) its shard.  Forward: the rows gathered, times w,
+    and each row's D / n columns sent home (:func:`rows_home`): (R, D) in
+    h's dtype; with ``carry`` no value, zeros of that shape with no
+    storage (a ``Partial``'s carrier, the value made by
+    :func:`rows_out_value`).  Backward, the mirror: the gradient's columns
+    sent back (:func:`rows_away`), the rows gathered again, h's gradient
+    summed back onto this rank's rows (:func:`rows_sum`, f32), w's divided
+    by n when the ranks' rows differ."""
+
+    @staticmethod
+    def forward(ctx, h, w, rows, carry):
+        ctx.save_for_backward(h, w)
+        ctx.rows = rows
+        if carry:
+            return torch.zeros((), dtype=h.dtype, device=h.device).expand(
+                h.shape[0], w.shape[1] * rows.size)
+        return rows_home(rows_gather(h, rows).mm(w), rows)
+
+    @staticmethod
+    def backward(ctx, grad):
+        h, w = ctx.saved_tensors
+        rows = ctx.rows
+        gy = rows_away(grad.contiguous(), rows).contiguous()
+        big = rows_gather(h, rows)
+        dh = dw = None
+        if ctx.needs_input_grad[0]:
+            dh = rows_sum(gy.mm(w.t()).to(F32), rows).to(h.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = big.t().mm(gy)
+            if rows.split:
+                dw.div_(rows.size)
+        return dh, dw, None, None
+
+
+def rows_in(x: torch.Tensor, w: torch.Tensor, rows: RowGroup, prod
+            ) -> torch.Tensor:
+    """``x @ w`` on the activation-gathered route, the contraction dim of
+    ``w`` (K / n, N) this rank's shard of x's K (:class:`_RowsIn`)."""
+    y = _RowsIn.apply(_flat(x), w, rows, prod)
+    return y.view(*x.shape[:-1], w.shape[1])
+
+
+def rows_out_value(h: torch.Tensor, w: torch.Tensor, rows: RowGroup, prod
+                   ) -> torch.Tensor:
+    """The value of ``h @ w`` on the output side of the route (w (F,
+    D / n)), ``prod``'s dtype, no gradient: a rank's partial sum for *g*."""
+    y = rows_home(prod(rows_gather(_flat(h), rows), w), rows)
+    return y.view(*h.shape[:-1], y.shape[-1])
+
+
+def rows_out(h: torch.Tensor, w: torch.Tensor, rows: RowGroup,
+             carry: bool = False) -> torch.Tensor:
+    """``h @ w`` on the output side of the route (:class:`_RowsOut`): the
+    product in h's dtype, or with ``carry`` its carrier."""
+    y = _RowsOut.apply(_flat(h), w, rows, carry)
+    return y.view(*h.shape[:-1], y.shape[-1])
+
+
+class _RowsHome(torch.autograd.Function):
+    """:func:`rows_home` forward, :func:`rows_away` backward."""
+
+    @staticmethod
+    def forward(ctx, y, rows):
+        ctx.rows = rows
+        return rows_home(y, rows)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return rows_away(grad.contiguous(), ctx.rows).contiguous(), None
+
+
+class _MeanGrad(torch.autograd.Function):
+    """Identity forward; backward the gradient divided by ``n``."""
+
+    @staticmethod
+    def forward(ctx, w, n):
+        ctx.n = n
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.n, None
+
+
+def lookup_rows(ids: torch.Tensor, w: torch.Tensor, rows: RowGroup, lookup
+                ) -> torch.Tensor:
+    """An embedding lookup on the route, the table ``w`` (V, D / n) this
+    rank's columns: every rank's ``ids`` gathered, ``lookup(ids, w)``
+    (autograd: the lookup, a mask, *g*), and each row's columns sent home
+    (:class:`_RowsHome`); w's gradient divided by n when the ranks' rows
+    differ."""
+    lead = ids.shape
+    if rows.split:
+        ids = gather_dim(ids.contiguous(), 0, rows.group, rows.size)
+        w = _MeanGrad.apply(w, rows.size)
+    y = lookup(ids, w)
+    return _RowsHome.apply(_flat(y), rows).view(*lead, -1)
+
+
+# ---------------------------------------------------------------------------
 # The gather context
 # ---------------------------------------------------------------------------
 
@@ -770,6 +1021,11 @@ def set_param_gather(mesh, rules: Optional[Rules] = None) -> None:
     n = 1 if ax is None else axis_size(mesh, ax)
     _CTX["seq"] = (SeqGroup(ax, mesh.get_group(ax), n, _coord(mesh, ax))
                    if n > 1 else None)
+    dp = axis_size(mesh, "data")
+    _CTX["rows"] = (RowGroup(mesh.get_group("data"), dp, _coord(mesh, "data"),
+                             "data" in (rules.arules.get("batch") or ()))
+                    if rules is not None and rules.route == "activations"
+                    and dp > 1 else None)
 
 
 @contextlib.contextmanager
@@ -812,6 +1068,26 @@ def tp_for(local: int, full: int) -> Optional[TP]:
             f"a {local}-wide shard of a {full}-wide weight outside the "
             "production layout's gather context")
     return tp
+
+
+def rows_for(local: int, full: int) -> Optional[RowGroup]:
+    """The installed route's ``RowGroup`` when a weight's ``local`` extent
+    is its "data" shard of ``full`` (the product runs on the
+    activation-gathered route), None when it is whole."""
+    if local == full:
+        return None
+    rows = _CTX["rows"]
+    if rows is None or local * rows.size != full:
+        raise RuntimeError(
+            f"a {local}-wide shard of a {full}-wide dim outside the "
+            "activation-gathered route")
+    return rows
+
+
+def current_rows() -> Optional[RowGroup]:
+    """The installed activation-gathered route's "data" group (None: the
+    weights are gathered, or one "data" rank)."""
+    return _CTX["rows"]
 
 
 def current_seq() -> Optional[SeqGroup]:
@@ -923,7 +1199,9 @@ def mesh_grads(grads, spec, mesh, rules: Optional[Rules] = None
     "data" (f32), a leaf the ``PartitionPlan`` keeps whole averaged over
     "model" too (a sharded leaf's gradient was reduce-scattered by its
     gather).  With rules: a leaf stored sharded over "data" was averaged
-    by its gather's reduce-scatter; every other leaf (tensor-parallel over
+    by its gather's reduce-scatter, or on the activation-gathered route
+    by its products' backwards (each divides the sum over every rank's
+    rows by n); every other leaf (tensor-parallel over
     "model", or replicated) is averaged over "data" only: its "model"
     ranks hold the same gradient (*f* summed the partial ones) or
     distinct pieces of it."""
