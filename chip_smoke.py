@@ -127,12 +127,14 @@ script exits 2 before printing any result.
    then, with wq/wk drawn, serves the requests again and holds them
    against ``rollout_keyed`` through the plain versions.
 17. The dense train path: ``repro_torch.launch.train.main`` at
-   ``smollm-360m``'s full width and all 32 layers, phase 8's geometry,
+   ``smollm-360m``'s full width and 16 of its 32 layers (cut from 32 when
+   phase 44 came; phase 22 trains all 32 under ``block``), phase 8's
+   geometry,
    batch and rewards: ``flow_grpo`` for 2 steps (and a traced third), then
    ``mix_grpo``, ``grpo_guard``, ``nft`` and ``awm`` for 1 step each, with
    wq/wk drawn at train start (at the repository's init the gradients grow
    ~5x a layer and overflow), each with launch counts that match its path
-   (the attention backward 32 per loss backward, ``grpo_loss`` only for
+   (the attention backward 16 per loss backward, ``grpo_loss`` only for
    flow_grpo and mix_grpo, no ``sde_step`` in the NFT/AWM rollouts), finite
    metrics, params that move, s per step and peak memory.
 18. One update of each of the five trainers on ``mamba2-370m`` at full
@@ -152,17 +154,20 @@ script exits 2 before printing any result.
    backward), finite metrics, every layer's
    ``a_log`` and ``dt_bias`` gradient at the first update finite and
    nonzero, params that move, s per step and peak memory.
-20. ``mamba2-370m`` at all 48 layers through ``launch.train`` under
+20. ``mamba2-370m`` at 24 layers (cut from 48 when phase 44 came) through
+   ``launch.train`` under
    ``--set perf.remat=block --set perf.log_memory=true``, phase 19's
    geometry, batch, T and rewards: ``flow_grpo`` for 2 steps and a traced
    third, with launch counts (every scan forward twice per layer and SDE
    step of the loss: once in the forward, once recomputed in the
    backward), s per step, peak memory and ``memory_stats``; then 1 step
-   each under ``none``, ``scan`` and ``scan`` + ``remat_offload``, whose
+   each at 48 layers under ``none``, ``scan`` and ``scan`` +
+   ``remat_offload``, whose
    loss, grad norm and reward must be bitwise equal; then one update at
    depth 2 under ``block`` against ``none`` on one set of injected draws,
    to the reference's band.
-21. The fused, pipelined step on the same model at 48 layers:
+21. The fused, pipelined step on the same model at 24 layers (cut from
+   48 to keep the script near 900 s when phase 44 came):
    ``--set perf.fuse_step=true --set perf.remat=block --set
    perf.offload_rewards=true --set perf.policy_dtype=bfloat16 --set
    loop.pipeline=2``, 4 steps: one capture and three CUDA-graph replays,
@@ -192,8 +197,10 @@ script exits 2 before printing any result.
    loss and backward on one trajectory), against the reference's band and
    held to the stated one; the fused step with ``microbatch=2`` on the
    mesh (1 capture with its collectives, 1 replay bitwise the eager
-   step); (c) ``mamba2-370m`` at 48 layers under ``none`` and ``flux_dit``
-   at 16 blocks under ``block``, each with ``microbatch=2`` on the mesh,
+   step); (c) ``mamba2-370m`` at 24 layers under ``none`` and ``flux_dit``
+   at 8 blocks under ``block`` (cut from 48 and 16 when phase 44 came),
+   each with
+   ``microbatch=2`` on the mesh,
    through ``launch.train``, 2 steps: launch counts, s a step, steps/s,
    peak memory, and the gradient all-reduce's device time against the
    step; (d) the mesh trainer's checkpoint restored without a mesh,
@@ -451,18 +458,46 @@ script exits 2 before printing any result.
    rank's row, nothing else.  Then one ``deepseek-v2-236b`` decode layer
    (MLA's absorbed decode and the MoE, capacity ample) at 128 rows over a
    4096-entry cache, 8 rows a rank, against one device.
-44. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
+44. ``long_500k`` (524288 positions, batch 1): a prefill of 524160 =
+   4095 x 128 tokens (``prefill_512k``, built here; the scan takes whole
+   chunks), then decodes at positions 524160-524287.  Over 65536 tokens
+   the attention archs take their window (``tasks.effective_window``,
+   8192) and decode over a cache of the window's length.  (a) The
+   attention kernel at (1, 524160, 15 / 5 heads of 64) under windows 8192
+   and 8193 and at zamba2-2.7b's (1, 524160, 32 / 32 of 80) under 8192,
+   bf16 on wgmma: five blocks of 1024 query rows (the first, the one
+   across row W, the middle, an odd offset, the last) each row within
+   ``ROW_BAND`` of ``layers.attention_chunked`` over the block's band of
+   keys, the LSE within ``LSE_BAND``; the scan at (1, 524160, 32 heads of
+   64, state 128) and (1, 524160, 80 of 64, state 64: x 2.68e9 elements)
+   on wgmma, y and the final state against the plain chunked scan (16
+   heads a call) at phase 10's bands, the state's gap also after 36 and
+   512 chunks; their ms, plain ms and bounds (library: none).  (b)
+   ``smollm-360m`` at 32 layers, ``mamba2-370m`` at 48 and
+   ``zamba2-2.7b`` at 12, bf16, through ``tasks.make_prefill_step`` at
+   the window over 524160 tokens (attention and scan launches counted,
+   all on wgmma), each attention cache cut to its last 8192 entries, 128
+   greedy ``make_decode_step`` steps: finite logits, prefill tokens/s,
+   decode ms a step, peak and reserved memory.  (c) At depth 2 (zamba2-
+   2.7b one group) in f32: a prefill of L tokens at window W + 1, the
+   caches cut to W, 128 teacher-forced decodes, against the forward over
+   L + 128 at W + 1 at every decoded position within ``DECODE_BAND`` (a
+   decode attends its W cached keys and itself; mamba2-370m at window
+   0), L = 524160 where it fits, else the longest of
+   ``LONG_EXACT_LENS`` that does; and ``apply_rope`` on the card at
+   positions 524160-524287 against float64.
+45. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
    ``ssm_train_path``, ``perf_path``, ``distributed_path``,
    ``engine_path``, ``hybrid_path``, ``moe_path``, ``frontend_path``,
    ``lm_path``, ``sweep_path``, ``lint``, ``layout_path``,
    ``moe_layer_path``, ``ssm_layer_path``, ``seq_decode_path``,
-   ``ep_layer_path``, ``route_path``, ``phase_times`` and ``kernels``
-   JSON lines, the card's name and power limit, and the last line
-   ``{"ok": true, "device": {...}}``.
+   ``ep_layer_path``, ``route_path``, ``long_path``, ``phase_times`` and
+   ``kernels`` JSON lines, the card's name and power limit, and the last
+   line ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds as it ends (``[N] took ... s``), and the
 script the total.  ``--only N,...`` runs just the device and build phases
-and phases N (3 and 8-43) and prints no result lines: a development aid.
+and phases N (3 and 8-44) and prints no result lines: a development aid.
 """
 from __future__ import annotations
 
@@ -516,9 +551,10 @@ from repro_torch.launch import costs as costs_lib  # noqa: E402
 from repro_torch.launch import dryrun, serve, train  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import frontends, tasks  # noqa: E402
+from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import params as params_lib  # noqa: E402
-from repro_torch.models.backbone import Backbone  # noqa: E402
+from repro_torch.models.backbone import Backbone, map_cache_spec  # noqa: E402
 from repro_torch.models.flow import FlowAdapter  # noqa: E402
 from repro_torch.models.layers import attention_chunked  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
@@ -2774,14 +2810,21 @@ def train_trainers(tmp: str, arch: str, layers: int, cond_len: int,
     return out
 
 
+# phase 17's depth (cut from all 32 layers with phases 20, 21 and 23 to
+# keep the script near 900 s once phase 44 ran; phase 22 still trains all
+# 32 under remat=block)
+DENSE_TRAIN_LAYERS = 16
+
+
 def dense_train_path(tmp: str) -> dict:
-    """``train_trainers`` at smollm-360m's full width and all 32 layers,
+    """``train_trainers`` at smollm-360m's full width and
+    ``DENSE_TRAIN_LAYERS`` layers,
     phase 8's geometry, with wq/wk drawn at train start
     (``draw_attention``: at the repository's init the gradients grow ~5x a
     layer and the gradient norm overflows); the first update's wq/wk
     gradients are held."""
     return train_trainers(
-        tmp, DENSE_ARCH, DENSE_LAYERS, COND_LEN,
+        tmp, DENSE_ARCH, DENSE_TRAIN_LAYERS, COND_LEN,
         ("flash_attention", "flash_attention_bwd"),
         lambda: _TrainWatch("attn", ("wq", "wk", "wv"), ("wq", "wk"),
                             lambda p, cfg: draw_attention(p, cfg.d_model,
@@ -2834,8 +2877,14 @@ def _ssm_watch():
                        lambda p, cfg: draw_ssm(p, seed=19))
 
 
+# phase 20's block run's depth (cut from 48 with phases 17, 21 and 23 to
+# keep the script near 900 s once phase 44 ran); its none and scan +
+# remat_offload steps stay at phase 19's 48 layers
+BLOCK_LAYERS = 24
+
+
 def ssm_block_path(tmp: str, none_row=None) -> dict:
-    """mamba2-370m at 48 layers through ``launch.train`` under
+    """mamba2-370m at ``BLOCK_LAYERS`` layers through ``launch.train`` under
     ``perf.remat=block`` (with ``perf.log_memory``): flow_grpo for 2 steps
     and a traced third, every scan forward twice per layer and SDE step of
     the loss.  Then 1 step under ``scan`` + ``remat_offload`` on phase
@@ -2845,12 +2894,12 @@ def ssm_block_path(tmp: str, none_row=None) -> dict:
     ``none``), and the peaks beside each other."""
     out = {}
     out["block"], trainer = train_one(
-        tmp, SSM_ARCH, SSM_TRAIN_LAYERS, SSM_COND_LEN, SSM_KERNELS,
+        tmp, SSM_ARCH, BLOCK_LAYERS, SSM_COND_LEN, SSM_KERNELS,
         _ssm_watch(), "flow_grpo", TRAIN_STEPS,
         extra=BLOCK + ("--set", "perf.log_memory=true"), tag="block",
         remat="block",
         profile_what=f"one {SSM_ARCH} train step under remat=block, "
-                     f"{SSM_TRAIN_LAYERS} layers")
+                     f"{BLOCK_LAYERS} layers")
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -2965,6 +3014,9 @@ def check_block_update(dev, arch: str) -> dict:
 
 # ----------------------------------------------------------------- phase 21
 FUSED_STEPS = 4
+# the fused path's depth (cut from 48 with phases 17, 20 and 23 to keep
+# the script near 900 s once phase 44 ran)
+FUSED_LAYERS = 24
 FUSED = ("--set", "perf.fuse_step=true", "--set", "perf.remat=block",
          "--set", "perf.offload_rewards=true",
          "--set", "perf.policy_dtype=bfloat16", "--set", "loop.pipeline=2",
@@ -2975,7 +3027,8 @@ F32_VEL_BAND = 1e-3
 
 
 def fused_path(tmp: str) -> dict:
-    """mamba2-370m at 48 layers through ``launch.train`` with the fused
+    """mamba2-370m at ``FUSED_LAYERS`` layers through ``launch.train`` with
+    the fused
     step (captured once, then replayed), block remat, the reward towers
     offloaded to host memory, an explicit bf16 policy and a pipeline of 2,
     for 4 steps, and a profile of one more replay.  The launch counts are
@@ -2983,11 +3036,11 @@ def fused_path(tmp: str) -> dict:
     The towers' bytes are computed from their shapes; what is checked is
     that their store is in pinned host memory."""
     row, trainer = train_one(
-        tmp, SSM_ARCH, SSM_TRAIN_LAYERS, SSM_COND_LEN, SSM_KERNELS,
+        tmp, SSM_ARCH, FUSED_LAYERS, SSM_COND_LEN, SSM_KERNELS,
         _ssm_watch(), "flow_grpo", FUSED_STEPS, extra=FUSED, tag="fused",
         remat="block", captured=True,
         profile_what=f"one replayed fused {SSM_ARCH} train step, "
-                     f"{SSM_TRAIN_LAYERS} layers")
+                     f"{FUSED_LAYERS} layers")
     from repro_torch.perf import reward_tower_report
     row["reward_towers"] = reward_tower_report(trainer)
     store = [t for _, t in params_lib.leaves(trainer.loader.param_store())
@@ -3425,18 +3478,24 @@ def check_mesh_fused(dev, mesh) -> dict:
     return {"bitwise": bitwise, "fused": rep, "launches": ran}
 
 
+# (c)'s depths (cut from 48 layers and 16 blocks with phases 17, 20 and
+# 21 to keep the script near 900 s once phase 44 ran)
+MESH_SSM_LAYERS, MESH_FLUX_BLOCKS = 24, 8
+
+
 def mesh_train_path(tmp: str, mesh) -> dict:
     """(c) Full width and depth through ``launch.train`` on the mesh with
     ``dist.microbatch=2``, flow_grpo, 2 steps, phase 19's and phase 22's
-    geometry, batch and rewards: mamba2-370m at 48 layers under
-    ``remat=none`` (SSM leaves drawn), then flux_dit at 16 blocks under
+    geometry, batch and rewards: mamba2-370m at ``MESH_SSM_LAYERS``
+    layers under ``remat=none`` (SSM leaves drawn), then flux_dit at
+    ``MESH_FLUX_BLOCKS`` blocks under
     ``block``.  Launch counts (each loss pass once per chunk), s a step,
     steps/s, peak allocated and reserved memory; and the device time of
     the step's gradient all-reduce over the one-rank "data" group (every
     leaf, f32), against the step."""
     out = {}
     out[SSM_ARCH], trainer = train_one(
-        tmp, SSM_ARCH, SSM_TRAIN_LAYERS, SSM_COND_LEN, SSM_KERNELS,
+        tmp, SSM_ARCH, MESH_SSM_LAYERS, SSM_COND_LEN, SSM_KERNELS,
         _ssm_watch(), "flow_grpo", TRAIN_STEPS, extra=MB2, tag="mb2",
         mesh=mesh, microbatch=2)
     for _, p in params_lib.leaves(trainer.state.params):
@@ -3454,7 +3513,7 @@ def mesh_train_path(tmp: str, mesh) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["flux_dit"], trainer = train_one(
-        tmp, "flux_dit", FLUX_BLOCK_LAYERS, COND_LEN,
+        tmp, "flux_dit", MESH_FLUX_BLOCKS, COND_LEN,
         ("flash_attention", "flash_attention_bwd"),
         _TrainWatch("attn", ("wq", "wk", "wv")), "flow_grpo", TRAIN_STEPS,
         extra=BLOCK + MB2, tag="block_mb2", remat="block", mesh=mesh,
@@ -7793,10 +7852,529 @@ def route_phase(dev) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 44
+# long_500k (524288 positions, batch 1, decode): a prefill of 4095 whole
+# 128-token chunks (the scan takes no ragged chunk), then decodes at its
+# last 128 positions, 524160-524287.  Over 65536 tokens the attention archs
+# take their sliding window (``tasks.effective_window``: 8192) and decode
+# over a cache of the window's length (``effective_cache_len``)
+LONG_SHAPE = INPUT_SHAPES["long_500k"]
+LONG_DECODES = 128
+LONG_PREFILL = InputShape("prefill_512k", LONG_SHAPE.seq_len - LONG_DECODES,
+                          1, "prefill")
+# (tag, arch, layers) of the full-width paths: every layer of the two small
+# archs; zamba2-2.7b at two of its nine groups (two shared-block sites,
+# each with a 5.4 GB whole-length cache in the prefill)
+LONG_ARCHS = (("smollm", DENSE_ARCH, DENSE_LAYERS),
+              ("mamba2", SSM_ARCH, SSM_LAYERS), ("zamba2", HY_ARCH, 12))
+# query rows of one checked block of the attention, and of one plain call
+LONG_BLOCK = 1024
+# the exact check's prefill lengths, longest first: the first whose f32
+# prefill, decodes and forward fit the card (zamba2-2.7b's group at 524160
+# peaks at 77.7 GiB: it fits a fresh process, not always the whole script)
+LONG_EXACT_LENS = (LONG_PREFILL.seq_len, 491520, 393216)
+# heads of one plain scan call (the plain chunked scan over 4095 chunks
+# and all of zamba2-2.7b's 80 heads would hold ~75 GB of f32 temporaries)
+LONG_PLAIN_HEADS = 16
+# RoPE on the card at long_500k's decoded positions against the float64
+# rotation of the same f32 angles: max |err| / max |x| (CUDA's cosf and
+# sinf are within 2 ulp, 2.4e-7 of a unit value)
+ROPE_BAND = 1e-6
+
+
+def window_caches(cfg, caches, T: int):
+    """Every attention and latent cache of ``caches`` cut to its last
+    ``T`` entries, a copy (the whole-length caches are then free), the SSM
+    caches as they are: long_500k's window-sized decode cache, made from
+    a whole-length prefill."""
+    axes = map_cache_spec(lambda leaf, _: (
+        leaf[1].index("cache_seq") if "cache_seq" in leaf[1] else None),
+        Backbone(cfg).cache_specs(1, 1))
+
+    def walk(node, ax):
+        if isinstance(node, tuple):
+            vals = [walk(n, a) for n, a in zip(node, ax)]
+            return type(node)(*vals) if hasattr(node, "_fields") \
+                else tuple(vals)
+        if ax is None:
+            return node
+        return node.narrow(ax, node.shape[ax] - T, T).clone(
+            memory_format=torch.contiguous_format)
+    return walk(caches, axes)
+
+
+def _window_pairs(S: int, W: int) -> int:
+    """(query row, key) pairs a causal mask under window W keeps over S
+    rows: row r sees min(r + 1, W) keys."""
+    n = min(S, W)
+    return n * (n + 1) // 2 + (S - n) * W
+
+
+def _band(x, r0: int, n: int, W: int):
+    """``x``'s keys or values that rows [r0, r0 + n) of a causal attention
+    under window W reach, [max(0, r0 - W + 1), r0 + n), and their
+    positions."""
+    k0 = max(0, r0 - W + 1)
+    return x[:, k0:r0 + n], torch.arange(k0, r0 + n, dtype=torch.int32,
+                                         device=x.device)
+
+
+def _band_plain(q, k, v, r0: int, n: int, W: int):
+    """Rows [r0, r0 + n) of the causal attention under window W, plain:
+    ``layers.attention_chunked`` over the only keys their window reaches
+    (``_band``), through ``q_positions`` / ``k_positions``."""
+    (ks, kp), (vs, _) = _band(k, r0, n, W), _band(v, r0, n, W)
+    return attention_chunked(
+        q[:, r0:r0 + n], ks, vs, causal=True, window=W, chunk_q=LONG_BLOCK,
+        q_positions=torch.arange(r0, r0 + n, dtype=torch.int32,
+                                 device=q.device), k_positions=kp)
+
+
+def _band_lse(q, k, r0: int, n: int, W: int):
+    """Those rows' log-sum-exp of the scaled, masked scores, f32
+    (B, H, n), as the kernel writes it."""
+    B, _, H, D = q.shape
+    K = k.shape[2]
+    ks, kp = _band(k, r0, n, W)
+    qp = torch.arange(r0, r0 + n, dtype=torch.int32, device=q.device)
+    s = torch.einsum("bckgd,btkd->bkgct",
+                     q[:, r0:r0 + n].reshape(B, n, K, H // K, D).float(),
+                     ks.float()) * D ** -0.5
+    ok = (kp[None, :] <= qp[:, None]) & (kp[None, :] > qp[:, None] - W)
+    lse = torch.logsumexp(s.masked_fill(~ok, float("-inf")), -1)
+    return lse.reshape(B, H, n)
+
+
+def _band_plain_all(q, k, v, W: int) -> None:
+    """The plain attention over the whole sequence, a block of
+    ``LONG_BLOCK`` rows at a time (its time is the plain ms)."""
+    for r0 in range(0, q.shape[1], LONG_BLOCK):
+        _band_plain(q, k, v, r0, min(LONG_BLOCK, q.shape[1] - r0), W)
+
+
+def long_attention_row(dev, name: str, what: str, H: int, K: int, D: int,
+                       W: int, seed: int, path: str) -> dict:
+    """The bf16 attention kernel at (1, 524160, H / K, D), causal, window
+    W, on its wgmma variant: o at the first block of ``LONG_BLOCK`` rows
+    (the window not yet full), the block across row W, one in the middle,
+    one at an odd offset and the last, each row within ``ROW_BAND`` of its
+    own max |plain| (``_band_plain``, the plain rows over their band of
+    keys: a plain version over the whole sequence would hold 524160^2
+    scores), the LSE within ``LSE_BAND`` (``_band_lse``).  Then its ms (a replayed graph),
+    the plain ms over every block, and the operations bound over the
+    (row, key) pairs the window keeps.  A kernel row of the ``kernels``
+    line, its launches those of ``path``."""
+    S = LONG_PREFILL.seq_len
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(1, S, H, D, generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(1, S, K, D, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    before = all_variants()["flash_attention"]["wgmma"]
+    o, lse = flash_attention(q, k, v, causal=True, window=W,
+                             return_lse=True)
+    if all_variants()["flash_attention"]["wgmma"] - before != 1:
+        fail(f"the attention at the {what} shape did not run its wgmma "
+             "kernel")
+    blocks = (0, W - LONG_BLOCK // 2, S // 2, S // 2 + 333 * 3,
+              S - LONG_BLOCK)
+    rows, lse_err, abs_err = [], 0.0, 0.0
+    for r0 in blocks:
+        want = _band_plain(q, k, v, r0, LONG_BLOCK, W)
+        want_lse = _band_lse(q, k, r0, LONG_BLOCK, W)
+        rows += _row_errs([o[:, r0:r0 + LONG_BLOCK]], [want])
+        got_lse = lse[:, :, r0:r0 + LONG_BLOCK]
+        lse_err = max(lse_err, float((got_lse - want_lse).abs().max()) / max(
+            1.0, float(want_lse.abs().max())))
+        abs_err = max(abs_err, float((o[:, r0:r0 + LONG_BLOCK].float()
+                                      - want.float()).abs().max()))
+        del want, want_lse
+    torch.cuda.synchronize()
+    band = ROW_BAND[torch.bfloat16]
+    log(f"  {what} (1, {S}, {H} / {K} heads of {D}) causal, window {W}, "
+        f"bf16 (wgmma), rows {list(blocks)} + {LONG_BLOCK}: per-row "
+        f"max|err| / max|plain| of the row " + ", ".join(
+            f"{e:.3e}" for e in rows) + f" (band {band}); lse {lse_err:.2e}"
+        f" (band {LSE_BAND})")
+    if max(rows) > band or lse_err > LSE_BAND:
+        fail(f"the attention at the {what} shape is off its band")
+    del o, lse
+    torch.cuda.empty_cache()
+    ms = graph_ms(lambda: flash_attention(q, k, v, causal=True, window=W),
+                  1, 3)
+    plain_ms = cuda_ms(lambda: _band_plain_all(q, k, v, W), 1, 0)
+    pairs = _window_pairs(S, W)
+    bound, by = _bound((2 * q.numel() + 2 * k.numel()) * 2,
+                       4 * pairs * H * D)
+    log(f"  {name}: kernel {ms:.4f} ms (wgmma, replayed graph), plain "
+        f"{plain_ms:.3f} ms ({(S + LONG_BLOCK - 1) // LONG_BLOCK} blocks of "
+        f"{LONG_BLOCK} rows over their bands), bound {bound:.4f} ms ({by}: "
+        f"{pairs} (row, key) pairs x {H} heads x 4 x {D}); library: none")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"name": name, "route": "cuda", "variant": "wgmma",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:81",
+            "max_abs_err": abs_err, "max_rel_err": max(rows),
+            "lse_err": lse_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "library_note": "none: SDPA takes a window only as a dense "
+                            f"({S}, {S}) mask",
+            "shape": [1, S, H, K, D, W], "path": path}
+
+
+def _plain_scan_heads(x, dt, a, bm, cm):
+    """The plain chunked scan (``ref.ssd_chunked_ref``), ``LONG_PLAIN_HEADS``
+    heads a call (the heads are independent; B and C are shared), joined:
+    (y, final state)."""
+    ys, hs = [], []
+    for h0 in range(0, x.shape[2], LONG_PLAIN_HEADS):
+        h1 = h0 + LONG_PLAIN_HEADS
+        y, h = ref.ssd_chunked_ref(x[:, :, h0:h1], dt[:, :, h0:h1], a[h0:h1],
+                                   bm, cm, SSM_CHUNK)
+        ys.append(y)
+        hs.append(h)
+    return torch.cat(ys, 2), torch.cat(hs, 1)
+
+
+def long_scan_row(dev, name: str, what: str, H: int, N: int, seed: int,
+                  path: str) -> dict:
+    """The bf16 scan at (1, 524160, H heads of 64, state N, chunk 128):
+    4095 chunks walked by each of H blocks, x, bm and cm column slices of
+    one buffer as the model passes them, on the wgmma variant: y and the
+    final state against the plain chunked scan (``_plain_scan_heads``)
+    at ``SSD_Y_BAND`` and ``SSD_H_BAND``, the state's gap also after 36
+    and 512 chunks (its growth with the chunk count); then its ms (a
+    replayed graph), the plain ms and the bytes bound; its launches those
+    of ``path``."""
+    L, P, Q = LONG_PREFILL.seq_len, SSM_HEAD_DIM, SSM_CHUNK
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x, dt, a, bm, cm = _ssd_inputs(g, dev, 1, L, H, P, N, "mamba2",
+                                   torch.bfloat16)
+    x, bm, cm = _ssd_conv_slices(x, bm, cm)
+    h_by_chunks = {}
+    for nc in (36, 512, L // Q):
+        n = nc * Q
+        (y, hT), variant = _ssd_variant(lambda: ssd_scan(
+            x[:, :n], dt[:, :n], a, bm[:, :n], cm[:, :n], chunk=Q))
+        if variant != "wgmma":
+            fail(f"the scan at the {what} shape ran {variant}")
+        y_ref, h_ref = _plain_scan_heads(x[:, :n], dt[:, :n].contiguous(),
+                                         a, bm[:, :n], cm[:, :n])
+        h_by_chunks[nc] = _rel(hT, h_ref)
+        del hT, h_ref
+        if nc != L // Q:
+            del y, y_ref
+    torch.cuda.synchronize()
+    y_err = _rel(y, y_ref)
+    abs_err = float((y.float() - y_ref.float()).abs().max())
+    h_err = h_by_chunks[L // Q]
+    log(f"  {what} (1, {L}, {H} heads of {P}, state {N}, chunk {Q}) bf16 "
+        f"(wgmma), x {x.numel()} elements: y {y_err:.2e} of max|plain| "
+        f"(band {SSD_Y_BAND[torch.bfloat16]}), final state {h_err:.2e} "
+        f"(band {SSD_H_BAND}); the state after "
+        + ", ".join(f"{nc} chunks {e:.2e}" for nc, e in h_by_chunks.items()))
+    if y_err > SSD_Y_BAND[torch.bfloat16] or h_err > SSD_H_BAND:
+        fail(f"ssd_scan off at the {what} shape")
+    del y, y_ref
+    torch.cuda.empty_cache()
+    ms = graph_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=Q), 1, 3)
+    plain_ms = cuda_ms(lambda: _plain_scan_heads(x, dt, a, bm, cm), 1, 0)
+    bound, by, nbytes, flops = _ssd_fwd_bound(1, L, H, P, N, Q)
+    log(f"  {name}: kernel {ms:.4f} ms (wgmma, replayed graph), plain "
+        f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by}: "
+        f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP); library: none")
+    del x, dt, a, bm, cm
+    torch.cuda.empty_cache()
+    return {"name": name, "route": "cuda", "variant": "wgmma",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:77",
+            "max_abs_err": abs_err, "max_rel_err": y_err,
+            "state_err_by_chunks": h_by_chunks, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None,
+            "library_note": "none: no single PyTorch call runs the scan",
+            "shape": [1, L, H, P, N, Q], "path": path}
+
+
+def _long_params(dev, cfg, dtype, seed: int):
+    """``cfg``'s params from a seed on the card, with phase 35's draws:
+    the SSM leaves from Mamba-2's init, the attention's query and key
+    projections (the hybrid's shared ones) at 1/sqrt(d_model)."""
+    p = tasks.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                          dtype, dev)
+    bb = {"backbone": p}
+    if cfg.family in ("ssm", "hybrid"):
+        draw_ssm(bb, seed=seed + 1)
+    if cfg.family == "hybrid":
+        draw_shared_attention(bb, cfg.d_model, seed=seed + 2)
+    elif cfg.family != "ssm":
+        draw_qk_proj(bb, cfg, seed=seed + 2)
+    return p
+
+
+def _long_kernels(cfg) -> tuple:
+    """(attention, scan) launches of one pass over ``cfg``'s layers."""
+    if cfg.family == "ssm":
+        return 0, cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid.attn_every, cfg.n_layers
+    return cfg.n_layers, 0
+
+
+def long_path(dev, tag: str, arch: str, layers: int) -> dict:
+    """``arch`` at full width and ``layers`` layers, bf16, through the
+    LM task path's entry points: ``tasks.make_prefill_step`` at
+    ``effective_window(cfg, prefill_512k)`` over 524160 tokens (its
+    attention and scan launches counted, all on wgmma), every attention
+    cache cut to its last ``effective_cache_len(cfg, long_500k)`` entries
+    (``window_caches``), then 128 greedy ``make_decode_step`` steps at
+    ``effective_window(cfg, long_500k)``, positions 524160-524287 (no
+    kernel launch): finite logits; prefill tokens/s, decode ms a step,
+    peak memory."""
+    cfg = depth_cfg(arch, layers)
+    W = tasks.effective_window(cfg, LONG_PREFILL)
+    Wd = tasks.effective_window(cfg, LONG_SHAPE)
+    T = tasks.effective_cache_len(cfg, LONG_SHAPE)
+    L = LONG_PREFILL.seq_len
+    p = _long_params(dev, cfg, torch.bfloat16, 440)
+    gen = torch.Generator(device=dev).manual_seed(443)
+    toks = torch.randint(0, cfg.vocab_size, (1, L), generator=gen,
+                         device=dev)
+    prefill = tasks.make_prefill_step(cfg, window=W)
+    dec = tasks.make_decode_step(cfg, window=Wd)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, caches = prefill(p, {"tokens": toks})
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    launches, variants = counts(), all_variants()
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    n_attn, n_scan = _long_kernels(cfg)
+    want = {name: 0 for name in launches}
+    want.update(flash_attention=n_attn, ssd_scan=n_scan)
+    if launches != want or variants["flash_attention"] != routed(
+            n_attn, "wgmma") or variants["ssd_scan"] != routed(
+            n_scan, "wgmma") or not torch.isfinite(logits).all():
+        fail(f"{arch}'s long prefill: launches {launches} ({variants}), "
+             f"expected {want} on wgmma, or its logits are not finite")
+    caches = window_caches(cfg, caches, T) if W else caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    tok = logits.argmax(-1)[:, None]
+    reset_counts()
+    times = []
+    for i in range(LONG_DECODES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = dec(p, caches, tok, L + i)
+        tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if any(counts().values()) or not torch.isfinite(logits).all():
+        fail(f"{arch}'s long decode launched kernels {counts()} or its "
+             "logits are not finite")
+    dec_peak = torch.cuda.max_memory_allocated()
+    dec_ms = 1e3 * sum(times[1:]) / (len(times) - 1)
+    log(f"  {tag}: {arch} {cfg.n_layers} layers bf16, prefill {L} tokens "
+        f"at window {W}: {pre_s:.4f} s, {L / pre_s:.1f} tokens/s, "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB ({peak} bytes), "
+        f"reserved {reserved / 2**30:.2f} GiB; launches {launches}; "
+        f"{LONG_DECODES} decodes at positions {L}-{L + LONG_DECODES - 1}, "
+        f"window {Wd}, cache {T if W else 'state'}: {dec_ms:.3f} ms a step "
+        f"(steps 2-{LONG_DECODES}), max_memory_allocated "
+        f"{dec_peak / 2**30:.2f} GiB")
+    del p, caches, logits, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": arch, "layers": cfg.n_layers, "window": W,
+            "decode_window": Wd, "cache_len": T if W else None,
+            "prefill_tokens": L, "prefill_s": pre_s,
+            "prefill_tokens_per_s": L / pre_s, "peak_bytes": peak,
+            "reserved_bytes": reserved, "launches": launches,
+            "variants": variants, "decodes": LONG_DECODES,
+            "decode_ms_per_step": dec_ms,
+            "decode_ms_first_step": 1e3 * times[0],
+            "decode_peak_bytes": dec_peak}
+
+
+def long_exact(dev, tag: str, arch: str) -> dict:
+    """The exact check, f32, at depth 2 (zamba2-2.7b one group of 6 SSM
+    blocks and the shared block), teacher-forced: a prefill of L tokens at
+    window W + 1 (W = ``effective_window``; the SSM arch 0), every
+    attention cache cut to its last W entries, 128 decodes at window W,
+    each attending its W cached keys and itself, against the forward over
+    L + 128 tokens at W + 1, at every decoded position, within
+    ``DECODE_BAND`` of max |forward logits|.  L is the longest of
+    ``LONG_EXACT_LENS`` whose prefill, decodes and forward fit the card
+    (each longer one printed with its out-of-memory); the prefill and the
+    forward run the f32 kernels (launches counted)."""
+    cfg = _decode_cfg(arch)
+    W = tasks.effective_window(cfg, LONG_PREFILL)
+    wp = W + 1 if W else 0
+    p = _long_params(dev, cfg, torch.float32, 445)
+    model = Backbone(cfg)
+    gen = torch.Generator(device=dev).manual_seed(448)
+    toks = torch.randint(0, cfg.vocab_size, (1, LONG_SHAPE.seq_len),
+                         generator=gen, device=dev)
+    prefill = tasks.make_prefill_step(cfg, window=wp)
+    dec = tasks.make_decode_step(cfg, window=W)
+    n_attn, n_scan = _long_kernels(cfg)
+    refused = {}
+    for L in LONG_EXACT_LENS:
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            _, caches = prefill(p, {"tokens": toks[:, :L]})
+            pre = counts(), all_variants()
+            caches = window_caches(cfg, caches, W) if W else caches
+            outs = []
+            for i in range(L, L + LONG_DECODES):
+                lg, caches = dec(p, caches, toks[:, i:i + 1], i)
+                outs.append(lg)
+            got = torch.stack(outs, 1)
+            del caches, outs
+            reset_counts()
+            with torch.no_grad():
+                hidden = model.forward_embeds(
+                    p, model.embed_inputs(p, toks[:, :L + LONG_DECODES]),
+                    window=wp)
+                full = model.logits(p, hidden[:, L:])
+            del hidden
+            fwd = counts(), all_variants()
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as e:
+            refused[L] = str(e).splitlines()[0][:200]
+            log(f"  {tag} exact check at L = {L}: out of memory "
+                f"({refused[L]})")
+            caches = outs = hidden = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        else:
+            break
+    else:
+        fail(f"{arch}'s exact check fits at no length")
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in pre[0]}
+    want.update(flash_attention=n_attn, ssd_scan=n_scan)
+    for launches, variants in (pre, fwd):
+        if launches != want or variants["flash_attention"] != routed(
+                n_attn, "fma") or variants["ssd_scan"] != routed(
+                n_scan, "fma"):
+            fail(f"{arch}'s exact check: launches {launches} ({variants}), "
+                 f"expected {want} on the f32 kernels")
+    scale = float(full.abs().max())
+    err = float((got - full).abs().max()) / scale
+    by_pos = ((got - full).abs().amax(-1) / scale)[0]
+    log(f"  {tag}: {arch} depth {cfg.n_layers} f32, prefill {L} at window "
+        f"{wp}, caches cut to {W or 'state'}, {LONG_DECODES} decodes at "
+        f"positions {L}-{L + LONG_DECODES - 1} (window {W}) against the "
+        f"forward over {L + LONG_DECODES} at window {wp}: max |decode - "
+        f"forward| {err:.3e} of max|logits| (band {DECODE_BAND}; first / "
+        f"last position {float(by_pos[0]):.3e} / {float(by_pos[-1]):.3e}), "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; launches prefill "
+        f"{pre[0]}, forward {fwd[0]}")
+    if not torch.isfinite(got).all() or err > DECODE_BAND:
+        fail(f"{arch}: the long decodes disagree with the forward at "
+             f"window {wp}")
+    del p, got, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": arch, "layers": cfg.n_layers, "prefill_len": L,
+            "refused": refused, "prefill_window": wp, "decode_window": W,
+            "err_forward": err, "err_by_position": by_pos.tolist(),
+            "peak_bytes": peak, "launches": pre[0],
+            "forward_launches": fwd[0]}
+
+
+def check_long_rope(dev) -> dict:
+    """``layers.apply_rope`` on the card (f32) at the decoded positions
+    524160-524287, at head dims 64 and 80 and the archs' theta, against
+    the float64 rotation of the card's own f32 angles (its frequencies
+    times the positions, as ``apply_rope`` forms them; the reference
+    computes its angles in f32 too) within ``ROPE_BAND`` of max |x|.
+    Beside it, the card's f32 frequencies against the CPU's, in ulps, and
+    the gap that makes between the two devices' angles at these
+    positions."""
+    g = torch.Generator(device=dev).manual_seed(449)
+    pos = torch.arange(LONG_PREFILL.seq_len, LONG_SHAPE.seq_len,
+                       dtype=torch.int32, device=dev)
+    out = {}
+    for D, arch in ((64, DENSE_ARCH), (80, HY_ARCH)):
+        theta = configs.get(arch).rope_theta
+        x = torch.randn(1, LONG_DECODES, 8, D, generator=g, device=dev)
+        got = layers_mod.apply_rope(x, pos, theta).cpu().double()
+        freqs = layers_mod.rope_frequencies(D, theta, dev)
+        ang = (pos.to(torch.float32)[:, None] * freqs).cpu()
+        cos, sin = (f(ang.double())[:, None] for f in (torch.cos, torch.sin))
+        x1, x2 = x.cpu().double().chunk(2, dim=-1)
+        want = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+        host = layers_mod.rope_frequencies(D, theta)
+        ulps = ((freqs.cpu() - host).abs()
+                / torch.finfo(torch.float32).eps / host).max()
+        out[f"D{D}"] = {
+            "err": float((got - want).abs().max() / x.abs().max()),
+            "freq_ulps_vs_cpu": float(ulps),
+            "angle_gap_vs_cpu": float((ang - pos.cpu().float()[:, None]
+                                       * host).abs().max())}
+    last = torch.tensor(float(LONG_SHAPE.seq_len - 1))
+    half_ulp = float(torch.nextafter(last, last + 1) - last) / 2
+    last = int(last)
+    log(f"  apply_rope on the card at positions {LONG_PREFILL.seq_len}-"
+        f"{last} against the float64 rotation of its f32 "
+        f"angles: " + ", ".join(f"{k} {v['err']:.2e}" for k, v in
+                               out.items()) + f" of max|x| (band {ROPE_BAND});"
+        f" the card's frequencies against the CPU's: " + ", ".join(
+            f"{k} {v['freq_ulps_vs_cpu']:.2f} ulp, angles "
+            f"{v['angle_gap_vs_cpu']:.3e} rad apart" for k, v in out.items())
+        + f" (half an f32 ulp at {last}: {half_ulp:.4f} rad)")
+    if max(v["err"] for v in out.values()) > ROPE_BAND:
+        fail("apply_rope at long_500k's positions is off float64")
+    return out
+
+
+def long_phase(dev) -> dict:
+    """Phase 44: (a) the attention and the scan at long_500k's prefill
+    shapes against their plain versions, with times; (b) the three archs'
+    full-width paths; (c) the exact checks and RoPE at those positions."""
+    sm, hy = configs.get(DENSE_ARCH), configs.get(HY_ARCH)
+    W = tasks.effective_window(sm, LONG_PREFILL)
+    # the window W on the prefill path, W + 1 on the exact check's
+    rows = [long_attention_row(dev, f"flash_attention_long_smollm_w{w}",
+                               f"{DENSE_ARCH} long prefill", sm.n_heads,
+                               sm.n_kv_heads, sm.resolved_head_dim, w, 440 + i,
+                               path)
+            for i, (w, path) in enumerate(((W, "long_smollm"),
+                                           (W + 1, "long_exact_smollm")))]
+    rows.append(long_attention_row(
+        dev, "flash_attention_long_zamba2", f"{HY_ARCH} long prefill",
+        hy.n_heads, hy.n_kv_heads, hy.resolved_head_dim,
+        tasks.effective_window(hy, LONG_PREFILL), 442, "long_zamba2"))
+    rows.append(long_scan_row(dev, "ssd_scan_long_mamba2",
+                              f"{SSM_ARCH} long prefill", SSM_HEADS,
+                              SSM_STATE, 443, "long_mamba2"))
+    rows.append(long_scan_row(dev, "ssd_scan_long_zamba2",
+                              f"{HY_ARCH} long prefill", HY_SSD_HEADS,
+                              HY_STATE, 444, "long_zamba2"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"kernel_rows": rows}
+    for tag, arch, n in LONG_ARCHS:
+        res[tag] = long_path(dev, tag, arch, n)
+    for tag, arch, _ in LONG_ARCHS:
+        res[f"exact_{tag}"] = long_exact(dev, tag, arch)
+    res["rope"] = check_long_rope(dev)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", metavar="N,N,...",
-                    help="run only these of phases 3-43 after the device and "
+                    help="run only these of phases 3-44 after the device and "
                          "build phases, and print no result lines (a "
                          "development aid; the check runs every phase)")
     args = ap.parse_args(argv)
@@ -7905,7 +8483,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
         begin(17, f"dense train path: repro_torch.launch.train, {DENSE_ARCH}"
-            f", {DENSE_LAYERS} layers, the five trainers")
+            f", {DENSE_TRAIN_LAYERS} layers, the five trainers")
         dense_res["train"] = dense_train_path(tmp)
         gc.collect()
         torch.cuda.empty_cache()
@@ -7922,7 +8500,7 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-        begin(20, f"{SSM_ARCH}, {SSM_TRAIN_LAYERS} layers, under "
+        begin(20, f"{SSM_ARCH}, {BLOCK_LAYERS} layers, under "
             f"perf.remat=block; scan + remat_offload against phase 19's "
             f"none; one update at depth {UPDATE_LAYERS} under block against "
             f"none")
@@ -7933,7 +8511,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
         begin(21, f"the fused, pipelined step: {SSM_ARCH}, "
-            f"{SSM_TRAIN_LAYERS} layers, {FUSED_STEPS} steps; at depth "
+            f"{FUSED_LAYERS} layers, {FUSED_STEPS} steps; at depth "
             f"{UPDATE_LAYERS} replayed against eager, sync-free, f32 policy")
         perf_res["fused"] = fused_path(tmp)
         perf_res["fused_update"] = check_fused_update(dev)
@@ -7951,8 +8529,8 @@ def main(argv=None) -> int:
 
         begin(23, "distributed/: a one-rank NCCL group and mesh; the mesh "
             "path against none, microbatch 2, the fused step on the mesh; "
-            f"{SSM_ARCH} at {SSM_TRAIN_LAYERS} layers and flux_dit at "
-            f"{FLUX_BLOCK_LAYERS} blocks with microbatch 2; checkpoint; "
+            f"{SSM_ARCH} at {MESH_SSM_LAYERS} layers and flux_dit at "
+            f"{MESH_FLUX_BLOCKS} blocks with microbatch 2; checkpoint; "
             "sharded serving")
         dist_res = distributed_phase(dev, tmp)
         gc.collect()
@@ -8096,6 +8674,14 @@ def main(argv=None) -> int:
           f"{DS_ARCH} decode layer at {NWG_ROWS} rows, against one device")
     nwg_res = route_phase(dev)
 
+    begin(44, f"long_500k: the attention and the scan at "
+          f"{LONG_PREFILL.seq_len} tokens against their plain versions; "
+          + ", ".join(f"{a} at {n} layers" for _, a, n in LONG_ARCHS)
+          + f" prefilled over {LONG_PREFILL.seq_len} tokens and decoded at "
+          f"positions {LONG_PREFILL.seq_len}-{LONG_SHAPE.seq_len - 1}; the "
+          f"exact check at W + 1 in f32")
+    long_res = long_phase(dev)
+
     def layer_launches(arch: str, name: str) -> int:
         return layer_res[arch]["launches"]["attn"].get(name, 0)
 
@@ -8117,7 +8703,7 @@ def main(argv=None) -> int:
                     "launches"][name],
                 "train_ssm_mb2_mesh": dist_res["train"][SSM_ARCH][
                     "launches"][name],
-                "train_flux16_block_mb2_mesh": dist_res["train"]["flux_dit"][
+                "train_flux8_block_mb2_mesh": dist_res["train"]["flux_dit"][
                     "launches"][name],
                 "serve_ssm_mesh": dist_res["serve"]["launches"][name],
                 "train_ssm_engine": engine_res["train"]["launches"][name],
@@ -8144,7 +8730,12 @@ def main(argv=None) -> int:
                 **{f"layer_deepseek_ep16{tag[8:]}": ep_res[tag]["attn"][
                     "launches"][name] for tag, _ in EP_PASSES},
                 **{f"nwg16_{tag}": nwg_res[tag]["launches"][name]
-                   for tag, _ in NWG_LAYERS}}
+                   for tag, _ in NWG_LAYERS},
+                **{f"long_{tag}": long_res[tag]["launches"][name]
+                   for tag, _, _ in LONG_ARCHS},
+                **{f"long_exact_{tag}": long_res[f"exact_{tag}"]["launches"][
+                    name] + long_res[f"exact_{tag}"]["forward_launches"][name]
+                   for tag, _, _ in LONG_ARCHS}}
 
     for row in rows:
         row["launches"] = train_res["launches"][row["name"]]
@@ -8215,12 +8806,21 @@ def main(argv=None) -> int:
             "lm": "lm_train_internvl2",
             "prefill": "lm_prefill_internvl2"}[case]]
     rows += fe_rows
+    # long_500k's shapes: launches on the phase-44 path that runs each
+    # (the prefill's window on its prefill, W + 1 on the exact check's)
+    for row in long_res["kernel_rows"]:
+        kernel = row["name"].split("_long_")[0]
+        path = row.pop("path")
+        row["launches_by_path"] = {k: v for k, v in by_path(kernel).items()
+                                   if k.startswith("long_")}
+        row["launches"] = row["launches_by_path"][path]
+    rows += long_res.pop("kernel_rows")
     keys = ("name", "route", "variant", "source", "replaces", "launches",
             "max_abs_err", "max_rel_err", "max_rel_err_wgmma", "ms", "fma_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path", "times_by_batch", "dense_shape",
             "launch_floor_ms", "max_abs_err_f32", "forward_with_lse_ms",
-            "library_note", "shape")
+            "library_note", "shape", "lse_err", "state_err_by_chunks")
     print(json.dumps({"main_path": {k: v for k, v in res.items()
                                     if k != "launches"}}))
     print(json.dumps({"train_path": {k: v for k, v in train_res.items()
@@ -8248,6 +8848,7 @@ def main(argv=None) -> int:
     print(json.dumps({"seq_decode_path": seq_res}))
     print(json.dumps({"ep_layer_path": ep_res}))
     print(json.dumps({"route_path": nwg_res}))
+    print(json.dumps({"long_path": long_res}))
     print(json.dumps({"phase_times": phase_times()}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
@@ -8301,7 +8902,7 @@ def run_only(dev, only: set) -> int:
               40: _in_tmp(lambda tmp: ssm_layer_phase(dev, tmp)),
               41: lambda: seq_decode_phase(dev),
               42: lambda: ep_layer_phase(dev),
-              43: lambda: route_phase(dev)}
+              43: lambda: route_phase(dev), 44: lambda: long_phase(dev)}
     for n in sorted(only):
         if n not in phases:
             fail(f"--only: phase {n} cannot run alone")

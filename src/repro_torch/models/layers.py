@@ -216,19 +216,53 @@ def mlp_spec(d: int, f: int) -> dict:
     }
 
 
+# a row-wise step without gradients over a sequence longer than this, with
+# no mesh, runs in pieces of this many tokens (``seq_pieces``): whole, its
+# f32 intermediates are held at once (zamba2-2.7b's SwiGLU gate and up
+# products, 21.5 GB each over long_500k's 524160 tokens, made its prefill's
+# peak 120 GB)
+SEQ_PIECE = 65536
+
+
+def in_pieces(S: int) -> bool:
+    """Whether a step over S tokens runs in pieces: no gradient is taken,
+    no mesh is installed and S exceeds ``SEQ_PIECE``."""
+    return (S > SEQ_PIECE and not torch.is_grad_enabled()
+            and shlib.current_mesh() is None)
+
+
+def seq_pieces(fn, S: int) -> torch.Tensor:
+    """A step over S tokens whose every output token depends on its own
+    neighbourhood alone, ``fn(s, m)`` giving the output's tokens
+    [s, s + m) (B, m, ...): ``fn(0, S)``, or where ``in_pieces(S)`` a
+    piece of ``SEQ_PIECE`` tokens at a time, each written into the
+    output as it comes."""
+    if not in_pieces(S):
+        return fn(0, S)
+    out = None
+    for s in range(0, S, SEQ_PIECE):
+        piece = fn(s, min(SEQ_PIECE, S - s))
+        if out is None:
+            out = piece.new_empty((piece.shape[0], S, *piece.shape[2:]))
+        out[:, s:s + piece.shape[1]] = piece
+        del piece
+    return out
+
+
 def mlp(p: dict, x: torch.Tensor, width: Optional[int] = None
         ) -> torch.Tensor:
     """SwiGLU.  ``width``: the canonical hidden width; a narrower
     ``w_gate`` is this rank's shard of the production layout, and the MLP
     runs tensor-parallel over "model": x through *f*, ``w_gate`` and
     ``w_up`` column-parallel, ``w_down`` row-parallel, its partial outputs
-    summed by *g* (``repro_torch.sharding``)."""
+    summed by *g* (``repro_torch.sharding``).  A long sequence without
+    gradients runs in pieces (``seq_pieces``)."""
     tp = None if width is None else shlib.tp_for(p["w_gate"].shape[1],
                                                  width)
-    if tp is not None:
-        x = shlib.copy_to_model(x, tp)
-    out = swiglu(p, x, tp)
-    return out if tp is None else shlib.reduce_from_model(out, tp, x.dtype)
+    if tp is None:
+        return seq_pieces(lambda s, m: swiglu(p, x[:, s:s + m]), x.shape[1])
+    x = shlib.copy_to_model(x, tp)
+    return shlib.reduce_from_model(swiglu(p, x, tp), tp, x.dtype)
 
 
 def swiglu(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:

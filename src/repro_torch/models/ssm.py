@@ -102,15 +102,24 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                  ) -> torch.Tensor:
     """Depthwise causal conv. u: (B, L, C); w: (K, C); returns (B, L, C).
     The taps are summed one by one in f32 (no cuDNN: its f32 convolutions
-    run in TF32 by default)."""
+    run in TF32 by default); a long sequence without gradients a piece of
+    outputs at a time (``layers.seq_pieces``), each from the K - 1 inputs
+    before it on."""
     K, L = w.shape[0], u.shape[1]
-    up = F.pad(u, (0, 0, K - 1, 0)).to(F32)
     wf = w.to(F32)
-    # the reference's sum 0 + p0 + p1 + ..., rounded at the same places
-    out = up[:, :L] * wf[0]
-    for i in range(1, K):
-        out += up[:, i:i + L] * wf[i]
-    return F.silu(out + b.to(F32)).to(u.dtype)
+
+    def taps(s: int, n: int) -> torch.Tensor:
+        """Outputs [s, s + n) from inputs [s - K + 1, s + n), zero before
+        the first."""
+        up = F.pad(u[:, max(s - K + 1, 0):s + n],
+                   (0, 0, max(K - 1 - s, 0), 0)).to(F32)
+        # the reference's sum 0 + p0 + p1 + ..., rounded at the same places
+        out = up[:, :n] * wf[0]
+        for i in range(1, K):
+            out += up[:, i:i + n] * wf[i]
+        return F.silu(out + b.to(F32)).to(u.dtype)
+
+    return layers.seq_pieces(taps, L)
 
 
 def _local(p: Dict, cfg: ArchConfig):
@@ -149,14 +158,23 @@ def _whole_bc(p: Dict, m: Dict, n: int, tp) -> Tuple[torch.Tensor, ...]:
 
 
 def _norm_and_out(p: Dict, cfg: ArchConfig, y: torch.Tensor,
-                  z: torch.Tensor, tp) -> torch.Tensor:
-    """The gated RMSNorm over the inner width (its statistic over every
+                  xh: torch.Tensor, z: torch.Tensor, tp) -> torch.Tensor:
+    """The skip (``d_skip`` times the scan's input xh, both (B, S, H, P)),
+    the gated RMSNorm over the inner width (its statistic over every
     rank's slice under tensor parallelism) and ``out_proj`` (its f32
-    partial sums added by *g* and rounded once)."""
-    y = layers.rmsnorm(p["norm"], y * F.silu(z.to(F32)).to(y.dtype),
-                       cfg.norm_eps, tp)
-    out = layers.row_parallel(y, p["out_proj"], tp, cfg.d_model)
-    return out if tp is None else shlib.reduce_from_model(out, tp, y.dtype)
+    partial sums added by *g* and rounded once).  Whole heads take a long
+    sequence without gradients in pieces (``layers.seq_pieces``)."""
+    def norm_out(y, xh, z):
+        y = y + xh * p["d_skip"].to(xh.dtype)[:, None]
+        y = y.reshape(*z.shape[:2], -1)
+        y = layers.rmsnorm(p["norm"], y * F.silu(z.to(F32)).to(y.dtype),
+                           cfg.norm_eps, tp)
+        return layers.row_parallel(y, p["out_proj"], tp, cfg.d_model)
+
+    if tp is None:
+        return layers.seq_pieces(lambda s, n: norm_out(
+            y[:, s:s + n], xh[:, s:s + n], z[:, s:s + n]), y.shape[1])
+    return shlib.reduce_from_model(norm_out(y, xh, z), tp, y.dtype)
 
 
 def apply_full(p: Dict, cfg: ArchConfig, x: torch.Tensor, *,
@@ -172,8 +190,9 @@ def apply_full(p: Dict, cfg: ArchConfig, x: torch.Tensor, *,
         x = shlib.copy_to_model(x, tp)
         w_in, conv_w, conv_b = _whole_bc(p, m, n, tp)
     zxbcdt = layers.dense(x, w_in)
-    z, xin, bc, dt_raw = _split_proj(m, zxbcdt, m["N"])
-    conv_in = torch.cat([xin, bc], dim=-1)
+    z, _, _, dt_raw = _split_proj(m, zxbcdt, m["N"])
+    # x, B and C: adjacent columns of the projection, read in place
+    conv_in = zxbcdt[..., m["d_in"]:2 * (m["d_in"] + m["N"])]
     conv_out = _causal_conv(conv_in, conv_w, conv_b)
     xin = conv_out[..., :m["d_in"]]
     bm = conv_out[..., m["d_in"]:m["d_in"] + m["N"]]
@@ -182,8 +201,7 @@ def apply_full(p: Dict, cfg: ArchConfig, x: torch.Tensor, *,
     a = -torch.exp(p["a_log"].to(F32))
     xh = xin.reshape(B, S, m["H"], m["P"])
     y, final_state = ops.ssd_scan(xh, dt, a, bm, cm, chunk=m["Q"])
-    y = y + xh * p["d_skip"].to(x.dtype)[None, None, :, None]
-    out = _norm_and_out(p, cfg, y.reshape(B, S, m["d_in"]), z, tp)
+    out = _norm_and_out(p, cfg, y, xh, z, tp)
     cache = None
     if return_cache:
         tail = conv_in[:, S - (m["d_conv"] - 1):, :]
@@ -234,8 +252,7 @@ def apply_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor, cache: SSMCache
     dt = F.softplus(dt_raw[:, 0].to(F32) + p["dt_bias"].to(F32))
     a = -torch.exp(p["a_log"].to(F32))
     y, new_state = ssd_decode_step(cache.state, xin1, dt, a, bm1, cm1)
-    y = y + xin1 * p["d_skip"].to(x.dtype)[None, :, None]
-    out = _norm_and_out(p, cfg, y.reshape(B, 1, m["d_in"]), z, tp)
+    out = _norm_and_out(p, cfg, y[:, None], xin1[:, None], z, tp)
     return out, SSMCache(conv=full[:, 1:, :], state=new_state)
 
 

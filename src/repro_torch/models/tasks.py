@@ -189,9 +189,12 @@ def make_prefill_step(cfg: ArchConfig, *, window: int = 0):
 
     @torch.no_grad()
     def prefill_step(p: Dict, batch: Dict[str, torch.Tensor]):
-        x = model.embed_inputs(p, batch["tokens"], batch.get("prefix_embed"))
+        # the embeddings held by no name here: the first block's output
+        # replaces them (a long prefill's largest activations)
         hidden, caches, _ = model.forward_embeds(
-            p, x, causal=True, window=window, return_caches=True)
+            p, model.embed_inputs(p, batch["tokens"],
+                                  batch.get("prefix_embed")),
+            causal=True, window=window, return_caches=True)
         return model.logits(p, hidden[:, -1]), caches
 
     return prefill_step
