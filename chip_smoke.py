@@ -127,14 +127,15 @@ script exits 2 before printing any result.
    then, with wq/wk drawn, serves the requests again and holds them
    against ``rollout_keyed`` through the plain versions.
 17. The dense train path: ``repro_torch.launch.train.main`` at
-   ``smollm-360m``'s full width and 16 of its 32 layers (cut from 32 when
-   phase 44 came; phase 22 trains all 32 under ``block``), phase 8's
+   ``smollm-360m``'s full width and 8 of its 32 layers (cut from 32 to 16
+   when phase 44 came, to 8 when phase 45 did; phase 22 trains all 32
+   under ``block``), phase 8's
    geometry,
    batch and rewards: ``flow_grpo`` for 2 steps (and a traced third), then
    ``mix_grpo``, ``grpo_guard``, ``nft`` and ``awm`` for 1 step each, with
    wq/wk drawn at train start (at the repository's init the gradients grow
    ~5x a layer and overflow), each with launch counts that match its path
-   (the attention backward 16 per loss backward, ``grpo_loss`` only for
+   (the attention backward 8 per loss backward, ``grpo_loss`` only for
    flow_grpo and mix_grpo, no ``sde_step`` in the NFT/AWM rollouts), finite
    metrics, params that move, s per step and peak memory.
 18. One update of each of the five trainers on ``mamba2-370m`` at full
@@ -144,30 +145,33 @@ script exits 2 before printing any result.
    ``dt_bias``, and the params after AdamW at stated bands; every scan
    backward through the kernels runs the tensor-core variant.
 19. The SSM train path: ``repro_torch.launch.train.main`` at
-   ``mamba2-370m``'s full width and all 48 layers, bf16, phase 12's
+   ``mamba2-370m``'s full width and 24 of its 48 layers (cut from 48 when
+   phase 45 came), bf16, phase 12's
    geometry and phase 8's batch and rewards: ``flow_grpo`` for 2 steps
    (and a traced third), then ``mix_grpo``, ``grpo_guard``, ``nft`` and
    ``awm`` for 1 step each, with the SSM leaves drawn at train start, each
-   with launch counts that match its path (the scan forward 48 x T in the
-   rollout and 48 per loss forward, every one on the tensor-core kernel;
-   the backward 48 per loss backward, every one on the tensor-core
+   with launch counts that match its path (the scan forward 24 x T in the
+   rollout and 24 per loss forward, every one on the tensor-core kernel;
+   the backward 24 per loss backward, every one on the tensor-core
    backward), finite metrics, every layer's
    ``a_log`` and ``dt_bias`` gradient at the first update finite and
    nonzero, params that move, s per step and peak memory.
-20. ``mamba2-370m`` at 24 layers (cut from 48 when phase 44 came) through
+20. ``mamba2-370m`` at 12 layers (cut from 48 to 24 when phase 44 came,
+   to 12 when phase 45 did) through
    ``launch.train`` under
    ``--set perf.remat=block --set perf.log_memory=true``, phase 19's
    geometry, batch, T and rewards: ``flow_grpo`` for 2 steps and a traced
    third, with launch counts (every scan forward twice per layer and SDE
    step of the loss: once in the forward, once recomputed in the
    backward), s per step, peak memory and ``memory_stats``; then 1 step
-   each at 48 layers under ``none``, ``scan`` and ``scan`` +
+   each at phase 19's 24 layers under ``none``, ``scan`` and ``scan`` +
    ``remat_offload``, whose
    loss, grad norm and reward must be bitwise equal; then one update at
    depth 2 under ``block`` against ``none`` on one set of injected draws,
    to the reference's band.
-21. The fused, pipelined step on the same model at 24 layers (cut from
-   48 to keep the script near 900 s when phase 44 came):
+21. The fused, pipelined step on the same model at 12 layers (cut from
+   48 to 24 to keep the script near 900 s when phase 44 came, to 12 when
+   phase 45 did):
    ``--set perf.fuse_step=true --set perf.remat=block --set
    perf.offload_rewards=true --set perf.policy_dtype=bfloat16 --set
    loop.pipeline=2``, 4 steps: one capture and three CUDA-graph replays,
@@ -197,8 +201,9 @@ script exits 2 before printing any result.
    loss and backward on one trajectory), against the reference's band and
    held to the stated one; the fused step with ``microbatch=2`` on the
    mesh (1 capture with its collectives, 1 replay bitwise the eager
-   step); (c) ``mamba2-370m`` at 24 layers under ``none`` and ``flux_dit``
-   at 8 blocks under ``block`` (cut from 48 and 16 when phase 44 came),
+   step); (c) ``mamba2-370m`` at 12 layers under ``none`` and ``flux_dit``
+   at 8 blocks under ``block`` (cut from 48 and 16 when phase 44 came,
+   the SSM to 12 from 24 when phase 45 did),
    each with
    ``microbatch=2`` on the mesh,
    through ``launch.train``, 2 steps: launch counts, s a step, steps/s,
@@ -207,14 +212,15 @@ script exits 2 before printing any result.
    bitwise; (e) ``mamba2-370m`` at 48 layers served on the mesh against
    the engine without one, a bucket of 4, per request bitwise.
 24. Training through the serving engine: ``flow_grpo`` on
-   ``mamba2-370m`` at its published width and all 48 layers, bf16, phase
+   ``mamba2-370m`` at its published width and phase 19's 24 layers, bf16,
+   phase
    19's geometry, batch and rewards, through ``Experiment.build_trainer()``,
    ``trainer.attach_engine(ServingEngine.for_trainer(trainer,
    max_batch=2))`` and ``Experiment.train()`` for 2 steps: each rollout of
    2 prompts x group 2 runs in 2 chunks of bucket 2 (the engine's
    dispatches ``{"b2/s4": 4}``, no padded lane); launch counts per step
-   (``sde_step`` 8, the scan forward 48 x 4 x 2 in the rollout and 48 x 4
-   in the loss, its backward 48 x 4, ``grpo_loss`` and its backward 4
+   (``sde_step`` 8, the scan forward 24 x 4 x 2 in the rollout and 24 x 4
+   in the loss, its backward 24 x 4, ``grpo_loss`` and its backward 4
    each), finite metrics, first-update gradients, params that move, s a
    step and memory beside phase 19's engine-free run.  Then at depth 2 in
    f32 on injected draws: ``flow_grpo`` through the engine in one chunk
@@ -486,18 +492,39 @@ script exits 2 before printing any result.
    0), L = 524160 where it fits, else the longest of
    ``LONG_EXACT_LENS`` that does; and ``apply_rope`` on the card at
    positions 524160-524287 against float64.
-45. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
+45. The serving engine's captured executables (run right after phase 7,
+   while phase 5's engine is alive; ``--only 45`` builds it through phase
+   5's path).  Every serving phase above (5, 12, 16, 23's mesh serve, 24,
+   26, 29, 31, 33) already runs through them: each warmup shape is run
+   once eagerly and captured as a CUDA graph, each later dispatch is a
+   replay, and their launch counts hold unchanged.  Here: (a) that
+   ``flux_dit`` engine at b4 (warmed) and b1 (captured here), the replayed
+   latents bitwise the eager executor's on the same seeds, and for each
+   route one synchronised call's s a step and req/s and one traced call's
+   device busy ms and idle share; (b) ``smollm-360m`` (32 layers) and
+   ``mamba2-370m`` (48) at full width through ``serve.main`` at buckets
+   (1, 4), one tier of 4 steps, serving 5 requests (one b4, one b1
+   dispatch, no cold one), a cold engine on the same params serving them
+   again (one cold dispatch a shape, its latents bitwise the replays'),
+   and the same replayed / eager figures at b1 and b4; (c) the trainer
+   path at phase 24's cell: after one ``flow_grpo`` step (AdamW updates
+   the params in place), the engine's replayed rollout bitwise an eager
+   rollout at the new params, and ``mix_grpo`` with its window moving
+   every step, the captures per SDE-mask pattern; (d) each engine's
+   eager-run and capture seconds per shape, launches per replay and
+   pool bytes beside ``max_memory_allocated``.
+46. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
    ``ssm_train_path``, ``perf_path``, ``distributed_path``,
    ``engine_path``, ``hybrid_path``, ``moe_path``, ``frontend_path``,
    ``lm_path``, ``sweep_path``, ``lint``, ``layout_path``,
    ``moe_layer_path``, ``ssm_layer_path``, ``seq_decode_path``,
-   ``ep_layer_path``, ``route_path``, ``long_path``, ``phase_times`` and
-   ``kernels`` JSON lines, the card's name and power limit, and the last
-   line ``{"ok": true, "device": {...}}``.
+   ``ep_layer_path``, ``route_path``, ``long_path``, ``graphs_path``,
+   ``phase_times`` and ``kernels`` JSON lines, the card's name and power
+   limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds as it ends (``[N] took ... s``), and the
 script the total.  ``--only N,...`` runs just the device and build phases
-and phases N (3 and 8-44) and prints no result lines: a development aid.
+and phases N (3, 8-45) and prints no result lines: a development aid.
 """
 from __future__ import annotations
 
@@ -535,7 +562,7 @@ from repro_torch.config import (INPUT_SHAPES, FlowRLConfig,  # noqa: E402
                                 InputShape, OptimConfig, PerfConfig,
                                 RewardSpec, replace)
 from repro_torch.core.rollout import (  # noqa: E402
-    request_draws, request_seeds, rollout_keyed)
+    group_repeat, request_draws, request_seeds, rollout_keyed)
 from repro_torch.data import TokenStream, synthetic_prompts  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import counts as counts_lib  # noqa: E402
@@ -598,7 +625,8 @@ def end_phase() -> None:
     if n is not None:
         secs = time.perf_counter() - _PHASE["t0"]
         _PHASE["secs"][str(n)] = round(secs, 1)
-        log(f"    [{n}] took {secs:.1f} s")
+        log(f"    [{n}] took {secs:.1f} s; memory_allocated after it "
+            f"{torch.cuda.memory_allocated()} bytes")
         _PHASE["n"] = None
 
 
@@ -2810,10 +2838,10 @@ def train_trainers(tmp: str, arch: str, layers: int, cond_len: int,
     return out
 
 
-# phase 17's depth (cut from all 32 layers with phases 20, 21 and 23 to
-# keep the script near 900 s once phase 44 ran; phase 22 still trains all
-# 32 under remat=block)
-DENSE_TRAIN_LAYERS = 16
+# phase 17's depth (cut from all 32 layers to 16 with phases 20, 21 and 23
+# to keep the script near 900 s once phase 44 ran, to 8 once phase 45 did;
+# phase 22 still trains all 32 under remat=block)
+DENSE_TRAIN_LAYERS = 8
 
 
 def dense_train_path(tmp: str) -> dict:
@@ -2839,11 +2867,15 @@ SSM_GRAD_KEYS = ("in_proj", "conv_w", "a_log", "dt_bias")
 
 
 # ----------------------------------------------------------------- phase 19
-SSM_TRAIN_LAYERS = 48
+# cut from 48 layers (with phase 20's none and scan + remat_offload steps
+# and phase 24's training, which share it) to keep the script near 1000 s
+# once phase 45 ran
+SSM_TRAIN_LAYERS = 24
 
 
 def ssm_train_path(tmp: str) -> dict:
-    """``train_trainers`` at mamba2-370m's full width and all 48 layers,
+    """``train_trainers`` at mamba2-370m's full width and 24 of its 48
+    layers,
     the serving cell's geometry (511 + 1 + 4096 = 36 x 128 tokens), with
     the SSM leaves drawn at train start (``draw_ssm``: at the repository's
     init the carried state reaches only the first tokens of a chunk, so a
@@ -2877,10 +2909,11 @@ def _ssm_watch():
                        lambda p, cfg: draw_ssm(p, seed=19))
 
 
-# phase 20's block run's depth (cut from 48 with phases 17, 21 and 23 to
-# keep the script near 900 s once phase 44 ran); its none and scan +
-# remat_offload steps stay at phase 19's 48 layers
-BLOCK_LAYERS = 24
+# phase 20's block run's depth (cut from 48 to 24 with phases 17, 21 and
+# 23 to keep the script near 900 s once phase 44 ran, and to 12 with phase
+# 19 once phase 45 did); its none and scan + remat_offload steps run at
+# phase 19's depth
+BLOCK_LAYERS = 12
 
 
 def ssm_block_path(tmp: str, none_row=None) -> dict:
@@ -3014,9 +3047,9 @@ def check_block_update(dev, arch: str) -> dict:
 
 # ----------------------------------------------------------------- phase 21
 FUSED_STEPS = 4
-# the fused path's depth (cut from 48 with phases 17, 20 and 23 to keep
-# the script near 900 s once phase 44 ran)
-FUSED_LAYERS = 24
+# the fused path's depth (cut from 48 to 24 with phases 17, 20 and 23 to
+# keep the script near 900 s once phase 44 ran, to 12 once phase 45 did)
+FUSED_LAYERS = 12
 FUSED = ("--set", "perf.fuse_step=true", "--set", "perf.remat=block",
          "--set", "perf.offload_rewards=true",
          "--set", "perf.policy_dtype=bfloat16", "--set", "loop.pipeline=2",
@@ -3479,8 +3512,9 @@ def check_mesh_fused(dev, mesh) -> dict:
 
 
 # (c)'s depths (cut from 48 layers and 16 blocks with phases 17, 20 and
-# 21 to keep the script near 900 s once phase 44 ran)
-MESH_SSM_LAYERS, MESH_FLUX_BLOCKS = 24, 8
+# 21 to keep the script near 900 s once phase 44 ran; the SSM from 24 to
+# 12 once phase 45 did)
+MESH_SSM_LAYERS, MESH_FLUX_BLOCKS = 12, 8
 
 
 def mesh_train_path(tmp: str, mesh) -> dict:
@@ -3589,10 +3623,11 @@ def distributed_phase(dev, tmp: str) -> dict:
 # training through the serving engine: its rollouts of 2 prompts x group 2
 # run in chunks of ENGINE_BATCH rows (2 chunks a step)
 ENGINE_BATCH = 2
-# phase 19's engine-free flow_grpo on the same cell, for comparison when
-# phase 19 did not run in this call (as recorded in PERF.md §5, NVIDIA
-# H100 80GB HBM3, 700 W: the second step's seconds, max_memory_allocated)
-PHASE19_S_PER_STEP, PHASE19_PEAK_GIB = 3.2484, 67.33
+# phase 19's engine-free flow_grpo on the same cell (24 layers), for
+# comparison when phase 19 did not run in this call (as recorded in PERF.md
+# §6, NVIDIA H100 80GB HBM3, 700 W: the second step's seconds,
+# max_memory_allocated)
+PHASE19_S_PER_STEP, PHASE19_PEAK_GIB = 1.6447, 36.82
 # one flow_grpo / awm step at depth 2 in f32 on injected draws, the
 # engine's rollout in one chunk (max_batch 4) against two (max_batch 2):
 # the two chunkings' latents differ by f32 rounding (a chunk's velocity at
@@ -3771,8 +3806,8 @@ def check_engine_updates(dev, tmp: str) -> dict:
 
 
 def engine_phase(dev, tmp: str, phase19=None) -> dict:
-    """Phase 24: flow_grpo on mamba2-370m at its published width and all
-    48 layers, bf16, trained 2 steps through an attached engine whose
+    """Phase 24: flow_grpo on mamba2-370m at its published width and phase
+    19's depth, bf16, trained 2 steps through an attached engine whose
     rollouts run in chunks of ENGINE_BATCH (``train_one`` with
     ``engine_batch``: launch counts, finite metrics, first-update
     gradients, params that move), its engine's dispatches, s a step and
@@ -8371,10 +8406,262 @@ def long_phase(dev) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 45
+# the engine's captured executables: each (bucket, steps, x0_only) shape of
+# a serving engine runs as one CUDA graph, captured at warmup (or, cold, at
+# its first dispatch), every later dispatch a replay.  (b) serves 5
+# requests at buckets (1, 4): one b4 and one b1 dispatch.
+GRAPH_BUCKETS, GRAPH_REQUESTS = (1, 4), 5
+# (c)'s mix_grpo steps: its window moves each step, a mask pattern a step
+MIX_STEPS = 2
+
+
+def _traced(fn) -> dict:
+    """One traced call of ``fn`` (warmed) under ``torch.profiler``, the
+    device's activity only (no host op is recorded, so the eager route
+    pays less for the trace): the traced wall ms, the device busy ms (the
+    kernels' summed time, graph replays' kernels included) and the idle
+    share."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    if busy == 0:
+        fail("a traced batch of the engine holds no device time")
+    return {"traced_wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1 - busy / wall)}
+
+
+def replay_vs_eager(eng, bucket: int, tag: str, reps: int = 3) -> dict:
+    """One bucket of ``eng``'s queue variant at NUM_STEPS, replayed from
+    its graph (captured first where the engine has none at that shape)
+    and run through the eager executor on the same condition and seeds:
+    for each route the median seconds of ``reps`` synchronised calls
+    (host clock), s a step, req/s, and one traced call's device busy ms
+    and idle share; the latents bitwise.  The two routes run the same
+    kernels, so where their traced busy times differ by over a tenth the
+    profiler lost records, and both are traced again (a trace never
+    counts a kernel twice: the larger is kept)."""
+    cond = torch.from_numpy(eng.encode(synthetic_prompts(bucket))).to(
+        eng.device)
+    seeds = request_seeds(0, bucket)
+    eager_fn = eng._fn(NUM_STEPS, x0_only=True)
+    routes = {"replayed": lambda: eng._run(eng.params, cond, seeds,
+                                           NUM_STEPS, True),
+              "eager": lambda: eager_fn(eng.params, cond, seeds)}
+    shapes = [g["shape"] for g in eng.graph_report()["graphs"]]
+    if f"b{bucket}/s{NUM_STEPS}" not in shapes:
+        routes["replayed"]()            # the capture (its eager run warms)
+    out, lat = {}, {}
+    for k, fn in routes.items():
+        secs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lat[k] = fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        sec = sorted(secs)[len(secs) // 2]
+        out[k] = {"s": sec, "s_per_step": sec / NUM_STEPS,
+                  "req_per_s": bucket / sec, "s_calls": secs,
+                  **_traced(fn)}
+    r, e = out["replayed"], out["eager"]
+    if abs(r["device_busy_ms"] - e["device_busy_ms"]) > 0.1 * max(
+            r["device_busy_ms"], e["device_busy_ms"]):
+        for k, fn in routes.items():
+            again = _traced(fn)
+            if again["device_busy_ms"] > out[k]["device_busy_ms"]:
+                out[k].update(again)
+    same = bool(torch.equal(lat["replayed"], lat["eager"]))
+    out["bitwise"] = same
+    log(f"  {tag} b{bucket}: replayed / eager {r['s_per_step']:.4f} / "
+        f"{e['s_per_step']:.4f} s a step ({r['req_per_s']:.4f} / "
+        f"{e['req_per_s']:.4f} req/s; median of {reps}), device busy "
+        f"{r['device_busy_ms']:.3f} / {e['device_busy_ms']:.3f} ms a batch, "
+        f"traced idle share {r['idle_share']:.4f} / {e['idle_share']:.4f}; "
+        f"latents bitwise {same}")
+    if not same:
+        fail(f"{tag}: the replayed b{bucket} latents differ from the eager "
+             "executor's")
+    return out
+
+
+def graph_rows(eng, tag: str) -> dict:
+    """(d) ``eng.graph_report()``: each graph's eager-run and capture
+    seconds and launches per replay, the pool's bytes beside
+    ``max_memory_allocated``."""
+    rep = eng.graph_report()
+    rep["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    for g in rep["graphs"]:
+        log(f"    {tag} {g['shape']}: eager run {g['warm_s']:.3f} s, capture "
+            f"{g['capture_s']:.3f} s, launches per replay "
+            f"{g['launches_per_replay']}")
+    log(f"    {tag}: {rep['captures']} captures {rep['captures_by_mask']}, "
+        f"{rep['replays']} replays, pool {rep['pool_bytes']} bytes, "
+        f"max_memory_allocated {rep['max_memory_allocated']} bytes")
+    return rep
+
+
+def graphs_flux(eng=None) -> dict:
+    """(a) Phase 5's flux_dit engine (38 blocks; built by phase 5's path
+    when ``eng`` is None): replay against the eager executor at b4 (the
+    warmed shape) and b1 (captured here)."""
+    if eng is None:
+        eng = main_path()["engine"]
+    out = {f"b{b}": replay_vs_eager(eng, b, "flux_dit", reps=1)
+           for b in (B_SERVE, 1)}
+    out["graphs"] = graph_rows(eng, "flux_dit")
+    return out
+
+
+def graphs_arch(argv: list, tag: str) -> dict:
+    """(b) ``serve.main`` at buckets (1, 4), one tier of NUM_STEPS steps,
+    serving 5 requests (one b4 and one b1 dispatch, both replays: the CLI
+    raises on a cold one); a cold engine on the same params serves them
+    again (one cold dispatch a shape; its batches are the captures' eager
+    runs) and must give the same latents bitwise; then
+    ``replay_vs_eager`` at both buckets."""
+    argv = list(argv)
+    for flag, val in (("--bucket", ",".join(map(str, GRAPH_BUCKETS))),
+                      ("--requests", str(GRAPH_REQUESTS))):
+        argv[argv.index(flag) + 1] = val
+    torch.cuda.reset_peak_memory_stats()
+    out = serve.main(argv)
+    eng, st = out["engine"], out["stats"]
+    want = {f"b{b}/s{NUM_STEPS}": 1 for b in GRAPH_BUCKETS}
+    rep = eng.graph_report()
+    if (st["dispatches"] != want or st["cold_dispatches"]
+            or rep["replays"] != len(GRAPH_BUCKETS)):
+        fail(f"{tag}: the warmed engine dispatched {st['dispatches']} with "
+             f"{st['cold_dispatches']} cold, {rep['replays']} replays")
+    cond = eng.encode(synthetic_prompts(GRAPH_REQUESTS))
+    cold = ServingEngine(eng.adapter, eng.scheduler, eng.params,
+                         num_steps=NUM_STEPS, device=eng.device,
+                         max_batch=max(GRAPH_BUCKETS), buckets=GRAPH_BUCKETS,
+                         cond_len=eng.cond_len)
+    lat = cold.serve(cond, 0)
+    cst = cold.stats
+    same = bool(torch.equal(lat, out["latents"]))
+    log(f"  {tag}: warmed engine {st['dispatches']}, cold_dispatches "
+        f"{st['cold_dispatches']}; cold engine cold_dispatches "
+        f"{cst['cold_dispatches']}, compiles {cst['compiles']}; its eager "
+        f"batches bitwise the warmed engine's replays {same}")
+    if cst["cold_dispatches"] != len(GRAPH_BUCKETS) or not same:
+        fail(f"{tag}: the cold engine's accounting or latents are wrong")
+    del cold
+    res = {"dispatches": st["dispatches"],
+           "cold_dispatches": st["cold_dispatches"],
+           "cold_engine_cold_dispatches": cst["cold_dispatches"],
+           "cold_engine_bitwise": same,
+           "warmup_s": out["warmup"], "serve_s": out["serve_s"]}
+    for b in GRAPH_BUCKETS:
+        res[f"b{b}"] = replay_vs_eager(eng, b, tag)
+    res["graphs"] = graph_rows(eng, tag)
+    del eng, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def graphs_trainer(dev) -> dict:
+    """(c) The trainer path at phase 24's cell (mamba2-370m at full width,
+    depth 2, f32, SSM leaves drawn, 2 prompts x group 2 through an engine
+    of max_batch 2): after one flow_grpo step (its rollout captured, AdamW
+    updating the params in place), the engine's replayed rollout equals
+    an eager rollout at the new params bitwise and differs from one at
+    the old; then mix_grpo with its window moving every step, the
+    engine's captures per SDE-mask pattern."""
+    cfg, flow, opt, cond = _mesh_setup(dev, SSM_ARCH, 30)
+    cond = cond.expand(2, -1, -1).contiguous()
+    cond[1].mul_(-1.0)
+    out = {}
+    for tname in ("flow_grpo", "mix_grpo"):
+        fl = (flow if tname == "flow_grpo" else
+              replace(flow, sde_window_shift_every=1))
+        tr = registry.build("trainer", tname, cfg, fl, opt, seed=0,
+                            cond_dim=COND_DIM, device=dev,
+                            dtype=torch.float32,
+                            perf=PerfConfig(policy_dtype="float32"))
+        draw_ssm(tr.state.params, seed=32)
+        eng = ServingEngine.for_trainer(tr, max_batch=2,
+                                        cond_len=SSM_COND_LEN)
+        tr.attach_engine(eng)
+        if tname == "mix_grpo":
+            for it in range(MIX_STEPS):
+                tr.step(cond, 5, it=it)
+            rep = graph_rows(eng, tname)
+            if len(rep["captures_by_mask"]) < 2:
+                fail("mix_grpo's moving window captured one mask pattern")
+            out[tname] = {"captures_by_mask": rep["captures_by_mask"],
+                          "graphs": rep}
+            del tr, eng
+            continue
+        old = _clone(tr.state.params)
+        tr.step(cond, 5, it=0)
+        new = tr.state.params
+        rows = group_repeat(cond, fl.group_size)
+        traj = eng.rollout(new, rows, 9)
+        fn = eng._fn(NUM_STEPS)
+        seeds = request_seeds(9, rows.shape[0])
+
+        def eager(params):
+            parts = [fn(params, rows[i:i + 2], seeds[i:i + 2])
+                     for i in (0, 2)]
+            return (torch.cat([t.xs for t in parts], 1),
+                    torch.cat([t.logps for t in parts], 1))
+
+        xs_new, lp_new = eager(new)
+        xs_old, _ = eager(old)
+        same = bool(torch.equal(traj.xs, xs_new)
+                    and torch.equal(traj.logps, lp_new))
+        moved = float((xs_new - xs_old).abs().max())
+        rep = graph_rows(eng, tname)
+        log(f"  flow_grpo through the engine: after one AdamW update the "
+            f"replayed rollout bitwise an eager rollout at the new params "
+            f"{same}; the update moved the eager rollout by {moved:.3e}; "
+            f"{rep['replays']} replays, {rep['captures']} captures")
+        if not same or moved == 0 or rep["replays"] < 2:
+            fail("the engine's replayed rollout is not the eager rollout at "
+                 "the updated params")
+        out[tname] = {"bitwise_after_update": same, "moved": moved,
+                      "graphs": rep}
+        del tr, eng, old, new, traj
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def graphs_phase(dev, flux_eng=None) -> dict:
+    """Phase 45: the engine's captured executables, (a)-(d), each part's
+    seconds logged."""
+    t0 = time.perf_counter()
+    out = {"flux_dit": graphs_flux(flux_eng)}
+    del flux_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts = {"flux_dit": time.perf_counter() - t0}
+    for tag, run in ((DENSE_ARCH, lambda: graphs_arch(_dense_argv(),
+                                                      DENSE_ARCH)),
+                     (SSM_ARCH, lambda: graphs_arch(_ssm_argv("bfloat16"),
+                                                    SSM_ARCH)),
+                     ("trainer", lambda: graphs_trainer(dev))):
+        t0 = time.perf_counter()
+        out[tag] = run()
+        parts[tag] = time.perf_counter() - t0
+    log(f"  phase 45's parts: {json.dumps(parts)} s")
+    out["part_s"] = parts
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", metavar="N,N,...",
-                    help="run only these of phases 3-44 after the device and "
+                    help="run only these of phases 3-45 after the device and "
                          "build phases, and print no result lines (a "
                          "development aid; the check runs every phase)")
     args = ap.parse_args(argv)
@@ -8428,7 +8715,11 @@ def main(argv=None) -> int:
 
     begin(7, "drawn modulation: served through the kernels vs plain replay")
     res["modulated"] = check_modulated(eng, lat_zero)
-    del eng, lat_zero
+    del lat_zero
+
+    begin(45, "the engine's captured executables (phase 5's engine first)")
+    graphs_res = graphs_phase(dev, eng)
+    del eng
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -8849,6 +9140,7 @@ def main(argv=None) -> int:
     print(json.dumps({"ep_layer_path": ep_res}))
     print(json.dumps({"route_path": nwg_res}))
     print(json.dumps({"long_path": long_res}))
+    print(json.dumps({"graphs_path": graphs_res}))
     print(json.dumps({"phase_times": phase_times()}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
@@ -8902,7 +9194,8 @@ def run_only(dev, only: set) -> int:
               40: _in_tmp(lambda tmp: ssm_layer_phase(dev, tmp)),
               41: lambda: seq_decode_phase(dev),
               42: lambda: ep_layer_phase(dev),
-              43: lambda: route_phase(dev), 44: lambda: long_phase(dev)}
+              43: lambda: route_phase(dev), 44: lambda: long_phase(dev),
+              45: lambda: graphs_phase(dev)}
     for n in sorted(only):
         if n not in phases:
             fail(f"--only: phase {n} cannot run alone")

@@ -4,9 +4,11 @@ Each wrapper adds one to its ``.launches`` (and the attention's and
 ``ssd_scan``'s four to ``.variant_launches[variant]``, the attention's two
 to ``.pair_launches[dims]``) where it launches its kernel.  A kernel
 launched while a CUDA graph is being captured is only recorded, and runs
-each time the graph is replayed: ``perf.fused.FusedStep`` takes a capture's
-counts back out with :func:`add` (``times=-1``) and adds them again at
-every replay, so the counters count the kernels that ran.
+each time the graph is replayed: ``perf.graphs.GraphCache`` (the fused
+train step's and the serving engine's graphs) takes a capture's counts back
+out with :func:`add` (``times=-1``) and adds them again at every replay, so
+the counters count the kernels that ran.  A variant or dim pair first
+counted after a capture is absent from its counts, and counts 0 there.
 
 A process started with ``REPRO_KERNEL_COUNTS`` set to a directory writes
 its counters there at exit, as ``<pid>.json``: how a caller reads the
@@ -44,7 +46,7 @@ def read() -> Dict[str, int]:
 
 def since(before: Dict[str, int]) -> Dict[str, int]:
     """The launches counted since ``before`` (a :func:`read`)."""
-    return {k: n - before[k] for k, n in read().items()}
+    return {k: n - before.get(k, 0) for k, n in read().items()}
 
 
 def add(delta: Dict[str, int], times: int = 1) -> None:
@@ -53,10 +55,10 @@ def add(delta: Dict[str, int], times: int = 1) -> None:
         fn.launches += times * delta[fn.__name__]
         variants = getattr(fn, "variant_launches", {})
         for v in variants:
-            variants[v] += times * delta[f"{fn.__name__}/{v}"]
+            variants[v] += times * delta.get(f"{fn.__name__}/{v}", 0)
         pairs = getattr(fn, "pair_launches", {})
         for pair in pairs:
-            pairs[pair] += times * delta[f"{fn.__name__}@{pair}"]
+            pairs[pair] += times * delta.get(f"{fn.__name__}@{pair}", 0)
 
 
 def _write_at_exit(directory: str) -> None:

@@ -2,8 +2,11 @@
 serving engine (the port of ``repro.launch.serve``).
 
 Requests go through :class:`repro_torch.serving.ServingEngine`.  Warmup
-(one batch per bucket shape) and the serve pass are timed separately; both
-timings end in a host fetch of the latents, so they cover the device work.
+(one batch per bucket shape: on the GPU its eager run and the capture of
+its CUDA graph) and the serve pass are timed separately; both timings end
+in a host fetch of the latents, so they cover the device work.  A
+steady-state serve that compiled (a cold dispatch) raises, as the
+reference refuses it.
 
   # on the GPU (default)
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --sde flow_sde \\
@@ -28,6 +31,7 @@ import json
 import time
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from repro_torch import distributed
@@ -98,7 +102,7 @@ def _serve(args, buckets, step_tiers) -> dict:
     engine.encode(prompts)               # encoder weights + cond-cache fill
     enc_s = time.perf_counter() - t0
     grid = " ".join(f"{k}={v:.2f}s" for k, v in sorted(report.items()))
-    _log(f"warmup: ran {len(report)} bucket shapes in {warm_s:.2f}s "
+    _log(f"warmup: compiled {len(report)} bucket shapes in {warm_s:.2f}s "
          f"({grid}); cond encode+cache {enc_s:.2f}s")
 
     t0 = time.perf_counter()
@@ -111,8 +115,15 @@ def _serve(args, buckets, step_tiers) -> dict:
          f"{tuple(lat.shape)}, rms={float(np.sqrt((lat ** 2).mean())):.3f}")
     _log(f"engine: buckets={s['buckets']} step_tiers={s['step_tiers']} "
          f"dispatches={s['dispatches']} padded_lanes={s['padded_lanes']} "
+         f"compiles={s['compiles']} cold_dispatches={s['cold_dispatches']} "
          f"cond_cache={s['cond_cache']} data_parallel={s['data_parallel']} "
          f"model_parallel={s['model_parallel']}")
+    graphs = engine.graph_report()
+    if graphs["captures"]:
+        _log(f"graphs: {graphs['captures']} captures, {graphs['replays']} "
+             f"replays, pool {graphs['pool_bytes']} bytes, "
+             f"max_memory_allocated "
+             f"{torch.cuda.max_memory_allocated(engine.device)} bytes")
     if args.stats_json and distributed.is_main_process():
         payload = json.dumps(s, indent=2, sort_keys=True)
         if args.stats_json == "-":
@@ -121,6 +132,9 @@ def _serve(args, buckets, step_tiers) -> dict:
             with open(args.stats_json, "w") as f:
                 f.write(payload + "\n")
             print(f"stats: wrote JSON snapshot to {args.stats_json}")
+    if s["cold_dispatches"]:
+        raise RuntimeError(f"steady-state serve hit a compile: "
+                           f"{s['cold_dispatches']} cold dispatches")
     if not np.isfinite(lat).all():
         raise RuntimeError("served latents are not finite")
     return {"latents": latents, "stats": s, "warmup": report,

@@ -5,6 +5,8 @@ door) and is a *runtime* choice: checkpoints move freely across policies.
 
 * ``policy``   — PerfConfig validation, remat helpers, activation dtype
 * ``fused``    — sample→rewards→advantages→update as one CUDA graph
+* ``graphs``   — CUDA graphs a key on one pool: the capture, replay and
+  launch-count bookkeeping the fused step and the serving engine share
 * ``memory``   — saved-for-backward bytes and device peaks of the update
 * ``offload``  — host-memory offload of the reward towers
 

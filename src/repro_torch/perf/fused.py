@@ -27,13 +27,11 @@ captured with it: the eager first step has already run each of them on
 the group, so the communicators exist before the capture.  The graph's outputs are cloned after each
 replay: a pipelined loop reads them after the next replay has been queued.
 
+The capture, the pool, the generators' registration and the launch
+counts are ``perf.graphs.GraphCache``'s, which the serving engine shares.
 There is no fallback: a capture that fails raises with the operation CUDA
 refused.  On the CPU (only when the caller asks for it) the body runs
-eagerly each call.  The kernels' launch counters count the kernels that
-ran (``kernels.counts``): a graph keeps the launches its capture counted,
-takes them back out of the counters (a captured kernel has not run) and
-adds them again at each replay, so a run of n steps with one capture
-counts each kernel of the step n times.
+eagerly each call.
 """
 from __future__ import annotations
 
@@ -42,17 +40,9 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core.rollout import fold_seed
-from repro_torch.kernels import counts
+from repro_torch.perf.graphs import GraphCache
 
 DRAWS = ("x_init", "eps", "update_t", "update_eps")
-
-
-class _Graph:
-    __slots__ = ("graph", "cond", "draws", "out", "launches")
-
-    def __init__(self, graph, cond, draws, out, launches):
-        self.graph, self.cond, self.draws, self.out = graph, cond, draws, out
-        self.launches = launches
 
 
 class FusedStep:
@@ -63,12 +53,9 @@ class FusedStep:
         k = trainer.dist.microbatch
         self.gen_update = (torch.Generator(device=dev) if k <= 1 else
                            [torch.Generator(device=dev) for _ in range(k)])
-        self.captures = 0
-        self.replays = 0
-        self._graphs: Dict[tuple, _Graph] = {}
-        self._stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-        self._pool = (torch.cuda.graph_pool_handle() if dev.type == "cuda"
-                      else None)
+        self.graphs = (GraphCache(dev, (self.gen_sample,
+                                        *self._update_gens()))
+                       if dev.type == "cuda" else None)
 
     def __call__(self, cond: torch.Tensor, seed: int, it: int, *,
                  x_init: Optional[torch.Tensor] = None,
@@ -85,52 +72,25 @@ class FusedStep:
         self.gen_sample.manual_seed(step_seed)
         for gen, s in zip(self._update_gens(), tr.update_seeds(step_seed)):
             gen.manual_seed(s)
-        if tr.device.type != "cuda":
+        if self.graphs is None:
             out = tr._step_body(cond, self.gen_sample, self.gen_update, mask,
                                 draws)
         else:
+            given = {k: v for k, v in draws.items() if v is not None}
             key = (None if mask is None else tuple(bool(m) for m in mask),
-                   tuple(k for k in DRAWS if draws[k] is not None),
-                   tuple(cond.shape))
-            entry = self._graphs.get(key)
-            if entry is None:
-                out = self._warm_and_capture(key, cond, mask, draws)
+                   tuple(given), tuple(cond.shape))
+            inputs = {"cond": cond, **given}
+            if self.graphs.get(key) is not None:
+                out = self.graphs.replay(key, inputs)
             else:
-                entry.cond.copy_(cond)
-                for k, v in entry.draws.items():
-                    v.copy_(draws[k])
-                entry.graph.replay()
-                counts.add(entry.launches)
-                self.replays += 1
-                out = {k: v.clone() for k, v in entry.out.items()}
+                # the eager step is this step's real update
+                static = self.graphs.static_inputs(inputs)
+                out = self.graphs.capture(
+                    key, static, tr._step_body, static["cond"],
+                    self.gen_sample, self.gen_update, mask,
+                    {k: static[k] for k in given})
         tr._end_update()
         return out
-
-    def _warm_and_capture(self, key, cond, mask, draws):
-        tr, s = self.trainer, self._stream
-        cur = torch.cuda.current_stream()
-        s.wait_stream(cur)
-        with torch.cuda.stream(s):
-            static_cond = cond.clone()
-            static_draws = {k: v.clone() for k, v in draws.items()
-                            if v is not None}
-            # the eager step: this step's real update
-            metrics = tr._step_body(static_cond, self.gen_sample,
-                                    self.gen_update, mask, static_draws)
-        cur.wait_stream(s)
-        graph = torch.cuda.CUDAGraph()
-        for gen in (self.gen_sample, *self._update_gens()):
-            graph.register_generator_state(gen)
-        before = counts.read()
-        with torch.cuda.graph(graph, pool=self._pool, stream=s):
-            out = tr._step_body(static_cond, self.gen_sample,
-                                self.gen_update, mask, static_draws)
-        launches = counts.since(before)
-        counts.add(launches, times=-1)
-        self._graphs[key] = _Graph(graph, static_cond, static_draws, out,
-                                   launches)
-        self.captures += 1
-        return metrics
 
     def _update_gens(self):
         return (self.gen_update if isinstance(self.gen_update, list)
@@ -139,15 +99,16 @@ class FusedStep:
     def report(self) -> Dict[str, object]:
         """Captures, replays, each graph's kernel launches per replay and
         the graphs' memory pool (CUDA only)."""
-        out = {"captures": self.captures, "replays": self.replays,
-               "graphs": len(self._graphs),
-               "launches_per_replay": [
-                   {k: n for k, n in g.launches.items() if n}
-                   for g in self._graphs.values()]}
-        if self._pool is not None:
-            from repro_torch.perf.memory import pool_bytes
-            out["pool_bytes"] = pool_bytes(self._pool)
-        return out
+        g = self.graphs
+        if g is None:
+            return {"captures": 0, "replays": 0, "graphs": 0,
+                    "launches_per_replay": []}
+        return {"captures": g.captures, "replays": g.replays,
+                "graphs": len(g.graphs),
+                "launches_per_replay": [
+                    {k: n for k, n in e.launches.items() if n}
+                    for e in g.graphs.values()],
+                "pool_bytes": g.pool_bytes()}
 
 
 def make_fused_step(trainer) -> FusedStep:

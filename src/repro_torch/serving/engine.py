@@ -40,9 +40,24 @@ batching, admission control, warmup and a cond-encoding cache: the port of
   chunking.  Such an engine may hold no params: the trainer passes its own
   to every call.
 
-The port runs eagerly, so the reference's jit compile accounting
-(``compiles``, ``cold_dispatches``, ``compiled_shapes``) has no counterpart
-and is not in ``stats``.
+* **Compiled executables** (the reference's compile cache): on a CUDA
+  device each (bucket, steps, x0_only) shape runs as one captured CUDA
+  graph of the whole rollout (``perf.graphs.GraphCache``), keyed also by
+  what the eager body specialises on (the SDE-mask pattern, which draws
+  the caller injected, the condition's shape and dtype).  ``warmup()``
+  runs each (bucket × step tier) shape once eagerly and captures it, and
+  every later dispatch of the shape is one ``replay()``; a dispatch of an
+  uncaptured shape captures it on the hot path (the reference's cold
+  compile).  Each request's draws are made eagerly from its own seed
+  (``request_draws``) and copied into the graph's static inputs, so its
+  latent stays a function of (cond, seed, num_steps).  The graphs read the
+  params by storage: in-place updates (AdamW's) reach every replay, and a
+  call whose param storages differ from the captured ones recaptures.
+  There is no switch and no fallback: a capture that fails raises.  On the
+  CPU the body runs eagerly.  ``stats`` counts ``compiles`` and
+  ``cold_dispatches`` and lists ``compiled_shapes`` with the reference's
+  semantics on either device; the graphs' own figures (captures, replays,
+  launches per replay, the pool's bytes) are in :meth:`graph_report`.
 """
 from __future__ import annotations
 
@@ -57,7 +72,10 @@ import numpy as np
 import torch
 
 from repro_torch import distributed
-from repro_torch.core.rollout import Trajectory, fold_seed, request_seeds
+from repro_torch.core.rollout import (Trajectory, fold_seed, request_draws,
+                                      request_seeds)
+from repro_torch.models.params import leaves
+from repro_torch.perf.graphs import GraphCache
 from repro_torch.serving.admission import (AdmissionConfig, AdmissionController,
                                            RetryAfter)
 from repro_torch.serving.buckets import BucketGrid, StepGrid
@@ -223,11 +241,19 @@ class ServingEngine:
         self.admission = AdmissionController(admission)
         self.cond_cache = CondCache(cond_cache_entries)
         self._base_seed = fold_seed(_AUTO_SEED_BASE, next(_ENGINE_SEQ))
-        self._warmed: set = set()          # (bucket, num_steps) run in warmup
+        self._traced: set = set()          # (bucket, steps, x0_only) compiled
+        self._warmed: set = set()          # the shapes warmup ran
+        # every graph of the engine on one pool: safe only because the
+        # replays run one at a time on the caller's stream and each one's
+        # outputs are cloned before the next is queued (``_BatchResult``
+        # holds the clone while later batches run)
+        self._graphs = (GraphCache(self.device)
+                        if self.device.type == "cuda" else None)
         self._inflight = 0
         self._next_rid = 0
         self.counters: Dict[str, Any] = {
             "requests": 0, "dispatches": {}, "padded_lanes": 0,
+            "compiles": 0, "cold_dispatches": 0,
             "warmup_s": 0.0, "served_by_class": {}, "served_by_tenant": {},
             "slo_misses": {},
         }
@@ -366,12 +392,26 @@ class ServingEngine:
     def _resolve_steps(self, num_steps: Optional[int]) -> int:
         return self.steps.resolve(num_steps)
 
-    def _account(self, bucket: int, num_steps: int, n_real: int) -> None:
-        """The dispatch and padding counters of one bucket, for the queue
-        and the rollout paths alike."""
+    def _account(self, bucket: int, num_steps: int, n_real: int,
+                 x0_only: bool) -> None:
+        """The dispatch bookkeeping of one bucket, for the queue and the
+        rollout paths alike: the compile cache's and the dispatch and
+        padding counters.  Shapes are keyed (bucket, steps, x0_only), as the
+        two executor variants compile separately: warmup covers the queue
+        (x0_only) variant, so a trainer-path rollout at the same (bucket,
+        steps) is still a cold compile."""
+        self._note_trace((bucket, num_steps, x0_only))
         d = self.counters["dispatches"]
         d[(bucket, num_steps)] = d.get((bucket, num_steps), 0) + 1
         self.counters["padded_lanes"] += bucket - n_real
+
+    def _note_trace(self, shape, during_warmup: bool = False) -> None:
+        if shape in self._traced:
+            return
+        self._traced.add(shape)
+        self.counters["compiles"] += 1
+        if not during_warmup and shape not in self._warmed:
+            self.counters["cold_dispatches"] += 1
 
     def _fn(self, num_steps: int, x0_only: bool = False) -> Callable:
         fn = self._fns.get((num_steps, x0_only))
@@ -383,13 +423,59 @@ class ServingEngine:
         return fn
 
     @torch.no_grad()
+    def _run(self, params, cond: torch.Tensor, seeds: Sequence[int],
+             num_steps: int, x0_only: bool, sde_mask=None, **draws):
+        """One bucket through the executor of (num_steps, x0_only): the
+        final latents with ``x0_only``, else the Trajectory.  On a CUDA
+        device the key's graph is replayed, or captured first; on the CPU
+        the executor runs eagerly.  ``draws`` (``x_init`` / ``eps``, the
+        bucket's) replace the seeded draws."""
+        fn = self._fn(num_steps, x0_only)
+        draws = {k: v for k, v in draws.items() if v is not None}
+        if self._graphs is None:
+            return fn(params, cond, seeds, sde_mask, **draws)
+        mask = (tuple([True] * num_steps) if sde_mask is None
+                else tuple(bool(m) for m in sde_mask))
+        key = (tuple(cond.shape), cond.dtype, num_steps, x0_only, mask,
+               tuple(sorted(draws)))
+        inputs = {"cond": cond, **self._draws(seeds, num_steps, draws)}
+        storages = tuple(t.data_ptr() for _, t in leaves(params))
+        entry = self._graphs.get(key)
+        if entry is not None and entry.meta == storages:
+            return self._graphs.replay(key, inputs)
+        label = (f"b{cond.shape[0]}/s{num_steps}"
+                 + ("" if x0_only else "/traj")
+                 + ("" if all(mask) else
+                    "/sde" + "".join("1" if m else "0" for m in mask)))
+        static = self._graphs.static_inputs(inputs)
+        return self._graphs.capture(
+            key, static, fn, params, static["cond"], seeds, list(mask),
+            x_init=static["x_init"], eps=static["eps"], label=label,
+            meta=storages)
+
+    def _draws(self, seeds: Sequence[int], num_steps: int,
+               given: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The bucket's ``x_init`` (B, Lt, ld) and ``eps`` (T, B, Lt, ld)
+        in f32 on the device: the caller's where given, else each row's
+        own from its seed (``request_draws``, as ``rollout_keyed`` draws
+        them), made eagerly outside the graph."""
+        out = {k: v.to(device=self.device, dtype=torch.float32)
+               for k, v in given.items()}
+        if len(out) < 2:
+            rows = [request_draws(self.adapter, s, num_steps, self.device)
+                    for s in seeds]
+            out.setdefault("x_init", torch.stack([r[0] for r in rows]))
+            out.setdefault("eps", torch.stack([r[1] for r in rows], dim=1))
+        return out
+
     def _execute(self, cond: np.ndarray, seeds: Sequence[int],
                  num_steps: int, params=None) -> torch.Tensor:
         """Run one bucket-shaped batch -> (bucket, Lt, ld) f32 latents on
-        the engine's device (queued on the stream, not synchronised)."""
+        the engine's device (queued on the stream, not synchronised;
+        accounting is the caller's)."""
         cond_t = torch.from_numpy(cond).to(self.device)
-        return self._fn(num_steps, x0_only=True)(
-            self.params if params is None else params, cond_t, seeds)
+        return self._run(self.params if params is None else params, cond_t,
+                         seeds, num_steps, True)
 
     @staticmethod
     def _pad(arr, bucket: int, dim: int = 0):
@@ -416,7 +502,7 @@ class ServingEngine:
                 "the queue path (or use engine.rollout for trainers)")
         steps = batch[0].num_steps
         bucket = self.grid.pick(len(batch))
-        self._account(bucket, steps, len(batch))
+        self._account(bucket, steps, len(batch), x0_only=True)
         now = self.clock()
         served_c = self.counters["served_by_class"]
         served_t = self.counters["served_by_tenant"]
@@ -486,21 +572,20 @@ class ServingEngine:
         B = cond.shape[0]
         seeds = request_seeds(seed, B)
         cap = self.grid.capacity
-        fn = self._fn(steps)
         chunks: List[Trajectory] = []
         for i in range(0, B, cap):
             c = cond[i:i + cap]
             n = c.shape[0]
             bucket = self.grid.pick(n)
-            self._account(bucket, steps, n)
+            self._account(bucket, steps, n, x0_only=False)
             draws = {}
             if x_init is not None:
                 draws["x_init"] = self._pad(x_init[i:i + cap], bucket)
             if eps is not None:
                 draws["eps"] = self._pad(eps[:, i:i + cap], bucket, dim=1)
-            traj = fn(params, self._pad(c, bucket),
-                      seeds[i:i + cap] + [0] * (bucket - n), sde_mask,
-                      **draws)
+            traj = self._run(params, self._pad(c, bucket),
+                             seeds[i:i + cap] + [0] * (bucket - n), steps,
+                             False, sde_mask, **draws)
             if bucket != n:
                 traj = traj._replace(xs=traj.xs[:, :n],
                                      logps=traj.logps[:, :n],
@@ -516,10 +601,13 @@ class ServingEngine:
     # ---------------------------------------------------------------- warmup
     def warmup(self, num_steps_tiers: Optional[Sequence[int]] = None,
                params=None) -> Dict[str, float]:
-        """Run every (bucket × step tier) shape once on zero conditions, so
-        that kernel builds, library handles and the allocator's pools are in
-        place before traffic.  Returns per-shape seconds (synchronised);
-        the total also lands in ``counters['warmup_s']``."""
+        """Run every (bucket × step tier) shape once on zero conditions, by
+        default every tier in ``step_tiers`` (submit admits nothing
+        outside it), so that steady-state serving never compiles: on a
+        CUDA device each shape's eager run builds the kernels and library
+        handles and its graph is captured (the reference's trace).
+        Returns per-shape seconds (eager run + capture, synchronised); the
+        total also lands in ``counters['warmup_s']``."""
         if params is None and self.params is None:
             raise RuntimeError("warmup needs params")
         tiers = sorted(set(num_steps_tiers or self.steps.sizes))
@@ -532,11 +620,39 @@ class ServingEngine:
                 x0 = self._execute(cond, [0] * bucket, steps, params)
                 x0.cpu()
                 report[f"b{bucket}/s{steps}"] = time.perf_counter() - t0
-                self._warmed.add((bucket, steps))
+                self._warmed.add((bucket, steps, True))
+                self._note_trace((bucket, steps, True), during_warmup=True)
         self.counters["warmup_s"] += sum(report.values())
         return report
 
+    def graph_report(self) -> Dict[str, Any]:
+        """The engine's CUDA graphs: captures (recaptures on new param
+        storages included), per SDE-mask pattern too, replays, and for
+        each graph its label, launches per replay and eager-run and
+        capture seconds, and the shared pool's bytes.  On the CPU nothing
+        is captured."""
+        g = self._graphs
+        if g is None:
+            return {"captures": 0, "replays": 0, "graphs": []}
+        by_mask: Dict[str, int] = {}
+        rows = []
+        for e in g.graphs.values():
+            sde = e.label.partition("/sde")[2] or "all"
+            by_mask[sde] = by_mask.get(sde, 0) + 1
+            rows.append({"shape": e.label, "warm_s": e.warm_s,
+                         "capture_s": e.capture_s,
+                         "launches_per_replay": {
+                             k: n for k, n in e.launches.items() if n}})
+        return {"captures": g.captures, "captures_by_mask": by_mask,
+                "replays": g.replays, "graphs": rows,
+                "pool_bytes": g.pool_bytes()}
+
     # ----------------------------------------------------------------- stats
+    @staticmethod
+    def _shape_label(shape: tuple) -> str:
+        bucket, steps, x0_only = shape
+        return f"b{bucket}/s{steps}" + ("" if x0_only else "/traj")
+
     @property
     def stats(self) -> Dict[str, Any]:
         """JSON-serializable stats/health snapshot (tuple keys are
@@ -550,7 +666,12 @@ class ServingEngine:
             "dispatches": {f"b{b}/s{s}": n
                            for (b, s), n in sorted(c["dispatches"].items())},
             "padded_lanes": c["padded_lanes"],
-            "warmed_shapes": [f"b{b}/s{s}" for b, s in sorted(self._warmed)],
+            "compiled_shapes": [self._shape_label(s)
+                                for s in sorted(self._traced)],
+            "warmed_shapes": [self._shape_label(s)
+                              for s in sorted(self._warmed)],
+            "compiles": c["compiles"],
+            "cold_dispatches": c["cold_dispatches"],
             "warmup_s": c["warmup_s"],
             "priorities": self.admission.snapshot(),
             "served_by_class": dict(c["served_by_class"]),

@@ -189,8 +189,10 @@ def test_engine_queue_backpressure_and_stats_json():
     hs[0].result()                          # fetching retires the slot ...
     assert eng.stats["inflight"] == 1       # ... and the queued pair runs
     assert eng.stats["pending"] == 0 and hs[3].done
-    for gone in ("compiles", "cold_dispatches", "compiled_shapes"):
-        assert gone not in s
+    # the reference's compile accounting: two (b2, s2) dispatches of the
+    # queue variant on an engine never warmed, one cold compile
+    assert s["compiles"] == 1 and s["cold_dispatches"] == 1
+    assert s["compiled_shapes"] == ["b2/s2"] and s["warmed_shapes"] == []
 
 
 def test_engine_refuses_sharded_layouts():
@@ -222,7 +224,19 @@ def test_serve_cli_runs_end_to_end_on_cpu(tmp_path, capsys):
     assert stats["dispatches"] == {"b1/s2": 1, "b2/s2": 1}
     assert stats["warmed_shapes"] == ["b1/s2", "b2/s2"]
     assert stats["cond_cache"]["misses"] == 3
-    assert "req/s" in capsys.readouterr().out
+    assert stats["compiles"] == 2 and stats["cold_dispatches"] == 0
+    out = capsys.readouterr().out
+    assert "req/s" in out and "compiles=2 cold_dispatches=0" in out
+
+
+def test_serve_cli_refuses_a_steady_state_serve_that_compiled(tmp_path,
+                                                              monkeypatch):
+    """With warmup skipped, the serve pass compiles on the hot path, and
+    the CLI raises as the reference's does (a RuntimeError, which ``-O``
+    keeps)."""
+    monkeypatch.setattr(ServingEngine, "warmup", lambda self: {})
+    with pytest.raises(RuntimeError, match="hit a compile: 2 cold"):
+        tserve.main(_cli(tmp_path, "--device", "cpu"))
 
 
 def test_serve_cli_defaults_to_cuda_and_raises_without_it(tmp_path,

@@ -10,9 +10,11 @@ through it, on the CPU.
   its corpus, 25 by default).  Where the reference asserts bitwise equality
   of one request across batch sizes, the port holds it to
   ``_same_request``'s f32 band: its draws are the request's own, bitwise,
-  but a matmul may sum in another order at another batch size.  The port
-  runs eagerly and compiles nothing, so the reference's "never compiles"
-  reads here "every dispatched shape was warmed".
+  but a matmul may sum in another order at another batch size.  The
+  compile accounting (``compiles``, ``cold_dispatches``,
+  ``compiled_shapes``) moves on the CPU as on the card, where each shape
+  is a captured CUDA graph; here it is also held against the reference's
+  engine on one load (``-k accounting``).
 * Parity with the JAX package on replayed draws: ``ServingEngine.rollout``
   in chunks, and ``flow_grpo`` / ``awm`` steps with an engine attached.
 * The engine path against the engine-free path, ``attach_engine``'s
@@ -525,19 +527,48 @@ def test_stats_snapshot_is_json_serializable():
 
 
 # ------------------------------------------------------------ warmup & cache
-def test_warmup_runs_the_grid_so_every_dispatch_is_warmed():
+def test_warmup_pretraces_grid_so_serving_never_compiles():
     eng = _engine()
     report = eng.warmup()
     assert set(report) == {"b1/s3", "b2/s3", "b4/s3"}
     assert all(dt > 0 for dt in report.values())
     eng.serve(COND, SEED)
     stats = eng.stats
+    assert stats["cold_dispatches"] == 0
     assert set(stats["dispatches"]) <= set(stats["warmed_shapes"])
     assert stats["warmup_s"] > 0
+    # an un-warmed engine serving the same load compiles on the hot path
+    # (both dispatches share the (4, 3) shape, so exactly one cold trace)
     cold = _engine()
     cold.serve(COND, SEED)
+    assert cold.stats["cold_dispatches"] == 1
     assert cold.stats["warmed_shapes"] == []
     assert cold.stats["dispatches"] == {"b4/s3": 2}
+
+
+def test_trainer_rollout_at_a_warmed_shape_is_still_a_cold_compile():
+    """Warmup covers the queue (x0_only) variant; the trainer path's
+    trajectory variant at the same (bucket, steps) compiles on its own,
+    once, and its label carries ``/traj``."""
+    eng = _engine()
+    eng.warmup()
+    assert eng.stats["compiles"] == 3
+    cond = torch.from_numpy(COND[:4])
+    for seed in (1, 2):
+        eng.rollout(PARAMS, cond, seed)
+    s = eng.stats
+    assert s["compiles"] == 4 and s["cold_dispatches"] == 1
+    assert "b4/s3/traj" in s["compiled_shapes"]
+    assert "b4/s3/traj" not in s["warmed_shapes"]
+
+
+def test_graph_report_on_the_cpu_captures_nothing():
+    """On the CPU the executor runs eagerly: no graph, no pool."""
+    eng = _engine()
+    eng.warmup()
+    eng.serve(COND[:2], SEED)
+    assert eng.graph_report() == {"captures": 0, "replays": 0,
+                                  "graphs": []}
 
 
 def test_warmup_covers_every_step_tier_by_default():
@@ -549,6 +580,7 @@ def test_warmup_covers_every_step_tier_by_default():
         for i in range(5):
             eng.submit(cond=COND[i], seed=i, num_steps=steps)
     eng.drain()
+    assert eng.stats["cold_dispatches"] == 0
     assert set(eng.stats["dispatches"]) <= set(eng.stats["warmed_shapes"])
 
 
@@ -763,6 +795,105 @@ def test_engine_rollout_matches_jax_on_replayed_draws():
                                rtol=1e-5)
     np.testing.assert_allclose(one.logps.numpy(), got.logps.numpy(),
                                rtol=1e-5)
+
+
+def test_clone_tree_copies_every_tensor_of_a_trajectory():
+    """What a replay returns: its outputs cloned, so the next replay of
+    the graph cannot overwrite what a caller still holds."""
+    from repro_torch.perf.graphs import clone_tree
+    traj = rollout_keyed(ADAPTER, PARAMS, torch.from_numpy(COND[:2]), [1, 2],
+                         SCHED, 2)
+    got = clone_tree({"traj": traj, "n": 3, "pair": (traj.x0, None)})
+    assert type(got["traj"]) is type(traj) and got["n"] == 3
+    for a, b in zip(got["traj"], traj):
+        assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
+    assert got["pair"][1] is None and torch.equal(got["pair"][0], traj.x0)
+
+
+def test_graph_cache_needs_a_cuda_device():
+    from repro_torch.perf.graphs import GraphCache
+    with pytest.raises(ValueError, match="CUDA graphs need a CUDA device"):
+        GraphCache("cpu")
+
+
+def test_launch_counts_take_dims_first_counted_after_a_capture():
+    """A replay adds its capture's counts after another path has counted
+    a dim pair the capture never saw: that pair takes 0 from it."""
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.flash_attention import flash_attention
+    saved = (flash_attention.launches, dict(flash_attention.pair_launches))
+    try:
+        before = counts.read()
+        flash_attention.launches += 2
+        flash_attention.pair_launches["64x64"] = \
+            flash_attention.pair_launches.get("64x64", 0) + 2
+        captured = counts.since(before)
+        flash_attention.pair_launches["7x5"] = 1      # counted later
+        counts.add(captured)
+        assert flash_attention.pair_launches["7x5"] == 1
+        assert counts.since(before)["flash_attention@64x64"] == 4
+    finally:
+        flash_attention.launches = saved[0]
+        flash_attention.pair_launches.clear()
+        flash_attention.pair_launches.update(saved[1])
+
+
+def test_compile_accounting_matches_the_reference():
+    """One load on an injected clock through the reference's engine and
+    the port's: a warmed tier, a deadline flush, a cold tier on the queue
+    path, and two trainer-path rollouts (chunks of 2 + 1: ``/traj``
+    shapes, compiled once).  ``compiles``, ``cold_dispatches``,
+    ``compiled_shapes``, ``warmed_shapes`` and the dispatches agree."""
+    ja, ta = adapters("flow_sde", 0.7, num_steps=2)
+    jp, tp = params_pair(ja, jnp.float32)
+    (cond,) = normal(5, (4, COND_LEN, COND_DIM))
+    kw = dict(num_steps=2, max_batch=2, cond_len=COND_LEN,
+              step_tiers=(1, 2), deadline_s=0.5)
+    jclk, tclk = _Clock(), _Clock()
+    je = JServingEngine(ja, jsched.build("flow_sde", 0.7), jp, clock=jclk,
+                        **kw)
+    te = ServingEngine(ta, tsched.build("flow_sde", 0.7), tp, device="cpu",
+                       clock=tclk, **kw)
+    keys = request_keys(jax.random.PRNGKey(11), 4)
+    fields = ("compiles", "cold_dispatches", "compiled_shapes",
+              "warmed_shapes", "dispatches", "padded_lanes")
+
+    def both(step):
+        for eng, clk, tag in ((je, jclk, "jax"), (te, tclk, "torch")):
+            step(eng, clk, tag)
+        got = {f: te.stats[f] for f in fields}
+        assert got == {f: je.stats[f] for f in fields}
+        return got
+
+    def submit(eng, tag, i, **kw):
+        seed = {"key": keys[i]} if tag == "jax" else {"seed": 100 + i}
+        return eng.submit(cond=cond[i], **seed, **kw)
+
+    both(lambda eng, clk, tag: eng.warmup(num_steps_tiers=[2]))
+    both(lambda eng, clk, tag: [submit(eng, tag, i) for i in (0, 1)])
+
+    def flush(eng, clk, tag):
+        submit(eng, tag, 2)
+        clk.t += 1.0
+        eng.poll()
+
+    both(flush)
+    got = both(lambda eng, clk, tag: (submit(eng, tag, 3, num_steps=1),
+                                      eng.drain()))
+    assert got["cold_dispatches"] == 1 and got["compiles"] == 3
+
+    def rollout(eng, clk, tag):
+        params = jp if tag == "jax" else tp
+        seed = jax.random.PRNGKey(12) if tag == "jax" else 12
+        c = jnp.asarray(cond[:3]) if tag == "jax" else to_torch(cond[:3])
+        for _ in range(2):
+            eng.rollout(params, c, seed)
+
+    got = both(rollout)
+    assert got["compiles"] == 5 and got["cold_dispatches"] == 3
+    assert got["compiled_shapes"] == ["b1/s1", "b1/s2/traj", "b1/s2",
+                                      "b2/s2/traj", "b2/s2"]
+    assert got["warmed_shapes"] == ["b1/s2", "b2/s2"]
 
 
 def _engine_step_draws(jtr, key, it, B):
@@ -1009,7 +1140,9 @@ def test_fuzz_corpus_reject_then_retry(fuzz_env):
 
 def test_fuzz_load_only_ran_warmed_shapes(fuzz_env):
     """After the whole corpus (definition order): the fuzzed load ran only
-    warmed shapes, and the final stats snapshot still serializes."""
+    warmed shapes and never compiled, and the final stats snapshot still
+    serializes."""
     eng, _, _ = fuzz_env
+    assert eng.stats["cold_dispatches"] == 0
     assert set(eng.stats["dispatches"]) <= set(eng.stats["warmed_shapes"])
     assert json.loads(json.dumps(eng.stats)) == eng.stats
