@@ -32,11 +32,12 @@ script exits 2 before printing any result.
 4. ``FlowAdapter.velocity`` at full ``flux_dit`` width, depth 2, through the
    kernels and through the plain versions, at the bf16 band.
 5. The main path: ``repro_torch.launch.serve.main`` serving 4 requests of
-   full ``flux_dit`` (38 blocks, bf16, random weights from a seed) at
+   full-width ``flux_dit`` at 19 of its 38 blocks (cut from 38 when
+   phase 46 came; bf16, random weights from a seed) at
    FLUX.1-dev's 1024x1024 geometry (4096 latent tokens of width 64, a
    512-token condition of width 4096) under ``flow_sde``, 4 steps.  The
    kernels' launch counts must match the path: ``sde_step`` 4 per batch and
-   ``flash_attention`` 38 x 4 per batch.
+   ``flash_attention`` 19 x 4 per batch.
 6. One denoising step of the engine that phase 5 built, traced with
    ``torch.profiler``: device time by kernel group and the device's idle
    share over the step.
@@ -80,18 +81,18 @@ script exits 2 before printing any result.
    the plain versions at the bf16 band; then with ``ops.ssd_scan`` stubbed
    to zeros, which must move it by ten bands.
 12. The Mamba-2 serving path: ``repro_torch.launch.serve.main`` serving 4
-   requests of ``mamba2-370m`` (48 layers, bf16, random weights from a
-   seed) over a 511-token condition of width 4096, one time token and 4096
+   requests of ``mamba2-370m`` (24 of its 48 layers, cut from 48 when
+   phase 46 came; bf16, random weights from a seed) over a 511-token condition of width 4096, one time token and 4096
    latent tokens of width 64 (4608 = 36 x 128 tokens: the scan takes no
    ragged chunk) under ``flow_sde``, 4 steps.  Launch counts must match the
-   path (``ssd_scan`` 48 x 4 and ``sde_step`` 4 per batch), every
+   path (``ssd_scan`` 24 x 4 and ``sde_step`` 4 per batch), every
    ``ssd_scan`` launch on the tensor-core kernel; prints s per step, req/s,
    peak memory and a profile of one step.
 13. The same 4 requests served in f32 through ``serve.main``, then again
    with the SSM leaves drawn, through the engine and the kernels: the
    latents equal ``rollout_keyed``'s through the kernels bitwise, and each
    of its steps is held against the same step through the plain versions
-   from the same state.  With the leaves drawn the 48 layers amplify any
+   from the same state.  With the leaves drawn the 24 layers amplify any
    rounding difference, so the replay is held in f32 and step by step; the
    phase prints one velocity's gap between the kernels and the plain
    versions beside the gap between two chunkings of the plain scan, in f32
@@ -169,9 +170,9 @@ script exits 2 before printing any result.
    loss, grad norm and reward must be bitwise equal; then one update at
    depth 2 under ``block`` against ``none`` on one set of injected draws,
    to the reference's band.
-21. The fused, pipelined step on the same model at 12 layers (cut from
+21. The fused, pipelined step on the same model at 6 layers (cut from
    48 to 24 to keep the script near 900 s when phase 44 came, to 12 when
-   phase 45 did):
+   phase 45 did, to 6 when phase 46 did):
    ``--set perf.fuse_step=true --set perf.remat=block --set
    perf.offload_rewards=true --set perf.policy_dtype=bfloat16 --set
    loop.pipeline=2``, 4 steps: one capture and three CUDA-graph replays,
@@ -201,15 +202,17 @@ script exits 2 before printing any result.
    loss and backward on one trajectory), against the reference's band and
    held to the stated one; the fused step with ``microbatch=2`` on the
    mesh (1 capture with its collectives, 1 replay bitwise the eager
-   step); (c) ``mamba2-370m`` at 12 layers under ``none`` and ``flux_dit``
-   at 8 blocks under ``block`` (cut from 48 and 16 when phase 44 came,
-   the SSM to 12 from 24 when phase 45 did),
+   step); (c) ``mamba2-370m`` at 6 layers under ``none`` and ``flux_dit``
+   at 4 blocks under ``block`` (cut from 48 and 16 when phase 44 came,
+   the SSM to 12 from 24 when phase 45 did, to 6 and 4 when phase 46
+   did),
    each with
    ``microbatch=2`` on the mesh,
    through ``launch.train``, 2 steps: launch counts, s a step, steps/s,
    peak memory, and the gradient all-reduce's device time against the
    step; (d) the mesh trainer's checkpoint restored without a mesh,
-   bitwise; (e) ``mamba2-370m`` at 48 layers served on the mesh against
+   bitwise; (e) ``mamba2-370m`` at 6 layers (cut from 48 when phase 46
+   came) served on the mesh against
    the engine without one, a bucket of 4, per request bitwise.
 24. Training through the serving engine: ``flow_grpo`` on
    ``mamba2-370m`` at its published width and phase 19's 24 layers, bf16,
@@ -250,8 +253,9 @@ script exits 2 before printing any result.
    groups of one SSM block) with the SSM leaves and the shared wq/wk
    drawn, through the kernels against the plain versions in f32 and bf16.
 27. The hybrid train path: ``repro_torch.launch.train.main`` at
-   ``zamba2-2.7b``'s full width and 12 of its 54 layers (2 of its 9
-   groups, two shared-attention sites) under
+   ``zamba2-2.7b``'s full width and 6 of its 54 layers (1 of its 9
+   groups, one shared-attention site; cut from 12 when phase 46 came)
+   under
    ``perf.remat=block``, ``flow_grpo`` for 2 steps and a traced third at
    phase 19's geometry, batch and rewards, SSM leaves and shared wq/wk
    drawn at train start: launch counts on their variants (every scan
@@ -320,8 +324,9 @@ script exits 2 before printing any result.
    memory; the velocity at depth 2 against the plain versions at the
    bf16 band (wq/wk drawn at 1/sqrt(d_model); the gap at the
    repository's init printed); and ``launch.train`` flow_grpo for 2 steps
-   at all layers (musicgen-large under ``perf.remat=block``: its 3.23 B
-   params with bf16 grads and f32 moments are ≈ 38.8 GB), AdamW at lr
+   at all layers of internvl2-1b and 24 of musicgen-large's 48 (cut from
+   48 when phase 46 came; under ``perf.remat=block``: at 48 layers its
+   3.23 B params with bf16 grads and f32 moments are ≈ 38.8 GB), AdamW at lr
    1e-3 with weight decay 4 (lr * wd past half a bf16 ulp, so the decay
    shows in bf16 params): launch counts, finite metrics, params that move, and
    ``frontend_proj`` (which the velocity never reads) with a zero
@@ -362,9 +367,10 @@ script exits 2 before printing any result.
    (written at its exit, ``REPRO_KERNEL_COUNTS``) against the path, 2
    finite history rows an artifact, and a rerun that skips both.
 37. The linter: ``python -m repro_torch.analysis --format json
-   src/repro_torch`` in a subprocess with ``torch``, ``numpy``, ``jax`` and
-   ``repro`` blocked (it is stdlib-only); it must exit 0 (every finding
-   suppressed inline with a reason, or in ``.torchlint-baseline.json``).
+   src/repro_torch examples_torch`` in a subprocess with ``torch``,
+   ``numpy``, ``jax`` and ``repro`` blocked (it is stdlib-only); it must
+   exit 0 (every finding suppressed inline with a reason, or in
+   ``.torchlint-baseline.json``).
    Prints the files linted, the new, suppressed and baselined counts and
    the seconds.  Launches no kernel.
 38. The reference's production layout (``repro_torch.sharding``'s rule
@@ -479,8 +485,9 @@ script exits 2 before printing any result.
    on wgmma, y and the final state against the plain chunked scan (16
    heads a call) at phase 10's bands, the state's gap also after 36 and
    512 chunks; their ms, plain ms and bounds (library: none).  (b)
-   ``smollm-360m`` at 32 layers, ``mamba2-370m`` at 48 and
-   ``zamba2-2.7b`` at 12, bf16, through ``tasks.make_prefill_step`` at
+   ``smollm-360m`` at 8 layers, ``mamba2-370m`` at 12 and
+   ``zamba2-2.7b`` at 6 (cut from 32, 48 and 12 when phase 46 came), bf16,
+   through ``tasks.make_prefill_step`` at
    the window over 524160 tokens (attention and scan launches counted,
    all on wgmma), each attention cache cut to its last 8192 entries, 128
    greedy ``make_decode_step`` steps: finite logits, prefill tokens/s,
@@ -501,8 +508,9 @@ script exits 2 before printing any result.
    ``flux_dit`` engine at b4 (warmed) and b1 (captured here), the replayed
    latents bitwise the eager executor's on the same seeds, and for each
    route one synchronised call's s a step and req/s and one traced call's
-   device busy ms and idle share; (b) ``smollm-360m`` (32 layers) and
-   ``mamba2-370m`` (48) at full width through ``serve.main`` at buckets
+   device busy ms and idle share; (b) ``smollm-360m`` (8 of its 32
+   layers) and ``mamba2-370m`` (12 of 48; cut from 32 and 48 when phase 46
+   came) at full width through ``serve.main`` at buckets
    (1, 4), one tier of 4 steps, serving 5 requests (one b4, one b1
    dispatch, no cold one), a cold engine on the same params serving them
    again (one cold dispatch a shape, its latents bitwise the replays'),
@@ -513,22 +521,57 @@ script exits 2 before printing any result.
    every step, the captures per SDE-mask pattern; (d) each engine's
    eager-run and capture seconds per shape, launches per replay and
    pool bytes beside ``max_memory_allocated``.
-46. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
+46. The examples (``examples_torch/``, the ports of ``examples/``), in
+   turn, each in a fresh working directory (their configs write
+   ``cache/...`` relative to it).  (f) first: the attention forward and
+   backward at the e2e shape (16 rows of 16 + 64 tokens, 12 heads of 64,
+   non-causal) and at the learning signal's reduced one (64 rows of 4 +
+   8, 8 heads of 32), the scan at serve_flow's reduced mamba2-370m (4 rows
+   of 17 tokens, 16 heads of 32, state 32, chunk 32: the FMA passes),
+   ``sde_step`` and ``grpo_loss`` at the e2e's sizes, each against its
+   plain version at the bands of phases 3, 10 and 32, with its ms, bound
+   and SDPA's ms.  (a) ``train_grpo_e2e.py`` at its full configuration
+   (the ~100M DiT, 12 layers of 768, 12 heads of 64; flow_sde, T = 8; 4
+   prompts x group 4; three rewards under gdpo; 64 prompts through the
+   default frozen encoder) for 200 steps with checkpoints at 100 and 200
+   and its reward log, through the example's ``run``: its first 4 steps
+   eagerly (as the example runs by default), then the 200 steps under
+   ``perf.fuse_step`` (each step a replayed CUDA graph of the same
+   kernels; an eager step is host-bound), their first 4 rows and reward
+   log bitwise the eager ones; then a second run resumed from a copy of
+   the step-100 checkpoint to step 200: its params, AdamW moments and
+   step, its rows 100-199 and its reward log bitwise the first run's,
+   every metric finite, launch counts those of the 304 steps; s a step
+   (eager and replayed), peak memory, launches a step, one traced eager
+   and one traced replayed step's idle share, early -> late reward
+   (recorded, not asserted, as the example does).  (b) The
+   reference's test_reward_improves (tests/test_trainers.py:38-63) for
+   flow_grpo, nft and awm: mean(last 10) > mean(first 5) + 0.02 over 45
+   steps.  (c) ``multi_reward.py``: 3 unique frozen towers for 4 reward
+   configs, weighted_sum and gdpo 15 steps each, finite.  (d)
+   ``quickstart.py``: flow_grpo, then awm, finite.  (e) ``serve_flow.py``:
+   flux_dit and mamba2-370m (reduced) under ode and dance_sde through the
+   warmed engine: no cold dispatch, the condition cache hit, each
+   engine's latents bitwise an eager ``rollout_keyed`` on the same
+   injected draws; req/s and warmup seconds.
+47. ``main_path``, ``train_path``, ``ssm_path``, ``dense_path``,
    ``ssm_train_path``, ``perf_path``, ``distributed_path``,
    ``engine_path``, ``hybrid_path``, ``moe_path``, ``frontend_path``,
    ``lm_path``, ``sweep_path``, ``lint``, ``layout_path``,
    ``moe_layer_path``, ``ssm_layer_path``, ``seq_decode_path``,
    ``ep_layer_path``, ``route_path``, ``long_path``, ``graphs_path``,
-   ``phase_times`` and ``kernels`` JSON lines, the card's name and power
-   limit, and the last line ``{"ok": true, "device": {...}}``.
+   ``examples_path``, ``phase_times`` and ``kernels`` JSON lines, the
+   card's name and power limit, and the last line ``{"ok": true,
+   "device": {...}}``.
 
 Each phase prints its seconds as it ends (``[N] took ... s``), and the
 script the total.  ``--only N,...`` runs just the device and build phases
-and phases N (3, 8-45) and prints no result lines: a development aid.
+and phases N (3, 8-46) and prints no result lines: a development aid.
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import gc
 import json
@@ -555,7 +598,7 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 import torch  # noqa: E402
 
 from repro_torch import configs, registry  # noqa: E402
-from repro_torch.api import Experiment  # noqa: E402
+from repro_torch.api import Experiment, apply_overrides  # noqa: E402
 from repro_torch.api import loop as loop_lib  # noqa: E402
 from repro_torch import optim as optim_lib  # noqa: E402
 from repro_torch.config import (INPUT_SHAPES, FlowRLConfig,  # noqa: E402
@@ -596,7 +639,9 @@ F32_FLOPS = 67e12
 B_SERVE, LAT_TOKENS, LAT_DIM = 4, 4096, 64
 COND_LEN, COND_DIM = 512, 4096
 SEQ, HEADS, HEAD_DIM = COND_LEN + LAT_TOKENS, 24, 128
-NUM_STEPS, N_LAYERS = 4, 38
+# flux_dit's serving depth: 19 of its 38 blocks (cut from 38 when phase
+# 46 came)
+NUM_STEPS, N_LAYERS = 4, 19
 # the dense LM path: smollm-360m at its published width (32 layers, 15
 # query heads over 5 kv heads of 64) over [512 cond; 1 time; 4096 latent]
 # tokens, causal: a ragged 4609 = 36 x 128 + 1, the last query tile one row
@@ -1312,10 +1357,15 @@ def check_velocity(dev) -> None:
 
 
 # ------------------------------------------------------------------ phase 5
+def depth(layers: int) -> list:
+    """The CLI override that cuts an arch to ``layers`` layers."""
+    return ["--set", "arch_overrides=" + json.dumps({"n_layers": layers})]
+
+
 def main_path() -> dict:
     argv = ["--arch", "flux_dit", "--sde", "flow_sde", "--device", "cuda",
             "--requests", str(B_SERVE), "--max-batch", str(B_SERVE),
-            "--bucket", str(B_SERVE),
+            "--bucket", str(B_SERVE), *depth(N_LAYERS),
             "--set", f"flow.num_steps={NUM_STEPS}",
             "--set", f"flow.latent_tokens={LAT_TOKENS}",
             "--set", f"flow.latent_dim={LAT_DIM}",
@@ -1830,7 +1880,9 @@ def check_updates(dev, arch: str = "flux_dit") -> dict:
 # the Mamba-2 serving path: mamba2-370m at its published width, one time
 # token between a 511-token condition and 4096 latent tokens, so that the
 # sequence (4608 = 36 x 128) is a multiple of the scan's chunk
-SSM_ARCH, SSM_LAYERS, SSM_COND_LEN = "mamba2-370m", 48, 511
+# mamba2-370m's serving depth: 24 of its 48 layers (cut from 48 when
+# phase 46 came)
+SSM_ARCH, SSM_LAYERS, SSM_COND_LEN = "mamba2-370m", 24, 511
 SSM_SEQ = SSM_COND_LEN + 1 + LAT_TOKENS
 SSM_HEADS, SSM_HEAD_DIM, SSM_STATE, SSM_CHUNK = 32, 64, 128, 128
 # max |kernel - plain| / max |plain|: f32 sums in another order; in bf16 y
@@ -2124,10 +2176,10 @@ def check_ssm_velocity(dev) -> dict:
 
 
 # ----------------------------------------------------------------- phase 12
-def _ssm_argv(dtype: str) -> list:
+def _ssm_argv(dtype: str, layers: int = SSM_LAYERS) -> list:
     return ["--arch", SSM_ARCH, "--sde", "flow_sde", "--device", "cuda",
             "--requests", str(B_SERVE), "--max-batch", str(B_SERVE),
-            "--bucket", str(B_SERVE),
+            "--bucket", str(B_SERVE), *depth(layers),
             "--set", f"flow.num_steps={NUM_STEPS}",
             "--set", f"flow.latent_tokens={LAT_TOKENS}",
             "--set", f"flow.latent_dim={LAT_DIM}",
@@ -2551,10 +2603,10 @@ def check_dense_velocities(dev) -> dict:
 
 
 # ----------------------------------------------------------------- phase 16
-def _dense_argv() -> list:
+def _dense_argv(layers: int = DENSE_LAYERS) -> list:
     return ["--arch", DENSE_ARCH, "--sde", "flow_sde", "--device", "cuda",
             "--requests", str(B_SERVE), "--max-batch", str(B_SERVE),
-            "--bucket", str(B_SERVE),
+            "--bucket", str(B_SERVE), *depth(layers),
             "--set", f"flow.num_steps={NUM_STEPS}",
             "--set", f"flow.latent_tokens={LAT_TOKENS}",
             "--set", f"flow.latent_dim={LAT_DIM}",
@@ -3048,8 +3100,9 @@ def check_block_update(dev, arch: str) -> dict:
 # ----------------------------------------------------------------- phase 21
 FUSED_STEPS = 4
 # the fused path's depth (cut from 48 to 24 with phases 17, 20 and 23 to
-# keep the script near 900 s once phase 44 ran, to 12 once phase 45 did)
-FUSED_LAYERS = 12
+# keep the script near 900 s once phase 44 ran, to 12 once phase 45 did,
+# to 6 once phase 46 did)
+FUSED_LAYERS = 6
 FUSED = ("--set", "perf.fuse_step=true", "--set", "perf.remat=block",
          "--set", "perf.offload_rewards=true",
          "--set", "perf.policy_dtype=bfloat16", "--set", "loop.pipeline=2",
@@ -3514,7 +3567,8 @@ def check_mesh_fused(dev, mesh) -> dict:
 # (c)'s depths (cut from 48 layers and 16 blocks with phases 17, 20 and
 # 21 to keep the script near 900 s once phase 44 ran; the SSM from 24 to
 # 12 once phase 45 did)
-MESH_SSM_LAYERS, MESH_FLUX_BLOCKS = 12, 8
+# cut from 12 and 8 when phase 46 came
+MESH_SSM_LAYERS, MESH_FLUX_BLOCKS = 6, 4
 
 
 def mesh_train_path(tmp: str, mesh) -> dict:
@@ -3559,13 +3613,14 @@ def mesh_train_path(tmp: str, mesh) -> dict:
 
 
 def check_mesh_serving(dev, mesh) -> dict:
-    """(e) mamba2-370m at 48 layers, SSM leaves drawn, 4 requests in one
-    bucket of 4, 4 steps of flow_sde: the engine on the one-rank mesh
-    (its keyed executor: the bucket split over "data", the latents
-    all-gathered) against the engine without one, per request bitwise."""
+    """(e) mamba2-370m at ``MESH_SSM_LAYERS`` layers, SSM leaves drawn, 4
+    requests in one bucket of 4, 4 steps of flow_sde: the engine on the
+    one-rank mesh (its keyed executor: the bucket split over "data", the
+    latents all-gathered) against the engine without one, per request
+    bitwise."""
     from repro_torch.core import schedulers
     from repro_torch.serving import ServingEngine
-    cfg = configs.get(SSM_ARCH)
+    cfg = depth_cfg(SSM_ARCH, MESH_SSM_LAYERS)
     flow = FlowRLConfig(num_steps=NUM_STEPS, latent_tokens=LAT_TOKENS,
                         latent_dim=LAT_DIM, sde_type="flow_sde")
     adapter = FlowAdapter(cfg, flow, COND_DIM)
@@ -4287,7 +4342,9 @@ def check_hybrid_velocity(dev) -> dict:
 # from all 54 layers to 30 when the whole script reached ≈ 1050 s of its
 # 1200 (the MoE layer phase, 39, came in), then to 12 to make room for the
 # sequence-sharded decode (phase 41); the serving path (26) keeps all 54
-HY_TRAIN_LAYERS = 12
+# 6 of zamba2-2.7b's 54 layers: one group, one shared-attention site (cut
+# from 12 when phase 46 came)
+HY_TRAIN_LAYERS = 6
 HY_TRAIN_KERNELS = (
     {"ssd_scan": HY_TRAIN_LAYERS, "flash_attention": HY_TRAIN_LAYERS // 6},
     {"ssd_scan_bwd": HY_TRAIN_LAYERS,
@@ -5062,6 +5119,9 @@ def grok_serve_phase(dev) -> dict:
 # layers, 32 heads over 32: a group of 1); the LM task path on internvl2-1b
 # at the reference's input shapes
 FE_ARCHS = {"internvl2-1b": 24, "musicgen-large": 48}
+# the depths phase 33 trains them at: musicgen-large at 24 of its 48 layers
+# (cut from 48 when phase 46 came)
+FE_TRAIN_LAYERS = {"internvl2-1b": 24, "musicgen-large": 24}
 FE_HEAD_DIM = 64
 # AdamW in the frontend archs' flow training: the velocity never reads
 # frontend_proj, so its gradient is zero and it moves by the decay alone.
@@ -5402,12 +5462,13 @@ class _FrontendWatch(_TrainWatch):
 
 def frontend_train_path(tmp: str, arch: str, layers: int) -> dict:
     """``repro_torch.launch.train.main``: flow_grpo for 2 steps at
-    ``arch``'s full width and all its layers, phase 19's batch, T and
+    ``arch``'s full width and ``layers`` layers, phase 19's batch, T and
     rewards over 511 + 1 + 4096 tokens, AdamW at ``FE_LR`` with weight
     decay ``FE_WD``, wq/wk drawn at train start; musicgen-large under
-    ``perf.remat=block`` (its 3.23 B params with bf16 grads and f32
-    moments are ≈ 38.8 GB before activations; 48 layers of saved
-    activations do not fit beside them), internvl2-1b under ``none``.
+    ``perf.remat=block`` (at all 48 layers its 3.23 B params with bf16
+    grads and f32 moments are ≈ 38.8 GB before activations, and 48 layers
+    of saved activations do not fit beside them), internvl2-1b under
+    ``none``.
     ``train_one``'s checks, and ``frontend_proj``: a zero gradient at the
     first update, and after the two steps each element its start times
     (1 - lr * wd) per step, as AdamW's f32 update with no moment writes
@@ -5450,7 +5511,8 @@ def frontend_train_path(tmp: str, arch: str, layers: int) -> dict:
 def frontend_phase(dev, tmp: str) -> dict:
     """Phase 33: each frontend arch served at all its layers, its
     velocity at depth 2 against the plain versions (wq/wk drawn; the gap
-    at the repository's init printed), and trained at all its layers."""
+    at the repository's init printed), and trained at
+    ``FE_TRAIN_LAYERS``."""
     out = {}
     for arch, layers in FE_ARCHS.items():
         res = {"serve": frontend_serve_path(arch, layers)}
@@ -5460,7 +5522,8 @@ def frontend_phase(dev, tmp: str) -> dict:
                                                      cond_len=HY_COND_LEN)
         gc.collect()
         torch.cuda.empty_cache()
-        res["train"] = frontend_train_path(tmp, arch, layers)
+        res["train"] = frontend_train_path(tmp, arch,
+                                           FE_TRAIN_LAYERS[arch])
         gc.collect()
         torch.cuda.empty_cache()
         out[arch] = res
@@ -5991,15 +6054,16 @@ LINT_BLOCKED = ("torch", "numpy", "jax", "repro")
 
 
 def lint_path() -> dict:
-    """``python -m repro_torch.analysis --format json src/repro_torch`` in a
-    fresh interpreter with ``LINT_BLOCKED`` made unimportable, from the
-    checkout's root (so the committed ``.torchlint-baseline.json`` is the
-    baseline): it must exit 0 and import none of them."""
+    """``python -m repro_torch.analysis --format json src/repro_torch
+    examples_torch`` in a fresh interpreter with ``LINT_BLOCKED`` made
+    unimportable, from the checkout's root (so the committed
+    ``.torchlint-baseline.json`` is the baseline): it must exit 0 and
+    import none of them."""
     code = ("import runpy, sys\n"
             f"for m in {LINT_BLOCKED!r}:\n"
             "    sys.modules[m] = None\n"
             "sys.argv = ['repro_torch.analysis', '--format', 'json', "
-            "'src/repro_torch']\n"
+            "'src/repro_torch', 'examples_torch']\n"
             "runpy.run_module('repro_torch.analysis', run_name='__main__')\n")
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
@@ -7897,11 +7961,12 @@ LONG_SHAPE = INPUT_SHAPES["long_500k"]
 LONG_DECODES = 128
 LONG_PREFILL = InputShape("prefill_512k", LONG_SHAPE.seq_len - LONG_DECODES,
                           1, "prefill")
-# (tag, arch, layers) of the full-width paths: every layer of the two small
-# archs; zamba2-2.7b at two of its nine groups (two shared-block sites,
-# each with a 5.4 GB whole-length cache in the prefill)
-LONG_ARCHS = (("smollm", DENSE_ARCH, DENSE_LAYERS),
-              ("mamba2", SSM_ARCH, SSM_LAYERS), ("zamba2", HY_ARCH, 12))
+# (tag, arch, layers) of the full-width paths: smollm-360m at 8 of its 32
+# layers, mamba2-370m at 12 of its 48, zamba2-2.7b at one of its nine
+# groups (one shared-block site, with a 5.4 GB whole-length cache in the
+# prefill); cut from 32, 48 and 12 when phase 46 came
+LONG_ARCHS = (("smollm", DENSE_ARCH, 8), ("mamba2", SSM_ARCH, 12),
+              ("zamba2", HY_ARCH, 6))
 # query rows of one checked block of the attention, and of one plain call
 LONG_BLOCK = 1024
 # the exact check's prefill lengths, longest first: the first whose f32
@@ -8412,6 +8477,9 @@ def long_phase(dev) -> dict:
 # its first dispatch), every later dispatch a replay.  (b) serves 5
 # requests at buckets (1, 4): one b4 and one b1 dispatch.
 GRAPH_BUCKETS, GRAPH_REQUESTS = (1, 4), 5
+# (b)'s depths: smollm-360m at 8 of its 32 layers, mamba2-370m at 12 of
+# its 48 (cut from 32 and 48 when phase 46 came)
+GRAPH_DENSE_LAYERS, GRAPH_SSM_LAYERS = 8, 12
 # (c)'s mix_grpo steps: its window moves each step, a mask pattern a step
 MIX_STEPS = 2
 
@@ -8645,10 +8713,10 @@ def graphs_phase(dev, flux_eng=None) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     parts = {"flux_dit": time.perf_counter() - t0}
-    for tag, run in ((DENSE_ARCH, lambda: graphs_arch(_dense_argv(),
-                                                      DENSE_ARCH)),
-                     (SSM_ARCH, lambda: graphs_arch(_ssm_argv("bfloat16"),
-                                                    SSM_ARCH)),
+    for tag, run in ((DENSE_ARCH, lambda: graphs_arch(
+                         _dense_argv(GRAPH_DENSE_LAYERS), DENSE_ARCH)),
+                     (SSM_ARCH, lambda: graphs_arch(
+                         _ssm_argv("bfloat16", GRAPH_SSM_LAYERS), SSM_ARCH)),
                      ("trainer", lambda: graphs_trainer(dev))):
         t0 = time.perf_counter()
         out[tag] = run()
@@ -8658,10 +8726,640 @@ def graphs_phase(dev, flux_eng=None) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 46
+EXAMPLES_DIR = ROOT / "examples_torch"
+# the metrics of a train row that a resumed run must reproduce bitwise (the
+# rest are host clocks: dt, steps_per_s)
+ROW_TIMING = ("dt", "steps_per_s")
+LEARN_TRAINERS = ("flow_grpo", "nft", "awm")
+# phase 46's paths by their key in its result
+EXAMPLE_PATHS = ("e2e", "multi_reward", "quickstart", "serve_flow")
+LEARN_STEPS, LEARN_MARGIN = 45, 0.02     # tests/test_trainers.py:52-63
+LEARN_PROMPTS = 8
+# pickscore and pref_group share "pickscore-base": 4 reward configs, 3
+# frozen towers (the reference's count, pinned against it on the CPU by
+# tests/test_torch_examples.py)
+MULTI_REWARD_UNIQUE_LOADS = 3
+SERVE_STEPS = 6          # examples_torch/serve_flow.py's num_steps
+
+
+def load_example(name: str):
+    """``examples_torch/<name>.py`` as a module (importing runs nothing:
+    each example's work is in its ``main``)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", EXAMPLES_DIR / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def tmp_cwd():
+    """A fresh temporary directory as the working directory: the examples'
+    configs write ``cache/...`` relative to it."""
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            yield tmp
+        finally:
+            os.chdir(old)
+
+
+def _since(before: dict) -> dict:
+    now = counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def _finite_rows(hist: list, what: str) -> None:
+    for r in hist:
+        bad = {k: v for k, v in r.items()
+               if isinstance(v, float) and not math.isfinite(v)}
+        if bad:
+            fail(f"{what} step {r['step']}: non-finite metrics {bad}")
+
+
+def _metric_rows(rows: list) -> list:
+    return [{k: v for k, v in r.items() if k not in ROW_TIMING}
+            for r in rows]
+
+
+def _state_equal(a, b) -> list:
+    """The leaves (params, AdamW moments) where two RLStates differ, and
+    "step" when their AdamW steps do."""
+    bad = []
+    for tag, ta, tb in (("params", a.params, b.params),
+                        ("mu", a.opt.mu, b.opt.mu),
+                        ("nu", a.opt.nu, b.opt.nu)):
+        la, lb = list(params_lib.leaves(ta)), list(params_lib.leaves(tb))
+        if [p for p, _ in la] != [p for p, _ in lb]:
+            bad.append(f"{tag}: leaf paths differ")
+            continue
+        bad += [f"{tag}/{'/'.join(p)}" for (p, x), (_, y) in zip(la, lb)
+                if not torch.equal(x, y)]
+    if not torch.equal(a.opt.step, b.opt.step):
+        bad.append("step")
+    return bad
+
+
+def _e2e_want(exp, n_steps: int) -> dict:
+    """The e2e path's launches over ``n_steps`` train steps, reckoned as
+    ``train_path`` reckons them: a rollout of T velocity calls, then T
+    recomputed with their backward, one attention per block each."""
+    L, T = exp.arch.n_layers, exp.cfg.flow.num_steps
+    return {"sde_step": T * n_steps,
+            "flash_attention": 2 * L * T * n_steps,
+            "flash_attention_bwd": L * T * n_steps,
+            "grpo_loss": T * n_steps, "grpo_loss_bwd": T * n_steps,
+            "ssd_scan": 0, "ssd_scan_bwd": 0}
+
+
+# the e2e example's first steps run eagerly, as the example runs by
+# default; the 200 steps and the resumed 100 then run under perf.fuse_step
+# (each step one replayed CUDA graph of the same kernels), whose first rows
+# must equal the eager ones bitwise: an eager step is host-bound at ≈ 34k
+# launches, and 300 of them would take ≈ 220 s of the script's 1200
+E2E_EAGER_STEPS = 4
+E2E_FUSED = "perf.fuse_step=true"
+
+
+def _e2e_config(mod, out: str, *overrides: str):
+    """The e2e example's full configuration over ``out``, with
+    ``overrides`` (``--set`` syntax)."""
+    return apply_overrides(mod.build_config(mod.parse_args(["--out", out])),
+                           list(overrides))
+
+
+def _lay_out_resume(a_out: str, b_out: str, at: int) -> None:
+    """``b_out`` as an interrupted run leaves it at step ``at``: the
+    first run's step-``at`` checkpoint, its prompt cache and the reward
+    log's first ``at`` rows (not the identity file, which names the first
+    run's ``cache_dir``: the resumed run writes its own)."""
+    name = f"step_{at:08d}"
+    os.makedirs(f"{b_out}/ckpt")
+    for ext in (".manifest", ".npz"):
+        shutil.copy(f"{a_out}/ckpt/{name}{ext}", f"{b_out}/ckpt/")
+    shutil.copytree(f"{a_out}/cache", f"{b_out}/cache")
+    with open(f"{a_out}/reward_log.json") as f:
+        rows = [r for r in json.load(f) if r["step"] < at]
+    with open(f"{b_out}/reward_log.json", "w") as f:
+        json.dump(rows, f)
+
+
+def _median(xs: list) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def example_e2e() -> dict:
+    """(a) ``examples_torch/train_grpo_e2e.py`` at its full configuration
+    (the ~100M DiT, 200 steps, checkpoints at 100 and 200, the reward
+    log) through the example's ``run``: its first ``E2E_EAGER_STEPS``
+    steps eagerly, as the example runs by default; the 200 steps under
+    ``perf.fuse_step``, their first rows bitwise the eager ones; then a
+    second run resumed from a copy of the step-100 checkpoint (and the
+    reward log as it stood there) to step 200: its final state (its
+    step-200 checkpoint), rows 100-199 and reward log bitwise the first
+    run's.  One eager and one replayed step traced."""
+    mod = load_example("train_grpo_e2e")
+    base = mod.build_config(mod.parse_args([]))
+    steps, at = base.loop.steps, base.loop.save_every
+    a_out, b_out = "e2e_full", "e2e_resumed"
+    t0, parts = time.perf_counter(), {}
+
+    def part(tag):
+        nonlocal t0
+        t = time.perf_counter()
+        parts[tag] = t - t0
+        t0 = t
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    r0 = mod.run(_e2e_config(mod, "e2e_eager",
+                             f"loop.steps={E2E_EAGER_STEPS}"), "cuda")
+    peak_eager = torch.cuda.max_memory_allocated()
+    part("eager run")
+    torch.cuda.reset_peak_memory_stats()
+    ra = mod.run(_e2e_config(mod, a_out, E2E_FUSED), "cuda")
+    peak = torch.cuda.max_memory_allocated()
+    part("captured run")
+    _lay_out_resume(a_out, b_out, at)
+    part("resume layout")
+    rb = mod.run(_e2e_config(mod, b_out, E2E_FUSED), "cuda")
+    part("resumed run")
+    launches = counts()
+    wgmma = all_variants()["flash_attention"]["wgmma"]
+    with open(f"{a_out}/reward_log.json") as f:
+        log_a = json.load(f)
+    with open(f"{b_out}/reward_log.json") as f:
+        log_b = json.load(f)
+    with open("e2e_eager/reward_log.json") as f:
+        log_0 = json.load(f)
+    h0, ha, hb = r0["history"], ra["history"], rb["history"]
+    exp = ra["experiment"]
+    ran = len(h0) + len(ha) + len(hb)
+    want = _e2e_want(exp, ran)
+    log(f"  launches over the {len(h0)} + {len(ha)} + {len(hb)} steps "
+        f"{launches} (expected {want}); attention on wgmma {wgmma}")
+    if launches != want or wgmma != want["flash_attention"]:
+        fail("the e2e path's kernel launches do not match the path")
+    if (len(h0), len(ha), rb["start_step"], len(hb)) != (
+            E2E_EAGER_STEPS, steps, at, steps - at):
+        fail(f"the runs took {len(h0)} and {len(ha)} steps, resumed at "
+             f"{rb['start_step']} and took {len(hb)}")
+    for tag, h in (("eager", h0), ("", ha), ("resumed", hb)):
+        _finite_rows(h, f"e2e {tag}".strip())
+    diff = _state_equal(ra["state"], rb["state"])
+    eager_same = (_metric_rows(h0) == _metric_rows(ha[:E2E_EAGER_STEPS])
+                  and _metric_rows(log_0)
+                  == _metric_rows(log_a[:E2E_EAGER_STEPS]))
+    rows_same = _metric_rows(ha[at:]) == _metric_rows(hb)
+    log_same = ([r["step"] for r in log_b] == list(range(steps))
+                and _metric_rows(log_a) == _metric_rows(log_b))
+    log(f"  eager steps 0-{E2E_EAGER_STEPS - 1} (rows and reward log) "
+        f"bitwise the captured run's: {eager_same}; resumed at step "
+        f"{rb['start_step']}: final params, AdamW moments and step bitwise "
+        f"the uninterrupted run's: {not diff}; rows {at}-{steps - 1} "
+        f"bitwise: {rows_same}; reward log ({len(log_b)} rows) bitwise: "
+        f"{log_same}")
+    if not eager_same:
+        fail("the captured e2e run's first steps differ from the eager "
+             "run's")
+    if diff or not rows_same or not log_same:
+        fail(f"the resumed e2e run differs from the uninterrupted one: "
+             f"{diff[:8]}, rows {rows_same}, log {log_same}")
+    # from the second step of each run
+    s_eager = _median([r["dt"] for r in h0[1:]])
+    s_fused = _median([r["dt"] for r in ha[1:]])
+    s_resumed = _median([r["dt"] for r in hb[1:]])
+    rewards = [r["reward"] for r in ha]
+    early, late = float(sum(rewards[:5]) / 5), float(sum(rewards[-5:]) / 5)
+    per_step = {k: n / ran for k, n in launches.items()}
+    cond = exp.build_provider().get(
+        exp.build_dataset().prompts[:base.data.batch_prompts])["cond"]
+    what = (f"{base.data.batch_prompts} x {base.flow.group_size} samples, "
+            f"{exp.arch.n_layers} blocks, {base.flow.num_steps} timesteps")
+    # the eager step traced for its idle share alone (the device's
+    # activity: its ≈ 34k host ops would take the trace ≈ 25 s to read
+    # back); the replayed one, the same kernels, by kernel group too
+    profs = {}
+    for tag, tr, it in (("eager", r0["experiment"].build_trainer(),
+                         E2E_EAGER_STEPS),
+                        ("replayed", exp.build_trainer(), steps)):
+        its = [it]
+
+        def one_step(tr=tr, its=its):
+            m = tr.step(cond, base.seed, it=its[0])
+            its[0] += 1
+            return float(m["loss"])
+
+        if tag == "eager":
+            one_step()
+            profs[tag] = _traced(one_step)
+        else:
+            profs[tag] = profile(one_step,
+                                 f"one {tag} e2e train step, {what}")
+            profs[tag]["idle_share"] = max(
+                0.0, 1 - profs[tag]["device_busy_ms"]
+                / profs[tag]["traced_wall_ms"])
+        part(f"{tag} trace")
+    log(f"  e2e: {exp.arch.n_params()} params, s a step (median from the "
+        f"second) {s_eager:.4f} eager ({E2E_EAGER_STEPS} steps), "
+        f"{s_fused:.4f} replayed, {s_resumed:.4f} the resumed run; peak "
+        f"{peak / 2**30:.2f} GiB ({peak} bytes; eager {peak_eager}); "
+        f"launches a step {per_step}; traced idle share "
+        f"{profs['eager']['idle_share']:.4f} eager, "
+        f"{profs['replayed']['idle_share']:.4f} replayed; reward "
+        f"{early:+.4f} -> {late:+.4f} "
+        f"({'improved' if late > early else 'no gain'}; recorded, not "
+        f"asserted, as the example does)")
+    log("  e2e seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    res = {"n_params": exp.arch.n_params(), "s_per_step_eager": s_eager,
+           "s_per_step": s_fused, "s_per_step_resumed": s_resumed,
+           "peak_bytes": peak, "peak_bytes_eager": peak_eager,
+           "launches": launches, "launches_per_step": per_step,
+           "idle_share": profs["eager"]["idle_share"],
+           "idle_share_replayed": profs["replayed"]["idle_share"],
+           "profile": profs, "reward_early": early, "reward_late": late,
+           "reward": rewards, "bitwise_resume": True,
+           "bitwise_eager": True, "parts_s": parts}
+    del r0, ra, rb, exp, cond
+    return res
+
+
+def learning_signal(dev) -> dict:
+    """(b) tests/test_trainers.py:38-63's test_reward_improves on the card:
+    reduced flux_dit, LEARN_FLOW / LEARN_OPT, 8 prompts, 45 steps, for
+    flow_grpo, nft and awm in the trainers' default dtype; mean(last 10)
+    above mean(first 5) + 0.02."""
+    flow = FlowRLConfig(
+        num_steps=4, group_size=8, latent_tokens=8, latent_dim=8,
+        clip_range=0.2,
+        rewards=(RewardSpec("text_render", 1.0,
+                            args={"latent_dim": 8, "latent_tokens": 8}),))
+    opt = OptimConfig(lr=1e-3, total_steps=135, warmup_steps=2)
+    cond = torch.randn(LEARN_PROMPTS, 4, 512,
+                       generator=torch.Generator().manual_seed(3)).to(dev)
+    out = {}
+    for name in LEARN_TRAINERS:
+        before = counts()
+        tr = registry.build("trainer", name, configs.get_reduced("flux_dit"),
+                            flow, opt, seed=3, device=dev)
+        hist = [float(tr.step(cond, 3, it=it)["reward_mean"])
+                for it in range(LEARN_STEPS)]
+        early, late = sum(hist[:5]) / 5, sum(hist[-10:]) / 10
+        out[name] = {"early": early, "late": late, "curve": hist,
+                     "launches": _since(before)}
+        log(f"  {name}: reward mean(first 5) {early:+.4f} -> mean(last 10) "
+            f"{late:+.4f} (margin {LEARN_MARGIN}); curve "
+            + " ".join(f"{r:+.3f}" for r in hist))
+        if not late > early + LEARN_MARGIN:
+            fail(f"{name}: no learning signal on the card ({early:+.4f} -> "
+                 f"{late:+.4f})")
+        del tr
+    return out
+
+
+def example_multi_reward() -> dict:
+    """(c) ``examples_torch/multi_reward.py``: the dedup count and both
+    aggregations' 15 steps finite."""
+    before = counts()
+    res = load_example("multi_reward").main([])
+    out = {"launches": _since(before)}
+    for agg, r in res.items():
+        _finite_rows(r["history"], f"multi_reward {agg}")
+        if r["unique_loads"] != MULTI_REWARD_UNIQUE_LOADS:
+            fail(f"multi_reward {agg}: {r['unique_loads']} unique loads, "
+                 f"the reference loads {MULTI_REWARD_UNIQUE_LOADS}")
+        out[agg] = {"unique_loads": r["unique_loads"],
+                    "reward": [h["reward"] for h in r["history"]],
+                    "per_reward": [{k: v for k, v in h.items()
+                                    if k.startswith("reward/")}
+                                   for h in r["history"]]}
+    return out
+
+
+def example_quickstart() -> dict:
+    """(d) ``examples_torch/quickstart.py``: flow_grpo for 10 steps, then
+    the one-override swap to awm, both finite."""
+    before = counts()
+    res = load_example("quickstart").main([])
+    out = {"launches": _since(before)}
+    for name, r in res.items():
+        _finite_rows(r["history"], f"quickstart {name}")
+        out[name] = [h["reward"] for h in r["history"]]
+    log(f"  quickstart: awm final reward {out['awm'][-1]:+.4f}")
+    return out
+
+
+def example_serve_flow() -> dict:
+    """(e) ``examples_torch/serve_flow.py``: flux_dit and mamba2-370m
+    (reduced) under ode and dance_sde through the warmed engine; no cold
+    dispatch, the condition cache hit, and each engine's latents bitwise
+    an eager ``rollout_keyed`` over each dispatched batch on the same
+    injected draws."""
+    before = counts()
+    ssd_var = all_variants()["ssd_scan"]["fma"]
+    res = load_example("serve_flow").main([])
+    launches = _since(before)
+    ssd_fma = all_variants()["ssd_scan"]["fma"] - ssd_var
+    out = {"launches": launches}
+    if ssd_fma != launches["ssd_scan"] or not launches["ssd_scan"]:
+        fail(f"serve_flow's scans ran {launches['ssd_scan']} times, "
+             f"{ssd_fma} on the FMA passes")
+    for (arch, sde), r in res.items():
+        eng, st, prompts = r["engine"], r["stats"], r["prompts"]
+        n = len(prompts)
+        hits = (n - len(set(prompts))) + n   # the priming encode + serve
+        want = {f"b{eng.grid.capacity}/s{SERVE_STEPS}":
+                n // eng.grid.capacity}
+        if st["cold_dispatches"] or st["cond_cache"]["hits"] != hits \
+                or st["dispatches"] != want:
+            fail(f"serve_flow {arch} {sde}: cold_dispatches "
+                 f"{st['cold_dispatches']}, cache hits "
+                 f"{st['cond_cache']['hits']} (want {hits}), dispatches "
+                 f"{st['dispatches']} (want {want})")
+        cond = torch.from_numpy(eng.encode(prompts)).to(eng.device)
+        seeds = request_seeds(0, n)
+        cap = eng.grid.capacity
+        eager = []
+        with torch.no_grad():
+            for i in range(0, n, cap):
+                draws = [request_draws(eng.adapter, s, SERVE_STEPS,
+                                       eng.device) for s in seeds[i:i + cap]]
+                eager.append(rollout_keyed(
+                    eng.adapter, eng.params, cond[i:i + cap],
+                    seeds[i:i + cap], eng.scheduler, SERVE_STEPS,
+                    x_init=torch.stack([d[0] for d in draws]),
+                    eps=torch.stack([d[1] for d in draws], dim=1)).x0.cpu())
+        same = bool(torch.equal(r["latents"], torch.cat(eager)))
+        rep = eng.graph_report()
+        log(f"  serve_flow {arch} {sde}: {n / r['serve_s']:.2f} req/s, warmup "
+            f"{r['warmup_s']:.3f} s, dispatches {st['dispatches']}, "
+            f"cold {st['cold_dispatches']}, cache hits "
+            f"{st['cond_cache']['hits']}, {rep['captures']} captures / "
+            f"{rep['replays']} replays; latents bitwise eager "
+            f"rollout_keyed: {same}")
+        if not same or not torch.isfinite(r["latents"]).all():
+            fail(f"serve_flow {arch} {sde}: the served latents are not "
+                 "bitwise an eager rollout_keyed on the same draws")
+        out[f"{arch}/{sde}"] = {
+            "req_per_s": n / r["serve_s"], "serve_s": r["serve_s"],
+            "warmup_s": r["warmup_s"], "dispatches": st["dispatches"],
+            "cold_dispatches": st["cold_dispatches"],
+            "cache_hits": st["cond_cache"]["hits"],
+            "captures": rep["captures"], "replays": rep["replays"],
+            "bitwise_eager": same}
+    del res
+    return out
+
+
+def _example_attention_rows(dev, g, name, what, B, S, H, D) -> list:
+    """The attention forward and backward at (B, S, H heads of D),
+    non-causal, bf16 on wgmma: o, the LSE and dq / dk / dv row by row
+    against the plain versions (``ROW_BAND``, ``LSE_BAND``), the backward
+    also against torch.autograd through the plain forward; then the
+    kernels' ms (replayed graphs), the plain versions', SDPA's and the
+    bounds (every (query, key) pair: forward 4 D operations, backward 10
+    D; each input read once, each output written once)."""
+    dt = torch.bfloat16
+    q, k, v, do = (torch.randn(B, S, H, D, generator=g, device=dev).to(dt)
+                   for _ in range(4))
+    before = all_variants()
+    o, lse = flash_attention(q, k, v, causal=False, return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    ran = all_variants()
+    for kern in ("flash_attention", "flash_attention_bwd"):
+        if ran[kern]["wgmma"] - before[kern]["wgmma"] != 1:
+            fail(f"the attention at the {what} shape did not run {kern} on "
+                 f"wgmma: {before} -> {ran}")
+    o_ref, lse_ref = ref.flash_attention_fwd_ref(q, k, v, causal=False)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=False)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref.flash_attention_ref(*leaves, causal=False).backward(do.float())
+    auto = _grad_errs(got, [t.grad for t in leaves])
+    (o_row,) = _row_errs([o], [o_ref])
+    g_rows = _row_errs(got, want)
+    lse_err = float((lse - lse_ref).abs().max()) / max(
+        1.0, float(lse_ref.abs().max()))
+    errs = [float((o.float() - o_ref.float()).abs().max()), max(
+        float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))]
+    log(f"  attention {what} ({B}, {S}, {H} heads of {D}) non-causal bf16 "
+        f"(wgmma): per-row max|err| / max|plain| o {o_row:.3e}, dq/dk/dv "
+        + "/".join(f"{e:.3e}" for e in g_rows) + f" (band {ROW_BAND[dt]}); "
+        f"lse {lse_err:.2e} (band {LSE_BAND}); vs autograd "
+        + "/".join(f"{e:.2e}" for e in auto)
+        + f" (band {ATTN_BWD_BAND[dt]})")
+    if max([o_row] + g_rows) > ROW_BAND[dt] or lse_err > LSE_BAND or \
+            max(auto) > ATTN_BWD_BAND[dt]:
+        fail(f"the attention at the {what} shape is off its band")
+    del leaves, want, o_ref, lse_ref
+    ms = graph_ms(lambda: flash_attention(q, k, v, causal=False), 20)
+    bwd_ms = graph_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                  causal=False), 20)
+    plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                       causal=False), 20)
+    plain_bwd_ms = cuda_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, o, lse, do, causal=False), 20)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_()
+                  for a in (q, k, v))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION,
+                      SDPBackend.CUDNN_ATTENTION]):
+        with torch.no_grad():
+            sdpa_ms = cuda_ms(lambda: sdpa(qt, kt, vt), 20)
+        out_t = sdpa(qt, kt, vt)
+        sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            out_t, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 20)
+    pairs = B * H * S * S
+    n = q.numel()
+    rows = []
+    for kname, kms, pms, lib, nbytes, flops, src, rep_, err, row_err in (
+            (f"flash_attention_{name}", ms, plain_ms, sdpa_ms, 4 * n * 2,
+             4 * pairs * D, "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:81", errs[0], o_row),
+            (f"flash_attention_bwd_{name}", bwd_ms, plain_bwd_ms,
+             sdpa_bwd_ms, 7 * n * 2 + lse.numel() * 4, 10 * pairs * D,
+             "flash_attention_bwd.cu",
+             "none (JAX autodiff of src/repro/models/attention.py:71)",
+             errs[1], max(g_rows))):
+        bound, by = _bound(nbytes, flops)
+        log(f"  {kname} ({B}, {S}, {H} heads of {D}) non-causal bf16: "
+            f"kernel {kms:.4f} ms (wgmma), plain {pms:.4f} ms, SDPA "
+            f"{lib:.4f} ms, bound {bound:.2e} ms ({by})")
+        rows.append({"name": kname, "route": "cuda", "variant": "wgmma",
+                     "source": f"src/repro_torch/kernels/csrc/{src}",
+                     "replaces": rep_, "max_abs_err": err,
+                     "max_rel_err": row_err, "ms": kms, "plain_ms": pms,
+                     "bound_ms": bound, "bound_by": by, "library_ms": lib,
+                     "shape": [B, S, H, H, D]})
+    del q, k, v, do, o, lse, got, qt, kt, vt, out_t
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _example_ssd_row(dev, g, B, L, H, P, N, Q) -> dict:
+    """The scan at the reduced mamba2-370m's shape (bf16 at head dim 32,
+    state 32, chunk 32: the FMA passes) against the plain chunked version
+    at phase 10's bands, then its ms, the plain version's and the
+    bound."""
+    dt_ = torch.bfloat16
+    x, dt, a, bm, cm = _ssd_inputs(g, dev, B, L, H, P, N, "mamba2", dt_)
+    (y, hT), variant = _ssd_variant(lambda: ssd_scan(x, dt, a, bm, cm,
+                                                     chunk=Q))
+    if variant != ssd_want(dt_, L, P, N, Q) or variant != "fma":
+        fail(f"ssd_scan at the reduced mamba2 shape ran {variant}")
+    y_ref, h_ref = ref.ssd_chunked_ref(x, dt, a, bm, cm, Q)
+    y_err, h_err = _rel(y, y_ref), _rel(hT, h_ref)
+    if y_err > SSD_Y_BAND[dt_] or h_err > SSD_H_BAND:
+        fail(f"ssd_scan off at the reduced mamba2 shape: y {y_err:.2e}, "
+             f"state {h_err:.2e}")
+    ms = graph_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=Q), 20)
+    plain_ms = cuda_ms(lambda: ref.ssd_chunked_ref(x, dt, a, bm, cm, Q), 20)
+    nc, qe = -(-L // Q), min(Q, L)
+    nbytes = (2 * B * L * H * P * 2 + B * L * H * 4 + H * 4
+              + 2 * B * L * N * 2 + B * H * P * N * 4)
+    flops = 2 * B * nc * qe * (qe * N + H * qe * P + 2 * H * P * N)
+    bound, by = _bound(nbytes, flops)
+    log(f"  ssd_scan reduced mamba2 (B={B}, L={L}, H={H}, P={P}, N={N}, "
+        f"Q={Q}) bf16 (FMA passes): y {y_err:.2e}, state {h_err:.2e} of "
+        f"max|plain| (bands {SSD_Y_BAND[dt_]}, {SSD_H_BAND}); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.2e} ms ({by})")
+    return {"name": "ssd_scan_reduced_mamba2", "route": "cuda",
+            "variant": "fma",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:77",
+            "max_abs_err": float((y.float() - y_ref.float()).abs().max()),
+            "max_rel_err": y_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "shape": [B, L, H, P, N, Q]}
+
+
+def _example_small_rows(dev, g, B, Lt, ld) -> list:
+    """``sde_step`` at the e2e's latents (B, Lt, ld) f32 and ``grpo_loss``
+    forward and backward at its B rows, against their plain versions,
+    then their ms (replayed graphs), the plain versions' and the bytes
+    bounds."""
+    v, x, e = (torch.randn(B, Lt, ld, generator=g, device=dev)
+               for _ in range(3))
+    sde_err = lp_err = 0.0
+    for t, tn in [(0.9999, 0.75), (0.5, 0.4), (0.25, 1e-4)]:
+        xn, lp = sde_step(v, x, e, t, tn, eta=0.7)
+        xr, lr = ref.sde_step_ref(v, x, t, tn, e, eta=0.7)
+        sde_err = max(sde_err, float((xn - xr).abs().max()))
+        # a row's logp sums Lt * ld terms of either sign: its error is
+        # held against the largest row's |logp| (at least 1), as
+        # grpo_loss's against its largest loss
+        lp_err = max(lp_err, float((lp - lr).abs().max()) / max(
+            1.0, float(lr.abs().max())))
+        if not torch.allclose(xn, xr, atol=1e-5, rtol=1e-5) or \
+                lp_err > 1e-5:
+            fail(f"sde_step off at the e2e shape, t={t}: x_next "
+                 f"{sde_err:.2e}, logp {lp_err:.2e} of max |logp| "
+                 f"{float(lr.abs().max()):.3e}")
+    lpn, lpo = (torch.randn(B, generator=g, device=dev) * 0.05
+                for _ in range(2))
+    adv, gl = (torch.randn(B, generator=g, device=dev) for _ in range(2))
+    loss, frac = grpo_loss(lpn, lpo, adv, clip=0.2)
+    l_ref, f_ref = ref.grpo_loss_ref(lpn, lpo, adv, clip=0.2)
+    f_err = float((loss - l_ref).abs().max()) / max(
+        1.0, float(l_ref.abs().max()))
+    got = grpo_loss_bwd(lpn, lpo, adv, gl, clip=0.2)
+    want = ref.grpo_loss_bwd_ref(lpn, lpo, adv, gl, clip=0.2)
+    b_err = max(float((a_ - b_).abs().max()) / max(1.0, float(
+        b_.abs().max())) for a_, b_ in zip(got, want))
+    if f_err > GRPO_BAND or b_err > GRPO_BAND or not torch.equal(frac,
+                                                                 f_ref):
+        fail(f"grpo_loss off at B={B}: {f_err:.2e}, {b_err:.2e}")
+    n = v.numel()
+    rows = []
+    for name, kern, plain, nbytes, src, rep_, err in (
+            ("sde_step_e2e", lambda: sde_step(v, x, e, 0.5, 0.375, eta=0.7),
+             lambda: ref.sde_step_ref(v, x, 0.5, 0.375, e, eta=0.7),
+             4 * n * 4 + B * 4, "sde_step.cu",
+             "src/repro/kernels/sde_step.py:50", sde_err),
+            ("grpo_loss_e2e", lambda: grpo_loss(lpn, lpo, adv, clip=0.2),
+             lambda: ref.grpo_loss_ref(lpn, lpo, adv, clip=0.2),
+             5 * B * 4, "grpo_loss.cu",
+             "src/repro/kernels/grpo_loss.py:36", f_err),
+            ("grpo_loss_bwd_e2e",
+             lambda: grpo_loss_bwd(lpn, lpo, adv, gl, clip=0.2),
+             lambda: ref.grpo_loss_bwd_ref(lpn, lpo, adv, gl, clip=0.2),
+             7 * B * 4, "grpo_loss.cu",
+             "src/repro/kernels/grpo_loss.py:80", b_err)):
+        ms = graph_ms(kern, 40)
+        plain_ms = cuda_ms(plain, 100)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"  {name} ({'x'.join(map(str, v.shape)) if 'sde' in name else B})"
+            f": kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound:.2e} ms ({nbytes} bytes), max rel err {err:.2e}")
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/kernels/csrc/{src}",
+                     "replaces": rep_, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": "bytes", "library_ms": None,
+                     "shape": list(v.shape) if "sde" in name else [B]})
+    return rows
+
+
+def example_kernel_rows(dev) -> list:
+    """(f) Each kernel at the examples' new shapes against its plain
+    version, with its time, bound and SDPA's time: the attention at the
+    e2e shape (16 rows of 16 + 64 tokens, 12 heads of 64) and at the
+    learning signal's reduced one (64 rows of 4 + 8 tokens, 8 heads of
+    32), the scan at serve_flow's reduced mamba2-370m (4 rows of 8 + 1 +
+    8 tokens, 16 heads of 32, state 32, chunk 32), ``sde_step`` and
+    ``grpo_loss`` at the e2e's sizes."""
+    g = torch.Generator(device=dev).manual_seed(46)
+    e2e = load_example("train_grpo_e2e")
+    cfg = e2e.build_config(e2e.parse_args([]))
+    ov, fl = cfg.arch_overrides, cfg.flow
+    B = cfg.data.batch_prompts * fl.group_size
+    cond_len = 16                 # the default frozen encoder's
+    rows = _example_attention_rows(
+        dev, g, "e2e", "e2e", B, cond_len + fl.latent_tokens,
+        ov["n_heads"], ov["head_dim"])
+    red = configs.get_reduced("flux_dit")
+    rows += _example_attention_rows(
+        dev, g, "reduced", "learning-signal", LEARN_PROMPTS * 8, 4 + 8,
+        red.n_heads, red.head_dim)
+    ssm = configs.get_reduced("mamba2-370m").ssm
+    sf = load_example("serve_flow")
+    heads = ssm.expand * configs.get_reduced("mamba2-370m").d_model \
+        // ssm.head_dim
+    rows.append(_example_ssd_row(
+        dev, g, 4, sf.ENCODER["cond_len"] + 1 + 8, heads, ssm.head_dim,
+        ssm.d_state, ssm.chunk))
+    rows += _example_small_rows(dev, g, B, fl.latent_tokens, fl.latent_dim)
+    return rows
+
+
+def examples_phase(dev) -> dict:
+    """Phase 46: (f) the kernels at the examples' shapes, then (a)-(e) in
+    turn, each in a fresh working directory, with its seconds."""
+    res = {"kernel_rows": example_kernel_rows(dev)}
+    for key, fn in (("e2e", example_e2e),
+                    ("learning", lambda: learning_signal(dev)),
+                    ("multi_reward", example_multi_reward),
+                    ("quickstart", example_quickstart),
+                    ("serve_flow", example_serve_flow)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with tmp_cwd():
+            res[key] = fn()
+        res[key]["s"] = time.perf_counter() - t0
+        log(f"  ({key}: {res[key]['s']:.1f} s)")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", metavar="N,N,...",
-                    help="run only these of phases 3-45 after the device and "
+                    help="run only these of phases 3-46 after the device and "
                          "build phases, and print no result lines (a "
                          "development aid; the check runs every phase)")
     args = ap.parse_args(argv)
@@ -8688,9 +9386,12 @@ def main(argv=None) -> int:
         f"wall)")
     for name in _build.sources():
         _build.load(name)
-    for name in ("flash_attention", "flash_attention_bwd", "ssd_scan",
-                 "ssd_scan_bwd_wgmma"):
-        sass = sass_counts(name)
+    # one cuobjdump a library, all started together
+    tc_libs = ("flash_attention", "flash_attention_bwd", "ssd_scan",
+               "ssd_scan_bwd_wgmma")
+    with concurrent.futures.ThreadPoolExecutor(len(tc_libs)) as pool:
+        all_sass = list(pool.map(sass_counts, tc_libs))
+    for name, sass in zip(tc_libs, all_sass):
         log(f"    {name} SASS: {json.dumps(sass)}")
         if isinstance(sass, dict) and not (sass["HGMMA"] and sass["UTMALDG"]):
             fail(f"the {name} library has no wgmma or no TMA load")
@@ -8706,7 +9407,8 @@ def main(argv=None) -> int:
     check_velocity(dev)
     torch.cuda.empty_cache()
 
-    begin(5, "main path: repro_torch.launch.serve, full flux_dit")
+    begin(5, f"main path: repro_torch.launch.serve, flux_dit at full "
+          f"width, {N_LAYERS} blocks")
     res = main_path()
     eng, lat_zero = res.pop("engine"), res.pop("latents")
 
@@ -8892,7 +9594,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
         begin(33, "the frontend archs' flow path: " + ", ".join(
-            f"{a} served and trained at {n} layers" for a, n in
+            f"{a} served at {n} layers and trained at "
+            f"{FE_TRAIN_LAYERS[a]}" for a, n in
             FE_ARCHS.items()) + f"; the velocity at depth {UPDATE_LAYERS} "
             "against the plain versions")
         fe_res = frontend_phase(dev, tmp)
@@ -8922,7 +9625,7 @@ def main(argv=None) -> int:
         sweep_res = sweep_path(tmp)
 
     begin(37, "the linter: python -m repro_torch.analysis over "
-          "src/repro_torch with torch, numpy, jax and repro blocked")
+          "src/repro_torch and examples_torch with torch, numpy, jax and repro blocked")
     lint_res = lint_path()
 
     begin(38, f"the production layout (tensor parallel over model, ZeRO-3 "
@@ -8972,6 +9675,12 @@ def main(argv=None) -> int:
           f"positions {LONG_PREFILL.seq_len}-{LONG_SHAPE.seq_len - 1}; the "
           f"exact check at W + 1 in f32")
     long_res = long_phase(dev)
+
+    begin(46, "the examples (examples_torch/): the kernels at their shapes; "
+          "train_grpo_e2e at its full configuration for 200 steps and "
+          "resumed from step 100; the learning signal of flow_grpo, nft and "
+          "awm; multi_reward; quickstart; serve_flow")
+    ex_res = examples_phase(dev)
 
     def layer_launches(arch: str, name: str) -> int:
         return layer_res[arch]["launches"]["attn"].get(name, 0)
@@ -9026,7 +9735,11 @@ def main(argv=None) -> int:
                    for tag, _, _ in LONG_ARCHS},
                 **{f"long_exact_{tag}": long_res[f"exact_{tag}"]["launches"][
                     name] + long_res[f"exact_{tag}"]["forward_launches"][name]
-                   for tag, _, _ in LONG_ARCHS}}
+                   for tag, _, _ in LONG_ARCHS},
+                **{f"example_{k}": ex_res[k]["launches"][name]
+                   for k in EXAMPLE_PATHS},
+                **{f"example_learning_{t}": ex_res["learning"][t][
+                    "launches"][name] for t in LEARN_TRAINERS}}
 
     for row in rows:
         row["launches"] = train_res["launches"][row["name"]]
@@ -9106,6 +9819,21 @@ def main(argv=None) -> int:
                                    if k.startswith("long_")}
         row["launches"] = row["launches_by_path"][path]
     rows += long_res.pop("kernel_rows")
+    # the examples' shapes: launches on the phase-46 path that runs each
+    # (the learning signal's, summed over its three trainers)
+    for row in ex_res["kernel_rows"]:
+        kernel, tag = row["name"].rsplit("_", 1)
+        if tag == "mamba2":
+            kernel, path = "ssd_scan", "example_serve_flow"
+        else:
+            path = "example_learning" if tag == "reduced" else "example_e2e"
+        paths = by_path(kernel)
+        paths["example_learning"] = sum(paths[f"example_learning_{t}"]
+                                        for t in LEARN_TRAINERS)
+        row["launches_by_path"] = {k: v for k, v in paths.items()
+                                   if k.startswith("example_")}
+        row["launches"] = row["launches_by_path"][path]
+    rows += ex_res.pop("kernel_rows")
     keys = ("name", "route", "variant", "source", "replaces", "launches",
             "max_abs_err", "max_rel_err", "max_rel_err_wgmma", "ms", "fma_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -9141,6 +9869,7 @@ def main(argv=None) -> int:
     print(json.dumps({"route_path": nwg_res}))
     print(json.dumps({"long_path": long_res}))
     print(json.dumps({"graphs_path": graphs_res}))
+    print(json.dumps({"examples_path": ex_res}))
     print(json.dumps({"phase_times": phase_times()}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
@@ -9195,7 +9924,8 @@ def run_only(dev, only: set) -> int:
               41: lambda: seq_decode_phase(dev),
               42: lambda: ep_layer_phase(dev),
               43: lambda: route_phase(dev), 44: lambda: long_phase(dev),
-              45: lambda: graphs_phase(dev)}
+              45: lambda: graphs_phase(dev),
+              46: lambda: examples_phase(dev)}
     for n in sorted(only):
         if n not in phases:
             fail(f"--only: phase {n} cannot run alone")

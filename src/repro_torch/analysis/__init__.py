@@ -3,8 +3,8 @@ classes (the port of ``repro.analysis``).
 
 Run it::
 
-    python -m repro_torch.analysis                  # lint src/repro_torch
-    python -m repro_torch.analysis --catalog        # rule catalog
+    python -m repro_torch.analysis             # src/repro_torch, examples_torch
+    python -m repro_torch.analysis --catalog   # rule catalog
     python -m repro_torch.analysis --format json src/repro_torch
 
 Everything here is stdlib-only (``ast``, ``re``, ``json``, ``pathlib``):

@@ -19,7 +19,7 @@ from repro_torch.analysis.core import Finding, Module, Suppression, all_rules
 from repro_torch.analysis.rules import NOT_PORTED
 from repro_torch.analysis.scopes import ScopeGraph
 
-DEFAULT_PATHS = ["src/repro_torch"]
+DEFAULT_PATHS = ["src/repro_torch", "examples_torch"]
 
 
 def collect_files(paths: Sequence[str]) -> List[Path]:

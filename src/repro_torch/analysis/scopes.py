@@ -456,8 +456,18 @@ class ScopeGraph:
         if isinstance(expr, ast.Call):
             inner = unwrap_partial(expr)
             if inner is expr:
-                return [], True
+                return self._resolve_returned(expr, mod, encl, depth), False
             return self._resolve(inner, mod, encl, depth)[0], False
+        if isinstance(expr, (ast.IfExp, ast.BoolOp)):
+            branches = ([expr.body, expr.orelse]
+                        if isinstance(expr, ast.IfExp) else expr.values)
+            out: Dict[int, FuncInfo] = {}
+            for b in branches:
+                for hit in self._resolve(b, mod, encl, depth)[0]:
+                    out[id(hit.node)] = hit
+            return list(out.values()), False
+        if isinstance(expr, ast.Subscript):
+            return self._resolve_stored(expr.value, mod, encl, depth), False
         if isinstance(expr, ast.Name):
             # enclosing nested defs, then module level, then global
             f = encl
@@ -541,6 +551,58 @@ class ScopeGraph:
                     add(elt, fi)
                 elif isinstance(elt, ast.Tuple) and pos < len(elt.elts):
                     add(elt.elts[pos], fi)
+        return list(out.values())
+
+    def _resolve_returned(self, call: ast.Call, mod: Module,
+                          encl: Optional[FuncInfo],
+                          depth: int) -> List[FuncInfo]:
+        """The functions a call may return: what each candidate callee's
+        ``return`` statements evaluate to in its own scope (a factory
+        returning its nested ``run``), or, for ``<container>.get(k)`` on
+        ``self.<attr>``, what the class family stores in that attribute."""
+        if depth >= _BINDING_DEPTH:
+            return []
+        f = call.func
+        if isinstance(f, ast.Attribute) and f.attr == "get":
+            return self._resolve_stored(f.value, mod, encl, depth)
+        out: Dict[int, FuncInfo] = {}
+        for callee in self._resolve(f, mod, encl, depth + 1)[0]:
+            if isinstance(callee.node, ast.Lambda):
+                values = [callee.node.body]
+            else:
+                values = [n.value for n in self.walk(callee.node)
+                          if isinstance(n, ast.Return)
+                          and n.value is not None]
+            for v in values:
+                for hit in self._resolve(v, callee.module, callee,
+                                         depth + 1)[0]:
+                    out[id(hit.node)] = hit
+        return list(out.values())
+
+    def _resolve_stored(self, container: ast.expr, mod: Module,
+                        encl: Optional[FuncInfo],
+                        depth: int) -> List[FuncInfo]:
+        """The functions read back from ``self.<attr>[k]`` (or
+        ``self.<attr>.get(k)``): every value the class family assigns to
+        an item of ``self.<attr>``."""
+        cls_name = _enclosing_class(encl)
+        if not (cls_name and isinstance(container, ast.Attribute)
+                and isinstance(container.value, ast.Name)
+                and container.value.id == "self") \
+                or depth >= _BINDING_DEPTH:
+            return []
+        out: Dict[int, FuncInfo] = {}
+        for cname in self.family(cls_name):
+            for ci in self.classes.get(cname, []):
+                for mi in ci.methods.values():
+                    for n in self.walk(mi.node):
+                        if not isinstance(n, ast.Assign) or not any(
+                                _is_self_item(t, container.attr)
+                                for t in n.targets):
+                            continue
+                        for hit in self._resolve(n.value, mi.module, mi,
+                                                 depth + 1)[0]:
+                            out[id(hit.node)] = hit
         return list(out.values())
 
     def _resolve_dotted(self, dotted: str) -> List[FuncInfo]:
@@ -736,6 +798,15 @@ def _binding_values(body: List[ast.AST], name: str) -> List[ast.expr]:
                 and n.value is not None:
             out.append(n.value)
     return out
+
+
+def _is_self_item(target: ast.expr, attr: str) -> bool:
+    """Whether an assignment target is ``self.<attr>[...]``."""
+    return (isinstance(target, ast.Subscript)
+            and isinstance(target.value, ast.Attribute)
+            and target.value.attr == attr
+            and isinstance(target.value.value, ast.Name)
+            and target.value.value.id == "self")
 
 
 def _target_position(target: ast.expr, name: str) -> Optional[int]:

@@ -1049,6 +1049,60 @@ def forward(ps, x):
     assert not graph.is_recomputed(fns["forward"])
 
 
+def test_wrapper_reached_through_a_held_object_and_a_factory(tmp_path):
+    """The serving engine's shape: a capture wrapper reached as a method of
+    an object held in ``self`` (bound in a conditional expression), its
+    function argument a local bound to what a method returns, which is
+    what a factory returns (its nested ``run``), stored in and read back
+    from a dict on ``self``.  The factory's ``run`` and what it calls are
+    captured; the host side is not."""
+    graph, fns = graph_of(tmp_path, """\
+import torch
+
+class GraphCache:
+    def __init__(self, device):
+        self.device = device
+
+    def capture(self, key, static, fn, *args, **kwargs):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            out = fn(*args, **kwargs)
+        return out
+
+def rollout_keyed(params, cond):
+    return cond * params
+
+def make_rollout(mesh):
+    def run(params, cond):
+        return rollout_keyed(params, cond)
+    return run
+
+def host_side(rows):
+    return len(rows)
+
+class Engine:
+    def __init__(self, device):
+        self._graphs = GraphCache(device) if device == "cuda" else None
+        self._fns = {}
+
+    def _fn(self, steps):
+        fn = self._fns.get(steps)
+        if fn is None:
+            fn = self._fns[steps] = make_rollout(None)
+        return fn
+
+    def _run(self, params, cond, steps):
+        fn = self._fn(steps)
+        host_side([cond])
+        return self._graphs.capture((steps,), {}, fn, params, cond)
+""")
+    assert graph.wrapper_positions[id(fns["GraphCache.capture"].node)] == \
+        {CAPTURED: {2}}
+    for name in ("make_rollout.run", "rollout_keyed"):
+        assert graph.is_captured(fns[name]), name
+    for name in ("host_side", "make_rollout", "Engine._fn"):
+        assert not graph.is_captured(fns[name]), name
+
+
 @pytest.fixture(scope="module")
 def repo_graph():
     old = Path.cwd()
@@ -1071,7 +1125,9 @@ def test_repo_fused_step_captures_the_step_body(repo_graph):
     g = repo_graph
     base = "src/repro_torch/core/trainers/"
     assert _qual(g, g.roots[CAPTURED]) == {
-        base + "base.py:BaseTrainer._step_body"}
+        base + "base.py:BaseTrainer._step_body",
+        "src/repro_torch/distributed/shard.py:"
+        "make_rollout_keyed_sharded.run"}
     captured = _qual(g, g.reached[CAPTURED])
     for name in ("_sample", "_rewards", "_update", "backward", "apply_grads"):
         assert f"{base}base.py:BaseTrainer.{name}" in captured
@@ -1082,6 +1138,31 @@ def test_repo_fused_step_captures_the_step_body(repo_graph):
         (ci,) = g.classes[cls]
         owner = ci if "loss_fn" in ci.methods else g.classes[ci.bases[0]][0]
         assert id(owner.methods["loss_fn"].node) in g.reached[CAPTURED], cls
+
+
+def test_repo_engine_rollout_is_captured(repo_graph):
+    """serving/engine.py captures its executor through ``GraphCache.capture``
+    (perf/graphs.py): ``self._graphs.capture(key, static, fn, ...)`` with
+    ``fn = self._fn(...)``, the value of ``distributed
+    .make_rollout_keyed_sharded``, whose nested ``run`` calls
+    ``rollout_keyed``.  The port's graph marks both captured, as the
+    reference's marks ``rollout_keyed`` traced."""
+    g = repo_graph
+    captured = _qual(g, g.reached[CAPTURED])
+    assert "src/repro_torch/core/rollout.py:rollout_keyed" in captured
+    assert "src/repro_torch/distributed/shard.py:" \
+        "make_rollout_keyed_sharded.run" in captured
+    assert "src/repro_torch/models/flow.py:FlowAdapter.velocity" in captured
+    old = Path.cwd()
+    try:
+        os.chdir(ROOT)
+        ref = ref_run_paths(["src/repro"])[2]
+    finally:
+        os.chdir(old)
+    (fi,) = [f for f in ref.functions.values()
+             if f.module.rel == "src/repro/core/rollout.py"
+             and f.qualname == "rollout_keyed"]
+    assert ref.is_traced(fi)
 
 
 def test_repo_checkpoint_sites_are_recomputed(repo_graph):
@@ -1124,8 +1205,9 @@ def test_repo_is_clean_modulo_baseline(monkeypatch, capsys):
     rc = cli_main(["--format", "json"])
     payload = json.loads(capsys.readouterr().out)
     assert rc == 0, f"torchlint found new violations: {payload['new']}"
-    assert payload["files"] == len(list((ROOT / "src" / "repro_torch")
-                                        .rglob("*.py")))
+    assert payload["files"] == sum(
+        len(list((ROOT / d).rglob("*.py")))
+        for d in ("src/repro_torch", "examples_torch"))
 
 
 def test_analysis_runs_with_torch_numpy_jax_repro_blocked():

@@ -1,6 +1,7 @@
 """The port imports neither ``jax`` nor anything of the JAX package
-``repro``: every module of ``src/repro_torch`` and ``chip_smoke.py`` import
-with both blocked, and no file of theirs names either in an import; the
+``repro``: every module of ``src/repro_torch``, the examples of
+``examples_torch/`` and ``chip_smoke.py`` import with both blocked, and no
+file of theirs names either in an import; the
 linter ``repro_torch.analysis`` imports with torch and numpy blocked too.
 Every module of the JAX package has a counterpart at the same path in the
 port."""
@@ -12,10 +13,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 REFERENCE = ROOT / "src" / "repro"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
+FILES = sorted(PORT.rglob("*.py")) + EXAMPLES + [ROOT / "chip_smoke.py"]
 
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 sys.modules["jax"] = None          # any import of jax or repro now fails
 sys.modules["repro"] = None
 sys.path[:0] = [{src!r}, {root!r}]
@@ -25,6 +27,9 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+for path in {examples!r}:
+    spec = importlib.util.spec_from_file_location("example", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro")
              and sys.modules[m] is not None)
@@ -48,7 +53,8 @@ print(" ".join(names))
 
 
 def test_port_imports_with_jax_and_repro_blocked():
-    code = _IMPORT_ALL.format(src=str(ROOT / "src"), root=str(ROOT))
+    code = _IMPORT_ALL.format(src=str(ROOT / "src"), root=str(ROOT),
+                              examples=[str(p) for p in EXAMPLES])
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
@@ -91,4 +97,4 @@ def test_no_port_file_names_jax_or_repro_in_an_import():
            for m in _imported(p)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
-    assert len(FILES) > 20
+    assert len(FILES) > 20 and len(EXAMPLES) == 4

@@ -384,22 +384,23 @@ def test_grpo_ratio_is_one_at_rollout_params():
     assert float(m["logp_gap"]) < 1e-3
 
 
-def test_reward_improves():
-    """Fig. 2 at toy scale for flow_grpo, at the reference test's
-    LEARN_FLOW sizes (tests/test_trainers.py:38-63): reward rises over 45
-    steps."""
+@pytest.mark.parametrize("tname", ["flow_grpo", "nft", "awm"])
+def test_reward_improves(tname):
+    """Fig. 2 at toy scale for each trainer the reference test covers, at
+    its LEARN_FLOW sizes (tests/test_trainers.py:38-63): reward rises over
+    45 steps."""
     flow = TFlow(num_steps=4, group_size=8, latent_tokens=8, latent_dim=8,
                  clip_range=0.2,
                  rewards=(TSpec("text_render", 1.0,
                                 args={"latent_dim": 8, "latent_tokens": 8}),))
-    tr = tregistry.build("trainer", "flow_grpo",
+    tr = tregistry.build("trainer", tname,
                          tconfigs.get_reduced("flux_dit"), flow,
                          TOptim(lr=1e-3, total_steps=135, warmup_steps=2),
                          seed=3, device="cpu")
     cond = torch.randn(8, 4, 512, generator=torch.Generator().manual_seed(3))
     hist = [float(tr.step(cond, 3, it=it)["reward_mean"]) for it in range(45)]
     early, late = np.mean(hist[:5]), np.mean(hist[-10:])
-    assert late > early + 0.02, (early, late, hist)
+    assert late > early + 0.02, (tname, early, late, hist)
 
 
 def test_trainer_refuses_unported_layouts_and_policies():
